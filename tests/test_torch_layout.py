@@ -1,0 +1,61 @@
+"""Layout rules of the PyTorch port.
+
+The port and its chip smoke import nothing of JAX and nothing of the
+JAX package (checked on the source: jax may already sit in
+``sys.modules`` when the interpreter starts), and importing a module of
+the port builds no kernel.
+"""
+
+from __future__ import annotations
+
+import ast
+import importlib
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "polyaxon_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "polyaxon_tpu")
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_imports_nothing_of_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_module_imports_without_building(monkeypatch):
+    """No nvcc here: a module that compiled at import would fail."""
+    from polyaxon_tpu_torch.ops import _build
+
+    def refuse(name):
+        raise AssertionError(f"kernel {name} built at import time")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    modules = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+               for p in sorted(PORT.rglob("*.py"))]
+    for name in modules:
+        importlib.import_module(name.removesuffix(".__init__"))
+    assert not _build._loaded
+
+
+def test_kernel_sources_are_packaged():
+    from polyaxon_tpu_torch.ops import _build
+
+    assert _build.sources() == ["flash_fwd"]
+    lib = _build.library_path("flash_fwd")
+    assert lib.parent == PORT / "build"
+    assert "polyaxon_tpu_torch/build/" in (ROOT / ".gitignore").read_text()
