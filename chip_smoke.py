@@ -19,7 +19,17 @@ Phases, each raising on failure:
 4. greedy serving through the CLI's functions: ``generate`` equals
    ``prefill`` + ``generate_continue``, and (in float32) one-shot and
    chunked prefill give the same tokens;
-5. one JSON line of kernel records, the card line, and the final
+5. the flash-backward kernels (dq, dkv) against their plain version at
+   the training path's shape, the forward's case list and an LSE
+   cotangent; their times, bounds and PyTorch's SDPA backward;
+6. GPT-2 medium training at full width and depth (batch 8 x 1024, bf16
+   compute on float32 master weights, AdamW): a few steps through
+   ``polyaxon_tpu_torch.train.main`` (24 forward, 24 dq and 24 dkv
+   launches a step), then a timed loop of ``TrainStep`` calls (step
+   time, tok/s, MFU, device idle share, top kernels);
+7. one float32 step's loss and gradients through the flash route against
+   the plain-attention route, at GPT-2 medium's width and 4 layers;
+8. one JSON line of kernel records, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -28,9 +38,11 @@ Exits non-zero, printing no result, without a CUDA device.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -103,10 +115,11 @@ def graph_ms(fn, calls: int = 10, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(fn, wall_ms: float, label: str) -> None:
+def device_breakdown(fn, wall_ms: float, label: str):
     """One call of ``fn`` under torch.profiler: the device's busy time
     (kernel times summed; one stream, so they do not overlap) against
-    ``wall_ms`` measured without the profiler, and the top kernels."""
+    ``wall_ms`` measured without the profiler, and the top kernels.
+    Returns the busy ms (None when the profiler saw no kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -115,7 +128,13 @@ def device_breakdown(fn, wall_ms: float, label: str) -> None:
         torch.cuda.synchronize()
     kernels = []
     for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
+        # Device kernels only: a record_function range such as
+        # "Optimizer.step#AdamW.step" also carries device time, which
+        # overlaps the kernels it encloses.  (Kernel names may hold "#"
+        # too: "{lambda()#3}".)
+        if not str(e.device_type).endswith("CUDA") or \
+                getattr(e, "is_user_annotation", False) or \
+                e.key.startswith(("Optimizer.", "ProfilerStep")):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -125,16 +144,19 @@ def device_breakdown(fn, wall_ms: float, label: str) -> None:
     if not kernels:
         print(f"[{label}] device busy time: not measured (the profiler "
               f"saw no CUDA kernel)")
-        return
+        return None
     kernels.sort(reverse=True)
     busy = sum(k[0] for k in kernels)
-    flash_ms = sum(k[0] for k in kernels if "flash_fwd" in k[2])
+    flash = {name: sum(k[0] for k in kernels if name in k[2])
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     print(f"[{label}] device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
-          f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); flash kernel "
-          f"{flash_ms:.3f} ms ({flash_ms / busy:.3f} of busy); "
-          f"{sum(k[1] for k in kernels)} kernel launches")
-    for ms, count, name in kernels[:6]:
+          f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); "
+          + ", ".join(f"{n} {ms:.3f} ms ({ms / busy:.3f} of busy)"
+                      for n, ms in flash.items() if ms > 0)
+          + f"; {sum(k[1] for k in kernels)} kernel launches")
+    for ms, count, name in kernels[:8]:
         print(f"[{label}]   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
+    return busy
 
 
 def admitted_pairs(b, h, sq, sk, causal, window, kv_mask, device) -> int:
@@ -153,15 +175,21 @@ def admitted_pairs(b, h, sq, sk, causal, window, kv_mask, device) -> int:
     return int(valid.sum().item()) * h
 
 
-def bound(q, k, v, causal, window, kv_mask):
-    """(least ms, "bytes" | "operations") for one call on an H100."""
+def bound(q, k, causal, window, kv_mask, *, q_like=2, kv_like=2, rows=1,
+          flop_per_pair=4):
+    """(least ms, "bytes" | "operations") for one call on an H100:
+    ``q_like`` tensors of q's shape and ``kv_like`` of k's read or
+    written once, ``rows`` f32 arrays of [B, H, Sq], the mask, and
+    ``flop_per_pair`` x D FLOP per admitted (q, k) pair.  The forward is
+    Q, O / K, V / LSE at 4 D; dq is Q, dO, dQ / K, V / LSE, delta at 6 D;
+    dkv is Q, dO / K, V, dK, dV / LSE, delta at 8 D."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     el = q.element_size()
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * el \
-        + b * h * sq * 4 + (0 if kv_mask is None else kv_mask.numel())
-    flops = 4.0 * d * admitted_pairs(b, h, sq, sk, causal, window,
-                                     kv_mask, q.device)
+    nbytes = (q_like * q.numel() + kv_like * k.numel()) * el \
+        + rows * b * h * sq * 4 + (0 if kv_mask is None else kv_mask.numel())
+    flops = float(flop_per_pair) * d * admitted_pairs(
+        b, h, sq, sk, causal, window, kv_mask, q.device)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -257,7 +285,7 @@ def phase_kernel():
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     t_lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, scale=scale))
-    t_bound, bound_by = bound(q, k, v, causal, None, None)
+    t_bound, bound_by = bound(q, k, causal, None, None)
     print(f"[kernel] main shape [2,1024,16,64] bf16 causal, device time "
           f"(CUDA graph): kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms,"
           f" sdpa {t_lib:.4f} ms, bound {t_bound:.4f} ms ({bound_by}); "
@@ -267,6 +295,128 @@ def phase_kernel():
             "max_abs_err_all_cases": max(e[0] for e in results.values()),
             "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
             "bound_ms": t_bound, "bound_by": bound_by, "eager_ms": t_eager}
+
+
+def _max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def phase_backward():
+    """The dq and dkv kernels against their plain version at the training
+    path's shape and at the forward's case list, plus an LSE cotangent;
+    times, bounds and PyTorch's SDPA backward at the main shape.  Both
+    sides take the same (O, LSE) from the forward kernel and the same dO.
+    Tolerance on each of dQ, dK, dV: float32 1e-4 (only summation order
+    differs); bf16 / fp16 2e-2 / 1e-2 of the largest |grad| (dS and P
+    are rounded to the input type from f32 values that differ in their
+    last bits, and the card sums in another order)."""
+    from polyaxon_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rel = {bf16: 2e-2, torch.float16: 1e-2}
+    # name, B, Sq, Sk, H, D, dtype, causal, window, extra
+    cases = [
+        ("main_train", 8, 1024, 1024, 16, 64, bf16, True, None, None),
+        ("non_causal", 2, 512, 512, 8, 64, bf16, False, None, None),
+        ("sk_gt_sq_causal", 1, 256, 1024, 8, 64, bf16, True, None, None),
+        ("window_remap", 1, 2048, 2048, 4, 64, bf16, True, 256, None),
+        ("kv_mask_masked_rows", 2, 256, 256, 4, 64, bf16, True, None,
+         "pad"),
+        ("f32", 2, 256, 256, 4, 64, f32, True, None, None),
+        ("d128", 2, 512, 512, 8, 128, bf16, True, None, None),
+        ("f32_d128_raw_window", 1, 256, 512, 4, 128, f32, False, -64,
+         None),
+        ("f16", 1, 256, 256, 4, 64, torch.float16, True, None, None),
+        ("lse_cotangent", 2, 256, 256, 4, 64, bf16, True, None, "dlse"),
+    ]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for name, b, sq, sk, h, d, dtype, causal, window, extra in cases:
+        q, k, v = _qkv(b, sq, sk, h, d, dtype, gen,
+                       fused=name == "main_train")
+        kv_mask = None
+        if extra == "pad":
+            kv_mask = torch.rand((b, sk), generator=gen,
+                                 device="cuda") > 0.3
+            kv_mask[0, :128] = False  # causal rows 0..127 of batch 0: empty
+        scale = d ** -0.5
+        o, lse = flash._flash_forward_kernel(q, k, v, kv_mask, causal,
+                                             scale, window)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+        dlse = None
+        if extra == "dlse":
+            dlse = torch.randn((b, h, sq), generator=gen, device="cuda")
+        got = flash._flash_backward_kernel(q, k, v, kv_mask, o, lse, do,
+                                           causal, scale, window, dlse)
+        want = flash._flash_backward_reference(q, k, v, kv_mask, o, lse,
+                                               do, causal, scale, window,
+                                               dlse)
+        torch.cuda.synchronize()
+        errs, tols, ok = [], [], True
+        for g, w in zip(got, want):
+            tol = 1e-4 if dtype == f32 else \
+                rel[dtype] * w.float().abs().max().item()
+            err = _max_err(g, w)
+            ok &= err <= tol and bool(torch.isfinite(g.float()).all())
+            errs.append(err)
+            tols.append(tol)
+        if extra == "pad":
+            gone = ~kv_mask[:, :, None, None]
+            ok &= bool((got[0][0, :128] == 0).all()) and bool(
+                (got[1].masked_select(gone) == 0).all()) and bool(
+                (got[2].masked_select(gone) == 0).all())
+        print(f"[backward] {name}: B={b} Sq={sq} Sk={sk} H={h} D={d} "
+              f"{str(dtype)[6:]} causal={causal} window={window} "
+              f"extra={extra}: max|d dQ|={errs[0]:.3e} (tol {tols[0]:.2e}) "
+              f"max|d dK|={errs[1]:.3e} (tol {tols[1]:.2e}) "
+              f"max|d dV|={errs[2]:.3e} (tol {tols[2]:.2e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash backward kernels disagree with "
+                                 f"their plain version at case {name}")
+        worst["dq"] = max(worst["dq"], errs[0])
+        worst["dkv"] = max(worst["dkv"], errs[1], errs[2])
+        if name == "main_train":
+            main = (q, k, v, o, lse, do, scale, errs)
+        del q, k, v, o, lse, do, got, want
+
+    q, k, v, o, lse, do, scale, errs = main
+    args, _ = flash._bwd_kernel_args(q, k, v, None, o, lse, do, True, scale)
+    plain_args = (q, k, v, None, o, lse, do, True, scale)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale)
+
+    # SDPA's backward: forward + backward captured together (autograd
+    # runs the backward on its forward's stream, which must be the
+    # capturing one), less the forward alone.
+    t_lib = graph_ms(lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot)) - graph_ms(sdpa)
+    recs = {}
+    for which, plain, q_like, kv_like, fpp, err in (
+            ("dq", flash._bwd_dq_reference, 3, 2, 6, errs[0]),
+            ("dkv", flash._bwd_dkv_reference, 2, 4, 8, max(errs[1:]))):
+        t_kernel = graph_ms(lambda: flash._launch_bwd(which, args))
+        t_eager = eager_ms(lambda: flash._launch_bwd(which, args))
+        t_plain = graph_ms(lambda: plain(*plain_args), calls=2, reps=5)
+        t_bound, bound_by = bound(q, k, True, None, None, q_like=q_like,
+                                  kv_like=kv_like, rows=2,
+                                  flop_per_pair=fpp)
+        print(f"[backward] {which} at [8,1024,16,64] bf16 causal, device "
+              f"time (CUDA graph): kernel {t_kernel:.4f} ms, plain "
+              f"{t_plain:.4f} ms, bound {t_bound:.4f} ms ({bound_by}); "
+              f"eager call {t_eager:.4f} ms; sdpa backward (dq+dk+dv) "
+              f"{t_lib:.4f} ms")
+        recs[which] = {"max_abs_err": err,
+                       "max_abs_err_all_cases": worst[which],
+                       "ms": t_kernel, "plain_ms": t_plain,
+                       "library_ms": t_lib, "bound_ms": t_bound,
+                       "bound_by": bound_by, "eager_ms": t_eager}
+    return recs
 
 
 def forward_vs_plain(model, tokens):
@@ -379,16 +529,217 @@ def phase_serving(model, model_f32):
                 one["wall_s"] * 1e3, "serving")
 
 
+def _counts():
+    from polyaxon_tpu_torch.ops import flash
+
+    return {"flash_fwd": flash.launch_count,
+            "flash_bwd_dq": flash.dq_launch_count,
+            "flash_bwd_dkv": flash.dkv_launch_count}
+
+
+def _zero_counts():
+    from polyaxon_tpu_torch.ops import flash
+
+    flash.launch_count = flash.dq_launch_count = flash.dkv_launch_count = 0
+
+
+def _check_per_step(counts, steps: int, layers: int, where: str):
+    want = {name: steps * layers for name in counts}
+    if counts != want:
+        raise AssertionError(f"{where}: flash launches {counts}, expected "
+                             f"{want} ({layers} of each a step)")
+
+
+def phase_train_entry(steps: int = 3):
+    """``python -m polyaxon_tpu_torch.train --model gpt2-medium`` as a
+    user runs it (in-process, its checkpoints in a temporary home): the
+    flash launch counts of the run, 24 of each kernel a step, and a
+    finite loss on every logged step."""
+    import contextlib
+    import io
+    import re
+
+    from polyaxon_tpu_torch import train
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as home:
+        env = {"POLYAXON_TPU_HOME": home,
+               "POLYAXON_TPU_RUN_UUID": "chip-smoke"}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            t0 = time.perf_counter()
+            _zero_counts()
+            with contextlib.redirect_stdout(out):
+                rc = train.main(["--model", "gpt2-medium", "--steps",
+                                 str(steps), "--log-every", "1",
+                                 "--batch-size", "8"])
+            torch.cuda.synchronize()
+            counts = _counts()
+            secs = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    for line in out.getvalue().splitlines():
+        print(f"[train.main] {line}")
+    losses = [float(m) for m in re.findall(r"^step \d+/\d+ loss=(\S+)",
+                                           out.getvalue(), re.M)]
+    if rc != 0 or len(losses) != steps or \
+            not all(np.isfinite(losses)):
+        raise AssertionError(f"train.main: exit {rc}, losses {losses}")
+    _check_per_step(counts, steps, 24, "train.main")
+    print(f"[train.main] gpt2-medium {steps} steps in {secs:.1f} s "
+          f"(model init, data, steps and the final checkpoint); flash "
+          f"launches {counts}")
+    return counts
+
+
+def phase_train_timed(steps: int = 5):
+    """GPT-2 medium TrainStep calls on one device batch: launches a step,
+    finite loss and gradients, step time, tok/s, MFU against 989 TFLOP/s,
+    peak memory, and one step under the profiler."""
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.parallel import make_train_step
+    from polyaxon_tpu_torch.train import make_optimizer
+
+    spec = get_model("gpt2-medium")
+    model = spec.init_params(seed=0, device="cuda", train=True)
+    step_fn = make_train_step(spec.loss_fn(model),
+                              make_optimizer("adamw", 1e-3))
+    state = step_fn.init_state(model)
+    batch = {"inputs": torch.as_tensor(spec.make_batch(8)["inputs"],
+                                       device="cuda")}
+    state, metrics = step_fn(state, batch)  # warm-up: cuBLAS picks kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    _check_per_step(_counts(), 1, 24, "TrainStep")
+    loss = float(metrics["loss"])
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if not np.isfinite(loss) or bad or \
+            not np.isfinite(float(metrics["grad_norm"])):
+        raise AssertionError(f"TrainStep: loss {loss}, non-finite grads "
+                             f"{bad[:5]}")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    flops = spec.train_flops(8)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"step_ms": step_s * 1e3, "tok_per_s": 8 * 1024 / step_s,
+           "mfu": flops / step_s / 989e12, "train_flops": flops,
+           "peak_memory_gb": peak_gb, "loss": float(metrics["loss"])}
+    print(f"[train] gpt2-medium batch 8 x 1024 bf16 (f32 master weights, "
+          f"AdamW): {rec['step_ms']:.2f} ms a step ({steps} steps), "
+          f"{rec['tok_per_s']:.0f} tok/s, MFU {rec['mfu']:.4f} "
+          f"({flops / 1e12:.2f} TFLOP a step, floor "
+          f"{flops / 989e12 * 1e3:.2f} ms); peak memory {peak_gb:.2f} GB; "
+          f"loss {rec['loss']:.4f}; flash launches a step 24 / 24 / 24")
+    rec["busy_ms"] = device_breakdown(lambda: step_fn(state, batch),
+                                      rec["step_ms"], "train")
+    return rec
+
+
+def _grads(model, tokens, loss_fn):
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn({"inputs": tokens})
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def phase_grad_route(layers: int = 4):
+    """One step's loss and gradients at GPT-2 medium's width and
+    ``layers`` layers, [2, 1024] tokens, through the flash route (the
+    forward and backward kernels) and through the plain-attention route
+    (the route pinned by turning flash eligibility off): float32 must
+    agree within 1e-4 of each tensor's max |grad| (only summation order
+    differs) and 1e-5 relative on the loss; the bf16 difference is
+    printed, not held."""
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.ops import attention
+
+    spec = get_model("gpt2-medium")
+    tokens = torch.as_tensor(spec.make_batch(2)["inputs"], device="cuda")
+    eligible = attention.flash_eligible
+    for dtype in (torch.float32, torch.bfloat16):
+        model = spec.init_params(seed=0, device="cuda", train=True,
+                                 dtype=dtype, num_layers=layers)
+        loss_fn = spec.loss_fn(model)
+        _zero_counts()
+        flash_loss, flash_g = _grads(model, tokens, loss_fn)
+        counts = _counts()
+        try:
+            attention.flash_eligible = lambda *a, **kw: False
+            plain_loss, plain_g = _grads(model, tokens, loss_fn)
+        finally:
+            attention.flash_eligible = eligible
+        if counts != {n: layers for n in counts} or \
+                any(_counts()[n] != layers for n in counts):
+            raise AssertionError(f"route check: flash launches {counts}, "
+                                 f"then {_counts()} after the plain route")
+        worst, where = 0.0, ""
+        for name, g in plain_g.items():
+            rel = (flash_g[name] - g).abs().max().item() / max(
+                g.abs().max().item(), 1e-30)
+            if rel > worst:
+                worst, where = rel, name
+        finite = all(bool(torch.isfinite(g).all())
+                     for g in flash_g.values())
+        loss_rel = abs(flash_loss - plain_loss) / abs(plain_loss)
+        name = str(dtype)[6:]
+        held = dtype == torch.float32
+        ok = finite and (not held or (worst <= 1e-4 and loss_rel <= 1e-5))
+        print(f"[route] gpt2-medium width, {layers} layers, {name}: flash "
+              f"vs plain attention: loss {flash_loss:.6f} vs "
+              f"{plain_loss:.6f} (rel {loss_rel:.2e}), max |d grad| / "
+              f"max |grad| {worst:.2e} at {where}"
+              + (" (tol 1e-4) " if held else " (printed, not held) ")
+              + ("ok" if ok else "FAIL"))
+        if not ok:
+            raise AssertionError("flash-route gradients disagree with the "
+                                 "plain-attention route")
+        del model, flash_g, plain_g
+        torch.cuda.empty_cache()
+
+
+KERNELS = {
+    "flash_fwd": ("polyaxon_tpu_torch/csrc/flash_fwd.cu",
+                  "polyaxon_tpu/ops/flash.py:171"),
+    "flash_bwd_dq": ("polyaxon_tpu_torch/csrc/flash_bwd.cu",
+                     "polyaxon_tpu/ops/flash.py:347"),
+    "flash_bwd_dkv": ("polyaxon_tpu_torch/csrc/flash_bwd.cu",
+                      "polyaxon_tpu/ops/flash.py:407"),
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from polyaxon_tpu_torch.models.registry import get_model
 
+    start = time.perf_counter()
+
+    def mark(phase):
+        print(f"[time] {phase} done at {time.perf_counter() - start:.1f} s")
+
     card = card_line()
     print(f"[card] {card}")
     phase_build()
-    rec = phase_kernel()
+    mark("build")
+    recs = {"flash_fwd": phase_kernel()}
+    mark("forward kernel")
+    recs.update({f"flash_bwd_{k}": v for k, v in phase_backward().items()})
+    mark("backward kernels")
     t0 = time.perf_counter()
     spec = get_model("gpt2-medium")
     model = spec.init_params(seed=0, device="cuda")
@@ -396,13 +747,30 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     model_f32 = spec.init_params(seed=0, device="cuda",
                                  dtype=torch.float32)
-    launches = phase_forward(model, model_f32)
+    forward_launches = phase_forward(model, model_f32)
+    mark("forward")
     phase_serving(model, model_f32)
-    kernel = {"name": "flash_fwd", "route": "cuda",
-              "source": "polyaxon_tpu_torch/csrc/flash_fwd.cu",
-              "replaces": "polyaxon_tpu/ops/flash.py:171",
-              "launches": launches, **rec, "kernel_ms": rec["ms"]}
-    print(json.dumps({"kernels": [kernel]}))
+    mark("serving")
+    del model, model_f32
+    torch.cuda.empty_cache()
+    train_counts = phase_train_entry()
+    mark("train.main")
+    phase_train_timed()
+    mark("timed training")
+    torch.cuda.empty_cache()
+    phase_grad_route()
+    mark("gradient route check")
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        rec = recs[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": train_counts[name],
+            "launches_by_path": {
+                "forward": forward_launches if name == "flash_fwd" else 0,
+                "train_main": train_counts[name]},
+            **rec, "kernel_ms": rec["ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,7 +51,9 @@ def gpt2_state_dict_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     Dense ``kernel [in, out]`` becomes ``Linear.weight [out, in]``;
     LayerNorm ``scale`` becomes ``weight``; embeddings keep their
     ``[rows, hidden]`` shape.  Values are copied exactly (float32, as
-    flax stores them); ``load_state_dict`` casts to the model's dtype."""
+    flax stores them); ``load_state_dict`` casts to the model's dtype.
+    The same mapping carries a flax gradient tree onto the port's
+    parameter names."""
     sd: Dict[str, torch.Tensor] = {
         "wte.weight": _t(params["wte"]["embedding"]),
         "wpe.weight": _t(params["wpe"]["embedding"]),

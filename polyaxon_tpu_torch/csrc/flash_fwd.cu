@@ -43,123 +43,9 @@
 // would round to TF32); each warp owns 16 rows, its scores, P and output
 // accumulator live in shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;                  // query rows of a block
-constexpr int BKV = 64;                 // key rows of a streamed tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS = BQ / WARPS;        // query rows a warp owns (16)
-constexpr float NEG_INF = -1e30f;       // flash.py NEG_INF, not -inf
-
-// The (q, k) admission rule shared by both paths.
-struct Masks {
-  const uint8_t* kv_mask;  // [B, Sk] bytes or null
-  int causal, has_window;
-  long long window;
-
-  __device__ __forceinline__ bool ok(long long qpos, long long kpos,
-                                     const uint8_t* kv_row) const {
-    return (!causal || qpos >= kpos) &&
-           (!has_window || qpos - kpos <= window) &&
-           (kv_row == nullptr || kv_row[kpos] != 0);
-  }
-};
-
-// The kv tiles any row of a block starting at position q_lo can admit
-// (_block_needed, and the window's _kv_base remap), as [begin, end).
-__device__ __forceinline__ void kv_range(long long q_lo, int n_kv,
-                                         const Masks& mk, long long* begin,
-                                         long long* end) {
-  const long long q_hi = q_lo + BQ - 1;
-  *begin = 0;
-  *end = n_kv;
-  if (mk.causal) *end = q_hi < 0 ? 0 : q_hi / BKV + 1;
-  if (mk.has_window && q_lo - mk.window > 0)
-    *begin = (q_lo - mk.window) / BKV;
-  if (*end > n_kv) *end = n_kv;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// ---------------------------------------------------------------- bf16/fp16
-
-template <typename T> struct Mma;
-template <> struct Mma<__nv_bfloat16> {
-  __device__ static uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  // c[16x8] += a[16x16] b[16x8], f32 accumulators.
-  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-template <> struct Mma<__half> {
-  __device__ static uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
-// i / 8 and receives, in r[m], row lane / 4, columns 2 * (lane % 4) + {0, 1}
-// of matrix m (of its transpose with .trans).
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <typename T, int D>
 struct MmaSmem {
@@ -167,22 +53,6 @@ struct MmaSmem {
   static constexpr size_t tile = sizeof(T) * 64 * LD;
   static constexpr size_t bytes = tile * 5;  // Q, K x 2 stages, V x 2
 };
-
-// 64 rows of D elements (row stride `stride` elements, rows contiguous
-// inside) into shared memory rows of LD elements, 16 bytes a thread,
-// asynchronously (cp.async; the caller commits and waits).
-template <typename T, int D>
-__device__ __forceinline__ void copy_tile(T* dst, const T* src,
-                                          long long stride) {
-  constexpr int LD = MmaSmem<T, D>::LD;
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    cp_async16(dst + r * LD + c, src + r * stride + c);
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -214,11 +84,11 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kb = k + b * k_sb + h * D;
   const T* vb = v + b * v_sb + h * D;
-  copy_tile<T, D>(Qs, q + b * q_sb + q0 * q_ss + h * D, q_ss);
+  copy_tile<T, D, LD>(Qs, q + b * q_sb + q0 * q_ss + h * D, q_ss);
   cp_async_commit();
   if (kv_begin < kv_end) {
-    copy_tile<T, D>(Ks, kb + kv_begin * BKV * k_ss, k_ss);
-    copy_tile<T, D>(Vs, vb + kv_begin * BKV * v_ss, v_ss);
+    copy_tile<T, D, LD>(Ks, kb + kv_begin * BKV * k_ss, k_ss);
+    copy_tile<T, D, LD>(Vs, vb + kv_begin * BKV * v_ss, v_ss);
   }
   cp_async_commit();
 
@@ -239,9 +109,9 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
     T* Kt = Ks + stage * 64 * LD;
     T* Vt = Vs + stage * 64 * LD;
     if (t + 1 < kv_end) {  // prefetch the next tile into the other stage
-      copy_tile<T, D>(Ks + (stage ^ 1) * 64 * LD,
+      copy_tile<T, D, LD>(Ks + (stage ^ 1) * 64 * LD,
                       kb + (t + 1) * BKV * k_ss, k_ss);
-      copy_tile<T, D>(Vs + (stage ^ 1) * 64 * LD,
+      copy_tile<T, D, LD>(Vs + (stage ^ 1) * 64 * LD,
                       vb + (t + 1) * BKV * v_ss, v_ss);
       cp_async_commit();
       cp_async_wait<1>();
@@ -375,19 +245,6 @@ struct F32Smem {
   static constexpr size_t bytes = l + sizeof(float) * BQ;
 };
 
-// 64 rows of D floats into shared memory rows of LD floats, synchronously.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long stride) {
-  constexpr int PER_ROW = D / 4;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * 4;
-    *reinterpret_cast<float4*>(dst + r * LD + c) =
-        *reinterpret_cast<const float4*>(src + r * stride + c);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -484,41 +341,26 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int D, typename Kernel>
-int launch(Kernel kernel, size_t bytes, const void* q, const void* k,
-           const void* v, const Masks& mk, void* o, float* lse, int B, int H,
-           int Sq, int Sk, const long long* st, float scale,
-           cudaStream_t stream) {
-  static bool configured = false;  // once per kernel instantiation
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  dim3 grid(Sq / BQ, H, B);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mk, static_cast<T*>(o), lse, H, Sq, Sk,
-      st[0], st[1], st[2], st[3], st[4], st[5], scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, int D>
 int launch_mma(const void* q, const void* k, const void* v, const Masks& mk,
                void* o, float* lse, int B, int H, int Sq, int Sk,
                const long long* st, float scale, cudaStream_t stream) {
-  return launch<T, D>(flash_fwd_mma<T, D>, MmaSmem<T, D>::bytes, q, k, v, mk,
-                      o, lse, B, H, Sq, Sk, st, scale, stream);
+  return launch_kernel<flash_fwd_mma<T, D>>(
+      MmaSmem<T, D>::bytes, dim3(Sq / BQ, H, B), stream,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), mk, static_cast<T*>(o), lse, H, Sq, Sk,
+      st[0], st[1], st[2], st[3], st[4], st[5], scale);
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const Masks& mk,
                void* o, float* lse, int B, int H, int Sq, int Sk,
                const long long* st, float scale, cudaStream_t stream) {
-  return launch<float, D>(flash_fwd_f32<D>, F32Smem<D>::bytes, q, k, v, mk,
-                          o, lse, B, H, Sq, Sk, st, scale, stream);
+  return launch_kernel<flash_fwd_f32<D>>(
+      F32Smem<D>::bytes, dim3(Sq / BQ, H, B), stream,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), mk, static_cast<float*>(o), lse, H, Sq,
+      Sk, st[0], st[1], st[2], st[3], st[4], st[5], scale);
 }
 
 }  // namespace

@@ -5,8 +5,14 @@ rolled layer stack becomes an ``nn.ModuleList``).  The dtype placement
 mirrors the flax modules: LayerNorm in f32 then cast to ``cfg.dtype``;
 dense layers, the embeddings and the residual stream in ``cfg.dtype``;
 GELU in its tanh form (flax's default); the LM head tied to ``wte`` in
-``cfg.dtype`` and returned as f32.  Sharding hints have no meaning on
-one device and are dropped.  Parameter names follow the flax tree
+``cfg.dtype`` and returned as f32.  Parameters are held in
+``param_dtype``: ``cfg.dtype`` for serving, float32 for training, where
+each weight is cast to ``cfg.dtype`` at its use as flax's ``Dense`` and
+``Embed`` do (an AdamW step of about 1e-3 x lr would round away on a
+bf16 weight).  ``cfg.remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the counterpart of ``nn.remat`` with no
+policy).  Sharding hints have no meaning on one device and are
+dropped.  Parameter names follow the flax tree
 (``wte``, ``wpe``, ``h.{i}.{ln1,qkv,o_proj,ln2,fc1,fc2}``, ``ln_f``) so
 ``convert.gpt2_state_dict_from_jax`` maps one onto the other.
 """
@@ -19,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import default_device
 from ..ops.attention import dot_product_attention
@@ -34,8 +41,8 @@ class GPT2Config:
     max_position: int = 1024
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # Training and int8 knobs of the reference; this slice refuses them
-    # (remat comes with training, int8 KV with the quantization slice).
+    # remat: recompute each block in the backward.  Named policies and the
+    # int8 KV cache are not ported yet and are refused.
     remat: bool = False
     remat_policy: Optional[str] = None
     # The flax param layout (stacked [num_layers] vs h_{i}); the port
@@ -78,21 +85,35 @@ def _layer_norm(cfg: GPT2Config, device) -> nn.LayerNorm:
                         dtype=torch.float32, device=device)
 
 
-def _dense(cfg: GPT2Config, n_in: int, n_out: int, device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, dtype=cfg.dtype, device=device)
+class Dense(nn.Linear):
+    """``nn.Linear`` holding its parameters in ``param_dtype`` and
+    computing in ``dtype`` (flax ``Dense(dtype=...)``)."""
+
+    def __init__(self, n_in: int, n_out: int, dtype, param_dtype, device):
+        super().__init__(n_in, n_out, dtype=param_dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(self.compute_dtype),
+                        self.bias.to(self.compute_dtype))
 
 
 class GPT2Block(nn.Module):
-    def __init__(self, cfg: GPT2Config, device=None):
+    def __init__(self, cfg: GPT2Config, device=None, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
+        pd = param_dtype or cfg.dtype
+
+        def dense(n_in, n_out):
+            return Dense(n_in, n_out, cfg.dtype, pd, device)
+
         self.ln1 = _layer_norm(cfg, device)
-        self.qkv = _dense(cfg, h, 3 * h, device)
-        self.o_proj = _dense(cfg, h, h, device)
+        self.qkv = dense(h, 3 * h)
+        self.o_proj = dense(h, h)
         self.ln2 = _layer_norm(cfg, device)
-        self.fc1 = _dense(cfg, h, cfg.intermediate_size, device)
-        self.fc2 = _dense(cfg, cfg.intermediate_size, h, device)
+        self.fc1 = dense(h, cfg.intermediate_size)
+        self.fc2 = dense(cfg.intermediate_size, h)
 
     def forward(self, x, cache: Optional[LayerCache] = None):
         """``cache`` given: a KV-cache step (prefill chunk or one decode
@@ -117,21 +138,27 @@ class GPT2Block(nn.Module):
 
 class GPT2Model(nn.Module):
     """``embed_tokens`` / ``run_blocks`` / ``head`` compose ``forward``,
-    as in the reference."""
+    as in the reference.  ``param_dtype`` (default ``cfg.dtype``) is the
+    type the parameters are held in."""
 
-    def __init__(self, cfg: GPT2Config, device=None):
+    def __init__(self, cfg: GPT2Config, device=None, param_dtype=None):
         super().__init__()
-        if cfg.remat or cfg.kv_cache_int8:
+        if cfg.kv_cache_int8:
             raise NotImplementedError(
-                "remat comes with the training slice and kv_cache_int8 "
-                "with the int8 slice of the port")
+                "kv_cache_int8 comes with the int8 slice of the port")
+        if cfg.remat and cfg.remat_policy is not None:
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r}: named remat policies "
+                f"are not ported yet; remat=True with remat_policy=None "
+                f"recomputes whole blocks")
         device = default_device(device)
         self.cfg = cfg
+        pd = param_dtype or cfg.dtype
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                dtype=cfg.dtype, device=device)
+                                dtype=pd, device=device)
         self.wpe = nn.Embedding(cfg.max_position, cfg.hidden_size,
-                                dtype=cfg.dtype, device=device)
-        self.h = nn.ModuleList(GPT2Block(cfg, device)
+                                dtype=pd, device=device)
+        self.h = nn.ModuleList(GPT2Block(cfg, device, pd)
                                for _ in range(cfg.num_layers))
         self.ln_f = _layer_norm(cfg, device)
 
@@ -143,23 +170,34 @@ class GPT2Model(nn.Module):
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
         if position is not None:  # decode: absolute position of token 0
             pos = pos + position
-        return self.wte(input_ids) + self.wpe(pos)
+        dtype = self.cfg.dtype
+        return (F.embedding(input_ids, self.wte.weight.to(dtype))
+                + F.embedding(pos, self.wpe.weight.to(dtype)))
 
     def run_blocks(self, x, cache: Optional[KVCache] = None):
+        remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
-            x = block(x, None if cache is None else cache.layer(i))
+            if remat:
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x, None if cache is None else cache.layer(i))
         if cache is not None:
             cache.index += x.shape[1]
         return x
 
     def head(self, x):
-        x = self.ln_f(x.float()).to(self.cfg.dtype)
-        return F.linear(x, self.wte.weight).float()
+        dtype = self.cfg.dtype
+        x = self.ln_f(x.float()).to(dtype)
+        return F.linear(x, self.wte.weight.to(dtype)).float()
 
-    def forward(self, input_ids, *, decode: bool = False,
+    def forward(self, input_ids, *, train: bool = False,
+                decode: bool = False,
                 decode_position: Optional[int] = None,
                 last_only: bool = False,
                 cache: Optional[KVCache] = None):
+        """Logits [B, S, V] in f32.  ``train`` is the reference's flag:
+        GPT-2 has no dropout, so it changes nothing."""
+        del train
         if decode and decode_position is None:
             # GPT-2's learned wpe needs the absolute position — omitting
             # it would silently give every token position 0.

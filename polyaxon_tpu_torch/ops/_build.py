@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source has a plain C interface.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``polyaxon_tpu_torch/build/`` (listed in ``.gitignore``) and loaded with
-``ctypes``.  The library's name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded.  Nothing
+``ctypes``.  The library's name carries a hash of its source and of the
+headers beside it (``csrc/*.cuh``), so an edited source or header is
+rebuilt and a stale library is never loaded.  Nothing
 here runs when the module is imported.
 """
 
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

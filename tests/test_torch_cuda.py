@@ -8,7 +8,9 @@ PyTorch is installed:
 
 Tolerances: float32 1e-4 (only summation order differs); bf16/fp16 2e-2
 on O and 1e-2 on LSE (P is rounded to V's type before the PV product and
-the card sums in another order).
+the card sums in another order).  Backward: float32 1e-4 on dQ, dK, dV;
+bf16 / fp16 2e-2 / 1e-2 of the largest |grad| (dS and P are rounded to
+the input type from f32 values that differ in their last bits).
 """
 
 from __future__ import annotations
@@ -75,6 +77,98 @@ def test_kernel_refuses_what_it_does_not_take(gen):
     q = torch.zeros((1, 128, 1, 192), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         flash.flash_attention(q, q, q, causal=True)
-    q = torch.zeros((1, 128, 1, 64), device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash.flash_attention(q, q, q, causal=True)
+    q = torch.zeros((1, 128, 1, 64), device="cuda")
+    do = torch.zeros((1, 128, 1, 64), device="cuda", dtype=torch.bfloat16)
+    o, lse = flash.flash_attention_lse(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="dO"):
+        flash._flash_backward_kernel(q, q, q, None, o, lse, do, True, 1.0)
+
+
+# (dtype, B, Sq, Sk, H, D, causal, window, extra): the chip smoke's list
+BWD_CASES = [
+    (torch.bfloat16, 2, 256, 256, 4, 64, True, None, None),
+    (torch.bfloat16, 2, 512, 512, 8, 64, False, None, None),
+    (torch.bfloat16, 1, 256, 1024, 8, 64, True, None, None),
+    (torch.bfloat16, 1, 2048, 2048, 4, 64, True, 256, None),
+    (torch.bfloat16, 2, 256, 256, 4, 64, True, None, "pad"),
+    (torch.float32, 2, 256, 256, 4, 64, True, None, None),
+    (torch.bfloat16, 2, 512, 512, 8, 128, True, None, None),
+    (torch.float32, 1, 256, 512, 4, 128, False, -64, None),
+    (torch.float16, 1, 256, 256, 4, 64, True, None, None),
+    (torch.bfloat16, 2, 256, 256, 4, 64, True, None, "dlse"),
+]
+BWD_REL = {torch.bfloat16: 2e-2, torch.float16: 1e-2}
+
+
+@pytest.mark.parametrize("case", range(len(BWD_CASES)))
+def test_backward_kernels_match_plain(case, gen):
+    dtype, b, sq, sk, h, d, causal, window, extra = BWD_CASES[case]
+    q, k, v = _qkv(gen, b, sq, sk, h, d, dtype)
+    kv_mask = None
+    if extra == "pad":
+        kv_mask = torch.rand((b, sk), generator=gen, device="cuda") > 0.3
+        kv_mask[0, :128] = False  # causal rows 0..127 of batch 0: empty
+    o, lse = flash.flash_attention_lse(q, k, v, causal=causal, scale=0.125,
+                                       kv_mask=kv_mask, window=window)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+    dlse = None
+    if extra == "dlse":
+        dlse = torch.randn((b, h, sq), generator=gen, device="cuda")
+    before = (flash.dq_launch_count, flash.dkv_launch_count)
+    got = flash._flash_backward_kernel(q, k, v, kv_mask, o, lse, do, causal,
+                                       0.125, window, dlse)
+    assert (flash.dq_launch_count, flash.dkv_launch_count) == \
+        (before[0] + 1, before[1] + 1)
+    want = flash._flash_backward_reference(q, k, v, kv_mask, o, lse, do,
+                                           causal, 0.125, window, dlse)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        tol = 1e-4 if dtype == torch.float32 else \
+            BWD_REL[dtype] * w.float().abs().max().item()
+        assert g.dtype == dtype and bool(torch.isfinite(g.float()).all())
+        assert (g.float() - w.float()).abs().max().item() <= tol
+    if extra == "pad":
+        gone = ~kv_mask[:, :, None, None]
+        assert (got[0][0, :128] == 0).all()
+        assert (got[1].masked_select(gone) == 0).all()
+        assert (got[2].masked_select(gone) == 0).all()
+
+
+def test_autograd_launches_both_backward_kernels(gen):
+    q, k, v = (t.requires_grad_() for t in _qkv(gen, 1, 256, 256, 2, 64,
+                                                 torch.bfloat16))
+    before = (flash.launch_count, flash.dq_launch_count,
+              flash.dkv_launch_count)
+    flash.flash_attention(q, k, v, causal=True, scale=0.125).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash.launch_count, flash.dq_launch_count,
+            flash.dkv_launch_count) == tuple(n + 1 for n in before)
+    assert all(bool(torch.isfinite(t.grad.float()).all())
+               for t in (q, k, v))
+
+
+def test_gpt2_training_step_on_the_card(gen):
+    """One AdamW step of a flash-eligible GPT-2 (bf16 compute on float32
+    master weights): finite loss and gradients, one forward, dq and dkv
+    launch per layer."""
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.parallel import make_train_step
+    from polyaxon_tpu_torch.train import make_optimizer
+
+    spec = get_model("gpt2-tiny")
+    model = spec.init_params(seed=0, device="cuda", train=True,
+                             hidden_size=128, num_heads=2)
+    step_fn = make_train_step(spec.loss_fn(model),
+                              make_optimizer("adamw", 1e-3))
+    state = step_fn.init_state(model)
+    tokens = torch.randint(0, 1024, (2, 128), generator=gen, device="cuda")
+    before = (flash.launch_count, flash.dq_launch_count,
+              flash.dkv_launch_count)
+    state, metrics = step_fn(state, {"inputs": tokens})
+    torch.cuda.synchronize()
+    layers = model.cfg.num_layers
+    assert (flash.launch_count, flash.dq_launch_count,
+            flash.dkv_launch_count) == tuple(n + layers for n in before)
+    assert bool(torch.isfinite(metrics["loss"])) and state["step"] == 1
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())

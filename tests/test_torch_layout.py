@@ -55,7 +55,26 @@ def test_every_module_imports_without_building(monkeypatch):
 def test_kernel_sources_are_packaged():
     from polyaxon_tpu_torch.ops import _build
 
-    assert _build.sources() == ["flash_fwd"]
-    lib = _build.library_path("flash_fwd")
-    assert lib.parent == PORT / "build"
+    assert _build.sources() == ["flash_bwd", "flash_fwd"]
+    for name in _build.sources():
+        lib = _build.library_path(name)
+        assert lib.parent == PORT / "build"
     assert "polyaxon_tpu_torch/build/" in (ROOT / ".gitignore").read_text()
+
+
+def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
+    """Both kernel sources include csrc/flash_common.cuh: an edit there
+    must rename (so rebuild) every kernel library."""
+    import shutil
+
+    from polyaxon_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in _build.sources()}
+    header = csrc / "flash_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.sources()}
+    assert sorted(before) == ["flash_bwd", "flash_fwd"]
+    assert all(before[n] != after[n] for n in before)
