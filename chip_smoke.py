@@ -5,14 +5,20 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+``--compare-fwd DIR`` also builds another version of the forward kernel
+(``DIR`` holds its ``flash_fwd.cu`` and headers, e.g. the parent commit's
+``polyaxon_tpu_torch/csrc`` unpacked with ``git archive``) and times it in
+turns with this one, in the same process on the same card.
+
 Phases, each raising on failure:
 
 1. the card's name and power limit; build every CUDA kernel from
    ``polyaxon_tpu_torch/csrc`` with nvcc (sm_90a);
 2. the flash-forward kernel against its plain PyTorch version at the
-   main path's shape and at the masks, types and head dims it takes;
-   times of the kernel, the plain version and PyTorch's own
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
+   main path's shape, the training shape and the masks, types, head dims
+   and tile edges it takes; times of the kernel, the plain version and
+   PyTorch's own ``scaled_dot_product_attention`` (a yardstick the port
+   never calls) at the serving and the training shape;
 3. GPT-2 medium's full forward on [2, 1024] tokens (24 flash launches),
    held against the same model's plain-attention decode path, in bf16
    and in float32;
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -159,6 +166,20 @@ def device_breakdown(fn, wall_ms: float, label: str):
     return busy
 
 
+def device_kernels(fn) -> list:
+    """The names of the CUDA kernels one call of ``fn`` launches, as
+    torch.profiler prints them (cut to 100 characters)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:100] for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")})
+
+
 def admitted_pairs(b, h, sq, sk, causal, window, kv_mask, device) -> int:
     """(q, k) pairs these inputs' masks admit: the work the function
     needs (4 * D FLOPs a pair)."""
@@ -204,9 +225,21 @@ def phase_build():
     secs = time.perf_counter() - t0
     print(f"[build] {_build.sources()} in {secs:.1f} s")
     for name, log in _build.build_log.items():
+        kernel = name
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            entry = re.search(r"entry function '(\S+)'", line)
+            if entry:  # e.g. ...15flash_fwd_wgmmaI13__nv_bfloat16Li64E...
+                mangled = entry.group(1)
+                fn = re.search(r"\d(flash_[a-z0-9_]+?)I", mangled)
+                ty = re.search(r"(__nv_bfloat16|__half)", mangled)
+                d = re.search(r"Li(\d+)E", mangled)
+                kernel = "/".join(x for x in (
+                    fn and fn.group(1), ty and ty.group(1).strip("_"),
+                    d and f"D{d.group(1)}") if x)
+            elif "Performance" in line:  # e.g. serialized wgmma
+                print(f"[build] {name}: {line.strip()[:160]}")
+            elif "registers" in line or "spill" in line or "warn" in line:
+                print(f"[build] {kernel}: {line.strip()}")
 
 
 def _qkv(b, sq, sk, h, d, dtype, gen, fused=False):
@@ -221,12 +254,80 @@ def _qkv(b, sq, sk, h, d, dtype, gen, fused=False):
                  for s in (sq, sk, sk))
 
 
-def phase_kernel():
-    """Kernel vs plain at every listed case; times at the main shape."""
+def other_forward(src_dir):
+    """``flash_fwd`` of another version of the kernel sources (a directory
+    holding its ``flash_fwd.cu`` and headers, e.g. the parent commit's
+    ``csrc`` unpacked with ``git archive``), built here like the port's
+    own; called as ``fn(q, k, v, causal, scale) -> (O, LSE)``."""
+    import ctypes
+
+    from polyaxon_tpu_torch.ops import _build, flash
+
+    entry = ctypes.CDLL(str(_build.build("flash_fwd", src_dir))).flash_fwd
+    for line in _build.build_log.get(f"flash_fwd ({src_dir})",
+                                     "").splitlines():
+        if "registers" in line or "Performance" in line:
+            print(f"[build] other flash_fwd: {line.strip()[:160]}")
+    entry.restype = ctypes.c_int
+    entry.argtypes = flash._FWD_ARGTYPES
+
+    def run(q, k, v, causal, scale):
+        args, out, lse = flash._fwd_kernel_args(q, k, v, None, causal, scale)
+        err = entry(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{src_dir}: flash_fwd failed: CUDA error "
+                               f"{err}")
+        return out, lse
+
+    return run
+
+
+def _time_forward(label, q, k, v, other=None):
+    """Device times at one causal shape: the kernel, the plain version,
+    SDPA and the bound; with ``other`` (another build of the kernel) both
+    builds in turns, other / this / this / other."""
+    from polyaxon_tpu_torch.ops import flash
+
+    scale = q.shape[-1] ** -0.5
+    kernel = lambda: flash._flash_forward_kernel(q, k, v, None, True, scale)
+    rec = {"eager_ms": eager_ms(kernel), "ms": graph_ms(kernel)}
+    rec["plain_ms"] = graph_ms(lambda: flash._flash_forward_reference(
+        q, k, v, None, True, scale), calls=2, reps=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale)
+    rec["library_ms"] = graph_ms(sdpa)
+    rec["bound_ms"], rec["bound_by"] = bound(q, k, True, None, None)
+    line = (f"[kernel] {label} {list(q.shape)} {str(q.dtype)[6:]} causal, "
+            f"device time (CUDA graph): kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); eager "
+            f"call {rec['eager_ms']:.4f} ms; sdpa runs "
+            f"{', '.join(device_kernels(sdpa)) or 'not seen'}")
+    if other is not None:
+        o_ref, _ = flash._flash_forward_reference(q, k, v, None, True, scale)
+        err = _max_err(other(q, k, v, True, scale)[0], o_ref)
+        if err > TOL[q.dtype][0]:
+            raise AssertionError(f"the other kernel disagrees: {err}")
+        theirs = lambda: other(q, k, v, True, scale)
+        turns = [graph_ms(theirs), graph_ms(kernel), graph_ms(kernel),
+                 graph_ms(theirs)]
+        rec["other_ms"] = [turns[0], turns[3]]
+        rec["this_ms"] = [turns[1], turns[2]]
+        line += (f"; in turns other / this / this / other: "
+                 + " / ".join(f"{t:.4f}" for t in turns) + " ms")
+    print(line)
+    return rec
+
+
+def phase_kernel(other_src=None):
+    """Kernel vs plain at every listed case; times at the serving and the
+    training shape (and, given ``other_src``, another build's times in
+    turns with this one's)."""
     from polyaxon_tpu_torch.ops import flash
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     # name, B, Sq, Sk, H, D, dtype, causal, window, mask
     cases = [
         ("main", 2, 1024, 1024, 16, 64, bf16, True, None, None),
@@ -239,11 +340,20 @@ def phase_kernel():
         ("d128", 2, 512, 512, 8, 128, bf16, True, None, None),
         ("f32_d128_raw_window", 1, 256, 512, 4, 128, f32, False, -64,
          None),
-        ("f16", 1, 256, 256, 4, 64, torch.float16, True, None, None),
+        ("f16", 1, 256, 256, 4, 64, f16, True, None, None),
+        # The Hopper kernel's edges: one 128-row tile, an odd number of q
+        # tiles a head, a negative raw window, fp16 D = 128 with padding.
+        ("single_tile", 1, 128, 128, 1, 64, bf16, True, None, None),
+        ("sq384_odd_q_tiles", 2, 384, 384, 3, 64, bf16, True, None, None),
+        ("raw_window_neg64", 1, 256, 512, 4, 64, bf16, False, -64, None),
+        ("f16_d128_kv_mask_masked_rows", 2, 256, 256, 4, 128, f16, True,
+         None, "pad"),
+        ("train_fused", 8, 1024, 1024, 16, 64, bf16, True, None, None),
     ]
-    results = {}
+    fused = ("main", "train_fused")  # the model's layout
+    results, shapes = {}, {}
     for name, b, sq, sk, h, d, dtype, causal, window, mk in cases:
-        q, k, v = _qkv(b, sq, sk, h, d, dtype, gen, fused=name == "main")
+        q, k, v = _qkv(b, sq, sk, h, d, dtype, gen, fused=name in fused)
         kv_mask = None
         if mk == "pad":
             kv_mask = torch.rand((b, sk), generator=gen,
@@ -255,11 +365,14 @@ def phase_kernel():
         o_ref, lse_ref = flash._flash_forward_reference(
             q, k, v, kv_mask, causal, scale, window)
         torch.cuda.synchronize()
-        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_o = _max_err(o, o_ref)
         err_l = (lse - lse_ref).abs().max().item()
         tol_o, tol_l = TOL[dtype]
         ok = err_o <= tol_o and err_l <= tol_l and \
             bool(torch.isfinite(o.float()).all())
+        if mk == "pad":  # fully masked rows: exact zeros and -1e30
+            ok &= bool((lse[0, :, :128] == flash.NEG_INF).all()) and \
+                bool((o[0, :128] == 0).all())
         print(f"[kernel] {name}: B={b} Sq={sq} Sk={sk} H={h} D={d} "
               f"{str(dtype)[6:]} causal={causal} window={window} "
               f"mask={mk}: max|dO|={err_o:.3e} (tol {tol_o}) "
@@ -268,33 +381,20 @@ def phase_kernel():
         if not ok:
             raise AssertionError(f"flash kernel disagrees with its plain "
                                  f"version at case {name}")
-        if mk == "pad" and not bool((lse[0, :, :128] == flash.NEG_INF)
-                                    .all()):
-            raise AssertionError("fully masked rows must give LSE=-1e30")
         results[name] = (err_o, err_l)
-        if name == "main":
-            main = (q, k, v, causal, scale)
+        if name in fused:
+            shapes[name] = (q, k, v)
+        del q, k, v, o, lse, o_ref, lse_ref
 
-    q, k, v, causal, scale = main
-    t_eager = eager_ms(lambda: flash._flash_forward_kernel(
-        q, k, v, None, causal, scale))
-    t_kernel = graph_ms(lambda: flash._flash_forward_kernel(
-        q, k, v, None, causal, scale))
-    t_plain = graph_ms(lambda: flash._flash_forward_reference(
-        q, k, v, None, causal, scale), calls=2)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    t_lib = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=scale))
-    t_bound, bound_by = bound(q, k, causal, None, None)
-    print(f"[kernel] main shape [2,1024,16,64] bf16 causal, device time "
-          f"(CUDA graph): kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms,"
-          f" sdpa {t_lib:.4f} ms, bound {t_bound:.4f} ms ({bound_by}); "
-          f"eager call {t_eager:.4f} ms")
-    return {"max_abs_err": results["main"][0],
-            "max_abs_err_lse": results["main"][1],
-            "max_abs_err_all_cases": max(e[0] for e in results.values()),
-            "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
-            "bound_ms": t_bound, "bound_by": bound_by, "eager_ms": t_eager}
+    other = other_forward(other_src) if other_src else None
+    rec = _time_forward("main", *shapes["main"], other)
+    train = _time_forward("training", *shapes["train_fused"], other)
+    rec.update({f"{key}_train": val for key, val in train.items()})
+    rec.update({"max_abs_err": results["main"][0],
+                "max_abs_err_lse": results["main"][1],
+                "max_abs_err_train": results["train_fused"][0],
+                "max_abs_err_all_cases": max(e[0] for e in results.values())})
+    return rec
 
 
 def _max_err(got, want) -> float:
@@ -721,7 +821,16 @@ KERNELS = {
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--compare-fwd", metavar="DIR", default=None,
+        help="a directory holding another version of csrc/flash_fwd.cu and "
+             "its headers (e.g. the parent commit's): its forward kernel is "
+             "built too and timed in turns with this one")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -736,7 +845,7 @@ def main() -> int:
     print(f"[card] {card}")
     phase_build()
     mark("build")
-    recs = {"flash_fwd": phase_kernel()}
+    recs = {"flash_fwd": phase_kernel(args.compare_fwd)}
     mark("forward kernel")
     recs.update({f"flash_bwd_{k}": v for k, v in phase_backward().items()})
     mark("backward kernels")

@@ -154,11 +154,12 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   }
 }
 
-// Raise the kernel's dynamic shared-memory limit (once), launch it on
-// `stream`, and return the launch's cudaError_t.
+// Raise the kernel's dynamic shared-memory limit (once), launch it with
+// `threads` threads a block on `stream`, and return the launch's
+// cudaError_t.
 template <auto Kernel, typename... Args>
-int launch_kernel(size_t bytes, dim3 grid, cudaStream_t stream,
-                  Args... args) {
+int launch_kernel_threads(size_t bytes, dim3 grid, int threads,
+                          cudaStream_t stream, Args... args) {
   static bool configured = false;  // once per kernel
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -167,8 +168,16 @@ int launch_kernel(size_t bytes, dim3 grid, cudaStream_t stream,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  Kernel<<<grid, THREADS, bytes, stream>>>(args...);
+  Kernel<<<grid, threads, bytes, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same with THREADS threads a block (the mma.sync kernels).
+template <auto Kernel, typename... Args>
+int launch_kernel(size_t bytes, dim3 grid, cudaStream_t stream,
+                  Args... args) {
+  return launch_kernel_threads<Kernel>(bytes, grid, THREADS, stream,
+                                       args...);
 }
 
 }  // namespace

@@ -45,29 +45,32 @@ def _nvcc() -> str:
         "built from source at first use")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, csrc: Optional[Path] = None) -> Path:
+    csrc = CSRC if csrc is None else Path(csrc)
     h = hashlib.sha256()
-    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    Raises with nvcc's output when the build fails."""
-    out = library_path(name)
+def build(name: str, csrc: Optional[Path] = None) -> Path:
+    """Compile ``csrc/<name>.cu`` (or ``<csrc>/<name>.cu``, another
+    version of the source beside its headers) unless its library is
+    already built.  Raises with nvcc's output when the build fails."""
+    csrc = CSRC if csrc is None else Path(csrc)
+    out = library_path(name, csrc)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}")
-    build_log[name] = proc.stderr
+    build_log[name if csrc == CSRC else f"{name} ({csrc})"] = proc.stderr
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     return out
 

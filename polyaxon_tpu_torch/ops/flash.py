@@ -21,8 +21,6 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-# Query rows of a kernel block; the kernel takes Sq, Sk multiples of it.
-KERNEL_BLOCK = 64
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -220,31 +218,42 @@ def _window_args(window):
     return int(window is not None), 0 if window is None else int(window)
 
 
-def _flash_forward_kernel(q, k, v, kv_mask, causal: bool, scale: float,
-                          window=None) -> Tuple[torch.Tensor,
-                                                torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu`` on CUDA tensors (BSHD); returns
-    (O [B, Sq, H, D], LSE [B, H, Sq] f32)."""
-    global launch_count
+def _fwd_kernel_args(q, k, v, kv_mask, causal: bool, scale: float,
+                     window=None):
+    """The C arguments of ``csrc/flash_fwd.cu``'s entry on CUDA tensors of
+    the current device, but the stream, and the outputs (O [B, Sq, H, D],
+    LSE [B, H, Sq] f32) it writes.  The argument tuple holds the tensors
+    it points into."""
     _check_kernel_inputs(q, k, v)
-    if q.device.index != torch.cuda.current_device():
-        # The C entry launches on the current device.
-        with torch.cuda.device(q.device):
-            return _flash_forward_kernel(q, k, v, kv_mask, causal, scale,
-                                         window)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     q, k, v = (_kernel_view(t) for t in (q, k, v))
     mask = _mask_bytes(kv_mask, b, sk, q.device)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, h, sq, sk, q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            float(scale), int(causal), *_window_args(window))
+    return _KernelArgs(args, (q, k, v, mask, out, lse)), out, lse
+
+
+def _flash_forward_kernel(q, k, v, kv_mask, causal: bool, scale: float,
+                          window=None) -> Tuple[torch.Tensor,
+                                                torch.Tensor]:
+    """Launch ``csrc/flash_fwd.cu`` on CUDA tensors (BSHD); returns
+    (O [B, Sq, H, D], LSE [B, H, Sq] f32)."""
+    global launch_count
+    if q.device.index != torch.cuda.current_device():
+        # The C entry launches on the current device.
+        with torch.cuda.device(q.device):
+            return _flash_forward_kernel(q, k, v, kv_mask, causal, scale,
+                                         window)
+    args, out, lse = _fwd_kernel_args(q, k, v, kv_mask, causal, scale,
+                                      window)
     err = _entry("flash_fwd", "flash_fwd", _FWD_ARGTYPES)(
-        _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, h, sq, sk, q.stride(0), q.stride(1), k.stride(0),
-        k.stride(1), v.stride(0), v.stride(1), float(scale), int(causal),
-        *_window_args(window), stream)
+        *args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
                            f"{err}")

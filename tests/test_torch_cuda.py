@@ -38,22 +38,44 @@ def _qkv(gen, b, sq, sk, h, d, dtype):
                  .to(dtype) for s in (sq, sk, sk))
 
 
-# (dtype, B, Sq, Sk, H, D, causal, window, masked)
+def _fused_qkv(gen, b, s, h, d, dtype):
+    """q, k, v as views of one [B, S, 3 H D] projection (the model's
+    layout: row strides of 3 H D elements, read in place)."""
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                      device="cuda").to(dtype)
+    return tuple(t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+
+
+# (dtype, B, Sq, Sk, H, D, causal, window, extra): extra "pad" masks keys
+# (batch 0 wholly), "fused" takes q/k/v as views of one projection.
 CASES = [
-    (torch.bfloat16, 2, 256, 256, 4, 64, True, None, False),
-    (torch.bfloat16, 1, 128, 384, 2, 128, True, None, False),
-    (torch.bfloat16, 1, 512, 512, 2, 64, True, 100, False),
-    (torch.bfloat16, 2, 256, 256, 2, 64, False, None, True),
-    (torch.float16, 1, 256, 256, 2, 128, False, -64, False),
-    (torch.float32, 2, 256, 256, 2, 64, True, None, True),
-    (torch.float32, 1, 128, 256, 2, 128, True, 64, False),
+    (torch.bfloat16, 2, 256, 256, 4, 64, True, None, None),
+    (torch.bfloat16, 1, 128, 384, 2, 128, True, None, None),
+    (torch.bfloat16, 1, 512, 512, 2, 64, True, 100, None),
+    (torch.bfloat16, 2, 256, 256, 2, 64, False, None, "pad"),
+    (torch.float16, 1, 256, 256, 2, 128, False, -64, None),
+    (torch.float32, 2, 256, 256, 2, 64, True, None, "pad"),
+    (torch.float32, 1, 128, 256, 2, 128, True, 64, None),
+    # The Hopper kernel's edges: one 128-row tile, an odd number of q
+    # tiles a head, a negative raw window, fp16 D = 128 with padding, and
+    # the training shape in the fused layout.
+    (torch.bfloat16, 1, 128, 128, 1, 64, True, None, None),
+    (torch.bfloat16, 2, 384, 384, 3, 64, True, None, None),
+    (torch.bfloat16, 1, 256, 512, 4, 64, False, -64, None),
+    (torch.float16, 2, 256, 256, 4, 128, True, None, "pad"),
+    (torch.bfloat16, 8, 1024, 1024, 16, 64, True, None, "fused"),
 ]
 
 
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_kernel_matches_plain(case, gen):
-    dtype, b, sq, sk, h, d, causal, window, masked = CASES[case]
-    q, k, v = _qkv(gen, b, sq, sk, h, d, dtype)
+    dtype, b, sq, sk, h, d, causal, window, extra = CASES[case]
+    if extra == "fused":
+        q, k, v = _fused_qkv(gen, b, sq, h, d, dtype)
+        assert q.stride(1) == 3 * h * d
+    else:
+        q, k, v = _qkv(gen, b, sq, sk, h, d, dtype)
+    masked = extra == "pad"
     kv_mask = None
     if masked:
         kv_mask = torch.rand((b, sk), generator=gen, device="cuda") > 0.3

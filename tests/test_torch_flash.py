@@ -9,6 +9,8 @@ and on LSE.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,8 +52,24 @@ def interpret(monkeypatch):
     monkeypatch.setattr(jfl, "BLOCK_KV", 128)
     # The comparison is of full-float32 numerics: ask the reference for
     # full-precision dots explicitly, not for DEFAULT precision.
-    with jax.default_matmul_precision("highest"):
+    with jax.default_matmul_precision("highest"), _calling_thread_only():
         yield
+
+
+@contextlib.contextmanager
+def _calling_thread_only():
+    """Run the port's plain version on the calling thread.  On a loaded
+    host, torch's CPU exp has been seen to lose precision on an intra-op
+    worker thread in a process that had just run XLA:CPU (about one run
+    in ten with six processes at once): a relative error of 1.5e-4 on
+    that thread's half of the scores, so O and LSE off by up to 6e-5
+    against an atol of 2e-5.  The calling thread never was."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 # name: (B, Sq, Sk, H, D, causal, window)

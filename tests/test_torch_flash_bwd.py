@@ -30,8 +30,16 @@ def interpret(monkeypatch):
     monkeypatch.setenv("POLYAXON_TPU_FLASH_INTERPRET", "1")
     monkeypatch.setattr(jfl, "BLOCK_Q", 128)
     monkeypatch.setattr(jfl, "BLOCK_KV", 128)
-    with jax.default_matmul_precision("highest"):
-        yield
+    # The port's side runs on the calling thread: torch's CPU exp has been
+    # seen to lose precision (1.5e-4 relative) on an intra-op worker thread
+    # after XLA:CPU ran in the process (see test_torch_flash.py).
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _grads(q, k, v, *, causal, window=None, kv_mask=None, lse_ct=False,

@@ -52,13 +52,36 @@ def test_every_module_imports_without_building(monkeypatch):
     assert not _build._loaded
 
 
+def _packaged(rel: str) -> bool:
+    """Whether the package-data globs of pyproject.toml cover ``rel`` (a
+    path inside polyaxon_tpu_torch/)."""
+    import fnmatch
+    import tomllib
+
+    cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = cfg["tool"]["setuptools"]["package-data"]["polyaxon_tpu_torch"]
+    return any(fnmatch.fnmatch(rel, g) for g in globs)
+
+
 def test_kernel_sources_are_packaged():
+    """Every kernel source and every header a source includes ships with
+    the package: an installed package builds its kernels from them."""
+    import re
+
     from polyaxon_tpu_torch.ops import _build
 
     assert _build.sources() == ["flash_bwd", "flash_fwd"]
     for name in _build.sources():
         lib = _build.library_path(name)
         assert lib.parent == PORT / "build"
+        src = _build.CSRC / f"{name}.cu"
+        assert _packaged(str(src.relative_to(PORT)))
+        for header in re.findall(r'^\s*#include\s+"([^"]+)"',
+                                 src.read_text(), re.M):
+            path = _build.CSRC / header
+            assert path.exists(), f"{name}.cu includes missing {header}"
+            assert _packaged(str(path.relative_to(PORT))), \
+                f"{header} (included by {name}.cu) is not package data"
     assert "polyaxon_tpu_torch/build/" in (ROOT / ".gitignore").read_text()
 
 
