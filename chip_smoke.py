@@ -8,7 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 ``--compare-fwd DIR`` also builds another version of the forward kernel
 (``DIR`` holds its ``flash_fwd.cu`` and headers, e.g. the parent commit's
 ``polyaxon_tpu_torch/csrc`` unpacked with ``git archive``) and times it in
-turns with this one, in the same process on the same card.
+turns with this one, in the same process on the same card;
+``--compare DIR`` does the same for all three kernels (``DIR``'s
+``flash_fwd.cu`` and ``flash_bwd.cu``).
 
 Phases, each raising on failure:
 
@@ -26,8 +28,9 @@ Phases, each raising on failure:
    ``prefill`` + ``generate_continue``, and (in float32) one-shot and
    chunked prefill give the same tokens;
 5. the flash-backward kernels (dq, dkv) against their plain version at
-   the training path's shape, the forward's case list and an LSE
-   cotangent; their times, bounds and PyTorch's SDPA backward;
+   the training path's shape, the forward's case list, the Hopper
+   kernels' tile edges and an LSE cotangent; their times, bounds and
+   PyTorch's SDPA backward;
 6. GPT-2 medium training at full width and depth (batch 8 x 1024, bf16
    compute on float32 master weights, AdamW): a few steps through
    ``polyaxon_tpu_torch.train.main`` (24 forward, 24 dq and 24 dkv
@@ -224,22 +227,46 @@ def phase_build():
     _build.build_all()
     secs = time.perf_counter() - t0
     print(f"[build] {_build.sources()} in {secs:.1f} s")
-    for name, log in _build.build_log.items():
-        kernel = name
-        for line in log.splitlines():
-            entry = re.search(r"entry function '(\S+)'", line)
-            if entry:  # e.g. ...15flash_fwd_wgmmaI13__nv_bfloat16Li64E...
-                mangled = entry.group(1)
-                fn = re.search(r"\d(flash_[a-z0-9_]+?)I", mangled)
-                ty = re.search(r"(__nv_bfloat16|__half)", mangled)
-                d = re.search(r"Li(\d+)E", mangled)
-                kernel = "/".join(x for x in (
-                    fn and fn.group(1), ty and ty.group(1).strip("_"),
-                    d and f"D{d.group(1)}") if x)
-            elif "Performance" in line:  # e.g. serialized wgmma
-                print(f"[build] {name}: {line.strip()[:160]}")
-            elif "registers" in line or "spill" in line or "warn" in line:
-                print(f"[build] {kernel}: {line.strip()}")
+    faults = []
+    for log in _build.build_log.values():
+        faults += ptxas_report(log, "")
+    print(f"[build] wgmma kernels: "
+          f"{', '.join(faults) if faults else 'no spills, no C75xx'}")
+
+
+def _kernel_label(mangled: str) -> str:
+    """e.g. ...18flash_bwd_dq_wgmmaI13__nv_bfloat16Li64E... ->
+    flash_bwd_dq_wgmma/nv_bfloat16/D64."""
+    fn = re.search(r"\d(flash_[a-z0-9_]+?)I", mangled)
+    ty = re.search(r"(__nv_bfloat16|__half)", mangled)
+    d = re.search(r"Li(\d+)E", mangled)
+    return "/".join(x for x in (
+        fn and fn.group(1), ty and ty.group(1).strip("_"),
+        d and f"D{d.group(1)}") if x)
+
+
+def ptxas_report(log: str, prefix: str) -> list:
+    """Print each kernel's registers, spills and any C75xx line (wgmmas
+    serialised: C7511 for want of registers, C7518 for a branch) of an
+    nvcc log; return the faults of the bf16/fp16 (wgmma) kernels, which
+    must neither spill nor serialise their wgmmas."""
+    faults, kernel = [], "?"
+    for line in log.splitlines():
+        entry = re.search(r"entry function '(\S+)'", line)
+        if entry:
+            kernel = prefix + _kernel_label(entry.group(1))
+        elif "(C75" in line:  # e.g. C7511: wgmmas serialised
+            fn = re.search(r"function '(\S+)'", line)
+            code = re.search(r"\((C75\d+)\)", line).group(1)
+            where = prefix + _kernel_label(fn.group(1)) if fn else kernel
+            print(f"[build] {where}: {line.strip()[:160]}")
+            faults.append(f"{where} {code}")
+        elif "registers" in line or "spill" in line or "warn" in line:
+            print(f"[build] {kernel}: {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores", line)
+            if "wgmma" in kernel and spills and int(spills.group(1)):
+                faults.append(f"{kernel} spills")
+    return faults
 
 
 def _qkv(b, sq, sk, h, d, dtype, gen, fused=False):
@@ -264,10 +291,8 @@ def other_forward(src_dir):
     from polyaxon_tpu_torch.ops import _build, flash
 
     entry = ctypes.CDLL(str(_build.build("flash_fwd", src_dir))).flash_fwd
-    for line in _build.build_log.get(f"flash_fwd ({src_dir})",
-                                     "").splitlines():
-        if "registers" in line or "Performance" in line:
-            print(f"[build] other flash_fwd: {line.strip()[:160]}")
+    ptxas_report(_build.build_log.get(f"flash_fwd ({src_dir})", ""),
+                 "other ")
     entry.restype = ctypes.c_int
     entry.argtypes = flash._FWD_ARGTYPES
 
@@ -280,6 +305,41 @@ def other_forward(src_dir):
         return out, lse
 
     return run
+
+
+def other_backward(src_dir):
+    """``flash_bwd_dq`` / ``flash_bwd_dkv`` of another version of the
+    kernel sources (a directory holding its ``flash_bwd.cu`` and headers),
+    built here like the port's own; called as ``fn(which, args)`` with the
+    C arguments of ``flash._bwd_kernel_args`` (the entries' contract is
+    the same)."""
+    import ctypes
+
+    from polyaxon_tpu_torch.ops import _build, flash
+
+    lib = ctypes.CDLL(str(_build.build("flash_bwd", src_dir)))
+    ptxas_report(_build.build_log.get(f"flash_bwd ({src_dir})", ""),
+                 "other ")
+    entries = {}
+    for which in ("dq", "dkv"):
+        entry = getattr(lib, f"flash_bwd_{which}")
+        entry.restype = ctypes.c_int
+        entry.argtypes = flash._BWD_ARGTYPES
+        entries[which] = entry
+
+    def run(which, args):
+        err = entries[which](*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{src_dir}: flash_bwd_{which} failed: CUDA "
+                               f"error {err}")
+
+    return run
+
+
+def _turns(theirs, ours) -> list:
+    """Device times of two builds in turns: other / this / this / other."""
+    return [graph_ms(theirs), graph_ms(ours), graph_ms(ours),
+            graph_ms(theirs)]
 
 
 def _time_forward(label, q, k, v, other=None):
@@ -309,9 +369,7 @@ def _time_forward(label, q, k, v, other=None):
         err = _max_err(other(q, k, v, True, scale)[0], o_ref)
         if err > TOL[q.dtype][0]:
             raise AssertionError(f"the other kernel disagrees: {err}")
-        theirs = lambda: other(q, k, v, True, scale)
-        turns = [graph_ms(theirs), graph_ms(kernel), graph_ms(kernel),
-                 graph_ms(theirs)]
+        turns = _turns(lambda: other(q, k, v, True, scale), kernel)
         rec["other_ms"] = [turns[0], turns[3]]
         rec["this_ms"] = [turns[1], turns[2]]
         line += (f"; in turns other / this / this / other: "
@@ -401,11 +459,13 @@ def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
-def phase_backward():
+def phase_backward(other_src=None):
     """The dq and dkv kernels against their plain version at the training
-    path's shape and at the forward's case list, plus an LSE cotangent;
-    times, bounds and PyTorch's SDPA backward at the main shape.  Both
-    sides take the same (O, LSE) from the forward kernel and the same dO.
+    path's shape, the forward's case list and the Hopper kernels' tile
+    edges, plus an LSE cotangent; times, bounds and PyTorch's SDPA
+    backward at the main shape (and, given ``other_src``, another build's
+    dq and dkv in turns with this one's).  Both sides take the same (O,
+    LSE) from the forward kernel and the same dO.
     Tolerance on each of dQ, dK, dV: float32 1e-4 (only summation order
     differs); bf16 / fp16 2e-2 / 1e-2 of the largest |grad| (dS and P
     are rounded to the input type from f32 values that differ in their
@@ -413,11 +473,13 @@ def phase_backward():
     from polyaxon_tpu_torch.ops import flash
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bf16, f32 = torch.bfloat16, torch.float32
-    rel = {bf16: 2e-2, torch.float16: 1e-2}
-    # name, B, Sq, Sk, H, D, dtype, causal, window, extra
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    rel = {bf16: 2e-2, f16: 1e-2}
+    # name, B, Sq, Sk, H, D, dtype, causal, window, extra: "pad" masks keys
+    # (rows 0..127 of batch 0 wholly), "dlse" adds an LSE cotangent,
+    # "fused" takes q/k/v as views of one projection (the model's layout)
     cases = [
-        ("main_train", 8, 1024, 1024, 16, 64, bf16, True, None, None),
+        ("main_train", 8, 1024, 1024, 16, 64, bf16, True, None, "fused"),
         ("non_causal", 2, 512, 512, 8, 64, bf16, False, None, None),
         ("sk_gt_sq_causal", 1, 256, 1024, 8, 64, bf16, True, None, None),
         ("window_remap", 1, 2048, 2048, 4, 64, bf16, True, 256, None),
@@ -427,13 +489,26 @@ def phase_backward():
         ("d128", 2, 512, 512, 8, 128, bf16, True, None, None),
         ("f32_d128_raw_window", 1, 256, 512, 4, 128, f32, False, -64,
          None),
-        ("f16", 1, 256, 256, 4, 64, torch.float16, True, None, None),
+        ("f16", 1, 256, 256, 4, 64, f16, True, None, None),
         ("lse_cotangent", 2, 256, 256, 4, 64, bf16, True, None, "dlse"),
+        # The Hopper kernels' edges: one 128-row tile, an odd number of
+        # 128-row tiles, a negative raw window, fp16 D = 128 with padding
+        # and fully masked rows, Sk > Sq and Sq > Sk under causality at
+        # D = 128 (64-row streamed tiles), the fused layout at D = 128.
+        ("single_tile", 1, 128, 128, 1, 64, bf16, True, None, None),
+        ("sq384_odd_q_tiles", 2, 384, 384, 3, 64, bf16, True, None, None),
+        ("raw_window_neg64", 1, 256, 512, 4, 64, bf16, False, -64, None),
+        ("f16_d128_kv_mask_masked_rows", 2, 256, 256, 4, 128, f16, True,
+         None, "pad"),
+        ("sk_gt_sq_causal_d128", 1, 256, 1024, 8, 128, bf16, True, None,
+         None),
+        ("sq_gt_sk_causal_d128", 1, 512, 256, 4, 128, bf16, True, None,
+         None),
+        ("fused_d128", 2, 512, 512, 8, 128, bf16, True, None, "fused"),
     ]
     worst = {"dq": 0.0, "dkv": 0.0}
     for name, b, sq, sk, h, d, dtype, causal, window, extra in cases:
-        q, k, v = _qkv(b, sq, sk, h, d, dtype, gen,
-                       fused=name == "main_train")
+        q, k, v = _qkv(b, sq, sk, h, d, dtype, gen, fused=extra == "fused")
         kv_mask = None
         if extra == "pad":
             kv_mask = torch.rand((b, sk), generator=gen,
@@ -496,26 +571,47 @@ def phase_backward():
     # capturing one), less the forward alone.
     t_lib = graph_ms(lambda: torch.autograd.grad(
         sdpa(), (qt, kt, vt), dot)) - graph_ms(sdpa)
+    other = other_backward(other_src) if other_src else None
+    if other is not None:  # the other build's outputs, held as this one's
+        other_args, theirs = flash._bwd_kernel_args(q, k, v, None, o, lse, do,
+                                                    True, scale)
+        for which in ("dq", "dkv"):
+            flash._launch_bwd(which, args)
+            other(which, other_args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dQ", "dK", "dV"), theirs, args.keep[-3:]):
+            err = _max_err(g, w)
+            if err > rel[bf16] * w.float().abs().max().item():
+                raise AssertionError(f"the other build's {name} disagrees: "
+                                     f"{err}")
     recs = {}
     for which, plain, q_like, kv_like, fpp, err in (
             ("dq", flash._bwd_dq_reference, 3, 2, 6, errs[0]),
             ("dkv", flash._bwd_dkv_reference, 2, 4, 8, max(errs[1:]))):
-        t_kernel = graph_ms(lambda: flash._launch_bwd(which, args))
-        t_eager = eager_ms(lambda: flash._launch_bwd(which, args))
+        kernel = lambda: flash._launch_bwd(which, args)
+        t_kernel = graph_ms(kernel)
+        t_eager = eager_ms(kernel)
         t_plain = graph_ms(lambda: plain(*plain_args), calls=2, reps=5)
         t_bound, bound_by = bound(q, k, True, None, None, q_like=q_like,
                                   kv_like=kv_like, rows=2,
                                   flop_per_pair=fpp)
-        print(f"[backward] {which} at [8,1024,16,64] bf16 causal, device "
-              f"time (CUDA graph): kernel {t_kernel:.4f} ms, plain "
-              f"{t_plain:.4f} ms, bound {t_bound:.4f} ms ({bound_by}); "
-              f"eager call {t_eager:.4f} ms; sdpa backward (dq+dk+dv) "
-              f"{t_lib:.4f} ms")
-        recs[which] = {"max_abs_err": err,
-                       "max_abs_err_all_cases": worst[which],
-                       "ms": t_kernel, "plain_ms": t_plain,
-                       "library_ms": t_lib, "bound_ms": t_bound,
-                       "bound_by": bound_by, "eager_ms": t_eager}
+        rec = {"max_abs_err": err, "max_abs_err_all_cases": worst[which],
+               "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
+               "bound_ms": t_bound, "bound_by": bound_by,
+               "eager_ms": t_eager}
+        line = (f"[backward] {which} at [8,1024,16,64] bf16 causal, device "
+                f"time (CUDA graph): kernel {t_kernel:.4f} ms, plain "
+                f"{t_plain:.4f} ms, bound {t_bound:.4f} ms ({bound_by}); "
+                f"eager call {t_eager:.4f} ms; sdpa backward (dq+dk+dv) "
+                f"{t_lib:.4f} ms")
+        if other is not None:
+            turns = _turns(lambda: other(which, other_args), kernel)
+            rec["other_ms"] = [turns[0], turns[3]]
+            rec["this_ms"] = [turns[1], turns[2]]
+            line += (f"; in turns other / this / this / other: "
+                     + " / ".join(f"{t:.4f}" for t in turns) + " ms")
+        print(line)
+        recs[which] = rec
     return recs
 
 
@@ -830,6 +926,11 @@ def main(argv=None) -> int:
         help="a directory holding another version of csrc/flash_fwd.cu and "
              "its headers (e.g. the parent commit's): its forward kernel is "
              "built too and timed in turns with this one")
+    parser.add_argument(
+        "--compare", metavar="DIR", default=None,
+        help="the same for all three kernels: DIR also holds another "
+             "version of csrc/flash_bwd.cu, whose dq and dkv kernels are "
+             "timed in turns with this one's too")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -845,9 +946,10 @@ def main(argv=None) -> int:
     print(f"[card] {card}")
     phase_build()
     mark("build")
-    recs = {"flash_fwd": phase_kernel(args.compare_fwd)}
+    recs = {"flash_fwd": phase_kernel(args.compare_fwd or args.compare)}
     mark("forward kernel")
-    recs.update({f"flash_bwd_{k}": v for k, v in phase_backward().items()})
+    recs.update({f"flash_bwd_{k}": v
+                 for k, v in phase_backward(args.compare).items()})
     mark("backward kernels")
     t0 = time.perf_counter()
     spec = get_model("gpt2-medium")

@@ -1,7 +1,7 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// tile sizes, the (q, k) admission rule, mma.sync / ldmatrix / cp.async
-// wrappers and tile copies.  ops/_build.py hashes this header into every
-// kernel library's name, so an edit here rebuilds both.
+// the float32 kernels' tile sizes, the (q, k) admission rule, packing to
+// bf16 / fp16, tile loads and launches.  ops/_build.py hashes this header
+// into every kernel library's name, so an edit here rebuilds both.
 
 #pragma once
 
@@ -64,19 +64,12 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // ---------------------------------------------------------------- bf16/fp16
 
+// Two f32 values rounded to T and packed, lo in the low half.
 template <typename T> struct Mma;
 template <> struct Mma<__nv_bfloat16> {
   __device__ static uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
-  }
-  // c[16x8] += a[16x16] b[16x8], f32 accumulators.
-  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
   }
 };
 template <> struct Mma<__half> {
@@ -84,61 +77,10 @@ template <> struct Mma<__half> {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
-  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
-// i / 8 and receives, in r[m], row lane / 4, columns 2 * (lane % 4) + {0, 1}
-// of matrix m (of its transpose with .trans).
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// 64 rows of D elements (row stride `stride` elements, rows contiguous
-// inside) into shared memory rows of LD elements, 16 bytes a thread,
-// asynchronously (cp.async; the caller commits and waits).
-template <typename T, int D, int LD>
-__device__ __forceinline__ void copy_tile(T* dst, const T* src,
-                                          long long stride) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    cp_async16(dst + r * LD + c, src + r * stride + c);
-  }
 }
 
 // 64 rows of D floats into shared memory rows of LD floats, synchronously.
@@ -172,7 +114,7 @@ int launch_kernel_threads(size_t bytes, dim3 grid, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same with THREADS threads a block (the mma.sync kernels).
+// The same with THREADS threads a block (the float32 kernels).
 template <auto Kernel, typename... Args>
 int launch_kernel(size_t bytes, dim3 grid, cudaStream_t stream,
                   Args... args) {

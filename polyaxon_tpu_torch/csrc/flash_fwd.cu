@@ -61,11 +61,7 @@
 // would round to TF32); each warp owns 16 rows, its scores, P and output
 // accumulator live in shared memory.
 
-#include <cuda.h>
-
-#include <type_traits>
-
-#include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -73,13 +69,8 @@ namespace {
 
 namespace hopper {
 
-constexpr int BQ = 128;          // query rows of a block (two warpgroups)
+constexpr int BQ = BLK;          // query rows of a block (two warpgroups)
 constexpr int BKV = 128;         // key rows of a K/V tile
-constexpr int WG_ROWS = 64;      // query rows of a consumer warpgroup
-constexpr int THREADS = 384;     // two consumer warpgroups, one producer
-constexpr int BOX_BYTES = 128 * 128;  // one 128-row x 64-column TMA box
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct Smem {
@@ -95,217 +86,6 @@ struct Smem {
   static constexpr int ALLOC = BYTES + 1024;  // room to align to 1024
 };
 
-// The kv tiles any row of a 128-row q tile starting at position q_lo can
-// admit, as [begin, end) (the reference's _block_needed and window remap).
-__device__ __forceinline__ void kv_range(int q_lo, int n_kv, int causal,
-                                         int has_window, int window,
-                                         int* begin, int* end) {
-  const long long q_hi = static_cast<long long>(q_lo) + BQ - 1;
-  long long b = 0, e = n_kv;
-  if (causal) e = q_hi < 0 ? 0 : q_hi / BKV + 1;
-  const long long first = static_cast<long long>(q_lo) - window;
-  if (has_window && first > 0) b = first / BKV;
-  if (e > n_kv) e = n_kv;
-  *begin = static_cast<int>(b);
-  *end = static_cast<int>(b < e ? e : b);
-}
-
-// ---- mbarriers and TMA
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Wait until the barrier's phase differs from `parity`.  A wait that never
-// ends is a bug; trap rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  for (long long spins = 0;; ++spins) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1ll << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ---- wgmma
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled tile (the layout
-// TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): start address, leading and
-// stride byte offsets (16-byte units), layout type 1 = 128B swizzle.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from touching a wgmma's registers (accumulators, or
-// the A fragments it reads) while the wgmma owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[BKV / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < BKV / 16; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[j][r])::"memory");
-}
-
-#define WGMMA_SS_N128(TY)  \
-  asm volatile(  \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"  \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"  \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),  \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),  \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),  \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),  \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),  \
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),  \
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),  \
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),  \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
-      : "l"(da), "l"(db), "r"(scale_d))
-
-#define WGMMA_RS_N64(TY)  \
-  asm volatile(  \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"  \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "  \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "  \
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"  \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),  \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),  \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),  \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),  \
-      "+f"(d[31])  \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
-
-#define WGMMA_RS_N128(TY)  \
-  asm volatile(  \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"  \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"  \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),  \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),  \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),  \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),  \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),  \
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),  \
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),  \
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),  \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
-
-// S[64 x 128] (=|+=) Q[64 x 16] K[128 x 16]^T, both K-major in shared memory.
-template <typename T>
-__device__ __forceinline__ void wgmma_qk(float* d, uint64_t da, uint64_t db,
-                                         int scale_d) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>)
-    WGMMA_SS_N128("bf16");
-  else
-    WGMMA_SS_N128("f16");
-}
-
-// O[64 x D] += P[64 x 16] (registers) V[16 x D] (MN-major in shared memory).
-template <typename T, int D>
-__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  constexpr int scale_d = 1;
-  if constexpr (D == 64) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16>)
-      WGMMA_RS_N64("bf16");
-    else
-      WGMMA_RS_N64("f16");
-  } else {
-    if constexpr (std::is_same_v<T, __nv_bfloat16>)
-      WGMMA_RS_N128("bf16");
-    else
-      WGMMA_RS_N128("f16");
-  }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-// Ping-pong of the two consumer warpgroups on named barriers 3 and 4 (256
-// threads each): a warpgroup issues its wgmmas in its turn and then hands
-// the turn over, so one warpgroup's softmax runs under the other's
-// products.  Turns strictly alternate; warpgroup 1 opens by passing the
-// first turn to warpgroup 0.
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(3 + (wg ^ 1)) : "memory");
-}
-
 struct Params {
   void* o;
   float* lse;
@@ -314,50 +94,6 @@ struct Params {
   int causal, has_window, window;  // window clamped into int range
   float scale_log2;                // scale * log2(e)
 };
-
-// The n-th tile of block `blk` (zig-zag over the blocks, so each block's
-// sum of causal loop lengths evens out); tiles are ordered by q tile,
-// longest causal loop first.
-__device__ __forceinline__ int tile_of(int n, int blk, int blocks) {
-  return n * blocks + ((n & 1) ? blocks - 1 - blk : blk);
-}
-
-// S = Q K^T for the warpgroup's 64 rows (q: its first Q row in shared
-// memory; k: the K tile): k-step kk covers d = 16 kk .. 16 kk + 15, 32
-// bytes into its 64-column box.
-template <typename T, int D>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q,
-                                         uint32_t k) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-    wgmma_qk<T>(s, sw128_desc(q + off, 16, 1024), sw128_desc(k + off, 16, 1024),
-                kk > 0);
-  }
-}
-
-// O += P V (v: the V tile): k-step j covers keys 16 j .. 16 j + 15, rows
-// 16 j on in every 64-column box; the boxes lie BOX_BYTES apart.
-template <typename T, int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         uint32_t (&pa)[BKV / 16][4],
-                                         uint32_t v) {
-#pragma unroll
-  for (int j = 0; j < BKV / 16; ++j)
-    wgmma_pv<T, D>(acc, pa[j], sw128_desc(v + j * 16 * 128, BOX_BYTES, 1024));
-}
-
-// P rounded to V's type: accumulators 8j .. 8j+7 of S are exactly the
-// wgmma A fragment of k-step j.
-template <typename T>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4],
-                                       const float (&s)[64]) {
-#pragma unroll
-  for (int j = 0; j < BKV / 16; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      pa[j][r] = Mma<T>::pack(s[8 * j + 2 * r], s[8 * j + 2 * r + 1]);
-}
 
 // This thread's place in a warpgroup's S tile: accumulator i holds row
 // qpos[(i / 2) % 2] and key kv0 + 8 * (i / 4) + 2 * tig + i % 2.
@@ -501,8 +237,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int iq = n_q - 1 - t / (p.H * p.B);
         const int h = t % p.H, b = t / p.H % p.B;
         int kb, ke;
-        kv_range(iq * BQ + q_shift, n_kv, p.causal, p.has_window, p.window,
-                 &kb, &ke);
+        kv_tiles<BKV>(iq * BQ + q_shift, n_kv, p.causal, p.has_window,
+                      p.window, &kb, &ke);
         mbar_wait(q_empty, (n & 1) ^ 1);
         mbar_expect_tx(q_full, L::TILE);
         for (int c = 0; c < L::HALVES; ++c)
@@ -544,7 +280,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       p.kv_mask ? p.kv_mask + static_cast<long long>(b) * p.Sk
                                 : nullptr};
       int kb, ke;
-      kv_range(q_lo, n_kv, p.causal, p.has_window, p.window, &kb, &ke);
+      kv_tiles<BKV>(q_lo, n_kv, p.causal, p.has_window, p.window, &kb, &ke);
 
       float acc[D / 2];
 #pragma unroll
@@ -562,14 +298,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         uint32_t pa[BKV / 16][4];
         turn_wait(wg);
         wgmma_fence();
-        issue_qk<T, D>(s, q_smem, base + L::K + prev * L::TILE);
+        issue_ss<T, BKV, D>(s, q_smem, BOX_BYTES, base + L::K + prev * L::TILE,
+                            BOX_BYTES);
         wgmma_commit();
         turn_pass(wg);
         wgmma_wait<0>();
         fence_regs<64>(s);
         if (kb + 1 == ke) mbar_arrive(q_empty);  // Q is read for this tile
         softmax_tile(s, m, l, corr, kb * BKV, rc, p);  // acc is 0: no rescale
-        pack_p<T>(pa, s);
+        pack_frags<T, BKV>(pa, s);
         ++kv_it;
         for (int kt = kb + 1; kt < ke; ++kt, ++kv_it) {
           const int cur = kv_it % STAGES;
@@ -578,9 +315,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
           fence_frags(pa);
           turn_wait(wg);
           wgmma_fence();
-          issue_qk<T, D>(s, q_smem, base + L::K + cur * L::TILE);
+          issue_ss<T, BKV, D>(s, q_smem, BOX_BYTES, base + L::K + cur * L::TILE,
+                              BOX_BYTES);
           wgmma_commit();
-          issue_pv<T, D>(acc, pa, base + L::V + prev * L::TILE);
+          issue_rs<T, D, BKV>(acc, pa, base + L::V + prev * L::TILE, BOX_BYTES);
           wgmma_commit();
           turn_pass(wg);
           wgmma_wait<1>();  // S is ready; PV still runs
@@ -593,14 +331,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
           mbar_arrive(empty_bar + 8 * prev);  // that stage may be refilled
 #pragma unroll
           for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
-          pack_p<T>(pa, s);
+          pack_frags<T, BKV>(pa, s);
           prev = cur;
         }
         fence_regs<D / 2>(acc);
         fence_frags(pa);
         turn_wait(wg);
         wgmma_fence();
-        issue_pv<T, D>(acc, pa, base + L::V + prev * L::TILE);
+        issue_rs<T, D, BKV>(acc, pa, base + L::V + prev * L::TILE, BOX_BYTES);
         wgmma_commit();
         turn_pass(wg);
         wgmma_wait<0>();
@@ -613,8 +351,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
       // Finalize: O = acc / l, LSE = (m + log2 l) ln 2; fully masked rows
       // give 0 and NEG_INF.  O is staged in the warpgroup's half of the O
-      // buffer (128-byte swizzle, so the writes spread over all banks) and
-      // leaves as 16-byte stores.
+      // buffer and leaves as 16-byte stores.
       float inv[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -622,33 +359,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         inv[i] = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
       }
-      unsigned char* stage = smem + L::O + wg * WG_ROWS * 128;
-      named_sync(1 + wg);  // the last tile's rows have left
 #pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = warp * 16 + g + 8 * i;
-          const int chunk = (nt % 8) ^ (r % 8);
-          *reinterpret_cast<uint32_t*>(stage + (nt / 8) * BOX_BYTES +
-                                       r * 128 + chunk * 16 + tig * 4) =
-              Mma<T>::pack(acc[4 * nt + 2 * i] * inv[i],
-                           acc[4 * nt + 2 * i + 1] * inv[i]);
-        }
-      }
-      named_sync(1 + wg);
-      T* o = static_cast<T*>(p.o);
-      constexpr int CHUNKS = D / 8;  // 16-byte chunks of a row
-#pragma unroll
-      for (int idx = tw; idx < WG_ROWS * CHUNKS; idx += 128) {
-        const int r = idx / CHUNKS, ch = idx % CHUNKS;
-        const uint4 val = *reinterpret_cast<const uint4*>(
-            stage + (ch / 8) * BOX_BYTES + r * 128 + ((ch % 8) ^ (r % 8)) * 16);
-        const long long row = static_cast<long long>(iq) * BQ + wg * WG_ROWS + r;
-        *reinterpret_cast<uint4*>(
-            o + ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * D +
-            ch * 8) = val;
-      }
+      for (int i = 0; i < D / 2; ++i) acc[i] *= inv[(i >> 1) & 1];
+      const long long row0_out =
+          static_cast<long long>(b) * p.Sq + iq * BQ + wg * WG_ROWS;
+      store_rows<T, D>(acc, smem + L::O + wg * WG_ROWS * 128,
+                       static_cast<T*>(p.o) + (row0_out * p.H + h) * D,
+                       static_cast<long long>(p.H) * D, 1 + wg);
       if (tig == 0) {
 #pragma unroll
         for (int i = 0; i < 2; ++i)
@@ -662,66 +379,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host side
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, through the runtime's driver entry point (no
-// link against libcuda); null when the driver does not have it.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// The 4-D map (D, H, S, B) of a BSHD view with a contiguous [H, D] block
-// and the given sequence and batch strides (elements), read in boxes of
-// 64 columns x 128 rows with the 128-byte swizzle.
-bool make_map(CUtensorMap* map, EncodeTiled encode, int dtype,
-              const void* ptr, int D, int H, int S, int B, long long ss,
-              long long sb) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, BKV, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map,
-                dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                4, const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return n;
-}
-
 template <typename T, int D>
 int launch(int dtype, const void* q, const void* k, const void* v,
            const Masks& mk, void* o, float* lse, int B, int H, int Sq,
@@ -731,17 +388,13 @@ int launch(int dtype, const void* q, const void* k, const void* v,
   if (encode == nullptr || sms == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(&tm_q, encode, dtype, q, D, H, Sq, B, st[1], st[0]) ||
-      !make_map(&tm_k, encode, dtype, k, D, H, Sk, B, st[3], st[2]) ||
-      !make_map(&tm_v, encode, dtype, v, D, H, Sk, B, st[5], st[4]))
+  if (!make_map(&tm_q, encode, dtype, q, D, H, Sq, B, st[1], st[0], BQ) ||
+      !make_map(&tm_k, encode, dtype, k, D, H, Sk, B, st[3], st[2], BKV) ||
+      !make_map(&tm_v, encode, dtype, v, D, H, Sk, B, st[5], st[4], BKV))
     return static_cast<int>(cudaErrorInvalidValue);
-  // q - k lies in (-Sk, Sq + Sk): a window past that range is the same
-  // rule, and the clamped one fits the kernel's 32-bit positions.
-  const long long reach = static_cast<long long>(Sq) + Sk + 1;
-  const long long w = mk.window > reach ? reach
-                      : mk.window < -reach ? -reach : mk.window;
   const Params p{o, lse, mk.kv_mask, B, H, Sq, Sk, mk.causal,
-                 mk.has_window, static_cast<int>(w), scale * LOG2E};
+                 mk.has_window, clamp_window(mk.window, Sq, Sk),
+                 scale * LOG2E};
   const int tiles = (Sq / BQ) * H * B;
   return launch_kernel_threads<flash_fwd_wgmma<T, D>>(
       Smem<D>::ALLOC, dim3(tiles < sms ? tiles : sms), THREADS, stream, tm_q,

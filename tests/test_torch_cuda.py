@@ -118,6 +118,17 @@ BWD_CASES = [
     (torch.float32, 1, 256, 512, 4, 128, False, -64, None),
     (torch.float16, 1, 256, 256, 4, 64, True, None, None),
     (torch.bfloat16, 2, 256, 256, 4, 64, True, None, "dlse"),
+    # The Hopper kernels' edges: one 128-row tile, an odd number of 128-row
+    # tiles, a negative raw window, fp16 D = 128 with padding and fully
+    # masked rows, Sk > Sq and Sq > Sk under causality at D = 128 (64-row
+    # streamed tiles), and the training shape in the fused layout.
+    (torch.bfloat16, 1, 128, 128, 1, 64, True, None, None),
+    (torch.bfloat16, 2, 384, 384, 3, 64, True, None, None),
+    (torch.bfloat16, 1, 256, 512, 4, 64, False, -64, None),
+    (torch.float16, 2, 256, 256, 4, 128, True, None, "pad"),
+    (torch.bfloat16, 1, 256, 1024, 8, 128, True, None, None),
+    (torch.bfloat16, 1, 512, 256, 4, 128, True, None, None),
+    (torch.bfloat16, 8, 1024, 1024, 16, 64, True, None, "fused"),
 ]
 BWD_REL = {torch.bfloat16: 2e-2, torch.float16: 1e-2}
 
@@ -125,7 +136,10 @@ BWD_REL = {torch.bfloat16: 2e-2, torch.float16: 1e-2}
 @pytest.mark.parametrize("case", range(len(BWD_CASES)))
 def test_backward_kernels_match_plain(case, gen):
     dtype, b, sq, sk, h, d, causal, window, extra = BWD_CASES[case]
-    q, k, v = _qkv(gen, b, sq, sk, h, d, dtype)
+    if extra == "fused":
+        q, k, v = _fused_qkv(gen, b, sq, h, d, dtype)
+    else:
+        q, k, v = _qkv(gen, b, sq, sk, h, d, dtype)
     kv_mask = None
     if extra == "pad":
         kv_mask = torch.rand((b, sk), generator=gen, device="cuda") > 0.3
@@ -154,6 +168,20 @@ def test_backward_kernels_match_plain(case, gen):
         assert (got[0][0, :128] == 0).all()
         assert (got[1].masked_select(gone) == 0).all()
         assert (got[2].masked_select(gone) == 0).all()
+
+
+def test_backward_entries_refuse_unaligned_sequences(gen):
+    """The bf16/fp16 kernels walk 128-row tiles: an entry given Sq or Sk
+    that is not a multiple of 128 returns an error, and the wrapper
+    raises."""
+    q = torch.zeros((1, 192, 1, 64), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((1, 256, 1, 64), device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros((1, 1, 192), device="cuda")
+    with pytest.raises(RuntimeError, match="flash_bwd_dq kernel launch"):
+        flash._flash_backward_kernel(q, k, k, None, q, lse, q, True, 1.0)
+    lse = torch.zeros((1, 1, 256), device="cuda")
+    with pytest.raises(RuntimeError, match="flash_bwd_dq kernel launch"):
+        flash._flash_backward_kernel(k, q, q, None, k, lse, k, True, 1.0)
 
 
 def test_autograd_launches_both_backward_kernels(gen):

@@ -76,18 +76,25 @@ def test_kernel_sources_are_packaged():
         assert lib.parent == PORT / "build"
         src = _build.CSRC / f"{name}.cu"
         assert _packaged(str(src.relative_to(PORT)))
-        for header in re.findall(r'^\s*#include\s+"([^"]+)"',
-                                 src.read_text(), re.M):
-            path = _build.CSRC / header
-            assert path.exists(), f"{name}.cu includes missing {header}"
-            assert _packaged(str(path.relative_to(PORT))), \
-                f"{header} (included by {name}.cu) is not package data"
+        todo, seen = [src], set()
+        while todo:  # the headers it includes, and theirs
+            including = todo.pop()
+            for header in re.findall(r'^\s*#include\s+"([^"]+)"',
+                                     including.read_text(), re.M):
+                path = _build.CSRC / header
+                assert path.exists(), \
+                    f"{including.name} includes missing {header}"
+                assert _packaged(str(path.relative_to(PORT))), \
+                    f"{header} (included by {including.name}) is not " \
+                    f"package data"
+                if header not in seen:
+                    seen.add(header)
+                    todo.append(path)
+        assert seen == {"flash_common.cuh", "flash_hopper.cuh"}, seen
     assert "polyaxon_tpu_torch/build/" in (ROOT / ".gitignore").read_text()
 
 
-def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
-    """Both kernel sources include csrc/flash_common.cuh: an edit there
-    must rename (so rebuild) every kernel library."""
+def _edit_renames_libraries(shared, tmp_path, monkeypatch):
     import shutil
 
     from polyaxon_tpu_torch.ops import _build
@@ -96,8 +103,21 @@ def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     before = {n: _build.library_path(n) for n in _build.sources()}
-    header = csrc / "flash_common.cuh"
+    header = csrc / shared
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: _build.library_path(n) for n in _build.sources()}
     assert sorted(before) == ["flash_bwd", "flash_fwd"]
     assert all(before[n] != after[n] for n in before)
+
+
+def test_library_name_follows_shared_headers(tmp_path, monkeypatch):
+    """Both kernel sources include csrc/flash_common.cuh (through
+    csrc/flash_hopper.cuh): an edit there must rename (so rebuild) every
+    kernel library."""
+    _edit_renames_libraries("flash_common.cuh", tmp_path, monkeypatch)
+
+
+def test_library_name_follows_hopper_header(tmp_path, monkeypatch):
+    """The same for csrc/flash_hopper.cuh, the Hopper pieces both
+    sources include."""
+    _edit_renames_libraries("flash_hopper.cuh", tmp_path, monkeypatch)
