@@ -27,18 +27,23 @@ Phases, each raising on failure:
 4. greedy serving through the CLI's functions: ``generate`` equals
    ``prefill`` + ``generate_continue``, and (in float32) one-shot and
    chunked prefill give the same tokens;
-5. the flash-backward kernels (dq, dkv) against their plain version at
+5. the continuous-batching server (``ModelServer`` -> ``DecodeEngine``
+   -> ``SlotKVManager``): float32 engine tokens equal solo generate,
+   the CUDA-graph decode window equals the eager one bitwise, and 32
+   HTTP requests from 16 clients (tok/s, latency, TTFT, windows, graph
+   captures, device busy share), then POST /drain;
+6. the flash-backward kernels (dq, dkv) against their plain version at
    the training path's shape, the forward's case list, the Hopper
    kernels' tile edges and an LSE cotangent; their times, bounds and
    PyTorch's SDPA backward;
-6. GPT-2 medium training at full width and depth (batch 8 x 1024, bf16
+7. GPT-2 medium training at full width and depth (batch 8 x 1024, bf16
    compute on float32 master weights, AdamW): a few steps through
    ``polyaxon_tpu_torch.train.main`` (24 forward, 24 dq and 24 dkv
    launches a step), then a timed loop of ``TrainStep`` calls (step
    time, tok/s, MFU, device idle share, top kernels);
-7. one float32 step's loss and gradients through the flash route against
+8. one float32 step's loss and gradients through the flash route against
    the plain-attention route, at GPT-2 medium's width and 4 layers;
-8. one JSON line of kernel records, the card line, and the final
+9. one JSON line of kernel records, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -725,6 +730,286 @@ def phase_serving(model, model_f32):
                 one["wall_s"] * 1e3, "serving")
 
 
+def _first_gap(model, prompt, solo_new, got_new) -> tuple:
+    """(index, top-2 gap) of the solo float32 logits at the first new
+    token where ``got_new`` leaves the solo tokens ``solo_new``."""
+    from polyaxon_tpu_torch.models import generate as G
+
+    k = next(i for i, (a, b) in enumerate(zip(solo_new, got_new))
+             if a != b)
+    prefix = torch.tensor([list(prompt) + list(solo_new[:k])],
+                          device="cuda")
+    with torch.no_grad():
+        logits, _ = G.prefill(model, prefix)
+    top = torch.topk(logits[0].float(), 2).values
+    return k, float(top[0] - top[1])
+
+
+def _load_clients(base, bodies, n_clients):
+    """POST every body to /generate from ``n_clients`` threads; returns
+    (wall s, [(latency s, response)] in body order)."""
+    import queue
+    import threading
+    import urllib.request
+
+    todo = queue.Queue()
+    for i, body in enumerate(bodies):
+        todo.put((i, json.dumps(body).encode()))
+    out = [None] * len(bodies)
+    errors = []
+
+    def client():
+        while True:
+            try:
+                i, data = todo.get_nowait()
+            except queue.Empty:
+                return
+            req = urllib.request.Request(
+                base + "/generate", data=data,
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    resp = json.loads(r.read())
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+                continue
+            out[i] = (time.perf_counter() - t0, resp)
+
+    threads = [threading.Thread(target=client) for _ in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{len(errors)} requests failed: {errors[:3]}")
+    return wall, out
+
+
+def phase_http_serving(model, model_f32):
+    """The continuous-batching server on GPT-2 medium, through
+    ``ModelServer`` -> ``DecodeEngine`` -> ``SlotKVManager``.
+
+    1. float32, 4 slots, prefill chunk 64: 12 concurrent requests
+       (prompts of 16-200 tokens from seed 0, 24 new tokens) through
+       ``ModelServer.generate`` equal solo ``generate`` (tie rule: a
+       first difference where the solo float32 top-2 logit gap is below
+       1e-4 is accepted, and printed);
+    2. bf16, 8 slots filled: the W = 8 window as a CUDA-graph replay and
+       eagerly from the same state give identical tokens and bitwise
+       equal caches;
+    3. bf16 over HTTP (``make_server`` on port 0), 8 slots, prefill chunk
+       256, window 8: 32 POST /generate from 16 client threads (prompts
+       of 64-512 tokens from seed 0, 64 new tokens): tok/s, latency
+       p50/p99, TTFT p50, decode steps, mean window, graph captures vs
+       replays (at most 4 captures, none after warm-up), device busy vs
+       wall; the /metrics queue/prefill/decode lines; then POST /drain
+       turns /healthz readiness off.
+    Returns the flash launch counts of step 3's run (the path launches
+    no kernel: decode and chunked-prefill masks take the plain path)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.serving import ModelServer, make_server
+
+    cfg = model.cfg
+    # 1. float32 exactness against solo generate.
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in rng.randint(16, 201, 12)]
+    with torch.no_grad():
+        solo = [G.generate(model_f32, [p], max_new_tokens=24)[0, len(p):]
+                .tolist() for p in prompts]
+    ms = ModelServer(model_f32, model_name="gpt2-medium", n_slots=4,
+                     prefill_chunk=64, decode_window=8)
+    got = [None] * len(prompts)
+
+    def go(i):
+        got[i] = ms.generate({"prompt": prompts[i], "max_new_tokens": 24})
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    secs = time.perf_counter() - t0
+    stats = ms.engine.stats()
+    ms.close()
+    ties = 0
+    for i, (p, want) in enumerate(zip(prompts, solo)):
+        if got[i] is None:
+            raise AssertionError(f"float32 request {i} got no response")
+        new = got[i]["new_tokens"][0]
+        if new == want:
+            continue
+        k, gap = _first_gap(model_f32, p, want, new)
+        print(f"[http] tie rule used: request {i} (prompt {len(p)}) "
+              f"leaves solo at new token {k}, solo float32 top-2 logit "
+              f"gap {gap:.3e} (limit 1e-4)")
+        if gap >= 1e-4:
+            raise AssertionError(f"float32 engine tokens != solo generate "
+                                 f"for request {i} at new token {k}")
+        ties += 1
+    print(f"[http] float32 engine: 12 concurrent requests (prompts "
+          f"{min(map(len, prompts))}-{max(map(len, prompts))}, 24 new "
+          f"tokens, 4 slots, prefill chunk 64) equal solo generate "
+          f"({12 - ties} exactly, {ties} by the tie rule) in {secs:.2f} s; "
+          f"admitted {stats['admitted_total']}, decode steps "
+          f"{stats['decode_steps_total']} in "
+          f"{stats['decode_dispatches_total']} dispatches, graph captures "
+          f"{stats['compile_cache_misses']}")
+    if stats["compile_cache_misses"] > 4:
+        raise AssertionError(f"float32 pool captured "
+                             f"{stats['compile_cache_misses']} graphs")
+
+    # 2. bf16 graph replay vs eager, the pool full.
+    from polyaxon_tpu_torch.serving.slots import SlotKVManager
+
+    pool = SlotKVManager(model, 8, max_window=8)
+    for s, n in enumerate(np.random.RandomState(2).randint(64, 513, 8)):
+        toks = torch.as_tensor(
+            np.random.RandomState(10 + s).randint(0, cfg.vocab_size,
+                                                  (1, n)), device="cuda")
+        logits, cache = G.prefill(model, toks)
+        pool.acquire()
+        pool.insert(s, cache, int(torch.argmax(logits[0])), int(n))
+        del cache
+    state = (pool.tokens.copy(), pool.positions.copy(), pool._k.clone(),
+             pool._v.clone())
+    eager = pool.step(8, graph=False)
+    k_eager, v_eager = pool._k.clone(), pool._v.clone()
+    pool.tokens, pool.positions = state[0].copy(), state[1].copy()
+    pool._k.copy_(state[2])
+    pool._v.copy_(state[3])
+    replay = pool.step(8)
+    same_toks = bool((replay == eager).all())
+    same_kv = bool(torch.equal(pool._k, k_eager)) and \
+        bool(torch.equal(pool._v, v_eager))
+    print(f"[http] bf16 W=8 window over 8 full slots: graph replay vs "
+          f"eager tokens {'identical' if same_toks else 'DIFFER'}, caches "
+          f"{'bitwise equal' if same_kv else 'DIFFER'}")
+    if not (same_toks and same_kv):
+        raise AssertionError("CUDA-graph window != eager window")
+    # The window's device time, replayed alone: one graph launch.
+    for _ in range(3):
+        pool.step(8)
+    start, end = _events()
+    times = []
+    for _ in range(5):
+        pool.tokens, pool.positions = state[0].copy(), state[1].copy()
+        pool._load_state()
+        start.record()
+        pool._graphs[8].replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    print(f"[http] bf16 W=8 window, 8 slots at positions 64-519: "
+          f"{statistics.median(times):.3f} ms a replay "
+          f"({statistics.median(times) / 8:.3f} ms a decode step, "
+          f"{8 * 8 / statistics.median(times) * 1e3:.0f} tok/s at full "
+          f"occupancy)")
+    del pool, state, k_eager, v_eager
+    torch.cuda.empty_cache()
+
+    # 3. bf16 over HTTP.
+    ms = ModelServer(model, model_name="gpt2-medium", n_slots=8,
+                     prefill_chunk=256, decode_window=8)
+    srv = make_server("127.0.0.1", 0, ms)
+    server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    server_thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        rng = np.random.RandomState(0)
+        bodies = [{"prompt": rng.randint(0, cfg.vocab_size, n).tolist(),
+                   "max_new_tokens": 64}
+                  for n in rng.randint(64, 513, 32)]
+        # Warm-up: a few requests, then every window once (idle lanes
+        # step harmlessly), so every graph is captured before timing.
+        _load_clients(base, bodies[:8], 8)
+        with ms._lock:
+            for w in (1, 2, 4, 8):
+                ms.engine.slots.step(w)
+        torch.cuda.synchronize()
+        warm = ms.recompile.snapshot()
+        steps0 = ms.engine.decode_steps_total
+        disp0 = ms.engine.decode_dispatches_total
+        _zero_counts()
+        wall, results = _load_clients(base, bodies, 16)
+        counts = _counts()
+        after = ms.recompile.snapshot()
+        steps = ms.engine.decode_steps_total - steps0
+        dispatches = ms.engine.decode_dispatches_total - disp0
+        lat = sorted(r[0] for r in results)
+        ttft = sorted(r[1]["ttft_ms"] for r in results)
+        ntok = sum(len(r[1]["new_tokens"][0]) for r in results)
+        bad = [i for i, (_, r) in enumerate(results)
+               if len(r["new_tokens"][0]) != 64
+               or min(r["new_tokens"][0]) < 0
+               or max(r["new_tokens"][0]) >= cfg.vocab_size]
+        if bad:
+            raise AssertionError(f"malformed responses {bad[:5]}")
+        captures = after["compile_cache_misses"] - warm["compile_cache_misses"]
+        replays = after["compile_cache_hits"] - warm["compile_cache_hits"]
+        rec = {"requests": len(results), "new_tokens": ntok,
+               "wall_s": wall, "tok_per_s": ntok / wall,
+               "latency_p50_s": lat[len(lat) // 2],
+               "latency_p99_s": lat[min(len(lat) - 1,
+                                        int(0.99 * len(lat)))],
+               "ttft_p50_ms": ttft[len(ttft) // 2],
+               "decode_steps": steps, "dispatches": dispatches,
+               "mean_window": steps / max(1, dispatches),
+               "captures_total": after["compile_cache_misses"],
+               "captures_in_run": captures, "replays_in_run": replays,
+               "flash_launches": counts}
+        print(f"[http] gpt2-medium bf16 over HTTP: 32 POST /generate "
+              f"from 16 clients (prompts 64-512, 64 new tokens), 8 slots, "
+              f"prefill chunk 256, window 8: {ntok} tokens in "
+              f"{wall:.3f} s = {rec['tok_per_s']:.1f} tok/s; latency p50 "
+              f"{rec['latency_p50_s']:.3f} s p99 {rec['latency_p99_s']:.3f}"
+              f" s; TTFT p50 {rec['ttft_p50_ms']:.1f} ms; decode steps "
+              f"{steps} in {dispatches} dispatches (mean window "
+              f"{rec['mean_window']:.2f}); graph captures "
+              f"{rec['captures_total']} in all, {captures} in the run, "
+              f"replays {replays}; flash launches {counts}")
+        if rec["captures_total"] > 4 or captures:
+            raise AssertionError(f"graph captures: {rec['captures_total']}"
+                                 f" in all, {captures} after warm-up")
+        rec["busy_ms"] = device_breakdown(
+            lambda: _load_clients(base, bodies, 16), wall * 1e3, "http")
+        print(f"[http] record {json.dumps(rec)}")
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        for line in metrics.splitlines():
+            if re.match(r"ptpu_serving_(queue|prefill|decode)\S*"
+                        r"(_sum|_count|_total)? ", line) and \
+                    "_bucket" not in line:
+                print(f"[http] /metrics {line}")
+        drain = urllib.request.Request(base + "/drain", data=b"{}")
+        with urllib.request.urlopen(drain, timeout=60) as r:
+            drained = json.loads(r.read())
+        try:
+            urllib.request.urlopen(base + "/healthz", timeout=60)
+            raise AssertionError("/healthz still ready after /drain")
+        except urllib.error.HTTPError as e:
+            health = json.loads(e.read())
+            if e.code != 503 or health["reason"] != "draining":
+                raise AssertionError(f"/healthz after /drain: {e.code} "
+                                     f"{health}")
+        print(f"[http] POST /drain -> {drained}; /healthz 503 "
+              f"{health['status']} ({health['reason']})")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        ms.close()
+    return rec
+
+
 def _counts():
     from polyaxon_tpu_torch.ops import flash
 
@@ -962,6 +1247,8 @@ def main(argv=None) -> int:
     mark("forward")
     phase_serving(model, model_f32)
     mark("serving")
+    http = phase_http_serving(model, model_f32)
+    mark("http serving")
     del model, model_f32
     torch.cuda.empty_cache()
     train_counts = phase_train_entry()
@@ -979,6 +1266,7 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": train_counts[name],
             "launches_by_path": {
                 "forward": forward_launches if name == "flash_fwd" else 0,
+                "http_serving": http["flash_launches"][name],
                 "train_main": train_counts[name]},
             **rec, "kernel_ms": rec["ms"]})
     print(json.dumps({"kernels": kernels}))

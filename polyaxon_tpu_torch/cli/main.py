@@ -1,9 +1,10 @@
-"""CLI of the port: ``python -m polyaxon_tpu_torch.cli generate``.
+"""CLI of the port: ``python -m polyaxon_tpu_torch.cli generate|serve``.
 
 Port of ``polyaxon_tpu/cli/main.py``'s ``generate`` command (greedy,
-random-init weights).  The flags of the reference that this slice does
-not carry yet are kept and refused by name, so a user learns what is
-missing rather than getting a different decode.
+random-init weights) and its ``serve`` command (the continuous-batching
+HTTP server, greedy requests).  The ``generate`` flags of the reference
+that this slice does not carry yet are kept and refused by name, so a
+user learns what is missing rather than getting a different decode.
 """
 
 from __future__ import annotations
@@ -169,3 +170,76 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
     click.echo(json.dumps(run_generate(
         model, model_name, rows, max_new_tokens=max_new_tokens,
         eos_id=eos_id, prefill_chunk=prefill_chunk)))
+
+
+@cli.command()
+@click.option("--model", "model_name", required=True,
+              help="Zoo model name (see models/registry.py).")
+@click.option("--host", default="127.0.0.1")
+@click.option("--port", default=8000, type=int)
+@click.option("--n-slots", "--slots", "n_slots", default=8, type=int,
+              help="Decode slots in the continuous-batching pool.")
+@click.option("--queue-depth", default=64, type=int,
+              help="Max queued rows before /generate answers 429.")
+@click.option("--prefill-chunk", default=None, type=int,
+              help="Prompt-chunk length for prefill interleaved with "
+                   "decode steps (default: whole prompt).")
+@click.option("--decode-window", default=8, type=int,
+              help="Max decode steps fused into one dispatch (one "
+                   "CUDA-graph replay) when no admission is pending.")
+@click.option("--request-timeout", default=600.0, type=float,
+              help="Seconds a /generate waits before shedding (503).")
+@click.option("--access-log", is_flag=True, default=False,
+              help="One JSON line per request on stderr.")
+@click.option("--request-history", default=256, type=int,
+              help="Terminal request records kept for GET /requests "
+                   "(0 disables).")
+@click.option("--cpu", is_flag=True, default=False,
+              help="Run on the CPU (default: the CUDA device).")
+def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
+          decode_window, request_timeout, access_log, request_history,
+          cpu):
+    """Serve a zoo model over HTTP: greedy POST /generate through the
+    continuous-batching engine (step-boundary admission, eos eviction,
+    interleaved chunked prefill, fused decode windows, 429 once the
+    admission queue fills); /healthz, /info, /metrics, /trace,
+    /requests, /debug/state; POST /drain.  Random-init weights from
+    seed 0 (checkpoint restore comes with a later slice)."""
+    # Flag validation before the model build (fail fast).
+    for name, v in (("--n-slots", n_slots), ("--queue-depth", queue_depth),
+                    ("--decode-window", decode_window)):
+        if v < 1:
+            raise click.ClickException(f"{name} must be >= 1")
+    if prefill_chunk is not None and prefill_chunk < 1:
+        raise click.ClickException("--prefill-chunk must be >= 1")
+    if request_timeout <= 0:
+        raise click.ClickException("--request-timeout must be > 0")
+    if request_history < 0:
+        raise click.ClickException("--request-history must be >= 0")
+    from polyaxon_tpu_torch.serving import ModelServer, make_server
+
+    try:
+        model = _build_serving_model(model_name, 1, 0,
+                                     "cpu" if cpu else None)
+    except RuntimeError as e:  # no CUDA device and no --cpu
+        raise click.ClickException(str(e))
+    ms = ModelServer(model, model_name=model_name, n_slots=n_slots,
+                     queue_depth=queue_depth, prefill_chunk=prefill_chunk,
+                     decode_window=decode_window,
+                     request_timeout_s=request_timeout,
+                     access_log=access_log,
+                     request_history=request_history)
+    try:
+        srv = make_server(host, port, ms)
+    except OSError as e:
+        ms.close()
+        raise click.ClickException(f"cannot bind {host}:{port}: {e}")
+    click.echo(f"serving {model_name} on http://{host}:"
+               f"{srv.server_address[1]}")
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+        ms.close()

@@ -20,7 +20,7 @@ dropped.  Parameter names follow the flax tree
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -166,9 +166,15 @@ class GPT2Model(nn.Module):
     def device(self) -> torch.device:
         return self.wte.weight.device
 
-    def embed_tokens(self, input_ids, position: Optional[int] = None):
+    def embed_tokens(self, input_ids,
+                     position: Union[int, torch.Tensor, None] = None):
+        """``position``: the absolute position of token 0 (decode) — one
+        int for the batch, or a [B] tensor, one per row (the slot pool;
+        ``wpe`` is then gathered per row, with no host read)."""
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        if position is not None:  # decode: absolute position of token 0
+        if isinstance(position, torch.Tensor):
+            pos = pos[None, :] + position[:, None]
+        elif position is not None:
             pos = pos + position
         dtype = self.cfg.dtype
         return (F.embedding(input_ids, self.wte.weight.to(dtype))
@@ -181,7 +187,8 @@ class GPT2Model(nn.Module):
                 x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x, None if cache is None else cache.layer(i))
-        if cache is not None:
+        if cache is not None and cache.positions is None:
+            # A slot cache's positions are advanced by its owner.
             cache.index += x.shape[1]
         return x
 
@@ -192,11 +199,13 @@ class GPT2Model(nn.Module):
 
     def forward(self, input_ids, *, train: bool = False,
                 decode: bool = False,
-                decode_position: Optional[int] = None,
+                decode_position: Union[int, torch.Tensor, None] = None,
                 last_only: bool = False,
                 cache: Optional[KVCache] = None):
         """Logits [B, S, V] in f32.  ``train`` is the reference's flag:
-        GPT-2 has no dropout, so it changes nothing."""
+        GPT-2 has no dropout, so it changes nothing.  ``decode_position``
+        is an int, or a [B] tensor with a slot cache (one token per row,
+        each at its own position)."""
         del train
         if decode and decode_position is None:
             # GPT-2's learned wpe needs the absolute position — omitting

@@ -28,8 +28,8 @@ def _torch_attention(q, k, v, mask, causal, scale, window=None,
         # Additive logit bias, applied after scaling and before masking
         # so masked positions stay at BIG_NEG whatever the bias.
         scores = scores + bias.float()
-    big_neg = torch.tensor(BIG_NEG, dtype=scores.dtype,
-                           device=scores.device)
+    # masked_fill with a Python scalar: no host-to-device copy, so the
+    # plain path can run inside a CUDA graph capture.
     if causal:
         sq, sk = q.shape[1], k.shape[1]
         ones = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -37,10 +37,10 @@ def _torch_attention(q, k, v, mask, causal, scale, window=None,
         if window:
             # Sliding window: position i attends to [i-window, i].
             cmask = cmask & torch.triu(ones, diagonal=sk - sq - window)
-        scores = torch.where(cmask[None, None], scores, big_neg)
+        scores = scores.masked_fill(~cmask[None, None], BIG_NEG)
     if mask is not None:
         # mask: broadcastable to [B, H, Sq, Sk]; True = attend.
-        scores = torch.where(mask.to(torch.bool), scores, big_neg)
+        scores = scores.masked_fill(~mask.to(torch.bool), BIG_NEG)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
     return out.to(orig_dtype)

@@ -15,6 +15,7 @@ the input type from f32 values that differ in their last bits).
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -222,3 +223,60 @@ def test_gpt2_training_step_on_the_card(gen):
     assert bool(torch.isfinite(metrics["loss"])) and state["step"] == 1
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in model.parameters())
+
+
+def _slot_pool(dtype, n_slots=4):
+    """gpt2-tiny on the card with ``n_slots`` prefilled slots (prompt
+    lengths 5, 9, 17, ...): (model, pool, prompts)."""
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.serving.slots import SlotKVManager
+
+    model = get_model("gpt2-tiny").init_params(seed=0, device="cuda",
+                                               dtype=dtype)
+    pool = SlotKVManager(model, n_slots, max_window=8)
+    prompts = [torch.randint(0, 1024, (1, 5 + 4 * s + s * s),
+                             generator=torch.Generator().manual_seed(s))
+               for s in range(n_slots)]
+    for s, p in enumerate(prompts):
+        logits, cache = G.prefill(model, p.cuda())
+        assert pool.acquire() == s
+        pool.insert(s, cache, int(torch.argmax(logits[0])), p.shape[1])
+    return model, pool, prompts
+
+
+def test_slot_step_graph_equals_eager(gen):
+    """The W = 8 window as a CUDA-graph replay and eagerly from the same
+    state: identical tokens and bitwise-equal caches; a second replay
+    captures nothing new."""
+    from polyaxon_tpu_torch.analysis.recompile import RecompileSentinel
+
+    for dtype in (torch.bfloat16, torch.float32):
+        model, pool, _ = _slot_pool(dtype)
+        pool.sentinel = RecompileSentinel()
+        state = (pool.tokens.copy(), pool.positions.copy(),
+                 pool._k.clone(), pool._v.clone())
+        eager = pool.step(8, graph=False)
+        k_eager, v_eager = pool._k.clone(), pool._v.clone()
+        pool.tokens, pool.positions = state[0].copy(), state[1].copy()
+        pool._k.copy_(state[2])
+        pool._v.copy_(state[3])
+        replay = pool.step(8)
+        np.testing.assert_array_equal(replay, eager)
+        assert torch.equal(pool._k, k_eager)
+        assert torch.equal(pool._v, v_eager)
+        pool.step(8)
+        snap = pool.sentinel.snapshot()["compile_cache_by_kind"]
+        assert snap["slot_step"] == {"misses": 1, "hits": 1,
+                                     "evictions": 0}
+
+
+def test_slot_decode_equals_solo_on_the_card(gen):
+    """float32: every slot's window tokens are its solo greedy tokens."""
+    from polyaxon_tpu_torch.models import generate as G
+
+    model, pool, prompts = _slot_pool(torch.float32)
+    got = np.concatenate([pool.step(4), pool.step(8)])
+    for s, p in enumerate(prompts):
+        solo = G.generate(model, p.cuda(), max_new_tokens=13)
+        assert got[:, s].tolist() == solo[0, -12:].tolist()

@@ -3,7 +3,7 @@
 The port and its chip smoke import nothing of JAX and nothing of the
 JAX package (checked on the source: jax may already sit in
 ``sys.modules`` when the interpreter starts), and importing a module of
-the port builds no kernel.
+the port builds no kernel and touches no CUDA.
 """
 
 from __future__ import annotations
@@ -50,6 +50,47 @@ def test_every_module_imports_without_building(monkeypatch):
     for name in modules:
         importlib.import_module(name.removesuffix(".__init__"))
     assert not _build._loaded
+
+
+SERVING_MODULES = ("serving/__init__.py", "serving/_lru.py",
+                   "serving/debug.py", "serving/engine.py",
+                   "serving/faults.py", "serving/forensics.py",
+                   "serving/paged.py", "serving/recovery.py",
+                   "serving/scheduler.py", "serving/server.py",
+                   "serving/slots.py", "serving/telemetry.py",
+                   "analysis/recompile.py")
+
+
+def test_serving_modules_are_checked():
+    """The serving stack is under the import rule above (SOURCES)."""
+    for rel in SERVING_MODULES:
+        assert PORT / rel in SOURCES, rel
+
+
+def test_imports_touch_no_cuda():
+    """Importing every module of the port (and the CLI) makes no CUDA
+    call: a fresh interpreter whose torch.cuda entry points raise."""
+    import subprocess
+    import sys
+
+    modules = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+               .removesuffix(".__init__") for p in sorted(PORT.rglob("*.py"))]
+    script = "\n".join([
+        "import importlib, torch",
+        "def boom(*a, **k):",
+        "    raise AssertionError('CUDA touched at import time')",
+        "for name in ('init', '_lazy_init', 'is_available', 'device_count',",
+        "             'current_device', 'synchronize', 'Stream', 'CUDAGraph',",
+        "             'graph', 'set_device', 'get_device_name'):",
+        "    setattr(torch.cuda, name, boom)",
+        f"for name in {modules!r}:",
+        "    importlib.import_module(name)",
+        "assert not torch.cuda.is_initialized()",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def _packaged(rel: str) -> bool:
