@@ -27,11 +27,17 @@ Phases, each raising on failure:
 4. greedy serving through the CLI's functions: ``generate`` equals
    ``prefill`` + ``generate_continue``, and (in float32) one-shot and
    chunked prefill give the same tokens;
-5. the continuous-batching server (``ModelServer`` -> ``DecodeEngine``
-   -> ``SlotKVManager``): float32 engine tokens equal solo generate,
-   the CUDA-graph decode window equals the eager one bitwise, and 32
-   HTTP requests from 16 clients (tok/s, latency, TTFT, windows, graph
-   captures, device busy share), then POST /drain;
+5. the threefry random numbers on the card against the CPU, bitwise;
+   then the continuous-batching server (``ModelServer`` ->
+   ``DecodeEngine`` -> ``SlotKVManager`` / ``PagedSlotKVManager``):
+   float32 engine tokens, half of them sampled, equal solo decoding and
+   the paged pool (eager and lazy) gives the fixed lane's tokens; the
+   CUDA-graph decode windows (greedy, sampled, paged) equal the eager
+   ones bitwise, with their device times; three HTTP loads of 32
+   requests from 16 clients (all greedy on the fixed-lane pool, then
+   half sampled on the fixed-lane and on the paged pool: tok/s,
+   latency, TTFT, windows, graph captures, device busy share), then
+   POST /drain;
 6. the flash-backward kernels (dq, dkv) against their plain version at
    the training path's shape, the forward's case list, the Hopper
    kernels' tile edges and an LSE cotangent; their times, bounds and
@@ -39,8 +45,10 @@ Phases, each raising on failure:
 7. GPT-2 medium training at full width and depth (batch 8 x 1024, bf16
    compute on float32 master weights, AdamW): a few steps through
    ``polyaxon_tpu_torch.train.main`` (24 forward, 24 dq and 24 dkv
-   launches a step), then a timed loop of ``TrainStep`` calls (step
-   time, tok/s, MFU, device idle share, top kernels);
+   launches a step), whose checkpoint ``generate --checkpoint`` then
+   serves with the trained model's tokens (bf16 as served, and float32),
+   then a timed loop of ``TrainStep`` calls (step time, tok/s, MFU,
+   device idle share, top kernels);
 8. one float32 step's loss and gradients through the flash route against
    the plain-attention route, at GPT-2 medium's width and 4 layers;
 9. one JSON line of kernel records, the card line, and the final
@@ -130,15 +138,19 @@ def graph_ms(fn, calls: int = 10, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(fn, wall_ms: float, label: str):
+def device_breakdown(fn, wall_ms: float, label: str, host: bool = True):
     """One call of ``fn`` under torch.profiler: the device's busy time
     (kernel times summed; one stream, so they do not overlap) against
     ``wall_ms`` measured without the profiler, and the top kernels.
-    Returns the busy ms (None when the profiler saw no kernel)."""
+    ``host=False`` traces the device alone (a long serving load's host
+    events cost more to collect than its kernels).  Returns the busy ms
+    (None when the profiler saw no kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = []
@@ -727,7 +739,7 @@ def phase_serving(model, model_f32):
         if m is model:
             device_breakdown(lambda: run_generate(
                 m, "gpt2-medium", rows, max_new_tokens=32),
-                one["wall_s"] * 1e3, "serving")
+                one["wall_s"] * 1e3, "serving", host=False)
 
 
 def _first_gap(model, prompt, solo_new, got_new) -> tuple:
@@ -788,226 +800,484 @@ def _load_clients(base, bodies, n_clients):
     return wall, out
 
 
-def phase_http_serving(model, model_f32):
-    """The continuous-batching server on GPT-2 medium, through
-    ``ModelServer`` -> ``DecodeEngine`` -> ``SlotKVManager``.
-
-    1. float32, 4 slots, prefill chunk 64: 12 concurrent requests
-       (prompts of 16-200 tokens from seed 0, 24 new tokens) through
-       ``ModelServer.generate`` equal solo ``generate`` (tie rule: a
-       first difference where the solo float32 top-2 logit gap is below
-       1e-4 is accepted, and printed);
-    2. bf16, 8 slots filled: the W = 8 window as a CUDA-graph replay and
-       eagerly from the same state give identical tokens and bitwise
-       equal caches;
-    3. bf16 over HTTP (``make_server`` on port 0), 8 slots, prefill chunk
-       256, window 8: 32 POST /generate from 16 client threads (prompts
-       of 64-512 tokens from seed 0, 64 new tokens): tok/s, latency
-       p50/p99, TTFT p50, decode steps, mean window, graph captures vs
-       replays (at most 4 captures, none after warm-up), device busy vs
-       wall; the /metrics queue/prefill/decode lines; then POST /drain
-       turns /healthz readiness off.
-    Returns the flash launch counts of step 3's run (the path launches
-    no kernel: decode and chunked-prefill masks take the plain path)."""
-    import threading
-    import urllib.error
-    import urllib.request
-
+def _sampled_gap(model, prompt, solo_new, got_new, seed, spec) -> tuple:
+    """(index, top-2 gap) of the solo float32 shaped logits + gumbel
+    noise of the draw at the first new token where ``got_new`` leaves
+    the solo sampled tokens ``solo_new`` (the sampled tie rule)."""
+    from polyaxon_tpu_torch import prng
     from polyaxon_tpu_torch.models import generate as G
-    from polyaxon_tpu_torch.serving import ModelServer, make_server
 
-    cfg = model.cfg
-    # 1. float32 exactness against solo generate.
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
-               for n in rng.randint(16, 201, 12)]
+    k = next(i for i, (a, b) in enumerate(zip(solo_new, got_new))
+             if a != b)
+    prefix = torch.tensor([list(prompt) + list(solo_new[:k])],
+                          device="cuda")
     with torch.no_grad():
-        solo = [G.generate(model_f32, [p], max_new_tokens=24)[0, len(p):]
-                .tolist() for p in prompts]
-    ms = ModelServer(model_f32, model_name="gpt2-medium", n_slots=4,
-                     prefill_chunk=64, decode_window=8)
-    got = [None] * len(prompts)
+        logits, _ = G.prefill(model, prefix)
+        shaped, _ = G._shape_logits_positional(
+            logits[0], spec["temperature"], spec["top_k"], spec["top_p"])
+        key = prng.fold_in(G.sample_stream_keys(seed, 1, device="cuda")[0],
+                           k)
+        z = shaped + prng.gumbel(key, shaped.shape)
+    top = torch.topk(z, 2).values
+    return k, float(top[0] - top[1])
+
+
+# The sampled half of every mixed load: T 0.8, top-k 50, top-p 0.95,
+# seed = the request's index.
+SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+
+
+def _mixed(bodies):
+    """The same requests with every odd one sampled (``SAMPLED``)."""
+    return [dict(b, **SAMPLED, seed=i) if i % 2 else dict(b)
+            for i, b in enumerate(bodies)]
+
+
+def _concurrent(ms, bodies):
+    """``ms.generate`` for every body from its own thread; (responses,
+    seconds)."""
+    import threading
+
+    got = [None] * len(bodies)
 
     def go(i):
-        got[i] = ms.generate({"prompt": prompts[i], "max_new_tokens": 24})
+        got[i] = ms.generate(bodies[i])
 
     threads = [threading.Thread(target=go, args=(i,))
-               for i in range(len(prompts))]
+               for i in range(len(bodies))]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    secs = time.perf_counter() - t0
-    stats = ms.engine.stats()
-    ms.close()
+    return got, time.perf_counter() - t0
+
+
+def _f32_schedule(model_f32):
+    """float32, 4 slots, prefill chunk 64: 12 concurrent requests
+    (prompts of 16-200 tokens from seed 0, 24 new tokens, every odd one
+    sampled) through ``ModelServer.generate`` on the fixed-lane pool
+    equal solo ``generate`` / ``generate_positional`` under the tie
+    rule (a first difference whose solo float32 top-2 gap, of the
+    logits or of shaped logits + noise, is below 1e-4, printed); the
+    paged pool, eager and lazy, gives exactly the fixed lane's
+    tokens."""
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.serving import ModelServer
+
+    cfg = model_f32.cfg
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in rng.randint(16, 201, 12)]
+    bodies = _mixed([{"prompt": p, "max_new_tokens": 24} for p in prompts])
+    with torch.no_grad():
+        solo = []
+        for i, p in enumerate(prompts):
+            if i % 2:
+                out = G.generate_positional(model_f32, [p],
+                                            max_new_tokens=24, seed=i,
+                                            **SAMPLED)
+            else:
+                out = G.generate(model_f32, [p], max_new_tokens=24)
+            solo.append(out[0, len(p):].tolist())
+    runs = {}
+    for label, kw in (("fixed", {}),
+                      ("paged", {"kv_paged": True}),
+                      ("lazy", {"kv_paged": True, "kv_lazy": True})):
+        ms = ModelServer(model_f32, model_name="gpt2-medium", n_slots=4,
+                         prefill_chunk=64, decode_window=8, **kw)
+        try:
+            got, secs = _concurrent(ms, bodies)
+            stats = ms.engine.stats()
+        finally:
+            ms.close()
+        runs[label] = [g["new_tokens"][0] for g in got]
+        print(f"[http] float32 {label}: 12 concurrent requests (6 "
+              f"sampled) in {secs:.2f} s; admitted "
+              f"{stats['admitted_total']} ({stats['admitted_sampled_total']}"
+              f" sampled), decode steps {stats['decode_steps_total']} in "
+              f"{stats['decode_dispatches_total']} dispatches, graph "
+              f"captures {stats['compile_cache_misses']}"
+              + (f", lazy growths {stats['kv_pages_lazy_growths_total']}, "
+                 f"exhaustion preemptions "
+                 f"{stats['kv_preempt_exhaustion_total']}"
+                 if "kv_pages" in stats else ""))
     ties = 0
     for i, (p, want) in enumerate(zip(prompts, solo)):
-        if got[i] is None:
-            raise AssertionError(f"float32 request {i} got no response")
-        new = got[i]["new_tokens"][0]
+        new = runs["fixed"][i]
         if new == want:
             continue
-        k, gap = _first_gap(model_f32, p, want, new)
-        print(f"[http] tie rule used: request {i} (prompt {len(p)}) "
-              f"leaves solo at new token {k}, solo float32 top-2 logit "
-              f"gap {gap:.3e} (limit 1e-4)")
+        if i % 2:
+            k, gap = _sampled_gap(model_f32, p, want, new, i, SAMPLED)
+        else:
+            k, gap = _first_gap(model_f32, p, want, new)
+        kind = "sampled" if i % 2 else "greedy"
+        print(f"[http] tie rule used: request {i} ({kind}, prompt "
+              f"{len(p)}) leaves solo at new token {k}, solo "
+              f"float32 top-2 gap {gap:.3e} (limit 1e-4)")
         if gap >= 1e-4:
-            raise AssertionError(f"float32 engine tokens != solo generate "
-                                 f"for request {i} at new token {k}")
+            raise AssertionError(f"float32 engine tokens != solo for "
+                                 f"request {i} at new token {k}")
         ties += 1
-    print(f"[http] float32 engine: 12 concurrent requests (prompts "
-          f"{min(map(len, prompts))}-{max(map(len, prompts))}, 24 new "
-          f"tokens, 4 slots, prefill chunk 64) equal solo generate "
-          f"({12 - ties} exactly, {ties} by the tie rule) in {secs:.2f} s; "
-          f"admitted {stats['admitted_total']}, decode steps "
-          f"{stats['decode_steps_total']} in "
-          f"{stats['decode_dispatches_total']} dispatches, graph captures "
-          f"{stats['compile_cache_misses']}")
-    if stats["compile_cache_misses"] > 4:
-        raise AssertionError(f"float32 pool captured "
-                             f"{stats['compile_cache_misses']} graphs")
+    for label in ("paged", "lazy"):
+        bad = [i for i in range(12) if runs[label][i] != runs["fixed"][i]]
+        if bad:
+            raise AssertionError(f"float32 {label} pool tokens != fixed "
+                                 f"lane for requests {bad}")
+    print(f"[http] float32 engine (6 greedy + 6 sampled, T 0.8 top-k 50 "
+          f"top-p 0.95, seed = index) equals solo generate / "
+          f"generate_positional ({12 - ties} exactly, {ties} by the tie "
+          f"rule); paged (eager and lazy) == fixed lane, all 12 exactly")
 
-    # 2. bf16 graph replay vs eager, the pool full.
-    from polyaxon_tpu_torch.serving.slots import SlotKVManager
 
-    pool = SlotKVManager(model, 8, max_window=8)
-    for s, n in enumerate(np.random.RandomState(2).randint(64, 513, 8)):
-        toks = torch.as_tensor(
-            np.random.RandomState(10 + s).randint(0, cfg.vocab_size,
-                                                  (1, n)), device="cuda")
-        logits, cache = G.prefill(model, toks)
-        pool.acquire()
-        pool.insert(s, cache, int(torch.argmax(logits[0])), int(n))
-        del cache
-    state = (pool.tokens.copy(), pool.positions.copy(), pool._k.clone(),
-             pool._v.clone())
-    eager = pool.step(8, graph=False)
-    k_eager, v_eager = pool._k.clone(), pool._v.clone()
-    pool.tokens, pool.positions = state[0].copy(), state[1].copy()
-    pool._k.copy_(state[2])
-    pool._v.copy_(state[3])
-    replay = pool.step(8)
-    same_toks = bool((replay == eager).all())
-    same_kv = bool(torch.equal(pool._k, k_eager)) and \
-        bool(torch.equal(pool._v, v_eager))
-    print(f"[http] bf16 W=8 window over 8 full slots: graph replay vs "
-          f"eager tokens {'identical' if same_toks else 'DIFFER'}, caches "
-          f"{'bitwise equal' if same_kv else 'DIFFER'}")
-    if not (same_toks and same_kv):
-        raise AssertionError("CUDA-graph window != eager window")
-    # The window's device time, replayed alone: one graph launch.
-    for _ in range(3):
-        pool.step(8)
+def _replay_ms(pool, key, restore) -> float:
+    """Median device time of one graph replay of ``key`` (CUDA events,
+    5 replays, the state restored before each)."""
     start, end = _events()
     times = []
     for _ in range(5):
-        pool.tokens, pool.positions = state[0].copy(), state[1].copy()
+        restore()
         pool._load_state()
         start.record()
-        pool._graphs[8].replay()
+        pool._graphs[key].replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    print(f"[http] bf16 W=8 window, 8 slots at positions 64-519: "
-          f"{statistics.median(times):.3f} ms a replay "
-          f"({statistics.median(times) / 8:.3f} ms a decode step, "
-          f"{8 * 8 / statistics.median(times) * 1e3:.0f} tok/s at full "
-          f"occupancy)")
-    del pool, state, k_eager, v_eager
-    torch.cuda.empty_cache()
+    return statistics.median(times)
 
-    # 3. bf16 over HTTP.
+
+def _graph_vs_eager(model):
+    """bf16, 8 slots filled (prompts of 64-512 tokens, every odd slot
+    sampled): the W = 8 window as a CUDA-graph replay and eagerly from
+    the same state give identical tokens and bitwise-equal KV, for the
+    fixed-lane greedy and sampled bodies and the paged sampled body
+    (pool pages); then the device time of each replay.  Returns the ms
+    of one decode step per program."""
+    from polyaxon_tpu_torch import prng
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.serving.paged import PagedSlotKVManager
+    from polyaxon_tpu_torch.serving.slots import SlotKVManager
+
+    cfg = model.cfg
+    lengths = np.random.RandomState(2).randint(64, 513, 8)
+    step_ms = {}
+    for label, paged, sampled in (("greedy", False, False),
+                                  ("sampled", False, True),
+                                  ("paged sampled", True, True)):
+        pool = PagedSlotKVManager(model, 8, page_tokens=64,
+                                  max_position=cfg.max_position,
+                                  decode_window=8) if paged \
+            else SlotKVManager(model, 8, max_window=8)
+        for s, n in enumerate(lengths):
+            toks = torch.as_tensor(np.random.RandomState(10 + s).randint(
+                0, cfg.vocab_size, (1, n)), device="cuda")
+            logits, cache = G.prefill(model, toks)
+            kw = dict(SAMPLED) if sampled and s % 2 else {}
+            key = prng.fold_in(prng.PRNGKey(s, device="cuda"), 0)
+            if kw:
+                first = int(G._sample_positional_row(
+                    logits[0], key, 0, kw["temperature"], kw["top_k"],
+                    kw["top_p"]))
+            else:
+                first = int(torch.argmax(logits[0]))
+            pool.acquire()
+            extra = {"total_tokens": int(n) + 64} if paged else {}
+            pool.insert(s, cache, first, int(n),
+                        base_key=key.cpu().numpy() if kw else None,
+                        temperature=kw.get("temperature", 0.0),
+                        top_k=kw.get("top_k", 0),
+                        top_p=kw.get("top_p", 0.0), **extra)
+            del cache
+        host = {k: getattr(pool, k).copy()
+                for k in ("tokens", "positions", "next_index")}
+        kv = (pool._k.clone(), pool._v.clone())
+
+        def restore():
+            for k, v in host.items():
+                setattr(pool, k, v.copy())
+            pool._k.copy_(kv[0])
+            pool._v.copy_(kv[1])
+
+        eager = pool.step(8, sampled, graph=False)
+        k_eager, v_eager = pool._k.clone(), pool._v.clone()
+        restore()
+        replay = pool.step(8, sampled)
+        live = slice(0, pool.n_pages) if paged else slice(None)
+        same_toks = bool((replay == eager).all())
+        same_kv = bool(torch.equal(pool._k[:, live], k_eager[:, live])) \
+            and bool(torch.equal(pool._v[:, live], v_eager[:, live]))
+        print(f"[http] bf16 {label} W=8 window over 8 full slots: graph "
+              f"replay vs eager tokens "
+              f"{'identical' if same_toks else 'DIFFER'}, "
+              f"{'pool pages' if paged else 'caches'} "
+              f"{'bitwise equal' if same_kv else 'DIFFER'}")
+        if not (same_toks and same_kv):
+            raise AssertionError(f"{label}: CUDA-graph window != eager")
+        # The paged pool's greedy body too, on the same state: the
+        # layout's cost apart from the sampler's.
+        for body in ((False, True) if paged else (sampled,)):
+            restore()
+            pool.step(8, body)
+            key = pool._step_key(8, body)
+            ms = _replay_ms(pool, key, restore)
+            name = f"paged {'sampled' if body else 'greedy'}" if paged \
+                else label
+            step_ms[name] = ms / 8
+            print(f"[http] bf16 {name} W=8 window, 8 slots at positions "
+                  f"{min(lengths)}-{max(lengths) + 7}"
+                  f"{f', pad class {key[2]}' if paged else ''}: {ms:.3f} "
+                  f"ms a replay ({ms / 8:.3f} ms a decode step, "
+                  f"{8 * 8 / ms * 1e3:.0f} tok/s at full occupancy)")
+        del pool, kv, k_eager, v_eager
+        torch.cuda.empty_cache()
+    return step_ms
+
+
+def _warm_every_key(ms, sampled_too: bool) -> None:
+    """Capture every graph a load can reach, with all slots idle: each
+    window (1, 2, 4, 8), the greedy body (and the sampled one), and on a
+    paged pool every pad class (forced through an idle slot's reserved
+    width, restored after)."""
+    slots = ms.engine.slots
+    bodies = (False, True) if sampled_too else (False,)
+    classes = [None]
+    if slots.paged:
+        classes = sorted({slots._pad_class(n) for n in range(
+            slots._n_dirty_cap, slots.max_pages_slot + 1)})
+    with ms._lock:
+        for P in classes:
+            if P is not None:
+                slots._slot_need[0] = P
+            for w in (1, 2, 4, 8):
+                for sampled in bodies:
+                    slots.step(w, sampled)
+        if slots.paged:
+            slots._slot_need[0] = 0
+    torch.cuda.synchronize()
+
+
+def _http_load(model, label, bodies, *, sampled_too=False,
+               warm_requests=8, **server_kw):
+    """bf16 over HTTP (``make_server`` on port 0), 8 slots, prefill chunk
+    256, window 8: a warm-up of ``warm_requests`` requests (8 warm the
+    process's GEMM and prefill shapes; 1 allocates a later server's
+    pool) and every graph key, then all
+    ``bodies`` from 16 client threads: tok/s, latency p50/p99, TTFT p50,
+    decode steps, mean window, graph captures (in all, and in the run:
+    0 allowed), replays, device busy and idle share (over the first 16
+    requests, run again plain and under the profiler), flash launches,
+    page stats on a paged pool, the /metrics phase lines.  Returns the
+    record and (server, ModelServer, base URL) for the caller to
+    close."""
+    import threading
+    import urllib.request
+
+    from polyaxon_tpu_torch.serving import ModelServer, make_server
+
+    cfg = model.cfg
     ms = ModelServer(model, model_name="gpt2-medium", n_slots=8,
-                     prefill_chunk=256, decode_window=8)
+                     prefill_chunk=256, decode_window=8, **server_kw)
     srv = make_server("127.0.0.1", 0, ms)
     server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
     server_thread.start()
     base = f"http://127.0.0.1:{srv.server_address[1]}"
-    try:
-        rng = np.random.RandomState(0)
-        bodies = [{"prompt": rng.randint(0, cfg.vocab_size, n).tolist(),
-                   "max_new_tokens": 64}
-                  for n in rng.randint(64, 513, 32)]
-        # Warm-up: a few requests, then every window once (idle lanes
-        # step harmlessly), so every graph is captured before timing.
-        _load_clients(base, bodies[:8], 8)
-        with ms._lock:
-            for w in (1, 2, 4, 8):
-                ms.engine.slots.step(w)
-        torch.cuda.synchronize()
-        warm = ms.recompile.snapshot()
-        steps0 = ms.engine.decode_steps_total
-        disp0 = ms.engine.decode_dispatches_total
-        _zero_counts()
-        wall, results = _load_clients(base, bodies, 16)
-        counts = _counts()
-        after = ms.recompile.snapshot()
-        steps = ms.engine.decode_steps_total - steps0
-        dispatches = ms.engine.decode_dispatches_total - disp0
-        lat = sorted(r[0] for r in results)
-        ttft = sorted(r[1]["ttft_ms"] for r in results)
-        ntok = sum(len(r[1]["new_tokens"][0]) for r in results)
-        bad = [i for i, (_, r) in enumerate(results)
-               if len(r["new_tokens"][0]) != 64
-               or min(r["new_tokens"][0]) < 0
-               or max(r["new_tokens"][0]) >= cfg.vocab_size]
-        if bad:
-            raise AssertionError(f"malformed responses {bad[:5]}")
-        captures = after["compile_cache_misses"] - warm["compile_cache_misses"]
-        replays = after["compile_cache_hits"] - warm["compile_cache_hits"]
-        rec = {"requests": len(results), "new_tokens": ntok,
-               "wall_s": wall, "tok_per_s": ntok / wall,
-               "latency_p50_s": lat[len(lat) // 2],
-               "latency_p99_s": lat[min(len(lat) - 1,
-                                        int(0.99 * len(lat)))],
-               "ttft_p50_ms": ttft[len(ttft) // 2],
-               "decode_steps": steps, "dispatches": dispatches,
-               "mean_window": steps / max(1, dispatches),
-               "captures_total": after["compile_cache_misses"],
-               "captures_in_run": captures, "replays_in_run": replays,
-               "flash_launches": counts}
-        print(f"[http] gpt2-medium bf16 over HTTP: 32 POST /generate "
-              f"from 16 clients (prompts 64-512, 64 new tokens), 8 slots, "
-              f"prefill chunk 256, window 8: {ntok} tokens in "
-              f"{wall:.3f} s = {rec['tok_per_s']:.1f} tok/s; latency p50 "
-              f"{rec['latency_p50_s']:.3f} s p99 {rec['latency_p99_s']:.3f}"
-              f" s; TTFT p50 {rec['ttft_p50_ms']:.1f} ms; decode steps "
-              f"{steps} in {dispatches} dispatches (mean window "
-              f"{rec['mean_window']:.2f}); graph captures "
-              f"{rec['captures_total']} in all, {captures} in the run, "
-              f"replays {replays}; flash launches {counts}")
-        if rec["captures_total"] > 4 or captures:
-            raise AssertionError(f"graph captures: {rec['captures_total']}"
-                                 f" in all, {captures} after warm-up")
-        rec["busy_ms"] = device_breakdown(
-            lambda: _load_clients(base, bodies, 16), wall * 1e3, "http")
-        print(f"[http] record {json.dumps(rec)}")
-        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
-            metrics = r.read().decode()
-        for line in metrics.splitlines():
-            if re.match(r"ptpu_serving_(queue|prefill|decode)\S*"
-                        r"(_sum|_count|_total)? ", line) and \
-                    "_bucket" not in line:
-                print(f"[http] /metrics {line}")
-        drain = urllib.request.Request(base + "/drain", data=b"{}")
-        with urllib.request.urlopen(drain, timeout=60) as r:
-            drained = json.loads(r.read())
+    _load_clients(base, bodies[:warm_requests], warm_requests)
+    _warm_every_key(ms, sampled_too)
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
+    warm = ms.recompile.snapshot()
+    steps0 = ms.engine.decode_steps_total
+    disp0 = ms.engine.decode_dispatches_total
+    peak = {"resident": 0, "running": True}
+
+    def watch_pages():
+        # The page pool's peak occupancy during the run (10 ms polls).
+        while peak["running"]:
+            peak["resident"] = max(peak["resident"], sum(
+                ms.engine.slots.slot_page_counts().values()))
+            time.sleep(0.01)
+
+    watcher = threading.Thread(target=watch_pages, daemon=True)
+    if ms.engine.paged:
+        watcher.start()
+    _zero_counts()
+    wall, results = _load_clients(base, bodies, 16)
+    counts = _counts()
+    peak["running"] = False
+    if ms.engine.paged:
+        watcher.join()
+    after = ms.recompile.snapshot()
+    steps = ms.engine.decode_steps_total - steps0
+    dispatches = ms.engine.decode_dispatches_total - disp0
+    lat = sorted(r[0] for r in results)
+    ttft = sorted(r[1]["ttft_ms"] for r in results)
+    ntok = sum(len(r[1]["new_tokens"][0]) for r in results)
+    bad = [i for i, (_, r) in enumerate(results)
+           if len(r["new_tokens"][0]) != bodies[i]["max_new_tokens"]
+           or min(r["new_tokens"][0]) < 0
+           or max(r["new_tokens"][0]) >= cfg.vocab_size]
+    if bad:
+        raise AssertionError(f"{label}: malformed responses {bad[:5]}")
+    captures = after["compile_cache_misses"] - warm["compile_cache_misses"]
+    replays = after["compile_cache_hits"] - warm["compile_cache_hits"]
+    n_sampled = sum(1 for b in bodies if b.get("temperature"))
+    rec = {"load": label, "requests": len(results),
+           "sampled_requests": n_sampled, "new_tokens": ntok,
+           "wall_s": wall, "tok_per_s": ntok / wall,
+           "latency_p50_s": lat[len(lat) // 2],
+           "latency_p99_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+           "ttft_p50_ms": ttft[len(ttft) // 2],
+           "decode_steps": steps, "dispatches": dispatches,
+           "mean_window": steps / max(1, dispatches),
+           "captures_total": after["compile_cache_misses"],
+           "captures_in_run": captures, "replays_in_run": replays,
+           "memory_reserved_gb_after_captures": reserved_gb,
+           "flash_launches": counts}
+    if ms.engine.paged:
+        rec["pages"] = {**ms.engine.slots.page_stats(),
+                        "kv_pages_resident_peak": peak["resident"]}
+    print(f"[http] {label}: 32 POST /generate from 16 clients ({n_sampled}"
+          f" sampled; prompts 64-512, 64 new tokens), 8 slots, prefill "
+          f"chunk 256, window 8: {ntok} tokens in {wall:.3f} s = "
+          f"{rec['tok_per_s']:.1f} tok/s; latency p50 "
+          f"{rec['latency_p50_s']:.3f} s p99 {rec['latency_p99_s']:.3f} s;"
+          f" TTFT p50 {rec['ttft_p50_ms']:.1f} ms; decode steps {steps} "
+          f"in {dispatches} dispatches (mean window "
+          f"{rec['mean_window']:.2f}); graph captures "
+          f"{rec['captures_total']} in all, {captures} in the run, "
+          f"replays {replays} (memory reserved after the captures "
+          f"{reserved_gb:.2f} GB); flash launches {counts}"
+          + (f"; pages {rec['pages']}" if "pages" in rec else ""))
+    slots = ms.engine.slots
+    bound = 4 * (2 if sampled_too else 1) * (
+        len({slots._pad_class(n) for n in range(
+            slots._n_dirty_cap, slots.max_pages_slot + 1)})
+        if slots.paged else 1)
+    if captures or rec["captures_total"] > bound:
+        raise AssertionError(f"{label}: {rec['captures_total']} graph "
+                             f"captures in all (at most {bound}), "
+                             f"{captures} after warm-up")
+    # Device busy and idle share over a rerun of the first 16 requests
+    # (one a client), timed once plain and once under the profiler: a
+    # sampled load launches about 460,000 kernels in 32 requests, and
+    # the profiler takes about a minute to collect that many.
+    sub = bodies[:16]
+    t0 = time.perf_counter()
+    _load_clients(base, sub, 16)
+    rec["profiled_wall_s"] = time.perf_counter() - t0
+    rec["busy_ms"] = device_breakdown(
+        lambda: _load_clients(base, sub, 16),
+        rec["profiled_wall_s"] * 1e3, "http", host=False)
+    if rec["busy_ms"] is not None:
+        rec["idle_share"] = max(
+            0.0, 1 - rec["busy_ms"] / (rec["profiled_wall_s"] * 1e3))
+    print(f"[http] record {json.dumps(rec)}")
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        metrics = r.read().decode()
+    for line in metrics.splitlines():
+        if re.match(r"ptpu_serving_(queue|prefill|decode|kv_pages|"
+                    r"admitted_sampled|completed_sampled)\S*"
+                    r"(_sum|_count|_total)? ", line) and \
+                "_bucket" not in line:
+            print(f"[http] /metrics {line}")
+    return rec, (srv, ms, base)
+
+
+def phase_http_serving(model, model_f32):
+    """The continuous-batching server on GPT-2 medium, through
+    ``ModelServer`` -> ``DecodeEngine`` -> ``SlotKVManager`` /
+    ``PagedSlotKVManager``.
+
+    1. float32 exactness (``_f32_schedule``): 12 concurrent requests,
+       half sampled, equal solo decoding; the paged pool (eager and
+       lazy) gives the fixed lane's tokens exactly;
+    2. bf16 CUDA-graph windows equal eager ones bitwise, for the greedy,
+       sampled and paged sampled programs, and their device times
+       (``_graph_vs_eager``);
+    3. three loads over HTTP (``_http_load``), the same 32 requests
+       (prompts 64-512 from seed 0, 64 new tokens): all greedy on the
+       fixed-lane pool, then every odd one sampled on the fixed-lane
+       pool and on the paged pool (64-token pages, default size); after
+       the last, POST /drain turns /healthz readiness off.
+    Returns the decode-step ms per program and the three records (each
+    with its flash launch counts: 0, decode and chunked prefill take the
+    plain path)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    _f32_schedule(model_f32)
+    print(f"[time] http: float32 schedules {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    step_ms = _graph_vs_eager(model)
+    print(f"[time] http: graph vs eager windows "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(0)
+    bodies = [{"prompt": rng.randint(0, model.cfg.vocab_size, n).tolist(),
+               "max_new_tokens": 64}
+              for n in rng.randint(64, 513, 32)]
+    recs = {}
+    for label, load, kw in (
+            ("greedy fixed-lane", bodies, {}),
+            ("mixed fixed-lane", _mixed(bodies),
+             {"sampled_too": True, "warm_requests": 1}),
+            ("mixed paged", _mixed(bodies),
+             {"sampled_too": True, "warm_requests": 1,
+              "kv_paged": True})):
+        t0 = time.perf_counter()
+        rec, (srv, ms, base) = _http_load(model, label, load, **kw)
+        print(f"[time] http: {label} load {time.perf_counter() - t0:.1f} s")
         try:
-            urllib.request.urlopen(base + "/healthz", timeout=60)
-            raise AssertionError("/healthz still ready after /drain")
-        except urllib.error.HTTPError as e:
-            health = json.loads(e.read())
-            if e.code != 503 or health["reason"] != "draining":
-                raise AssertionError(f"/healthz after /drain: {e.code} "
-                                     f"{health}")
-        print(f"[http] POST /drain -> {drained}; /healthz 503 "
-              f"{health['status']} ({health['reason']})")
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        ms.close()
-    return rec
+            if label == "mixed paged":
+                drain = urllib.request.Request(base + "/drain", data=b"{}")
+                with urllib.request.urlopen(drain, timeout=60) as r:
+                    drained = json.loads(r.read())
+                try:
+                    urllib.request.urlopen(base + "/healthz", timeout=60)
+                    raise AssertionError("/healthz still ready after "
+                                         "/drain")
+                except urllib.error.HTTPError as e:
+                    health = json.loads(e.read())
+                    if e.code != 503 or health["reason"] != "draining":
+                        raise AssertionError(f"/healthz after /drain: "
+                                             f"{e.code} {health}")
+                print(f"[http] POST /drain -> {drained}; /healthz 503 "
+                      f"{health['status']} ({health['reason']})")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            ms.close()
+        recs[label] = rec
+        torch.cuda.empty_cache()
+    return step_ms, recs
+
+
+def phase_prng():
+    """The threefry keys, fold_in, split and random bits on the card
+    equal the same calls on the CPU, bitwise (the CPU's are held
+    against jax.random by the tests)."""
+    from polyaxon_tpu_torch import prng
+
+    checks = 0
+    for seed in (0, 7, 2 ** 31 - 1):
+        cpu, dev = prng.PRNGKey(seed), prng.PRNGKey(seed, device="cuda")
+        rows = torch.arange(8)
+        pairs = [
+            (prng.fold_in(dev, 12345), prng.fold_in(cpu, 12345)),
+            (prng.split(dev, 4), prng.split(cpu, 4)),
+            (prng.fold_in(dev.expand(8, 2), rows.cuda()),
+             prng.fold_in(cpu.expand(8, 2), rows)),
+            (prng.random_bits(dev, (8, 50257)),
+             prng.random_bits(cpu, (8, 50257))),
+            (prng.uniform(dev, (8, 50257)), prng.uniform(cpu, (8, 50257))),
+        ]
+        for got, want in pairs:
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"prng on the card != CPU (seed "
+                                     f"{seed})")
+            checks += 1
+    print(f"[prng] keys, fold_in, split, random bits and uniforms on the "
+          f"card equal the CPU bitwise ({checks} checks, 3 seeds, "
+          f"[8, 50257] draws)")
 
 
 def _counts():
@@ -1035,19 +1305,29 @@ def phase_train_entry(steps: int = 3):
     """``python -m polyaxon_tpu_torch.train --model gpt2-medium`` as a
     user runs it (in-process, its checkpoints in a temporary home): the
     flash launch counts of the run, 24 of each kernel a step, and a
-    finite loss on every logged step."""
+    finite loss on every logged step; then the checkpoint it wrote is
+    served (``phase_checkpoint``) before the home is removed."""
     import contextlib
     import io
     import re
 
-    from polyaxon_tpu_torch import train
+    from polyaxon_tpu_torch import checkpoint, train
 
     out = io.StringIO()
+    live = {}
+    real_save = checkpoint.CheckpointManager.save
+
+    def save(self, step, state):
+        # The trained model as train.main holds it, for the comparison.
+        live["model"], live["dir"] = state["params"], self.directory
+        return real_save(self, step, state)
+
     with tempfile.TemporaryDirectory() as home:
         env = {"POLYAXON_TPU_HOME": home,
                "POLYAXON_TPU_RUN_UUID": "chip-smoke"}
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
+        checkpoint.CheckpointManager.save = save
         try:
             t0 = time.perf_counter()
             _zero_counts()
@@ -1059,23 +1339,77 @@ def phase_train_entry(steps: int = 3):
             counts = _counts()
             secs = time.perf_counter() - t0
         finally:
+            checkpoint.CheckpointManager.save = real_save
             for k, v in saved.items():
                 if v is None:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    for line in out.getvalue().splitlines():
-        print(f"[train.main] {line}")
-    losses = [float(m) for m in re.findall(r"^step \d+/\d+ loss=(\S+)",
-                                           out.getvalue(), re.M)]
-    if rc != 0 or len(losses) != steps or \
-            not all(np.isfinite(losses)):
-        raise AssertionError(f"train.main: exit {rc}, losses {losses}")
-    _check_per_step(counts, steps, 24, "train.main")
-    print(f"[train.main] gpt2-medium {steps} steps in {secs:.1f} s "
-          f"(model init, data, steps and the final checkpoint); flash "
-          f"launches {counts}")
+        for line in out.getvalue().splitlines():
+            print(f"[train.main] {line}")
+        losses = [float(m) for m in re.findall(
+            r"^step \d+/\d+ loss=(\S+)", out.getvalue(), re.M)]
+        if rc != 0 or len(losses) != steps or \
+                not all(np.isfinite(losses)):
+            raise AssertionError(f"train.main: exit {rc}, losses {losses}")
+        _check_per_step(counts, steps, 24, "train.main")
+        print(f"[train.main] gpt2-medium {steps} steps in {secs:.1f} s "
+              f"(model init, data, steps and the final checkpoint); "
+              f"flash launches {counts}")
+        phase_checkpoint(live["dir"], live["model"].eval())
     return counts
+
+
+def phase_checkpoint(ckpt_dir, trained):
+    """The checkpoint ``train.main`` wrote, served: ``generate
+    --checkpoint`` (the CLI, bf16 as served) gives the tokens of the
+    in-memory trained model (float32 master weights cast at each use);
+    in float32, the CLI's checkpoint loader gives the tokens of a
+    float32 model holding the in-memory weights."""
+    import contextlib
+    import io
+
+    from polyaxon_tpu_torch.cli import main as cli_main
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.models.registry import get_model
+
+    rows = np.random.RandomState(3).randint(0, 50257, (2, 32)).tolist()
+    prompt = "@" + os.path.join(os.path.dirname(ckpt_dir), "prompt.json")
+    with open(prompt[1:], "w") as f:
+        json.dump(rows, f)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_main.cli.main(["generate", "--model", "gpt2-medium",
+                           "--checkpoint", ckpt_dir, "--prompt", prompt,
+                           "--max-new-tokens", "16"], standalone_mode=False)
+    served = json.loads(out.getvalue().strip().splitlines()[-1])
+    secs = time.perf_counter() - t0
+    with torch.no_grad():
+        want = G.generate(trained, rows, max_new_tokens=16).tolist()
+    if served["tokens"] != want:
+        raise AssertionError("generate --checkpoint != the in-memory "
+                             "trained model (bf16)")
+    spec = get_model("gpt2-medium")
+    f32 = cli_main._build_serving_model("gpt2-medium", 2,
+                                        ckpt_dir=ckpt_dir,
+                                        dtype=torch.float32)
+    ref = spec.make_model(device="cuda", dtype=torch.float32)
+    ref.load_state_dict(trained.state_dict())
+    ref.eval().requires_grad_(False)
+    with torch.no_grad():
+        got = G.generate(f32, rows, max_new_tokens=16).tolist()
+        want32 = G.generate(ref, rows, max_new_tokens=16).tolist()
+    if got != want32:
+        raise AssertionError("checkpoint served in float32 != the "
+                             "in-memory weights in float32")
+    print(f"[checkpoint] {ckpt_dir.split(os.sep)[-1]}/ from train.main "
+          f"served by `generate --checkpoint` in {secs:.1f} s (restore, "
+          f"cast to bf16, 2 x 32 prompt + 16 new): tokens == the "
+          f"in-memory trained model; float32: tokens == the in-memory "
+          f"weights ({sum(len(r) - 32 for r in got)} tokens each)")
+    del f32, ref
+    torch.cuda.empty_cache()
 
 
 def phase_train_timed(steps: int = 5):
@@ -1247,12 +1581,16 @@ def main(argv=None) -> int:
     mark("forward")
     phase_serving(model, model_f32)
     mark("serving")
-    http = phase_http_serving(model, model_f32)
+    phase_prng()
+    mark("prng")
+    step_ms, http = phase_http_serving(model, model_f32)
+    print(f"[http] decode step ms (bf16, 8 slots, W=8 replay): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items()))
     mark("http serving")
     del model, model_f32
     torch.cuda.empty_cache()
     train_counts = phase_train_entry()
-    mark("train.main")
+    mark("train.main and checkpoint serving")
     phase_train_timed()
     mark("timed training")
     torch.cuda.empty_cache()
@@ -1266,7 +1604,12 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": train_counts[name],
             "launches_by_path": {
                 "forward": forward_launches if name == "flash_fwd" else 0,
-                "http_serving": http["flash_launches"][name],
+                "http_serving": http["greedy fixed-lane"][
+                    "flash_launches"][name],
+                "http_serving_sampled": http["mixed fixed-lane"][
+                    "flash_launches"][name],
+                "http_serving_paged": http["mixed paged"][
+                    "flash_launches"][name],
                 "train_main": train_counts[name]},
             **rec, "kernel_ms": rec["ms"]})
     print(json.dumps({"kernels": kernels}))

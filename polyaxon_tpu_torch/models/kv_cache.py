@@ -1,8 +1,8 @@
 """Decode-time KV cache.
 
 Port of ``polyaxon_tpu/models/kv_cache.py``'s :func:`append_kv_cache`
-(plain storage; int8 KV, RoPE rotation, the ring cache and the paged
-helpers come with later slices).  Flax keeps the cache in a mutable
+and its paged helpers (plain storage; int8 KV, RoPE rotation and the
+ring cache come with later slices).  Flax keeps the cache in a mutable
 variable collection; here it is an explicit object, :class:`KVCache`,
 holding every layer's keys and values and the shared write index.
 
@@ -115,3 +115,43 @@ def append_kv_slots(cache: LayerCache, k, v, window: Optional[int] = None):
     if window is not None:
         valid &= keys[None, :] >= pos[:, None] - window
     return cache.k, cache.v, valid[:, None, None, :], pos[:, None]
+
+
+# -- paged storage (serving/paged.py) ---------------------------------------
+#
+# A paged pool stores a cache tensor's position axis as fixed-size
+# pages: ``lead + (n_pages, page_tokens) + rest``.  A slot's page table
+# gathers its pages into a position-contiguous view, so the decode step
+# sees an ordinary (narrower) slot cache.
+
+
+def paged_pool_shape(leaf_shape, pos_axis: int, n_pages: int,
+                     page_tokens: int):
+    """Pool shape for a cache tensor: the position axis splits into
+    ``(n_pages, page_tokens)``."""
+    return (tuple(leaf_shape[:pos_axis]) + (n_pages, page_tokens)
+            + tuple(leaf_shape[pos_axis + 1:]))
+
+
+def gather_pages(pool_leaf, table, pos_axis: int, out=None):
+    """The position-contiguous view of the pages ``table`` names: a
+    table [P] gives position width ``P * page_tokens`` at ``pos_axis``;
+    a table [S, P] gives S such rows there (a slot cache).  ``out``, if
+    given, is a contiguous buffer of ``lead + (S * P, page_tokens) +
+    rest`` elements that receives the pages (a fixed address for a
+    CUDA graph)."""
+    flat = table.reshape(-1)
+    pages = torch.index_select(pool_leaf, pos_axis, flat, out=out)
+    shape = pool_leaf.shape
+    pt = shape[pos_axis + 1]
+    return pages.view(tuple(shape[:pos_axis]) + tuple(table.shape[:-1])
+                      + (table.shape[-1] * pt,)
+                      + tuple(shape[pos_axis + 2:]))
+
+
+def scatter_pages(pool_leaf, pages, targets, pos_axis: int) -> None:
+    """Write ``pages`` (``lead + (n, page_tokens) + rest``) into the
+    pool at page ids ``targets`` [n], in place.  Callers keep the
+    targets of live content distinct; duplicate targets are only ever
+    scratch pages, whose content is masked by absolute position."""
+    pool_leaf.index_copy_(pos_axis, targets, pages.to(pool_leaf.dtype))

@@ -16,6 +16,7 @@ to the other: a CUDA tensor the kernels do not take raises.  The two
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -32,11 +33,14 @@ dkv_launch_count = 0
 
 def flash_eligible(sq: int, sk: int, head_dim: int, mask=None, *,
                    mask_kv_len: Optional[int] = None) -> bool:
-    """The routing predicate of every flash consumer: 128-aligned
-    sequences, a head dim that is a multiple of 64, and at most a
-    key-padding mask [B, 1, 1, kv_len] (the reference's rule,
-    ``polyaxon_tpu/ops/flash.py:81-86``; its TPU-backend condition has no
-    counterpart here)."""
+    """The routing predicate of every flash consumer: the
+    ``POLYAXON_TPU_NO_FLASH`` kill-switch (set: every caller takes the
+    plain path), 128-aligned sequences, a head dim that is a multiple of
+    64, and at most a key-padding mask [B, 1, 1, kv_len] (the
+    reference's rule, ``polyaxon_tpu/ops/flash.py:69-86``; its
+    TPU-backend condition has no counterpart here)."""
+    if os.environ.get("POLYAXON_TPU_NO_FLASH"):
+        return False
     if sq % 128 or sk % 128 or head_dim % 64:
         return False
     return mask is None or (

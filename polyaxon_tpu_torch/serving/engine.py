@@ -1,8 +1,9 @@
 """Continuous-batching decode engine.
 
-Port of ``polyaxon_tpu/serving/engine.py`` as far as the fixed-lane
-greedy engine goes.  STEP-LEVEL scheduling over a fixed pool of decode
-slots (slots.py), with the reference's gap reclamation at step
+Port of ``polyaxon_tpu/serving/engine.py``: greedy and sampled streams
+over the fixed-lane pool (slots.py) or the paged pool (paged.py, eager
+or lazy page reservation).  STEP-LEVEL scheduling over a fixed pool of
+decode slots, with the reference's gap reclamation at step
 boundaries —
 
 - a request hitting EOS (or its budget) frees its slot the same step;
@@ -14,10 +15,21 @@ boundaries —
 - with no admission possible sooner, up to ``decode_window`` decode
   steps fuse into one device dispatch (one CUDA-graph replay).
 
-Greedy rows never interact and eos-evicted rows pad to budget, so a
-response equals solo ``generate`` on the same prompt.  Request
-lifecycle (priority classes, cancellation, deadlines, per-class queue
-deadlines, drain) is the reference's.
+Rows never interact and eos-evicted rows pad to budget, so a greedy
+response equals solo ``generate`` on the same prompt, and a sampled
+one (position-keyed: token i of row r draws with
+``fold_in(fold_in(PRNGKey(seed), r), i)``) equals solo
+``generate_positional``, under any admission schedule.  One sampled
+resident selects the pool's sampled program; greedy co-tenants ride
+its argmax lane.  Request lifecycle (priority classes, cancellation,
+deadlines, per-class queue deadlines, drain) is the reference's.
+
+PAGED pools gate admission on free pages as well as slots: a request
+that can NEVER fit the pool is shed at submit (``reason: kv_pages``),
+one that does not fit now waits admit-ready.  LAZY pools grow page
+tables at step boundaries and, on exhaustion, preempt the resident
+with the most remaining budget through the token-identical resume
+path (``_evict_requeue``), with the reference's livelock bar.
 
 Threading: ``submit`` may be called from any handler thread; all slot
 and queue mutation happens on the engine loop thread (or, in tests, via
@@ -25,9 +37,9 @@ manual ``tick()`` calls with the loop not started — never both).
 Every CUDA call (prefill pieces, the insert copy, decode steps) runs on
 that thread under ``device_lock``; handler threads do no device work.
 
-Not ported yet, and refused by name: sampled and speculative streams,
-the paged pool (``kv_paged``), meshes, SLO preemption, fault injection
-and supervised crash recovery (ROADMAP Queue 1).
+Not ported yet, and refused by name: speculative streams, meshes, SLO
+preemption, fault injection and supervised crash recovery (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ import torch
 
 from .debug import SnapshotBoard, events_to_dicts, new_request_id
 from .forensics import compute_ledger
+from .paged import PageExhausted, PagedSlotKVManager
 from .scheduler import (AdmissionQueue, DeadlineExceeded, PRIORITIES,
                         QueueFullError, RequestCancelled, RequestGroup,
                         SamplingSpec, SchedulerPolicy, ShedError, Stream,
@@ -66,6 +79,10 @@ def _pow2_floor(n: int) -> int:
     return w
 
 
+def _kind_of(sampling: SamplingSpec) -> str:
+    return "sampled" if sampling.sampled else "greedy"
+
+
 class DecodeEngine:
     def __init__(self, model, *,
                  policy: Optional[SchedulerPolicy] = None,
@@ -83,9 +100,6 @@ class DecodeEngine:
             raise _not_ported("fault injection", "--fault-plan wiring")
         self.model = model
         self.policy = policy or SchedulerPolicy()
-        if self.policy.kv_paged:
-            raise _not_ported("the paged KV pool (kv_paged)",
-                              "the paged pool")
         if self.policy.slo_ttft_s is not None:
             raise _not_ported("SLO preemption (slo_ttft_s)",
                               "SLO preemption")
@@ -105,9 +119,23 @@ class DecodeEngine:
         # autostart=False: no loop thread — the owner drives tick()
         # manually (deterministic tests, offline batch use).
         self.autostart = bool(autostart)
-        self.slots = SlotKVManager(
-            model, self.policy.n_slots, sentinel=sentinel,
-            max_window=_pow2_floor(self.policy.decode_window))
+        # KV storage: the fixed-lane stacked pool, or (kv_paged) the
+        # block-table page pool.
+        self.paged = bool(self.policy.kv_paged)
+        max_window = _pow2_floor(self.policy.decode_window)
+        if self.paged:
+            self.slots = PagedSlotKVManager(
+                model, self.policy.n_slots,
+                page_tokens=self.policy.kv_page_tokens,
+                n_pages=self.policy.kv_pages,
+                max_position=model.cfg.max_position,
+                decode_window=self.policy.decode_window,
+                lazy=self.policy.kv_lazy, sentinel=sentinel,
+                max_window=max_window)
+        else:
+            self.slots = SlotKVManager(
+                model, self.policy.n_slots, sentinel=sentinel,
+                max_window=max_window)
         self.queue = AdmissionQueue(self.policy)
         # streams resident in a slot: slot index -> Stream
         self._resident: Dict[int, Stream] = {}
@@ -115,13 +143,29 @@ class DecodeEngine:
         self._thread_lock = threading.Lock()
         self._wake = threading.Condition()
         self._stop = False
-        # counters (read unlocked by metrics — monotonic ints)
+        # counters (read unlocked by metrics — monotonic ints); admitted
+        # and completed split by mode, so pool use under a mixed
+        # greedy/sampled load is observable
         self.admitted_total = 0
+        self.admitted_greedy_total = 0
+        self.admitted_sampled_total = 0
         self.evicted_total = 0
         self.decode_steps_total = 0
         self.decode_dispatches_total = 0
         self.prefill_chunks_total = 0
         self.completed_total = 0
+        self.completed_greedy_total = 0
+        self.completed_sampled_total = 0
+        # Paged pools: submit-time can-never-fit sheds, lazy-growth
+        # exhaustion preemptions, and the token-identical resumes they
+        # cause.
+        self.shed_kv_pages_total = 0
+        self.kv_preempt_exhaustion_total = 0
+        self.preempted_total = 0
+        self.requests_requeued_total = 0
+        self.resumed_total = 0
+        # Exhaustion evictees still barred from re-admission.
+        self._exhaust_bars: list = []
         # Request-lifecycle counters; the shed counters are also bumped
         # from submitter threads (the draining gate), under _shed_lock.
         self._shed_lock = threading.Lock()
@@ -162,16 +206,24 @@ class DecodeEngine:
                rid: Optional[str] = None) -> RequestGroup:
         """Enqueue a request (may raise QueueFullError) and make sure
         the loop is running.  Returns the group; callers block on
-        ``group.event``.  ``priority`` picks the class queue
-        (``interactive`` drains ahead of ``batch``); ``deadline_s``
-        (relative seconds) evicts the request at the next step boundary
-        once it passes.  A DRAINING engine sheds every submit (503)."""
+        ``group.event``.  ``sampling`` carries the per-request (seed,
+        temperature, top_k, top_p): None (or temperature 0) is greedy;
+        sampled streams draw under the position-keyed contract, so
+        their tokens are independent of co-tenancy.  ``priority`` picks
+        the class queue (``interactive`` drains ahead of ``batch``);
+        ``deadline_s`` (relative seconds) evicts the request at the
+        next step boundary once it passes.  A DRAINING engine sheds
+        every submit (503).
+
+        A budget past the model's ``max_position`` (prompt + new
+        tokens) is refused with ValueError: no slot has positions for
+        it.  PAGED engines also shed (503 ``reason: kv_pages``) a
+        request whose KV budget can NEVER fit the page pool, while one
+        that only does not fit now queues until evictions free
+        pages."""
         if sampling is not None and sampling.speculative:
             raise _not_ported("speculative decoding",
                               "beam and speculative decoding")
-        if sampling is not None and sampling.sampled:
-            raise _not_ported("sampled decoding (temperature > 0)",
-                              "sampled decoding")
         if priority is None:
             priority = self.policy.default_priority
         if priority not in PRIORITIES:
@@ -185,7 +237,31 @@ class DecodeEngine:
                 "engine is draining: finishing in-flight requests, "
                 "admitting none", reason="draining")
         rows = np.asarray(rows)
-        pieces = self.policy.chunk_plan(rows.shape[1], prefill_chunk)
+        p_len = rows.shape[1]
+        max_pos = self.model.cfg.max_position
+        if p_len + new > max_pos:
+            # Past the cache width the decode step would write and
+            # embed positions no slot has (a device-side assert on the
+            # card, fatal to every co-resident).
+            raise ValueError(
+                f"prompt ({p_len}) + max_new_tokens ({new}) exceeds "
+                f"the model's max_position ({max_pos})")
+        if self.paged:
+            need = self._kv_tokens_needed(p_len, new)
+            if need > self.slots.capacity_tokens:
+                # Can NEVER fit: waiting for evictions would hang it.
+                with self._shed_lock:
+                    self.shed_total += 1
+                    self.shed_by_class[priority] += 1
+                    self.shed_kv_pages_total += 1
+                raise ShedError(
+                    f"request KV budget ({need} tokens/row) exceeds "
+                    f"the page pool ({self.slots.capacity_tokens} "
+                    f"tokens = {self.slots.n_pages} x "
+                    f"{self.slots.page_tokens}-token pages); shrink "
+                    f"the prompt/budget or raise --kv-pages",
+                    reason="kv_pages")
+        pieces = self.policy.chunk_plan(p_len, prefill_chunk)
         group = RequestGroup(rows, new, eos_id, pieces, sampling,
                              priority=priority)
         if deadline_s is not None:
@@ -320,13 +396,14 @@ class DecodeEngine:
         budget = self.policy.prefill_budget(bool(self._resident),
                                             self.slots.free_slots)
         while budget > 0:
-            stream = self.queue.head()
+            stream = self._queue_head()
             if stream is None:
                 break
             if stream.group.error is not None:
                 self.queue.drop_group(stream.group)
                 continue
             if stream.pf_done and not self._admissible_now(stream):
+                # Prefilled, waiting on a slot or pages.
                 self._note_blocked(stream)
                 break
             self._advance_prefill(stream)
@@ -343,8 +420,58 @@ class DecodeEngine:
             self.debug_board.publish(self.build_debug_snapshot())
         return worked
 
+    # -- admission gates -------------------------------------------------
+
+    def _kv_tokens_needed(self, p_len: int, new: int) -> int:
+        """A stream's FULL KV reservation: prompt + budget (the port
+        has no speculative write slack yet)."""
+        return p_len + new
+
+    def _kv_admit_tokens(self, stream: Stream) -> int:
+        """The token span admission must have pages for: the full
+        budget, or (lazy) the stream's current committed length plus
+        one dispatch span (``PagedSlotKVManager.admit_tokens``)."""
+        need = self._kv_tokens_needed(stream.p_len, stream.new)
+        if self.paged and self.slots.lazy:
+            return self.slots.admit_tokens(
+                stream.p_len + max(1, len(stream.out)), need)
+        return need
+
+    def _stream_barred(self, stream: Stream) -> bool:
+        """Lazy-KV livelock guard: an exhaustion evictee is not
+        admissible while the stream it was evicted for still waits for
+        the freed pages.  The bar is cleared by the next growth pass
+        that needs no eviction, when the beneficiary goes terminal, or
+        when no resident is left (nothing can be growing)."""
+        b = stream.evicted_for
+        if b is None:
+            return False
+        if b.group.event.is_set() or not self._resident:
+            stream.evicted_for = None
+            return False
+        return True
+
+    def _queue_head(self) -> Optional[Stream]:
+        """The class-aware queue head, SKIPPING barred streams: a
+        barred evictee never blocks the stream it was evicted for."""
+        head = self.queue.head()
+        if head is None or not self._stream_barred(head):
+            return head
+        for s in self.queue.snapshot():
+            if not self._stream_barred(s):
+                return s
+        return None
+
     def _admissible_now(self, stream: Stream) -> bool:
-        return self.slots.free_slots > 0
+        """A free slot AND, paged, enough free pages for the stream's
+        reservation (and, lazy, no exhaustion bar)."""
+        if self._stream_barred(stream):
+            return False
+        if self.slots.free_slots == 0:
+            return False
+        if not self.paged:
+            return True
+        return self.slots.can_admit(self._kv_admit_tokens(stream))
 
     def _note_blocked(self, stream: Stream) -> None:
         """First boundary a fully-prefilled head could not admit: open
@@ -521,22 +648,50 @@ class DecodeEngine:
         self.queue.pop_stream(stream)
         self._admit(stream)
 
+    def _first_token(self, stream: Stream) -> int:
+        """Token 0 from the prefill logits.  Greedy: the first maximum.
+        Sampled: the slot step's position-keyed sampler at token index
+        0, with the stream's base key ``fold_in(PRNGKey(seed), row)``
+        (kept on the stream, armed into the slot at insert)."""
+        from .. import prng
+        from ..models.generate import _sample_positional_row
+
+        spec = stream.sampling
+        logits = stream.logits[0]
+        if not spec.sampled:
+            return int(torch.argmax(logits))
+        key = prng.fold_in(prng.PRNGKey(spec.seed, device=logits.device),
+                           stream.row)
+        stream.base_key = key.cpu().numpy()
+        return int(_sample_positional_row(
+            logits, key, 0, spec.temperature, spec.top_k, spec.top_p))
+
     def _admit(self, stream: Stream) -> None:
-        """Step-boundary admission: token 0 is the argmax of the prefill
-        logits (first maximum, as solo generate), the B=1 cache goes
-        into a free slot.  A device failure releases the slot and fails
-        the group: a waiter never hangs on a dead admission."""
+        """Step-boundary admission: token 0 from the prefill logits
+        (argmax, or the position-keyed sampler), the B=1 cache into a
+        free slot (paged: into freshly reserved pages).  A device
+        failure releases the slot and fails the group: a waiter never
+        hangs on a dead admission.
+
+        A RESUMED stream (evicted for pool exhaustion) samples nothing:
+        its committed tokens exist, so it re-enters feeding ``out[-1]``
+        at its original position with ``next_index == len(out)``, the
+        key the uninterrupted run would have drawn with."""
         slot = self.slots.acquire()
         assert slot is not None, "admission without a free slot"
         stream.last_slot = slot
-        try:
-            with self.device_lock:
-                first = int(torch.argmax(stream.logits[0]))
-        except Exception as e:
-            self.slots.release(slot)
-            self._fail_group(stream.group, e)
-            return
-        stream.out.append(first)
+        stream.evicted_for = None     # an admitted stream carries no bar
+        spec = stream.sampling
+        resumed = stream.resume
+        if not resumed:
+            try:
+                with self.device_lock:
+                    first = self._first_token(stream)
+            except Exception as e:
+                self.slots.release(slot)
+                self._fail_group(stream.group, e)
+                return
+            stream.out.append(first)
         stream.t_admit = time.perf_counter()
         stream.group.t_last_admit = stream.t_admit
         if stream.group.t_first_admit is None:
@@ -547,7 +702,8 @@ class DecodeEngine:
             self.tel.observe("ttft_" + stream.group.priority, ttft,
                              exemplar=stream.group.rid)
         self._emit_instant(stream, "admit", stream.t_admit,
-                           row=stream.row, slot=slot)
+                           row=stream.row, slot=slot,
+                           **({"resumed": True} if resumed else {}))
         if stream.blocked_t is not None:
             unb = self._last_freed
             self._emit_instant(
@@ -559,21 +715,44 @@ class DecodeEngine:
                    if unb is not None else {}))
             stream.blocked_t = None
         stream.logits = None
-        if stream.done():   # new == 1, or an instant eos
+        if not resumed and stream.done():   # new == 1, or an instant eos
             stream.cache = None
             self.slots.release(slot)
             stream.slot = slot          # zero-length decode span
             self._complete(stream)      # still keys the slot id
             stream.slot = None
-            self._count_admitted(stream.group.priority)
+            self._count_admitted(spec, stream.group.priority)
             self.evicted_total += 1
             return
+        kw = {}
+        if self.paged:
+            kw["total_tokens"] = self._kv_tokens_needed(stream.p_len,
+                                                        stream.new)
         try:
             with self.device_lock:
                 # Feed the last committed token at its absolute
-                # position (token 0 at p_len).
-                self.slots.insert(slot, stream.cache, stream.out[-1],
-                                  stream.p_len + len(stream.out) - 1)
+                # position (fresh: token 0 at p_len) and draw token
+                # ``len(out)`` next.
+                self.slots.insert(
+                    slot, stream.cache, stream.out[-1],
+                    stream.p_len + len(stream.out) - 1,
+                    base_key=stream.base_key,
+                    next_index=len(stream.out),
+                    temperature=spec.temperature, top_k=spec.top_k,
+                    top_p=spec.top_p, **kw)
+        except PageExhausted:
+            # Pages went between the gate and the insert: a transient
+            # shortage, not a failure — back to the front of its class
+            # through the resume path, to admit when pages free.
+            self.slots.release(slot)
+            self._emit_instant(stream, "page_requeued",
+                               time.perf_counter(), row=stream.row,
+                               tokens=len(stream.out))
+            stream.prepare_resume(SchedulerPolicy.pow2_pieces(
+                stream.p_len + len(stream.out) - 1))
+            self.queue.requeue_front(stream)
+            self.requests_requeued_total += 1
+            return
         except Exception as e:
             self.slots.release(slot)
             self._fail_group(stream.group, e)
@@ -581,11 +760,20 @@ class DecodeEngine:
         stream.cache = None             # the pool owns the KV now
         stream.slot = slot
         self._resident[slot] = stream
-        self._count_admitted(stream.group.priority)
+        if resumed:
+            stream.resume = False
+            stream.resumes += 1
+            self.resumed_total += 1
+        else:
+            self._count_admitted(spec, stream.group.priority)
 
-    def _count_admitted(self, priority: str) -> None:
+    def _count_admitted(self, spec: SamplingSpec, priority: str) -> None:
         self.admitted_total += 1
         self.admitted_by_class[priority] += 1
+        if spec.sampled:
+            self.admitted_sampled_total += 1
+        else:
+            self.admitted_greedy_total += 1
 
     # -- decode ---------------------------------------------------------
 
@@ -623,16 +811,109 @@ class DecodeEngine:
         rem = min(s.new - len(s.out) for s in self._resident.values())
         return _pow2_floor(min(cap, max(1, rem)))
 
+    def _evict_requeue(self, slot: int, stream: Stream, why: str,
+                       now: float, *, front: bool = True,
+                       **instant_args) -> None:
+        """Evict a RESIDENT stream and requeue it for token-identical
+        resume: it re-prefills ``prompt ++ out[:-1]`` in pow2 pieces
+        (a bounded set of prefill shapes) and re-enters feeding
+        ``out[-1]`` with ``next_index == len(out)``, so no token is
+        ever resampled (``Stream.prepare_resume``).  Exhaustion
+        evictions requeue at the BACK of their class (``front=False``):
+        the freed pages belong to those already waiting."""
+        del self._resident[slot]
+        self.slots.release(slot)
+        self.evicted_total += 1
+        self._note_freed(stream, why)
+        self._emit(stream, "decode", stream.t_admit, now,
+                   row=stream.row, slot=slot, tokens=len(stream.out),
+                   terminal=why)
+        self._emit_instant(stream, why, now, row=stream.row,
+                           slot=slot, tokens=len(stream.out),
+                           **instant_args)
+        stream.slot = None
+        stream.prepare_resume(SchedulerPolicy.pow2_pieces(
+            stream.p_len + len(stream.out) - 1))
+        if front:
+            self.queue.requeue_front(stream)
+        else:
+            self.queue.requeue_back(stream)
+        self.requests_requeued_total += 1
+
+    def _ensure_lazy_growth(self, span: int) -> bool:
+        """LAZY-KV step-boundary growth: before a dispatch that writes
+        ``span`` positions per slot, grow every resident's table to
+        cover them (capped at its budget).  On POOL EXHAUSTION, preempt
+        the resident with the most remaining budget through
+        ``_evict_requeue`` and retry until every survivor can grow.
+        Returns False when the boundary was consumed by evictions (the
+        next tick re-plans).
+
+        Livelock-free: evictees requeue at the BACK of their class, and
+        each carries ``evicted_for`` (the growth-blocked stream it made
+        room for) so the next boundary's admission, which runs before
+        the next growth, cannot hand the pages straight back.  Each
+        failed round evicts one resident, and the submit-time shed
+        guarantees a sole resident can always grow."""
+        evicted_any = False
+        while True:
+            blocked = None
+            for slot, stream in sorted(self._resident.items()):
+                budget = self._kv_tokens_needed(stream.p_len,
+                                                stream.new)
+                need = min(budget,
+                           int(self.slots.positions[slot]) + span)
+                if self.slots.grow_slot(slot, need) is None:
+                    blocked = (slot, stream)
+                    break
+            if blocked is None:
+                # Bars clear only on a pass that needed no eviction.
+                if not evicted_any and self._exhaust_bars:
+                    for v in self._exhaust_bars:
+                        v.evicted_for = None
+                    self._exhaust_bars.clear()
+                return not evicted_any
+            now = time.perf_counter()
+            _bslot, bstream = blocked
+            victim = None
+            for slot, stream in self._resident.items():
+                rem = stream.new - len(stream.out)
+                if victim is None or rem > victim[2]:
+                    victim = (slot, stream, rem)
+            slot, stream, _rem = victim
+            self.kv_preempt_exhaustion_total += 1
+            self.preempted_total += 1
+            stream.preempts += 1
+            self._evict_requeue(slot, stream, "preempted", now,
+                                front=False,
+                                reason="kv_pages_exhausted",
+                                blocked_rid=bstream.group.rid)
+            if stream is not bstream:
+                stream.evicted_for = bstream
+                self._exhaust_bars.append(stream)
+            evicted_any = True
+            if not self._resident:
+                return False
+
     def _decode_step(self) -> None:
         """Advance every resident stream by one fused window of decode
         steps; evict finished streams so their slots are admissible the
         SAME boundary.  Within a window a stream stops consuming at its
-        own eos/budget (later window tokens are discardable garbage)."""
+        own eos/budget (later window tokens are discardable garbage).
+        One sampled resident selects the sampled program (greedy
+        co-tenants ride its argmax lane); an all-greedy pool keeps the
+        argmax-only program."""
         window = self._pick_window()
+        if self.paged and self.slots.lazy \
+                and not self._ensure_lazy_growth(window):
+            # Exhaustion preemptions consumed this boundary.
+            return
+        sampled = any(s.sampling.sampled
+                      for s in self._resident.values())
         occupancy = len(self._resident)
         t0 = time.perf_counter()
         with self.device_lock:
-            toks_w = self.slots.step(window)            # [W, S]
+            toks_w = self.slots.step(window, sampled)   # [W, S]
         t1 = time.perf_counter()
         self.decode_steps_total += window
         self.decode_dispatches_total += 1
@@ -652,10 +933,14 @@ class DecodeEngine:
                 stream.slot = None
         self.step_device_s_total += self.slots.last_step_device_s
         self.step_wall_s_total += t1 - t0
-        self.tel.step("step", t0, t1, kind="plain", window=window,
-                      occupancy=occupancy, batch=self.slots.n_slots,
-                      tokens=emitted,
-                      device_s=round(self.slots.last_step_device_s, 6))
+        self.tel.step("step", t0, t1,
+                      kind="sampled" if sampled else "plain",
+                      window=window, occupancy=occupancy,
+                      batch=self.slots.n_slots, tokens=emitted,
+                      device_s=round(self.slots.last_step_device_s, 6),
+                      **({"pages_free": self.slots.free_page_count(),
+                          "pages_total": self.slots.n_pages}
+                         if self.paged else {}))
 
     # -- completion -----------------------------------------------------
 
@@ -663,14 +948,22 @@ class DecodeEngine:
         group = stream.group
         stream.t_done = time.perf_counter()
         if stream.t_admit is not None:
+            args = {"row": stream.row, "slot": stream.slot,
+                    "tokens": len(stream.out)}
+            if stream.preempts or stream.resumes:
+                args.update(preempts=stream.preempts,
+                            resumes=stream.resumes)
             self._emit(stream, "decode", stream.t_admit, stream.t_done,
-                       row=stream.row, slot=stream.slot,
-                       tokens=len(stream.out))
+                       **args)
         self._emit_instant(stream, "complete", stream.t_done,
                            row=stream.row, tokens=len(stream.out))
         group.complete_row(stream)
         if group.event.is_set() and group.error is None:
             self.completed_total += 1
+            if group.sampling.sampled:
+                self.completed_sampled_total += 1
+            else:
+                self.completed_greedy_total += 1
             self._record_history(group)
 
     def _fail_group(self, group: RequestGroup,
@@ -719,7 +1012,7 @@ class DecodeEngine:
             "request_id": group.rid,
             "t": round(time.time(), 3),
             "status": group.status,
-            "kind": "greedy",
+            "kind": _kind_of(group.sampling),
             "priority": group.priority,
             "rows": len(group.streams),
             "prompt_tokens": int(group.rows.shape[1]),
@@ -758,11 +1051,13 @@ class DecodeEngine:
                 "slot": slot,
                 "request_id": s.group.rid,
                 "row": s.row,
-                "kind": "greedy",
+                "kind": _kind_of(s.sampling),
                 "priority": s.group.priority,
                 "position": s.p_len + len(s.out) - 1,
                 "tokens_out": len(s.out),
                 "remaining": s.new - len(s.out),
+                "preempts": s.preempts,
+                "resumes": s.resumes,
                 "age_s": round(now - s.group.t_submit, 3),
                 **({"deadline_in_s": round(s.group.deadline - now, 3)}
                    if s.group.deadline is not None else {}),
@@ -779,7 +1074,7 @@ class DecodeEngine:
                 **({"blocked_s": round(now - s.blocked_t, 3)}
                    if s.blocked_t is not None else {}),
             })
-        return {
+        snap: Dict[str, Any] = {
             "t": now,
             "forced": bool(forced),
             "draining": self.draining,
@@ -792,6 +1087,11 @@ class DecodeEngine:
                 max(0.0, now - self.last_boundary_t), 3),
             "decode_steps_total": self.decode_steps_total,
         }
+        if self.paged:
+            snap["pages"] = {**self.slots.page_stats(),
+                             "slot_table_pages":
+                                 self.slots.slot_page_counts()}
+        return snap
 
     def stats(self) -> Dict[str, Any]:
         return {
@@ -802,11 +1102,15 @@ class DecodeEngine:
             "queue_len": len(self.queue),
             "queue_depth": self.policy.queue_depth,
             "admitted_total": self.admitted_total,
+            "admitted_greedy_total": self.admitted_greedy_total,
+            "admitted_sampled_total": self.admitted_sampled_total,
             "evicted_total": self.evicted_total,
             "decode_steps_total": self.decode_steps_total,
             "decode_dispatches_total": self.decode_dispatches_total,
             "prefill_chunks_total": self.prefill_chunks_total,
             "completed_total": self.completed_total,
+            "completed_greedy_total": self.completed_greedy_total,
+            "completed_sampled_total": self.completed_sampled_total,
             "rejected_total": self.queue.rejected,
             "cancelled_total": self.cancelled_total,
             "expired_total": self.expired_total,
@@ -825,6 +1129,13 @@ class DecodeEngine:
             "step_device_seconds_total":
                 round(self.step_device_s_total, 6),
             "step_wall_seconds_total": round(self.step_wall_s_total, 6),
+            "shed_kv_pages_total": self.shed_kv_pages_total,
+            "kv_preempt_exhaustion_total":
+                self.kv_preempt_exhaustion_total,
+            "preempted_total": self.preempted_total,
+            "requests_requeued_total": self.requests_requeued_total,
+            "resumed_total": self.resumed_total,
+            **(self.slots.page_stats() if self.paged else {}),
             # Recompile sentinel: a miss is a CUDA-graph capture (a
             # window's first eager run on the CPU), a hit a replay;
             # after warm-up the misses must stay put.

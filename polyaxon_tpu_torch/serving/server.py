@@ -1,9 +1,10 @@
 """Model server: the port's decode stack behind HTTP.
 
 Port of ``polyaxon_tpu/serving/server.py`` with ``batching=
-"continuous"``: every request becomes per-row decode streams through
-the continuous-batching engine (engine.py) over the fixed-lane slot
-pool (slots.py), and the front-end sheds load with 429 + Retry-After
+"continuous"``: every request, greedy or sampled, becomes per-row
+decode streams through the continuous-batching engine (engine.py) over
+the fixed-lane slot pool (slots.py) or, with ``kv_paged``, the paged
+pool (paged.py), and the front-end sheds load with 429 + Retry-After
 once the bounded admission queue fills.  One process, stdlib HTTP.
 
 Endpoints:
@@ -18,15 +19,19 @@ Endpoints:
   terminal-record retention ring (debug.py)
 - ``GET  /debug/state`` -> the engine's latest step-boundary snapshot
 - ``POST /generate`` -> ``{"prompt": [ids] | [[ids], ...],
-  "max_new_tokens": N, "eos_id": e, "prefill_chunk": C, "priority":
-  p, "deadline_ms": d, "timings": bool}`` -> tokens + timing
+  "max_new_tokens": N, "temperature": t, "top_k": k, "top_p": p,
+  "seed": s, "eos_id": e, "prefill_chunk": C, "priority": p,
+  "deadline_ms": d, "timings": bool}`` -> tokens + timing
 - ``POST /drain``    -> stop admission, finish in-flight work
 
-Greedy only: a request for what this slice does not serve yet —
-``temperature > 0`` (sampling), ``num_beams > 1``, ``speculative``/
-``spec_k``, ``POST /prefill`` and ``/prefix/*`` (the prefix cache),
-``POST /profile/*`` — gets a 501 naming the missing feature, never
-another route's answer.  Validation errors are the reference's 400s.
+``temperature > 0`` samples under the position-keyed contract (row r's
+i-th token draws with ``fold_in(fold_in(PRNGKey(seed), r), i)``), so a
+response equals solo ``generate_positional`` with the same seed.  A
+request for what the port does not serve yet — ``num_beams > 1``,
+``speculative``/``spec_k``, ``resume_tokens``, ``POST /prefill`` and
+``/prefix/*`` (the prefix cache), ``POST /profile/*`` — gets a 501
+naming the missing feature, never another route's answer.  Validation
+errors are the reference's 400s.
 
 Device discipline: handler threads do no tensor work; the engine
 thread owns every CUDA call, under ``device_lock`` (a FairLock).
@@ -51,7 +56,8 @@ from .debug import (RequestHistory, events_to_dicts, new_request_id,
 from .engine import DecodeEngine
 from .forensics import ForensicsCore, compute_ledger
 from .scheduler import (DeadlineExceeded, PRIORITIES, QueueFullError,
-                        RequestCancelled, SchedulerPolicy, ShedError)
+                        RequestCancelled, SamplingSpec, SchedulerPolicy,
+                        ShedError)
 from .telemetry import Telemetry, render_compile_cache
 
 _span_dicts = events_to_dicts
@@ -165,7 +171,16 @@ class ModelServer:
                  decode_window: int = 8,
                  request_timeout_s: Optional[float] = 600.0,
                  access_log: bool = False,
-                 request_history: int = 256):
+                 request_history: int = 256,
+                 kv_paged: bool = False, kv_page_tokens: int = 64,
+                 kv_pages: Optional[int] = None,
+                 kv_lazy: bool = False):
+        if kv_lazy and not kv_paged:
+            raise ValueError(
+                "kv_lazy requires kv_paged (lazy growth is a page-"
+                "reservation policy; fixed lanes have no pages)")
+        self.kv_paged = bool(kv_paged)
+        self.kv_lazy = bool(kv_lazy)
         self.model = model
         self.batching = "continuous"
         self.model_name = model_name
@@ -190,7 +205,9 @@ class ModelServer:
             policy=SchedulerPolicy(
                 n_slots=n_slots, queue_depth=queue_depth,
                 prefill_chunk=prefill_chunk,
-                decode_window=decode_window),
+                decode_window=decode_window, kv_paged=kv_paged,
+                kv_page_tokens=kv_page_tokens, kv_pages=kv_pages,
+                kv_lazy=kv_lazy),
             device_lock=self._lock,
             telemetry=self.telemetry,
             sentinel=self.recompile)
@@ -403,7 +420,7 @@ class ModelServer:
             eos = req.get("eos_id")
             eos = None if eos is None else _int(eos)
             beams = _int(req.get("num_beams", 1))
-            _int(req.get("seed", 0))
+            seed = _int(req.get("seed", 0))
         except (TypeError, ValueError):
             raise ValueError(
                 "sampling params must be scalars (temperature/top_p "
@@ -470,20 +487,20 @@ class ModelServer:
                 "beam search (num_beams > 1) is not ported to the "
                 "PyTorch backend yet (ROADMAP Queue 1: beam and "
                 "speculative decoding)")
-        if temp != 0.0:
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0) is not ported to "
-                "the PyTorch backend yet (ROADMAP Queue 1: sampled "
-                "decoding); use temperature=0")
         if req.get("resume_tokens"):
             raise NotImplementedError(
                 "resume_tokens (cross-replica resume) is not ported "
                 "yet (ROADMAP Queue 1: the router)")
         toks = np.asarray(rows, np.int64)
+        # temperature 0 is greedy (top_k/top_p inert, as in solo
+        # generate); temperature > 0 samples per slot, position-keyed.
+        sampling = SamplingSpec(seed, temp, top_k, top_p) \
+            if temp != 0.0 else None
         t0 = time.perf_counter()
-        # CONTINUOUS BATCHING: per-row greedy decode streams through
-        # the slot pool.  May raise QueueFullError -> 429.
+        # CONTINUOUS BATCHING: per-row decode streams through the slot
+        # pool.  May raise QueueFullError -> 429, ShedError -> 503.
         group = self.engine.submit(toks, new, eos, chunk,
+                                   sampling=sampling,
                                    record_timings=want_timings,
                                    priority=priority,
                                    deadline_s=deadline_s, rid=rid)
@@ -565,9 +582,11 @@ class ModelServer:
                 "draining": self.draining,
                 "drain_rejected_total": self.drain_rejected,
                 "routing": {"greedy": "engine",
-                            "sampled": "not ported",
+                            "sampled": "engine",
                             "speculative": "not ported",
                             "beam": "not ported"},
+                "kv_paged": self.kv_paged,
+                "kv_lazy": self.kv_lazy,
                 # A compile-cache miss is a CUDA-graph capture (the
                 # first eager run of a window on the CPU).
                 "compile_cache_misses":
@@ -626,19 +645,35 @@ class ModelServer:
                   "queue_len", "queue_depth", "queue_len_interactive",
                   "queue_len_batch")
         counters = ("admitted_total", "admitted_interactive_total",
-                    "admitted_batch_total", "completed_total",
+                    "admitted_batch_total", "admitted_greedy_total",
+                    "admitted_sampled_total", "completed_total",
+                    "completed_greedy_total", "completed_sampled_total",
                     "evicted_total", "cancelled_total", "shed_total",
                     "shed_interactive_total", "shed_batch_total",
                     "decode_steps_total", "decode_dispatches_total",
                     "prefill_chunks_total", "telemetry_errors_total",
                     "step_device_seconds_total",
-                    "step_wall_seconds_total")
+                    "step_wall_seconds_total", "shed_kv_pages_total",
+                    "kv_preempt_exhaustion_total", "preempted_total",
+                    "requests_requeued_total", "resumed_total")
         for key in gauges:
             lines += [f"# TYPE ptpu_serving_{key} gauge",
                       f"ptpu_serving_{key} {es[key]}"]
         for key in counters:
             lines += [f"# TYPE ptpu_serving_{key} counter",
                       f"ptpu_serving_{key} {es[key]}"]
+        if "kv_pages" in es:
+            # The page pool's occupancy (kv_paged engines only).
+            for key in ("kv_pages", "kv_page_tokens", "kv_pages_free",
+                        "kv_pages_resident", "kv_pages_shared"):
+                lines += [f"# TYPE ptpu_serving_{key} gauge",
+                          f"ptpu_serving_{key} {es[key]}"]
+            lines += ["# TYPE ptpu_serving_kv_lazy gauge",
+                      f"ptpu_serving_kv_lazy {1 if es['kv_lazy'] else 0}"]
+            for key in ("kv_pages_lazy_growths_total",
+                        "kv_pages_lazy_grown_total"):
+                lines += [f"# TYPE ptpu_serving_{key} counter",
+                          f"ptpu_serving_{key} {es[key]}"]
         lines += [
             "# TYPE ptpu_serving_deadline_expired_total counter",
             f"ptpu_serving_deadline_expired_total "

@@ -280,3 +280,113 @@ def test_slot_decode_equals_solo_on_the_card(gen):
     for s, p in enumerate(prompts):
         solo = G.generate(model, p.cuda(), max_new_tokens=13)
         assert got[:, s].tolist() == solo[0, -12:].tolist()
+
+
+def test_prng_on_the_card_equals_cpu(gen):
+    """Keys, fold_in, split, random bits and uniforms on the card are
+    bitwise the CPU's (and so jax's); gumbel noise within 4 ulps."""
+    from polyaxon_tpu_torch import prng as P
+
+    for seed in (0, 7, 2 ** 31 - 1):
+        cpu, dev = P.PRNGKey(seed), P.PRNGKey(seed, device="cuda")
+        assert torch.equal(dev.cpu(), cpu)
+        assert torch.equal(P.fold_in(dev, 12345).cpu(),
+                           P.fold_in(cpu, 12345))
+        assert torch.equal(P.split(dev, 3).cpu(), P.split(cpu, 3))
+        rows = torch.arange(8)
+        assert torch.equal(P.fold_in(dev.expand(8, 2), rows.cuda()).cpu(),
+                           P.fold_in(cpu.expand(8, 2), rows))
+        for shape in ((7,), (8, 50257)):
+            assert torch.equal(P.random_bits(dev, shape).cpu(),
+                               P.random_bits(cpu, shape))
+            assert torch.equal(P.uniform(dev, shape).cpu(),
+                               P.uniform(cpu, shape))
+            g_dev, g_cpu = P.gumbel(dev, shape).cpu(), P.gumbel(cpu, shape)
+            ulp = torch.from_numpy(np.spacing(
+                np.maximum(g_cpu.abs().numpy(), 1.0)))
+            assert bool(((g_dev - g_cpu).abs() <= 4 * ulp).all())
+
+
+def _sampled_pool(paged: bool, dtype=torch.bfloat16, n_slots=4):
+    """gpt2-tiny on the card, ``n_slots - 1`` prefilled slots (two
+    sampled, one greedy) and one idle: (model, pool)."""
+    from polyaxon_tpu_torch import prng as P
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.serving.paged import PagedSlotKVManager
+    from polyaxon_tpu_torch.serving.slots import SlotKVManager
+
+    model = get_model("gpt2-tiny").init_params(seed=0, device="cuda",
+                                               dtype=dtype)
+    pool = PagedSlotKVManager(model, n_slots, page_tokens=16,
+                              max_position=128, decode_window=8) \
+        if paged else SlotKVManager(model, n_slots, max_window=8)
+    params = [(0.8, 50, 0.95), (1.2, 0, 0.0), (0.0, 0, 0.0)]
+    for s, (t, k, p) in enumerate(params):
+        toks = torch.randint(0, 1024, (1, 9 + 13 * s),
+                             generator=torch.Generator().manual_seed(s))
+        logits, cache = G.prefill(model, toks.cuda())
+        key = P.fold_in(P.PRNGKey(s), 0)
+        first = int(G._sample_positional_row(logits[0].cpu(), key, 0, t,
+                                             k, p))
+        assert pool.acquire() == s
+        extra = {"total_tokens": toks.shape[1] + 40} if paged else {}
+        pool.insert(s, cache, first, toks.shape[1], base_key=key.numpy(),
+                    next_index=1, temperature=t, top_k=k, top_p=p,
+                    **extra)
+    return model, pool
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+def test_sampled_window_graph_equals_eager(gen, paged):
+    """The sampled W = 8 window as a CUDA-graph replay and eagerly from
+    the same state: identical tokens and bitwise-equal KV (pool pages
+    on the paged pool); a second replay captures nothing new."""
+    from polyaxon_tpu_torch.analysis.recompile import RecompileSentinel
+
+    _, pool = _sampled_pool(paged)
+    pool.sentinel = RecompileSentinel()
+    host = {k: getattr(pool, k).copy() for k in (
+        "tokens", "positions", "keys", "next_index")}
+    kv = (pool._k.clone(), pool._v.clone())
+    eager = pool.step(8, sampled=True, graph=False)
+    k_eager, v_eager = pool._k.clone(), pool._v.clone()
+    for k, v in host.items():
+        setattr(pool, k, v.copy())
+    pool._k.copy_(kv[0])
+    pool._v.copy_(kv[1])
+    replay = pool.step(8, sampled=True)
+    np.testing.assert_array_equal(replay[:, :3], eager[:, :3])
+    live = slice(0, pool.n_pages) if paged else slice(0, 3)
+    assert torch.equal(pool._k[:, live], k_eager[:, live])
+    assert torch.equal(pool._v[:, live], v_eager[:, live])
+    pool.step(8, sampled=True)
+    snap = pool.sentinel.snapshot()["compile_cache_by_kind"]
+    assert snap["slot_step"] == {"misses": 1, "hits": 1, "evictions": 0}
+
+
+def test_paged_engine_equals_fixed_lane_on_the_card(gen):
+    """float32 gpt2-tiny: a mixed greedy/sampled schedule gives the same
+    tokens on the fixed-lane pool and on the paged pool (eager and
+    lazy reservation)."""
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.serving import DecodeEngine, SchedulerPolicy
+    from polyaxon_tpu_torch.serving.scheduler import SamplingSpec
+
+    model = get_model("gpt2-tiny").init_params(seed=0, device="cuda",
+                                               dtype=torch.float32)
+    sched = [([3, 1, 4, 1], 20, None), ([2, 7, 1, 8, 2], 30, (5, 0.8)),
+             ([9] * 40, 16, None), ([1, 2], 24, (1, 1.1))]
+    results = []
+    for policy in ({}, {"kv_paged": True, "kv_page_tokens": 16},
+                   {"kv_paged": True, "kv_page_tokens": 16,
+                    "kv_lazy": True}):
+        eng = DecodeEngine(model, autostart=False, policy=SchedulerPolicy(
+            n_slots=2, decode_window=8, **policy))
+        groups = [eng.submit(np.asarray([p]), n, None, None,
+                             sampling=None if s is None else SamplingSpec(
+                                 seed=s[0], temperature=s[1], top_k=50))
+                  for p, n, s in sched]
+        eng.run_until_idle()
+        results.append([g.result().tolist() for g in groups])
+    assert results[1] == results[0] and results[2] == results[0]

@@ -384,15 +384,9 @@ def test_unported_features_are_refused(model):
     from polyaxon_tpu_torch.serving import SamplingSpec
 
     eng = _engine(model)
-    with pytest.raises(NotImplementedError, match="sampled decoding"):
-        eng.submit(_rows(1, 2), 2, None, None,
-                   sampling=SamplingSpec(0, 0.7))
     with pytest.raises(NotImplementedError, match="speculative"):
         eng.submit(_rows(1, 2), 2, None, None,
                    sampling=SamplingSpec(0, 0.0, spec_k=2))
-    with pytest.raises(NotImplementedError, match="paged pool"):
-        DecodeEngine(model, autostart=False,
-                     policy=SchedulerPolicy(kv_paged=True))
     with pytest.raises(NotImplementedError, match="meshes"):
         DecodeEngine(model, autostart=False, mesh="tp=2")
     with pytest.raises(NotImplementedError, match="speculative"):

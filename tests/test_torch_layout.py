@@ -52,7 +52,9 @@ def test_every_module_imports_without_building(monkeypatch):
     assert not _build._loaded
 
 
-SERVING_MODULES = ("serving/__init__.py", "serving/_lru.py",
+SERVING_MODULES = ("prng.py", "models/generate.py", "models/kv_cache.py",
+                   "cli/main.py", "checkpoint.py",
+                   "serving/__init__.py", "serving/_lru.py",
                    "serving/debug.py", "serving/engine.py",
                    "serving/faults.py", "serving/forensics.py",
                    "serving/paged.py", "serving/recovery.py",

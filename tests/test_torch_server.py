@@ -184,7 +184,7 @@ def test_boolean_scalar_params_are_400(server, field):
 
 
 @pytest.mark.parametrize("body,feature", [
-    ({"temperature": 0.8, "top_p": 0.9, "seed": 7}, "sampled decoding"),
+    ({"resume_tokens": 1}, "resume_tokens"),
     ({"num_beams": 2}, "beam search"),
     ({"speculative": True}, "speculative decoding"),
     ({"spec_k": 3}, "speculative decoding"),

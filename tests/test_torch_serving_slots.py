@@ -179,7 +179,5 @@ def test_step_refusals(tiny_pair, port_prefills):
     mgr.insert(0, cache, tok, PROMPTS[0].shape[1])
     with pytest.raises(ValueError, match="window"):
         mgr.step(8)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        mgr.step(1, sampled=True)
     with pytest.raises(RuntimeError, match="CUDA graphs"):
         mgr.step(1, graph=True)
