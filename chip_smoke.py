@@ -51,7 +51,16 @@ Phases, each raising on failure:
    device idle share, top kernels);
 8. one float32 step's loss and gradients through the flash route against
    the plain-attention route, at GPT-2 medium's width and 4 layers;
-9. one JSON line of kernel records, the card line, and the final
+9. ``python -m polyaxon_tpu_torch.cli run -f`` on the port's example
+   polyaxonfiles in a temporary home, each read back through the port's
+   store: the GPT-2 medium ``job`` (3 tracked steps equal to its log
+   lines, the card in its env record, ``gpu0_*`` system metrics, its
+   checkpoint, 24 launches of each flash kernel in the profiled step's
+   trace), a ``hyperband`` matrix of 6 GPT-2 medium trials (the port's
+   schedule for the sweep's seed, the best run the lowest loss) and the
+   GPT-2 medium ``service`` (tokens equal to an in-process server's,
+   reaped by ``ops stop`` with the card's memory back);
+10. one JSON line of kernel records, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -1064,7 +1073,7 @@ def _http_load(model, label, bodies, *, sampled_too=False,
     pool) and every graph key, then all
     ``bodies`` from 16 client threads: tok/s, latency p50/p99, TTFT p50,
     decode steps, mean window, graph captures (in all, and in the run:
-    0 allowed), replays, device busy and idle share (over the first 16
+    0 allowed), replays, device busy and idle share (over the first 8
     requests, run again plain and under the profiler), flash launches,
     page stats on a paged pool, the /metrics phase lines.  Returns the
     record and (server, ModelServer, base URL) for the caller to
@@ -1156,16 +1165,16 @@ def _http_load(model, label, bodies, *, sampled_too=False,
         raise AssertionError(f"{label}: {rec['captures_total']} graph "
                              f"captures in all (at most {bound}), "
                              f"{captures} after warm-up")
-    # Device busy and idle share over a rerun of the first 16 requests
+    # Device busy and idle share over a rerun of the first 8 requests
     # (one a client), timed once plain and once under the profiler: a
     # sampled load launches about 460,000 kernels in 32 requests, and
     # the profiler takes about a minute to collect that many.
-    sub = bodies[:16]
+    sub = bodies[:8]
     t0 = time.perf_counter()
-    _load_clients(base, sub, 16)
+    _load_clients(base, sub, len(sub))
     rec["profiled_wall_s"] = time.perf_counter() - t0
     rec["busy_ms"] = device_breakdown(
-        lambda: _load_clients(base, sub, 16),
+        lambda: _load_clients(base, sub, len(sub)),
         rec["profiled_wall_s"] * 1e3, "http", host=False)
     if rec["busy_ms"] is not None:
         rec["idle_share"] = max(
@@ -1357,7 +1366,7 @@ def phase_train_entry(steps: int = 3):
               f"(model init, data, steps and the final checkpoint); "
               f"flash launches {counts}")
         phase_checkpoint(live["dir"], live["model"].eval())
-    return counts
+    return counts, secs
 
 
 def phase_checkpoint(ckpt_dir, trained):
@@ -1526,6 +1535,339 @@ def phase_grad_route(layers: int = 4):
         torch.cuda.empty_cache()
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+EXAMPLES = os.path.join(ROOT, "polyaxon_tpu_torch", "examples")
+# The status sequence the local executor records for a job that succeeds.
+JOB_STATUSES = ["created", "compiled", "running", "succeeded"]
+
+
+def _ptpu(env, *args, timeout=900):
+    """``python -m polyaxon_tpu_torch.cli ARGS`` as a user types it: the
+    exit code, its output and its wall seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "polyaxon_tpu_torch.cli",
+                          *args], env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=timeout)
+    return out.returncode, out.stdout + out.stderr, \
+        time.perf_counter() - t0
+
+
+def _uuid_of(output: str) -> str:
+    return re.search(r"^\s+uuid: (\w+)$", output, re.M).group(1)
+
+
+def _trace_kernels(path: str) -> dict:
+    """Launches of each flash kernel in a torch.profiler Chrome trace, by
+    the kernel's name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(1 for n in names if f"{k}_" in n)
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def _split(store, uuid: str) -> str:
+    """Where a tracked training run's wall went, from the store's stamps:
+    spawn to ``tracking.init`` (interpreter, imports, CUDA context, model
+    init), to the last tracked step, and from there to the end (the final
+    checkpoint and exit)."""
+    rec = store.get_run(uuid)
+    init = store.read_events(uuid, "env", "env")[0]["timestamp"]
+    last = store.read_events(uuid, "metric", "loss")[-1]["timestamp"]
+    ckpt = os.path.join(store.outputs_path(uuid), "checkpoints")
+    gb = sum(os.path.getsize(os.path.join(d, f))
+             for d, _, files in os.walk(ckpt) for f in files) / 1e9
+    return (f"{init - rec['started_at']:.1f} s to tracking.init, "
+            f"{last - init:.1f} s to the last step, "
+            f"{rec['finished_at'] - last:.1f} s to the end "
+            f"({gb:.2f} GB checkpoint)")
+
+
+def _run_job(env, store, train_secs):
+    """The ``job``: GPT-2 medium at batch 8 x 1024 for 3 steps, the third
+    under the profiler; returns the flash launches of the profiled step.
+    ``train_secs``: the same 3 steps through ``train.main`` in-process."""
+    from polyaxon_tpu_torch.lifecycle import V1Statuses
+
+    rc, out, wall = _ptpu(env, "run", "-f",
+                          os.path.join(EXAMPLES, "gpt2_job.yaml"),
+                          "-P", "steps=3", "-P", "log_every=1",
+                          "-P", "profile_at=2", "-P", "profile_steps=1",
+                          "--no-watch")
+    uuid = _uuid_of(out)
+    rec = store.get_run(uuid)
+    logs = store.read_logs(uuid)
+    if rc != 0 or rec["status"] != V1Statuses.SUCCEEDED:
+        raise AssertionError(f"run gpt2_job.yaml: exit {rc}, status "
+                             f"{rec['status']}\n{out[-3000:]}")
+    statuses = [c.type for c in store.get_statuses(uuid)]
+    if statuses != JOB_STATUSES:
+        raise AssertionError(f"job statuses {statuses} != {JOB_STATUSES}")
+    losses = store.read_events(uuid, "metric", "loss")
+    printed = re.findall(r"^step (\d+)/3 loss=(\S+)", logs, re.M)
+    if [e["step"] for e in losses] != [1, 2, 3] or \
+            not all(np.isfinite(e["value"]) for e in losses) or \
+            [(str(e["step"]), f"{e['value']:.4g}") for e in losses] \
+            != printed:
+        raise AssertionError(f"tracked losses {losses} != the logged step "
+                             f"lines {printed}")
+    if rec["outputs"].get("loss") != losses[-1]["value"]:
+        raise AssertionError(f"outputs.loss {rec['outputs'].get('loss')} "
+                             f"!= the last tracked loss")
+    env_rec = store.read_events(uuid, "env", "env")[-1]["value"]
+    card = torch.cuda.get_device_name(0)
+    if env_rec.get("backend") != "cuda" or \
+            env_rec.get("device_name") != card:
+        raise AssertionError(f"env event {env_rec} does not name cuda and "
+                             f"{card}")
+    sysdir = os.path.join(store.run_path(uuid), "events", "system")
+    system = sorted(os.path.splitext(n)[0] for n in (
+        os.listdir(sysdir) if os.path.isdir(sysdir) else []))
+    gpu = [n for n in system if n.startswith("gpu0_")]
+    if not gpu:
+        raise AssertionError(f"no gpu0_* system metric among {system}")
+    outputs = store.outputs_path(uuid)
+    if not os.path.exists(os.path.join(outputs, "checkpoints", "3",
+                                       "state.pt")):
+        raise AssertionError("no checkpoint under the run's outputs")
+    launches = _trace_kernels(os.path.join(outputs, "profile",
+                                           "trace_step3.json"))
+    _check_per_step(launches, 1, 24, "run_job profiled step")
+    first = losses[0]["timestamp"] - rec["started_at"]
+    tps = store.read_events(uuid, "metric", "tok_per_sec_per_chip")
+    step_ms = [8 * 1024 / e["value"] * 1e3 for e in tps]
+    gpu_last = {n: store.read_events(uuid, "system", n)[-1]["value"]
+                for n in gpu}
+    print(f"[run] job gpt2_job.yaml: {rec['status']} "
+          f"({' -> '.join(statuses)}), `run` wall {wall:.1f} s "
+          f"({wall - train_secs:+.1f} s over train.main in-process), first "
+          f"step tracked "
+          f"{first:.1f} s after the run started, step ms "
+          + ", ".join(f"{ms:.1f}" for ms in step_ms)
+          + " (step 3 profiled); tracked loss "
+          + ", ".join(f"{e['value']:.4f}" for e in losses)
+          + f" == the step lines; outputs.loss == the last; env "
+            f"{env_rec['backend']} {env_rec['device_name']}; "
+          + ", ".join(f"{n} {v:.4g}" for n, v in gpu_last.items())
+          + f"; checkpoint outputs/checkpoints/3; profiled step's trace: "
+            f"flash launches {launches}")
+    print(f"[run] job wall: {_split(store, uuid)}")
+    return launches
+
+
+def _run_sweep(env, store, home):
+    """The ``hyperband`` matrix: 6 GPT-2 medium trials (batch 2 x 256 of a
+    seeded token stream), two at a time, scheduled as the port's ``tune``
+    schedules them for the sweep's seed: the same configs and steps, and
+    the promoted trial the one of lowest rung-0 loss."""
+    from polyaxon_tpu_torch.lifecycle import V1Statuses
+    from polyaxon_tpu_torch.polyaxonfile import check_polyaxonfile
+    from polyaxon_tpu_torch.tune import HyperbandManager
+
+    data = os.path.join(home, "tokens")
+    os.makedirs(data)
+    np.save(os.path.join(data, "tokens.npy"), np.random.RandomState(0)
+            .randint(0, 50257, 2 * 256 * 32).astype(np.int32))
+    path = os.path.join(EXAMPLES, "hyperband.yaml")
+    rc, out, wall = _ptpu(env, "run", "-f", path, "-P",
+                          f"data_dir={data}", "-P", "batch_size=2", "-P",
+                          "seq_len=256", "--no-watch")
+    sweep = store.get_run(_uuid_of(out))
+    trials = store.list_runs(pipeline=sweep["uuid"], sort="created_at")
+    bad = [(t["name"], t["status"]) for t in trials
+           if t["status"] != V1Statuses.SUCCEEDED]
+    if rc != 0 or sweep["status"] != V1Statuses.SUCCEEDED or bad or \
+            len(trials) != 6:
+        raise AssertionError(f"sweep: exit {rc}, status {sweep['status']},"
+                             f" {len(trials)} trials, failed {bad}\n"
+                             f"{out[-3000:]}")
+    # The schedule hyperband gives for this seed: bracket 1 samples 3
+    # configs at 2 steps and promotes the one of lowest loss to 6 steps;
+    # bracket 0 samples 2 more at 6 steps.
+    matrix = check_polyaxonfile([path], params={"data_dir": data}).matrix
+    mgr = HyperbandManager(matrix)
+    (r0, r1), (f0,) = mgr.rungs(1), mgr.rungs(0)
+    small, full = mgr.resource_value(r0), mgr.resource_value(r1)
+    losses = {t["uuid"]: t["outputs"]["loss"] for t in trials}
+    got = [t["meta_info"]["matrix_values"] for t in trials]
+    rung0 = [{**p, "steps": small} for p in mgr.initial_suggestions(1)]
+    fresh = [{**p, "steps": mgr.resource_value(f0)}
+             for p in mgr.initial_suggestions(0)]
+    results = [{"params": {"lr": t["meta_info"]["matrix_values"]["lr"]},
+                "metric": losses[t["uuid"]]} for t in trials
+               if t["meta_info"]["matrix_values"]["steps"] == small]
+    if len({r["metric"] for r in results}) != len(rung0):
+        raise AssertionError(f"rung 0 losses tie: {results}")
+    top = mgr.select_top(results, mgr.promote_count(1, 0))
+    promoted = [{**r["params"], "steps": full} for r in top]
+    key = (lambda p: (p["steps"], p["lr"]))
+    if sorted(got, key=key) != sorted(rung0 + promoted + fresh, key=key):
+        raise AssertionError(f"trials {got} != the schedule: {rung0}, "
+                             f"{promoted}, {fresh}")
+    if any(t["inputs"].get("lr") != t["meta_info"]["matrix_values"]["lr"]
+           for t in trials):
+        raise AssertionError("a trial trained at another lr than its "
+                             "suggestion")
+    best = min(trials, key=lambda t: losses[t["uuid"]])
+    if sweep["outputs"].get("best_run") != best["uuid"]:
+        raise AssertionError(f"best_run {sweep['outputs'].get('best_run')}"
+                             f" != argmin outputs.loss {best['uuid']}")
+    print(f"[run] hyperband.yaml: {sweep['status']}, 6 trials succeeded, "
+          f"`run` wall {wall:.1f} s; trials == the port's hyperband "
+          f"schedule for seed {matrix.seed}; best_run == argmin "
+          f"outputs.loss ({losses[best['uuid']]:.4f}, lr "
+          f"{best['inputs']['lr']:.3g})")
+    for t in trials:
+        mv = t["meta_info"]["matrix_values"]
+        print(f"[run]   {t['name']}: lr {mv['lr']:.4g}, {mv['steps']} "
+              f"step(s), loss {losses[t['uuid']]:.4f}, "
+              f"{t['duration']:.1f} s: {_split(store, t['uuid'])}")
+
+
+def _service_tokens(base, bodies):
+    import urllib.request
+
+    tokens = []
+    for body in bodies:
+        req = urllib.request.Request(base + "/generate",
+                                     data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            tokens.append(json.loads(r.read())["tokens"])
+    return tokens
+
+
+def _service_launches(base):
+    """The flash launch counters of a served process, from ``/metrics``."""
+    import urllib.request
+
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    counts = {}
+    for name in KERNELS:
+        metric = f"ptpu_{name}_launches_total "
+        line = [ln for ln in text.splitlines() if ln.startswith(metric)]
+        if len(line) != 1:
+            raise AssertionError(f"service /metrics lacks {metric.strip()}")
+        counts[name] = int(line[0].split()[1])
+    return counts
+
+
+def _gone(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def _run_service(env, store, home):
+    """The ``service``: ``serve`` of GPT-2 medium on a free port; 4 greedy
+    requests one at a time == an in-process ``ModelServer`` with the same
+    flags and seed; ``ops stop`` reaps it and the card's memory comes
+    back.  Returns the flash launches the service process made for those
+    requests, read from its ``/metrics`` before and after them."""
+    import socket
+
+    from polyaxon_tpu_torch.cli import main as cli_main
+    from polyaxon_tpu_torch.lifecycle import V1Statuses
+    from polyaxon_tpu_torch.serving import ModelServer
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    preset = os.path.join(home, "port.json")
+    with open(preset, "w") as f:  # JSON is YAML
+        json.dump({"isPreset": True, "params": {"port": {"value": port}},
+                   "component": {"run": {"ports": [port]}}}, f)
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    rc, out, ready = _ptpu(env, "run", "-f",
+                           os.path.join(EXAMPLES, "serving.yaml"),
+                           "--preset", preset)
+    uuid = _uuid_of(out)
+    rec = store.get_run(uuid)
+    if rc != 0 or rec["status"] != V1Statuses.RUNNING:
+        raise AssertionError(f"run serving.yaml: exit {rc}, status "
+                             f"{rec['status']}\n{out[-2000:]}\n"
+                             f"{store.read_logs(uuid)[-3000:]}")
+    pid = rec["meta_info"]["service"]["pid"]
+    rows = np.random.RandomState(5).randint(0, 50257, (4, 24)).tolist()
+    bodies = [{"prompt": r, "max_new_tokens": 16} for r in rows]
+    base = f"http://127.0.0.1:{port}"
+    try:
+        before = _service_launches(base)
+        t0 = time.perf_counter()
+        served = _service_tokens(base, bodies)
+        req_s = time.perf_counter() - t0
+        after = _service_launches(base)
+    finally:
+        rc_stop, out_stop, _ = _ptpu(env, "ops", "stop", uuid)
+    deadline = time.time() + 60
+    while not _gone(pid) and time.time() < deadline:
+        time.sleep(0.2)
+    if rc_stop != 0 or "reaped" not in out_stop or not _gone(pid):
+        raise AssertionError(f"ops stop: exit {rc_stop}: {out_stop}; "
+                             f"process {pid} gone: {_gone(pid)}")
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        back = torch.cuda.mem_get_info()[0]
+        if free_before - back <= 1e9:
+            break
+        time.sleep(0.5)
+    if free_before - back > 1e9:
+        raise AssertionError(f"card memory not back after ops stop: "
+                             f"{(free_before - back) / 1e9:.2f} GB short")
+    model = cli_main._build_serving_model("gpt2-medium", 1, 0)
+    ms = ModelServer(model, model_name="gpt2-medium")
+    try:
+        want = [ms.generate(dict(b))["tokens"] for b in bodies]
+    finally:
+        ms.close()
+    del model, ms
+    torch.cuda.empty_cache()
+    if served != want:
+        raise AssertionError("service tokens != the in-process ModelServer")
+    launches = {name: after[name] - before[name] for name in after}
+    statuses = [c.type for c in store.get_statuses(uuid)]
+    print(f"[run] service serving.yaml: running on port {port} when `run` "
+          f"returned, {ready:.1f} s to ready; 4 greedy requests one at a "
+          f"time in {req_s:.2f} s, tokens == an in-process ModelServer; "
+          f"flash launches in the service for them {launches} (its "
+          f"/metrics before {before}); `ops stop` reaped pid "
+          f"{pid} ({' -> '.join(statuses)}), card memory back within "
+          f"{max(0.0, free_before - back) / 1e9:.2f} GB")
+    return launches
+
+
+def phase_run(train_secs: float):
+    """``python -m polyaxon_tpu_torch.cli run -f <example>`` in a
+    temporary home, as a user types it: the ``job`` (GPT-2 medium
+    training, tracked and profiled), the ``hyperband`` matrix of GPT-2
+    medium trials and the GPT-2 medium ``service``; each result read back
+    through the port's store.  Returns the flash launches by path."""
+    from polyaxon_tpu_torch.client import FileRunStore
+
+    with tempfile.TemporaryDirectory() as home:
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("POLYAXON_TPU_RUN_UUID", "POLYAXON_TPU_HOST")}
+        env.update({
+            "POLYAXON_TPU_HOME": home,
+            "PYTHONPATH": os.pathsep.join(
+                [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+            "POLYAXON_TPU_SERVICE_READY_TIMEOUT": "180"})
+        store = FileRunStore(home)
+        t0 = time.perf_counter()
+        job = _run_job(env, store, train_secs)
+        print(f"[time] run: job {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _run_sweep(env, store, home)
+        print(f"[time] run: hyperband sweep {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        service = _run_service(env, store, home)
+        print(f"[time] run: service {time.perf_counter() - t0:.1f} s")
+    return {"run_job": job, "run_service": service}
+
+
 KERNELS = {
     "flash_fwd": ("polyaxon_tpu_torch/csrc/flash_fwd.cu",
                   "polyaxon_tpu/ops/flash.py:171"),
@@ -1589,13 +1931,16 @@ def main(argv=None) -> int:
     mark("http serving")
     del model, model_f32
     torch.cuda.empty_cache()
-    train_counts = phase_train_entry()
+    train_counts, train_secs = phase_train_entry()
     mark("train.main and checkpoint serving")
     phase_train_timed()
     mark("timed training")
     torch.cuda.empty_cache()
     phase_grad_route()
     mark("gradient route check")
+    torch.cuda.empty_cache()
+    run_counts = phase_run(train_secs)
+    mark("run -f: job, hyperband sweep, service")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = recs[name]
@@ -1610,7 +1955,9 @@ def main(argv=None) -> int:
                     "flash_launches"][name],
                 "http_serving_paged": http["mixed paged"][
                     "flash_launches"][name],
-                "train_main": train_counts[name]},
+                "train_main": train_counts[name],
+                "run_job": run_counts["run_job"][name],
+                "run_service": run_counts["run_service"][name]},
             **rec, "kernel_ms": rec["ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

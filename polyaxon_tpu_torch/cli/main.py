@@ -1,4 +1,15 @@
-"""CLI of the port: ``python -m polyaxon_tpu_torch.cli generate|serve``.
+"""CLI of the port: ``python -m polyaxon_tpu_torch.cli`` (``ptpu-torch``).
+
+``run -f polyaxonfile.yaml`` compiles an operation, executes it with the
+local executor (a ``job`` or a distributed kind as subprocesses, a
+``service`` detached until ``ops stop``, a matrix through the tuner, a
+``dag`` member by member), and tracks it in the file store; the ``ops``
+group lists, compares and manages the runs.  Both are the JAX package's
+commands (``polyaxon_tpu/cli/main.py``) over the port's own copies of the
+orchestration layers; ``run`` does no device work itself: the
+polyaxonfile's command decides where its child runs.  The JAX package's
+other commands (``check``, ``doctor``, ``agent``, ``deploy`` and more)
+are not ported yet (ROADMAP Queue 1: The deployment twin).
 
 Port of ``polyaxon_tpu/cli/main.py``'s ``generate`` command (greedy
 and position-keyed sampled decoding) and its ``serve`` command (the
@@ -13,8 +24,9 @@ user learns what is missing rather than getting a different decode.
 from __future__ import annotations
 
 import json
+import os
 import time
-from typing import Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import click
 
@@ -349,3 +361,492 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
     finally:
         srv.server_close()
         ms.close()
+
+
+# ---------------------------------------------------------------------------
+# run
+# ---------------------------------------------------------------------------
+
+
+def _parse_params(params: Tuple[str, ...]) -> Dict[str, str]:
+    out: Dict[str, str] = {}
+    for item in params:
+        if "=" not in item:
+            raise click.BadParameter(
+                f"-P expects name=value, got {item!r}")
+        key, _, value = item.partition("=")
+        out[key.strip()] = value
+    return out
+
+
+def _echo_record(record: Dict[str, Any], fields: Optional[List[str]] = None):
+    fields = fields or ["uuid", "name", "kind", "status", "created_at",
+                        "duration"]
+    for f in fields:
+        click.echo(f"{f:>12}: {record.get(f)}")
+
+
+@cli.command()
+@click.option("-f", "--file", "files", multiple=True, required=True,
+              type=click.Path(), help="Polyaxonfile(s) to run (merged in order).")
+@click.option("-P", "--param", "params", multiple=True,
+              help="Param override: -P lr=0.1 (repeatable).")
+@click.option("--preset", "presets", multiple=True, type=click.Path(),
+              help="Preset file(s) applied before -P params.")
+@click.option("--name", default=None, help="Run name override.")
+@click.option("--project", default="default", help="Project name.")
+@click.option("--watch/--no-watch", default=True,
+              help="Stream logs while running (local mode).")
+@click.option("--eager", is_flag=True, default=False,
+              help="Force local in-process execution even in API mode.")
+@click.option("--check-only", is_flag=True, default=False,
+              help="Validate and print the operation without running.")
+@click.option("--queue", default=None,
+              help="Queue override (API mode; else from the spec).")
+@click.option("--priority", default=None, type=int,
+              help="Priority override, higher claims first (API mode).")
+def run(files, params, presets, name, project, watch, eager, check_only,
+        queue, priority):
+    """Run a polyaxonfile: compile, execute, track."""
+    from polyaxon_tpu_torch.polyaxonfile import check_polyaxonfile
+    from polyaxon_tpu_torch.polyaxonfile.reader import PolyaxonfileError
+
+    try:
+        op = check_polyaxonfile(list(files), params=_parse_params(params),
+                                presets=list(presets) or None)
+    except (PolyaxonfileError, ValueError) as e:
+        raise click.ClickException(f"Invalid polyaxonfile: {e}")
+
+    if check_only:
+        click.echo(json.dumps(op.to_dict(), indent=2, default=str))
+        return
+
+    host = os.environ.get("POLYAXON_TPU_HOST")
+    if host and not eager:
+        from polyaxon_tpu_torch.client import RunClient
+
+        client = RunClient(project=project)
+        record = client.create(name=name or op.name, content=op.to_dict(),
+                               kind=getattr(op.component.run, "kind", None)
+                               if op.has_component else None,
+                               managed_by="agent",
+                               queue=queue or op.effective_queue,
+                               priority=priority if priority is not None
+                               else op.effective_priority)
+        client.log_status("queued", reason="CliSubmit", force=True)
+        click.echo(f"Run {record['uuid']} queued on {host}")
+        return
+
+    from polyaxon_tpu_torch.runner import LocalExecutor
+
+    if queue or priority is not None:
+        click.echo("note: --queue/--priority apply to queued (API-mode) "
+                   "submission; this local run executes immediately.",
+                   err=True)
+    if name:
+        op = op.model_copy(update={"name": name})
+    executor = LocalExecutor(project=project, stream_logs=watch)
+    try:
+        record = executor.run_operation(op)
+    except Exception as e:
+        raise click.ClickException(f"Run failed: {e}")
+    status = record.get("status")
+    _echo_record(record)
+    if status == "running" and record.get("kind") == "service":
+        # RUNNING is the service's steady state, not a failure: it
+        # stays up detached until `ops stop` reaps it.
+        svc = (record.get("meta_info") or {}).get("service") or {}
+        ports = svc.get("ports") or []
+        where = f" on port {ports[0]}" if ports else ""
+        click.echo(f"service is up{where}; stop with "
+                   f"`ptpu-torch ops stop {record['uuid']}`")
+        return
+    if status != "succeeded":
+        logs = executor.store.read_logs(record["uuid"], tail=20)
+        if logs:
+            click.echo("--- last logs ---")
+            click.echo(logs)
+        raise click.ClickException(f"Run finished with status {status!r}")
+
+
+# ---------------------------------------------------------------------------
+# ops
+# ---------------------------------------------------------------------------
+
+
+@cli.group()
+def ops():
+    """Inspect and manage runs."""
+
+
+def _store():
+    from polyaxon_tpu_torch.client.run_client import get_client
+
+    return get_client()
+
+
+@ops.command(name="ls")
+@click.option("--project", default=None)
+@click.option("--query", "-q", default=None,
+              help='Filter, e.g. "status:running, metrics.loss:<0.1".')
+@click.option("--sort", default="-created_at")
+@click.option("--limit", default=20, type=int)
+@click.option("--offset", default=0, type=int)
+def ops_ls(project, query, sort, limit, offset):
+    """List runs."""
+    from polyaxon_tpu_torch.client.store import StoreError
+    from polyaxon_tpu_torch.query import QueryError
+
+    try:
+        runs = _store().list_runs(project=project, query=query, sort=sort,
+                                  limit=limit, offset=offset)
+    except (QueryError, StoreError) as e:
+        raise click.ClickException(str(e))
+    if not runs:
+        click.echo("No runs found.")
+        return
+    fmt = "{:<14} {:<24} {:<12} {:<11} {:<12} {:>3} {:>9}"
+    click.echo(fmt.format("UUID", "NAME", "KIND", "STATUS", "QUEUE",
+                          "PRI", "DURATION"))
+    for r in runs:
+        dur = r.get("duration")
+        click.echo(fmt.format(
+            r["uuid"], (r.get("name") or "")[:24], str(r.get("kind") or "-"),
+            r.get("status") or "-", (r.get("queue") or "-")[:12],
+            str(r.get("priority") or 0), f"{dur:.1f}s" if dur else "-",
+        ))
+
+
+@ops.command(name="get")
+@click.argument("run_uuid")
+def ops_get(run_uuid):
+    """Show one run's record (+ heartbeat age for running runs)."""
+    record = _get_run_or_fail(run_uuid)
+    if record.get("status") == "running":
+        try:
+            beat = _store().heartbeat_at(run_uuid)
+        except Exception:  # noqa: BLE001 - informational only
+            beat = None
+        if beat is not None:
+            import time as _time
+
+            # Clamp: in API mode `beat` is the server's clock; a few
+            # seconds of client/server skew must not print a negative
+            # age.
+            record = {**record,
+                      "heartbeat_age_s":
+                          max(0.0, round(_time.time() - beat, 1))}
+    click.echo(json.dumps(record, indent=2, default=str))
+
+
+def _get_run_or_fail(run_uuid: str) -> Dict[str, Any]:
+    from polyaxon_tpu_torch.client.store import StoreError
+
+    try:
+        return _store().get_run(run_uuid)
+    except StoreError as e:
+        raise click.ClickException(str(e))
+
+
+@ops.command(name="compare")
+@click.argument("run_uuids", nargs=-1, required=True)
+def ops_compare(run_uuids):
+    """Compare runs side by side: status, inputs, last metrics."""
+    from polyaxon_tpu_torch.client.store import StoreError
+
+    store = _store()
+    records, metrics = [], []
+    for u in run_uuids:
+        try:
+            records.append(store.get_run(u))
+        except StoreError as e:
+            raise click.ClickException(str(e))
+        try:
+            metrics.append(store.last_metrics(u))
+        except Exception:  # noqa: BLE001 - missing metrics show as '-'
+            metrics.append({})
+
+    def fmt(value):
+        return f"{value:.6g}" if isinstance(value, float) else str(value)
+
+    input_keys = sorted({k for r in records
+                         for k in (r.get("inputs") or {})})
+    metric_keys = sorted({k for m in metrics for k in m})
+    rows: List[Tuple[str, List[str]]] = [
+        ("status", [r.get("status") or "-" for r in records]),
+        ("duration", [f"{r['duration']:.1f}s" if r.get("duration")
+                      else "-" for r in records]),
+    ]
+    rows += [(f"in:{k}", [fmt((r.get("inputs") or {}).get(k, "-"))
+                          for r in records]) for k in input_keys]
+    rows += [(f"metric:{k}", [fmt(m.get(k, "-")) for m in metrics])
+             for k in metric_keys]
+
+    label_w = max(16, max(len(k) for k, _ in rows) + 1)
+    width = 22
+    header = " ".join(f"{u[:12]:>{width}}" for u in run_uuids)
+    click.echo(f"{'':<{label_w}}{header}")
+    for key, values in rows:
+        cells = " ".join(f"{v:>{width}}" for v in values)
+        click.echo(f"{key:<{label_w}}{cells}")
+
+
+@ops.command(name="logs")
+@click.argument("run_uuid")
+@click.option("--replica", default=None)
+@click.option("--tail", default=None, type=int)
+@click.option("--follow", "-f", is_flag=True, default=False,
+              help="Stream new log lines until the run finishes.")
+def ops_logs(run_uuid, replica, tail, follow):
+    """Print (or follow) a run's logs."""
+    import time as _time
+
+    from polyaxon_tpu_torch.lifecycle import is_done
+
+    _get_run_or_fail(run_uuid)
+    store = _store()
+    if not follow:
+        click.echo(store.read_logs(run_uuid, replica=replica, tail=tail))
+        return
+    # Per-replica offset streaming (offsets are per file, so multiple
+    # replicas can't shift each other's positions).  API store speaks
+    # the protocol natively; the file store is read here.
+    offsets: Dict[str, int] = {}
+
+    def drain() -> None:
+        out = store.read_logs_multi(run_uuid, offsets) \
+            if hasattr(store, "read_logs_multi") else \
+            _read_logs_multi(store, run_uuid, offsets)
+        replicas = out.get("replicas", {})
+        many = len(replicas) > 1 or (replica is None and len(offsets) > 1)
+        for rep in sorted(replicas):
+            if replica is not None and rep != replica:
+                offsets[rep] = replicas[rep]["offset"]
+                continue
+            chunk = replicas[rep]["logs"]
+            offsets[rep] = replicas[rep]["offset"]
+            if not chunk:
+                continue
+            if many:
+                for line in chunk.splitlines():
+                    click.echo(f"[{rep}] {line}")
+            else:
+                click.echo(chunk, nl=False)
+
+    while True:
+        drain()
+        status = store.get_run(run_uuid).get("status")
+        if is_done(status):
+            drain()  # final read: lines flushed just before completion
+            break
+        _time.sleep(1.0)
+
+
+def _read_logs_multi(store, run_uuid: str,
+                     offsets: Dict[str, int]) -> Dict[str, Any]:
+    """Per-replica incremental reads of a file store's logs — the
+    ``--follow`` protocol of the JAX package's control plane
+    (``polyaxon_tpu/scheduler/api.py::ControlPlane.read_logs_multi``).
+
+    ``offsets``: replica -> byte offset already delivered.  Returns
+    {"replicas": {replica: {"logs": new_text, "offset": new_off}}}.
+    """
+    logs_dir = os.path.join(store.run_path(run_uuid), "logs")
+    out: Dict[str, Any] = {}
+    if os.path.isdir(logs_dir):
+        for fname in sorted(os.listdir(logs_dir)):
+            if not fname.endswith(".log"):
+                continue
+            replica = fname[:-4]
+            offset = int(offsets.get(replica, 0))
+            path = os.path.join(logs_dir, fname)
+            try:
+                size = os.path.getsize(path)
+                if offset > size:
+                    offset = 0  # truncated/rotated: restart
+                with open(path, "rb") as f:
+                    f.seek(offset)
+                    chunk = f.read()
+            except OSError:
+                continue
+            out[replica] = {"logs": chunk.decode(errors="replace"),
+                            "offset": offset + len(chunk)}
+    return {"replicas": out}
+
+
+@ops.command(name="statuses")
+@click.argument("run_uuid")
+def ops_statuses(run_uuid):
+    """Print a run's status history."""
+    _get_run_or_fail(run_uuid)
+    for c in _store().get_statuses(run_uuid):
+        line = f"{c.last_transition_time:.0f}  {c.type:<16} {c.reason or ''}"
+        if c.message:
+            line += f"  {c.message}"
+        click.echo(line)
+
+
+@ops.command(name="artifacts")
+@click.argument("run_uuid")
+def ops_artifacts(run_uuid):
+    """List a run's artifact tree and lineage."""
+    _get_run_or_fail(run_uuid)
+    store = _store()
+    root = store.artifacts_path(run_uuid)
+    for dirpath, _, files in os.walk(root):
+        for fname in files:
+            path = os.path.join(dirpath, fname)
+            click.echo(os.path.relpath(path, root))
+    lineage = store.get_lineage(run_uuid)
+    if lineage:
+        click.echo("--- lineage ---")
+        for rec in lineage:
+            click.echo(f"{rec.get('kind'):<10} {rec.get('name')}")
+
+
+@ops.command(name="metrics")
+@click.argument("run_uuid")
+@click.option("--name", default=None, help="One metric series (else last values).")
+def ops_metrics(run_uuid, name):
+    """Show tracked metrics."""
+    _get_run_or_fail(run_uuid)
+    store = _store()
+    if name:
+        for e in store.read_events(run_uuid, "metric", name):
+            click.echo(f"step={e.get('step')} value={e.get('value')}")
+    else:
+        for metric, value in sorted(store.last_metrics(run_uuid).items()):
+            click.echo(f"{metric}: {value}")
+
+
+def _reap_local_service(store, run_uuid: str) -> bool:
+    """Kill a locally-spawned service (runner.local._run_service
+    records its pid/session in meta_info) and mark it stopped.  The
+    k8s path doesn't need this — the operator reconciles STOPPING —
+    but a local detached service has no operator watching it."""
+    try:
+        rec = store.get_run(run_uuid)
+    except Exception:
+        return False
+    svc = (rec.get("meta_info") or {}).get("service") or {}
+    pid = svc.get("pid")
+    if not pid or svc.get("host") not in (None, "127.0.0.1"):
+        return False
+    import signal
+
+    try:
+        os.killpg(int(pid), signal.SIGTERM)
+    except ProcessLookupError:
+        pass  # already gone — marking stopped is correct
+    except PermissionError:
+        # We could NOT signal it (pid reuse across uids, etc.) —
+        # claiming "stopped" would strand a live orphan with a
+        # terminal-status record no second `ops stop` can fix.
+        click.echo(f"cannot signal service pid {pid} "
+                   f"(permission denied); not marking stopped",
+                   err=True)
+        return False
+    store.set_status(run_uuid, "stopped", reason="CliStop", force=True)
+    return True
+
+
+@ops.command(name="stop")
+@click.argument("run_uuid")
+def ops_stop(run_uuid):
+    """Request a run stop."""
+    _get_run_or_fail(run_uuid)
+    store = _store()
+    ok = store.set_status(run_uuid, "stopping", reason="CliStop")
+    if ok and _reap_local_service(store, run_uuid):
+        click.echo("stopped (local service reaped)")
+        return
+    click.echo("stopping" if ok else "run is already done")
+
+
+@ops.command(name="delete")
+@click.argument("run_uuid")
+@click.confirmation_option(prompt="Delete this run and its artifacts?")
+def ops_delete(run_uuid):
+    """Delete a run."""
+    _get_run_or_fail(run_uuid)
+    _store().delete_run(run_uuid)
+    click.echo(f"deleted {run_uuid}")
+
+
+@ops.command(name="restart")
+@click.argument("run_uuid")
+@click.option("--copy", "copy_artifacts", is_flag=True,
+              help="Copy the original run's artifacts into the new run.")
+def ops_restart(run_uuid, copy_artifacts):
+    """Restart a run as a new run (optionally copying artifacts)."""
+    record = _restart(run_uuid, copy_artifacts=copy_artifacts, resume=False)
+    _echo_record(record)
+
+
+@ops.command(name="resume")
+@click.argument("run_uuid")
+def ops_resume(run_uuid):
+    """Resume a run: restart pointing at the SAME artifacts (latest
+    checkpoint is picked up via {{ globals.run_artifacts_path }})."""
+    record = _restart(run_uuid, copy_artifacts=True, resume=True)
+    _echo_record(record)
+
+
+def _restart(run_uuid: str, copy_artifacts: bool, resume: bool):
+    import shutil
+
+    from polyaxon_tpu_torch.flow import V1Operation
+    from polyaxon_tpu_torch.runner import LocalExecutor
+
+    record = _get_run_or_fail(run_uuid)
+    content = record.get("content")
+    if not content:
+        raise click.ClickException(
+            f"Run {run_uuid} stores no operation content; cannot restart")
+    op = V1Operation.from_dict(content)
+    # Sweep children were created with matrix stripped and their concrete
+    # suggestion stored in meta_info — replay it.
+    matrix_values = (record.get("meta_info") or {}).get("matrix_values")
+    meta = {"restarted_from": run_uuid, "is_resume": resume}
+    if matrix_values:
+        meta["matrix_values"] = matrix_values
+
+    if os.environ.get("POLYAXON_TPU_HOST"):
+        # API mode: resubmit to the control plane; the agent executes.
+        store = _store()
+        new = store.create_run(
+            name=record.get("name"), project=record.get("project"),
+            content=content, kind=record.get("kind"), meta_info=meta,
+            managed_by="agent",
+            # keep queue routing/priority: a restarted tpu-v5e run must
+            # stay claimable by queue-scoped agents
+            queue=record.get("queue"),
+            priority=record.get("priority") or 0,
+        )
+        store.set_status(new["uuid"], "queued", reason="CliRestart",
+                         force=True)
+        return store.get_run(new["uuid"])
+
+    executor = LocalExecutor(project=record.get("project") or "default")
+    new_uuid = executor.create_run(op, meta_info=meta)
+    if copy_artifacts:
+        src = executor.store.artifacts_path(run_uuid)
+        dst = executor.store.artifacts_path(new_uuid)
+        if os.path.isdir(src):
+            shutil.copytree(src, dst, dirs_exist_ok=True)
+    try:
+        return executor.run_operation(op, run_uuid=new_uuid,
+                                      matrix_values=matrix_values)
+    except Exception as e:
+        raise click.ClickException(f"Restart failed: {e}")
+
+
+
+
+@cli.command()
+def version():
+    """Print versions (framework + runtime stack)."""
+    import torch
+
+    click.echo(f"polyaxon-tpu-torch {__version__}")
+    click.echo(f"torch {torch.__version__} (CUDA {torch.version.cuda})")

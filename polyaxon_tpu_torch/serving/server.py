@@ -681,6 +681,14 @@ class ModelServer:
             "# TYPE ptpu_serving_draining gauge",
             f"ptpu_serving_draining {1 if es['draining'] else 0}",
         ]
+        # The process's flash kernel launches: decode and prefill take
+        # plain attention, so a served model's stay at 0.
+        from ..ops import flash
+        for name, count in (("fwd", flash.launch_count),
+                            ("bwd_dq", flash.dq_launch_count),
+                            ("bwd_dkv", flash.dkv_launch_count)):
+            lines += [f"# TYPE ptpu_flash_{name}_launches_total counter",
+                      f"ptpu_flash_{name}_launches_total {count}"]
         return "\n".join(lines) + "\n"
 
 

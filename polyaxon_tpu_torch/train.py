@@ -8,11 +8,19 @@ the CPU on its own.  Parameters are float32 master weights cast to the
 model's compute dtype at their use; the optimizers are torch's AdamW,
 Adam and SGD, which compute optax's updates.
 
-Not ported yet, refused with a message naming their slice: meshes of
-more than one device (``--strategy``, ``--sp-mode``), ``--init-hf``, the
-digits and span-corruption datasets and held-out eval
-(``--eval-every``).  Run tracking is not ported either:
-the loop prints its metrics.
+The run is tracked as the reference tracks it (``tracking``): it
+attaches to the managed run the env names (``ptpu-torch run -f``) or
+registers one, logs its inputs, the metrics of every logged step and the
+final ``loss``/``perplexity``/``accuracy`` outputs a sweep joins on, and
+ends the run ``succeeded``.  ``--profile-at`` captures a torch.profiler
+Chrome trace beside the checkpoints (the run's outputs in a managed run).
+
+Not ported yet, refused with a message naming the ROADMAP item that
+carries them: meshes of more than one device and multi-process runs
+(``--strategy``, ``--sp-mode``, a PTPU_* topology of more than one
+process: **Parallelism and meshes**), ``--init-hf``, the digits and
+span-corruption datasets and held-out eval (``--eval-every``): **Training,
+the remainder**.
 """
 
 from __future__ import annotations
@@ -127,9 +135,11 @@ def make_optimizer(name: str, lr: float):
 
 
 _NOT_PORTED = {
-    "digits": "the digits dataset comes with the zoo slice of the port",
+    "digits": "the digits dataset comes with the zoo slice of the port "
+              "(ROADMAP Queue 1: Training, the remainder)",
     "span-corruption": "the span-corruption dataset comes with the T5 "
-                       "(zoo) slice of the port",
+                       "(zoo) slice of the port (ROADMAP Queue 1: "
+                       "Training, the remainder)",
 }
 
 
@@ -201,51 +211,36 @@ def parse_strategy(raw):
 
 def _refuse_unported(args, strategy) -> dict:
     """The mesh axes of ``strategy``, after refusing what is not ported."""
+    from .tracking import refuse_distributed
+
+    try:
+        refuse_distributed()
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
     if args.sp_mode is not None:
         raise SystemExit("--sp-mode: sequence parallelism comes with the "
-                         "parallelism slice of the port")
+                         "parallelism slice of the port (ROADMAP Queue 1: "
+                         "Parallelism and meshes)")
     axes = {k: v for k, v in strategy.items()
             if k not in _STRATEGY_STR_KEYS}
     if any(int(v) not in (1, -1) for v in axes.values()):
         raise SystemExit(f"--strategy {axes}: the port trains on one "
                          f"device; meshes come with the parallelism slice "
-                         f"of the port")
+                         f"of the port (ROADMAP Queue 1: Parallelism and "
+                         f"meshes)")
     if args.init_hf:
         raise SystemExit("--init-hf: loading HF checkpoints comes with the "
-                         "zoo (import_hf) slice of the port")
+                         "zoo (import_hf) slice of the port (ROADMAP Queue "
+                         "1: Training, the remainder)")
     if args.eval_every:
         raise SystemExit("--eval-every: held-out eval comes with the zoo "
                          "slice of the port (its digits dataset is the "
-                         "one with an eval split)")
+                         "one with an eval split; ROADMAP Queue 1: "
+                         "Training, the remainder)")
     return axes
 
 
-class _Profiler:
-    """``--profile-at``: a torch.profiler window over ``steps`` steps,
-    written as a Chrome trace beside the checkpoints."""
-
-    def __init__(self, out_dir: str):
-        self.out_dir = out_dir
-        self.prof = None
-
-    def start(self, device) -> None:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        self.prof = profile(activities=acts)
-        self.prof.__enter__()
-
-    def stop(self, step: int) -> None:
-        if self.prof is None:
-            return
-        self.prof.__exit__(None, None, None)
-        os.makedirs(self.out_dir, exist_ok=True)
-        path = os.path.join(self.out_dir, f"trace_step{step}.json")
-        self.prof.export_chrome_trace(path)
-        print(f"profile trace written to {path}", flush=True)
-        self.prof = None
+_OUTPUT_KEYS = ("accuracy", "loss", "perplexity", "eval_accuracy")
 
 
 def main(argv=None) -> int:
@@ -256,7 +251,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from . import default_device
+    from . import default_device, tracking
     from .checkpoint import CheckpointManager
     from .data import prefetch_to_device
     from .models.registry import get_model
@@ -277,7 +272,14 @@ def main(argv=None) -> int:
           f"batch {batch_size}, {sum(p.numel() for p in model.parameters())}"
           f" params, optimizer {args.optimizer} lr {args.lr}", flush=True)
 
-    # Checkpointing with auto-resume.
+    # Tracking: attaches to the managed run (env) or registers one.
+    run = tracking.init(name=f"train-{args.model}")
+    run.log_inputs(model=args.model, lr=args.lr, batch_size=batch_size,
+                   strategy=strategy or {"dp": -1}, n_chips=1,
+                   backend=device.type)
+
+    # Checkpointing with auto-resume, under the run's outputs when the
+    # env names a run.
     ckpt = CheckpointManager()
     start_step = 0
     if args.resume:
@@ -303,19 +305,19 @@ def main(argv=None) -> int:
     unit = "tok" if sample["inputs"].ndim == 2 else "img"
     per_batch = batch_size * sample["inputs"].shape[1] \
         if unit == "tok" else batch_size
-    profiler = _Profiler(os.path.join(os.path.dirname(ckpt.directory),
-                                      "profile"))
+    profile_dir = os.path.join(os.path.dirname(ckpt.directory), "profile")
 
+    last_metrics = {}
     t_block = time.perf_counter()
     block_start = start_step
     for step in range(start_step, total_steps):
         if args.profile_at and step == args.profile_at:
-            profiler.start(device)
+            run.start_profiler_trace(profile_dir)
         batch = next(batches)
         state, metrics = step_fn(state, batch)
         if args.profile_at and step + 1 == args.profile_at + \
                 args.profile_steps:
-            profiler.stop(step + 1)
+            _stop_profile(run, step + 1)
         if ckpt.preempt_requested:
             # SIGTERM arrived: save the state after this step and exit
             # within the operator's grace period (checkpoint.py).
@@ -331,9 +333,11 @@ def main(argv=None) -> int:
             done = step + 1 - block_start
             metrics[f"{unit}_per_sec_per_chip"] = round(
                 per_batch * done / dt, 2)
+            run.log_metrics(step=step + 1, **metrics)
             print(f"step {step + 1}/{total_steps} "
                   + " ".join(f"{k}={v:.4g}" for k, v in metrics.items()),
                   flush=True)
+            last_metrics = metrics
             t_block = time.perf_counter()
             block_start = step + 1
             if target and target[0] in metrics and \
@@ -343,11 +347,20 @@ def main(argv=None) -> int:
                 break
 
     # A profile window reaching past the last step still finalizes.
-    profiler.stop(state["step"])
+    _stop_profile(run, state["step"])
     ckpt.save(state["step"], state)
     ckpt.wait()
     ckpt.close()
+    run.log_outputs(**{k: v for k, v in last_metrics.items()
+                       if k in _OUTPUT_KEYS})
+    run.end("succeeded")
     return 0
+
+
+def _stop_profile(run, step: int) -> None:
+    path = run.stop_profiler_trace(step=step)
+    if path:
+        print(f"profile trace written to {path}", flush=True)
 
 
 if __name__ == "__main__":

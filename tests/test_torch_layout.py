@@ -9,6 +9,7 @@ the port builds no kernel and touches no CUDA.
 from __future__ import annotations
 
 import ast
+import os
 import importlib
 from pathlib import Path
 
@@ -164,3 +165,75 @@ def test_library_name_follows_hopper_header(tmp_path, monkeypatch):
     """The same for csrc/flash_hopper.cuh, the Hopper pieces both
     sources include."""
     _edit_renames_libraries("flash_hopper.cuh", tmp_path, monkeypatch)
+
+
+ORCHESTRATION_MODULES = (
+    "lifecycle.py", "query.py", "config.py", "connections.py",
+    "flow/__init__.py", "flow/base.py", "flow/io.py", "flow/k8s_refs.py",
+    "flow/environment.py", "flow/matrix.py", "flow/component.py",
+    "flow/run.py", "polyaxonfile/__init__.py", "polyaxonfile/reader.py",
+    "compiler/__init__.py", "compiler/contexts.py", "compiler/templates.py",
+    "compiler/resolver.py", "compiler/topology.py", "client/__init__.py",
+    "client/store.py", "client/run_client.py", "client/api_client.py",
+    "tracking/__init__.py", "tracking/events.py", "tracking/writer.py",
+    "tracking/processors.py", "tracking/run.py", "runner/__init__.py",
+    "runner/local.py", "runner/dag.py", "runner/hooks.py",
+    "runner/joins.py", "tune/__init__.py", "tune/space.py",
+    "tune/hyperband.py", "tune/asha.py", "tune/bayes.py", "tune/tpe.py",
+    "tune/controller.py")
+
+
+def test_orchestration_modules_are_checked():
+    """The orchestration layers are under the import rule above, and the
+    example polyaxonfiles ship as package data."""
+    for rel in ORCHESTRATION_MODULES:
+        assert PORT / rel in SOURCES, rel
+    for example in sorted((PORT / "examples").glob("*.yaml")):
+        assert _packaged(str(example.relative_to(PORT))), example.name
+
+
+def test_orchestration_touches_no_cuda(tmp_path):
+    """Tracking, the runner, the tuner and the CLI's ``run``/``ops`` make
+    no CUDA call: a fresh interpreter whose torch.cuda entry points raise
+    compiles a polyaxonfile, tracks a run, schedules a sweep and lists
+    the runs, and has no CUDA context afterwards."""
+    import subprocess
+    import sys
+
+    example = PORT / "examples" / "hyperband.yaml"
+    script = "\n".join([
+        "import torch",
+        "def boom(*a, **k):",
+        "    raise AssertionError('CUDA touched')",
+        "for name in ('init', '_lazy_init', 'is_available', 'device_count',",
+        "             'current_device', 'synchronize', 'get_device_name',",
+        "             'mem_get_info', 'set_device'):",
+        "    setattr(torch.cuda, name, boom)",
+        "from click.testing import CliRunner",
+        "from polyaxon_tpu_torch import tracking",
+        "from polyaxon_tpu_torch.cli.main import cli",
+        "from polyaxon_tpu_torch.polyaxonfile import check_polyaxonfile",
+        "from polyaxon_tpu_torch.runner import LocalExecutor",
+        "from polyaxon_tpu_torch.tune import HyperbandManager",
+        f"op = check_polyaxonfile([{str(example)!r}],",
+        "                         params={'data_dir': '/d'})",
+        "assert len(HyperbandManager(op.matrix).initial_suggestions(1)) == 3",
+        "LocalExecutor().create_run(op)",
+        "run = tracking.init(name='t')",
+        "run.log_metrics(step=1, loss=1.0)",
+        "tracking.end()",
+        "for args in (['run', '--check-only', '-f', "
+        f"{str(example)!r}, '-P', 'data_dir=/d'], ['ops', 'ls'],",
+        "             ['version']):",
+        "    out = CliRunner().invoke(cli, args)",
+        "    assert out.exit_code == 0, (args, out.output, out.exception)",
+        "assert not torch.cuda.is_initialized()",
+        "print('ok')",
+    ])
+    env = {**os.environ, "POLYAXON_TPU_HOME": str(tmp_path),
+           "PYTHONPATH": str(ROOT)}
+    env.pop("POLYAXON_TPU_RUN_UUID", None)
+    out = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -93,6 +93,9 @@ def test_read_routes_answer(server, path):
                      "ptpu_serving_decode_steps_total",
                      "ptpu_serving_compile_cache_misses_total"):
             assert name in body
+        # Decode and prefill take plain attention: no flash launch.
+        for name in ("fwd", "bwd_dq", "bwd_dkv"):
+            assert f"\nptpu_flash_{name}_launches_total 0\n" in body
         return
     doc = json.loads(body)
     if path == "/healthz":
