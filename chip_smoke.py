@@ -17,10 +17,11 @@ Phases, each raising on failure:
 1. the card's name and power limit; build every CUDA kernel from
    ``polyaxon_tpu_torch/csrc`` with nvcc (sm_90a);
 2. the flash-forward kernel against its plain PyTorch version at the
-   main path's shape, the training shape and the masks, types, head dims
+   main path's shape, the training shapes (GPT-2 medium's, TinyLlama's
+   [4, 2048, 32, 64] full and windowed) and the masks, types, head dims
    and tile edges it takes; times of the kernel, the plain version and
    PyTorch's own ``scaled_dot_product_attention`` (a yardstick the port
-   never calls) at the serving and the training shape;
+   never calls) at the serving and the training shapes;
 3. GPT-2 medium's full forward on [2, 1024] tokens (24 flash launches),
    held against the same model's plain-attention decode path, in bf16
    and in float32;
@@ -51,7 +52,18 @@ Phases, each raising on failure:
    device idle share, top kernels);
 8. one float32 step's loss and gradients through the flash route against
    the plain-attention route, at GPT-2 medium's width and 4 layers;
-9. ``python -m polyaxon_tpu_torch.cli run -f`` on the port's example
+9. TinyLlama-1.1B (RoPE, RMSNorm, SwiGLU, GQA 32/4) at full width and
+   depth, random from seed 0: the full forward on [2, 2048] (22 flash
+   launches) against plain attention in bf16 and float32; the CLI's
+   ``generate``; the server (float32 engine == solo on both pools, graph
+   windows == eager bitwise, an HTTP load of 32 mixed requests on the
+   fixed-lane and on the paged pool, no flash launch); ``TrainStep`` at
+   batch 4 x 2048 with remat (44 forward, 22 dq and 22 dkv launches a
+   step; step time, MFU); at its width and 2 layers, the flash route's
+   logits and gradients against plain attention, full causal and with a
+   sliding window of 511 (the registry's ``sliding_window`` override);
+   mistral-tiny's window in decode: float32 engine == solo on both pools;
+10. ``python -m polyaxon_tpu_torch.cli run -f`` on the port's example
    polyaxonfiles in a temporary home, each read back through the port's
    store: the GPT-2 medium ``job`` (3 tracked steps equal to its log
    lines, the card in its env record, ``gpu0_*`` system metrics, its
@@ -60,7 +72,7 @@ Phases, each raising on failure:
    schedule for the sweep's seed, the best run the lowest loss) and the
    GPT-2 medium ``service`` (tokens equal to an in-process server's,
    reaped by ``ops stop`` with the card's memory back);
-10. one JSON line of kernel records, the card line, and the final
+11. one JSON line of kernel records, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -190,6 +202,16 @@ def device_breakdown(fn, wall_ms: float, label: str, host: bool = True):
           + ", ".join(f"{n} {ms:.3f} ms ({ms / busy:.3f} of busy)"
                       for n, ms in flash.items() if ms > 0)
           + f"; {sum(k[1] for k in kernels)} kernel launches")
+    classes = {}
+    for ms, _, name in kernels:
+        cls = ("flash" if "flash_" in name else
+               "matmul" if re.search(r"gemm|gemv|nvjet|cutlass|xmma", name)
+               else "copy" if "copy" in name else "other")
+        classes[cls] = classes.get(cls, 0.0) + ms
+    print(f"[{label}] by class: " + ", ".join(
+        f"{c} {classes.get(c, 0.0):.3f} ms" for c in
+        ("matmul", "flash", "copy", "other")) + " (other: elementwise, "
+        "reductions, softmax, indexing)")
     for ms, count, name in kernels[:8]:
         print(f"[{label}]   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
     return busy
@@ -368,23 +390,42 @@ def _turns(theirs, ours) -> list:
             graph_ms(theirs)]
 
 
-def _time_forward(label, q, k, v, other=None):
-    """Device times at one causal shape: the kernel, the plain version,
-    SDPA and the bound; with ``other`` (another build of the kernel) both
-    builds in turns, other / this / this / other."""
+def _window_mask(sq, sk, window, device):
+    """SDPA's boolean mask for a causal sliding window (True = attend):
+    SDPA has no window argument, so the library call takes a mask."""
+    q_ids = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    k_ids = torch.arange(sk, device=device)[None, :]
+    return (q_ids >= k_ids) & (q_ids - k_ids <= window)
+
+
+def _sdpa_fn(qt, kt, vt, scale, window):
+    """SDPA on BHSD tensors, causal; a window goes in as a mask made
+    here, outside the timed call."""
+    mask = None if window is None else _window_mask(
+        qt.shape[2], kt.shape[2], window, qt.device)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale)
+
+
+def _time_forward(label, q, k, v, other=None, window=None):
+    """Device times at one causal shape (``window``: a sliding window):
+    the kernel, the plain version, SDPA and the bound; with ``other``
+    (another build of the kernel) both builds in turns, other / this /
+    this / other."""
     from polyaxon_tpu_torch.ops import flash
 
     scale = q.shape[-1] ** -0.5
-    kernel = lambda: flash._flash_forward_kernel(q, k, v, None, True, scale)
+    kernel = lambda: flash._flash_forward_kernel(q, k, v, None, True, scale,
+                                                 window)
     rec = {"eager_ms": eager_ms(kernel), "ms": graph_ms(kernel)}
     rec["plain_ms"] = graph_ms(lambda: flash._flash_forward_reference(
-        q, k, v, None, True, scale), calls=2, reps=5)
+        q, k, v, None, True, scale, window), calls=2, reps=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=scale)
+    sdpa = _sdpa_fn(qt, kt, vt, scale, window)
     rec["library_ms"] = graph_ms(sdpa)
-    rec["bound_ms"], rec["bound_by"] = bound(q, k, True, None, None)
-    line = (f"[kernel] {label} {list(q.shape)} {str(q.dtype)[6:]} causal, "
+    rec["bound_ms"], rec["bound_by"] = bound(q, k, True, window, None)
+    line = (f"[kernel] {label} {list(q.shape)} {str(q.dtype)[6:]} causal"
+            f"{f' window {window}' if window else ''}, "
             f"device time (CUDA graph): kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); eager "
@@ -433,8 +474,14 @@ def phase_kernel(other_src=None):
         ("f16_d128_kv_mask_masked_rows", 2, 256, 256, 4, 128, f16, True,
          None, "pad"),
         ("train_fused", 8, 1024, 1024, 16, 64, bf16, True, None, None),
+        # TinyLlama's training shape: 32 query heads over GQA-repeated
+        # K/V (contiguous after RoPE and the repeat), full and windowed.
+        ("llama_train", 4, 2048, 2048, 32, 64, bf16, True, None, None),
+        ("llama_train_window", 4, 2048, 2048, 32, 64, bf16, True, 511,
+         None),
     ]
     fused = ("main", "train_fused")  # the model's layout
+    timed = fused + ("llama_train", "llama_train_window")
     results, shapes = {}, {}
     for name, b, sq, sk, h, d, dtype, causal, window, mk in cases:
         q, k, v = _qkv(b, sq, sk, h, d, dtype, gen, fused=name in fused)
@@ -466,14 +513,19 @@ def phase_kernel(other_src=None):
             raise AssertionError(f"flash kernel disagrees with its plain "
                                  f"version at case {name}")
         results[name] = (err_o, err_l)
-        if name in fused:
+        if name in timed:
             shapes[name] = (q, k, v)
         del q, k, v, o, lse, o_ref, lse_ref
 
     other = other_forward(other_src) if other_src else None
-    rec = _time_forward("main", *shapes["main"], other)
-    train = _time_forward("training", *shapes["train_fused"], other)
+    rec = _time_forward("main", *shapes.pop("main"), other)
+    train = _time_forward("training", *shapes.pop("train_fused"), other)
     rec.update({f"{key}_train": val for key, val in train.items()})
+    for name, window in (("llama_train", None),
+                         ("llama_train_window", 511)):
+        rec[name] = _time_forward(name, *shapes.pop(name), window=window)
+        rec[name]["max_abs_err"] = results[name][0]
+        torch.cuda.empty_cache()
     rec.update({"max_abs_err": results["main"][0],
                 "max_abs_err_lse": results["main"][1],
                 "max_abs_err_train": results["train_fused"][0],
@@ -531,7 +583,14 @@ def phase_backward(other_src=None):
         ("sq_gt_sk_causal_d128", 1, 512, 256, 4, 128, bf16, True, None,
          None),
         ("fused_d128", 2, 512, 512, 8, 128, bf16, True, None, "fused"),
+        # TinyLlama's training shape, full and windowed.
+        ("llama_train", 4, 2048, 2048, 32, 64, bf16, True, None, None),
+        ("llama_train_window", 4, 2048, 2048, 32, 64, bf16, True, 511,
+         None),
     ]
+    timed = {"main_train": None, "llama_train": None,
+             "llama_train_window": 511}
+    kept = {}
     worst = {"dq": 0.0, "dkv": 0.0}
     for name, b, sq, sk, h, d, dtype, causal, window, extra in cases:
         q, k, v = _qkv(b, sq, sk, h, d, dtype, gen, fused=extra == "fused")
@@ -577,27 +636,44 @@ def phase_backward(other_src=None):
                                  f"their plain version at case {name}")
         worst["dq"] = max(worst["dq"], errs[0])
         worst["dkv"] = max(worst["dkv"], errs[1], errs[2])
-        if name == "main_train":
-            main = (q, k, v, o, lse, do, scale, errs)
+        if name in timed:
+            kept[name] = (q, k, v, o, lse, do, scale, errs)
         del q, k, v, o, lse, do, got, want
 
-    q, k, v, o, lse, do, scale, errs = main
-    args, _ = flash._bwd_kernel_args(q, k, v, None, o, lse, do, True, scale)
-    plain_args = (q, k, v, None, o, lse, do, True, scale)
+    other = other_backward(other_src) if other_src else None
+    recs = _time_backward("main_train", *kept.pop("main_train"), worst,
+                          other=other)
+    for name, window in timed.items():
+        if name in kept:
+            more = _time_backward(name, *kept.pop(name), None,
+                                  window=window)
+            for which in recs:
+                recs[which][name] = more[which]
+            torch.cuda.empty_cache()
+    return recs
+
+
+def _time_backward(label, q, k, v, o, lse, do, scale, errs, worst, *,
+                   window=None, other=None):
+    """Device times of dq and dkv at one causal shape (``window``: a
+    sliding window): the kernels, their plain versions, SDPA's backward
+    and the bounds; with ``other`` (another build) both builds in turns.
+    ``worst``: the largest errors over all cases (the main shape's
+    record carries them)."""
+    from polyaxon_tpu_torch.ops import flash
+
+    args, _ = flash._bwd_kernel_args(q, k, v, None, o, lse, do, True, scale,
+                                     window)
+    plain_args = (q, k, v, None, o, lse, do, True, scale, window)
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2)
-
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=scale)
-
+    sdpa = _sdpa_fn(qt, kt, vt, scale, window)
     # SDPA's backward: forward + backward captured together (autograd
     # runs the backward on its forward's stream, which must be the
     # capturing one), less the forward alone.
     t_lib = graph_ms(lambda: torch.autograd.grad(
         sdpa(), (qt, kt, vt), dot)) - graph_ms(sdpa)
-    other = other_backward(other_src) if other_src else None
     if other is not None:  # the other build's outputs, held as this one's
         other_args, theirs = flash._bwd_kernel_args(q, k, v, None, o, lse, do,
                                                     True, scale)
@@ -607,7 +683,7 @@ def phase_backward(other_src=None):
         torch.cuda.synchronize()
         for name, g, w in zip(("dQ", "dK", "dV"), theirs, args.keep[-3:]):
             err = _max_err(g, w)
-            if err > rel[bf16] * w.float().abs().max().item():
+            if err > 2e-2 * w.float().abs().max().item():
                 raise AssertionError(f"the other build's {name} disagrees: "
                                      f"{err}")
     recs = {}
@@ -618,14 +694,17 @@ def phase_backward(other_src=None):
         t_kernel = graph_ms(kernel)
         t_eager = eager_ms(kernel)
         t_plain = graph_ms(lambda: plain(*plain_args), calls=2, reps=5)
-        t_bound, bound_by = bound(q, k, True, None, None, q_like=q_like,
+        t_bound, bound_by = bound(q, k, True, window, None, q_like=q_like,
                                   kv_like=kv_like, rows=2,
                                   flop_per_pair=fpp)
-        rec = {"max_abs_err": err, "max_abs_err_all_cases": worst[which],
-               "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
-               "bound_ms": t_bound, "bound_by": bound_by,
-               "eager_ms": t_eager}
-        line = (f"[backward] {which} at [8,1024,16,64] bf16 causal, device "
+        rec = {"max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
+               "library_ms": t_lib, "bound_ms": t_bound,
+               "bound_by": bound_by, "eager_ms": t_eager}
+        if worst is not None:
+            rec["max_abs_err_all_cases"] = worst[which]
+        line = (f"[backward] {which} {label} at {list(q.shape)} "
+                f"{str(q.dtype)[6:]} causal"
+                f"{f' window {window}' if window else ''}, device "
                 f"time (CUDA graph): kernel {t_kernel:.4f} ms, plain "
                 f"{t_plain:.4f} ms, bound {t_bound:.4f} ms ({bound_by}); "
                 f"eager call {t_eager:.4f} ms; sdpa backward (dq+dk+dv) "
@@ -656,19 +735,24 @@ def forward_vs_plain(model, tokens):
     return logits, diff, scale, agree
 
 
-def phase_forward(model, model_f32):
-    """entry()'s full forward on GPT-2 medium; returns flash launches.
+def phase_forward(model, model_f32, name="gpt2-medium", seq=1024,
+                  tag="forward", min_agree_bf16=0.9):
+    """The full forward on [2, ``seq``] tokens (entry()'s on GPT-2
+    medium; TinyLlama's at [2, 2048], its RoPE'd q over GQA-repeated
+    K/V); returns the flash launches, one a layer.
 
-    Held against the plain-attention path in bf16 (max|d| within 5% of
-    max|logit|: 24 layers of bf16 rounding; argmax agreement >= 0.9:
-    bf16 logits lie on a grid of 1/32 near 5, so near-ties flip) and in
-    float32 (1e-3 of max|logit|, agreement >= 0.999: only summation
-    order differs)."""
+    Held against the same model's plain-attention decode path in bf16
+    (max|d| within 5% of max|logit|: 24 or 22 layers of bf16 rounding;
+    argmax agreement >= ``min_agree_bf16``: bf16 logits lie on a grid
+    of 1/32 near 5 and near-ties flip, 0.9 for GPT-2 medium, 0.8 for
+    TinyLlama, whose random untied head's top-2 gaps over 32,000 tokens
+    are about 0.2) and in float32 (1e-3 of max|logit|, agreement >=
+    0.999: only summation order differs)."""
     from polyaxon_tpu_torch.ops import flash
 
     cfg = model.cfg
     tokens = torch.as_tensor(
-        np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 1024)),
+        np.random.RandomState(0).randint(0, cfg.vocab_size, (2, seq)),
         device="cuda")
     with torch.no_grad():
         flash.launch_count = 0
@@ -678,16 +762,16 @@ def phase_forward(model, model_f32):
         if launches != cfg.num_layers:
             raise AssertionError(f"forward made {launches} flash launches;"
                                  f" expected {cfg.num_layers}")
-        if tuple(logits.shape) != (2, 1024, cfg.vocab_size) or \
+        if tuple(logits.shape) != (2, seq, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"bad logits {tuple(logits.shape)}")
         del logits
-        for m, rel, min_agree in ((model, 0.05, 0.9),
+        for m, rel, min_agree in ((model, 0.05, min_agree_bf16),
                                   (model_f32, 1e-3, 0.999)):
             logits, diff, scale, agree = forward_vs_plain(m, tokens)
             ok = bool(torch.isfinite(logits).all()) and \
                 diff <= rel * scale and agree >= min_agree
-            print(f"[forward] {str(m.cfg.dtype)[6:]}: flash vs plain-"
+            print(f"[{tag}] {str(m.cfg.dtype)[6:]}: flash vs plain-"
                   f"attention path: max|d|={diff:.6f} (tol {rel} x "
                   f"max|logit| {scale:.4f}), argmax agreement "
                   f"{agree:.4f} (min {min_agree}) {'ok' if ok else 'FAIL'}")
@@ -696,15 +780,17 @@ def phase_forward(model, model_f32):
                                      "plain-attention forward")
             del logits
         t = eager_ms(lambda: model(tokens), calls=5, reps=3)
-        print(f"[forward] gpt2-medium [2,1024] bf16: {t:.3f} ms "
-              f"({2 * 1024 / t * 1e3:.0f} tok/s), flash launches "
+        print(f"[{tag}] {name} [2,{seq}] bf16: {t:.3f} ms "
+              f"({2 * seq / t * 1e3:.0f} tok/s), flash launches "
               f"{launches}")
-        device_breakdown(lambda: model(tokens), t, "forward")
+        device_breakdown(lambda: model(tokens), t, tag)
     return launches
 
 
-def phase_serving(model, model_f32):
-    """Greedy serving on GPT-2 medium.  bf16 (the main path): tok/s, and
+def phase_serving(model, model_f32, name="gpt2-medium", tag="serving",
+                  profile=True):
+    """Greedy serving through the CLI's ``generate`` function on
+    ``name`` (GPT-2 medium, or TinyLlama).  bf16 (the main path): tok/s, and
     generate == prefill + generate_continue (the same program).  The
     one-shot vs chunked-prefill equality is held in float32 at the same
     width: in bf16 the two prefills round apart (other GEMM shapes) and
@@ -717,12 +803,12 @@ def phase_serving(model, model_f32):
     rows = np.random.RandomState(1).randint(
         0, cfg.vocab_size, (2, 128)).tolist()
     for m in (model, model_f32):
-        name = str(m.cfg.dtype)[6:]
-        run_generate(m, "gpt2-medium", rows, max_new_tokens=2,
+        dt = str(m.cfg.dtype)[6:]
+        run_generate(m, name, rows, max_new_tokens=2,
                      prefill_chunk=32)  # warm-up: cuBLAS picks its kernels
         flash.launch_count = 0
-        one = run_generate(m, "gpt2-medium", rows, max_new_tokens=32)
-        chunked = run_generate(m, "gpt2-medium", rows, max_new_tokens=32,
+        one = run_generate(m, name, rows, max_new_tokens=32)
+        chunked = run_generate(m, name, rows, max_new_tokens=32,
                                prefill_chunk=32)
         launches = flash.launch_count
         toks = np.asarray(one["tokens"])
@@ -734,10 +820,10 @@ def phase_serving(model, model_f32):
             new = G.generate_continue(m, cache, logits, 128,
                                       max_new_tokens=32)
         if new.cpu().tolist() != one["new_tokens"]:
-            raise AssertionError(f"{name}: generate != prefill + "
+            raise AssertionError(f"{dt}: generate != prefill + "
                                  f"generate_continue")
         same = int((toks == np.asarray(chunked["tokens"])).sum()) - 2 * 128
-        print(f"[serving] gpt2-medium {name} greedy, 2 x 128 prompt + 32 "
+        print(f"[{tag}] {name} {dt} greedy, 2 x 128 prompt + 32 "
               f"new: {one['tok_per_sec']} tok/s one-shot ({one['wall_s']}"
               f" s), {chunked['tok_per_sec']} tok/s chunked; chunked "
               f"agrees on {same}/64 new tokens; generate == prefill + "
@@ -745,10 +831,10 @@ def phase_serving(model, model_f32):
               f"the plain path)")
         if m is model_f32 and one["tokens"] != chunked["tokens"]:
             raise AssertionError("one-shot and chunked prefill disagree")
-        if m is model:
+        if m is model and profile:
             device_breakdown(lambda: run_generate(
-                m, "gpt2-medium", rows, max_new_tokens=32),
-                one["wall_s"] * 1e3, "serving", host=False)
+                m, name, rows, max_new_tokens=32),
+                one["wall_s"] * 1e3, tag, host=False)
 
 
 def _first_gap(model, prompt, solo_new, got_new) -> tuple:
@@ -862,14 +948,15 @@ def _concurrent(ms, bodies):
     return got, time.perf_counter() - t0
 
 
-def _f32_schedule(model_f32):
+def _f32_schedule(model_f32, name="gpt2-medium", tag="http",
+                  pools=("paged", "lazy")):
     """float32, 4 slots, prefill chunk 64: 12 concurrent requests
     (prompts of 16-200 tokens from seed 0, 24 new tokens, every odd one
     sampled) through ``ModelServer.generate`` on the fixed-lane pool
     equal solo ``generate`` / ``generate_positional`` under the tie
     rule (a first difference whose solo float32 top-2 gap, of the
     logits or of shaped logits + noise, is below 1e-4, printed); the
-    paged pool, eager and lazy, gives exactly the fixed lane's
+    paged ``pools`` (eager, lazy) give exactly the fixed lane's
     tokens."""
     from polyaxon_tpu_torch.models import generate as G
     from polyaxon_tpu_torch.serving import ModelServer
@@ -890,10 +977,10 @@ def _f32_schedule(model_f32):
                 out = G.generate(model_f32, [p], max_new_tokens=24)
             solo.append(out[0, len(p):].tolist())
     runs = {}
-    for label, kw in (("fixed", {}),
-                      ("paged", {"kv_paged": True}),
-                      ("lazy", {"kv_paged": True, "kv_lazy": True})):
-        ms = ModelServer(model_f32, model_name="gpt2-medium", n_slots=4,
+    paged = {"paged": {"kv_paged": True},
+             "lazy": {"kv_paged": True, "kv_lazy": True}}
+    for label, kw in (("fixed", {}),) + tuple((p, paged[p]) for p in pools):
+        ms = ModelServer(model_f32, model_name=name, n_slots=4,
                          prefill_chunk=64, decode_window=8, **kw)
         try:
             got, secs = _concurrent(ms, bodies)
@@ -901,7 +988,7 @@ def _f32_schedule(model_f32):
         finally:
             ms.close()
         runs[label] = [g["new_tokens"][0] for g in got]
-        print(f"[http] float32 {label}: 12 concurrent requests (6 "
+        print(f"[{tag}] float32 {label}: 12 concurrent requests (6 "
               f"sampled) in {secs:.2f} s; admitted "
               f"{stats['admitted_total']} ({stats['admitted_sampled_total']}"
               f" sampled), decode steps {stats['decode_steps_total']} in "
@@ -921,22 +1008,23 @@ def _f32_schedule(model_f32):
         else:
             k, gap = _first_gap(model_f32, p, want, new)
         kind = "sampled" if i % 2 else "greedy"
-        print(f"[http] tie rule used: request {i} ({kind}, prompt "
+        print(f"[{tag}] tie rule used: request {i} ({kind}, prompt "
               f"{len(p)}) leaves solo at new token {k}, solo "
               f"float32 top-2 gap {gap:.3e} (limit 1e-4)")
         if gap >= 1e-4:
             raise AssertionError(f"float32 engine tokens != solo for "
                                  f"request {i} at new token {k}")
         ties += 1
-    for label in ("paged", "lazy"):
+    for label in pools:
         bad = [i for i in range(12) if runs[label][i] != runs["fixed"][i]]
         if bad:
             raise AssertionError(f"float32 {label} pool tokens != fixed "
                                  f"lane for requests {bad}")
-    print(f"[http] float32 engine (6 greedy + 6 sampled, T 0.8 top-k 50 "
+    print(f"[{tag}] float32 engine (6 greedy + 6 sampled, T 0.8 top-k 50 "
           f"top-p 0.95, seed = index) equals solo generate / "
           f"generate_positional ({12 - ties} exactly, {ties} by the tie "
-          f"rule); paged (eager and lazy) == fixed lane, all 12 exactly")
+          f"rule); {' and '.join(pools)} pool == fixed lane, all 12 "
+          f"exactly")
 
 
 def _replay_ms(pool, key, restore) -> float:
@@ -955,13 +1043,15 @@ def _replay_ms(pool, key, restore) -> float:
     return statistics.median(times)
 
 
-def _graph_vs_eager(model):
+def _graph_vs_eager(model, tag="http", profile=False):
     """bf16, 8 slots filled (prompts of 64-512 tokens, every odd slot
     sampled): the W = 8 window as a CUDA-graph replay and eagerly from
     the same state give identical tokens and bitwise-equal KV, for the
     fixed-lane greedy and sampled bodies and the paged sampled body
-    (pool pages); then the device time of each replay.  Returns the ms
-    of one decode step per program."""
+    (pool pages); then the device time of each replay (``profile``: and
+    where the greedy window's device time goes, from an eager window
+    under the profiler).  Returns the ms of one decode step per
+    program."""
     from polyaxon_tpu_torch import prng
     from polyaxon_tpu_torch.models import generate as G
     from polyaxon_tpu_torch.serving.paged import PagedSlotKVManager
@@ -1015,7 +1105,7 @@ def _graph_vs_eager(model):
         same_toks = bool((replay == eager).all())
         same_kv = bool(torch.equal(pool._k[:, live], k_eager[:, live])) \
             and bool(torch.equal(pool._v[:, live], v_eager[:, live]))
-        print(f"[http] bf16 {label} W=8 window over 8 full slots: graph "
+        print(f"[{tag}] bf16 {label} W=8 window over 8 full slots: graph "
               f"replay vs eager tokens "
               f"{'identical' if same_toks else 'DIFFER'}, "
               f"{'pool pages' if paged else 'caches'} "
@@ -1032,27 +1122,39 @@ def _graph_vs_eager(model):
             name = f"paged {'sampled' if body else 'greedy'}" if paged \
                 else label
             step_ms[name] = ms / 8
-            print(f"[http] bf16 {name} W=8 window, 8 slots at positions "
+            print(f"[{tag}] bf16 {name} W=8 window, 8 slots at positions "
                   f"{min(lengths)}-{max(lengths) + 7}"
                   f"{f', pad class {key[2]}' if paged else ''}: {ms:.3f} "
                   f"ms a replay ({ms / 8:.3f} ms a decode step, "
                   f"{8 * 8 / ms * 1e3:.0f} tok/s at full occupancy)")
+        if profile and label == "greedy":
+            restore()
+            device_breakdown(lambda: pool.step(8, False, graph=False),
+                             ms, f"{tag} decode window", host=False)
         del pool, kv, k_eager, v_eager
         torch.cuda.empty_cache()
     return step_ms
 
 
-def _warm_every_key(ms, sampled_too: bool) -> None:
-    """Capture every graph a load can reach, with all slots idle: each
-    window (1, 2, 4, 8), the greedy body (and the sampled one), and on a
-    paged pool every pad class (forced through an idle slot's reserved
-    width, restored after)."""
+def _pad_classes(slots, max_tokens: int) -> list:
+    """The pad classes a paged pool's step can take while no request
+    needs more than ``max_tokens`` positions."""
+    return sorted({slots._pad_class(n) for n in range(
+        slots._n_dirty_cap, max(slots._n_dirty_cap,
+                                slots.pages_needed(max_tokens)) + 1)})
+
+
+def _warm_every_key(ms, sampled_too: bool, max_tokens: int) -> None:
+    """Capture every graph a load whose requests need at most
+    ``max_tokens`` positions can reach, with all slots idle: each window
+    (1, 2, 4, 8), the greedy body (and the sampled one), and on a paged
+    pool every pad class up to that need (forced through an idle slot's
+    reserved width, restored after)."""
     slots = ms.engine.slots
     bodies = (False, True) if sampled_too else (False,)
     classes = [None]
     if slots.paged:
-        classes = sorted({slots._pad_class(n) for n in range(
-            slots._n_dirty_cap, slots.max_pages_slot + 1)})
+        classes = _pad_classes(slots, max_tokens)
     with ms._lock:
         for P in classes:
             if P is not None:
@@ -1066,14 +1168,14 @@ def _warm_every_key(ms, sampled_too: bool) -> None:
 
 
 def _http_load(model, label, bodies, *, sampled_too=False,
-               warm_requests=8, **server_kw):
+               warm_requests=8, name="gpt2-medium", **server_kw):
     """bf16 over HTTP (``make_server`` on port 0), 8 slots, prefill chunk
     256, window 8: a warm-up of ``warm_requests`` requests (8 warm the
     process's GEMM and prefill shapes; 1 allocates a later server's
     pool) and every graph key, then all
     ``bodies`` from 16 client threads: tok/s, latency p50/p99, TTFT p50,
     decode steps, mean window, graph captures (in all, and in the run:
-    0 allowed), replays, device busy and idle share (over the first 8
+    0 allowed), replays, device busy and idle share (over the first 4
     requests, run again plain and under the profiler), flash launches,
     page stats on a paged pool, the /metrics phase lines.  Returns the
     record and (server, ModelServer, base URL) for the caller to
@@ -1084,14 +1186,15 @@ def _http_load(model, label, bodies, *, sampled_too=False,
     from polyaxon_tpu_torch.serving import ModelServer, make_server
 
     cfg = model.cfg
-    ms = ModelServer(model, model_name="gpt2-medium", n_slots=8,
+    ms = ModelServer(model, model_name=name, n_slots=8,
                      prefill_chunk=256, decode_window=8, **server_kw)
     srv = make_server("127.0.0.1", 0, ms)
     server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
     server_thread.start()
     base = f"http://127.0.0.1:{srv.server_address[1]}"
     _load_clients(base, bodies[:warm_requests], warm_requests)
-    _warm_every_key(ms, sampled_too)
+    max_tokens = max(len(b["prompt"]) + b["max_new_tokens"] for b in bodies)
+    _warm_every_key(ms, sampled_too, max_tokens)
     reserved_gb = torch.cuda.memory_reserved() / 1e9
     warm = ms.recompile.snapshot()
     steps0 = ms.engine.decode_steps_total
@@ -1158,18 +1261,16 @@ def _http_load(model, label, bodies, *, sampled_too=False,
           + (f"; pages {rec['pages']}" if "pages" in rec else ""))
     slots = ms.engine.slots
     bound = 4 * (2 if sampled_too else 1) * (
-        len({slots._pad_class(n) for n in range(
-            slots._n_dirty_cap, slots.max_pages_slot + 1)})
-        if slots.paged else 1)
+        len(_pad_classes(slots, max_tokens)) if slots.paged else 1)
     if captures or rec["captures_total"] > bound:
         raise AssertionError(f"{label}: {rec['captures_total']} graph "
                              f"captures in all (at most {bound}), "
                              f"{captures} after warm-up")
-    # Device busy and idle share over a rerun of the first 8 requests
+    # Device busy and idle share over a rerun of the first 4 requests
     # (one a client), timed once plain and once under the profiler: a
     # sampled load launches about 460,000 kernels in 32 requests, and
     # the profiler takes about a minute to collect that many.
-    sub = bodies[:8]
+    sub = bodies[:4]
     t0 = time.perf_counter()
     _load_clients(base, sub, len(sub))
     rec["profiled_wall_s"] = time.perf_counter() - t0
@@ -1303,11 +1404,17 @@ def _zero_counts():
     flash.launch_count = flash.dq_launch_count = flash.dkv_launch_count = 0
 
 
-def _check_per_step(counts, steps: int, layers: int, where: str):
-    want = {name: steps * layers for name in counts}
+def _check_per_step(counts, steps: int, layers: int, where: str,
+                    fwd_passes: int = 1):
+    """Each kernel's launches: ``layers`` of dq and of dkv a step, and
+    ``fwd_passes * layers`` of the forward (GPT-2 medium: 1; a remat
+    model runs each layer's forward again in the backward: 2)."""
+    want = {name: steps * layers * (fwd_passes if name == "flash_fwd"
+                                    else 1) for name in counts}
     if counts != want:
         raise AssertionError(f"{where}: flash launches {counts}, expected "
-                             f"{want} ({layers} of each a step)")
+                             f"{want} ({fwd_passes} x {layers} forward, "
+                             f"{layers} dq and {layers} dkv a step)")
 
 
 def phase_train_entry(steps: int = 3):
@@ -1533,6 +1640,340 @@ def phase_grad_route(layers: int = 4):
                                  "plain-attention route")
         del model, flash_g, plain_g
         torch.cuda.empty_cache()
+
+
+LLAMA = "tinyllama-1.1b"
+
+
+def llama_models():
+    """TinyLlama-1.1B at full width and depth, random from seed 0: the
+    float32 copy (the exactness checks) from the seeded CPU generator,
+    and the bf16 model served, its weights the float32 ones rounded once
+    (what ``init_params(seed=0)`` in bf16 makes, without a second random
+    draw)."""
+    from polyaxon_tpu_torch.models.registry import get_model
+
+    spec = get_model(LLAMA)
+    t0 = time.perf_counter()
+    model_f32 = spec.init_params(seed=0, device="cuda", dtype=torch.float32)
+    secs = time.perf_counter() - t0
+    model = spec.make_model(device="cuda")
+    model.load_state_dict(model_f32.state_dict())
+    model.eval().requires_grad_(False)
+    cfg = model.cfg
+    print(f"[llama] {LLAMA}: hidden {cfg.hidden_size}, {cfg.num_layers} "
+          f"layers, {cfg.num_heads} query / {cfg.num_kv_heads} KV heads, "
+          f"vocab {cfg.vocab_size}, {cfg.max_position} positions, "
+          f"{sum(p.numel() for p in model.parameters())} params; random "
+          f"init (seed 0, float32, CPU generator) in {secs:.1f} s, bf16 "
+          f"copy in {time.perf_counter() - t0 - secs:.1f} s")
+    return model, model_f32
+
+
+def phase_llama_serving(model, model_f32):
+    """TinyLlama through the continuous-batching server: float32 engine
+    tokens (half sampled) == solo on the fixed-lane pool and paged ==
+    fixed lane; the bf16 W = 8 graph windows == eager bitwise, with the
+    decode step's device time and where it goes; two HTTP loads shaped
+    as GPT-2 medium's (32 requests, prompts of 64-512 tokens from seed
+    0, 64 new, every odd one sampled at T 0.8, top-k 50, top-p 0.95),
+    one on the fixed-lane pool and one on the paged pool.  Neither load launches a flash
+    kernel (decode and chunked prefill masks take the plain path).
+    Returns the decode-step ms per program and the two records."""
+    t0 = time.perf_counter()
+    _f32_schedule(model_f32, LLAMA, tag="llama", pools=("paged",))
+    print(f"[time] llama: float32 schedules {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    step_ms = _graph_vs_eager(model, tag="llama", profile=True)
+    print(f"[time] llama: graph vs eager windows "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(0)
+    bodies = _mixed([{"prompt": rng.randint(0, model.cfg.vocab_size,
+                                            n).tolist(),
+                      "max_new_tokens": 64}
+                     for n in rng.randint(64, 513, 32)])
+    recs = {}
+    for label, kw in (("llama mixed fixed-lane", {"warm_requests": 4}),
+                      ("llama mixed paged", {"warm_requests": 1,
+                                             "kv_paged": True})):
+        t0 = time.perf_counter()
+        rec, (srv, ms, _) = _http_load(model, label, bodies,
+                                       sampled_too=True, name=LLAMA, **kw)
+        srv.shutdown()
+        srv.server_close()
+        ms.close()
+        print(f"[time] llama: {label} load {time.perf_counter() - t0:.1f} s")
+        if any(rec["flash_launches"].values()):
+            raise AssertionError(f"{label}: flash launches "
+                                 f"{rec['flash_launches']}, expected none")
+        recs[label] = rec
+        torch.cuda.empty_cache()
+    print(f"[llama] decode step ms (bf16, 8 slots, W=8 replay): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items()))
+    return step_ms, recs
+
+
+def phase_llama_train(state_dict, steps: int = 5):
+    """TinyLlama ``TrainStep`` calls at batch 4 x 2048 (bf16 compute on
+    float32 master weights loaded from ``state_dict``, AdamW, remat):
+    each step launches the forward kernel twice a layer (the forward,
+    and again as remat recomputes each layer in the backward) and dq and
+    dkv once; finite loss and gradients; step time, tok/s, MFU against
+    989 TFLOP/s, peak memory, one step under the profiler, and the
+    forward, forward + backward and optimizer times apart.  Returns the
+    record, with the launches of one step."""
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.parallel import make_train_step
+    from polyaxon_tpu_torch.train import make_optimizer
+
+    spec = get_model(LLAMA)
+    model = spec.make_model(device="cuda", param_dtype=torch.float32)
+    model.load_state_dict(state_dict)
+    model.train()
+    layers = model.cfg.num_layers
+    step_fn = make_train_step(spec.loss_fn(model),
+                              make_optimizer("adamw", 1e-3))
+    state = step_fn.init_state(model)
+    batch = {"inputs": torch.as_tensor(spec.make_batch(4)["inputs"],
+                                       device="cuda")}
+    state, metrics = step_fn(state, batch)  # warm-up: cuBLAS picks kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _check_per_step(counts, 1, layers, "llama TrainStep", fwd_passes=2)
+    loss = float(metrics["loss"])
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if not np.isfinite(loss) or bad or \
+            not np.isfinite(float(metrics["grad_norm"])):
+        raise AssertionError(f"llama TrainStep: loss {loss}, non-finite "
+                             f"grads {bad[:5]}")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    flops = spec.train_flops(4)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"step_ms": step_s * 1e3, "tok_per_s": 4 * 2048 / step_s,
+           "mfu": flops / step_s / 989e12, "train_flops": flops,
+           "peak_memory_gb": peak_gb, "loss": float(metrics["loss"]),
+           "flash_launches": counts}
+    print(f"[llama] train {LLAMA} batch 4 x 2048 bf16 (f32 master weights, "
+          f"AdamW, remat): {rec['step_ms']:.2f} ms a step ({steps} steps), "
+          f"{rec['tok_per_s']:.0f} tok/s, MFU {rec['mfu']:.4f} "
+          f"({flops / 1e12:.2f} TFLOP a step, floor "
+          f"{flops / 989e12 * 1e3:.2f} ms); peak memory {peak_gb:.2f} GB; "
+          f"loss {rec['loss']:.4f}; flash launches a step {counts}")
+    rec["busy_ms"] = device_breakdown(lambda: step_fn(state, batch),
+                                      rec["step_ms"], "llama train")
+    # The step's three parts apart: the loss forward (grad enabled, so
+    # remat saves only each layer's input), forward + backward, and the
+    # AdamW update (repeated on the last gradients).
+    loss_fn = spec.loss_fn(model)
+    rec["forward_ms"] = eager_ms(lambda: loss_fn(batch), calls=2, reps=3)
+    rec["forward_backward_ms"] = eager_ms(
+        lambda: loss_fn(batch)[0].backward(), calls=2, reps=3)
+    rec["optimizer_ms"] = eager_ms(state["opt_state"].step, calls=2, reps=3)
+    print(f"[llama] train step split: forward {rec['forward_ms']:.2f} ms, "
+          f"forward + backward {rec['forward_backward_ms']:.2f} ms, AdamW "
+          f"{rec['optimizer_ms']:.2f} ms (eager, CUDA events)")
+    del state, step_fn, model, loss_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_llama_grad_route(layers: int = 2):
+    """TinyLlama's width at ``layers`` layers (the registry's overrides),
+    [2, 2048] tokens, full causal and with ``sliding_window=511``: logits
+    and one step's loss and gradients through the flash route (forward,
+    dq, dkv; remat recomputes the forward) against the plain-attention
+    route.  float32 must agree within 1e-4 of max|logit| on the logits,
+    1e-5 relative on the loss and 1e-4 of each tensor's max |grad| (only
+    summation order differs; dK and dV reach the 4 KV heads through the
+    GQA repeat's backward); the bf16 differences are printed, not
+    held."""
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.ops import attention
+
+    spec = get_model(LLAMA)
+    tokens = torch.as_tensor(spec.make_batch(2)["inputs"], device="cuda")
+    eligible = attention.flash_eligible
+    for window in (None, 511):
+        for dtype in (torch.float32, torch.bfloat16):
+            model = spec.init_params(seed=0, device="cuda", train=True,
+                                     dtype=dtype, num_layers=layers,
+                                     sliding_window=window)
+            loss_fn = spec.loss_fn(model)
+            with torch.no_grad():
+                logits = model(tokens)
+            _zero_counts()
+            flash_loss, flash_g = _grads(model, tokens, loss_fn)
+            counts = _counts()
+            try:
+                attention.flash_eligible = lambda *a, **kw: False
+                with torch.no_grad():
+                    ref = model(tokens)
+                plain_loss, plain_g = _grads(model, tokens, loss_fn)
+            finally:
+                attention.flash_eligible = eligible
+            _check_per_step(counts, 1, layers, "llama route check",
+                            fwd_passes=2)
+            if _counts() != counts:
+                raise AssertionError(f"the plain route launched a kernel: "
+                                     f"{_counts()}")
+            d_logit = (logits - ref).abs().max().item() / \
+                ref.abs().max().item()
+            worst, where = 0.0, ""
+            for name, g in plain_g.items():
+                rel = (flash_g[name] - g).abs().max().item() / max(
+                    g.abs().max().item(), 1e-30)
+                if rel > worst:
+                    worst, where = rel, name
+            finite = all(bool(torch.isfinite(g).all())
+                         for g in flash_g.values())
+            loss_rel = abs(flash_loss - plain_loss) / abs(plain_loss)
+            held = dtype == torch.float32
+            ok = finite and (not held or (d_logit <= 1e-4 and
+                                          loss_rel <= 1e-5 and
+                                          worst <= 1e-4))
+            print(f"[llama] route, {LLAMA} width, {layers} layers, window "
+                  f"{window}, {str(dtype)[6:]}: flash vs plain attention: "
+                  f"max|d logit| / max|logit| {d_logit:.2e}, loss "
+                  f"{flash_loss:.6f} vs {plain_loss:.6f} (rel "
+                  f"{loss_rel:.2e}), max |d grad| / max |grad| {worst:.2e} "
+                  f"at {where}; flash launches {counts}"
+                  + (" (tol 1e-4, 1e-5, 1e-4) " if held
+                     else " (printed, not held) ")
+                  + ("ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError("llama flash-route logits or "
+                                     "gradients disagree with the "
+                                     "plain-attention route")
+            del model, flash_g, plain_g, logits, ref
+            torch.cuda.empty_cache()
+
+
+def phase_mistral():
+    """mistral-tiny (GQA 4/2, sliding window 31) on the card, float32:
+    12 concurrent requests through ``ModelServer`` (prompts of 16-200
+    tokens, so every budget runs past the window and the decode append
+    clips it) equal solo decoding on the fixed-lane pool, and the paged
+    pool (eager and lazy) gives the fixed lane's tokens."""
+    from polyaxon_tpu_torch.models.registry import get_model
+
+    model = get_model("mistral-tiny").init_params(seed=0, device="cuda",
+                                                  dtype=torch.float32)
+    _f32_schedule(model, "mistral-tiny", tag="mistral")
+
+
+def _serve_cli(env, args, bodies):
+    """``python -m polyaxon_tpu_torch.cli serve ARGS --port P`` as a user
+    starts it: POST every body to /generate once it prints that it
+    serves, then stop it; returns (seconds to serving, responses)."""
+    import socket
+    import urllib.request
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "polyaxon_tpu_torch.cli",
+                             "serve", *args, "--port", str(port)], env=env,
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        while line and "serving" not in line:
+            line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"serve {args} exited {proc.wait()}")
+        ready = time.perf_counter() - t0
+        out = []
+        for body in bodies:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/generate",
+                data=json.dumps(body).encode())
+            with urllib.request.urlopen(req, timeout=300) as r:
+                out.append(json.loads(r.read()))
+        return ready, out
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+
+
+def phase_llama_entry_points(steps: int = 3):
+    """TinyLlama through the commands a user types, each a fresh process
+    in a temporary home: ``python -m polyaxon_tpu_torch.train --model
+    tinyllama-1.1b`` (batch 4 x 2048, ``steps`` steps, its final
+    checkpoint), ``generate`` with random weights and with
+    ``--checkpoint`` of that run, and ``serve`` on the fixed-lane and the
+    paged pool with a greedy and a sampled request; ``generate`` and
+    ``serve --kv-paged`` of mistral-tiny (its window).  Not part of
+    ``main`` (the 17.6 GB checkpoint takes most of its time):
+    ``python3 -c "import chip_smoke as c; c.phase_llama_entry_points()"``."""
+    print(f"[card] {card_line()}")
+    with tempfile.TemporaryDirectory() as home:
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("POLYAXON_TPU_RUN_UUID", "POLYAXON_TPU_HOST")}
+        env.update({"POLYAXON_TPU_HOME": home, "PYTHONPATH": os.pathsep.join(
+            [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])})
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "polyaxon_tpu_torch.train", "--model",
+             LLAMA, "--steps", str(steps), "--log-every", "1"], env=env,
+            cwd=home, capture_output=True, text=True, timeout=1200)
+        wall = time.perf_counter() - t0
+        for line in (out.stdout + out.stderr).splitlines()[-12:]:
+            print(f"[llama cli] train: {line}")
+        losses = re.findall(r"^step \d+/\d+ loss=(\S+)", out.stdout, re.M)
+        if out.returncode != 0 or len(losses) != steps or \
+                not all(np.isfinite(float(x)) for x in losses):
+            raise AssertionError(f"train {LLAMA}: exit {out.returncode}")
+        ckpt = next(d for d, _, _ in os.walk(home)
+                    if os.path.basename(d) == "checkpoints")
+        gb = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(ckpt) for f in files) / 1e9
+        print(f"[llama cli] train {LLAMA} {steps} steps at 4 x 2048: exit 0 "
+              f"in {wall:.1f} s (process, init, steps, {gb:.2f} GB "
+              f"checkpoint)")
+        prompt = ",".join(str(t) for t in range(1, 33))
+        for name, extra, vocab in ((LLAMA, [], 32000),
+                                   (LLAMA, ["--checkpoint", ckpt], 32000),
+                                   ("mistral-tiny", [], 512)):
+            t0 = time.perf_counter()
+            rc, text, _ = _ptpu(env, "generate", "--model", name,
+                                "--prompt", prompt, "--max-new-tokens",
+                                "32", *extra)
+            rec = json.loads(text.strip().splitlines()[-1]) if rc == 0 \
+                else {}
+            new = rec.get("new_tokens", [[]])[0]
+            if rc != 0 or len(new) != 32 or \
+                    not all(0 <= t < vocab for t in new):
+                raise AssertionError(f"generate {name} {extra}: exit {rc}"
+                                     f"\n{text[-2000:]}")
+            print(f"[llama cli] generate {name} "
+                  f"{' '.join(extra) or '(seed 0)'}: 32 new tokens, "
+                  f"{rec['tok_per_sec']} tok/s in the decode, "
+                  f"{time.perf_counter() - t0:.1f} s in all")
+        bodies = [{"prompt": list(range(1, 65)), "max_new_tokens": 32},
+                  {"prompt": list(range(1, 65)), "max_new_tokens": 32,
+                   **SAMPLED, "seed": 1}]
+        for name, flags in ((LLAMA, []), (LLAMA, ["--kv-paged"]),
+                            ("mistral-tiny", ["--kv-paged"])):
+            ready, got = _serve_cli(env, ["--model", name, *flags],
+                                    bodies)
+            ok = all(len(g["new_tokens"][0]) == 32 for g in got)
+            if not ok:
+                raise AssertionError(f"serve {name} {flags}: {got}")
+            print(f"[llama cli] serve {name} "
+                  f"{' '.join(flags) or '(fixed lane)'}: "
+                  f"ready in {ready:.1f} s; a greedy and a sampled request "
+                  f"answered, 32 tokens each, TTFT "
+                  + " / ".join(f"{g['ttft_ms']:.1f}" for g in got) + " ms")
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1939,6 +2380,27 @@ def main(argv=None) -> int:
     phase_grad_route()
     mark("gradient route check")
     torch.cuda.empty_cache()
+    model, model_f32 = llama_models()
+    mark("llama init")
+    llama_forward = phase_forward(model, model_f32, LLAMA, 2048,
+                                  "llama forward", min_agree_bf16=0.8)
+    mark("llama forward")
+    phase_serving(model, model_f32, LLAMA, tag="llama", profile=False)
+    mark("llama generate")
+    llama_step_ms, llama_http = phase_llama_serving(model, model_f32)
+    mark("llama http serving")
+    del model
+    weights = model_f32.state_dict()
+    del model_f32
+    torch.cuda.empty_cache()
+    llama_train = phase_llama_train(weights)
+    del weights
+    mark("llama timed training")
+    phase_llama_grad_route()
+    mark("llama gradient route check (full and windowed)")
+    phase_mistral()
+    mark("mistral-tiny serving")
+    torch.cuda.empty_cache()
     run_counts = phase_run(train_secs)
     mark("run -f: job, hyperband sweep, service")
     kernels = []
@@ -1957,8 +2419,21 @@ def main(argv=None) -> int:
                     "flash_launches"][name],
                 "train_main": train_counts[name],
                 "run_job": run_counts["run_job"][name],
-                "run_service": run_counts["run_service"][name]},
+                "run_service": run_counts["run_service"][name],
+                "llama_forward": llama_forward if name == "flash_fwd"
+                else 0,
+                "llama_train": llama_train["flash_launches"][name],
+                "llama_http_serving": llama_http[
+                    "llama mixed fixed-lane"]["flash_launches"][name],
+                "llama_http_serving_paged": llama_http[
+                    "llama mixed paged"]["flash_launches"][name]},
             **rec, "kernel_ms": rec["ms"]})
+    print(f"[llama] decode step ms (bf16, 8 slots, W=8 replay): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in llama_step_ms.items())
+          + f"; train step {llama_train['step_ms']:.2f} ms, MFU "
+          f"{llama_train['mfu']:.4f}; HTTP tok/s "
+          + ", ".join(f"{k} {r['tok_per_s']:.1f}"
+                      for k, r in llama_http.items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

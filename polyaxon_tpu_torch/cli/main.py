@@ -153,13 +153,25 @@ def run_generate(model, model_name: str, rows, *, max_new_tokens: int,
     }
 
 
-# Flags of the reference's `generate` the port refuses when set to
-# anything but their default: (option name, default).
+# Flags of the reference's `generate` and `serve` the port refuses when
+# set to anything but their default: (option, default, ROADMAP item).
+_SPEC = "beam and speculative decoding"
+_INT8 = "int8 weights and int8 KV"
 _NOT_PORTED = (
-    ("--beams", 1), ("--draft-model", None),
-    ("--draft-checkpoint", None), ("--spec-k", 4),
-    ("--int8-weights", False), ("--int8-kv", False), ("--kv-ring", False),
+    ("--beams", 1, _SPEC), ("--draft-model", None, _SPEC),
+    ("--draft-checkpoint", None, _SPEC), ("--spec-k", 4, _SPEC),
+    ("--int8-weights", False, _INT8), ("--int8-kv", False, _INT8),
+    ("--kv-ring", False, _INT8),
 )
+
+
+def _refuse_not_ported(table, values) -> None:
+    refused = [f"{flag} (ROADMAP Queue 1: {item})"
+               for flag, default, item in table
+               if values[flag] != default]
+    if refused:
+        raise click.ClickException(
+            f"not yet ported to the PyTorch backend: {', '.join(refused)}")
 
 
 @cli.command()
@@ -204,16 +216,10 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
               "--draft-checkpoint": draft_checkpoint, "--spec-k": spec_k,
               "--int8-weights": int8_weights, "--int8-kv": int8_kv,
               "--kv-ring": kv_ring}
-    refused = [flag for flag, default in _NOT_PORTED
-               if values[flag] != default]
     if temperature < 0.0:
         raise click.ClickException(
             f"temperature must be >= 0; got {temperature}")
-    if refused:
-        raise click.ClickException(
-            f"not yet ported to the PyTorch backend: {', '.join(refused)}"
-            f" (beam search, speculative decoding, int8 and the ring "
-            f"cache come with later slices)")
+    _refuse_not_ported(_NOT_PORTED, values)
     rows = _parse_prompt(prompt)
     try:
         model = _build_serving_model(model_name, len(rows), 0,
@@ -231,8 +237,9 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
 # slices, refused by name when set: (option, default, ROADMAP item).
 _SERVE_NOT_PORTED = (
     ("--kv-host-spill-bytes", 0, "the spill tier and its wire format"),
-    ("--draft-model", None, "beam and speculative decoding"),
-    ("--spec-k", 4, "beam and speculative decoding"),
+    ("--draft-model", None, _SPEC), ("--spec-k", 4, _SPEC),
+    ("--int8-weights", False, _INT8), ("--int8-kv", False, _INT8),
+    ("--kv-ring", False, _INT8),
 )
 
 
@@ -290,12 +297,20 @@ _SERVE_NOT_PORTED = (
 @click.option("--spec-k", default=4, type=int,
               help="Speculative draft width (not ported yet; refused "
                    "when changed).")
+@click.option("--int8-weights", is_flag=True, default=False,
+              help="int8 weights (not ported yet; refused when set).")
+@click.option("--int8-kv", is_flag=True, default=False,
+              help="int8 KV cache (not ported yet; refused when set).")
+@click.option("--kv-ring", is_flag=True, default=False,
+              help="O(window) ring cache for sliding-window models (not "
+                   "ported yet; refused when set).")
 @click.option("--cpu", is_flag=True, default=False,
               help="Run on the CPU (default: the CUDA device).")
 def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
           decode_window, request_timeout, access_log, request_history,
           checkpoint, kv_paged, kv_page_tokens, kv_pages, kv_lazy,
-          kv_host_spill_bytes, draft_model, spec_k, cpu):
+          kv_host_spill_bytes, draft_model, spec_k, int8_weights, int8_kv,
+          kv_ring, cpu):
     """Serve a zoo model over HTTP: greedy and sampled POST /generate
     through the continuous-batching engine (step-boundary admission,
     eos eviction, interleaved chunked prefill, fused decode windows,
@@ -314,14 +329,11 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
         raise click.ClickException("--request-timeout must be > 0")
     if request_history < 0:
         raise click.ClickException("--request-history must be >= 0")
-    values = {"--kv-host-spill-bytes": kv_host_spill_bytes,
-              "--draft-model": draft_model, "--spec-k": spec_k}
-    refused = [f"{flag} (ROADMAP Queue 1: {item})"
-               for flag, default, item in _SERVE_NOT_PORTED
-               if values[flag] != default]
-    if refused:
-        raise click.ClickException(
-            f"not yet ported to the PyTorch backend: {', '.join(refused)}")
+    _refuse_not_ported(_SERVE_NOT_PORTED, {
+        "--kv-host-spill-bytes": kv_host_spill_bytes,
+        "--draft-model": draft_model, "--spec-k": spec_k,
+        "--int8-weights": int8_weights, "--int8-kv": int8_kv,
+        "--kv-ring": kv_ring})
     # Paged-KV flag validation: fail fast, before the model build.
     if kv_page_tokens < 8:
         raise click.ClickException("--kv-page-tokens must be >= 8")

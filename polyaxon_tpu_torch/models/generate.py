@@ -27,11 +27,13 @@ M32 = 0xFFFFFFFF
 
 def init_cache(model, batch_size: int) -> KVCache:
     """A zeroed decode cache for a decoder-only ``model``:
-    [layers, B, max_position, H, D] in the model's dtype, index 0."""
+    [layers, B, max_position, kv_heads, D] in the model's dtype, index
+    0.  ``kv_heads`` is a grouped-query model's ``num_kv_heads``, else
+    ``num_heads``."""
     cfg = model.cfg
-    shape = (cfg.num_layers, batch_size, cfg.max_position, cfg.num_heads,
-             cfg.hidden_size // cfg.num_heads)
-    dev = model.wte.weight.device
+    shape = (cfg.num_layers, batch_size, cfg.max_position,
+             getattr(cfg, "num_kv_heads", cfg.num_heads), cfg.head_dim)
+    dev = model.device
     return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=dev),
                    torch.zeros(shape, dtype=cfg.dtype, device=dev))
 
@@ -303,7 +305,7 @@ def generate(model, prompt, *, max_new_tokens: int,
     cfg = model.cfg
     _check_top_k(top_k, cfg.vocab_size)
     _check_temperature(temperature)
-    dev = model.wte.weight.device
+    dev = model.device
     rng = _default_rng(rng, dev)
     prompt = _as_tokens(prompt, dev)
     if max_new_tokens == 0:
@@ -345,7 +347,7 @@ def generate_positional(model, prompt, *, max_new_tokens: int,
                                cfg.vocab_size)
     top_k = top_k or 0
     top_p = top_p or 0.0
-    dev = model.wte.weight.device
+    dev = model.device
     prompt = _as_tokens(prompt, dev)
     if max_new_tokens == 0:
         return prompt
@@ -376,7 +378,7 @@ def prefill(model, prompt, *, chunk: Optional[int] = None,
     after ``prefill(prefix)`` equals one ``prefill(prefix ++ suffix)``.
     The cache is written in place.  Returns ``(last_position_logits
     [B, V], cache)`` — feed both to :func:`generate_continue`."""
-    prompt = _as_tokens(prompt, model.wte.weight.device)
+    prompt = _as_tokens(prompt, model.device)
     return _prefill(model, prompt, chunk=chunk, cache=cache,
                     position=position)
 

@@ -42,7 +42,7 @@ class GPT2Config:
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     # remat: recompute each block in the backward.  Named policies and the
-    # int8 KV cache are not ported yet and are refused.
+    # int8 KV cache are not ported yet and are refused (refuse_unported).
     remat: bool = False
     remat_policy: Optional[str] = None
     # The flax param layout (stacked [num_layers] vs h_{i}); the port
@@ -87,15 +87,51 @@ def _layer_norm(cfg: GPT2Config, device) -> nn.LayerNorm:
 
 class Dense(nn.Linear):
     """``nn.Linear`` holding its parameters in ``param_dtype`` and
-    computing in ``dtype`` (flax ``Dense(dtype=...)``)."""
+    computing in ``dtype`` (flax ``Dense(dtype=...)``, ``use_bias``
+    as ``bias``)."""
 
-    def __init__(self, n_in: int, n_out: int, dtype, param_dtype, device):
-        super().__init__(n_in, n_out, dtype=param_dtype, device=device)
+    def __init__(self, n_in: int, n_out: int, dtype, param_dtype, device,
+                 bias: bool = True):
+        super().__init__(n_in, n_out, bias=bias, dtype=param_dtype,
+                         device=device)
         self.compute_dtype = dtype
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(self.compute_dtype),
-                        self.bias.to(self.compute_dtype))
+        dt = self.compute_dtype
+        return F.linear(x, self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+def refuse_unported(cfg) -> None:
+    """Refuse the config options of the zoo's decoders that later slices
+    of the port carry, each naming its ROADMAP item."""
+    for field in ("kv_cache_int8", "kv_cache_ring"):
+        if getattr(cfg, field, False):
+            raise NotImplementedError(
+                f"{field}: not ported to the PyTorch backend yet (ROADMAP "
+                f"Queue 1: int8 weights and int8 KV)")
+    if cfg.remat and cfg.remat_policy is not None:
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: named remat policies "
+            f"are not ported yet (ROADMAP Queue 1: Named remat policies); "
+            f"remat=True with remat_policy=None recomputes whole blocks")
+
+
+def run_stack(blocks: nn.ModuleList, cfg, x,
+              cache: Optional[KVCache] = None):
+    """The layer stack: each block in turn, recomputed in the backward
+    under ``cfg.remat`` (training), or appending to ``cache`` (decode),
+    whose index then advances by the chunk's length."""
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    for i, block in enumerate(blocks):
+        if remat:
+            x = checkpoint(block, x, use_reentrant=False)
+        else:
+            x = block(x, None if cache is None else cache.layer(i))
+    if cache is not None and cache.positions is None:
+        # A slot cache's positions are advanced by its owner.
+        cache.index += x.shape[1]
+    return x
 
 
 class GPT2Block(nn.Module):
@@ -143,14 +179,7 @@ class GPT2Model(nn.Module):
 
     def __init__(self, cfg: GPT2Config, device=None, param_dtype=None):
         super().__init__()
-        if cfg.kv_cache_int8:
-            raise NotImplementedError(
-                "kv_cache_int8 comes with the int8 slice of the port")
-        if cfg.remat and cfg.remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r}: named remat policies "
-                f"are not ported yet; remat=True with remat_policy=None "
-                f"recomputes whole blocks")
+        refuse_unported(cfg)
         device = default_device(device)
         self.cfg = cfg
         pd = param_dtype or cfg.dtype
@@ -181,16 +210,7 @@ class GPT2Model(nn.Module):
                 + F.embedding(pos, self.wpe.weight.to(dtype)))
 
     def run_blocks(self, x, cache: Optional[KVCache] = None):
-        remat = self.cfg.remat and cache is None and torch.is_grad_enabled()
-        for i, block in enumerate(self.h):
-            if remat:
-                x = checkpoint(block, x, use_reentrant=False)
-            else:
-                x = block(x, None if cache is None else cache.layer(i))
-        if cache is not None and cache.positions is None:
-            # A slot cache's positions are advanced by its owner.
-            cache.index += x.shape[1]
-        return x
+        return run_stack(self.h, self.cfg, x, cache)
 
     def head(self, x):
         dtype = self.cfg.dtype

@@ -1,10 +1,12 @@
 """Decode-time KV cache.
 
 Port of ``polyaxon_tpu/models/kv_cache.py``'s :func:`append_kv_cache`
-and its paged helpers (plain storage; int8 KV, RoPE rotation and the
-ring cache come with later slices).  Flax keeps the cache in a mutable
-variable collection; here it is an explicit object, :class:`KVCache`,
-holding every layer's keys and values and the shared write index.
+(plain storage, with the RoPE models' ``rotate`` of the new keys before
+the write) and its paged helpers; int8 KV and the ring cache come with
+a later slice.  Flax keeps the cache in a mutable variable collection;
+here it is an explicit object, :class:`KVCache`, holding every layer's
+keys and values ([layers, B, cap, kv_heads, D]: a grouped-query model
+stores its ``num_kv_heads``) and the shared write index.
 
 SLOT-INDEXED decode (the serving engine's pool, ``serving/slots.py``):
 a cache whose ``positions`` is a [B] long tensor on the device holds B
@@ -18,7 +20,7 @@ graph with the positions read from a device buffer at replay time.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -56,7 +58,8 @@ class KVCache:
         return LayerCache(self.k[i], self.v[i], self.index, self.positions)
 
 
-def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None):
+def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None,
+                    rotate: Optional[Callable] = None):
     """Append this step's k/v ([B, S, H, D]) at positions
     ``[index, index + S)`` of ``cache``.
 
@@ -70,12 +73,17 @@ def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None):
     CAPACITY contract: the cache's own width wins — the mask spans
     ``cap`` keys whatever the model's ``max_position``.
 
+    ``rotate``: optional ``fn(positions, k) -> k`` applied to the new
+    keys BEFORE the write (RoPE models store rotated keys); the
+    returned ``positions`` ([S] here, [B, 1] on a slot cache) let the
+    caller rotate q to match.
+
     Returns ``(k_full, v_full, mask, positions)``; the caller advances
     the index.  A slot cache (``cache.positions`` set) takes the
     per-row path, :func:`append_kv_slots`.
     """
     if cache.positions is not None:
-        return append_kv_slots(cache, k, v, window)
+        return append_kv_slots(cache, k, v, window, rotate)
     b, s, h, d = k.shape
     idx = cache.index
     cap = cache.k.shape[1]
@@ -83,9 +91,11 @@ def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None):
         # jax.lax.dynamic_update_slice would clamp the write silently.
         raise ValueError(f"KV cache overflow: positions [{idx}, {idx + s})"
                          f" do not fit its {cap} slots")
+    pos_q = idx + torch.arange(s, device=k.device)
+    if rotate is not None:
+        k = rotate(pos_q, k)
     cache.k[:, idx:idx + s] = k
     cache.v[:, idx:idx + s] = v
-    pos_q = idx + torch.arange(s, device=k.device)
     keys = torch.arange(cap, device=k.device)
     valid = keys[None, :] <= pos_q[:, None]  # [S, cap]
     if window is not None:
@@ -93,12 +103,13 @@ def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None):
     return cache.k, cache.v, valid[None, None], pos_q
 
 
-def append_kv_slots(cache: LayerCache, k, v, window: Optional[int] = None):
+def append_kv_slots(cache: LayerCache, k, v, window: Optional[int] = None,
+                    rotate: Optional[Callable] = None):
     """Slot-indexed append: row b's one new token ([B, 1, H, D]) is
-    written at ``cache.positions[b]`` — a per-row scatter, no host
-    read of any position — and the returned mask ([B, 1, 1, cap])
-    admits key j for row b iff ``j <= positions[b]`` (clipped to
-    ``window`` when given).  Positions past ``cap`` are the caller's
+    rotated at ``cache.positions[b]`` (given ``rotate``) and written
+    there — a per-row scatter, no host read of any position — and the
+    returned mask ([B, 1, 1, cap]) admits key j for row b iff
+    ``j <= positions[b]`` (clipped to ``window`` when given).  Positions past ``cap`` are the caller's
     to prevent (the engine validates every request's budget and parks
     idle rows at 0); checking here would need a host sync."""
     b, s, h, d = k.shape
@@ -107,6 +118,8 @@ def append_kv_slots(cache: LayerCache, k, v, window: Optional[int] = None):
                          f" got {s}")
     cap = cache.k.shape[1]
     pos = cache.positions
+    if rotate is not None:
+        k = rotate(pos[:, None], k)
     index = pos.view(b, 1, 1).expand(b, 1, h * d)
     cache.k.view(b, cap, h * d).scatter_(1, index, k.reshape(b, 1, h * d))
     cache.v.view(b, cap, h * d).scatter_(1, index, v.reshape(b, 1, h * d))

@@ -1,9 +1,9 @@
 """Model registry: name -> (constructor, loss, synthetic batch).
 
-Port of ``polyaxon_tpu/models/registry.py``'s GPT-2 entries: the same
-constructors, synthetic batches (numpy ``RandomState(0)``, so both
-packages draw the same tokens), LM loss and analytic FLOP models.  The
-rest of the zoo comes with a later slice.
+Port of ``polyaxon_tpu/models/registry.py``'s GPT-2 and Llama-family
+entries: the same constructors, synthetic batches (numpy
+``RandomState(0)``, so both packages draw the same tokens), LM loss and
+analytic FLOP models.  The rest of the zoo comes with a later slice.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from .. import default_device
 from .gpt2 import GPT2Config, GPT2Model
+from .llama import LlamaConfig, LlamaModel
 
 
 def softmax_xent(logits, labels):
@@ -35,25 +36,23 @@ def _cfg_model(model_cls, base_cfg):
     return make
 
 
-def _init_gpt2(model: GPT2Model, generator: torch.Generator) -> None:
-    """Random init from a seeded CPU generator, so the weights are the
-    same on every device.  Scales follow flax's defaults: Dense kernels
-    lecun-normal (std 1/sqrt(fan_in)), embeddings std 1/sqrt(hidden),
-    zero biases, unit LayerNorm scales.  The numbers differ from flax's;
-    tests that compare with the reference convert its params instead."""
+def _init_decoder(model: torch.nn.Module,
+                  generator: torch.Generator) -> None:
+    """Random init of a GPT-2 or Llama-family model from a seeded CPU
+    generator, so the weights are the same on every device.  Scales
+    follow flax's defaults: Dense kernels lecun-normal (std
+    1/sqrt(fan_in)), embeddings std 1/sqrt(hidden), zero biases, unit
+    LayerNorm and RMSNorm scales (the one-dimensional weights).  The
+    numbers differ from flax's; tests that compare with the reference
+    convert its params instead."""
     for name, p in model.named_parameters():
         if name.endswith("bias"):
-            std = 0.0
-        elif ".ln" in name or name.startswith("ln_f"):
-            std = None
-        else:
-            std = p.shape[-1] ** -0.5
-        if std is None:
-            w = torch.ones(p.shape)
-        elif std == 0.0:
             w = torch.zeros(p.shape)
+        elif p.ndim == 1:
+            w = torch.ones(p.shape)
         else:
-            w = torch.randn(p.shape, generator=generator) * std
+            w = torch.randn(p.shape, generator=generator) \
+                * p.shape[-1] ** -0.5
         p.data.copy_(w.to(p.dtype))
 
 
@@ -66,7 +65,7 @@ def _token_batch(batch_size: int, seq: int,
 def _lm_loss(model):
     """model -> loss(batch, rng=None) -> (loss, {"perplexity"}):
     next-token cross-entropy, the logits shifted by one.  The model holds
-    the parameters; ``rng`` is unused (GPT-2 has no dropout)."""
+    the parameters; ``rng`` is unused (the decoders have no dropout)."""
     def loss(batch, rng=None):
         tokens = torch.as_tensor(batch["inputs"], device=model.device)
         logits = model(tokens, train=True)
@@ -110,6 +109,22 @@ def _gpt2_train_flops(cfg: GPT2Config, seq: int):
         head_params=cfg.hidden_size * cfg.vocab_size, causal=True)
 
 
+def _llama_train_flops(cfg: LlamaConfig, seq: int):
+    # SwiGLU = 3 MLP matmuls (gate/up/down); GQA shrinks only the k/v
+    # projections; attention score/PV FLOPs follow the QUERY head count.
+    h, hd = cfg.hidden_size, cfg.head_dim
+    per_layer = (2 * h * h                       # q_proj + o_proj
+                 + 2 * h * cfg.num_kv_heads * hd  # k_proj + v_proj
+                 + 3 * h * cfg.intermediate_size)
+    n_matmul = cfg.num_layers * per_layer + h * cfg.vocab_size
+
+    def flops(b: int) -> float:
+        tokens = b * seq
+        return (6.0 * n_matmul * tokens
+                + 12.0 * cfg.num_layers * tokens * seq * h / 2.0)
+    return flops
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     name: str
@@ -138,7 +153,7 @@ class ModelSpec:
                                 else None, **overrides)
         gen = torch.Generator().manual_seed(seed)
         with torch.no_grad():
-            _init_gpt2(model, gen)
+            _init_decoder(model, gen)
         if train:
             return model.train()
         return model.eval().requires_grad_(False)
@@ -156,12 +171,33 @@ def _gpt2_spec(name: str, cfg: GPT2Config, seq: int, flops: bool):
         else None)
 
 
+def _llama_spec(name: str, cfg: LlamaConfig, seq: int, batch: int,
+                flops: bool):
+    return ModelSpec(
+        name=name,
+        make_model=_cfg_model(LlamaModel, cfg),
+        make_batch=lambda b: _token_batch(b, seq, cfg.vocab_size),
+        loss_fn=_lm_loss,
+        default_batch_size=batch,
+        train_flops=_llama_train_flops(cfg, seq) if flops else None,
+        attn_flops=_attn_only_flops(seq=seq, causal=True) if flops
+        else None)
+
+
 _REGISTRY: Dict[str, ModelSpec] = {
     spec.name: spec for spec in (
         _gpt2_spec("gpt2-medium", GPT2Config.medium(), 1024, True),
         _gpt2_spec("gpt2-small", GPT2Config.small(), 1024, True),
         _gpt2_spec("gpt2-mini", GPT2Config.mini(), 256, False),
-        _gpt2_spec("gpt2-tiny", GPT2Config.tiny(), 64, False))
+        _gpt2_spec("gpt2-tiny", GPT2Config.tiny(), 64, False),
+        _llama_spec("tinyllama-1.1b", LlamaConfig.tinyllama(), 2048, 4,
+                    True),
+        # Llama + sliding-window local attention + GQA.
+        _llama_spec("mistral-tiny", LlamaConfig(
+            vocab_size=512, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=4, num_kv_heads=2, max_position=256,
+            sliding_window=31), 128, 8, False),
+        _llama_spec("llama-tiny", LlamaConfig.tiny(), 64, 8, False))
 }
 
 

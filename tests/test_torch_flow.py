@@ -60,7 +60,8 @@ def _matrix_values(op):
 def test_every_example_is_checked():
     assert len(REF_EXAMPLES) == 13
     assert [p.name for p in PORT_EXAMPLES] == [
-        "gpt2_job.yaml", "hyperband.yaml", "serving.yaml"]
+        "gpt2_job.yaml", "hyperband.yaml", "serving.yaml",
+        "tinyllama_job.yaml"]
 
 
 @pytest.mark.parametrize("path", REF_EXAMPLES + PORT_EXAMPLES,

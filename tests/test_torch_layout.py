@@ -70,6 +70,45 @@ def test_serving_modules_are_checked():
         assert PORT / rel in SOURCES, rel
 
 
+LLAMA_MODULES = ("ops/rotary.py", "models/llama.py", "models/registry.py",
+                 "models/gpt2.py", "convert.py")
+
+
+def test_llama_modules_are_checked():
+    """The Llama family's modules are under the import rule above and
+    the no-CUDA import check below (both walk every module), and a CPU
+    Llama model touches no CUDA: a fresh interpreter whose torch.cuda
+    entry points raise builds mistral-tiny on the CPU and runs its
+    windowed forward, a prefill and a slot-cache decode step."""
+    import subprocess
+    import sys
+
+    for rel in LLAMA_MODULES:
+        assert PORT / rel in SOURCES, rel
+    script = "\n".join([
+        "import torch",
+        "def boom(*a, **k):",
+        "    raise AssertionError('CUDA touched')",
+        "for name in ('init', '_lazy_init', 'is_available', 'device_count',",
+        "             'current_device', 'synchronize', 'set_device'):",
+        "    setattr(torch.cuda, name, boom)",
+        "from polyaxon_tpu_torch.models import generate as G",
+        "from polyaxon_tpu_torch.models.kv_cache import KVCache",
+        "from polyaxon_tpu_torch.models.registry import get_model",
+        "m = get_model('mistral-tiny').init_params(seed=0, device='cpu')",
+        "toks = torch.arange(40)[None] % 512",
+        "assert m(toks).shape == (1, 40, 512)",
+        "logits, cache = G.prefill(m, toks)",
+        "slot = KVCache(cache.k, cache.v, positions=torch.tensor([40]))",
+        "m(toks[:, :1], decode=True, cache=slot)",
+        "assert not torch.cuda.is_initialized()",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_imports_touch_no_cuda():
     """Importing every module of the port (and the CLI) makes no CUDA
     call: a fresh interpreter whose torch.cuda entry points raise."""
