@@ -80,6 +80,7 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -106,6 +107,16 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip()
+
+
+def _release():
+    """Free what a phase dropped.  Its servers, pools and models sit in
+    reference cycles, which hold their device memory until the cycle
+    collector runs: left to the collector's own timing they held 6.6 GB
+    into TinyLlama's timed training, whose steps then took 1.8-2.8x as
+    long with the device idle (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _events():
@@ -174,21 +185,7 @@ def device_breakdown(fn, wall_ms: float, label: str, host: bool = True):
     with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = []
-    for e in prof.key_averages():
-        # Device kernels only: a record_function range such as
-        # "Optimizer.step#AdamW.step" also carries device time, which
-        # overlaps the kernels it encloses.  (Kernel names may hold "#"
-        # too: "{lambda()#3}".)
-        if not str(e.device_type).endswith("CUDA") or \
-                getattr(e, "is_user_annotation", False) or \
-                e.key.startswith(("Optimizer.", "ProfilerStep")):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            kernels.append((us / 1e3, e.count, e.key))
+    kernels = _kernel_times(prof)
     if not kernels:
         print(f"[{label}] device busy time: not measured (the profiler "
               f"saw no CUDA kernel)")
@@ -215,6 +212,31 @@ def device_breakdown(fn, wall_ms: float, label: str, host: bool = True):
     for ms, count, name in kernels[:8]:
         print(f"[{label}]   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
     return busy
+
+
+def _kernel_times(prof) -> list:
+    """(ms, launches, name) of each device kernel a profile saw, summed
+    by name over the raw kineto events.  Building the profiler's own
+    per-event objects (``key_averages``) for a serving load's
+    50,000-200,000 kernels made its profiled rerun take 9-27 s; without
+    them it takes 2-8 s (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    from torch.autograd import DeviceType
+
+    times = {}
+    for e in prof.profiler.kineto_results.events():
+        # Device kernels only: a record_function range such as
+        # "Optimizer.step#AdamW.step" also carries device time, which
+        # overlaps the kernels it encloses.  (Kernel names may hold "#"
+        # too: "{lambda()#3}".)
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        name = e.name()
+        if name.startswith(("Optimizer.", "ProfilerStep")):
+            continue
+        ms, count = times.get(name, (0.0, 0))
+        times[name] = (ms + e.duration_ns() / 1e6, count + 1)
+    return [(ms, count, name) for name, (ms, count) in times.items()
+            if ms > 0]
 
 
 def device_kernels(fn) -> list:
@@ -525,7 +547,7 @@ def phase_kernel(other_src=None):
                          ("llama_train_window", 511)):
         rec[name] = _time_forward(name, *shapes.pop(name), window=window)
         rec[name]["max_abs_err"] = results[name][0]
-        torch.cuda.empty_cache()
+        _release()
     rec.update({"max_abs_err": results["main"][0],
                 "max_abs_err_lse": results["main"][1],
                 "max_abs_err_train": results["train_fused"][0],
@@ -649,7 +671,7 @@ def phase_backward(other_src=None):
                                   window=window)
             for which in recs:
                 recs[which][name] = more[which]
-            torch.cuda.empty_cache()
+            _release()
     return recs
 
 
@@ -739,7 +761,8 @@ def phase_forward(model, model_f32, name="gpt2-medium", seq=1024,
                   tag="forward", min_agree_bf16=0.9):
     """The full forward on [2, ``seq``] tokens (entry()'s on GPT-2
     medium; TinyLlama's at [2, 2048], its RoPE'd q over GQA-repeated
-    K/V); returns the flash launches, one a layer.
+    K/V); returns the launches of each kernel in it: one forward a
+    layer, no dq or dkv.
 
     Held against the same model's plain-attention decode path in bf16
     (max|d| within 5% of max|logit|: 24 or 22 layers of bf16 rounding;
@@ -748,20 +771,20 @@ def phase_forward(model, model_f32, name="gpt2-medium", seq=1024,
     TinyLlama, whose random untied head's top-2 gaps over 32,000 tokens
     are about 0.2) and in float32 (1e-3 of max|logit|, agreement >=
     0.999: only summation order differs)."""
-    from polyaxon_tpu_torch.ops import flash
-
     cfg = model.cfg
     tokens = torch.as_tensor(
         np.random.RandomState(0).randint(0, cfg.vocab_size, (2, seq)),
         device="cuda")
     with torch.no_grad():
-        flash.launch_count = 0
+        _zero_counts()
         logits = model(tokens)
         torch.cuda.synchronize()
-        launches = flash.launch_count
-        if launches != cfg.num_layers:
-            raise AssertionError(f"forward made {launches} flash launches;"
-                                 f" expected {cfg.num_layers}")
+        counts = _counts()
+        want = {"flash_fwd": cfg.num_layers, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+        if counts != want:
+            raise AssertionError(f"forward made flash launches {counts};"
+                                 f" expected {want}")
         if tuple(logits.shape) != (2, seq, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"bad logits {tuple(logits.shape)}")
@@ -782,9 +805,9 @@ def phase_forward(model, model_f32, name="gpt2-medium", seq=1024,
         t = eager_ms(lambda: model(tokens), calls=5, reps=3)
         print(f"[{tag}] {name} [2,{seq}] bf16: {t:.3f} ms "
               f"({2 * seq / t * 1e3:.0f} tok/s), flash launches "
-              f"{launches}")
+              f"{counts}")
         device_breakdown(lambda: model(tokens), t, tag)
-    return launches
+    return counts
 
 
 def phase_serving(model, model_f32, name="gpt2-medium", tag="serving",
@@ -1132,7 +1155,7 @@ def _graph_vs_eager(model, tag="http", profile=False):
             device_breakdown(lambda: pool.step(8, False, graph=False),
                              ms, f"{tag} decode window", host=False)
         del pool, kv, k_eager, v_eager
-        torch.cuda.empty_cache()
+        _release()
     return step_ms
 
 
@@ -1175,7 +1198,7 @@ def _http_load(model, label, bodies, *, sampled_too=False,
     pool) and every graph key, then all
     ``bodies`` from 16 client threads: tok/s, latency p50/p99, TTFT p50,
     decode steps, mean window, graph captures (in all, and in the run:
-    0 allowed), replays, device busy and idle share (over the first 4
+    0 allowed), replays, device busy and idle share (over the first 8
     requests, run again plain and under the profiler), flash launches,
     page stats on a paged pool, the /metrics phase lines.  Returns the
     record and (server, ModelServer, base URL) for the caller to
@@ -1192,9 +1215,14 @@ def _http_load(model, label, bodies, *, sampled_too=False,
     server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
     server_thread.start()
     base = f"http://127.0.0.1:{srv.server_address[1]}"
+    split = {}
+    t0 = time.perf_counter()
     _load_clients(base, bodies[:warm_requests], warm_requests)
+    split["warm-up requests"] = time.perf_counter() - t0
     max_tokens = max(len(b["prompt"]) + b["max_new_tokens"] for b in bodies)
+    t0 = time.perf_counter()
     _warm_every_key(ms, sampled_too, max_tokens)
+    split["graph captures"] = time.perf_counter() - t0
     reserved_gb = torch.cuda.memory_reserved() / 1e9
     warm = ms.recompile.snapshot()
     steps0 = ms.engine.decode_steps_total
@@ -1266,17 +1294,23 @@ def _http_load(model, label, bodies, *, sampled_too=False,
         raise AssertionError(f"{label}: {rec['captures_total']} graph "
                              f"captures in all (at most {bound}), "
                              f"{captures} after warm-up")
-    # Device busy and idle share over a rerun of the first 4 requests
+    # Device busy and idle share over a rerun of the first 8 requests
     # (one a client), timed once plain and once under the profiler: a
     # sampled load launches about 460,000 kernels in 32 requests, and
     # the profiler takes about a minute to collect that many.
-    sub = bodies[:4]
+    sub = bodies[:8]
     t0 = time.perf_counter()
     _load_clients(base, sub, len(sub))
     rec["profiled_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     rec["busy_ms"] = device_breakdown(
         lambda: _load_clients(base, sub, len(sub)),
         rec["profiled_wall_s"] * 1e3, "http", host=False)
+    split["load"] = wall
+    split["idle-share rerun"] = rec["profiled_wall_s"]
+    split["profiled rerun"] = time.perf_counter() - t0
+    print(f"[time] {label}: " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in split.items()))
     if rec["busy_ms"] is not None:
         rec["idle_share"] = max(
             0.0, 1 - rec["busy_ms"] / (rec["profiled_wall_s"] * 1e3))
@@ -1357,7 +1391,7 @@ def phase_http_serving(model, model_f32):
             srv.server_close()
             ms.close()
         recs[label] = rec
-        torch.cuda.empty_cache()
+        _release()
     return step_ms, recs
 
 
@@ -1417,12 +1451,14 @@ def _check_per_step(counts, steps: int, layers: int, where: str,
                              f"{layers} dq and {layers} dkv a step)")
 
 
-def phase_train_entry(steps: int = 3):
-    """``python -m polyaxon_tpu_torch.train --model gpt2-medium`` as a
-    user runs it (in-process, its checkpoints in a temporary home): the
-    flash launch counts of the run, 24 of each kernel a step, and a
-    finite loss on every logged step; then the checkpoint it wrote is
-    served (``phase_checkpoint``) before the home is removed."""
+def phase_train_entry(name: str = "gpt2-medium", steps: int = 3,
+                      batch: int = 8, fwd_passes: int = 1):
+    """``python -m polyaxon_tpu_torch.train --model NAME`` as a user runs
+    it (in-process, its checkpoints in a temporary home): the flash
+    launch counts of the run (a step: ``fwd_passes`` forward launches a
+    layer, 2 under remat, and one dq and one dkv), and a finite loss on
+    every logged step; then the checkpoint it wrote is served
+    (``phase_checkpoint``) before the home is removed."""
     import contextlib
     import io
     import re
@@ -1448,9 +1484,9 @@ def phase_train_entry(steps: int = 3):
             t0 = time.perf_counter()
             _zero_counts()
             with contextlib.redirect_stdout(out):
-                rc = train.main(["--model", "gpt2-medium", "--steps",
+                rc = train.main(["--model", name, "--steps",
                                  str(steps), "--log-every", "1",
-                                 "--batch-size", "8"])
+                                 "--batch-size", str(batch)])
             torch.cuda.synchronize()
             counts = _counts()
             secs = time.perf_counter() - t0
@@ -1468,20 +1504,23 @@ def phase_train_entry(steps: int = 3):
         if rc != 0 or len(losses) != steps or \
                 not all(np.isfinite(losses)):
             raise AssertionError(f"train.main: exit {rc}, losses {losses}")
-        _check_per_step(counts, steps, 24, "train.main")
-        print(f"[train.main] gpt2-medium {steps} steps in {secs:.1f} s "
-              f"(model init, data, steps and the final checkpoint); "
-              f"flash launches {counts}")
-        phase_checkpoint(live["dir"], live["model"].eval())
+        trained = live.pop("model").eval()
+        _check_per_step(counts, steps, trained.cfg.num_layers,
+                        f"train.main {name}", fwd_passes)
+        print(f"[train.main] {name} batch {batch}, {steps} steps in "
+              f"{secs:.1f} s (model init, data, steps and the final "
+              f"checkpoint); flash launches {counts}")
+        phase_checkpoint(live["dir"], trained, name)
     return counts, secs
 
 
-def phase_checkpoint(ckpt_dir, trained):
+def phase_checkpoint(ckpt_dir, trained, name="gpt2-medium"):
     """The checkpoint ``train.main`` wrote, served: ``generate
     --checkpoint`` (the CLI, bf16 as served) gives the tokens of the
-    in-memory trained model (float32 master weights cast at each use);
-    in float32, the CLI's checkpoint loader gives the tokens of a
-    float32 model holding the in-memory weights."""
+    in-memory trained model (float32 master weights cast at each use:
+    the same bf16 values the served copy holds); in float32, the CLI's
+    checkpoint loader gives the tokens of a float32 model holding the
+    in-memory weights."""
     import contextlib
     import io
 
@@ -1489,14 +1528,15 @@ def phase_checkpoint(ckpt_dir, trained):
     from polyaxon_tpu_torch.models import generate as G
     from polyaxon_tpu_torch.models.registry import get_model
 
-    rows = np.random.RandomState(3).randint(0, 50257, (2, 32)).tolist()
+    rows = np.random.RandomState(3).randint(
+        0, trained.cfg.vocab_size, (2, 32)).tolist()
     prompt = "@" + os.path.join(os.path.dirname(ckpt_dir), "prompt.json")
     with open(prompt[1:], "w") as f:
         json.dump(rows, f)
     t0 = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        cli_main.cli.main(["generate", "--model", "gpt2-medium",
+        cli_main.cli.main(["generate", "--model", name,
                            "--checkpoint", ckpt_dir, "--prompt", prompt,
                            "--max-new-tokens", "16"], standalone_mode=False)
     served = json.loads(out.getvalue().strip().splitlines()[-1])
@@ -1504,28 +1544,31 @@ def phase_checkpoint(ckpt_dir, trained):
     with torch.no_grad():
         want = G.generate(trained, rows, max_new_tokens=16).tolist()
     if served["tokens"] != want:
-        raise AssertionError("generate --checkpoint != the in-memory "
-                             "trained model (bf16)")
-    spec = get_model("gpt2-medium")
-    f32 = cli_main._build_serving_model("gpt2-medium", 2,
-                                        ckpt_dir=ckpt_dir,
+        raise AssertionError(f"{name}: generate --checkpoint != the "
+                             f"in-memory trained model (bf16)")
+    gb = sum(os.path.getsize(os.path.join(d, f))
+             for d, _, files in os.walk(ckpt_dir) for f in files) / 1e9
+    print(f"[checkpoint] {name}: {ckpt_dir.split(os.sep)[-1]}/ "
+          f"({gb:.2f} GB) from train.main served by `generate "
+          f"--checkpoint` in {secs:.1f} s (restore, cast to bf16, 2 x 32 "
+          f"prompt + 16 new): tokens == the in-memory trained model")
+    t0 = time.perf_counter()
+    f32 = cli_main._build_serving_model(name, 2, ckpt_dir=ckpt_dir,
                                         dtype=torch.float32)
-    ref = spec.make_model(device="cuda", dtype=torch.float32)
+    ref = get_model(name).make_model(device="cuda", dtype=torch.float32)
     ref.load_state_dict(trained.state_dict())
     ref.eval().requires_grad_(False)
     with torch.no_grad():
         got = G.generate(f32, rows, max_new_tokens=16).tolist()
         want32 = G.generate(ref, rows, max_new_tokens=16).tolist()
     if got != want32:
-        raise AssertionError("checkpoint served in float32 != the "
-                             "in-memory weights in float32")
-    print(f"[checkpoint] {ckpt_dir.split(os.sep)[-1]}/ from train.main "
-          f"served by `generate --checkpoint` in {secs:.1f} s (restore, "
-          f"cast to bf16, 2 x 32 prompt + 16 new): tokens == the "
-          f"in-memory trained model; float32: tokens == the in-memory "
-          f"weights ({sum(len(r) - 32 for r in got)} tokens each)")
+        raise AssertionError(f"{name}: checkpoint served in float32 != "
+                             f"the in-memory weights in float32")
+    print(f"[checkpoint] {name} float32: tokens == the in-memory weights "
+          f"({sum(len(r) - 32 for r in got)} tokens each) in "
+          f"{time.perf_counter() - t0:.1f} s")
     del f32, ref
-    torch.cuda.empty_cache()
+    _release()
 
 
 def phase_train_timed(steps: int = 5):
@@ -1639,7 +1682,7 @@ def phase_grad_route(layers: int = 4):
             raise AssertionError("flash-route gradients disagree with the "
                                  "plain-attention route")
         del model, flash_g, plain_g
-        torch.cuda.empty_cache()
+        _release()
 
 
 LLAMA = "tinyllama-1.1b"
@@ -1677,8 +1720,9 @@ def phase_llama_serving(model, model_f32):
     decode step's device time and where it goes; two HTTP loads shaped
     as GPT-2 medium's (32 requests, prompts of 64-512 tokens from seed
     0, 64 new, every odd one sampled at T 0.8, top-k 50, top-p 0.95),
-    one on the fixed-lane pool and one on the paged pool.  Neither load launches a flash
-    kernel (decode and chunked prefill masks take the plain path).
+    one on the fixed-lane pool and one on the paged pool.  Neither load
+    launches a flash kernel (decode and chunked prefill masks take the
+    plain path).
     Returns the decode-step ms per program and the two records."""
     t0 = time.perf_counter()
     _f32_schedule(model_f32, LLAMA, tag="llama", pools=("paged",))
@@ -1707,7 +1751,7 @@ def phase_llama_serving(model, model_f32):
             raise AssertionError(f"{label}: flash launches "
                                  f"{rec['flash_launches']}, expected none")
         recs[label] = rec
-        torch.cuda.empty_cache()
+        _release()
     print(f"[llama] decode step ms (bf16, 8 slots, W=8 replay): "
           + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items()))
     return step_ms, recs
@@ -1782,7 +1826,7 @@ def phase_llama_train(state_dict, steps: int = 5):
           f"forward + backward {rec['forward_backward_ms']:.2f} ms, AdamW "
           f"{rec['optimizer_ms']:.2f} ms (eager, CUDA events)")
     del state, step_fn, model, loss_fn
-    torch.cuda.empty_cache()
+    _release()
     return rec
 
 
@@ -1854,7 +1898,7 @@ def phase_llama_grad_route(layers: int = 2):
                                      "gradients disagree with the "
                                      "plain-attention route")
             del model, flash_g, plain_g, logits, ref
-            torch.cuda.empty_cache()
+            _release()
 
 
 def phase_mistral():
@@ -1912,8 +1956,11 @@ def phase_llama_entry_points(steps: int = 3):
     checkpoint), ``generate`` with random weights and with
     ``--checkpoint`` of that run, and ``serve`` on the fixed-lane and the
     paged pool with a greedy and a sampled request; ``generate`` and
-    ``serve --kv-paged`` of mistral-tiny (its window).  Not part of
-    ``main`` (the 17.6 GB checkpoint takes most of its time):
+    ``serve --kv-paged`` of mistral-tiny (its window).  ``main`` covers
+    the same path in-process (``phase_train_entry`` on TinyLlama: one
+    step, its 13.2 GB checkpoint of float32 weights and AdamW moments
+    served by ``generate --checkpoint``); these fresh processes take
+    about 3 minutes more and are run apart:
     ``python3 -c "import chip_smoke as c; c.phase_llama_entry_points()"``."""
     print(f"[card] {card_line()}")
     with tempfile.TemporaryDirectory() as home:
@@ -2220,7 +2267,7 @@ def _run_service(env, store, home):
     with open(preset, "w") as f:  # JSON is YAML
         json.dump({"isPreset": True, "params": {"port": {"value": port}},
                    "component": {"run": {"ports": [port]}}}, f)
-    torch.cuda.empty_cache()
+    _release()
     free_before = torch.cuda.mem_get_info()[0]
     rc, out, ready = _ptpu(env, "run", "-f",
                            os.path.join(EXAMPLES, "serving.yaml"),
@@ -2265,7 +2312,7 @@ def _run_service(env, store, home):
     finally:
         ms.close()
     del model, ms
-    torch.cuda.empty_cache()
+    _release()
     if served != want:
         raise AssertionError("service tokens != the in-process ModelServer")
     launches = {name: after[name] - before[name] for name in after}
@@ -2360,7 +2407,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s")
     model_f32 = spec.init_params(seed=0, device="cuda",
                                  dtype=torch.float32)
-    forward_launches = phase_forward(model, model_f32)
+    forward_counts = phase_forward(model, model_f32)
     mark("forward")
     phase_serving(model, model_f32)
     mark("serving")
@@ -2371,15 +2418,15 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items()))
     mark("http serving")
     del model, model_f32
-    torch.cuda.empty_cache()
+    _release()
     train_counts, train_secs = phase_train_entry()
     mark("train.main and checkpoint serving")
     phase_train_timed()
     mark("timed training")
-    torch.cuda.empty_cache()
+    _release()
     phase_grad_route()
     mark("gradient route check")
-    torch.cuda.empty_cache()
+    _release()
     model, model_f32 = llama_models()
     mark("llama init")
     llama_forward = phase_forward(model, model_f32, LLAMA, 2048,
@@ -2392,15 +2439,18 @@ def main(argv=None) -> int:
     del model
     weights = model_f32.state_dict()
     del model_f32
-    torch.cuda.empty_cache()
+    _release()
     llama_train = phase_llama_train(weights)
     del weights
     mark("llama timed training")
+    llama_main_counts, _ = phase_train_entry(LLAMA, steps=1, batch=4,
+                                             fwd_passes=2)
+    mark("llama train.main and checkpoint serving")
     phase_llama_grad_route()
     mark("llama gradient route check (full and windowed)")
     phase_mistral()
     mark("mistral-tiny serving")
-    torch.cuda.empty_cache()
+    _release()
     run_counts = phase_run(train_secs)
     mark("run -f: job, hyperband sweep, service")
     kernels = []
@@ -2410,7 +2460,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": train_counts[name],
             "launches_by_path": {
-                "forward": forward_launches if name == "flash_fwd" else 0,
+                "forward": forward_counts[name],
                 "http_serving": http["greedy fixed-lane"][
                     "flash_launches"][name],
                 "http_serving_sampled": http["mixed fixed-lane"][
@@ -2420,9 +2470,9 @@ def main(argv=None) -> int:
                 "train_main": train_counts[name],
                 "run_job": run_counts["run_job"][name],
                 "run_service": run_counts["run_service"][name],
-                "llama_forward": llama_forward if name == "flash_fwd"
-                else 0,
+                "llama_forward": llama_forward[name],
                 "llama_train": llama_train["flash_launches"][name],
+                "llama_train_main": llama_main_counts[name],
                 "llama_http_serving": llama_http[
                     "llama mixed fixed-lane"]["flash_launches"][name],
                 "llama_http_serving_paged": llama_http[

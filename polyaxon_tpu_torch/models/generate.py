@@ -27,12 +27,11 @@ M32 = 0xFFFFFFFF
 
 def init_cache(model, batch_size: int) -> KVCache:
     """A zeroed decode cache for a decoder-only ``model``:
-    [layers, B, max_position, kv_heads, D] in the model's dtype, index
-    0.  ``kv_heads`` is a grouped-query model's ``num_kv_heads``, else
-    ``num_heads``."""
+    [layers, B, max_position, num_kv_heads, D] in the model's dtype,
+    index 0 (GPT-2's ``num_kv_heads`` is its ``num_heads``)."""
     cfg = model.cfg
     shape = (cfg.num_layers, batch_size, cfg.max_position,
-             getattr(cfg, "num_kv_heads", cfg.num_heads), cfg.head_dim)
+             cfg.num_kv_heads, cfg.head_dim)
     dev = model.device
     return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=dev),
                    torch.zeros(shape, dtype=cfg.dtype, device=dev))

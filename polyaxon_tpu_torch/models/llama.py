@@ -35,8 +35,8 @@ from torch import nn
 
 from .. import default_device
 from ..ops.attention import dot_product_attention
-from ..ops.rotary import apply_rotary, rotate
-from .gpt2 import Dense, refuse_unported, run_stack
+from ..ops.rotary import rotate
+from .layers import Dense, refuse_unported, run_stack
 from .kv_cache import KVCache, LayerCache, append_kv_cache
 
 
@@ -148,15 +148,16 @@ class LlamaAttention(nn.Module):
         k = self.k_proj(x).view(b, s, cfg.num_kv_heads, hd)
         v = self.v_proj(x).view(b, s, cfg.num_kv_heads, hd)
         mask = None
-        if cache is not None:
+        if cache is None:
+            pos = torch.arange(s, device=x.device)
+            q, k = rotate(q, pos, theta=theta), rotate(k, pos, theta=theta)
+        else:
             # Keys rotate at their absolute positions inside the append
             # (stored rotated); q at the positions it returns.
             k, v, mask, pos = append_kv_cache(
                 cache, k, v, window=cfg.sliding_window,
                 rotate=lambda p, kk: rotate(kk, p, theta=theta))
             q = rotate(q, pos, theta=theta)
-        else:
-            q, k = apply_rotary(q, k, theta=theta)
         if cfg.num_kv_heads != cfg.num_heads:
             rep = cfg.num_heads // cfg.num_kv_heads
             k = k.repeat_interleave(rep, dim=2)

@@ -27,40 +27,35 @@ def _cos_sin(dim: int, theta: float, positions: torch.Tensor):
     return torch.cos(angles), torch.sin(angles)
 
 
+def rotate(x: torch.Tensor, positions: torch.Tensor, *,
+           theta: float = 10000.0) -> torch.Tensor:
+    """One tensor ([B, S, H, D]) rotated at ``positions`` ([S] or
+    [B, S]): the full forward's q and k at ``arange(S)``, the decode
+    path's keys inside the cache append, and its queries at the
+    positions the append returns."""
+    if x.shape[-1] % 2:
+        raise ValueError(f"RoPE needs an even head dim; got {x.shape[-1]}")
+    return _rot(x, *_angles(x.shape[-1], theta, positions))
+
+
 def apply_rotary(q: torch.Tensor, k: torch.Tensor, *,
                  theta: float = 10000.0, position_offset: int = 0,
                  positions: Optional[torch.Tensor] = None):
-    """Rotate q/k ([B, S, H, D]) by their positions; returns (q, k).
-
-    ``position_offset`` (an int) shifts the default positions
-    ``arange(S)``; ``positions`` ([S] or [B, S] integer tensor)
-    overrides them.  bf16 in, bf16 out; the trig and the rotation run
-    in float32."""
-    seq, d = q.shape[1], q.shape[-1]
-    if d % 2:
-        raise ValueError(f"RoPE needs an even head dim; got {d}")
+    """The reference's signature over :func:`rotate`: q and k
+    ([B, S, H, D]) rotated at ``positions`` ([S] or [B, S]), by default
+    ``position_offset + arange(S)``; returns (q, k)."""
+    seq = q.shape[1]
     if k.shape[1] != seq:
-        # One angle table serves both tensors; rotating a short q
-        # against a long k (decode against a cache) must go through two
-        # calls: the cached k are already rotated at their positions.
+        # Rotating a short q against a long k (decode against a cache)
+        # must go through two calls: the cached k are already rotated.
         raise ValueError(
             f"apply_rotary needs matching q/k seq lengths (got "
             f"{seq} vs {k.shape[1]}); rotate new k at its own "
             f"position_offset and reuse the cached rotated keys")
     if positions is None:
         positions = position_offset + torch.arange(seq, device=q.device)
-    cos, sin = _angles(d, theta, positions)
-    return _rot(q, cos, sin), _rot(k, cos, sin)
-
-
-def rotate(x: torch.Tensor, positions: torch.Tensor, *,
-           theta: float = 10000.0) -> torch.Tensor:
-    """One tensor ([B, S, H, D]) rotated at ``positions`` ([S] or
-    [B, S]): the decode path's keys inside the cache append, and its
-    queries at the positions the append returns."""
-    if x.shape[-1] % 2:
-        raise ValueError(f"RoPE needs an even head dim; got {x.shape[-1]}")
-    return _rot(x, *_angles(x.shape[-1], theta, positions))
+    return (rotate(q, positions, theta=theta),
+            rotate(k, positions, theta=theta))
 
 
 def _angles(dim: int, theta: float, positions: torch.Tensor):

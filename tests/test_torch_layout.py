@@ -71,7 +71,7 @@ def test_serving_modules_are_checked():
 
 
 LLAMA_MODULES = ("ops/rotary.py", "models/llama.py", "models/registry.py",
-                 "models/gpt2.py", "convert.py")
+                 "models/gpt2.py", "models/layers.py", "convert.py")
 
 
 def test_llama_modules_are_checked():
