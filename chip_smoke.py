@@ -38,7 +38,15 @@ Phases, each raising on failure:
    requests from 16 clients (all greedy on the fixed-lane pool, then
    half sampled on the fixed-lane and on the paged pool: tok/s,
    latency, TTFT, windows, graph captures, device busy share), then
-   POST /drain;
+   POST /drain; the radix prefix cache on both pools (a 512-token
+   system prompt registered by POST /prefill, 32 requests extending it
+   from 8 clients and a 2-row one: float32 tokens with the cache on ==
+   off, bf16 prefill tokens, hits, TTFT and pages cold against warm);
+   fault containment in float32 (a transient step fault retried, a
+   poisoned request alone failing 500 ``poisoned_request``, an engine
+   death on the paged pool recovered by the supervisor: every other
+   request equal to the fault-free run, the prefix index flushed and
+   refilled, no graph captured after the restart);
 6. the flash-backward kernels (dq, dkv) against their plain version at
    the training path's shape, the forward's case list, the Hopper
    kernels' tile edges and an LSE cotangent; their times, bounds and
@@ -57,7 +65,9 @@ Phases, each raising on failure:
    launches) against plain attention in bf16 and float32; the CLI's
    ``generate``; the server (float32 engine == solo on both pools, graph
    windows == eager bitwise, an HTTP load of 32 mixed requests on the
-   fixed-lane and on the paged pool, no flash launch); ``TrainStep`` at
+   fixed-lane and on the paged pool, no flash launch; 8 float32
+   requests over a 512-token prefix on the paged pool: cache on == off);
+   ``TrainStep`` at
    batch 4 x 2048 with remat (44 forward, 22 dq and 22 dkv launches a
    step; step time, MFU); at its width and 2 layers, the flash route's
    logits and gradients against plain attention, full causal and with a
@@ -110,11 +120,13 @@ def card_line() -> str:
 
 
 def _release():
-    """Free what a phase dropped.  Its servers, pools and models sit in
-    reference cycles, which hold their device memory until the cycle
-    collector runs: left to the collector's own timing they held 6.6 GB
-    into TinyLlama's timed training, whose steps then took 1.8-2.8x as
-    long with the device idle (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    """Free what a phase dropped.  A closed ``ModelServer`` no longer
+    sits in reference cycles (its ``close()`` breaks them), so its
+    engine, pools and model go when the phase drops them; the collect
+    stays for anything else a phase leaves in a cycle — left to the
+    collector's own timing, dropped servers once held 6.6 GB into
+    TinyLlama's timed training, whose steps then took 1.8-2.8x as long
+    with the device idle (NVIDIA H100 80GB HBM3, 700.00 W)."""
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -918,10 +930,12 @@ def _load_clients(base, bodies, n_clients):
     return wall, out
 
 
-def _sampled_gap(model, prompt, solo_new, got_new, seed, spec) -> tuple:
+def _sampled_gap(model, prompt, solo_new, got_new, seed, spec,
+                 row: int = 0) -> tuple:
     """(index, top-2 gap) of the solo float32 shaped logits + gumbel
     noise of the draw at the first new token where ``got_new`` leaves
-    the solo sampled tokens ``solo_new`` (the sampled tie rule)."""
+    the solo sampled tokens ``solo_new`` (the sampled tie rule; ``row``
+    is the request row whose key draws)."""
     from polyaxon_tpu_torch import prng
     from polyaxon_tpu_torch.models import generate as G
 
@@ -933,8 +947,8 @@ def _sampled_gap(model, prompt, solo_new, got_new, seed, spec) -> tuple:
         logits, _ = G.prefill(model, prefix)
         shaped, _ = G._shape_logits_positional(
             logits[0], spec["temperature"], spec["top_k"], spec["top_p"])
-        key = prng.fold_in(G.sample_stream_keys(seed, 1, device="cuda")[0],
-                           k)
+        key = prng.fold_in(
+            G.sample_stream_keys(seed, row + 1, device="cuda")[row], k)
         z = shaped + prng.gumbel(key, shaped.shape)
     top = torch.topk(z, 2).values
     return k, float(top[0] - top[1])
@@ -1198,7 +1212,7 @@ def _http_load(model, label, bodies, *, sampled_too=False,
     pool) and every graph key, then all
     ``bodies`` from 16 client threads: tok/s, latency p50/p99, TTFT p50,
     decode steps, mean window, graph captures (in all, and in the run:
-    0 allowed), replays, device busy and idle share (over the first 8
+    0 allowed), replays, device busy and idle share (over the first 4
     requests, run again plain and under the profiler), flash launches,
     page stats on a paged pool, the /metrics phase lines.  Returns the
     record and (server, ModelServer, base URL) for the caller to
@@ -1294,11 +1308,11 @@ def _http_load(model, label, bodies, *, sampled_too=False,
         raise AssertionError(f"{label}: {rec['captures_total']} graph "
                              f"captures in all (at most {bound}), "
                              f"{captures} after warm-up")
-    # Device busy and idle share over a rerun of the first 8 requests
+    # Device busy and idle share over a rerun of the first 4 requests
     # (one a client), timed once plain and once under the profiler: a
     # sampled load launches about 460,000 kernels in 32 requests, and
     # the profiler takes about a minute to collect that many.
-    sub = bodies[:8]
+    sub = bodies[:4]
     t0 = time.perf_counter()
     _load_clients(base, sub, len(sub))
     rec["profiled_wall_s"] = time.perf_counter() - t0
@@ -1393,6 +1407,491 @@ def phase_http_serving(model, model_f32):
         recs[label] = rec
         _release()
     return step_ms, recs
+
+
+# -- the prefix cache and fault containment ----------------------------------
+
+
+def _tie_or_raise(model_f32, tag, what, prompt, want, got, spec, row=0):
+    """Tokens ``got`` leave ``want`` (both a float32 run's): allowed only
+    under the tie rule — the solo float32 top-2 gap (of the logits, or
+    of the shaped logits + noise of a sampled draw) at the first
+    difference below 1e-4 — and printed; otherwise raise."""
+    if spec is not None and spec.get("temperature"):
+        k, gap = _sampled_gap(model_f32, prompt, want, got, spec["seed"],
+                              spec, row=row)
+    else:
+        k, gap = _first_gap(model_f32, prompt, want, got)
+    print(f"[{tag}] tie rule used: {what} (prompt {len(prompt)}) leaves "
+          f"the reference run at new token {k}, solo float32 top-2 gap "
+          f"{gap:.3e} (limit 1e-4)")
+    if gap >= 1e-4:
+        raise AssertionError(f"{tag}: {what} tokens differ at new token "
+                             f"{k} (top-2 gap {gap:.3e})")
+
+
+def _same_tokens(model_f32, tag, bodies, want, got) -> int:
+    """Hold a float32 run's tokens (per row) against a reference run's:
+    equal, or a tie by the rule; returns the number of ties."""
+    ties = 0
+    for i, (body, w_rows, g_rows) in enumerate(zip(bodies, want, got)):
+        prompts = body["prompt"]
+        if not isinstance(prompts[0], list):
+            prompts = [prompts]
+        for row, (p, w, g) in enumerate(zip(prompts, w_rows, g_rows)):
+            if w != g:
+                spec = body if body.get("temperature") else None
+                _tie_or_raise(model_f32, tag, f"request {i} row {row}", p,
+                              w, g, spec, row=row)
+                ties += 1
+    return ties
+
+
+def _post_json(base, path, body, rid=None):
+    """(HTTP status, JSON body) of one POST; error statuses returned."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if rid is not None:
+        headers["X-Request-Id"] = rid
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _serve(model, name, **server_kw):
+    """A ``ModelServer`` behind ``make_server`` on port 0 (8 slots,
+    window 8): (server, ModelServer, base URL)."""
+    import threading
+
+    from polyaxon_tpu_torch.serving import ModelServer, make_server
+
+    ms = ModelServer(model, model_name=name, n_slots=8, decode_window=8,
+                     **server_kw)
+    srv = make_server("127.0.0.1", 0, ms)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, ms, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _stop(srv, ms):
+    srv.shutdown()
+    srv.server_close()
+    ms.close()
+
+
+def _prefix_traffic(cfg, n: int = 32, new: int = 64, seed: int = 1):
+    """A 512-token system prompt; ``n`` requests of it plus 16-64 tokens
+    of their own (``new`` new tokens each, every odd one sampled: T 0.8,
+    top-k 50, top-p 0.95, seed = index); one 2-row sampled request of it
+    plus 24 tokens a row (the solo hit path)."""
+    rng = np.random.RandomState(seed)
+    sys_p = rng.randint(0, cfg.vocab_size, 512).tolist()
+    bodies = _mixed([{"prompt": sys_p + rng.randint(0, cfg.vocab_size,
+                                                    k).tolist(),
+                      "max_new_tokens": new}
+                     for k in rng.randint(16, 65, n)])
+    own = rng.randint(0, cfg.vocab_size, (2, 24))
+    two = {"prompt": [sys_p + own[0].tolist(), sys_p + own[1].tolist()],
+           "max_new_tokens": new, **SAMPLED, "seed": 99}
+    return sys_p, bodies, two
+
+
+def _prefix_load(base, ms, label, sys_p, bodies, two, register: bool):
+    """One load against a warm server: (with ``register``) POST /prefill
+    of the system prompt (in 2 rows too, for ``two``), then ``bodies``
+    from 8 clients
+    and ``two`` (if any) alone.  Returns its record: tokens per request
+    and row, prefill tokens computed (registration included), hits,
+    TTFT p50 / p99, captures in the run (0 allowed), flash launches,
+    and on a paged pool the peak pages in use and shared."""
+    import threading
+
+    registered = ([sys_p] + ([[sys_p, sys_p]] if two else [])) \
+        if register else []
+    for prompt in registered:
+        code, out = _post_json(base, "/prefill", {"prompt": prompt})
+        if code != 200:
+            raise AssertionError(f"{label}: /prefill -> {code} {out}")
+    slots = ms.engine.slots
+    peak = {"in_use": 0, "shared": 0, "running": True}
+
+    def watch_pages():
+        # Host-side page counters only (10 ms polls, no CUDA call).
+        while peak["running"]:
+            st = slots.page_stats()
+            peak["in_use"] = max(peak["in_use"],
+                                 st["kv_pages"] - st["kv_pages_free"])
+            peak["shared"] = max(peak["shared"], st["kv_pages_shared"])
+            time.sleep(0.01)
+
+    watcher = threading.Thread(target=watch_pages, daemon=True)
+    if slots.paged:
+        watcher.start()
+    caps0 = ms.recompile.snapshot()["compile_cache_misses"]
+    hits0 = ms.prefix_hits
+    _zero_counts()
+    wall, results = _load_clients(base, bodies, 8)
+    two_res = None
+    if two is not None:
+        code, two_res = _post_json(base, "/generate", two)
+        if code != 200:
+            raise AssertionError(f"{label}: 2-row request -> {code}")
+    counts = _counts()
+    peak["running"] = False
+    if slots.paged:
+        watcher.join()
+    caps = ms.recompile.snapshot()["compile_cache_misses"] - caps0
+    resps = [r for _, r in results] + ([two_res] if two_res else [])
+    reqs = bodies + ([two] if two else [])
+    computed = len(sys_p) * (1 + 2 * (len(registered) > 1)) \
+        * bool(registered) + sum(
+        (len(b["prompt"][0]) if isinstance(b["prompt"][0], list)
+         else len(b["prompt"])) * len(r["new_tokens"])
+        - r.get("prefix_hit_len", 0) * len(r["new_tokens"])
+        for b, r in zip(reqs, resps))
+    ttft = sorted(r["ttft_ms"] for _, r in results)
+    prefill = sorted(r["prefill_ms"] for _, r in results)
+    rec = {"label": label, "tokens": [r["new_tokens"] for r in resps],
+           "prefill_tokens": computed, "hits": ms.prefix_hits - hits0,
+           "ttft_p50_ms": ttft[len(ttft) // 2],
+           "ttft_p99_ms": ttft[min(len(ttft) - 1, int(0.99 * len(ttft)))],
+           "prefill_p50_ms": prefill[len(prefill) // 2],
+           "wall_s": wall, "captures_in_run": caps,
+           "flash_launches": counts}
+    if slots.paged:
+        rec["pages_in_use_peak"] = peak["in_use"]
+        rec["pages_shared_peak"] = peak["shared"]
+        rec["kv_pages"] = slots.n_pages
+    print(f"[prefix] {label}: {len(results)} requests from 8 clients"
+          + (" + the 2-row request" if two else "")
+          + f" in {wall:.2f} s; prefill tokens computed "
+          f"{rec['prefill_tokens']}, hits {rec['hits']}; TTFT p50 "
+          f"{rec['ttft_p50_ms']:.1f} ms p99 {rec['ttft_p99_ms']:.1f} ms, "
+          f"engine prefill p50 {rec['prefill_p50_ms']:.1f} ms; "
+          f"captures in the run {caps}; flash launches {counts}"
+          + (f"; pages in use peak {peak['in_use']} of {slots.n_pages}, "
+             f"shared peak {peak['shared']}" if slots.paged else ""))
+    if caps:
+        raise AssertionError(f"{label}: {caps} graph captures in the run")
+    if any(counts.values()):
+        raise AssertionError(f"{label}: flash launches {counts}")
+    return rec
+
+
+PREFIX_POOLS = (("fixed-lane", {}),
+                ("paged", {"kv_paged": True, "kv_page_tokens": 64}))
+
+
+def _warm_server(base, ms, cfg, max_tokens: int) -> None:
+    """One unrelated request (the process's prefill and GEMM shapes),
+    then every graph key a load up to ``max_tokens`` positions reaches."""
+    rng = np.random.RandomState(7)
+    _load_clients(base, [{"prompt": rng.randint(0, cfg.vocab_size,
+                                                560).tolist(),
+                          "max_new_tokens": 8}], 1)
+    _warm_every_key(ms, True, max_tokens)
+
+
+def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
+    """The radix prefix cache on GPT-2 medium at full width, both pools:
+    a 512-token system prompt registered by POST /prefill, 32 requests
+    extending it (8 clients, 64 new tokens, half sampled) and one 2-row
+    request (the solo hit path).
+
+    - float32: a server with the cache off and one with it on (4
+      entries) give the same tokens, greedy and sampled alike (the tie
+      rule for a float32 difference);
+    - bf16, one warm server a pool: the same load cold (nothing
+      registered) and warm; prefill tokens computed, hits, TTFT p50 /
+      p99, peak pages in use and shared, and the warm tokens' agreement
+      with the cold ones.
+    Returns the bf16 records and the flash launches (0)."""
+    cfg = model.cfg
+    sys_p, bodies, two = _prefix_traffic(cfg)
+    max_tokens = max(len(b["prompt"]) + b["max_new_tokens"] for b in bodies)
+    out = {}
+    for pool, kw in PREFIX_POOLS:
+        t0 = time.perf_counter()
+        runs = {}
+        for cache in (0, 4):
+            srv, ms, base = _serve(model_f32, name, prefix_cache=cache, **kw)
+            try:
+                _warm_server(base, ms, cfg, max_tokens)
+                runs[cache] = _prefix_load(
+                    base, ms, f"float32 {pool} prefix_cache={cache}",
+                    sys_p, bodies, two, register=bool(cache))
+            finally:
+                _stop(srv, ms)
+            _release()
+        ties = _same_tokens(model_f32, "prefix", bodies + [two],
+                            runs[0]["tokens"], runs[4]["tokens"])
+        print(f"[prefix] float32 {pool}: prefix_cache=4 == prefix_cache=0 "
+              f"on all {len(bodies)} requests + 2 rows ({len(bodies) // 2} "
+              f"greedy, {len(bodies) // 2} sampled + the sampled 2-row), "
+              f"{ties} by the tie rule; hits {runs[4]['hits']}")
+        if runs[4]["hits"] != len(bodies) + 1:
+            raise AssertionError(f"float32 {pool}: {runs[4]['hits']} hits, "
+                                 f"expected {len(bodies) + 1}")
+        print(f"[time] prefix: float32 {pool} {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        srv, ms, base = _serve(model, name, **kw)
+        try:
+            _warm_server(base, ms, cfg, max_tokens)
+            cold = _prefix_load(base, ms, f"bf16 {pool} cold", sys_p,
+                                bodies, two, register=False)
+            warm = _prefix_load(base, ms, f"bf16 {pool} warm", sys_p,
+                                bodies, two, register=True)
+        finally:
+            _stop(srv, ms)
+        _release()
+        rows = [(c, w) for cr, wr in zip(cold["tokens"], warm["tokens"])
+                for c, w in zip(cr, wr)]
+        agree = sum(c == w for c, w in rows)
+        print(f"[prefix] bf16 {pool}: warm == cold on {agree} of "
+              f"{len(rows)} rows; prefill tokens computed cold "
+              f"{cold['prefill_tokens']} warm {warm['prefill_tokens']}; "
+              f"TTFT p50 cold {cold['ttft_p50_ms']:.1f} warm "
+              f"{warm['ttft_p50_ms']:.1f} ms, p99 cold "
+              f"{cold['ttft_p99_ms']:.1f} warm {warm['ttft_p99_ms']:.1f} "
+              f"ms; engine prefill p50 cold {cold['prefill_p50_ms']:.1f} "
+              f"warm {warm['prefill_p50_ms']:.1f} ms")
+        if warm["hits"] != len(bodies) + 1 or cold["hits"]:
+            raise AssertionError(f"bf16 {pool}: hits cold {cold['hits']} "
+                                 f"warm {warm['hits']}")
+        out[pool] = {"cold": {k: v for k, v in cold.items()
+                              if k != "tokens"},
+                     "warm": {k: v for k, v in warm.items()
+                              if k != "tokens"},
+                     "bf16_rows_agree": agree, "rows": len(rows)}
+        print(f"[time] prefix: bf16 {pool} {time.perf_counter() - t0:.1f} s")
+    print(f"[prefix] record {json.dumps(out)}")
+    return out
+
+
+def phase_llama_prefix(model_f32):
+    """TinyLlama-1.1B, float32, paged pool (64-token pages): 8 requests
+    over a 512-token prefix (16-64 own tokens, 32 new, half sampled)
+    with the cache off and with it on after POST /prefill: the same
+    tokens (RoPE'd keys at num_kv_heads materialized from the pages, the
+    suffix rotated from position 512), 8 hits, no flash launch."""
+    cfg = model_f32.cfg
+    sys_p, bodies, _ = _prefix_traffic(cfg, n=8, new=32, seed=2)
+    max_tokens = max(len(b["prompt"]) + b["max_new_tokens"] for b in bodies)
+    kw = dict(PREFIX_POOLS[1][1])
+    runs = {}
+    for cache in (0, 4):
+        srv, ms, base = _serve(model_f32, LLAMA, prefix_cache=cache, **kw)
+        try:
+            _warm_server(base, ms, cfg, max_tokens)
+            runs[cache] = _prefix_load(
+                base, ms, f"llama float32 paged prefix_cache={cache}",
+                sys_p, bodies, None, register=bool(cache))
+        finally:
+            _stop(srv, ms)
+        _release()
+    ties = _same_tokens(model_f32, "prefix", bodies, runs[0]["tokens"],
+                        runs[4]["tokens"])
+    if runs[4]["hits"] != len(bodies):
+        raise AssertionError(f"llama prefix: {runs[4]['hits']} hits")
+    print(f"[prefix] llama float32 paged: prefix_cache=4 == prefix_cache=0 "
+          f"on all {len(bodies)} requests ({ties} by the tie rule); hits "
+          f"{runs[4]['hits']}, prefill tokens computed "
+          f"{runs[0]['prefill_tokens']} -> {runs[4]['prefill_tokens']}")
+    return {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+            for k, v in runs.items()}
+
+
+def _fault_load(base, bodies):
+    """``bodies`` from 8 clients, request i sent with X-Request-Id
+    ``req-i``: [(HTTP status, response)] in body order."""
+    import threading
+
+    out = [None] * len(bodies)
+
+    def go(i):
+        out[i] = _post_json(base, "/generate", bodies[i], rid=f"req-{i}")
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _arm(ms, plan):
+    from polyaxon_tpu_torch.serving.faults import FaultPlan
+
+    ms.faults = ms.engine.faults = FaultPlan.load(plan) if plan else None
+    return ms.faults
+
+
+def phase_faults(model_f32, name="gpt2-medium"):
+    """Fault containment on GPT-2 medium, float32: 8 concurrent requests
+    (prompts of 64-256 tokens, 48 new, half sampled) over HTTP, the
+    fault-free run first, then three seeded plans:
+
+    1. fixed lane, a transient ``step`` fault firing twice: 2 retries,
+       every request equal to the fault-free run;
+    2. fixed lane, a ``poisoned`` step fault on request 3 (X-Request-Id
+       ``req-3``): it alone gets a 500 ``poisoned_request``, the other 7
+       equal the fault-free run after bisection requeued them;
+    3. paged pool with a stored prefix, one ``engine_death``: the
+       supervisor restarts the engine (residents requeued), all 8 equal
+       the fault-free run, the paged prefix index is flushed, a new
+       /prefill registers again and hits, and the same 8 requests after
+       the restart capture no graph (the pools were reset in place).
+    Every mismatch raises (the tie rule for a float32 difference)."""
+    import threading
+
+    cfg = model_f32.cfg
+    rng = np.random.RandomState(2)
+    bodies = _mixed([{"prompt": rng.randint(0, cfg.vocab_size, n).tolist(),
+                      "max_new_tokens": 48}
+                     for n in rng.randint(64, 257, 8)])
+    max_tokens = max(len(b["prompt"]) + 48 for b in bodies)
+    out = {}
+    t0 = time.perf_counter()
+    srv, ms, base = _serve(model_f32, name)
+    try:
+        _warm_server(base, ms, cfg, max_tokens)
+        _zero_counts()
+        ref = _fault_load(base, bodies)
+        if any(code != 200 for code, _ in ref):
+            raise AssertionError(f"fault-free run: {[c for c, _ in ref]}")
+        ref = [r["new_tokens"] for _, r in ref]
+        plan = _arm(ms, {"seed": 11, "faults": [
+            {"site": "step", "kind": "transient", "after": 4,
+             "times": 2}]})
+        before = ms.engine.stats()
+        got = _fault_load(base, bodies)
+        st = ms.engine.stats()
+        if any(code != 200 for code, _ in got):
+            raise AssertionError(f"transient: {[c for c, _ in got]}")
+        ties = _same_tokens(model_f32, "faults", bodies, ref,
+                            [r["new_tokens"] for _, r in got])
+        retries = st["step_retries_total"] - before["step_retries_total"]
+        print(f"[faults] transient step fault x2 (fixed lane): "
+              f"{plan.injected_total} injected, {retries} retries, "
+              f"convictions {st['poisoned_total']}, crashes "
+              f"{st['engine_crashes_total']}; all 8 == the fault-free run "
+              f"({ties} by the tie rule)")
+        if retries != 2 or st["poisoned_total"] or st["engine_crashes_total"]:
+            raise AssertionError(f"transient plan: {retries} retries, {st}")
+        out["transient"] = {"retries": retries, "ties": ties}
+        _arm(ms, {"seed": 12, "faults": [
+            {"site": "step", "kind": "poisoned", "rid": "req-3"}]})
+        before = ms.engine.stats()
+        got = _fault_load(base, bodies)
+        st = ms.engine.stats()
+        _arm(ms, None)
+        codes = [c for c, _ in got]
+        if codes[3] != 500 or got[3][1].get("reason") != "poisoned_request":
+            raise AssertionError(f"poisoned request: {got[3]}")
+        if any(c != 200 for i, c in enumerate(codes) if i != 3):
+            raise AssertionError(f"poisoned plan: innocents {codes}")
+        keep = [i for i in range(8) if i != 3]
+        ties = _same_tokens(model_f32, "faults", [bodies[i] for i in keep],
+                            [ref[i] for i in keep],
+                            [got[i][1]["new_tokens"] for i in keep])
+        requeued = (st["requests_requeued_total"]
+                    - before["requests_requeued_total"])
+        print(f"[faults] poisoned step fault on req-3 (fixed lane): 500 "
+              f"{got[3][1]['reason']}; convictions "
+              f"{st['poisoned_total'] - before['poisoned_total']}, "
+              f"innocents requeued by bisection {requeued}; the other 7 == "
+              f"the fault-free run ({ties} by the tie rule)")
+        out["poisoned"] = {"requeued": requeued, "ties": ties}
+        counts = _counts()
+    finally:
+        _stop(srv, ms)
+    _release()
+    print(f"[time] faults: fixed lane {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    srv, ms, base = _serve(model_f32, name, kv_paged=True,
+                           kv_page_tokens=64)
+    sys_p = np.random.RandomState(3).randint(0, cfg.vocab_size,
+                                             300).tolist()
+    try:
+        _warm_server(base, ms, cfg, max_tokens)
+        code, _ = _post_json(base, "/prefill", {"prompt": sys_p})
+        if code != 200 or ms.info()["prefix_entries"] != 1:
+            raise AssertionError(f"/prefill -> {code}")
+        warm = ms.recompile.snapshot()["compile_cache_misses"]
+        before = ms.engine.stats()
+        _zero_counts()
+        # Armed once the load is resident (host-side reads), so the
+        # death lands mid-run whatever the host's speed.
+        got = [None]
+        load = threading.Thread(
+            target=lambda: got.__setitem__(0, _fault_load(base, bodies)))
+        load.start()
+        deadline = time.monotonic() + 120
+        while len(ms.engine._resident) < 4:
+            if time.monotonic() > deadline or not load.is_alive():
+                raise AssertionError("engine death: the load never "
+                                     "became resident")
+            time.sleep(0.001)
+        plan = _arm(ms, {"seed": 13, "faults": [
+            {"site": "engine_death", "times": 1}]})
+        load.join()
+        got = got[0]
+        st = ms.engine.stats()
+        _arm(ms, None)
+        if any(c != 200 for c, _ in got):
+            raise AssertionError(f"engine death: {[c for c, _ in got]}")
+        ties = _same_tokens(model_f32, "faults", bodies, ref,
+                            [r["new_tokens"] for _, r in got])
+        requeued = (st["requests_requeued_total"]
+                    - before["requests_requeued_total"])
+        entries = ms.info()["prefix_entries"]
+        if st["engine_restarts_total"] != 1 or not requeued or entries:
+            raise AssertionError(f"engine death: restarts "
+                                 f"{st['engine_restarts_total']}, "
+                                 f"requeued {requeued}, prefix entries "
+                                 f"{entries} after the flush")
+        caps_run = ms.recompile.snapshot()["compile_cache_misses"] - warm
+        code, _ = _post_json(base, "/prefill", {"prompt": sys_p})
+        code2, hit = _post_json(base, "/generate", {
+            "prompt": sys_p + [1, 2, 3], "max_new_tokens": 8})
+        if code != 200 or code2 != 200 \
+                or hit.get("prefix_hit_len") != len(sys_p):
+            raise AssertionError(f"re-register after the flush: {code} "
+                                 f"{code2} {hit.get('prefix_hit_len')}")
+        again = _fault_load(base, bodies)
+        caps_after = ms.recompile.snapshot()["compile_cache_misses"] - warm
+        if caps_after or any(c != 200 for c, _ in again):
+            raise AssertionError(f"after the restart: {caps_after} graph "
+                                 f"captures once warm")
+        counts2 = _counts()
+        print(f"[faults] engine death on the paged pool with a stored "
+              f"prefix: {plan.injected_total} injected, crashes "
+              f"{st['engine_crashes_total']}, restarts "
+              f"{st['engine_restarts_total']} (recovery "
+              f"{ms.supervisor.last_recovery_s} s), streams requeued "
+              f"{requeued}; all 8 == the fault-free run ({ties} by the tie "
+              f"rule); prefix index flushed (entries 0), /prefill again and "
+              f"a hit of {hit['prefix_hit_len']} tokens; graph captures "
+              f"after warm-up: {caps_run} in the crash run, {caps_after} "
+              f"after the restart")
+        out["engine_death"] = {"requeued": requeued, "ties": ties,
+                               "recovery_s": ms.supervisor.last_recovery_s,
+                               "captures_after_restart": caps_after}
+    finally:
+        _stop(srv, ms)
+    _release()
+    print(f"[time] faults: paged engine death {time.perf_counter() - t0:.1f} s")
+    launches = {k: counts[k] + counts2[k] for k in counts}
+    if any(launches.values()):
+        raise AssertionError(f"faults: flash launches {launches}")
+    out["flash_launches"] = launches
+    return out
 
 
 def phase_prng():
@@ -2417,6 +2916,10 @@ def main(argv=None) -> int:
     print(f"[http] decode step ms (bf16, 8 slots, W=8 replay): "
           + ", ".join(f"{k} {v:.3f}" for k, v in step_ms.items()))
     mark("http serving")
+    prefix = phase_prefix_cache(model, model_f32)
+    mark("prefix cache")
+    faults = phase_faults(model_f32)
+    mark("fault containment")
     del model, model_f32
     _release()
     train_counts, train_secs = phase_train_entry()
@@ -2436,6 +2939,8 @@ def main(argv=None) -> int:
     mark("llama generate")
     llama_step_ms, llama_http = phase_llama_serving(model, model_f32)
     mark("llama http serving")
+    llama_prefix = phase_llama_prefix(model_f32)
+    mark("llama prefix cache")
     del model
     weights = model_f32.state_dict()
     del model_f32
@@ -2467,6 +2972,11 @@ def main(argv=None) -> int:
                     "flash_launches"][name],
                 "http_serving_paged": http["mixed paged"][
                     "flash_launches"][name],
+                "prefix_cache": prefix["fixed-lane"]["warm"][
+                    "flash_launches"][name],
+                "prefix_cache_paged": prefix["paged"]["warm"][
+                    "flash_launches"][name],
+                "faults": faults["flash_launches"][name],
                 "train_main": train_counts[name],
                 "run_job": run_counts["run_job"][name],
                 "run_service": run_counts["run_service"][name],
@@ -2476,7 +2986,9 @@ def main(argv=None) -> int:
                 "llama_http_serving": llama_http[
                     "llama mixed fixed-lane"]["flash_launches"][name],
                 "llama_http_serving_paged": llama_http[
-                    "llama mixed paged"]["flash_launches"][name]},
+                    "llama mixed paged"]["flash_launches"][name],
+                "llama_prefix_cache_paged": llama_prefix[4][
+                    "flash_launches"][name]},
             **rec, "kernel_ms": rec["ms"]})
     print(f"[llama] decode step ms (bf16, 8 slots, W=8 replay): "
           + ", ".join(f"{k} {v:.3f}" for k, v in llama_step_ms.items())

@@ -14,7 +14,8 @@ are not ported yet (ROADMAP Queue 1: The deployment twin).
 Port of ``polyaxon_tpu/cli/main.py``'s ``generate`` command (greedy
 and position-keyed sampled decoding) and its ``serve`` command (the
 continuous-batching HTTP server over the fixed-lane or the paged KV
-pool).  Both serve random-init weights from seed 0, or the float32
+pool, with the prefix cache behind ``POST /prefill``, the engine
+supervisor and ``--fault-plan``).  Both serve random-init weights from seed 0, or the float32
 master weights of a training checkpoint (``--checkpoint DIR``) cast to
 the model's serving dtype.  The ``generate`` flags of the reference
 that the port does not carry yet are kept and refused by name, so a
@@ -290,6 +291,76 @@ _SERVE_NOT_PORTED = (
 @click.option("--kv-host-spill-bytes", default=0, type=int,
               help="With --kv-paged: the prefix store's host spill "
                    "tier (not ported yet; refused when set).")
+@click.option("--prefix-cache", default=4, type=int,
+              help="Prefix-cache entries (POST /prefill registers a "
+                   "system prompt; matching /generate requests skip "
+                   "its prefill). 0 disables; a fixed-lane entry holds "
+                   "a full KV cache on the device, a paged one its "
+                   "pages (shared copy-on-write by every hit).")
+@click.option("--default-priority", default="interactive",
+              type=click.Choice(["interactive", "batch"]),
+              help="Priority class of requests that declare none: "
+                   "interactive drains ahead of batch, and batch "
+                   "decodes are preemptible under --slo-ttft-ms.")
+@click.option("--batch-queue-depth", default=None, type=int,
+              help="Admission-queue bound (rows) of the BATCH class "
+                   "(default: --queue-depth).")
+@click.option("--queue-deadline-ms", default=None, type=int,
+              help="Shed an INTERACTIVE request (503 queue_deadline) "
+                   "that got no engine attention for this long.")
+@click.option("--batch-queue-deadline-ms", default=None, type=int,
+              help="The same shed deadline for the BATCH class.")
+@click.option("--slo-ttft-ms", default=None, type=int,
+              help="Interactive TTFT SLO: when the interactive TTFT "
+                   "p99 (or the waiting head's own age) degrades past "
+                   "it, the longest batch decode is preempted and "
+                   "requeued with its generated-so-far prefix "
+                   "(token-identical resume). Unset: never preempt.")
+@click.option("--trace-buffer", default=4096, type=int,
+              help="Telemetry ring capacity in trace events (GET "
+                   "/trace). 0 disables span recording; /metrics "
+                   "histograms stay live.")
+@click.option("--sanitize", is_flag=True, default=False,
+              help="Wrap the serving locks in the lock-order sanitizer "
+                   "(raises on lock-order inversion, reports in /info). "
+                   "A debugging aid, off by default.")
+@click.option("--sanitize-max-hold", default=None, type=float,
+              help="With --sanitize: flag device_lock holds longer than "
+                   "this many seconds.")
+@click.option("--sanitize-report", "sanitize_report", default=None,
+              type=click.Path(),
+              help="With --sanitize: write the observed lock "
+                   "acquisition graph to this JSON file at shutdown.")
+@click.option("--stall-timeout", default=None, type=float,
+              help="Arm the stall watchdog: when work exists but no "
+                   "decode-step boundary completes for this many "
+                   "seconds, write a one-shot diagnostic bundle to "
+                   "--stall-dir. Unset: off.")
+@click.option("--stall-dir", default=".", type=click.Path(),
+              help="With --stall-timeout: where stall bundles go.")
+@click.option("--forensics/--no-forensics", "forensics", default=True,
+              help="Per-request phase ledgers, histogram exemplars and "
+                   "the anomaly sentry (on by default).")
+@click.option("--exemplar-k", default=4, type=int,
+              help="Request-ID exemplars kept per latency-histogram "
+                   "bucket. 0 disables exemplars only.")
+@click.option("--forensics-dir", default=None, type=click.Path(),
+              help="Write one anomaly bundle per sentry episode here. "
+                   "Unset: findings and counters only.")
+@click.option("--fault-plan", "fault_plan_path", default=None,
+              type=click.Path(exists=True),
+              help="CHAOS TESTING: arm the seeded fault-injection "
+                   "harness from a JSON plan (sites: step, page_alloc, "
+                   "slow_step, engine_death, prefix_store, "
+                   "socket_reset, telemetry): bounded step retries, "
+                   "quarantine (the poisoned request alone fails 500 "
+                   "poisoned_request), supervised restart with "
+                   "token-identical resume, the crash-storm breaker. "
+                   "Unset: nothing armed.")
+@click.option("--no-supervise", is_flag=True, default=False,
+              help="Disable the engine crash supervisor: an engine "
+                   "crash then fails every in-flight request instead "
+                   "of restarting with token-identical resume.")
 @click.option("--draft-model", "--spec-draft", "draft_model",
               default=None,
               help="Draft model for speculative requests (not ported "
@@ -309,20 +380,60 @@ _SERVE_NOT_PORTED = (
 def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
           decode_window, request_timeout, access_log, request_history,
           checkpoint, kv_paged, kv_page_tokens, kv_pages, kv_lazy,
-          kv_host_spill_bytes, draft_model, spec_k, int8_weights, int8_kv,
-          kv_ring, cpu):
+          kv_host_spill_bytes, prefix_cache, default_priority,
+          batch_queue_depth, queue_deadline_ms, batch_queue_deadline_ms,
+          slo_ttft_ms, trace_buffer, sanitize, sanitize_max_hold,
+          sanitize_report, stall_timeout, stall_dir, forensics,
+          exemplar_k, forensics_dir, fault_plan_path, no_supervise,
+          draft_model, spec_k, int8_weights, int8_kv, kv_ring, cpu):
     """Serve a zoo model over HTTP: greedy and sampled POST /generate
     through the continuous-batching engine (step-boundary admission,
     eos eviction, interleaved chunked prefill, fused decode windows,
     429 once the admission queue fills) over the fixed-lane or
-    (--kv-paged) the paged KV pool; /healthz, /info, /metrics, /trace,
-    /requests, /debug/state; POST /drain.  Random-init weights from
-    seed 0, or --checkpoint DIR."""
+    (--kv-paged) the paged KV pool; POST /prefill registers a prefix
+    whose prefill later requests skip; /healthz, /info, /metrics,
+    /trace, /requests, /debug/state; POST /drain.  Supervised: an
+    engine crash restarts with token-identical resume (--no-supervise
+    turns it off; --fault-plan injects faults).  Random-init weights
+    from seed 0, or --checkpoint DIR."""
     # Flag validation before the model build (fail fast).
     for name, v in (("--n-slots", n_slots), ("--queue-depth", queue_depth),
                     ("--decode-window", decode_window)):
         if v < 1:
             raise click.ClickException(f"{name} must be >= 1")
+    if prefix_cache < 0:
+        raise click.ClickException("--prefix-cache must be >= 0")
+    if batch_queue_depth is not None and batch_queue_depth < 1:
+        raise click.ClickException("--batch-queue-depth must be >= 1")
+    for name, v in (("--queue-deadline-ms", queue_deadline_ms),
+                    ("--batch-queue-deadline-ms",
+                     batch_queue_deadline_ms),
+                    ("--slo-ttft-ms", slo_ttft_ms)):
+        if v is not None and v < 1:
+            raise click.ClickException(f"{name} must be >= 1")
+    if trace_buffer < 0:
+        raise click.ClickException("--trace-buffer must be >= 0")
+    if exemplar_k < 0:
+        raise click.ClickException("--exemplar-k must be >= 0")
+    if sanitize_max_hold is not None and not sanitize:
+        raise click.ClickException(
+            "--sanitize-max-hold requires --sanitize")
+    if sanitize_report is not None and not sanitize:
+        raise click.ClickException(
+            "--sanitize-report requires --sanitize")
+    if stall_timeout is not None and stall_timeout <= 0:
+        raise click.ClickException("--stall-timeout must be > 0")
+    fault_plan = None
+    if fault_plan_path is not None:
+        # Parse and validate the plan before the model build: a typo'd
+        # fault site must not cost a checkpoint restore.
+        from polyaxon_tpu_torch.serving.faults import FaultPlan
+
+        try:
+            fault_plan = FaultPlan.load(fault_plan_path)
+        except (ValueError, OSError) as e:
+            raise click.ClickException(
+                f"--fault-plan {fault_plan_path}: {e}")
     if prefill_chunk is not None and prefill_chunk < 1:
         raise click.ClickException("--prefill-chunk must be >= 1")
     if request_timeout <= 0:
@@ -358,7 +469,23 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
                      access_log=access_log,
                      request_history=request_history,
                      kv_paged=kv_paged, kv_page_tokens=kv_page_tokens,
-                     kv_pages=kv_pages, kv_lazy=kv_lazy)
+                     kv_pages=kv_pages, kv_lazy=kv_lazy,
+                     prefix_cache=prefix_cache,
+                     default_priority=default_priority,
+                     batch_queue_depth=batch_queue_depth,
+                     queue_deadline_s=queue_deadline_ms / 1e3
+                     if queue_deadline_ms is not None else None,
+                     batch_queue_deadline_s=batch_queue_deadline_ms / 1e3
+                     if batch_queue_deadline_ms is not None else None,
+                     slo_ttft_s=slo_ttft_ms / 1e3
+                     if slo_ttft_ms is not None else None,
+                     trace_buffer=trace_buffer, sanitize=sanitize,
+                     sanitize_max_hold_s=sanitize_max_hold,
+                     sanitize_report=sanitize_report,
+                     stall_timeout_s=stall_timeout, stall_dir=stall_dir,
+                     forensics=forensics, exemplar_k=exemplar_k,
+                     forensics_dir=forensics_dir, fault_plan=fault_plan,
+                     supervise=not no_supervise)
     try:
         srv = make_server(host, port, ms)
     except OSError as e:

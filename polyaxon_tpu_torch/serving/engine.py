@@ -31,15 +31,36 @@ tables at step boundaries and, on exhaustion, preempt the resident
 with the most remaining budget through the token-identical resume
 path (``_evict_requeue``), with the reference's livelock bar.
 
+PREFIX SEEDING: ``submit(prefix=(p_cached, logits, cache))`` starts a
+single-row stream ``p_cached`` tokens in (a prefix-cache hit): it
+prefills only its suffix, from absolute position ``p_cached`` (a RoPE
+model rotates the suffix from there), or none at all.  Paged hits also
+hand over PINNED full pages of the stored prefix (``shared_pages``),
+which admission maps read-only into the slot's table.
+
+FAULT CONTAINMENT (``faults``: a ``FaultPlan``, disarmed by default):
+a failing decode dispatch retries in place when transient (host
+positions and tokens are committed only after a dispatch succeeds, so
+a retry re-arms from them), is bisected down to the one resident whose
+presence keeps failing it (quarantine: that request alone fails with
+``PoisonedRequest``, everyone else resumes token-identically), and
+escalates to the loop's catch-all when it tracks the engine instead.
+There an attached ``EngineSupervisor`` requeues everything and restarts
+the loop over the SAME pools (``recover_from_crash``: host state only,
+so the captured graphs stay valid); a sticky CUDA error (the context
+itself is gone) instead latches the engine down — nothing can replay
+on that context.  ``policy.slo_ttft_s`` arms SLO preemption of batch
+residents for an admit-ready interactive head.
+
 Threading: ``submit`` may be called from any handler thread; all slot
 and queue mutation happens on the engine loop thread (or, in tests, via
 manual ``tick()`` calls with the loop not started — never both).
-Every CUDA call (prefill pieces, the insert copy, decode steps) runs on
-that thread under ``device_lock``; handler threads do no device work.
+Every CUDA call of the engine (prefill pieces, the insert copy, decode
+steps) runs on that thread under ``device_lock``; the server's prefix
+paths take the same lock on handler threads.
 
-Not ported yet, and refused by name: speculative streams, meshes, SLO
-preemption, fault injection and supervised crash recovery (ROADMAP
-Queue 1).
+Not ported yet, and refused by name: speculative streams and meshes
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -48,20 +69,23 @@ import sys
 import threading
 import time
 import traceback
+from collections import deque
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .debug import SnapshotBoard, events_to_dicts, new_request_id
+from .faults import is_poisoned, is_transient
 from .forensics import compute_ledger
 from .paged import PageExhausted, PagedSlotKVManager
+from .recovery import DeviceLost, RetryPolicy, is_device_lost
 from .scheduler import (AdmissionQueue, DeadlineExceeded, PRIORITIES,
-                        QueueFullError, RequestCancelled, RequestGroup,
-                        SamplingSpec, SchedulerPolicy, ShedError, Stream,
-                        terminal_status)
+                        PoisonedRequest, QueueFullError, RequestCancelled,
+                        RequestGroup, SamplingSpec, SchedulerPolicy,
+                        ShedError, Stream, terminal_status)
 from .slots import SlotKVManager
-from .telemetry import Telemetry
+from .telemetry import ENGINE_PID, Telemetry
 
 __all__ = ["DecodeEngine", "QueueFullError"]
 
@@ -90,19 +114,15 @@ class DecodeEngine:
                  autostart: bool = True,
                  telemetry: Optional[Telemetry] = None,
                  sentinel=None, mesh=None, draft_model=None,
-                 faults=None):
+                 faults=None,
+                 retry_policy: Optional[RetryPolicy] = None):
         if mesh is not None:
             raise _not_ported("a serving mesh", "meshes")
         if draft_model is not None:
             raise _not_ported("a draft model (speculative streams)",
                               "beam and speculative decoding")
-        if faults is not None:
-            raise _not_ported("fault injection", "--fault-plan wiring")
         self.model = model
         self.policy = policy or SchedulerPolicy()
-        if self.policy.slo_ttft_s is not None:
-            raise _not_ported("SLO preemption (slo_ttft_s)",
-                              "SLO preemption")
         # Telemetry ring shared with the owning server (request spans
         # and engine step records in ONE /trace timeline); standalone
         # engines get a disabled core.
@@ -136,6 +156,11 @@ class DecodeEngine:
             self.slots = SlotKVManager(
                 model, self.policy.n_slots, sentinel=sentinel,
                 max_window=max_window)
+        # Paged page-pressure relief hook: called with a page count
+        # when an admit-ready stream (or a lazy growth) is blocked on
+        # free pages; the server wires it to prefix-cache LRU eviction
+        # so stored-but-idle prefixes yield to live traffic.
+        self.page_reclaim = None
         self.queue = AdmissionQueue(self.policy)
         # streams resident in a slot: slot index -> Stream
         self._resident: Dict[int, Stream] = {}
@@ -174,6 +199,10 @@ class DecodeEngine:
         self.shed_total = 0
         self.shed_by_class = {p: 0 for p in PRIORITIES}
         self.admitted_by_class = {p: 0 for p in PRIORITIES}
+        # SLO preemption's control signal: a SLIDING window of recent
+        # interactive admission-anchored TTFTs (a cumulative histogram
+        # would latch preemption after one bad period).
+        self._ttft_recent: "deque[float]" = deque(maxlen=64)
         # Sweep fast path: skip the boundary sweep unless a cancel is
         # pending or deadlines are in play (sticky once armed).
         self._cancel_pending = False
@@ -193,6 +222,21 @@ class DecodeEngine:
         self._last_freed: Optional[Tuple] = None
         self.board_interval_s = 0.1
         self._board_t = 0.0
+        # Fault tolerance: the armed FaultPlan (None: every probe site
+        # is one attribute check), the bounded step-retry schedule,
+        # the supervisor (set by recovery.EngineSupervisor), the
+        # breaker-open latch, the quarantine suspects, and the
+        # conviction streak (two convictions with no working dispatch
+        # between them escalate: the fault tracks the engine).
+        self.faults = faults
+        self.retry_policy = retry_policy if retry_policy is not None \
+            else RetryPolicy()
+        self.supervisor = None
+        self.down = False
+        self._suspects: set = set()
+        self._convictions_without_success = 0
+        self.step_retries_total = 0
+        self.poisoned_total = 0
         self.debug_board.publish(self.build_debug_snapshot())
 
     # -- submission (any thread) ----------------------------------------
@@ -200,20 +244,38 @@ class DecodeEngine:
     def submit(self, rows: np.ndarray, new: int,
                eos_id: Optional[int], prefill_chunk: Optional[int],
                *, sampling: Optional[SamplingSpec] = None,
+               prefix=None, on_prefilled=None,
                record_timings: bool = False,
                priority: Optional[str] = None,
                deadline_s: Optional[float] = None,
-               rid: Optional[str] = None) -> RequestGroup:
+               shared_pages=None,
+               rid: Optional[str] = None,
+               prefix_info=None) -> RequestGroup:
         """Enqueue a request (may raise QueueFullError) and make sure
         the loop is running.  Returns the group; callers block on
         ``group.event``.  ``sampling`` carries the per-request (seed,
         temperature, top_k, top_p): None (or temperature 0) is greedy;
         sampled streams draw under the position-keyed contract, so
         their tokens are independent of co-tenancy.  ``priority`` picks
-        the class queue (``interactive`` drains ahead of ``batch``);
+        the class queue (``interactive`` drains ahead of ``batch``,
+        and batch residents are preemptible under the TTFT SLO);
         ``deadline_s`` (relative seconds) evicts the request at the
         next step boundary once it passes.  A DRAINING engine sheds
-        every submit (503).
+        every submit (503), and so does one whose crash breaker is
+        open (503 ``engine_down``).
+
+        ``prefix=(p_cached, logits, cache)`` seeds a SINGLE-ROW request
+        with a stored prefill (the prefix-cache hit path): ``cache`` is
+        a private contiguous B=1 cache at index ``p_cached`` (the
+        stream extends it in place), so the stream prefills only its
+        suffix, or nothing on a full-length hit.  ``on_prefilled``
+        fires on the engine thread once the prompt is fully consumed
+        (the store-back hook).  ``shared_pages`` (paged prefix hits)
+        are PINNED full-page ids of the stored prefix, tagged with the
+        pool epoch they were pinned under: the engine owns the pins
+        from here on, maps them read-only at admission and releases
+        them on any terminal path before that.  ``prefix_info`` rides
+        the history record as the hit's provenance.
 
         A budget past the model's ``max_position`` (prompt + new
         tokens) is refused with ValueError: no slot has positions for
@@ -236,6 +298,16 @@ class DecodeEngine:
             raise ShedError(
                 "engine is draining: finishing in-flight requests, "
                 "admitting none", reason="draining")
+        if self.down:
+            # Breaker open (recovery.py): shed fast instead of queueing
+            # work a dead engine will not drain.
+            with self._shed_lock:
+                self.shed_total += 1
+                self.shed_by_class[priority] += 1
+            raise ShedError(
+                "decode engine is down (crash-restart circuit breaker "
+                "open); retry after the cooldown", reason="engine_down",
+                retry_after=self.policy.retry_after_s)
         rows = np.asarray(rows)
         p_len = rows.shape[1]
         max_pos = self.model.cfg.max_position
@@ -261,13 +333,41 @@ class DecodeEngine:
                     f"{self.slots.page_tokens}-token pages); shrink "
                     f"the prompt/budget or raise --kv-pages",
                     reason="kv_pages")
-        pieces = self.policy.chunk_plan(p_len, prefill_chunk)
-        group = RequestGroup(rows, new, eos_id, pieces, sampling,
-                             priority=priority)
+        if prefix is None:
+            pieces = self.policy.chunk_plan(p_len, prefill_chunk)
+            group = RequestGroup(rows, new, eos_id, pieces, sampling,
+                                 priority=priority)
+        else:
+            if rows.shape[0] != 1:
+                raise ValueError(
+                    "prefix-seeded submit takes a single-row request "
+                    f"(got batch {rows.shape[0]})")
+            p_cached, logits, cache = prefix
+            suffix = p_len - p_cached
+            pieces = self.policy.chunk_plan(suffix, prefill_chunk) \
+                if suffix > 0 else []
+            group = RequestGroup(rows, new, eos_id, pieces, sampling,
+                                 priority=priority)
+            stream = group.streams[0]
+            stream.filled = p_cached
+            stream.logits = logits
+            stream.cache = cache
+        if shared_pages:
+            # The pins ride the stream until admission maps them; the
+            # pool epoch rides along, so a crash-recovery rebuild in
+            # between drops them by reference (_validate_shared_epoch).
+            group.streams[0].kv_shared = tuple(shared_pages)
+            group.streams[0].kv_epoch = getattr(shared_pages, "epoch",
+                                                None)
         if deadline_s is not None:
             group.deadline = group.t_submit + float(deadline_s)
             self._deadline_armed = True
         group.rid = rid if rid is not None else new_request_id()
+        if self.faults is not None:
+            # request_index-keyed poisoned specs resolve to this id.
+            self.faults.on_submit(group.rid)
+        group.prefix_info = prefix_info
+        group.on_prefilled = on_prefilled
         group.record_timings = bool(record_timings)
         # Streams collect their span tuples when a ``timings`` block,
         # the history ring or the forensics core wants them.
@@ -361,24 +461,35 @@ class DecodeEngine:
             stream = self.queue.pop_head()
             if stream is None:
                 break
+            self._release_stream_kv(stream)
             stream.group.fail(err)
             self._record_history(stream.group)
 
     def _loop(self) -> None:
         while not self._stop:
             try:
+                if self.faults is not None:
+                    # Injected whole-engine death: raised HERE, past
+                    # tick's containment — the supervised-restart path
+                    # a real scheduling-layer crash takes.
+                    self.faults.check("engine_death")
                 worked = self.tick()
-            except Exception as e:
+            except BaseException as e:
                 # Device errors inside prefill/admit already failed
                 # their own group; anything here is a whole-engine
-                # crash: surface it and fail everything in flight
-                # (supervised restart comes with the fault-tolerance
-                # slice).
+                # crash.  A supervised engine recovers (requeue
+                # everything, restart the loop; this thread exits); an
+                # unsupervised one fails everything in flight.
+                if self.supervisor is not None \
+                        and self.supervisor.handle_crash(e):
+                    return
                 traceback.print_exc(file=sys.stderr)
                 self._fail_all(
                     RuntimeError(f"decode engine error: "
                                  f"{type(e).__name__}: {e}"))
                 worked = False
+            if worked and self.supervisor is not None:
+                self.supervisor.note_progress()
             if not worked:
                 with self._wake:
                     if self._stop:
@@ -386,13 +497,28 @@ class DecodeEngine:
                     self._wake.wait(timeout=0.05)
         self._fail_all(RuntimeError("decode engine closed"))
 
+    def _restart_loop(self) -> bool:
+        """Start a REPLACEMENT loop thread after supervised crash
+        recovery (called on the dying loop thread, which exits right
+        after).  False when the engine was closed mid-recovery."""
+        with self._thread_lock:
+            if self._stop:
+                return False
+            self._thread = threading.Thread(
+                target=self._loop, name="decode-engine", daemon=True)
+            self._thread.start()
+            return True
+
     # -- one scheduling round -------------------------------------------
 
     def tick(self) -> bool:
-        """One step boundary: deliver pending lifecycle events, admit/
-        prefill within the policy budget, then one decode window over
-        the resident batch.  Returns whether any work was done."""
+        """One step boundary: deliver pending lifecycle events, preempt
+        a batch resident if the interactive TTFT SLO demands it,
+        admit/prefill within the policy budget, then one decode window
+        over the resident batch.  Returns whether any work was done."""
         worked = self._sweep_lifecycle()
+        if self._maybe_preempt():
+            worked = True
         budget = self.policy.prefill_budget(bool(self._resident),
                                             self.slots.free_slots)
         while budget > 0:
@@ -402,7 +528,7 @@ class DecodeEngine:
             if stream.group.error is not None:
                 self.queue.drop_group(stream.group)
                 continue
-            if stream.pf_done and not self._admissible_now(stream):
+            if stream.pf_done and not self._can_admit_stream(stream):
                 # Prefilled, waiting on a slot or pages.
                 self._note_blocked(stream)
                 break
@@ -462,16 +588,72 @@ class DecodeEngine:
                 return s
         return None
 
+    def _validate_shared_epoch(self, stream: Stream) -> None:
+        """Drop shared prefix pins taken under a page-pool generation
+        that crash recovery has since rebuilt: the ids mean nothing in
+        the fresh accounting (never unpin them into it), and the
+        stream's own materialized prefill makes admission without the
+        sharing token-identical.  Engine thread only."""
+        if stream.kv_shared and stream.kv_epoch is not None \
+                and stream.kv_epoch != getattr(self.slots, "epoch",
+                                               None):
+            stream.kv_shared = None
+            stream.kv_epoch = None
+
     def _admissible_now(self, stream: Stream) -> bool:
-        """A free slot AND, paged, enough free pages for the stream's
-        reservation (and, lazy, no exhaustion bar)."""
+        """Pure check (``_pick_window`` calls it every boundary): a
+        free slot AND, paged, enough free pages for the stream's
+        reservation net of its shared prefix pages (and, lazy, no
+        exhaustion bar)."""
+        self._validate_shared_epoch(stream)
         if self._stream_barred(stream):
             return False
         if self.slots.free_slots == 0:
             return False
         if not self.paged:
             return True
-        return self.slots.can_admit(self._kv_admit_tokens(stream))
+        return self.slots.can_admit(self._kv_admit_tokens(stream),
+                                    len(stream.kv_shared or ()))
+
+    def _can_admit_stream(self, stream: Stream) -> bool:
+        """The admission gate: ``_admissible_now``, and when pages are
+        the blocker, ask the owner's reclaim hook (prefix-cache LRU
+        eviction) to free the stream's whole page need first —
+        stored-but-idle prefixes must never starve live traffic."""
+        if self._admissible_now(stream):
+            return True
+        if self._stream_barred(stream) or self.slots.free_slots == 0 \
+                or not self.paged or self.page_reclaim is None:
+            return False
+        need = self._kv_admit_tokens(stream)
+        n_shared = len(stream.kv_shared or ())
+        try:
+            self.page_reclaim(self.slots.pages_needed(need) - n_shared)
+        except Exception:
+            import logging
+
+            logging.getLogger(__name__).debug(
+                "page_reclaim hook failed", exc_info=True)
+        ok = self.slots.can_admit(need, n_shared)
+        if ok:
+            self._last_freed = (None, "prefix_reclaim")
+        return ok
+
+    def _release_stream_kv(self, stream: Stream) -> None:
+        """Release a stream's still-PINNED shared prefix pages (set at
+        submit, consumed at admission) on every terminal path that can
+        fire before the pins move into a slot table.  Epoch-guarded:
+        pins of a rebuilt pool generation drop by reference."""
+        ids = stream.kv_shared
+        if ids:
+            stream.kv_shared = None
+            try:
+                self.slots.unpin(ids, epoch=stream.kv_epoch)
+            except Exception:
+                import logging
+
+                logging.getLogger(__name__).debug(
+                    "shared-page release failed", exc_info=True)
 
     def _note_blocked(self, stream: Stream) -> None:
         """First boundary a fully-prefilled head could not admit: open
@@ -549,6 +731,7 @@ class DecodeEngine:
                        tokens=len(stream.out), terminal=status)
             stream.slot = None
         for stream in group.streams:
+            self._release_stream_kv(stream)
             self._emit_instant(stream, status, now, row=stream.row,
                                tokens=len(stream.out))
         if isinstance(err, ShedError):
@@ -562,12 +745,113 @@ class DecodeEngine:
         group.fail(err)
         self._record_history(group)
 
+    def _recent_ttft_p99(self) -> Optional[float]:
+        """p99 of the sliding interactive-TTFT window (None until there
+        are observations)."""
+        if not self._ttft_recent:
+            return None
+        xs = sorted(self._ttft_recent)
+        return xs[min(len(xs) - 1, int(0.99 * len(xs)))]
+
+    def _maybe_preempt(self) -> bool:
+        """Preempt ONE batch resident when the interactive class needs
+        its slot: the interactive head is admit-ready (fully
+        prefilled) with no free slot, and either its own wait passed
+        half the ``slo_ttft_s`` target (a controller acts with margin)
+        or the recent interactive TTFT p99 is past the target.  The
+        victim — the batch resident with the most remaining budget —
+        requeues at the front of its class through the token-identical
+        resume path; interactive residents are never preempted."""
+        slo = self.policy.slo_ttft_s
+        if slo is None or self.slots.free_slots > 0:
+            return False
+        head = self._queue_head()
+        if head is None or head.group.priority != "interactive" \
+                or not head.pf_done:
+            return False
+        now = time.perf_counter()
+        waited = now - head.group.t_submit
+        reason = "head_wait_over_half_slo"
+        if waited <= slo / 2:
+            p99 = self._recent_ttft_p99()
+            if p99 is None or p99 <= slo:
+                return False
+            reason = "ttft_p99_degraded"
+        victim = None
+        for slot, stream in self._resident.items():
+            if stream.group.priority != "batch":
+                continue
+            rem = stream.new - len(stream.out)
+            if victim is None or rem > victim[2]:
+                victim = (slot, stream, rem)
+        if victim is None:
+            return False        # all residents interactive: defer only
+        slot, stream, _ = victim
+        self.preempted_total += 1
+        stream.preempts += 1
+        self._evict_requeue(slot, stream, "preempted", now,
+                            by=head.group.rid, reason=reason,
+                            head_waited_ms=round(1e3 * waited, 3))
+        return True
+
     def run_until_idle(self, max_ticks: int = 100000) -> None:
         """Drain queue + slots synchronously (tests/offline use)."""
         for _ in range(max_ticks):
             if not self.tick():
                 return
         raise RuntimeError("engine did not go idle within max_ticks")
+
+    # -- crash recovery (recovery.EngineSupervisor) ----------------------
+
+    def recover_from_crash(self) -> int:
+        """The engine half of supervised crash recovery, "requeue
+        everything and replay", called with NO loop thread running.
+        Returns the number of resident streams requeued.
+
+        - every RESIDENT stream requeues through the preempt-resume
+          path (its committed tokens are host state, so resumption is
+          token-identical however the engine died);
+        - every partial prefill and prefix seed restarts from its
+          tokens in pow2 pieces (the partial cache came from a device
+          state the crash made untrustworthy);
+        - the pools reset IN PLACE (``slots.reset``: host state only,
+          the device buffers the captured graphs replay against keep
+          their addresses, so recovery captures nothing new);
+        - stale shared-page pins are dropped by reference (never
+          unpinned into the fresh accounting); the owner's recovery
+          hook flushes the prefix store those pins protected."""
+        now = time.perf_counter()
+        # Quarantine suspicion dies with the loop that formed it; the
+        # conviction streak survives (a fault recurring after the
+        # restart escalates at once).
+        self._suspects.clear()
+        self._exhaust_bars.clear()
+        n = 0
+        for slot, stream in sorted(list(self._resident.items())):
+            self._evict_requeue(slot, stream, "crash_requeued", now,
+                                release=False)
+            n += 1
+        for stream in self.queue.snapshot():
+            stream.kv_shared = None
+            stream.evicted_for = None
+            if stream.filled or stream.cache is not None \
+                    or stream.pf_done:
+                stream.pieces = SchedulerPolicy.pow2_pieces(
+                    stream.pf_toks.shape[1])
+                stream.filled = 0
+                stream.cache = None
+                stream.logits = None
+                stream.pf_done = False
+                stream.blocked_t = None
+        with self.device_lock:
+            # Under the device lock: handler threads scatter/gather
+            # prefix pages under it, and their epoch checks are only
+            # airtight if the reset (which bumps the epoch) cannot
+            # interleave.  Host work only.
+            self.slots.reset()
+        self._last_freed = None
+        self.last_boundary_t = time.perf_counter()
+        return n
 
     # -- telemetry ------------------------------------------------------
 
@@ -579,6 +863,8 @@ class DecodeEngine:
         if stream.group.rid is not None:
             args.setdefault("rid", stream.group.rid)
         try:
+            if self.faults is not None:
+                self.faults.check("telemetry")
             self.tel.span(stream.sid or 0, name, t0, t1, **args)
         except Exception:
             self.telemetry_errors_total += 1
@@ -590,6 +876,8 @@ class DecodeEngine:
         if stream.group.rid is not None:
             args.setdefault("rid", stream.group.rid)
         try:
+            if self.faults is not None:
+                self.faults.check("telemetry")
             self.tel.instant(stream.sid or 0, name, t, **args)
         except Exception:
             self.telemetry_errors_total += 1
@@ -609,7 +897,10 @@ class DecodeEngine:
         free (prefill works ahead while all slots are busy).  Each
         piece is an eager call of the port's ``prefill``, extending the
         stream's B=1 cache at its position: piecewise equals one-shot,
-        so interleaving changes latency, never tokens."""
+        so interleaving changes latency, never tokens.  A prefix-seeded
+        stream starts at ``filled = p_cached`` (full-length hits have
+        no piece at all).  A sticky CUDA error is not the request's:
+        it escapes to the loop as ``DeviceLost``."""
         from ..models import generate as G
 
         group = stream.group
@@ -630,6 +921,8 @@ class DecodeEngine:
                         position=stream.filled)
                     self._sync()
             except Exception as e:
+                if is_device_lost(e):
+                    raise DeviceLost(f"prefill: {e}") from e
                 self._fail_group(group, e)
                 return
             stream.cache = cache
@@ -642,9 +935,20 @@ class DecodeEngine:
                        piece=piece, filled=stream.filled)
             if stream.pieces:
                 return                  # more prompt to consume
-        stream.pf_done = True
-        if not self._admissible_now(stream):
-            return          # wait, fully prefilled, for a slot
+        if not stream.pf_done:
+            stream.pf_done = True
+            # Never on a resumed stream: its pf_toks mix generated
+            # tokens in, which must not be stored back as a prompt.
+            if group.on_prefilled is not None and not stream.resume:
+                try:
+                    group.on_prefilled(stream)
+                except Exception:
+                    import logging
+
+                    logging.getLogger(__name__).debug(
+                        "on_prefilled hook failed", exc_info=True)
+        if not self._can_admit_stream(stream):
+            return          # wait, fully prefilled, for a slot/pages
         self.queue.pop_stream(stream)
         self._admit(stream)
 
@@ -669,14 +973,16 @@ class DecodeEngine:
     def _admit(self, stream: Stream) -> None:
         """Step-boundary admission: token 0 from the prefill logits
         (argmax, or the position-keyed sampler), the B=1 cache into a
-        free slot (paged: into freshly reserved pages).  A device
-        failure releases the slot and fails the group: a waiter never
-        hangs on a dead admission.
+        free slot (paged: into freshly reserved pages, with a prefix
+        hit's shared pages mapped read-only).  A device failure
+        releases the slot and fails the group: a waiter never hangs on
+        a dead admission.
 
-        A RESUMED stream (evicted for pool exhaustion) samples nothing:
-        its committed tokens exist, so it re-enters feeding ``out[-1]``
-        at its original position with ``next_index == len(out)``, the
-        key the uninterrupted run would have drawn with."""
+        A RESUMED stream (preempted, quarantined or crash-requeued)
+        samples nothing: its committed tokens exist, so it re-enters
+        feeding ``out[-1]`` at its original position with
+        ``next_index == len(out)``, the key the uninterrupted run
+        would have drawn with."""
         slot = self.slots.acquire()
         assert slot is not None, "admission without a free slot"
         stream.last_slot = slot
@@ -689,6 +995,8 @@ class DecodeEngine:
                     first = self._first_token(stream)
             except Exception as e:
                 self.slots.release(slot)
+                if is_device_lost(e):
+                    raise DeviceLost(f"admission: {e}") from e
                 self._fail_group(stream.group, e)
                 return
             stream.out.append(first)
@@ -696,11 +1004,14 @@ class DecodeEngine:
         stream.group.t_last_admit = stream.t_admit
         if stream.group.t_first_admit is None:
             # The first token of the request exists NOW: the TTFT
-            # anchor, observed into the request's class histogram.
+            # anchor, observed into the request's class histogram (and
+            # the SLO controller's sliding window).
             stream.group.t_first_admit = stream.t_admit
             ttft = stream.t_admit - stream.group.t_submit
             self.tel.observe("ttft_" + stream.group.priority, ttft,
                              exemplar=stream.group.rid)
+            if stream.group.priority == "interactive":
+                self._ttft_recent.append(ttft)
         self._emit_instant(stream, "admit", stream.t_admit,
                            row=stream.row, slot=slot,
                            **({"resumed": True} if resumed else {}))
@@ -717,6 +1028,7 @@ class DecodeEngine:
         stream.logits = None
         if not resumed and stream.done():   # new == 1, or an instant eos
             stream.cache = None
+            self._release_stream_kv(stream)  # never mapped a table
             self.slots.release(slot)
             stream.slot = slot          # zero-length decode span
             self._complete(stream)      # still keys the slot id
@@ -726,9 +1038,19 @@ class DecodeEngine:
             return
         kw = {}
         if self.paged:
-            kw["total_tokens"] = self._kv_tokens_needed(stream.p_len,
-                                                        stream.new)
+            # Ownership of the pinned shared pages passes to insert (it
+            # unpins on its own failure paths): clear the stream's
+            # reference FIRST, so no later path releases them twice.
+            shared = stream.kv_shared or ()
+            stream.kv_shared = None
+            kw = dict(total_tokens=self._kv_tokens_needed(
+                stream.p_len, stream.new), shared_pages=shared)
         try:
+            if self.faults is not None:
+                # Injected page-pool exhaustion: a PageExhausted
+                # subclass, so it takes the transient-shortage requeue
+                # below like a real gate/insert race.
+                self.faults.check("page_alloc")
             with self.device_lock:
                 # Feed the last committed token at its absolute
                 # position (fresh: token 0 at p_len) and draw token
@@ -740,11 +1062,17 @@ class DecodeEngine:
                     next_index=len(stream.out),
                     temperature=spec.temperature, top_k=spec.top_k,
                     top_p=spec.top_p, **kw)
-        except PageExhausted:
+        except PageExhausted as pe:
             # Pages went between the gate and the insert: a transient
             # shortage, not a failure — back to the front of its class
             # through the resume path, to admit when pages free.
             self.slots.release(slot)
+            if kw.get("shared_pages") and getattr(pe, "injected", False):
+                # An injected exhaustion fires BEFORE insert (the pin
+                # owner on real failures) ran: release the pins here.
+                self.slots.unpin(kw["shared_pages"],
+                                 epoch=stream.kv_epoch)
+                stream.kv_epoch = None
             self._emit_instant(stream, "page_requeued",
                                time.perf_counter(), row=stream.row,
                                tokens=len(stream.out))
@@ -755,6 +1083,8 @@ class DecodeEngine:
             return
         except Exception as e:
             self.slots.release(slot)
+            if is_device_lost(e):
+                raise DeviceLost(f"admission: {e}") from e
             self._fail_group(stream.group, e)
             return
         stream.cache = None             # the pool owns the KV now
@@ -802,7 +1132,11 @@ class DecodeEngine:
                 not head.pf_done
                 or self._admissible_now(head)
                 or any(s.eos_id is not None
-                       for s in self._resident.values())):
+                       for s in self._resident.values())
+                # An armed TTFT SLO makes every boundary a potential
+                # preemption point while an interactive request waits.
+                or (self.policy.slo_ttft_s is not None
+                    and head.group.priority == "interactive")):
             return 1
         if any(s.group.deadline is not None
                for s in self._resident.values()):
@@ -812,17 +1146,22 @@ class DecodeEngine:
         return _pow2_floor(min(cap, max(1, rem)))
 
     def _evict_requeue(self, slot: int, stream: Stream, why: str,
-                       now: float, *, front: bool = True,
-                       **instant_args) -> None:
+                       now: float, *, release: bool = True,
+                       front: bool = True, **instant_args) -> None:
         """Evict a RESIDENT stream and requeue it for token-identical
-        resume: it re-prefills ``prompt ++ out[:-1]`` in pow2 pieces
-        (a bounded set of prefill shapes) and re-enters feeding
-        ``out[-1]`` with ``next_index == len(out)``, so no token is
-        ever resampled (``Stream.prepare_resume``).  Exhaustion
-        evictions requeue at the BACK of their class (``front=False``):
-        the freed pages belong to those already waiting."""
+        resume — the one path SLO preemption, quarantine bisection,
+        crash recovery and lazy-KV exhaustion share: it re-prefills
+        ``prompt ++ out[:-1]`` in pow2 pieces (a bounded set of prefill
+        shapes) and re-enters feeding ``out[-1]`` with ``next_index ==
+        len(out)``, so no token is ever resampled
+        (``Stream.prepare_resume``).  Exhaustion evictions requeue at
+        the BACK of their class (``front=False``): the freed pages
+        belong to those already waiting.  ``release=False`` (crash
+        recovery) skips the slot release: the wholesale pool reset
+        follows."""
         del self._resident[slot]
-        self.slots.release(slot)
+        if release:
+            self.slots.release(slot)
         self.evicted_total += 1
         self._note_freed(stream, why)
         self._emit(stream, "decode", stream.t_admit, now,
@@ -863,7 +1202,21 @@ class DecodeEngine:
                                                 stream.new)
                 need = min(budget,
                            int(self.slots.positions[slot]) + span)
-                if self.slots.grow_slot(slot, need) is None:
+                grown = self.slots.grow_slot(slot, need)
+                if grown is None and self.page_reclaim is not None:
+                    # Stored-but-idle prefix pages yield before any
+                    # live resident does.
+                    try:
+                        self.page_reclaim(
+                            self.slots.grow_need(slot, need))
+                    except Exception:
+                        import logging
+
+                        logging.getLogger(__name__).debug(
+                            "page_reclaim hook failed during lazy "
+                            "growth", exc_info=True)
+                    grown = self.slots.grow_slot(slot, need)
+                if grown is None:
                     blocked = (slot, stream)
                     break
             if blocked is None:
@@ -912,8 +1265,16 @@ class DecodeEngine:
                       for s in self._resident.values())
         occupancy = len(self._resident)
         t0 = time.perf_counter()
-        with self.device_lock:
-            toks_w = self.slots.step(window, sampled)   # [W, S]
+
+        def dispatch():
+            with self.device_lock:
+                return self.slots.step(window, sampled)   # [W, S]
+
+        toks_w = self._dispatch_step(dispatch)
+        if toks_w is None:
+            # Containment resolved the boundary by changing the
+            # resident set instead of producing tokens: re-plan.
+            return
         t1 = time.perf_counter()
         self.decode_steps_total += window
         self.decode_dispatches_total += 1
@@ -941,6 +1302,133 @@ class DecodeEngine:
                       **({"pages_free": self.slots.free_page_count(),
                           "pages_total": self.slots.n_pages}
                          if self.paged else {}))
+
+    # -- step-boundary fault containment ---------------------------------
+
+    def _dispatch_step(self, dispatch):
+        """Contained step dispatch.  Returns the dispatch's tokens, or
+        None when containment resolved the failure by changing the
+        resident set (quarantine evictions, a conviction).
+
+        - TRANSIENT failures (``faults.is_transient``) retry in place
+          under ``retry_policy``: the step commits host positions and
+          tokens only after a dispatch succeeds, so a retry re-arms
+          the graph from the same committed state and rewrites any
+          partly written KV with identical values.
+        - POISONED failures, exhausted retries, or any other error
+          with residents to protect go to ``_quarantine_step``.
+        - A sticky CUDA error escapes at once (``DeviceLost``): no
+          dispatch can succeed on that context.
+
+        A round that cannot converge escalates by raising into the
+        loop's catch-all (supervised restart, or fail-everything) —
+        bounded, never a hang."""
+        attempt = 0
+        rounds = 0
+        while True:
+            rounds += 1
+            if rounds > 4 * self.slots.n_slots + 8:
+                raise RuntimeError(
+                    "step-fault containment did not converge "
+                    "(failures outlasted per-request quarantine); "
+                    "escalating to engine recovery")
+            try:
+                if self.faults is not None:
+                    # slow_step sleeps OUTSIDE the device lock: an
+                    # injected stall wedges the loop, not the lock.
+                    self.faults.check("slow_step")
+                    self.faults.check("step", rids=[
+                        s.group.rid for s in self._resident.values()])
+                out = dispatch()
+            except BaseException as e:
+                if is_device_lost(e):
+                    raise DeviceLost(f"decode step: {e}") from e
+                if not self._resident:
+                    raise       # nothing to contain: scheduling bug
+                if is_transient(e) and not is_poisoned(e) \
+                        and attempt < self.retry_policy.max_attempts:
+                    delay = self.retry_policy.delay_s(attempt)
+                    attempt += 1
+                    self.step_retries_total += 1
+                    try:
+                        self.tel.instant(
+                            0, "step_retry", time.perf_counter(),
+                            pid=ENGINE_PID, error=type(e).__name__,
+                            attempt=attempt,
+                            backoff_ms=round(1e3 * delay, 3))
+                    except Exception:
+                        self.telemetry_errors_total += 1
+                    time.sleep(delay)
+                    continue
+                self._quarantine_step(e)
+                if not self._resident:
+                    return None
+                continue
+            self._convictions_without_success = 0
+            if self._suspects:
+                # A working dispatch exonerates every resident suspect.
+                for s in self._resident.values():
+                    self._suspects.discard(s.group)
+            return out
+
+    def _quarantine_step(self, err: BaseException) -> None:
+        """One quarantine-bisection round: isolate WHICH resident keeps
+        failing the shared dispatch, fail only it, resume everyone
+        else token-identically.  A poisoned failure fires exactly when
+        its culprit is resident, so —
+
+        - no resident suspects yet (or one stale suspect among fresh
+          co-tenants): every resident is marked;
+        - ONE suspect that is the SOLE resident: convicted
+          (``PoisonedRequest``, 500 ``poisoned_request``), every other
+          suspect exonerated;
+        - several: evict half to the requeue path and re-dispatch.
+
+        Two convictions with no working dispatch between them mean the
+        fault tracks the engine: escalate by raising."""
+        now = time.perf_counter()
+        for g in [g for g in self._suspects if g.event.is_set()]:
+            self._suspects.discard(g)
+        suspects = [(slot, s)
+                    for slot, s in sorted(self._resident.items())
+                    if s.group in self._suspects]
+        if not suspects or (len(suspects) == 1
+                            and len(self._resident) > 1):
+            for s in self._resident.values():
+                self._suspects.add(s.group)
+            suspects = sorted(self._resident.items())
+        if len(suspects) == 1:
+            if self._convictions_without_success >= 2:
+                raise RuntimeError(
+                    "step failures persist across quarantine "
+                    "convictions (no successful dispatch between "
+                    "episodes) — the fault tracks the engine, not a "
+                    "request; escalating to engine recovery") from err
+            slot, stream = suspects[0]
+            self._convict(slot, stream, err, now)
+            self._suspects.clear()
+            return
+        for slot, stream in suspects[: len(suspects) // 2]:
+            self._evict_requeue(slot, stream, "quarantined", now,
+                                error=type(err).__name__)
+
+    def _convict(self, slot: int, stream: Stream, err: BaseException,
+                 now: float) -> None:
+        """Fail the isolated culprit — and ONLY it — with the typed
+        ``PoisonedRequest``; its co-tenants keep decoding."""
+        group = stream.group
+        self.poisoned_total += 1
+        self._convictions_without_success += 1
+        self._note_freed(stream, "poisoned")
+        self._emit(stream, "decode", stream.t_admit, now,
+                   row=stream.row, slot=slot, tokens=len(stream.out),
+                   terminal="poisoned")
+        self._emit_instant(stream, "poisoned", now, row=stream.row,
+                           slot=slot, error=type(err).__name__)
+        self._fail_group(group, PoisonedRequest(
+            f"request {group.rid} poisoned the shared decode step and "
+            f"was quarantined (co-tenants resumed unaffected): "
+            f"{type(err).__name__}: {err}"))
 
     # -- completion -----------------------------------------------------
 
@@ -976,11 +1464,16 @@ class DecodeEngine:
                 del self._resident[slot]
                 self.slots.release(slot)
                 self.evicted_total += 1
+        for stream in group.streams:
+            self._release_stream_kv(stream)
         if not group.event.is_set():
             t = time.perf_counter()
             for stream in group.streams:
                 self._emit_instant(stream, "fail", t, row=stream.row,
                                    error=type(err).__name__)
+        # The group keeps the error, not its traceback: the traceback's
+        # frames hold this engine and the group (a cycle).
+        err.__traceback__ = None
         group.fail(err)
         self._record_history(group)
 
@@ -990,6 +1483,12 @@ class DecodeEngine:
         """One terminal record per request into the retention ring (the
         causal story ``GET /requests/<id>`` serves), and its phase
         ledger into the forensics core."""
+        # Terminal: drop what the group still holds (the owner's
+        # store-back hook, a partial prefill's cache).  A group and its
+        # streams form a cycle that only the collector frees.
+        group.on_prefilled = None
+        for s in group.streams:
+            s.cache = s.logits = None
         h = self.history
         if group.rid is None:
             return
@@ -1021,12 +1520,16 @@ class DecodeEngine:
             "queue_wait_s": round(queue_s, 6),
             "prefill_s": round(prefill_s, 6),
             "decode_s": round(decode_s, 6),
+            "preempts": sum(s.preempts for s in group.streams),
+            "resumes": sum(s.resumes for s in group.streams),
         }
         if group.t_first_admit is not None:
             rec["ttft_s"] = round(group.t_first_admit - group.t_submit, 6)
         if group.error is not None:
             rec["error"] = (f"{type(group.error).__name__}: "
                             f"{group.error}")[:300]
+        if group.prefix_info:
+            rec["prefix"] = dict(group.prefix_info)
         if ledger is not None:
             rec["phases"] = ledger
         rec["streams"] = [
@@ -1091,9 +1594,22 @@ class DecodeEngine:
             snap["pages"] = {**self.slots.page_stats(),
                              "slot_table_pages":
                                  self.slots.slot_page_counts()}
+        # Fault tolerance: the supervisor block, the armed plan's
+        # counters and the quarantine suspects ride every snapshot.
+        snap["engine_down"] = self.down
+        if self.supervisor is not None:
+            snap["supervisor"] = self.supervisor.status()
+        if self.faults is not None:
+            snap["faults"] = self.faults.stats()
+        if self._suspects:
+            snap["quarantine_suspects"] = sorted(
+                g.rid for g in self._suspects if g.rid)
         return snap
 
     def stats(self) -> Dict[str, Any]:
+        fstats = self.faults.stats() if self.faults is not None \
+            else None
+        sup = self.supervisor
         return {
             "slots": self.slots.n_slots,
             "slots_active": self.slots.active_slots,
@@ -1135,6 +1651,22 @@ class DecodeEngine:
             "preempted_total": self.preempted_total,
             "requests_requeued_total": self.requests_requeued_total,
             "resumed_total": self.resumed_total,
+            # Fault tolerance (faults.py + recovery.py): one dict
+            # behind /metrics AND /info.
+            "engine_down": self.down,
+            "step_retries_total": self.step_retries_total,
+            "poisoned_total": self.poisoned_total,
+            "engine_crashes_total":
+                sup.crashes_total if sup is not None else 0,
+            "engine_restarts_total":
+                sup.restarts_total if sup is not None else 0,
+            "breaker_state":
+                sup.breaker.state if sup is not None else "unsupervised",
+            "faults_injected_total":
+                fstats["faults_injected_total"]
+                if fstats is not None else 0,
+            "faults_injected":
+                fstats["faults_injected"] if fstats is not None else {},
             **(self.slots.page_stats() if self.paged else {}),
             # Recompile sentinel: a miss is a CUDA-graph capture (a
             # window's first eager run on the CPU), a hit a replay;

@@ -37,11 +37,20 @@ token-identical resume path.
 Locking: page refcounts and the free list change only under
 ``_page_lock``; slot tables and decode state are engine-thread-only.
 
+SHARED PREFIX PAGES (copy-on-write): a stored prefix's full pages are
+mapped read-only into every slot that hits it (``insert(...,
+shared_pages=)``; one reference per mapping).  Every write aimed at a
+shared page — the insert's scatter of the slot's contiguous prefill,
+and the step's dirty-window scatter — is redirected to the TRASH page
+(``_write_targets`` and the per-slot WRITE table the step scatters
+through), so a page with refcount > 1 is never rewritten.
+``materialize`` gathers stored pages back into a contiguous B=1 cache,
+what a prefix hit extends with its suffix.
+
 Not ported yet, and refused by name: the host spill tier and its wire
 format (``pack_spilled``/``unpack_spilled``, ``spill_pages``,
-``rematerialize``), the shared-prefix device paths (``scatter_cache``
-of a stored prefix, ``materialize``), the speculative ``step_spec`` and
-meshes (ROADMAP Queue 1).
+``rematerialize``), the speculative ``step_spec`` and meshes (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -117,9 +126,12 @@ class PagedSlotKVManager(StepPool):
             else self.n_slots * self.max_pages_slot
         if self.n_pages < 1:
             raise ValueError(f"kv_pages must be >= 1; got {n_pages}")
-        # One scratch page per slot, after the real pages.
+        # One scratch page per slot, after the real pages, and one
+        # TRASH page: the redirected target of writes that must not
+        # land on a shared page.  All garbage, masked by position.
         self.scratch0 = self.n_pages
-        self.total_pages = self.n_pages + self.n_slots
+        self.trash = self.n_pages + self.n_slots
+        self.total_pages = self.n_pages + self.n_slots + 1
         # The widest span one dispatch writes (no speculative rounds in
         # this port yet): its window, plus the token it feeds.  It is
         # also what a lazy admission reserves past the prompt.
@@ -140,8 +152,11 @@ class PagedSlotKVManager(StepPool):
         # -- slot state (engine thread only) ---------------------------
         self.page_tables = np.empty((self.n_slots, self.table_width),
                                     np.int64)
+        # The WRITE twin of each table: shared pages redirect to the
+        # trash page, so the step's dirty scatter never rewrites them.
+        self.write_tables = np.empty_like(self.page_tables)
         for s in range(self.n_slots):
-            self.page_tables[s, :] = self.scratch0 + s
+            self._park_tables(s)
         self._slot_pages: List[Optional[Tuple[List[int], int]]] = \
             [None] * self.n_slots           # (page ids, n shared)
         self._slot_need = np.zeros((self.n_slots,), np.int64)
@@ -255,9 +270,17 @@ class PagedSlotKVManager(StepPool):
 
     # -- slot accounting ------------------------------------------------
 
+    def _park_tables(self, slot: int) -> None:
+        self.page_tables[slot, :] = self.scratch0 + slot
+        self.write_tables[slot, :] = self.scratch0 + slot
+
     def reset(self) -> None:
-        """Drop every page reference and slot (the pool returns to
-        all-free, a new epoch); the captured graphs are kept."""
+        """Crash-recovery rebuild: drop every page reference and slot
+        (the pool returns to all-free, a new epoch).  Host state only:
+        the page pools, the gathered views and the step buffers keep
+        their addresses, which is what the captured graphs replay
+        against (stale content is masked by position and rewritten by
+        the next insert)."""
         with self._page_lock:
             self.refcounts[:] = 0
             self.refcounts[self.n_pages:] = 1
@@ -265,7 +288,7 @@ class PagedSlotKVManager(StepPool):
             self.epoch += 1
         self._free = list(range(self.n_slots))
         for s in range(self.n_slots):
-            self.page_tables[s, :] = self.scratch0 + s
+            self._park_tables(s)
         self._slot_pages = [None] * self.n_slots
         self._slot_need[:] = 0
         self._slot_budget[:] = 0
@@ -279,7 +302,7 @@ class PagedSlotKVManager(StepPool):
         if held is not None:
             self._slot_pages[slot] = None
             self.unpin(held[0])
-        self.page_tables[slot, :] = self.scratch0 + slot
+        self._park_tables(slot)
         self._slot_need[slot] = 0
         self._slot_budget[slot] = 0
 
@@ -311,6 +334,7 @@ class PagedSlotKVManager(StepPool):
         self._table_buf = torch.zeros(
             (self.n_slots, self.table_width), dtype=torch.long,
             device=dev)
+        self._wtable_buf = torch.zeros_like(self._table_buf)
         self._d0_buf = torch.zeros(self.n_slots, dtype=torch.long,
                                    device=dev)
         self._alloc_step_buffers(dev)
@@ -323,57 +347,83 @@ class PagedSlotKVManager(StepPool):
         n = int(np.prod(shape))
         return self._view_k[:n].view(shape), self._view_v[:n].view(shape)
 
-    # -- insert -----------------------------------------------------------
+    # -- insert / prefix-store scatter -------------------------------------
 
-    def _scatter_cache(self, cache, ids: List[int]) -> None:
+    def _write_targets(self, ids: Sequence[int], n_shared: int
+                       ) -> np.ndarray:
+        """Scatter targets for a cache write over pages ``ids``: the
+        first ``n_shared`` (already populated, shared: never rewrite a
+        page with refcount > 1) redirect to the trash page."""
+        tg = np.asarray(ids, np.int64).copy()
+        tg[:n_shared] = self.trash
+        return tg
+
+    def scatter_cache(self, cache, ids: Sequence[int],
+                      n_shared: int = 0) -> None:
         """Write a contiguous B=1 cache's first ``len(ids)`` pages into
-        pool pages ``ids`` (eager, outside any graph)."""
+        pool pages ``ids`` (eager, outside any graph); the first
+        ``n_shared`` already hold the same content and go to the trash
+        page instead.  Device work: callers hold the device lock."""
+        self._ensure_pool(cache)
         n = len(ids)
         pt = self.page_tokens
-        targets = torch.as_tensor(ids, dtype=torch.long,
+        targets = torch.as_tensor(self._write_targets(ids, n_shared),
                                   device=self._k.device)
-        for pool, src in ((self._k, cache.k), (self._v, cache.v)):
-            leaf = src[:, 0, :n * pt]                # [L, <=n*pt, H, D]
-            if leaf.shape[1] < n * pt:
-                pad = leaf.new_zeros((leaf.shape[0], n * pt
-                                      - leaf.shape[1]) + leaf.shape[2:])
-                leaf = torch.cat([leaf, pad], dim=1)
-            pages = leaf.reshape((leaf.shape[0], n, pt) + leaf.shape[2:])
-            scatter_pages(pool, pages, targets, 1)
+        with torch.no_grad():
+            for pool, src in ((self._k, cache.k), (self._v, cache.v)):
+                leaf = src[:, 0, :n * pt]            # [L, <=n*pt, H, D]
+                if leaf.shape[1] < n * pt:
+                    pad = leaf.new_zeros((leaf.shape[0], n * pt
+                                          - leaf.shape[1]) + leaf.shape[2:])
+                    leaf = torch.cat([leaf, pad], dim=1)
+                pages = leaf.reshape((leaf.shape[0], n, pt)
+                                     + leaf.shape[2:])
+                scatter_pages(pool, pages, targets, 1)
 
     def insert(self, slot: int, cache, first_token: int,
                position: int, *, base_key=None, next_index: int = 1,
                temperature: float = 0.0, top_k: int = 0,
                top_p: float = 0.0,
-               total_tokens: Optional[int] = None) -> None:
+               total_tokens: Optional[int] = None,
+               shared_pages: Sequence[int] = ()) -> None:
         """Admit a prefilled request: reserve its pages, build its
-        table, scatter the prefilled cache into them and arm the slot's
-        decode state (the fixed-lane insert's contract).
+        table, scatter the prefilled cache into its PRIVATE pages
+        (shared prefix pages are mapped, not rewritten) and arm the
+        slot's decode state (the fixed-lane insert's contract).
 
         ``total_tokens`` is the request's whole KV budget (prompt + new
         tokens).  FULL mode reserves all of it; LAZY mode reserves
-        ``admit_tokens`` and records the budget as the growth cap."""
+        ``admit_tokens`` and records the budget as the growth cap.
+        ``shared_pages`` are pinned prefix-page ids whose references
+        this call TAKES OWNERSHIP of (released with the rest at slot
+        release, or here on failure)."""
         if total_tokens is None:
             total_tokens = self.max_position
-        self._ensure_pool(cache)
         n_total = self.pages_needed(total_tokens)
         n_need = self.pages_needed(self.admit_tokens(
             position + 1, total_tokens)) if self.lazy else n_total
-        ids = self.try_reserve(n_need)
-        if ids is None:
+        shared = [int(i) for i in shared_pages]
+        if len(shared) > n_need:        # defensive: over-wide prefix
+            self.unpin(shared[n_need:])
+            shared = shared[:n_need]
+        priv = self.try_reserve(n_need - len(shared))
+        if priv is None:
+            self.unpin(shared)
             raise PageExhausted(
-                f"admission needs {n_need} free pages (have "
-                f"{self.free_page_count()}): engine admission gate out "
-                f"of sync")
+                f"admission needs {n_need - len(shared)} free pages "
+                f"(have {self.free_page_count()}): engine admission "
+                f"gate out of sync")
+        ids = shared + priv
         try:
-            with torch.no_grad():
-                self._scatter_cache(cache, ids)
+            self.scatter_cache(cache, ids, n_shared=len(shared))
         except BaseException:
             self.unpin(ids)
             raise
-        self.page_tables[slot, :] = self.scratch0 + slot
+        self._park_tables(slot)
         self.page_tables[slot, :len(ids)] = np.asarray(ids, np.int64)
-        self._slot_pages[slot] = (ids, 0)
+        self.write_tables[slot, :len(ids)] = self._write_targets(
+            ids, len(shared))
+        self._slot_pages[slot] = (ids, len(shared))
         self._slot_need[slot] = n_need
         self._slot_budget[slot] = n_total
         self._arm(slot, first_token, position, base_key, next_index,
@@ -412,16 +462,40 @@ class PagedSlotKVManager(StepPool):
         ids.extend(fresh)
         self.page_tables[slot, start:start + delta] = \
             np.asarray(fresh, np.int64)
+        self.write_tables[slot, start:start + delta] = \
+            np.asarray(fresh, np.int64)
         self._slot_need[slot] = len(ids)
         self.lazy_growths_total += 1
         self.lazy_pages_grown_total += delta
         return delta
 
-    # -- refused by name ---------------------------------------------------
+    # -- prefix materialization -------------------------------------------
 
-    def materialize(self, ids, n_tokens):
-        raise _not_ported("materializing stored prefix pages",
-                          "the radix prefix cache")
+    def materialize(self, ids: Sequence[int], n_tokens: int):
+        """Gather stored prefix pages into a CONTIGUOUS B=1 cache of
+        the model's full width: ``[L, 1, max_position, H_kv, D]`` keys
+        and values in the pool's dtype (a RoPE model's keys already
+        rotated), index ``n_tokens`` — the cache ``prefill`` extends
+        with a hit's suffix.  Fresh tensors: extending them never
+        touches the pool.  Device work: callers hold the device lock
+        and a pin on every page in ``ids``."""
+        from ..models.kv_cache import KVCache
+
+        if self._k is None:
+            raise RuntimeError("materialize() before any page write")
+        L, _, pt, h, d = self._k.shape
+        width = min(len(ids) * pt, self.max_position)
+        table = torch.as_tensor(list(ids), dtype=torch.long,
+                                device=self._k.device)
+        out = []
+        with torch.no_grad():
+            for pool in (self._k, self._v):
+                full = pool.new_zeros((L, 1, self.max_position, h, d))
+                full[:, 0, :width] = gather_pages(pool, table, 1)[:, :width]
+                out.append(full)
+        return KVCache(out[0], out[1], index=int(n_tokens))
+
+    # -- refused by name ---------------------------------------------------
 
     def spill_pages(self, ids, n_tokens):
         raise _not_ported("the host spill tier",
@@ -458,10 +532,13 @@ class PagedSlotKVManager(StepPool):
     def _load_state(self) -> None:
         super()._load_state()
         self._table_buf.copy_(torch.from_numpy(self.page_tables))
+        self._wtable_buf.copy_(torch.from_numpy(self.write_tables))
         self._d0_buf.copy_(torch.from_numpy(self._d0_host))
 
     def _body(self, window: int, sampled: bool, P: int) -> None:
-        """Gather views, the shared decode body, scatter dirty pages."""
+        """Gather views, the shared decode body, scatter dirty pages
+        through the WRITE tables (a shared page's slice goes to the
+        trash page)."""
         from ..models.kv_cache import KVCache
 
         S = self.n_slots
@@ -474,7 +551,7 @@ class PagedSlotKVManager(StepPool):
         n_dirty = self._n_dirty(window)
         local = self._d0_buf[:, None] + torch.arange(
             n_dirty, device=tables.device)           # [S, n_dirty]
-        targets = tables.gather(1, local).reshape(-1)
+        targets = self._wtable_buf[:, :P].gather(1, local).reshape(-1)
         rows = (torch.arange(S, device=tables.device)[:, None] * P
                 + local).reshape(-1)
         for pool, view in ((self._k, vk), (self._v, vv)):

@@ -39,7 +39,14 @@ everything and replay":
 
 The port's own copy of
 ``polyaxon_tpu/serving/recovery.py`` (host-only code, kept here so
-the port imports nothing of the JAX package).
+the port imports nothing of the JAX package), plus what a CUDA card
+adds: a STICKY device error (an illegal address, a device-side
+assert) leaves the CUDA context unusable for the life of the process,
+so no restart can replay on it.  :func:`is_device_lost` recognizes
+one, the engine raises it as :class:`DeviceLost`, and the supervisor
+LATCHES the breaker open instead of restarting: every request fails
+visibly (503 ``engine_down``, /healthz 503) until the process is
+replaced.
 """
 
 from __future__ import annotations
@@ -54,7 +61,29 @@ from typing import Any, Callable, Dict, List, Optional
 
 from .scheduler import ShedError
 
-__all__ = ["RetryPolicy", "CircuitBreaker", "EngineSupervisor"]
+__all__ = ["RetryPolicy", "CircuitBreaker", "EngineSupervisor",
+           "DeviceLost", "is_device_lost"]
+
+# Messages of CUDA errors that poison the context for good (cudaError
+# descriptions as PyTorch raises them).
+_STICKY_CUDA = ("illegal memory access", "device-side assert",
+                "unspecified launch failure", "illegal instruction",
+                "misaligned address", "uncorrectable ECC",
+                "hardware stack error", "invalid program counter")
+
+
+class DeviceLost(RuntimeError):
+    """The CUDA context is gone (a sticky device error): the engine
+    cannot run another device call in this process."""
+
+
+def is_device_lost(err: BaseException) -> bool:
+    """Whether ``err`` is a sticky CUDA error (or already wraps one)."""
+    if isinstance(err, DeviceLost):
+        return True
+    msg = str(err)
+    return isinstance(err, RuntimeError) and "CUDA" in msg \
+        and any(s in msg for s in _STICKY_CUDA)
 
 
 class RetryPolicy:
@@ -185,6 +214,14 @@ class CircuitBreaker:
             self._probe_claimed = True
             return True
 
+    def latch(self) -> None:
+        """Open for good: the device is lost, no cooldown can fix it
+        (no probe restart follows; ``half_open`` is never called)."""
+        with self._lock:
+            if self.state != self.OPEN:
+                self.trips_total += 1
+            self.state = self.OPEN
+
     def record_success(self) -> None:
         """A worked tick after recovery: a HALF_OPEN (or, defensively,
         OPEN) breaker closes and the crash history clears — the
@@ -256,7 +293,7 @@ class EngineSupervisor:
         hands the crash back to the legacy fail-everything path
         (only during shutdown)."""
         eng = self.engine
-        if eng._stop:
+        if eng is None or eng._stop:
             return False        # closing: let close() drain normally
         with self._lock:
             self.crashes_total += 1
@@ -266,6 +303,17 @@ class EngineSupervisor:
                                f"{err}")[:300]
             self.last_crash_t = time.time()
         traceback.print_exc(file=sys.stderr)
+        if is_device_lost(err):
+            # The context is unusable: latch the breaker open and fail
+            # everything visibly instead of restarting onto it.
+            self.breaker.latch()
+            eng.down = True
+            print("# serving: CUDA device lost (sticky error) — engine "
+                  "latched down; replace the process", file=sys.stderr)
+            eng._fail_all(ShedError(
+                f"CUDA device lost ({err}); the engine cannot recover "
+                f"in this process", reason="engine_down"))
+            return True
         state = self.breaker.record_crash()
         print(f"# serving: engine CRASH #{self.crashes_total} "
               f"({type(err).__name__}); breaker {state} — "

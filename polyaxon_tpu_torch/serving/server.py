@@ -7,10 +7,29 @@ the fixed-lane slot pool (slots.py) or, with ``kv_paged``, the paged
 pool (paged.py), and the front-end sheds load with 429 + Retry-After
 once the bounded admission queue fills.  One process, stdlib HTTP.
 
+PREFIX CACHE (``prefix_cache`` entries, default 4; 0 disables): ``POST
+/prefill`` stores a prompt's prefill in a radix index (radix.py), and a
+later request whose prompt starts with a stored entry prefills only
+its suffix.  Single-row hits ride the engine seeded with the stored
+prefill; on the paged pool the entry's pages live in the page pool
+and every hit maps its full pages read-only (copy-on-write: N hits
+hold one copy).  Multi-row hits decode on the solo split path.  The
+store is an optimization: a failing lookup or store disables it with
+a counter (``prefix_store_errors``), never the request.
+
+FAULT CONTAINMENT: ``fault_plan`` arms the seeded fault-injection
+harness (faults.py) across the engine, the prefix store and the
+handler's response write; ``supervise`` (default on) attaches the
+``EngineSupervisor``: an engine crash requeues everything for
+token-identical resume and restarts the loop (the recovery hook
+flushes the paged prefix index, whose pages died with the pool), and a
+crash storm opens the breaker (``/healthz`` 503 ``engine_down``).
+
 Endpoints:
 
 - ``GET  /healthz``  -> ``{"status": "ok", ...}`` (readiness; 503
-  ``{"status": "unavailable", "reason": "draining"}`` after /drain)
+  ``{"status": "unavailable", "reason": "draining" | "engine_down"}``
+  after /drain, or while the engine is down)
 - ``GET  /info``     -> model name, config summary, engine counters
 - ``GET  /metrics``  -> Prometheus text: counters, phase summaries,
   latency histograms (telemetry.py), engine gauges
@@ -22,23 +41,30 @@ Endpoints:
   "max_new_tokens": N, "temperature": t, "top_k": k, "top_p": p,
   "seed": s, "eos_id": e, "prefill_chunk": C, "priority": p,
   "deadline_ms": d, "timings": bool}`` -> tokens + timing
+- ``POST /prefill``  -> ``{"prompt": ..., "prefill_chunk": C}``:
+  register a prefix -> ``{"cached_rows", "cached_len", "entries"}``
 - ``POST /drain``    -> stop admission, finish in-flight work
 
 ``temperature > 0`` samples under the position-keyed contract (row r's
 i-th token draws with ``fold_in(fold_in(PRNGKey(seed), r), i)``), so a
-response equals solo ``generate_positional`` with the same seed.  A
-request for what the port does not serve yet — ``num_beams > 1``,
-``speculative``/``spec_k``, ``resume_tokens``, ``POST /prefill`` and
-``/prefix/*`` (the prefix cache), ``POST /profile/*`` — gets a 501
-naming the missing feature, never another route's answer.  Validation
-errors are the reference's 400s.
+response equals solo ``generate_positional`` with the same seed — cold
+or from a prefix hit.  A request for what the port does not serve yet
+— ``num_beams > 1``, ``speculative``/``spec_k``, ``resume_tokens``,
+the fleet ``/prefix/*`` routes (the spill tier and its wire format),
+``POST /profile/*`` — gets a 501 naming the missing feature, never
+another route's answer.  Validation errors are the reference's 400s.
 
-Device discipline: handler threads do no tensor work; the engine
-thread owns every CUDA call, under ``device_lock`` (a FairLock).
+Device discipline: every CUDA call runs under ``device_lock`` (a
+FairLock): the engine thread's, and the prefix paths' on handler
+threads (``/prefill``, a hit's materialize, a store's page scatter, the
+multi-row solo decode), each of which synchronizes the device before
+it lets the lock go.
 """
 
 from __future__ import annotations
 
+import collections
+import copy
 import json
 import select
 import socket
@@ -51,16 +77,75 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from .debug import (RequestHistory, events_to_dicts, new_request_id,
-                    sanitize_request_id)
+from .debug import (RequestHistory, StallWatchdog, events_to_dicts,
+                    new_request_id, sanitize_request_id)
 from .engine import DecodeEngine
+from .faults import FaultPlan, SocketReset
 from .forensics import ForensicsCore, compute_ledger
-from .scheduler import (DeadlineExceeded, PRIORITIES, QueueFullError,
-                        RequestCancelled, SamplingSpec, SchedulerPolicy,
-                        ShedError)
+from .radix import RadixPrefixIndex
+from .recovery import EngineSupervisor
+from .scheduler import (DeadlineExceeded, PRIORITIES, PoisonedRequest,
+                        QueueFullError, RequestCancelled, SamplingSpec,
+                        SchedulerPolicy, ShedError)
 from .telemetry import Telemetry, render_compile_cache
 
 _span_dicts = events_to_dicts
+
+
+class _PagedPrefix:
+    """Radix payload of a PAGE-BACKED prefix entry: the stored prompt's
+    KV lives in the engine's page pool (one reference per page held by
+    this entry; pages shared with an ancestor entry are referenced,
+    never copied); ``logits`` are the last-position prefill logits."""
+
+    __slots__ = ("pages", "n_tokens", "logits")
+
+    def __init__(self, pages, n_tokens: int, logits):
+        self.pages = tuple(int(p) for p in pages)
+        self.n_tokens = int(n_tokens)
+        self.logits = logits
+
+
+PrefixHit = collections.namedtuple(
+    "PrefixHit", ["p_cached", "logits", "cache", "pins"])
+"""One prefix-cache lookup result: ``p_cached`` tokens of stored
+prefill, the stored last-position ``logits``, a PRIVATE contiguous
+``cache`` holding them (a clone of a fixed-lane entry, or gathered from
+the pool's pages: the hit extends it in place), and ``pins`` — pinned
+FULL-page ids the engine maps read-only into the admitted slot (empty
+for contiguous entries).  The caller owns the pins until
+``engine.submit(shared_pages=pins)`` returns; every other outcome must
+unpin them."""
+
+
+class PagePins(tuple):
+    """Pinned page ids + the pool EPOCH they were pinned under.  A
+    crash-recovery rebuild between the lookup and the admission bumps
+    the epoch, which is how every consumer recognizes the ids as dead
+    and drops them by reference."""
+
+    epoch: Optional[int] = None
+
+    def __new__(cls, ids, epoch):
+        self = super().__new__(cls, ids)
+        self.epoch = epoch
+        return self
+
+
+def _detached(err: BaseException) -> BaseException:
+    """A copy of ``err`` to raise where a request group keeps ``err``:
+    the raised copy's traceback holds the group and the server through
+    its frames, and the original would close that into a cycle."""
+    try:
+        return copy.copy(err)
+    except Exception:
+        return err
+
+
+def _clone_cache(cache):
+    from ..models.kv_cache import KVCache
+
+    return KVCache(cache.k.clone(), cache.v.clone(), index=cache.index)
 
 
 def _int_param(v):
@@ -162,57 +247,118 @@ class FairLock:
 
 class ModelServer:
     """Wraps one model; owns the device lock, the continuous-batching
-    engine, telemetry and the request-history ring."""
+    engine, its supervisor, the prefix store, telemetry and the
+    request-history ring."""
 
     def __init__(self, model, *, model_name: str = "model",
                  max_batch: int = 8,
                  n_slots: int = 8, queue_depth: int = 64,
                  prefill_chunk: Optional[int] = None,
                  decode_window: int = 8,
-                 request_timeout_s: Optional[float] = 600.0,
-                 access_log: bool = False,
-                 request_history: int = 256,
                  kv_paged: bool = False, kv_page_tokens: int = 64,
                  kv_pages: Optional[int] = None,
-                 kv_lazy: bool = False):
+                 kv_lazy: bool = False,
+                 default_priority: str = "interactive",
+                 batch_queue_depth: Optional[int] = None,
+                 queue_deadline_s: Optional[float] = None,
+                 batch_queue_deadline_s: Optional[float] = None,
+                 slo_ttft_s: Optional[float] = None,
+                 request_timeout_s: Optional[float] = 600.0,
+                 prefix_cache: int = 4,
+                 trace_buffer: int = 4096,
+                 access_log: bool = False,
+                 sanitize: bool = False,
+                 sanitize_max_hold_s: Optional[float] = None,
+                 sanitize_report: Optional[str] = None,
+                 request_history: int = 256,
+                 stall_timeout_s: Optional[float] = None,
+                 stall_dir: str = ".",
+                 stall_queue_factor: float = 4.0,
+                 forensics: bool = True,
+                 exemplar_k: int = 4,
+                 forensics_dir: Optional[str] = None,
+                 sentry_window: int = 64,
+                 sentry_baseline_windows: int = 4,
+                 fault_plan=None,
+                 supervise: bool = True,
+                 info: Optional[Dict[str, Any]] = None):
         if kv_lazy and not kv_paged:
             raise ValueError(
                 "kv_lazy requires kv_paged (lazy growth is a page-"
                 "reservation policy; fixed lanes have no pages)")
+        if default_priority not in PRIORITIES:
+            raise ValueError(
+                f"default_priority must be one of {PRIORITIES}; "
+                f"got {default_priority!r}")
+        if request_timeout_s is not None and request_timeout_s <= 0:
+            raise ValueError(f"request_timeout_s must be > 0; got "
+                             f"{request_timeout_s}")
+        if prefix_cache < 0:
+            raise ValueError(f"prefix_cache must be >= 0; got "
+                             f"{prefix_cache}")
+        # Fault injection, disarmed by default: a FaultPlan, a plan
+        # dict or a JSON path arms the seeded harness across the
+        # engine's sites, the prefix store and the response write.
+        self.faults = FaultPlan.load(fault_plan) \
+            if fault_plan is not None else None
         self.kv_paged = bool(kv_paged)
         self.kv_lazy = bool(kv_lazy)
         self.model = model
         self.batching = "continuous"
         self.model_name = model_name
         self.max_batch = int(max_batch)
-        self.telemetry = Telemetry(exemplar_k=4)
+        self.extra_info = info or {}
+        # trace_buffer=0 disables span recording; the latency
+        # histograms stay live (they are the /metrics surface).
+        self.telemetry = Telemetry(
+            buffer=trace_buffer,
+            exemplar_k=int(exemplar_k) if forensics else 0)
         from ..analysis.recompile import RecompileSentinel
 
         self.recompile = RecompileSentinel(telemetry=self.telemetry)
+        # Lock-order sanitizer (analysis/locksan.py), opt-in: wraps the
+        # serving locks in recording proxies that raise on an inverted
+        # acquisition order (and, with ``sanitize_max_hold_s``, on
+        # device-lock holds past the limit).
+        self.sanitizer = None
+        if sanitize:
+            from ..analysis.locksan import LockSanitizer
+
+            self.sanitizer = LockSanitizer(
+                max_hold_s={"device_lock": sanitize_max_hold_s}
+                if sanitize_max_hold_s is not None else None)
+        self.sanitize_report = sanitize_report
+        if sanitize_report is not None and self.sanitizer is None:
+            raise ValueError("sanitize_report requires sanitize=True")
         self.access_log = bool(access_log)
         self._access_log_file = sys.stderr
-        self.default_priority = "interactive"
-        if request_timeout_s is not None and request_timeout_s <= 0:
-            raise ValueError(f"request_timeout_s must be > 0; got "
-                             f"{request_timeout_s}")
+        self.default_priority = default_priority
         self.request_timeout_s = request_timeout_s
         self.draining = False
         self.drain_rejected = 0
-        self._lock = FairLock()
+        self._lock = FairLock() if self.sanitizer is None \
+            else self.sanitizer.wrap("device_lock", FairLock())
         self.requests = 0
         self.engine = DecodeEngine(
             model,
             policy=SchedulerPolicy(
                 n_slots=n_slots, queue_depth=queue_depth,
                 prefill_chunk=prefill_chunk,
-                decode_window=decode_window, kv_paged=kv_paged,
+                decode_window=decode_window,
+                default_priority=default_priority,
+                batch_queue_depth=batch_queue_depth,
+                queue_deadline_s=queue_deadline_s,
+                batch_queue_deadline_s=batch_queue_deadline_s,
+                slo_ttft_s=slo_ttft_s, kv_paged=kv_paged,
                 kv_page_tokens=kv_page_tokens, kv_pages=kv_pages,
                 kv_lazy=kv_lazy),
             device_lock=self._lock,
             telemetry=self.telemetry,
-            sentinel=self.recompile)
+            sentinel=self.recompile,
+            faults=self.faults)
         # /metrics counters under _stats_lock — never the device lock.
-        self._stats_lock = threading.Lock()
+        self._stats_lock = threading.Lock() if self.sanitizer is None \
+            else self.sanitizer.wrap("_stats_lock")
         self.errors = 0
         self._lat_sum = 0.0
         self._lat_count = 0
@@ -221,20 +367,91 @@ class ModelServer:
         self._prefill_s_sum = 0.0
         self._decode_s_sum = 0.0
         self._breakdown_count = 0
+        # PREFIX CACHE: stored prefills in a radix index, LRU-bounded.
+        # Contiguous entries hold their own B=1 cache; on the paged
+        # pool single-row entries hold POOL PAGES (an extension entry
+        # shares its ancestor's page-aligned pages).  The degradation
+        # ladder may flip _prefix_enabled off at runtime; recovery
+        # restores the configured state, never more.
+        self.prefix_cache_size = int(prefix_cache)
+        self._prefix_enabled = self.prefix_cache_size > 0
+        self._prefix_configured = self._prefix_enabled
+        self._prefix = RadixPrefixIndex(max(1, self.prefix_cache_size))
+        self._prefix_lock = threading.Lock() \
+            if self.sanitizer is None \
+            else self.sanitizer.wrap("_prefix_lock")
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self._prefix_store_skips = 0
+        self._prefix_store_errors = 0
+        if self.kv_paged:
+            # Page-pressure relief: stored-but-idle prefix entries are
+            # LRU-evicted when live traffic needs their pages.
+            self.engine.page_reclaim = self._reclaim_prefix_pages
         self.history = RequestHistory(request_history)
         self.engine.history = self.history
         # Per-request phase ledgers behind the per-phase /metrics
-        # families (serving/forensics.py).
-        self.forensics = ForensicsCore(
-            snapshot_fn=lambda: self.engine.build_debug_snapshot(
-                forced=True),
-            trace_tail_fn=lambda: self.telemetry.events()[-256:],
-            record_fn=self.history.get)
-        self.engine.forensics = self.forensics
+        # families and the anomaly sentry (serving/forensics.py);
+        # forensics=False removes the layer.
+        self.forensics: Optional[ForensicsCore] = None
+        if forensics:
+            self.forensics = ForensicsCore(
+                window=sentry_window,
+                baseline_windows=sentry_baseline_windows,
+                out_dir=forensics_dir,
+                snapshot_fn=lambda: self.engine.build_debug_snapshot(
+                    forced=True),
+                trace_tail_fn=lambda: self.telemetry.events()[-256:],
+                record_fn=self.history.get)
+            self.engine.forensics = self.forensics
+        # Stall watchdog (opt-in): a one-shot diagnostic bundle when
+        # work exists but no step boundary completes.
+        self.watchdog = None
+        if stall_timeout_s is not None:
+            self.watchdog = StallWatchdog(
+                self.engine, self.telemetry,
+                timeout_s=stall_timeout_s, out_dir=stall_dir,
+                queue_factor=stall_queue_factor,
+                extra_state=self._watchdog_extra_state)
+            self.watchdog.start()
+        # Engine supervisor (default on): a crash requeues everything
+        # for token-identical resume and restarts the loop over the
+        # same pools; a crash storm opens the breaker.
+        self.supervisor = None
+        if supervise:
+            self.supervisor = EngineSupervisor(self.engine)
+            self.supervisor.add_recovery_hook(self._on_engine_recovery)
 
     def close(self) -> None:
-        """Stop the engine loop thread (idempotent)."""
+        """Stop the watchdog and the engine loop (with it the
+        supervisor, which recovers on the loop thread), write the
+        sanitizer report, and break the server's reference cycles so a
+        dropped server frees its engine, pools and model at once, not
+        whenever the cycle collector runs.  Idempotent."""
+        if self.watchdog is not None:
+            self.watchdog.close()
         self.engine.close()
+        if self.sanitizer is not None \
+                and self.sanitize_report is not None:
+            with open(self.sanitize_report, "w",
+                      encoding="utf-8") as fh:
+                json.dump(self.sanitizer.stats(), fh, indent=1,
+                          sort_keys=True)
+                fh.write("\n")
+        eng = self.engine
+        eng.page_reclaim = None
+        if self.supervisor is not None:
+            self.supervisor._recovery_hooks.clear()
+            self.supervisor.engine = None
+        if self.watchdog is not None:
+            self.watchdog.extra_state = None
+            self.watchdog.engine = None
+        if self.forensics is not None:
+            sentry = self.forensics.sentry
+            sentry.snapshot_fn = sentry.trace_tail_fn = None
+            sentry.record_fn = None
+        eng._suspects.clear()
+        eng._exhaust_bars.clear()
 
     # -- request lifecycle ----------------------------------------------
 
@@ -268,7 +485,24 @@ class ModelServer:
             snap["age_s"] = round(max(0.0, now - snap["t"]), 3)
             del snap["t"]
         out["engine"] = snap
+        if self.watchdog is not None:
+            out["watchdog"] = self.watchdog.status()
+        if self.sanitizer is not None:
+            out["sanitizer"] = self.sanitizer.stats()
         return out
+
+    def _watchdog_extra_state(self) -> Dict[str, Any]:
+        """Server-level state folded into a stall bundle."""
+        return {
+            "draining": self.draining,
+            "requests": self.requests,
+            "errors": self.errors,
+            "history": self.history.stats(),
+            "prefix_enabled": self._prefix_enabled,
+            "prefix_store_errors": self._prefix_store_errors,
+            **({"sanitizer": self.sanitizer.stats()}
+               if self.sanitizer is not None else {}),
+        }
 
     def record_front(self, rid: Optional[str], path: str,
                      status: int, req, resp) -> None:
@@ -284,7 +518,7 @@ class ModelServer:
             "path": path, "http_status": int(status),
             "status": front_status}
         if isinstance(req, dict):
-            rec["kind"] = self._request_kind(req)
+            rec["kind"] = self._request_kind(req, path)
         if isinstance(resp, dict):
             if resp.get("error"):
                 rec["error"] = str(resp["error"])[:300]
@@ -316,14 +550,14 @@ class ModelServer:
                 err = RequestCancelled(
                     "client disconnected; request cancelled")
                 self.engine.cancel(group, err)
-                raise err
+                raise _detached(err)
             if group.deadline is not None and now > group.deadline:
                 err = DeadlineExceeded(
                     f"deadline exceeded after "
                     f"{now - group.t_submit:.3f}s "
                     f"({group.status_phase()})")
                 self.engine.cancel(group, err)
-                raise err
+                raise _detached(err)
             if cap is not None and now > cap:
                 err = ShedError(
                     f"request exceeded the server request timeout "
@@ -331,9 +565,9 @@ class ModelServer:
                     f"terminal state; shedding the waiter",
                     reason="request_timeout")
                 self.engine.cancel(group, err)
-                raise err
+                raise _detached(err)
         if group.error is not None:
-            raise group.error
+            raise _detached(group.error)
 
     def log_access(self, method: str, path: str, status: int,
                    req, resp, dt: float,
@@ -348,10 +582,12 @@ class ModelServer:
             "ms": round(1e3 * dt, 3)}
         if rid is not None:
             rec["request_id"] = rid
-        if isinstance(resp, dict) and "slot" in resp:
-            rec["slot"] = resp["slot"]
+        if isinstance(resp, dict):
+            for k in ("slot", "preempts", "resumes"):
+                if k in resp:
+                    rec[k] = resp[k]
         if isinstance(req, dict):
-            rec["kind"] = self._request_kind(req)
+            rec["kind"] = self._request_kind(req, path)
             rows = req.get("prompt")
             if isinstance(rows, list) and rows:
                 rec["rows"] = len(rows) \
@@ -371,7 +607,10 @@ class ModelServer:
             pass  # logging must never fail a request
 
     @staticmethod
-    def _request_kind(req: Dict[str, Any]) -> str:
+    def _request_kind(req: Dict[str, Any], path: str = "/generate"
+                      ) -> str:
+        if path == "/prefill":
+            return "prefill"
         if req.get("speculative") is True:
             return "speculative"
         beams = req.get("num_beams")
@@ -391,6 +630,337 @@ class ModelServer:
             self._prefill_s_sum += prefill_s
             self._decode_s_sum += decode_s
             self._breakdown_count += 1
+
+    # -- device sections on handler threads ------------------------------
+
+    def _sync(self) -> None:
+        """End a handler thread's device section: everything it queued
+        completes before the device lock goes to the engine's graph
+        replays (one stream order, whichever thread issued)."""
+        dev = self.model.device
+        if dev.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(dev)
+
+    # -- prefix cache: degradation ladder and recovery -------------------
+
+    def _note_prefix_error(self, where: str) -> None:
+        """One prefix-store failure: count it and DISABLE the store
+        (lookups miss, stores skip) — requests keep flowing without
+        prefix reuse instead of failing on a broken cache."""
+        with self._stats_lock:
+            self._prefix_store_errors += 1
+            first = self._prefix_enabled
+            self._prefix_enabled = False
+        if first:
+            print(f"# serving: prefix store DISABLED after an error in "
+                  f"{where} — requests continue without prefix reuse "
+                  f"(counted in /info prefix_store_errors)",
+                  file=sys.stderr)
+
+    def _prefix_lookup_safe(self, toks: np.ndarray
+                            ) -> Optional[PrefixHit]:
+        """Contained lookup: an error (injected at the ``prefix_store``
+        site, or real) degrades to a MISS and disables the store."""
+        if not self._prefix_enabled:
+            return None
+        try:
+            if self.faults is not None:
+                self.faults.check("prefix_store")
+            return self._prefix_lookup(toks)
+        except Exception:
+            self._note_prefix_error("lookup")
+            return None
+
+    def _prefix_store_safe(self, toks, logits, cache, *,
+                           hot: bool = True) -> None:
+        """Contained store: a failing store never fails the request
+        whose prefill it was caching."""
+        if not self._prefix_enabled:
+            return
+        try:
+            if self.faults is not None:
+                self.faults.check("prefix_store")
+            self._prefix_store(toks, logits, cache, hot=hot)
+        except Exception:
+            self._note_prefix_error("store")
+
+    def _on_engine_recovery(self) -> None:
+        """EngineSupervisor hook, after the pool reset and before the
+        loop restart: PAGED entries name pages of the pool generation
+        that just died, so the index is flushed BY REFERENCE (no
+        unpins into the fresh accounting).  Contiguous entries own
+        their caches and survive.  A store the crash window disabled
+        comes back to its configured state."""
+        if self.kv_paged:
+            with self._prefix_lock:
+                self._prefix = RadixPrefixIndex(
+                    max(1, self.prefix_cache_size))
+        if self._prefix_configured:
+            with self._stats_lock:
+                self._prefix_enabled = True
+
+    # -- prefix cache: lookup / store --------------------------------------
+
+    def _prefix_lookup(self, toks: np.ndarray) -> Optional[PrefixHit]:
+        """Longest stored entry whose prompt prefixes ``toks`` (same
+        batch width), as a PRIVATE contiguous cache: a clone of a
+        contiguous entry, or a paged entry's pages gathered under the
+        device lock.  Paged entries are pinned under the prefix lock
+        (an eviction cannot free them mid-flight) and returned with
+        their pinned FULL-page ids (:class:`PrefixHit`)."""
+        mgr = self.engine.slots
+        with self._prefix_lock:
+            # The index keys int32 columns by their bytes.
+            hit = self._prefix.lookup(np.asarray(toks, np.int32))
+            if hit is None:
+                return None
+            ent_toks, payload = hit
+            pc = ent_toks.shape[1]
+            paged = isinstance(payload, _PagedPrefix)
+            if paged:
+                # Lock order: _prefix_lock > _page_lock.
+                pin_epoch = mgr.pin(payload.pages)
+        if not paged:
+            logits, cache = payload
+            with self._lock:
+                cache = _clone_cache(cache)
+                self._sync()
+            return PrefixHit(pc, logits, cache, ())
+        try:
+            with self._lock:
+                if mgr.epoch != pin_epoch:
+                    # Pool rebuilt since the pin (recovery resets under
+                    # this same lock): the ids are dead — a miss.
+                    return None
+                cache = mgr.materialize(payload.pages, pc)
+                self._sync()
+        except BaseException:
+            if mgr.epoch != pin_epoch:
+                return None
+            mgr.unpin(payload.pages, epoch=pin_epoch)
+            raise
+        # Pins stay only on the FULL pages (the shareable ones; the
+        # partial tail rides the materialized cache and is rewritten
+        # privately by the admitted slot).
+        n_full = pc // mgr.page_tokens
+        pins = PagePins(payload.pages[:n_full], pin_epoch)
+        if payload.pages[n_full:]:
+            mgr.unpin(payload.pages[n_full:], epoch=pin_epoch)
+        return PrefixHit(pc, payload.logits, cache, pins)
+
+    def _unpin_prefix(self, pins) -> None:
+        if pins:
+            self.engine.slots.unpin(pins,
+                                    epoch=getattr(pins, "epoch", None))
+
+    def _free_displaced(self, displaced) -> None:
+        """Release payloads the index displaced (overwrites and LRU
+        evictions): paged entries drop their page references — pages
+        shared with a child entry or a resident slot stay alive under
+        the remaining refcounts."""
+        for _toks, payload in displaced:
+            if isinstance(payload, _PagedPrefix):
+                self.engine.slots.unpin(payload.pages)
+
+    def _reclaim_prefix_pages(self, n_pages_needed: int) -> bool:
+        """The engine's page-pressure hook: evict page-holding entries
+        (coldest first) until ``n_pages_needed`` pages are free or none
+        is left — stored-but-idle prefixes never starve live traffic."""
+        mgr = self.engine.slots
+        while mgr.free_page_count() < n_pages_needed:
+            with self._prefix_lock:
+                victim = None
+                for t, p in self._prefix.entries():   # coldest first
+                    if isinstance(p, _PagedPrefix):
+                        victim = (t, p)
+                        break
+                if victim is None:
+                    return False
+                self._prefix.remove(victim[0])
+            self._free_displaced([victim])
+        return True
+
+    def _prefix_store(self, toks: np.ndarray, logits, cache, *,
+                      hot: bool = True) -> None:
+        """Store a prompt's prefill for reuse.  Callers must NOT hold
+        the device lock (the paged path scatters pages under it).
+
+        Contiguous entries keep ``cache`` (nobody writes it after: a
+        hit clones).  Paged entries (single-row, paged engine) write
+        it into POOL PAGES, sharing every page-aligned page of the
+        deepest stored ancestor instead of re-storing it.  ``hot=False``
+        (a per-request store-back) enters the index's cold ring, so
+        one-shot suffixes cycle among themselves instead of flushing a
+        registered system prompt."""
+        toks = np.asarray(toks, np.int32)
+        p_len = toks.shape[1]
+        paged = self.kv_paged and toks.shape[0] == 1
+        mgr = self.engine.slots
+        shared = ()
+        pin_epoch = None
+        with self._prefix_lock:
+            anc = self._prefix.longest_ancestor(toks)
+            if anc is not None and anc[0].shape[1] >= p_len:
+                return     # exact prompt already stored
+            if not self._prefix.accepts(hot):
+                return     # would be displaced in the same call
+            if paged and anc is not None \
+                    and isinstance(anc[1], _PagedPrefix):
+                n_share = min(anc[0].shape[1] // mgr.page_tokens,
+                              mgr.pages_needed(p_len))
+                shared = tuple(anc[1].pages[:n_share])
+                pin_epoch = mgr.pin(shared)
+        if not paged:
+            with self._prefix_lock:
+                displaced = self._prefix.store(toks, (logits, cache),
+                                               hot=hot)
+            self._free_displaced(displaced)
+            return
+        if pin_epoch is None:
+            pin_epoch = mgr.epoch
+        n_pages = mgr.pages_needed(p_len)
+        fresh, reserve_epoch = None, pin_epoch
+        for _ in range(8):      # bounded: a reserve/consume race must
+            #                     not spin this store forever
+            fresh, reserve_epoch = mgr.reserve_with_epoch(
+                n_pages - len(shared))
+            if fresh is not None:
+                break
+            if not self._reclaim_prefix_pages(n_pages - len(shared)):
+                break
+        if fresh is None or reserve_epoch != pin_epoch:
+            # Pool too tight (live traffic owns the pages), or rebuilt
+            # since the ancestor pins: skip — the cache is an
+            # optimization, never back-pressure.
+            mgr.unpin(shared, epoch=pin_epoch)
+            if fresh:
+                mgr.unpin(fresh, epoch=reserve_epoch)
+            with self._stats_lock:
+                self._prefix_store_skips += 1
+            return
+        ids = list(shared) + fresh
+        try:
+            with self._lock:
+                # Epoch re-check INSIDE the device lock: recovery
+                # resets the pool under it, so a dead-generation
+                # scatter cannot interleave.
+                if mgr.epoch != pin_epoch:
+                    return
+                mgr.scatter_cache(cache, ids, n_shared=len(shared))
+                self._sync()
+        except BaseException:
+            mgr.unpin(shared, epoch=pin_epoch)
+            mgr.unpin(fresh, epoch=reserve_epoch)
+            raise
+        payload = _PagedPrefix(ids, p_len, logits)
+        with self._prefix_lock:
+            if mgr.epoch != pin_epoch:
+                return     # rebuilt after the scatter: ids are dead
+            displaced = self._prefix.store(toks, payload, hot=hot)
+        self._free_displaced(displaced)
+
+    def _store_stream_prefix(self, stream) -> None:
+        """Engine ``on_prefilled`` hook of prefix-seeded streams: store
+        the extended prompt's prefill back (cold), so an exact repeat
+        hits at full length.  Runs on the engine thread before the
+        stream's cache moves into the slot pool."""
+        self._prefix_store_safe(np.asarray(stream.toks), stream.logits,
+                                stream.cache, hot=False)
+
+    def prefill_prompt(self, req: Dict[str, Any]) -> Dict[str, Any]:
+        """POST /prefill: register a prompt (prefix) in the prefix
+        cache — the system-prompt workflow.  Later requests whose
+        prompt starts with it skip its prefill."""
+        self._check_not_draining()
+        if not self._prefix_enabled:
+            raise ValueError(
+                "prefix cache is disabled on this server "
+                "(start with --prefix-cache N)"
+                + (" — it disabled itself after a store error; see "
+                   "/info prefix_store_errors"
+                   if self._prefix_store_errors else ""))
+        from ..models import generate as G
+
+        rows = _parse_prompt_rows(req, self.max_batch)
+        max_pos = self.model.cfg.max_position
+        if len(rows[0]) > max_pos:
+            raise ValueError(f"prompt ({len(rows[0])}) exceeds the "
+                             f"model's max_position ({max_pos})")
+        chunk = req.get("prefill_chunk")
+        try:
+            chunk = None if chunk is None else _int_param(chunk)
+        except (TypeError, ValueError):
+            raise ValueError("prefill_chunk must be an int")
+        if chunk is not None and chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        toks = np.asarray(rows, np.int64)
+        t0 = time.perf_counter()
+        with self._lock:
+            logits, cache = G.prefill(self.model, toks, chunk=chunk)
+            self._sync()
+        # Outside the device lock: the paged store takes it again for
+        # its page scatter.
+        self._prefix_store_safe(toks, logits, cache)
+        with self._stats_lock:
+            self.requests += 1
+            self._lat_sum += time.perf_counter() - t0
+            self._lat_count += 1
+        return {"cached_rows": toks.shape[0],
+                "cached_len": toks.shape[1],
+                "entries": len(self._prefix)}
+
+    def _generate_prefix_cached(self, toks: np.ndarray, new: int,
+                                temp, top_k, top_p, eos, chunk, seed,
+                                hit: PrefixHit, deadline=None):
+        """Solo decode of a MULTI-ROW prefix hit through the split
+        programs: extend the stored prefill with the suffix (stored
+        back, cold), then ``generate_continue`` — position-keyed when
+        sampled, so a warm hit draws what a cold request would.  Holds
+        the device lock for the whole decode (the reference's solo
+        path).  Returns ``(tokens, (queue_s, prefill_s, decode_s))``."""
+        from ..models import generate as G
+
+        t0 = time.perf_counter()
+        p_len = toks.shape[1]
+        store_back = None
+        try:
+            with self._lock:
+                t_lock = time.perf_counter()
+                if deadline is not None and t_lock > deadline:
+                    raise DeadlineExceeded(
+                        "deadline exceeded waiting for the device "
+                        "(prefix-cache solo path)")
+                pc, logits, cache = hit.p_cached, hit.logits, hit.cache
+                if pc < p_len:
+                    logits, cache = G.prefill(
+                        self.model, toks[:, pc:], chunk=chunk,
+                        cache=cache, position=pc)
+                    store_back = (logits, _clone_cache(cache))
+                t_pf = time.perf_counter()
+                if G.positional_eligible(self.model, temp):
+                    out_new = G.generate_continue_positional(
+                        self.model, cache, logits, p_len,
+                        max_new_tokens=new, seed=seed, temperature=temp,
+                        top_k=top_k or 0, top_p=top_p or 0.0,
+                        eos_id=eos, _validated=True)
+                else:
+                    out_new = G.generate_continue(
+                        self.model, cache, logits, p_len,
+                        max_new_tokens=new, temperature=temp,
+                        top_k=top_k, top_p=top_p, eos_id=eos,
+                        _validated=True)
+                out_new = out_new.cpu().numpy()
+                self._sync()
+                t_end = time.perf_counter()
+        finally:
+            # The solo path never maps shared pages into a slot.
+            self._unpin_prefix(hit.pins)
+        if store_back is not None:
+            self._prefix_store_safe(toks, *store_back, hot=False)
+        out = np.concatenate([toks, out_new], axis=1)
+        return out, (t_lock - t0, t_pf - t_lock, t_end - t_pf)
 
     # -- /generate -------------------------------------------------------
 
@@ -497,53 +1067,121 @@ class ModelServer:
         sampling = SamplingSpec(seed, temp, top_k, top_p) \
             if temp != 0.0 else None
         t0 = time.perf_counter()
-        # CONTINUOUS BATCHING: per-row decode streams through the slot
-        # pool.  May raise QueueFullError -> 429, ShedError -> 503.
-        group = self.engine.submit(toks, new, eos, chunk,
-                                   sampling=sampling,
-                                   record_timings=want_timings,
-                                   priority=priority,
-                                   deadline_s=deadline_s, rid=rid)
-        self._wait_group(group, cancel_check)
-        out = group.result()
-        breakdown = group.breakdown()
+        # Prefix-cache hit (registered via /prefill, or a stored-back
+        # session): a single-row hit rides the engine seeded with the
+        # stored prefill (paged: its full pages mapped read-only); a
+        # multi-row hit decodes on the solo split path.
+        prefix_hit = self._prefix_lookup_safe(toks) \
+            if self._prefix_enabled else None
+        prefix_source = "re_prefill" if prefix_hit is None \
+            else "local_hot"
+        group = None
+        solo_events = None
+        if prefix_hit is not None and toks.shape[0] == 1:
+            pc = prefix_hit.p_cached
+            try:
+                group = self.engine.submit(
+                    toks, new, eos, chunk, sampling=sampling,
+                    prefix=(pc, prefix_hit.logits, prefix_hit.cache),
+                    on_prefilled=self._store_stream_prefix,
+                    record_timings=want_timings, priority=priority,
+                    deadline_s=deadline_s,
+                    shared_pages=prefix_hit.pins or None, rid=rid,
+                    prefix_info={"cached_tokens": pc,
+                                 "shared_pages":
+                                     len(prefix_hit.pins or ()),
+                                 "source": prefix_source})
+            except BaseException:
+                self._unpin_prefix(prefix_hit.pins)
+                raise
+        elif prefix_hit is not None:
+            out, breakdown = self._generate_prefix_cached(
+                toks, new, temp, top_k, top_p, eos, chunk, seed,
+                prefix_hit, deadline=t0 + deadline_s
+                if deadline_s is not None else None)
+            t_end = time.perf_counter()
+            solo_events = [("prefix_solo", t0, t_end,
+                            {"rows": len(rows)}),
+                           ("complete", t_end, t_end, {})]
+            tid = self.telemetry.new_tid()
+            self.telemetry.span(tid, "prefix_solo", t0, t_end, rid=rid,
+                                rows=len(rows))
+        else:
+            # CONTINUOUS BATCHING: per-row decode streams through the
+            # slot pool.  May raise QueueFullError -> 429, ShedError
+            # -> 503.
+            group = self.engine.submit(toks, new, eos, chunk,
+                                       sampling=sampling,
+                                       record_timings=want_timings,
+                                       priority=priority,
+                                       deadline_s=deadline_s, rid=rid)
+        if group is not None:
+            self._wait_group(group, cancel_check)
+            out = group.result()
+            breakdown = group.breakdown()
         with self._stats_lock:
             self.requests += 1
+            if prefix_hit is not None:
+                self.prefix_hits += 1
+                self.prefix_hit_tokens += prefix_hit.p_cached
         dt = time.perf_counter() - t0
         self._note_breakdown(*breakdown)
-        tokens_done = sum(len(s.out) for s in group.streams)
+        tokens_done = len(rows) * new if group is None \
+            else sum(len(s.out) for s in group.streams)
         self.telemetry.observe("queue_wait", breakdown[0], exemplar=rid)
         self.telemetry.observe("prefill", breakdown[1], exemplar=rid)
         self.telemetry.observe(
             "decode_per_token", breakdown[2] / max(1, tokens_done),
             exemplar=rid)
         ttft = dt
-        if group.t_first_admit is not None:
+        if group is None:
+            ttft = breakdown[0] + breakdown[1]
+        elif group.t_first_admit is not None:
             ttft = group.t_first_admit - group.t_submit
         self.telemetry.observe("ttft", ttft, exemplar=rid)
         self.telemetry.observe("total", dt, exemplar=rid)
-        timings = None
-        if want_timings:
+        ledger = None
+        if group is not None and want_timings:
             all_events: List = []
             for s in group.streams:
                 if s.events:
                     all_events.extend(s.events)
             t_done = group.t_done if group.t_done is not None \
                 else t0 + dt
-            timings = {
-                "ttft_ms": round(1e3 * ttft, 3),
-                "streams": [{"row": s.row,
-                             "spans": _span_dicts(s.events or [],
-                                                  group.t_submit)}
-                            for s in group.streams],
-                "phases": compute_ledger(all_events, group.t_submit,
-                                         t_done)}
+            ledger = compute_ledger(all_events, group.t_submit, t_done)
+        elif solo_events is not None \
+                and (want_timings or self.forensics is not None):
+            ledger = compute_ledger(solo_events, t0, t0 + dt, solo=True)
+            if self.forensics is not None:
+                self.forensics.note(ledger, rid)
+        timings = None
+        if want_timings:
+            timings = {"ttft_ms": round(1e3 * ttft, 3)}
+            if group is not None:
+                timings["streams"] = [
+                    {"row": s.row,
+                     "spans": _span_dicts(s.events or [],
+                                          group.t_submit)}
+                    for s in group.streams]
+            else:
+                timings["spans"] = _span_dicts(solo_events, t0)
+            timings["phases"] = ledger
         with self._stats_lock:
             self._lat_sum += dt
             self._lat_count += 1
             self._tokens_out += len(rows) * new
-        slots_used = [s.last_slot for s in group.streams
-                      if s.last_slot is not None]
+        eng_fields: Dict[str, Any] = {}
+        if group is not None:
+            slots_used = [s.last_slot for s in group.streams
+                          if s.last_slot is not None]
+            if slots_used:
+                eng_fields["slot"] = slots_used[0] \
+                    if len(slots_used) == 1 else slots_used
+            pre = sum(s.preempts for s in group.streams)
+            res = sum(s.resumes for s in group.streams)
+            if pre or res:
+                eng_fields["preempts"] = pre
+                eng_fields["resumes"] = res
         return {
             "model": self.model_name,
             "request_id": rid,
@@ -551,12 +1189,15 @@ class ModelServer:
             "tokens": out.tolist(),
             "wall_s": round(dt, 4),
             "tok_per_sec": round(len(rows) * new / dt, 1),
-            **({"slot": slots_used[0] if len(slots_used) == 1
-                else slots_used} if slots_used else {}),
+            **eng_fields,
             "ttft_ms": round(1e3 * ttft, 3),
             "queue_ms": round(1e3 * breakdown[0], 3),
             "prefill_ms": round(1e3 * breakdown[1], 3),
             "decode_ms": round(1e3 * breakdown[2], 3),
+            **({"prefix_hit_len": prefix_hit.p_cached}
+               if prefix_hit is not None else {}),
+            **({"prefix_source": prefix_source}
+               if self._prefix_enabled else {}),
             **({"timings": timings} if timings is not None else {}),
         }
 
@@ -592,10 +1233,31 @@ class ModelServer:
                 "compile_cache_misses":
                     compile_cache["compile_cache_misses"],
                 "compile_cache": compile_cache,
-                "debug": self.history.stats(),
+                **({"sanitizer": self.sanitizer.stats()}
+                   if self.sanitizer is not None else {}),
+                "debug": {
+                    **self.history.stats(),
+                    **({"watchdog": self.watchdog.status()}
+                       if self.watchdog is not None else {})},
                 "requests": self.requests,
+                # Prefix cache (the degradation ladder's error count
+                # and live enabled flag included).
+                "prefix_cache": self.prefix_cache_size,
+                "prefix_entries": len(self._prefix),
+                "prefix_hits": self.prefix_hits,
+                "prefix_hit_tokens": self.prefix_hit_tokens,
+                "prefix_store_skips": self._prefix_store_skips,
+                "prefix_store_errors": self._prefix_store_errors,
+                "prefix_enabled": self._prefix_enabled,
+                # Fault tolerance: the supervisor block and the armed
+                # plan (the flat counters ride the engine passthrough).
+                **({"supervisor": self.supervisor.status()}
+                   if self.supervisor is not None else {}),
+                **({"fault_plan": self.faults.stats()}
+                   if self.faults is not None else {}),
                 **{k: v for k, v in engine.items()
-                   if not k.startswith("compile_cache")}}
+                   if not k.startswith("compile_cache")},
+                **self.extra_info}
 
     def metrics_text(self) -> str:
         """Prometheus text exposition of the serving counters, the
@@ -631,6 +1293,22 @@ class ModelServer:
             f"ptpu_serving_decode_seconds_count {bd_count}",
             "# TYPE ptpu_serving_drain_rejected_total counter",
             f"ptpu_serving_drain_rejected_total {self.drain_rejected}",
+            "# TYPE ptpu_serving_prefix_hits_total counter",
+            f"ptpu_serving_prefix_hits_total {self.prefix_hits}",
+            "# TYPE ptpu_serving_prefix_entries gauge",
+            f"ptpu_serving_prefix_entries {len(self._prefix)}",
+            "# TYPE ptpu_serving_prefix_hit_tokens_total counter",
+            f"ptpu_serving_prefix_hit_tokens_total "
+            f"{self.prefix_hit_tokens}",
+            "# TYPE ptpu_serving_prefix_store_skips_total counter",
+            f"ptpu_serving_prefix_store_skips_total "
+            f"{self._prefix_store_skips}",
+            "# TYPE ptpu_serving_prefix_store_errors_total counter",
+            f"ptpu_serving_prefix_store_errors_total "
+            f"{self._prefix_store_errors}",
+            "# TYPE ptpu_serving_stalls_total counter",
+            f"ptpu_serving_stalls_total "
+            f"{self.watchdog.stalls_total if self.watchdog else 0}",
             "# TYPE ptpu_serving_request_records gauge",
             f"ptpu_serving_request_records {len(self.history)}",
             "# TYPE ptpu_serving_request_records_evicted_total "
@@ -640,7 +1318,8 @@ class ModelServer:
         ]
         lines += render_compile_cache(self.recompile.snapshot())
         lines += self.telemetry.metrics_lines()
-        lines += self.forensics.metrics_lines("ptpu_serving")
+        if self.forensics is not None:
+            lines += self.forensics.metrics_lines("ptpu_serving")
         gauges = ("slots", "slots_active", "slot_occupancy",
                   "queue_len", "queue_depth", "queue_len_interactive",
                   "queue_len_batch")
@@ -655,7 +1334,9 @@ class ModelServer:
                     "step_device_seconds_total",
                     "step_wall_seconds_total", "shed_kv_pages_total",
                     "kv_preempt_exhaustion_total", "preempted_total",
-                    "requests_requeued_total", "resumed_total")
+                    "requests_requeued_total", "resumed_total",
+                    "step_retries_total", "poisoned_total",
+                    "engine_crashes_total", "engine_restarts_total")
         for key in gauges:
             lines += [f"# TYPE ptpu_serving_{key} gauge",
                       f"ptpu_serving_{key} {es[key]}"]
@@ -680,6 +1361,16 @@ class ModelServer:
             f"{es['expired_total']}",
             "# TYPE ptpu_serving_draining gauge",
             f"ptpu_serving_draining {1 if es['draining'] else 0}",
+            # Fault tolerance: the down latch, the breaker as a 0/1
+            # open gauge and the per-site injected-fault family.
+            "# TYPE ptpu_serving_engine_down gauge",
+            f"ptpu_serving_engine_down {1 if es['engine_down'] else 0}",
+            "# TYPE ptpu_serving_breaker_open gauge",
+            f"ptpu_serving_breaker_open "
+            f"{1 if es['breaker_state'] == 'open' else 0}",
+            "# TYPE ptpu_serving_faults_injected_total counter",
+            *[f'ptpu_serving_faults_injected_total{{site="{site}"}} {n}'
+              for site, n in sorted(es["faults_injected"].items())],
         ]
         # The process's flash kernel launches: decode and prefill take
         # plain attention, so a served model's stay at 0.
@@ -723,8 +1414,6 @@ def make_server(host: str, port: int, ms: ModelServer
 
 # POST routes of the reference that this slice answers with a 501.
 _NOT_PORTED_POST = {
-    "/prefill": "the prefix cache (POST /prefill) is not ported yet "
-                "(ROADMAP Queue 1: the radix prefix cache)",
     "/profile/start": "profiling (POST /profile/*) is not ported yet "
                       "(ROADMAP Queue 1: ProfileSession on "
                       "torch.profiler)",
@@ -783,11 +1472,20 @@ def make_handler(ms: ModelServer):
                     or path == "/debug/state":
                 self._do_debug_get(path)
             elif path == "/healthz":
+                # One not-ready schema for every cause: draining, or
+                # the engine down (breaker open, or a lost device).
                 if ms.draining:
                     self._send(503, {"status": "unavailable",
                                      "reason": "draining",
                                      "model": ms.model_name,
                                      **ms.drain_status()})
+                elif ms.engine.down:
+                    self._send(503, {
+                        "status": "unavailable",
+                        "reason": "engine_down",
+                        "model": ms.model_name,
+                        **({"supervisor": ms.supervisor.status()}
+                           if ms.supervisor is not None else {})})
                 else:
                     self._send(200, {"status": "ok",
                                      "model": ms.model_name,
@@ -861,7 +1559,7 @@ def make_handler(ms: ModelServer):
                 ms.log_access("POST", self.path, 501, None, resp,
                               time.perf_counter() - t0, rid=rid)
                 return
-            if self.path != "/generate":
+            if self.path not in ("/generate", "/prefill"):
                 self._send(404, {"error": f"no route {self.path}"})
                 return
             # Generate FIRST, send after: a client hanging up while a
@@ -871,9 +1569,12 @@ def make_handler(ms: ModelServer):
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n) or b"{}")
-                code, resp = 200, ms.generate(
-                    req, cancel_check=_disconnect_probe(
-                        self.connection), rid=rid)
+                if self.path == "/generate":
+                    code, resp = 200, ms.generate(
+                        req, cancel_check=_disconnect_probe(
+                            self.connection), rid=rid)
+                else:
+                    code, resp = 200, ms.prefill_prompt(req)
             except ShedError as e:
                 code = 503
                 resp = {"error": str(e), "reason": e.reason}
@@ -895,6 +1596,12 @@ def make_handler(ms: ModelServer):
             except NotImplementedError as e:
                 code, resp = 501, {"error": str(e),
                                    "reason": "not_ported"}
+            except PoisonedRequest as e:
+                # Quarantine conviction: THIS request alone fails,
+                # typed; its co-tenants resumed token-identically.
+                with ms._stats_lock:
+                    ms.errors += 1
+                code, resp = 500, {"error": str(e), "reason": e.reason}
             except ValueError as e:
                 with ms._stats_lock:
                     ms.errors += 1
@@ -906,7 +1613,18 @@ def make_handler(ms: ModelServer):
             if isinstance(resp, dict):
                 resp.setdefault("request_id", rid)
             try:
+                if ms.faults is not None:
+                    # Injected handler-socket death at the response
+                    # write: the connection drops with no response,
+                    # server-side state already terminal.
+                    ms.faults.check("socket_reset")
                 self._send(code, resp, extra)
+            except SocketReset:
+                self.close_connection = True
+                try:
+                    self.connection.close()
+                except OSError:
+                    pass
             except OSError:
                 pass  # client went away mid-write
             ms.log_access("POST", self.path, code, req, resp,

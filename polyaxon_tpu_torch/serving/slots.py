@@ -288,6 +288,16 @@ class SlotKVManager(StepPool):
         self._k: Optional[torch.Tensor] = None
         self._v: Optional[torch.Tensor] = None
 
+    def reset(self) -> None:
+        """Crash-recovery rebuild (recovery.EngineSupervisor): every
+        slot free, every slot's decode state parked — host state only.
+        The stacked cache and the step buffers keep their addresses,
+        which is what the captured graphs replay against: stale lanes
+        are masked by position until the next insert overwrites them
+        wholesale, so a supervised restart captures nothing new."""
+        self._free = list(range(self.n_slots))
+        alloc_decode_state(self)
+
     # -- device state ---------------------------------------------------
 
     def _ensure_stacked(self, cache) -> None:

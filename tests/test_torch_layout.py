@@ -61,7 +61,8 @@ SERVING_MODULES = ("prng.py", "models/generate.py", "models/kv_cache.py",
                    "serving/paged.py", "serving/recovery.py",
                    "serving/scheduler.py", "serving/server.py",
                    "serving/slots.py", "serving/telemetry.py",
-                   "analysis/recompile.py")
+                   "analysis/recompile.py", "analysis/locksan.py",
+                   "serving/radix.py")
 
 
 def test_serving_modules_are_checked():

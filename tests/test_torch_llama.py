@@ -114,8 +114,16 @@ def test_full_forward_matches_reference(name, scan_layers, seq, route,
     jmodel, variables, _, tmodel = _pair(name, scan_layers, **FLASH)
     toks = _tokens(0, (2, seq))
     want = np.asarray(jmodel.apply(variables, jnp.asarray(toks)))
-    with torch.no_grad():
-        got = tmodel(torch.from_numpy(toks)).numpy()
+    # torch on the calling thread (the standing rule of the CPU
+    # comparisons): on a loaded host an intra-op worker's exp has lost
+    # precision in a process that had run XLA:CPU.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with torch.no_grad():
+            got = tmodel(torch.from_numpy(toks)).numpy()
+    finally:
+        torch.set_num_threads(threads)
     assert got.shape == (2, seq, 512) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
     assert len(calls) == (tmodel.cfg.num_layers if route == "flash" else 0)

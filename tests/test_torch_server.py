@@ -200,7 +200,7 @@ def test_unported_requests_are_501(server, body, feature):
     assert out["reason"] == "not_ported"
 
 
-@pytest.mark.parametrize("path", ["/prefill", "/prefix/fetch",
+@pytest.mark.parametrize("path", ["/prefix/ingest", "/prefix/fetch",
                                   "/profile/start", "/profile/stop"])
 def test_unported_routes_are_501(server, path):
     base, _, _ = server
