@@ -34,7 +34,7 @@ Phases, each raising on failure:
    float32 engine tokens, half of them sampled, equal solo decoding and
    the paged pool (eager and lazy) gives the fixed lane's tokens; the
    CUDA-graph decode windows (greedy, sampled, paged) equal the eager
-   ones bitwise, with their device times; three HTTP loads of 32
+   ones bitwise, with their device times; three HTTP loads of 16
    requests from 16 clients (all greedy on the fixed-lane pool, then
    half sampled on the fixed-lane and on the paged pool: tok/s,
    latency, TTFT, windows, graph captures, device busy share), then
@@ -46,7 +46,17 @@ Phases, each raising on failure:
    poisoned request alone failing 500 ``poisoned_request``, an engine
    death on the paged pool recovered by the supervisor: every other
    request equal to the fault-free run, the prefix index flushed and
-   refilled, no graph captured after the restart);
+   refilled, no graph captured after the restart); speculative decoding
+   with K = 4 and two drafts made from seeds, gpt2-small and a
+   4-of-24-layer cut of the target (float32 solo greedy
+   ``generate_speculative`` == ``generate``; the float32 engine's spec
+   slots on the fixed-lane and the paged pool, 8 requests of which 6
+   speculative, each equal to its solo run, no capture after warm-up;
+   bf16 spec and plain window replay times and each draft's
+   acceptance; an HTTP load of 16 requests, half speculative, with the
+   ``ptpu_serving_spec_accept_rate`` family); beam search in float32
+   (``num_beams`` 4 over HTTP and ``generate --beams 4`` == the port's
+   ``generate_beam`` on the CPU, ``num_beams`` 1 == greedy);
 6. the flash-backward kernels (dq, dkv) against their plain version at
    the training path's shape, the forward's case list, the Hopper
    kernels' tile edges and an LSE cotangent; their times, bounds and
@@ -72,6 +82,8 @@ Phases, each raising on failure:
    step; step time, MFU); at its width and 2 layers, the flash route's
    logits and gradients against plain attention, full causal and with a
    sliding window of 511 (the registry's ``sliding_window`` override);
+   float32 solo greedy ``generate_speculative`` with a 2-of-22-layer
+   cut draft == greedy ``generate``;
    mistral-tiny's window in decode: float32 engine == solo on both pools;
 10. ``python -m polyaxon_tpu_torch.cli run -f`` on the port's example
    polyaxonfiles in a temporary home, each read back through the port's
@@ -1289,7 +1301,8 @@ def _http_load(model, label, bodies, *, sampled_too=False,
     if ms.engine.paged:
         rec["pages"] = {**ms.engine.slots.page_stats(),
                         "kv_pages_resident_peak": peak["resident"]}
-    print(f"[http] {label}: 32 POST /generate from 16 clients ({n_sampled}"
+    print(f"[http] {label}: {len(bodies)} POST /generate from 16 clients "
+          f"({n_sampled}"
           f" sampled; prompts 64-512, 64 new tokens), 8 slots, prefill "
           f"chunk 256, window 8: {ntok} tokens in {wall:.3f} s = "
           f"{rec['tok_per_s']:.1f} tok/s; latency p50 "
@@ -1351,7 +1364,7 @@ def phase_http_serving(model, model_f32):
     2. bf16 CUDA-graph windows equal eager ones bitwise, for the greedy,
        sampled and paged sampled programs, and their device times
        (``_graph_vs_eager``);
-    3. three loads over HTTP (``_http_load``), the same 32 requests
+    3. three loads over HTTP (``_http_load``), the same 16 requests
        (prompts 64-512 from seed 0, 64 new tokens): all greedy on the
        fixed-lane pool, then every odd one sampled on the fixed-lane
        pool and on the paged pool (64-token pages, default size); after
@@ -1369,10 +1382,12 @@ def phase_http_serving(model, model_f32):
     step_ms = _graph_vs_eager(model)
     print(f"[time] http: graph vs eager windows "
           f"{time.perf_counter() - t0:.1f} s")
+    # 16 requests a load (32 until PR 9): the script's time went to the
+    # speculative phases.
     rng = np.random.RandomState(0)
     bodies = [{"prompt": rng.randint(0, model.cfg.vocab_size, n).tolist(),
                "max_new_tokens": 64}
-              for n in rng.randint(64, 513, 32)]
+              for n in rng.randint(64, 513, 16)]
     recs = {}
     for label, load, kw in (
             ("greedy fixed-lane", bodies, {}),
@@ -1892,6 +1907,504 @@ def phase_faults(model_f32, name="gpt2-medium"):
         raise AssertionError(f"faults: flash launches {launches}")
     out["flash_launches"] = launches
     return out
+
+
+# -- speculative and beam decoding -------------------------------------------
+
+SPEC_K = 4
+
+
+def _cut_draft(model, name: str, layers: int):
+    """A draft cut from ``model``'s own weights: its embeddings, its
+    first ``layers`` blocks and its final norm (and head), in its
+    dtype on its device."""
+    from polyaxon_tpu_torch.models.registry import get_model
+
+    draft = get_model(name).make_model(device=model.device,
+                                       dtype=model.cfg.dtype,
+                                       num_layers=layers)
+    keep = {k: v for k, v in model.state_dict().items()
+            if not k.startswith("h.") or int(k.split(".")[1]) < layers}
+    draft.load_state_dict(keep, strict=True)
+    return draft.eval().requires_grad_(False)
+
+
+def _spec_bodies(cfg, seed: int = 5):
+    """8 requests of 64-256 prompt tokens and 64 new: 4 speculative
+    greedy, 2 speculative sampled (T 0.8, top-k 50, top-p 0.95, seed =
+    index), 1 plain greedy and 1 plain sampled."""
+    rng = np.random.RandomState(seed)
+    bodies = []
+    for i, n in enumerate(rng.randint(64, 257, 8)):
+        body = {"prompt": rng.randint(0, cfg.vocab_size, n).tolist(),
+                "max_new_tokens": 64}
+        if i < 6:
+            body.update(speculative=True, spec_k=SPEC_K)
+        if i in (4, 5, 7):
+            body.update(SAMPLED, seed=i)
+        bodies.append(body)
+    return bodies
+
+
+def _spec_solo(model_f32, draft_f32, body):
+    """A request's solo float32 run: ``generate_speculative`` (seed mode
+    when sampled), ``generate`` or ``generate_positional``."""
+    from polyaxon_tpu_torch.models import generate as G
+
+    p, new = [body["prompt"]], body["max_new_tokens"]
+    samp = {k: body[k] for k in ("temperature", "top_k", "top_p")
+            if k in body}
+    if body.get("speculative"):
+        out = G.generate_speculative(
+            model_f32, draft_f32, p, max_new_tokens=new, k=body["spec_k"],
+            seed=body.get("seed") if samp else None, **samp)
+    elif samp:
+        out = G.generate_positional(model_f32, p, max_new_tokens=new,
+                                    seed=body["seed"], **samp)
+    else:
+        out = G.generate(model_f32, p, max_new_tokens=new)
+    return out[0, len(body["prompt"]):].tolist()
+
+
+def _warm_spec_keys(ms, max_tokens: int) -> None:
+    """Capture every graph a mixed speculative load can reach (all slots
+    idle): each window (1, 2, 4, 8), the plain and the speculative
+    programs (K = ``SPEC_K``), greedy and sampled, and on a paged pool
+    every pad class up to ``max_tokens`` positions."""
+    slots = ms.engine.slots
+    classes = _pad_classes(slots, max_tokens) if slots.paged else [None]
+    with ms._lock:
+        for P in classes:
+            if P is not None:
+                slots._slot_need[0] = P
+            for w in (1, 2, 4, 8):
+                for sampled in (False, True):
+                    slots.step(w, sampled)
+                    slots.step_spec(w, SPEC_K, sampled)
+        if slots.paged:
+            slots._slot_need[0] = 0
+    torch.cuda.synchronize()
+
+
+def _spec_engine_runs(model_f32, draft_f32, bodies, solo, draft_label,
+                      pools=("fixed-lane", "paged"), warm_keys=True):
+    """float32 ``ModelServer`` with the draft, 8 slots: the 8 bodies
+    concurrently on each of ``pools`` after a warm-up request (and,
+    with ``warm_keys``, every graph key: then no capture may happen in
+    the run); every request equals its solo run (tie rule for greedy),
+    paged == fixed lane exactly.  Returns the spec counters of the
+    fixed-lane run."""
+    from polyaxon_tpu_torch.serving import ModelServer
+
+    max_tokens = max(len(b["prompt"]) + b["max_new_tokens"]
+                     for b in bodies) + SPEC_K
+    runs, counters = {}, {}
+    for label, kw in (("fixed-lane", {}), ("paged", {"kv_paged": True})):
+        if label not in pools:
+            continue
+        ms = ModelServer(model_f32, model_name="gpt2-medium", n_slots=8,
+                         prefill_chunk=64, decode_window=8,
+                         draft_model=draft_f32, spec_k=SPEC_K, **kw)
+        try:
+            t0 = time.perf_counter()
+            ms.generate(dict(bodies[0], max_new_tokens=8))
+            if warm_keys:
+                _warm_spec_keys(ms, max_tokens)
+            warm = ms.recompile.snapshot()["compile_cache_misses"]
+            st0 = ms.engine.stats()
+            t1 = time.perf_counter()
+            got, secs = _concurrent(ms, [dict(b) for b in bodies])
+            st = ms.engine.stats()
+            captures = st["compile_cache_misses"] - warm
+        finally:
+            ms.close()
+        runs[label] = [g["new_tokens"][0] for g in got]
+        counters[label] = {k: st[k] - st0[k] for k in (
+            "spec_rounds_total", "spec_drafted_total",
+            "spec_accepted_total", "decode_steps_total",
+            "decode_dispatches_total")}
+        c = counters[label]
+        print(f"[spec] float32 engine, draft {draft_label}, {label} "
+              f"pool, 8 slots: 8 requests (4 spec greedy, 2 spec "
+              f"sampled, 2 plain; spec_k "
+              f"{sorted({b['spec_k'] for b in bodies if 'spec_k' in b})};"
+              f" prompts "
+              f"{min(len(b['prompt']) for b in bodies)}-"
+              f"{max(len(b['prompt']) for b in bodies)}, 64 new) in "
+              f"{secs:.2f} s (warm-up {t1 - t0:.1f} s, {warm} graph "
+              f"captures); spec rounds {c['spec_rounds_total']}, drafted "
+              f"{c['spec_drafted_total']}, accepted "
+              f"{c['spec_accepted_total']} (acceptance "
+              f"{c['spec_accepted_total'] / max(1, c['spec_drafted_total']):.3f}"
+              f"), {c['decode_dispatches_total']} dispatches; captures "
+              f"in the run {captures}")
+        if captures and warm_keys:
+            raise AssertionError(f"spec engine {label}: {captures} graph "
+                                 f"captures after warm-up")
+    # Sampled speculative requests are held exactly (their draws are
+    # keyed by token index and lane); the rest under the tie rule.
+    got = runs["fixed-lane"]
+    bad = [i for i, b in enumerate(bodies)
+           if b.get("speculative") and b.get("temperature")
+           and got[i] != solo[i]]
+    if bad:
+        raise AssertionError(f"spec engine: sampled spec requests {bad} "
+                             f"!= generate_speculative's seed mode")
+    rest = [i for i in range(len(bodies)) if not (
+        bodies[i].get("speculative") and bodies[i].get("temperature"))]
+    ties = _same_tokens(model_f32, "spec", [bodies[i] for i in rest],
+                        [[solo[i]] for i in rest], [[got[i]] for i in rest])
+    bad = [i for i in range(len(bodies)) if "paged" in runs
+           and runs["paged"][i] != runs["fixed-lane"][i]]
+    if bad:
+        raise AssertionError(f"spec engine: paged tokens != fixed lane "
+                             f"for requests {bad}")
+    print(f"[spec] float32 engine, draft {draft_label}, == solo for all "
+          f"8 requests ({len(bodies) - ties} exactly, {ties} by the tie "
+          f"rule; the sampled spec requests equal generate_speculative's"
+          f" seed mode)"
+          + (", paged == fixed lane exactly" if "paged" in runs else ""))
+    return counters["fixed-lane"]
+
+
+def _spec_step_ms(model, draft, label: str, sampled_body: bool) -> dict:
+    """bf16, 8 slots filled (prompts of 64-256 tokens, all speculative
+    greedy with K = ``SPEC_K``): the W = 1 and W = 8 spec windows and the
+    plain greedy windows as graph replays (ms), with ``sampled_body``
+    the W = 1 window of the body with the sampling lanes too, and the
+    acceptance of ``draft`` over 4 W = 8 windows from the filled
+    state."""
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.serving.slots import SlotKVManager
+
+    cfg = model.cfg
+    lengths = np.random.RandomState(7).randint(64, 257, 8)
+    pool = SlotKVManager(model, 8, max_window=8, draft_model=draft,
+                         spec_k_cap=SPEC_K)
+    for s, n in enumerate(lengths):
+        toks = torch.as_tensor(np.random.RandomState(20 + s).randint(
+            0, cfg.vocab_size, (1, n)), device="cuda")
+        logits, cache = G.prefill(model, toks)
+        _, dcache = G.prefill(draft, toks)
+        pool.acquire()
+        pool.insert(s, cache, int(torch.argmax(logits[0])), int(n),
+                    base_key=np.zeros(2, np.int64), draft_cache=dcache,
+                    spec_k=SPEC_K)
+        del cache, dcache
+    host = {k: getattr(pool, k).copy()
+            for k in ("tokens", "positions", "next_index")}
+    kv = [t.clone() for t in (pool._k, pool._v, pool._dk, pool._dv)]
+
+    def restore():
+        for k, v in host.items():
+            setattr(pool, k, v.copy())
+        for dst, src in zip((pool._k, pool._v, pool._dk, pool._dv), kv):
+            dst.copy_(src)
+
+    rec = {}
+    for w in (1, 8):
+        restore()
+        pool.step_spec(w, SPEC_K)
+        rec[f"spec W={w}"] = _replay_ms(pool, (w, "spec", SPEC_K, False),
+                                        restore)
+        restore()
+        pool.step(w, False)
+        rec[f"plain W={w}"] = _replay_ms(pool, (w, False), restore)
+    if sampled_body:
+        # The body with the sampling lanes, on the same greedy slots
+        # (W = 1: its capture is long): the same commits, and what the
+        # lanes cost.
+        restore()
+        greedy_body = pool.step_spec(1, SPEC_K)
+        restore()
+        outs = pool.step_spec(1, SPEC_K, True)
+        if not all((a == b).all() for a, b in zip(greedy_body, outs)):
+            raise AssertionError(f"draft {label}: the sampled spec "
+                                 f"body's greedy lanes != the greedy body")
+        rec["spec sampled body W=1"] = _replay_ms(
+            pool, (1, "spec", SPEC_K, True), restore)
+    restore()
+    acc = drafted = commits = 0
+    for _ in range(4):
+        _, cs, ms_ = pool.step_spec(8, SPEC_K)
+        acc += int(ms_.sum())
+        commits += int(cs.sum())
+        drafted += SPEC_K * cs.size
+    rec["acceptance"] = acc / drafted
+    rec["tokens_per_round"] = commits / (drafted / SPEC_K)
+    print(f"[spec] bf16 8 spec slots (positions {min(lengths)}-"
+          f"{max(lengths)}+), draft {label}, K={SPEC_K}: spec window W=1 "
+          f"{rec['spec W=1']:.3f} ms, W=8 {rec['spec W=8']:.3f} ms "
+          f"({rec['spec W=8'] / 8:.3f} ms a round); plain greedy W=1 "
+          f"{rec['plain W=1']:.3f} ms, W=8 {rec['plain W=8']:.3f} ms "
+          f"({rec['plain W=8'] / 8:.3f} ms a step); "
+          + (f"the sampled spec body W=1 {rec['spec sampled body W=1']:.3f}"
+             f" ms on the same greedy slots (same commits); "
+             if sampled_body else "") + f"acceptance "
+          f"{rec['acceptance']:.3f}, {rec['tokens_per_round']:.2f} "
+          f"tokens a slot a round over 32 rounds")
+    del pool, kv
+    _release()
+    return rec
+
+
+def phase_speculative(model, model_f32):
+    """Speculative decoding on GPT-2 medium (the target at full width),
+    two drafts made from seeds: gpt2-small (random, so near-zero
+    acceptance) and a 4-of-24-layer draft cut from the target's own
+    weights (partial acceptance: rows commit different counts in one
+    round); K = 4.
+
+    1. solo float32 ``generate_speculative`` == greedy ``generate`` with
+       both drafts (tie rule);
+    2. the float32 engine on the fixed-lane and the paged pool: 8
+       requests (4 spec greedy, 2 spec sampled, 2 plain) each equal to
+       its solo run, no graph captured after warm-up (``_spec_engine_
+       runs``); then on the fixed-lane pool with the target as its own
+       draft (full acceptance), spec_k 4 and 2 mixed and 24 new tokens,
+       so rows commit 4, 2 and 1 tokens in one round;
+    3. bf16 spec and plain windows' replay times and each draft's
+       acceptance (``_spec_step_ms``);
+    4. HTTP: a bf16 server with the cut draft, 16 requests from 16
+       clients, half speculative: tok/s, TTFT p50, the
+       ``ptpu_serving_spec_accept_rate`` family from /metrics, flash
+       launches.
+    Returns the record (with the flash launches of the engine runs and
+    of the HTTP load)."""
+    import urllib.request
+
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.models.registry import get_model
+
+    rec = {}
+    split = {}
+    t0 = time.perf_counter()
+    small_f32 = get_model("gpt2-small").init_params(
+        seed=1, device="cuda", dtype=torch.float32)
+    cut_f32 = _cut_draft(model_f32, "gpt2-medium", 4)
+    rng = np.random.RandomState(3)
+    ties = 0
+    for label, draft in (("gpt2-small", small_f32),
+                         ("4-layer cut", cut_f32)):
+        for n in (64, 200)[:1 if label == "gpt2-small" else 2]:
+            p = rng.randint(0, model_f32.cfg.vocab_size, n).tolist()
+            want = G.generate(model_f32, [p], max_new_tokens=64)[
+                0, n:].tolist()
+            got = G.generate_speculative(model_f32, draft, [p],
+                                         max_new_tokens=64, k=SPEC_K)[
+                0, n:].tolist()
+            if got != want:
+                _tie_or_raise(model_f32, "spec", f"solo greedy spec, "
+                              f"draft {label}", p, want, got, None)
+                ties += 1
+    print(f"[spec] float32 solo greedy generate_speculative (K={SPEC_K}, "
+          f"64 new; prompt 64 with gpt2-small, 64 and 200 with the cut) =="
+          f" greedy generate ({3 - ties} exactly, {ties} by the tie rule)")
+    split["solo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bodies = _spec_bodies(model_f32.cfg)
+    solo = [_spec_solo(model_f32, cut_f32, b) for b in bodies]
+    _zero_counts()
+    rec["engine"] = _spec_engine_runs(model_f32, cut_f32, bodies, solo,
+                                      "4-layer cut")
+    # The target as its own draft accepts (nearly) every proposal: with
+    # spec_k 4 and 2 and plain rows in one pool, rows commit 4, 2 and 1
+    # tokens in the same round.
+    self_bodies = [dict(b, spec_k=2, max_new_tokens=24)
+                   if b.get("speculative") and i % 2
+                   else dict(b, max_new_tokens=24)
+                   for i, b in enumerate(bodies)]
+    self_solo = [_spec_solo(model_f32, model_f32, b) for b in self_bodies]
+    rec["engine_self_draft"] = _spec_engine_runs(
+        model_f32, model_f32, self_bodies, self_solo, "= target",
+        pools=("fixed-lane",), warm_keys=False)
+    rec["engine_flash_launches"] = _counts()
+    split["engine"] = time.perf_counter() - t0
+    del small_f32, cut_f32
+    _release()
+    t0 = time.perf_counter()
+    cut = _cut_draft(model, "gpt2-medium", 4)
+    small = get_model("gpt2-small").init_params(seed=1, device="cuda")
+    # bf16 is held as an agreement share (a K+1-wide verify and a
+    # one-token step round apart, and a near tie flips the argmax).
+    rng = np.random.RandomState(3)
+    firsts = []
+    for label, draft in (("gpt2-small", small), ("4-layer cut", cut)):
+        for n in (64, 200):
+            p = rng.randint(0, model.cfg.vocab_size, n).tolist()
+            want = G.generate(model, [p], max_new_tokens=64)[0, n:].tolist()
+            got = G.generate_speculative(model, draft, [p],
+                                         max_new_tokens=64, k=SPEC_K)[
+                0, n:].tolist()
+            firsts.append(next((i for i, (a, b) in enumerate(zip(want, got))
+                                if a != b), 64))
+    rec["bf16_rows_equal"] = sum(f == 64 for f in firsts)
+    print(f"[spec] bf16 solo greedy generate_speculative == greedy generate"
+          f" on {rec['bf16_rows_equal']} of 4 rows (the float32 prompts; "
+          f"first differing new token per row: {firsts}, 64 = none)")
+    rec["step_ms"] = {"4-layer cut": _spec_step_ms(model, cut,
+                                                   "4-layer cut", True),
+                      "gpt2-small": _spec_step_ms(model, small,
+                                                  "gpt2-small", False)}
+    del small
+    _release()
+    split["step times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(11)
+    plain = [{"prompt": rng.randint(0, model.cfg.vocab_size, n).tolist(),
+              "max_new_tokens": 64} for n in rng.randint(64, 513, 16)]
+    load = []
+    for i, b in enumerate(plain):
+        b = dict(b)
+        if i % 2 == 0:
+            b.update(speculative=True, spec_k=SPEC_K)
+        if i % 4 in (2, 3):
+            b.update(SAMPLED, seed=i)
+        load.append(b)
+    srv, ms, base = _serve(model, "gpt2-medium", prefill_chunk=256,
+                           draft_model=cut, spec_k=SPEC_K)
+    try:
+        _load_clients(base, load[:2], 2)
+        _warm_spec_keys(ms, max(len(b["prompt"]) for b in load) + 64
+                        + SPEC_K)
+        warm = ms.recompile.snapshot()["compile_cache_misses"]
+        st0 = ms.engine.stats()
+        _zero_counts()
+        wall, results = _load_clients(base, load, 16)
+        rec["http_flash_launches"] = _counts()
+        st = ms.engine.stats()
+        captures = st["compile_cache_misses"] - warm
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        _stop(srv, ms)
+    ntok = sum(len(r[1]["new_tokens"][0]) for r in results)
+    ttft = sorted(r[1]["ttft_ms"] for r in results)
+    acc = [line for line in metrics.splitlines()
+           if line.startswith("ptpu_serving_spec_accept_rate")]
+    if not any(line.startswith("ptpu_serving_spec_accept_rate_count")
+               and int(line.split()[-1]) >= 8 for line in acc):
+        raise AssertionError(f"/metrics spec accept rate: {acc}")
+    bad = [i for i, (_, r) in enumerate(results)
+           if len(r["new_tokens"][0]) != 64
+           or max(r["new_tokens"][0]) >= model.cfg.vocab_size]
+    if bad or captures:
+        raise AssertionError(f"spec http: malformed {bad}, captures in "
+                             f"the run {captures}")
+    d = {k: st[k] - st0[k] for k in ("spec_rounds_total",
+                                     "spec_drafted_total",
+                                     "spec_accepted_total")}
+    rec["http"] = {"requests": 16, "speculative": 8, "new_tokens": ntok,
+                   "wall_s": wall, "tok_per_s": ntok / wall,
+                   "ttft_p50_ms": ttft[len(ttft) // 2], **d,
+                   "captures_in_run": captures}
+    print(f"[spec] HTTP bf16, 8 slots, draft 4-layer cut, spec_k "
+          f"{SPEC_K}: 16 requests from 16 clients (8 speculative, half "
+          f"of each kind sampled; prompts 64-512, 64 new): {ntok} tokens "
+          f"in {wall:.3f} s = {ntok / wall:.1f} tok/s, TTFT p50 "
+          f"{rec['http']['ttft_p50_ms']:.1f} ms; spec rounds "
+          f"{d['spec_rounds_total']}, drafted {d['spec_drafted_total']}, "
+          f"accepted {d['spec_accepted_total']}; captures in the run "
+          f"{captures}; flash launches {rec['http_flash_launches']}")
+    for line in acc:
+        print(f"[spec] /metrics {line}")
+    split["http"] = time.perf_counter() - t0
+    print("[time] speculative: " + ", ".join(f"{k} {v:.1f} s"
+                                             for k, v in split.items()))
+    print(f"[spec] record {json.dumps(rec)}")
+    del cut
+    _release()
+    return rec
+
+
+def phase_beam(model_f32):
+    """Beam search on GPT-2 medium in float32, 16 new tokens from a
+    32-token prompt: ``num_beams`` 4 over HTTP (the server's solo beam
+    path) and ``generate --beams 4`` (the CLI's function) equal the
+    port's ``generate_beam`` on the same weights moved to the CPU, and
+    ``num_beams`` 1 equals greedy ``generate``.  Returns the record."""
+    from polyaxon_tpu_torch.cli.main import run_generate
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.models.registry import get_model
+
+    t0 = time.perf_counter()
+    p = np.random.RandomState(13).randint(
+        0, model_f32.cfg.vocab_size, 32).tolist()
+    srv, ms, base = _serve(model_f32, "gpt2-medium")
+    _zero_counts()
+    try:
+        t1 = time.perf_counter()
+        st4, r4 = _post_json(base, "/generate", {
+            "prompt": p, "max_new_tokens": 16, "num_beams": 4})
+        beam_s = time.perf_counter() - t1
+        st1, r1 = _post_json(base, "/generate", {
+            "prompt": p, "max_new_tokens": 16, "num_beams": 1})
+        routing = ms.info()["routing"]["beam"]
+    finally:
+        _stop(srv, ms)
+    launches = _counts()
+    if st4 != 200 or st1 != 200:
+        raise AssertionError(f"beam HTTP: {st4} {r4} / {st1} {r1}")
+    cli = run_generate(model_f32, "gpt2-medium", [p], max_new_tokens=16,
+                       beams=4)
+    greedy = G.generate(model_f32, [p], max_new_tokens=16).tolist()
+    cpu = get_model("gpt2-medium").make_model(device="cpu",
+                                              dtype=torch.float32)
+    cpu.load_state_dict(model_f32.state_dict())
+    cpu.eval().requires_grad_(False)
+    t1 = time.perf_counter()
+    want = G.generate_beam(cpu, [p], max_new_tokens=16,
+                           num_beams=4).tolist()
+    cpu_s = time.perf_counter() - t1
+    del cpu
+    ok = r4["tokens"] == want and cli["tokens"] == want \
+        and r1["tokens"] == greedy
+    print(f"[beam] float32 num_beams=4, 16 new tokens, prompt 32: HTTP "
+          f"(solo path, routing {routing!r}) {beam_s:.3f} s, generate "
+          f"--beams 4 {cli['wall_s']} s, the CPU generate_beam "
+          f"{cpu_s:.1f} s: HTTP {'==' if r4['tokens'] == want else '!='} "
+          f"CPU, CLI {'==' if cli['tokens'] == want else '!='} CPU; "
+          f"num_beams=1 {'==' if r1['tokens'] == greedy else '!='} greedy "
+          f"generate; flash launches {launches}")
+    if not ok:
+        raise AssertionError(f"beam: HTTP {r4['tokens']}, CLI "
+                             f"{cli['tokens']}, CPU {want}; num_beams=1 "
+                             f"{r1['tokens']} vs greedy {greedy}")
+    print(f"[time] beam: {time.perf_counter() - t0:.1f} s")
+    _release()
+    return {"http_beam4_s": beam_s, "cpu_beam4_s": cpu_s,
+            "flash_launches": launches}
+
+
+def phase_llama_speculative(model_f32):
+    """TinyLlama-1.1B, float32: solo greedy ``generate_speculative``
+    with a 2-of-22-layer draft cut from its own weights (K = 4, 32 new
+    tokens from a 64-token prompt) == greedy ``generate`` (tie rule),
+    with the draft's acceptance.  Returns the flash launches."""
+    from polyaxon_tpu_torch.models import generate as G
+
+    t0 = time.perf_counter()
+    draft = _cut_draft(model_f32, LLAMA, 2)
+    p = np.random.RandomState(17).randint(
+        0, model_f32.cfg.vocab_size, 64).tolist()
+    _zero_counts()
+    want = G.generate(model_f32, [p], max_new_tokens=32)[0, 64:].tolist()
+    t1 = time.perf_counter()
+    got = G.generate_speculative(model_f32, draft, [p], max_new_tokens=32,
+                                 k=SPEC_K)[0, 64:].tolist()
+    spec_s = time.perf_counter() - t1
+    launches = _counts()
+    if got != want:
+        _tie_or_raise(model_f32, "llama spec", "solo greedy spec", p,
+                      want, got, None)
+    print(f"[llama] float32 solo greedy generate_speculative, 2-of-22-"
+          f"layer cut draft, K={SPEC_K}, 32 new tokens: "
+          f"{'==' if got == want else 'tie-rule =='} greedy generate "
+          f"({spec_s:.2f} s); flash launches {launches}")
+    del draft
+    _release()
+    print(f"[time] llama speculative: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def phase_prng():
@@ -2920,6 +3433,10 @@ def main(argv=None) -> int:
     mark("prefix cache")
     faults = phase_faults(model_f32)
     mark("fault containment")
+    spec = phase_speculative(model, model_f32)
+    mark("speculative decoding")
+    beam = phase_beam(model_f32)
+    mark("beam search")
     del model, model_f32
     _release()
     train_counts, train_secs = phase_train_entry()
@@ -2941,6 +3458,8 @@ def main(argv=None) -> int:
     mark("llama http serving")
     llama_prefix = phase_llama_prefix(model_f32)
     mark("llama prefix cache")
+    llama_spec = phase_llama_speculative(model_f32)
+    mark("llama speculative decoding")
     del model
     weights = model_f32.state_dict()
     del model_f32
@@ -2977,6 +3496,10 @@ def main(argv=None) -> int:
                 "prefix_cache_paged": prefix["paged"]["warm"][
                     "flash_launches"][name],
                 "faults": faults["flash_launches"][name],
+                "speculative_engine": spec["engine_flash_launches"][name],
+                "speculative_http": spec["http_flash_launches"][name],
+                "beam_http_and_cli": beam["flash_launches"][name],
+                "llama_speculative": llama_spec[name],
                 "train_main": train_counts[name],
                 "run_job": run_counts["run_job"][name],
                 "run_service": run_counts["run_service"][name],
@@ -2996,6 +3519,13 @@ def main(argv=None) -> int:
           f"{llama_train['mfu']:.4f}; HTTP tok/s "
           + ", ".join(f"{k} {r['tok_per_s']:.1f}"
                       for k, r in llama_http.items()))
+    print(f"[spec] bf16 step ms (8 spec slots, K={SPEC_K}, W=1 / W=8 "
+          f"replay): " + "; ".join(
+              f"draft {d}: spec {r['spec W=1']:.3f} / {r['spec W=8']:.3f},"
+              f" plain {r['plain W=1']:.3f} / {r['plain W=8']:.3f}, "
+              f"acceptance {r['acceptance']:.3f}"
+              for d, r in spec["step_ms"].items())
+          + f"; HTTP {spec['http']['tok_per_s']:.1f} tok/s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

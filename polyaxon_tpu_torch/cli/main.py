@@ -11,11 +11,13 @@ polyaxonfile's command decides where its child runs.  The JAX package's
 other commands (``check``, ``doctor``, ``agent``, ``deploy`` and more)
 are not ported yet (ROADMAP Queue 1: The deployment twin).
 
-Port of ``polyaxon_tpu/cli/main.py``'s ``generate`` command (greedy
-and position-keyed sampled decoding) and its ``serve`` command (the
+Port of ``polyaxon_tpu/cli/main.py``'s ``generate`` command (greedy,
+position-keyed sampled, ``--beams`` beam search and ``--draft-model``
+speculative decoding) and its ``serve`` command (the
 continuous-batching HTTP server over the fixed-lane or the paged KV
 pool, with the prefix cache behind ``POST /prefill``, the engine
-supervisor and ``--fault-plan``).  Both serve random-init weights from seed 0, or the float32
+supervisor, ``--fault-plan`` and, with ``--draft-model``, speculative
+requests in the engine's spec slots).  Both serve random-init weights from seed 0, or the float32
 master weights of a training checkpoint (``--checkpoint DIR``) cast to
 the model's serving dtype.  The ``generate`` flags of the reference
 that the port does not carry yet are kept and refused by name, so a
@@ -110,13 +112,17 @@ def run_generate(model, model_name: str, rows, *, max_new_tokens: int,
                  eos_id: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  temperature: float = 0.0, top_k: Optional[int] = None,
-                 top_p: Optional[float] = None, seed: int = 0) -> dict:
+                 top_p: Optional[float] = None, seed: int = 0,
+                 beams: int = 1, draft=None, spec_k: int = 4) -> dict:
     """Decode ``rows`` and return the command's JSON record.  Sampled
     requests on a decoder-only model take the POSITION-KEYED schedule
     (``generate_positional``: token i's key is a function of ``seed``,
     the row and i alone), the contract the server's engine samples
     under, so ``generate --seed N`` and a served request with seed N
-    return the same tokens."""
+    return the same tokens.  ``draft`` decodes speculatively
+    (``generate_speculative``, ``spec_k`` proposals a round; sampled
+    under the same position-keyed ``seed`` schedule); ``beams`` > 1
+    runs beam search."""
     import torch
 
     from polyaxon_tpu_torch import prng
@@ -126,7 +132,18 @@ def run_generate(model, model_name: str, rows, *, max_new_tokens: int,
     toks = torch.tensor(rows, dtype=torch.long, device=dev)
     t0 = time.perf_counter()
     try:
-        if G.positional_eligible(model, temperature):
+        if draft is not None:
+            out = G.generate_speculative(
+                model, draft, toks, max_new_tokens=max_new_tokens,
+                k=spec_k, eos_id=eos_id, prefill_chunk=prefill_chunk,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=seed if temperature != 0.0 else None)
+        elif beams > 1:
+            out = G.generate_beam(model, toks,
+                                  max_new_tokens=max_new_tokens,
+                                  num_beams=beams, eos_id=eos_id,
+                                  prefill_chunk=prefill_chunk)
+        elif G.positional_eligible(model, temperature):
             out = G.generate_positional(
                 model, toks, max_new_tokens=max_new_tokens,
                 temperature=temperature, top_k=top_k, top_p=top_p,
@@ -156,14 +173,34 @@ def run_generate(model, model_name: str, rows, *, max_new_tokens: int,
 
 # Flags of the reference's `generate` and `serve` the port refuses when
 # set to anything but their default: (option, default, ROADMAP item).
-_SPEC = "beam and speculative decoding"
 _INT8 = "int8 weights and int8 KV"
 _NOT_PORTED = (
-    ("--beams", 1, _SPEC), ("--draft-model", None, _SPEC),
-    ("--draft-checkpoint", None, _SPEC), ("--spec-k", 4, _SPEC),
     ("--int8-weights", False, _INT8), ("--int8-kv", False, _INT8),
     ("--kv-ring", False, _INT8),
 )
+
+
+def _check_spec_flags(draft_model, draft_checkpoint, spec_k, beams=1,
+                      temperature=0.0, top_k=None, top_p=None) -> None:
+    """The speculative flags' validation, before any model is built:
+    the library's messages (``_check_spec_k``, ``SPEC_BEAM_MSG``)."""
+    from polyaxon_tpu_torch.models import generate as G
+
+    if draft_checkpoint and not draft_model:
+        raise click.ClickException(
+            "--draft-checkpoint requires --draft-model")
+    try:
+        G._check_spec_k(spec_k)
+    except ValueError as e:
+        raise click.ClickException(str(e))
+    if draft_model is None:
+        return
+    if beams > 1:
+        raise click.ClickException(G.SPEC_BEAM_MSG)
+    if temperature == 0.0 and (top_k is not None or top_p is not None):
+        raise click.ClickException(
+            "speculative --top-k/--top-p need --temperature > 0 "
+            "(temperature=0 is greedy and would ignore them)")
 
 
 def _refuse_not_ported(table, values) -> None:
@@ -187,15 +224,24 @@ def _refuse_not_ported(table, values) -> None:
                    "server's schedule).")
 @click.option("--top-k", default=None, type=int)
 @click.option("--top-p", default=None, type=float)
-@click.option("--beams", default=1, type=int)
+@click.option("--beams", default=1, type=int,
+              help=">1 switches to beam search (greedy scoring).")
 @click.option("--eos-id", default=None, type=int)
 @click.option("--checkpoint", default=None, type=click.Path(),
               help="Serve the newest checkpoint under DIR (what train "
                    "writes) instead of random-init weights.")
 @click.option("--draft-model", "--spec-draft", "draft_model",
-              default=None)
-@click.option("--draft-checkpoint", default=None, type=click.Path())
-@click.option("--spec-k", default=4, type=int)
+              default=None,
+              help="Zoo model for SPECULATIVE decoding (same vocab; "
+                   "--spec-draft is an alias). Greedy by default (the "
+                   "target's greedy tokens); with --temperature, "
+                   "rejection speculative sampling under the "
+                   "position-keyed --seed schedule the server uses.")
+@click.option("--draft-checkpoint", default=None, type=click.Path(),
+              help="The draft's weights: the newest checkpoint under "
+                   "DIR (default: random init from seed 0).")
+@click.option("--spec-k", default=4, type=int,
+              help="Draft proposals per speculative round.")
 @click.option("--int8-weights", is_flag=True, default=False)
 @click.option("--int8-kv", is_flag=True, default=False)
 @click.option("--kv-ring", is_flag=True, default=False)
@@ -211,34 +257,42 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
              top_p, beams, eos_id, checkpoint, draft_model,
              draft_checkpoint, spec_k, int8_weights, int8_kv, kv_ring,
              seed, prefill_chunk, cpu):
-    """Decode with a zoo model (greedy, or sampled with
-    --temperature); emits one JSON object: tokens plus timing."""
-    values = {"--beams": beams, "--draft-model": draft_model,
-              "--draft-checkpoint": draft_checkpoint, "--spec-k": spec_k,
-              "--int8-weights": int8_weights, "--int8-kv": int8_kv,
+    """Decode with a zoo model (greedy, sampled with --temperature, beam
+    search with --beams, speculative with --draft-model); emits one
+    JSON object: tokens plus timing."""
+    values = {"--int8-weights": int8_weights, "--int8-kv": int8_kv,
               "--kv-ring": kv_ring}
     if temperature < 0.0:
         raise click.ClickException(
             f"temperature must be >= 0; got {temperature}")
     _refuse_not_ported(_NOT_PORTED, values)
+    _check_spec_flags(draft_model, draft_checkpoint, spec_k, beams,
+                      temperature, top_k, top_p)
+    if beams > 1 and (temperature != 0.0 or top_k is not None
+                      or top_p is not None):
+        raise click.ClickException(
+            "beam search is deterministic (no --temperature, --top-k "
+            "or --top-p)")
     rows = _parse_prompt(prompt)
+    device = "cpu" if cpu else None
     try:
-        model = _build_serving_model(model_name, len(rows), 0,
-                                     "cpu" if cpu else None,
+        model = _build_serving_model(model_name, len(rows), 0, device,
                                      ckpt_dir=checkpoint)
+        draft = None if draft_model is None else _build_serving_model(
+            draft_model, len(rows), 0, device, ckpt_dir=draft_checkpoint)
     except RuntimeError as e:  # no CUDA device and no --cpu
         raise click.ClickException(str(e))
     click.echo(json.dumps(run_generate(
         model, model_name, rows, max_new_tokens=max_new_tokens,
         eos_id=eos_id, prefill_chunk=prefill_chunk,
-        temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)))
+        temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+        beams=beams, draft=draft, spec_k=spec_k)))
 
 
 # Flags of the reference's `serve` for features that come with later
 # slices, refused by name when set: (option, default, ROADMAP item).
 _SERVE_NOT_PORTED = (
     ("--kv-host-spill-bytes", 0, "the spill tier and its wire format"),
-    ("--draft-model", None, _SPEC), ("--spec-k", 4, _SPEC),
     ("--int8-weights", False, _INT8), ("--int8-kv", False, _INT8),
     ("--kv-ring", False, _INT8),
 )
@@ -363,11 +417,17 @@ _SERVE_NOT_PORTED = (
                    "of restarting with token-identical resume.")
 @click.option("--draft-model", "--spec-draft", "draft_model",
               default=None,
-              help="Draft model for speculative requests (not ported "
-                   "yet; refused when set).")
+              help="Zoo model enabling SPECULATIVE requests "
+                   "({\"speculative\": true}); same vocab as --model "
+                   "(--spec-draft is an alias). Speculative requests "
+                   "ride the engine's spec slots.")
+@click.option("--draft-checkpoint", default=None, type=click.Path(),
+              help="The draft's weights: the newest checkpoint under "
+                   "DIR (default: random init from seed 0).")
 @click.option("--spec-k", default=4, type=int,
-              help="Speculative draft width (not ported yet; refused "
-                   "when changed).")
+              help="Default draft proposals per speculative round for "
+                   "requests that pass no spec_k, and the engine's "
+                   "cap: requests asking for more decode solo.")
 @click.option("--int8-weights", is_flag=True, default=False,
               help="int8 weights (not ported yet; refused when set).")
 @click.option("--int8-kv", is_flag=True, default=False,
@@ -385,7 +445,8 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
           slo_ttft_ms, trace_buffer, sanitize, sanitize_max_hold,
           sanitize_report, stall_timeout, stall_dir, forensics,
           exemplar_k, forensics_dir, fault_plan_path, no_supervise,
-          draft_model, spec_k, int8_weights, int8_kv, kv_ring, cpu):
+          draft_model, draft_checkpoint, spec_k, int8_weights, int8_kv,
+          kv_ring, cpu):
     """Serve a zoo model over HTTP: greedy and sampled POST /generate
     through the continuous-batching engine (step-boundary admission,
     eos eviction, interleaved chunked prefill, fused decode windows,
@@ -394,8 +455,10 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
     whose prefill later requests skip; /healthz, /info, /metrics,
     /trace, /requests, /debug/state; POST /drain.  Supervised: an
     engine crash restarts with token-identical resume (--no-supervise
-    turns it off; --fault-plan injects faults).  Random-init weights
-    from seed 0, or --checkpoint DIR."""
+    turns it off; --fault-plan injects faults).  --draft-model enables
+    {"speculative": true} requests (the engine's spec slots, --spec-k
+    the default and cap); {"num_beams": B} decodes solo.  Random-init
+    weights from seed 0, or --checkpoint DIR."""
     # Flag validation before the model build (fail fast).
     for name, v in (("--n-slots", n_slots), ("--queue-depth", queue_depth),
                     ("--decode-window", decode_window)):
@@ -442,9 +505,9 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
         raise click.ClickException("--request-history must be >= 0")
     _refuse_not_ported(_SERVE_NOT_PORTED, {
         "--kv-host-spill-bytes": kv_host_spill_bytes,
-        "--draft-model": draft_model, "--spec-k": spec_k,
         "--int8-weights": int8_weights, "--int8-kv": int8_kv,
         "--kv-ring": kv_ring})
+    _check_spec_flags(draft_model, draft_checkpoint, spec_k)
     # Paged-KV flag validation: fail fast, before the model build.
     if kv_page_tokens < 8:
         raise click.ClickException("--kv-page-tokens must be >= 8")
@@ -456,10 +519,12 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
             "reservation policy)")
     from polyaxon_tpu_torch.serving import ModelServer, make_server
 
+    device = "cpu" if cpu else None
     try:
-        model = _build_serving_model(model_name, 1, 0,
-                                     "cpu" if cpu else None,
+        model = _build_serving_model(model_name, 1, 0, device,
                                      ckpt_dir=checkpoint)
+        draft = None if draft_model is None else _build_serving_model(
+            draft_model, 1, 0, device, ckpt_dir=draft_checkpoint)
     except RuntimeError as e:  # no CUDA device and no --cpu
         raise click.ClickException(str(e))
     ms = ModelServer(model, model_name=model_name, n_slots=n_slots,
@@ -485,7 +550,8 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
                      stall_timeout_s=stall_timeout, stall_dir=stall_dir,
                      forensics=forensics, exemplar_k=exemplar_k,
                      forensics_dir=forensics_dir, fault_plan=fault_plan,
-                     supervise=not no_supervise)
+                     supervise=not no_supervise, draft_model=draft,
+                     spec_k=spec_k)
     try:
         srv = make_server(host, port, ms)
     except OSError as e:

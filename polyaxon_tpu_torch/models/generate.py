@@ -8,8 +8,13 @@ runs one forward over the whole prompt — or fixed-size pieces with
 ``prefill_chunk`` — then a Python loop decodes token by token.  Random
 draws go through ``polyaxon_tpu_torch.prng``, jax's threefry stream bit
 for bit, so a seed draws the reference's random bits; keys are int64
-``[2]`` tensors (``prng.PRNGKey``).  Beam search and speculative
-decoding come with a later slice.
+``[2]`` tensors (``prng.PRNGKey``).  ``generate_speculative`` (a draft
+model's K-token rounds verified by one K + 1-wide target forward: greedy,
+the chain-keyed ``rng`` schedule, or the position-keyed ``seed``/``keys``
+schedule the engine's speculative slots share) and ``generate_beam``
+(the cache tiled per beam) are the reference's; ``generate_seq2seq`` and
+``generate_beam_seq2seq`` wait for T5 (ROADMAP Queue 1: the rest of the
+zoo).
 """
 
 from __future__ import annotations
@@ -99,6 +104,19 @@ def _check_top_k(top_k, vocab=None) -> None:
     if top_k < 1 or (vocab is not None and top_k > vocab):
         hi = vocab if vocab is not None else "vocab_size"
         raise ValueError(f"top_k must be in [1, {hi}]; got {top_k}")
+
+
+def _check_spec_k(spec_k) -> None:
+    """A draft length < 1 proposes nothing: one message for the server,
+    the CLI and the library."""
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1; got {spec_k}")
+
+
+# Shared by the server and the CLI: speculative + beam is refused with
+# one message whichever surface fields the request.
+SPEC_BEAM_MSG = ("speculative decoding cannot combine with beam "
+                 "search (greedy or sampled only)")
 
 
 def _check_positional_sampling(top_k, top_p, temperature,
@@ -250,6 +268,98 @@ def _sample_positional(logits, keys, index, temperature, top_k, top_p):
     scalar parameters broadcast to every row."""
     return _sample_positional_row(logits, keys, index, temperature,
                                   top_k, top_p)
+
+
+# -- position-keyed speculative draws -------------------------------------
+#
+# A speculative round draws three kinds of randomness per proposed
+# token: the draft's proposal, the accept/reject uniform and the
+# residual resample.  Each is keyed by (base key, token index, lane), a
+# pure function of the request, so an engine slot and the solo
+# reference commit the same tokens under any co-tenancy, and a
+# partially rejected round re-derives the same tokens next round.
+
+_SPEC_LANE_DRAFT = 1
+_SPEC_LANE_ACCEPT = 2
+_SPEC_LANE_RESIDUAL = 3
+
+
+def _per_lane(x):
+    """A scalar parameter, or a tensor of the leading dims [...] made
+    broadcastable against a trailing [..., K] axis."""
+    if isinstance(x, torch.Tensor) and x.dim():
+        return x.unsqueeze(-1)
+    return x
+
+
+def _spec_round_key(base_key, index, lane: int):
+    """``fold_in(fold_in(base, index), lane)``: disjoint from the plain
+    schedule's ``fold_in(base, index)`` committed-token keys."""
+    return prng.fold_in(prng.fold_in(base_key, index), lane)
+
+
+def _spec_draft_row(logits, base_key, index, temperature, top_k, top_p):
+    """The draft's proposal at new-token ``index``: ``(token, q)`` with
+    ``q`` the draft's shaped density (what the accept test divides by).
+    ``logits`` [..., V], ``base_key`` [..., 2], the rest scalars or
+    tensors of the leading dims.  ``temperature <= 0`` rows take the
+    argmax lane (``q`` is then a dead value)."""
+    l, greedy = _shape_logits_positional(logits, temperature, top_k,
+                                         top_p)
+    key = _spec_round_key(base_key, index, _SPEC_LANE_DRAFT)
+    sampled = prng.categorical(key, l)
+    tok = torch.where(greedy, torch.argmax(logits, dim=-1), sampled)
+    return tok, torch.softmax(l, dim=-1)
+
+
+def _spec_verify_row(t_logits, d_toks, q_rows, base_key, index0,
+                     temperature, top_k, top_p, k_eff):
+    """Verify K proposals per row against the target.  ``t_logits``
+    [..., K, V] are the target's logits at the K draft positions,
+    ``d_toks`` [..., K] the proposals, ``q_rows`` [..., K, V] their
+    draft densities, ``base_key`` [..., 2], ``index0`` the new-token
+    index of the first proposal; the sampling parameters and ``k_eff``
+    are scalars or tensors of the leading dims.  Returns ``(out [...,
+    K], c [...], m [...])``: a row commits ``out[:c]``, ``c`` in ``[1,
+    k_eff]``, and ``m`` counts its accepted proposals.
+
+    Greedy lane (``temperature <= 0``): the longest prefix where the
+    draft matches the target's argmax, then the target's argmax as the
+    correction.  Sampled lane: rejection sampling (accept ``x ~ q``
+    with probability ``min(1, p(x)/q(x))``; the first rejection
+    resamples from ``norm(max(p - q, 0))``) under the position-keyed
+    schedule, both densities shaped by ``_shape_logits_positional``.
+    ``k_eff <= K`` caps a row's accepts and commits at its own draft
+    length inside a K-wide round."""
+    k = d_toks.shape[-1]
+    dev = t_logits.device
+    lanes = torch.arange(k, device=dev)
+    idxs = torch.as_tensor(index0, device=dev).expand(
+        base_key.shape[:-1])[..., None] + lanes             # [..., K]
+    shaped, _ = _shape_logits_positional(
+        t_logits, _per_lane(temperature), _per_lane(top_k),
+        _per_lane(top_p))
+    p_rows = torch.softmax(shaped, dim=-1)                  # [..., K, V]
+    px = p_rows.gather(-1, d_toks[..., None])[..., 0]
+    qx = q_rows.gather(-1, d_toks[..., None])[..., 0]
+    keys = base_key[..., None, :].expand(idxs.shape + (2,))
+    u = prng.uniform(_spec_round_key(keys, idxs, _SPEC_LANE_ACCEPT), ())
+    t_arg = torch.argmax(t_logits, dim=-1)
+    greedy = _per_lane(torch.as_tensor(temperature, dtype=torch.float32,
+                                       device=dev) <= 0.0)
+    # u < p/q without the divide.
+    accept = torch.where(greedy, d_toks == t_arg, u * qx < px)
+    k_eff = torch.as_tensor(k_eff, device=dev).clamp(1, k)
+    accept = accept & (lanes < _per_lane(k_eff))
+    m = torch.cumprod(accept.long(), dim=-1).sum(-1)
+    c = torch.minimum(m + 1, k_eff)
+    resid = torch.clamp_min(p_rows - q_rows, 0.0)
+    res = prng.categorical(
+        _spec_round_key(keys, idxs, _SPEC_LANE_RESIDUAL),
+        torch.log(resid + 1e-20))
+    correction = torch.where(greedy, t_arg, res)
+    out = torch.where(lanes < m[..., None], d_toks, correction)
+    return out, c, m
 
 
 def _decode_loop_positional(apply_step, cache, first_logits, *,
@@ -486,3 +596,264 @@ def _prefill(model, prompt, chunk: Optional[int] = None,
         logits = apply_chunk(prompt[:, start:start + chunk],
                              position + start)
     return logits, cache
+
+
+def _rollback_cache(cache: KVCache, new_index) -> None:
+    """Rewind a decode cache to ``new_index`` consumed tokens, in place:
+    the solo cache's index, or a slot cache's per-row positions (a [B]
+    tensor).  No data moves: stale entries past the index are masked by
+    absolute position and overwritten by the next append."""
+    if cache.positions is not None:
+        cache.positions.copy_(torch.as_tensor(new_index,
+                                              device=cache.k.device))
+    else:
+        cache.index = int(new_index)
+
+
+def _check_spec_fits(models, p_len: int, max_new_tokens: int, k: int):
+    for m, nm in models:
+        max_pos = m.cfg.max_position
+        # The final round (entered with at most p_len + max_new_tokens
+        # - 2 tokens consumed) appends k + 1 entries.
+        if p_len + max_new_tokens + k - 1 > max_pos:
+            raise ValueError(
+                f"prompt ({p_len}) + max_new_tokens ({max_new_tokens}) "
+                f"+ k ({k}) - 1 exceeds the {nm} model's max_position "
+                f"({max_pos}); speculative rounds need k-1 slack slots")
+
+
+@torch.no_grad()
+def generate_speculative(model, draft_model, prompt, *,
+                         max_new_tokens: int, k: int = 4,
+                         eos_id: Optional[int] = None,
+                         prefill_chunk: Optional[int] = None,
+                         temperature: float = 0.0,
+                         top_k: Optional[int] = None,
+                         top_p: Optional[float] = None, rng=None,
+                         seed: Optional[int] = None,
+                         keys=None) -> torch.Tensor:
+    """Speculative decoding: ``draft_model`` proposes ``k`` tokens a
+    round; ``model`` verifies them in ONE forward of ``k + 1`` tokens.
+
+    Greedy (``temperature=0``): commits the longest prefix where the
+    draft matches the target's argmax plus the target's correction, so
+    the output equals greedy ``generate``.  Sampled: rejection
+    speculative sampling, every committed token an exact sample of the
+    target's shaped distribution, from one of two schedules: ``rng``
+    (a split chain per round, shaping by ``_modified_logits``) or
+    ``seed``/``keys``, the POSITION-KEYED schedule of the engine's
+    speculative slots (every draw keyed by (seed, row, token index,
+    lane) through ``_spec_draft_row`` / ``_spec_verify_row``), so a
+    sampled speculative request returns the same tokens solo or in a
+    slot.
+
+    The batch advances in LOCKSTEP by the smallest acceptance of its
+    rows (one cache index); rows that verified further re-derive those
+    tokens next round.  Commits are capped at ``k`` a round.  Both
+    caches rewind by index (``_rollback_cache``).  ``eos_id`` freezes
+    a row after its first eos.  Returns [B, P + max_new_tokens]."""
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1; got "
+                         f"{max_new_tokens}")
+    _check_spec_k(k)
+    sampled = temperature != 0.0
+    positional = sampled and (keys is not None or seed is not None)
+    if sampled and rng is None and not positional:
+        raise ValueError("temperature > 0 requires an rng key or a "
+                         "seed (use temperature=0 for greedy "
+                         "decoding)")
+    if positional and rng is not None:
+        raise ValueError(
+            "pass either rng (split-chain schedule) or seed/keys "
+            "(position-keyed schedule), not both")
+    _check_temperature(temperature)
+    _check_top_p(top_p)
+    _check_top_k(top_k, model.cfg.vocab_size)
+    dev = model.device
+    prompt = _as_tokens(prompt, dev)
+    b, p_len = prompt.shape
+    if positional and keys is None:
+        keys = sample_stream_keys(seed, b, device=dev)
+    _check_spec_fits(((model, "target"), (draft_model, "draft")), p_len,
+                     max_new_tokens, k)
+    t_logits, t_cache = _prefill(model, prompt, chunk=prefill_chunk)
+    _, d_cache = _prefill(draft_model, prompt, chunk=prefill_chunk)
+    tk_, tp_ = (top_k or 0), (top_p or 0.0)
+    if positional:
+        keys = torch.as_tensor(keys, dtype=torch.int64, device=dev)
+        first = _sample_positional(t_logits, keys, 0, temperature, tk_,
+                                   tp_)
+    elif sampled:
+        rng, key = prng.split(_default_rng(rng, dev))
+        first = _sample(t_logits, key, temperature, top_k, top_p)
+    else:
+        first = torch.argmax(t_logits, dim=-1)
+    buf = torch.zeros((b, max_new_tokens + k), dtype=torch.long,
+                      device=dev)
+    buf[:, 0] = first
+    x, count = first, 1
+    while count < max_new_tokens:
+        consumed = p_len + count - 1       # tokens both caches hold
+        if sampled and not positional:
+            rng, r_draft, r_accept, r_res = prng.split(rng, 4)
+        d_toks, q_rows, tok = [], [], x
+        for j in range(k):
+            logits = extract_logits(draft_model(
+                tok[:, None], decode=True, decode_position=consumed + j,
+                cache=d_cache))[:, -1]
+            if positional:
+                tok, q = _spec_draft_row(logits, keys, count + j,
+                                         temperature, tk_, tp_)
+            elif sampled:
+                r_draft, sub = prng.split(r_draft)
+                q_logits = _modified_logits(logits, temperature, top_k,
+                                            top_p)
+                tok = prng.categorical(sub, q_logits)
+                q = torch.softmax(q_logits.float(), dim=-1)
+            else:
+                tok, q = torch.argmax(logits, dim=-1), None
+            d_toks.append(tok)
+            q_rows.append(q)
+        d_toks = torch.stack(d_toks, dim=1)                  # [B, k]
+        chunk = torch.cat([x[:, None], d_toks], dim=1)
+        t_all = extract_logits(model(chunk, decode=True,
+                                     decode_position=consumed,
+                                     cache=t_cache))         # [B, k+1, V]
+        if positional:
+            out_toks, c_rows, _ = _spec_verify_row(
+                t_all[:, :k], d_toks, torch.stack(q_rows, dim=1), keys,
+                count, temperature, tk_, tp_, k)
+            # Lockstep advance by the batch minimum; the tokens stay
+            # per-row exact (every draw is keyed by row and index).
+            c = int(c_rows.min())
+        elif sampled:
+            p_logits = _modified_logits(t_all[:, :k], temperature,
+                                        top_k, top_p)
+            p_rows = torch.softmax(p_logits.float(), dim=-1)  # [B, k, V]
+            q_rows = torch.stack(q_rows, dim=1)
+            px = p_rows.gather(-1, d_toks[..., None])[..., 0]
+            qx = q_rows.gather(-1, d_toks[..., None])[..., 0]
+            u = prng.uniform(r_accept, (b, k))
+            accept = u * qx < px
+            m_row = torch.cumprod(accept.long(), dim=1).sum(1)
+            c = min(int(m_row.min()) + 1, k)
+            # Residual resample at every position; only each row's
+            # first-rejection column is ever committed.
+            res = prng.categorical(
+                r_res, torch.log(torch.clamp_min(p_rows - q_rows, 0.0)
+                                 + 1e-20))
+            cols = torch.arange(k, device=dev)[None, :]
+            out_toks = torch.where(cols < m_row[:, None], d_toks, res)
+        else:
+            t_toks = torch.argmax(t_all, dim=-1)             # [B, k+1]
+            matches = d_toks == t_toks[:, :k]
+            m_row = torch.cumprod(matches.long(), dim=1).sum(1)
+            c = min(int(m_row.min()) + 1, k)
+            out_toks = t_toks[:, :k]
+        # A k-wide window at count; the next round overwrites past c.
+        buf[:, count:count + k] = out_toks
+        x = out_toks[:, c - 1]
+        _rollback_cache(t_cache, consumed + c)
+        _rollback_cache(d_cache, consumed + c)
+        count += c
+    new = buf[:, :max_new_tokens]
+    if eos_id is not None:
+        hit = torch.cumsum(torch.cumsum((new == eos_id).long(), dim=1),
+                           dim=1) > 1
+        new = torch.where(hit, torch.full_like(new, eos_id), new)
+    return torch.cat([prompt, new], dim=1)
+
+
+@torch.no_grad()
+def generate_beam(model, prompt, *, max_new_tokens: int,
+                  num_beams: int = 4, eos_id: Optional[int] = None,
+                  length_penalty: float = 1.0,
+                  prefill_chunk: Optional[int] = None) -> torch.Tensor:
+    """Beam search with the KV cache tiled per beam.  Returns the
+    highest-scoring sequence per row, [B, P + max_new_tokens]: scores
+    are summed token log-probs divided by ``len ** length_penalty``;
+    finished beams (eos) freeze their score and keep emitting eos.
+    ``num_beams=1`` is greedy search."""
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1; got "
+                         f"{max_new_tokens}")
+    if num_beams < 1:
+        raise ValueError(f"num_beams must be >= 1; got {num_beams}")
+    dev = model.device
+    prompt = _as_tokens(prompt, dev)
+    b, p_len = prompt.shape
+    max_pos = model.cfg.max_position
+    if p_len + max_new_tokens > max_pos:
+        raise ValueError(
+            f"prompt ({p_len}) + max_new_tokens ({max_new_tokens}) "
+            f"exceeds the model's max_position ({max_pos})")
+    first_logits, cache = _prefill(model, prompt, chunk=prefill_chunk)
+
+    def apply_step(cache, toks_flat, t):
+        out = model(toks_flat, decode=True, decode_position=p_len + t,
+                    cache=cache)
+        return extract_logits(out)[:, -1]
+
+    seq = _beam_loop(apply_step, cache, first_logits, b=b,
+                     max_new_tokens=max_new_tokens, num_beams=num_beams,
+                     eos_id=eos_id, length_penalty=length_penalty)
+    return torch.cat([prompt, seq], dim=1)
+
+
+def _beam_loop(apply_step, cache: KVCache, first_logits, *, b: int,
+               max_new_tokens: int, num_beams: int,
+               eos_id: Optional[int], length_penalty: float):
+    """Beam search over a prefilled batch-B cache: the cache is tiled to
+    B*K rows, b-major ([layers, B*K, cap, H, D]), and every step gathers
+    its rows by parent.  ``apply_step(cache, toks [B*K, 1], t) ->
+    logits [B*K, V]``.  Returns the generated tokens [B,
+    max_new_tokens]."""
+    k = num_beams
+    dev = first_logits.device
+    lp = torch.log_softmax(first_logits.float(), dim=-1)
+    vocab = lp.shape[-1]
+    scores, first = torch.topk(lp, k, dim=-1)                # [B, K]
+    cache.k = cache.k.repeat_interleave(k, dim=1)
+    cache.v = cache.v.repeat_interleave(k, dim=1)
+    done = (first == eos_id) if eos_id is not None \
+        else torch.zeros((b, k), dtype=torch.bool, device=dev)
+    # Per-beam generated length at finish (the length-penalty
+    # denominator); unfinished beams hold the full budget.
+    fin_len = torch.where(done, 1.0, float(max_new_tokens))
+    frozen = None
+    if eos_id is not None:
+        # A finished beam has exactly one continuation, eos at no cost:
+        # it competes but never forks.
+        frozen = torch.full((vocab,), float("-inf"), device=dev)
+        frozen[eos_id] = 0.0
+    tok, toks, parents = first, [], []
+    rows = torch.arange(b, device=dev)[:, None] * k
+    for t in range(max_new_tokens - 1):
+        logits = apply_step(cache, tok.reshape(b * k, 1), t)
+        lp = torch.log_softmax(logits.float(), dim=-1).reshape(b, k, vocab)
+        if frozen is not None:
+            lp = torch.where(done[..., None], frozen, lp)
+        cand = scores[..., None] + lp                         # [B, K, V]
+        scores, flat = torch.topk(cand.reshape(b, k * vocab), k, dim=-1)
+        parent = flat // vocab
+        tok = flat % vocab
+        flat_parent = (rows + parent).reshape(-1)
+        cache.k = cache.k.index_select(1, flat_parent)
+        cache.v = cache.v.index_select(1, flat_parent)
+        done = done.gather(1, parent)
+        fin_len = fin_len.gather(1, parent)
+        if eos_id is not None:
+            newly = ~done & (tok == eos_id)
+            # The token of loop step t is generated token t + 2.
+            fin_len = torch.where(newly, float(t + 2), fin_len)
+            done = done | newly
+        toks.append(tok)
+        parents.append(parent)
+    # Backtrack the best beam from the last step to the first.
+    beam = torch.argmax(scores / fin_len ** length_penalty, dim=-1)
+    rev = []
+    for tok_t, parent_t in zip(reversed(toks), reversed(parents)):
+        rev.append(tok_t.gather(1, beam[:, None])[:, 0])
+        beam = parent_t.gather(1, beam[:, None])[:, 0]
+    first_tok = first.gather(1, beam[:, None])[:, 0]
+    return torch.stack([first_tok] + rev[::-1], dim=1)

@@ -180,8 +180,9 @@ class GPT2Model(nn.Module):
                 cache: Optional[KVCache] = None):
         """Logits [B, S, V] in f32.  ``train`` is the reference's flag:
         GPT-2 has no dropout, so it changes nothing.  ``decode_position``
-        is an int, or a [B] tensor with a slot cache (one token per row,
-        each at its own position)."""
+        is an int, or a [B] tensor with a slot cache (each row's chunk at
+        its own position: one decode token, or a speculative round's
+        K + 1 verify tokens)."""
         del train
         if decode and decode_position is None:
             # GPT-2's learned wpe needs the absolute position — omitting

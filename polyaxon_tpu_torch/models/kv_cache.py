@@ -11,7 +11,7 @@ stores its ``num_kv_heads``) and the shared write index.
 SLOT-INDEXED decode (the serving engine's pool, ``serving/slots.py``):
 a cache whose ``positions`` is a [B] long tensor on the device holds B
 independent requests, row b at its own absolute position
-``positions[b]`` — the port's counterpart of the reference stepping
+``positions[b]`` (a chunk of S tokens at ``positions[b] + [0, S)``) — the port's counterpart of the reference stepping
 per-slot ``cache_index`` variables under ``jax.vmap``.  Every read of
 the position is a tensor operation, so the step runs inside a CUDA
 graph with the positions read from a device buffer at replay time.
@@ -42,8 +42,8 @@ class KVCache:
 
     The index advances once per model forward (every layer appends the
     same chunk), not once per layer.  ``positions`` ([B] long, on the
-    cache's device) makes it a SLOT cache: row b appends its one token
-    at ``positions[b]``, and ``index`` is neither read nor advanced —
+    cache's device) makes it a SLOT cache: row b appends its chunk at
+    ``positions[b]``, and ``index`` is neither read nor advanced —
     the owner (the slot pool) advances the positions."""
     k: torch.Tensor
     v: torch.Tensor
@@ -75,7 +75,7 @@ def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None,
 
     ``rotate``: optional ``fn(positions, k) -> k`` applied to the new
     keys BEFORE the write (RoPE models store rotated keys); the
-    returned ``positions`` ([S] here, [B, 1] on a slot cache) let the
+    returned ``positions`` ([S] here, [B, S] on a slot cache) let the
     caller rotate q to match.
 
     Returns ``(k_full, v_full, mask, positions)``; the caller advances
@@ -105,29 +105,37 @@ def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None,
 
 def append_kv_slots(cache: LayerCache, k, v, window: Optional[int] = None,
                     rotate: Optional[Callable] = None):
-    """Slot-indexed append: row b's one new token ([B, 1, H, D]) is
-    rotated at ``cache.positions[b]`` (given ``rotate``) and written
-    there — a per-row scatter, no host read of any position — and the
-    returned mask ([B, 1, 1, cap]) admits key j for row b iff
-    ``j <= positions[b]`` (clipped to ``window`` when given).  Positions past ``cap`` are the caller's
-    to prevent (the engine validates every request's budget and parks
-    idle rows at 0); checking here would need a host sync."""
+    """Slot-indexed append: row b's S new tokens ([B, S, H, D]) sit at
+    ``cache.positions[b] + [0, S)``.  They are rotated there (given
+    ``rotate``) and written there, a per-row scatter with no host read
+    of any position, and the returned mask ([B, 1, S, cap]) admits key
+    j to query i of row b iff ``j <= positions[b] + i`` (clipped to
+    ``window`` when given).  S = 1 is a decode step; S = K + 1 is a
+    speculative round's verify chunk, each row at its own position.
+    Positions past ``cap`` are the caller's to prevent (the engine
+    validates every request's budget, spec slack included, and parks
+    idle rows at 0); checking here would need a host sync.
+
+    Speculative ROLLBACK is the owner's positions rewind: entries past
+    a rewound position stay, masked by absolute position, and the next
+    chunk overwrites them before any of its queries can admit them
+    (the reference's contract, ``polyaxon_tpu/models/kv_cache.py``)."""
     b, s, h, d = k.shape
-    if s != 1:
-        raise ValueError(f"slot-indexed decode appends one token per row;"
-                         f" got {s}")
     cap = cache.k.shape[1]
     pos = cache.positions
+    # [B, S] absolute positions (one token: the positions themselves).
+    pos_q = pos[:, None] if s == 1 else \
+        pos[:, None] + torch.arange(s, device=k.device)
     if rotate is not None:
-        k = rotate(pos[:, None], k)
-    index = pos.view(b, 1, 1).expand(b, 1, h * d)
-    cache.k.view(b, cap, h * d).scatter_(1, index, k.reshape(b, 1, h * d))
-    cache.v.view(b, cap, h * d).scatter_(1, index, v.reshape(b, 1, h * d))
+        k = rotate(pos_q, k)
+    index = pos_q[:, :, None].expand(b, s, h * d)
+    cache.k.view(b, cap, h * d).scatter_(1, index, k.reshape(b, s, h * d))
+    cache.v.view(b, cap, h * d).scatter_(1, index, v.reshape(b, s, h * d))
     keys = torch.arange(cap, device=k.device)
-    valid = keys[None, :] <= pos[:, None]  # [B, cap]
+    valid = keys <= pos_q[:, :, None]  # [B, S, cap]
     if window is not None:
-        valid &= keys[None, :] >= pos[:, None] - window
-    return cache.k, cache.v, valid[:, None, None, :], pos[:, None]
+        valid &= keys >= pos_q[:, :, None] - window
+    return cache.k, cache.v, valid[:, None], pos_q
 
 
 # -- paged storage (serving/paged.py) ---------------------------------------

@@ -80,8 +80,10 @@ def fold_in(key: torch.Tensor,
     ``(0, data mod 2**32)`` under ``key``.  ``data`` may be a tensor
     broadcast against the key's batch dims (one index per row)."""
     if not isinstance(data, torch.Tensor):
-        data = torch.tensor(int(data) & M32, dtype=torch.int64,
-                            device=key.device)
+        # A fill on the key's device, not a host-to-device copy: the
+        # fold stays capturable in a CUDA graph.
+        data = torch.full((), int(data) & M32, dtype=torch.int64,
+                          device=key.device)
     else:
         data = data.to(torch.int64) & M32
     y1, y2 = threefry2x32(key[..., 0], key[..., 1],

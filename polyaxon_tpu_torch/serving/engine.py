@@ -59,8 +59,20 @@ Every CUDA call of the engine (prefill pieces, the insert copy, decode
 steps) runs on that thread under ``device_lock``; the server's prefix
 paths take the same lock on handler threads.
 
-Not ported yet, and refused by name: speculative streams and meshes
-(ROADMAP Queue 1).
+SPECULATIVE streams (``sampling.spec_k > 0``, with a ``draft_model``):
+their prompt prefills through both models, and whenever one is
+resident the pool steps with the speculative program (slots.py; window
+K = the largest resident ``spec_k``): each spec slot commits its own
+accepted prefix a round, greedy and sampled co-tenants one token, and
+every draw is position-keyed per (token index, lane), so a speculative
+response equals ``generate_speculative``'s seed mode (greedy: greedy
+``generate``) under any co-tenancy.  A spec-capable pool leaves
+``spec_k_cap`` positions of slack at every request's cache end (its
+paged reservations carry it too).  Quarantine, SLO preemption and crash
+recovery cover spec slots like plain ones: a resumed spec stream
+re-prefills both caches.
+
+Not ported yet, and refused by name: meshes (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -85,9 +97,13 @@ from .scheduler import (AdmissionQueue, DeadlineExceeded, PRIORITIES,
                         RequestGroup, SamplingSpec, SchedulerPolicy,
                         ShedError, Stream, terminal_status)
 from .slots import SlotKVManager
-from .telemetry import ENGINE_PID, Telemetry
+from .telemetry import ENGINE_PID, Histogram, Telemetry
 
-__all__ = ["DecodeEngine", "QueueFullError"]
+__all__ = ["DecodeEngine", "QueueFullError", "SPEC_ACCEPT_BUCKETS"]
+
+# Acceptance-rate histogram bucket upper bounds (le) for completed
+# speculative requests; the last implicit bucket is +Inf.
+SPEC_ACCEPT_BUCKETS = (0.1, 0.25, 0.5, 0.75, 0.9, 1.0)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -104,6 +120,8 @@ def _pow2_floor(n: int) -> int:
 
 
 def _kind_of(sampling: SamplingSpec) -> str:
+    if sampling.speculative:
+        return "speculative"
     return "sampled" if sampling.sampled else "greedy"
 
 
@@ -118,10 +136,15 @@ class DecodeEngine:
                  retry_policy: Optional[RetryPolicy] = None):
         if mesh is not None:
             raise _not_ported("a serving mesh", "meshes")
-        if draft_model is not None:
-            raise _not_ported("a draft model (speculative streams)",
-                              "beam and speculative decoding")
+        if draft_model is not None \
+                and draft_model.cfg.vocab_size != model.cfg.vocab_size:
+            raise ValueError(
+                f"draft model vocab ({draft_model.cfg.vocab_size}) must "
+                f"equal the target's ({model.cfg.vocab_size})")
         self.model = model
+        # Draft model: enables SPECULATIVE streams (spec_k > 0); the
+        # pool holds a second cache for it.
+        self.draft_model = draft_model
         self.policy = policy or SchedulerPolicy()
         # Telemetry ring shared with the owning server (request spans
         # and engine step records in ONE /trace timeline); standalone
@@ -151,11 +174,13 @@ class DecodeEngine:
                 max_position=model.cfg.max_position,
                 decode_window=self.policy.decode_window,
                 lazy=self.policy.kv_lazy, sentinel=sentinel,
-                max_window=max_window)
+                max_window=max_window, draft_model=draft_model,
+                spec_k_cap=self.policy.spec_k_cap)
         else:
             self.slots = SlotKVManager(
                 model, self.policy.n_slots, sentinel=sentinel,
-                max_window=max_window)
+                max_window=max_window, draft_model=draft_model,
+                spec_k_cap=self.policy.spec_k_cap)
         # Paged page-pressure relief hook: called with a page count
         # when an admit-ready stream (or a lazy growth) is blocked on
         # free pages; the server wires it to prefix-cache LRU eviction
@@ -174,6 +199,7 @@ class DecodeEngine:
         self.admitted_total = 0
         self.admitted_greedy_total = 0
         self.admitted_sampled_total = 0
+        self.admitted_spec_total = 0
         self.evicted_total = 0
         self.decode_steps_total = 0
         self.decode_dispatches_total = 0
@@ -181,6 +207,14 @@ class DecodeEngine:
         self.completed_total = 0
         self.completed_greedy_total = 0
         self.completed_sampled_total = 0
+        self.completed_spec_total = 0
+        # Speculative rounds, drafted and accepted tokens, and the
+        # per-request acceptance-rate histogram (accepted / drafted; one
+        # completed request is one observation).
+        self.spec_rounds_total = 0
+        self.spec_drafted_total = 0
+        self.spec_accepted_total = 0
+        self.spec_accept = Histogram(SPEC_ACCEPT_BUCKETS)
         # Paged pools: submit-time can-never-fit sheds, lazy-growth
         # exhaustion preemptions, and the token-identical resumes they
         # cause.
@@ -283,9 +317,6 @@ class DecodeEngine:
         request whose KV budget can NEVER fit the page pool, while one
         that only does not fit now queues until evictions free
         pages."""
-        if sampling is not None and sampling.speculative:
-            raise _not_ported("speculative decoding",
-                              "beam and speculative decoding")
         if priority is None:
             priority = self.policy.default_priority
         if priority not in PRIORITIES:
@@ -318,6 +349,37 @@ class DecodeEngine:
             raise ValueError(
                 f"prompt ({p_len}) + max_new_tokens ({new}) exceeds "
                 f"the model's max_position ({max_pos})")
+        if self.draft_model is not None:
+            # A spec-capable pool verifies up to spec_k_cap positions
+            # past every resident's last committed token (and drafts
+            # there): each request leaves that slack in both models.
+            slack = self.policy.spec_k_cap - 1
+            for label, m in (("model", self.model),
+                             ("draft model", self.draft_model)):
+                cap = m.cfg.max_position
+                if p_len + new + slack > cap:
+                    raise ValueError(
+                        f"prompt ({p_len}) + max_new_tokens ({new}) + "
+                        f"spec_k_cap-1 ({slack}) exceeds the {label}'s "
+                        f"max_position ({cap}) (a speculative pool's "
+                        f"verify chunks are {slack + 2} wide)")
+        if sampling is not None and sampling.speculative:
+            if self.draft_model is None:
+                raise ValueError(
+                    "speculative request on an engine without a "
+                    "draft model")
+            if sampling.spec_k > self.policy.spec_k_cap:
+                # Co-tenants reserved slack for at most spec_k_cap-wide
+                # verify chunks.
+                raise ValueError(
+                    f"spec_k {sampling.spec_k} exceeds the engine's "
+                    f"spec_k_cap {self.policy.spec_k_cap}")
+            if prefix is not None:
+                # The stored prefix holds the TARGET's prefill only.
+                raise ValueError(
+                    "speculative requests cannot seed from a prefix "
+                    "cache entry (the draft cache has no stored "
+                    "prefill)")
         if self.paged:
             need = self._kv_tokens_needed(p_len, new)
             if need > self.slots.capacity_tokens:
@@ -549,9 +611,14 @@ class DecodeEngine:
     # -- admission gates -------------------------------------------------
 
     def _kv_tokens_needed(self, p_len: int, new: int) -> int:
-        """A stream's FULL KV reservation: prompt + budget (the port
-        has no speculative write slack yet)."""
-        return p_len + new
+        """A stream's FULL KV reservation: prompt + budget, plus the
+        speculative write slack every co-tenant of a spec-capable pool
+        leaves (a round's verify chunk writes up to spec_k_cap
+        positions past the last committed token, for every
+        resident)."""
+        slack = self.policy.spec_k_cap \
+            if self.draft_model is not None else 0
+        return p_len + new + slack
 
     def _kv_admit_tokens(self, stream: Stream) -> int:
         """The token span admission must have pages for: the full
@@ -840,6 +907,7 @@ class DecodeEngine:
                     stream.pf_toks.shape[1])
                 stream.filled = 0
                 stream.cache = None
+                stream.d_cache = None
                 stream.logits = None
                 stream.pf_done = False
                 stream.blocked_t = None
@@ -919,6 +987,12 @@ class DecodeEngine:
                     logits, cache = G.prefill(
                         self.model, toks, cache=stream.cache,
                         position=stream.filled)
+                    if stream.sampling.speculative:
+                        # The DRAFT prefills the same pieces (chunked
+                        # prefill is exact per model).
+                        _, stream.d_cache = G.prefill(
+                            self.draft_model, toks, cache=stream.d_cache,
+                            position=stream.filled)
                     self._sync()
             except Exception as e:
                 if is_device_lost(e):
@@ -1028,6 +1102,7 @@ class DecodeEngine:
         stream.logits = None
         if not resumed and stream.done():   # new == 1, or an instant eos
             stream.cache = None
+            stream.d_cache = None
             self._release_stream_kv(stream)  # never mapped a table
             self.slots.release(slot)
             stream.slot = slot          # zero-length decode span
@@ -1036,6 +1111,15 @@ class DecodeEngine:
             self._count_admitted(spec, stream.group.priority)
             self.evicted_total += 1
             return
+        if spec.speculative and stream.base_key is None:
+            # A greedy spec stream drew token 0 without the PRNG, but
+            # its slot still carries the base key (the sampled lanes
+            # are dead at temperature 0): every spec slot's key is
+            # fold_in(PRNGKey(seed), row).
+            from .. import prng
+
+            stream.base_key = prng.fold_in(prng.PRNGKey(spec.seed),
+                                           stream.row).numpy()
         kw = {}
         if self.paged:
             # Ownership of the pinned shared pages passes to insert (it
@@ -1061,7 +1145,8 @@ class DecodeEngine:
                     base_key=stream.base_key,
                     next_index=len(stream.out),
                     temperature=spec.temperature, top_k=spec.top_k,
-                    top_p=spec.top_p, **kw)
+                    top_p=spec.top_p, draft_cache=stream.d_cache,
+                    spec_k=spec.spec_k, **kw)
         except PageExhausted as pe:
             # Pages went between the gate and the insert: a transient
             # shortage, not a failure — back to the front of its class
@@ -1088,6 +1173,7 @@ class DecodeEngine:
             self._fail_group(stream.group, e)
             return
         stream.cache = None             # the pool owns the KV now
+        stream.d_cache = None
         stream.slot = slot
         self._resident[slot] = stream
         if resumed:
@@ -1100,7 +1186,9 @@ class DecodeEngine:
     def _count_admitted(self, spec: SamplingSpec, priority: str) -> None:
         self.admitted_total += 1
         self.admitted_by_class[priority] += 1
-        if spec.sampled:
+        if spec.speculative:
+            self.admitted_spec_total += 1
+        elif spec.sampled:
             self.admitted_sampled_total += 1
         else:
             self.admitted_greedy_total += 1
@@ -1142,7 +1230,13 @@ class DecodeEngine:
                for s in self._resident.values()):
             # Deadlines are delivered at boundaries only.
             return 1
-        rem = min(s.new - len(s.out) for s in self._resident.values())
+        # Budget horizon in ROUNDS: a spec slot commits up to spec_k
+        # tokens a round, so ``rem // spec_k`` rounds never take a slot
+        # past its budget (nor its verify chunk past the validated
+        # capacity).
+        rem = min((s.new - len(s.out))
+                  // (s.sampling.spec_k if s.sampling.speculative else 1)
+                  for s in self._resident.values())
         return _pow2_floor(min(cap, max(1, rem)))
 
     def _evict_requeue(self, slot: int, stream: Stream, why: str,
@@ -1257,12 +1351,19 @@ class DecodeEngine:
         co-tenants ride its argmax lane); an all-greedy pool keeps the
         argmax-only program."""
         window = self._pick_window()
+        sampled = any(s.sampling.sampled
+                      for s in self._resident.values())
+        # Any speculative resident switches the pool to the spec
+        # program (plain co-tenants ride its one-token lane).
+        spec_ks = [s.sampling.spec_k for s in self._resident.values()
+                   if s.sampling.speculative]
+        if spec_ks:
+            self._decode_step_spec(window, max(spec_ks), sampled)
+            return
         if self.paged and self.slots.lazy \
                 and not self._ensure_lazy_growth(window):
             # Exhaustion preemptions consumed this boundary.
             return
-        sampled = any(s.sampling.sampled
-                      for s in self._resident.values())
         occupancy = len(self._resident)
         t0 = time.perf_counter()
 
@@ -1298,6 +1399,70 @@ class DecodeEngine:
                       kind="sampled" if sampled else "plain",
                       window=window, occupancy=occupancy,
                       batch=self.slots.n_slots, tokens=emitted,
+                      device_s=round(self.slots.last_step_device_s, 6),
+                      **({"pages_free": self.slots.free_page_count(),
+                          "pages_total": self.slots.n_pages}
+                         if self.paged else {}))
+
+    def _decode_step_spec(self, window: int, K: int,
+                          sampled: bool) -> None:
+        """Advance the pool by ``window`` fused SPECULATIVE rounds of
+        draft width ``K``: each spec slot commits its own accepted
+        prefix a round, plain co-tenants exactly one token; budgets
+        count committed tokens, and a stream stops consuming at its own
+        eos/budget (later tokens are discardable, as in the plain
+        window)."""
+        if self.paged and self.slots.lazy \
+                and not self._ensure_lazy_growth(window * K + 1):
+            # A spec window writes up to window*K+1 positions past the
+            # last committed token: grow (or preempt) for all of it.
+            return
+        occupancy = len(self._resident)
+        t0 = time.perf_counter()
+
+        def dispatch():
+            with self.device_lock:
+                return self.slots.step_spec(window, K, sampled)
+
+        out = self._dispatch_step(dispatch)
+        if out is None:
+            return
+        toks, commits, accepts = out
+        t1 = time.perf_counter()
+        self.decode_steps_total += window
+        self.decode_dispatches_total += 1
+        self.spec_rounds_total += window
+        emitted = accepted = 0
+        for slot, stream in list(self._resident.items()):
+            spec = stream.sampling.speculative
+            for w in range(window):
+                if spec:
+                    a = int(accepts[w, slot])
+                    stream.spec_rounds += 1
+                    stream.spec_drafted += stream.sampling.spec_k
+                    stream.spec_accepted += a
+                    self.spec_drafted_total += stream.sampling.spec_k
+                    self.spec_accepted_total += a
+                    accepted += a
+                for j in range(int(commits[w, slot])):
+                    stream.out.append(int(toks[w, slot, j]))
+                    emitted += 1
+                    if stream.done():
+                        break
+                if stream.done():
+                    break
+            if stream.done():
+                del self._resident[slot]
+                self.slots.release(slot)
+                self.evicted_total += 1
+                self._note_freed(stream, "complete")
+                self._complete(stream)
+                stream.slot = None
+        self.step_device_s_total += self.slots.last_step_device_s
+        self.step_wall_s_total += t1 - t0
+        self.tel.step("step", t0, t1, kind="spec", window=window, k=K,
+                      occupancy=occupancy, batch=self.slots.n_slots,
+                      tokens=emitted, accepted=accepted,
                       device_s=round(self.slots.last_step_device_s, 6),
                       **({"pages_free": self.slots.free_page_count(),
                           "pages_total": self.slots.n_pages}
@@ -1435,12 +1600,20 @@ class DecodeEngine:
     def _complete(self, stream: Stream) -> None:
         group = stream.group
         stream.t_done = time.perf_counter()
+        if stream.sampling.speculative and stream.spec_drafted:
+            # One acceptance-rate observation per completed stream.
+            self.spec_accept.observe(
+                stream.spec_accepted / stream.spec_drafted)
         if stream.t_admit is not None:
             args = {"row": stream.row, "slot": stream.slot,
                     "tokens": len(stream.out)}
             if stream.preempts or stream.resumes:
                 args.update(preempts=stream.preempts,
                             resumes=stream.resumes)
+            if stream.sampling.speculative:
+                args.update(spec_rounds=stream.spec_rounds,
+                            spec_drafted=stream.spec_drafted,
+                            spec_accepted=stream.spec_accepted)
             self._emit(stream, "decode", stream.t_admit, stream.t_done,
                        **args)
         self._emit_instant(stream, "complete", stream.t_done,
@@ -1448,7 +1621,9 @@ class DecodeEngine:
         group.complete_row(stream)
         if group.event.is_set() and group.error is None:
             self.completed_total += 1
-            if group.sampling.sampled:
+            if group.sampling.speculative:
+                self.completed_spec_total += 1
+            elif group.sampling.sampled:
                 self.completed_sampled_total += 1
             else:
                 self.completed_greedy_total += 1
@@ -1488,7 +1663,7 @@ class DecodeEngine:
         # streams form a cycle that only the collector frees.
         group.on_prefilled = None
         for s in group.streams:
-            s.cache = s.logits = None
+            s.cache = s.d_cache = s.logits = None
         h = self.history
         if group.rid is None:
             return
@@ -1530,6 +1705,11 @@ class DecodeEngine:
                             f"{group.error}")[:300]
         if group.prefix_info:
             rec["prefix"] = dict(group.prefix_info)
+        if group.sampling.speculative:
+            rec["spec"] = {
+                "rounds": sum(s.spec_rounds for s in group.streams),
+                "drafted": sum(s.spec_drafted for s in group.streams),
+                "accepted": sum(s.spec_accepted for s in group.streams)}
         if ledger is not None:
             rec["phases"] = ledger
         rec["streams"] = [
@@ -1620,6 +1800,7 @@ class DecodeEngine:
             "admitted_total": self.admitted_total,
             "admitted_greedy_total": self.admitted_greedy_total,
             "admitted_sampled_total": self.admitted_sampled_total,
+            "admitted_spec_total": self.admitted_spec_total,
             "evicted_total": self.evicted_total,
             "decode_steps_total": self.decode_steps_total,
             "decode_dispatches_total": self.decode_dispatches_total,
@@ -1627,6 +1808,11 @@ class DecodeEngine:
             "completed_total": self.completed_total,
             "completed_greedy_total": self.completed_greedy_total,
             "completed_sampled_total": self.completed_sampled_total,
+            "completed_spec_total": self.completed_spec_total,
+            "spec_rounds_total": self.spec_rounds_total,
+            "spec_drafted_total": self.spec_drafted_total,
+            "spec_accepted_total": self.spec_accepted_total,
+            **self._spec_accept_stats(),
             "rejected_total": self.queue.rejected,
             "cancelled_total": self.cancelled_total,
             "expired_total": self.expired_total,
@@ -1672,4 +1858,13 @@ class DecodeEngine:
             # window's first eager run on the CPU), a hit a replay;
             # after warm-up the misses must stay put.
             **self.sentinel.snapshot(),
+        }
+
+    def _spec_accept_stats(self) -> Dict[str, Any]:
+        counts, total, n = self.spec_accept.snapshot()
+        return {
+            "spec_accept_buckets": list(self.spec_accept.buckets),
+            "spec_accept_hist": counts,
+            "spec_accept_sum": round(total, 6),
+            "spec_accept_count": n,
         }

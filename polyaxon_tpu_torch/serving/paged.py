@@ -47,10 +47,18 @@ through), so a page with refcount > 1 is never rewritten.
 ``materialize`` gathers stored pages back into a contiguous B=1 cache,
 what a prefix hit extends with its suffix.
 
+SPECULATIVE rounds (``step_spec``): with a draft model the pool holds a
+DRAFT page pool of the same page geometry, and a slot's draft pages
+carry the same ids as its target pages, so one table gathers both
+views and one write table scatters both (``insert(...,
+draft_cache=)``).  Every reservation and the table width carry the spec
+slack (a round's verify writes up to ``spec_k_cap`` positions past the
+last committed token), and the dirty window of a spec dispatch covers
+``window * K + 1`` positions.
+
 Not ported yet, and refused by name: the host spill tier and its wire
 format (``pack_spilled``/``unpack_spilled``, ``spill_pages``,
-``rematerialize``), the speculative ``step_spec`` and meshes (ROADMAP
-Queue 1).
+``rematerialize``) and meshes (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -106,7 +114,8 @@ class PagedSlotKVManager(StepPool):
     def __init__(self, model, n_slots: int, *, page_tokens: int = 64,
                  n_pages: Optional[int] = None, max_position: int,
                  decode_window: int = 8, lazy: bool = False,
-                 sentinel=None, max_window: Optional[int] = None):
+                 sentinel=None, max_window: Optional[int] = None,
+                 draft_model=None, spec_k_cap: int = 4):
         if page_tokens < 8:
             raise ValueError(
                 f"kv_page_tokens must be >= 8; got {page_tokens}")
@@ -115,7 +124,8 @@ class PagedSlotKVManager(StepPool):
                 f"paged KV needs the model's max_position; got "
                 f"{max_position}")
         super().__init__(model, n_slots, sentinel=sentinel,
-                         max_window=max_window or decode_window)
+                         max_window=max_window or decode_window,
+                         draft_model=draft_model, spec_k_cap=spec_k_cap)
         self.page_tokens = int(page_tokens)
         self.max_position = int(max_position)
         pt = self.page_tokens
@@ -132,13 +142,21 @@ class PagedSlotKVManager(StepPool):
         self.scratch0 = self.n_pages
         self.trash = self.n_pages + self.n_slots
         self.total_pages = self.n_pages + self.n_slots + 1
-        # The widest span one dispatch writes (no speculative rounds in
-        # this port yet): its window, plus the token it feeds.  It is
-        # also what a lazy admission reserves past the prompt.
-        self._span_cap = max(1, int(decode_window)) + 1
+        # The widest span one dispatch writes: its window plus the token
+        # it feeds, and with a draft model a spec window's rounds
+        # (each commits up to spec_k_cap tokens and verifies
+        # spec_k_cap + 1 wide).  It is also what a lazy admission
+        # reserves past the prompt.
+        spec = int(spec_k_cap) if draft_model is not None else 1
+        self._span_cap = max(1, int(decode_window)) * spec + 1
         self._n_dirty_cap = self._n_dirty(self._span_cap)
-        need_cap = self.max_pages_slot
-        self.table_width = _pow2ceil(need_cap + self._n_dirty_cap)
+        # Table width: the largest reservation (max_position plus the
+        # spec slack) and the dirty-window margin, so d0 + n_dirty
+        # always lands inside the table.
+        self._need_cap = self.pages_needed(
+            self.max_position
+            + (int(spec_k_cap) if draft_model is not None else 0))
+        self.table_width = _pow2ceil(self._need_cap + self._n_dirty_cap)
 
         # -- page accounting (under _page_lock) ------------------------
         self._page_lock = threading.Lock()
@@ -170,6 +188,8 @@ class PagedSlotKVManager(StepPool):
         self._v: Optional[torch.Tensor] = None
         self._view_k: Optional[torch.Tensor] = None
         self._view_v: Optional[torch.Tensor] = None
+        self._dk: Optional[torch.Tensor] = None     # the draft's pools
+        self._dv: Optional[torch.Tensor] = None
 
     # -- page accounting ------------------------------------------------
 
@@ -311,26 +331,31 @@ class PagedSlotKVManager(StepPool):
     def _pad_class(self, n_pages: int) -> int:
         return min(self.table_width, _pow2ceil(max(1, n_pages)))
 
-    def _ensure_pool(self, cache) -> None:
-        """Allocate the page pools from the FIRST prefilled cache
-        ([L, 1, cap, H, D]): [L, pages + scratch, pt, H, D]
-        keys and values, the gathered-view buffer (one flat buffer, the
-        widest class's size: every class views its prefix, so each has
-        one fixed address) and the static step buffers."""
-        if self._k is not None:
-            return
+    def _alloc_pool(self, cache):
+        """Page pools of a model's prefilled cache ([L, 1, cap, H, D]):
+        [L, pages + scratch + trash, pt, H, D] keys and values, and
+        the flat gathered-view buffers (the widest class's size: every
+        class views its prefix, so each has one fixed address)."""
         leaf = cache.k[:, 0].shape                  # [L, cap, H, D]
         shape = paged_pool_shape(leaf, 1, self.total_pages,
                                  self.page_tokens)
         dev = cache.k.device
-        self._k = torch.zeros(shape, dtype=cache.k.dtype, device=dev)
-        self._v = torch.zeros(shape, dtype=cache.v.dtype, device=dev)
-        p_max = self._pad_class(max(self.max_pages_slot,
-                                    self._n_dirty_cap))
+        p_max = self._pad_class(max(self._need_cap, self._n_dirty_cap))
         n = leaf[0] * self.n_slots * p_max * self.page_tokens \
             * int(np.prod(leaf[2:]))
-        self._view_k = torch.zeros(n, dtype=cache.k.dtype, device=dev)
-        self._view_v = torch.zeros(n, dtype=cache.v.dtype, device=dev)
+        return (torch.zeros(shape, dtype=cache.k.dtype, device=dev),
+                torch.zeros(shape, dtype=cache.v.dtype, device=dev),
+                torch.zeros(n, dtype=cache.k.dtype, device=dev),
+                torch.zeros(n, dtype=cache.v.dtype, device=dev))
+
+    def _ensure_pool(self, cache) -> None:
+        """Allocate the page pools from the FIRST prefilled cache, with
+        the page tables' device twins and the static step buffers."""
+        if self._k is not None:
+            return
+        self._k, self._v, self._view_k, self._view_v = \
+            self._alloc_pool(cache)
+        dev = cache.k.device
         self._table_buf = torch.zeros(
             (self.n_slots, self.table_width), dtype=torch.long,
             device=dev)
@@ -339,13 +364,23 @@ class PagedSlotKVManager(StepPool):
                                    device=dev)
         self._alloc_step_buffers(dev)
 
-    def _view_buffers(self, P: int):
+    def _ensure_draft_pool(self, cache) -> None:
+        """The DRAFT's page pools, the same page geometry as the
+        target's (one table addresses both), from the first draft
+        prefill."""
+        if self._dk is None:
+            self._dk, self._dv, self._view_dk, self._view_dv = \
+                self._alloc_pool(cache)
+
+    def _view_buffers(self, P: int, draft: bool = False):
         """The gather targets of class ``P``: contiguous prefixes of
         the flat view buffers, [L, S * P, pt, H, D]."""
-        L, _, pt, h, d = self._k.shape
+        pool, vk, vv = (self._dk, self._view_dk, self._view_dv) if draft \
+            else (self._k, self._view_k, self._view_v)
+        L, _, pt, h, d = pool.shape
         shape = (L, self.n_slots * P, pt, h, d)
         n = int(np.prod(shape))
-        return self._view_k[:n].view(shape), self._view_v[:n].view(shape)
+        return vk[:n].view(shape), vv[:n].view(shape)
 
     # -- insert / prefix-store scatter -------------------------------------
 
@@ -359,18 +394,24 @@ class PagedSlotKVManager(StepPool):
         return tg
 
     def scatter_cache(self, cache, ids: Sequence[int],
-                      n_shared: int = 0) -> None:
+                      n_shared: int = 0, *, draft: bool = False) -> None:
         """Write a contiguous B=1 cache's first ``len(ids)`` pages into
         pool pages ``ids`` (eager, outside any graph); the first
         ``n_shared`` already hold the same content and go to the trash
-        page instead.  Device work: callers hold the device lock."""
-        self._ensure_pool(cache)
+        page instead.  ``draft``: into the draft's pools.  Device work:
+        callers hold the device lock."""
+        if draft:
+            self._ensure_draft_pool(cache)
+            pools = (self._dk, self._dv)
+        else:
+            self._ensure_pool(cache)
+            pools = (self._k, self._v)
         n = len(ids)
         pt = self.page_tokens
         targets = torch.as_tensor(self._write_targets(ids, n_shared),
-                                  device=self._k.device)
+                                  device=pools[0].device)
         with torch.no_grad():
-            for pool, src in ((self._k, cache.k), (self._v, cache.v)):
+            for pool, src in zip(pools, (cache.k, cache.v)):
                 leaf = src[:, 0, :n * pt]            # [L, <=n*pt, H, D]
                 if leaf.shape[1] < n * pt:
                     pad = leaf.new_zeros((leaf.shape[0], n * pt
@@ -383,7 +424,7 @@ class PagedSlotKVManager(StepPool):
     def insert(self, slot: int, cache, first_token: int,
                position: int, *, base_key=None, next_index: int = 1,
                temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 0.0,
+               top_p: float = 0.0, draft_cache=None, spec_k: int = 0,
                total_tokens: Optional[int] = None,
                shared_pages: Sequence[int] = ()) -> None:
         """Admit a prefilled request: reserve its pages, build its
@@ -396,7 +437,9 @@ class PagedSlotKVManager(StepPool):
         ``admit_tokens`` and records the budget as the growth cap.
         ``shared_pages`` are pinned prefix-page ids whose references
         this call TAKES OWNERSHIP of (released with the rest at slot
-        release, or here on failure)."""
+        release, or here on failure).  A speculative stream's
+        ``draft_cache`` goes into the draft pool at the same page
+        ids."""
         if total_tokens is None:
             total_tokens = self.max_position
         n_total = self.pages_needed(total_tokens)
@@ -416,6 +459,9 @@ class PagedSlotKVManager(StepPool):
         ids = shared + priv
         try:
             self.scatter_cache(cache, ids, n_shared=len(shared))
+            if draft_cache is not None:
+                self.scatter_cache(draft_cache, ids, n_shared=len(shared),
+                                   draft=True)
         except BaseException:
             self.unpin(ids)
             raise
@@ -427,7 +473,7 @@ class PagedSlotKVManager(StepPool):
         self._slot_need[slot] = n_need
         self._slot_budget[slot] = n_total
         self._arm(slot, first_token, position, base_key, next_index,
-                  temperature, top_k, top_p)
+                  temperature, top_k, top_p, spec_k)
 
     # -- lazy growth (engine thread, step boundaries) --------------------
 
@@ -505,10 +551,6 @@ class PagedSlotKVManager(StepPool):
         raise _not_ported("the host spill tier",
                           "the spill tier and its wire format")
 
-    def step_spec(self, window: int, K: int):
-        raise _not_ported("the speculative step",
-                          "beam and speculative decoding")
-
     # -- decode steps ----------------------------------------------------
 
     def _resident_pad(self) -> int:
@@ -535,28 +577,40 @@ class PagedSlotKVManager(StepPool):
         self._wtable_buf.copy_(torch.from_numpy(self.write_tables))
         self._d0_buf.copy_(torch.from_numpy(self._d0_host))
 
-    def _body(self, window: int, sampled: bool, P: int) -> None:
-        """Gather views, the shared decode body, scatter dirty pages
-        through the WRITE tables (a shared page's slice goes to the
-        trash page)."""
+    def _gather(self, P: int, draft: bool = False):
+        """The slot cache of class ``P``: every slot's pages gathered
+        through its table into the fixed view buffers."""
         from ..models.kv_cache import KVCache
 
-        S = self.n_slots
         tables = self._table_buf[:, :P]
-        vk, vv = self._view_buffers(P)
-        cache = KVCache(gather_pages(self._k, tables, 1, out=vk),
-                        gather_pages(self._v, tables, 1, out=vv),
-                        positions=self._pos_buf)
-        self._run_window(cache, window, sampled)
-        n_dirty = self._n_dirty(window)
+        pools = (self._dk, self._dv) if draft else (self._k, self._v)
+        vk, vv = self._view_buffers(P, draft)
+        return KVCache(gather_pages(pools[0], tables, 1, out=vk),
+                       gather_pages(pools[1], tables, 1, out=vv),
+                       positions=self._dpos_buf if draft
+                       else self._pos_buf)
+
+    def _scatter_dirty(self, P: int, n_dirty: int,
+                       draft: bool = False) -> None:
+        """Scatter each slot's ``n_dirty`` pages from its dirty start
+        back through the WRITE tables (a shared page's slice goes to
+        the trash page)."""
+        S = self.n_slots
+        dev = self._table_buf.device
         local = self._d0_buf[:, None] + torch.arange(
-            n_dirty, device=tables.device)           # [S, n_dirty]
+            n_dirty, device=dev)                    # [S, n_dirty]
         targets = self._wtable_buf[:, :P].gather(1, local).reshape(-1)
-        rows = (torch.arange(S, device=tables.device)[:, None] * P
+        rows = (torch.arange(S, device=dev)[:, None] * P
                 + local).reshape(-1)
-        for pool, view in ((self._k, vk), (self._v, vv)):
+        pools = (self._dk, self._dv) if draft else (self._k, self._v)
+        for pool, view in zip(pools, self._view_buffers(P, draft)):
             scatter_pages(pool, torch.index_select(view, 1, rows),
                           targets, 1)
+
+    def _body(self, window: int, sampled: bool, P: int) -> None:
+        """Gather views, the shared decode body, scatter dirty pages."""
+        self._run_window(self._gather(P), window, sampled)
+        self._scatter_dirty(P, self._n_dirty(window))
 
     def _step_key(self, window: int, sampled: bool) -> tuple:
         return (window, sampled, self._resident_pad())
@@ -575,3 +629,32 @@ class PagedSlotKVManager(StepPool):
         return self._dispatch(
             key, lambda: self._body(window, sampled, P), graph=graph,
             on_card=self._k.device.type == "cuda")
+
+    def _spec_body(self, window: int, K: int, sampled: bool,
+                   P: int) -> None:
+        """Both pools gathered through the same tables, the shared
+        speculative body, both scattered over ``window * K + 1``
+        positions."""
+        self._run_spec_window(self._gather(P), self._gather(P, True),
+                              window, K, sampled)
+        n_dirty = self._n_dirty(window * K + 1)
+        self._scatter_dirty(P, n_dirty)
+        self._scatter_dirty(P, n_dirty, draft=True)
+
+    def step_spec(self, window: int, K: int, sampled: bool = False, *,
+                  graph: Optional[bool] = None):
+        """``window`` fused SPECULATIVE rounds, the paged twin of
+        ``SlotKVManager.step_spec``: one CUDA graph per (window, "spec",
+        K, sampled, pad class).  The rollback stays a positions rewind
+        on the gathered views: pages are reserved with the spec slack,
+        so a rejection never touches the page accounting."""
+        if self._k is None or self._dk is None:
+            raise RuntimeError("step_spec() before a speculative "
+                               "insert()")
+        self._check_spec(window, K)
+        P = self._resident_pad()
+        self._d0_host = self._dirty_start(P, self._n_dirty(window * K + 1))
+        return self._dispatch_spec(
+            (window, "spec", K, sampled, P),
+            lambda: self._spec_body(window, K, sampled, P), window=window,
+            K=K, graph=graph, on_card=self._k.device.type == "cuda")

@@ -39,8 +39,9 @@ Endpoints:
 - ``GET  /debug/state`` -> the engine's latest step-boundary snapshot
 - ``POST /generate`` -> ``{"prompt": [ids] | [[ids], ...],
   "max_new_tokens": N, "temperature": t, "top_k": k, "top_p": p,
-  "seed": s, "eos_id": e, "prefill_chunk": C, "priority": p,
-  "deadline_ms": d, "timings": bool}`` -> tokens + timing
+  "seed": s, "eos_id": e, "num_beams": B, "speculative": bool,
+  "spec_k": K, "prefill_chunk": C, "priority": p, "deadline_ms": d,
+  "timings": bool}`` -> tokens + timing
 - ``POST /prefill``  -> ``{"prompt": ..., "prefill_chunk": C}``:
   register a prefix -> ``{"cached_rows", "cached_len", "entries"}``
 - ``POST /drain``    -> stop admission, finish in-flight work
@@ -48,11 +49,21 @@ Endpoints:
 ``temperature > 0`` samples under the position-keyed contract (row r's
 i-th token draws with ``fold_in(fold_in(PRNGKey(seed), r), i)``), so a
 response equals solo ``generate_positional`` with the same seed — cold
-or from a prefix hit.  A request for what the port does not serve yet
-— ``num_beams > 1``, ``speculative``/``spec_k``, ``resume_tokens``,
-the fleet ``/prefix/*`` routes (the spill tier and its wire format),
-``POST /profile/*`` — gets a 501 naming the missing feature, never
-another route's answer.  Validation errors are the reference's 400s.
+or from a prefix hit.  ``"speculative": true`` (a server built with a
+``draft_model``) decodes in the engine's speculative slots: greedy by
+default, equal to greedy decoding, and with temperature rejection
+speculative sampling under the position-keyed schedule, equal to solo
+``generate_speculative``'s seed mode; ``spec_k`` (default and cap: the
+server's ``spec_k``) is the draft length.  A ``spec_k`` over the cap,
+and on a draft-capable server any request within ``spec_k - 1`` tokens
+of ``max_position``, decodes on the SOLO path instead (counted and
+reported under ``/info`` ``solo_fallbacks``), as does every
+``num_beams > 1`` request (``generate_beam``): solo programs hold the
+device lock for their whole decode.  A request for what the port does
+not serve yet — ``resume_tokens``, the fleet ``/prefix/*`` routes (the
+spill tier and its wire format), ``POST /profile/*`` — gets a 501
+naming the missing feature, never another route's answer.  Validation
+errors are the reference's 400s.
 
 Device discipline: every CUDA call runs under ``device_lock`` (a
 FairLock): the engine thread's, and the prefix paths' on handler
@@ -77,6 +88,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from ._lru import lru_get
 from .debug import (RequestHistory, StallWatchdog, events_to_dicts,
                     new_request_id, sanitize_request_id)
 from .engine import DecodeEngine
@@ -87,7 +99,7 @@ from .recovery import EngineSupervisor
 from .scheduler import (DeadlineExceeded, PRIORITIES, PoisonedRequest,
                         QueueFullError, RequestCancelled, SamplingSpec,
                         SchedulerPolicy, ShedError)
-from .telemetry import Telemetry, render_compile_cache
+from .telemetry import Telemetry, render_compile_cache, render_histogram
 
 _span_dicts = events_to_dicts
 
@@ -281,6 +293,7 @@ class ModelServer:
                  sentry_baseline_windows: int = 4,
                  fault_plan=None,
                  supervise: bool = True,
+                 draft_model=None, spec_k: int = 4,
                  info: Optional[Dict[str, Any]] = None):
         if kv_lazy and not kv_paged:
             raise ValueError(
@@ -296,6 +309,21 @@ class ModelServer:
         if prefix_cache < 0:
             raise ValueError(f"prefix_cache must be >= 0; got "
                              f"{prefix_cache}")
+        from ..models.generate import _check_spec_k
+
+        _check_spec_k(spec_k)
+        # The speculative draft: requests opt in with {"speculative":
+        # true}.  ``spec_k`` is the default draft length AND the
+        # engine's cap (a wider request decodes solo).
+        self.draft_model = draft_model
+        self.spec_k_default = int(spec_k)
+        # Solo programs (beam search, speculative requests off the
+        # engine): cached callables keyed by request shape, one LRU.
+        self._fns: "collections.OrderedDict" = collections.OrderedDict()
+        self._fn_cap = 16
+        # Request kinds that fell back to the solo path, with the
+        # reason logged once per kind and a count (/info).
+        self.solo_fallbacks: Dict[str, Dict[str, Any]] = {}
         # Fault injection, disarmed by default: a FaultPlan, a plan
         # dict or a JSON path arms the seeded harness across the
         # engine's sites, the prefix store and the response write.
@@ -351,10 +379,11 @@ class ModelServer:
                 batch_queue_deadline_s=batch_queue_deadline_s,
                 slo_ttft_s=slo_ttft_s, kv_paged=kv_paged,
                 kv_page_tokens=kv_page_tokens, kv_pages=kv_pages,
-                kv_lazy=kv_lazy),
+                kv_lazy=kv_lazy, spec_k_cap=self.spec_k_default),
             device_lock=self._lock,
             telemetry=self.telemetry,
             sentinel=self.recompile,
+            draft_model=draft_model,
             faults=self.faults)
         # /metrics counters under _stats_lock — never the device lock.
         self._stats_lock = threading.Lock() if self.sanitizer is None \
@@ -630,6 +659,81 @@ class ModelServer:
             self._prefill_s_sum += prefill_s
             self._decode_s_sum += decode_s
             self._breakdown_count += 1
+
+    def _note_fallback(self, kind: str, reason: str) -> None:
+        """A request class fell back to the solo path: count it under
+        its kind and log the reason once per kind (``/info``
+        ``solo_fallbacks``)."""
+        with self._stats_lock:
+            fb = self.solo_fallbacks.get(kind)
+            first = fb is None
+            if first:
+                self.solo_fallbacks[kind] = {"reason": reason,
+                                             "count": 1}
+            else:
+                fb["count"] += 1
+        if first:
+            print(f"# serving: {kind} requests take the solo path — "
+                  f"{reason}", file=sys.stderr)
+
+    def _fn(self, key):
+        """The solo program of ``key`` = (kind, rows, prompt length,
+        new, temperature, top_k, top_p, eos, beams or spec_k, chunk):
+        a callable ``fn(toks, seed)`` in the server's LRU (a miss is
+        counted by the recompile sentinel, as the reference counts a
+        compile)."""
+        from .. import prng
+        from ..models import generate as G
+
+        def build():
+            kind, _b, _p, new, temp, top_k, top_p, eos, width, \
+                chunk = key
+            if kind == "beam":
+                return lambda toks, seed: G.generate_beam(
+                    self.model, toks, max_new_tokens=new,
+                    num_beams=width, eos_id=eos, prefill_chunk=chunk)
+            if kind in ("spec", "spec_pos"):
+                # spec_pos: sampled speculative under the position-
+                # keyed schedule, the engine's spec slots' reference.
+                return lambda toks, seed: G.generate_speculative(
+                    self.model, self.draft_model, toks,
+                    max_new_tokens=new, k=width, eos_id=eos,
+                    prefill_chunk=chunk, temperature=temp, top_k=top_k,
+                    top_p=top_p,
+                    seed=seed if kind == "spec_pos" else None)
+            if kind == "sample_pos":
+                return lambda toks, seed: G.generate_positional(
+                    self.model, toks, max_new_tokens=new, seed=seed,
+                    temperature=temp, top_k=top_k or 0,
+                    top_p=top_p or 0.0, eos_id=eos, prefill_chunk=chunk)
+            return lambda toks, seed: G.generate(
+                self.model, toks, max_new_tokens=new, temperature=temp,
+                top_k=top_k, top_p=top_p, eos_id=eos,
+                rng=prng.PRNGKey(seed, device=self.model.device),
+                prefill_chunk=chunk)
+
+        return lru_get(self._fns, key, self._fn_cap, build,
+                       sentinel=self.recompile, kind=f"server:{key[0]}")
+
+    def _generate_solo(self, key, toks: np.ndarray, seed: int,
+                       deadline=None):
+        """One solo program under the device lock (its whole decode).
+        Returns ``(tokens, (queue_s, prefill_s, decode_s))``; prefill
+        is fused into the decode, as the reference reports it."""
+        import torch
+
+        t_lock = time.perf_counter()
+        with self._lock:
+            queue_s = time.perf_counter() - t_lock
+            if deadline is not None and time.perf_counter() > deadline:
+                raise DeadlineExceeded(
+                    f"deadline exceeded after {queue_s:.3f}s waiting "
+                    f"for the device (solo path)")
+            rows = torch.as_tensor(toks, device=self.model.device)
+            out = self._fn(key)(rows, seed).cpu().numpy()
+            self._sync()
+        return out, (queue_s, 0.0,
+                     time.perf_counter() - t_lock - queue_s)
 
     # -- device sections on handler threads ------------------------------
 
@@ -998,7 +1102,8 @@ class ModelServer:
                 "int, not booleans)")
         if new < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        from ..models.generate import (_check_temperature, _check_top_k,
+        from ..models.generate import (SPEC_BEAM_MSG, _check_spec_k,
+                                       _check_temperature, _check_top_k,
                                        _check_top_p)
 
         _check_top_k(top_k, getattr(getattr(self.model, "cfg", None),
@@ -1030,6 +1135,23 @@ class ModelServer:
             if deadline_ms < 1:
                 raise ValueError("deadline_ms must be >= 1")
         deadline_s = None if deadline_ms is None else deadline_ms / 1e3
+        spec_k = 0
+        if speculative:
+            if self.draft_model is None:
+                raise ValueError(
+                    "server has no draft model (start with "
+                    "--draft-model to enable speculative decoding)")
+            if beams > 1:
+                raise ValueError(SPEC_BEAM_MSG)
+            if temp == 0.0 and (top_k is not None or top_p is not None):
+                raise ValueError(
+                    "speculative top_k/top_p need temperature > 0 "
+                    "(temperature=0 is greedy and would ignore them)")
+            try:
+                spec_k = _int(req.get("spec_k", self.spec_k_default))
+            except (TypeError, ValueError):
+                raise ValueError("spec_k must be an int")
+            _check_spec_k(spec_k)
         chunk = req.get("prefill_chunk")
         try:
             chunk = None if chunk is None else _int(chunk)
@@ -1040,44 +1162,102 @@ class ModelServer:
         p_len = len(rows[0])
         if chunk is not None and chunk >= p_len:
             chunk = None
-        max_pos = getattr(getattr(self.model, "cfg", None),
-                          "max_position", None)
-        if max_pos is not None and p_len + new > max_pos:
-            raise ValueError(
-                f"prompt ({p_len}) + max_new_tokens ({new}) exceeds "
-                f"the model's max_position ({max_pos})")
+        # Capacity of every model the request touches: speculative
+        # rounds touch spec_k - 1 positions past the last committed
+        # token.
+        slack = (spec_k - 1) if speculative else 0
+        models = [("model", self.model)]
+        if speculative:
+            models.append(("draft model", self.draft_model))
+        for label, m in models:
+            max_pos = m.cfg.max_position
+            if p_len + new + slack > max_pos:
+                raise ValueError(
+                    f"prompt ({p_len}) + max_new_tokens ({new})"
+                    + (f" + spec_k-1 ({slack})" if slack else "")
+                    + f" exceeds the {label}'s max_position "
+                    f"({max_pos})")
         # What this slice does not serve yet: named, never rerouted.
-        if speculative or "spec_k" in req:
-            raise NotImplementedError(
-                "speculative decoding (speculative / spec_k) is not "
-                "ported to the PyTorch backend yet (ROADMAP Queue 1: "
-                "beam and speculative decoding)")
-        if beams > 1:
-            raise NotImplementedError(
-                "beam search (num_beams > 1) is not ported to the "
-                "PyTorch backend yet (ROADMAP Queue 1: beam and "
-                "speculative decoding)")
         if req.get("resume_tokens"):
             raise NotImplementedError(
                 "resume_tokens (cross-replica resume) is not ported "
                 "yet (ROADMAP Queue 1: the router)")
         toks = np.asarray(rows, np.int64)
         # temperature 0 is greedy (top_k/top_p inert, as in solo
-        # generate); temperature > 0 samples per slot, position-keyed.
-        sampling = SamplingSpec(seed, temp, top_k, top_p) \
-            if temp != 0.0 else None
+        # generate); temperature > 0 samples per slot, position-keyed;
+        # speculative streams draft/verify per round in a spec slot.
+        if speculative:
+            sampling = SamplingSpec(seed, temp, top_k, top_p,
+                                    spec_k=spec_k)
+        else:
+            sampling = SamplingSpec(seed, temp, top_k, top_p) \
+                if temp != 0.0 else None
+        # Engine eligibility: every non-beam request; on a draft-capable
+        # server a spec_k over the cap, or a budget within cap - 1 of
+        # max_position (the pool's verify chunks are cap + 1 wide),
+        # decodes solo instead.
+        engine_ok = beams == 1
+        if engine_ok and self.draft_model is not None:
+            cap = self.spec_k_default
+            if speculative and spec_k > cap:
+                engine_ok = False
+                self._note_fallback(
+                    "speculative (spec_k over cap)",
+                    f"request spec_k {spec_k} exceeds the engine cap "
+                    f"{cap} (--spec-k); decoding solo")
+            elif p_len + new + cap - 1 > self.model.cfg.max_position \
+                    or p_len + new + cap - 1 \
+                    > self.draft_model.cfg.max_position:
+                engine_ok = False
+                self._note_fallback(
+                    "near-capacity",
+                    f"prompt + max_new_tokens within {cap - 1} tokens "
+                    f"of max_position cannot co-tenant a speculative "
+                    f"pool (verify chunks are {cap + 1} wide); "
+                    f"decoding solo")
         t0 = time.perf_counter()
         # Prefix-cache hit (registered via /prefill, or a stored-back
         # session): a single-row hit rides the engine seeded with the
         # stored prefill (paged: its full pages mapped read-only); a
-        # multi-row hit decodes on the solo split path.
+        # multi-row hit decodes on the solo split path.  Beam and
+        # speculative requests stay cold (the draft has no stored
+        # prefill; beams tile the cache).
         prefix_hit = self._prefix_lookup_safe(toks) \
-            if self._prefix_enabled else None
+            if self._prefix_enabled and engine_ok \
+            and not speculative else None
         prefix_source = "re_prefill" if prefix_hit is None \
             else "local_hot"
         group = None
         solo_events = None
-        if prefix_hit is not None and toks.shape[0] == 1:
+        if not engine_ok:
+            from ..models import generate as G
+
+            if speculative:
+                kind = "spec_pos" if temp != 0.0 else "spec"
+                width = spec_k
+            elif beams > 1:
+                kind, width = "beam", beams
+            else:
+                kind = "sample_pos" \
+                    if G.positional_eligible(self.model, temp) \
+                    else "sample"
+                width = 1
+            key = (kind, len(rows), p_len, new, temp, top_k, top_p, eos,
+                   width, chunk)
+            out, breakdown = self._generate_solo(
+                key, toks, seed, deadline=t0 + deadline_s
+                if deadline_s is not None else None)
+            t_end = time.perf_counter()
+            solo_events = [("queue", t0, t0 + breakdown[0],
+                            {"kind": kind}),
+                           ("solo_decode", t0 + breakdown[0], t_end,
+                            {"kind": kind, "rows": len(rows)}),
+                           ("complete", t_end, t_end, {})]
+            tid = self.telemetry.new_tid()
+            self.telemetry.span(tid, "solo_decode", t0 + breakdown[0],
+                                t_end, rid=rid, kind=kind,
+                                rows=len(rows))
+        elif prefix_hit is not None and toks.shape[0] == 1:
             pc = prefix_hit.p_cached
             try:
                 group = self.engine.submit(
@@ -1133,10 +1313,12 @@ class ModelServer:
         self.telemetry.observe(
             "decode_per_token", breakdown[2] / max(1, tokens_done),
             exemplar=rid)
+        # A solo program delivers every token at once: its TTFT is the
+        # whole latency.
         ttft = dt
-        if group is None:
+        if group is None and engine_ok:
             ttft = breakdown[0] + breakdown[1]
-        elif group.t_first_admit is not None:
+        elif group is not None and group.t_first_admit is not None:
             ttft = group.t_first_admit - group.t_submit
         self.telemetry.observe("ttft", ttft, exemplar=rid)
         self.telemetry.observe("total", dt, exemplar=rid)
@@ -1215,6 +1397,9 @@ class ModelServer:
             summary["dtype"] = str(cfg.dtype).removeprefix("torch.")
         engine = self.engine.stats()
         compile_cache = self.recompile.snapshot()
+        with self._stats_lock:
+            fallbacks = {k: dict(v)
+                         for k, v in self.solo_fallbacks.items()}
         return {"model": self.model_name, "config": summary,
                 "backend": self.model.device.type,
                 "max_batch": self.max_batch,
@@ -1224,8 +1409,12 @@ class ModelServer:
                 "drain_rejected_total": self.drain_rejected,
                 "routing": {"greedy": "engine",
                             "sampled": "engine",
-                            "speculative": "not ported",
-                            "beam": "not ported"},
+                            "speculative": "engine"
+                            if self.draft_model is not None
+                            else "unavailable (no draft model)",
+                            "beam": "solo"},
+                "solo_fallbacks": fallbacks,
+                "spec_k_default": self.spec_k_default,
                 "kv_paged": self.kv_paged,
                 "kv_lazy": self.kv_lazy,
                 # A compile-cache miss is a CUDA-graph capture (the
@@ -1325,8 +1514,11 @@ class ModelServer:
                   "queue_len_batch")
         counters = ("admitted_total", "admitted_interactive_total",
                     "admitted_batch_total", "admitted_greedy_total",
-                    "admitted_sampled_total", "completed_total",
-                    "completed_greedy_total", "completed_sampled_total",
+                    "admitted_sampled_total", "admitted_spec_total",
+                    "completed_total", "completed_greedy_total",
+                    "completed_sampled_total", "completed_spec_total",
+                    "spec_rounds_total", "spec_drafted_total",
+                    "spec_accepted_total",
                     "evicted_total", "cancelled_total", "shed_total",
                     "shed_interactive_total", "shed_batch_total",
                     "decode_steps_total", "decode_dispatches_total",
@@ -1372,6 +1564,12 @@ class ModelServer:
             *[f'ptpu_serving_faults_injected_total{{site="{site}"}} {n}'
               for site, n in sorted(es["faults_injected"].items())],
         ]
+        # Per-request acceptance rate of completed speculative streams
+        # (accepted / drafted), one histogram family.
+        lines += render_histogram(
+            "ptpu_serving_spec_accept_rate", es["spec_accept_buckets"],
+            es["spec_accept_hist"], es["spec_accept_sum"],
+            es["spec_accept_count"])
         # The process's flash kernel launches: decode and prefill take
         # plain attention, so a served model's stay at 0.
         from ..ops import flash

@@ -32,9 +32,28 @@ Idle slots still step (the batch shape is fixed): they sit at position
 next ``insert`` overwrites the lane wholesale; the engine masks their
 tokens by occupancy.
 
+SPECULATIVE rounds ride the same pool: a second stacked cache (the
+DRAFT model's, same slots) sits beside the target's, and the spec body
+runs ``window`` rounds, each drafting K tokens per slot (K one-token
+draft forwards at the slot's positions ``pos .. pos + K - 1``),
+verifying them with ONE K + 1-wide target forward per slot (the
+multi-token slot append), and committing a per-slot prefix of ``c``
+tokens: the greedy lane's exact match, or the position-keyed
+rejection-sampling lane shared with ``generate_speculative``'s seed
+mode (``models/generate._spec_draft_row`` / ``_spec_verify_row``).
+``c``, the gather of ``out[c - 1]`` as the next feed and ``positions
++= c`` all stay on the device: rejection is a per-slot positions
+rewind (stale entries are masked by absolute position), and the host
+reads the window's tokens, commits and accepts once, after the
+replay.  Slots with ``spec_k == 0`` commit exactly one token a round,
+drawn from the verify chunk's first logits row through the shared
+positional sampler (the plain bodies' token).  Each (window, "spec",
+K, sampled) is one CUDA graph; the greedy-only variant skips the
+sampling lanes' shaping and draws.
+
 The paged pool (``serving/paged.py``) runs the same bodies over a
-gathered view of its pages.  The speculative step comes with its own
-slice of the port.
+gathered view of its pages (the draft's pages through the same
+tables).
 """
 
 from __future__ import annotations
@@ -73,6 +92,8 @@ def alloc_decode_state(mgr) -> None:
     mgr.temps = np.zeros((n,), np.float32)
     mgr.top_ks = np.zeros((n,), np.int64)
     mgr.top_ps = np.zeros((n,), np.float32)
+    # Draft length of a SPECULATIVE slot (0: a plain slot).
+    mgr.spec_ks = np.zeros((n,), np.int64)
 
 
 class StepPool:
@@ -85,9 +106,14 @@ class StepPool:
     paged = False
 
     def __init__(self, model, n_slots: int, sentinel=None,
-                 max_window: int = 8):
+                 max_window: int = 8, draft_model=None,
+                 spec_k_cap: int = 4):
         self.model = model
         self.max_window = int(max_window)
+        # The draft model of SPECULATIVE slots (None: plain pool), and
+        # the widest draft length a spec round may take.
+        self.draft_model = draft_model
+        self.spec_k_cap = int(spec_k_cap)
         # Recompile sentinel (analysis/recompile.py): a step key's graph
         # capture (its first eager run on the CPU) is a MISS, a replay
         # a HIT — after warm-up the count of captures must stay put.
@@ -135,10 +161,11 @@ class StepPool:
         self.temps[slot] = 0.0
         self.top_ks[slot] = 0
         self.top_ps[slot] = 0.0
+        self.spec_ks[slot] = 0
 
     def _arm(self, slot: int, first_token: int, position: int,
              base_key, next_index: int, temperature: float, top_k: int,
-             top_p: float) -> None:
+             top_p: float, spec_k: int = 0) -> None:
         self.tokens[slot] = first_token
         self.positions[slot] = position
         self.keys[slot] = 0 if base_key is None \
@@ -147,6 +174,7 @@ class StepPool:
         self.temps[slot] = temperature
         self.top_ks[slot] = top_k
         self.top_ps[slot] = top_p
+        self.spec_ks[slot] = spec_k
 
     # -- static step buffers ----------------------------------------------
 
@@ -164,6 +192,16 @@ class StepPool:
         self._topp_buf = torch.zeros(n, dtype=torch.float32, device=dev)
         self._outs = torch.zeros((self.max_window, n), dtype=torch.long,
                                  device=dev)
+        # The speculative body's operands and outputs: draft lengths,
+        # the draft's positions inside a round, and per round the
+        # K-wide token window, the commit and the accept counts.
+        self._sk_buf = torch.zeros(n, dtype=torch.long, device=dev)
+        self._dpos_buf = torch.zeros(n, dtype=torch.long, device=dev)
+        kw = (self.max_window, n)
+        self._spec_outs = torch.zeros(kw + (self.spec_k_cap,),
+                                      dtype=torch.long, device=dev)
+        self._commits = torch.zeros(kw, dtype=torch.long, device=dev)
+        self._accepts = torch.zeros(kw, dtype=torch.long, device=dev)
         self._bufs = True
 
     def _load_state(self) -> None:
@@ -173,7 +211,8 @@ class StepPool:
                           (self._idx_buf, self.next_index),
                           (self._temp_buf, self.temps),
                           (self._topk_buf, self.top_ks),
-                          (self._topp_buf, self.top_ps)):
+                          (self._topp_buf, self.top_ps),
+                          (self._sk_buf, self.spec_ks)):
             buf.copy_(torch.from_numpy(host))
 
     # -- the step ---------------------------------------------------------
@@ -199,6 +238,71 @@ class StepPool:
             self._tok_buf.copy_(nxt)
             self._pos_buf.add_(1)
 
+    def _run_spec_window(self, cache, dcache, window: int, K: int,
+                         sampled: bool) -> None:
+        """``window`` speculative rounds over the static buffers:
+        ``cache`` is the target's slot cache and ``dcache`` the draft's,
+        whose positions (``_dpos_buf``) restart at each round's slot
+        positions.  Round w writes its K-wide tokens, commits and
+        accepts at ``[w]``; every count stays on the device."""
+        from ..models.generate import (_sample_positional_row,
+                                       _spec_draft_row, _spec_verify_row,
+                                       extract_logits)
+
+        lanes = torch.arange(K, device=self._tok_buf.device)
+        is_spec = self._sk_buf > 0
+        k_eff = self._sk_buf.clamp(1, K)
+        samp = (self._key_buf, self._idx_buf, self._temp_buf,
+                self._topk_buf, self._topp_buf)
+        for w in range(window):
+            self._dpos_buf.copy_(self._pos_buf)
+            tok, d_toks, q_rows = self._tok_buf, [], []
+            for j in range(K):
+                out = self.draft_model(tok[:, None], decode=True,
+                                       decode_position=self._dpos_buf,
+                                       cache=dcache)
+                logits = extract_logits(out)[:, -1]
+                if sampled:
+                    tok, q = _spec_draft_row(
+                        logits, self._key_buf, self._idx_buf + j,
+                        *samp[2:])
+                    q_rows.append(q)
+                else:
+                    tok = torch.argmax(logits, dim=-1)
+                d_toks.append(tok)
+                self._dpos_buf.add_(1)
+            d_toks = torch.stack(d_toks, dim=1)              # [S, K]
+            chunk = torch.cat([self._tok_buf[:, None], d_toks], dim=1)
+            t_all = extract_logits(self.model(
+                chunk, decode=True, decode_position=self._pos_buf,
+                cache=cache))                                # [S, K+1, V]
+            if sampled:
+                out_toks, c, m = _spec_verify_row(
+                    t_all[:, :K], d_toks, torch.stack(q_rows, dim=1),
+                    self._key_buf, self._idx_buf, *samp[2:], k_eff)
+                plain = _sample_positional_row(t_all[:, 0], *samp)
+            else:
+                # The greedy lane alone: exact match, then the target's
+                # argmax as the correction.
+                t_arg = torch.argmax(t_all[:, :K], dim=-1)
+                accept = (d_toks == t_arg) & (lanes < k_eff[:, None])
+                m = torch.cumprod(accept.long(), dim=1).sum(1)
+                c = torch.minimum(m + 1, k_eff)
+                out_toks = torch.where(lanes < m[:, None], d_toks, t_arg)
+                plain = torch.argmax(t_all[:, 0], dim=-1)
+            # Plain lanes commit one token: the plain bodies' token.
+            c = torch.where(is_spec, c, 1)
+            m = torch.where(is_spec, m, 0)
+            out_toks = torch.where(is_spec[:, None], out_toks,
+                                   torch.where(lanes == 0, plain[:, None],
+                                               0))
+            self._spec_outs[w, :, :K].copy_(out_toks)
+            self._commits[w].copy_(c)
+            self._accepts[w].copy_(m)
+            self._tok_buf.copy_(out_toks.gather(1, (c - 1)[:, None])[:, 0])
+            self._pos_buf.add_(c)
+            self._idx_buf.add_(c)
+
     def _capture(self, body: Callable[[], None]
                  ) -> "torch.cuda.CUDAGraph":
         """Warm ``body`` up on a side stream (the live state: the warm-
@@ -223,10 +327,11 @@ class StepPool:
     def _step_key(self, window: int, sampled: bool) -> tuple:
         return (window, sampled)
 
-    def _dispatch(self, key: tuple, body: Callable[[], None], *,
-                  graph: Optional[bool], on_card: bool) -> np.ndarray:
-        """One window through the graph of ``key`` (captured on first
-        use) or eagerly; returns ``outs`` on the host."""
+    def _replay(self, key: tuple, body: Callable[[], None], fetch, *,
+                graph: Optional[bool], on_card: bool):
+        """Run ``body`` through the graph of ``key`` (captured on first
+        use) or eagerly, and return ``fetch()`` (the host copy of its
+        outputs: the one sync of the window)."""
         if graph is None:
             graph = on_card
         if graph and not on_card:
@@ -238,7 +343,6 @@ class StepPool:
                 self.sentinel.miss("slot_step", key)
             else:
                 self.sentinel.hit("slot_step", key)
-        window = key[0]
         t0 = time.perf_counter()
         with step_annotation(), torch.no_grad():
             if graph:
@@ -251,21 +355,59 @@ class StepPool:
             else:
                 self._load_state()
                 body()
-            outs = self._outs[:window].cpu().numpy().copy()
+            out = fetch()
         self._built.add(built_key)
         self.last_step_device_s = time.perf_counter() - t0
-        # Arm the next step: every slot feeds back its own last token
-        # at the next position and token index; idle slots re-park at
-        # 0, so their dead stepping stays bounded by one window.
-        self.tokens = outs[-1].copy()
-        self.positions = self.positions + window
-        self.next_index = self.next_index + window
+        return out
+
+    def _advance(self, last_tokens: np.ndarray, adv) -> None:
+        """Arm the next step: every slot feeds back its own last token
+        at its next position and token index; idle slots re-park at 0,
+        so their dead stepping stays bounded by one window."""
+        self.tokens = np.asarray(last_tokens, np.int64).copy()
+        self.positions = self.positions + adv
+        self.next_index = self.next_index + adv
         if self._free:
             idle = np.asarray(self._free, np.int64)
             self.tokens[idle] = 0
             self.positions[idle] = 0
             self.next_index[idle] = 0
+
+    def _dispatch(self, key: tuple, body: Callable[[], None], *,
+                  graph: Optional[bool], on_card: bool) -> np.ndarray:
+        """One plain window; returns ``outs`` [window, S] on the host."""
+        window = key[0]
+        outs = self._replay(
+            key, body, lambda: self._outs[:window].cpu().numpy().copy(),
+            graph=graph, on_card=on_card)
+        self._advance(outs[-1], window)
         return outs
+
+    def _dispatch_spec(self, key: tuple, body: Callable[[], None], *,
+                       window: int, K: int, graph: Optional[bool],
+                       on_card: bool):
+        """One speculative window; returns ``(tokens [window, S, K],
+        commits [window, S], accepts [window, S])`` on the host."""
+        def fetch():
+            return (self._spec_outs[:window, :, :K].cpu().numpy().copy(),
+                    self._commits[:window].cpu().numpy().copy(),
+                    self._accepts[:window].cpu().numpy().copy())
+
+        toks, cs, ms = self._replay(key, body, fetch, graph=graph,
+                                    on_card=on_card)
+        rows = np.arange(self.n_slots)
+        self._advance(toks[-1, rows, cs[-1] - 1], cs.sum(axis=0))
+        return toks, cs, ms
+
+    def _check_spec(self, window: int, K: int) -> None:
+        self._check_window(window)
+        if self.draft_model is None:
+            raise RuntimeError(
+                "speculative step without a draft model (construct the "
+                "slot pool with draft_model)")
+        if not 1 <= K <= self.spec_k_cap:
+            raise ValueError(f"spec K must be in [1, {self.spec_k_cap}];"
+                             f" got {K}")
 
     def _check_window(self, window: int) -> None:
         if not 1 <= window <= self.max_window:
@@ -277,21 +419,26 @@ class SlotKVManager(StepPool):
     """Fixed pool of ``n_slots`` decode slots over one model.
 
     Owns the stacked cache ([L, S, cap, H, D] keys and values, made on
-    the first insert), the free-slot list, the static step buffers and
-    one CUDA graph per (window, body).  Device work only — request
-    bookkeeping lives in engine.py/scheduler.py."""
+    the first insert), with ``draft_model`` the draft's stacked cache
+    too (made on the first speculative insert), the free-slot list, the
+    static step buffers and one CUDA graph per step key.  Device work
+    only — request bookkeeping lives in engine.py/scheduler.py."""
 
     def __init__(self, model, n_slots: int, sentinel=None,
-                 max_window: int = 8):
+                 max_window: int = 8, draft_model=None,
+                 spec_k_cap: int = 4):
         super().__init__(model, n_slots, sentinel=sentinel,
-                         max_window=max_window)
+                         max_window=max_window, draft_model=draft_model,
+                         spec_k_cap=spec_k_cap)
         self._k: Optional[torch.Tensor] = None
         self._v: Optional[torch.Tensor] = None
+        self._dk: Optional[torch.Tensor] = None
+        self._dv: Optional[torch.Tensor] = None
 
     def reset(self) -> None:
         """Crash-recovery rebuild (recovery.EngineSupervisor): every
         slot free, every slot's decode state parked — host state only.
-        The stacked cache and the step buffers keep their addresses,
+        The stacked caches and the step buffers keep their addresses,
         which is what the captured graphs replay against: stale lanes
         are masked by position until the next insert overwrites them
         wholesale, so a supervised restart captures nothing new."""
@@ -300,23 +447,33 @@ class SlotKVManager(StepPool):
 
     # -- device state ---------------------------------------------------
 
-    def _ensure_stacked(self, cache) -> None:
-        """Allocate the pool from the FIRST prefilled cache's shape:
-        [L, 1, cap, H, D] -> [L, S, cap, H, D] keys and values, plus the
-        static step buffers."""
-        if self._k is not None:
-            return
+    def _stacked_like(self, cache):
+        """[L, 1, cap, H, D] -> zeroed [L, S, cap, H, D] keys and
+        values."""
         shape = list(cache.k.shape)
         shape[1] = self.n_slots
-        dev = cache.k.device
-        self._k = torch.zeros(shape, dtype=cache.k.dtype, device=dev)
-        self._v = torch.zeros(shape, dtype=cache.v.dtype, device=dev)
-        self._alloc_step_buffers(dev)
+        return (torch.zeros(shape, dtype=cache.k.dtype,
+                            device=cache.k.device),
+                torch.zeros(shape, dtype=cache.v.dtype,
+                            device=cache.v.device))
+
+    def _ensure_stacked(self, cache) -> None:
+        """Allocate the pool from the FIRST prefilled cache's shape,
+        plus the static step buffers."""
+        if self._k is not None:
+            return
+        self._k, self._v = self._stacked_like(cache)
+        self._alloc_step_buffers(cache.k.device)
+
+    def _ensure_draft_stacked(self, cache) -> None:
+        if self._dk is None:
+            self._dk, self._dv = self._stacked_like(cache)
 
     def insert(self, slot: int, cache, first_token: int,
                position: int, *, base_key=None, next_index: int = 1,
                temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 0.0) -> None:
+               top_p: float = 0.0, draft_cache=None,
+               spec_k: int = 0) -> None:
         """Admit a prefilled request into ``slot`` at a step boundary:
         copy its B=1 cache ([L, 1, cap, H, D]) into lane ``slot``
         wholesale (outside any graph) and arm the slot's decode state
@@ -324,13 +481,19 @@ class SlotKVManager(StepPool):
         sample-first contract of solo generate).  Sampled streams also
         arm ``base_key`` (``fold_in(PRNGKey(seed), row)``, two words)
         and ``next_index`` (the token index the next step draws);
-        greedy streams keep temperature 0, the argmax lane."""
+        greedy streams keep temperature 0, the argmax lane.
+        Speculative streams pass ``draft_cache`` (the draft's prefill
+        of the same prompt) and ``spec_k`` > 0."""
         self._ensure_stacked(cache)
         with torch.no_grad():
             self._k[:, slot].copy_(cache.k[:, 0])
             self._v[:, slot].copy_(cache.v[:, 0])
+            if draft_cache is not None:
+                self._ensure_draft_stacked(draft_cache)
+                self._dk[:, slot].copy_(draft_cache.k[:, 0])
+                self._dv[:, slot].copy_(draft_cache.v[:, 0])
         self._arm(slot, first_token, position, base_key, next_index,
-                  temperature, top_k, top_p)
+                  temperature, top_k, top_p, spec_k)
 
     # -- the step ---------------------------------------------------------
 
@@ -358,3 +521,32 @@ class SlotKVManager(StepPool):
             self._step_key(window, sampled),
             lambda: self._body(window, sampled), graph=graph,
             on_card=self._k.device.type == "cuda")
+
+    def _spec_body(self, window: int, K: int, sampled: bool) -> None:
+        from ..models.kv_cache import KVCache
+
+        self._run_spec_window(
+            KVCache(self._k, self._v, positions=self._pos_buf),
+            KVCache(self._dk, self._dv, positions=self._dpos_buf),
+            window, K, sampled)
+
+    def step_spec(self, window: int, K: int, sampled: bool = False, *,
+                  graph: Optional[bool] = None):
+        """``window`` fused SPECULATIVE rounds across the whole pool.
+        Returns ``(tokens [window, S, K], commits [window, S], accepts
+        [window, S])``: round w commits ``tokens[w, s, :commits[w, s]]``
+        for slot s (1 for a plain slot, garbage for an idle one — the
+        caller masks by occupancy), and ``accepts`` counts the accepted
+        draft tokens.  ``K`` is the round's draft width, the largest
+        resident ``spec_k``; a slot with a smaller one commits at most
+        its own.  ``sampled`` selects the body with the sampling lanes
+        (any resident samples).  One CUDA graph per (window, "spec", K,
+        sampled)."""
+        if self._k is None or self._dk is None:
+            raise RuntimeError("step_spec() before a speculative "
+                               "insert()")
+        self._check_spec(window, K)
+        return self._dispatch_spec(
+            (window, "spec", K, sampled),
+            lambda: self._spec_body(window, K, sampled), window=window,
+            K=K, graph=graph, on_card=self._k.device.type == "cuda")

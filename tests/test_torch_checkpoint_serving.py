@@ -313,9 +313,10 @@ def test_http_kv_pages_shed_is_503(tiny_f32):
     (["--kv-lazy"], "--kv-lazy requires --kv-paged"),
     (["--kv-paged", "--kv-host-spill-bytes", "1024"],
      "--kv-host-spill-bytes (ROADMAP Queue 1: the spill tier"),
-    (["--draft-model", "gpt2-tiny"],
-     "--draft-model (ROADMAP Queue 1: beam and speculative decoding)"),
-    (["--spec-k", "2"], "--spec-k (ROADMAP Queue 1: beam and"),
+    # The speculative flags are ported; their checks still run first.
+    (["--draft-checkpoint", "ckpt"],
+     "--draft-checkpoint requires --draft-model"),
+    (["--spec-k", "0"], "spec_k must be >= 1"),
 ])
 def test_cli_serve_kv_flags_checked_before_building(monkeypatch, flags,
                                                     message):

@@ -168,11 +168,28 @@ def test_cli_generate_cpu():
                                    ["--int8-weights"], ["--kv-ring"],
                                    ["--draft-model", "gpt2-tiny"]])
 def test_cli_refuses_flags_not_ported(flags):
+    """The int8 flags are still refused by name.  ``--spec-k``,
+    ``--beams`` and ``--draft-model`` are ported: the command decodes
+    and prints the library's tokens for the same flags."""
     out = CliRunner().invoke(cli, [
         "generate", "--model", "gpt2-tiny", "--prompt", "1,2", "--cpu",
         *flags])
-    assert out.exit_code != 0
-    assert "not yet ported" in out.output and flags[0] in out.output
+    if flags[0] not in ("--spec-k", "--beams", "--draft-model"):
+        assert out.exit_code != 0
+        assert "not yet ported" in out.output and flags[0] in out.output
+        return
+    assert out.exit_code == 0, out.output
+    rec = json.loads(out.output)
+    model = t_get_model("gpt2-tiny").init_params(seed=0, device="cpu")
+    if flags[0] == "--beams":
+        lib = TG.generate_beam(model, [[1, 2]], max_new_tokens=32,
+                               num_beams=2)
+    elif flags[0] == "--draft-model":
+        lib = TG.generate_speculative(model, model, [[1, 2]],
+                                      max_new_tokens=32, k=4)
+    else:                       # --spec-k without a draft: plain greedy
+        lib = TG.generate(model, [[1, 2]], max_new_tokens=32)
+    assert rec["tokens"] == lib.tolist()
 
 
 def test_entry_points_refuse_cpu_unless_asked():

@@ -193,11 +193,29 @@ def test_boolean_scalar_params_are_400(server, field):
     ({"spec_k": 3}, "speculative decoding"),
 ])
 def test_unported_requests_are_501(server, body, feature):
-    base, _, _ = server
-    out = _post(base, {"prompt": [1, 2], "max_new_tokens": 2, **body},
-                expect=501)
-    assert feature in out["error"] and "not ported" in out["error"]
-    assert out["reason"] == "not_ported"
+    """``resume_tokens`` still answers 501 naming the feature.  Beam
+    search and speculative decoding are ported: ``num_beams`` decodes
+    (solo ``generate_beam``'s tokens), ``speculative`` on a server
+    without a draft model is the reference's 400, and ``spec_k``
+    without ``speculative`` is ignored (a greedy request)."""
+    base, model, _ = server
+    req = {"prompt": [1, 2], "max_new_tokens": 2, **body}
+    if feature == "resume_tokens":
+        out = _post(base, req, expect=501)
+        assert feature in out["error"] and "not ported" in out["error"]
+        assert out["reason"] == "not_ported"
+    elif "speculative" in body:
+        out = _post(base, req, expect=400)
+        assert "no draft model" in out["error"]
+    elif "num_beams" in body:
+        out = _post(base, req)
+        want = TG.generate_beam(model, [[1, 2]], max_new_tokens=2,
+                                num_beams=2)
+        assert out["tokens"] == want.tolist()
+    else:
+        out = _post(base, req)
+        want = TG.generate(model, [[1, 2]], max_new_tokens=2)
+        assert out["tokens"] == want.tolist()
 
 
 @pytest.mark.parametrize("path", ["/prefix/ingest", "/prefix/fetch",
