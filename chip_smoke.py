@@ -37,11 +37,13 @@ Phases, each raising on failure:
    ones bitwise, with their device times; three HTTP loads of 16
    requests from 16 clients (all greedy on the fixed-lane pool, then
    half sampled on the fixed-lane and on the paged pool: tok/s,
-   latency, TTFT, windows, graph captures, device busy share), then
+   latency, TTFT, windows, graph captures; device busy share of the
+   greedy and the paged load), then
    POST /drain; the radix prefix cache on both pools (a 512-token
    system prompt registered by POST /prefill, 32 requests extending it
    from 8 clients and a 2-row one: float32 tokens with the cache on ==
-   off, bf16 prefill tokens, hits, TTFT and pages cold against warm);
+   off on both pools, bf16 prefill tokens, hits, TTFT and pages cold
+   against warm on the paged pool);
    fault containment in float32 (a transient step fault retried, a
    poisoned request alone failing 500 ``poisoned_request``, an engine
    death on the paged pool recovered by the supervisor: every other
@@ -52,7 +54,7 @@ Phases, each raising on failure:
    ``generate_speculative`` == ``generate``; the float32 engine's spec
    slots on the fixed-lane and the paged pool, 8 requests of which 6
    speculative, each equal to its solo run, no capture after warm-up;
-   bf16 spec and plain window replay times and each draft's
+   bf16 spec and plain window replay times and the cut draft's
    acceptance; an HTTP load of 16 requests, half speculative, with the
    ``ptpu_serving_spec_accept_rate`` family); beam search in float32
    (``num_beams`` 4 over HTTP and ``generate --beams 4`` == the port's
@@ -85,6 +87,16 @@ Phases, each raising on failure:
    float32 solo greedy ``generate_speculative`` with a 2-of-22-layer
    cut draft == greedy ``generate``;
    mistral-tiny's window in decode: float32 engine == solo on both pools;
+   int8 weights and the int8 KV cache (GPT-2 medium: weight and cache
+   bytes against bf16; float32 ``--int8-weights --int8-kv`` engine ==
+   solo on both pools with sampled, prefix-hit and speculative requests;
+   bf16 decode steps for plain, int8 KV, int8 weights and both on both
+   pools; an HTTP load on ``serve --int8-weights --int8-kv --kv-paged``'s
+   model; TinyLlama's bytes and paged steps); the ring cache at
+   TinyLlama's width with a window of 511 (float32 at 4 layers: a
+   1,536 + 768-token session past max_position solo == a plain cache of
+   max_position 4096 == the fixed-lane engine; bf16 at full depth: cache
+   bytes, the decode step past position 2048, paged refused);
 10. ``python -m polyaxon_tpu_torch.cli run -f`` on the port's example
    polyaxonfiles in a temporary home, each read back through the port's
    store: the GPT-2 medium ``job`` (3 tracked steps equal to its log
@@ -102,6 +114,7 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -1217,7 +1230,8 @@ def _warm_every_key(ms, sampled_too: bool, max_tokens: int) -> None:
 
 
 def _http_load(model, label, bodies, *, sampled_too=False,
-               warm_requests=8, name="gpt2-medium", **server_kw):
+               warm_requests=8, name="gpt2-medium", idle_share=True,
+               **server_kw):
     """bf16 over HTTP (``make_server`` on port 0), 8 slots, prefill chunk
     256, window 8: a warm-up of ``warm_requests`` requests (8 warm the
     process's GEMM and prefill shapes; 1 allocates a later server's
@@ -1226,7 +1240,8 @@ def _http_load(model, label, bodies, *, sampled_too=False,
     decode steps, mean window, graph captures (in all, and in the run:
     0 allowed), replays, device busy and idle share (over the first 4
     requests, run again plain and under the profiler), flash launches,
-    page stats on a paged pool, the /metrics phase lines.  Returns the
+    page stats on a paged pool, the /metrics phase lines
+    (``idle_share=False``: no rerun, no busy share).  Returns the
     record and (server, ModelServer, base URL) for the caller to
     close."""
     import threading
@@ -1325,20 +1340,21 @@ def _http_load(model, label, bodies, *, sampled_too=False,
     # (one a client), timed once plain and once under the profiler: a
     # sampled load launches about 460,000 kernels in 32 requests, and
     # the profiler takes about a minute to collect that many.
-    sub = bodies[:4]
-    t0 = time.perf_counter()
-    _load_clients(base, sub, len(sub))
-    rec["profiled_wall_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rec["busy_ms"] = device_breakdown(
-        lambda: _load_clients(base, sub, len(sub)),
-        rec["profiled_wall_s"] * 1e3, "http", host=False)
     split["load"] = wall
-    split["idle-share rerun"] = rec["profiled_wall_s"]
-    split["profiled rerun"] = time.perf_counter() - t0
+    if idle_share:
+        sub = bodies[:4]
+        t0 = time.perf_counter()
+        _load_clients(base, sub, len(sub))
+        rec["profiled_wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["busy_ms"] = device_breakdown(
+            lambda: _load_clients(base, sub, len(sub)),
+            rec["profiled_wall_s"] * 1e3, "http", host=False)
+        split["idle-share rerun"] = rec["profiled_wall_s"]
+        split["profiled rerun"] = time.perf_counter() - t0
     print(f"[time] {label}: " + ", ".join(f"{k} {v:.1f} s"
                                           for k, v in split.items()))
-    if rec["busy_ms"] is not None:
+    if rec.get("busy_ms") is not None:
         rec["idle_share"] = max(
             0.0, 1 - rec["busy_ms"] / (rec["profiled_wall_s"] * 1e3))
     print(f"[http] record {json.dumps(rec)}")
@@ -1392,7 +1408,8 @@ def phase_http_serving(model, model_f32):
     for label, load, kw in (
             ("greedy fixed-lane", bodies, {}),
             ("mixed fixed-lane", _mixed(bodies),
-             {"sampled_too": True, "warm_requests": 1}),
+             {"sampled_too": True, "warm_requests": 1,
+              "idle_share": False}),
             ("mixed paged", _mixed(bodies),
              {"sampled_too": True, "warm_requests": 1,
               "kv_paged": True})):
@@ -1600,6 +1617,9 @@ def _prefix_load(base, ms, label, sys_p, bodies, two, register: bool):
 
 PREFIX_POOLS = (("fixed-lane", {}),
                 ("paged", {"kv_paged": True, "kv_page_tokens": 64}))
+# The bf16 cold/warm loads run on the paged pool alone, to bound the
+# script's time (PERF.md keeps both pools' earlier numbers).
+PREFIX_BF16_POOLS = ("paged",)
 
 
 def _warm_server(base, ms, cfg, max_tokens: int) -> None:
@@ -1621,11 +1641,12 @@ def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
     - float32: a server with the cache off and one with it on (4
       entries) give the same tokens, greedy and sampled alike (the tie
       rule for a float32 difference);
-    - bf16, one warm server a pool: the same load cold (nothing
-      registered) and warm; prefill tokens computed, hits, TTFT p50 /
-      p99, peak pages in use and shared, and the warm tokens' agreement
-      with the cold ones.
-    Returns the bf16 records and the flash launches (0)."""
+    - bf16, one warm server on each of ``PREFIX_BF16_POOLS``: the same
+      load cold (nothing registered) and warm; prefill tokens computed,
+      hits, TTFT p50 / p99, peak pages in use and shared, and the warm
+      tokens' agreement with the cold ones.
+    Returns the bf16 records and the flash launches (0) of every
+    pool."""
     cfg = model.cfg
     sys_p, bodies, two = _prefix_traffic(cfg)
     max_tokens = max(len(b["prompt"]) + b["max_new_tokens"] for b in bodies)
@@ -1653,6 +1674,11 @@ def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
             raise AssertionError(f"float32 {pool}: {runs[4]['hits']} hits, "
                                  f"expected {len(bodies) + 1}")
         print(f"[time] prefix: float32 {pool} {time.perf_counter() - t0:.1f} s")
+        if pool not in PREFIX_BF16_POOLS:
+            # The cache-on run's launches stand for the pool's.
+            out[pool] = {"warm": {"flash_launches":
+                                  runs[4]["flash_launches"]}}
+            continue
         t0 = time.perf_counter()
         srv, ms, base = _serve(model, name, **kw)
         try:
@@ -2163,7 +2189,7 @@ def phase_speculative(model, model_f32):
        runs``); then on the fixed-lane pool with the target as its own
        draft (full acceptance), spec_k 4 and 2 mixed and 24 new tokens,
        so rows commit 4, 2 and 1 tokens in one round;
-    3. bf16 spec and plain windows' replay times and each draft's
+    3. bf16 spec and plain windows' replay times and the cut draft's
        acceptance (``_spec_step_ms``);
     4. HTTP: a bf16 server with the cut draft, 16 requests from 16
        clients, half speculative: tok/s, TTFT p50, the
@@ -2242,10 +2268,10 @@ def phase_speculative(model, model_f32):
     print(f"[spec] bf16 solo greedy generate_speculative == greedy generate"
           f" on {rec['bf16_rows_equal']} of 4 rows (the float32 prompts; "
           f"first differing new token per row: {firsts}, 64 = none)")
+    # gpt2-small's windows are not timed, to bound the script's time
+    # (PERF.md keeps their earlier numbers: acceptance 0.000).
     rec["step_ms"] = {"4-layer cut": _spec_step_ms(model, cut,
-                                                   "4-layer cut", True),
-                      "gpt2-small": _spec_step_ms(model, small,
-                                                  "gpt2-small", False)}
+                                                   "4-layer cut", True)}
     del small
     _release()
     split["step times"] = time.perf_counter() - t0
@@ -2740,7 +2766,9 @@ def phase_llama_serving(model, model_f32):
     _f32_schedule(model_f32, LLAMA, tag="llama", pools=("paged",))
     print(f"[time] llama: float32 schedules {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    step_ms = _graph_vs_eager(model, tag="llama", profile=True)
+    # No profiled eager window, to bound the script's time (PERF.md
+    # keeps its split: copies 0.73 of the busy time).
+    step_ms = _graph_vs_eager(model, tag="llama")
     print(f"[time] llama: graph vs eager windows "
           f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(0)
@@ -2749,7 +2777,8 @@ def phase_llama_serving(model, model_f32):
                       "max_new_tokens": 64}
                      for n in rng.randint(64, 513, 32)])
     recs = {}
-    for label, kw in (("llama mixed fixed-lane", {"warm_requests": 4}),
+    for label, kw in (("llama mixed fixed-lane", {"warm_requests": 4,
+                                                  "idle_share": False}),
                       ("llama mixed paged", {"warm_requests": 1,
                                              "kv_paged": True})):
         t0 = time.perf_counter()
@@ -3033,6 +3062,381 @@ def phase_llama_entry_points(steps: int = 3):
                   f"ready in {ready:.1f} s; a greedy and a sampled request "
                   f"answered, 32 tokens each, TTFT "
                   + " / ".join(f"{g['ttft_ms']:.1f}" for g in got) + " ms")
+
+
+# -- int8 weights, the int8 KV cache and the ring --------------------------
+
+
+class _serving_cfg:
+    """Within the block, every module of ``model`` that holds the config
+    sees it with ``over`` (serve-time fields: ``kv_cache_int8``,
+    ``kv_cache_ring``, ``sliding_window``), so one set of weights serves
+    under each cache layout; the registry's ``init_params(**over)``
+    builds the same model."""
+
+    def __init__(self, model, **over):
+        self.mods = [m for m in model.modules() if hasattr(m, "cfg")]
+        self.old = [m.cfg for m in self.mods]
+        self.new = dataclasses.replace(model.cfg, **over)
+
+    def __enter__(self):
+        for m in self.mods:
+            m.cfg = self.new
+        return self
+
+    def __exit__(self, *exc):
+        for m, cfg in zip(self.mods, self.old):
+            m.cfg = cfg
+
+
+def _cache_bytes(model, slots: int) -> int:
+    """Bytes of a ``slots``-row decode cache of ``model`` (a slot pool's
+    lanes): entries, int8 scales, a ring's per-row position tables."""
+    from polyaxon_tpu_torch.models import generate as G
+
+    cache = G.init_cache(model, 1)
+    n = slots * sum(t.numel() * t.element_size() for t in cache.leaves())
+    if cache.ring_pos is not None:
+        n += slots * cache.ring_pos.numel() * cache.ring_pos.element_size()
+    return n
+
+
+def _filled_pool(model, paged: bool, prompts, new: int = 64):
+    """A pool of ``len(prompts)`` slots over ``model`` (paged: 64-token
+    pages), each slot prefilled with its prompt and armed greedy, and a
+    ``restore`` of that state (host decode state and every pool
+    tensor)."""
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.serving.paged import PagedSlotKVManager
+    from polyaxon_tpu_torch.serving.slots import SlotKVManager
+
+    n = len(prompts)
+    pool = PagedSlotKVManager(model, n, page_tokens=64,
+                              max_position=model.cfg.max_position,
+                              decode_window=8) if paged \
+        else SlotKVManager(model, n, max_window=8)
+    for s, p in enumerate(prompts):
+        with torch.no_grad():
+            logits, cache = G.prefill(model, torch.as_tensor(
+                [p], device="cuda"))
+        pool.acquire()
+        extra = {"total_tokens": len(p) + new} if paged else {}
+        pool.insert(s, cache, int(torch.argmax(logits[0])), len(p),
+                    **extra)
+        del cache
+    host = {k: getattr(pool, k).copy()
+            for k in ("tokens", "positions", "next_index")}
+    state = list(pool._pools) if paged else pool._pool.leaves() + (
+        [] if pool._pool.ring_pos is None else [pool._pool.ring_pos])
+    saved = [t.clone() for t in state]
+
+    def restore():
+        for k, v in host.items():
+            setattr(pool, k, v.copy())
+        for dst, src in zip(state, saved):
+            dst.copy_(src)
+
+    return pool, restore
+
+
+def _step_times(variants, paged: bool, prompts, tag: str) -> dict:
+    """bf16 greedy decode step (W = 8 replay / 8) of every (label,
+    model, cfg overrides) in ``variants``: each pool is filled and its
+    graph captured first, then the replays are timed in turns (each
+    variant in order, then in reverse) and the two medians averaged."""
+    pools = {}
+    for label, model, over in variants:
+        with _serving_cfg(model, **over):
+            pool, restore = _filled_pool(model, paged, prompts)
+            restore()
+            pool.step(8, False)
+        pools[label] = (pool, pool._step_key(8, False), restore)
+    times = {label: [] for label in pools}
+    order = list(pools)
+    for label in order + order[::-1]:
+        pool, key, restore = pools[label]
+        times[label].append(_replay_ms(pool, key, restore) / 8)
+    out = {label: sum(t) / 2 for label, t in times.items()}
+    where = "paged" if paged else "fixed-lane"
+    print(f"[{tag}] bf16 greedy decode step on the {where} pool, 8 slots "
+          f"at positions {min(map(len, prompts))}-"
+          f"{max(map(len, prompts)) + 7} (W=8 replay / 8, two turns): "
+          + ", ".join(f"{k} {v:.4f} ms ({times[k][0]:.4f} / "
+                      f"{times[k][1]:.4f})" for k, v in out.items()))
+    del pools
+    _release()
+    return out
+
+
+def _int8_f32_check(model_f32, name: str) -> dict:
+    """float32, ``--int8-weights --int8-kv``: 6 concurrent requests
+    (every odd one sampled, position-keyed), one extending a prefix
+    registered by ``prefill_prompt`` (a radix hit) and one speculative
+    (K = 4, the draft a 4-layer cut, also int8), through ``ModelServer``
+    on the fixed-lane and the paged pool, each equal to its solo run
+    under the tie rule.  Returns the flash launches of the engine
+    runs."""
+    import copy
+
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.ops.quant import quantize_params
+    from polyaxon_tpu_torch.serving import ModelServer
+
+    qf = quantize_params(copy.deepcopy(model_f32))
+    draft = quantize_params(_cut_draft(model_f32, name, 4))
+    vocab = model_f32.cfg.vocab_size
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, vocab, n).tolist()
+               for n in rng.randint(16, 201, 6)]
+    sys_p = rng.randint(0, vocab, 64).tolist()
+    bodies = [dict({"prompt": p, "max_new_tokens": 24},
+                   **({**SAMPLED, "seed": i} if i % 2 else {}))
+              for i, p in enumerate(prompts)]
+    bodies.append({"prompt": sys_p + rng.randint(0, vocab, 12).tolist(),
+                   "max_new_tokens": 24})
+    bodies.append({"prompt": prompts[0], "max_new_tokens": 24,
+                   "speculative": True, "spec_k": SPEC_K})
+    counts = {}
+    with _serving_cfg(qf, kv_cache_int8=True), \
+            _serving_cfg(draft, kv_cache_int8=True), torch.no_grad():
+        want = []
+        for b in bodies:
+            if b.get("speculative"):
+                out = G.generate_speculative(qf, draft, [b["prompt"]],
+                                             max_new_tokens=24, k=SPEC_K)
+            elif b.get("temperature"):
+                out = G.generate_positional(qf, [b["prompt"]],
+                                            max_new_tokens=24,
+                                            seed=b["seed"], **SAMPLED)
+            else:
+                out = G.generate(qf, [b["prompt"]], max_new_tokens=24)
+            want.append([out[0, len(b["prompt"]):].tolist()])
+        for label, kw in (("fixed-lane", {}), ("paged", {"kv_paged": True})):
+            ms = ModelServer(qf, model_name=name, n_slots=4,
+                             prefill_chunk=64, decode_window=8,
+                             draft_model=draft, spec_k=SPEC_K, **kw)
+            try:
+                ms.prefill_prompt({"prompt": sys_p})
+                _zero_counts()
+                got, secs = _concurrent(ms, bodies)
+                counts[label] = _counts()
+                info = ms.info()
+            finally:
+                ms.close()
+            ties = _same_tokens(qf, "int8", bodies, want,
+                                [g["new_tokens"] for g in got])
+            if info["prefix_hits"] < 1 or got[6].get("prefix_hit_len") != 64:
+                raise AssertionError(f"int8 {label}: no prefix hit "
+                                     f"({info['prefix_hits']})")
+            print(f"[int8] float32 --int8-weights --int8-kv, {label} pool: "
+                  f"8 concurrent requests (3 sampled, 1 on a 64-token "
+                  f"prefix hit, 1 speculative with an int8 4-layer draft) "
+                  f"in {secs:.2f} s equal solo ({8 - ties} exactly, {ties} "
+                  f"by the tie rule); flash launches {counts[label]}")
+    del qf, draft
+    _release()
+    return counts
+
+
+def phase_int8(model, model_f32, name: str = "gpt2-medium") -> dict:
+    """GPT-2 medium served with int8 weights and the int8 KV cache:
+    the bytes as stored against bf16 (weights: ``quantized_bytes``; the
+    KV cache of 8 slots); the float32 exactness check
+    (``_int8_f32_check``); the bf16 decode step for plain, int8 KV,
+    int8 weights and both on the fixed-lane and the paged pool
+    (``_step_times``); a 16-request HTTP mixed load on the model
+    ``serve --int8-weights --int8-kv --kv-paged`` builds
+    (``cli.main._build_serving_model``).  Returns the step times, the
+    load's record and the flash launches of each path."""
+    import copy
+
+    from polyaxon_tpu_torch.cli.main import _build_serving_model
+    from polyaxon_tpu_torch.ops.quant import quantize_params, \
+        quantized_bytes
+
+    t0 = time.perf_counter()
+    qmodel = quantize_params(copy.deepcopy(model))
+    stored, bf16 = quantized_bytes(qmodel)
+    kv_plain = _cache_bytes(model, 8)
+    with _serving_cfg(model, kv_cache_int8=True):
+        kv_int8 = _cache_bytes(model, 8)
+    print(f"[int8] {name}: weights as stored {stored} bytes against "
+          f"{bf16} in bf16 ({stored / bf16:.4f}); KV cache of 8 slots x "
+          f"{model.cfg.max_position} positions: int8 {kv_int8} bytes "
+          f"against {kv_plain} ({kv_int8 / kv_plain:.4f})")
+    counts = {"engine": _int8_f32_check(model_f32, name)}
+    print(f"[time] int8: float32 checks {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, model.cfg.vocab_size, n).tolist()
+               for n in rng.randint(64, 513, 8)]
+    variants = (("plain", model, {}),
+                ("int8 KV", model, {"kv_cache_int8": True}),
+                ("int8 weights", qmodel, {}),
+                ("both", qmodel, {"kv_cache_int8": True}))
+    steps = {pool: _step_times(variants, pool == "paged", prompts, "int8")
+             for pool in ("fixed", "paged")}
+    del qmodel, variants
+    _release()
+    print(f"[time] int8: step times {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served = _build_serving_model(name, 1, 0, "cuda", kv_int8=True,
+                                  int8_weights=True)
+    rng = np.random.RandomState(0)
+    bodies = _mixed([{"prompt": rng.randint(
+        0, model.cfg.vocab_size, n).tolist(), "max_new_tokens": 64}
+        for n in rng.randint(64, 513, 16)])
+    rec, (srv, ms, _) = _http_load(served, "int8 mixed paged", bodies,
+                                   sampled_too=True, warm_requests=1,
+                                   idle_share=False, kv_paged=True)
+    _stop(srv, ms)
+    counts["http"] = rec["flash_launches"]
+    del served
+    _release()
+    print(f"[int8] serve --int8-weights --int8-kv --kv-paged: 16 mixed "
+          f"requests {rec['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{rec['ttft_p50_ms']:.1f} ms; flash launches {counts['http']}")
+    print(f"[time] int8: HTTP load {time.perf_counter() - t0:.1f} s")
+    return {"step_ms": steps, "http": rec, "flash_launches": counts}
+
+
+def phase_int8_llama(model) -> dict:
+    """TinyLlama-1.1B's bytes under int8 weights and int8 KV, and its
+    bf16 decode step for plain, int8 KV, int8 weights and both on the
+    paged pool."""
+    import copy
+
+    from polyaxon_tpu_torch.ops.quant import quantize_params, \
+        quantized_bytes
+
+    t0 = time.perf_counter()
+    qmodel = quantize_params(copy.deepcopy(model))
+    stored, bf16 = quantized_bytes(qmodel)
+    kv_plain = _cache_bytes(model, 8)
+    with _serving_cfg(model, kv_cache_int8=True):
+        kv_int8 = _cache_bytes(model, 8)
+    print(f"[int8] {LLAMA}: weights as stored {stored} bytes against "
+          f"{bf16} in bf16 ({stored / bf16:.4f}); KV cache of 8 slots x "
+          f"{model.cfg.max_position} positions: int8 {kv_int8} bytes "
+          f"against {kv_plain} ({kv_int8 / kv_plain:.4f})")
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, model.cfg.vocab_size, n).tolist()
+               for n in rng.randint(64, 513, 8)]
+    steps = _step_times((("plain", model, {}),
+                         ("int8 KV", model, {"kv_cache_int8": True}),
+                         ("int8 weights", qmodel, {}),
+                         ("both", qmodel, {"kv_cache_int8": True})),
+                        True, prompts, "int8 llama")
+    del qmodel
+    _release()
+    print(f"[time] int8 llama: {time.perf_counter() - t0:.1f} s")
+    return steps
+
+
+def phase_ring(model) -> dict:
+    """The ring cache at TinyLlama's width with ``sliding_window=511``.
+
+    float32 at 4 layers (the depth cut): a greedy and a sampled session,
+    each a 1,536-token prompt and 768 new tokens (2,304 positions, past
+    ``max_position`` 2048), solo on the ring == the same weights with a
+    plain cache of ``max_position`` 4096 (RoPE has no table) == the
+    fixed-lane engine on the ring (2 slots), under the tie rule, with
+    no flash launch.  bf16 at full depth (``model``): the ring's cache
+    bytes against the plain cache's, the decode step at positions over
+    2048 (and the plain windowed cache's below 2048), and
+    ``serve --kv-ring --kv-paged`` and a paged engine refused."""
+    import click
+
+    from polyaxon_tpu_torch.cli.main import cli
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.serving import (DecodeEngine, ModelServer,
+                                            SchedulerPolicy)
+
+    t0 = time.perf_counter()
+    spec = get_model(LLAMA)
+    window = {"sliding_window": 511}
+    ring = spec.init_params(seed=0, device="cuda", dtype=torch.float32,
+                            num_layers=4, kv_cache_ring=True, **window)
+    plain = spec.make_model(device="cuda", dtype=torch.float32,
+                            num_layers=4, max_position=4096, **window)
+    plain.load_state_dict(ring.state_dict())
+    plain.eval().requires_grad_(False)
+    vocab = ring.cfg.vocab_size
+    rng = np.random.RandomState(12)
+    bodies = [{"prompt": rng.randint(0, vocab, 1536).tolist(),
+               "max_new_tokens": 768},
+              {"prompt": rng.randint(0, vocab, 1536).tolist(),
+               "max_new_tokens": 768, **SAMPLED, "seed": 1}]
+    solo, wide = [], []
+    with torch.no_grad():
+        for b in bodies:
+            for m, out in ((ring, solo), (plain, wide)):
+                if b.get("temperature"):
+                    t = G.generate_positional(m, [b["prompt"]],
+                                              max_new_tokens=768, seed=1,
+                                              **SAMPLED)
+                else:
+                    t = G.generate(m, [b["prompt"]], max_new_tokens=768)
+                out.append([t[0, 1536:].tolist()])
+    ties = _same_tokens(ring, "ring", bodies, wide, solo)
+    ms = ModelServer(ring, model_name=LLAMA, n_slots=2, prefill_chunk=512,
+                     decode_window=8)
+    try:
+        _zero_counts()
+        got, secs = _concurrent(ms, bodies)
+        counts = _counts()
+        lane = ms.engine.slots._k.shape[2]
+    finally:
+        ms.close()
+    ties += _same_tokens(ring, "ring", bodies, solo,
+                         [g["new_tokens"] for g in got])
+    if any(counts.values()) or lane != 512:
+        raise AssertionError(f"ring engine: flash launches {counts}, lane "
+                             f"{lane}")
+    print(f"[ring] float32 {LLAMA} width, 4 layers, window 511, ring of "
+          f"512 slots: a greedy and a sampled session of 1536 + 768 tokens"
+          f" (past max_position 2048): solo ring == plain cache of "
+          f"max_position 4096 == fixed-lane engine ({secs:.2f} s, lanes "
+          f"of {lane} positions; {ties} tokens by the tie rule); flash "
+          f"launches {counts}")
+    del ring, plain
+    _release()
+    print(f"[time] ring: float32 sessions {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with _serving_cfg(model, kv_cache_ring=True, **window):
+        ring_bytes = _cache_bytes(model, 8)
+        rng = np.random.RandomState(3)
+        long = [rng.randint(0, vocab, n).tolist()
+                for n in rng.randint(2100, 2401, 8)]
+        ring_ms = _step_times((("ring", model, {}),), False, long, "ring")
+        try:
+            DecodeEngine(model, autostart=False, policy=SchedulerPolicy(
+                n_slots=2, kv_paged=True))
+            raise AssertionError("a paged engine took a ring model")
+        except ValueError as e:
+            refused = str(e)
+    with _serving_cfg(model, **window):
+        plain_bytes = _cache_bytes(model, 8)
+        short = [rng.randint(0, vocab, n).tolist()
+                 for n in rng.randint(1500, 1901, 8)]
+        plain_ms = _step_times((("plain window", model, {}),), False,
+                               short, "ring")
+    try:
+        cli.main(["serve", "--model", "mistral-tiny", "--kv-ring",
+                  "--kv-paged"], standalone_mode=False)
+        raise AssertionError("serve --kv-ring --kv-paged was not refused")
+    except click.ClickException as e:
+        cli_refused = e.format_message()
+    print(f"[ring] bf16 {LLAMA}, window 511, 8 slots: ring cache "
+          f"{ring_bytes} bytes against the plain cache's {plain_bytes} "
+          f"({ring_bytes / plain_bytes:.4f}); decode step "
+          f"{ring_ms['ring']:.4f} ms past position 2048 (ring), "
+          f"{plain_ms['plain window']:.4f} ms below it (plain); paged "
+          f"refused: engine '{refused}', serve '{cli_refused}'")
+    print(f"[time] ring: bf16 {time.perf_counter() - t0:.1f} s")
+    return {"flash_launches": counts, "step_ms": {**ring_ms, **plain_ms},
+            "bytes": (ring_bytes, plain_bytes)}
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3437,6 +3841,8 @@ def main(argv=None) -> int:
     mark("speculative decoding")
     beam = phase_beam(model_f32)
     mark("beam search")
+    int8 = phase_int8(model, model_f32)
+    mark("int8 weights and int8 KV")
     del model, model_f32
     _release()
     train_counts, train_secs = phase_train_entry()
@@ -3460,6 +3866,10 @@ def main(argv=None) -> int:
     mark("llama prefix cache")
     llama_spec = phase_llama_speculative(model_f32)
     mark("llama speculative decoding")
+    int8_llama = phase_int8_llama(model)
+    mark("llama int8")
+    ring = phase_ring(model)
+    mark("ring cache")
     del model
     weights = model_f32.state_dict()
     del model_f32
@@ -3511,7 +3921,13 @@ def main(argv=None) -> int:
                 "llama_http_serving_paged": llama_http[
                     "llama mixed paged"]["flash_launches"][name],
                 "llama_prefix_cache_paged": llama_prefix[4][
-                    "flash_launches"][name]},
+                    "flash_launches"][name],
+                "int8_engine": int8["flash_launches"]["engine"][
+                    "fixed-lane"][name],
+                "int8_engine_paged": int8["flash_launches"]["engine"][
+                    "paged"][name],
+                "int8_http_paged": int8["flash_launches"]["http"][name],
+                "ring_engine": ring["flash_launches"][name]},
             **rec, "kernel_ms": rec["ms"]})
     print(f"[llama] decode step ms (bf16, 8 slots, W=8 replay): "
           + ", ".join(f"{k} {v:.3f}" for k, v in llama_step_ms.items())
@@ -3526,6 +3942,13 @@ def main(argv=None) -> int:
               f"acceptance {r['acceptance']:.3f}"
               for d, r in spec["step_ms"].items())
           + f"; HTTP {spec['http']['tok_per_s']:.1f} tok/s")
+    print(f"[int8] bf16 decode step ms (8 slots, W=8 replay / 8): "
+          + "; ".join(f"gpt2-medium {pool}: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in ms_.items())
+              for pool, ms_ in int8["step_ms"].items())
+          + f"; {LLAMA} paged: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in int8_llama.items())
+          + f"; ring past 2048: {ring['step_ms']['ring']:.4f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ group lists, compares and manages the runs.  Both are the JAX package's
 commands (``polyaxon_tpu/cli/main.py``) over the port's own copies of the
 orchestration layers; ``run`` does no device work itself: the
 polyaxonfile's command decides where its child runs.  The JAX package's
-other commands (``check``, ``doctor``, ``agent``, ``deploy`` and more)
-are not ported yet (ROADMAP Queue 1: The deployment twin).
+other commands are not ported yet: ``check`` (ROADMAP Queue 1: The
+static checker), ``route`` (The router), and ``doctor``, ``agent``,
+``deploy`` and the rest (The deployment twin).
 
 Port of ``polyaxon_tpu/cli/main.py``'s ``generate`` command (greedy,
 position-keyed sampled, ``--beams`` beam search and ``--draft-model``
@@ -17,11 +18,16 @@ speculative decoding) and its ``serve`` command (the
 continuous-batching HTTP server over the fixed-lane or the paged KV
 pool, with the prefix cache behind ``POST /prefill``, the engine
 supervisor, ``--fault-plan`` and, with ``--draft-model``, speculative
-requests in the engine's spec slots).  Both serve random-init weights from seed 0, or the float32
-master weights of a training checkpoint (``--checkpoint DIR``) cast to
-the model's serving dtype.  The ``generate`` flags of the reference
-that the port does not carry yet are kept and refused by name, so a
-user learns what is missing rather than getting a different decode.
+requests in the engine's spec slots).  Both serve random-init weights
+from seed 0, or the float32 master weights of a training checkpoint
+(``--checkpoint DIR``) cast to the model's serving dtype, with the
+serving options: ``--int8-weights`` (quantized after loading, the draft
+too), ``--int8-kv`` and, for a sliding-window model, ``--kv-ring``
+(``serve --kv-ring-slack``; ``generate`` gives a ring ``spec_k - 1``
+spare slots with ``--draft-model``).  ``serve`` carries every flag of
+the reference's; those whose feature is not ported yet are kept at
+their defaults and refused by name with their ROADMAP item, so a user
+learns what is missing rather than getting a different server.
 """
 
 from __future__ import annotations
@@ -76,10 +82,15 @@ def _parse_prompt(prompt: str):
 
 def _build_serving_model(name: str, batch_size: int, seed: int = 0,
                          device=None, ckpt_dir: Optional[str] = None,
-                         dtype=None):
-    """Zoo model on ``device``: random weights from ``seed``, or the
-    ``params`` of the newest checkpoint under ``ckpt_dir`` (the float32
-    master weights ``train`` saves, cast to the serving dtype).
+                         dtype=None, kv_int8: bool = False,
+                         int8_weights: bool = False,
+                         kv_ring: bool = False, kv_ring_slack: int = 0):
+    """Zoo model on ``device`` with the serving options applied: random
+    weights from ``seed``, or the ``params`` of the newest checkpoint
+    under ``ckpt_dir`` (the float32 master weights ``train`` saves,
+    cast to the serving dtype); then the int8 KV / ring config fields
+    (``kv_int8``, ``kv_ring`` with ``kv_ring_slack`` spare slots) and,
+    after loading, ``int8_weights`` (``ops.quant.quantize_params``).
     ``dtype`` overrides the config's serving dtype."""
     from polyaxon_tpu_torch import default_device
     from polyaxon_tpu_torch.models.registry import get_model
@@ -88,24 +99,63 @@ def _build_serving_model(name: str, batch_size: int, seed: int = 0,
         spec = get_model(name)
     except KeyError as e:
         raise click.ClickException(str(e.args[0]))
-    kw = {} if dtype is None else {"dtype": dtype}
-    if not ckpt_dir:
-        return spec.init_params(batch_size=batch_size, seed=seed,
-                                device=device, **kw)
-    from polyaxon_tpu_torch.checkpoint import CheckpointManager
-
+    serving = {}
+    if kv_int8:
+        serving["kv_cache_int8"] = True
+    if kv_ring:
+        serving["kv_cache_ring"] = True
+        if kv_ring_slack:
+            # Speculative rounds on a ring need spare slots for their
+            # rollback overwrites (generate_speculative's guard).
+            serving["kv_cache_ring_slack"] = int(kv_ring_slack)
+    kw = dict(serving, **({} if dtype is None else {"dtype": dtype}))
     try:
-        state = CheckpointManager(directory=ckpt_dir).restore()
-    except FileNotFoundError as e:
-        raise click.ClickException(str(e))
-    restored = state.get("params") if isinstance(state, dict) else None
-    if restored is None:
-        raise click.ClickException(
-            f"checkpoint under {ckpt_dir} has no 'params'")
-    # Restoring replaces the weights: no random init to discard.
-    model = spec.make_model(device=default_device(device), **kw)
-    model.load_state_dict(restored, strict=True)   # casts on copy
-    return model.eval().requires_grad_(False)
+        if ckpt_dir:
+            # Restoring replaces the weights: no random init to discard.
+            model = spec.make_model(device=default_device(device), **kw)
+        else:
+            model = spec.init_params(batch_size=batch_size, seed=seed,
+                                     device=device, **kw)
+    except TypeError:
+        if serving:
+            # Name only the fields the family lacks: --int8-kv
+            # --kv-ring on gpt2 fails on the ring alone.
+            import dataclasses as _dc
+
+            cfg = spec.make_model(device="meta").cfg
+            known = {f.name for f in _dc.fields(cfg)}
+            bad = sorted(k for k in serving if k not in known) \
+                or sorted(serving)
+            raise click.ClickException(
+                f"{name} does not support {bad} (no such config "
+                f"field{'s' if len(bad) > 1 else ''} on this model "
+                f"family)")
+        raise
+    except ValueError as e:
+        if serving:
+            # The config's own validation of a passed flag (kv_cache_ring
+            # on a model with no sliding window): a clean CLI error.
+            raise click.ClickException(str(e))
+        raise
+    if ckpt_dir:
+        from polyaxon_tpu_torch.checkpoint import CheckpointManager
+
+        try:
+            state = CheckpointManager(directory=ckpt_dir).restore()
+        except FileNotFoundError as e:
+            raise click.ClickException(str(e))
+        restored = state.get("params") if isinstance(state, dict) \
+            else None
+        if restored is None:
+            raise click.ClickException(
+                f"checkpoint under {ckpt_dir} has no 'params'")
+        model.load_state_dict(restored, strict=True)   # casts on copy
+        model = model.eval().requires_grad_(False)
+    if int8_weights:
+        from polyaxon_tpu_torch.ops.quant import quantize_params
+
+        quantize_params(model)
+    return model
 
 
 def run_generate(model, model_name: str, rows, *, max_new_tokens: int,
@@ -161,6 +211,9 @@ def run_generate(model, model_name: str, rows, *, max_new_tokens: int,
     out = out.cpu()
     dt = time.perf_counter() - t0
     p_len = toks.shape[1]
+    cfg = model.cfg
+    from polyaxon_tpu_torch.ops.quant import has_quantized
+
     return {
         "model": model_name,
         "tokens": out.tolist(),
@@ -168,16 +221,12 @@ def run_generate(model, model_name: str, rows, *, max_new_tokens: int,
         "wall_s": round(dt, 3),
         "tok_per_sec": round(len(rows) * max_new_tokens / dt, 1),
         "backend": dev.type,
+        **({"int8_weights": True} if has_quantized(model) else {}),
+        **({"int8_kv": True} if getattr(cfg, "kv_cache_int8", False)
+           else {}),
+        **({"kv_ring": True} if getattr(cfg, "kv_cache_ring", False)
+           else {}),
     }
-
-
-# Flags of the reference's `generate` and `serve` the port refuses when
-# set to anything but their default: (option, default, ROADMAP item).
-_INT8 = "int8 weights and int8 KV"
-_NOT_PORTED = (
-    ("--int8-weights", False, _INT8), ("--int8-kv", False, _INT8),
-    ("--kv-ring", False, _INT8),
-)
 
 
 def _check_spec_flags(draft_model, draft_checkpoint, spec_k, beams=1,
@@ -242,9 +291,15 @@ def _refuse_not_ported(table, values) -> None:
                    "DIR (default: random init from seed 0).")
 @click.option("--spec-k", default=4, type=int,
               help="Draft proposals per speculative round.")
-@click.option("--int8-weights", is_flag=True, default=False)
-@click.option("--int8-kv", is_flag=True, default=False)
-@click.option("--kv-ring", is_flag=True, default=False)
+@click.option("--int8-weights", is_flag=True, default=False,
+              help="Weight-only int8 (int8 weights + bf16 per-channel "
+                   "scales, dequantized where each layer reads them).")
+@click.option("--int8-kv", is_flag=True, default=False,
+              help="int8 KV cache (per-token, per-head bf16 scales).")
+@click.option("--kv-ring", is_flag=True, default=False,
+              help="O(window) ring KV cache for sliding-window "
+                   "models: stream past max_position (composes with "
+                   "beam, --int8-kv and --draft-model).")
 @click.option("--seed", default=0, type=int,
               help="Sampling seed (row r's i-th token draws with "
                    "fold_in(fold_in(PRNGKey(seed), r), i)).")
@@ -260,12 +315,9 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
     """Decode with a zoo model (greedy, sampled with --temperature, beam
     search with --beams, speculative with --draft-model); emits one
     JSON object: tokens plus timing."""
-    values = {"--int8-weights": int8_weights, "--int8-kv": int8_kv,
-              "--kv-ring": kv_ring}
     if temperature < 0.0:
         raise click.ClickException(
             f"temperature must be >= 0; got {temperature}")
-    _refuse_not_ported(_NOT_PORTED, values)
     _check_spec_flags(draft_model, draft_checkpoint, spec_k, beams,
                       temperature, top_k, top_p)
     if beams > 1 and (temperature != 0.0 or top_k is not None
@@ -275,11 +327,17 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
             "or --top-p)")
     rows = _parse_prompt(prompt)
     device = "cpu" if cpu else None
+    # Speculative rounds on a ring overwrite up to spec_k - 1 in-window
+    # slots on a rollback: both models get that slack.
+    ring_slack = (spec_k - 1) if (kv_ring and draft_model) else 0
+    opts = dict(kv_int8=int8_kv, int8_weights=int8_weights,
+                kv_ring=kv_ring, kv_ring_slack=ring_slack)
     try:
         model = _build_serving_model(model_name, len(rows), 0, device,
-                                     ckpt_dir=checkpoint)
+                                     ckpt_dir=checkpoint, **opts)
         draft = None if draft_model is None else _build_serving_model(
-            draft_model, len(rows), 0, device, ckpt_dir=draft_checkpoint)
+            draft_model, len(rows), 0, device, ckpt_dir=draft_checkpoint,
+            **opts)
     except RuntimeError as e:  # no CUDA device and no --cpu
         raise click.ClickException(str(e))
     click.echo(json.dumps(run_generate(
@@ -290,11 +348,23 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
 
 
 # Flags of the reference's `serve` for features that come with later
-# slices, refused by name when set: (option, default, ROADMAP item).
+# slices, kept at the reference's defaults and refused by name when
+# set: (option, default, ROADMAP item).
+_SPILL = "the spill tier and its wire format"
+_PROFILE = "ProfileSession on torch.profiler"
 _SERVE_NOT_PORTED = (
-    ("--kv-host-spill-bytes", 0, "the spill tier and its wire format"),
-    ("--int8-weights", False, _INT8), ("--int8-kv", False, _INT8),
-    ("--kv-ring", False, _INT8),
+    ("--kv-host-spill-bytes", 0, _SPILL),
+    ("--prefix-fetch", False, _SPILL),
+    ("--prefix-fetch-timeout", 5.0, _SPILL),
+    ("--prefix-fetch-min-tokens", 16, _SPILL),
+    ("--prefix-fetch-remat-ratio", 0.26, _SPILL),
+    ("--batching", "continuous", "legacy coalescing"),
+    ("--mesh", None, "parallelism and meshes"),
+    ("--role", "both", "the router"),
+    ("--trace-file", None, _PROFILE),
+    ("--profile-dir", None, _PROFILE),
+    ("--profile-every", 0, _PROFILE),
+    ("--profile-steps", 8, _PROFILE),
 )
 
 
@@ -345,6 +415,31 @@ _SERVE_NOT_PORTED = (
 @click.option("--kv-host-spill-bytes", default=0, type=int,
               help="With --kv-paged: the prefix store's host spill "
                    "tier (not ported yet; refused when set).")
+@click.option("--prefix-fetch/--no-prefix-fetch", default=False,
+              help="The fleet prefix tier's wire-fetch client (not "
+                   "ported yet; refused when set).")
+@click.option("--prefix-fetch-timeout", default=5.0, type=float,
+              help="Wire-fetch timeout in seconds (not ported yet; "
+                   "refused when changed).")
+@click.option("--prefix-fetch-min-tokens", default=16, type=int,
+              help="Wire-fetch policy floor (not ported yet; refused "
+                   "when changed).")
+@click.option("--prefix-fetch-remat-ratio", default=0.26, type=float,
+              help="Wire-fetch policy curve (not ported yet; refused "
+                   "when changed).")
+@click.option("--role", default="both",
+              type=click.Choice(["prefill", "decode", "both"]),
+              help="Disaggregated-serving role (not ported yet: only "
+                   "'both', the monolithic replica).")
+@click.option("--max-batch", default=8, type=int,
+              help="Most prompt rows one /generate may carry.")
+@click.option("--batching", default="continuous",
+              type=click.Choice(["continuous", "coalesce", "off"]),
+              help="Batching policy: continuous (the slot engine; "
+                   "coalesce and off are not ported yet).")
+@click.option("--mesh", "mesh_arg", default=None,
+              help="Serve over a device mesh (not ported yet; refused "
+                   "when set).")
 @click.option("--prefix-cache", default=4, type=int,
               help="Prefix-cache entries (POST /prefill registers a "
                    "system prompt; matching /generate requests skip "
@@ -374,6 +469,18 @@ _SERVE_NOT_PORTED = (
               help="Telemetry ring capacity in trace events (GET "
                    "/trace). 0 disables span recording; /metrics "
                    "histograms stay live.")
+@click.option("--trace-file", default=None, type=click.Path(),
+              help="Dump the telemetry ring as JSONL at shutdown (not "
+                   "ported yet; refused when set).")
+@click.option("--profile-dir", default=None, type=click.Path(),
+              help="POST /profile/start|stop traces (not ported yet; "
+                   "refused when set).")
+@click.option("--profile-every", default=0, type=int,
+              help="The flight recorder's period in decode dispatches "
+                   "(not ported yet; refused when set).")
+@click.option("--profile-steps", default=8, type=int,
+              help="Dispatches per flight-recorder window (not ported "
+                   "yet; refused when changed).")
 @click.option("--sanitize", is_flag=True, default=False,
               help="Wrap the serving locks in the lock-order sanitizer "
                    "(raises on lock-order inversion, reports in /info). "
@@ -429,12 +536,17 @@ _SERVE_NOT_PORTED = (
                    "requests that pass no spec_k, and the engine's "
                    "cap: requests asking for more decode solo.")
 @click.option("--int8-weights", is_flag=True, default=False,
-              help="int8 weights (not ported yet; refused when set).")
+              help="Weight-only int8 (int8 weights + bf16 per-channel "
+                   "scales, dequantized where each layer reads them).")
 @click.option("--int8-kv", is_flag=True, default=False,
-              help="int8 KV cache (not ported yet; refused when set).")
+              help="int8 KV cache (per-token, per-head bf16 scales).")
 @click.option("--kv-ring", is_flag=True, default=False,
-              help="O(window) ring cache for sliding-window models (not "
-                   "ported yet; refused when set).")
+              help="O(window) ring KV cache (sliding-window models; "
+                   "sessions stream past max_position).")
+@click.option("--kv-ring-slack", default=0, type=int,
+              help="Spare ring slots beyond the window; speculative "
+                   "requests need >= spec_k - 1 (default 0 rejects "
+                   "them).")
 @click.option("--cpu", is_flag=True, default=False,
               help="Run on the CPU (default: the CUDA device).")
 def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
@@ -446,7 +558,10 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
           sanitize_report, stall_timeout, stall_dir, forensics,
           exemplar_k, forensics_dir, fault_plan_path, no_supervise,
           draft_model, draft_checkpoint, spec_k, int8_weights, int8_kv,
-          kv_ring, cpu):
+          kv_ring, kv_ring_slack, prefix_fetch, prefix_fetch_timeout,
+          prefix_fetch_min_tokens, prefix_fetch_remat_ratio, role,
+          max_batch, batching, mesh_arg, trace_file, profile_dir,
+          profile_every, profile_steps, cpu):
     """Serve a zoo model over HTTP: greedy and sampled POST /generate
     through the continuous-batching engine (step-boundary admission,
     eos eviction, interleaved chunked prefill, fused decode windows,
@@ -503,16 +618,29 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
         raise click.ClickException("--request-timeout must be > 0")
     if request_history < 0:
         raise click.ClickException("--request-history must be >= 0")
+    if max_batch < 1:
+        raise click.ClickException("--max-batch must be >= 1")
     _refuse_not_ported(_SERVE_NOT_PORTED, {
         "--kv-host-spill-bytes": kv_host_spill_bytes,
-        "--int8-weights": int8_weights, "--int8-kv": int8_kv,
-        "--kv-ring": kv_ring})
+        "--prefix-fetch": prefix_fetch,
+        "--prefix-fetch-timeout": prefix_fetch_timeout,
+        "--prefix-fetch-min-tokens": prefix_fetch_min_tokens,
+        "--prefix-fetch-remat-ratio": prefix_fetch_remat_ratio,
+        "--batching": batching, "--mesh": mesh_arg, "--role": role,
+        "--trace-file": trace_file, "--profile-dir": profile_dir,
+        "--profile-every": profile_every,
+        "--profile-steps": profile_steps})
     _check_spec_flags(draft_model, draft_checkpoint, spec_k)
     # Paged-KV flag validation: fail fast, before the model build.
     if kv_page_tokens < 8:
         raise click.ClickException("--kv-page-tokens must be >= 8")
     if kv_pages is not None and kv_pages < 1:
         raise click.ClickException("--kv-pages must be >= 1")
+    if kv_paged and kv_ring:
+        raise click.ClickException(
+            "--kv-paged needs a plain/int8 max_position cache; it "
+            "cannot combine with --kv-ring (the ring is already "
+            "O(window))")
     if kv_lazy and not kv_paged:
         raise click.ClickException(
             "--kv-lazy requires --kv-paged (lazy growth is a page-"
@@ -520,38 +648,44 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
     from polyaxon_tpu_torch.serving import ModelServer, make_server
 
     device = "cpu" if cpu else None
+    opts = dict(kv_int8=int8_kv, int8_weights=int8_weights,
+                kv_ring=kv_ring, kv_ring_slack=kv_ring_slack)
     try:
         model = _build_serving_model(model_name, 1, 0, device,
-                                     ckpt_dir=checkpoint)
+                                     ckpt_dir=checkpoint, **opts)
         draft = None if draft_model is None else _build_serving_model(
-            draft_model, 1, 0, device, ckpt_dir=draft_checkpoint)
+            draft_model, 1, 0, device, ckpt_dir=draft_checkpoint, **opts)
     except RuntimeError as e:  # no CUDA device and no --cpu
         raise click.ClickException(str(e))
-    ms = ModelServer(model, model_name=model_name, n_slots=n_slots,
-                     queue_depth=queue_depth, prefill_chunk=prefill_chunk,
-                     decode_window=decode_window,
-                     request_timeout_s=request_timeout,
-                     access_log=access_log,
-                     request_history=request_history,
-                     kv_paged=kv_paged, kv_page_tokens=kv_page_tokens,
-                     kv_pages=kv_pages, kv_lazy=kv_lazy,
-                     prefix_cache=prefix_cache,
-                     default_priority=default_priority,
-                     batch_queue_depth=batch_queue_depth,
-                     queue_deadline_s=queue_deadline_ms / 1e3
-                     if queue_deadline_ms is not None else None,
-                     batch_queue_deadline_s=batch_queue_deadline_ms / 1e3
-                     if batch_queue_deadline_ms is not None else None,
-                     slo_ttft_s=slo_ttft_ms / 1e3
-                     if slo_ttft_ms is not None else None,
-                     trace_buffer=trace_buffer, sanitize=sanitize,
-                     sanitize_max_hold_s=sanitize_max_hold,
-                     sanitize_report=sanitize_report,
-                     stall_timeout_s=stall_timeout, stall_dir=stall_dir,
-                     forensics=forensics, exemplar_k=exemplar_k,
-                     forensics_dir=forensics_dir, fault_plan=fault_plan,
-                     supervise=not no_supervise, draft_model=draft,
-                     spec_k=spec_k)
+    try:
+        ms = ModelServer(model, model_name=model_name, n_slots=n_slots,
+                         max_batch=max_batch,
+                         queue_depth=queue_depth, prefill_chunk=prefill_chunk,
+                         decode_window=decode_window,
+                         request_timeout_s=request_timeout,
+                         access_log=access_log,
+                         request_history=request_history,
+                         kv_paged=kv_paged, kv_page_tokens=kv_page_tokens,
+                         kv_pages=kv_pages, kv_lazy=kv_lazy,
+                         prefix_cache=prefix_cache,
+                         default_priority=default_priority,
+                         batch_queue_depth=batch_queue_depth,
+                         queue_deadline_s=queue_deadline_ms / 1e3
+                         if queue_deadline_ms is not None else None,
+                         batch_queue_deadline_s=batch_queue_deadline_ms / 1e3
+                         if batch_queue_deadline_ms is not None else None,
+                         slo_ttft_s=slo_ttft_ms / 1e3
+                         if slo_ttft_ms is not None else None,
+                         trace_buffer=trace_buffer, sanitize=sanitize,
+                         sanitize_max_hold_s=sanitize_max_hold,
+                         sanitize_report=sanitize_report,
+                         stall_timeout_s=stall_timeout, stall_dir=stall_dir,
+                         forensics=forensics, exemplar_k=exemplar_k,
+                         forensics_dir=forensics_dir, fault_plan=fault_plan,
+                         supervise=not no_supervise, draft_model=draft,
+                         spec_k=spec_k)
+    except ValueError as e:  # e.g. a spec pool over a ring without slack
+        raise click.ClickException(str(e))
     try:
         srv = make_server(host, port, ms)
     except OSError as e:

@@ -12,7 +12,11 @@ for bit, so a seed draws the reference's random bits; keys are int64
 model's K-token rounds verified by one K + 1-wide target forward: greedy,
 the chain-keyed ``rng`` schedule, or the position-keyed ``seed``/``keys``
 schedule the engine's speculative slots share) and ``generate_beam``
-(the cache tiled per beam) are the reference's; ``generate_seq2seq`` and
+(the cache tiled per beam) are the reference's.  Every entry point
+serves int8 weights (dequantized where each module reads them,
+``ops/quant.py``), the int8 KV cache and, for sliding-window models, the
+ring cache, whose sessions skip the ``max_position`` budget checks
+(prefill chunks at ``max_position``).  ``generate_seq2seq`` and
 ``generate_beam_seq2seq`` wait for T5 (ROADMAP Queue 1: the rest of the
 zoo).
 """
@@ -30,16 +34,52 @@ NEG = -1e30
 M32 = 0xFFFFFFFF
 
 
+def _is_ring(model) -> bool:
+    return bool(getattr(model.cfg, "kv_cache_ring", False))
+
+
 def init_cache(model, batch_size: int) -> KVCache:
     """A zeroed decode cache for a decoder-only ``model``:
-    [layers, B, max_position, num_kv_heads, D] in the model's dtype,
-    index 0 (GPT-2's ``num_kv_heads`` is its ``num_heads``)."""
+    [layers, B, cap, num_kv_heads, D] (GPT-2's ``num_kv_heads`` is its
+    ``num_heads``), index 0.  ``cap`` is ``max_position``, or for a ring
+    model (``kv_cache_ring``) ``sliding_window + 1 +
+    kv_cache_ring_slack``, the capacity the reference's one-token
+    ``init_cache`` trace creates.  The entries are in the model's dtype,
+    or int8 with zeroed bf16 scales ([layers, B, cap, H, 1]) under
+    ``kv_cache_int8``.  A ring's position table starts at -1 in every
+    slot (``append_ring_kv_cache``'s contract for unwritten slots; the
+    reference's ``init_cache`` zero-fills it instead, which lets a
+    prompt shorter than the ring attend to position-0 zero entries)."""
     cfg = model.cfg
-    shape = (cfg.num_layers, batch_size, cfg.max_position,
-             cfg.num_kv_heads, cfg.head_dim)
+    ring = _is_ring(model)
+    cap = cfg.sliding_window + 1 + cfg.kv_cache_ring_slack if ring \
+        else cfg.max_position
+    shape = (cfg.num_layers, batch_size, cap, cfg.num_kv_heads,
+             cfg.head_dim)
     dev = model.device
-    return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                   torch.zeros(shape, dtype=cfg.dtype, device=dev))
+    int8 = bool(getattr(cfg, "kv_cache_int8", False))
+    dt = torch.int8 if int8 else cfg.dtype
+    scales = {}
+    if int8:
+        scales = {n: torch.zeros(shape[:-1] + (1,), dtype=torch.bfloat16,
+                                 device=dev)
+                  for n in ("k_scale", "v_scale")}
+    return KVCache(torch.zeros(shape, dtype=dt, device=dev),
+                   torch.zeros(shape, dtype=dt, device=dev),
+                   ring_pos=torch.full((cap,), -1, dtype=torch.long,
+                                       device=dev) if ring else None,
+                   **scales)
+
+
+def _check_budget(model, position: int, new: int, what: str) -> None:
+    """Past ``max_position`` the cache write and GPT-2's ``wpe`` lookup
+    have no slot: refuse up front.  Ring models stream past it by
+    design (RoPE needs no table)."""
+    max_pos = model.cfg.max_position
+    if not _is_ring(model) and position + new > max_pos:
+        raise ValueError(
+            f"{what} ({position}) + max_new_tokens ({new}) exceeds the "
+            f"model's max_position ({max_pos})")
 
 
 def extract_logits(out) -> torch.Tensor:
@@ -420,13 +460,7 @@ def generate(model, prompt, *, max_new_tokens: int,
     if max_new_tokens == 0:
         return prompt
     b, p_len = prompt.shape
-    total = p_len + max_new_tokens
-    if total > cfg.max_position:
-        # Past max_position the cache write and the wpe lookup have no
-        # slot — refuse up front.
-        raise ValueError(
-            f"prompt ({p_len}) + max_new_tokens ({max_new_tokens}) "
-            f"exceeds the model's max_position ({cfg.max_position})")
+    _check_budget(model, p_len, max_new_tokens, "prompt")
     first_logits, cache = _prefill(model, prompt, chunk=prefill_chunk)
     new = generate_continue(
         model, cache, first_logits, p_len, max_new_tokens=max_new_tokens,
@@ -461,10 +495,7 @@ def generate_positional(model, prompt, *, max_new_tokens: int,
     if max_new_tokens == 0:
         return prompt
     b, p_len = prompt.shape
-    if p_len + max_new_tokens > cfg.max_position:
-        raise ValueError(
-            f"prompt ({p_len}) + max_new_tokens ({max_new_tokens}) "
-            f"exceeds the model's max_position ({cfg.max_position})")
+    _check_budget(model, p_len, max_new_tokens, "prompt")
     if keys is None:
         keys = sample_stream_keys(seed, b, device=dev)
     first_logits, cache = _prefill(model, prompt, chunk=prefill_chunk)
@@ -513,11 +544,7 @@ def generate_continue(model, cache: KVCache, last_logits, position: int,
         _check_top_p(top_p)
         _check_top_k(top_k, cfg.vocab_size)
         _check_temperature(temperature)
-        if position + max_new_tokens > cfg.max_position:
-            raise ValueError(
-                f"position ({position}) + max_new_tokens "
-                f"({max_new_tokens}) exceeds the model's max_position "
-                f"({cfg.max_position})")
+        _check_budget(model, position, max_new_tokens, "position")
     rng = _default_rng(rng, last_logits.device)
 
     def apply_step(cache, tok, t):
@@ -549,11 +576,7 @@ def generate_continue_positional(model, cache: KVCache, last_logits,
                              f"{max_new_tokens}")
         _check_positional_sampling(top_k, top_p, temperature,
                                    cfg.vocab_size)
-        if position + max_new_tokens > cfg.max_position:
-            raise ValueError(
-                f"position ({position}) + max_new_tokens "
-                f"({max_new_tokens}) exceeds the model's max_position "
-                f"({cfg.max_position})")
+        _check_budget(model, position, max_new_tokens, "position")
     top_k = top_k or 0
     top_p = top_p or 0.0
     if keys is None:
@@ -580,6 +603,12 @@ def _prefill(model, prompt, chunk: Optional[int] = None,
     if chunk is not None and chunk < 1:
         raise ValueError(f"prefill_chunk must be >= 1; got {chunk}")
     b, p_len = prompt.shape
+    max_pos = model.cfg.max_position
+    if _is_ring(model) and p_len > max_pos:
+        # A ring session streams past max_position, but one forward
+        # still takes at most max_position tokens: chunk there (and
+        # clamp a wider explicit chunk), as the reference does.
+        chunk = min(chunk, max_pos) if chunk else max_pos
     if cache is None:
         cache = init_cache(model, b)
         position = 0
@@ -613,6 +642,19 @@ def _rollback_cache(cache: KVCache, new_index) -> None:
 def _check_spec_fits(models, p_len: int, max_new_tokens: int, k: int):
     for m, nm in models:
         max_pos = m.cfg.max_position
+        if _is_ring(m):
+            # Position-keyed, not capacity-bounded; but a k + 1-wide
+            # verify overwrites the K/V ``cap`` positions back, which a
+            # partial-acceptance rollback puts back inside the window
+            # unless the ring has k - 1 spare slots.
+            slack = m.cfg.kv_cache_ring_slack
+            if slack < k - 1:
+                raise ValueError(
+                    f"speculative decoding with k={k} on a ring-cache "
+                    f"{nm} model needs kv_cache_ring_slack >= {k - 1} "
+                    f"(got {slack}): the verify chunk overwrites up "
+                    f"to k-1 still-in-window slots on a rollback")
+            continue
         # The final round (entered with at most p_len + max_new_tokens
         # - 2 tokens consumed) appends k + 1 entries.
         if p_len + max_new_tokens + k - 1 > max_pos:
@@ -782,11 +824,7 @@ def generate_beam(model, prompt, *, max_new_tokens: int,
     dev = model.device
     prompt = _as_tokens(prompt, dev)
     b, p_len = prompt.shape
-    max_pos = model.cfg.max_position
-    if p_len + max_new_tokens > max_pos:
-        raise ValueError(
-            f"prompt ({p_len}) + max_new_tokens ({max_new_tokens}) "
-            f"exceeds the model's max_position ({max_pos})")
+    _check_budget(model, p_len, max_new_tokens, "prompt")
     first_logits, cache = _prefill(model, prompt, chunk=prefill_chunk)
 
     def apply_step(cache, toks_flat, t):
@@ -804,17 +842,19 @@ def _beam_loop(apply_step, cache: KVCache, first_logits, *, b: int,
                max_new_tokens: int, num_beams: int,
                eos_id: Optional[int], length_penalty: float):
     """Beam search over a prefilled batch-B cache: the cache is tiled to
-    B*K rows, b-major ([layers, B*K, cap, H, D]), and every step gathers
-    its rows by parent.  ``apply_step(cache, toks [B*K, 1], t) ->
-    logits [B*K, V]``.  Returns the generated tokens [B,
-    max_new_tokens]."""
+    B*K rows, b-major ([layers, B*K, cap, H, D]; an int8 cache's scales
+    with them), and every step gathers its rows by parent.  A ring's
+    position table has no batch axis (beams decode in lockstep, so they
+    share it) and is neither tiled nor reordered.  ``apply_step(cache,
+    toks [B*K, 1], t) -> logits [B*K, V]``.  Returns the generated
+    tokens [B, max_new_tokens]."""
     k = num_beams
     dev = first_logits.device
     lp = torch.log_softmax(first_logits.float(), dim=-1)
     vocab = lp.shape[-1]
     scores, first = torch.topk(lp, k, dim=-1)                # [B, K]
-    cache.k = cache.k.repeat_interleave(k, dim=1)
-    cache.v = cache.v.repeat_interleave(k, dim=1)
+    cache = cache.with_leaves([t.repeat_interleave(k, dim=1)
+                               for t in cache.leaves()])
     done = (first == eos_id) if eos_id is not None \
         else torch.zeros((b, k), dtype=torch.bool, device=dev)
     # Per-beam generated length at finish (the length-penalty
@@ -838,8 +878,8 @@ def _beam_loop(apply_step, cache: KVCache, first_logits, *, b: int,
         parent = flat // vocab
         tok = flat % vocab
         flat_parent = (rows + parent).reshape(-1)
-        cache.k = cache.k.index_select(1, flat_parent)
-        cache.v = cache.v.index_select(1, flat_parent)
+        cache = cache.with_leaves([t.index_select(1, flat_parent)
+                                   for t in cache.leaves()])
         done = done.gather(1, parent)
         fin_len = fin_len.gather(1, parent)
         if eos_id is not None:

@@ -9,7 +9,10 @@ GELU in its tanh form (flax's default); the LM head tied to ``wte`` in
 ``param_dtype``: ``cfg.dtype`` for serving, float32 for training, where
 each weight is cast to ``cfg.dtype`` at its use as flax's ``Dense`` and
 ``Embed`` do (an AdamW step of about 1e-3 x lr would round away on a
-bf16 weight).  ``cfg.remat`` recomputes each block in the backward
+bf16 weight).  Served with int8 weights (``ops/quant.py``), ``wte``,
+``wpe``, the dense layers and (at full width) the stacked LayerNorm
+leaves dequantize where they are read: the quantized ``wte`` feeds
+both the lookup and the tied head.  ``cfg.remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the counterpart of ``nn.remat`` with no
 policy).  Sharding hints have no meaning on one device and are
 dropped.  Parameter names follow the flax tree
@@ -29,7 +32,7 @@ from torch import nn
 from .. import default_device
 from ..ops.attention import dot_product_attention
 from .kv_cache import KVCache, LayerCache, append_kv_cache
-from .layers import Dense, refuse_unported, run_stack
+from .layers import Dense, model_device, refuse_unported, run_stack
 
 
 @dataclass(frozen=True)
@@ -41,13 +44,16 @@ class GPT2Config:
     max_position: int = 1024
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # remat: recompute each block in the backward.  Named policies and the
-    # int8 KV cache are not ported yet and are refused (refuse_unported).
+    # remat: recompute each block in the backward.  Named policies are
+    # not ported yet and are refused (refuse_unported).
     remat: bool = False
     remat_policy: Optional[str] = None
     # The flax param layout (stacked [num_layers] vs h_{i}); the port
-    # always holds a ModuleList and the converter reads either layout.
+    # always holds a ModuleList, the converter reads either layout, and
+    # ops.quant.quantize_params picks its scale axes by it.
     scan_layers: bool = True
+    # Serve-time option: an int8 KV cache with per-(token, head) bf16
+    # scales (generate.init_cache builds it; kv_cache.py appends to it).
     kv_cache_int8: bool = False
 
     @property
@@ -149,7 +155,7 @@ class GPT2Model(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.wte.weight.device
+        return model_device(self)
 
     def embed_tokens(self, input_ids,
                      position: Union[int, torch.Tensor, None] = None):

@@ -1,12 +1,19 @@
 """Decode-time KV cache.
 
-Port of ``polyaxon_tpu/models/kv_cache.py``'s :func:`append_kv_cache`
-(plain storage, with the RoPE models' ``rotate`` of the new keys before
-the write) and its paged helpers; int8 KV and the ring cache come with
-a later slice.  Flax keeps the cache in a mutable variable collection;
-here it is an explicit object, :class:`KVCache`, holding every layer's
-keys and values ([layers, B, cap, kv_heads, D]: a grouped-query model
-stores its ``num_kv_heads``) and the shared write index.
+Port of ``polyaxon_tpu/models/kv_cache.py``: :func:`append_kv_cache`
+(the O(max_position) cache, with the RoPE models' ``rotate`` of the new
+keys before the write, and int8 storage), :func:`append_ring_kv_cache`
+(the O(window) ring of sliding-window models, whose sessions stream past
+``max_position``) and the paged helpers.  Flax keeps the cache in a
+mutable variable collection; here it is an explicit object,
+:class:`KVCache`, holding every layer's keys and values
+([layers, B, cap, kv_heads, D]: a grouped-query model stores its
+``num_kv_heads``) and the shared write index.  The cache's own layout
+picks the discipline: int8 storage when it holds ``k_scale``/``v_scale``
+(``[layers, B, cap, kv_heads, 1]`` bf16, one per token and head), the
+ring when it holds ``ring_pos`` (the absolute position each ring slot
+holds, -1 when unwritten; ``generate.init_cache`` builds both from the
+config).
 
 SLOT-INDEXED decode (the serving engine's pool, ``serving/slots.py``):
 a cache whose ``positions`` is a [B] long tensor on the device holds B
@@ -20,20 +27,39 @@ graph with the positions read from a device buffer at replay time.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
+
+from ..ops.quant import symmetric_int8
+
+
+def quantize_chunk(x: torch.Tensor):
+    """Per-(token, head) symmetric int8 over the feature axis:
+    [B, S, H, D] -> (int8 [B, S, H, D], bf16 scale [B, S, H, 1])."""
+    return symmetric_int8(x, dims=(-1,))
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype):
+    """int8 cache entries back to ``dtype``: the product is taken in
+    ``dtype`` (the reference's ``q.astype(k.dtype) *
+    scale.astype(k.dtype)``); unwritten entries hold scale 0."""
+    return q.to(dtype) * scale.to(dtype)
 
 
 @dataclass
 class LayerCache:
     """One layer's view of a :class:`KVCache`: ``k``/``v`` [B, cap, H, D]
-    (views into the stacked tensors, so writes land in the cache) and
-    the number of positions already filled."""
+    (views into the stacked tensors, so writes land in the cache), the
+    number of positions already filled, and the int8 scales and ring
+    table when the cache has them (the ring table is every layer's)."""
     k: torch.Tensor
     v: torch.Tensor
     index: int
     positions: Optional[torch.Tensor] = None
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    ring_pos: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -44,18 +70,84 @@ class KVCache:
     same chunk), not once per layer.  ``positions`` ([B] long, on the
     cache's device) makes it a SLOT cache: row b appends its chunk at
     ``positions[b]``, and ``index`` is neither read nor advanced —
-    the owner (the slot pool) advances the positions."""
+    the owner (the slot pool) advances the positions.
+
+    ``k_scale``/``v_scale`` ([layers, B, cap, H, 1] bf16) make it an
+    int8 cache.  ``ring_pos`` makes it a RING of ``cap`` slots: the
+    absolute position each slot holds (-1: never written), [cap] for a
+    solo cache (rows and layers append in lockstep) and [B, cap] for a
+    slot cache; it advances with the index (:meth:`advance`)."""
     k: torch.Tensor
     v: torch.Tensor
     index: int = 0
     positions: Optional[torch.Tensor] = None
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    ring_pos: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
     def layer(self, i: int) -> LayerCache:
-        return LayerCache(self.k[i], self.v[i], self.index, self.positions)
+        return LayerCache(
+            self.k[i], self.v[i], self.index, self.positions,
+            None if self.k_scale is None else self.k_scale[i],
+            None if self.v_scale is None else self.v_scale[i],
+            self.ring_pos)
+
+    def leaves(self) -> List[torch.Tensor]:
+        """The per-position tensors, [layers, B, cap, H, X] each: keys,
+        values, and the int8 scales when present.  What a slot pool
+        stacks, a page pool pages and a beam reorders."""
+        leaves = [self.k, self.v]
+        if self.k_scale is not None:
+            leaves += [self.k_scale, self.v_scale]
+        return leaves
+
+    @staticmethod
+    def from_leaves(leaves, **kw) -> "KVCache":
+        """The cache whose :meth:`leaves` are ``leaves``."""
+        leaves = list(leaves)
+        scales = leaves[2:4] if len(leaves) > 2 else [None, None]
+        return KVCache(leaves[0], leaves[1], k_scale=scales[0],
+                       v_scale=scales[1], **kw)
+
+    def with_leaves(self, leaves, **kw) -> "KVCache":
+        """This cache's kind (index, positions, ring table, unless
+        ``kw`` replaces them) with ``leaves`` in :meth:`leaves`'
+        order."""
+        kw = {"index": self.index, "positions": self.positions,
+              "ring_pos": self.ring_pos, **kw}
+        return KVCache.from_leaves(leaves, **kw)
+
+    def clone(self) -> "KVCache":
+        """A copy no later append can reach (the prefix store's)."""
+        return self.with_leaves(
+            [t.clone() for t in self.leaves()],
+            ring_pos=None if self.ring_pos is None
+            else self.ring_pos.clone())
+
+    def advance(self, s: int) -> None:
+        """After a forward of ``s`` tokens: record the chunk's tail in
+        the ring table (every layer wrote it at ``position % cap``) and,
+        on a solo cache, advance the index."""
+        if self.ring_pos is not None:
+            cap = self.ring_pos.shape[-1]
+            keep = min(s, cap)
+            off = torch.arange(s - keep, s, device=self.ring_pos.device)
+            if self.positions is None:
+                tail = self.index + off
+                self.ring_pos.index_copy_(0, tail % cap, tail)
+            else:
+                tail = self.positions[:, None] + off          # [B, keep]
+                self.ring_pos.scatter_(1, tail % cap, tail)
+        if self.positions is None:
+            self.index += s
 
 
 def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None,
@@ -78,6 +170,11 @@ def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None,
     returned ``positions`` ([S] here, [B, S] on a slot cache) let the
     caller rotate q to match.
 
+    An int8 cache (``cache.k_scale`` set) stores each token and head as
+    int8 with a bf16 scale over the feature axis, quantized after the
+    rotation, and returns the whole cache dequantized to the keys' type
+    (the new chunk included, as stored).
+
     Returns ``(k_full, v_full, mask, positions)``; the caller advances
     the index.  A slot cache (``cache.positions`` set) takes the
     per-row path, :func:`append_kv_slots`.
@@ -94,13 +191,42 @@ def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None,
     pos_q = idx + torch.arange(s, device=k.device)
     if rotate is not None:
         k = rotate(pos_q, k)
-    cache.k[:, idx:idx + s] = k
-    cache.v[:, idx:idx + s] = v
+    if cache.k_scale is not None:
+        kq, ks = quantize_chunk(k)
+        vq, vs = quantize_chunk(v)
+        cache.k[:, idx:idx + s] = kq
+        cache.v[:, idx:idx + s] = vq
+        cache.k_scale[:, idx:idx + s] = ks
+        cache.v_scale[:, idx:idx + s] = vs
+        k_full = dequantize(cache.k, cache.k_scale, k.dtype)
+        v_full = dequantize(cache.v, cache.v_scale, k.dtype)
+    else:
+        cache.k[:, idx:idx + s] = k
+        cache.v[:, idx:idx + s] = v
+        k_full, v_full = cache.k, cache.v
     keys = torch.arange(cap, device=k.device)
     valid = keys[None, :] <= pos_q[:, None]  # [S, cap]
     if window is not None:
         valid &= keys[None, :] >= pos_q[:, None] - window
-    return cache.k, cache.v, valid[None, None], pos_q
+    return k_full, v_full, valid[None, None], pos_q
+
+
+def _slot_positions(cache: LayerCache, s: int, device):
+    """[B, S] absolute positions of a slot cache's new rows."""
+    pos = cache.positions
+    return pos[:, None] if s == 1 else \
+        pos[:, None] + torch.arange(s, device=device)
+
+
+def _scatter_rows(dst: torch.Tensor, rows: torch.Tensor,
+                  src: torch.Tensor) -> None:
+    """Per-row scatter: ``dst`` [B, cap, H, X] gets ``src`` [B, n, H, X]
+    at slots ``rows`` [B, n] of each row."""
+    b, cap = dst.shape[:2]
+    n = rows.shape[1]
+    w = dst[0, 0].numel()
+    dst.view(b, cap, w).scatter_(
+        1, rows[:, :, None].expand(b, n, w), src.reshape(b, n, w))
 
 
 def append_kv_slots(cache: LayerCache, k, v, window: Optional[int] = None,
@@ -114,7 +240,8 @@ def append_kv_slots(cache: LayerCache, k, v, window: Optional[int] = None,
     speculative round's verify chunk, each row at its own position.
     Positions past ``cap`` are the caller's to prevent (the engine
     validates every request's budget, spec slack included, and parks
-    idle rows at 0); checking here would need a host sync.
+    idle rows at 0); checking here would need a host sync.  An int8
+    cache scatters the quantized rows and their scales the same way.
 
     Speculative ROLLBACK is the owner's positions rewind: entries past
     a rewound position stay, masked by absolute position, and the next
@@ -122,20 +249,92 @@ def append_kv_slots(cache: LayerCache, k, v, window: Optional[int] = None,
     (the reference's contract, ``polyaxon_tpu/models/kv_cache.py``)."""
     b, s, h, d = k.shape
     cap = cache.k.shape[1]
-    pos = cache.positions
-    # [B, S] absolute positions (one token: the positions themselves).
-    pos_q = pos[:, None] if s == 1 else \
-        pos[:, None] + torch.arange(s, device=k.device)
+    pos_q = _slot_positions(cache, s, k.device)
     if rotate is not None:
         k = rotate(pos_q, k)
-    index = pos_q[:, :, None].expand(b, s, h * d)
-    cache.k.view(b, cap, h * d).scatter_(1, index, k.reshape(b, s, h * d))
-    cache.v.view(b, cap, h * d).scatter_(1, index, v.reshape(b, s, h * d))
+    if cache.k_scale is not None:
+        kq, ks = quantize_chunk(k)
+        vq, vs = quantize_chunk(v)
+        for dst, src in ((cache.k, kq), (cache.v, vq),
+                         (cache.k_scale, ks), (cache.v_scale, vs)):
+            _scatter_rows(dst, pos_q, src)
+        k_full = dequantize(cache.k, cache.k_scale, k.dtype)
+        v_full = dequantize(cache.v, cache.v_scale, k.dtype)
+    else:
+        _scatter_rows(cache.k, pos_q, k)
+        _scatter_rows(cache.v, pos_q, v)
+        k_full, v_full = cache.k, cache.v
     keys = torch.arange(cap, device=k.device)
     valid = keys <= pos_q[:, :, None]  # [B, S, cap]
     if window is not None:
         valid &= keys >= pos_q[:, :, None] - window
-    return cache.k, cache.v, valid[:, None], pos_q
+    return k_full, v_full, valid[:, None], pos_q
+
+
+def append_ring_kv_cache(cache: LayerCache, k, v, window: int,
+                         rotate: Optional[Callable] = None):
+    """Sliding-window decode with an O(window) RING cache, the
+    long-context serving path of Mistral-style models.
+
+    The ring holds ``cap = window + 1 + slack`` slots keyed by
+    ``position % cap`` (``generate.init_cache`` sizes it; slack is the
+    speculative rollback margin), so sessions stream past
+    ``max_position``: RoPE needs no table.  Per append: (1) read the old
+    ring (its slot order is scrambled; attention is order-agnostic under
+    the mask), dequantized on an int8 cache; (2) rotate (and quantize)
+    the chunk at its absolute positions; (3) hand attention
+    ``concat(old_ring, chunk)``, the chunk itself unquantized, with
+    validity from ABSOLUTE positions (``q_pos - window <= k_pos <=
+    q_pos``; unwritten slots hold position -1) AND, for ring entries,
+    strictly older than the chunk's first position (after a speculative
+    rollback the ring still holds rejected entries at positions the
+    chunk re-commits); (4) scatter the chunk's last ``min(S, cap)`` rows
+    into the ring.  The ring table itself advances after the forward
+    (``KVCache.advance``), since every layer reads the old one.
+
+    Returns ``(k_full, v_full, mask, positions)`` like
+    :func:`append_kv_cache`, with key axis ``cap + S``: mask [1, 1, S,
+    cap + S] on a solo cache, [B, 1, S, cap + S] on a slot cache (each
+    row its own positions and ring table)."""
+    b, s, h, d = k.shape
+    cap = cache.k.shape[1]
+    ring = cache.ring_pos
+    slots = cache.positions is not None
+    if slots:
+        pos_q = _slot_positions(cache, s, k.device)            # [B, S]
+        first = cache.positions[:, None]
+    else:
+        pos_q = cache.index + torch.arange(s, device=k.device)  # [S]
+        first = cache.index
+    if rotate is not None:
+        k = rotate(pos_q, k)
+    if cache.k_scale is not None:
+        kq, ks = quantize_chunk(k)
+        vq, vs = quantize_chunk(v)
+        k_old = dequantize(cache.k, cache.k_scale, k.dtype)
+        v_old = dequantize(cache.v, cache.v_scale, k.dtype)
+        writes = ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks),
+                  (cache.v_scale, vs))
+    else:
+        k_old, v_old = cache.k, cache.v
+        writes = ((cache.k, k), (cache.v, v))
+    k_full = torch.cat([k_old, k], dim=1)
+    v_full = torch.cat([v_old, v], dim=1)
+    pos_k = torch.cat([ring, pos_q], dim=-1)                # [.., cap+S]
+    older = torch.cat([ring < first, torch.ones_like(pos_q, dtype=bool)],
+                      dim=-1)
+    pk, pq = pos_k[..., None, :], pos_q[..., :, None]
+    valid = (pk <= pq) & (pk >= pq - window) & (pk >= 0) \
+        & older[..., None, :]                               # [.., S, cap+S]
+    keep = min(s, cap)
+    tail = pos_q[..., s - keep:] % cap
+    for dst, src in writes:
+        if slots:
+            _scatter_rows(dst, tail, src[:, s - keep:])
+        else:
+            dst.index_copy_(1, tail, src[:, s - keep:])
+    mask = valid[:, None] if slots else valid[None, None]
+    return k_full, v_full, mask, pos_q
 
 
 # -- paged storage (serving/paged.py) ---------------------------------------

@@ -1,5 +1,6 @@
 """Pieces the zoo's decoders share: the dense layer holding its
-parameters in one type and computing in another, the layer stack (remat
+parameters in one type and computing in another (an int8 weight and
+bias dequantize at this read, ``ops/quant.py``), the layer stack (remat
 in training, the cache in decode), and the refusal of config options
 that later slices of the port carry.
 """
@@ -19,7 +20,9 @@ from .kv_cache import KVCache
 class Dense(nn.Linear):
     """``nn.Linear`` holding its parameters in ``param_dtype`` and
     computing in ``dtype`` (flax ``Dense(dtype=...)``, ``use_bias``
-    as ``bias``)."""
+    as ``bias``).  Quantized by ``ops.quant.quantize_params``, its
+    ``weight`` and ``bias`` are int8 buffers read through their
+    dequantizing parametrization."""
 
     def __init__(self, n_in: int, n_out: int, dtype, param_dtype, device,
                  bias: bool = True):
@@ -36,16 +39,19 @@ class Dense(nn.Linear):
 def refuse_unported(cfg) -> None:
     """Refuse the config options of the zoo's decoders that later slices
     of the port carry, each naming its ROADMAP item."""
-    for field in ("kv_cache_int8", "kv_cache_ring"):
-        if getattr(cfg, field, False):
-            raise NotImplementedError(
-                f"{field}: not ported to the PyTorch backend yet (ROADMAP "
-                f"Queue 1: int8 weights and int8 KV)")
     if cfg.remat and cfg.remat_policy is not None:
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r}: named remat policies "
             f"are not ported yet (ROADMAP Queue 1: Named remat policies); "
             f"remat=True with remat_policy=None recomputes whole blocks")
+
+
+def model_device(model: nn.Module) -> torch.device:
+    """The device a model's weights live on, read without touching a
+    quantized weight (reading one dequantizes it)."""
+    for t in model.parameters():
+        return t.device
+    return next(model.buffers()).device
 
 
 def run_stack(blocks: nn.ModuleList, cfg, x,
@@ -59,7 +65,8 @@ def run_stack(blocks: nn.ModuleList, cfg, x,
             x = checkpoint(block, x, use_reentrant=False)
         else:
             x = block(x, None if cache is None else cache.layer(i))
-    if cache is not None and cache.positions is None:
-        # A slot cache's positions are advanced by its owner.
-        cache.index += x.shape[1]
+    if cache is not None:
+        # The index (a slot cache's positions are its owner's) and the
+        # ring table advance once per forward.
+        cache.advance(x.shape[1])
     return x

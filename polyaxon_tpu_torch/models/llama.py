@@ -22,6 +22,12 @@ returns.  Parameter names follow the flax tree (``embed``,
 ``h.{i}.{input_norm,attn.{q,k,v,o}_proj,post_attn_norm,gate_proj,
 up_proj,down_proj}``, ``final_norm``, ``lm_head``) so
 ``convert.llama_state_dict_from_jax`` maps one onto the other.
+
+Serving options: int8 weights (``ops/quant.py``: the embedding, the
+dense layers, ``lm_head`` and, at full width, the stacked norm scales
+dequantize where they are read), the int8 KV cache (``kv_cache_int8``)
+and, for a sliding-window model, the O(window) ring cache
+(``kv_cache_ring``), whose sessions run past ``max_position``.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ from torch import nn
 from .. import default_device
 from ..ops.attention import dot_product_attention
 from ..ops.rotary import rotate
-from .layers import Dense, refuse_unported, run_stack
-from .kv_cache import KVCache, LayerCache, append_kv_cache
+from .layers import Dense, model_device, refuse_unported, run_stack
+from .kv_cache import (KVCache, LayerCache, append_kv_cache,
+                       append_ring_kv_cache)
 
 
 @dataclass(frozen=True)
@@ -61,10 +68,16 @@ class LlamaConfig:
     # The flax param layout (stacked [num_layers] vs h_{i}); the port
     # always holds a ModuleList and the converter reads either layout.
     scan_layers: bool = True
-    # Serving options of the reference (int8 KV, the O(window) ring
-    # cache): not ported yet, refused by the model.
+    # Serve-time option: store the decode KV cache as int8 with
+    # per-(token, head) bf16 scales (kv_cache.py).
     kv_cache_int8: bool = False
+    # Serve-time option for sliding-window models: an O(window) RING
+    # cache instead of O(max_position), so sessions stream past
+    # max_position (RoPE needs no table); kv_cache.append_ring_kv_cache.
     kv_cache_ring: bool = False
+    # Extra ring slots beyond window + 1: speculative decoding with
+    # draft length k needs >= k - 1 (generate_speculative enforces it);
+    # plain decoding needs 0.
     kv_cache_ring_slack: int = 0
 
     def __post_init__(self):
@@ -153,10 +166,16 @@ class LlamaAttention(nn.Module):
             q, k = rotate(q, pos, theta=theta), rotate(k, pos, theta=theta)
         else:
             # Keys rotate at their absolute positions inside the append
-            # (stored rotated); q at the positions it returns.
-            k, v, mask, pos = append_kv_cache(
-                cache, k, v, window=cfg.sliding_window,
-                rotate=lambda p, kk: rotate(kk, p, theta=theta))
+            # (stored rotated, and quantized after the rotation on an
+            # int8 cache); q at the positions it returns.
+            rot = lambda p, kk: rotate(kk, p, theta=theta)  # noqa: E731
+            if cfg.kv_cache_ring:
+                # O(window) ring: unbounded streaming decode.
+                k, v, mask, pos = append_ring_kv_cache(
+                    cache, k, v, cfg.sliding_window, rotate=rot)
+            else:
+                k, v, mask, pos = append_kv_cache(
+                    cache, k, v, window=cfg.sliding_window, rotate=rot)
             q = rotate(q, pos, theta=theta)
         if cfg.num_kv_heads != cfg.num_heads:
             rep = cfg.num_heads // cfg.num_kv_heads
@@ -211,7 +230,7 @@ class LlamaModel(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.weight.device
+        return model_device(self)
 
     def embed_tokens(self, input_ids):
         return F.embedding(input_ids, self.embed.weight).to(self.cfg.dtype)

@@ -28,8 +28,10 @@ def softmax_xent(logits, labels):
 
 def _cfg_model(model_cls, base_cfg):
     """make_model for config-bearing models: keyword overrides patch
-    CONFIG FIELDS (``dataclasses.replace``); ``device`` and
-    ``param_dtype`` go to the constructor."""
+    CONFIG FIELDS (``dataclasses.replace``), the serving options
+    (``kv_cache_int8``, ``kv_cache_ring``, ``kv_cache_ring_slack``)
+    like any other, so a family without the field raises TypeError;
+    ``device`` and ``param_dtype`` go to the constructor."""
     def make(device=None, param_dtype=None, **kw):
         cfg = dataclasses.replace(base_cfg, **kw) if kw else base_cfg
         return model_cls(cfg, device=device, param_dtype=param_dtype)

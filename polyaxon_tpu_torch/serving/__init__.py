@@ -1,8 +1,9 @@
 """Serving package of the port: the decode stack behind HTTP.
 
 Port of ``polyaxon_tpu/serving`` as far as the continuous-batching
-server goes (greedy and sampled requests, both KV pools, the prefix
-cache, fault containment):
+server goes (greedy, sampled, speculative and beam requests, both KV
+pools with plain, int8 or ring caches, the prefix cache, fault
+containment):
 
 - ``server.py``    — ModelServer (validation, metrics, drain, the prefix
   store behind ``POST /prefill``) + the stdlib HTTP front-end with
@@ -25,13 +26,15 @@ cache, fault containment):
 - ``faults.py``, ``recovery.py`` — seeded fault injection, the retry
   policy, the circuit breaker and the engine supervisor.
 
-The host spill tier and its wire format, beam and speculative
-decoding, meshes and the router are later slices (ROADMAP Queue 1).
+The host spill tier and its wire format, the profiler and flight
+recorder, legacy coalescing, meshes and the router are later slices
+(ROADMAP Queue 1).
 """
 
-from .debug import RequestHistory, new_request_id
+from .debug import RequestHistory, StallWatchdog, new_request_id
 from .engine import DecodeEngine
 from .faults import FaultPlan
+from .paged import PagedSlotKVManager
 from .radix import RadixPrefixIndex
 from .recovery import CircuitBreaker, EngineSupervisor, RetryPolicy
 from .scheduler import (DeadlineExceeded, PRIORITIES, PoisonedRequest,
@@ -43,9 +46,10 @@ from .telemetry import Histogram, Telemetry, render_histogram
 
 __all__ = ["ModelServer", "make_server", "FairLock", "DecodeEngine",
            "SchedulerPolicy", "SamplingSpec", "SlotKVManager",
+           "PagedSlotKVManager",
            "STEP_MARKER", "QueueFullError", "RequestCancelled",
            "DeadlineExceeded", "ShedError", "PRIORITIES",
            "RetryPolicy", "CircuitBreaker", "EngineSupervisor",
            "FaultPlan", "PoisonedRequest", "RadixPrefixIndex",
            "Telemetry", "Histogram", "render_histogram",
-           "RequestHistory", "new_request_id"]
+           "RequestHistory", "StallWatchdog", "new_request_id"]

@@ -87,6 +87,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.generate import _is_ring
 from .debug import SnapshotBoard, events_to_dicts, new_request_id
 from .faults import is_poisoned, is_transient
 from .forensics import compute_ledger
@@ -166,6 +167,28 @@ class DecodeEngine:
         # block-table page pool.
         self.paged = bool(self.policy.kv_paged)
         max_window = _pow2_floor(self.policy.decode_window)
+        # A ring model (kv_cache_ring) streams past max_position: no
+        # budget check holds it there, and its lane is O(window).
+        self.ring = _is_ring(model)
+        if self.paged and self.ring:
+            raise ValueError(
+                "kv_paged needs a decoder-only model with a "
+                "plain/int8 max_position cache (ring caches keep "
+                "the fixed-lane manager)")
+        if self.ring and draft_model is not None:
+            # Every resident of a spec pool writes a verify chunk of
+            # spec_k_cap + 1 positions a round and keeps one: on a ring
+            # the K/V ``cap`` positions back is overwritten, which only
+            # spec_k_cap - 1 spare slots keep out of the window.
+            need = self.policy.spec_k_cap - 1
+            for label, m in (("model", model), ("draft model",
+                                                draft_model)):
+                slack = getattr(m.cfg, "kv_cache_ring_slack", 0)
+                if _is_ring(m) and slack < need:
+                    raise ValueError(
+                        f"a speculative pool over a ring cache needs "
+                        f"the {label}'s kv_cache_ring_slack >= "
+                        f"spec_k_cap-1 ({need}); got {slack}")
         if self.paged:
             self.slots = PagedSlotKVManager(
                 model, self.policy.n_slots,
@@ -313,10 +336,10 @@ class DecodeEngine:
 
         A budget past the model's ``max_position`` (prompt + new
         tokens) is refused with ValueError: no slot has positions for
-        it.  PAGED engines also shed (503 ``reason: kv_pages``) a
-        request whose KV budget can NEVER fit the page pool, while one
-        that only does not fit now queues until evictions free
-        pages."""
+        it (a ring model's session streams past it).  PAGED engines
+        also shed (503 ``reason: kv_pages``) a request whose KV budget
+        can NEVER fit the page pool, while one that only does not fit
+        now queues until evictions free pages."""
         if priority is None:
             priority = self.policy.default_priority
         if priority not in PRIORITIES:
@@ -342,7 +365,7 @@ class DecodeEngine:
         rows = np.asarray(rows)
         p_len = rows.shape[1]
         max_pos = self.model.cfg.max_position
-        if p_len + new > max_pos:
+        if not self.ring and p_len + new > max_pos:
             # Past the cache width the decode step would write and
             # embed positions no slot has (a device-side assert on the
             # card, fatal to every co-resident).
@@ -357,6 +380,8 @@ class DecodeEngine:
             for label, m in (("model", self.model),
                              ("draft model", self.draft_model)):
                 cap = m.cfg.max_position
+                if _is_ring(m):
+                    continue        # position-keyed (slack checked above)
                 if p_len + new + slack > cap:
                     raise ValueError(
                         f"prompt ({p_len}) + max_new_tokens ({new}) + "
@@ -1273,6 +1298,15 @@ class DecodeEngine:
             self.queue.requeue_back(stream)
         self.requests_requeued_total += 1
 
+    def _engine_instant(self, name: str, t: float, **args) -> None:
+        """One instant on the ENGINE trace track (the lazy pool's
+        growth and preemption markers), isolated like ``_emit``: a
+        broken ring is counted, never raised."""
+        try:
+            self.tel.instant(0, name, t, pid=ENGINE_PID, **args)
+        except Exception:
+            self.telemetry_errors_total += 1
+
     def _ensure_lazy_growth(self, span: int) -> bool:
         """LAZY-KV step-boundary growth: before a dispatch that writes
         ``span`` positions per slot, grow every resident's table to
@@ -1313,6 +1347,10 @@ class DecodeEngine:
                 if grown is None:
                     blocked = (slot, stream)
                     break
+                if grown:
+                    self._engine_instant(
+                        "kv_grow", time.perf_counter(), slot=slot,
+                        pages=grown, rid=stream.group.rid)
             if blocked is None:
                 # Bars clear only on a pass that needed no eviction.
                 if not evicted_any and self._exhaust_bars:
@@ -1331,6 +1369,9 @@ class DecodeEngine:
             self.kv_preempt_exhaustion_total += 1
             self.preempted_total += 1
             stream.preempts += 1
+            self._engine_instant("kv_preempt", now, slot=slot,
+                                 rid=stream.group.rid,
+                                 blocked_rid=bstream.group.rid)
             self._evict_requeue(slot, stream, "preempted", now,
                                 front=False,
                                 reason="kv_pages_exhausted",

@@ -56,6 +56,12 @@ slack (a round's verify writes up to ``spec_k_cap`` positions past the
 last committed token), and the dirty window of a spec dispatch covers
 ``window * K + 1`` positions.
 
+An int8 cache pages its bf16 scales beside its keys and values: every
+cache tensor (``KVCache.leaves``) has its own page pool with the same
+page ids, so one table gathers, scatters, copies-on-write and
+materializes them all.  A ring cache is already O(window) and stays on
+the fixed-lane pool (the engine refuses ``kv_paged`` for it).
+
 Not ported yet, and refused by name: the host spill tier and its wire
 format (``pack_spilled``/``unpack_spilled``, ``spill_pages``,
 ``rematerialize``) and meshes (ROADMAP Queue 1).
@@ -184,12 +190,29 @@ class PagedSlotKVManager(StepPool):
         self.lazy_pages_grown_total = 0
 
         # -- device pools (made on the first insert) -------------------
-        self._k: Optional[torch.Tensor] = None
-        self._v: Optional[torch.Tensor] = None
-        self._view_k: Optional[torch.Tensor] = None
-        self._view_v: Optional[torch.Tensor] = None
-        self._dk: Optional[torch.Tensor] = None     # the draft's pools
-        self._dv: Optional[torch.Tensor] = None
+        # One page pool and one flat gathered-view buffer per cache
+        # tensor (KVCache.leaves: keys, values, an int8 cache's scales),
+        # and the draft's.
+        self._pools: Optional[List[torch.Tensor]] = None
+        self._views: Optional[List[torch.Tensor]] = None
+        self._dpools: Optional[List[torch.Tensor]] = None
+        self._dviews: Optional[List[torch.Tensor]] = None
+
+    @property
+    def _k(self) -> Optional[torch.Tensor]:
+        return None if self._pools is None else self._pools[0]
+
+    @property
+    def _v(self) -> Optional[torch.Tensor]:
+        return None if self._pools is None else self._pools[1]
+
+    @property
+    def _dk(self) -> Optional[torch.Tensor]:
+        return None if self._dpools is None else self._dpools[0]
+
+    @property
+    def _dv(self) -> Optional[torch.Tensor]:
+        return None if self._dpools is None else self._dpools[1]
 
     # -- page accounting ------------------------------------------------
 
@@ -332,29 +355,29 @@ class PagedSlotKVManager(StepPool):
         return min(self.table_width, _pow2ceil(max(1, n_pages)))
 
     def _alloc_pool(self, cache):
-        """Page pools of a model's prefilled cache ([L, 1, cap, H, D]):
-        [L, pages + scratch + trash, pt, H, D] keys and values, and
+        """Page pools of a model's prefilled cache (each leaf [L, 1,
+        cap, H, X]): [L, pages + scratch + trash, pt, H, X] per leaf, and
         the flat gathered-view buffers (the widest class's size: every
         class views its prefix, so each has one fixed address)."""
-        leaf = cache.k[:, 0].shape                  # [L, cap, H, D]
-        shape = paged_pool_shape(leaf, 1, self.total_pages,
-                                 self.page_tokens)
-        dev = cache.k.device
         p_max = self._pad_class(max(self._need_cap, self._n_dirty_cap))
-        n = leaf[0] * self.n_slots * p_max * self.page_tokens \
-            * int(np.prod(leaf[2:]))
-        return (torch.zeros(shape, dtype=cache.k.dtype, device=dev),
-                torch.zeros(shape, dtype=cache.v.dtype, device=dev),
-                torch.zeros(n, dtype=cache.k.dtype, device=dev),
-                torch.zeros(n, dtype=cache.v.dtype, device=dev))
+        pools, views = [], []
+        for t in cache.leaves():
+            leaf = t[:, 0].shape                    # [L, cap, H, X]
+            shape = paged_pool_shape(leaf, 1, self.total_pages,
+                                     self.page_tokens)
+            n = leaf[0] * self.n_slots * p_max * self.page_tokens \
+                * int(np.prod(leaf[2:]))
+            pools.append(torch.zeros(shape, dtype=t.dtype,
+                                     device=t.device))
+            views.append(torch.zeros(n, dtype=t.dtype, device=t.device))
+        return pools, views
 
     def _ensure_pool(self, cache) -> None:
         """Allocate the page pools from the FIRST prefilled cache, with
         the page tables' device twins and the static step buffers."""
-        if self._k is not None:
+        if self._pools is not None:
             return
-        self._k, self._v, self._view_k, self._view_v = \
-            self._alloc_pool(cache)
+        self._pools, self._views = self._alloc_pool(cache)
         dev = cache.k.device
         self._table_buf = torch.zeros(
             (self.n_slots, self.table_width), dtype=torch.long,
@@ -368,19 +391,21 @@ class PagedSlotKVManager(StepPool):
         """The DRAFT's page pools, the same page geometry as the
         target's (one table addresses both), from the first draft
         prefill."""
-        if self._dk is None:
-            self._dk, self._dv, self._view_dk, self._view_dv = \
-                self._alloc_pool(cache)
+        if self._dpools is None:
+            self._dpools, self._dviews = self._alloc_pool(cache)
 
     def _view_buffers(self, P: int, draft: bool = False):
-        """The gather targets of class ``P``: contiguous prefixes of
-        the flat view buffers, [L, S * P, pt, H, D]."""
-        pool, vk, vv = (self._dk, self._view_dk, self._view_dv) if draft \
-            else (self._k, self._view_k, self._view_v)
-        L, _, pt, h, d = pool.shape
-        shape = (L, self.n_slots * P, pt, h, d)
-        n = int(np.prod(shape))
-        return vk[:n].view(shape), vv[:n].view(shape)
+        """The gather targets of class ``P``, one per cache tensor:
+        contiguous prefixes of the flat view buffers, [L, S * P, pt, H,
+        X]."""
+        pools, flats = (self._dpools, self._dviews) if draft \
+            else (self._pools, self._views)
+        out = []
+        for pool, flat in zip(pools, flats):
+            L, _, pt, h, x = pool.shape
+            shape = (L, self.n_slots * P, pt, h, x)
+            out.append(flat[:int(np.prod(shape))].view(shape))
+        return out
 
     # -- insert / prefix-store scatter -------------------------------------
 
@@ -402,16 +427,16 @@ class PagedSlotKVManager(StepPool):
         callers hold the device lock."""
         if draft:
             self._ensure_draft_pool(cache)
-            pools = (self._dk, self._dv)
+            pools = self._dpools
         else:
             self._ensure_pool(cache)
-            pools = (self._k, self._v)
+            pools = self._pools
         n = len(ids)
         pt = self.page_tokens
         targets = torch.as_tensor(self._write_targets(ids, n_shared),
                                   device=pools[0].device)
         with torch.no_grad():
-            for pool, src in zip(pools, (cache.k, cache.v)):
+            for pool, src in zip(pools, cache.leaves()):
                 leaf = src[:, 0, :n * pt]            # [L, <=n*pt, H, D]
                 if leaf.shape[1] < n * pt:
                     pad = leaf.new_zeros((leaf.shape[0], n * pt
@@ -521,25 +546,27 @@ class PagedSlotKVManager(StepPool):
         """Gather stored prefix pages into a CONTIGUOUS B=1 cache of
         the model's full width: ``[L, 1, max_position, H_kv, D]`` keys
         and values in the pool's dtype (a RoPE model's keys already
-        rotated), index ``n_tokens`` — the cache ``prefill`` extends
-        with a hit's suffix.  Fresh tensors: extending them never
-        touches the pool.  Device work: callers hold the device lock
-        and a pin on every page in ``ids``."""
+        rotated; an int8 cache's scales beside them), index
+        ``n_tokens`` — the cache ``prefill`` extends with a hit's
+        suffix.  Fresh tensors: extending them never touches the pool.
+        Device work: callers hold the device lock and a pin on every
+        page in ``ids``."""
         from ..models.kv_cache import KVCache
 
-        if self._k is None:
+        if self._pools is None:
             raise RuntimeError("materialize() before any page write")
-        L, _, pt, h, d = self._k.shape
+        pt = self.page_tokens
         width = min(len(ids) * pt, self.max_position)
         table = torch.as_tensor(list(ids), dtype=torch.long,
                                 device=self._k.device)
         out = []
         with torch.no_grad():
-            for pool in (self._k, self._v):
-                full = pool.new_zeros((L, 1, self.max_position, h, d))
+            for pool in self._pools:
+                L, _, _, h, x = pool.shape
+                full = pool.new_zeros((L, 1, self.max_position, h, x))
                 full[:, 0, :width] = gather_pages(pool, table, 1)[:, :width]
                 out.append(full)
-        return KVCache(out[0], out[1], index=int(n_tokens))
+        return KVCache.from_leaves(out, index=int(n_tokens))
 
     # -- refused by name ---------------------------------------------------
 
@@ -583,12 +610,11 @@ class PagedSlotKVManager(StepPool):
         from ..models.kv_cache import KVCache
 
         tables = self._table_buf[:, :P]
-        pools = (self._dk, self._dv) if draft else (self._k, self._v)
-        vk, vv = self._view_buffers(P, draft)
-        return KVCache(gather_pages(pools[0], tables, 1, out=vk),
-                       gather_pages(pools[1], tables, 1, out=vv),
-                       positions=self._dpos_buf if draft
-                       else self._pos_buf)
+        pools = self._dpools if draft else self._pools
+        return KVCache.from_leaves(
+            [gather_pages(pool, tables, 1, out=view) for pool, view in
+             zip(pools, self._view_buffers(P, draft))],
+            positions=self._dpos_buf if draft else self._pos_buf)
 
     def _scatter_dirty(self, P: int, n_dirty: int,
                        draft: bool = False) -> None:
@@ -602,7 +628,7 @@ class PagedSlotKVManager(StepPool):
         targets = self._wtable_buf[:, :P].gather(1, local).reshape(-1)
         rows = (torch.arange(S, device=dev)[:, None] * P
                 + local).reshape(-1)
-        pools = (self._dk, self._dv) if draft else (self._k, self._v)
+        pools = self._dpools if draft else self._pools
         for pool, view in zip(pools, self._view_buffers(P, draft)):
             scatter_pages(pool, torch.index_select(view, 1, rows),
                           targets, 1)
@@ -620,7 +646,7 @@ class PagedSlotKVManager(StepPool):
         """``window`` fused decode steps across the whole pool, the
         paged twin of ``SlotKVManager.step``: one CUDA graph per
         (window, sampled, pad class)."""
-        if self._k is None:
+        if self._pools is None:
             raise RuntimeError("step() before any insert()")
         self._check_window(window)
         key = self._step_key(window, sampled)
@@ -648,7 +674,7 @@ class PagedSlotKVManager(StepPool):
         K, sampled, pad class).  The rollback stays a positions rewind
         on the gathered views: pages are reserved with the spec slack,
         so a rejection never touches the page accounting."""
-        if self._k is None or self._dk is None:
+        if self._pools is None or self._dpools is None:
             raise RuntimeError("step_spec() before a speculative "
                                "insert()")
         self._check_spec(window, K)

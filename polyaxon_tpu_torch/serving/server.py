@@ -6,6 +6,10 @@ decode streams through the continuous-batching engine (engine.py) over
 the fixed-lane slot pool (slots.py) or, with ``kv_paged``, the paged
 pool (paged.py), and the front-end sheds load with 429 + Retry-After
 once the bounded admission queue fills.  One process, stdlib HTTP.
+The model may hold int8 weights (``ops/quant.py``) and an int8 or ring
+KV cache (its config): a ring model's requests skip the
+``max_position`` budget (its sessions stream past it), and a
+speculative one on it needs ``kv_cache_ring_slack >= spec_k - 1``.
 
 PREFIX CACHE (``prefix_cache`` entries, default 4; 0 disables): ``POST
 /prefill`` stores a prompt's prefill in a radix index (radix.py), and a
@@ -34,6 +38,10 @@ Endpoints:
 - ``GET  /metrics``  -> Prometheus text: counters, phase summaries,
   latency histograms (telemetry.py), engine gauges
 - ``GET  /trace``    -> Chrome trace-event JSON of the telemetry ring
+- ``GET  /anomalies`` -> the anomaly sentry's findings and baselines
+  (400 with forensics off)
+- ``GET  /debug/exemplars`` -> every latency histogram's per-bucket
+  request-ID exemplars
 - ``GET  /requests[?status=&limit=]``, ``GET /requests/<id>`` -> the
   terminal-record retention ring (debug.py)
 - ``GET  /debug/state`` -> the engine's latest step-boundary snapshot
@@ -88,6 +96,8 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from ..models.generate import _is_ring
+from ..ops.quant import has_quantized
 from ._lru import lru_get
 from .debug import (RequestHistory, StallWatchdog, events_to_dicts,
                     new_request_id, sanitize_request_id)
@@ -152,12 +162,6 @@ def _detached(err: BaseException) -> BaseException:
         return copy.copy(err)
     except Exception:
         return err
-
-
-def _clone_cache(cache):
-    from ..models.kv_cache import KVCache
-
-    return KVCache(cache.k.clone(), cache.v.clone(), index=cache.index)
 
 
 def _int_param(v):
@@ -829,7 +833,7 @@ class ModelServer:
         if not paged:
             logits, cache = payload
             with self._lock:
-                cache = _clone_cache(cache)
+                cache = cache.clone()
                 self._sync()
             return PrefixHit(pc, logits, cache, ())
         try:
@@ -989,7 +993,7 @@ class ModelServer:
 
         rows = _parse_prompt_rows(req, self.max_batch)
         max_pos = self.model.cfg.max_position
-        if len(rows[0]) > max_pos:
+        if len(rows[0]) > max_pos and not _is_ring(self.model):
             raise ValueError(f"prompt ({len(rows[0])}) exceeds the "
                              f"model's max_position ({max_pos})")
         chunk = req.get("prefill_chunk")
@@ -1041,7 +1045,7 @@ class ModelServer:
                     logits, cache = G.prefill(
                         self.model, toks[:, pc:], chunk=chunk,
                         cache=cache, position=pc)
-                    store_back = (logits, _clone_cache(cache))
+                    store_back = (logits, cache.clone())
                 t_pf = time.perf_counter()
                 if G.positional_eligible(self.model, temp):
                     out_new = G.generate_continue_positional(
@@ -1171,6 +1175,14 @@ class ModelServer:
             models.append(("draft model", self.draft_model))
         for label, m in models:
             max_pos = m.cfg.max_position
+            if _is_ring(m):
+                ring_slack = m.cfg.kv_cache_ring_slack
+                if speculative and ring_slack < spec_k - 1:
+                    raise ValueError(
+                        f"{label} needs kv_cache_ring_slack >= "
+                        f"{spec_k - 1} for spec_k={spec_k} "
+                        f"(got {ring_slack})")
+                continue  # ring caches are position-keyed, unbounded
             if p_len + new + slack > max_pos:
                 raise ValueError(
                     f"prompt ({p_len}) + max_new_tokens ({new})"
@@ -1205,9 +1217,10 @@ class ModelServer:
                     "speculative (spec_k over cap)",
                     f"request spec_k {spec_k} exceeds the engine cap "
                     f"{cap} (--spec-k); decoding solo")
-            elif p_len + new + cap - 1 > self.model.cfg.max_position \
-                    or p_len + new + cap - 1 \
-                    > self.draft_model.cfg.max_position:
+            elif not _is_ring(self.model) and (
+                    p_len + new + cap - 1 > self.model.cfg.max_position
+                    or p_len + new + cap - 1
+                    > self.draft_model.cfg.max_position):
                 engine_ok = False
                 self._note_fallback(
                     "near-capacity",
@@ -1390,11 +1403,14 @@ class ModelServer:
         summary = {}
         if cfg is not None:
             for f in ("vocab_size", "hidden_size", "num_layers",
-                      "num_heads", "max_position"):
+                      "num_heads", "max_position", "kv_cache_int8"):
                 v = getattr(cfg, f, None)
                 if v is not None:
                     summary[f] = v
             summary["dtype"] = str(cfg.dtype).removeprefix("torch.")
+            if getattr(cfg, "kv_cache_ring", False):
+                summary["kv_cache_ring"] = True
+                summary["kv_cache_ring_slack"] = cfg.kv_cache_ring_slack
         engine = self.engine.stats()
         compile_cache = self.recompile.snapshot()
         with self._stats_lock:
@@ -1417,6 +1433,7 @@ class ModelServer:
                 "spec_k_default": self.spec_k_default,
                 "kv_paged": self.kv_paged,
                 "kv_lazy": self.kv_lazy,
+                "int8_weights": has_quantized(self.model),
                 # A compile-cache miss is a CUDA-graph capture (the
                 # first eager run of a window on the CPU).
                 "compile_cache_misses":
@@ -1695,6 +1712,19 @@ def make_handler(ms: ModelServer):
                                "text/plain; version=0.0.4")
             elif path == "/trace":
                 self._send(200, ms.telemetry.chrome_trace())
+            elif path == "/anomalies":
+                # The anomaly sentry's ranked findings and baselines
+                # (serving/forensics.py).
+                if ms.forensics is None:
+                    self._send(400, {
+                        "error": "forensics disabled (start the "
+                                 "server with forensics enabled)"})
+                else:
+                    self._send(200, ms.forensics.report())
+            elif path == "/debug/exemplars":
+                # Every latency histogram's per-bucket request-ID
+                # exemplars, all K kept (/metrics carries the latest).
+                self._send(200, ms.telemetry.exemplars_report())
             elif path in ("/profile/report", "/prefix/index"):
                 self._send(501, {
                     "error": f"GET {path} is not ported to the PyTorch "

@@ -30,7 +30,15 @@ the eager loop on the card.
 Idle slots still step (the batch shape is fixed): they sit at position
 0, decode garbage into their own lane (never past ``cap``), and the
 next ``insert`` overwrites the lane wholesale; the engine masks their
-tokens by occupancy.
+tokens by occupancy.  On a ring cache an idle row's table still holds
+its last request's positions; none precedes position 0, so the ring's
+older-than-the-chunk test masks them all and the idle row attends to
+its own tokens alone.
+
+The pool holds whatever the model's cache holds (``generate.init_cache``
+builds it from the config): int8 entries with their bf16 scales, which
+every body dequantizes as the model reads them, and a ring's per-row
+position table, which the body advances on the device.
 
 SPECULATIVE rounds ride the same pool: a second stacked cache (the
 DRAFT model's, same slots) sits beside the target's, and the spec body
@@ -58,6 +66,7 @@ tables).
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Dict, Optional
 
@@ -303,19 +312,33 @@ class StepPool:
             self._pos_buf.add_(c)
             self._idx_buf.add_(c)
 
+    def _capture_state(self) -> list:
+        """The tensors a capture's warm-up must leave as it found them:
+        none here (the subclass with a ring names its cache)."""
+        return []
+
+    def _run_restoring(self, body: Callable[[], None]) -> None:
+        """Run ``body``, then put back every ``_capture_state`` tensor."""
+        state = self._capture_state()
+        saved = [t.clone() for t in state]
+        body()
+        for t, s in zip(state, saved):
+            t.copy_(s)
+
     def _capture(self, body: Callable[[], None]
                  ) -> "torch.cuda.CUDAGraph":
-        """Warm ``body`` up on a side stream (the live state: the warm-
-        up writes exactly what the replay rewrites), then capture it
-        into the pool's shared graph memory.  ``thread_local``: HTTP
-        handler threads may make CUDA calls while the engine thread
-        captures, and the global mode would abort."""
+        """Warm ``body`` up on a side stream (the live state: on a plain
+        or int8 cache the warm-up writes exactly what the replay
+        rewrites; a ring's is restored after it), then capture it into
+        the pool's shared graph memory.  ``thread_local``: HTTP handler
+        threads may make CUDA calls while the engine thread captures,
+        and the global mode would abort."""
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side), torch.no_grad():
-            body()
+            self._run_restoring(body)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.no_grad(), torch.cuda.graph(
@@ -418,11 +441,15 @@ class StepPool:
 class SlotKVManager(StepPool):
     """Fixed pool of ``n_slots`` decode slots over one model.
 
-    Owns the stacked cache ([L, S, cap, H, D] keys and values, made on
-    the first insert), with ``draft_model`` the draft's stacked cache
-    too (made on the first speculative insert), the free-slot list, the
-    static step buffers and one CUDA graph per step key.  Device work
-    only — request bookkeeping lives in engine.py/scheduler.py."""
+    Owns the stacked cache (``models/kv_cache.KVCache`` with [L, S, cap,
+    H, D] keys and values, an int8 cache's [L, S, cap, H, 1] scales, a
+    ring cache's [S, cap] position table; made on the first insert), with
+    ``draft_model`` the draft's stacked cache too (made on the first
+    speculative insert), the free-slot list, the static step buffers and
+    one CUDA graph per step key.  A ring model's lane is its ring:
+    ``window + 1 + slack`` positions whatever the session's length.
+    Device work only — request bookkeeping lives in
+    engine.py/scheduler.py."""
 
     def __init__(self, model, n_slots: int, sentinel=None,
                  max_window: int = 8, draft_model=None,
@@ -430,10 +457,24 @@ class SlotKVManager(StepPool):
         super().__init__(model, n_slots, sentinel=sentinel,
                          max_window=max_window, draft_model=draft_model,
                          spec_k_cap=spec_k_cap)
-        self._k: Optional[torch.Tensor] = None
-        self._v: Optional[torch.Tensor] = None
-        self._dk: Optional[torch.Tensor] = None
-        self._dv: Optional[torch.Tensor] = None
+        self._pool = None           # the stacked KVCache (no positions)
+        self._dpool = None          # the draft's
+
+    @property
+    def _k(self) -> Optional[torch.Tensor]:
+        return None if self._pool is None else self._pool.k
+
+    @property
+    def _v(self) -> Optional[torch.Tensor]:
+        return None if self._pool is None else self._pool.v
+
+    @property
+    def _dk(self) -> Optional[torch.Tensor]:
+        return None if self._dpool is None else self._dpool.k
+
+    @property
+    def _dv(self) -> Optional[torch.Tensor]:
+        return None if self._dpool is None else self._dpool.v
 
     def reset(self) -> None:
         """Crash-recovery rebuild (recovery.EngineSupervisor): every
@@ -448,26 +489,49 @@ class SlotKVManager(StepPool):
     # -- device state ---------------------------------------------------
 
     def _stacked_like(self, cache):
-        """[L, 1, cap, H, D] -> zeroed [L, S, cap, H, D] keys and
-        values."""
-        shape = list(cache.k.shape)
-        shape[1] = self.n_slots
-        return (torch.zeros(shape, dtype=cache.k.dtype,
-                            device=cache.k.device),
-                torch.zeros(shape, dtype=cache.v.dtype,
-                            device=cache.v.device))
+        """A B=1 cache -> the zeroed [L, S, ...] stacked pool of the
+        same kind (a ring table of -1: no slot written)."""
+        def wide(t):
+            shape = list(t.shape)
+            shape[1] = self.n_slots
+            return torch.zeros(shape, dtype=t.dtype, device=t.device)
+
+        ring = cache.ring_pos
+        return cache.with_leaves(
+            [wide(t) for t in cache.leaves()], index=0,
+            ring_pos=None if ring is None else torch.full(
+                (self.n_slots, ring.shape[-1]), -1, dtype=ring.dtype,
+                device=ring.device))
 
     def _ensure_stacked(self, cache) -> None:
         """Allocate the pool from the FIRST prefilled cache's shape,
         plus the static step buffers."""
-        if self._k is not None:
+        if self._pool is not None:
             return
-        self._k, self._v = self._stacked_like(cache)
+        self._pool = self._stacked_like(cache)
         self._alloc_step_buffers(cache.k.device)
 
     def _ensure_draft_stacked(self, cache) -> None:
-        if self._dk is None:
-            self._dk, self._dv = self._stacked_like(cache)
+        if self._dpool is None:
+            self._dpool = self._stacked_like(cache)
+
+    def _capture_state(self) -> list:
+        """A ring's entries and position tables, the draft's too: a
+        window writes each row's ring at ``position % cap`` ahead of
+        the position the replay starts from, overwriting entries still
+        inside the window there (a plain cache only writes past it)."""
+        state = []
+        for pool in (self._pool, self._dpool):
+            if pool is not None and pool.ring_pos is not None:
+                state += pool.leaves() + [pool.ring_pos]
+        return state
+
+    @staticmethod
+    def _copy_lane(pool, slot: int, cache) -> None:
+        for dst, src in zip(pool.leaves(), cache.leaves()):
+            dst[:, slot].copy_(src[:, 0])
+        if pool.ring_pos is not None:
+            pool.ring_pos[slot].copy_(cache.ring_pos)
 
     def insert(self, slot: int, cache, first_token: int,
                position: int, *, base_key=None, next_index: int = 1,
@@ -475,23 +539,22 @@ class SlotKVManager(StepPool):
                top_p: float = 0.0, draft_cache=None,
                spec_k: int = 0) -> None:
         """Admit a prefilled request into ``slot`` at a step boundary:
-        copy its B=1 cache ([L, 1, cap, H, D]) into lane ``slot``
-        wholesale (outside any graph) and arm the slot's decode state
-        (``first_token`` at ``position`` is the next step's input, the
-        sample-first contract of solo generate).  Sampled streams also
-        arm ``base_key`` (``fold_in(PRNGKey(seed), row)``, two words)
-        and ``next_index`` (the token index the next step draws);
-        greedy streams keep temperature 0, the argmax lane.
-        Speculative streams pass ``draft_cache`` (the draft's prefill
-        of the same prompt) and ``spec_k`` > 0."""
+        copy its B=1 cache (every [L, 1, cap, ...] tensor, and a ring's
+        position table) into lane ``slot`` wholesale (outside any graph)
+        and arm the slot's decode state (``first_token`` at
+        ``position`` is the next step's input, the sample-first
+        contract of solo generate).  Sampled streams also arm
+        ``base_key`` (``fold_in(PRNGKey(seed), row)``, two words) and
+        ``next_index`` (the token index the next step draws); greedy
+        streams keep temperature 0, the argmax lane.  Speculative
+        streams pass ``draft_cache`` (the draft's prefill of the same
+        prompt) and ``spec_k`` > 0."""
         self._ensure_stacked(cache)
         with torch.no_grad():
-            self._k[:, slot].copy_(cache.k[:, 0])
-            self._v[:, slot].copy_(cache.v[:, 0])
+            self._copy_lane(self._pool, slot, cache)
             if draft_cache is not None:
                 self._ensure_draft_stacked(draft_cache)
-                self._dk[:, slot].copy_(draft_cache.k[:, 0])
-                self._dv[:, slot].copy_(draft_cache.v[:, 0])
+                self._copy_lane(self._dpool, slot, draft_cache)
         self._arm(slot, first_token, position, base_key, next_index,
                   temperature, top_k, top_p, spec_k)
 
@@ -499,11 +562,9 @@ class SlotKVManager(StepPool):
 
     def _body(self, window: int, sampled: bool = False) -> None:
         """``window`` fused decode steps over the static buffers."""
-        from ..models.kv_cache import KVCache
-
-        self._run_window(KVCache(self._k, self._v,
-                                 positions=self._pos_buf),
-                         window, sampled)
+        self._run_window(
+            dataclasses.replace(self._pool, positions=self._pos_buf),
+            window, sampled)
 
     def step(self, window: int = 1, sampled: bool = False, *,
              graph: Optional[bool] = None) -> np.ndarray:
@@ -514,7 +575,7 @@ class SlotKVManager(StepPool):
         (default: on a CUDA pool) replays the CUDA graph of (window,
         sampled); ``graph=False`` on the card runs the same body
         eagerly, for comparing the two."""
-        if self._k is None:
+        if self._pool is None:
             raise RuntimeError("step() before any insert()")
         self._check_window(window)
         return self._dispatch(
@@ -523,11 +584,9 @@ class SlotKVManager(StepPool):
             on_card=self._k.device.type == "cuda")
 
     def _spec_body(self, window: int, K: int, sampled: bool) -> None:
-        from ..models.kv_cache import KVCache
-
         self._run_spec_window(
-            KVCache(self._k, self._v, positions=self._pos_buf),
-            KVCache(self._dk, self._dv, positions=self._dpos_buf),
+            dataclasses.replace(self._pool, positions=self._pos_buf),
+            dataclasses.replace(self._dpool, positions=self._dpos_buf),
             window, K, sampled)
 
     def step_spec(self, window: int, K: int, sampled: bool = False, *,
@@ -542,7 +601,7 @@ class SlotKVManager(StepPool):
         its own.  ``sampled`` selects the body with the sampling lanes
         (any resident samples).  One CUDA graph per (window, "spec", K,
         sampled)."""
-        if self._k is None or self._dk is None:
+        if self._pool is None or self._dpool is None:
             raise RuntimeError("step_spec() before a speculative "
                                "insert()")
         self._check_spec(window, K)

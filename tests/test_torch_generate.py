@@ -168,28 +168,40 @@ def test_cli_generate_cpu():
                                    ["--int8-weights"], ["--kv-ring"],
                                    ["--draft-model", "gpt2-tiny"]])
 def test_cli_refuses_flags_not_ported(flags):
-    """The int8 flags are still refused by name.  ``--spec-k``,
-    ``--beams`` and ``--draft-model`` are ported: the command decodes
-    and prints the library's tokens for the same flags."""
+    """Every flag of the reference's ``generate`` is ported: the command
+    decodes and prints the library's tokens for the same flags —
+    ``--int8-kv`` from an int8 cache, ``--int8-weights`` from the
+    weights quantized at the default ``min_size`` — except ``--kv-ring``
+    on gpt2-tiny, which has no sliding window, refused with the
+    reference's reason."""
+    from polyaxon_tpu_torch.ops.quant import quantize_params
+
     out = CliRunner().invoke(cli, [
         "generate", "--model", "gpt2-tiny", "--prompt", "1,2", "--cpu",
         *flags])
-    if flags[0] not in ("--spec-k", "--beams", "--draft-model"):
+    if flags[0] == "--kv-ring":
         assert out.exit_code != 0
-        assert "not yet ported" in out.output and flags[0] in out.output
+        assert "gpt2-tiny does not support ['kv_cache_ring'] (no such " \
+            "config field on this model family)" in out.output
         return
     assert out.exit_code == 0, out.output
     rec = json.loads(out.output)
-    model = t_get_model("gpt2-tiny").init_params(seed=0, device="cpu")
+    over = {"kv_cache_int8": True} if flags[0] == "--int8-kv" else {}
+    model = t_get_model("gpt2-tiny").init_params(seed=0, device="cpu",
+                                                 **over)
+    if flags[0] == "--int8-weights":
+        quantize_params(model)
     if flags[0] == "--beams":
         lib = TG.generate_beam(model, [[1, 2]], max_new_tokens=32,
                                num_beams=2)
     elif flags[0] == "--draft-model":
         lib = TG.generate_speculative(model, model, [[1, 2]],
                                       max_new_tokens=32, k=4)
-    else:                       # --spec-k without a draft: plain greedy
+    else:       # --spec-k without a draft is plain greedy; int8 options
         lib = TG.generate(model, [[1, 2]], max_new_tokens=32)
     assert rec["tokens"] == lib.tolist()
+    if flags[0].startswith("--int8"):
+        assert rec[flags[0][2:].replace("-", "_")] is True
 
 
 def test_entry_points_refuse_cpu_unless_asked():

@@ -12,8 +12,8 @@ reference's weights carried across.
   pool) answers /generate over HTTP with the library's tokens.
 - ``train`` -> checkpoint -> ``serve --checkpoint`` / ``generate
   --checkpoint`` give the in-memory trained model's tokens.
-- ``--kv-ring``, ``--int8-kv`` and ``--int8-weights`` are refused with
-  their ROADMAP item's name.
+- ``--kv-ring``, ``--int8-kv`` and ``--int8-weights`` on ``serve`` and
+  ``generate`` decode the library's tokens.
 """
 
 from __future__ import annotations
@@ -169,7 +169,8 @@ def test_cli_serve_cpu_answers_over_http(monkeypatch, name, flags):
     assert seen[2]["config"] == {
         "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
         "num_layers": cfg.num_layers, "num_heads": cfg.num_heads,
-        "max_position": cfg.max_position, "dtype": "bfloat16"}
+        "max_position": cfg.max_position, "kv_cache_int8": False,
+        "dtype": "bfloat16"}
 
 
 @pytest.fixture(scope="module")
@@ -245,13 +246,31 @@ def test_generate_checkpoint_equals_in_memory_model(trained):
     ("generate", "--int8-kv")])
 def test_int8_and_ring_refused_with_roadmap_name(monkeypatch, command,
                                                  flag):
-    def refuse(*a, **kw):
-        raise AssertionError("model built before the refusal")
+    """The int8 and ring flags are ported: on mistral-tiny ``serve``
+    answers /generate and ``generate`` prints the library's tokens from
+    the model the flag describes (the ring past max_position 256)."""
+    from polyaxon_tpu_torch.ops.quant import quantize_params
 
-    monkeypatch.setattr(cli_main, "_build_serving_model", refuse)
-    extra = ["--prompt", "1,2"] if command == "generate" else []
+    over = {"--kv-ring": {"kv_cache_ring": True},
+            "--int8-kv": {"kv_cache_int8": True}}.get(flag, {})
+    prompt = _prompt(6, 40)[0].tolist()
+    new = 230 if flag == "--kv-ring" else 20
+    model = get_model("mistral-tiny").init_params(seed=0, device="cpu",
+                                                  **over)
+    if flag == "--int8-weights":
+        quantize_params(model)
+    with torch.no_grad():
+        want = TG.generate(model, [prompt], max_new_tokens=new).tolist()
+    if command == "serve":
+        seen = _start_once(monkeypatch, [
+            ("/generate", {"prompt": prompt, "max_new_tokens": new})])
+        extra = ["--port", "0", "--n-slots", "2"]
+    else:
+        extra = ["--prompt", ",".join(map(str, prompt)),
+                 "--max-new-tokens", str(new)]
     out = CliRunner().invoke(cli_main.cli, [
         command, "--model", "mistral-tiny", "--cpu", *extra, flag])
-    assert out.exit_code != 0
-    assert f"{flag} (ROADMAP Queue 1: int8 weights and int8 KV)" in \
-        out.output
+    assert out.exit_code == 0, out.output
+    got = seen[0] if command == "serve" \
+        else json.loads(out.output.strip().splitlines()[-1])
+    assert got["tokens"] == want

@@ -465,3 +465,38 @@ def test_pin_unpin_reset_keep_the_accounting(model):
     assert mgr.active_slots == 0 and mgr.slot_page_counts() == {}
     mgr.unpin(ids, epoch=epoch)             # a stale epoch: dropped
     assert _all_free(eng)
+
+
+def test_lazy_growth_trace_instants_match_reference(small_pair):
+    """Lazy growth and exhaustion preemption leave ``kv_grow`` and
+    ``kv_preempt`` instants on the engine track of the trace, as the
+    reference's engine does: on the same schedule under page pressure
+    both engines emit the same instants in the same order."""
+    from polyaxon_tpu.serving import DecodeEngine as JEngine
+    from polyaxon_tpu.serving import SchedulerPolicy as JPolicy
+    from polyaxon_tpu.serving.scheduler import SamplingSpec as JSpec
+    from polyaxon_tpu.serving.telemetry import Telemetry as JTelemetry
+    from polyaxon_tpu_torch.serving import Telemetry
+
+    jmodel, variables, tmodel = small_pair
+    kw = dict(n_slots=4, decode_window=1, kv_paged=True, kv_page_tokens=8,
+              kv_lazy=True, kv_pages=8)
+    engines = (JEngine(jmodel, variables, autostart=False,
+                       policy=JPolicy(**kw), telemetry=JTelemetry()),
+               DecodeEngine(tmodel, autostart=False,
+                            policy=SchedulerPolicy(**kw),
+                            telemetry=Telemetry()))
+    marks = []
+    for eng, spec in zip(engines, (JSpec, SamplingSpec)):
+        eng.submit(np.asarray(PROMPT, np.int32), 30, None, None)
+        eng.submit(np.asarray(P2, np.int32), 30, None, None,
+                   sampling=spec(seed=11, temperature=1.0))
+        eng.run_until_idle()
+        assert eng.kv_preempt_exhaustion_total >= 1
+        marks.append([(e["name"], e["pid"],
+                       {k: v for k, v in e.get("args", {}).items()
+                        if k not in ("rid", "blocked_rid")})
+                      for e in eng.tel.chrome_trace()["traceEvents"]
+                      if e["name"] in ("kv_grow", "kv_preempt")])
+    assert marks[1] == marks[0]
+    assert {m[0] for m in marks[1]} == {"kv_grow", "kv_preempt"}

@@ -320,3 +320,132 @@ def test_cli_serve_needs_cuda_unless_cpu():
     out = CliRunner().invoke(cli_main.cli, [
         "serve", "--model", "gpt2-tiny", "--port", "0"])
     assert out.exit_code != 0 and "--cpu" in out.output
+
+
+def test_anomalies_and_exemplars_routes_match_reference():
+    """``GET /anomalies`` (the anomaly sentry's report; 400 with
+    forensics off) and ``GET /debug/exemplars`` (every latency
+    histogram's exemplars) answer with the reference server's keys
+    after the same requests (gpt2-tiny, float32, max_batch 4)."""
+    import jax
+    import jax.numpy as jnp
+
+    from polyaxon_tpu.models.registry import get_model as j_get_model
+    from polyaxon_tpu.serving import ModelServer as JServer
+    from polyaxon_tpu.serving import make_server as j_make_server
+    from polyaxon_tpu_torch.convert import gpt2_state_dict_from_jax
+
+    jmodel = j_get_model("gpt2-tiny").make_model(dtype=jnp.float32)
+    variables = jmodel.init(jax.random.PRNGKey(0),
+                            jnp.zeros((1, 8), jnp.int32))
+    tmodel = get_model("gpt2-tiny").make_model(device="cpu",
+                                               dtype=torch.float32)
+    tmodel.load_state_dict(gpt2_state_dict_from_jax(
+        jax.tree.map(np.asarray, variables["params"]), tmodel.cfg))
+    bodies = {}
+    for label, ms, make in (
+            ("ref", JServer(jmodel, variables, model_name="gpt2-tiny",
+                            max_batch=4), j_make_server),
+            ("port", ModelServer(tmodel.eval(), model_name="gpt2-tiny",
+                                 max_batch=4), make_server)):
+        srv = make("127.0.0.1", 0, ms)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            for p in ([1, 2, 3], [[4, 5], [6, 7]]):
+                _post(base, {"prompt": p, "max_new_tokens": 3})
+            bodies[label] = [json.loads(_get(base, path)) for path in
+                             ("/anomalies", "/debug/exemplars")]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            ms.close()
+
+    def keys(x, depth=2):
+        if not isinstance(x, dict) or depth == 0:
+            return type(x).__name__
+        return {k: keys(v, depth - 1) for k, v in x.items()}
+
+    assert keys(bodies["port"][0]) == keys(bodies["ref"][0])
+    assert keys(bodies["port"][1], 1) == keys(bodies["ref"][1], 1)
+    ms = ModelServer(_model(), model_name="gpt2-tiny", forensics=False)
+    srv, base = _start(ms)
+    try:
+        assert "forensics disabled" in _get(base, "/anomalies", 400)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        ms.close()
+
+
+_REFERENCE_ONLY_FLAGS = [
+    (["--prefix-fetch"], "the spill tier and its wire format"),
+    (["--prefix-fetch-timeout", "2"], "the spill tier and its wire format"),
+    (["--prefix-fetch-min-tokens", "4"],
+     "the spill tier and its wire format"),
+    (["--prefix-fetch-remat-ratio", "0.5"],
+     "the spill tier and its wire format"),
+    (["--batching", "coalesce"], "legacy coalescing"),
+    (["--mesh", "tp=2"], "parallelism and meshes"),
+    (["--role", "decode"], "the router"),
+    (["--trace-file", "t.jsonl"], "ProfileSession on torch.profiler"),
+    (["--profile-dir", "p"], "ProfileSession on torch.profiler"),
+    (["--profile-every", "4"], "ProfileSession on torch.profiler"),
+    (["--profile-steps", "2"], "ProfileSession on torch.profiler"),
+]
+
+
+@pytest.mark.parametrize("flags,item", _REFERENCE_ONLY_FLAGS)
+def test_cli_serve_refuses_unported_reference_flags(monkeypatch, flags,
+                                                    item):
+    """``serve`` carries every flag of the reference's at its default
+    (click no longer answers "No such option"), and refuses each one
+    whose feature is not ported by its ROADMAP item, before any model
+    is built."""
+    def refuse(*a, **kw):
+        raise AssertionError("model built before the refusal")
+
+    monkeypatch.setattr(cli_main, "_build_serving_model", refuse)
+    out = CliRunner().invoke(cli_main.cli, [
+        "serve", "--model", "gpt2-tiny", "--cpu", *flags])
+    assert out.exit_code != 0
+    assert f"{flags[0]} (ROADMAP Queue 1: {item})" in out.output
+
+
+def test_cli_serve_flag_set_and_exports_match_reference(monkeypatch):
+    """``serve`` accepts the reference's flag set (``--n-slots`` is the
+    port's alias of ``--slots``); ``--max-batch`` and ``--kv-ring-slack``
+    reach the server and the model; ``polyaxon_tpu_torch.serving``
+    exports what the reference's package does for the ported parts."""
+    import os
+
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import polyaxon_tpu.serving as jserving
+    from polyaxon_tpu.cli.main import cli as jcli
+    import polyaxon_tpu_torch.serving as tserving
+
+    def opts(cmd):
+        return {o for p in cmd.params for o in p.opts + p.secondary_opts}
+
+    assert opts(jcli.commands["serve"]) <= opts(cli_main.cli.commands[
+        "serve"])
+    for name in ("PagedSlotKVManager", "StallWatchdog"):
+        assert name in tserving.__all__ and name in jserving.__all__
+        assert getattr(tserving, name) is not None
+    assert "beam and speculative" not in tserving.__doc__
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def capture(model, **kw):
+        seen.update(kw, cfg=model.cfg)
+        raise Stop()
+
+    monkeypatch.setattr(tserving, "ModelServer", capture)
+    out = CliRunner().invoke(cli_main.cli, [
+        "serve", "--model", "mistral-tiny", "--cpu", "--max-batch", "2",
+        "--kv-ring", "--kv-ring-slack", "3"])
+    assert isinstance(out.exception, Stop), out.output
+    assert seen["max_batch"] == 2
+    assert seen["cfg"].kv_cache_ring and seen["cfg"].kv_cache_ring_slack == 3

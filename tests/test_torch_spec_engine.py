@@ -9,8 +9,8 @@ both engines; the port's runs on the fixed-lane pool and the paged pool
 reference engine's, and tokens to the solo ``generate_speculative``
 (seed mode) / greedy ``generate``.  Also: gpt2-tiny, llama-tiny and
 mistral-tiny (its window) speculative engines on both pools, the
-refusals, and ``TestRollbackMasking`` for the plain cache (the int8
-case waits for its ROADMAP item).
+refusals, and ``TestRollbackMasking`` for the plain cache, the int8
+cache and the ring.
 """
 
 from __future__ import annotations
@@ -321,3 +321,110 @@ class TestRollbackMasking:
                 np.testing.assert_array_equal(a.numpy(), b.numpy())
                 dirty.positions += 1
                 clean.positions += 1
+
+    # The same contract on the int8 cache (codes and scales rewound
+    # together) and on the ring, whose position table and ring-older
+    # test mask the rejected entries (slack k - 1 keeps the in-window
+    # ones a 3-wide garbage chunk would overwrite).
+
+    @staticmethod
+    def _int8(tt):
+        import dataclasses
+
+        from polyaxon_tpu_torch.models.gpt2 import GPT2Model
+
+        m = GPT2Model(dataclasses.replace(tt.cfg, kv_cache_int8=True),
+                      device="cpu")
+        m.load_state_dict(tt.state_dict())
+        return m.eval()
+
+    @staticmethod
+    def _ring():
+        from test_torch_int8_kv import make_pair
+
+        return make_pair("mistral-tiny", kv_cache_ring=True,
+                         kv_cache_ring_slack=2)[2]
+
+    def _redecode(self, tt, prompt, garbage):
+        n = prompt.shape[1]
+        logits, cache = TG.prefill(tt, prompt)
+        pristine = TG.prefill(tt, prompt)[1]
+        with torch.no_grad():
+            tt(torch.tensor([garbage]), decode=True, decode_position=n,
+               cache=cache)
+        TG._rollback_cache(cache, n)
+        a = TG.generate_continue(tt, cache, logits, n, max_new_tokens=6)
+        b = TG.generate_continue(tt, pristine, logits, n,
+                                 max_new_tokens=6)
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+    def _extend(self, tt, prompt, garbage, suffix):
+        n = prompt.shape[1]
+        _, cache = TG.prefill(tt, prompt)
+        _, pristine = TG.prefill(tt, prompt)
+        with torch.no_grad():
+            tt(torch.tensor([garbage]), decode=True, decode_position=n,
+               cache=cache)
+        TG._rollback_cache(cache, n)
+        la, _ = TG.prefill(tt, [suffix], cache=cache, position=n)
+        lb, _ = TG.prefill(tt, [suffix], cache=pristine, position=n)
+        np.testing.assert_array_equal(la.numpy(), lb.numpy())
+
+    def _slots(self, tt, prompts, garbage, feeds):
+        """Per-row garbage chunks, rewound, then one-token decodes: equal
+        to a pristine slot cache's (the ring's table per row)."""
+        from polyaxon_tpu_torch.models.kv_cache import KVCache
+
+        lanes = [TG.prefill(tt, [p])[1] for p in prompts]
+        n = len(prompts[0])
+
+        def slot_cache():
+            leaves = [torch.cat(ts, dim=1).clone() for ts in
+                      zip(*(c.leaves() for c in lanes))]
+            ring = lanes[0].ring_pos
+            return KVCache.from_leaves(
+                leaves, positions=torch.full((len(prompts),), n),
+                ring_pos=None if ring is None else torch.stack(
+                    [c.ring_pos for c in lanes]).clone())
+
+        dirty, clean = slot_cache(), slot_cache()
+        with torch.no_grad():
+            tt(torch.tensor(garbage), decode=True,
+               decode_position=dirty.positions, cache=dirty)
+            TG._rollback_cache(dirty, torch.full((len(prompts),), n))
+            for tok in feeds:
+                a = tt(torch.tensor(tok)[:, None], decode=True,
+                       decode_position=dirty.positions, cache=dirty)
+                b = tt(torch.tensor(tok)[:, None], decode=True,
+                       decode_position=clean.positions, cache=clean)
+                np.testing.assert_array_equal(a.numpy(), b.numpy())
+                dirty.positions += 1
+                clean.positions += 1
+
+    def test_int8_rollback_then_redecode_equals_pristine(self, pair):
+        tt = self._int8(pair[0][2])
+        self._redecode(tt, np.asarray([[3, 1, 4, 1, 5, 9]]), [31, 30, 29])
+
+    def test_int8_rollback_then_chunk_extend_equals_pristine(self, pair):
+        tt = self._int8(pair[0][2])
+        self._extend(tt, np.asarray([[3, 1, 4, 1, 5, 9]]),
+                     [31, 30, 29, 28], [2, 6])
+
+    def test_int8_slot_rollback_masks_stale_entries(self, pair):
+        tt = self._int8(pair[0][2])
+        self._slots(tt, [[3, 1, 4, 1, 5, 9], [2, 7, 1, 8, 2, 8]],
+                    [[31, 30, 29, 28], [1, 2, 3, 4]], ([5, 6], [7, 8]))
+
+    def test_ring_rollback_then_redecode_equals_pristine(self):
+        prompt = np.random.RandomState(1).randint(0, 512, (1, 40))
+        self._redecode(self._ring(), prompt, [31, 30, 29])
+
+    def test_ring_rollback_then_chunk_extend_equals_pristine(self):
+        prompt = np.random.RandomState(2).randint(0, 512, (1, 40))
+        self._extend(self._ring(), prompt, [31, 30, 29], [2, 6])
+
+    def test_ring_slot_rollback_masks_stale_entries(self):
+        rng = np.random.RandomState(3)
+        prompts = rng.randint(0, 512, (2, 40)).tolist()
+        self._slots(self._ring(), prompts, [[31, 30, 29], [1, 2, 3]],
+                    ([5, 6], [7, 8], [9, 10]))
