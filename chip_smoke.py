@@ -97,6 +97,20 @@ Phases, each raising on failure:
    1,536 + 768-token session past max_position solo == a plain cache of
    max_position 4096 == the fixed-lane engine; bf16 at full depth: cache
    bytes, the decode step past position 2048, paged refused);
+   the fleet tier (``phase_fleet``, run after the int8 phase, GPT-2
+   medium at full width and depth): a 512-token prefix's
+   ``spill_pages`` -> ``pack_spilled`` -> ``unpack_spilled`` ->
+   ``rematerialize`` == ``materialize`` bitwise in bf16, int8 KV and at
+   TinyLlama's width, with bytes and ms; in float32 a ``ReplicaRouter``
+   over in-process replicas (one ``role="prefill"``, two ``"decode"``
+   capturing their graphs at the same time) == a monolithic server on 8
+   requests, each long one admitted over the wire, then a decode replica
+   killed mid-request (failover and ``resume_tokens`` token-identical);
+   ``serve --role prefill``, two ``serve --role decode`` and ``route``
+   as processes under 16 bf16 requests (tok/s, TTFT, handoffs and their
+   bytes and ms against a local re-prefill, the router's link
+   estimates); the host tier on one server (spills, host hits == the
+   uncached tokens, TTFT cold / device hit / host hit);
 10. ``python -m polyaxon_tpu_torch.cli run -f`` on the port's example
    polyaxonfiles in a temporary home, each read back through the port's
    store: the GPT-2 medium ``job`` (3 tracked steps equal to its log
@@ -1634,9 +1648,10 @@ def _warm_server(base, ms, cfg, max_tokens: int) -> None:
 
 def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
     """The radix prefix cache on GPT-2 medium at full width, both pools:
-    a 512-token system prompt registered by POST /prefill, 32 requests
-    extending it (8 clients, 64 new tokens, half sampled) and one 2-row
-    request (the solo hit path).
+    a 512-token system prompt registered by POST /prefill, 16 requests
+    extending it (8 clients, 64 new tokens, half sampled; 32 until the
+    fleet phase needed the time) and one 2-row request (the solo hit
+    path).
 
     - float32: a server with the cache off and one with it on (4
       entries) give the same tokens, greedy and sampled alike (the tie
@@ -1648,7 +1663,7 @@ def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
     Returns the bf16 records and the flash launches (0) of every
     pool."""
     cfg = model.cfg
-    sys_p, bodies, two = _prefix_traffic(cfg)
+    sys_p, bodies, two = _prefix_traffic(cfg, n=16)
     max_tokens = max(len(b["prompt"]) + b["max_new_tokens"] for b in bodies)
     out = {}
     for pool, kw in PREFIX_POOLS:
@@ -2779,8 +2794,11 @@ def phase_llama_serving(model, model_f32):
     recs = {}
     for label, kw in (("llama mixed fixed-lane", {"warm_requests": 4,
                                                   "idle_share": False}),
+                      # No idle-share reruns either: trimmed for the
+                      # fleet phase's time (PERF.md keeps the earlier ones).
                       ("llama mixed paged", {"warm_requests": 1,
-                                             "kv_paged": True})):
+                                             "kv_paged": True,
+                                             "idle_share": False})):
         t0 = time.perf_counter()
         rec, (srv, ms, _) = _http_load(model, label, bodies,
                                        sampled_too=True, name=LLAMA, **kw)
@@ -3439,6 +3457,574 @@ def phase_ring(model) -> dict:
             "bytes": (ring_bytes, plain_bytes)}
 
 
+# -- the fleet tier: host spill, the wire, the router, disaggregated roles --
+
+FLEET_PROMPT = 512          # tokens of the wire checks' prefix
+FLEET_PT = 64               # page tokens of every fleet pool
+
+
+def _bits(t):
+    """An integer view of ``t`` (bitwise comparisons of any dtype)."""
+    return t.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[
+        t.element_size()])
+
+
+def _wire_leg(label, mgr, cache, logits, predicted):
+    """One prefix through the host tier and the wire on the card: pages
+    written, ``spill_pages`` -> ``pack_spilled`` -> ``unpack_spilled``
+    -> ``rematerialize``, each step timed, the result held bitwise
+    against ``materialize`` of the same pages."""
+    from polyaxon_tpu_torch.serving.paged import (pack_spilled,
+                                                  unpack_spilled)
+
+    n = cache.index
+    ids = list(range(mgr.pages_needed(n)))
+    toks = np.arange(n, dtype=np.int32)[None] % 50257
+    mgr.scatter_cache(cache, ids)
+    want = mgr.materialize(ids, n)
+    torch.cuda.synchronize()
+    ms = {}
+    t0 = time.perf_counter()
+    leaves = mgr.spill_pages(ids, n)
+    torch.cuda.synchronize()
+    ms["spill"] = 1e3 * (time.perf_counter() - t0)
+    host_logits = logits.cpu()
+    t0 = time.perf_counter()
+    blob = pack_spilled(toks, leaves, n, host_logits)
+    ms["pack (crc32 included)"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    _toks, back, n_back, _lg = unpack_spilled(blob)
+    ms["unpack (crc32 included)"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    got = mgr.rematerialize(back, n_back)
+    torch.cuda.synchronize()
+    ms["rematerialize"] = 1e3 * (time.perf_counter() - t0)
+    if got.index != n or len(got.leaves()) != len(want.leaves()):
+        raise AssertionError(f"fleet wire {label}: wrong cache kind")
+    for a, b in zip(got.leaves(), want.leaves()):
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or not torch.equal(_bits(a), _bits(b)):
+            raise AssertionError(f"fleet wire {label}: rematerialize != "
+                                 f"materialize")
+    kv = sum(t.numel() * t.element_size() for t in leaves
+             if t is not None)
+    if kv != predicted:
+        raise AssertionError(f"fleet wire {label}: {kv} K/V bytes, "
+                             f"predicted {predicted}")
+    print(f"[fleet] wire {label}: blob {len(blob)} bytes (K/V {kv}, "
+          f"predicted {predicted}; logits and header "
+          f"{len(blob) - kv}); " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in ms.items())
+          + "; rematerialize == materialize bitwise")
+    return {"blob_bytes": len(blob), "kv_bytes": kv, "ms": ms}
+
+
+def _fleet_wire(model, name):
+    """Part a: GPT-2 medium's 512-token bf16 prefix and its int8-KV
+    twin, and a cache of TinyLlama's width (22 layers, 4 KV heads of 64,
+    2048 positions) through the wire on the paged pool."""
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.models.kv_cache import KVCache, quantize_chunk
+    from polyaxon_tpu_torch.serving import PagedSlotKVManager
+
+    cfg = model.cfg
+    prompt = torch.from_numpy(np.random.RandomState(21).randint(
+        0, cfg.vocab_size, (1, FLEET_PROMPT))).cuda()
+    with torch.no_grad():
+        logits, cache = G.prefill(model, prompt)
+    out = {}
+    kv = 2 * cfg.num_layers * FLEET_PROMPT * cfg.num_heads \
+        * (cfg.hidden_size // cfg.num_heads) * 2
+    mgr = PagedSlotKVManager(model, 2, page_tokens=FLEET_PT, n_pages=32,
+                             max_position=cfg.max_position)
+    out["bf16"] = _wire_leg(f"{name} bf16", mgr, cache, logits, kv)
+
+    def q(t):                   # [L, 1, cap, H, D] -> int8 + bf16 scale
+        L = t.shape[0]
+        codes, scale = quantize_chunk(t.reshape((L,) + t.shape[2:]))
+        return codes.unsqueeze(1), scale.unsqueeze(1)
+
+    (kq, ks), (vq, vs) = q(cache.k), q(cache.v)
+    int8 = KVCache(kq, vq, index=cache.index, k_scale=ks, v_scale=vs)
+    mgr = PagedSlotKVManager(model, 2, page_tokens=FLEET_PT, n_pages=32,
+                             max_position=cfg.max_position)
+    kv8 = kv // 2 + 2 * cfg.num_layers * FLEET_PROMPT * cfg.num_heads * 2
+    out["int8"] = _wire_leg(f"{name} int8 KV", mgr, int8, logits, kv8)
+    print(f"[fleet] wire int8 / bf16: K/V bytes "
+          f"{out['int8']['kv_bytes'] / out['bf16']['kv_bytes']:.4f}, blob "
+          f"bytes {out['int8']['blob_bytes'] / out['bf16']['blob_bytes']:.4f}")
+    del mgr, int8, cache
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (22, 1, 2048, 4, 64)
+    llama = KVCache(*(torch.randn(shape, generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(2)),
+                    index=FLEET_PROMPT)
+    mgr = PagedSlotKVManager(model, 2, page_tokens=FLEET_PT, n_pages=40,
+                             max_position=2048)
+    out["llama"] = _wire_leg(f"{LLAMA} width (22 layers, 4 KV heads)",
+                             mgr, llama,
+                             torch.zeros((1, 32000), device="cuda"),
+                             2 * 22 * FLEET_PROMPT * 4 * 64 * 2)
+    return out
+
+
+def _fleet_bodies(vocab, n, new, seed):
+    """``n`` requests of 64-512 prompt tokens and ``new`` new tokens."""
+    rng = np.random.RandomState(seed)
+    return [{"prompt": rng.randint(0, vocab, int(p)).tolist(),
+             "max_new_tokens": new} for p in rng.randint(64, 513, n)]
+
+
+def _wait_roles(router, roles, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while [r.role for r in router.replicas] != list(roles) \
+            or not all(r.up() for r in router.replicas):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"router never saw roles {roles}")
+        time.sleep(0.05)
+
+
+def _warm_fleet_keys(ms, max_tokens: int) -> None:
+    """Capture every graph a decode replica's load can reach: each window
+    up to its ``decode_window``, greedy and sampled, plain and
+    speculative (K = ``SPEC_K``), every pad class up to ``max_tokens``
+    positions (forced through an idle slot's width, restored after)."""
+    from polyaxon_tpu_torch.serving.slots import sync_device
+
+    slots = ms.engine.slots
+    windows = [w for w in (1, 2, 4, 8) if w <= slots.max_window]
+    with ms._lock:
+        for P in _pad_classes(slots, max_tokens):
+            slots._slot_need[0] = P
+            for w in windows:
+                for sampled in (False, True):
+                    slots.step(w, sampled)
+                    slots.step_spec(w, SPEC_K, sampled)
+        slots._slot_need[0] = 0
+        # Another replica may be capturing in this process right now: a
+        # bare device-wide synchronize would invalidate its capture.
+        sync_device(slots.device)
+
+
+def _fleet_disagg(model_f32, name):
+    """Part b: a ``ReplicaRouter`` over in-process ``LocalReplica``s —
+    one ``role="prefill"`` (paged, a spill budget), two
+    ``role="decode"`` (``prefix_fetch``) — sharing one float32 model, and
+    a monolithic ``ModelServer`` on the same model.  The two decode
+    replicas warm their graphs at the same time (several engines
+    capturing in one process); 8 requests from 8 clients (3 sampled, 1
+    speculative with the 4-layer cut draft) equal the monolithic tokens,
+    every long prompt admitted over the wire; then a decode replica is
+    killed mid-request."""
+    import threading
+
+    from polyaxon_tpu_torch.serving import (LocalReplica, ModelServer,
+                                            PrefixFetchPolicy,
+                                            ReplicaRouter,
+                                            make_router_server)
+
+    cfg = model_f32.cfg
+    draft = _cut_draft(model_f32, name, 4)
+    common = dict(model_name=name, n_slots=4, decode_window=1,
+                  kv_paged=True, kv_page_tokens=FLEET_PT, prefix_cache=8,
+                  draft_model=draft, spec_k=SPEC_K)
+    # A float32 prefix is twice bf16's bytes: the policy's default curve
+    # (4e3 tok/s of re-prefill against 1e9 B/s of wire) prices it above
+    # a re-prefill, so this float32 check prices re-prefill at 1 tok/s
+    # to take the wire lane; part c runs the defaults in bf16.
+    policy = PrefixFetchPolicy(prefill_tok_per_s=1.0)
+
+    def factory(role):
+        kw = dict(common, role=role, kv_host_spill_bytes=4 << 30)
+        if role == "decode":
+            kw.update(prefix_fetch=True, prefix_fetch_policy=policy)
+        return lambda: ModelServer(model_f32, **kw)
+
+    t0 = time.perf_counter()
+    roles = ["prefill", "decode", "decode"]
+    reps = [LocalReplica(factory(r), f"r{i}") for i, r in enumerate(roles)]
+    router = ReplicaRouter(reps, probe_interval_s=0.1, probe_timeout_s=2.0,
+                           cooldown_s=0.5, request_timeout_s=600.0)
+    srv = make_router_server("127.0.0.1", 0, router)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    mono = ModelServer(model_f32, **common)
+    try:
+        _wait_roles(router, roles)
+        bodies = _fleet_bodies(cfg.vocab_size, 8, 32, seed=31)
+        for i in (1, 4, 6):
+            bodies[i].update(SAMPLED, seed=i)
+        bodies[3].update(speculative=True, spec_k=SPEC_K)
+        # Shape both decode pools (and the draft pools) with a greedy and
+        # a speculative request each, then capture every key on both
+        # replicas AT ONCE, with a prefill running on the prefill tier.
+        warm = _fleet_bodies(cfg.vocab_size, 4, 8, seed=32)
+        for j, rep in enumerate(reps[1:]):
+            _post_json(rep.url, "/generate", warm[2 * j])
+            _post_json(rep.url, "/generate",
+                       dict(warm[2 * j + 1], speculative=True,
+                            spec_k=SPEC_K))
+        errs = []
+
+        def warm_keys(ms):
+            try:
+                _warm_fleet_keys(ms, 512 + 32 + SPEC_K)
+            except Exception as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=warm_keys, args=(r.ms,))
+                   for r in reps[1:]]
+        threads.append(threading.Thread(target=lambda: _post_json(
+            reps[0].url, "/prefill", {"prompt": warm[0]["prompt"]})))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            raise errs[0]
+        graphs = [len(r.ms.engine.slots._graphs) for r in reps[1:]]
+        print(f"[fleet] disagg: the two decode replicas captured "
+              f"{graphs} graphs concurrently (one process, one card)")
+        t_warm = time.perf_counter() - t0
+        _zero_counts()
+        wall, out = _load_clients(base, bodies, 8)
+        counts = _counts()
+        after = [len(r.ms.engine.slots._graphs) for r in reps[1:]]
+        if any(counts.values()) or after != graphs:
+            raise AssertionError(f"fleet disagg: flash {counts}, graphs "
+                                 f"{graphs} -> {after}")
+        want = [mono.generate(dict(b))["new_tokens"] for b in bodies]
+        got = [r[1]["new_tokens"] for r in out]
+        ties = _same_tokens(model_f32, "fleet", bodies, want, got)
+        sources = [r[1]["prefix_source"] for r in out]
+        for b, s, r in zip(bodies, sources, out):
+            wired = "re_prefill" if b.get("speculative") else "wire_fetch"
+            if s != wired or r[1]["router"]["replica"] == "r0":
+                raise AssertionError(f"fleet disagg: {s} on "
+                                     f"{r[1]['router']['replica']}")
+        print(f"[fleet] disagg float32: 8 requests (3 sampled, 1 "
+              f"speculative) == monolithic ({ties} ties); sources "
+              f"{sources}; handoffs {router.disagg_handoffs_total}, "
+              f"wire fetches {router.kv_fleet_wire_fetches_total}; 0 "
+              f"flash launches, 0 captures after warm-up; {wall:.2f} s")
+        kill = _fleet_kill(model_f32, router, base, reps, mono, cfg)
+        print(f"[time] fleet disagg: warm-up {t_warm:.1f} s, total "
+              f"{time.perf_counter() - t0:.1f} s")
+        return {"flash_launches": counts, "ties": ties, **kill}
+    finally:
+        router.close()
+        srv.shutdown()
+        srv.server_close()
+        for r in reps:
+            r.close()
+        mono.close()
+
+
+def _fleet_kill(model_f32, router, base, reps, mono, cfg):
+    """A decode replica killed (``chaos_kill``) while it decodes a
+    request: the router replays it on the other DECODE replica (never
+    the prefill tier) with the uninterrupted tokens; the survivor also
+    resumes the committed tokens the dead replica held, through
+    ``resume_tokens``, token-identically."""
+    import threading
+
+    body = _fleet_bodies(cfg.vocab_size, 1, 96, seed=33)[0]
+    body.update(SAMPLED, seed=5)
+    p = len(body["prompt"])
+    want = mono.generate(dict(body))["tokens"][0]
+    failovers = router.failovers_total
+    got, committed = {}, []
+    t = threading.Thread(target=lambda: got.update(
+        r=_post_json(base, "/generate", body)))
+    t.start()
+    victim = None
+    deadline = time.monotonic() + 300
+    while victim is None and time.monotonic() < deadline:
+        for rep in reps[1:]:
+            res = list(rep.ms.engine._resident.values())
+            if res and len(res[0].out) >= 8:
+                committed = list(res[0].out)
+                victim = rep
+                break
+        time.sleep(0.001)
+    if victim is None:
+        raise AssertionError("fleet kill: no decode replica took it")
+    victim.chaos_kill()
+    t.join(timeout=600)
+    status, resp = got["r"]
+    survivor = next(r for r in reps[1:] if r is not victim)
+    if status != 200 or resp["tokens"][0] != want \
+            or resp["router"]["replica"] != survivor.id \
+            or router.failovers_total != failovers + 1 \
+            or reps[0].id in router.history.get(
+                resp["request_id"])["replicas"]:
+        raise AssertionError(f"fleet kill: {status} {resp.get('router')}")
+    n = len(committed)
+    if want[p:p + n] != committed:
+        raise AssertionError("fleet kill: the dead replica's tokens "
+                             "left the uninterrupted run")
+    status, resumed = _post_json(survivor.url, "/generate", dict(
+        body, prompt=want[:p + n], resume_tokens=n))
+    if status != 200 or resumed["tokens"][0] != want:
+        raise AssertionError(f"fleet kill: resume_tokens={n} diverged")
+    print(f"[fleet] kill: {victim.id} killed after {n} of 96 tokens; the "
+          f"router replayed the request on {survivor.id} (failovers "
+          f"+1, never the prefill tier) == uninterrupted; {survivor.id} "
+          f"resumed the {n} committed tokens (resume_tokens={n}) == "
+          f"uninterrupted")
+    return {"killed_after": n}
+
+
+def _fleet_cli(name):
+    """Part c: the fleet as a user starts it — ``serve --role prefill``,
+    two ``serve --role decode --prefix-fetch`` and ``route`` as
+    processes on the one card (bf16, the policy's defaults) — under 16
+    mixed requests from 16 clients."""
+    import socket
+
+    t0 = time.perf_counter()
+    ports = []
+    for _ in range(4):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    # A prefix cache of 32 entries: at the default 4, 16 concurrent
+    # prefills displace each other on the prefill tier before their
+    # decode replica fetches them (a holder miss).
+    spill = ["--kv-paged", "--kv-page-tokens", str(FLEET_PT),
+             "--kv-host-spill-bytes", str(4 << 30), "--prefix-cache", "32"]
+    cmds = [["serve", "--model", name, "--port", str(ports[0]), *spill,
+             "--role", "prefill"]]
+    cmds += [["serve", "--model", name, "--port", str(p), *spill,
+              "--role", "decode", "--prefix-fetch"] for p in ports[1:3]]
+    cmds.append(["route", "--port", str(ports[3]), *sum(
+        (["--replica", f"127.0.0.1:{p}"] for p in ports[:3]), [])])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    logs = [tempfile.TemporaryFile() for _ in cmds]
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "polyaxon_tpu_torch.cli", *c], cwd=ROOT,
+                              env=env, stdout=f, stderr=subprocess.STDOUT)
+             for c, f in zip(cmds, logs)]
+    base = f"http://127.0.0.1:{ports[3]}"
+    urls = [f"http://127.0.0.1:{p}" for p in ports[:3]]
+    try:
+        import urllib.request
+
+        def get(url):
+            with urllib.request.urlopen(url, timeout=60) as r:
+                return r.read()
+
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                info = json.loads(get(base + "/info"))
+                if sorted(r["role"] for r in info["replicas"]) == [
+                        "decode", "decode", "prefill"] \
+                        and all(r["up"] for r in info["replicas"]):
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline or any(
+                    p.poll() is not None for p in procs):
+                for f in logs:
+                    f.seek(0)
+                    print(f.read()[-1500:].decode(errors="replace"))
+                raise AssertionError("fleet cli: the fleet never came up")
+            time.sleep(0.2)
+        ready = time.perf_counter() - t0
+        made = _fleet_bodies(50257, 20, 64, seed=34)
+        warm, bodies = _mixed(made[:4]), _mixed(made[4:])
+        _w, warm_out = _load_clients(base, warm, 4)
+        t_load = time.perf_counter()
+        wall, out = _load_clients(base, bodies, 16)
+        tok_s = sum(len(r["new_tokens"][0]) for _, r in out) / wall
+
+        def spans_of(r):
+            rec = json.loads(get(base + f"/fleet/requests/"
+                                        f"{r['request_id']}"))
+            return {e["event"]: e.get("dur_ms", 0.0)
+                    for e in rec["timeline"]}
+
+        ttft, handoff, remote, handed = [], [], [], []
+        for body, (_, r) in zip(warm + bodies, warm_out + out):
+            spans = spans_of(r)
+            if "kv_handoff" in spans:   # (prompt tokens, ms, bytes)
+                handoff.append((len(body["prompt"]),
+                                round(spans["kv_handoff"], 2),
+                                r.get("prefix_fetch_bytes")))
+                handed.append((body, r["router"]["replica"],
+                               spans["kv_handoff"]))
+        for _, r in out:
+            spans = spans_of(r)
+            remote.append(spans.get("prefill_remote", 0.0))
+            ttft.append(spans.get("prefill_remote", 0.0) + r["ttft_ms"])
+        sources = [r["prefix_source"] for _, r in out]
+        warm_sources = [r["prefix_source"] for _, r in warm_out]
+        nbytes = sum(r.get("prefix_fetch_bytes", 0)
+                     for _, r in warm_out + out)
+        info = json.loads(get(base + "/info"))
+        links = {r["id"]: (r.get("wire_bytes_per_s"), r.get("rtt_s"))
+                 for r in info["replicas"]}
+        vetoes = {}
+        flash = {k: 0 for k in KERNELS}
+        for u in urls:
+            rinfo = json.loads(get(u + "/info"))
+            for k, v in rinfo.get("prefix_fetch_failed", {}).items():
+                vetoes[k] = vetoes.get(k, 0) + v
+            for line in get(u + "/metrics").decode().splitlines():
+                m = re.match(r"ptpu_(flash_\w+)_launches_total (\d+)$",
+                             line)
+                if m:
+                    flash[m.group(1)] += int(m.group(2))
+        if any(flash.values()):
+            raise AssertionError(f"fleet cli: flash launches {flash}")
+        # The decode side's own re-prefill of the longest handed-off
+        # prompt (else the longest prompt), on the decode replica that
+        # did not serve it.
+        if handed:
+            body, served, ms_h = max(handed,
+                                     key=lambda h: len(h[0]["prompt"]))
+        else:
+            i = max(range(len(bodies)),
+                    key=lambda j: len(bodies[j]["prompt"]))
+            body, served, ms_h = bodies[i], out[i][1]["router"][
+                "replica"], None
+        other = next(u for u, r in zip(urls, info["replicas"])
+                     if r["role"] == "decode" and r["id"] != served)
+        _s, local = _post_json(other, "/generate", dict(
+            body, max_new_tokens=1))
+        print(f"[fleet] cli bf16: fleet up in {ready:.1f} s; 16 requests "
+              f"from 16 clients: {tok_s:.1f} tok/s, TTFT p50 "
+              f"{np.percentile(ttft, 50):.1f} ms p99 "
+              f"{np.percentile(ttft, 99):.1f} ms (prefill_remote + the "
+              f"decode replica's TTFT); sources "
+              f"{ {s: sources.count(s) for s in set(sources)} } (the 4 "
+              f"warm-up requests' {warm_sources}); handoffs "
+              f"{info['disagg_handoffs_total']} of "
+              f"{info['disagg_prefills_total']} remote prefills, "
+              f"{nbytes} bytes; fetch vetoes {vetoes}; links "
+              f"(wire_bytes_per_s, rtt_s) {links}")
+        pays = ms_h is not None and ms_h < local["prefill_ms"]
+        print(f"[fleet] cli spans: prefill_remote ms "
+              f"{[round(x, 2) for x in remote]}; kv_handoffs (prompt "
+              f"tokens, ms, bytes) {handoff}; the decode side's own "
+              f"re-prefill of the {len(body['prompt'])}-token prompt "
+              f"{local['prefill_ms']:.2f} ms ({local['prefix_source']}) "
+              f"against its handoff's "
+              f"{'none' if ms_h is None else f'{ms_h:.2f} ms'}; the wire "
+              f"pays for itself here: {pays}")
+        print(f"[time] fleet cli: up {ready:.1f} s, load "
+              f"{time.perf_counter() - t_load:.1f} s")
+        return {"tok_per_s": tok_s, "flash": flash, "handoffs":
+                info["disagg_handoffs_total"], "bytes": nbytes}
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=60)
+        for f in logs:
+            f.close()
+
+
+def _fleet_host_tier(model_f32, name):
+    """Part d: one paged server whose pool (20 pages of 64) holds two
+    512-token prefixes and a short request: registering three spills the
+    coldest to host memory
+    (``--kv-host-spill-bytes``); a request on it is a HOST hit
+    (``local_spilled``), float32 tokens equal to the uncached server's.
+    TTFT (a one-token request's wall) of a cold miss, a device hit and a
+    host hit."""
+    from polyaxon_tpu_torch.serving import ModelServer
+
+    t0 = time.perf_counter()
+    cfg = model_f32.cfg
+    common = dict(model_name=name, n_slots=2, decode_window=2,
+                  kv_paged=True, kv_page_tokens=FLEET_PT, kv_pages=20)
+    ms = ModelServer(model_f32, kv_host_spill_bytes=4 << 30,
+                     prefix_cache=8, **common)
+    cold = ModelServer(model_f32, prefix_cache=0, **common)
+    rng = np.random.RandomState(35)
+    systems = [rng.randint(0, cfg.vocab_size, FLEET_PROMPT).tolist()
+               for _ in range(3)]
+    try:
+        _zero_counts()
+        for s in systems:
+            ms.prefill_prompt({"prompt": s})
+        info = ms.info()
+        if info["kv_host_spills_total"] < 1:
+            raise AssertionError(f"fleet host tier: nothing spilled "
+                                 f"({info['kv_host_entries']} host)")
+
+        def one(body, server=ms):
+            t = time.perf_counter()
+            r = server.generate(dict(body, max_new_tokens=1))
+            return 1e3 * (time.perf_counter() - t), r
+
+        tail = rng.randint(0, cfg.vocab_size, 16).tolist()
+        ttft = {}
+        ttft["cold miss"], r = one({"prompt": rng.randint(
+            0, cfg.vocab_size, FLEET_PROMPT + 16).tolist()})
+        assert r["prefix_source"] == "re_prefill", r["prefix_source"]
+        ttft["device hit"], r = one({"prompt": systems[2] + tail})
+        assert r["prefix_source"] == "local_hot", r["prefix_source"]
+        ttft["host hit"], r = one({"prompt": systems[0] + tail})
+        if r["prefix_source"] != "local_spilled":
+            raise AssertionError(f"fleet host tier: {r['prefix_source']}")
+        bodies = [{"prompt": s + tail[:8], "max_new_tokens": 16}
+                  for s in systems]
+        bodies[1].update(SAMPLED, seed=1)
+        got = [ms.generate(dict(b)) for b in bodies]
+        want = [cold.generate(dict(b))["new_tokens"] for b in bodies]
+        ties = _same_tokens(model_f32, "fleet", bodies, want,
+                            [g["new_tokens"] for g in got])
+        counts = _counts()
+        if any(counts.values()):
+            raise AssertionError(f"fleet host tier: flash {counts}")
+        info = ms.info()
+        print(f"[fleet] host tier float32 (pool 20 pages of {FLEET_PT}): "
+              f"spills {info['kv_host_spills_total']}, host hits "
+              f"{info['kv_rematerialize_hits_total']}, promotions "
+              f"{info['kv_promotions_total']}, host bytes "
+              f"{info['kv_host_spill_bytes']}; sources "
+              f"{[g['prefix_source'] for g in got]} == uncached ({ties} "
+              f"ties); TTFT ms " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in ttft.items()))
+        print(f"[time] fleet host tier: {time.perf_counter() - t0:.1f} s")
+        return {"flash_launches": counts, "ttft_ms": ttft}
+    finally:
+        ms.close()
+        cold.close()
+
+
+def phase_fleet(model, model_f32, name="gpt2-medium"):
+    """The fleet tier at GPT-2 medium's full width and depth: (a) the
+    wire on the card, (b) disaggregated == monolithic in float32 with a
+    decode replica killed mid-request, (c) the fleet through the CLI in
+    bf16, (d) the host tier on one server.  Flash launches: 0 on every
+    part."""
+    t0 = time.perf_counter()
+    wire = _fleet_wire(model, name)
+    print(f"[time] fleet wire: {time.perf_counter() - t0:.1f} s")
+    _release()
+    disagg = _fleet_disagg(model_f32, name)
+    _release()
+    host = _fleet_host_tier(model_f32, name)
+    _release()
+    cli = _fleet_cli(name)
+    _release()
+    return {"wire": wire, "disagg": disagg, "host": host, "cli": cli,
+            "flash_launches": {
+                "fleet_disagg": disagg["flash_launches"],
+                "fleet_host_tier": host["flash_launches"],
+                # Summed over the CLI fleet's three server processes.
+                "fleet_cli": cli["flash"]}}
+
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXAMPLES = os.path.join(ROOT, "polyaxon_tpu_torch", "examples")
 # The status sequence the local executor records for a job that succeeds.
@@ -3843,6 +4429,8 @@ def main(argv=None) -> int:
     mark("beam search")
     int8 = phase_int8(model, model_f32)
     mark("int8 weights and int8 KV")
+    fleet = phase_fleet(model, model_f32)
+    mark("fleet tier")
     del model, model_f32
     _release()
     train_counts, train_secs = phase_train_entry()
@@ -3927,7 +4515,9 @@ def main(argv=None) -> int:
                 "int8_engine_paged": int8["flash_launches"]["engine"][
                     "paged"][name],
                 "int8_http_paged": int8["flash_launches"]["http"][name],
-                "ring_engine": ring["flash_launches"][name]},
+                "ring_engine": ring["flash_launches"][name],
+                **{k: v[name] for k, v in
+                   fleet["flash_launches"].items()}},
             **rec, "kernel_ms": rec["ms"]})
     print(f"[llama] decode step ms (bf16, 8 slots, W=8 replay): "
           + ", ".join(f"{k} {v:.3f}" for k, v in llama_step_ms.items())

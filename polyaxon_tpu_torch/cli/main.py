@@ -9,8 +9,8 @@ commands (``polyaxon_tpu/cli/main.py``) over the port's own copies of the
 orchestration layers; ``run`` does no device work itself: the
 polyaxonfile's command decides where its child runs.  The JAX package's
 other commands are not ported yet: ``check`` (ROADMAP Queue 1: The
-static checker), ``route`` (The router), and ``doctor``, ``agent``,
-``deploy`` and the rest (The deployment twin).
+static checker), and ``doctor``, ``agent``, ``deploy`` and the rest
+(The deployment twin).
 
 Port of ``polyaxon_tpu/cli/main.py``'s ``generate`` command (greedy,
 position-keyed sampled, ``--beams`` beam search and ``--draft-model``
@@ -18,7 +18,11 @@ speculative decoding) and its ``serve`` command (the
 continuous-batching HTTP server over the fixed-lane or the paged KV
 pool, with the prefix cache behind ``POST /prefill``, the engine
 supervisor, ``--fault-plan`` and, with ``--draft-model``, speculative
-requests in the engine's spec slots).  Both serve random-init weights
+requests in the engine's spec slots; with ``--kv-host-spill-bytes``
+the prefix store's host spill tier, with ``--prefix-fetch`` the fleet
+wire-fetch client, and ``--role prefill|decode`` for a disaggregated
+fleet), and its ``route`` command (the replica router in front of
+``serve`` replicas).  Both serve random-init weights
 from seed 0, or the float32 master weights of a training checkpoint
 (``--checkpoint DIR``) cast to the model's serving dtype, with the
 serving options: ``--int8-weights`` (quantized after loading, the draft
@@ -350,17 +354,10 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
 # Flags of the reference's `serve` for features that come with later
 # slices, kept at the reference's defaults and refused by name when
 # set: (option, default, ROADMAP item).
-_SPILL = "the spill tier and its wire format"
 _PROFILE = "ProfileSession on torch.profiler"
 _SERVE_NOT_PORTED = (
-    ("--kv-host-spill-bytes", 0, _SPILL),
-    ("--prefix-fetch", False, _SPILL),
-    ("--prefix-fetch-timeout", 5.0, _SPILL),
-    ("--prefix-fetch-min-tokens", 16, _SPILL),
-    ("--prefix-fetch-remat-ratio", 0.26, _SPILL),
     ("--batching", "continuous", "legacy coalescing"),
     ("--mesh", None, "parallelism and meshes"),
-    ("--role", "both", "the router"),
     ("--trace-file", None, _PROFILE),
     ("--profile-dir", None, _PROFILE),
     ("--profile-every", 0, _PROFILE),
@@ -413,24 +410,41 @@ _SERVE_NOT_PORTED = (
                    "exhaustion preempts the resident with the most "
                    "remaining budget (token-identical resume).")
 @click.option("--kv-host-spill-bytes", default=0, type=int,
-              help="With --kv-paged: the prefix store's host spill "
-                   "tier (not ported yet; refused when set).")
+              help="With --kv-paged: the prefix store's HOST SPILL "
+                   "tier byte budget.  0 (default) drops a prefix "
+                   "evicted under page pressure; > 0 spills it to "
+                   "host memory (coldest first past the budget), and "
+                   "a later hit brings it back and promotes it to "
+                   "pages.")
 @click.option("--prefix-fetch/--no-prefix-fetch", default=False,
-              help="The fleet prefix tier's wire-fetch client (not "
-                   "ported yet; refused when set).")
+              help="Needs --kv-paged and --kv-host-spill-bytes: the "
+                   "fleet prefix tier's wire-fetch client — a local "
+                   "prefix miss carrying a router hint "
+                   "({\"prefix_hint\": ...}) fetches the holder's "
+                   "entry over HTTP (checksummed; any failure degrades "
+                   "to a re-prefill, counted in "
+                   "prefix_fetch_failed_total).  The serving half "
+                   "(/prefix/fetch|ingest|handoff|evict, GET "
+                   "/prefix/index) is mounted on every paged server.")
 @click.option("--prefix-fetch-timeout", default=5.0, type=float,
-              help="Wire-fetch timeout in seconds (not ported yet; "
-                   "refused when changed).")
+              help="Per-connection timeout (seconds) for wire fetches "
+                   "and handoff pushes.")
 @click.option("--prefix-fetch-min-tokens", default=16, type=int,
-              help="Wire-fetch policy floor (not ported yet; refused "
-                   "when changed).")
+              help="Fetch-policy floor: prefixes shorter than this "
+                   "re-prefill locally.")
 @click.option("--prefix-fetch-remat-ratio", default=0.26, type=float,
-              help="Wire-fetch policy curve (not ported yet; refused "
-                   "when changed).")
+              help="Fetch-policy curve: rematerialization cost as a "
+                   "fraction of re-prefill cost.")
 @click.option("--role", default="both",
               type=click.Choice(["prefill", "decode", "both"]),
-              help="Disaggregated-serving role (not ported yet: only "
-                   "'both', the monolithic replica).")
+              help="Disaggregated-serving role. 'both' (default) is the "
+                   "monolithic replica. 'prefill' runs prompt prefill "
+                   "only — serves /prefill and the /prefix/* wire "
+                   "lanes, rejects /generate (400); needs --kv-paged "
+                   "and --kv-host-spill-bytes. 'decode' pulls "
+                   "handed-off KV over the wire-fetch lane; needs "
+                   "--prefix-fetch. The router learns roles from "
+                   "/healthz.")
 @click.option("--max-batch", default=8, type=int,
               help="Most prompt rows one /generate may carry.")
 @click.option("--batching", default="continuous",
@@ -621,12 +635,7 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
     if max_batch < 1:
         raise click.ClickException("--max-batch must be >= 1")
     _refuse_not_ported(_SERVE_NOT_PORTED, {
-        "--kv-host-spill-bytes": kv_host_spill_bytes,
-        "--prefix-fetch": prefix_fetch,
-        "--prefix-fetch-timeout": prefix_fetch_timeout,
-        "--prefix-fetch-min-tokens": prefix_fetch_min_tokens,
-        "--prefix-fetch-remat-ratio": prefix_fetch_remat_ratio,
-        "--batching": batching, "--mesh": mesh_arg, "--role": role,
+        "--batching": batching, "--mesh": mesh_arg,
         "--trace-file": trace_file, "--profile-dir": profile_dir,
         "--profile-every": profile_every,
         "--profile-steps": profile_steps})
@@ -645,7 +654,33 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
         raise click.ClickException(
             "--kv-lazy requires --kv-paged (lazy growth is a page-"
             "reservation policy)")
-    from polyaxon_tpu_torch.serving import ModelServer, make_server
+    if kv_host_spill_bytes < 0:
+        raise click.ClickException(
+            "--kv-host-spill-bytes must be >= 0")
+    if kv_host_spill_bytes and not kv_paged:
+        raise click.ClickException(
+            "--kv-host-spill-bytes requires --kv-paged (the host "
+            "tier spills page-pool payloads)")
+    if prefix_fetch and not (kv_paged and kv_host_spill_bytes):
+        raise click.ClickException(
+            "--prefix-fetch requires --kv-paged and "
+            "--kv-host-spill-bytes (wire-fetched payloads admit "
+            "through the host spill tier)")
+    # Role validation before the model build: a mis-flagged tier dies
+    # on usage, not after a checkpoint restore.
+    if role == "prefill" and not (kv_paged and kv_host_spill_bytes):
+        raise click.ClickException(
+            "--role prefill requires --kv-paged and "
+            "--kv-host-spill-bytes (a prefill tier's product is "
+            "admit-ready KV served over the /prefix/fetch lane)")
+    if role == "decode" and not prefix_fetch:
+        raise click.ClickException(
+            "--role decode requires --prefix-fetch (the decode tier "
+            "admits handed-off prefills through the wire-fetch "
+            "lane)")
+    from polyaxon_tpu_torch.serving import (ModelServer,
+                                            PrefixFetchPolicy,
+                                            make_server)
 
     device = "cpu" if cpu else None
     opts = dict(kv_int8=int8_kv, int8_weights=int8_weights,
@@ -667,6 +702,14 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
                          request_history=request_history,
                          kv_paged=kv_paged, kv_page_tokens=kv_page_tokens,
                          kv_pages=kv_pages, kv_lazy=kv_lazy,
+                         kv_host_spill_bytes=kv_host_spill_bytes,
+                         prefix_fetch=prefix_fetch,
+                         prefix_fetch_policy=PrefixFetchPolicy(
+                             min_tokens=prefix_fetch_min_tokens,
+                             remat_ratio=prefix_fetch_remat_ratio)
+                         if prefix_fetch else None,
+                         prefix_fetch_timeout_s=prefix_fetch_timeout,
+                         role=role,
                          prefix_cache=prefix_cache,
                          default_priority=default_priority,
                          batch_queue_depth=batch_queue_depth,
@@ -700,6 +743,172 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
     finally:
         srv.server_close()
         ms.close()
+
+
+# ---------------------------------------------------------------------------
+# route
+# ---------------------------------------------------------------------------
+
+
+@cli.command()
+@click.option("--host", default="127.0.0.1")
+@click.option("--port", default=8100, type=int)
+@click.option("--replica", "replicas", multiple=True, required=True,
+              help="Replica endpoint (host:port or http://host:port);"
+                   " repeat per replica.")
+@click.option("--probe-interval", default=0.5, type=float,
+              help="Seconds between /healthz probe rounds.")
+@click.option("--probe-timeout", default=2.0, type=float,
+              help="Per-probe socket timeout (a timeout-less probe "
+                   "is how a hung replica wedges the router).")
+@click.option("--down-after", default=2, type=int,
+              help="Consecutive transport failures that trip a "
+                   "replica out of rotation.")
+@click.option("--cooldown", default=1.0, type=float,
+              help="Seconds out of rotation before the half-open "
+                   "re-admission probe.")
+@click.option("--retry-ratio", default=0.1, type=float,
+              help="Retry-budget refill per live request (retries + "
+                   "hedges can never exceed this fraction of "
+                   "traffic plus --retry-burst).")
+@click.option("--retry-burst", default=8.0, type=float,
+              help="Retry-budget bucket capacity (the cold-start "
+                   "failover headroom).")
+@click.option("--max-attempts", default=3, type=int,
+              help="Replica attempts per request (first + "
+                   "failovers).")
+@click.option("--request-timeout", default=120.0, type=float,
+              help="Per-attempt read timeout / default request "
+                   "deadline, seconds.")
+@click.option("--hedge", default="off",
+              help="'off', 'p99' (duplicate a request sitting past "
+                   "the sliding p99 watermark), or a fixed "
+                   "threshold in seconds.")
+@click.option("--hedge-min", default=0.2, type=float,
+              help="Hedge watermark floor, seconds.")
+@click.option("--affinity/--no-affinity", default=True,
+              help="Radix-prefix affinity: route a request to the "
+                   "replica whose store holds its registered "
+                   "prefix (never beats health).")
+@click.option("--prefix-handoff/--no-prefix-handoff", default=True,
+              help="Drain-time cache migration: a rolling restart "
+                   "pushes the drainee's hot host-tier prefix "
+                   "entries to its router-chosen successor (POST "
+                   "/prefix/handoff) before the flush.  Off = a "
+                   "restart is a cache flush (the per-replica "
+                   "baseline).")
+@click.option("--disagg-min-tokens", default=16, type=int,
+              help="Disaggregated serving: prompts at or above this "
+                   "length take the two-stage prefill->decode "
+                   "schedule when the fleet runs a dedicated "
+                   "--role prefill tier (shorter prompts decode "
+                   "locally — the handoff would cost more than the "
+                   "prefill).")
+@click.option("--rebalance-every", default=0.0, type=float,
+              help="Seconds between cadenced POST "
+                   "/fleet/prefix/rebalance passes, driven off the "
+                   "federated kv_host_* gauges (runs only while "
+                   ">=2 replicas hold host-tier entries; "
+                   "one-flight; failures counted, never fatal).  "
+                   "0 = operator trigger only (default).")
+@click.option("--min-ready", default=1, type=int,
+              help="Rolling restart never drops the ready-replica "
+                   "count below this.")
+@click.option("--fleet-fault-plan", default=None, type=click.Path(),
+              help="Seeded fleet chaos plan (JSON; replica_kill/"
+                   "replica_hang/replica_slow sites) — local "
+                   "replicas only.")
+@click.option("--request-history", default=256, type=int,
+              help="Router-side request-span retention ring "
+                   "(GET /fleet/requests/<id> — the cross-replica "
+                   "stitched timeline); 0 disables.")
+@click.option("--slo", default=None,
+              help="Declared objectives evaluated over a sliding "
+                   "window of the router's own accounting, e.g. "
+                   "'availability=99.9,ttft_p99_ms=1000'; exported "
+                   "as ptpu_router_slo_burn_rate{objective=}.")
+@click.option("--slo-window", default=512, type=int,
+              help="Sliding-window size (requests) the SLO burn "
+                   "rates are computed over.")
+@click.option("--forensics/--no-forensics", "forensics",
+              default=True,
+              help="Router-side tail-latency forensics: the "
+                   "per-request router phase ledger (route_pick/"
+                   "replica_attempt/prefill_remote/retry_backoff), "
+                   "its anomaly sentry (GET /anomalies), and the "
+                   "fleet-merged GET /fleet/anomalies ranking.")
+@click.option("--forensics-dir", default=None, type=click.Path(),
+              help="Arm per-episode router anomaly bundles "
+                   "(anomaly_<n>_<pid>.json). Unset = findings/"
+                   "counters only.")
+def route(host, port, replicas, probe_interval, probe_timeout,
+          down_after, cooldown, retry_ratio, retry_burst,
+          max_attempts, request_timeout, hedge, hedge_min, affinity,
+          prefix_handoff, disagg_min_tokens, rebalance_every,
+          min_ready, fleet_fault_plan,
+          request_history, slo, slo_window, forensics,
+          forensics_dir):
+    """Run the replica ROUTER tier in front of N `ptpu-torch serve`
+    replicas.
+
+    The router probes each replica's /healthz (503 draining/
+    engine_down takes it out of rotation; recovery re-admits it
+    after a half-open success probe), balances by least-outstanding
+    with radix-prefix affinity, fails replica deaths over inside a
+    bounded retry budget with jittered backoff, optionally hedges
+    requests past the p99 watermark (first winner cancels the
+    loser), and rolls restarts via POST /fleet/restart without
+    dropping below --min-ready ready replicas.
+
+    Fleet observability: GET /fleet/requests/<id> stitches the router's request spans
+    with every involved replica's history record into one causal
+    timeline; GET /fleet/metrics federates every replica's /metrics
+    with replica= labels and fleet rollups; --slo arms router-side
+    error-budget burn-rate gauges.
+    """
+    from polyaxon_tpu_torch.serving import (ReplicaRouter,
+                                            make_router_server)
+
+    try:
+        router = ReplicaRouter(
+            list(replicas),
+            probe_interval_s=probe_interval,
+            probe_timeout_s=probe_timeout,
+            down_after=down_after,
+            cooldown_s=cooldown,
+            retry_ratio=retry_ratio,
+            retry_burst=retry_burst,
+            max_attempts=max_attempts,
+            request_timeout_s=request_timeout,
+            hedge=hedge,
+            hedge_min_s=hedge_min,
+            affinity=affinity,
+            prefix_handoff=prefix_handoff,
+            disagg_min_tokens=disagg_min_tokens,
+            rebalance_every_s=rebalance_every,
+            min_ready=min_ready,
+            fleet_faults=fleet_fault_plan,
+            request_history=request_history,
+            slo=slo,
+            slo_window=slo_window,
+            forensics=forensics,
+            forensics_dir=forensics_dir)
+    except ValueError as e:
+        raise click.ClickException(str(e))
+    try:
+        srv = make_router_server(host, port, router)
+    except OSError as e:
+        router.close()
+        raise click.ClickException(
+            f"cannot bind {host}:{port}: {e}")
+    click.echo(f"routing {len(replicas)} replica(s) on "
+               f"http://{host}:{srv.server_address[1]}")
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        srv.shutdown()
+    finally:
+        router.close()
 
 
 # ---------------------------------------------------------------------------

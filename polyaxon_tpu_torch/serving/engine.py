@@ -97,7 +97,7 @@ from .scheduler import (AdmissionQueue, DeadlineExceeded, PRIORITIES,
                         PoisonedRequest, QueueFullError, RequestCancelled,
                         RequestGroup, SamplingSpec, SchedulerPolicy,
                         ShedError, Stream, terminal_status)
-from .slots import SlotKVManager
+from .slots import SlotKVManager, sync_device
 from .telemetry import ENGINE_PID, Histogram, Telemetry
 
 __all__ = ["DecodeEngine", "QueueFullError", "SPEC_ACCEPT_BUCKETS"]
@@ -307,7 +307,9 @@ class DecodeEngine:
                deadline_s: Optional[float] = None,
                shared_pages=None,
                rid: Optional[str] = None,
-               prefix_info=None) -> RequestGroup:
+               prefix_info=None,
+               pre_events=None,
+               resume_tokens: int = 0) -> RequestGroup:
         """Enqueue a request (may raise QueueFullError) and make sure
         the loop is running.  Returns the group; callers block on
         ``group.event``.  ``sampling`` carries the per-request (seed,
@@ -332,7 +334,19 @@ class DecodeEngine:
         pool epoch they were pinned under: the engine owns the pins
         from here on, maps them read-only at admission and releases
         them on any terminal path before that.  ``prefix_info`` rides
-        the history record as the hit's provenance.
+        the history record as the hit's provenance.  ``pre_events`` are
+        span tuples the caller paid before submit (a fleet wire fetch),
+        prepended to the stream's timeline.
+
+        ``resume_tokens=N`` (single-row) declares the trailing N prompt
+        tokens a PRIOR attempt's committed output — the cross-replica
+        resume contract: the stream re-enters through the preempt-resume
+        machinery (re-prefill of the original prompt plus all but the
+        last committed token, re-admission feeding the last one with
+        ``next_index == N``), so sampled draws continue at position key
+        N, as the uninterrupted run draws them, on any replica.  ``new``
+        stays the ORIGINAL budget; the group's result is the original
+        prompt plus all ``new`` tokens.
 
         A budget past the model's ``max_position`` (prompt + new
         tokens) is refused with ValueError: no slot has positions for
@@ -363,7 +377,10 @@ class DecodeEngine:
                 "open); retry after the cooldown", reason="engine_down",
                 retry_after=self.policy.retry_after_s)
         rows = np.asarray(rows)
-        p_len = rows.shape[1]
+        rt = int(resume_tokens or 0)
+        # A resume replay carries prior output inside the prompt; the
+        # slot only ever holds the original prompt plus the budget.
+        p_len = rows.shape[1] - rt
         max_pos = self.model.cfg.max_position
         if not self.ring and p_len + new > max_pos:
             # Past the cache width the decode step would write and
@@ -420,7 +437,38 @@ class DecodeEngine:
                     f"{self.slots.page_tokens}-token pages); shrink "
                     f"the prompt/budget or raise --kv-pages",
                     reason="kv_pages")
-        if prefix is None:
+        if rt:
+            if prefix is not None:
+                raise ValueError(
+                    "resume_tokens cannot combine with a prefix-cache "
+                    "seed (the replayed prefix IS the state)")
+            if rows.shape[0] != 1:
+                raise ValueError(
+                    f"resume_tokens takes a single-row request (got "
+                    f"batch {rows.shape[0]}; multi-row failover replays "
+                    f"the whole request instead)")
+            if p_len < 1:
+                raise ValueError(
+                    f"resume_tokens ({rt}) must leave at least one "
+                    f"original prompt token (prompt length "
+                    f"{rows.shape[1]})")
+            if rt >= new:
+                raise ValueError(
+                    f"resume_tokens ({rt}) >= max_new_tokens ({new}): "
+                    f"nothing left to generate")
+            out_prev = [int(t) for t in rows[0, p_len:]]
+            if eos_id is not None and eos_id in out_prev:
+                raise ValueError(
+                    "resume_tokens output already contains eos_id; the "
+                    "request is complete — nothing to resume")
+            orig = np.ascontiguousarray(rows[:, :p_len])
+            group = RequestGroup(orig, new, eos_id, [], sampling,
+                                 priority=priority)
+            stream = group.streams[0]
+            stream.out = out_prev
+            stream.prepare_resume(SchedulerPolicy.pow2_pieces(
+                p_len + rt - 1))
+        elif prefix is None:
             pieces = self.policy.chunk_plan(p_len, prefill_chunk)
             group = RequestGroup(rows, new, eos_id, pieces, sampling,
                                  priority=priority)
@@ -465,6 +513,10 @@ class DecodeEngine:
             stream.sid = self.tel.new_tid()
             if keep_events:
                 stream.events = []
+        if pre_events and keep_events and group.streams:
+            # Caller-paid spans (a wire fetch) lead the timeline.
+            s0 = group.streams[0]
+            s0.events = list(pre_events) + (s0.events or [])
         if not self._resident and len(self.queue) == 0:
             # Idle -> busy: re-stamp the progress signal.
             self.last_boundary_t = time.perf_counter()
@@ -980,9 +1032,7 @@ class DecodeEngine:
     # -- prefill + admission --------------------------------------------
 
     def _sync(self) -> None:
-        dev = self.model.device
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync_device(self.model.device)
 
     def _advance_prefill(self, stream: Stream) -> None:
         """Run ONE prefill piece for the head-of-queue stream; admit it
@@ -1136,11 +1186,15 @@ class DecodeEngine:
             self._count_admitted(spec, stream.group.priority)
             self.evicted_total += 1
             return
-        if spec.speculative and stream.base_key is None:
+        if (spec.speculative or (resumed and spec.sampled)) \
+                and stream.base_key is None:
             # A greedy spec stream drew token 0 without the PRNG, but
             # its slot still carries the base key (the sampled lanes
             # are dead at temperature 0): every spec slot's key is
-            # fold_in(PRNGKey(seed), row).
+            # fold_in(PRNGKey(seed), row).  A CROSS-REPLICA resumed
+            # sampled stream (submit resume_tokens=) skipped
+            # _first_token on this engine — the prior attempt drew its
+            # token 0 — so its key is armed here: the same fold_in.
             from .. import prng
 
             stream.base_key = prng.fold_in(prng.PRNGKey(spec.seed),

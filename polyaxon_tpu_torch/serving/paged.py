@@ -62,14 +62,27 @@ page ids, so one table gathers, scatters, copies-on-write and
 materializes them all.  A ring cache is already O(window) and stays on
 the fixed-lane pool (the engine refuses ``kv_paged`` for it).
 
-Not ported yet, and refused by name: the host spill tier and its wire
-format (``pack_spilled``/``unpack_spilled``, ``spill_pages``,
-``rematerialize``) and meshes (ROADMAP Queue 1).
+HOST TIER and WIRE FORMAT: ``spill_pages`` gathers a stored prefix's
+pages to host tensors (trimmed to its page-aligned span) and
+``rematerialize`` puts them back as the contiguous B=1 cache
+``materialize`` returns, bitwise.  ``pack_spilled``/``unpack_spilled``
+turn one such entry into a checksummed byte string and back: the
+reference's format byte for byte (its JSON header, dtype names and
+buffer order), so a blob crosses between the two packages.  The leaves
+travel in the reference's flax order — ``cache_index`` (written as
+``null``), ``cached_key``, ``cached_key_scale``, ``cached_value``,
+``cached_value_scale`` — not in ``KVCache.leaves``' order; bf16 tensors
+go out as the raw bytes of their 16-bit view and come back through
+``numpy.uint16``, with no bf16 numpy type.  A mesh is not ported
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import json
+import struct
 import threading
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -78,7 +91,8 @@ import torch
 from ..models.kv_cache import gather_pages, paged_pool_shape, scatter_pages
 from .slots import StepPool, alloc_decode_state
 
-__all__ = ["PagedSlotKVManager", "PageExhausted", "WirePayloadError"]
+__all__ = ["PagedSlotKVManager", "PageExhausted", "WirePayloadError",
+           "pack_spilled", "unpack_spilled"]
 
 
 class PageExhausted(RuntimeError):
@@ -93,17 +107,180 @@ class WirePayloadError(ValueError):
     re-prefill, never admit bytes that don't verify."""
 
 
+# -- wire serialization (fleet prefix cache) -----------------------------
+#
+# A host-tier prefix entry references no device state, so the same
+# buffers land in any replica's pool.  Layout: a 4-byte big-endian
+# header length, a JSON header (prompt tokens, leaf shapes and dtype
+# names, the logits' shape and dtype, the body's crc32), then the raw
+# C-order buffers concatenated, logits first.
+
+_WIRE_VERSION = 1
+
+# Dtype names on the wire (numpy's ``dtype.name``, as the reference
+# writes them) and back.  bfloat16 has no numpy type here: its bytes are
+# those of the tensor's int16 view.
+_WIRE_DTYPES = {torch.float32: "float32", torch.float16: "float16",
+                torch.bfloat16: "bfloat16", torch.int8: "int8",
+                torch.int32: "int32", torch.int64: "int64",
+                torch.uint8: "uint8"}
+_FROM_WIRE = {v: k for k, v in _WIRE_DTYPES.items()}
+
+
+def _wire_buffer(a) -> Tuple[List[int], str, bytes]:
+    """(shape, dtype name, C-order bytes) of a tensor (or array)."""
+    t = torch.as_tensor(a).detach().cpu().contiguous()
+    name = _WIRE_DTYPES.get(t.dtype)
+    if name is None:
+        raise ValueError(f"no wire dtype for {t.dtype}")
+    raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return list(t.shape), name, raw.numpy().tobytes()
+
+
+def _wire_tensor(raw: bytes, meta) -> torch.Tensor:
+    """The host tensor of one declared buffer (``_wire_nbytes`` checked
+    the declaration; a copy: the blob may go)."""
+    name, shape = meta["dtype"], meta["shape"]
+    if name == "bfloat16":
+        a = np.frombuffer(raw, np.uint16).reshape(shape).copy()
+        return torch.from_numpy(a).view(torch.bfloat16)
+    return torch.from_numpy(
+        np.frombuffer(raw, np.dtype(name)).reshape(shape).copy())
+
+
+def _wire_nbytes(meta) -> int:
+    """Bytes of one declared buffer; a malformed declaration (not a
+    dict, an unknown dtype, a shape of anything but non-negative ints)
+    raises :class:`WirePayloadError`."""
+    if not isinstance(meta, dict) or meta.get("dtype") not in _FROM_WIRE \
+            or not isinstance(meta.get("shape"), list) \
+            or not all(isinstance(d, int) and not isinstance(d, bool)
+                       and d >= 0 for d in meta["shape"]):
+        raise WirePayloadError(f"malformed buffer declaration {meta!r}")
+    n = torch.empty((), dtype=_FROM_WIRE[meta["dtype"]]).element_size()
+    for d in meta["shape"]:
+        n *= d
+    return n
+
+
+def pack_spilled(toks, leaves: Sequence[Optional[object]],
+                 n_tokens: int, logits) -> bytes:
+    """Serialize one host-tier prefix entry for the wire: ``leaves``
+    in the reference's order (``spill_pages``' output; None for an
+    index leaf)."""
+    toks = np.ascontiguousarray(np.asarray(toks, np.int32))
+    shape, name, raw = _wire_buffer(logits)
+    parts = [raw]
+    logits_meta = {"shape": shape, "dtype": name}
+    leaf_meta = []
+    for h in leaves:
+        if h is None:
+            leaf_meta.append(None)
+            continue
+        shape, name, raw = _wire_buffer(h)
+        leaf_meta.append({"shape": shape, "dtype": name})
+        parts.append(raw)
+    body = b"".join(parts)
+    header = json.dumps({
+        "v": _WIRE_VERSION,
+        "n_tokens": int(n_tokens),
+        "prompt": toks.tolist(),
+        "logits": logits_meta,
+        "leaves": leaf_meta,
+        "crc32": zlib.crc32(body) & 0xFFFFFFFF,
+    }).encode()
+    return struct.pack(">I", len(header)) + header + body
+
+
+def unpack_spilled(blob: bytes):
+    """Parse and VERIFY a :func:`pack_spilled` byte string; returns
+    ``(toks, leaves, n_tokens, logits)`` (an int32 array, host tensors).
+    Raises :class:`WirePayloadError` on any truncation, checksum
+    mismatch or malformed header — never a partially decoded payload."""
+    if len(blob) < 4:
+        raise WirePayloadError("payload shorter than its own "
+                               "header-length field")
+    (hlen,) = struct.unpack(">I", blob[:4])
+    if len(blob) < 4 + hlen:
+        raise WirePayloadError("payload truncated inside the header")
+    try:
+        header = json.loads(blob[4:4 + hlen].decode())
+        version = header["v"]
+        n_tokens = int(header["n_tokens"])
+        prompt = header["prompt"]
+        logits_meta = header["logits"]
+        leaf_meta = header["leaves"]
+        crc_want = int(header["crc32"])
+    except (ValueError, KeyError, TypeError, UnicodeDecodeError):
+        raise WirePayloadError("malformed wire header")
+    if version != _WIRE_VERSION:
+        raise WirePayloadError(
+            f"wire version {version!r} != {_WIRE_VERSION} "
+            f"(mixed-version fleet; refetch or re-prefill)")
+    body = blob[4 + hlen:]
+    if (zlib.crc32(body) & 0xFFFFFFFF) != crc_want:
+        raise WirePayloadError("payload checksum mismatch")
+    off = 0
+
+    def _take(meta):
+        nonlocal off
+        n = _wire_nbytes(meta)
+        if off + n > len(body):
+            raise WirePayloadError("payload truncated inside a "
+                                   "buffer (header/body disagree)")
+        t = _wire_tensor(body[off:off + n], meta)
+        off += n
+        return t
+
+    if not isinstance(leaf_meta, list):
+        raise WirePayloadError("malformed wire header")
+    logits = _take(logits_meta)
+    leaves: List[Optional[torch.Tensor]] = []
+    for m in leaf_meta:
+        leaves.append(None if m is None else _take(m))
+    if off != len(body):
+        raise WirePayloadError(
+            f"payload has {len(body) - off} trailing bytes past the "
+            f"declared buffers")
+    try:
+        toks = np.asarray(prompt, np.int32)
+    except (TypeError, ValueError, OverflowError):
+        raise WirePayloadError("malformed prompt in the wire header")
+    if toks.ndim != 2 or toks.shape[1] != n_tokens:
+        raise WirePayloadError(
+            "prompt/n_tokens disagree in the wire header")
+    return toks, leaves, n_tokens, logits
+
+
+def to_wire_order(leaves: Sequence[torch.Tensor]) -> list:
+    """``KVCache.leaves`` order (k, v[, k_scale, v_scale]) to the
+    reference's flattened flax order: the ``cache_index`` leaf (None),
+    ``cached_key``, ``cached_key_scale``, ``cached_value``,
+    ``cached_value_scale`` — the sorted keys of its cache dict."""
+    if len(leaves) == 4:
+        k, v, ks, vs = leaves
+        return [None, k, ks, v, vs]
+    k, v = leaves
+    return [None, k, v]
+
+
+def from_wire_order(leaves: Sequence[Optional[torch.Tensor]]) -> list:
+    """The inverse of :func:`to_wire_order`."""
+    body = [h for h in leaves if h is not None]
+    if len(body) == 4:
+        k, ks, v, vs = body
+        return [k, v, ks, vs]
+    if len(body) != 2:
+        raise WirePayloadError(
+            f"expected 2 or 4 cache buffers, got {len(body)}")
+    return body
+
+
 def _pow2ceil(n: int) -> int:
     p = 1
     while p < n:
         p *= 2
     return p
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch backend yet (ROADMAP "
-        f"Queue 1: {item})")
 
 
 class PagedSlotKVManager(StepPool):
@@ -197,6 +374,11 @@ class PagedSlotKVManager(StepPool):
         self._views: Optional[List[torch.Tensor]] = None
         self._dpools: Optional[List[torch.Tensor]] = None
         self._dviews: Optional[List[torch.Tensor]] = None
+        # First-touch shaping is double-checked under this lock: two
+        # wire admissions racing a fresh replica's unshaped pool
+        # (``ensure_shaped``) must not both allocate — the loser's pool
+        # would replace one the winner already wrote pages into.
+        self._shape_lock = threading.Lock()
 
     @property
     def _k(self) -> Optional[torch.Tensor]:
@@ -354,45 +536,73 @@ class PagedSlotKVManager(StepPool):
     def _pad_class(self, n_pages: int) -> int:
         return min(self.table_width, _pow2ceil(max(1, n_pages)))
 
-    def _alloc_pool(self, cache):
+    def _alloc_pool(self, cache, device=None):
         """Page pools of a model's prefilled cache (each leaf [L, 1,
         cap, H, X]): [L, pages + scratch + trash, pt, H, X] per leaf, and
         the flat gathered-view buffers (the widest class's size: every
-        class views its prefix, so each has one fixed address)."""
+        class views its prefix, so each has one fixed address).  Only
+        the leaves' shapes and dtypes are read, so a ``meta`` template
+        works with ``device`` given."""
         p_max = self._pad_class(max(self._need_cap, self._n_dirty_cap))
         pools, views = [], []
         for t in cache.leaves():
+            dev = t.device if device is None else device
             leaf = t[:, 0].shape                    # [L, cap, H, X]
             shape = paged_pool_shape(leaf, 1, self.total_pages,
                                      self.page_tokens)
             n = leaf[0] * self.n_slots * p_max * self.page_tokens \
                 * int(np.prod(leaf[2:]))
-            pools.append(torch.zeros(shape, dtype=t.dtype,
-                                     device=t.device))
-            views.append(torch.zeros(n, dtype=t.dtype, device=t.device))
+            pools.append(torch.zeros(shape, dtype=t.dtype, device=dev))
+            views.append(torch.zeros(n, dtype=t.dtype, device=dev))
         return pools, views
 
-    def _ensure_pool(self, cache) -> None:
-        """Allocate the page pools from the FIRST prefilled cache, with
-        the page tables' device twins and the static step buffers."""
+    def _ensure_pool(self, cache, device=None) -> None:
+        """Allocate the page pools from the FIRST prefilled cache (or a
+        template), with the page tables' device twins and the static
+        step buffers.  Double-checked under ``_shape_lock``, and the
+        pools are published last: a reader that sees them sees every
+        buffer."""
         if self._pools is not None:
             return
-        self._pools, self._views = self._alloc_pool(cache)
-        dev = cache.k.device
-        self._table_buf = torch.zeros(
-            (self.n_slots, self.table_width), dtype=torch.long,
-            device=dev)
-        self._wtable_buf = torch.zeros_like(self._table_buf)
-        self._d0_buf = torch.zeros(self.n_slots, dtype=torch.long,
-                                   device=dev)
-        self._alloc_step_buffers(dev)
+        with self._shape_lock:
+            if self._pools is not None:     # lost the race: done
+                return
+            pools, views = self._alloc_pool(cache, device)
+            dev = pools[0].device
+            self._table_buf = torch.zeros(
+                (self.n_slots, self.table_width), dtype=torch.long,
+                device=dev)
+            self._wtable_buf = torch.zeros_like(self._table_buf)
+            self._d0_buf = torch.zeros(self.n_slots, dtype=torch.long,
+                                       device=dev)
+            self._alloc_step_buffers(dev)
+            self._views = views
+            self._pools = pools
+
+    @property
+    def shaped(self) -> bool:
+        """Whether the page pools exist yet (made by the first page
+        write, or by :meth:`ensure_shaped`)."""
+        return self._pools is not None
+
+    def ensure_shaped(self, template, device=None) -> None:
+        """Shape the pools from a template cache WITHOUT a page write —
+        the cold pool's way in for a wire-fetched or handed-off entry
+        that arrives before this replica's first prefill.  Only shapes
+        and dtypes are read (a ``meta`` template with ``device``).  Safe
+        under concurrent first touch: exactly one caller allocates."""
+        self._ensure_pool(template, device)
 
     def _ensure_draft_pool(self, cache) -> None:
         """The DRAFT's page pools, the same page geometry as the
         target's (one table addresses both), from the first draft
         prefill."""
-        if self._dpools is None:
-            self._dpools, self._dviews = self._alloc_pool(cache)
+        if self._dpools is not None:
+            return
+        with self._shape_lock:
+            if self._dpools is None:
+                dpools, self._dviews = self._alloc_pool(cache)
+                self._dpools = dpools
 
     def _view_buffers(self, P: int, draft: bool = False):
         """The gather targets of class ``P``, one per cache tensor:
@@ -568,15 +778,67 @@ class PagedSlotKVManager(StepPool):
                 out.append(full)
         return KVCache.from_leaves(out, index=int(n_tokens))
 
-    # -- refused by name ---------------------------------------------------
+    # -- host-RAM tier (prefix-store spill / rematerialize) ---------------
+    #
+    # The device<->host transfers of page-pool payloads: an entry evicted
+    # under page pressure spills here instead of being dropped, and a
+    # later hit comes back through ``rematerialize``.  Both are device
+    # work done under the device lock and off the step path (reclaim and
+    # a hit's admission, never inside a step or a graph capture).
 
-    def spill_pages(self, ids, n_tokens):
-        raise _not_ported("the host spill tier",
-                          "the spill tier and its wire format")
+    def spill_pages(self, ids: Sequence[int], n_tokens: int
+                    ) -> List[Optional[torch.Tensor]]:
+        """Gather stored prefix pages into HOST tensors, trimmed to the
+        entry's page-aligned span (``len(ids) * page_tokens`` positions,
+        at most ``max_position``): ``[L, 1, width, H, X]`` per cache
+        tensor, in the reference's wire order (:func:`to_wire_order`,
+        None for its index leaf) — exactly ``materialize``'s leaves cut
+        to that width.  Callers hold the device lock and a pin on every
+        page in ``ids``."""
+        if self._pools is None:
+            raise RuntimeError("spill_pages() before any page write")
+        width = min(len(ids) * self.page_tokens, self.max_position)
+        table = torch.as_tensor(list(ids), dtype=torch.long,
+                                device=self._k.device)
+        host = []
+        with torch.no_grad():
+            for pool in self._pools:
+                v = gather_pages(pool, table, 1)[:, :width]
+                host.append(v.unsqueeze(1).cpu())
+        return to_wire_order(host)
 
-    def rematerialize(self, host_leaves, n_tokens):
-        raise _not_ported("the host spill tier",
-                          "the spill tier and its wire format")
+    def rematerialize(self, host_leaves: Sequence[Optional[torch.Tensor]],
+                      n_tokens: int):
+        """Host-tier hit: put spilled leaves (wire order) back into a
+        CONTIGUOUS B=1 cache of the model's full width on the pool's
+        device — bitwise what :meth:`materialize` returns for the same
+        content (zeros past the spilled span), the int8 codes and bf16
+        scales included, so every consumer of a hit is reused unchanged.
+        Callers hold the device lock."""
+        from ..models.kv_cache import KVCache
+
+        if self._pools is None:
+            raise RuntimeError("rematerialize() before the pool was "
+                               "shaped (ensure_shaped)")
+        leaves = from_wire_order(host_leaves)
+        if len(leaves) != len(self._pools):
+            raise WirePayloadError(
+                f"payload has {len(leaves)} cache buffers; this pool "
+                f"pages {len(self._pools)}")
+        out = []
+        with torch.no_grad():
+            for pool, h in zip(self._pools, leaves):
+                L, _, _, hh, x = pool.shape
+                if h.dim() != 5 or h.shape[0] != L or h.shape[1] != 1 \
+                        or tuple(h.shape[3:]) != (hh, x):
+                    raise WirePayloadError(
+                        f"payload buffer {tuple(h.shape)} does not fit "
+                        f"this pool's [{L}, 1, positions, {hh}, {x}]")
+                full = pool.new_zeros((L, 1, self.max_position, hh, x))
+                w = min(h.shape[2], self.max_position)
+                full[:, :, :w] = h[:, :, :w].to(pool.device).to(pool.dtype)
+                out.append(full)
+        return KVCache.from_leaves(out, index=int(n_tokens))
 
     # -- decode steps ----------------------------------------------------
 

@@ -68,10 +68,30 @@ of ``max_position``, decodes on the SOLO path instead (counted and
 reported under ``/info`` ``solo_fallbacks``), as does every
 ``num_beams > 1`` request (``generate_beam``): solo programs hold the
 device lock for their whole decode.  A request for what the port does
-not serve yet — ``resume_tokens``, the fleet ``/prefix/*`` routes (the
-spill tier and its wire format), ``POST /profile/*`` — gets a 501
-naming the missing feature, never another route's answer.  Validation
-errors are the reference's 400s.
+not serve yet — ``POST /profile/*``, ``GET /profile/report`` — gets a
+501 naming the missing feature, never another route's answer.
+Validation errors are the reference's 400s.
+
+HOST TIER (``kv_host_spill_bytes`` > 0, paged only): page-pressure
+eviction SPILLS a stored prefix to host tensors (``spill_pages``)
+instead of dropping it, within a byte budget (coldest host entries go
+first); a later hit rematerializes it (``source="host"``,
+``prefix_source: "local_spilled"``) and promotes it back to pages when
+the pool has room.  Host entries survive a crash-recovery pool rebuild.
+
+FLEET PREFIX TIER (paged servers): ``POST /prefix/fetch`` serves a stored
+entry as a checksummed wire blob (paged.py's format), ``/prefix/ingest``
+stores one as a host entry, ``/prefix/handoff`` pushes this replica's
+entries to a successor (a drain), ``/prefix/evict`` drops named host
+entries, ``GET /prefix/index`` lists them.  With ``prefix_fetch`` a
+local miss carrying a router ``prefix_hint`` fetches the holder's entry
+when :class:`PrefixFetchPolicy` says the wire beats a re-prefill
+(``prefix_source: "wire_fetch"``); every failure is a counted
+re-prefill.  ``role``: ``both`` (monolithic), ``prefill`` (``/prefill``
+and the wire lanes only; ``/generate`` is a 400) or ``decode`` (admits
+handed-off prefills over the fetch lane).  ``resume_tokens: N`` replays a
+request whose trailing N prompt tokens are a prior attempt's output;
+the engine resumes it token-identically (a router's failover).
 
 Device discipline: every CUDA call runs under ``device_lock`` (a
 FairLock): the engine thread's, and the prefix paths' on handler
@@ -91,7 +111,7 @@ import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -104,14 +124,27 @@ from .debug import (RequestHistory, StallWatchdog, events_to_dicts,
 from .engine import DecodeEngine
 from .faults import FaultPlan, SocketReset
 from .forensics import ForensicsCore, compute_ledger
+from .paged import WirePayloadError, pack_spilled, unpack_spilled
 from .radix import RadixPrefixIndex
 from .recovery import EngineSupervisor
 from .scheduler import (DeadlineExceeded, PRIORITIES, PoisonedRequest,
                         QueueFullError, RequestCancelled, SamplingSpec,
                         SchedulerPolicy, ShedError)
+from .slots import sync_device
 from .telemetry import Telemetry, render_compile_cache, render_histogram
 
 _span_dicts = events_to_dicts
+
+# Disaggregated-serving roles: "both" = monolithic (the default),
+# "prefill" = prompt prefill and wire export only (rejects /generate),
+# "decode" = full serving that admits handed-off prefills over the
+# wire-fetch lane.
+ROLES = ("prefill", "decode", "both")
+
+
+def _nbytes(t) -> int:
+    """Bytes of a host tensor (0 for an index leaf's None)."""
+    return 0 if t is None else t.numel() * t.element_size()
 
 
 class _PagedPrefix:
@@ -128,8 +161,28 @@ class _PagedPrefix:
         self.logits = logits
 
 
+class _SpilledPrefix:
+    """Radix payload of a HOST-TIER prefix entry (``kv_host_spill_
+    bytes``): the stored prompt's KV in host memory — one tensor per
+    paged cache tensor in the wire order (``spill_pages``), gathered
+    when page pressure evicted the entry from the pool — instead of
+    dropped.  A hit rematerializes it (``rematerialize``) and promotes it
+    back to pages when it can.  Host tensors reference no device state,
+    so spilled entries survive a crash-recovery pool rebuild."""
+
+    __slots__ = ("leaves", "n_tokens", "logits", "nbytes")
+
+    def __init__(self, leaves, n_tokens: int, logits):
+        self.leaves = list(leaves)
+        self.n_tokens = int(n_tokens)
+        self.logits = logits            # host copy
+        self.nbytes = sum(_nbytes(a) for a in self.leaves) \
+            + _nbytes(logits)
+
+
 PrefixHit = collections.namedtuple(
-    "PrefixHit", ["p_cached", "logits", "cache", "pins"])
+    "PrefixHit", ["p_cached", "logits", "cache", "pins", "source"],
+    defaults=("device",))
 """One prefix-cache lookup result: ``p_cached`` tokens of stored
 prefill, the stored last-position ``logits``, a PRIVATE contiguous
 ``cache`` holding them (a clone of a fixed-lane entry, or gathered from
@@ -137,7 +190,77 @@ the pool's pages: the hit extends it in place), and ``pins`` — pinned
 FULL-page ids the engine maps read-only into the admitted slot (empty
 for contiguous entries).  The caller owns the pins until
 ``engine.submit(shared_pages=pins)`` returns; every other outcome must
-unpin them."""
+unpin them.  ``source`` is the tier that served the hit (``"device"``
+or ``"host"``)."""
+
+
+class PrefixFetchPolicy:
+    """The wire-fetch cost curve: fetch a spilled prefix from a holder
+    replica only when the expected wire cost beats a local re-prefill::
+
+        rtt + nbytes / wire_bytes_per_s + remat_ratio * reprefill
+            < reprefill,   where reprefill = n_tokens / prefill_tok_per_s
+
+    plus two hard gates — a minimum match length and a byte ceiling.
+    The client evaluates it before dialing (``nbytes=0``) and again on
+    the holder's Content-Length before reading the body.  The defaults
+    are the reference's."""
+
+    def __init__(self, *, min_tokens: int = 16,
+                 max_bytes: int = 1 << 30,
+                 wire_bytes_per_s: float = 1e9,
+                 rtt_s: float = 2e-3,
+                 prefill_tok_per_s: float = 4e3,
+                 remat_ratio: float = 0.26):
+        if min_tokens < 1:
+            raise ValueError(
+                f"min_tokens must be >= 1; got {min_tokens}")
+        if max_bytes < 1:
+            raise ValueError(
+                f"max_bytes must be >= 1; got {max_bytes}")
+        if wire_bytes_per_s <= 0 or prefill_tok_per_s <= 0:
+            raise ValueError(
+                "wire_bytes_per_s and prefill_tok_per_s must be > 0")
+        if rtt_s < 0 or not 0.0 <= remat_ratio < 1.0:
+            raise ValueError(
+                "need rtt_s >= 0 and 0 <= remat_ratio < 1")
+        self.min_tokens = int(min_tokens)
+        self.max_bytes = int(max_bytes)
+        self.wire_bytes_per_s = float(wire_bytes_per_s)
+        self.rtt_s = float(rtt_s)
+        self.prefill_tok_per_s = float(prefill_tok_per_s)
+        self.remat_ratio = float(remat_ratio)
+
+    def should_fetch(self, n_tokens: int, nbytes: int, *,
+                     wire_bytes_per_s: Optional[float] = None,
+                     rtt_s: Optional[float] = None
+                     ) -> Tuple[bool, str]:
+        """``(ok, reason)``: ``reason`` is the typed veto (the
+        ``prefix_fetch_failed_total{reason=}`` label) or ``"ok"``.
+        ``wire_bytes_per_s``/``rtt_s`` override the constants for one
+        evaluation (the router's measured link estimates)."""
+        if n_tokens < self.min_tokens:
+            return False, "below_min_tokens"
+        if nbytes > self.max_bytes:
+            return False, "over_max_bytes"
+        bw = self.wire_bytes_per_s if wire_bytes_per_s is None \
+            or wire_bytes_per_s <= 0 else float(wire_bytes_per_s)
+        rtt = self.rtt_s if rtt_s is None or rtt_s < 0 \
+            else float(rtt_s)
+        reprefill_s = n_tokens / self.prefill_tok_per_s
+        wire_s = (rtt + nbytes / bw
+                  + self.remat_ratio * reprefill_s)
+        if wire_s >= reprefill_s:
+            return False, "wire_slower"
+        return True, "ok"
+
+    def describe(self) -> Dict[str, Any]:
+        return {"min_tokens": self.min_tokens,
+                "max_bytes": self.max_bytes,
+                "wire_bytes_per_s": self.wire_bytes_per_s,
+                "rtt_s": self.rtt_s,
+                "prefill_tok_per_s": self.prefill_tok_per_s,
+                "remat_ratio": self.remat_ratio}
 
 
 class PagePins(tuple):
@@ -274,6 +397,11 @@ class ModelServer:
                  kv_paged: bool = False, kv_page_tokens: int = 64,
                  kv_pages: Optional[int] = None,
                  kv_lazy: bool = False,
+                 kv_host_spill_bytes: int = 0,
+                 prefix_fetch: bool = False,
+                 prefix_fetch_policy: Optional[PrefixFetchPolicy] = None,
+                 prefix_fetch_timeout_s: float = 5.0,
+                 role: str = "both",
                  default_priority: str = "interactive",
                  batch_queue_depth: Optional[int] = None,
                  queue_deadline_s: Optional[float] = None,
@@ -303,6 +431,42 @@ class ModelServer:
             raise ValueError(
                 "kv_lazy requires kv_paged (lazy growth is a page-"
                 "reservation policy; fixed lanes have no pages)")
+        if kv_host_spill_bytes < 0:
+            raise ValueError(
+                f"kv_host_spill_bytes must be >= 0; got "
+                f"{kv_host_spill_bytes}")
+        if kv_host_spill_bytes and not kv_paged:
+            raise ValueError(
+                "kv_host_spill_bytes requires kv_paged (the host "
+                "tier spills page-pool payloads; legacy prefix "
+                "entries already own independent caches)")
+        if prefix_fetch and not (kv_paged and kv_host_spill_bytes):
+            raise ValueError(
+                "prefix_fetch requires kv_paged AND a host spill "
+                "budget (--kv-host-spill-bytes): wire-fetched "
+                "payloads are host-tier entries — they enter through "
+                "the spill machinery and count against its budget")
+        if prefix_fetch_timeout_s <= 0:
+            raise ValueError(
+                f"prefix_fetch_timeout_s must be > 0; got "
+                f"{prefix_fetch_timeout_s}")
+        if role not in ROLES:
+            raise ValueError(f"role must be one of {ROLES}; "
+                             f"got {role!r}")
+        if role == "prefill" and not (kv_paged and kv_host_spill_bytes):
+            raise ValueError(
+                "role='prefill' requires kv_paged AND a host spill "
+                "budget (--kv-host-spill-bytes): a prefill tier's "
+                "only product is admit-ready KV state served over "
+                "the /prefix/fetch wire lane, which packs from the "
+                "paged pool and the host tier")
+        if role == "decode" and not prefix_fetch:
+            raise ValueError(
+                "role='decode' requires prefix_fetch: a decode tier "
+                "admits handed-off prefills through the wire-fetch "
+                "lane (it still re-prefills locally, counted, when "
+                "a fetch degrades)")
+        self.role = role
         if default_priority not in PRIORITIES:
             raise ValueError(
                 f"default_priority must be one of {PRIORITIES}; "
@@ -417,9 +581,41 @@ class ModelServer:
         self.prefix_hit_tokens = 0
         self._prefix_store_skips = 0
         self._prefix_store_errors = 0
+        # HOST-RAM SPILL TIER: a byte budget > 0 makes page-pressure
+        # eviction demote a paged entry to host tensors instead of
+        # dropping it.  Counters under _stats_lock; _spill_stats() is
+        # the one dict /metrics and /info render.
+        self.kv_host_spill_bytes = int(kv_host_spill_bytes)
+        self._host_bytes = 0
+        self._host_entries = 0
+        self._host_spills_total = 0
+        self._host_dropped_total = 0    # budget evictions + oversize
+        self._remat_hits_total = 0
+        self._remat_bytes_total = 0
+        self._promotions_total = 0
+        # FLEET PREFIX TIER: ``prefix_fetch`` arms the client half (a
+        # miss with a router ``prefix_hint`` fetches the holder's entry,
+        # gated by the policy); the serving half (/prefix/*) is mounted
+        # on every paged server.  Every failure degrades to a counted
+        # re-prefill, never a request failure.
+        self.prefix_fetch = bool(prefix_fetch)
+        self.prefix_fetch_timeout_s = float(prefix_fetch_timeout_s)
+        self.fetch_policy = prefix_fetch_policy \
+            if prefix_fetch_policy is not None else PrefixFetchPolicy()
+        self._fetch_attempts_total = 0
+        self._fetch_hits_total = 0
+        self._fetch_bytes_total = 0
+        self._fetch_failed: Dict[str, int] = {}
+        self._ingest_total = 0
+        self._ingest_rejected_total = 0
+        self._handoff_entries_total = 0
+        self._handoff_bytes_total = 0
+        self._handoff_failed_total = 0
+        self._evict_hints_total = 0
         if self.kv_paged:
             # Page-pressure relief: stored-but-idle prefix entries are
-            # LRU-evicted when live traffic needs their pages.
+            # evicted (spilled to the host tier first when it is on)
+            # when live traffic needs their pages.
             self.engine.page_reclaim = self._reclaim_prefix_pages
         self.history = RequestHistory(request_history)
         self.engine.history = self.history
@@ -744,12 +940,9 @@ class ModelServer:
     def _sync(self) -> None:
         """End a handler thread's device section: everything it queued
         completes before the device lock goes to the engine's graph
-        replays (one stream order, whichever thread issued)."""
-        dev = self.model.device
-        if dev.type == "cuda":
-            import torch
-
-            torch.cuda.synchronize(dev)
+        replays (one stream order, whichever thread issued); never
+        inside another server's capture (``slots.sync_device``)."""
+        sync_device(self.model.device)
 
     # -- prefix cache: degradation ladder and recovery -------------------
 
@@ -799,12 +992,20 @@ class ModelServer:
         loop restart: PAGED entries name pages of the pool generation
         that just died, so the index is flushed BY REFERENCE (no
         unpins into the fresh accounting).  Contiguous entries own
-        their caches and survive.  A store the crash window disabled
-        comes back to its configured state."""
+        their caches and survive, and so do HOST-TIER entries (host
+        tensors, no device state), re-stored coldest first.  A store the
+        crash window disabled comes back to its configured state."""
         if self.kv_paged:
+            displaced = []
             with self._prefix_lock:
+                keep = [(t, p) for t, p in self._prefix.entries()
+                        if isinstance(p, _SpilledPrefix)]
                 self._prefix = RadixPrefixIndex(
                     max(1, self.prefix_cache_size))
+                for t, p in keep:
+                    displaced += self._prefix.store(t, p)
+            if displaced:
+                self._free_displaced(displaced)
         if self._prefix_configured:
             with self._stats_lock:
                 self._prefix_enabled = True
@@ -826,10 +1027,15 @@ class ModelServer:
                 return None
             ent_toks, payload = hit
             pc = ent_toks.shape[1]
+            spilled = isinstance(payload, _SpilledPrefix)
             paged = isinstance(payload, _PagedPrefix)
             if paged:
                 # Lock order: _prefix_lock > _page_lock.
                 pin_epoch = mgr.pin(payload.pages)
+        if spilled:
+            # Host-tier hit: the payload (immutable host tensors) is
+            # safe outside the lock; rematerialize and promote there.
+            return self._rematerialize_hit(ent_toks, payload, pc)
         if not paged:
             logits, cache = payload
             with self._lock:
@@ -858,6 +1064,87 @@ class ModelServer:
             mgr.unpin(payload.pages[n_full:], epoch=pin_epoch)
         return PrefixHit(pc, payload.logits, cache, pins)
 
+    def _cache_template(self):
+        """A ``meta``-device B=1 cache of the model's full width: the
+        shapes and dtypes ``init_cache`` gives, nothing allocated —
+        what a cold pool is shaped from (``ensure_shaped``)."""
+        import torch
+
+        from ..models.kv_cache import KVCache
+
+        cfg = self.model.cfg
+        shape = (cfg.num_layers, 1, cfg.max_position, cfg.num_kv_heads,
+                 cfg.head_dim)
+        int8 = bool(getattr(cfg, "kv_cache_int8", False))
+        dt = torch.int8 if int8 else cfg.dtype
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        scales = {n: meta(shape[:-1] + (1,), torch.bfloat16)
+                  for n in ("k_scale", "v_scale")} if int8 else {}
+        return KVCache(meta(shape, dt), meta(shape, dt), **scales)
+
+    def _rematerialize_hit(self, ent_toks, payload: "_SpilledPrefix",
+                           pc: int) -> PrefixHit:
+        """HOST-TIER hit: put the spilled tensors back into a contiguous
+        cache (``rematerialize``) and opportunistically PROMOTE the entry
+        back to pool pages, so later hits and co-resident slots share
+        them copy-on-write again.  Promotion is best-effort: a tight
+        pool serves the hit from the contiguous cache alone.  Runs on a
+        handler thread with no lock held; errors reach
+        ``_prefix_lookup_safe``'s degradation ladder."""
+        mgr = self.engine.slots
+        with self._lock:
+            if not mgr.shaped:
+                # Cold pool: the entry came over the wire before this
+                # replica's first prefill shaped the pool.
+                mgr.ensure_shaped(self._cache_template(),
+                                  self.model.device)
+            cache = mgr.rematerialize(payload.leaves, pc)
+            logits = payload.logits.to(self.model.device)
+            self._sync()
+        with self._stats_lock:
+            self._remat_hits_total += 1
+            self._remat_bytes_total += payload.nbytes
+        pins = ()
+        ids, ep = mgr.reserve_with_epoch(mgr.pages_needed(pc))
+        if ids:
+            promoted = False
+            try:
+                with self._lock:
+                    # Epoch re-check inside the device lock (recovery
+                    # resets the pool under it).
+                    if mgr.epoch == ep:
+                        mgr.scatter_cache(cache, ids)
+                        self._sync()
+                        promoted = True
+            except Exception:
+                promoted = False    # promotion is an optimization
+            promoted_entry = False
+            if promoted:
+                new_payload = _PagedPrefix(ids, pc, logits)
+                with self._prefix_lock:
+                    if self._prefix.set_payload(ent_toks, new_payload,
+                                                expect=payload):
+                        # This hit maps the promoted FULL pages
+                        # read-only, like a device-tier hit.
+                        n_full = pc // mgr.page_tokens
+                        pin_epoch = mgr.pin(ids[:n_full]) \
+                            if n_full else ep
+                        pins = PagePins(ids[:n_full], pin_epoch)
+                        promoted_entry = True
+                if promoted_entry:
+                    with self._stats_lock:
+                        self._host_bytes -= payload.nbytes
+                        self._host_entries -= 1
+                        self._promotions_total += 1
+            if not promoted_entry:
+                # Entry changed under us, or the scatter failed:
+                # abandon the promotion.
+                mgr.unpin(ids, epoch=ep)
+        return PrefixHit(pc, logits, cache, pins, source="host")
+
     def _unpin_prefix(self, pins) -> None:
         if pins:
             self.engine.slots.unpin(pins,
@@ -867,15 +1154,88 @@ class ModelServer:
         """Release payloads the index displaced (overwrites and LRU
         evictions): paged entries drop their page references — pages
         shared with a child entry or a resident slot stay alive under
-        the remaining refcounts."""
+        the remaining refcounts — and host entries leave the spill
+        byte accounting."""
         for _toks, payload in displaced:
             if isinstance(payload, _PagedPrefix):
                 self.engine.slots.unpin(payload.pages)
+            elif isinstance(payload, _SpilledPrefix):
+                with self._stats_lock:
+                    self._host_bytes -= payload.nbytes
+                    self._host_entries -= 1
+                    self._host_dropped_total += 1
+
+    def _spill_entry(self, toks, payload) -> bool:
+        """Demote one device-tier entry to the HOST tier: pin its pages,
+        gather them to host tensors (``spill_pages``, under the device
+        lock), swap the entry's payload in place and release its page
+        references — the pages free while the content survives in host
+        memory.  Returns False when the entry must be dropped instead
+        (spill failed or over budget)."""
+        mgr = self.engine.slots
+        with self._prefix_lock:
+            # Identity-guarded presence check, then pin under the lock.
+            if not self._prefix.set_payload(toks, payload,
+                                            expect=payload):
+                return True     # someone else dealt with it
+            pin_epoch = mgr.pin(payload.pages)
+        try:
+            with self._lock:
+                if mgr.epoch != pin_epoch:
+                    # Pool rebuilt: pins and pages are dead by
+                    # reference; the recovery flush owns the index.
+                    return True
+                host = mgr.spill_pages(payload.pages, payload.n_tokens)
+                logits_host = payload.logits.detach().cpu()
+        except Exception:
+            mgr.unpin(payload.pages, epoch=pin_epoch)
+            return False
+        spilled = _SpilledPrefix(host, payload.n_tokens, logits_host)
+        if spilled.nbytes > self.kv_host_spill_bytes:
+            mgr.unpin(payload.pages, epoch=pin_epoch)
+            with self._stats_lock:
+                self._host_dropped_total += 1
+            return False
+        with self._prefix_lock:
+            swapped = self._prefix.set_payload(toks, spilled,
+                                               expect=payload)
+        mgr.unpin(payload.pages, epoch=pin_epoch)   # the gather pin
+        if not swapped:
+            return True         # entry changed meanwhile
+        # The ENTRY's own page references go now that its payload lives
+        # on the host.
+        mgr.unpin(payload.pages, epoch=pin_epoch)
+        with self._stats_lock:
+            self._host_bytes += spilled.nbytes
+            self._host_entries += 1
+            self._host_spills_total += 1
+        self._enforce_spill_budget()
+        return True
+
+    def _enforce_spill_budget(self) -> None:
+        """Drop the COLDEST host-tier entries until the spill bytes fit
+        the budget (the radix recency order is the host tier's LRU)."""
+        while True:
+            with self._stats_lock:
+                if self._host_bytes <= self.kv_host_spill_bytes:
+                    return
+            with self._prefix_lock:
+                victim = None
+                for t, p in self._prefix.entries():   # coldest first
+                    if isinstance(p, _SpilledPrefix):
+                        victim = (t, p)
+                        break
+                if victim is None:
+                    return      # accounting drift guard
+                self._prefix.remove(victim[0])
+            self._free_displaced([victim])
 
     def _reclaim_prefix_pages(self, n_pages_needed: int) -> bool:
-        """The engine's page-pressure hook: evict page-holding entries
-        (coldest first) until ``n_pages_needed`` pages are free or none
-        is left — stored-but-idle prefixes never starve live traffic."""
+        """The engine's page-pressure hook: free device pages until
+        ``n_pages_needed`` are free or no page-holding entry is left —
+        stored-but-idle prefixes never starve live traffic.  With the
+        host tier on, evicted entries SPILL to host memory instead of
+        being dropped."""
         mgr = self.engine.slots
         while mgr.free_page_count() < n_pages_needed:
             with self._prefix_lock:
@@ -884,10 +1244,22 @@ class ModelServer:
                     if isinstance(p, _PagedPrefix):
                         victim = (t, p)
                         break
-                if victim is None:
-                    return False
-                self._prefix.remove(victim[0])
-            self._free_displaced([victim])
+            if victim is None:
+                return False
+            toks, payload = victim
+            if self.kv_host_spill_bytes > 0 \
+                    and self._spill_entry(toks, payload):
+                continue
+            # Drop path (spill off, failed or over budget), guarded by
+            # payload identity: a concurrent overwrite's payload must
+            # not be dropped on the old one's verdict.
+            with self._prefix_lock:
+                if self._prefix.set_payload(toks, payload,
+                                            expect=payload):
+                    self._prefix.remove(toks)
+                else:
+                    continue    # entry changed: re-evaluate
+            self._free_displaced([(toks, payload)])
         return True
 
     def _prefix_store(self, toks: np.ndarray, logits, cache, *,
@@ -976,6 +1348,378 @@ class ModelServer:
         stream's cache moves into the slot pool."""
         self._prefix_store_safe(np.asarray(stream.toks), stream.logits,
                                 stream.cache, hot=False)
+
+    # -- fleet prefix tier (wire fetch / ingest / handoff) -----------------
+
+    @staticmethod
+    def _prefix_key(toks: np.ndarray) -> str:
+        """Stable cross-replica identity of one stored prompt: every
+        replica (and the router's rebalance pass) derives the same key
+        from the same tokens."""
+        import hashlib
+
+        toks = np.ascontiguousarray(np.asarray(toks, np.int32))
+        return hashlib.sha1(
+            b"%d|%d|" % toks.shape + toks.tobytes()).hexdigest()
+
+    def _note_fetch_failed(self, reason: str) -> None:
+        with self._stats_lock:
+            self._fetch_failed[reason] = \
+                self._fetch_failed.get(reason, 0) + 1
+
+    def _pack_entry_wire(self, ent_toks, payload) -> Optional[bytes]:
+        """Serialize ONE radix entry for the wire.  Host-tier entries
+        pack directly; device-tier entries are gathered READ-ONLY (pin,
+        ``spill_pages`` under the device lock, unpin: the entry keeps
+        its pages — serving a peer must not demote the holder's copy).
+        None when the entry vanished or the gather failed (a miss)."""
+        if isinstance(payload, _SpilledPrefix):
+            return pack_spilled(ent_toks, payload.leaves,
+                                payload.n_tokens, payload.logits)
+        if not isinstance(payload, _PagedPrefix):
+            return None     # contiguous entries stay local
+        mgr = self.engine.slots
+        with self._prefix_lock:
+            if not self._prefix.set_payload(ent_toks, payload,
+                                            expect=payload):
+                return None
+            pin_epoch = mgr.pin(payload.pages)
+        try:
+            with self._lock:
+                if mgr.epoch != pin_epoch:
+                    return None
+                host = mgr.spill_pages(payload.pages, payload.n_tokens)
+                logits_host = payload.logits.detach().cpu()
+        except Exception:
+            return None
+        finally:
+            mgr.unpin(payload.pages, epoch=pin_epoch)
+        return pack_spilled(ent_toks, host, payload.n_tokens, logits_host)
+
+    def prefix_wire_payload(self, req: Dict[str, Any]
+                            ) -> Optional[bytes]:
+        """POST /prefix/fetch: the longest stored entry that prefixes
+        the peer's prompt, serialized for the wire (None: the handler's
+        404).  Served while DRAINING too — that is when peers ask."""
+        if not self.kv_paged:
+            raise ValueError(
+                "prefix wire fetch requires a paged engine "
+                "(kv_paged)")
+        rows = _parse_prompt_rows(req, self.max_batch)
+        toks = np.asarray(rows, np.int32)
+        with self._prefix_lock:
+            # lookup, not longest_ancestor: a fleet hit refreshes the
+            # entry's recency here too.
+            hit = self._prefix.lookup(toks)
+        if hit is None:
+            return None
+        return self._pack_entry_wire(hit[0], hit[1])
+
+    def prefix_ingest(self, blob: bytes, *,
+                      hot: bool = True) -> Dict[str, Any]:
+        """POST /prefix/ingest: verify and store one wire payload as a
+        HOST-TIER entry (a drain handoff's push, or a prefetch).  A
+        checksum mismatch raises :class:`WirePayloadError` (400) and
+        nothing partial is admitted; stored entries count against the
+        spill budget like locally spilled ones."""
+        if not self.kv_paged or self.kv_host_spill_bytes <= 0:
+            with self._stats_lock:
+                self._ingest_rejected_total += 1
+            raise ValueError(
+                "prefix ingest requires a paged engine with a host "
+                "spill budget (--kv-host-spill-bytes)")
+        if not self._prefix_enabled:
+            with self._stats_lock:
+                self._ingest_rejected_total += 1
+            raise ValueError(
+                "prefix cache is disabled on this server")
+        try:
+            toks, leaves, n_tokens, logits = unpack_spilled(blob)
+        except WirePayloadError:
+            with self._stats_lock:
+                self._ingest_rejected_total += 1
+            raise
+        spilled = _SpilledPrefix(leaves, n_tokens, logits)
+        if spilled.nbytes > self.kv_host_spill_bytes:
+            with self._stats_lock:
+                self._ingest_rejected_total += 1
+            return {"stored": False, "reason": "over_budget",
+                    "nbytes": spilled.nbytes,
+                    "budget": self.kv_host_spill_bytes}
+        with self._prefix_lock:
+            anc = self._prefix.longest_ancestor(toks)
+            if anc is not None and anc[0].shape[1] >= n_tokens:
+                return {"stored": False, "reason": "already_stored"}
+            if not self._prefix.accepts(hot):
+                with self._stats_lock:
+                    self._ingest_rejected_total += 1
+                return {"stored": False, "reason": "at_capacity"}
+            displaced = self._prefix.store(toks, spilled, hot=hot)
+        self._free_displaced(displaced)
+        with self._stats_lock:
+            self._host_bytes += spilled.nbytes
+            self._host_entries += 1
+            self._ingest_total += 1
+        self._enforce_spill_budget()
+        return {"stored": True, "n_tokens": int(n_tokens),
+                "nbytes": spilled.nbytes}
+
+    def prefix_index(self) -> Dict[str, Any]:
+        """GET /prefix/index: this replica's prefix inventory (stable
+        key, tier, recency ring, hits, host bytes) — the fleet eviction
+        policy's input, without fetching any payload."""
+        with self._prefix_lock:
+            meta = self._prefix.entries_meta()
+        entries = []
+        for toks, payload, hits, hot in meta:
+            if isinstance(payload, _SpilledPrefix):
+                tier: Dict[str, Any] = {"tier": "host",
+                                        "nbytes": payload.nbytes}
+            elif isinstance(payload, _PagedPrefix):
+                tier = {"tier": "device"}
+            else:
+                tier = {"tier": "legacy"}
+            entries.append({"key": self._prefix_key(toks),
+                            "rows": int(toks.shape[0]),
+                            "tokens": int(toks.shape[1]),
+                            "hits": int(hits),
+                            "hot": bool(hot), **tier})
+        with self._stats_lock:
+            host_bytes = self._host_bytes
+        return {"entries": entries,
+                "host_bytes": host_bytes,
+                "host_budget_bytes": self.kv_host_spill_bytes}
+
+    def prefix_evict(self, req: Dict[str, Any]) -> Dict[str, Any]:
+        """POST /prefix/evict: drop the named HOST-TIER entries (the
+        router's redundant cold copies).  Device-tier entries never drop
+        on a hint; an unknown key is skipped."""
+        keys = req.get("keys")
+        if not isinstance(keys, list) \
+                or not all(isinstance(k, str) for k in keys):
+            raise ValueError("'keys' must be a list of entry keys "
+                             "(GET /prefix/index)")
+        want = set(keys)
+        dropped = []
+        with self._prefix_lock:
+            for toks, payload in list(self._prefix.entries()):
+                if not isinstance(payload, _SpilledPrefix):
+                    continue
+                if self._prefix_key(toks) in want:
+                    self._prefix.remove(toks)
+                    dropped.append((toks, payload))
+        self._free_displaced(dropped)
+        with self._stats_lock:
+            self._evict_hints_total += len(dropped)
+        return {"evicted": len(dropped),
+                "requested": len(want)}
+
+    def prefix_handoff(self, req: Dict[str, Any]) -> Dict[str, Any]:
+        """POST /prefix/handoff: push this replica's prefix entries to a
+        successor, hottest first (the drain workflow's cache half).
+        Device-tier entries ride too (gathered read-only).  Every push
+        runs outside all locks over its own bounded connection; per-entry
+        failures are counted and skipped, never raised."""
+        host = req.get("host")
+        port = req.get("port")
+        if not isinstance(host, str) or not host:
+            raise ValueError("'host' must be a non-empty string")
+        try:
+            port = _int_param(port)
+        except (TypeError, ValueError):
+            raise ValueError("'port' must be an int")
+        max_entries = req.get("max_entries")
+        if max_entries is not None:
+            max_entries = _int_param(max_entries)
+            if max_entries < 1:
+                raise ValueError("max_entries must be >= 1")
+        include_device = req.get("include_device", True)
+        if not isinstance(include_device, bool):
+            raise ValueError("'include_device' must be a boolean")
+        import http.client
+
+        t0 = time.perf_counter()
+        with self._prefix_lock:
+            # entries() is coldest-first: the budget goes to the
+            # hottest entries.
+            ents = [(t, p) for t, p in
+                    reversed(self._prefix.entries())
+                    if isinstance(p, _SpilledPrefix)
+                    or (include_device
+                        and isinstance(p, _PagedPrefix))]
+        if max_entries is not None:
+            ents = ents[:max_entries]
+        sent = bytes_sent = failed = 0
+        for ent_toks, payload in ents:
+            blob = self._pack_entry_wire(ent_toks, payload)
+            if blob is None:
+                failed += 1
+                continue
+            try:
+                conn = http.client.HTTPConnection(
+                    host, port, timeout=self.prefix_fetch_timeout_s)
+                try:
+                    conn.request(
+                        "POST", "/prefix/ingest", body=blob,
+                        headers={"Content-Type":
+                                 "application/octet-stream"})
+                    resp = conn.getresponse()
+                    body = resp.read()
+                finally:
+                    conn.close()
+                out = json.loads(body or b"{}") \
+                    if resp.status == 200 else {}
+                if out.get("stored") \
+                        or out.get("reason") == "already_stored":
+                    sent += 1
+                    if out.get("stored"):
+                        bytes_sent += len(blob)
+                else:
+                    failed += 1
+            except (OSError, ValueError,
+                    http.client.HTTPException):
+                failed += 1
+        with self._stats_lock:
+            self._handoff_entries_total += sent
+            self._handoff_bytes_total += bytes_sent
+            self._handoff_failed_total += failed
+        t_end = time.perf_counter()
+        self._push_solo_events(
+            [("prefix_handoff", t0, t_end,
+              {"to": f"{host}:{port}", "entries": sent,
+               "bytes": bytes_sent, "failed": failed})])
+        return {"sent": sent, "bytes": bytes_sent,
+                "failed": failed, "considered": len(ents),
+                "wall_s": round(t_end - t0, 4)}
+
+    def _prefix_wire_fetch(self, toks: np.ndarray,
+                           hint: Dict[str, Any]):
+        """Affinity-miss wire fetch (the client half): ask the router's
+        holder for the entry, verify it, admit it through the host tier
+        and serve THIS request from it.  Returns ``(PrefixHit,
+        fetch_span_events)`` or None; every failure lands in
+        ``prefix_fetch_failed_total{reason=}`` and falls back to a
+        re-prefill.  No lock is held across any socket work."""
+        host, port = hint.get("host"), hint.get("port")
+        if not host or not port:
+            self._note_fetch_failed("bad_hint")
+            return None
+
+        def _est(key):
+            v = hint.get(key)
+            try:
+                return None if v is None else float(v)
+            except (TypeError, ValueError):
+                return None
+
+        # Router-measured link estimates, when the hint carries them.
+        link_bw = _est("wire_bytes_per_s")
+        link_rtt = _est("rtt_s")
+        n_tokens = int(toks.shape[1])
+        ok, why = self.fetch_policy.should_fetch(
+            n_tokens, 0, wire_bytes_per_s=link_bw, rtt_s=link_rtt)
+        if not ok:
+            self._note_fetch_failed(why)
+            return None
+        import http.client
+
+        with self._stats_lock:
+            self._fetch_attempts_total += 1
+        t0 = time.perf_counter()
+        blob = None
+        try:
+            conn = http.client.HTTPConnection(
+                str(host), int(port),
+                timeout=self.prefix_fetch_timeout_s)
+            try:
+                conn.request(
+                    "POST", "/prefix/fetch",
+                    body=json.dumps(
+                        {"prompt": toks.tolist()}).encode(),
+                    headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                if resp.status != 200:
+                    resp.read()
+                    self._note_fetch_failed(
+                        "holder_miss" if resp.status == 404
+                        else f"http_{resp.status}")
+                    return None
+                nbytes = int(resp.getheader("Content-Length") or 0)
+                # The policy's second look, on the true size, before
+                # the body transfer.
+                ok, why = self.fetch_policy.should_fetch(
+                    n_tokens, nbytes, wire_bytes_per_s=link_bw,
+                    rtt_s=link_rtt)
+                if not ok:
+                    self._note_fetch_failed(why)
+                    return None
+                blob = resp.read()
+            finally:
+                conn.close()
+        except (OSError, ValueError, http.client.HTTPException):
+            self._note_fetch_failed("wire_error")
+            return None
+        try:
+            ent_toks, leaves, pc, logits = unpack_spilled(blob)
+        except WirePayloadError:
+            self._note_fetch_failed("integrity")
+            return None
+        if ent_toks.shape[0] != toks.shape[0] or pc > n_tokens \
+                or not np.array_equal(ent_toks, toks[:, :pc]):
+            # Verified bytes but the WRONG prefix (a holder bug or a
+            # stale hint): admitting it would poison the cache.
+            self._note_fetch_failed("wrong_prefix")
+            return None
+        spilled = _SpilledPrefix(leaves, pc, logits)
+        # Admit through the host tier (budget-gated), so later local
+        # requests hit it without another wire trip...
+        stored = False
+        if spilled.nbytes <= self.kv_host_spill_bytes:
+            with self._prefix_lock:
+                anc = self._prefix.longest_ancestor(ent_toks)
+                have = anc is not None and anc[0].shape[1] >= pc
+                displaced = [] if have \
+                    else self._prefix.store(ent_toks, spilled)
+                stored = not have
+            self._free_displaced(displaced)
+            if stored:
+                with self._stats_lock:
+                    self._host_bytes += spilled.nbytes
+                    self._host_entries += 1
+                self._enforce_spill_budget()
+        # ...then serve THIS request: the normal lookup when the entry
+        # landed (promotion and shared pages included), else a direct
+        # rematerialization — bitwise the same either way.
+        try:
+            hit = self._prefix_lookup(toks) if stored else None
+            if hit is None:
+                hit = self._rematerialize_hit(ent_toks, spilled, pc)
+        except Exception:
+            self._note_fetch_failed("rematerialize")
+            self._note_prefix_error("lookup")
+            return None
+        t_end = time.perf_counter()
+        with self._stats_lock:
+            self._fetch_hits_total += 1
+            self._fetch_bytes_total += len(blob)
+        events = [("prefix_wire_fetch", t0, t_end,
+                   {"holder": str(hint.get("replica")
+                                  or f"{host}:{port}"),
+                    "bytes": len(blob), "tokens": int(pc)})]
+        return hit, events
+
+    def _push_solo_events(self, events,
+                          rid: Optional[str] = None) -> None:
+        """Put span tuples on the shared trace ring (one fresh track),
+        ``rid`` stamped into every span's args."""
+        tid = self.telemetry.new_tid()
+        for name, a, b, args in events:
+            if rid is not None:
+                args.setdefault("rid", rid)
+            if a == b:
+                self.telemetry.instant(tid, name, a, **args)
+            else:
+                self.telemetry.span(tid, name, a, b, **args)
 
     def prefill_prompt(self, req: Dict[str, Any]) -> Dict[str, Any]:
         """POST /prefill: register a prompt (prefix) in the prefix
@@ -1078,6 +1822,13 @@ class ModelServer:
         if rid is None:
             rid = new_request_id()
         self._check_not_draining()
+        if self.role == "prefill":
+            # A role-split fleet never routes /generate here; a direct
+            # caller gets the typed 400.
+            raise ValueError(
+                "this replica runs role='prefill': it serves "
+                "/prefill and /prefix/* only — send /generate to a "
+                "decode-capable replica (role 'decode' or 'both')")
         rows = _parse_prompt_rows(req, self.max_batch)
         _int = _int_param
 
@@ -1166,6 +1917,33 @@ class ModelServer:
         p_len = len(rows[0])
         if chunk is not None and chunk >= p_len:
             chunk = None
+        # CROSS-REPLICA RESUME: ``resume_tokens: N`` declares the
+        # trailing N prompt tokens a prior attempt's committed output (a
+        # router failover replaying ``prompt ++ tokens_so_far``); the
+        # engine re-enters it through the preempt-resume machinery, so
+        # the draws continue at position key N, token-identically.
+        resume_tokens = req.get("resume_tokens", 0)
+        try:
+            resume_tokens = _int(resume_tokens)
+        except (TypeError, ValueError):
+            raise ValueError("resume_tokens must be an int")
+        if resume_tokens < 0:
+            raise ValueError("resume_tokens must be >= 0")
+        if resume_tokens:
+            if beams > 1:
+                raise ValueError(
+                    "resume_tokens cannot combine with beam search "
+                    "(beam requests replay whole)")
+            if len(rows) != 1:
+                raise ValueError(
+                    "resume_tokens takes a single-row request")
+        # The EFFECTIVE prompt length: what the slot holds (a resume
+        # replay's original prompt, not the concatenation).
+        eff_p_len = p_len - resume_tokens
+        if resume_tokens and eff_p_len < 1:
+            raise ValueError(
+                f"resume_tokens ({resume_tokens}) must leave at least "
+                f"one original prompt token (prompt length {p_len})")
         # Capacity of every model the request touches: speculative
         # rounds touch spec_k - 1 positions past the last committed
         # token.
@@ -1183,17 +1961,12 @@ class ModelServer:
                         f"{spec_k - 1} for spec_k={spec_k} "
                         f"(got {ring_slack})")
                 continue  # ring caches are position-keyed, unbounded
-            if p_len + new + slack > max_pos:
+            if eff_p_len + new + slack > max_pos:
                 raise ValueError(
-                    f"prompt ({p_len}) + max_new_tokens ({new})"
+                    f"prompt ({eff_p_len}) + max_new_tokens ({new})"
                     + (f" + spec_k-1 ({slack})" if slack else "")
                     + f" exceeds the {label}'s max_position "
                     f"({max_pos})")
-        # What this slice does not serve yet: named, never rerouted.
-        if req.get("resume_tokens"):
-            raise NotImplementedError(
-                "resume_tokens (cross-replica resume) is not ported "
-                "yet (ROADMAP Queue 1: the router)")
         toks = np.asarray(rows, np.int64)
         # temperature 0 is greedy (top_k/top_p inert, as in solo
         # generate); temperature > 0 samples per slot, position-keyed;
@@ -1218,8 +1991,9 @@ class ModelServer:
                     f"request spec_k {spec_k} exceeds the engine cap "
                     f"{cap} (--spec-k); decoding solo")
             elif not _is_ring(self.model) and (
-                    p_len + new + cap - 1 > self.model.cfg.max_position
-                    or p_len + new + cap - 1
+                    eff_p_len + new + cap - 1
+                    > self.model.cfg.max_position
+                    or eff_p_len + new + cap - 1
                     > self.draft_model.cfg.max_position):
                 engine_ok = False
                 self._note_fallback(
@@ -1228,18 +2002,45 @@ class ModelServer:
                     f"of max_position cannot co-tenant a speculative "
                     f"pool (verify chunks are {cap + 1} wide); "
                     f"decoding solo")
+        if resume_tokens and not engine_ok:
+            # Solo paths have no resume machinery: silently restarting
+            # the draws at index 0 would break token identity.
+            raise ValueError(
+                "resume_tokens requires the engine path for this "
+                "request (it fell back solo); replay the request "
+                "without resume_tokens instead")
         t0 = time.perf_counter()
-        # Prefix-cache hit (registered via /prefill, or a stored-back
-        # session): a single-row hit rides the engine seeded with the
-        # stored prefill (paged: its full pages mapped read-only); a
-        # multi-row hit decodes on the solo split path.  Beam and
-        # speculative requests stay cold (the draft has no stored
-        # prefill; beams tile the cache).
-        prefix_hit = self._prefix_lookup_safe(toks) \
-            if self._prefix_enabled and engine_ok \
-            and not speculative else None
-        prefix_source = "re_prefill" if prefix_hit is None \
-            else "local_hot"
+        # Prefix-cache hit (registered via /prefill, a stored-back
+        # session, a spilled entry, or a holder's over the wire): a
+        # single-row hit rides the engine seeded with the stored
+        # prefill (paged: its full pages mapped read-only); a multi-row
+        # hit decodes on the solo split path.  Beam and speculative
+        # requests stay cold (the draft has no stored prefill; beams
+        # tile the cache), and so do resume replays (the replayed
+        # tokens ARE the state).
+        prefix_hit = None
+        fetch_events = None
+        if self._prefix_enabled and engine_ok and not speculative \
+                and not resume_tokens:
+            prefix_hit = self._prefix_lookup_safe(toks)
+            if prefix_hit is None and self.prefix_fetch \
+                    and isinstance(req.get("prefix_hint"), dict):
+                # Local miss + a router hint naming the holder: try the
+                # fleet tier; any failure is a counted re-prefill.
+                fetched = self._prefix_wire_fetch(
+                    np.asarray(toks, np.int32), req["prefix_hint"])
+                if fetched is not None:
+                    prefix_hit, fetch_events = fetched
+        # Where this request's prefill came from (the router learns
+        # holders from it).
+        if prefix_hit is None:
+            prefix_source = "re_prefill"
+        elif fetch_events is not None:
+            prefix_source = "wire_fetch"
+        elif prefix_hit.source == "host":
+            prefix_source = "local_spilled"
+        else:
+            prefix_source = "local_hot"
         group = None
         solo_events = None
         if not engine_ok:
@@ -1283,10 +2084,14 @@ class ModelServer:
                     prefix_info={"cached_tokens": pc,
                                  "shared_pages":
                                      len(prefix_hit.pins or ()),
-                                 "source": prefix_source})
+                                 "source": prefix_source},
+                    pre_events=fetch_events)
             except BaseException:
                 self._unpin_prefix(prefix_hit.pins)
                 raise
+            if fetch_events:
+                # The fetch span also rides the shared trace ring.
+                self._push_solo_events(list(fetch_events), rid=rid)
         elif prefix_hit is not None:
             out, breakdown = self._generate_prefix_cached(
                 toks, new, temp, top_k, top_p, eos, chunk, seed,
@@ -1296,6 +2101,9 @@ class ModelServer:
             solo_events = [("prefix_solo", t0, t_end,
                             {"rows": len(rows)}),
                            ("complete", t_end, t_end, {})]
+            if fetch_events:
+                self._push_solo_events(list(fetch_events), rid=rid)
+                solo_events = list(fetch_events) + solo_events
             tid = self.telemetry.new_tid()
             self.telemetry.span(tid, "prefix_solo", t0, t_end, rid=rid,
                                 rows=len(rows))
@@ -1307,7 +2115,8 @@ class ModelServer:
                                        sampling=sampling,
                                        record_timings=want_timings,
                                        priority=priority,
-                                       deadline_s=deadline_s, rid=rid)
+                                       deadline_s=deadline_s, rid=rid,
+                                       resume_tokens=resume_tokens)
         if group is not None:
             self._wait_group(group, cancel_check)
             out = group.result()
@@ -1393,10 +2202,47 @@ class ModelServer:
                if prefix_hit is not None else {}),
             **({"prefix_source": prefix_source}
                if self._prefix_enabled else {}),
+            # The wire fetch's measured size and wall (the router's
+            # link calibration).
+            **({"prefix_fetch_bytes": fetch_events[0][3]["bytes"],
+                "prefix_fetch_s": round(
+                    fetch_events[0][2] - fetch_events[0][1], 6)}
+               if fetch_events else {}),
             **({"timings": timings} if timings is not None else {}),
         }
 
     # -- introspection --------------------------------------------------
+
+    def _spill_stats(self) -> Dict[str, Any]:
+        """The host tier's and the wire lanes' counters: ONE dict that
+        /metrics and /info both render."""
+        with self._stats_lock:
+            return {
+                "kv_host_spill_bytes": self._host_bytes,
+                "kv_host_spill_bytes_budget":
+                    self.kv_host_spill_bytes,
+                "kv_host_entries": self._host_entries,
+                "kv_host_spills_total": self._host_spills_total,
+                "kv_host_dropped_total": self._host_dropped_total,
+                "kv_rematerialize_hits_total": self._remat_hits_total,
+                "kv_rematerialize_bytes_total":
+                    self._remat_bytes_total,
+                "kv_promotions_total": self._promotions_total,
+                "prefix_fetch_total": self._fetch_attempts_total,
+                "prefix_fetch_hits_total": self._fetch_hits_total,
+                "prefix_fetch_bytes_total": self._fetch_bytes_total,
+                "prefix_fetch_failed": dict(self._fetch_failed),
+                "prefix_ingest_total": self._ingest_total,
+                "prefix_ingest_rejected_total":
+                    self._ingest_rejected_total,
+                "prefix_handoff_entries_total":
+                    self._handoff_entries_total,
+                "prefix_handoff_bytes_total":
+                    self._handoff_bytes_total,
+                "prefix_handoff_failed_total":
+                    self._handoff_failed_total,
+                "prefix_evict_hints_total": self._evict_hints_total,
+            }
 
     def info(self) -> Dict[str, Any]:
         cfg = getattr(self.model, "cfg", None)
@@ -1420,6 +2266,7 @@ class ModelServer:
                 "backend": self.model.device.type,
                 "max_batch": self.max_batch,
                 "batching": self.batching,
+                "role": self.role,
                 "default_priority": self.default_priority,
                 "draining": self.draining,
                 "drain_rejected_total": self.drain_rejected,
@@ -1433,6 +2280,13 @@ class ModelServer:
                 "spec_k_default": self.spec_k_default,
                 "kv_paged": self.kv_paged,
                 "kv_lazy": self.kv_lazy,
+                # The host tier and the wire lanes (the same dict
+                # /metrics renders), and the fetch client's policy.
+                **(self._spill_stats() if self.kv_paged else {}),
+                "prefix_fetch": self.prefix_fetch,
+                **({"prefix_fetch_policy":
+                    self.fetch_policy.describe()}
+                   if self.prefix_fetch else {}),
                 "int8_weights": has_quantized(self.model),
                 # A compile-cache miss is a CUDA-graph capture (the
                 # first eager run of a window on the CPU).
@@ -1564,6 +2418,37 @@ class ModelServer:
                         "kv_pages_lazy_grown_total"):
                 lines += [f"# TYPE ptpu_serving_{key} counter",
                           f"ptpu_serving_{key} {es[key]}"]
+            # The host tier and the wire lanes (the _spill_stats dict
+            # /info renders).  The fetch-failure family's TYPE line
+            # renders before its first labelled sample.
+            sp = self._spill_stats()
+            for key, kind in (
+                    ("kv_host_spill_bytes", "gauge"),
+                    ("kv_host_entries", "gauge"),
+                    ("kv_host_spills_total", "counter"),
+                    ("kv_rematerialize_hits_total", "counter"),
+                    ("kv_rematerialize_bytes_total", "counter"),
+                    ("kv_host_dropped_total", "counter"),
+                    ("kv_promotions_total", "counter"),
+                    ("prefix_fetch_total", "counter"),
+                    ("prefix_fetch_hits_total", "counter"),
+                    ("prefix_fetch_bytes_total", "counter")):
+                lines += [f"# TYPE ptpu_serving_{key} {kind}",
+                          f"ptpu_serving_{key} {sp[key]}"]
+            lines.append("# TYPE ptpu_serving_prefix_fetch_failed_total "
+                         "counter")
+            lines += [f'ptpu_serving_prefix_fetch_failed_total'
+                      f'{{reason="{r}"}} {n}'
+                      for r, n in sorted(
+                          sp["prefix_fetch_failed"].items())]
+            for key in ("prefix_ingest_total",
+                        "prefix_ingest_rejected_total",
+                        "prefix_handoff_entries_total",
+                        "prefix_handoff_bytes_total",
+                        "prefix_handoff_failed_total",
+                        "prefix_evict_hints_total"):
+                lines += [f"# TYPE ptpu_serving_{key} counter",
+                          f"ptpu_serving_{key} {sp[key]}"]
         lines += [
             "# TYPE ptpu_serving_deadline_expired_total counter",
             f"ptpu_serving_deadline_expired_total "
@@ -1639,13 +2524,7 @@ _NOT_PORTED_POST = {
 
 
 def _not_ported_post(path: str) -> Optional[str]:
-    if path in _NOT_PORTED_POST:
-        return _NOT_PORTED_POST[path]
-    if path.startswith("/prefix/"):
-        return ("the fleet prefix cache (POST /prefix/*) is not ported "
-                "yet (ROADMAP Queue 1: the spill tier and its wire "
-                "format)")
-    return None
+    return _NOT_PORTED_POST.get(path)
 
 
 def make_handler(ms: ModelServer):
@@ -1702,8 +2581,11 @@ def make_handler(ms: ModelServer):
                         **({"supervisor": ms.supervisor.status()}
                            if ms.supervisor is not None else {})})
                 else:
+                    # ``role`` rides the 200 body, so the router's
+                    # probes learn the fleet's prefill/decode split.
                     self._send(200, {"status": "ok",
                                      "model": ms.model_name,
+                                     "role": ms.role,
                                      "t": time.time()})
             elif path == "/info":
                 self._send(200, ms.info())
@@ -1725,7 +2607,15 @@ def make_handler(ms: ModelServer):
                 # Every latency histogram's per-bucket request-ID
                 # exemplars, all K kept (/metrics carries the latest).
                 self._send(200, ms.telemetry.exemplars_report())
-            elif path in ("/profile/report", "/prefix/index"):
+            elif path == "/prefix/index":
+                # Fleet inventory: stable entry keys, tiers and hits.
+                if not ms.kv_paged:
+                    self._send(400, {
+                        "error": "prefix index requires a paged "
+                                 "engine (--kv-paged)"})
+                else:
+                    self._send(200, ms.prefix_index())
+            elif path == "/profile/report":
                 self._send(501, {
                     "error": f"GET {path} is not ported to the PyTorch "
                              f"backend yet (ROADMAP Queue 1)",
@@ -1767,6 +2657,63 @@ def make_handler(ms: ModelServer):
             else:
                 self._send(200, rec)
 
+        def _do_prefix(self, rid: str) -> None:
+            """The fleet prefix tier's wire surface: ``POST
+            /prefix/fetch`` (a stored entry, serialized; 404 = holder
+            miss), ``/prefix/ingest`` (verify and admit one blob into
+            the host tier), ``/prefix/handoff`` (push this replica's
+            entries to a successor), ``/prefix/evict`` (host-tier
+            hints).  All answer while DRAINING."""
+            t0 = time.perf_counter()
+            req = None
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(n)
+                if self.path == "/prefix/fetch":
+                    req = json.loads(raw or b"{}")
+                    blob = ms.prefix_wire_payload(req)
+                    if blob is None:
+                        code, resp = 404, {"error": "prefix not held "
+                                                    "here"}
+                    else:
+                        self._send_raw(200, blob,
+                                       "application/octet-stream")
+                        ms.log_access("POST", self.path, 200, req,
+                                      {"nbytes": len(blob)},
+                                      time.perf_counter() - t0,
+                                      rid=rid)
+                        return
+                elif self.path == "/prefix/ingest":
+                    # The body IS the wire payload (octet-stream).
+                    req = {"nbytes": len(raw)}
+                    code, resp = 200, ms.prefix_ingest(raw)
+                elif self.path == "/prefix/handoff":
+                    req = json.loads(raw or b"{}")
+                    code, resp = 200, ms.prefix_handoff(req)
+                elif self.path == "/prefix/evict":
+                    req = json.loads(raw or b"{}")
+                    code, resp = 200, ms.prefix_evict(req)
+                else:
+                    code, resp = 404, {"error":
+                                       f"no route {self.path}"}
+            except WirePayloadError as e:
+                # Typed integrity failure: nothing reached the cache.
+                code, resp = 400, {"error": str(e),
+                                   "reason": "payload_integrity"}
+            except ValueError as e:
+                code, resp = 400, {"error": str(e)}
+            except Exception as e:  # never kill the server thread
+                code, resp = 500, {"error":
+                                   f"{type(e).__name__}: {e}"}
+            if isinstance(resp, dict):
+                resp.setdefault("request_id", rid)
+            try:
+                self._send(code, resp)
+            except OSError:
+                pass
+            ms.log_access("POST", self.path, code, req, resp,
+                          time.perf_counter() - t0, rid=rid)
+
         def do_POST(self):
             rid = self._req_id()
             t0 = time.perf_counter()
@@ -1778,6 +2725,9 @@ def make_handler(ms: ModelServer):
                     pass
                 ms.log_access("POST", self.path, 200, None, resp,
                               time.perf_counter() - t0, rid=rid)
+                return
+            if self.path.startswith("/prefix/"):
+                self._do_prefix(rid)
                 return
             missing = _not_ported_post(self.path)
             if missing is not None:

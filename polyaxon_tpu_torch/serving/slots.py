@@ -67,6 +67,7 @@ tables).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, Dict, Optional
 
@@ -77,6 +78,23 @@ import torch
 # ``analysis/xprof.py`` STEP_MARKER): trace readers anchor step
 # boundaries on it.
 STEP_MARKER = "ptpu_step"
+
+
+# One CUDA-graph capture at a time in the process (StepPool._capture),
+# and no device-wide synchronize during one (sync_device).
+_CAPTURE_LOCK = threading.Lock()
+
+
+def sync_device(dev) -> None:
+    """Wait for all work queued on ``dev`` (a no-op off the card).  A
+    device-wide synchronize that lands inside a capture on another
+    thread invalidates that capture (several servers' engines in one
+    process: each holds only its own device lock), so it waits for
+    ``_CAPTURE_LOCK``, which every capture holds."""
+    if dev.type != "cuda":
+        return
+    with _CAPTURE_LOCK:
+        torch.cuda.synchronize(dev)
 
 
 def step_annotation():
@@ -332,7 +350,17 @@ class StepPool:
         rewrites; a ring's is restored after it), then capture it into
         the pool's shared graph memory.  ``thread_local``: HTTP handler
         threads may make CUDA calls while the engine thread captures,
-        and the global mode would abort."""
+        and the global mode would abort.  Captures are also serialized
+        across every pool in the process (``_CAPTURE_LOCK``): several
+        servers' engines in one process (a ``LocalReplica`` fleet) would
+        otherwise capture at once, and one capture's set-up (the device
+        sync and allocator flush ``torch.cuda.graph`` does on entry)
+        must not land inside another's capture."""
+        with _CAPTURE_LOCK:
+            return self._capture_locked(body)
+
+    def _capture_locked(self, body: Callable[[], None]
+                        ) -> "torch.cuda.CUDAGraph":
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         side = torch.cuda.Stream(self.device)

@@ -62,13 +62,70 @@ SERVING_MODULES = ("prng.py", "models/generate.py", "models/kv_cache.py",
                    "serving/scheduler.py", "serving/server.py",
                    "serving/slots.py", "serving/telemetry.py",
                    "analysis/recompile.py", "analysis/locksan.py",
-                   "serving/radix.py")
+                   "serving/radix.py", "serving/router.py")
 
 
 def test_serving_modules_are_checked():
     """The serving stack is under the import rule above (SOURCES)."""
     for rel in SERVING_MODULES:
         assert PORT / rel in SOURCES, rel
+
+
+FLEET_MODULES = ("serving/router.py", "serving/paged.py",
+                 "serving/server.py", "serving/__init__.py",
+                 "cli/main.py")
+
+
+@pytest.mark.parametrize("rel", FLEET_MODULES)
+def test_fleet_modules_import_no_jax_nor_ml_dtypes(rel):
+    """The router and the wire code (the host spill tier's format reads
+    and writes bf16 without a bf16 numpy type) import no jax, nothing of
+    the JAX package and no ``ml_dtypes``, which the card's machine does
+    not have, and never ask numpy for a bf16 dtype."""
+    bad = sorted(set(_imported_roots(PORT / rel))
+                 & set(FORBIDDEN + ("ml_dtypes",)))
+    assert not bad, f"{rel} imports {bad}"
+    text = (PORT / rel).read_text().replace("'", '"')
+    assert 'np.dtype("bfloat16")' not in text, rel
+
+
+def test_fleet_serving_imports_touch_no_cuda():
+    """Importing ``polyaxon_tpu_torch.serving`` (the router and the wire
+    format with it), building a router over URL replicas and a bf16
+    blob round trip touch no CUDA and load no jax, ml_dtypes or module
+    of the JAX package (judged on the modules these imports add: jax
+    may already sit in ``sys.modules`` at start-up)."""
+    import subprocess
+    import sys
+
+    script = "\n".join([
+        "import sys, torch",
+        "before = set(sys.modules)",
+        "def boom(*a, **k):",
+        "    raise AssertionError('CUDA touched')",
+        "for name in ('init', '_lazy_init', 'is_available', 'device_count',",
+        "             'current_device', 'synchronize', 'Stream', 'CUDAGraph',",
+        "             'graph', 'set_device', 'get_device_name'):",
+        "    setattr(torch.cuda, name, boom)",
+        "import polyaxon_tpu_torch.serving as S",
+        "from polyaxon_tpu_torch.serving.paged import (pack_spilled,",
+        "                                               unpack_spilled)",
+        "r = S.ReplicaRouter([S.Replica('http://127.0.0.1:1', 'a')],",
+        "                    autostart=False)",
+        "r.close()",
+        "x = torch.ones(1, 1, 2, 1, 1, dtype=torch.bfloat16)",
+        "b = pack_spilled([[1, 2]], [None, x], 2, torch.zeros(1, 3))",
+        "assert torch.equal(unpack_spilled(b)[1][1], x)",
+        "assert not torch.cuda.is_initialized()",
+        "new = set(sys.modules) - before",
+        "bad = sorted(m for m in new if m.split('.')[0] in",
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'polyaxon_tpu'))",
+        "print('ok' if not bad else bad)",
+    ])
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        (out.stdout, out.stderr)
 
 
 LLAMA_MODULES = ("ops/rotary.py", "models/llama.py", "models/registry.py",

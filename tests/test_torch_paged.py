@@ -431,8 +431,11 @@ def test_pool_geometry_and_refusals(model):
         mgr.step(1)
     with pytest.raises(RuntimeError, match="before any page write"):
         mgr.materialize([0], 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The host spill tier is ported: it needs a shaped pool too.
+    with pytest.raises(RuntimeError, match="before any page write"):
         mgr.spill_pages([0], 8)
+    with pytest.raises(RuntimeError, match="ensure_shaped"):
+        mgr.rematerialize([None, None, None], 8)
     # The speculative step is ported: it needs a speculative insert.
     with pytest.raises(RuntimeError, match="before a speculative insert"):
         mgr.step_spec(1, 2)

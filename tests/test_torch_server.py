@@ -193,17 +193,19 @@ def test_boolean_scalar_params_are_400(server, field):
     ({"spec_k": 3}, "speculative decoding"),
 ])
 def test_unported_requests_are_501(server, body, feature):
-    """``resume_tokens`` still answers 501 naming the feature.  Beam
-    search and speculative decoding are ported: ``num_beams`` decodes
-    (solo ``generate_beam``'s tokens), ``speculative`` on a server
-    without a draft model is the reference's 400, and ``spec_k``
-    without ``speculative`` is ignored (a greedy request)."""
+    """Every one of these request features is ported now.
+    ``resume_tokens`` replays ``prompt ++ tokens_so_far`` and returns
+    the uninterrupted run's tokens; ``num_beams`` decodes (solo
+    ``generate_beam``'s tokens), ``speculative`` on a server without a
+    draft model is the reference's 400, and ``spec_k`` without
+    ``speculative`` is ignored (a greedy request)."""
     base, model, _ = server
     req = {"prompt": [1, 2], "max_new_tokens": 2, **body}
     if feature == "resume_tokens":
-        out = _post(base, req, expect=501)
-        assert feature in out["error"] and "not ported" in out["error"]
-        assert out["reason"] == "not_ported"
+        want = TG.generate(model, [[1, 2]], max_new_tokens=2).tolist()
+        out = _post(base, {**req, "prompt": want[0][:3]})
+        assert out["tokens"] == want
+        assert out["new_tokens"] == [want[0][3:]]
     elif "speculative" in body:
         out = _post(base, req, expect=400)
         assert "no draft model" in out["error"]
@@ -221,7 +223,14 @@ def test_unported_requests_are_501(server, body, feature):
 @pytest.mark.parametrize("path", ["/prefix/ingest", "/prefix/fetch",
                                   "/profile/start", "/profile/stop"])
 def test_unported_routes_are_501(server, path):
+    """``/profile/*`` still answers 501 naming the feature.  The fleet
+    prefix lanes are ported: on this fixed-lane server without a spill
+    budget they answer the reference's 400."""
     base, _, _ = server
+    if path.startswith("/prefix/"):
+        out = _post(base, {"prompt": [1, 2]}, path=path, expect=400)
+        assert "paged" in out["error"]
+        return
     out = _post(base, {"prompt": [1, 2]}, path=path, expect=501)
     assert "not ported" in out["error"]
 
@@ -378,38 +387,83 @@ def test_anomalies_and_exemplars_routes_match_reference():
         ms.close()
 
 
+_SPILL = ["--kv-paged", "--kv-host-spill-bytes", "4096"]
+_PROFILE_ITEM = "ProfileSession on torch.profiler"
 _REFERENCE_ONLY_FLAGS = [
-    (["--prefix-fetch"], "the spill tier and its wire format"),
-    (["--prefix-fetch-timeout", "2"], "the spill tier and its wire format"),
-    (["--prefix-fetch-min-tokens", "4"],
-     "the spill tier and its wire format"),
-    (["--prefix-fetch-remat-ratio", "0.5"],
-     "the spill tier and its wire format"),
-    (["--batching", "coalesce"], "legacy coalescing"),
-    (["--mesh", "tp=2"], "parallelism and meshes"),
-    (["--role", "decode"], "the router"),
-    (["--trace-file", "t.jsonl"], "ProfileSession on torch.profiler"),
-    (["--profile-dir", "p"], "ProfileSession on torch.profiler"),
-    (["--profile-every", "4"], "ProfileSession on torch.profiler"),
-    (["--profile-steps", "2"], "ProfileSession on torch.profiler"),
+    # Served since the fleet tier was ported: (flags, the item the
+    # refusal named, the ModelServer arguments the flags must reach);
+    # the ids are the ones these cases had while refused.
+    pytest.param(["--prefix-fetch", *_SPILL], "the spill tier and its "
+                 "wire format", {"prefix_fetch": True,
+                                 "kv_host_spill_bytes": 4096},
+                 id="flags0-the spill tier and its wire format"),
+    pytest.param(["--prefix-fetch-timeout", "2"], "the spill tier and "
+                 "its wire format", {"prefix_fetch_timeout_s": 2.0},
+                 id="flags1-the spill tier and its wire format"),
+    pytest.param(["--prefix-fetch-min-tokens", "4", "--prefix-fetch",
+                  *_SPILL], "the spill tier and its wire format",
+                 {"policy": ("min_tokens", 4)},
+                 id="flags2-the spill tier and its wire format"),
+    pytest.param(["--prefix-fetch-remat-ratio", "0.5", "--prefix-fetch",
+                  *_SPILL], "the spill tier and its wire format",
+                 {"policy": ("remat_ratio", 0.5)},
+                 id="flags3-the spill tier and its wire format"),
+    pytest.param(["--batching", "coalesce"], "legacy coalescing", None,
+                 id="flags4-legacy coalescing"),
+    pytest.param(["--mesh", "tp=2"], "parallelism and meshes", None,
+                 id="flags5-parallelism and meshes"),
+    pytest.param(["--role", "decode", "--prefix-fetch", *_SPILL],
+                 "the router", {"role": "decode"},
+                 id="flags6-the router"),
+    pytest.param(["--trace-file", "t.jsonl"], _PROFILE_ITEM, None,
+                 id="flags7-ProfileSession on torch.profiler"),
+    pytest.param(["--profile-dir", "p"], _PROFILE_ITEM, None,
+                 id="flags8-ProfileSession on torch.profiler"),
+    pytest.param(["--profile-every", "4"], _PROFILE_ITEM, None,
+                 id="flags9-ProfileSession on torch.profiler"),
+    pytest.param(["--profile-steps", "2"], _PROFILE_ITEM, None,
+                 id="flags10-ProfileSession on torch.profiler"),
 ]
 
 
-@pytest.mark.parametrize("flags,item", _REFERENCE_ONLY_FLAGS)
+@pytest.mark.parametrize("flags,item,served", _REFERENCE_ONLY_FLAGS)
 def test_cli_serve_refuses_unported_reference_flags(monkeypatch, flags,
-                                                    item):
+                                                    item, served):
     """``serve`` carries every flag of the reference's at its default
     (click no longer answers "No such option"), and refuses each one
     whose feature is not ported by its ROADMAP item, before any model
-    is built."""
+    is built.  The flags of the fleet tier are served: their values
+    reach ``ModelServer``."""
+    import polyaxon_tpu_torch.serving as serving
+
+    seen = {}
+
+    class Captured(ValueError):
+        pass
+
+    def capture(model, **kw):
+        seen.update(kw)
+        raise Captured("captured")
+
     def refuse(*a, **kw):
-        raise AssertionError("model built before the refusal")
+        if served is None:
+            raise AssertionError("model built before the refusal")
+        return None
 
     monkeypatch.setattr(cli_main, "_build_serving_model", refuse)
+    monkeypatch.setattr(serving, "ModelServer", capture)
     out = CliRunner().invoke(cli_main.cli, [
         "serve", "--model", "gpt2-tiny", "--cpu", *flags])
     assert out.exit_code != 0
-    assert f"{flags[0]} (ROADMAP Queue 1: {item})" in out.output
+    if served is None:
+        assert f"{flags[0]} (ROADMAP Queue 1: {item})" in out.output
+        return
+    assert "captured" in out.output and "ROADMAP" not in out.output
+    for key, want in served.items():
+        if key == "policy":
+            assert getattr(seen["prefix_fetch_policy"], want[0]) == want[1]
+        else:
+            assert seen[key] == want, key
 
 
 def test_cli_serve_flag_set_and_exports_match_reference(monkeypatch):
