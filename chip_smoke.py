@@ -53,7 +53,8 @@ Phases, each raising on failure:
    4-of-24-layer cut of the target (float32 solo greedy
    ``generate_speculative`` == ``generate``; the float32 engine's spec
    slots on the fixed-lane and the paged pool, 8 requests of which 6
-   speculative, each equal to its solo run, no capture after warm-up;
+   speculative, each equal to its solo run, no capture after warm-up on
+   the fixed lane;
    bf16 spec and plain window replay times and the cut draft's
    acceptance; an HTTP load of 16 requests, half speculative, with the
    ``ptpu_serving_spec_accept_rate`` family); beam search in float32
@@ -94,8 +95,9 @@ Phases, each raising on failure:
    pools; an HTTP load on ``serve --int8-weights --int8-kv --kv-paged``'s
    model; TinyLlama's bytes and paged steps); the ring cache at
    TinyLlama's width with a window of 511 (float32 at 4 layers: a
-   1,536 + 768-token session past max_position solo == a plain cache of
-   max_position 4096 == the fixed-lane engine; bf16 at full depth: cache
+   1,536 + 560-token greedy and a 2,000 + 64-token sampled session past
+   max_position solo == a plain cache of max_position 4096 == the
+   fixed-lane engine; bf16 at full depth: cache
    bytes, the decode step past position 2048, paged refused);
    the fleet tier (``phase_fleet``, run after the int8 phase, GPT-2
    medium at full width and depth): a 512-token prefix's
@@ -111,6 +113,16 @@ Phases, each raising on failure:
    bytes and ms against a local re-prefill, the router's link
    estimates); the host tier on one server (spills, host hits == the
    uncached tokens, TTFT cold / device hit / host hit);
+   the flight recorder and the legacy baselines (``phase_profiling``,
+   GPT-2 medium): ``profile_every`` 16 / ``profile_steps`` 8 windows over
+   the mixed HTTP load on both pools (step markers, shares summing to 1,
+   the card's peak, /metrics == /profile/report), a manual
+   ``/profile/start|stop`` window whose busy seconds equal this
+   script's own kernel + memcpy + memset sum within 2 %, tok/s with the
+   recorder attached and detached, float32 tokens with it on == off and
+   under ``batching`` coalesce and off == solo ``generate``, and bf16
+   tok/s and TTFT of continuous / coalesce / off on the mixed load and
+   on a load the coalescer merges;
 10. ``python -m polyaxon_tpu_torch.cli run -f`` on the port's example
    polyaxonfiles in a temporary home, each read back through the port's
    store: the GPT-2 medium ``job`` (3 tracked steps equal to its log
@@ -1517,8 +1529,8 @@ def _serve(model, name, **server_kw):
 
     from polyaxon_tpu_torch.serving import ModelServer, make_server
 
-    ms = ModelServer(model, model_name=name, n_slots=8, decode_window=8,
-                     **server_kw)
+    ms = ModelServer(model, model_name=name,
+                     **{"n_slots": 8, "decode_window": 8, **server_kw})
     srv = make_server("127.0.0.1", 0, ms)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     return srv, ms, f"http://127.0.0.1:{srv.server_address[1]}"
@@ -1971,14 +1983,14 @@ def _cut_draft(model, name: str, layers: int):
 
 
 def _spec_bodies(cfg, seed: int = 5):
-    """8 requests of 64-256 prompt tokens and 64 new: 4 speculative
-    greedy, 2 speculative sampled (T 0.8, top-k 50, top-p 0.95, seed =
-    index), 1 plain greedy and 1 plain sampled."""
+    """8 requests of 64-256 prompt tokens and 40 new (fewer for time):
+    4 speculative greedy, 2 speculative sampled (T 0.8, top-k 50, top-p
+    0.95, seed = index), 1 plain greedy and 1 plain sampled."""
     rng = np.random.RandomState(seed)
     bodies = []
     for i, n in enumerate(rng.randint(64, 257, 8)):
         body = {"prompt": rng.randint(0, cfg.vocab_size, n).tolist(),
-                "max_new_tokens": 64}
+                "max_new_tokens": 40}
         if i < 6:
             body.update(speculative=True, spec_k=SPEC_K)
         if i in (4, 5, 7):
@@ -2028,13 +2040,15 @@ def _warm_spec_keys(ms, max_tokens: int) -> None:
 
 
 def _spec_engine_runs(model_f32, draft_f32, bodies, solo, draft_label,
-                      pools=("fixed-lane", "paged"), warm_keys=True):
+                      pools=("fixed-lane", "paged"),
+                      warm_keys=("fixed-lane",)):
     """float32 ``ModelServer`` with the draft, 8 slots: the 8 bodies
-    concurrently on each of ``pools`` after a warm-up request (and,
-    with ``warm_keys``, every graph key: then no capture may happen in
-    the run); every request equals its solo run (tie rule for greedy),
-    paged == fixed lane exactly.  Returns the spec counters of the
-    fixed-lane run."""
+    concurrently on each of ``pools`` after a warm-up request (and, on
+    the pools in ``warm_keys``, every graph key: then no capture may
+    happen in the run — a paged pool's 48 keys take 26 s to capture, so
+    by default it captures what the run needs); every request equals
+    its solo run (tie rule for greedy), paged == fixed lane exactly.
+    Returns the spec counters of the fixed-lane run."""
     from polyaxon_tpu_torch.serving import ModelServer
 
     max_tokens = max(len(b["prompt"]) + b["max_new_tokens"]
@@ -2049,7 +2063,7 @@ def _spec_engine_runs(model_f32, draft_f32, bodies, solo, draft_label,
         try:
             t0 = time.perf_counter()
             ms.generate(dict(bodies[0], max_new_tokens=8))
-            if warm_keys:
+            if label in warm_keys:
                 _warm_spec_keys(ms, max_tokens)
             warm = ms.recompile.snapshot()["compile_cache_misses"]
             st0 = ms.engine.stats()
@@ -2071,7 +2085,8 @@ def _spec_engine_runs(model_f32, draft_f32, bodies, solo, draft_label,
               f"{sorted({b['spec_k'] for b in bodies if 'spec_k' in b})};"
               f" prompts "
               f"{min(len(b['prompt']) for b in bodies)}-"
-              f"{max(len(b['prompt']) for b in bodies)}, 64 new) in "
+              f"{max(len(b['prompt']) for b in bodies)}, "
+              f"{max(b['max_new_tokens'] for b in bodies)} new) in "
               f"{secs:.2f} s (warm-up {t1 - t0:.1f} s, {warm} graph "
               f"captures); spec rounds {c['spec_rounds_total']}, drafted "
               f"{c['spec_drafted_total']}, accepted "
@@ -2079,7 +2094,7 @@ def _spec_engine_runs(model_f32, draft_f32, bodies, solo, draft_label,
               f"{c['spec_accepted_total'] / max(1, c['spec_drafted_total']):.3f}"
               f"), {c['decode_dispatches_total']} dispatches; captures "
               f"in the run {captures}")
-        if captures and warm_keys:
+        if captures and label in warm_keys:
             raise AssertionError(f"spec engine {label}: {captures} graph "
                                  f"captures after warm-up")
     # Sampled speculative requests are held exactly (their draws are
@@ -2258,19 +2273,21 @@ def phase_speculative(model, model_f32):
     self_solo = [_spec_solo(model_f32, model_f32, b) for b in self_bodies]
     rec["engine_self_draft"] = _spec_engine_runs(
         model_f32, model_f32, self_bodies, self_solo, "= target",
-        pools=("fixed-lane",), warm_keys=False)
+        pools=("fixed-lane",), warm_keys=())
     rec["engine_flash_launches"] = _counts()
     split["engine"] = time.perf_counter() - t0
     del small_f32, cut_f32
     _release()
     t0 = time.perf_counter()
     cut = _cut_draft(model, "gpt2-medium", 4)
-    small = get_model("gpt2-small").init_params(seed=1, device="cuda")
     # bf16 is held as an agreement share (a K+1-wide verify and a
-    # one-token step round apart, and a near tie flips the argmax).
+    # one-token step round apart, and a near tie flips the argmax);
+    # the cut draft's rows only (gpt2-small's, a random draft, are
+    # left out for the script's time), on the float32 check's prompts.
     rng = np.random.RandomState(3)
+    rng.randint(0, model.cfg.vocab_size, 64)    # gpt2-small's prompt
     firsts = []
-    for label, draft in (("gpt2-small", small), ("4-layer cut", cut)):
+    for label, draft in (("4-layer cut", cut),):
         for n in (64, 200):
             p = rng.randint(0, model.cfg.vocab_size, n).tolist()
             want = G.generate(model, [p], max_new_tokens=64)[0, n:].tolist()
@@ -2281,13 +2298,13 @@ def phase_speculative(model, model_f32):
                                 if a != b), 64))
     rec["bf16_rows_equal"] = sum(f == 64 for f in firsts)
     print(f"[spec] bf16 solo greedy generate_speculative == greedy generate"
-          f" on {rec['bf16_rows_equal']} of 4 rows (the float32 prompts; "
-          f"first differing new token per row: {firsts}, 64 = none)")
+          f" on {rec['bf16_rows_equal']} of {len(firsts)} rows (the cut "
+          f"draft on the float32 check's prompts; first differing new "
+          f"token per row: {firsts}, 64 = none)")
     # gpt2-small's windows are not timed, to bound the script's time
     # (PERF.md keeps their earlier numbers: acceptance 0.000).
     rec["step_ms"] = {"4-layer cut": _spec_step_ms(model, cut,
                                                    "4-layer cut", True)}
-    del small
     _release()
     split["step times"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2771,8 +2788,9 @@ def phase_llama_serving(model, model_f32):
     tokens (half sampled) == solo on the fixed-lane pool and paged ==
     fixed lane; the bf16 W = 8 graph windows == eager bitwise, with the
     decode step's device time and where it goes; two HTTP loads shaped
-    as GPT-2 medium's (32 requests, prompts of 64-512 tokens from seed
-    0, 64 new, every odd one sampled at T 0.8, top-k 50, top-p 0.95),
+    as GPT-2 medium's (16 requests; prompts of
+    64-512 tokens from seed 0, 64 new, every odd one sampled at T 0.8,
+    top-k 50, top-p 0.95),
     one on the fixed-lane pool and one on the paged pool.  Neither load
     launches a flash kernel (decode and chunked prefill masks take the
     plain path).
@@ -2790,7 +2808,7 @@ def phase_llama_serving(model, model_f32):
     bodies = _mixed([{"prompt": rng.randint(0, model.cfg.vocab_size,
                                             n).tolist(),
                       "max_new_tokens": 64}
-                     for n in rng.randint(64, 513, 32)])
+                     for n in rng.randint(64, 513, 16)])
     recs = {}
     for label, kw in (("llama mixed fixed-lane", {"warm_requests": 4,
                                                   "idle_share": False}),
@@ -3354,10 +3372,11 @@ def phase_int8_llama(model) -> dict:
 def phase_ring(model) -> dict:
     """The ring cache at TinyLlama's width with ``sliding_window=511``.
 
-    float32 at 4 layers (the depth cut): a greedy and a sampled session,
-    each a 1,536-token prompt and 768 new tokens (2,304 positions, past
-    ``max_position`` 2048), solo on the ring == the same weights with a
-    plain cache of ``max_position`` 4096 (RoPE has no table) == the
+    float32 at 4 layers (the depth cut): a greedy session of a
+    1,536-token prompt and 560 new tokens and a sampled one of 2,000 and
+    64 (2,096 and 2,064 positions, past ``max_position`` 2048), solo on
+    the ring == the same weights with a plain cache of ``max_position``
+    4096 (RoPE has no table) == the
     fixed-lane engine on the ring (2 slots), under the tie rule, with
     no flash launch.  bf16 at full depth (``model``): the ring's cache
     bytes against the plain cache's, the decode step at positions over
@@ -3382,21 +3401,25 @@ def phase_ring(model) -> dict:
     plain.eval().requires_grad_(False)
     vocab = ring.cfg.vocab_size
     rng = np.random.RandomState(12)
+    # Greedy: 1,536 + 560 (the long stream); sampled: 2,000 + 64 (the
+    # positional sampler's solo step is the slow one, so a short stream
+    # that still crosses position 2048).
     bodies = [{"prompt": rng.randint(0, vocab, 1536).tolist(),
-               "max_new_tokens": 768},
-              {"prompt": rng.randint(0, vocab, 1536).tolist(),
-               "max_new_tokens": 768, **SAMPLED, "seed": 1}]
+               "max_new_tokens": 560},
+              {"prompt": rng.randint(0, vocab, 2000).tolist(),
+               "max_new_tokens": 64, **SAMPLED, "seed": 1}]
     solo, wide = [], []
     with torch.no_grad():
         for b in bodies:
+            n, new = len(b["prompt"]), b["max_new_tokens"]
             for m, out in ((ring, solo), (plain, wide)):
                 if b.get("temperature"):
                     t = G.generate_positional(m, [b["prompt"]],
-                                              max_new_tokens=768, seed=1,
+                                              max_new_tokens=new, seed=1,
                                               **SAMPLED)
                 else:
-                    t = G.generate(m, [b["prompt"]], max_new_tokens=768)
-                out.append([t[0, 1536:].tolist()])
+                    t = G.generate(m, [b["prompt"]], max_new_tokens=new)
+                out.append([t[0, n:].tolist()])
     ties = _same_tokens(ring, "ring", bodies, wide, solo)
     ms = ModelServer(ring, model_name=LLAMA, n_slots=2, prefill_chunk=512,
                      decode_window=8)
@@ -3413,7 +3436,8 @@ def phase_ring(model) -> dict:
         raise AssertionError(f"ring engine: flash launches {counts}, lane "
                              f"{lane}")
     print(f"[ring] float32 {LLAMA} width, 4 layers, window 511, ring of "
-          f"512 slots: a greedy and a sampled session of 1536 + 768 tokens"
+          f"512 slots: a greedy session of 1536 + 560 tokens and a "
+          f"sampled one of 2000 + 64"
           f" (past max_position 2048): solo ring == plain cache of "
           f"max_position 4096 == fixed-lane engine ({secs:.2f} s, lanes "
           f"of {lane} positions; {ties} tokens by the tie rule); flash "
@@ -4025,6 +4049,386 @@ def phase_fleet(model, model_f32, name="gpt2-medium"):
                 "fleet_cli": cli["flash"]}}
 
 
+# -- the flight recorder and the legacy baselines ----------------------------
+
+PROFILE_EVERY = 16          # recorder period, decode dispatches
+PROFILE_STEPS = 8           # dispatches a recorder window profiles
+MERGE_PROMPT = 256          # the coalescer's merge load: prompt tokens
+MERGE_NEW = 16              # and new tokens of each of its 8 requests
+
+
+def _trace_busy(events) -> tuple:
+    """Independent of ``analysis/xprof.py``: (device seconds, window
+    seconds, markers) of a torch.profiler trace's events — the durations
+    of the ``kernel``, ``gpu_memcpy`` and ``gpu_memset`` events clipped
+    to the span of the CPU ``ptpu_step`` markers, summed (serving runs
+    on one stream, so they do not overlap)."""
+    marks = [e for e in events if e.get("name") == "ptpu_step"
+             and e.get("cat") == "user_annotation"]
+    if not marks:
+        raise AssertionError("no CPU ptpu_step marker in the trace")
+    lo = min(e["ts"] for e in marks)
+    hi = max(e["ts"] + e["dur"] for e in marks)
+    busy = sum(max(0.0, min(e["ts"] + e["dur"], hi) - max(e["ts"], lo))
+               for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return busy / 1e6, (hi - lo) / 1e6, len(marks)
+
+
+def _wait_analyzed(rec, deadline_s: float = 30.0) -> None:
+    """Until every opened recorder window is analyzed or abandoned (a
+    window the load's end left open closes at its deadline)."""
+    end = time.monotonic() + deadline_s
+    while time.monotonic() < end:
+        t = rec._analyzer
+        if rec._window is None and (t is None or not t.is_alive()):
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"flight recorder still busy after {deadline_s} "
+                         f"s: {rec.report()['windows_total']} windows")
+
+
+def _recorder_gates(label, base, ms) -> dict:
+    """The recorder's published record against its gates: a full
+    window's ``step_markers`` == ``profile_steps``, the shares sum to 1
+    within 1e-6 (plus their 6-decimal rounding, 4 x 5e-7), 0 < busy <=
+    1, the card's own peak, and the /metrics gauges == the report."""
+    import urllib.request
+
+    from polyaxon_tpu_torch.serving.telemetry import parse_prometheus_text
+
+    _wait_analyzed(ms.recorder)
+    with urllib.request.urlopen(base + "/profile/report", timeout=60) as r:
+        rep = json.loads(r.read())
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        gauges = parse_prometheus_text(r.read().decode())
+    latest = rep["latest"]
+    if rep["windows_analyzed"] < 1 or latest is None:
+        summary = {k: v for k, v in rep.items() if k != "windows"}
+        raise AssertionError(f"{label}: no recorder window analyzed: "
+                             f"{summary}")
+    full = [w for w in rep["windows"] if not w.get("deadline_closed")]
+    if not full:
+        raise AssertionError(f"{label}: every window deadline-closed")
+    for w in rep["windows"]:
+        want = PROFILE_STEPS if not w.get("deadline_closed") else w["steps"]
+        total = sum(w["shares"].values()) + w["host_gap_share"]
+        if w["step_markers"] != want or w["steps"] != want \
+                or abs(total - 1.0) > 1e-6 + 4 * 5e-7 \
+                or not 0 < w["device_busy_share"] <= 1 \
+                or w["peak_flops_source"] != "device" \
+                or w["host_fallback"]:
+            raise AssertionError(f"{label}: window {w['window']} fails "
+                                 f"its gates: {w}")
+    for key, gauge in (("collective_share", "collective_share"),
+                       ("host_gap_share", "host_gap_share"),
+                       ("device_busy_share", "device_busy_share"),
+                       ("mfu", "mfu")):
+        if gauges[f"ptpu_serving_{gauge}"] != latest[key]:
+            raise AssertionError(f"{label}: /metrics {gauge} "
+                                 f"{gauges[f'ptpu_serving_{gauge}']} != "
+                                 f"report {latest[key]}")
+    if gauges["ptpu_serving_profile_windows_analyzed_total"] \
+            != rep["windows_analyzed"]:
+        raise AssertionError(f"{label}: /metrics window count != report")
+    tim = ms.profiler.timings
+    print(f"[profile] {label}: {rep['windows_analyzed']} of "
+          f"{rep['windows_total']} windows analyzed ({rep['windows_skipped']}"
+          f" skipped, {rep['windows_deferred']} deferred, "
+          f"{len(rep['windows']) - len(full)} deadline-closed); latest "
+          f"window {latest['window']}: {latest['steps']} steps, "
+          f"{latest['tokens']} tokens, step_markers "
+          f"{latest['step_markers']}, wall {latest['wall_s'] * 1e3:.3f} ms"
+          f" (host clock {latest['host_wall_s'] * 1e3:.3f} ms), "
+          f"{latest['events']} device events; shares compute "
+          f"{latest['compute_share']}, transfer {latest['transfer_share']},"
+          f" collective {latest['collective_share']}, host_gap_share "
+          f"{latest['host_gap_share']}, device_busy_share "
+          f"{latest['device_busy_share']}; mean position "
+          f"{latest['mean_position']}, {latest['flops_per_token']:.4g} "
+          f"FLOP/token, serving MFU {latest['mfu']} (peak "
+          f"{latest['peak_flops']:.4g} FLOP/s, peak_flops_source "
+          f"{latest['peak_flops_source']}); /metrics gauges == report")
+    print(f"[profile] {label}: profiler start "
+          f"{tim.get('start_s', 0) * 1e3:.3f} ms, stop (disable, engine "
+          f"thread) {tim.get('stop_s', 0) * 1e3:.3f} ms, export "
+          f"{tim.get('export_s', 0) * 1e3:.3f} ms, analyze "
+          f"{(ms.recorder.last_analyze_s or 0) * 1e3:.3f} ms (last window)")
+    print(f"[profile] {label} windows: " + "; ".join(
+        f"#{w['window']} busy {w['device_busy_share']} gap "
+        f"{w['host_gap_share']} mfu {w['mfu']}" for w in rep["windows"]))
+    return {"latest": latest, "windows": rep["windows"],
+            "timings": dict(tim),
+            "analyze_s": ms.recorder.last_analyze_s}
+
+
+def _manual_window(label, base, ms, bodies) -> dict:
+    """POST /profile/start, a load of ``bodies``, POST /profile/stop:
+    xprof's busy seconds on the dump == ``_trace_busy``'s within 2 %."""
+    from polyaxon_tpu_torch.analysis.xprof import (attribute_events,
+                                                   find_trace_file)
+
+    deadline = time.monotonic() + 30
+    while True:   # a recorder window may hold the session briefly
+        code, out = _post_json(base, "/profile/start", {})
+        if code == 200:
+            break
+        if code != 409 or time.monotonic() > deadline:
+            raise AssertionError(f"{label}: /profile/start {code} {out}")
+        time.sleep(0.05)
+    again, _ = _post_json(base, "/profile/start", {})
+    if again != 409:
+        raise AssertionError(f"{label}: a second /profile/start -> {again}")
+    wall, _ = _load_clients(base, bodies, len(bodies))
+    code, out = _post_json(base, "/profile/stop", {})
+    if code != 200:
+        raise AssertionError(f"{label}: /profile/stop {code} {out}")
+    with open(find_trace_file(out["dir"])) as f:
+        events = json.load(f)["traceEvents"]
+    att = attribute_events(events)
+    xbusy = sum(att["category_s"].values())
+    busy, window, marks = _trace_busy(events)
+    rel = abs(xbusy - busy) / busy
+    print(f"[profile] {label} manual window: {len(bodies)} requests in "
+          f"{wall:.3f} s; {marks} CPU ptpu_step markers (xprof "
+          f"step_markers {att['step_markers']}); window {window * 1e3:.3f}"
+          f" ms (xprof {att['wall_s'] * 1e3:.3f}); device busy by "
+          f"chip_smoke's own sum {busy * 1e3:.3f} ms, by xprof "
+          f"{xbusy * 1e3:.3f} ms (relative difference {rel:.2e}, limit "
+          f"0.02); xprof device_busy_share {att['device_busy_share']}, "
+          f"host_gap_share {att['host_gap_share']}, events {att['events']}")
+    if rel > 0.02 or att["step_markers"] != marks \
+            or att["host_fallback"]:
+        raise AssertionError(f"{label}: xprof busy {xbusy} s vs the "
+                             f"kernel sum {busy} s ({att})")
+    return {"busy_s": busy, "xprof_busy_s": xbusy, "markers": marks,
+            "attribution": att}
+
+
+def _solo_rows(model_f32, bodies):
+    from polyaxon_tpu_torch.models import generate as G
+
+    return [G.generate(model_f32, torch.tensor([b["prompt"]],
+                                               device=model_f32.device),
+                       max_new_tokens=b["max_new_tokens"])[
+        :, len(b["prompt"]):].tolist() for b in bodies]
+
+
+def _mode_load(model, mode, loads) -> dict:
+    """Each of ``loads`` ({label: bodies}) in bf16 under
+    ``batching=mode`` on one fresh server, after one warm-up request."""
+    srv, ms, base = _serve(model, "gpt2-medium", batching=mode,
+                           prefill_chunk=256)
+    try:
+        _load_clients(base, next(iter(loads.values()))[:1], 1)
+        return {label: _mode_stats(base, ms, label, bodies)
+                for label, bodies in loads.items()}
+    finally:
+        _stop(srv, ms)
+
+
+def _mode_stats(base, ms, label, bodies, run=None) -> dict:
+    """``bodies`` from one client each on a warm server (or ``run``,
+    the (wall, results, flash launches) of a load already made): tok/s,
+    TTFT and latency p50, the coalescer's counters, flash launches."""
+    mode = ms.batching
+    keys = ("coalesced_batches", "coalesced_requests")
+    before = dict.fromkeys(keys, 0)
+    if run is None:
+        before = {k: ms.info()[k] for k in keys}
+        _zero_counts()
+        wall, res = _load_clients(base, bodies, len(bodies))
+        run = (wall, res, _counts())
+    wall, res, counts = run
+    info = {k: ms.info()[k] - before[k] for k in keys}
+    ntok = sum(len(r[1]["new_tokens"][0]) for r in res)
+    ttft = sorted(r[1]["ttft_ms"] for r in res)
+    lat = sorted(r[0] for r in res)
+    rec = {"mode": mode, "load": label, "requests": len(res),
+           "tok_per_s": ntok / wall, "wall_s": wall,
+           "ttft_p50_ms": ttft[len(ttft) // 2],
+           "latency_p50_s": lat[len(lat) // 2],
+           "coalesced_batches": info["coalesced_batches"],
+           "coalesced_requests": info["coalesced_requests"],
+           "flash_launches": counts}
+    print(f"[coalesce] bf16 batching={mode}, {label} load: {len(res)} "
+          f"requests from {len(res)} clients, {ntok} tokens in "
+          f"{wall:.3f} s = "
+          f"{rec['tok_per_s']:.1f} tok/s; TTFT p50 {rec['ttft_p50_ms']:.1f}"
+          f" ms, latency p50 {rec['latency_p50_s']:.3f} s; coalesced "
+          f"batches {rec['coalesced_batches']} "
+          f"({rec['coalesced_requests']} requests); flash launches "
+          f"{counts}")
+    return rec
+
+
+def phase_profiling(model, model_f32, name="gpt2-medium"):
+    """The flight recorder and the legacy baselines on GPT-2 medium at
+    full width and depth:
+
+    1. the recorder (``profile_every`` 16, ``profile_steps`` 8) over the
+       mixed HTTP load (16 requests from 16 clients, prompts 64-512, 64
+       new, every odd one sampled) on the fixed-lane and the paged pool:
+       its records against their gates (``_recorder_gates``);
+    2. a manual ``POST /profile/start|stop`` window over 1 request:
+       xprof's busy seconds == the trace's kernel + memcpy + memset sum;
+    3. the recorder's cost: tok/s of the load on one server with it
+       attached (the load of 1.) and then detached (reported, not
+       gated); float32 greedy tokens with it on == off;
+    4. legacy coalescing: in float32, 8 greedy requests of one prompt
+       length under ``batching="coalesce"`` and ``"off"`` == solo
+       ``generate`` (coalesced_batches >= 1); in bf16 tok/s and TTFT
+       under continuous, coalesce and off of the mixed load and of a
+       load the coalescer can merge (8 greedy requests of 256 prompt
+       tokens, 16 new; coalesced_batches >= 1).
+    ``serve --profile-dir --profile-every --trace-file`` as a process is
+    left to ``tests/test_torch_profiling.py`` on the CPU, for the
+    script's time.  Returns the records with the flash launches of each
+    path (0: serving reaches no flash kernel)."""
+    import shutil
+
+    split = {}
+    out = {"flash_launches": {}}
+    prof_root = tempfile.mkdtemp(prefix="ptpu_profile_")
+    rng = np.random.RandomState(0)
+    bodies = _mixed([{"prompt": rng.randint(0, model.cfg.vocab_size,
+                                            n).tolist(),
+                      "max_new_tokens": 64}
+                     for n in rng.randint(64, 513, 16)])
+    # The load the coalescer can merge: 8 greedy requests of one prompt
+    # length and budget.
+    merge = [{"prompt": p, "max_new_tokens": MERGE_NEW}
+             for p in np.random.RandomState(1).randint(
+                 0, model.cfg.vocab_size, (8, MERGE_PROMPT)).tolist()]
+    try:
+        for pool, kw, path in (("fixed-lane", {}, "profiling_http"),
+                               ("paged", {"kv_paged": True},
+                                "profiling_http_paged")):
+            t0 = time.perf_counter()
+            rec, (srv, ms, base) = _http_load(
+                model, f"profiled mixed {pool}", bodies, sampled_too=True,
+                warm_requests=1, idle_share=False,
+                profile_dir=os.path.join(prof_root, pool),
+                profile_every=PROFILE_EVERY, profile_steps=PROFILE_STEPS,
+                **kw)
+            try:
+                out[pool] = {"load": rec,
+                             **_recorder_gates(f"recorder {pool}", base, ms)}
+                out["flash_launches"][path] = rec["flash_launches"]
+                split[f"recorder {pool}"] = time.perf_counter() - t0
+                if pool == "fixed-lane":
+                    t0 = time.perf_counter()
+                    out["manual"] = _manual_window(
+                        f"{pool}", base, ms, bodies[:1])
+                    split["manual window"] = time.perf_counter() - t0
+                    # The recorder's cost and the continuous side of
+                    # the batching A/B: the same load on this server,
+                    # warm, with its recorder detached (the disabled
+                    # state), after the recorder's own run; then the
+                    # merge load.
+                    t0 = time.perf_counter()
+                    recorder = ms.engine.recorder
+                    recorder.close()
+                    ms.engine.recorder = None
+                    try:
+                        modes = {"continuous": {
+                            "mixed": _mode_stats(base, ms, "mixed", bodies),
+                            "merge": _mode_stats(base, ms, "merge",
+                                                 merge)}}
+                    finally:
+                        ms.engine.recorder = recorder
+                    on = rec["tok_per_s"]
+                    off = modes["continuous"]["mixed"]["tok_per_s"]
+                    out["cost"] = {"on": on, "off": off}
+                    print(f"[profile] recorder cost, mixed fixed-lane load"
+                          f" on one server, recorder attached then "
+                          f"detached: {on:.1f} / {off:.1f} tok/s = "
+                          f"{on / off:.4f} (reported, not gated)")
+                    split["recorder off + continuous A/B"] = \
+                        time.perf_counter() - t0
+            finally:
+                _stop(srv, ms)
+            _release()
+        # float32: greedy tokens with the recorder on == off; the
+        # coalescer and off == solo generate.
+        t0 = time.perf_counter()
+        p_len = 200
+        greedy = [{"prompt": rng.randint(0, model.cfg.vocab_size,
+                                         p_len).tolist(),
+                   "max_new_tokens": 12 + i} for i in range(8)]
+        solo = _solo_rows(model_f32, greedy)
+        runs = {}
+        # The recorder on and off: one server, its engine's recorder
+        # attached for one run and detached for the other.
+        srv, ms, base = _serve(model_f32, name, decode_window=2,
+                               profile_dir=os.path.join(prof_root, "f32"),
+                               profile_every=2, profile_steps=2)
+        try:
+            recorder = ms.engine.recorder
+            for label in ("recorder on", "recorder off"):
+                recorder.close()
+                ms.engine.recorder = recorder if label == "recorder on" \
+                    else None
+                _, res = _load_clients(base, greedy, 8)
+                runs[label] = [r[1]["new_tokens"] for r in res]
+            ms.engine.recorder = recorder
+            if recorder.report()["windows_analyzed"] < 1:
+                raise AssertionError(f"float32 recorder: no window "
+                                     f"analyzed {recorder.report()}")
+        finally:
+            _stop(srv, ms)
+        for mode in ("coalesce", "off"):
+            srv, ms, base = _serve(model_f32, name, batching=mode)
+            try:
+                _, res = _load_clients(base, greedy, 8)
+                runs[mode] = [r[1]["new_tokens"] for r in res]
+                info = ms.info()
+            finally:
+                _stop(srv, ms)
+            if mode == "coalesce" and info["coalesced_batches"] < 1:
+                raise AssertionError(f"coalesce: no merged batch {info}")
+            print(f"[coalesce] float32 {mode}: 8 greedy requests of "
+                  f"{p_len} prompt tokens, 12-19 new, from 8 clients; "
+                  f"coalesced batches {info['coalesced_batches']} "
+                  f"({info['coalesced_requests']} requests), requests "
+                  f"{info['requests']}")
+        ties = _same_tokens(model_f32, "profile", greedy,
+                            runs["recorder off"], runs["recorder on"])
+        for mode in ("coalesce", "off", "recorder off"):
+            ties += _same_tokens(model_f32, "coalesce", greedy, solo,
+                                 runs[mode])
+        print(f"[coalesce] float32 tokens: recorder on == off, coalesce =="
+              f" off == continuous == solo generate ({ties} ties by the "
+              f"rule)")
+        out["f32_ties"] = ties
+        split["float32 checks"] = time.perf_counter() - t0
+        _release()
+        # bf16: the A/B the reference keeps the coalescer for, on the
+        # mixed load (distinct prompt lengths, half sampled: nothing
+        # merges) and on the merge load (one shape, all greedy).
+        t0 = time.perf_counter()
+        out["modes"] = {**modes, **{
+            mode: _mode_load(model, mode, {"mixed": bodies, "merge": merge})
+            for mode in ("coalesce", "off")}}
+        if out["modes"]["coalesce"]["merge"]["coalesced_batches"] < 1:
+            raise AssertionError(f"bf16 coalesce: the merge load merged "
+                                 f"nothing {out['modes']['coalesce']}")
+        out["flash_launches"]["coalesce_http"] = {
+            k: sum(out["modes"]["coalesce"][load]["flash_launches"][k]
+                   for load in ("mixed", "merge")) for k in KERNELS}
+        split["batching modes"] = time.perf_counter() - t0
+        _release()
+    finally:
+        shutil.rmtree(prof_root, ignore_errors=True)
+    for path, counts in out["flash_launches"].items():
+        if any(counts.values()):
+            raise AssertionError(f"{path}: flash launches {counts} "
+                                 f"(serving reaches no flash kernel)")
+    print(f"[time] profiling: " + ", ".join(f"{k} {v:.1f} s"
+                                            for k, v in split.items()))
+    return out
+
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 EXAMPLES = os.path.join(ROOT, "polyaxon_tpu_torch", "examples")
 # The status sequence the local executor records for a job that succeeds.
@@ -4146,10 +4550,14 @@ def _run_job(env, store, train_secs):
 
 
 def _run_sweep(env, store, home):
-    """The ``hyperband`` matrix: 6 GPT-2 medium trials (batch 2 x 256 of a
-    seeded token stream), two at a time, scheduled as the port's ``tune``
-    schedules them for the sweep's seed: the same configs and steps, and
-    the promoted trial the one of lowest rung-0 loss."""
+    """The ``hyperband`` matrix: 6 trials (batch 2 x 256 of a seeded token
+    stream; ``-P model=gpt2-small``, for the script's time:
+    a trial's 4.26 GB GPT-2 medium checkpoint took 7-9 s to write),
+    three at a time (a ``--preset`` of ``matrix.concurrency``, for the
+    script's time: each rung then runs in one wave), scheduled as the
+    port's ``tune`` schedules them for the sweep's seed: the same
+    configs and steps, and the promoted trial the one of lowest rung-0
+    loss."""
     from polyaxon_tpu_torch.lifecycle import V1Statuses
     from polyaxon_tpu_torch.polyaxonfile import check_polyaxonfile
     from polyaxon_tpu_torch.tune import HyperbandManager
@@ -4159,9 +4567,13 @@ def _run_sweep(env, store, home):
     np.save(os.path.join(data, "tokens.npy"), np.random.RandomState(0)
             .randint(0, 50257, 2 * 256 * 32).astype(np.int32))
     path = os.path.join(EXAMPLES, "hyperband.yaml")
+    preset = os.path.join(home, "concurrency.json")
+    with open(preset, "w") as f:  # JSON is YAML
+        json.dump({"isPreset": True, "matrix": {"concurrency": 3}}, f)
     rc, out, wall = _ptpu(env, "run", "-f", path, "-P",
                           f"data_dir={data}", "-P", "batch_size=2", "-P",
-                          "seq_len=256", "--no-watch")
+                          "seq_len=256", "-P", "model=gpt2-small",
+                          "--preset", preset, "--no-watch")
     sweep = store.get_run(_uuid_of(out))
     trials = store.list_runs(pipeline=sweep["uuid"], sort="created_at")
     bad = [(t["name"], t["status"]) for t in trials
@@ -4202,9 +4614,9 @@ def _run_sweep(env, store, home):
     if sweep["outputs"].get("best_run") != best["uuid"]:
         raise AssertionError(f"best_run {sweep['outputs'].get('best_run')}"
                              f" != argmin outputs.loss {best['uuid']}")
-    print(f"[run] hyperband.yaml: {sweep['status']}, 6 trials succeeded, "
-          f"`run` wall {wall:.1f} s; trials == the port's hyperband "
-          f"schedule for seed {matrix.seed}; best_run == argmin "
+    print(f"[run] hyperband.yaml: {sweep['status']}, 6 trials succeeded "
+          f"(3 at a time), `run` wall {wall:.1f} s; trials == the port's "
+          f"hyperband schedule for seed {matrix.seed}; best_run == argmin "
           f"outputs.loss ({losses[best['uuid']]:.4f}, lr "
           f"{best['inputs']['lr']:.3g})")
     for t in trials:
@@ -4431,6 +4843,8 @@ def main(argv=None) -> int:
     mark("int8 weights and int8 KV")
     fleet = phase_fleet(model, model_f32)
     mark("fleet tier")
+    profiling = phase_profiling(model, model_f32)
+    mark("flight recorder and legacy coalescing")
     del model, model_f32
     _release()
     train_counts, train_secs = phase_train_entry()
@@ -4517,7 +4931,9 @@ def main(argv=None) -> int:
                 "int8_http_paged": int8["flash_launches"]["http"][name],
                 "ring_engine": ring["flash_launches"][name],
                 **{k: v[name] for k, v in
-                   fleet["flash_launches"].items()}},
+                   fleet["flash_launches"].items()},
+                **{k: v[name] for k, v in
+                   profiling["flash_launches"].items()}},
             **rec, "kernel_ms": rec["ms"]})
     print(f"[llama] decode step ms (bf16, 8 slots, W=8 replay): "
           + ", ".join(f"{k} {v:.3f}" for k, v in llama_step_ms.items())

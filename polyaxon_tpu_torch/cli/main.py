@@ -20,8 +20,11 @@ pool, with the prefix cache behind ``POST /prefill``, the engine
 supervisor, ``--fault-plan`` and, with ``--draft-model``, speculative
 requests in the engine's spec slots; with ``--kv-host-spill-bytes``
 the prefix store's host spill tier, with ``--prefix-fetch`` the fleet
-wire-fetch client, and ``--role prefill|decode`` for a disaggregated
-fleet), and its ``route`` command (the replica router in front of
+wire-fetch client, ``--role prefill|decode`` for a disaggregated
+fleet, ``--batching coalesce|off`` for the legacy baselines,
+``--profile-dir`` / ``--profile-every`` for ``POST /profile/*`` and the
+flight recorder, and ``--trace-file`` for the shutdown span dump), and
+its ``route`` command (the replica router in front of
 ``serve`` replicas).  Both serve random-init weights
 from seed 0, or the float32 master weights of a training checkpoint
 (``--checkpoint DIR``) cast to the model's serving dtype, with the
@@ -29,8 +32,8 @@ serving options: ``--int8-weights`` (quantized after loading, the draft
 too), ``--int8-kv`` and, for a sliding-window model, ``--kv-ring``
 (``serve --kv-ring-slack``; ``generate`` gives a ring ``spec_k - 1``
 spare slots with ``--draft-model``).  ``serve`` carries every flag of
-the reference's; those whose feature is not ported yet are kept at
-their defaults and refused by name with their ROADMAP item, so a user
+the reference's; ``--mesh``, whose feature is not ported yet, is kept
+at its default and refused by name with its ROADMAP item, so a user
 learns what is missing rather than getting a different server.
 """
 
@@ -354,14 +357,8 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
 # Flags of the reference's `serve` for features that come with later
 # slices, kept at the reference's defaults and refused by name when
 # set: (option, default, ROADMAP item).
-_PROFILE = "ProfileSession on torch.profiler"
 _SERVE_NOT_PORTED = (
-    ("--batching", "continuous", "legacy coalescing"),
     ("--mesh", None, "parallelism and meshes"),
-    ("--trace-file", None, _PROFILE),
-    ("--profile-dir", None, _PROFILE),
-    ("--profile-every", 0, _PROFILE),
-    ("--profile-steps", 8, _PROFILE),
 )
 
 
@@ -449,8 +446,11 @@ _SERVE_NOT_PORTED = (
               help="Most prompt rows one /generate may carry.")
 @click.option("--batching", default="continuous",
               type=click.Choice(["continuous", "coalesce", "off"]),
-              help="Batching policy: continuous (the slot engine; "
-                   "coalesce and off are not ported yet).")
+              help="Batching policy: continuous (the slot engine), "
+                   "coalesce (the legacy whole-request coalescer: plain "
+                   "greedy requests of one prompt length merge into one "
+                   "batch) or off (every request decodes alone) — the "
+                   "engine's measured A/B baselines.")
 @click.option("--mesh", "mesh_arg", default=None,
               help="Serve over a device mesh (not ported yet; refused "
                    "when set).")
@@ -484,17 +484,22 @@ _SERVE_NOT_PORTED = (
                    "/trace). 0 disables span recording; /metrics "
                    "histograms stay live.")
 @click.option("--trace-file", default=None, type=click.Path(),
-              help="Dump the telemetry ring as JSONL at shutdown (not "
-                   "ported yet; refused when set).")
+              help="Dump the telemetry ring to this JSONL file on "
+                   "shutdown (one trace event per line).")
 @click.option("--profile-dir", default=None, type=click.Path(),
-              help="POST /profile/start|stop traces (not ported yet; "
-                   "refused when set).")
+              help="Enable POST /profile/start|stop: torch.profiler "
+                   "traces land in timestamped subdirs here (omit to "
+                   "keep the endpoints disabled).")
 @click.option("--profile-every", default=0, type=int,
-              help="The flight recorder's period in decode dispatches "
-                   "(not ported yet; refused when set).")
+              help="FLIGHT RECORDER (needs --profile-dir): every N "
+                   "decode dispatches, profile --profile-steps of them, "
+                   "attribute the card's kernels, copies and memsets, "
+                   "and publish collective/host-gap/device-busy shares "
+                   "+ serving MFU as /metrics gauges and GET "
+                   "/profile/report. 0 (default) disables.")
 @click.option("--profile-steps", default=8, type=int,
-              help="Dispatches per flight-recorder window (not ported "
-                   "yet; refused when changed).")
+              help="With --profile-every: decode dispatches per "
+                   "recorder window.")
 @click.option("--sanitize", is_flag=True, default=False,
               help="Wrap the serving locks in the lock-order sanitizer "
                    "(raises on lock-order inversion, reports in /info). "
@@ -586,7 +591,11 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
     engine crash restarts with token-identical resume (--no-supervise
     turns it off; --fault-plan injects faults).  --draft-model enables
     {"speculative": true} requests (the engine's spec slots, --spec-k
-    the default and cap); {"num_beams": B} decodes solo.  Random-init
+    the default and cap); {"num_beams": B} decodes solo.  --batching
+    coalesce|off serves the legacy baselines without the engine;
+    --profile-dir enables POST /profile/start|stop and, with
+    --profile-every, the flight recorder (GET /profile/report);
+    --trace-file dumps the span ring at shutdown.  Random-init
     weights from seed 0, or --checkpoint DIR."""
     # Flag validation before the model build (fail fast).
     for name, v in (("--n-slots", n_slots), ("--queue-depth", queue_depth),
@@ -605,6 +614,18 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
             raise click.ClickException(f"{name} must be >= 1")
     if trace_buffer < 0:
         raise click.ClickException("--trace-buffer must be >= 0")
+    if profile_every < 0:
+        raise click.ClickException("--profile-every must be >= 0")
+    if profile_steps < 1:
+        raise click.ClickException("--profile-steps must be >= 1")
+    if profile_every and not profile_dir:
+        raise click.ClickException(
+            "--profile-every needs --profile-dir (the flight "
+            "recorder writes torch.profiler windows there)")
+    if profile_every and batching != "continuous":
+        raise click.ClickException(
+            "--profile-every requires --batching continuous (the "
+            "flight recorder windows decode-step boundaries)")
     if exemplar_k < 0:
         raise click.ClickException("--exemplar-k must be >= 0")
     if sanitize_max_hold is not None and not sanitize:
@@ -634,11 +655,7 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
         raise click.ClickException("--request-history must be >= 0")
     if max_batch < 1:
         raise click.ClickException("--max-batch must be >= 1")
-    _refuse_not_ported(_SERVE_NOT_PORTED, {
-        "--batching": batching, "--mesh": mesh_arg,
-        "--trace-file": trace_file, "--profile-dir": profile_dir,
-        "--profile-every": profile_every,
-        "--profile-steps": profile_steps})
+    _refuse_not_ported(_SERVE_NOT_PORTED, {"--mesh": mesh_arg})
     _check_spec_flags(draft_model, draft_checkpoint, spec_k)
     # Paged-KV flag validation: fail fast, before the model build.
     if kv_page_tokens < 8:
@@ -650,6 +667,10 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
             "--kv-paged needs a plain/int8 max_position cache; it "
             "cannot combine with --kv-ring (the ring is already "
             "O(window))")
+    if kv_paged and batching != "continuous":
+        raise click.ClickException(
+            "--kv-paged requires --batching continuous (paging is "
+            "the engine's slot storage)")
     if kv_lazy and not kv_paged:
         raise click.ClickException(
             "--kv-lazy requires --kv-paged (lazy growth is a page-"
@@ -694,7 +715,7 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
         raise click.ClickException(str(e))
     try:
         ms = ModelServer(model, model_name=model_name, n_slots=n_slots,
-                         max_batch=max_batch,
+                         max_batch=max_batch, batching=batching,
                          queue_depth=queue_depth, prefill_chunk=prefill_chunk,
                          decode_window=decode_window,
                          request_timeout_s=request_timeout,
@@ -719,7 +740,10 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
                          if batch_queue_deadline_ms is not None else None,
                          slo_ttft_s=slo_ttft_ms / 1e3
                          if slo_ttft_ms is not None else None,
-                         trace_buffer=trace_buffer, sanitize=sanitize,
+                         trace_buffer=trace_buffer,
+                         profile_dir=profile_dir,
+                         profile_every=profile_every,
+                         profile_steps=profile_steps, sanitize=sanitize,
                          sanitize_max_hold_s=sanitize_max_hold,
                          sanitize_report=sanitize_report,
                          stall_timeout_s=stall_timeout, stall_dir=stall_dir,
@@ -743,6 +767,15 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
     finally:
         srv.server_close()
         ms.close()
+        if trace_file:
+            # The shutdown span dump, through the tracking stack's
+            # async writer — the offline twin of GET /trace.
+            from polyaxon_tpu_torch.serving.telemetry import \
+                dump_spans_jsonl
+
+            n = dump_spans_jsonl(ms.telemetry, trace_file)
+            click.echo(f"wrote {n} trace events to {trace_file}",
+                       err=True)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from .. import prng
-from .kv_cache import KVCache
+from .kv_cache import KVCache, kv_cache_dims
 
 NEG = -1e30
 M32 = 0xFFFFFFFF
@@ -40,8 +40,8 @@ def _is_ring(model) -> bool:
 
 def init_cache(model, batch_size: int) -> KVCache:
     """A zeroed decode cache for a decoder-only ``model``:
-    [layers, B, cap, num_kv_heads, D] (GPT-2's ``num_kv_heads`` is its
-    ``num_heads``), index 0.  ``cap`` is ``max_position``, or for a ring
+    [layers, B, cap, kv_heads, D] (``kv_cache_dims``: GPT-2 caches all
+    its ``num_heads``), index 0.  ``cap`` is ``max_position``, or for a ring
     model (``kv_cache_ring``) ``sliding_window + 1 +
     kv_cache_ring_slack``, the capacity the reference's one-token
     ``init_cache`` trace creates.  The entries are in the model's dtype,
@@ -54,8 +54,7 @@ def init_cache(model, batch_size: int) -> KVCache:
     ring = _is_ring(model)
     cap = cfg.sliding_window + 1 + cfg.kv_cache_ring_slack if ring \
         else cfg.max_position
-    shape = (cfg.num_layers, batch_size, cap, cfg.num_kv_heads,
-             cfg.head_dim)
+    shape = (cfg.num_layers, batch_size, cap, *kv_cache_dims(cfg))
     dev = model.device
     int8 = bool(getattr(cfg, "kv_cache_int8", False))
     dt = torch.int8 if int8 else cfg.dtype

@@ -60,15 +60,6 @@ class GPT2Config:
     def intermediate_size(self) -> int:
         return 4 * self.hidden_size
 
-    @property
-    def num_kv_heads(self) -> int:
-        # Full multi-head attention: the cache holds every head.
-        return self.num_heads
-
-    @property
-    def head_dim(self) -> int:
-        return self.hidden_size // self.num_heads
-
     @staticmethod
     def medium() -> "GPT2Config":
         return GPT2Config()  # 1024h/24L/16H == gpt2-medium (~355M)
@@ -121,7 +112,8 @@ class GPT2Block(nn.Module):
         h = self.ln1(x.float()).to(cfg.dtype)
         qkv = self.qkv(h)
         q, k, v = qkv.split(cfg.hidden_size, dim=-1)
-        shape = h.shape[:-1] + (cfg.num_heads, cfg.head_dim)
+        shape = h.shape[:-1] + (cfg.num_heads,
+                                cfg.hidden_size // cfg.num_heads)
         q, k, v = (t.reshape(shape) for t in (q, k, v))
         mask = None
         if cache is not None:

@@ -34,6 +34,16 @@ import torch
 from ..ops.quant import symmetric_int8
 
 
+def kv_cache_dims(cfg) -> tuple:
+    """(KV heads, head width) of a decoder config's cache: a
+    grouped-query config's own ``num_kv_heads`` and ``head_dim``; GPT-2
+    (full multi-head attention, whose config has neither field, as the
+    reference's) caches every head, ``hidden_size // num_heads`` wide."""
+    heads = getattr(cfg, "num_kv_heads", None) or cfg.num_heads
+    dim = getattr(cfg, "head_dim", None) or cfg.hidden_size // cfg.num_heads
+    return heads, dim
+
+
 def quantize_chunk(x: torch.Tensor):
     """Per-(token, head) symmetric int8 over the feature axis:
     [B, S, H, D] -> (int8 [B, S, H, D], bf16 scale [B, S, H, 1])."""

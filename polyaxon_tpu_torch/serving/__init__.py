@@ -1,10 +1,11 @@
 """Serving package of the port: the decode stack behind HTTP.
 
-Port of ``polyaxon_tpu/serving`` as far as the continuous-batching
-server and its fleet go (greedy, sampled, speculative and beam
-requests, both KV pools with plain, int8 or ring caches, the prefix
-cache with its host spill tier and wire lanes, fault containment, the
-replica router with disaggregated prefill/decode roles):
+Port of ``polyaxon_tpu/serving`` on one device (greedy, sampled,
+speculative and beam requests, both KV pools with plain, int8 or ring
+caches, the prefix cache with its host spill tier and wire lanes,
+fault containment, the replica router with disaggregated
+prefill/decode roles, the flight recorder, and the legacy coalescing
+baselines):
 
 - ``server.py``    — ModelServer (validation, metrics, drain, the prefix
   store behind ``POST /prefill``) + the stdlib HTTP front-end with
@@ -21,8 +22,17 @@ replica router with disaggregated prefill/decode roles):
 - ``radix.py``     — the prefix cache's radix index (a copy).
 - ``scheduler.py`` — admission queue, scheduler policy knobs, request
   and stream state (a copy of the reference's).
-- ``telemetry.py`` — trace-span ring, ``GET /trace``, latency
-  histograms.
+- ``legacy.py``    — the seed request-coalescing path, kept as the
+  measured A/B baseline (``batching="coalesce"``; ``"off"``
+  serializes).
+- ``profiling.py`` — the FLIGHT RECORDER (``--profile-every``):
+  periodic single-flight ``torch.profiler`` windows over decode-step
+  boundaries, attributed (analysis/xprof.py) into collective /
+  transfer / host-gap / device-busy shares + a serving-MFU estimate,
+  published as /metrics gauges and ``GET /profile/report``.
+- ``telemetry.py`` — trace-span ring (+ ``GET /trace``), latency
+  histograms, and the single-flight ``torch.profiler`` wrapper behind
+  ``POST /profile/start|stop``.
 - ``debug.py``     — request IDs, the request-history ring, the
   ``/debug/state`` snapshot board, the stall watchdog.
 - ``forensics.py`` — per-request phase ledgers and the anomaly sentry.
@@ -34,13 +44,13 @@ replica router with disaggregated prefill/decode roles):
   restarts with the drain handoff, the two-stage disaggregated
   prefill/decode schedule and the ``/fleet/*`` views.
 
-The profiler and flight recorder, legacy coalescing and meshes are
-later slices (ROADMAP Queue 1).
+Meshes are a later slice (ROADMAP Queue 1).
 """
 
 from .debug import RequestHistory, StallWatchdog, new_request_id
 from .engine import DecodeEngine
 from .faults import FaultPlan
+from .legacy import RequestCoalescer
 from .paged import PagedSlotKVManager
 from .radix import RadixPrefixIndex
 from .recovery import CircuitBreaker, EngineSupervisor, RetryPolicy
@@ -49,10 +59,12 @@ from .router import (LocalReplica, Replica, ReplicaRouter, RetryBudget,
 from .scheduler import (DeadlineExceeded, PRIORITIES, PoisonedRequest,
                         QueueFullError, RequestCancelled, SamplingSpec,
                         SchedulerPolicy, ShedError)
-from .server import (FairLock, ModelServer, PrefixFetchPolicy,
-                     make_server)
+from .profiling import FlightRecorder
+from .server import (BATCHING_MODES, FairLock, ModelServer,
+                     PrefixFetchPolicy, make_server)
 from .slots import STEP_MARKER, SlotKVManager
-from .telemetry import Histogram, Telemetry, render_histogram
+from .telemetry import (Histogram, ProfileSession, Telemetry,
+                        render_histogram)
 
 __all__ = ["ModelServer", "PrefixFetchPolicy", "make_server",
            "FairLock", "DecodeEngine",
@@ -64,5 +76,7 @@ __all__ = ["ModelServer", "PrefixFetchPolicy", "make_server",
            "FaultPlan", "PoisonedRequest", "RadixPrefixIndex",
            "ReplicaRouter", "Replica", "LocalReplica",
            "RetryBudget", "SLOTracker", "make_router_server",
-           "Telemetry", "Histogram", "render_histogram",
+           "Telemetry", "Histogram", "ProfileSession",
+           "render_histogram", "FlightRecorder", "RequestCoalescer",
+           "BATCHING_MODES",
            "RequestHistory", "StallWatchdog", "new_request_id"]

@@ -269,6 +269,14 @@ class DecodeEngine:
         self.step_device_s_total = 0.0
         self.step_wall_s_total = 0.0
         self.telemetry_errors_total = 0
+        # Flight recorder (serving/profiling.py): set by the owning
+        # server when --profile-every is armed.  None (the default)
+        # keeps the decode loop's cost at one attribute check per
+        # dispatch.
+        self.recorder = None
+        # Calls other threads hand to the loop thread (run_on_loop):
+        # torch.profiler records the ops of the thread that starts it.
+        self._loop_calls: "deque" = deque()
         # Request-scoped debuggability (serving/debug.py): the history
         # ring (wired by the server), the forensics core, and the
         # published step-boundary snapshot behind GET /debug/state.
@@ -604,8 +612,58 @@ class DecodeEngine:
             stream.group.fail(err)
             self._record_history(stream.group)
 
+    def run_on_loop(self, fn, timeout: float = 30.0):
+        """Run ``fn`` on the engine's loop thread, under the device
+        lock, and return its result (raise its exception): the loop
+        takes it at the top of its next iteration, idle or not.  On
+        the loop thread itself, or with no live loop thread (a
+        tick()-driven engine, a closed one), it runs here; an
+        autostarting engine starts its loop first.  A call the
+        loop has not picked up within ``timeout`` is withdrawn and
+        raises ``TimeoutError``."""
+        if self.autostart and not self._stop:
+            self._ensure_thread()
+        t = self._thread
+        if t is None or not t.is_alive() or self._stop \
+                or threading.current_thread() is t:
+            with self.device_lock:
+                return fn()
+        item = {"fn": fn, "done": threading.Event(), "state": "queued"}
+        with self._wake:
+            self._loop_calls.append(item)
+            self._wake.notify()
+        if not item["done"].wait(timeout):
+            with self._wake:
+                if item["state"] == "queued":
+                    item["state"] = "withdrawn"
+                    raise TimeoutError(
+                        f"the engine loop did not take the call within "
+                        f"{timeout}s")
+            item["done"].wait()
+        if "error" in item:
+            raise item["error"]
+        return item.get("result")
+
+    def _run_loop_calls(self) -> None:
+        """Run every call handed over by ``run_on_loop`` (loop thread)."""
+        while self._loop_calls:
+            with self._wake:
+                if not self._loop_calls:
+                    return
+                item = self._loop_calls.popleft()
+                if item["state"] != "queued":
+                    continue
+                item["state"] = "running"
+            try:
+                with self.device_lock:
+                    item["result"] = item["fn"]()
+            except BaseException as e:
+                item["error"] = e
+            item["done"].set()
+
     def _loop(self) -> None:
         while not self._stop:
+            self._run_loop_calls()
             try:
                 if self.faults is not None:
                     # Injected whole-engine death: raised HERE, past
@@ -633,7 +691,9 @@ class DecodeEngine:
                 with self._wake:
                     if self._stop:
                         break
-                    self._wake.wait(timeout=0.05)
+                    if not self._loop_calls:
+                        self._wake.wait(timeout=0.05)
+        self._run_loop_calls()
         self._fail_all(RuntimeError("decode engine closed"))
 
     def _restart_loop(self) -> bool:
@@ -937,6 +997,16 @@ class DecodeEngine:
                             by=head.group.rid, reason=reason,
                             head_waited_ms=round(1e3 * waited, 3))
         return True
+
+    def mean_resident_position(self) -> float:
+        """Mean absolute decode position over resident slots (0.0 when
+        the pool is empty) — the flight recorder's context-length input
+        to the per-token attention-flop term.  Engine thread only (it
+        reads the host positions the tick mutates)."""
+        if not self._resident:
+            return 0.0
+        return float(np.mean([self.slots.positions[s]
+                              for s in self._resident]))
 
     def run_until_idle(self, max_ticks: int = 100000) -> None:
         """Drain queue + slots synchronously (tests/offline use)."""
@@ -1460,6 +1530,8 @@ class DecodeEngine:
             # Exhaustion preemptions consumed this boundary.
             return
         occupancy = len(self._resident)
+        if self.recorder is not None:
+            self.recorder.on_step_start()
         t0 = time.perf_counter()
 
         def dispatch():
@@ -1470,6 +1542,8 @@ class DecodeEngine:
         if toks_w is None:
             # Containment resolved the boundary by changing the
             # resident set instead of producing tokens: re-plan.
+            if self.recorder is not None:
+                self.recorder.on_step_end(0)
             return
         t1 = time.perf_counter()
         self.decode_steps_total += window
@@ -1490,6 +1564,8 @@ class DecodeEngine:
                 stream.slot = None
         self.step_device_s_total += self.slots.last_step_device_s
         self.step_wall_s_total += t1 - t0
+        if self.recorder is not None:
+            self.recorder.on_step_end(emitted)
         self.tel.step("step", t0, t1,
                       kind="sampled" if sampled else "plain",
                       window=window, occupancy=occupancy,
@@ -1513,6 +1589,8 @@ class DecodeEngine:
             # last committed token: grow (or preempt) for all of it.
             return
         occupancy = len(self._resident)
+        if self.recorder is not None:
+            self.recorder.on_step_start()
         t0 = time.perf_counter()
 
         def dispatch():
@@ -1521,6 +1599,8 @@ class DecodeEngine:
 
         out = self._dispatch_step(dispatch)
         if out is None:
+            if self.recorder is not None:
+                self.recorder.on_step_end(0)
             return
         toks, commits, accepts = out
         t1 = time.perf_counter()
@@ -1555,6 +1635,8 @@ class DecodeEngine:
                 stream.slot = None
         self.step_device_s_total += self.slots.last_step_device_s
         self.step_wall_s_total += t1 - t0
+        if self.recorder is not None:
+            self.recorder.on_step_end(emitted)
         self.tel.step("step", t0, t1, kind="spec", window=window, k=K,
                       occupancy=occupancy, batch=self.slots.n_slots,
                       tokens=emitted, accepted=accepted,

@@ -1,11 +1,18 @@
 """Model server: the port's decode stack behind HTTP.
 
-Port of ``polyaxon_tpu/serving/server.py`` with ``batching=
-"continuous"``: every request, greedy or sampled, becomes per-row
-decode streams through the continuous-batching engine (engine.py) over
-the fixed-lane slot pool (slots.py) or, with ``kv_paged``, the paged
-pool (paged.py), and the front-end sheds load with 429 + Retry-After
-once the bounded admission queue fills.  One process, stdlib HTTP.
+Port of ``polyaxon_tpu/serving/server.py``.  With ``batching=
+"continuous"`` (the default) every request, greedy or sampled, becomes
+per-row decode streams through the continuous-batching engine
+(engine.py) over the fixed-lane slot pool (slots.py) or, with
+``kv_paged``, the paged pool (paged.py), and the front-end sheds load
+with 429 + Retry-After once the bounded admission queue fills.
+``batching="coalesce"`` selects the legacy whole-request coalescer
+(legacy.py: plain greedy requests of one prompt length merge into one
+solo ``generate`` batch; every other request decodes solo) and
+``batching="off"`` serializes every request on the solo programs —
+the measured A/B baselines of the engine; neither has an engine, so
+``kv_paged``, ``profile_every`` and ``stall_timeout_s`` need
+``continuous``.  One process, stdlib HTTP.
 The model may hold int8 weights (``ops/quant.py``) and an int8 or ring
 KV cache (its config): a ring model's requests skip the
 ``max_position`` budget (its sessions stream past it), and a
@@ -53,6 +60,9 @@ Endpoints:
 - ``POST /prefill``  -> ``{"prompt": ..., "prefill_chunk": C}``:
   register a prefix -> ``{"cached_rows", "cached_len", "entries"}``
 - ``POST /drain``    -> stop admission, finish in-flight work
+- ``POST /profile/start|stop`` -> the single-flight torch.profiler trace
+  into ``profile_dir`` (400 without one, 409 on a conflict)
+- ``GET  /profile/report`` -> the flight recorder's latest records
 
 ``temperature > 0`` samples under the position-keyed contract (row r's
 i-th token draws with ``fold_in(fold_in(PRNGKey(seed), r), i)``), so a
@@ -68,9 +78,17 @@ of ``max_position``, decodes on the SOLO path instead (counted and
 reported under ``/info`` ``solo_fallbacks``), as does every
 ``num_beams > 1`` request (``generate_beam``): solo programs hold the
 device lock for their whole decode.  A request for what the port does
-not serve yet — ``POST /profile/*``, ``GET /profile/report`` — gets a
-501 naming the missing feature, never another route's answer.
-Validation errors are the reference's 400s.
+not serve gets a 501 naming the missing feature, never another
+route's answer.  Validation errors are the reference's 400s.
+
+PROFILING: ``profile_dir`` enables ``POST /profile/start|stop``, a
+single-flight ``torch.profiler`` trace written under it (400 without
+it, 409 on a second start); ``profile_every`` N arms the FLIGHT
+RECORDER (profiling.py): every N decode dispatches it profiles
+``profile_steps`` of them, attributes the trace's kernels, memcpys and
+memsets (analysis/xprof.py) and publishes the shares — ``GET
+/profile/report``, ``/metrics`` gauges, the ``/info`` ``profiling``
+block.
 
 HOST TIER (``kv_host_spill_bytes`` > 0, paged only): page-pressure
 eviction SPILLS a stored prefix to host tensors (``spill_pages``)
@@ -131,7 +149,9 @@ from .scheduler import (DeadlineExceeded, PRIORITIES, PoisonedRequest,
                         QueueFullError, RequestCancelled, SamplingSpec,
                         SchedulerPolicy, ShedError)
 from .slots import sync_device
-from .telemetry import Telemetry, render_compile_cache, render_histogram
+from .legacy import RequestCoalescer
+from .telemetry import (ProfileSession, Telemetry, render_compile_cache,
+                        render_histogram)
 
 _span_dicts = events_to_dicts
 
@@ -140,6 +160,7 @@ _span_dicts = events_to_dicts
 # "decode" = full serving that admits handed-off prefills over the
 # wire-fetch lane.
 ROLES = ("prefill", "decode", "both")
+BATCHING_MODES = ("continuous", "coalesce", "off")
 
 
 def _nbytes(t) -> int:
@@ -390,7 +411,8 @@ class ModelServer:
     request-history ring."""
 
     def __init__(self, model, *, model_name: str = "model",
-                 max_batch: int = 8,
+                 max_batch: int = 8, batching: Optional[str] = None,
+                 coalesce: Optional[bool] = None,
                  n_slots: int = 8, queue_depth: int = 64,
                  prefill_chunk: Optional[int] = None,
                  decode_window: int = 8,
@@ -410,6 +432,9 @@ class ModelServer:
                  request_timeout_s: Optional[float] = 600.0,
                  prefix_cache: int = 4,
                  trace_buffer: int = 4096,
+                 profile_dir: Optional[str] = None,
+                 profile_every: int = 0,
+                 profile_steps: int = 8,
                  access_log: bool = False,
                  sanitize: bool = False,
                  sanitize_max_hold_s: Optional[float] = None,
@@ -427,6 +452,38 @@ class ModelServer:
                  supervise: bool = True,
                  draft_model=None, spec_k: int = 4,
                  info: Optional[Dict[str, Any]] = None):
+        # Batching policy: "continuous" (engine, default), "coalesce"
+        # (legacy baseline), "off" (serialize — the A/B floor).  The
+        # old boolean kwarg maps onto the modes it used to select.
+        if batching is None:
+            batching = ("coalesce" if coalesce else "off") \
+                if coalesce is not None else "continuous"
+        if batching not in BATCHING_MODES:
+            raise ValueError(f"batching must be one of "
+                             f"{BATCHING_MODES}; got {batching!r}")
+        if kv_paged and batching != "continuous":
+            # Paged KV is the engine's storage discipline — there is
+            # nothing to page in the coalesce/off solo paths.
+            raise ValueError(
+                "kv_paged requires the continuous-batching engine "
+                f"(batching={batching!r})")
+        if profile_every < 0:
+            raise ValueError(f"profile_every must be >= 0; got "
+                             f"{profile_every}")
+        if profile_every and not profile_dir:
+            raise ValueError(
+                "profile_every needs profile_dir (the flight "
+                "recorder writes torch.profiler windows there)")
+        if profile_every and batching != "continuous":
+            raise ValueError(
+                "profile_every requires the continuous-batching "
+                f"engine (batching={batching!r}) — the recorder "
+                "windows decode-step boundaries")
+        if stall_timeout_s is not None and batching != "continuous":
+            raise ValueError(
+                "stall_timeout_s requires the continuous-batching "
+                f"engine (batching={batching!r}) — the watchdog "
+                "monitors decode-step boundaries")
         if kv_lazy and not kv_paged:
             raise ValueError(
                 "kv_lazy requires kv_paged (lazy growth is a page-"
@@ -500,7 +557,7 @@ class ModelServer:
         self.kv_paged = bool(kv_paged)
         self.kv_lazy = bool(kv_lazy)
         self.model = model
-        self.batching = "continuous"
+        self.batching = batching
         self.model_name = model_name
         self.max_batch = int(max_batch)
         self.extra_info = info or {}
@@ -535,24 +592,32 @@ class ModelServer:
         self._lock = FairLock() if self.sanitizer is None \
             else self.sanitizer.wrap("device_lock", FairLock())
         self.requests = 0
-        self.engine = DecodeEngine(
-            model,
-            policy=SchedulerPolicy(
-                n_slots=n_slots, queue_depth=queue_depth,
-                prefill_chunk=prefill_chunk,
-                decode_window=decode_window,
-                default_priority=default_priority,
-                batch_queue_depth=batch_queue_depth,
-                queue_deadline_s=queue_deadline_s,
-                batch_queue_deadline_s=batch_queue_deadline_s,
-                slo_ttft_s=slo_ttft_s, kv_paged=kv_paged,
-                kv_page_tokens=kv_page_tokens, kv_pages=kv_pages,
-                kv_lazy=kv_lazy, spec_k_cap=self.spec_k_default),
-            device_lock=self._lock,
-            telemetry=self.telemetry,
-            sentinel=self.recompile,
-            draft_model=draft_model,
-            faults=self.faults)
+        # Continuous-batching engine; the coalesce/off baselines run
+        # without one (solo programs under the device lock).
+        self.engine: Optional[DecodeEngine] = None
+        if self.batching == "continuous":
+            self.engine = DecodeEngine(
+                model,
+                policy=SchedulerPolicy(
+                    n_slots=n_slots, queue_depth=queue_depth,
+                    prefill_chunk=prefill_chunk,
+                    decode_window=decode_window,
+                    default_priority=default_priority,
+                    batch_queue_depth=batch_queue_depth,
+                    queue_deadline_s=queue_deadline_s,
+                    batch_queue_deadline_s=batch_queue_deadline_s,
+                    slo_ttft_s=slo_ttft_s, kv_paged=kv_paged,
+                    kv_page_tokens=kv_page_tokens, kv_pages=kv_pages,
+                    kv_lazy=kv_lazy, spec_k_cap=self.spec_k_default),
+                device_lock=self._lock,
+                telemetry=self.telemetry,
+                sentinel=self.recompile,
+                draft_model=draft_model,
+                faults=self.faults)
+        self._coalescer = RequestCoalescer(self) \
+            if self.batching == "coalesce" else None
+        self.coalesced_batches = 0
+        self.coalesced_requests = 0
         # /metrics counters under _stats_lock — never the device lock.
         self._stats_lock = threading.Lock() if self.sanitizer is None \
             else self.sanitizer.wrap("_stats_lock")
@@ -618,7 +683,8 @@ class ModelServer:
             # when live traffic needs their pages.
             self.engine.page_reclaim = self._reclaim_prefix_pages
         self.history = RequestHistory(request_history)
-        self.engine.history = self.history
+        if self.engine is not None:
+            self.engine.history = self.history
         # Per-request phase ledgers behind the per-phase /metrics
         # families and the anomaly sentry (serving/forensics.py);
         # forensics=False removes the layer.
@@ -628,11 +694,12 @@ class ModelServer:
                 window=sentry_window,
                 baseline_windows=sentry_baseline_windows,
                 out_dir=forensics_dir,
-                snapshot_fn=lambda: self.engine.build_debug_snapshot(
-                    forced=True),
+                snapshot_fn=(lambda: self.engine.build_debug_snapshot(
+                    forced=True)) if self.engine is not None else None,
                 trace_tail_fn=lambda: self.telemetry.events()[-256:],
                 record_fn=self.history.get)
-            self.engine.forensics = self.forensics
+            if self.engine is not None:
+                self.engine.forensics = self.forensics
         # Stall watchdog (opt-in): a one-shot diagnostic bundle when
         # work exists but no step boundary completes.
         self.watchdog = None
@@ -647,9 +714,42 @@ class ModelServer:
         # for token-identical resume and restarts the loop over the
         # same pools; a crash storm opens the breaker.
         self.supervisor = None
-        if supervise:
+        if supervise and self.engine is not None:
             self.supervisor = EngineSupervisor(self.engine)
             self.supervisor.add_recovery_hook(self._on_engine_recovery)
+        # POST /profile/start|stop (single-flight torch.profiler
+        # wrap); None keeps the endpoints disabled — profiling writes
+        # traces to disk, so it is an explicit operator opt-in.  With
+        # an engine, profiler transitions run on its loop thread, the
+        # thread whose ops a trace must record.
+        self.profiler = ProfileSession(
+            profile_dir, runner=self.engine.run_on_loop
+            if self.engine is not None else None) \
+            if profile_dir else None
+        # FLIGHT RECORDER (serving/profiling.py), off by default.
+        self.recorder = None
+        if profile_every:
+            from .profiling import (FlightRecorder,
+                                    decode_flops_per_token,
+                                    detect_peak_flops)
+
+            cfg = getattr(model, "cfg", None)
+            peak = detect_peak_flops(model.device)
+            try:
+                # Primes the profiler: raises when it cannot start.
+                self.recorder = FlightRecorder(
+                    self.profiler, every=profile_every,
+                    steps=profile_steps, telemetry=self.telemetry,
+                    flops_fn=(lambda pos: decode_flops_per_token(
+                        cfg, pos)) if cfg is not None else None,
+                    peak_flops=peak["peak_flops"],
+                    peak_flops_source=peak["peak_flops_source"],
+                    n_devices=1,
+                    position_probe=self.engine.mean_resident_position)
+            except BaseException:
+                self.close()
+                raise
+            self.engine.recorder = self.recorder
 
     def close(self) -> None:
         """Stop the watchdog and the engine loop (with it the
@@ -659,7 +759,14 @@ class ModelServer:
         whenever the cycle collector runs.  Idempotent."""
         if self.watchdog is not None:
             self.watchdog.close()
-        self.engine.close()
+        # The recorder, then the profiler, BEFORE the engine: a trace
+        # started on the engine's loop thread is stopped there.
+        if self.recorder is not None:
+            self.recorder.close()
+        if self.profiler is not None:
+            self.profiler.close()
+        if self.engine is not None:
+            self.engine.close()
         if self.sanitizer is not None \
                 and self.sanitize_report is not None:
             with open(self.sanitize_report, "w",
@@ -668,7 +775,6 @@ class ModelServer:
                           sort_keys=True)
                 fh.write("\n")
         eng = self.engine
-        eng.page_reclaim = None
         if self.supervisor is not None:
             self.supervisor._recovery_hooks.clear()
             self.supervisor.engine = None
@@ -679,8 +785,11 @@ class ModelServer:
             sentry = self.forensics.sentry
             sentry.snapshot_fn = sentry.trace_tail_fn = None
             sentry.record_fn = None
-        eng._suspects.clear()
-        eng._exhaust_bars.clear()
+        if eng is not None:
+            eng.page_reclaim = None
+            eng.recorder = None
+            eng._suspects.clear()
+            eng._exhaust_bars.clear()
 
     # -- request lifecycle ----------------------------------------------
 
@@ -689,15 +798,16 @@ class ModelServer:
         ``draining``), let in-flight work finish, and turn /healthz
         readiness off.  Idempotent; returns the in-flight snapshot."""
         self.draining = True
-        self.engine.drain()
+        if self.engine is not None:
+            self.engine.drain()
         return self.drain_status()
 
     def drain_status(self) -> Dict[str, Any]:
-        es = self.engine.stats()
+        es = self.engine.stats() if self.engine is not None else {}
         return {"draining": self.draining,
                 "drain_rejected": self.drain_rejected,
-                "slots_active": es["slots_active"],
-                "queue_len": es["queue_len"]}
+                "slots_active": es.get("slots_active", 0),
+                "queue_len": es.get("queue_len", 0)}
 
     def debug_state(self) -> Dict[str, Any]:
         """``GET /debug/state``: the snapshot the engine published at
@@ -709,11 +819,12 @@ class ModelServer:
             "draining": self.draining,
             "history": self.history.stats(),
         }
-        snap = self.engine.debug_board.latest()
-        if snap is not None:
-            snap["age_s"] = round(max(0.0, now - snap["t"]), 3)
-            del snap["t"]
-        out["engine"] = snap
+        if self.engine is not None:
+            snap = self.engine.debug_board.latest()
+            if snap is not None:
+                snap["age_s"] = round(max(0.0, now - snap["t"]), 3)
+                del snap["t"]
+            out["engine"] = snap
         if self.watchdog is not None:
             out["watchdog"] = self.watchdog.status()
         if self.sanitizer is not None:
@@ -1019,7 +1130,7 @@ class ModelServer:
         device lock.  Paged entries are pinned under the prefix lock
         (an eviction cannot free them mid-flight) and returned with
         their pinned FULL-page ids (:class:`PrefixHit`)."""
-        mgr = self.engine.slots
+        mgr = self.engine.slots if self.kv_paged else None
         with self._prefix_lock:
             # The index keys int32 columns by their bytes.
             hit = self._prefix.lookup(np.asarray(toks, np.int32))
@@ -1070,11 +1181,11 @@ class ModelServer:
         what a cold pool is shaped from (``ensure_shaped``)."""
         import torch
 
-        from ..models.kv_cache import KVCache
+        from ..models.kv_cache import KVCache, kv_cache_dims
 
         cfg = self.model.cfg
-        shape = (cfg.num_layers, 1, cfg.max_position, cfg.num_kv_heads,
-                 cfg.head_dim)
+        shape = (cfg.num_layers, 1, cfg.max_position,
+                 *kv_cache_dims(cfg))
         int8 = bool(getattr(cfg, "kv_cache_int8", False))
         dt = torch.int8 if int8 else cfg.dtype
 
@@ -1277,7 +1388,7 @@ class ModelServer:
         toks = np.asarray(toks, np.int32)
         p_len = toks.shape[1]
         paged = self.kv_paged and toks.shape[0] == 1
-        mgr = self.engine.slots
+        mgr = self.engine.slots if self.kv_paged else None
         shared = ()
         pin_epoch = None
         with self._prefix_lock:
@@ -1934,6 +2045,10 @@ class ModelServer:
                 raise ValueError(
                     "resume_tokens cannot combine with beam search "
                     "(beam requests replay whole)")
+            if self.engine is None:
+                raise ValueError(
+                    "resume_tokens requires the continuous-batching "
+                    f"engine (batching={self.batching!r})")
             if len(rows) != 1:
                 raise ValueError(
                     "resume_tokens takes a single-row request")
@@ -1980,8 +2095,15 @@ class ModelServer:
         # Engine eligibility: every non-beam request; on a draft-capable
         # server a spec_k over the cap, or a budget within cap - 1 of
         # max_position (the pool's verify chunks are cap + 1 wide),
-        # decodes solo instead.
-        engine_ok = beams == 1
+        # decodes solo instead.  Engine-less modes decode solo (plain
+        # greedy requests through the coalescer under "coalesce").
+        engine_ok = self.engine is not None and beams == 1
+        if speculative and self.engine is None:
+            self._note_fallback(
+                "speculative",
+                f"batching={self.batching!r} has no decode engine; "
+                f"speculative requests hold the device lock for a "
+                f"whole solo decode")
         if engine_ok and self.draft_model is not None:
             cap = self.spec_k_default
             if speculative and spec_k > cap:
@@ -2020,8 +2142,9 @@ class ModelServer:
         # tokens ARE the state).
         prefix_hit = None
         fetch_events = None
-        if self._prefix_enabled and engine_ok and not speculative \
-                and not resume_tokens:
+        if self._prefix_enabled and beams == 1 and not speculative \
+                and not resume_tokens \
+                and (engine_ok or self.engine is None):
             prefix_hit = self._prefix_lookup_safe(toks)
             if prefix_hit is None and self.prefix_fetch \
                     and isinstance(req.get("prefix_hint"), dict):
@@ -2041,37 +2164,14 @@ class ModelServer:
             prefix_source = "local_spilled"
         else:
             prefix_source = "local_hot"
+        # The coalescer merges plain greedy requests ONLY — beam and
+        # speculative greedy requests keep their solo programs.
+        greedy = temp == 0.0 and beams == 1 and not speculative
         group = None
         solo_events = None
-        if not engine_ok:
-            from ..models import generate as G
-
-            if speculative:
-                kind = "spec_pos" if temp != 0.0 else "spec"
-                width = spec_k
-            elif beams > 1:
-                kind, width = "beam", beams
-            else:
-                kind = "sample_pos" \
-                    if G.positional_eligible(self.model, temp) \
-                    else "sample"
-                width = 1
-            key = (kind, len(rows), p_len, new, temp, top_k, top_p, eos,
-                   width, chunk)
-            out, breakdown = self._generate_solo(
-                key, toks, seed, deadline=t0 + deadline_s
-                if deadline_s is not None else None)
-            t_end = time.perf_counter()
-            solo_events = [("queue", t0, t0 + breakdown[0],
-                            {"kind": kind}),
-                           ("solo_decode", t0 + breakdown[0], t_end,
-                            {"kind": kind, "rows": len(rows)}),
-                           ("complete", t_end, t_end, {})]
-            tid = self.telemetry.new_tid()
-            self.telemetry.span(tid, "solo_decode", t0 + breakdown[0],
-                                t_end, rid=rid, kind=kind,
-                                rows=len(rows))
-        elif prefix_hit is not None and toks.shape[0] == 1:
+        breakdown = None
+        coalesced = False
+        if prefix_hit is not None and engine_ok and toks.shape[0] == 1:
             pc = prefix_hit.p_cached
             try:
                 group = self.engine.submit(
@@ -2107,7 +2207,7 @@ class ModelServer:
             tid = self.telemetry.new_tid()
             self.telemetry.span(tid, "prefix_solo", t0, t_end, rid=rid,
                                 rows=len(rows))
-        else:
+        elif engine_ok:
             # CONTINUOUS BATCHING: per-row decode streams through the
             # slot pool.  May raise QueueFullError -> 429, ShedError
             # -> 503.
@@ -2117,24 +2217,70 @@ class ModelServer:
                                        priority=priority,
                                        deadline_s=deadline_s, rid=rid,
                                        resume_tokens=resume_tokens)
+        elif greedy and self._coalescer is not None:
+            # The deadline is honored INSIDE the coalescer, at its one
+            # boundary (post-lock, pre-dispatch).  Its queue wait is its
+            # device-lock wait, folded into one opaque span.
+            out = self._coalescer.generate(
+                toks, p_len, new, eos, chunk, deadline=t0 + deadline_s
+                if deadline_s is not None else None)
+            coalesced = True
+            t_end = time.perf_counter()
+            solo_events = [("coalesce_decode", t0, t_end,
+                            {"rows": len(rows)}),
+                           ("complete", t_end, t_end, {})]
+            tid = self.telemetry.new_tid()
+            self.telemetry.span(tid, "coalesce_decode", t0, t_end,
+                                rid=rid, rows=len(rows))
+        else:
+            from ..models import generate as G
+
+            if speculative:
+                kind = "spec_pos" if temp != 0.0 else "spec"
+                width = spec_k
+            elif beams > 1:
+                kind, width = "beam", beams
+            else:
+                kind = "sample_pos" \
+                    if G.positional_eligible(self.model, temp) \
+                    else "sample"
+                width = 1
+            key = (kind, len(rows), p_len, new, temp, top_k, top_p, eos,
+                   width, chunk)
+            out, breakdown = self._generate_solo(
+                key, toks, seed, deadline=t0 + deadline_s
+                if deadline_s is not None else None)
+            t_end = time.perf_counter()
+            solo_events = [("queue", t0, t0 + breakdown[0],
+                            {"kind": kind}),
+                           ("solo_decode", t0 + breakdown[0], t_end,
+                            {"kind": kind, "rows": len(rows)}),
+                           ("complete", t_end, t_end, {})]
+            tid = self.telemetry.new_tid()
+            self.telemetry.span(tid, "solo_decode", t0 + breakdown[0],
+                                t_end, rid=rid, kind=kind,
+                                rows=len(rows))
         if group is not None:
             self._wait_group(group, cancel_check)
             out = group.result()
             breakdown = group.breakdown()
         with self._stats_lock:
-            self.requests += 1
+            if not coalesced:   # the coalescer counts its batches' own
+                self.requests += 1
             if prefix_hit is not None:
                 self.prefix_hits += 1
                 self.prefix_hit_tokens += prefix_hit.p_cached
         dt = time.perf_counter() - t0
-        self._note_breakdown(*breakdown)
-        tokens_done = len(rows) * new if group is None \
-            else sum(len(s.out) for s in group.streams)
-        self.telemetry.observe("queue_wait", breakdown[0], exemplar=rid)
-        self.telemetry.observe("prefill", breakdown[1], exemplar=rid)
-        self.telemetry.observe(
-            "decode_per_token", breakdown[2] / max(1, tokens_done),
-            exemplar=rid)
+        if breakdown is not None:
+            self._note_breakdown(*breakdown)
+            tokens_done = len(rows) * new if group is None \
+                else sum(len(s.out) for s in group.streams)
+            self.telemetry.observe("queue_wait", breakdown[0],
+                                   exemplar=rid)
+            self.telemetry.observe("prefill", breakdown[1], exemplar=rid)
+            self.telemetry.observe(
+                "decode_per_token", breakdown[2] / max(1, tokens_done),
+                exemplar=rid)
         # A solo program delivers every token at once: its TTFT is the
         # whole latency.
         ttft = dt
@@ -2195,9 +2341,10 @@ class ModelServer:
             "tok_per_sec": round(len(rows) * new / dt, 1),
             **eng_fields,
             "ttft_ms": round(1e3 * ttft, 3),
-            "queue_ms": round(1e3 * breakdown[0], 3),
-            "prefill_ms": round(1e3 * breakdown[1], 3),
-            "decode_ms": round(1e3 * breakdown[2], 3),
+            **({"queue_ms": round(1e3 * breakdown[0], 3),
+                "prefill_ms": round(1e3 * breakdown[1], 3),
+                "decode_ms": round(1e3 * breakdown[2], 3)}
+               if breakdown is not None else {}),
             **({"prefix_hit_len": prefix_hit.p_cached}
                if prefix_hit is not None else {}),
             **({"prefix_source": prefix_source}
@@ -2257,7 +2404,21 @@ class ModelServer:
             if getattr(cfg, "kv_cache_ring", False):
                 summary["kv_cache_ring"] = True
                 summary["kv_cache_ring_slack"] = cfg.kv_cache_ring_slack
-        engine = self.engine.stats()
+        engine = self.engine.stats() if self.engine is not None else {}
+        if self.engine is not None:
+            routing = {"greedy": "engine", "sampled": "engine",
+                       "speculative": "engine"
+                       if self.draft_model is not None
+                       else "unavailable (no draft model)",
+                       "beam": "solo"}
+        else:
+            routing = {"greedy": "coalesce"
+                       if self.batching == "coalesce" else "solo",
+                       "sampled": "solo",
+                       "speculative": "solo"
+                       if self.draft_model is not None
+                       else "unavailable (no draft model)",
+                       "beam": "solo"}
         compile_cache = self.recompile.snapshot()
         with self._stats_lock:
             fallbacks = {k: dict(v)
@@ -2270,12 +2431,7 @@ class ModelServer:
                 "default_priority": self.default_priority,
                 "draining": self.draining,
                 "drain_rejected_total": self.drain_rejected,
-                "routing": {"greedy": "engine",
-                            "sampled": "engine",
-                            "speculative": "engine"
-                            if self.draft_model is not None
-                            else "unavailable (no draft model)",
-                            "beam": "solo"},
+                "routing": routing,
                 "solo_fallbacks": fallbacks,
                 "spec_k_default": self.spec_k_default,
                 "kv_paged": self.kv_paged,
@@ -2299,7 +2455,14 @@ class ModelServer:
                     **self.history.stats(),
                     **({"watchdog": self.watchdog.status()}
                        if self.watchdog is not None else {})},
+                # Flight-recorder attribution (serving/profiling.py):
+                # the SAME published record /metrics and GET
+                # /profile/report render.
+                **({"profiling": self.recorder.info_block()}
+                   if self.recorder is not None else {}),
                 "requests": self.requests,
+                "coalesced_batches": self.coalesced_batches,
+                "coalesced_requests": self.coalesced_requests,
                 # Prefix cache (the degradation ladder's error count
                 # and live enabled flag included).
                 "prefix_cache": self.prefix_cache_size,
@@ -2323,7 +2486,7 @@ class ModelServer:
         """Prometheus text exposition of the serving counters, the
         per-request queue/prefill/decode phase summaries, the latency
         histograms and the engine gauges."""
-        es = self.engine.stats()
+        es = self.engine.stats() if self.engine is not None else {}
         with self._stats_lock:
             lat_sum, lat_count = self._lat_sum, self._lat_count
             toks, errs = self._tokens_out, self.errors
@@ -2336,9 +2499,16 @@ class ModelServer:
             "# TYPE ptpu_serving_errors_total counter",
             f"ptpu_serving_errors_total {errs}",
             "# TYPE ptpu_serving_rejected_total counter",
-            f"ptpu_serving_rejected_total {es['rejected_total']}",
+            f"ptpu_serving_rejected_total "
+            f"{es.get('rejected_total', 0)}",
             "# TYPE ptpu_serving_tokens_generated_total counter",
             f"ptpu_serving_tokens_generated_total {toks}",
+            "# TYPE ptpu_serving_coalesced_batches_total counter",
+            f"ptpu_serving_coalesced_batches_total "
+            f"{self.coalesced_batches}",
+            "# TYPE ptpu_serving_coalesced_requests_total counter",
+            f"ptpu_serving_coalesced_requests_total "
+            f"{self.coalesced_requests}",
             "# TYPE ptpu_serving_request_seconds summary",
             f"ptpu_serving_request_seconds_sum {lat_sum:.6f}",
             f"ptpu_serving_request_seconds_count {lat_count}",
@@ -2377,101 +2547,106 @@ class ModelServer:
             f"{self.history.evicted_total}",
         ]
         lines += render_compile_cache(self.recompile.snapshot())
+        if self.recorder is not None:
+            # The flight recorder's attribution gauges, rendered from
+            # the SAME record GET /profile/report returns.
+            lines += self.recorder.metrics_lines()
         lines += self.telemetry.metrics_lines()
         if self.forensics is not None:
             lines += self.forensics.metrics_lines("ptpu_serving")
-        gauges = ("slots", "slots_active", "slot_occupancy",
-                  "queue_len", "queue_depth", "queue_len_interactive",
-                  "queue_len_batch")
-        counters = ("admitted_total", "admitted_interactive_total",
-                    "admitted_batch_total", "admitted_greedy_total",
-                    "admitted_sampled_total", "admitted_spec_total",
-                    "completed_total", "completed_greedy_total",
-                    "completed_sampled_total", "completed_spec_total",
-                    "spec_rounds_total", "spec_drafted_total",
-                    "spec_accepted_total",
-                    "evicted_total", "cancelled_total", "shed_total",
-                    "shed_interactive_total", "shed_batch_total",
-                    "decode_steps_total", "decode_dispatches_total",
-                    "prefill_chunks_total", "telemetry_errors_total",
-                    "step_device_seconds_total",
-                    "step_wall_seconds_total", "shed_kv_pages_total",
-                    "kv_preempt_exhaustion_total", "preempted_total",
-                    "requests_requeued_total", "resumed_total",
-                    "step_retries_total", "poisoned_total",
-                    "engine_crashes_total", "engine_restarts_total")
-        for key in gauges:
-            lines += [f"# TYPE ptpu_serving_{key} gauge",
-                      f"ptpu_serving_{key} {es[key]}"]
-        for key in counters:
-            lines += [f"# TYPE ptpu_serving_{key} counter",
-                      f"ptpu_serving_{key} {es[key]}"]
-        if "kv_pages" in es:
-            # The page pool's occupancy (kv_paged engines only).
-            for key in ("kv_pages", "kv_page_tokens", "kv_pages_free",
-                        "kv_pages_resident", "kv_pages_shared"):
+        if self.engine is not None:
+            gauges = ("slots", "slots_active", "slot_occupancy",
+                      "queue_len", "queue_depth", "queue_len_interactive",
+                      "queue_len_batch")
+            counters = ("admitted_total", "admitted_interactive_total",
+                        "admitted_batch_total", "admitted_greedy_total",
+                        "admitted_sampled_total", "admitted_spec_total",
+                        "completed_total", "completed_greedy_total",
+                        "completed_sampled_total", "completed_spec_total",
+                        "spec_rounds_total", "spec_drafted_total",
+                        "spec_accepted_total",
+                        "evicted_total", "cancelled_total", "shed_total",
+                        "shed_interactive_total", "shed_batch_total",
+                        "decode_steps_total", "decode_dispatches_total",
+                        "prefill_chunks_total", "telemetry_errors_total",
+                        "step_device_seconds_total",
+                        "step_wall_seconds_total", "shed_kv_pages_total",
+                        "kv_preempt_exhaustion_total", "preempted_total",
+                        "requests_requeued_total", "resumed_total",
+                        "step_retries_total", "poisoned_total",
+                        "engine_crashes_total", "engine_restarts_total")
+            for key in gauges:
                 lines += [f"# TYPE ptpu_serving_{key} gauge",
                           f"ptpu_serving_{key} {es[key]}"]
-            lines += ["# TYPE ptpu_serving_kv_lazy gauge",
-                      f"ptpu_serving_kv_lazy {1 if es['kv_lazy'] else 0}"]
-            for key in ("kv_pages_lazy_growths_total",
-                        "kv_pages_lazy_grown_total"):
+            for key in counters:
                 lines += [f"# TYPE ptpu_serving_{key} counter",
                           f"ptpu_serving_{key} {es[key]}"]
-            # The host tier and the wire lanes (the _spill_stats dict
-            # /info renders).  The fetch-failure family's TYPE line
-            # renders before its first labelled sample.
-            sp = self._spill_stats()
-            for key, kind in (
-                    ("kv_host_spill_bytes", "gauge"),
-                    ("kv_host_entries", "gauge"),
-                    ("kv_host_spills_total", "counter"),
-                    ("kv_rematerialize_hits_total", "counter"),
-                    ("kv_rematerialize_bytes_total", "counter"),
-                    ("kv_host_dropped_total", "counter"),
-                    ("kv_promotions_total", "counter"),
-                    ("prefix_fetch_total", "counter"),
-                    ("prefix_fetch_hits_total", "counter"),
-                    ("prefix_fetch_bytes_total", "counter")):
-                lines += [f"# TYPE ptpu_serving_{key} {kind}",
-                          f"ptpu_serving_{key} {sp[key]}"]
-            lines.append("# TYPE ptpu_serving_prefix_fetch_failed_total "
-                         "counter")
-            lines += [f'ptpu_serving_prefix_fetch_failed_total'
-                      f'{{reason="{r}"}} {n}'
-                      for r, n in sorted(
-                          sp["prefix_fetch_failed"].items())]
-            for key in ("prefix_ingest_total",
-                        "prefix_ingest_rejected_total",
-                        "prefix_handoff_entries_total",
-                        "prefix_handoff_bytes_total",
-                        "prefix_handoff_failed_total",
-                        "prefix_evict_hints_total"):
-                lines += [f"# TYPE ptpu_serving_{key} counter",
-                          f"ptpu_serving_{key} {sp[key]}"]
-        lines += [
-            "# TYPE ptpu_serving_deadline_expired_total counter",
-            f"ptpu_serving_deadline_expired_total "
-            f"{es['expired_total']}",
-            "# TYPE ptpu_serving_draining gauge",
-            f"ptpu_serving_draining {1 if es['draining'] else 0}",
-            # Fault tolerance: the down latch, the breaker as a 0/1
-            # open gauge and the per-site injected-fault family.
-            "# TYPE ptpu_serving_engine_down gauge",
-            f"ptpu_serving_engine_down {1 if es['engine_down'] else 0}",
-            "# TYPE ptpu_serving_breaker_open gauge",
-            f"ptpu_serving_breaker_open "
-            f"{1 if es['breaker_state'] == 'open' else 0}",
-            "# TYPE ptpu_serving_faults_injected_total counter",
-            *[f'ptpu_serving_faults_injected_total{{site="{site}"}} {n}'
-              for site, n in sorted(es["faults_injected"].items())],
-        ]
-        # Per-request acceptance rate of completed speculative streams
-        # (accepted / drafted), one histogram family.
-        lines += render_histogram(
-            "ptpu_serving_spec_accept_rate", es["spec_accept_buckets"],
-            es["spec_accept_hist"], es["spec_accept_sum"],
-            es["spec_accept_count"])
+            if "kv_pages" in es:
+                # The page pool's occupancy (kv_paged engines only).
+                for key in ("kv_pages", "kv_page_tokens", "kv_pages_free",
+                            "kv_pages_resident", "kv_pages_shared"):
+                    lines += [f"# TYPE ptpu_serving_{key} gauge",
+                              f"ptpu_serving_{key} {es[key]}"]
+                lines += ["# TYPE ptpu_serving_kv_lazy gauge",
+                          f"ptpu_serving_kv_lazy {1 if es['kv_lazy'] else 0}"]
+                for key in ("kv_pages_lazy_growths_total",
+                            "kv_pages_lazy_grown_total"):
+                    lines += [f"# TYPE ptpu_serving_{key} counter",
+                              f"ptpu_serving_{key} {es[key]}"]
+                # The host tier and the wire lanes (the _spill_stats dict
+                # /info renders).  The fetch-failure family's TYPE line
+                # renders before its first labelled sample.
+                sp = self._spill_stats()
+                for key, kind in (
+                        ("kv_host_spill_bytes", "gauge"),
+                        ("kv_host_entries", "gauge"),
+                        ("kv_host_spills_total", "counter"),
+                        ("kv_rematerialize_hits_total", "counter"),
+                        ("kv_rematerialize_bytes_total", "counter"),
+                        ("kv_host_dropped_total", "counter"),
+                        ("kv_promotions_total", "counter"),
+                        ("prefix_fetch_total", "counter"),
+                        ("prefix_fetch_hits_total", "counter"),
+                        ("prefix_fetch_bytes_total", "counter")):
+                    lines += [f"# TYPE ptpu_serving_{key} {kind}",
+                              f"ptpu_serving_{key} {sp[key]}"]
+                lines.append("# TYPE ptpu_serving_prefix_fetch_failed_total "
+                             "counter")
+                lines += [f'ptpu_serving_prefix_fetch_failed_total'
+                          f'{{reason="{r}"}} {n}'
+                          for r, n in sorted(
+                              sp["prefix_fetch_failed"].items())]
+                for key in ("prefix_ingest_total",
+                            "prefix_ingest_rejected_total",
+                            "prefix_handoff_entries_total",
+                            "prefix_handoff_bytes_total",
+                            "prefix_handoff_failed_total",
+                            "prefix_evict_hints_total"):
+                    lines += [f"# TYPE ptpu_serving_{key} counter",
+                              f"ptpu_serving_{key} {sp[key]}"]
+            lines += [
+                "# TYPE ptpu_serving_deadline_expired_total counter",
+                f"ptpu_serving_deadline_expired_total "
+                f"{es['expired_total']}",
+                "# TYPE ptpu_serving_draining gauge",
+                f"ptpu_serving_draining {1 if es['draining'] else 0}",
+                # Fault tolerance: the down latch, the breaker as a 0/1
+                # open gauge and the per-site injected-fault family.
+                "# TYPE ptpu_serving_engine_down gauge",
+                f"ptpu_serving_engine_down {1 if es['engine_down'] else 0}",
+                "# TYPE ptpu_serving_breaker_open gauge",
+                f"ptpu_serving_breaker_open "
+                f"{1 if es['breaker_state'] == 'open' else 0}",
+                "# TYPE ptpu_serving_faults_injected_total counter",
+                *[f'ptpu_serving_faults_injected_total{{site="{site}"}} {n}'
+                  for site, n in sorted(es["faults_injected"].items())],
+            ]
+            # Per-request acceptance rate of completed speculative streams
+            # (accepted / drafted), one histogram family.
+            lines += render_histogram(
+                "ptpu_serving_spec_accept_rate", es["spec_accept_buckets"],
+                es["spec_accept_hist"], es["spec_accept_sum"],
+                es["spec_accept_count"])
         # The process's flash kernel launches: decode and prefill take
         # plain attention, so a served model's stay at 0.
         from ..ops import flash
@@ -2510,21 +2685,6 @@ class _ServingHTTPServer(ThreadingHTTPServer):
 def make_server(host: str, port: int, ms: ModelServer
                 ) -> ThreadingHTTPServer:
     return _ServingHTTPServer((host, port), make_handler(ms))
-
-
-# POST routes of the reference that this slice answers with a 501.
-_NOT_PORTED_POST = {
-    "/profile/start": "profiling (POST /profile/*) is not ported yet "
-                      "(ROADMAP Queue 1: ProfileSession on "
-                      "torch.profiler)",
-    "/profile/stop": "profiling (POST /profile/*) is not ported yet "
-                     "(ROADMAP Queue 1: ProfileSession on "
-                     "torch.profiler)",
-}
-
-
-def _not_ported_post(path: str) -> Optional[str]:
-    return _NOT_PORTED_POST.get(path)
 
 
 def make_handler(ms: ModelServer):
@@ -2573,7 +2733,7 @@ def make_handler(ms: ModelServer):
                                      "reason": "draining",
                                      "model": ms.model_name,
                                      **ms.drain_status()})
-                elif ms.engine.down:
+                elif ms.engine is not None and ms.engine.down:
                     self._send(503, {
                         "status": "unavailable",
                         "reason": "engine_down",
@@ -2616,10 +2776,25 @@ def make_handler(ms: ModelServer):
                 else:
                     self._send(200, ms.prefix_index())
             elif path == "/profile/report":
-                self._send(501, {
-                    "error": f"GET {path} is not ported to the PyTorch "
-                             f"backend yet (ROADMAP Queue 1)",
-                    "reason": "not_ported"})
+                # The flight recorder's parsed attribution for the most
+                # recent profiled window(s) — the same numbers the
+                # /metrics gauges export (one reduction).
+                if ms.recorder is None:
+                    self._send(400, {
+                        "error": "flight recorder disabled (start "
+                                 "the server with --profile-every N "
+                                 "and --profile-dir)"})
+                else:
+                    rep = ms.recorder.report()
+                    if rep["latest"] is None:
+                        self._send(404, {
+                            "error": "no profiled window analyzed "
+                                     "yet",
+                            **{k: rep[k] for k in
+                               ("windows_total", "windows_skipped",
+                                "windows_deferred", "last_error")}})
+                    else:
+                        self._send(200, rep)
             else:
                 self._send(404, {"error": f"no route {self.path}"})
 
@@ -2656,6 +2831,39 @@ def make_handler(ms: ModelServer):
                              f"retention ring)"})
             else:
                 self._send(200, rec)
+
+        def _do_profile(self):
+            """POST /profile/start|stop: the guarded single-flight
+            torch.profiler wrap.  400 when the server was started
+            without a profile dir (traces go to disk — explicit
+            opt-in); 409 on state conflicts (a second start, a stop
+            with nothing running, another owner's trace)."""
+            t0 = time.perf_counter()
+            if ms.profiler is None:
+                code, resp = 400, {
+                    "error": "profiling disabled (start the server "
+                             "with --profile-dir)"}
+            else:
+                try:
+                    if self.path == "/profile/start":
+                        d = ms.profiler.start()
+                        code, resp = 200, {"profiling": True, "dir": d}
+                    else:
+                        d = ms.profiler.stop()
+                        code, resp = 200, {"profiling": False,
+                                           "dir": d}
+                except RuntimeError as e:
+                    code, resp = 409, {"error": str(e)}
+                except Exception as e:
+                    code, resp = 500, {
+                        "error": f"{type(e).__name__}: {e}"}
+            try:
+                self._send(code, resp)
+            except OSError:
+                pass
+            ms.log_access("POST", self.path, code, None, resp,
+                          time.perf_counter() - t0,
+                          rid=getattr(self, "_rid", None))
 
         def _do_prefix(self, rid: str) -> None:
             """The fleet prefix tier's wire surface: ``POST
@@ -2729,13 +2937,8 @@ def make_handler(ms: ModelServer):
             if self.path.startswith("/prefix/"):
                 self._do_prefix(rid)
                 return
-            missing = _not_ported_post(self.path)
-            if missing is not None:
-                resp = {"error": missing, "reason": "not_ported",
-                        "request_id": rid}
-                self._send(501, resp)
-                ms.log_access("POST", self.path, 501, None, resp,
-                              time.perf_counter() - t0, rid=rid)
+            if self.path in ("/profile/start", "/profile/stop"):
+                self._do_profile()
                 return
             if self.path not in ("/generate", "/prefill"):
                 self._send(404, {"error": f"no route {self.path}"})

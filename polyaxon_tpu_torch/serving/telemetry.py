@@ -27,11 +27,15 @@ record call into a single attribute check, and the serving load
 bench pins the tracing-on tax under ~3% aggregate tok/s
 (benchmarks/bench_serving_load.py, ``telemetry_overhead``).
 
+- :class:`ProfileSession` — a guarded, single-flight wrapper around
+  ``torch.profiler`` (kineto) behind ``POST /profile/start|stop`` and
+  the flight recorder's windows (serving/profiling.py).
+- :func:`dump_spans_jsonl` — the ``serve --trace-file`` shutdown dump.
+
 The port's own copy of
 ``polyaxon_tpu/serving/telemetry.py`` (host-only code, kept here so
-the port imports nothing of the JAX package).
-``ProfileSession`` (``POST /profile/*``) and the ``--trace-file`` dump
-wait for the profiling slice of the port.
+the port imports nothing of the JAX package); ``ProfileSession`` runs
+``torch.profiler`` where the reference runs ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -43,8 +47,9 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["Histogram", "Telemetry",
-           "render_histogram", "render_compile_cache", "strip_exemplar",
+__all__ = ["Histogram", "Telemetry", "ProfileSession",
+           "render_histogram", "render_compile_cache",
+           "dump_spans_jsonl", "strip_exemplar",
            "parse_prometheus_text", "parse_prometheus_families",
            "LATENCY_BUCKETS", "PER_TOKEN_BUCKETS",
            "REQUESTS_PID", "ENGINE_PID"]
@@ -346,6 +351,257 @@ class Telemetry:
             hists[prom_name] = {"key": key, "buckets": buckets}
         return {"exemplar_k": self.exemplar_k,
                 "histograms": hists}
+
+
+# torch.profiler (kineto) holds ONE profiler per process.  Every
+# ProfileSession of the process (a LocalReplica fleet runs several
+# servers in one) takes this slot before it starts one.
+_PROCESS_SLOT = threading.Lock()
+_process_holder: Optional["ProfileSession"] = None
+
+
+def _profiler_activities():
+    import torch
+    from torch._C._profiler import ProfilerActivity
+
+    acts = {ProfilerActivity.CPU}
+    if torch.cuda.is_available():
+        acts.add(ProfilerActivity.CUDA)
+    return acts
+
+
+def _profiler_config(with_stack: bool):
+    from torch._C._profiler import (ProfilerConfig, ProfilerState,
+                                    _ExperimentalConfig)
+
+    return ProfilerConfig(ProfilerState.KINETO, False, False,
+                          bool(with_stack), False, False,
+                          _ExperimentalConfig(), "")
+
+
+def _torch_profiler_start(with_stack: bool) -> None:
+    from torch.autograd.profiler import (_enable_profiler,
+                                         _prepare_profiler)
+
+    acts = _profiler_activities()
+    _prepare_profiler(_profiler_config(with_stack), acts)
+    _enable_profiler(_profiler_config(with_stack), acts)
+
+
+def _torch_profiler_stop():
+    from torch.autograd.profiler import _disable_profiler
+
+    return _disable_profiler()
+
+
+class _OwnThread:
+    """A runner that executes every call on ONE long-lived daemon
+    thread: torch's profiler must be stopped on the thread that
+    started it."""
+
+    def __init__(self):
+        import queue
+
+        self._q: "queue.Queue" = queue.Queue()
+        self._t = threading.Thread(target=self._loop,
+                                   name="profile-session", daemon=True)
+        self._t.start()
+
+    def _loop(self) -> None:
+        while True:
+            fn, box, done = self._q.get()
+            try:
+                box["result"] = fn()
+            except BaseException as e:
+                box["error"] = e
+            done.set()
+
+    def __call__(self, fn):
+        box: Dict[str, Any] = {}
+        done = threading.Event()
+        self._q.put((fn, box, done))
+        done.wait()
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+
+class ProfileSession:
+    """Single-flight ``torch.profiler`` wrapper: ``start`` begins a
+    trace (CPU ops and, on the card, CUDA kernels, memcpys and
+    memsets) that ``stop`` writes into a timestamped subdirectory of
+    ``log_dir`` as ``*.pt.trace.json``; a second start while one is
+    running raises (torch allows one profiler per process, so the
+    guard is process-wide: another server's session holding it raises
+    too).
+
+    ``owner`` tags who holds the in-flight trace — ``"manual"`` for
+    the ``POST /profile/start|stop`` endpoints, ``"recorder"`` for
+    the flight recorder's periodic windows (serving/profiling.py) —
+    so the two consumers share ONE session without racing: a start
+    while the other side owns it raises (the HTTP surface maps that
+    to 409; the recorder defers its window), and ``stop`` refuses an
+    owner mismatch rather than silently ending someone else's
+    trace.
+
+    torch's profiler records the CPU ops of the thread that enables
+    it.  ``runner(fn)`` runs a profiler transition where the trace
+    must look — the server passes its engine's ``run_on_loop``, so a
+    manual window started from an HTTP handler thread still sees the
+    engine thread's ``ptpu_step`` markers; start and stop both run
+    there, under the device lock.  Without a runner (engine-less
+    servers) they run on a thread the session owns: the trace then
+    holds the card's activity but not the request threads' CPU ops.
+    Only the profiler's disable runs there at stop: the export
+    (``save``) runs on the thread that called :meth:`stop`."""
+
+    def __init__(self, log_dir: str, runner=None):
+        self.log_dir = log_dir
+        self.runner = runner if runner is not None else _OwnThread()
+        self._lock = threading.Lock()
+        self._active_dir: Optional[str] = None
+        self._owner: Optional[str] = None
+        self._stopping = False
+        # Seconds of the last transition (chip_smoke.py reports them):
+        # start, stop (the profiler's disable, on the runner's
+        # thread) and export (writing the trace file).
+        self.timings: Dict[str, float] = {}
+
+    @property
+    def active(self) -> bool:
+        return self._active_dir is not None
+
+    @property
+    def owner(self) -> Optional[str]:
+        return self._owner
+
+    def start(self, owner: str = "manual",
+              python_tracer: bool = True) -> str:
+        """``python_tracer=False`` records no Python stacks
+        (``with_stack``): the ops, the ``ptpu_step`` markers and the
+        device activity still land in the trace, at a fraction of the
+        cost — the flight recorder always passes False; the manual
+        endpoints keep the full trace for interactive debugging."""
+        import os
+
+        global _process_holder
+        with self._lock:
+            if self._active_dir is not None:
+                who = "the flight recorder" \
+                    if self._owner == "recorder" else self._owner
+                raise RuntimeError(
+                    f"a profile is already running (owned by {who}, "
+                    f"writing to {self._active_dir}); POST "
+                    f"/profile/stop first")
+            with _PROCESS_SLOT:
+                holder = _process_holder
+                if holder is not None:
+                    raise RuntimeError(
+                        f"a profile is already running in this process "
+                        f"(another server's, writing to "
+                        f"{holder._active_dir}); torch allows one "
+                        f"profiler per process")
+                _process_holder = self
+            # Uniquify past second-granularity strftime: two
+            # start/stop cycles inside one second must not share a
+            # directory.
+            base = os.path.join(
+                self.log_dir, time.strftime("profile_%Y%m%d_%H%M%S"))
+            d, n = base, 0
+            while os.path.exists(d):
+                n += 1
+                d = f"{base}_{n}"
+            # Marked active BEFORE the transition runs (outside
+            # _lock: the runner may wait for the engine thread, which
+            # itself starts recorder windows through this session).
+            self._active_dir = d
+            self._owner = owner
+        try:
+            os.makedirs(d)
+            t0 = time.perf_counter()
+            self.runner(lambda: _torch_profiler_start(python_tracer))
+            self.timings["start_s"] = time.perf_counter() - t0
+        except BaseException:
+            with self._lock:
+                self._active_dir = None
+                self._owner = None
+                self._release_process()
+            raise
+        return d
+
+    def _release_process(self) -> None:
+        global _process_holder
+        with _PROCESS_SLOT:
+            if _process_holder is self:
+                _process_holder = None
+
+    def stop(self, owner: str = "manual") -> str:
+        import os
+
+        with self._lock:
+            if self._active_dir is None or self._stopping:
+                raise RuntimeError(
+                    "no profile is running; POST /profile/start "
+                    "first")
+            if self._owner != owner:
+                who = "the flight recorder" \
+                    if self._owner == "recorder" else self._owner
+                raise RuntimeError(
+                    f"the running profile is owned by {who}; it will "
+                    f"end at its own window boundary")
+            self._stopping = True
+            d = self._active_dir
+        # The active marker clears only AFTER the profiler stopped: a
+        # failed stop leaves it owned (stop can be retried) rather
+        # than wedging the process-wide profiler behind a free slot.
+        try:
+            t0 = time.perf_counter()
+            result = self.runner(_torch_profiler_stop)
+            t1 = time.perf_counter()
+        except BaseException:
+            with self._lock:
+                self._stopping = False
+            raise
+        with self._lock:
+            self._active_dir = None
+            self._owner = None
+            self._stopping = False
+            self._release_process()
+        result.save(os.path.join(d, f"ptpu_{os.getpid()}.pt.trace.json"))
+        self.timings.update(stop_s=t1 - t0,
+                            export_s=time.perf_counter() - t1)
+        return d
+
+    def close(self) -> None:
+        """Best-effort end-of-life stop (server shutdown mid-trace),
+        whoever owns the in-flight trace."""
+        try:
+            if self.active:
+                self.stop(owner=self._owner or "manual")
+        except Exception:
+            pass
+
+
+def dump_spans_jsonl(telemetry: Telemetry, path: str,
+                     timeout: float = 10.0) -> int:
+    """Write the telemetry ring to ``path`` as JSONL, one event per
+    line, through the tracking stack's :class:`AsyncEventWriter` (the
+    ``serve --trace-file`` shutdown dump).  Returns the number of
+    events written."""
+    from ..tracking.writer import AsyncEventWriter, JsonlFileClient
+
+    events = telemetry.events()
+    # Truncate first: JsonlFileClient appends, and a restart reusing
+    # the same --trace-file would otherwise mix two Telemetry epochs
+    # into one dump.
+    open(path, "w").close()
+    writer = AsyncEventWriter(JsonlFileClient(path))
+    writer.start()
+    for ev in events:
+        writer.add("trace", "serving", ev)
+    writer.flush(timeout=timeout)
+    writer.close(timeout=timeout)
+    return len(events)
 
 
 def strip_exemplar(line: str) -> str:

@@ -729,9 +729,9 @@ def _params(cmd):
 
 def test_cli_flags_match_reference():
     """``route`` has every option of the reference's, name for name and
-    default for default; ``serve``'s spill, fetch and role flags are
-    served with the reference's defaults (no longer refused), while the
-    refusals of the later slices stay."""
+    default for default; ``serve``'s spill, fetch, role, batching and
+    profiling flags are served with the reference's defaults (no longer
+    refused), while ``--mesh``'s refusal stays."""
     from click.testing import CliRunner
 
     from polyaxon_tpu.cli import main as jcli
@@ -739,7 +739,9 @@ def test_cli_flags_match_reference():
 
     assert _params(tcli.route) == _params(jcli.route)
     flags = ("kv_host_spill_bytes", "prefix_fetch", "prefix_fetch_timeout",
-             "prefix_fetch_min_tokens", "prefix_fetch_remat_ratio", "role")
+             "prefix_fetch_min_tokens", "prefix_fetch_remat_ratio", "role",
+             "batching", "trace_file", "profile_dir", "profile_every",
+             "profile_steps")
     ours, theirs = _params(tcli.serve), _params(jcli.serve)
     for f in flags:
         assert ours[f] == theirs[f], f
@@ -748,14 +750,15 @@ def test_cli_flags_match_reference():
                           "--prefix-fetch-timeout", "--role",
                           "--prefix-fetch-min-tokens",
                           "--prefix-fetch-remat-ratio"}
-    assert {"--batching", "--mesh", "--profile-dir"} <= refused
+    assert refused == {"--mesh"}
     runner = CliRunner()
     for args, words in (
             (["--role", "prefill"], "--kv-paged"),
             (["--role", "decode"], "--prefix-fetch"),
             (["--prefix-fetch"], "--kv-host-spill-bytes"),
             (["--kv-host-spill-bytes", "64"], "--kv-paged"),
-            (["--batching", "coalesce"], "legacy coalescing")):
+            (["--batching", "coalesce", "--kv-paged"],
+             "--batching continuous")):
         res = runner.invoke(tcli.cli, ["serve", "--cpu", "--model",
                                        "gpt2-tiny", *args])
         assert res.exit_code != 0 and words in res.output, (args,

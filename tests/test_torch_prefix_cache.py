@@ -38,6 +38,7 @@ from polyaxon_tpu_torch.cli import main as cli_main
 from polyaxon_tpu_torch.convert import (gpt2_state_dict_from_jax,
                                         llama_state_dict_from_jax)
 from polyaxon_tpu_torch.models import generate as TG
+from polyaxon_tpu_torch.models.kv_cache import kv_cache_dims
 from polyaxon_tpu_torch.models.registry import get_model
 from polyaxon_tpu_torch.serving import (DecodeEngine, ModelServer,
                                         SchedulerPolicy, make_server)
@@ -168,7 +169,7 @@ def test_materialize_is_the_stored_prefill(pair):
     got = mgr.materialize(ids, 20)
     cfg = tmodel.cfg
     assert tuple(got.k.shape) == (cfg.num_layers, 1, cfg.max_position,
-                                  cfg.num_kv_heads, cfg.head_dim)
+                                  *kv_cache_dims(cfg))
     assert got.k.dtype == cache.k.dtype and got.index == 20
     assert torch.equal(got.k, cache.k) and torch.equal(got.v, cache.v)
     suffix = torch.tensor([_toks(2, 5)])

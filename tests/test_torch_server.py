@@ -223,16 +223,16 @@ def test_unported_requests_are_501(server, body, feature):
 @pytest.mark.parametrize("path", ["/prefix/ingest", "/prefix/fetch",
                                   "/profile/start", "/profile/stop"])
 def test_unported_routes_are_501(server, path):
-    """``/profile/*`` still answers 501 naming the feature.  The fleet
-    prefix lanes are ported: on this fixed-lane server without a spill
-    budget they answer the reference's 400."""
+    """These routes are ported: on this fixed-lane server without a
+    spill budget the fleet prefix lanes answer the reference's 400, and
+    so does ``/profile/*`` without a profile dir."""
     base, _, _ = server
+    out = _post(base, {"prompt": [1, 2]}, path=path, expect=400)
     if path.startswith("/prefix/"):
-        out = _post(base, {"prompt": [1, 2]}, path=path, expect=400)
         assert "paged" in out["error"]
-        return
-    out = _post(base, {"prompt": [1, 2]}, path=path, expect=501)
-    assert "not ported" in out["error"]
+    else:
+        assert out["error"] == ("profiling disabled (start the server "
+                                "with --profile-dir)")
 
 
 def test_unknown_routes_are_404(server):
@@ -408,20 +408,26 @@ _REFERENCE_ONLY_FLAGS = [
                   *_SPILL], "the spill tier and its wire format",
                  {"policy": ("remat_ratio", 0.5)},
                  id="flags3-the spill tier and its wire format"),
-    pytest.param(["--batching", "coalesce"], "legacy coalescing", None,
-                 id="flags4-legacy coalescing"),
+    pytest.param(["--batching", "coalesce"], "legacy coalescing",
+                 {"batching": "coalesce"}, id="flags4-legacy coalescing"),
     pytest.param(["--mesh", "tp=2"], "parallelism and meshes", None,
                  id="flags5-parallelism and meshes"),
     pytest.param(["--role", "decode", "--prefix-fetch", *_SPILL],
                  "the router", {"role": "decode"},
                  id="flags6-the router"),
-    pytest.param(["--trace-file", "t.jsonl"], _PROFILE_ITEM, None,
+    # --trace-file is the CLI's own (the shutdown dump,
+    # tests/test_torch_profiling.py): the server gets its default ring.
+    pytest.param(["--trace-file", "t.jsonl"], _PROFILE_ITEM,
+                 {"trace_buffer": 4096},
                  id="flags7-ProfileSession on torch.profiler"),
-    pytest.param(["--profile-dir", "p"], _PROFILE_ITEM, None,
+    pytest.param(["--profile-dir", "p"], _PROFILE_ITEM,
+                 {"profile_dir": "p", "profile_every": 0},
                  id="flags8-ProfileSession on torch.profiler"),
-    pytest.param(["--profile-every", "4"], _PROFILE_ITEM, None,
+    pytest.param(["--profile-every", "4", "--profile-dir", "p"],
+                 _PROFILE_ITEM, {"profile_every": 4, "profile_dir": "p"},
                  id="flags9-ProfileSession on torch.profiler"),
-    pytest.param(["--profile-steps", "2"], _PROFILE_ITEM, None,
+    pytest.param(["--profile-steps", "2"], _PROFILE_ITEM,
+                 {"profile_steps": 2},
                  id="flags10-ProfileSession on torch.profiler"),
 ]
 
@@ -431,9 +437,10 @@ def test_cli_serve_refuses_unported_reference_flags(monkeypatch, flags,
                                                     item, served):
     """``serve`` carries every flag of the reference's at its default
     (click no longer answers "No such option"), and refuses each one
-    whose feature is not ported by its ROADMAP item, before any model
-    is built.  The flags of the fleet tier are served: their values
-    reach ``ModelServer``."""
+    whose feature is not ported (``--mesh``) by its ROADMAP item, before
+    any model is built.  The flags of the fleet tier, the batching
+    modes and the profiler are served: their values reach
+    ``ModelServer``."""
     import polyaxon_tpu_torch.serving as serving
 
     seen = {}

@@ -45,6 +45,7 @@ from polyaxon_tpu_torch import checkpoint as tckpt
 from polyaxon_tpu_torch import data as tdata
 from polyaxon_tpu_torch import train as ttrain
 from polyaxon_tpu_torch.convert import gpt2_state_dict_from_jax
+from polyaxon_tpu_torch.models.kv_cache import kv_cache_dims
 from polyaxon_tpu_torch.models.registry import get_model as t_get_model
 from polyaxon_tpu_torch.ops import attention as tat
 from polyaxon_tpu_torch.parallel import make_train_step
@@ -415,7 +416,7 @@ def test_registry_overrides_patch_config_fields():
     model = t_get_model("gpt2-tiny").make_model(device="meta",
                                                 **FLASH_MODEL)
     assert dataclasses.asdict(model.cfg)["hidden_size"] == 128
-    assert model.cfg.head_dim == 64
+    assert kv_cache_dims(model.cfg)[1] == 64
 
 
 def test_train_main_profile_and_checkpoint_every(tmp_path, monkeypatch,
