@@ -18,7 +18,8 @@ Phases, each raising on failure:
    ``polyaxon_tpu_torch/csrc`` with nvcc (sm_90a);
 2. the flash-forward kernel against its plain PyTorch version at the
    main path's shape, the training shapes (GPT-2 medium's, TinyLlama's
-   [4, 2048, 32, 64] full and windowed) and the masks, types, head dims
+   [4, 2048, 32, 64] full and windowed, BERT-base's [32, 512, 12, 64]
+   non-causal, bare and key-padded) and the masks, types, head dims
    and tile edges it takes; times of the kernel, the plain version and
    PyTorch's own ``scaled_dot_product_attention`` (a yardstick the port
    never calls) at the serving and the training shapes;
@@ -73,6 +74,14 @@ Phases, each raising on failure:
    device idle share, top kernels);
 8. one float32 step's loss and gradients through the flash route against
    the plain-attention route, at GPT-2 medium's width and 4 layers;
+   the baseline's training zoo (``phase_zoo``, ``[zoo]`` lines):
+   BERT-base MLM at full width and depth, bf16, 32 x 512, through
+   ``train.main`` (12 non-causal launches of each kernel a step) and a
+   timed ``TrainStep`` loop (step ms, tok/s, MFU), and at 2 layers of
+   its width in float32 flash == plain attention without and with a
+   padded ``attention_mask``; ResNet-50 at 128 x 224 x 224 (img/s, MFU,
+   running averages moved, eval-mode logits, channels-last); ``run -f``
+   of ``mnist.yaml`` to ``eval_accuracy >= 0.95``;
 9. TinyLlama-1.1B (RoPE, RMSNorm, SwiGLU, GQA 32/4) at full width and
    depth, random from seed 0: the full forward on [2, 2048] (22 flash
    launches) against plain attention in bf16 and float32; the CLI's
@@ -86,7 +95,12 @@ Phases, each raising on failure:
    logits and gradients against plain attention, full causal and with a
    sliding window of 511 (the registry's ``sliding_window`` override);
    float32 solo greedy ``generate_speculative`` with a 2-of-22-layer
-   cut draft == greedy ``generate``;
+   cut draft == greedy ``generate``; the named remat policy
+   ``dots_with_no_batch_dims_saveable`` at 4 x 2048 (step ms and peak
+   memory against whole-layer remat; float32 gradients equal at 2
+   layers); ``train.main --init-hf`` of the seeded weights through
+   ``export_hf_llama`` and ``torch.save`` (its first loss == the source
+   model's);
    mistral-tiny's window in decode: float32 engine == solo on both pools;
    int8 weights and the int8 KV cache (GPT-2 medium: weight and cache
    bytes against bf16; float32 ``--int8-weights --int8-kv`` engine ==
@@ -128,8 +142,9 @@ Phases, each raising on failure:
    store: the GPT-2 medium ``job`` (3 tracked steps equal to its log
    lines, the card in its env record, ``gpu0_*`` system metrics, its
    checkpoint, 24 launches of each flash kernel in the profiled step's
-   trace), a ``hyperband`` matrix of 6 GPT-2 medium trials (the port's
-   schedule for the sweep's seed, the best run the lowest loss) and the
+   trace), ``convnet_hyperband.yaml`` cut to 6 ConvNet trials (the
+   port's schedule for the sweep's seed, the best run the highest
+   accuracy) and the
    GPT-2 medium ``service`` (tokens equal to an in-process server's,
    reaped by ``ops stop`` with the card's memory back);
 11. one JSON line of kernel records, the card line, and the final
@@ -140,6 +155,7 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -483,34 +499,44 @@ def _window_mask(sq, sk, window, device):
     return (q_ids >= k_ids) & (q_ids - k_ids <= window)
 
 
-def _sdpa_fn(qt, kt, vt, scale, window):
-    """SDPA on BHSD tensors, causal; a window goes in as a mask made
-    here, outside the timed call."""
+def _sdpa_fn(qt, kt, vt, scale, window, causal=True, kv_mask=None):
+    """SDPA on BHSD tensors; a window or a key-padding mask goes in as a
+    mask made here, outside the timed call."""
     mask = None if window is None else _window_mask(
         qt.shape[2], kt.shape[2], window, qt.device)
+    if kv_mask is not None:
+        mask = kv_mask[:, None, None, :]
     return lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=mask is None, scale=scale)
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        scale=scale)
 
 
-def _time_forward(label, q, k, v, other=None, window=None):
-    """Device times at one causal shape (``window``: a sliding window):
-    the kernel, the plain version, SDPA and the bound; with ``other``
-    (another build of the kernel) both builds in turns, other / this /
-    this / other."""
+def _mask_label(causal, window, kv_mask) -> str:
+    return (("causal" if causal else "non-causal")
+            + (f" window {window}" if window else "")
+            + (" key-padding mask" if kv_mask is not None else ""))
+
+
+def _time_forward(label, q, k, v, other=None, window=None, causal=True,
+                  kv_mask=None):
+    """Device times at one shape (``window``: a sliding window;
+    ``causal``; ``kv_mask``: key padding): the kernel, the plain
+    version, SDPA and the bound; with ``other`` (another build of the
+    kernel) both builds in turns, other / this / this / other."""
     from polyaxon_tpu_torch.ops import flash
 
     scale = q.shape[-1] ** -0.5
-    kernel = lambda: flash._flash_forward_kernel(q, k, v, None, True, scale,
-                                                 window)
+    kernel = lambda: flash._flash_forward_kernel(q, k, v, kv_mask, causal,
+                                                 scale, window)
     rec = {"eager_ms": eager_ms(kernel), "ms": graph_ms(kernel)}
     rec["plain_ms"] = graph_ms(lambda: flash._flash_forward_reference(
-        q, k, v, None, True, scale, window), calls=2, reps=5)
+        q, k, v, kv_mask, causal, scale, window), calls=2, reps=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = _sdpa_fn(qt, kt, vt, scale, window)
+    sdpa = _sdpa_fn(qt, kt, vt, scale, window, causal, kv_mask)
     rec["library_ms"] = graph_ms(sdpa)
-    rec["bound_ms"], rec["bound_by"] = bound(q, k, True, window, None)
-    line = (f"[kernel] {label} {list(q.shape)} {str(q.dtype)[6:]} causal"
-            f"{f' window {window}' if window else ''}, "
+    rec["bound_ms"], rec["bound_by"] = bound(q, k, causal, window, kv_mask)
+    line = (f"[kernel] {label} {list(q.shape)} {str(q.dtype)[6:]} "
+            f"{_mask_label(causal, window, kv_mask)}, "
             f"device time (CUDA graph): kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); eager "
@@ -564,17 +590,18 @@ def phase_kernel(other_src=None):
         ("llama_train", 4, 2048, 2048, 32, 64, bf16, True, None, None),
         ("llama_train_window", 4, 2048, 2048, 32, 64, bf16, True, 511,
          None),
+        # BERT-base's training shape: non-causal over the fused qkv
+        # projection, bare and under a key-padding mask.
+        ("bert_train", 32, 512, 512, 12, 64, bf16, False, None, None),
+        ("bert_train_kv_mask", 32, 512, 512, 12, 64, bf16, False, None,
+         "lengths"),
     ]
-    fused = ("main", "train_fused")  # the model's layout
+    fused = ("main", "train_fused", "bert_train", "bert_train_kv_mask")
     timed = fused + ("llama_train", "llama_train_window")
     results, shapes = {}, {}
     for name, b, sq, sk, h, d, dtype, causal, window, mk in cases:
         q, k, v = _qkv(b, sq, sk, h, d, dtype, gen, fused=name in fused)
-        kv_mask = None
-        if mk == "pad":
-            kv_mask = torch.rand((b, sk), generator=gen,
-                                 device="cuda") > 0.3
-            kv_mask[0, :128] = False  # causal rows 0..127 of batch 0: empty
+        kv_mask = _kv_mask(mk, b, sk, gen)
         scale = d ** -0.5
         o, lse = flash._flash_forward_kernel(q, k, v, kv_mask, causal,
                                              scale, window)
@@ -589,6 +616,9 @@ def phase_kernel(other_src=None):
         if mk == "pad":  # fully masked rows: exact zeros and -1e30
             ok &= bool((lse[0, :, :128] == flash.NEG_INF).all()) and \
                 bool((o[0, :128] == 0).all())
+        if mk == "lengths":  # batch 0 keeps no key: every row empty
+            ok &= bool((lse[0] == flash.NEG_INF).all()) and \
+                bool((o[0] == 0).all())
         print(f"[kernel] {name}: B={b} Sq={sq} Sk={sk} H={h} D={d} "
               f"{str(dtype)[6:]} causal={causal} window={window} "
               f"mask={mk}: max|dO|={err_o:.3e} (tol {tol_o}) "
@@ -599,23 +629,46 @@ def phase_kernel(other_src=None):
                                  f"version at case {name}")
         results[name] = (err_o, err_l)
         if name in timed:
-            shapes[name] = (q, k, v)
+            shapes[name] = (q, k, v, kv_mask)
         del q, k, v, o, lse, o_ref, lse_ref
 
     other = other_forward(other_src) if other_src else None
-    rec = _time_forward("main", *shapes.pop("main"), other)
-    train = _time_forward("training", *shapes.pop("train_fused"), other)
+    rec = _time_forward("main", *shapes.pop("main")[:3], other)
+    train = _time_forward("training", *shapes.pop("train_fused")[:3], other)
     rec.update({f"{key}_train": val for key, val in train.items()})
-    for name, window in (("llama_train", None),
-                         ("llama_train_window", 511)):
-        rec[name] = _time_forward(name, *shapes.pop(name), window=window)
+    for name, window, causal in (("llama_train", None, True),
+                                 ("llama_train_window", 511, True),
+                                 ("bert_train", None, False),
+                                 ("bert_train_kv_mask", None, False)):
+        q, k, v, kv_mask = shapes.pop(name)
+        rec[name] = _time_forward(name, q, k, v, window=window,
+                                  causal=causal, kv_mask=kv_mask)
         rec[name]["max_abs_err"] = results[name][0]
+        del q, k, v, kv_mask
         _release()
     rec.update({"max_abs_err": results["main"][0],
                 "max_abs_err_lse": results["main"][1],
                 "max_abs_err_train": results["train_fused"][0],
                 "max_abs_err_all_cases": max(e[0] for e in results.values())})
     return rec
+
+
+def _kv_mask(kind, b, sk, gen):
+    """None; "pad": random keys kept, keys 0..127 of batch 0 masked (its
+    causal rows 0..127 wholly); "lengths": BERT's key padding, row i
+    keeping its first ``len_i`` keys, ``len_i`` in [sk / 2, sk], but
+    batch 0 none and batch 1 the first 100 (key tiles the padding
+    admits whole, cuts and refuses whole, and rows with no key)."""
+    if kind == "pad":
+        kv_mask = torch.rand((b, sk), generator=gen, device="cuda") > 0.3
+        kv_mask[0, :128] = False
+        return kv_mask
+    if kind == "lengths":
+        lens = torch.randint(sk // 2, sk + 1, (b, 1), generator=gen,
+                             device="cuda")
+        lens[0], lens[1] = 0, 100
+        return torch.arange(sk, device="cuda")[None, :] < lens
+    return None
 
 
 def _max_err(got, want) -> float:
@@ -672,18 +725,19 @@ def phase_backward(other_src=None):
         ("llama_train", 4, 2048, 2048, 32, 64, bf16, True, None, None),
         ("llama_train_window", 4, 2048, 2048, 32, 64, bf16, True, 511,
          None),
+        # BERT-base's training shape, non-causal, bare and key-padded.
+        ("bert_train", 32, 512, 512, 12, 64, bf16, False, None, "fused"),
+        ("bert_train_kv_mask", 32, 512, 512, 12, 64, bf16, False, None,
+         "lengths"),
     ]
-    timed = {"main_train": None, "llama_train": None,
-             "llama_train_window": 511}
+    timed = ("main_train", "llama_train", "llama_train_window",
+             "bert_train", "bert_train_kv_mask")
     kept = {}
     worst = {"dq": 0.0, "dkv": 0.0}
     for name, b, sq, sk, h, d, dtype, causal, window, extra in cases:
-        q, k, v = _qkv(b, sq, sk, h, d, dtype, gen, fused=extra == "fused")
-        kv_mask = None
-        if extra == "pad":
-            kv_mask = torch.rand((b, sk), generator=gen,
-                                 device="cuda") > 0.3
-            kv_mask[0, :128] = False  # causal rows 0..127 of batch 0: empty
+        q, k, v = _qkv(b, sq, sk, h, d, dtype, gen,
+                       fused=extra in ("fused", "lengths"))
+        kv_mask = _kv_mask(extra, b, sk, gen)
         scale = d ** -0.5
         o, lse = flash._flash_forward_kernel(q, k, v, kv_mask, causal,
                                              scale, window)
@@ -705,11 +759,14 @@ def phase_backward(other_src=None):
             ok &= err <= tol and bool(torch.isfinite(g.float()).all())
             errs.append(err)
             tols.append(tol)
-        if extra == "pad":
+        if kv_mask is not None:   # masked keys: exact zero dK, dV
             gone = ~kv_mask[:, :, None, None]
-            ok &= bool((got[0][0, :128] == 0).all()) and bool(
-                (got[1].masked_select(gone) == 0).all()) and bool(
+            ok &= bool((got[1].masked_select(gone) == 0).all()) and bool(
                 (got[2].masked_select(gone) == 0).all())
+        if extra == "pad":        # wholly masked causal rows: zero dQ
+            ok &= bool((got[0][0, :128] == 0).all())
+        if extra == "lengths":    # batch 0 keeps no key: zero dQ
+            ok &= bool((got[0][0] == 0).all())
         print(f"[backward] {name}: B={b} Sq={sq} Sk={sk} H={h} D={d} "
               f"{str(dtype)[6:]} causal={causal} window={window} "
               f"extra={extra}: max|d dQ|={errs[0]:.3e} (tol {tols[0]:.2e}) "
@@ -722,38 +779,40 @@ def phase_backward(other_src=None):
         worst["dq"] = max(worst["dq"], errs[0])
         worst["dkv"] = max(worst["dkv"], errs[1], errs[2])
         if name in timed:
-            kept[name] = (q, k, v, o, lse, do, scale, errs)
+            kept[name] = ((q, k, v, o, lse, do, scale, errs),
+                          dict(window=window, causal=causal,
+                               kv_mask=kv_mask))
         del q, k, v, o, lse, do, got, want
 
     other = other_backward(other_src) if other_src else None
-    recs = _time_backward("main_train", *kept.pop("main_train"), worst,
-                          other=other)
-    for name, window in timed.items():
-        if name in kept:
-            more = _time_backward(name, *kept.pop(name), None,
-                                  window=window)
-            for which in recs:
-                recs[which][name] = more[which]
-            _release()
+    args, _ = kept.pop("main_train")
+    recs = _time_backward("main_train", *args, worst, other=other)
+    for name in timed[1:]:
+        args, kw = kept.pop(name)
+        more = _time_backward(name, *args, None, **kw)
+        for which in recs:
+            recs[which][name] = more[which]
+        del args, kw
+        _release()
     return recs
 
 
 def _time_backward(label, q, k, v, o, lse, do, scale, errs, worst, *,
-                   window=None, other=None):
-    """Device times of dq and dkv at one causal shape (``window``: a
-    sliding window): the kernels, their plain versions, SDPA's backward
-    and the bounds; with ``other`` (another build) both builds in turns.
-    ``worst``: the largest errors over all cases (the main shape's
-    record carries them)."""
+                   window=None, causal=True, kv_mask=None, other=None):
+    """Device times of dq and dkv at one shape (``window``: a sliding
+    window; ``causal``; ``kv_mask``: key padding): the kernels, their
+    plain versions, SDPA's backward and the bounds; with ``other``
+    (another build) both builds in turns.  ``worst``: the largest
+    errors over all cases (the main shape's record carries them)."""
     from polyaxon_tpu_torch.ops import flash
 
-    args, _ = flash._bwd_kernel_args(q, k, v, None, o, lse, do, True, scale,
-                                     window)
-    plain_args = (q, k, v, None, o, lse, do, True, scale, window)
+    args, _ = flash._bwd_kernel_args(q, k, v, kv_mask, o, lse, do, causal,
+                                     scale, window)
+    plain_args = (q, k, v, kv_mask, o, lse, do, causal, scale, window)
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2)
-    sdpa = _sdpa_fn(qt, kt, vt, scale, window)
+    sdpa = _sdpa_fn(qt, kt, vt, scale, window, causal, kv_mask)
     # SDPA's backward: forward + backward captured together (autograd
     # runs the backward on its forward's stream, which must be the
     # capturing one), less the forward alone.
@@ -779,8 +838,8 @@ def _time_backward(label, q, k, v, o, lse, do, scale, errs, worst, *,
         t_kernel = graph_ms(kernel)
         t_eager = eager_ms(kernel)
         t_plain = graph_ms(lambda: plain(*plain_args), calls=2, reps=5)
-        t_bound, bound_by = bound(q, k, True, window, None, q_like=q_like,
-                                  kv_like=kv_like, rows=2,
+        t_bound, bound_by = bound(q, k, causal, window, kv_mask,
+                                  q_like=q_like, kv_like=kv_like, rows=2,
                                   flop_per_pair=fpp)
         rec = {"max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
                "library_ms": t_lib, "bound_ms": t_bound,
@@ -788,8 +847,8 @@ def _time_backward(label, q, k, v, o, lse, do, scale, errs, worst, *,
         if worst is not None:
             rec["max_abs_err_all_cases"] = worst[which]
         line = (f"[backward] {which} {label} at {list(q.shape)} "
-                f"{str(q.dtype)[6:]} causal"
-                f"{f' window {window}' if window else ''}, device "
+                f"{str(q.dtype)[6:]} {_mask_label(causal, window, kv_mask)}"
+                f", device "
                 f"time (CUDA graph): kernel {t_kernel:.4f} ms, plain "
                 f"{t_plain:.4f} ms, bound {t_bound:.4f} ms ({bound_by}); "
                 f"eager call {t_eager:.4f} ms; sdpa backward (dq+dk+dv) "
@@ -2521,19 +2580,17 @@ def _check_per_step(counts, steps: int, layers: int, where: str,
                              f"{layers} dq and {layers} dkv a step)")
 
 
-def phase_train_entry(name: str = "gpt2-medium", steps: int = 3,
-                      batch: int = 8, fwd_passes: int = 1):
-    """``python -m polyaxon_tpu_torch.train --model NAME`` as a user runs
-    it (in-process, its checkpoints in a temporary home): the flash
-    launch counts of the run (a step: ``fwd_passes`` forward launches a
-    layer, 2 under remat, and one dq and one dkv), and a finite loss on
-    every logged step; then the checkpoint it wrote is served
-    (``phase_checkpoint``) before the home is removed."""
-    import contextlib
+@contextlib.contextmanager
+def _train_main(argv):
+    """``python -m polyaxon_tpu_torch.train ARGV`` as a user runs it
+    (in-process, its run ``chip-smoke`` and checkpoints in a temporary
+    home): yields a record of its output lines, its flash launches, its
+    seconds, the trained model as ``train.main`` held it, its checkpoint
+    directory and the run store, until the home is removed."""
     import io
-    import re
 
     from polyaxon_tpu_torch import checkpoint, train
+    from polyaxon_tpu_torch.client import FileRunStore
 
     out = io.StringIO()
     live = {}
@@ -2554,9 +2611,7 @@ def phase_train_entry(name: str = "gpt2-medium", steps: int = 3,
             t0 = time.perf_counter()
             _zero_counts()
             with contextlib.redirect_stdout(out):
-                rc = train.main(["--model", name, "--steps",
-                                 str(steps), "--log-every", "1",
-                                 "--batch-size", str(batch)])
+                rc = train.main(argv)
             torch.cuda.synchronize()
             counts = _counts()
             secs = time.perf_counter() - t0
@@ -2567,21 +2622,96 @@ def phase_train_entry(name: str = "gpt2-medium", steps: int = 3,
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-        for line in out.getvalue().splitlines():
+        lines = out.getvalue().splitlines()
+        for line in lines:
             print(f"[train.main] {line}")
         losses = [float(m) for m in re.findall(
             r"^step \d+/\d+ loss=(\S+)", out.getvalue(), re.M)]
-        if rc != 0 or len(losses) != steps or \
-                not all(np.isfinite(losses)):
+        if rc != 0 or not losses or not all(np.isfinite(losses)):
             raise AssertionError(f"train.main: exit {rc}, losses {losses}")
-        trained = live.pop("model").eval()
+        yield {"lines": lines, "losses": losses, "counts": counts,
+               "secs": secs, "model": live.pop("model"),
+               "dir": live["dir"], "store": FileRunStore(home),
+               "home": home}
+
+
+def phase_train_entry(name: str = "gpt2-medium", steps: int = 3,
+                      batch: int = 8, fwd_passes: int = 1,
+                      init_hf_from=None):
+    """``python -m polyaxon_tpu_torch.train --model NAME`` as a user runs
+    it: the flash launch counts of the run (a step: ``fwd_passes``
+    forward launches a layer, 2 under remat, and one dq and one dkv),
+    and a finite loss on every logged step; then the checkpoint it wrote
+    is served (``phase_checkpoint``) before the home is removed.
+
+    ``init_hf_from`` (a state dict): the run starts from ``--init-hf``
+    of a file ``export_hf_llama`` wrote from a model holding it
+    (``torch.save``, as a user brings an HF checkpoint), with ``--seed
+    1`` (the weights are seed 0's, so a random init would differ); its
+    first tracked loss must equal the source model's loss on the same
+    batch."""
+    argv = ["--model", name, "--steps", str(steps), "--log-every", "1",
+            "--batch-size", str(batch)]
+    want = None
+    with contextlib.ExitStack() as stack:
+        if init_hf_from is not None:
+            tmp = stack.enter_context(tempfile.TemporaryDirectory())
+            path = os.path.join(tmp, "hf.pt")
+            want, export_s = _export_hf_source(name, batch, init_hf_from,
+                                               path, seed=1)
+            argv += ["--init-hf", path, "--seed", "1"]
+        run = stack.enter_context(_train_main(argv))
+        counts, secs = run["counts"], run["secs"]
+        trained = run["model"].eval()
+        if len(run["losses"]) != steps:
+            raise AssertionError(f"train.main: {run['losses']}")
         _check_per_step(counts, steps, trained.cfg.num_layers,
                         f"train.main {name}", fwd_passes)
         print(f"[train.main] {name} batch {batch}, {steps} steps in "
               f"{secs:.1f} s (model init, data, steps and the final "
               f"checkpoint); flash launches {counts}")
-        phase_checkpoint(live["dir"], trained, name)
+        if want is not None:
+            got = run["store"].read_events("chip-smoke", "metric",
+                                           "loss")[0]["value"]
+            rel = abs(got - want) / abs(want)
+            ok = rel <= 1e-5
+            print(f"[zoo] --init-hf round trip: {name} (seed 0's weights)"
+                  f" -> export_hf_llama -> torch.save "
+                  f"({export_s:.1f} s) -> train.main --init-hf: first step "
+                  f"loss {got:.6f} vs the source model's {want:.6f} on the "
+                  f"same batch (rel {rel:.2e}, tol 1e-5) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("--init-hf: the first loss is not the "
+                                     "source model's")
+        phase_checkpoint(run["dir"], trained, name)
     return counts, secs
+
+
+def _export_hf_source(name, batch, state_dict, path, seed):
+    """A model holding ``state_dict`` (float32 masters, as ``train.main``
+    holds them), its loss on the first batch ``train.main --seed SEED``
+    draws, and ``torch.save`` of ``export_hf_llama`` of it at ``path``:
+    (the loss, seconds of the export and save)."""
+    from polyaxon_tpu_torch import train
+    from polyaxon_tpu_torch.models.import_hf import export_hf_llama
+    from polyaxon_tpu_torch.models.registry import get_model
+
+    spec = get_model(name)
+    model = spec.make_model(device="cuda", param_dtype=torch.float32)
+    model.load_state_dict(state_dict)
+    model.train()
+    args = train.build_argparser().parse_args(["--model", name, "--seed",
+                                               str(seed)])
+    first = next(train.make_datasets(args, spec, batch)[0].epoch(0))
+    with torch.no_grad():
+        want = spec.loss_fn(model)(first)[0].item()
+    t0 = time.perf_counter()
+    torch.save(export_hf_llama(model, model.cfg), path)
+    secs = time.perf_counter() - t0
+    del model
+    _release()
+    return want, secs
 
 
 def phase_checkpoint(ckpt_dir, trained, name="gpt2-medium"):
@@ -2753,6 +2883,348 @@ def phase_grad_route(layers: int = 4):
                                  "plain-attention route")
         del model, flash_g, plain_g
         _release()
+
+
+ZOO_POLICY = "dots_with_no_batch_dims_saveable"
+
+
+def _route_grads(model, loss_of, layers: int, where: str):
+    """(loss, logits, grads) through the flash route (``layers`` launches
+    of each kernel) and through the plain-attention route, then the
+    worst relative differences: (loss rel, logits rel, grad rel, at)."""
+    from polyaxon_tpu_torch.ops import attention
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss, logits = loss_of(model)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), logits.detach(), {
+            n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+    _zero_counts()
+    flash = run()
+    counts = _counts()
+    eligible = attention.flash_eligible
+    try:
+        attention.flash_eligible = lambda *a, **kw: False
+        plain = run()
+    finally:
+        attention.flash_eligible = eligible
+    if counts != {n: layers for n in counts} or \
+            any(_counts()[n] != layers for n in counts):
+        raise AssertionError(f"{where}: flash launches {counts}, then "
+                             f"{_counts()} after the plain route")
+    worst, at = 0.0, ""
+    for name, g in plain[2].items():
+        rel = (flash[2][name] - g).abs().max().item() / max(
+            g.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, at = rel, name
+    logits_rel = (flash[1] - plain[1]).abs().max().item() / \
+        plain[1].abs().max().item()
+    return abs(flash[0] - plain[0]) / abs(plain[0]), logits_rel, worst, at
+
+
+def _zoo_bert():
+    """(a) BERT-base MLM at full width and depth, bf16 on float32 master
+    weights, 32 x 512: ``train.main`` for 3 steps (12 forward, 12 dq and
+    12 dkv launches a step: every layer's non-causal attention through
+    the flash kernels), a timed ``TrainStep`` loop (step ms, tok/s, MFU
+    of ``_bert_train_flops``), and at 2 layers of its width in float32
+    the flash route's loss, logits and gradients against plain
+    attention, without and with a padded ``attention_mask`` (the
+    kernels' ``kv_mask``)."""
+    import torch.nn.functional as F
+
+    from polyaxon_tpu_torch import prng
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.parallel import make_train_step
+    from polyaxon_tpu_torch.train import make_optimizer
+
+    name, steps, batch = "bert-base", 3, 32
+    with _train_main(["--model", name, "--steps", str(steps),
+                      "--log-every", "1", "--batch-size",
+                      str(batch)]) as run:
+        layers = run["model"].cfg.num_layers
+        _check_per_step(run["counts"], steps, layers, "train.main bert")
+        main_counts = run["counts"]
+        print(f"[zoo] bert-base train.main, batch {batch} x 512, {steps} "
+              f"steps in {run['secs']:.1f} s (init, steps, the final "
+              f"checkpoint): losses "
+              + ", ".join(f"{v:.4f}" for v in run["losses"])
+              + f"; flash launches {main_counts} ({layers} / {layers} / "
+              f"{layers} a step)")
+    _release()
+    spec = get_model(name)
+    model = spec.init_params(seed=0, device="cuda", train=True)
+    step_fn = make_train_step(spec.loss_fn(model),
+                              make_optimizer("adamw", 1e-4))
+    state = step_fn.init_state(model)
+    data = {"inputs": torch.as_tensor(spec.make_batch(batch)["inputs"],
+                                      device="cuda")}
+    key = prng.PRNGKey(0, device="cuda")
+    state, _ = step_fn(state, data, prng.fold_in(key, 0))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, metrics = step_fn(state, data, prng.fold_in(key, 1))
+    torch.cuda.synchronize()
+    step_counts = _counts()
+    _check_per_step(step_counts, 1, layers, "bert TrainStep")
+    t0 = time.perf_counter()
+    for i in range(5):
+        state, metrics = step_fn(state, data, prng.fold_in(key, 2 + i))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 5
+    flops = spec.train_flops(batch)
+    rec = {"step_ms": step_s * 1e3, "tok_per_s": batch * 512 / step_s,
+           "mfu": flops / step_s / 989e12,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": float(metrics["loss"]),
+           "masked_tokens": int(metrics["masked_tokens"])}
+    if not np.isfinite(rec["loss"]):
+        raise AssertionError(f"bert TrainStep: loss {rec['loss']}")
+    print(f"[zoo] bert-base TrainStep batch {batch} x 512 bf16 (f32 master "
+          f"weights, AdamW, MLM mask 0.15 from the step's key): "
+          f"{rec['step_ms']:.2f} ms a step (5 steps), "
+          f"{rec['tok_per_s']:.0f} tok/s, MFU {rec['mfu']:.4f} "
+          f"({flops / 1e12:.2f} TFLOP a step, floor "
+          f"{flops / 989e12 * 1e3:.2f} ms); peak memory "
+          f"{rec['peak_memory_gb']:.2f} GB; loss {rec['loss']:.4f} over "
+          f"{rec['masked_tokens']} masked tokens; flash launches a step "
+          f"{step_counts}")
+    del state, step_fn, model
+    _release()
+    small = spec.init_params(seed=0, device="cuda", train=True,
+                             dtype=torch.float32, num_layers=2)
+    tokens = torch.as_tensor(spec.make_batch(4)["inputs"], device="cuda")
+    pad = torch.ones_like(tokens)
+    pad[1, 300:] = 0
+    pad[3, 130:] = 0
+    for label, am in (("no mask", None), ("padded attention_mask", pad)):
+        def loss_of(m, am=am):
+            logits = m(tokens, attention_mask=am)
+            keep = torch.ones_like(tokens, dtype=torch.bool) \
+                if am is None else am.bool()
+            return F.cross_entropy(logits[keep], tokens[keep]), logits
+        loss_rel, logits_rel, worst, at = _route_grads(
+            small, loss_of, 2, f"bert route ({label})")
+        ok = loss_rel <= 1e-5 and logits_rel <= 1e-4 and worst <= 1e-4
+        print(f"[zoo] bert-base width, 2 layers, float32, {label}: flash "
+              f"vs plain attention: loss rel {loss_rel:.2e} (tol 1e-5), "
+              f"logits max|d| / max|logit| {logits_rel:.2e} (tol 1e-4), "
+              f"max |d grad| / max |grad| {worst:.2e} at {at} (tol 1e-4) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"bert flash route disagrees with plain "
+                                 f"attention ({label})")
+    del small
+    _release()
+    rec.update(main_counts=main_counts, step_counts=step_counts)
+    return rec
+
+
+def _zoo_resnet(steps: int = 5, batch: int = 128):
+    """(b) ResNet-50 at batch 128 x 224 x 224, bf16 convolutions on
+    float32 master weights, SGD with momentum (the example's): img/s
+    (the baseline's metric, on one card), MFU of
+    ``_RESNET50_TRAIN_FLOPS_PER_IMG``, the batch norms' running averages
+    moved by a step, eval-mode logits finite, and whether it runs
+    channels-last."""
+    from polyaxon_tpu_torch.models.layers import batch_stats
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.parallel import make_train_step
+    from polyaxon_tpu_torch.train import make_optimizer
+
+    spec = get_model("resnet50")
+    model = spec.init_params(seed=0, device="cuda", train=True)
+    step_fn = make_train_step(spec.loss_fn(model),
+                              make_optimizer("sgd", 0.1))
+    state = step_fn.init_state(model)
+    data = {k: torch.as_tensor(v, device="cuda")
+            for k, v in spec.make_batch(batch).items()}
+    for _ in range(2):                      # warm-up: cuDNN picks kernels
+        state, metrics = step_fn(state, data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = [b.clone() for b in batch_stats(model)]
+    _zero_counts()
+    state, metrics = step_fn(state, data)
+    torch.cuda.synchronize()
+    counts = _counts()
+    moved = sum(not torch.equal(a, b)
+                for a, b in zip(before, batch_stats(model)))
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step_fn(state, data)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    with torch.no_grad():
+        x = data["inputs"].to(model.cfg.dtype).permute(0, 3, 1, 2)
+        stem = model.stem_conv(x)
+        logits = model(data["inputs"], train=False)
+    channels_last = stem.is_contiguous(memory_format=torch.channels_last)
+    flops = spec.train_flops(batch)
+    rec = {"step_ms": step_s * 1e3, "img_per_s": batch / step_s,
+           "mfu": flops / step_s / 989e12,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": float(metrics["loss"]), "channels_last": channels_last,
+           "flash_launches": counts}
+    ok = moved == len(before) and bool(torch.isfinite(logits).all()) and \
+        logits.shape == (batch, 1000) and np.isfinite(rec["loss"]) and \
+        all(v == 0 for v in counts.values())
+    print(f"[zoo] resnet50 batch {batch} x 224 x 224 bf16 (f32 master "
+          f"weights, f32 batch norm, SGD momentum 0.9): "
+          f"{rec['step_ms']:.2f} ms a step ({steps} steps), "
+          f"{rec['img_per_s']:.1f} img/s, MFU {rec['mfu']:.4f} "
+          f"({flops / 1e12:.2f} TFLOP a step); peak memory "
+          f"{rec['peak_memory_gb']:.2f} GB; loss {rec['loss']:.4f}; "
+          f"running averages moved by a step: {moved} of {len(before)}; "
+          f"eval-mode logits finite {list(logits.shape)}; channels_last: "
+          f"{channels_last}; flash launches {counts} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("resnet50 training check failed")
+    del state, step_fn, model, data, stem, logits
+    _release()
+    return rec
+
+
+def _cli_env(home):
+    """The environment a ``ptpu-torch`` subprocess gets: a temporary
+    home, this checkout on the path, no run of this process's."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("POLYAXON_TPU_RUN_UUID", "POLYAXON_TPU_HOST")}
+    env.update({
+        "POLYAXON_TPU_HOME": home,
+        "PYTHONPATH": os.pathsep.join(
+            [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+        "POLYAXON_TPU_SERVICE_READY_TIMEOUT": "180"})
+    return env
+
+
+def _zoo_mnist():
+    """(c) ``run -f mnist.yaml`` as a user types it: the MLP on digits to
+    the example's ``eval_accuracy>=0.95`` target, read back through the
+    store."""
+    from polyaxon_tpu_torch.client import FileRunStore
+    from polyaxon_tpu_torch.lifecycle import V1Statuses
+
+    with tempfile.TemporaryDirectory() as home:
+        store = FileRunStore(home)
+        rc, out, wall = _ptpu(_cli_env(home), "run", "-f",
+                              os.path.join(EXAMPLES, "mnist.yaml"),
+                              "--no-watch")
+        uuid = _uuid_of(out)
+        rec = store.get_run(uuid)
+        logs = store.read_logs(uuid)
+        acc = rec["outputs"].get("eval_accuracy")
+        evals = store.read_events(uuid, "metric", "eval_accuracy")
+        ok = rc == 0 and rec["status"] == V1Statuses.SUCCEEDED and \
+            acc is not None and acc >= 0.95 and \
+            "reached" in logs and "on cuda" in logs
+        print(f"[zoo] run -f mnist.yaml: {rec['status']}, `run` wall "
+              f"{wall:.1f} s; eval_accuracy by step "
+              + ", ".join(f"{e['step']}: {e['value']:.4f}" for e in evals)
+              + f"; outputs.eval_accuracy {acc} (target 0.95) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"run mnist.yaml: exit {rc}\n{out[-2000:]}"
+                                 f"\n{logs[-3000:]}")
+    return {"wall_s": wall, "eval_accuracy": acc}
+
+
+def phase_zoo():
+    """The baseline's training zoo on the card: (a) BERT-base MLM,
+    (b) ResNet-50, (c) ``run -f mnist.yaml``.  (d) ``--init-hf`` and
+    (e) a named remat policy ride TinyLlama's phases
+    (``phase_train_entry(..., init_hf_from=...)``, ``phase_zoo_remat``).
+    Returns the records."""
+    recs = {}
+    for label, fn in (("bert-base", _zoo_bert), ("resnet50", _zoo_resnet),
+                      ("mnist run -f", _zoo_mnist)):
+        t0 = time.perf_counter()
+        recs[label] = fn()
+        print(f"[time] zoo: {label} {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def phase_zoo_remat(state_dict, full, steps: int = 3):
+    """(e) TinyLlama at batch 4 x 2048 under the named remat policy
+    ``dots_with_no_batch_dims_saveable`` (the dense layers' outputs
+    saved, attention and the flash kernel recomputed): step ms and peak
+    memory against ``full`` (``phase_llama_train``'s whole-layer remat,
+    same weights and protocol), launches a step (44 / 22 / 22: the flash
+    forward runs again); and at 2 layers of its width in float32 the
+    policy's gradients equal whole-layer remat's."""
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.parallel import make_train_step
+    from polyaxon_tpu_torch.train import make_optimizer
+
+    t0 = time.perf_counter()
+    spec = get_model(LLAMA)
+    model = spec.make_model(device="cuda", param_dtype=torch.float32,
+                            remat_policy=ZOO_POLICY)
+    model.load_state_dict(state_dict)
+    model.train()
+    step_fn = make_train_step(spec.loss_fn(model),
+                              make_optimizer("adamw", 1e-3))
+    state = step_fn.init_state(model)
+    batch = {"inputs": torch.as_tensor(spec.make_batch(4)["inputs"],
+                                       device="cuda")}
+    state, metrics = step_fn(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _check_per_step(counts, 1, model.cfg.num_layers,
+                    f"llama TrainStep {ZOO_POLICY}", fwd_passes=2)
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"step_ms": step_ms, "peak_memory_gb": peak,
+           "mfu": spec.train_flops(4) / step_ms * 1e3 / 989e12,
+           "flash_launches": counts}
+    print(f"[zoo] {LLAMA} batch 4 x 2048 remat_policy={ZOO_POLICY}: "
+          f"{step_ms:.2f} ms a step ({steps} steps), MFU {rec['mfu']:.4f}, "
+          f"peak memory {peak:.2f} GB, against whole-layer remat "
+          f"{full['step_ms']:.2f} ms and {full['peak_memory_gb']:.2f} GB; "
+          f"loss {float(metrics['loss']):.4f}; flash launches a step "
+          f"{counts}")
+    del state, step_fn, model
+    _release()
+    tokens = torch.as_tensor(spec.make_batch(1)["inputs"], device="cuda")
+    grads = {}
+    for policy in (None, ZOO_POLICY):
+        small = spec.init_params(seed=0, device="cuda", train=True,
+                                 dtype=torch.float32, num_layers=2,
+                                 remat_policy=policy)
+        loss, _ = spec.loss_fn(small)({"inputs": tokens})
+        loss.backward()
+        grads[policy] = (loss.item(), {n: p.grad for n, p in
+                                       small.named_parameters()})
+        del small
+    (l0, g0), (l1, g1) = grads[None], grads[ZOO_POLICY]
+    worst = max((g1[n] - g).abs().max().item() / max(
+        g.abs().max().item(), 1e-30) for n, g in g0.items())
+    ok = abs(l1 - l0) <= 1e-6 * abs(l0) and worst <= 1e-6
+    print(f"[zoo] {LLAMA} width, 2 layers, float32: {ZOO_POLICY} vs "
+          f"whole-layer remat: loss {l1:.6f} vs {l0:.6f}, max |d grad| / "
+          f"max |grad| {worst:.2e} (tol 1e-6) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{ZOO_POLICY} gradients differ from "
+                             f"whole-layer remat")
+    del grads
+    _release()
+    print(f"[time] zoo: named remat policy {time.perf_counter() - t0:.1f} s")
+    return rec
 
 
 LLAMA = "tinyllama-1.1b"
@@ -4407,8 +4879,12 @@ def phase_profiling(model, model_f32, name="gpt2-medium"):
         # mixed load (distinct prompt lengths, half sampled: nothing
         # merges) and on the merge load (one shape, all greedy).
         t0 = time.perf_counter()
+        # For the script's time the serialized modes take the first 8 of
+        # the mixed load's 16 requests (one at a time either way: their
+        # tok/s does not grow with the count; 29-32 s a mode at 16).
         out["modes"] = {**modes, **{
-            mode: _mode_load(model, mode, {"mixed": bodies, "merge": merge})
+            mode: _mode_load(model, mode, {"mixed": bodies[:8],
+                                           "merge": merge})
             for mode in ("coalesce", "off")}}
         if out["modes"]["coalesce"]["merge"]["coalesced_batches"] < 1:
             raise AssertionError(f"bf16 coalesce: the merge load merged "
@@ -4550,30 +5026,26 @@ def _run_job(env, store, train_secs):
 
 
 def _run_sweep(env, store, home):
-    """The ``hyperband`` matrix: 6 trials (batch 2 x 256 of a seeded token
-    stream; ``-P model=gpt2-small``, for the script's time:
-    a trial's 4.26 GB GPT-2 medium checkpoint took 7-9 s to write),
-    three at a time (a ``--preset`` of ``matrix.concurrency``, for the
-    script's time: each rung then runs in one wave), scheduled as the
-    port's ``tune`` schedules them for the sweep's seed: the same
-    configs and steps, and the promoted trial the one of lowest rung-0
-    loss."""
+    """The BASELINE's configuration 4: ``convnet_hyperband.yaml``, the
+    hyperband matrix over the CIFAR-10 ConvNet (seeded synthetic
+    batches; batch size and lr from the example's search space), cut by
+    a ``--preset`` to ``maxIterations`` 3 (two brackets, 6 trials),
+    three at a time (six at once took longer: 72.6 s against 64.2 s,
+    their start-ups contending for the host's cores): the trials are the port's hyperband schedule for
+    the sweep's seed (rung 0 and the fresh bracket's suggestions, the
+    promoted trial one of rung 0's best accuracy), each trained at its
+    suggestion, and ``best_run`` the highest ``outputs.accuracy``."""
     from polyaxon_tpu_torch.lifecycle import V1Statuses
     from polyaxon_tpu_torch.polyaxonfile import check_polyaxonfile
     from polyaxon_tpu_torch.tune import HyperbandManager
 
-    data = os.path.join(home, "tokens")
-    os.makedirs(data)
-    np.save(os.path.join(data, "tokens.npy"), np.random.RandomState(0)
-            .randint(0, 50257, 2 * 256 * 32).astype(np.int32))
-    path = os.path.join(EXAMPLES, "hyperband.yaml")
-    preset = os.path.join(home, "concurrency.json")
+    path = os.path.join(EXAMPLES, "convnet_hyperband.yaml")
+    preset = os.path.join(home, "sweep.json")
+    cut = {"maxIterations": 3, "concurrency": 3}
     with open(preset, "w") as f:  # JSON is YAML
-        json.dump({"isPreset": True, "matrix": {"concurrency": 3}}, f)
-    rc, out, wall = _ptpu(env, "run", "-f", path, "-P",
-                          f"data_dir={data}", "-P", "batch_size=2", "-P",
-                          "seq_len=256", "-P", "model=gpt2-small",
-                          "--preset", preset, "--no-watch")
+        json.dump({"isPreset": True, "matrix": cut}, f)
+    rc, out, wall = _ptpu(env, "run", "-f", path, "--preset", preset,
+                          "--no-watch")
     sweep = store.get_run(_uuid_of(out))
     trials = store.list_runs(pipeline=sweep["uuid"], sort="created_at")
     bad = [(t["name"], t["status"]) for t in trials
@@ -4583,47 +5055,48 @@ def _run_sweep(env, store, home):
         raise AssertionError(f"sweep: exit {rc}, status {sweep['status']},"
                              f" {len(trials)} trials, failed {bad}\n"
                              f"{out[-3000:]}")
-    # The schedule hyperband gives for this seed: bracket 1 samples 3
-    # configs at 2 steps and promotes the one of lowest loss to 6 steps;
-    # bracket 0 samples 2 more at 6 steps.
-    matrix = check_polyaxonfile([path], params={"data_dir": data}).matrix
-    mgr = HyperbandManager(matrix)
+    op = check_polyaxonfile([path], presets=[preset])
+    mgr = HyperbandManager(op.matrix)
     (r0, r1), (f0,) = mgr.rungs(1), mgr.rungs(0)
     small, full = mgr.resource_value(r0), mgr.resource_value(r1)
-    losses = {t["uuid"]: t["outputs"]["loss"] for t in trials}
-    got = [t["meta_info"]["matrix_values"] for t in trials]
+    acc = {t["uuid"]: t["outputs"]["accuracy"] for t in trials}
+    values = [t["meta_info"]["matrix_values"] for t in trials]
     rung0 = [{**p, "steps": small} for p in mgr.initial_suggestions(1)]
     fresh = [{**p, "steps": mgr.resource_value(f0)}
              for p in mgr.initial_suggestions(0)]
-    results = [{"params": {"lr": t["meta_info"]["matrix_values"]["lr"]},
-                "metric": losses[t["uuid"]]} for t in trials
-               if t["meta_info"]["matrix_values"]["steps"] == small]
-    if len({r["metric"] for r in results}) != len(rung0):
-        raise AssertionError(f"rung 0 losses tie: {results}")
-    top = mgr.select_top(results, mgr.promote_count(1, 0))
-    promoted = [{**r["params"], "steps": full} for r in top]
-    key = (lambda p: (p["steps"], p["lr"]))
-    if sorted(got, key=key) != sorted(rung0 + promoted + fresh, key=key):
-        raise AssertionError(f"trials {got} != the schedule: {rung0}, "
-                             f"{promoted}, {fresh}")
-    if any(t["inputs"].get("lr") != t["meta_info"]["matrix_values"]["lr"]
-           for t in trials):
-        raise AssertionError("a trial trained at another lr than its "
-                             "suggestion")
-    best = min(trials, key=lambda t: losses[t["uuid"]])
-    if sweep["outputs"].get("best_run") != best["uuid"]:
+    key = (lambda p: (p["steps"], p["lr"], p["batch_size"]))
+    first = [t for t in trials
+             if t["meta_info"]["matrix_values"]["steps"] == small]
+    promoted = [v for v in values if v["steps"] == full
+                and {**v, "steps": small} in rung0]
+    best0 = max(acc[t["uuid"]] for t in first)
+    if sorted([v for v in values if v not in promoted], key=key) != \
+            sorted(rung0 + fresh, key=key) or len(promoted) != 1 or \
+            max(acc[t["uuid"]] for t in first
+                if t["meta_info"]["matrix_values"]
+                == {**promoted[0], "steps": small}) != best0:
+        raise AssertionError(f"trials {values} != the schedule: {rung0}, "
+                             f"one of rung 0's best at {full} steps, "
+                             f"{fresh}")
+    if any(t["inputs"].get(k) != t["meta_info"]["matrix_values"][k]
+           for t in trials for k in ("lr", "batch_size")):
+        raise AssertionError("a trial trained at another lr or batch size "
+                             "than its suggestion")
+    best = max(acc.values())
+    if acc.get(sweep["outputs"].get("best_run")) != best:
         raise AssertionError(f"best_run {sweep['outputs'].get('best_run')}"
-                             f" != argmin outputs.loss {best['uuid']}")
-    print(f"[run] hyperband.yaml: {sweep['status']}, 6 trials succeeded "
-          f"(3 at a time), `run` wall {wall:.1f} s; trials == the port's "
-          f"hyperband schedule for seed {matrix.seed}; best_run == argmin "
-          f"outputs.loss ({losses[best['uuid']]:.4f}, lr "
-          f"{best['inputs']['lr']:.3g})")
+                             f" has not the highest outputs.accuracy "
+                             f"{best}")
+    print(f"[run] convnet_hyperband.yaml (preset {cut}): {sweep['status']}, "
+          f"6 trials succeeded, `run` wall {wall:.1f} s; trials == the "
+          f"port's hyperband schedule for seed {op.matrix.seed}; best_run "
+          f"has the highest outputs.accuracy ({best:.4f})")
     for t in trials:
         mv = t["meta_info"]["matrix_values"]
-        print(f"[run]   {t['name']}: lr {mv['lr']:.4g}, {mv['steps']} "
-              f"step(s), loss {losses[t['uuid']]:.4f}, "
-              f"{t['duration']:.1f} s: {_split(store, t['uuid'])}")
+        print(f"[run]   {t['name']}: lr {mv['lr']:.4g}, batch "
+              f"{mv['batch_size']}, {mv['steps']} step(s), accuracy "
+              f"{acc[t['uuid']]:.4f}, {t['duration']:.1f} s: "
+              f"{_split(store, t['uuid'])}")
 
 
 def _service_tokens(base, bodies):
@@ -4744,19 +5217,14 @@ def _run_service(env, store, home):
 def phase_run(train_secs: float):
     """``python -m polyaxon_tpu_torch.cli run -f <example>`` in a
     temporary home, as a user types it: the ``job`` (GPT-2 medium
-    training, tracked and profiled), the ``hyperband`` matrix of GPT-2
-    medium trials and the GPT-2 medium ``service``; each result read back
-    through the port's store.  Returns the flash launches by path."""
+    training, tracked and profiled), the ConvNet ``hyperband`` matrix
+    (the baseline's configuration 4) and the GPT-2 medium ``service``;
+    each result read back through the port's store.  Returns the flash
+    launches by path."""
     from polyaxon_tpu_torch.client import FileRunStore
 
     with tempfile.TemporaryDirectory() as home:
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("POLYAXON_TPU_RUN_UUID", "POLYAXON_TPU_HOST")}
-        env.update({
-            "POLYAXON_TPU_HOME": home,
-            "PYTHONPATH": os.pathsep.join(
-                [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
-            "POLYAXON_TPU_SERVICE_READY_TIMEOUT": "180"})
+        env = _cli_env(home)
         store = FileRunStore(home)
         t0 = time.perf_counter()
         job = _run_job(env, store, train_secs)
@@ -4855,6 +5323,8 @@ def main(argv=None) -> int:
     phase_grad_route()
     mark("gradient route check")
     _release()
+    zoo = phase_zoo()
+    mark("zoo: bert-base, resnet50, mnist run -f")
     model, model_f32 = llama_models()
     mark("llama init")
     llama_forward = phase_forward(model, model_f32, LLAMA, 2048,
@@ -4877,18 +5347,21 @@ def main(argv=None) -> int:
     del model_f32
     _release()
     llama_train = phase_llama_train(weights)
-    del weights
     mark("llama timed training")
+    llama_remat = phase_zoo_remat(weights, llama_train)
+    mark("zoo: llama named remat policy")
     llama_main_counts, _ = phase_train_entry(LLAMA, steps=1, batch=4,
-                                             fwd_passes=2)
-    mark("llama train.main and checkpoint serving")
+                                             fwd_passes=2,
+                                             init_hf_from=weights)
+    del weights
+    mark("llama train.main from --init-hf and checkpoint serving")
     phase_llama_grad_route()
     mark("llama gradient route check (full and windowed)")
     phase_mistral()
     mark("mistral-tiny serving")
     _release()
     run_counts = phase_run(train_secs)
-    mark("run -f: job, hyperband sweep, service")
+    mark("run -f: job, convnet hyperband sweep, service")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = recs[name]
@@ -4930,6 +5403,12 @@ def main(argv=None) -> int:
                     "paged"][name],
                 "int8_http_paged": int8["flash_launches"]["http"][name],
                 "ring_engine": ring["flash_launches"][name],
+                "bert_train_main": zoo["bert-base"]["main_counts"][name],
+                "bert_train_step": zoo["bert-base"]["step_counts"][name],
+                "resnet50_train_step": zoo["resnet50"][
+                    "flash_launches"][name],
+                "llama_train_remat_policy": llama_remat[
+                    "flash_launches"][name],
                 **{k: v[name] for k, v in
                    fleet["flash_launches"].items()},
                 **{k: v[name] for k, v in

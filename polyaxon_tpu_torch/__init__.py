@@ -9,9 +9,12 @@ is copied here.
                       for Hopper (``csrc/flash_fwd.cu``) with its plain
                       PyTorch version beside it.
 - ``ops.attention``:  ``dot_product_attention`` routing flash / plain.
-- ``models``:         GPT-2 (``gpt2``), its decode cache (``kv_cache``),
-                      greedy generation (``generate``), the registry.
-- ``convert``:        flax GPT-2 params (as numpy) -> a torch state dict.
+- ``models``:         GPT-2 (``gpt2``), the Llama family (``llama``),
+                      the training zoo (``mlp``, ``convnet``, ``resnet``,
+                      ``bert``, ``train_mnist``), the decode cache
+                      (``kv_cache``), generation (``generate``),
+                      HuggingFace interop (``import_hf``), the registry.
+- ``convert``:        flax params (as numpy) -> a torch state dict.
 - ``cli``:            ``python -m polyaxon_tpu_torch.cli generate``.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; they

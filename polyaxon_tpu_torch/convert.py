@@ -1,10 +1,15 @@
-"""Carry flax GPT-2 and Llama-family weights across to the port.
+"""Carry flax weights across to the port: GPT-2, the Llama family,
+BERT, the MLP, the ConvNet and ResNet (its ``batch_stats`` onto the
+batch norms' running buffers).
 
 The caller turns the flax param tree into numpy
 (``jax.tree.map(np.asarray, variables["params"])``); this module never
-imports JAX.  Both flax layouts are read: the scanned stack
-(``h/block/<leaf>`` with a leading [num_layers] axis) and the unrolled
-one (``h_{i}/<leaf>``).
+imports JAX.  Both flax layouts of a layer stack are read: the scanned
+one (``h/block/<leaf>``, BERT's ``layers/layer/<leaf>``, with a leading
+[num_layers] axis) and the unrolled one (``h_{i}/<leaf>``,
+``layer_{i}/<leaf>``).  Dense kernels ``[in, out]`` become
+``weight [out, in]``, convolution kernels HWIO become OIHW, norm
+``scale`` becomes ``weight``.
 
 A tree the reference's ``quantize_params`` made carries its int8 leaves
 across too: a leaf with ``.q`` and ``.scale`` (its ``QuantizedTensor``,
@@ -109,26 +114,31 @@ def _scale_of(x):
     return x["scale"] if isinstance(x, Mapping) else x.scale
 
 
-def _layer_trees(params: Mapping, num_layers: int) -> Iterator[Mapping]:
-    """Yield each layer's param tree, from either layout."""
-    if "h" in params:
-        stacked = params["h"]["block"]
+def _layer_trees(params: Mapping, num_layers: int, stack=("h", "block"),
+                 unrolled: str = "h_") -> Iterator[Mapping]:
+    """Yield each layer's param tree, from either layout: the scanned
+    ``params[stack[0]][stack[1]]`` or the unrolled
+    ``params[f"{unrolled}{i}"]``."""
+    outer, inner = stack
+    if outer in params:
+        stacked = params[outer][inner]
         depth = len(np.asarray(_first_leaf(stacked)))
         if depth != num_layers:
             raise ValueError(f"params stack {depth} layers; cfg has "
                              f"{num_layers}")
         for i in range(num_layers):
             yield _index(stacked, i)
-    elif "h_0" in params:
-        depth = sum(1 for key in params if key.startswith("h_"))
+    elif f"{unrolled}0" in params:
+        depth = sum(1 for key in params if key.startswith(unrolled)
+                    and key[len(unrolled):].isdigit())
         if depth != num_layers:
             raise ValueError(f"params hold {depth} layers; cfg has "
                              f"{num_layers}")
         for i in range(num_layers):
-            yield params[f"h_{i}"]
+            yield params[f"{unrolled}{i}"]
     else:
-        raise ValueError("params hold neither a scanned 'h' stack nor "
-                         "unrolled 'h_{i}' blocks")
+        raise ValueError(f"params hold neither a scanned {outer!r} stack "
+                         f"nor unrolled '{unrolled}{{i}}' layers")
 
 
 def _at(tree: Mapping, path: str):
@@ -190,6 +200,105 @@ def llama_state_dict_from_jax(params: Mapping,
         for mod in _LLAMA_NORMS:
             sd[f"h.{i}.{mod}.weight"] = _t(layer[mod]["scale"],
                                            scales=scales)
+    return sd
+
+
+def _dense(sd: dict, name: str, tree: Mapping, bias: bool = True) -> None:
+    sd[f"{name}.weight"] = _t(tree["kernel"], True)
+    if bias:
+        sd[f"{name}.bias"] = _t(tree["bias"])
+
+
+def _norm(sd: dict, name: str, tree: Mapping) -> None:
+    sd[f"{name}.weight"] = _t(tree["scale"])
+    sd[f"{name}.bias"] = _t(tree["bias"])
+
+
+def _conv(sd: dict, name: str, tree: Mapping) -> None:
+    sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(tree["kernel"]).transpose(3, 2, 0, 1)))
+    if "bias" in tree:
+        sd[f"{name}.bias"] = _t(tree["bias"])
+
+
+def mlp_state_dict_from_jax(params: Mapping,
+                            cfg) -> Dict[str, torch.Tensor]:
+    """The flax MLP param tree -> the port's state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(cfg.features)):
+        _dense(sd, f"fc{i + 1}", params[f"fc{i + 1}"])
+    _dense(sd, "head", params["head"])
+    return sd
+
+
+def convnet_state_dict_from_jax(params: Mapping,
+                                cfg) -> Dict[str, torch.Tensor]:
+    """The flax ConvNet param tree -> the port's state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(cfg.widths)):
+        for j in range(2):
+            name = f"block{i + 1}_conv{j + 1}"
+            _conv(sd, name, params[name])
+    _dense(sd, "fc1", params["fc1"])
+    _dense(sd, "head", params["head"])
+    return sd
+
+
+def resnet_state_dict_from_jax(params: Mapping, cfg,
+                               batch_stats: Mapping = None
+                               ) -> Dict[str, torch.Tensor]:
+    """The flax ResNet tree -> the port's state dict: ``params`` (or a
+    gradient tree) onto the parameters and, given, ``batch_stats``
+    (``mean``, ``var``) onto each batch norm's ``running_mean`` and
+    ``running_var``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def norm(name, path):
+        _norm(sd, name, _at(params, path))
+        if batch_stats is not None:
+            stats = _at(batch_stats, path)
+            sd[f"{name}.running_mean"] = _t(stats["mean"])
+            sd[f"{name}.running_var"] = _t(stats["var"])
+
+    _conv(sd, "stem_conv", params["stem_conv"])
+    norm("stem_bn", "stem_bn")
+    for i, count in enumerate(cfg.stage_sizes):
+        for j in range(count):
+            block = f"stage{i + 1}_block{j + 1}"
+            pairs = [("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3")]
+            if "proj_conv" in params[block]:
+                pairs.append(("proj_conv", "proj_bn"))
+            for conv, bn in pairs:
+                _conv(sd, f"{block}.{conv}", params[block][conv])
+                norm(f"{block}.{bn}", f"{block}/{bn}")
+    _dense(sd, "head", params["head"])
+    return sd
+
+
+def bert_state_dict_from_jax(params: Mapping,
+                             cfg) -> Dict[str, torch.Tensor]:
+    """The flax BERT param tree -> the port's state dict, from the
+    scanned ``layers/layer`` stack or unrolled ``layer_{i}`` layers.  A
+    tree without ``type_embed`` (flax creates it only when a call passes
+    ``token_type_ids``) carries zeros there."""
+    sd: Dict[str, torch.Tensor] = {
+        "embed.weight": _t(params["embed"]["embedding"]),
+        "pos_embed.weight": _t(params["pos_embed"]["embedding"]),
+        "type_embed.weight": _t(params["type_embed"]["embedding"])
+        if "type_embed" in params else
+        torch.zeros(cfg.type_vocab_size, cfg.hidden_size),
+        "mlm_bias": _t(params["mlm_bias"]),
+    }
+    _norm(sd, "ln_embed", params["ln_embed"])
+    _dense(sd, "mlm_dense", params["mlm_dense"])
+    _norm(sd, "mlm_ln", params["mlm_ln"])
+    for i, layer in enumerate(_layer_trees(
+            params, cfg.num_layers, ("layers", "layer"), "layer_")):
+        for path in ("attn/qkv", "attn/o_proj", "fc1", "fc2"):
+            _dense(sd, f"layers.{i}.{path.replace('/', '.')}",
+                   _at(layer, path))
+        for mod in ("ln_attn", "ln_mlp"):
+            _norm(sd, f"layers.{i}.{mod}", layer[mod])
     return sd
 
 

@@ -60,7 +60,9 @@
 //   LSE log2 e)) with 32-bit positions and three kinds of tile, as in the
 //   forward: whole (no mask test), causal diagonal (-inf by one compare a
 //   score, then the whole tile's path), and the full rule (window edge,
-//   key padding).
+//   key padding).  Key padding counts only where it cuts: dq votes on
+//   each key tile's bytes (admitted whole: unpadded; refused whole: -inf
+//   on the fast path), dkv on each warp's 16 keys once a work tile.
 // - Streamed tiles are 128 rows at D = 64 and 64 rows at D = 128, so each
 //   consumer's S, dP and f32 accumulators fit its registers (no spills,
 //   no serialised wgmma).  Outputs are staged through a swizzled
@@ -269,11 +271,15 @@ __device__ __forceinline__ void ds_tile(float (&s)[N / 2],
                                         const float (&dp)[N / 2], int kv0,
                                         int tig, const DqRows& r,
                                         const Params& p) {
-  const bool plain = r.kv_row == nullptr && p.scale_log2 > 0.0f;
+  // Key padding that admits the whole tile is no padding here; one that
+  // refuses it whole gives P = 0 through -inf on the fast path.
+  const int pad = r.kv_row ? padding_of<N>(r.kv_row, kv0) : 1;
+  const bool plain = pad == 1 && p.scale_log2 > 0.0f;
   const bool whole = plain && (!p.causal || kv0 + N - 1 <= r.qw_lo) &&
                      (!p.has_window ||
                       r.qw_lo + WG_ROWS - 1 - kv0 <= p.window);
   const bool diagonal = !whole && plain && p.causal && !p.has_window;
+  const bool refused = pad == 0 && p.scale_log2 > 0.0f;
   if (diagonal) {
     const int last0 = r.qpos[0] - kv0 - 2 * tig;
     const int last1 = r.qpos[1] - kv0 - 2 * tig;
@@ -281,8 +287,11 @@ __device__ __forceinline__ void ds_tile(float (&s)[N / 2],
     for (int i = 0; i < N / 2; ++i)
       if (8 * (i >> 2) + (i & 1) > ((i & 2) ? last1 : last0))
         s[i] = __int_as_float(0xff800000u);
+  } else if (refused) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) s[i] = __int_as_float(0xff800000u);
   }
-  if (whole || diagonal)
+  if (whole || diagonal || refused)
     ds_pass<true, N>(s, dp, kv0, tig, r, p);
   else
     ds_pass<false, N>(s, dp, kv0, tig, r, p);
@@ -455,7 +464,7 @@ struct DkvRows {
   int kpos[2];    // their positions
   int kw_lo;      // the warpgroup's first key
   bool kv_ok[2];  // not padded
-  bool padded;    // the batch has a key-padding mask
+  bool padded;    // the padding refuses a key of this warp
 };
 
 template <bool FAST, int N>
@@ -606,11 +615,13 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_k,
       const int kv0 = ikv * BLK;
       const uint8_t* kv_row =
           p.kv_mask ? p.kv_mask + static_cast<long long>(b) * p.Sk : nullptr;
+      const bool ok0 = kv_row == nullptr || kv_row[kv0 + row0] != 0;
+      const bool ok1 = kv_row == nullptr || kv_row[kv0 + row0 + 8] != 0;
+      // A warp whose keys the padding admits all is unpadded.
       const DkvRows r{{kv0 + row0, kv0 + row0 + 8},
                       kv0 + wg * WG_ROWS,
-                      {kv_row == nullptr || kv_row[kv0 + row0] != 0,
-                       kv_row == nullptr || kv_row[kv0 + row0 + 8] != 0},
-                      kv_row != nullptr};
+                      {ok0, ok1},
+                      !__all_sync(0xffffffffu, ok0 && ok1)};
       int qb, qe;
       q_tiles<BM>(kv0, n_q, q_shift, p, &qb, &qe);
 

@@ -47,6 +47,9 @@
 //   only the causal diagonal cuts sets the refused scores to -inf with
 //   one compare against a row bound and then takes the same path; any
 //   other (window edge, key padding) runs the full per-element rule.
+//   Key padding counts only on a tile it cuts (a warp vote over the
+//   tile's bytes): one it admits whole is unpadded, one it refuses whole
+//   is all -inf on the fast path.
 //   The two consumer warpgroups take turns on named barriers, so one
 //   warpgroup's softmax runs under the other's wgmma, and each overlaps
 //   its own softmax of tile t with its PV product of tile t - 1.
@@ -114,15 +117,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
                                              int kv0, const RowCtx& rc,
                                              const Params& p) {
   const float c = p.scale_log2;
+  // Key padding that admits the whole tile is no padding here.
+  const int pad = rc.kv_row ? padding_of<BKV>(rc.kv_row, kv0) : 1;
   const bool whole =
       (!p.causal || kv0 + BKV - 1 <= rc.qw_lo) &&
       (!p.has_window || rc.qw_lo + WG_ROWS - 1 - kv0 <= p.window) &&
-      rc.kv_row == nullptr && c > 0.0f;
+      pad == 1 && c > 0.0f;
   // A tile only the causal diagonal cuts: refuse with -inf, then take the
   // whole tile's path (ex2(-inf) = 0; a row refused whole keeps m and
-  // gets 0s).
-  const bool diagonal = !whole && p.causal && !p.has_window &&
-                        rc.kv_row == nullptr && c > 0.0f;
+  // gets 0s).  A tile the padding refuses whole: all -inf, the same path.
+  const bool diagonal = !whole && p.causal && !p.has_window && pad == 1 &&
+                        c > 0.0f;
+  const bool refused = pad == 0 && c > 0.0f;
   if (diagonal) {
     const int last0 = rc.qpos[0] - kv0 - 2 * rc.tig;
     const int last1 = rc.qpos[1] - kv0 - 2 * rc.tig;
@@ -130,8 +136,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
     for (int i = 0; i < 64; ++i)
       if (8 * (i >> 2) + (i & 1) > ((i & 2) ? last1 : last0))
         s[i] = __int_as_float(0xff800000u);
+  } else if (refused) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = __int_as_float(0xff800000u);
   }
-  const bool fast = whole || diagonal;
+  const bool fast = whole || diagonal || refused;
   float mt[2];
   if (fast) {
     // Scores admitted or -inf, scale > 0: max(x) = max(S) * c.

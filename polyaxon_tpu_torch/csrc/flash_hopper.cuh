@@ -28,6 +28,27 @@ constexpr int THREADS = 384;     // two consumer warpgroups, one producer
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// ---- key padding
+
+// How the key-padding bytes of a batch (0 or 1 each, ops/flash.py's
+// _mask_bytes) treat the N keys kv0 .. kv0 + N - 1: 1 when they admit
+// every key, 0 when they refuse every key, -1 when they cut the tile.  One
+// load a lane and a warp vote (every lane of the warp must call it), so a
+// tile the padding leaves whole takes the unmasked path and only the
+// tile a row's padding starts in takes the per-element rule.
+template <int N>
+__device__ __forceinline__ int padding_of(const uint8_t* kv_row, int kv0) {
+  static_assert(N == 64 || N == 128, "key tiles of 64 or 128 keys");
+  const int lane = threadIdx.x & 31;
+  const uint32_t w =
+      N == 128 ? *reinterpret_cast<const uint32_t*>(kv_row + kv0 + 4 * lane)
+               : *reinterpret_cast<const uint16_t*>(kv_row + kv0 + 2 * lane);
+  const uint32_t ones = N == 128 ? 0x01010101u : 0x0101u;
+  if (__all_sync(0xffffffffu, w == ones)) return 1;
+  if (__all_sync(0xffffffffu, w == 0u)) return 0;
+  return -1;
+}
+
 // ---- mbarriers and TMA
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {

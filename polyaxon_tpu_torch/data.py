@@ -10,13 +10,18 @@ batches in both packages:
   loaded with ``mmap_mode="r"`` so datasets larger than RAM stream.
 - ``synthetic_dataset``: a deterministic pool of synthetic batches
   cycled with reshuffling.
+- ``digits_dataset``: the 1,797 8x8 digit images with a held-out eval
+  split, read from the package's own copy of scikit-learn's
+  ``digits.csv.gz`` (``assets/``; scikit-learn, BSD-3, from UCI's
+  optdigits), parsed as ``sklearn.datasets.load_digits`` parses it.
 - ``TokenWindowDataset`` / ``token_dataset``: random fixed-length LM
   windows from one long token stream.
 - ``prefetch_to_device``: a background thread that turns the next
   batches into tensors in pinned host memory and copies them onto the
   device without blocking, so the host copy overlaps device compute.
 
-The digits and span-corruption datasets come with a later slice.
+The span-corruption dataset comes with T5 (ROADMAP Queue 1: The rest of
+the zoo).
 """
 
 from __future__ import annotations
@@ -135,6 +140,43 @@ def synthetic_dataset(spec, batch_size: int, *, pool_batches: int = 64,
     pool = spec.make_batch(batch_size * pool_batches)
     return ArrayDataset({k: np.asarray(v) for k, v in pool.items()},
                         batch_size, shuffle=True, seed=seed)
+
+
+DIGITS_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "assets", "digits.csv.gz")
+
+
+def load_digits():
+    """(images float64 [1797, 8, 8], labels int [1797]) from the
+    packaged ``digits.csv.gz``: 64 pixel columns then the label, as
+    ``sklearn.datasets.load_digits`` reads it (its ``images`` and
+    ``target``)."""
+    import gzip
+
+    with gzip.open(DIGITS_CSV, "rt") as f:
+        data = np.loadtxt(f, delimiter=",")
+    return data[:, :-1].reshape(-1, 8, 8), data[:, -1].astype(int)
+
+
+def digits_dataset(batch_size: int, *, split: str = "train",
+                   eval_fraction: float = 0.2, seed: int = 0
+                   ) -> ArrayDataset:
+    """Real 10-class image data available offline: 1797 8x8 grayscale
+    digits, images / 16 as float32 ``[N, 8, 8, 1]``, with the
+    reference's deterministic train/eval split.  The eval split keeps
+    its remainder batch — truncating the held-out set would bias the
+    reported accuracy."""
+    images, labels = load_digits()
+    images = (images / 16.0).astype("float32")[..., None]
+    labels = labels.astype("int32")
+    order = np.arange(len(images))
+    np.random.RandomState(seed).shuffle(order)
+    n_eval = int(len(images) * eval_fraction)
+    idx = order[n_eval:] if split == "train" else order[:n_eval]
+    train = split == "train"
+    return ArrayDataset({"inputs": images[idx], "labels": labels[idx]},
+                        min(batch_size, len(idx)),
+                        shuffle=train, drop_remainder=train, seed=seed)
 
 
 class TokenWindowDataset(_EpochIterable):

@@ -12,9 +12,10 @@ each weight is cast to ``cfg.dtype`` at its use as flax's ``Dense`` and
 bf16 weight).  Served with int8 weights (``ops/quant.py``), ``wte``,
 ``wpe``, the dense layers and (at full width) the stacked LayerNorm
 leaves dequantize where they are read: the quantized ``wte`` feeds
-both the lookup and the tied head.  ``cfg.remat`` recomputes each block in the backward
-(``torch.utils.checkpoint``, the counterpart of ``nn.remat`` with no
-policy).  Sharding hints have no meaning on one device and are
+both the lookup and the tied head.  ``cfg.remat`` recomputes each
+block in the backward (``torch.utils.checkpoint``, the counterpart of
+``nn.remat``), keeping the outputs ``cfg.remat_policy`` names
+(``layers.py``).  Sharding hints have no meaning on one device and are
 dropped.  Parameter names follow the flax tree
 (``wte``, ``wpe``, ``h.{i}.{ln1,qkv,o_proj,ln2,fc1,fc2}``, ``ln_f``) so
 ``convert.gpt2_state_dict_from_jax`` maps one onto the other.
@@ -32,7 +33,7 @@ from torch import nn
 from .. import default_device
 from ..ops.attention import dot_product_attention
 from .kv_cache import KVCache, LayerCache, append_kv_cache
-from .layers import Dense, model_device, refuse_unported, run_stack
+from .layers import Dense, check_remat_policy, model_device, run_stack
 
 
 @dataclass(frozen=True)
@@ -44,8 +45,8 @@ class GPT2Config:
     max_position: int = 1024
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # remat: recompute each block in the backward.  Named policies are
-    # not ported yet and are refused (refuse_unported).
+    # remat: recompute each block in the backward, keeping what the
+    # named policy saves (layers.py; None = save nothing).
     remat: bool = False
     remat_policy: Optional[str] = None
     # The flax param layout (stacked [num_layers] vs h_{i}); the port
@@ -133,7 +134,7 @@ class GPT2Model(nn.Module):
 
     def __init__(self, cfg: GPT2Config, device=None, param_dtype=None):
         super().__init__()
-        refuse_unported(cfg)
+        check_remat_policy(cfg)
         device = default_device(device)
         self.cfg = cfg
         pd = param_dtype or cfg.dtype

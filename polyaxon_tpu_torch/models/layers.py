@@ -1,13 +1,31 @@
-"""Pieces the zoo's decoders share: the dense layer holding its
-parameters in one type and computing in another (an int8 weight and
-bias dequantize at this read, ``ops/quant.py``), the layer stack (remat
-in training, the cache in decode), and the refusal of config options
-that later slices of the port carry.
+"""Pieces the zoo shares: the dense layer holding its parameters in one
+type and computing in another (an int8 weight and bias dequantize at
+this read, ``ops/quant.py``), flax's convolution and batch norm over
+channels-last NCHW tensors, the layer stack (remat in training, the
+cache in decode), and the named remat policies.
+
+Remat policies: ``remat_policy`` names a ``jax.checkpoint_policies``
+member the repo uses.  Each block runs under ``torch.utils.checkpoint``
+with a selective-checkpoint policy that keeps the outputs the jax
+policy saves and recomputes the rest in the backward:
+
+- ``None`` / ``nothing_saveable``: save nothing (whole-block remat);
+- ``dots_saveable``: every matmul's output (``mm``, ``addmm``, and the
+  batched ``bmm`` / ``baddbmm`` of the plain attention);
+- ``dots_with_no_batch_dims_saveable``: the matmuls with no batch dims,
+  the dense layers' ``mm`` / ``addmm``; attention's batched products are
+  recomputed;
+- ``everything_saveable``: every output, which is no remat at all.
+
+The flash kernel is not a matmul to either policy (an opaque custom call
+to XLA, a ctypes launch here): it runs again in the backward.  Any other
+name is refused.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,18 +50,151 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x, self.weight.to(dt),
+        return F.linear(x.to(dt), self.weight.to(dt),
                         None if self.bias is None else self.bias.to(dt))
 
 
-def refuse_unported(cfg) -> None:
-    """Refuse the config options of the zoo's decoders that later slices
-    of the port carry, each naming its ROADMAP item."""
-    if cfg.remat and cfg.remat_policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: named remat policies "
-            f"are not ported yet (ROADMAP Queue 1: Named remat policies); "
-            f"remat=True with remat_policy=None recomputes whole blocks")
+def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """flax/XLA "SAME" padding of one spatial dim: the total that makes
+    ``ceil(size / s)`` outputs, low = total // 2, high = the rest (so a
+    stride-2 window on an even size pads (0, 1), not torch's (1, 1))."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_hw(x, pads: Sequence[Tuple[int, int]], value: float = 0.0):
+    """Pad an NCHW tensor's H and W by ``((hl, hh), (wl, wh))``, done on
+    its NHWC view so a channels-last tensor stays channels-last."""
+    (hl, hh), (wl, wh) = pads
+    return F.pad(x.permute(0, 2, 3, 1), (0, 0, wl, wh, hl, hh),
+                 value=value).permute(0, 3, 1, 2)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over NCHW tensors (channels-last in memory):
+    an OIHW kernel held in ``param_dtype`` (flax's HWIO, transposed),
+    input, kernel and bias cast to ``dtype``.  ``padding``: "SAME" as
+    flax pads it (asymmetric pads through :func:`pad_hw`), or explicit
+    ``((hl, hh), (wl, wh))``."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1,
+                 *, dtype, param_dtype, device, bias: bool = True,
+                 padding="SAME"):
+        super().__init__()
+        self.kernel, self.stride, self.padding = kernel, stride, padding
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(
+            c_out, c_in, kernel, kernel, dtype=param_dtype, device=device))
+        self.bias = nn.Parameter(torch.empty(
+            c_out, dtype=param_dtype, device=device)) if bias else None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        pads = self.padding if self.padding != "SAME" else tuple(
+            _same_pads(n, self.kernel, self.stride) for n in x.shape[-2:])
+        x = x.to(dt)
+        if all(lo == hi for lo, hi in pads):
+            padding = tuple(lo for lo, _ in pads)
+        else:
+            x, padding = pad_hw(x, pads), 0
+        w = self.weight.to(dt, memory_format=torch.channels_last)
+        return F.conv2d(x, w, None if self.bias is None
+                        else self.bias.to(dt), self.stride, padding)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=eps, dtype=dtype)``
+    over the channel axis of an NCHW tensor.  Train mode normalizes by
+    the batch statistics, in float32 with flax's fast variance
+    (``mean(x^2) - mean^2``, biased), and advances the running averages
+    with them: ``ra = 0.9 ra + 0.1 batch`` (torch's ``momentum=0.1``,
+    but the BIASED variance, where ``F.batch_norm`` would keep the
+    unbiased one).  Eval mode normalizes by the running averages.  The
+    scale and bias are float32 (``scale_init`` zeros when
+    ``zero_scale``); the output is ``dtype``."""
+
+    def __init__(self, channels: int, *, device, dtype=torch.float32,
+                 momentum: float = 0.9, eps: float = 1e-5,
+                 zero_scale: bool = False):
+        super().__init__()
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.zero_scale = zero_scale
+        f32 = dict(dtype=torch.float32, device=device)
+        self.weight = nn.Parameter(torch.ones(channels, **f32))
+        self.bias = nn.Parameter(torch.zeros(channels, **f32))
+        self.register_buffer("running_mean", torch.zeros(channels, **f32))
+        self.register_buffer("running_var", torch.ones(channels, **f32))
+
+    def forward(self, x, train: bool):
+        x = x.float()
+        if train:
+            mean = x.mean((0, 2, 3))
+            var = torch.clamp_min(x.square().mean((0, 2, 3))
+                                  - mean.square(), 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+                self.running_var.mul_(m).add_(var, alpha=1 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y.to(self.dtype)
+
+
+def batch_stats(model: nn.Module) -> list:
+    """The batch norms' running averages: the model state a training
+    forward advances (flax's ``batch_stats`` collection)."""
+    return [b for m in model.modules() if isinstance(m, BatchNorm)
+            for b in (m.running_mean, m.running_var)]
+
+
+REMAT_POLICIES = ("nothing_saveable", "everything_saveable",
+                  "dots_saveable", "dots_with_no_batch_dims_saveable")
+
+
+def check_remat_policy(cfg) -> None:
+    """Refuse a ``remat_policy`` name that is not one of
+    :data:`REMAT_POLICIES`, naming it."""
+    name = getattr(cfg, "remat_policy", None)
+    if name is not None and name not in REMAT_POLICIES:
+        raise ValueError(
+            f"remat_policy={name!r}: Named remat policies the port "
+            f"implements are {list(REMAT_POLICIES)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _saved_ops(name: str) -> frozenset:
+    aten = torch.ops.aten
+    dense = {aten.mm.default, aten.addmm.default}
+    if name == "dots_with_no_batch_dims_saveable":
+        return frozenset(dense)
+    return frozenset(dense | {aten.bmm.default, aten.baddbmm.default})
+
+
+def _policy_context(name: str):
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    saved = _saved_ops(name)
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def remat_call(block: nn.Module, policy: Optional[str], *args):
+    """``block(*args)`` recomputed in the backward as ``policy`` (a
+    :data:`REMAT_POLICIES` name or None) says."""
+    if policy == "everything_saveable":
+        return block(*args)
+    if policy in (None, "nothing_saveable"):
+        return checkpoint(block, *args, use_reentrant=False)
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=functools.partial(_policy_context, policy))
 
 
 def model_device(model: nn.Module) -> torch.device:
@@ -57,12 +208,13 @@ def model_device(model: nn.Module) -> torch.device:
 def run_stack(blocks: nn.ModuleList, cfg, x,
               cache: Optional[KVCache] = None):
     """The layer stack: each block in turn, recomputed in the backward
-    under ``cfg.remat`` (training), or appending to ``cache`` (decode),
+    under ``cfg.remat`` as ``cfg.remat_policy`` says (training), or
+    appending to ``cache`` (decode),
     whose index then advances by the chunk's length."""
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, block in enumerate(blocks):
         if remat:
-            x = checkpoint(block, x, use_reentrant=False)
+            x = remat_call(block, cfg.remat_policy, x)
         else:
             x = block(x, None if cache is None else cache.layer(i))
     if cache is not None:

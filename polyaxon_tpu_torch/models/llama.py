@@ -42,7 +42,7 @@ from torch import nn
 from .. import default_device
 from ..ops.attention import dot_product_attention
 from ..ops.rotary import rotate
-from .layers import Dense, model_device, refuse_unported, run_stack
+from .layers import Dense, check_remat_policy, model_device, run_stack
 from .kv_cache import (KVCache, LayerCache, append_kv_cache,
                        append_ring_kv_cache)
 
@@ -214,7 +214,7 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
-        refuse_unported(cfg)
+        check_remat_policy(cfg)
         device = default_device(device)
         self.cfg = cfg
         pd = param_dtype or cfg.dtype

@@ -1,9 +1,12 @@
 """Model registry: name -> (constructor, loss, synthetic batch).
 
-Port of ``polyaxon_tpu/models/registry.py``'s GPT-2 and Llama-family
-entries: the same constructors, synthetic batches (numpy
-``RandomState(0)``, so both packages draw the same tokens), LM loss and
-analytic FLOP models.  The rest of the zoo comes with a later slice.
+Port of ``polyaxon_tpu/models/registry.py``: the GPT-2, Llama-family,
+MLP, ConvNet, ResNet-50 and BERT entries, with the same constructors,
+synthetic batches (numpy ``RandomState(0)``, so both packages draw the
+same tokens and images), losses (LM, classifier with accuracy, MLM with
+the reference's mask bits through ``prng.bernoulli``) and analytic FLOP
+models.  The T5, ViT and MoE-GPT entries are refused by name (ROADMAP
+Queue 1: The rest of the zoo).
 """
 
 from __future__ import annotations
@@ -15,9 +18,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import default_device
+from .. import default_device, prng
+from .bert import BertConfig, BertModel
+from .convnet import ConvNet, ConvNetConfig
 from .gpt2 import GPT2Config, GPT2Model
+from .layers import BatchNorm
 from .llama import LlamaConfig, LlamaModel
+from .mlp import MLP, MLPConfig
+from .resnet import ResNet, ResNetConfig
 
 
 def softmax_xent(logits, labels):
@@ -38,24 +46,37 @@ def _cfg_model(model_cls, base_cfg):
     return make
 
 
-def _init_decoder(model: torch.nn.Module,
+def _init_weights(model: torch.nn.Module,
                   generator: torch.Generator) -> None:
-    """Random init of a GPT-2 or Llama-family model from a seeded CPU
-    generator, so the weights are the same on every device.  Scales
-    follow flax's defaults: Dense kernels lecun-normal (std
-    1/sqrt(fan_in)), embeddings std 1/sqrt(hidden), zero biases, unit
-    LayerNorm and RMSNorm scales (the one-dimensional weights).  The
-    numbers differ from flax's; tests that compare with the reference
-    convert its params instead."""
+    """Random init of a zoo model from a seeded CPU generator, so the
+    weights are the same on every device.  Scales follow flax's
+    defaults: dense and convolution kernels lecun-normal (std
+    1/sqrt(fan_in), fan_in = every axis but the output one), embeddings
+    std 1/sqrt(hidden), zero biases, unit norm scales (the
+    one-dimensional weights), and a zero scale on the batch norms that
+    start their residual branch as the identity (ResNet's ``bn3``).
+    The numbers differ from flax's; tests that compare with the
+    reference convert its params instead."""
+    zero = {f"{name}.weight" for name, m in model.named_modules()
+            if isinstance(m, BatchNorm) and m.zero_scale}
     for name, p in model.named_parameters():
-        if name.endswith("bias"):
+        if name.endswith("bias") or name in zero:
             w = torch.zeros(p.shape)
         elif p.ndim == 1:
             w = torch.ones(p.shape)
         else:
             w = torch.randn(p.shape, generator=generator) \
-                * p.shape[-1] ** -0.5
+                * (p[0].numel()) ** -0.5
         p.data.copy_(w.to(p.dtype))
+
+
+def _image_batch(batch_size: int, hw: int, classes: int,
+                 channels: int = 3) -> Dict[str, np.ndarray]:
+    rng = np.random.RandomState(0)
+    return {
+        "inputs": rng.rand(batch_size, hw, hw, channels).astype("float32"),
+        "labels": rng.randint(0, classes, size=(batch_size,)),
+    }
 
 
 def _token_batch(batch_size: int, seq: int,
@@ -73,6 +94,41 @@ def _lm_loss(model):
         logits = model(tokens, train=True)
         l = softmax_xent(logits[:, :-1], tokens[:, 1:])
         return l, {"perplexity": torch.exp(l.detach())}
+    return loss
+
+
+def _classifier_loss(model):
+    """model -> loss(batch, rng=None) -> (loss, {"accuracy"}): softmax
+    cross-entropy over the labels, in train mode (batch norms normalize
+    by the batch and advance their running averages in place: the
+    reference's ``batch_stats`` merge; they never reach the aux)."""
+    def loss(batch, rng=None):
+        x = torch.as_tensor(batch["inputs"], device=model.device)
+        y = torch.as_tensor(batch["labels"], device=model.device).long()
+        logits = model(x, train=True)
+        acc = (logits.detach().argmax(-1) == y).float().mean()
+        return softmax_xent(logits, y), {"accuracy": acc}
+    return loss
+
+
+def _mlm_loss(model, mask_rate: float = 0.15, mask_id: int = 0):
+    """model -> loss(batch, rng) -> (loss, {"masked_tokens"}): the
+    reference's MLM objective.  ``bernoulli(rng, 0.15)`` picks the
+    masked positions bit for bit as ``jax.random.bernoulli`` (key
+    ``PRNGKey(0)`` without an rng), they read ``mask_id``, and the loss
+    is the cross-entropy at the masked positions over their count."""
+    def loss(batch, rng=None):
+        tokens = torch.as_tensor(batch["inputs"], device=model.device)
+        key = rng if rng is not None else prng.PRNGKey(0)
+        mask = prng.bernoulli(key.to(tokens.device), mask_rate,
+                              tokens.shape)
+        logits = model(torch.where(mask, mask_id, tokens), train=True)
+        per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  tokens.reshape(-1).long(),
+                                  reduction="none").view(tokens.shape)
+        count = mask.sum()
+        l = torch.where(mask, per_tok, 0.0).sum() / count.clamp_min(1)
+        return l, {"masked_tokens": count.detach()}
     return loss
 
 
@@ -111,6 +167,18 @@ def _gpt2_train_flops(cfg: GPT2Config, seq: int):
         head_params=cfg.hidden_size * cfg.vocab_size, causal=True)
 
 
+def _bert_train_flops(cfg: BertConfig, seq: int):
+    return lambda b: _transformer_train_flops(
+        b, layers=cfg.num_layers, hidden=cfg.hidden_size, seq=seq,
+        head_params=cfg.hidden_size * cfg.vocab_size,
+        intermediate=cfg.intermediate_size)
+
+
+# ResNet-50 at 224x224: ~4.1 GMACs fwd (8.2 GFLOPs); training ~= 3x fwd
+# (the reference's count).
+_RESNET50_TRAIN_FLOPS_PER_IMG = 3 * 8.2e9
+
+
 def _llama_train_flops(cfg: LlamaConfig, seq: int):
     # SwiGLU = 3 MLP matmuls (gate/up/down); GQA shrinks only the k/v
     # projections; attention score/PV FLOPs follow the QUERY head count.
@@ -139,6 +207,10 @@ class ModelSpec:
     train_flops: Optional[Callable[[int], float]] = None
     # The attention part of train_flops, as f(batch, cfg).
     attn_flops: Optional[Callable[[int, Any], float]] = None
+    # Config overrides a data sample's inputs imply (the classifiers'
+    # input width or channels: digits are 8x8x1 where the synthetic
+    # batch is 28x28x1), as f(inputs).  flax infers them at init.
+    input_overrides: Optional[Callable[[Any], Dict[str, Any]]] = None
 
     def init_params(self, batch_size: int = 2, seed: int = 0,
                     device=None, train: bool = False, **overrides):
@@ -155,7 +227,7 @@ class ModelSpec:
                                 else None, **overrides)
         gen = torch.Generator().manual_seed(seed)
         with torch.no_grad():
-            _init_decoder(model, gen)
+            _init_weights(model, gen)
         if train:
             return model.train()
         return model.eval().requires_grad_(False)
@@ -186,8 +258,46 @@ def _llama_spec(name: str, cfg: LlamaConfig, seq: int, batch: int,
         else None)
 
 
+def _image_spec(name: str, model_cls, cfg, hw: int, classes: int,
+                batch: int, channels: int = 3, flops=None,
+                overrides=None):
+    return ModelSpec(
+        name=name,
+        make_model=_cfg_model(model_cls, cfg),
+        make_batch=lambda b: _image_batch(b, hw, classes, channels),
+        loss_fn=_classifier_loss,
+        default_batch_size=batch,
+        train_flops=flops,
+        input_overrides=overrides or (
+            lambda x: {"in_channels": int(x.shape[-1])}))
+
+
+def _bert_spec(name: str, cfg: BertConfig, seq: int, batch: int,
+               flops: bool):
+    return ModelSpec(
+        name=name,
+        make_model=_cfg_model(BertModel, cfg),
+        make_batch=lambda b: _token_batch(b, seq, cfg.vocab_size),
+        loss_fn=_mlm_loss,
+        default_batch_size=batch,
+        train_flops=_bert_train_flops(cfg, seq) if flops else None,
+        attn_flops=_attn_only_flops(seq=seq, causal=False) if flops
+        else None)
+
+
 _REGISTRY: Dict[str, ModelSpec] = {
     spec.name: spec for spec in (
+        _image_spec("mlp", MLP, MLPConfig(), 28, 10, 64, channels=1,
+                    overrides=lambda x: {
+                        "in_features": int(np.prod(x.shape[1:]))}),
+        _image_spec("convnet", ConvNet, ConvNetConfig(), 32, 10, 128),
+        _image_spec("resnet50", ResNet, ResNetConfig(), 224, 1000, 128,
+                    flops=lambda b: b * _RESNET50_TRAIN_FLOPS_PER_IMG),
+        # CI-sized stand-in, same code path.
+        _image_spec("resnet50-tiny", ResNet, ResNetConfig(
+            stage_sizes=(1, 1, 1, 1), width=8, num_classes=10), 32, 10, 8),
+        _bert_spec("bert-base", BertConfig.base(), 512, 32, True),
+        _bert_spec("bert-tiny", BertConfig.tiny(), 64, 8, False),
         _gpt2_spec("gpt2-medium", GPT2Config.medium(), 1024, True),
         _gpt2_spec("gpt2-small", GPT2Config.small(), 1024, True),
         _gpt2_spec("gpt2-mini", GPT2Config.mini(), 256, False),
@@ -203,8 +313,21 @@ _REGISTRY: Dict[str, ModelSpec] = {
 }
 
 
+# The reference's models the port does not have yet.
+_NOT_PORTED = ("t5-", "vit-", "moe-gpt-")
+
+
 def get_model(name: str) -> ModelSpec:
     if name not in _REGISTRY:
+        if name.startswith(_NOT_PORTED):
+            raise KeyError(
+                f"model {name!r} is not ported yet: it comes with a later "
+                f"zoo slice of the port (ROADMAP Queue 1: The rest of the "
+                f"zoo); known: {sorted(_REGISTRY)}")
         raise KeyError(
             f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_models():
+    return sorted(_REGISTRY)

@@ -17,6 +17,9 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from .. import prng
+from ..models.layers import batch_stats
+
 
 def _check_one_device(mesh) -> None:
     """``mesh``: None, or axis sizes ({"dp": -1}, ...) that name one
@@ -38,9 +41,18 @@ class TrainStep:
     (``train.make_optimizer``), bound to the model by :meth:`init_state`.
     With ``grad_accum`` k the batch splits into k micro-batches along its
     first axis; loss, gradients and aux are averaged over them, as the
-    reference's scan does.  Metrics are the loss, ``grad_norm`` (the
+    reference's scan does, and micro-batch i draws from
+    ``fold_in(rng, i)``.  Metrics are the loss, ``grad_norm`` (the
     global L2 norm of the gradients before the update, optax's
-    ``global_norm``) and the aux, as device scalars."""
+    ``global_norm``) and the aux, as device scalars.
+
+    Batch-norm running averages (``layers.batch_stats``, the
+    reference's ``batch_stats`` riding the aux as ``__new_vars__``)
+    advance once a step and stay out of the metrics: the loss's train
+    forward advances them in place; under ``grad_accum`` every
+    micro-batch starts from the step's old averages and the step keeps
+    the mean of the k results, as the reference's scan averages its
+    stacked aux."""
 
     def __init__(self, loss_fn: Callable, optimizer: Callable,
                  mesh: Optional[Dict[str, int]] = None, *,
@@ -65,13 +77,24 @@ class TrainStep:
             micro = {k: torch.as_tensor(v).reshape(
                 (accum, v.shape[0] // accum) + tuple(v.shape[1:]))
                 for k, v in batch.items()}
+            stats = batch_stats(model)
+            old = [b.clone() for b in stats]
+            new = [torch.zeros_like(b) for b in stats]
             loss, aux = 0.0, {}
             for i in range(accum):
-                l, a = self.loss_fn({k: v[i] for k, v in micro.items()}, rng)
+                r = None if rng is None else prng.fold_in(rng, i)
+                l, a = self.loss_fn({k: v[i] for k, v in micro.items()}, r)
                 (l / accum).backward()
                 loss = loss + l.detach() / accum
                 for k, v in a.items():
                     aux[k] = aux.get(k, 0.0) + v.detach() / accum
+                with torch.no_grad():
+                    for b, o, n in zip(stats, old, new):
+                        n.add_(b)
+                        b.copy_(o)
+            with torch.no_grad():
+                for b, n in zip(stats, new):
+                    b.copy_(n / accum)
         else:
             loss, aux = self.loss_fn(batch, rng)
             loss.backward()

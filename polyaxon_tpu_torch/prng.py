@@ -31,7 +31,7 @@ from typing import Sequence, Tuple, Union
 import torch
 
 __all__ = ["PRNGKey", "fold_in", "split", "random_bits", "uniform",
-           "gumbel", "categorical", "threefry2x32"]
+           "bernoulli", "gumbel", "categorical", "threefry2x32"]
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -140,6 +140,14 @@ def uniform(key: torch.Tensor, shape: Sequence[int],
     span = float(torch.tensor(maxval, dtype=dtype) - lo)
     lo = float(lo)
     return torch.clamp_min(floats * span + lo, lo)
+
+
+def bernoulli(key: torch.Tensor, p: float,
+              shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` in its default "low"
+    mode: a float32 uniform below ``p`` (a Python float, which jax takes
+    as float32)."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int],

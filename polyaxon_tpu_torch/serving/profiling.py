@@ -347,6 +347,13 @@ class FlightRecorder:
         lands.  The profiler session stays owned ("recorder") until
         that stop completes, so a racing manual /profile/start still
         sees single-flight truth."""
+        self._seal(w)
+        self._spawn(self._finish, w)
+
+    def _seal(self, w: Dict[str, Any]) -> None:
+        """End the open window's bookkeeping (``_window_lock`` held):
+        the watchdog, the host wall, the mean position, the trace
+        instant."""
         self._window = None
         t = w.pop("_timer", None)
         if t is not None:
@@ -360,10 +367,37 @@ class FlightRecorder:
                              time.perf_counter(),
                              pid=ENGINE_PID, id=w["window"],
                              steps=w["steps"], tokens=w["tokens"])
-        t = threading.Thread(target=self._finish, args=(w,),
+
+    def _spawn(self, fn, w: Dict[str, Any]) -> None:
+        t = threading.Thread(target=fn, args=(w,),
                              name="flight-recorder", daemon=True)
         self._analyzer = t
         t.start()
+
+    def on_engine_restart(self) -> None:
+        """Supervisor recovery hook, on the DYING engine loop thread,
+        before the replacement loop starts.  That thread started the
+        open window's trace, and torch's profiler is stopped on the
+        thread that started it, so the window ends HERE, at the
+        steps it saw, and is analyzed like any other; later windows
+        and a manual ``/profile/start`` then find the session free,
+        as the reference's recorder goes on recording after a
+        restart."""
+        with self._window_lock:
+            w = self._window
+            if w is None:
+                return
+            self._seal(w)
+        try:
+            self.session.stop(owner="recorder")
+        except Exception as e:
+            with self._lock:
+                self.last_error = f"stop window {w['window']} at the " \
+                                  f"engine restart: " \
+                                  f"{type(e).__name__}: {e}"
+            self._retain_failed_dump(w["trace_dir"])
+            return
+        self._spawn(self._analyze, w)
 
     # -- background stop + analysis -------------------------------------
 

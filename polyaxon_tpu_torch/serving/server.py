@@ -1120,6 +1120,12 @@ class ModelServer:
         if self._prefix_configured:
             with self._stats_lock:
                 self._prefix_enabled = True
+        if self.recorder is not None:
+            # Profiler transitions run on the thread that started the
+            # trace: this dying loop thread.  A stop already handed to
+            # the loop runs here, then the open window ends.
+            self.engine._run_loop_calls()
+            self.recorder.on_engine_restart()
 
     # -- prefix cache: lookup / store --------------------------------------
 

@@ -11,16 +11,24 @@ Adam and SGD, which compute optax's updates.
 The run is tracked as the reference tracks it (``tracking``): it
 attaches to the managed run the env names (``ptpu-torch run -f``) or
 registers one, logs its inputs, the metrics of every logged step and the
-final ``loss``/``perplexity``/``accuracy`` outputs a sweep joins on, and
-ends the run ``succeeded``.  ``--profile-at`` captures a torch.profiler
-Chrome trace beside the checkpoints (the run's outputs in a managed run).
+final ``loss``/``perplexity``/``accuracy``/``eval_accuracy`` outputs a
+sweep joins on, and ends the run ``succeeded``.  ``--profile-at``
+captures a torch.profiler Chrome trace beside the checkpoints (the run's
+outputs in a managed run).
+
+Each step gets its key of the reference's chain (``prng.split`` of
+``PRNGKey(seed)``), which the MLM loss draws its mask from.  The digits
+dataset carries a held-out split: ``--eval-every`` (snapped up to the
+next log step) and the end of the run report ``eval_accuracy``, the
+model in eval mode (batch norms on their running averages).
+``--init-hf`` starts from a HuggingFace ``state_dict`` file through
+``models/import_hf.py`` (BERT, GPT-2 and the Llama family).
 
 Not ported yet, refused with a message naming the ROADMAP item that
 carries them: meshes of more than one device and multi-process runs
 (``--strategy``, ``--sp-mode``, a PTPU_* topology of more than one
-process: **Parallelism and meshes**), ``--init-hf``, the digits and
-span-corruption datasets and held-out eval (``--eval-every``): **Training,
-the remainder**.
+process: **Parallelism and meshes**), the span-corruption dataset and
+``--init-hf`` for ViT and T5 (**The rest of the zoo**).
 """
 
 from __future__ import annotations
@@ -62,7 +70,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--profile-steps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--init-hf", default=None, metavar="STATE_DICT",
-                   help="Initialize from a HF state_dict (not ported yet).")
+                   help="Initialize params from a torch state_dict "
+                        "file (HF checkpoint) instead of random init: "
+                        "the fine-tuning path, through the family's "
+                        "models/import_hf loader; dims must match "
+                        "--model.")
     p.add_argument("--data-dir", default=None,
                    help="Directory of inputs.npy/labels.npy (else "
                         "synthetic).")
@@ -70,14 +82,16 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["synthetic", "digits", "npy", "tokens",
                             "span-corruption"],
                    help="Input source (default: npy when --data-dir is "
-                        "given, else synthetic); 'tokens' samples LM "
-                        "windows from tokens.npy/tokens.bin under "
-                        "--data-dir.")
+                        "given, else synthetic).  'digits' is the real "
+                        "offline 10-class image set with a held-out "
+                        "split; 'tokens' samples LM windows from "
+                        "tokens.npy/tokens.bin under --data-dir.")
     p.add_argument("--seq-len", type=int, default=None,
                    help="Window length for --dataset tokens (default: "
                         "the model's synthetic batch seq length).")
     p.add_argument("--eval-every", type=int, default=0,
-                   help="Steps between held-out evals (not ported yet).")
+                   help="Steps between held-out evals (0 = end only; "
+                        "needs a dataset with an eval split).")
     p.add_argument("--prefetch", type=int, default=2,
                    help="Device-prefetch depth (0 disables).")
     p.add_argument("--cpu", action="store_true",
@@ -134,12 +148,52 @@ def make_optimizer(name: str, lr: float):
                                             weight_decay=0.01)
 
 
+def load_hf_init(model_name: str, model, path: str) -> None:
+    """Fine-tuning init: a torch ``state_dict`` file (an HF checkpoint)
+    mapped onto ``model`` by the family's ``models.import_hf`` loader.
+    The checkpoint's dims must match the zoo config: a mismatch raises
+    naming the tensor."""
+    import torch
+
+    from .convert import load_state_dict
+    from .models import import_hf
+
+    loader_name = _HF_LOADER_BY_FAMILY.get(model_name.split("-")[0])
+    if loader_name is None:
+        raise SystemExit(
+            f"--init-hf supports the {sorted(_HF_LOADER_BY_FAMILY)} "
+            f"families, not {model_name!r}")
+    state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    load_state_dict(model, getattr(import_hf, loader_name)(state_dict,
+                                                           model.cfg))
+
+
+_HF_LOADER_BY_FAMILY = {
+    "bert": "load_hf_bert",
+    "gpt2": "load_hf_gpt2",
+    "llama": "load_hf_llama",
+    "tinyllama": "load_hf_llama",
+    "mistral": "load_hf_llama",  # same block layout
+}
+
+# The reference's other loaders, refused before the model is built.
+_HF_NOT_PORTED = {
+    family: f"the {family} loader (models/import_hf.py {loader}) comes "
+            f"with the zoo slice that ports {family} (ROADMAP Queue 1: "
+            f"The rest of the zoo)"
+    for family, loader in (("vit", "load_hf_vit"), ("t5", "load_hf_t5"))}
+
+# Config overrides a family needs for HF-parity fine-tuning, applied to
+# the model when --init-hf is set.  bert: HF uses the exact (erf) GELU;
+# the zoo default is tanh.
+_HF_MODEL_KW = {
+    "bert": {"gelu_approximate": False},
+}
+
 _NOT_PORTED = {
-    "digits": "the digits dataset comes with the zoo slice of the port "
-              "(ROADMAP Queue 1: Training, the remainder)",
     "span-corruption": "the span-corruption dataset comes with the T5 "
-                       "(zoo) slice of the port (ROADMAP Queue 1: "
-                       "Training, the remainder)",
+                       "zoo slice of the port (ROADMAP Queue 1: The rest "
+                       "of the zoo)",
 }
 
 
@@ -162,7 +216,39 @@ def make_datasets(args, spec, batch_size: int):
             spec.make_batch(1)["inputs"].shape[-1]
         return data.token_dataset(args.data_dir, batch_size, seq_len,
                                   seed=args.seed), None
+    if kind == "digits":
+        return (data.digits_dataset(batch_size, split="train",
+                                    seed=args.seed),
+                data.digits_dataset(batch_size, split="eval",
+                                    seed=args.seed))
     return data.synthetic_dataset(spec, batch_size, seed=args.seed), None
+
+
+def make_eval_fn(model):
+    """``evaluate(dataset)``: held-out accuracy of ``model`` (the state's
+    ``params``) over every batch of ``dataset``'s epoch 0, the remainder
+    batch counted exactly.  It runs in eval mode (batch norms on their
+    running averages) with no gradients, then puts the model back in
+    train mode."""
+    import torch
+
+    def evaluate(dataset) -> float:
+        correct, total = 0, 0
+        model.eval()
+        try:
+            with torch.no_grad():
+                for batch in dataset.epoch(0):
+                    x = torch.as_tensor(batch["inputs"],
+                                        device=model.device)
+                    y = torch.as_tensor(batch["labels"],
+                                        device=model.device)
+                    correct += int((model(x).argmax(-1) == y).sum())
+                    total += len(batch["labels"])
+        finally:
+            model.train()
+        return correct / max(total, 1)
+
+    return evaluate
 
 
 # --strategy keys whose values are selectors, not mesh-axis sizes.
@@ -228,15 +314,9 @@ def _refuse_unported(args, strategy) -> dict:
                          f"device; meshes come with the parallelism slice "
                          f"of the port (ROADMAP Queue 1: Parallelism and "
                          f"meshes)")
-    if args.init_hf:
-        raise SystemExit("--init-hf: loading HF checkpoints comes with the "
-                         "zoo (import_hf) slice of the port (ROADMAP Queue "
-                         "1: Training, the remainder)")
-    if args.eval_every:
-        raise SystemExit("--eval-every: held-out eval comes with the zoo "
-                         "slice of the port (its digits dataset is the "
-                         "one with an eval split; ROADMAP Queue 1: "
-                         "Training, the remainder)")
+    family = args.model.split("-")[0]
+    if args.init_hf and family in _HF_NOT_PORTED:
+        raise SystemExit(f"--init-hf: {_HF_NOT_PORTED[family]}")
     return axes
 
 
@@ -251,18 +331,34 @@ def main(argv=None) -> int:
 
     import torch
 
-    from . import default_device, tracking
+    from . import default_device, prng, tracking
     from .checkpoint import CheckpointManager
     from .data import prefetch_to_device
     from .models.registry import get_model
     from .parallel import make_train_step
 
     device = default_device("cpu" if args.cpu else None)
-    spec = get_model(args.model)
+    try:
+        spec = get_model(args.model)
+    except KeyError as e:
+        raise SystemExit(e.args[0]) from None
     batch_size = args.batch_size or spec.default_batch_size
-    train_ds, _ = make_datasets(args, spec, batch_size)
+    train_ds, eval_ds = make_datasets(args, spec, batch_size)
     sample = train_ds.sample(2)
-    model = spec.init_params(seed=args.seed, device=device, train=True)
+    # Data defines the input shapes (digits are 8x8x1 where the
+    # classifiers' synthetic batches are larger), and --init-hf the
+    # GELU form.
+    model_kw = spec.input_overrides(sample["inputs"]) \
+        if spec.input_overrides else {}
+    if args.init_hf:
+        model_kw.update(_HF_MODEL_KW.get(args.model.split("-")[0], {}))
+        # The checkpoint replaces every parameter: no random init.
+        model = spec.make_model(device=device, param_dtype=torch.float32,
+                                **model_kw).train()
+        load_hf_init(args.model, model, args.init_hf)
+    else:
+        model = spec.init_params(seed=args.seed, device=device,
+                                 train=True, **model_kw)
     step_fn = make_train_step(spec.loss_fn(model),
                               make_optimizer(args.optimizer, args.lr),
                               mesh, grad_accum=args.grad_accum)
@@ -301,7 +397,19 @@ def main(argv=None) -> int:
     batches = train_ds.epochs(None, start_step=start_step)
     if args.prefetch:
         batches = prefetch_to_device(batches, device, depth=args.prefetch)
+    # The reference's key chain: each step splits off its key.
+    rng = prng.PRNGKey(args.seed, device=device)
     target = parse_target_metric(args.target_metric)
+    evaluate = make_eval_fn(model) if eval_ds is not None else None
+    # Evals ride the logging steps (metrics are only published there);
+    # snap --eval-every up to the next log step so no eval is lost to
+    # the log cadence.
+    eval_steps = set()
+    if evaluate and args.eval_every:
+        for due in range(args.eval_every, total_steps + 1,
+                         args.eval_every):
+            snapped = -(-due // args.log_every) * args.log_every
+            eval_steps.add(min(snapped, total_steps))
     unit = "tok" if sample["inputs"].ndim == 2 else "img"
     per_batch = batch_size * sample["inputs"].shape[1] \
         if unit == "tok" else batch_size
@@ -313,8 +421,9 @@ def main(argv=None) -> int:
     for step in range(start_step, total_steps):
         if args.profile_at and step == args.profile_at:
             run.start_profiler_trace(profile_dir)
+        rng, step_rng = prng.split(rng)
         batch = next(batches)
-        state, metrics = step_fn(state, batch)
+        state, metrics = step_fn(state, batch, step_rng)
         if args.profile_at and step + 1 == args.profile_at + \
                 args.profile_steps:
             _stop_profile(run, step + 1)
@@ -333,6 +442,8 @@ def main(argv=None) -> int:
             done = step + 1 - block_start
             metrics[f"{unit}_per_sec_per_chip"] = round(
                 per_batch * done / dt, 2)
+            if (step + 1) in eval_steps:
+                metrics["eval_accuracy"] = evaluate(eval_ds)
             run.log_metrics(step=step + 1, **metrics)
             print(f"step {step + 1}/{total_steps} "
                   + " ".join(f"{k}={v:.4g}" for k, v in metrics.items()),
@@ -351,6 +462,11 @@ def main(argv=None) -> int:
     ckpt.save(state["step"], state)
     ckpt.wait()
     ckpt.close()
+    if evaluate:
+        final_eval = evaluate(eval_ds)
+        run.log_metrics(step=state["step"], eval_accuracy=final_eval)
+        last_metrics["eval_accuracy"] = final_eval
+        print(f"final eval_accuracy={final_eval:.4f}", flush=True)
     run.log_outputs(**{k: v for k, v in last_metrics.items()
                        if k in _OUTPUT_KEYS})
     run.end("succeeded")

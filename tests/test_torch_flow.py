@@ -34,6 +34,7 @@ PORT_EXAMPLES = sorted((ROOT / "polyaxon_tpu_torch" / "examples")
                        .glob("*.yaml"))
 # Required inputs without a value in the file.
 REQUIRED = {"finetune.yaml": {"weights": "/ckpt/bert.pt"},
+            "bert_finetune.yaml": {"weights": "/ckpt/bert.pt"},
             "hyperband.yaml": {"data_dir": "/data/tokens"}}
 
 
@@ -60,8 +61,9 @@ def _matrix_values(op):
 def test_every_example_is_checked():
     assert len(REF_EXAMPLES) == 13
     assert [p.name for p in PORT_EXAMPLES] == [
-        "gpt2_job.yaml", "hyperband.yaml", "serving.yaml",
-        "tinyllama_job.yaml"]
+        "bert_finetune.yaml", "bert_job.yaml", "convnet_hyperband.yaml",
+        "gpt2_job.yaml", "hyperband.yaml", "mnist.yaml",
+        "resnet50_job.yaml", "serving.yaml", "tinyllama_job.yaml"]
 
 
 @pytest.mark.parametrize("path", REF_EXAMPLES + PORT_EXAMPLES,

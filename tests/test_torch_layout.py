@@ -204,6 +204,19 @@ def _packaged(rel: str) -> bool:
     return any(fnmatch.fnmatch(rel, g) for g in globs)
 
 
+def test_digits_and_examples_are_packaged():
+    """The digits file ``data.digits_dataset`` reads and every example
+    polyaxonfile ship with the package (the card's machine has no
+    scikit-learn to read the digits from)."""
+    from polyaxon_tpu_torch import data
+
+    digits = Path(data.DIGITS_CSV)
+    assert digits.exists() and digits.parent.parent == PORT
+    assert _packaged(str(digits.relative_to(PORT)))
+    for path in sorted((PORT / "examples").iterdir()):
+        assert _packaged(str(path.relative_to(PORT))), path.name
+
+
 def test_kernel_sources_are_packaged():
     """Every kernel source and every header a source includes ships with
     the package: an installed package builds its kernels from them."""

@@ -377,7 +377,8 @@ def test_init_is_seeded_with_unit_norm_scales():
 ])
 def test_unported_options_refused_with_roadmap_names(field, value,
                                                      message):
-    """Named remat policies are still refused by their ROADMAP item.
+    """Named remat policies are ported (``test_torch_remat.py``): the
+    name builds, and a name the port does not implement is refused.
     ``kv_cache_int8`` and ``kv_cache_ring`` are ported: mistral-tiny
     built with either decodes the reference's tokens (float32, a
     40-token prompt past the window and, for the ring, past
@@ -385,7 +386,9 @@ def test_unported_options_refused_with_roadmap_names(field, value,
     over = {field: value}
     if field == "remat_policy":
         over["remat"] = True
-        with pytest.raises(NotImplementedError, match=message):
+        t_get_model("mistral-tiny").make_model(device="cpu", **over)
+        over[field] = value + "_everywhere"
+        with pytest.raises(ValueError, match=message):
             t_get_model("mistral-tiny").make_model(device="cpu", **over)
         return
     jmodel = j_get_model("mistral-tiny").make_model(dtype=jnp.float32,

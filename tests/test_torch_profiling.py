@@ -626,3 +626,58 @@ def test_cli_trace_file_written_at_sigint(tmp_path):
     assert proc.returncode == 0, out
     assert f"wrote {n} trace events" in out
     assert len(trace.read_text().splitlines()) == n > 0
+
+
+
+def test_crash_inside_a_recorder_window_releases_the_session(tiny,
+                                                             tmp_path):
+    """An engine death (the ``--fault-plan`` site ``engine_death``)
+    inside an open recorder window: the supervisor restarts the loop on
+    a new thread, the window's trace is stopped on the thread that
+    started it before that thread exits and is analyzed, later windows
+    open, and a manual ``/profile/start`` answers 200 once they close
+    (the reference goes on recording after a restart).  The death is
+    armed once the window is open (its ``after`` gate moved to the
+    probes seen so far), so it lands inside the window."""
+    plan = {"seed": 0, "faults": [{"site": "engine_death",
+                                   "after": 10 ** 9, "times": 1}]}
+    ms = ModelServer(tiny, n_slots=2, decode_window=1,
+                     profile_dir=str(tmp_path), profile_every=1,
+                     profile_steps=1000, fault_plan=plan)
+    srv, base = _start(ms)
+    try:
+        rec = ms.recorder
+        done = {}
+        t = threading.Thread(target=lambda: done.update(out=_post(
+            base, {"prompt": [1, 2, 3], "max_new_tokens": 40})))
+        t.start()
+        end = time.monotonic() + 10
+        while rec.windows_total < 1:
+            assert time.monotonic() < end
+            time.sleep(0.001)
+        spec = ms.faults.specs[0]
+        with ms.faults._plan_lock:
+            spec.after = spec.probes
+        t.join(60)
+        code, out = done["out"]
+        assert code == 200 and len(out["tokens"][0]) == 43
+        assert ms.supervisor.restarts_total == 1
+        assert ms.faults.stats()["faults_injected"]["engine_death"] == 1
+        assert rec.windows_total == 2, rec.report()
+        rec._deadline_close(2)          # the watchdog's close
+        end = time.monotonic() + 10
+        while rec.windows_analyzed < 2:
+            assert time.monotonic() < end, rec.report()
+            time.sleep(0.01)
+        assert rec.last_error is None and not ms.profiler.active
+        code, started = _post(base, {}, "/profile/start")
+        assert code == 200 and started["profiling"], started
+        _post(base, {"prompt": [4, 5, 6], "max_new_tokens": 4})
+        code, stopped = _post(base, {}, "/profile/stop")
+        assert code == 200 and stopped["dir"] == started["dir"]
+        assert tx.attribute_dump(stopped["dir"])["step_markers"] >= 3
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        ms.close()
+    assert not ms.profiler.active

@@ -228,13 +228,15 @@ def test_failing_job_ends_failed_with_its_logs(home, tmp_path):
     """The child refuses an unported dataset and exits 1."""
     spec = yaml.safe_load(Path(_on_cpu("gpt2_job.yaml", tmp_path))
                           .read_text())
-    spec["component"]["run"]["container"]["args"].append("--dataset=digits")
+    spec["component"]["run"]["container"]["args"].append(
+        "--dataset=span-corruption")
     path = tmp_path / "failing.yaml"
     path.write_text(yaml.safe_dump(spec))
     out = _cli("run", "-f", str(path), "-P", "steps=1", "--no-watch")
     assert out.exit_code != 0
     assert "Run finished with status 'failed'" in out.output
     assert "--- last logs ---" in out.output
-    assert "the digits dataset comes with the zoo slice" in out.output
+    assert "the span-corruption dataset comes with the T5 zoo slice" \
+        in out.output
     rec = FileRunStore(str(home)).get_run(_uuid(out.output))
     assert rec["status"] == "failed"
