@@ -19,7 +19,10 @@ Phases, each raising on failure:
 2. the flash-forward kernel against its plain PyTorch version at the
    main path's shape, the training shapes (GPT-2 medium's, TinyLlama's
    [4, 2048, 32, 64] full and windowed, BERT-base's [32, 512, 12, 64]
-   non-causal, bare and key-padded) and the masks, types, head dims
+   non-causal, bare and key-padded, T5-small's cross-attention at
+   scale 1.0, [16, 512, 8, 64] and [16, 128 -> 512, 8, 64] key-padded,
+   MoE-GPT-small's [8, 1024, 12, 64] causal) and the masks, types, head
+   dims
    and tile edges it takes; times of the kernel, the plain version and
    PyTorch's own ``scaled_dot_product_attention`` (a yardstick the port
    never calls) at the serving and the training shapes;
@@ -41,7 +44,7 @@ Phases, each raising on failure:
    latency, TTFT, windows, graph captures; device busy share of the
    greedy and the paged load), then
    POST /drain; the radix prefix cache on both pools (a 512-token
-   system prompt registered by POST /prefill, 32 requests extending it
+   system prompt registered by POST /prefill, 8 requests extending it
    from 8 clients and a 2-row one: float32 tokens with the cache on ==
    off on both pools, bf16 prefill tokens, hits, TTFT and pages cold
    against warm on the paged pool);
@@ -81,7 +84,23 @@ Phases, each raising on failure:
    its width in float32 flash == plain attention without and with a
    padded ``attention_mask``; ResNet-50 at 128 x 224 x 224 (img/s, MFU,
    running averages moved, eval-mode logits, channels-last); ``run -f``
-   of ``mnist.yaml`` to ``eval_accuracy >= 0.95``;
+   of ``mnist.yaml`` to ``eval_accuracy >= 0.95``; the rest of the
+   zoo (``phase_zoo_rest``, ``[moe]`` / ``[t5]`` / ``[vit]`` /
+   ``[zoo-rest]`` lines), each model from seed 0 at the registry's full
+   width and depth: MoE-GPT-small ``TrainStep`` at 8 x 1024 (12 causal
+   launches of each kernel a step; step ms, tok/s, MFU, aux loss), its
+   flash route at 2 layers in float32, the float32 engine == solo on
+   both pools, a bf16 HTTP load of 8 requests on the paged pool (no
+   flash launch) and the greedy decode step; T5-small ``train.main
+   --dataset span-corruption`` on a seeded token file (6 cross-attention
+   launches of each kernel a step, 128 rows over 512 key-padded keys at
+   scale 1.0), a timed ``TrainStep`` at 16 x 512, the cross-attention's
+   flash route at 2 + 2 layers in float32 with and without
+   ``enc_mask``, cached greedy == no-cache greedy and 1 beam == greedy
+   in float32, bf16 ms a token greedy and with 4 beams; ViT-B/16
+   ``TrainStep`` at 64 x 224 x 224 (no flash launch: 197 tokens);
+   ``train.main --init-hf`` of ``export_hf_vit`` / ``export_hf_t5``
+   (first loss == the source model's);
 9. TinyLlama-1.1B (RoPE, RMSNorm, SwiGLU, GQA 32/4) at full width and
    depth, random from seed 0: the full forward on [2, 2048] (22 flash
    launches) against plain attention in bf16 and float32; the CLI's
@@ -142,11 +161,12 @@ Phases, each raising on failure:
    store: the GPT-2 medium ``job`` (3 tracked steps equal to its log
    lines, the card in its env record, ``gpu0_*`` system metrics, its
    checkpoint, 24 launches of each flash kernel in the profiled step's
-   trace), ``convnet_hyperband.yaml`` cut to 6 ConvNet trials (the
-   port's schedule for the sweep's seed, the best run the highest
-   accuracy) and the
-   GPT-2 medium ``service`` (tokens equal to an in-process server's,
-   reaped by ``ops stop`` with the card's memory back);
+   trace) and the GPT-2 medium ``service`` (tokens equal to an
+   in-process server's, reaped by ``ops stop`` with the card's memory
+   back); before them ``convnet_hyperband.yaml`` cut to 6 ConvNet
+   trials (the port's schedule for the sweep's seed, the best run the
+   highest accuracy), its trial processes started while TinyLlama's
+   ``train.main``, gradient route and mistral-tiny checks run;
 11. one JSON line of kernel records, the card line, and the final
    ``{"ok": true, ...}`` line.
 
@@ -518,14 +538,16 @@ def _mask_label(causal, window, kv_mask) -> str:
 
 
 def _time_forward(label, q, k, v, other=None, window=None, causal=True,
-                  kv_mask=None):
+                  kv_mask=None, scale=None):
     """Device times at one shape (``window``: a sliding window;
-    ``causal``; ``kv_mask``: key padding): the kernel, the plain
-    version, SDPA and the bound; with ``other`` (another build of the
-    kernel) both builds in turns, other / this / this / other."""
+    ``causal``; ``kv_mask``: key padding; ``scale``: D ** -0.5 unless
+    given): the kernel, the plain version, SDPA and the bound; with
+    ``other`` (another build of the kernel) both builds in turns, other
+    / this / this / other."""
     from polyaxon_tpu_torch.ops import flash
 
-    scale = q.shape[-1] ** -0.5
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     kernel = lambda: flash._flash_forward_kernel(q, k, v, kv_mask, causal,
                                                  scale, window)
     rec = {"eager_ms": eager_ms(kernel), "ms": graph_ms(kernel)}
@@ -535,8 +557,10 @@ def _time_forward(label, q, k, v, other=None, window=None, causal=True,
     sdpa = _sdpa_fn(qt, kt, vt, scale, window, causal, kv_mask)
     rec["library_ms"] = graph_ms(sdpa)
     rec["bound_ms"], rec["bound_by"] = bound(q, k, causal, window, kv_mask)
-    line = (f"[kernel] {label} {list(q.shape)} {str(q.dtype)[6:]} "
-            f"{_mask_label(causal, window, kv_mask)}, "
+    line = (f"[kernel] {label} {list(q.shape)}"
+            + (f"->{k.shape[1]}" if k.shape[1] != q.shape[1] else "")
+            + f" {str(q.dtype)[6:]} "
+            f"{_mask_label(causal, window, kv_mask)}, scale {scale:.4g}, "
             f"device time (CUDA graph): kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); eager "
@@ -595,14 +619,24 @@ def phase_kernel(other_src=None):
         ("bert_train", 32, 512, 512, 12, 64, bf16, False, None, None),
         ("bert_train_kv_mask", 32, 512, 512, 12, 64, bf16, False, None,
          "lengths"),
+        # The rest of the zoo: T5-small's cross-attention (non-causal,
+        # scale 1.0: the synthetic batch's 512 -> 512, span corruption's
+        # 128 decoder rows over 512 key-padded encoder keys) and
+        # MoE-GPT-small's causal training shape over its fused qkv.
+        ("t5_cross", 16, 512, 512, 8, 64, bf16, False, None, None, 1.0),
+        ("t5_cross_kv_mask", 16, 128, 512, 8, 64, bf16, False, None,
+         "lengths", 1.0),
+        ("moe_train", 8, 1024, 1024, 12, 64, bf16, True, None, None),
     ]
-    fused = ("main", "train_fused", "bert_train", "bert_train_kv_mask")
-    timed = fused + ("llama_train", "llama_train_window")
+    fused = ("main", "train_fused", "bert_train", "bert_train_kv_mask",
+             "moe_train")
+    timed = fused + ("llama_train", "llama_train_window", "t5_cross",
+                     "t5_cross_kv_mask")
     results, shapes = {}, {}
-    for name, b, sq, sk, h, d, dtype, causal, window, mk in cases:
+    for name, b, sq, sk, h, d, dtype, causal, window, mk, *sc in cases:
         q, k, v = _qkv(b, sq, sk, h, d, dtype, gen, fused=name in fused)
         kv_mask = _kv_mask(mk, b, sk, gen)
-        scale = d ** -0.5
+        scale = sc[0] if sc else d ** -0.5
         o, lse = flash._flash_forward_kernel(q, k, v, kv_mask, causal,
                                              scale, window)
         o_ref, lse_ref = flash._flash_forward_reference(
@@ -621,7 +655,8 @@ def phase_kernel(other_src=None):
                 bool((o[0] == 0).all())
         print(f"[kernel] {name}: B={b} Sq={sq} Sk={sk} H={h} D={d} "
               f"{str(dtype)[6:]} causal={causal} window={window} "
-              f"mask={mk}: max|dO|={err_o:.3e} (tol {tol_o}) "
+              f"mask={mk} scale={scale:.4g}: max|dO|={err_o:.3e} "
+              f"(tol {tol_o}) "
               f"max|dLSE|={err_l:.3e} (tol {tol_l}) "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -629,7 +664,7 @@ def phase_kernel(other_src=None):
                                  f"version at case {name}")
         results[name] = (err_o, err_l)
         if name in timed:
-            shapes[name] = (q, k, v, kv_mask)
+            shapes[name] = (q, k, v, kv_mask, scale)
         del q, k, v, o, lse, o_ref, lse_ref
 
     other = other_forward(other_src) if other_src else None
@@ -639,10 +674,14 @@ def phase_kernel(other_src=None):
     for name, window, causal in (("llama_train", None, True),
                                  ("llama_train_window", 511, True),
                                  ("bert_train", None, False),
-                                 ("bert_train_kv_mask", None, False)):
-        q, k, v, kv_mask = shapes.pop(name)
+                                 ("bert_train_kv_mask", None, False),
+                                 ("t5_cross", None, False),
+                                 ("t5_cross_kv_mask", None, False),
+                                 ("moe_train", None, True)):
+        q, k, v, kv_mask, scale = shapes.pop(name)
         rec[name] = _time_forward(name, q, k, v, window=window,
-                                  causal=causal, kv_mask=kv_mask)
+                                  causal=causal, kv_mask=kv_mask,
+                                  scale=scale)
         rec[name]["max_abs_err"] = results[name][0]
         del q, k, v, kv_mask
         _release()
@@ -729,16 +768,24 @@ def phase_backward(other_src=None):
         ("bert_train", 32, 512, 512, 12, 64, bf16, False, None, "fused"),
         ("bert_train_kv_mask", 32, 512, 512, 12, 64, bf16, False, None,
          "lengths"),
+        # The rest of the zoo: T5-small's cross-attention at scale 1.0
+        # (512 -> 512; 128 rows over 512 key-padded keys) and
+        # MoE-GPT-small's causal training shape.
+        ("t5_cross", 16, 512, 512, 8, 64, bf16, False, None, None, 1.0),
+        ("t5_cross_kv_mask", 16, 128, 512, 8, 64, bf16, False, None,
+         "lengths", 1.0),
+        ("moe_train", 8, 1024, 1024, 12, 64, bf16, True, None, "fused"),
     ]
     timed = ("main_train", "llama_train", "llama_train_window",
-             "bert_train", "bert_train_kv_mask")
+             "bert_train", "bert_train_kv_mask", "t5_cross",
+             "t5_cross_kv_mask", "moe_train")
     kept = {}
     worst = {"dq": 0.0, "dkv": 0.0}
-    for name, b, sq, sk, h, d, dtype, causal, window, extra in cases:
+    for name, b, sq, sk, h, d, dtype, causal, window, extra, *sc in cases:
         q, k, v = _qkv(b, sq, sk, h, d, dtype, gen,
-                       fused=extra in ("fused", "lengths"))
+                       fused=extra in ("fused", "lengths") and sq == sk)
         kv_mask = _kv_mask(extra, b, sk, gen)
-        scale = d ** -0.5
+        scale = sc[0] if sc else d ** -0.5
         o, lse = flash._flash_forward_kernel(q, k, v, kv_mask, causal,
                                              scale, window)
         do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
@@ -769,7 +816,8 @@ def phase_backward(other_src=None):
             ok &= bool((got[0][0] == 0).all())
         print(f"[backward] {name}: B={b} Sq={sq} Sk={sk} H={h} D={d} "
               f"{str(dtype)[6:]} causal={causal} window={window} "
-              f"extra={extra}: max|d dQ|={errs[0]:.3e} (tol {tols[0]:.2e}) "
+              f"extra={extra} scale={scale:.4g}: "
+              f"max|d dQ|={errs[0]:.3e} (tol {tols[0]:.2e}) "
               f"max|d dK|={errs[1]:.3e} (tol {tols[1]:.2e}) "
               f"max|d dV|={errs[2]:.3e} (tol {tols[2]:.2e}) "
               f"{'ok' if ok else 'FAIL'}")
@@ -846,9 +894,11 @@ def _time_backward(label, q, k, v, o, lse, do, scale, errs, worst, *,
                "bound_by": bound_by, "eager_ms": t_eager}
         if worst is not None:
             rec["max_abs_err_all_cases"] = worst[which]
-        line = (f"[backward] {which} {label} at {list(q.shape)} "
-                f"{str(q.dtype)[6:]} {_mask_label(causal, window, kv_mask)}"
-                f", device "
+        line = (f"[backward] {which} {label} at {list(q.shape)}"
+                + (f"->{k.shape[1]}" if k.shape[1] != q.shape[1] else "")
+                + f" {str(q.dtype)[6:]} "
+                f"{_mask_label(causal, window, kv_mask)}, scale "
+                f"{scale:.4g}, device "
                 f"time (CUDA graph): kernel {t_kernel:.4f} ms, plain "
                 f"{t_plain:.4f} ms, bound {t_bound:.4f} ms ({bound_by}); "
                 f"eager call {t_eager:.4f} ms; sdpa backward (dq+dk+dv) "
@@ -1096,8 +1146,8 @@ def _concurrent(ms, bodies):
 
 
 def _f32_schedule(model_f32, name="gpt2-medium", tag="http",
-                  pools=("paged", "lazy")):
-    """float32, 4 slots, prefill chunk 64: 12 concurrent requests
+                  pools=("paged", "lazy"), n: int = 12):
+    """float32, 4 slots, prefill chunk 64: ``n`` concurrent requests
     (prompts of 16-200 tokens from seed 0, 24 new tokens, every odd one
     sampled) through ``ModelServer.generate`` on the fixed-lane pool
     equal solo ``generate`` / ``generate_positional`` under the tie
@@ -1110,8 +1160,8 @@ def _f32_schedule(model_f32, name="gpt2-medium", tag="http",
 
     cfg = model_f32.cfg
     rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
-               for n in rng.randint(16, 201, 12)]
+    prompts = [rng.randint(0, cfg.vocab_size, m).tolist()
+               for m in rng.randint(16, 201, n)]
     bodies = _mixed([{"prompt": p, "max_new_tokens": 24} for p in prompts])
     with torch.no_grad():
         solo = []
@@ -1135,8 +1185,8 @@ def _f32_schedule(model_f32, name="gpt2-medium", tag="http",
         finally:
             ms.close()
         runs[label] = [g["new_tokens"][0] for g in got]
-        print(f"[{tag}] float32 {label}: 12 concurrent requests (6 "
-              f"sampled) in {secs:.2f} s; admitted "
+        print(f"[{tag}] float32 {label}: {n} concurrent requests "
+              f"({n // 2} sampled) in {secs:.2f} s; admitted "
               f"{stats['admitted_total']} ({stats['admitted_sampled_total']}"
               f" sampled), decode steps {stats['decode_steps_total']} in "
               f"{stats['decode_dispatches_total']} dispatches, graph "
@@ -1163,14 +1213,15 @@ def _f32_schedule(model_f32, name="gpt2-medium", tag="http",
                                  f"request {i} at new token {k}")
         ties += 1
     for label in pools:
-        bad = [i for i in range(12) if runs[label][i] != runs["fixed"][i]]
+        bad = [i for i in range(n) if runs[label][i] != runs["fixed"][i]]
         if bad:
             raise AssertionError(f"float32 {label} pool tokens != fixed "
                                  f"lane for requests {bad}")
-    print(f"[{tag}] float32 engine (6 greedy + 6 sampled, T 0.8 top-k 50 "
+    print(f"[{tag}] float32 engine ({n - n // 2} greedy + {n // 2} "
+          f"sampled, T 0.8 top-k 50 "
           f"top-p 0.95, seed = index) equals solo generate / "
-          f"generate_positional ({12 - ties} exactly, {ties} by the tie "
-          f"rule); {' and '.join(pools)} pool == fixed lane, all 12 "
+          f"generate_positional ({n - ties} exactly, {ties} by the tie "
+          f"rule); {' and '.join(pools)} pool == fixed lane, all {n} "
           f"exactly")
 
 
@@ -1401,9 +1452,11 @@ def _http_load(model, label, bodies, *, sampled_too=False,
     if ms.engine.paged:
         rec["pages"] = {**ms.engine.slots.page_stats(),
                         "kv_pages_resident_peak": peak["resident"]}
+    lens = [len(b["prompt"]) for b in bodies]
     print(f"[http] {label}: {len(bodies)} POST /generate from 16 clients "
           f"({n_sampled}"
-          f" sampled; prompts 64-512, 64 new tokens), 8 slots, prefill "
+          f" sampled; prompts {min(lens)}-{max(lens)}, "
+          f"{bodies[0]['max_new_tokens']} new tokens), 8 slots, prefill "
           f"chunk 256, window 8: {ntok} tokens in {wall:.3f} s = "
           f"{rec['tok_per_s']:.1f} tok/s; latency p50 "
           f"{rec['latency_p50_s']:.3f} s p99 {rec['latency_p99_s']:.3f} s;"
@@ -1459,7 +1512,7 @@ def phase_http_serving(model, model_f32):
     ``ModelServer`` -> ``DecodeEngine`` -> ``SlotKVManager`` /
     ``PagedSlotKVManager``.
 
-    1. float32 exactness (``_f32_schedule``): 12 concurrent requests,
+    1. float32 exactness (``_f32_schedule``): 6 concurrent requests,
        half sampled, equal solo decoding; the paged pool (eager and
        lazy) gives the fixed lane's tokens exactly;
     2. bf16 CUDA-graph windows equal eager ones bitwise, for the greedy,
@@ -1477,7 +1530,9 @@ def phase_http_serving(model, model_f32):
     import urllib.request
 
     t0 = time.perf_counter()
-    _f32_schedule(model_f32)
+    # 6 requests (12 before the zoo's phases joined), for the
+    # script's time.
+    _f32_schedule(model_f32, n=6)
     print(f"[time] http: float32 schedules {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     step_ms = _graph_vs_eager(model)
@@ -1719,10 +1774,10 @@ def _warm_server(base, ms, cfg, max_tokens: int) -> None:
 
 def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
     """The radix prefix cache on GPT-2 medium at full width, both pools:
-    a 512-token system prompt registered by POST /prefill, 16 requests
+    a 512-token system prompt registered by POST /prefill, 8 requests
     extending it (8 clients, 64 new tokens, half sampled; 32 until the
-    fleet phase needed the time) and one 2-row request (the solo hit
-    path).
+    fleet phase needed the time, then 16) and one 2-row request
+    (the solo hit path).
 
     - float32: a server with the cache off and one with it on (4
       entries) give the same tokens, greedy and sampled alike (the tie
@@ -1734,7 +1789,9 @@ def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
     Returns the bf16 records and the flash launches (0) of every
     pool."""
     cfg = model.cfg
-    sys_p, bodies, two = _prefix_traffic(cfg, n=16)
+    # 8 requests (16 before the zoo's phases joined), for the
+    # script's time.
+    sys_p, bodies, two = _prefix_traffic(cfg, n=8)
     max_tokens = max(len(b["prompt"]) + b["max_new_tokens"] for b in bodies)
     out = {}
     for pool, kw in PREFIX_POOLS:
@@ -1801,13 +1858,15 @@ def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
 
 
 def phase_llama_prefix(model_f32):
-    """TinyLlama-1.1B, float32, paged pool (64-token pages): 8 requests
+    """TinyLlama-1.1B, float32, paged pool (64-token pages): 4 requests
     over a 512-token prefix (16-64 own tokens, 32 new, half sampled)
     with the cache off and with it on after POST /prefill: the same
     tokens (RoPE'd keys at num_kv_heads materialized from the pages, the
-    suffix rotated from position 512), 8 hits, no flash launch."""
+    suffix rotated from position 512), 4 hits, no flash launch."""
     cfg = model_f32.cfg
-    sys_p, bodies, _ = _prefix_traffic(cfg, n=8, new=32, seed=2)
+    # 4 requests (8 before the zoo's phases joined), for the
+    # script's time.
+    sys_p, bodies, _ = _prefix_traffic(cfg, n=4, new=32, seed=2)
     max_tokens = max(len(b["prompt"]) + b["max_new_tokens"] for b in bodies)
     kw = dict(PREFIX_POOLS[1][1])
     runs = {}
@@ -2042,14 +2101,15 @@ def _cut_draft(model, name: str, layers: int):
 
 
 def _spec_bodies(cfg, seed: int = 5):
-    """8 requests of 64-256 prompt tokens and 40 new (fewer for time):
+    """8 requests of 64-256 prompt tokens and 24 new (fewer for time; 40 before
+    the zoo's phases joined the script):
     4 speculative greedy, 2 speculative sampled (T 0.8, top-k 50, top-p
     0.95, seed = index), 1 plain greedy and 1 plain sampled."""
     rng = np.random.RandomState(seed)
     bodies = []
     for i, n in enumerate(rng.randint(64, 257, 8)):
         body = {"prompt": rng.randint(0, cfg.vocab_size, n).tolist(),
-                "max_new_tokens": 40}
+                "max_new_tokens": 24}
         if i < 6:
             body.update(speculative=True, spec_k=SPEC_K)
         if i in (4, 5, 7):
@@ -2138,9 +2198,13 @@ def _spec_engine_runs(model_f32, draft_f32, bodies, solo, draft_label,
             "spec_accepted_total", "decode_steps_total",
             "decode_dispatches_total")}
         c = counters[label]
+        n_spec = sum(1 for b in bodies if b.get("speculative"))
+        n_samp = sum(1 for b in bodies if b.get("speculative")
+                     and b.get("temperature"))
         print(f"[spec] float32 engine, draft {draft_label}, {label} "
-              f"pool, 8 slots: 8 requests (4 spec greedy, 2 spec "
-              f"sampled, 2 plain; spec_k "
+              f"pool, 8 slots: {len(bodies)} requests ({n_spec - n_samp} "
+              f"spec greedy, {n_samp} spec sampled, "
+              f"{len(bodies) - n_spec} plain; spec_k "
               f"{sorted({b['spec_k'] for b in bodies if 'spec_k' in b})};"
               f" prompts "
               f"{min(len(b['prompt']) for b in bodies)}-"
@@ -2175,7 +2239,8 @@ def _spec_engine_runs(model_f32, draft_f32, bodies, solo, draft_label,
         raise AssertionError(f"spec engine: paged tokens != fixed lane "
                              f"for requests {bad}")
     print(f"[spec] float32 engine, draft {draft_label}, == solo for all "
-          f"8 requests ({len(bodies) - ties} exactly, {ties} by the tie "
+          f"{len(bodies)} requests ({len(bodies) - ties} exactly, {ties} "
+          f"by the tie "
           f"rule; the sampled spec requests equal generate_speculative's"
           f" seed mode)"
           + (", paged == fixed lane exactly" if "paged" in runs else ""))
@@ -2325,10 +2390,13 @@ def phase_speculative(model, model_f32):
     # The target as its own draft accepts (nearly) every proposal: with
     # spec_k 4 and 2 and plain rows in one pool, rows commit 4, 2 and 1
     # tokens in the same round.
+    # Four of the bodies (spec greedy K 4 and 2, plain greedy and
+    # sampled; all 8 before the zoo's phases joined, for the
+    # script's time).
     self_bodies = [dict(b, spec_k=2, max_new_tokens=24)
                    if b.get("speculative") and i % 2
                    else dict(b, max_new_tokens=24)
-                   for i, b in enumerate(bodies)]
+                   for i, b in enumerate(bodies) if i in (0, 1, 6, 7)]
     self_solo = [_spec_solo(model_f32, model_f32, b) for b in self_bodies]
     rec["engine_self_draft"] = _spec_engine_runs(
         model_f32, model_f32, self_bodies, self_solo, "= target",
@@ -2688,17 +2756,21 @@ def phase_train_entry(name: str = "gpt2-medium", steps: int = 3,
     return counts, secs
 
 
-def _export_hf_source(name, batch, state_dict, path, seed):
+def _export_hf_source(name, batch, state_dict, path, seed,
+                      export="export_hf_llama"):
     """A model holding ``state_dict`` (float32 masters, as ``train.main``
-    holds them), its loss on the first batch ``train.main --seed SEED``
-    draws, and ``torch.save`` of ``export_hf_llama`` of it at ``path``:
-    (the loss, seconds of the export and save)."""
+    holds them, with the family's ``--init-hf`` config overrides), its
+    loss on the first batch ``train.main --seed SEED`` draws, and
+    ``torch.save`` of the ``models.import_hf`` function ``export`` of it
+    at ``path``: (the loss, seconds of the export and save)."""
     from polyaxon_tpu_torch import train
-    from polyaxon_tpu_torch.models.import_hf import export_hf_llama
+    from polyaxon_tpu_torch.models import import_hf
     from polyaxon_tpu_torch.models.registry import get_model
 
     spec = get_model(name)
-    model = spec.make_model(device="cuda", param_dtype=torch.float32)
+    model = spec.make_model(device="cuda", param_dtype=torch.float32,
+                            **train._HF_MODEL_KW.get(name.split("-")[0],
+                                                     {}))
     model.load_state_dict(state_dict)
     model.train()
     args = train.build_argparser().parse_args(["--model", name, "--seed",
@@ -2707,7 +2779,7 @@ def _export_hf_source(name, batch, state_dict, path, seed):
     with torch.no_grad():
         want = spec.loss_fn(model)(first)[0].item()
     t0 = time.perf_counter()
-    torch.save(export_hf_llama(model, model.cfg), path)
+    torch.save(getattr(import_hf, export)(model, model.cfg), path)
     secs = time.perf_counter() - t0
     del model
     _release()
@@ -3227,6 +3299,395 @@ def phase_zoo_remat(state_dict, full, steps: int = 3):
     return rec
 
 
+# -- the rest of the zoo: MoE-GPT, T5, ViT ------------------------------
+
+MOE = "moe-gpt-small"
+T5 = "t5-small"
+VIT = "vit-base"
+
+
+def _timed_steps(spec, model, data, steps, lr=3e-4):
+    """A warm-up ``TrainStep`` then ``steps`` timed ones (AdamW): (step
+    seconds, the last metrics, flash launches of the timed steps)."""
+    from polyaxon_tpu_torch.parallel import make_train_step
+    from polyaxon_tpu_torch.train import make_optimizer
+
+    step_fn = make_train_step(spec.loss_fn(model),
+                              make_optimizer("adamw", lr))
+    state = step_fn.init_state(model)
+    state, metrics = step_fn(state, data)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step_fn(state, data)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    counts = _counts()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    del state, step_fn
+    return step_s, metrics, counts
+
+
+def _train_line(tag, label, spec, batch, step_s, metrics, counts, unit,
+                per_batch):
+    flops = spec.train_flops(batch)
+    rec = {"step_ms": step_s * 1e3, f"{unit}_per_s": per_batch / step_s,
+           "mfu": flops / step_s / 989e12, "tflop_per_step": flops / 1e12,
+           "flash_launches": counts, **metrics}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{label}: metrics {metrics}")
+    print(f"[{tag}] {label}: {rec['step_ms']:.2f} ms a step, "
+          f"{rec[f'{unit}_per_s']:.1f} {unit}/s, MFU {rec['mfu']:.4f} "
+          f"({rec['tflop_per_step']:.2f} TFLOP a step, floor "
+          f"{flops / 989e12 * 1e3:.2f} ms); "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+          + f"; flash launches {counts}")
+    return rec
+
+
+def _route_line(tag, label, loss_of, model, layers, tol=1e-4):
+    loss_rel, logits_rel, worst, at = _route_grads(model, loss_of, layers,
+                                                   f"{tag} {label}")
+    ok = loss_rel <= 1e-5 and logits_rel <= tol and worst <= tol
+    print(f"[{tag}] {label}: flash vs plain attention: loss rel "
+          f"{loss_rel:.2e} (tol 1e-5), logits max|d| / max|logit| "
+          f"{logits_rel:.2e} (tol {tol:g}), max |d grad| / max |grad| "
+          f"{worst:.2e} at {at} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag} {label}: flash route disagrees")
+
+
+def _moe_zoo():
+    """MoE-GPT-small: TrainStep at 8 x 1024 (12 / 12 / 12 launches a
+    step), the flash route at 2 layers in float32, the float32 engine ==
+    solo on both pools (4 requests), a bf16 HTTP load of 8 requests on
+    the paged pool (no flash launch) and the eager greedy decode step."""
+    import torch.nn.functional as F
+
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.models.registry import get_model
+
+    spec = get_model(MOE)
+    recs = {}
+    f32 = spec.init_params(seed=0, device="cuda", dtype=torch.float32)
+    weights = f32.state_dict()
+    model = spec.make_model(device="cuda", param_dtype=torch.float32)
+    model.load_state_dict(weights)
+    model.train()
+    data = {"inputs": torch.as_tensor(spec.make_batch(8)["inputs"],
+                                      device="cuda")}
+    step_s, metrics, counts = _timed_steps(spec, model, data, 3)
+    _check_per_step(counts, 3, 12, "moe TrainStep")
+    recs["train"] = _train_line(
+        "moe", f"{MOE} TrainStep 8 x 1024 bf16 (f32 master weights, f32 "
+        f"router and experts, AdamW), 3 steps", spec, 8, step_s, metrics,
+        {k: v // 3 for k, v in counts.items()}, "tok", 8 * 1024)
+    recs["train"]["expert_products_ms"] = _expert_products_ms(model)
+    del model
+    _release()
+    small = spec.init_params(seed=0, device="cuda", train=True,
+                             dtype=torch.float32, num_layers=2)
+    tokens = data["inputs"][:2]
+
+    def loss_of(m):
+        logits, aux = m(tokens, train=True)
+        return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               tokens[:, 1:].reshape(-1)) + 0.01 * aux, \
+            logits
+
+    _route_line("moe", f"{MOE} width, 2 layers, float32, 2 x 1024", loss_of,
+                small, 2)
+    del small
+    _release()
+    t0 = time.perf_counter()
+    _f32_schedule(f32, MOE, tag="moe", pools=("paged",), n=4)
+    print(f"[time] zoo rest: moe float32 engine {time.perf_counter() - t0:.1f}"
+          f" s")
+    del f32
+    _release()
+    bf = spec.make_model(device="cuda").eval().requires_grad_(False)
+    bf.load_state_dict(weights)
+    del weights
+    rng = np.random.RandomState(0)
+    bodies = [{"prompt": rng.randint(0, bf.cfg.vocab_size, n).tolist(),
+               "max_new_tokens": 32} for n in rng.randint(64, 513, 8)]
+    rec, (srv, ms, _) = _http_load(bf, "moe paged", bodies,
+                                   warm_requests=1, name=MOE,
+                                   idle_share=False, kv_paged=True)
+    _stop(srv, ms)
+    if any(rec["flash_launches"].values()):
+        raise AssertionError(f"moe serving: flash launches "
+                             f"{rec['flash_launches']}")
+    recs["http"] = rec
+    prompt = torch.as_tensor(np.random.RandomState(1).randint(
+        0, bf.cfg.vocab_size, (8, 256)), device="cuda")
+    with torch.no_grad():
+        logits, cache = G.prefill(bf, prompt)
+        tok = logits.argmax(-1)
+        start, end = _events()
+        for i in range(4):              # warm-up
+            tok = G.extract_logits(bf(tok[:, None], decode=True,
+                                      decode_position=256 + i,
+                                      cache=cache))[:, -1].argmax(-1)
+        start.record()
+        for i in range(32):
+            tok = G.extract_logits(bf(tok[:, None], decode=True,
+                                      decode_position=260 + i,
+                                      cache=cache))[:, -1].argmax(-1)
+        end.record()
+        torch.cuda.synchronize()
+    recs["decode_step_ms"] = start.elapsed_time(end) / 32
+    print(f"[moe] {MOE} bf16 greedy decode step (8 rows at positions "
+          f"260-291, eager, one expert's weights gathered a token): "
+          f"{recs['decode_step_ms']:.3f} ms; HTTP {rec['tok_per_s']:.1f} "
+          f"tok/s, TTFT p50 {rec['ttft_p50_ms']:.1f} ms")
+    del bf, cache
+    _release()
+    return recs
+
+
+def _expert_products_ms(model, tokens: int = 8 * 1024) -> float:
+    """Device ms of a step's expert products alone: one layer's bucketed
+    float32 ``bmm``s (E x C rows, C = capacity of ``tokens``), forward
+    and backward, times the layers (CUDA events, 5 repeats, median)."""
+    from polyaxon_tpu_torch.models.moe_gpt import _experts
+
+    cfg = model.cfg
+    moe = model.h[0].moe
+    cap = int(cfg.capacity_factor * tokens / cfg.num_experts)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    buckets = torch.randn((cfg.num_experts, cap, cfg.hidden_size),
+                          generator=gen, device="cuda", requires_grad=True)
+    times = []
+    for _ in range(6):
+        start, end = _events()
+        start.record()
+        out = _experts(buckets, moe.experts_w1, moe.experts_w2)
+        torch.autograd.grad(out, (buckets, moe.experts_w1,
+                                  moe.experts_w2), torch.ones_like(out))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times[1:]) * cfg.num_layers
+    flops = 3 * 2 * 2 * cfg.num_experts * cap * cfg.hidden_size \
+        * cfg.intermediate_size * cfg.num_layers
+    print(f"[moe] the expert products alone (float32 bmm, {cfg.num_experts}"
+          f" x {cap} bucket rows, forward + backward, x {cfg.num_layers} "
+          f"layers): {ms:.2f} ms a step for {flops / 1e12:.2f} TFLOP "
+          f"({flops / ms / 1e9:.1f} TFLOP/s)")
+    return ms
+
+
+def _t5_no_cache_greedy(model, src, n):
+    """Greedy decoding that reruns the teacher-forced decoder over the
+    whole prefix every step: (tokens [B, n], per-step top-2 gaps)."""
+    ids = torch.zeros((src.shape[0], 1), dtype=torch.long, device="cuda")
+    gaps = []
+    with torch.no_grad():
+        enc = model.encode(src)
+        for _ in range(n):
+            last = model.decode(ids, enc)[:, -1]
+            top = torch.topk(last, 2).values
+            gaps.append((top[:, 0] - top[:, 1]).min().item())
+            ids = torch.cat([ids, last.argmax(-1, keepdim=True)], dim=1)
+    return ids[:, 1:], gaps
+
+
+def _t5_zoo(tmp):
+    """T5-small: ``train.main --dataset span-corruption`` (16 x 512
+    inputs / 128 targets, 6 / 6 / 6 launches a step), a timed TrainStep
+    on the synthetic batch, the cross-attention's flash route at 2 + 2
+    layers in float32 with and without ``enc_mask``, cached greedy ==
+    no-cache greedy and 1 beam == greedy in float32, and bf16 ms a
+    token for greedy and 4 beams."""
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.models.t5 import shift_right
+
+    spec = get_model(T5)
+    recs = {}
+    data_dir = os.path.join(tmp, "t5_tokens")
+    os.makedirs(data_dir)
+    np.save(os.path.join(data_dir, "tokens.npy"), np.random.RandomState(
+        0).randint(2, 32000, 400_000).astype(np.int32))
+    with _train_main(["--model", T5, "--steps", "3", "--log-every", "1",
+                      "--batch-size", "16", "--dataset", "span-corruption",
+                      "--data-dir", data_dir]) as run:
+        _check_per_step(run["counts"], 3, 6, "t5 train.main")
+        recs["main_counts"] = run["counts"]
+        print(f"[t5] {T5} train.main --dataset span-corruption, batch 16 "
+              f"x 512 inputs / 128 targets, 3 steps in {run['secs']:.1f} "
+              f"s: losses " + ", ".join(f"{v:.4f}" for v in run["losses"])
+              + f"; flash launches {run['counts']} (6 / 6 / 6 a step: "
+              f"the decoder's cross-attention, 128 rows over 512 "
+              f"key-padded keys)")
+    _release()
+    model = spec.init_params(seed=0, device="cuda", train=True)
+    data = {"inputs": torch.as_tensor(spec.make_batch(16)["inputs"],
+                                      device="cuda")}
+    step_s, metrics, counts = _timed_steps(spec, model, data, 3, lr=1e-3)
+    _check_per_step(counts, 3, 6, "t5 TrainStep")
+    recs["train"] = _train_line(
+        "t5", f"{T5} TrainStep 16 x 512 -> 512 bf16 (f32 master weights, "
+        f"AdamW), 3 steps", spec, 16, step_s, metrics,
+        {k: v // 3 for k, v in counts.items()}, "tok", 16 * 512)
+    del model
+    _release()
+    # Gated-GELU (T5 v1.1's FFN): under ReLU a pre-activation within
+    # float32 rounding of 0 flips between the routes and moves a whole
+    # token's term of the FFN's gradient (2e-2 of the largest on the
+    # CPU with no kernel at all; gated-GELU: 3.4e-6).
+    small = spec.init_params(seed=0, device="cuda", train=True,
+                             dtype=torch.float32, num_layers=2,
+                             num_decoder_layers=2,
+                             feed_forward="gated-gelu")
+    with torch.no_grad():
+        # T5's own init folds d_kv ** -0.5 into the queries; the zoo's
+        # flax default leaves scores of std ~8, where two float32
+        # routes' gradients differ by ~1e-4 of the largest.
+        for name, p in small.named_parameters():
+            if "q_proj" in name:
+                p.mul_(small.cfg.d_kv ** -0.5)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in spec.make_batch(4).items()}
+    pad = torch.ones_like(batch["inputs"])
+    pad[1, 300:] = 0
+    pad[3, 130:] = 0
+    for label, mask in (("no mask", None), ("enc_mask", pad)):
+        def loss_of(m, mask=mask):
+            src = batch["inputs"]
+            logits = m(src, shift_right(src, 0), enc_mask=mask)
+            return torch.nn.functional.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]),
+                src.reshape(-1)), logits
+        _route_line("t5", f"{T5} width, gated-GELU, 2 + 2 layers, "
+                    f"float32, 4 x 512, {label}", loss_of, small, 2)
+    del small
+    _release()
+    f32 = spec.init_params(seed=0, device="cuda", dtype=torch.float32)
+    src = torch.as_tensor(np.random.RandomState(2).randint(
+        2, 32000, (2, 512)), device="cuda")
+    got = G.generate_seq2seq(f32, src, max_new_tokens=24)
+    want, gaps = _t5_no_cache_greedy(f32, src, 24)
+    beam1 = G.generate_beam_seq2seq(f32, src, max_new_tokens=24,
+                                    num_beams=1)
+    first = next((i for i in range(24)
+                  if not torch.equal(got[:, i], want[:, i])), None)
+    ok = (first is None or gaps[first] < 1e-4) and torch.equal(beam1, got)
+    print(f"[t5] float32 generate_seq2seq (2 x 512 encoder tokens, 24 "
+          f"new) == no-cache greedy: "
+          + ("all equal" if first is None else
+             f"first difference at token {first}, solo top-2 gap "
+             f"{gaps[first]:.2e} (tie rule, limit 1e-4)")
+          + f"; generate_beam_seq2seq 1 beam == greedy: "
+          f"{torch.equal(beam1, got)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("t5 cached decoding disagrees")
+    weights = f32.state_dict()
+    del f32
+    _release()
+    bf = spec.make_model(device="cuda").eval().requires_grad_(False)
+    bf.load_state_dict(weights)
+    src = torch.as_tensor(np.random.RandomState(3).randint(
+        2, 32000, (4, 512)), device="cuda")
+    for label, fn in (("greedy", lambda: G.generate_seq2seq(
+            bf, src, max_new_tokens=64)),
+                      ("4 beams", lambda: G.generate_beam_seq2seq(
+                          bf, src, max_new_tokens=64, num_beams=4))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms_tok = (time.perf_counter() - t0) * 1e3 / 64
+        recs[f"{label} ms_per_token"] = ms_tok
+        print(f"[t5] {T5} bf16 {label}: 4 x 512 encoder tokens, 64 new "
+              f"tokens, {ms_tok:.3f} ms a token (wall, encode included); "
+              f"shape {list(out.shape)}")
+    del bf
+    _release()
+    return recs, weights
+
+
+def _vit_zoo():
+    """ViT-B/16 TrainStep at 64 x 224 x 224: img/s, MFU, no flash
+    launch (197 tokens)."""
+    from polyaxon_tpu_torch.models.registry import get_model
+
+    spec = get_model(VIT)
+    model = spec.init_params(seed=0, device="cuda", train=True)
+    data = {k: torch.as_tensor(v, device="cuda")
+            for k, v in spec.make_batch(64).items()}
+    step_s, metrics, counts = _timed_steps(spec, model, data, 3, lr=1e-3)
+    if any(counts.values()):
+        raise AssertionError(f"vit: flash launches {counts}")
+    rec = _train_line("vit", f"{VIT} TrainStep 64 x 224 x 224 bf16 (f32 "
+                      f"master weights, AdamW, 197 tokens: plain "
+                      f"attention), 3 steps", spec, 64, step_s, metrics,
+                      counts, "img", 64)
+    weights = model.state_dict()
+    del model
+    _release()
+    return rec, weights
+
+
+def _init_hf_round_trip(name, state_dict, batch, export):
+    """``train.main --init-hf`` of ``export`` of a model holding
+    ``state_dict``: the first tracked loss equals the source model's on
+    the same batch (rel 1e-5)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hf.pt")
+        want, export_s = _export_hf_source(name, batch, state_dict, path,
+                                           seed=1, export=export)
+        with _train_main(["--model", name, "--steps", "1", "--log-every",
+                          "1", "--batch-size", str(batch), "--init-hf",
+                          path, "--seed", "1"]) as run:
+            got = run["store"].read_events("chip-smoke", "metric",
+                                           "loss")[0]["value"]
+    rel = abs(got - want) / abs(want)
+    ok = rel <= 1e-5
+    print(f"[zoo-rest] --init-hf round trip: {name} (seed 0's weights) -> "
+          f"{export} -> torch.save ({export_s:.1f} s) -> train.main "
+          f"--init-hf, batch {batch}: first step loss {got:.6f} vs the "
+          f"source model's {want:.6f} (rel {rel:.2e}, tol 1e-5) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"--init-hf {name}: the first loss is not the "
+                             f"source model's")
+    _release()
+    return rel
+
+
+def phase_zoo_rest():
+    """The rest of the zoo on the card, each model from seed 0 at the
+    registry's full width and depth: MoE-GPT-small (training, the flash
+    route, the engine on both pools and an HTTP load), T5-small
+    (span-corruption ``train.main``, a timed step, the cross-attention's
+    flash route, seq2seq greedy and beam decoding), ViT-B/16 training,
+    and ``--init-hf`` round trips of ViT and T5.  Returns the records."""
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fn in (("moe-gpt-small", _moe_zoo),
+                          ("t5-small", lambda: _t5_zoo(tmp)),
+                          ("vit-base", _vit_zoo)):
+            t0 = time.perf_counter()
+            recs[label] = fn()
+            print(f"[time] zoo rest: {label} "
+                  f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    recs["t5-small"], t5_weights = recs["t5-small"]
+    recs["vit-base"], vit_weights = recs["vit-base"]
+    recs["init_hf"] = {
+        VIT: _init_hf_round_trip(VIT, vit_weights, 8, "export_hf_vit"),
+        T5: _init_hf_round_trip(T5, t5_weights, 4, "export_hf_t5")}
+    del t5_weights, vit_weights
+    _release()
+    print(f"[time] zoo rest: --init-hf round trips "
+          f"{time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 LLAMA = "tinyllama-1.1b"
 
 
@@ -3268,7 +3729,9 @@ def phase_llama_serving(model, model_f32):
     plain path).
     Returns the decode-step ms per program and the two records."""
     t0 = time.perf_counter()
-    _f32_schedule(model_f32, LLAMA, tag="llama", pools=("paged",))
+    # 6 requests (12 before the zoo's phases joined), for the
+    # script's time.
+    _f32_schedule(model_f32, LLAMA, tag="llama", pools=("paged",), n=6)
     print(f"[time] llama: float32 schedules {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # No profiled eager window, to bound the script's time (PERF.md
@@ -3282,7 +3745,9 @@ def phase_llama_serving(model, model_f32):
                       "max_new_tokens": 64}
                      for n in rng.randint(64, 513, 16)])
     recs = {}
-    for label, kw in (("llama mixed fixed-lane", {"warm_requests": 4,
+    # One warm-up request (4 before the zoo's phases joined), for
+    # the script's time.
+    for label, kw in (("llama mixed fixed-lane", {"warm_requests": 1,
                                                   "idle_share": False}),
                       # No idle-share reruns either: trimmed for the
                       # fleet phase's time (PERF.md keeps the earlier ones).
@@ -3677,7 +4142,7 @@ def _step_times(variants, paged: bool, prompts, tag: str) -> dict:
 
 
 def _int8_f32_check(model_f32, name: str) -> dict:
-    """float32, ``--int8-weights --int8-kv``: 6 concurrent requests
+    """float32, ``--int8-weights --int8-kv``: 4 concurrent requests
     (every odd one sampled, position-keyed), one extending a prefix
     registered by ``prefill_prompt`` (a radix hit) and one speculative
     (K = 4, the draft a 4-layer cut, also int8), through ``ModelServer``
@@ -3694,8 +4159,10 @@ def _int8_f32_check(model_f32, name: str) -> dict:
     draft = quantize_params(_cut_draft(model_f32, name, 4))
     vocab = model_f32.cfg.vocab_size
     rng = np.random.RandomState(11)
+    # 4 plain prompts (6 before the zoo's phases joined), for the
+    # script's time.
     prompts = [rng.randint(0, vocab, n).tolist()
-               for n in rng.randint(16, 201, 6)]
+               for n in rng.randint(16, 201, 4)]
     sys_p = rng.randint(0, vocab, 64).tolist()
     bodies = [dict({"prompt": p, "max_new_tokens": 24},
                    **({**SAMPLED, "seed": i} if i % 2 else {}))
@@ -3733,14 +4200,17 @@ def _int8_f32_check(model_f32, name: str) -> dict:
                 ms.close()
             ties = _same_tokens(qf, "int8", bodies, want,
                                 [g["new_tokens"] for g in got])
-            if info["prefix_hits"] < 1 or got[6].get("prefix_hit_len") != 64:
+            if info["prefix_hits"] < 1 or \
+                    got[len(prompts)].get("prefix_hit_len") != 64:
                 raise AssertionError(f"int8 {label}: no prefix hit "
                                      f"({info['prefix_hits']})")
             print(f"[int8] float32 --int8-weights --int8-kv, {label} pool: "
-                  f"8 concurrent requests (3 sampled, 1 on a 64-token "
+                  f"{len(bodies)} concurrent requests "
+                  f"({len(prompts) // 2} sampled, 1 on a 64-token "
                   f"prefix hit, 1 speculative with an int8 4-layer draft) "
-                  f"in {secs:.2f} s equal solo ({8 - ties} exactly, {ties} "
-                  f"by the tie rule); flash launches {counts[label]}")
+                  f"in {secs:.2f} s equal solo ({len(bodies) - ties} "
+                  f"exactly, {ties} by the tie rule); flash launches "
+                  f"{counts[label]}")
     del qf, draft
     _release()
     return counts
@@ -4527,6 +4997,7 @@ PROFILE_EVERY = 16          # recorder period, decode dispatches
 PROFILE_STEPS = 8           # dispatches a recorder window profiles
 MERGE_PROMPT = 256          # the coalescer's merge load: prompt tokens
 MERGE_NEW = 16              # and new tokens of each of its 8 requests
+MODES_MIXED = 8             # the batching A/B's mixed load: requests
 
 
 def _trace_busy(events) -> tuple:
@@ -4750,9 +5221,9 @@ def phase_profiling(model, model_f32, name="gpt2-medium"):
     4. legacy coalescing: in float32, 8 greedy requests of one prompt
        length under ``batching="coalesce"`` and ``"off"`` == solo
        ``generate`` (coalesced_batches >= 1); in bf16 tok/s and TTFT
-       under continuous, coalesce and off of the mixed load and of a
-       load the coalescer can merge (8 greedy requests of 256 prompt
-       tokens, 16 new; coalesced_batches >= 1).
+       under continuous, coalesce and off of the mixed load's first 8
+       requests and of a load the coalescer can merge (8 greedy
+       requests of 256 prompt tokens, 16 new; coalesced_batches >= 1).
     ``serve --profile-dir --profile-every --trace-file`` as a process is
     left to ``tests/test_torch_profiling.py`` on the CPU, for the
     script's time.  Returns the records with the flash launches of each
@@ -4803,14 +5274,16 @@ def phase_profiling(model, model_f32, name="gpt2-medium"):
                     recorder.close()
                     ms.engine.recorder = None
                     try:
+                        off = _mode_stats(base, ms, "mixed (16)",
+                                          bodies)["tok_per_s"]
                         modes = {"continuous": {
-                            "mixed": _mode_stats(base, ms, "mixed", bodies),
+                            "mixed": _mode_stats(base, ms, "mixed",
+                                                 bodies[:MODES_MIXED]),
                             "merge": _mode_stats(base, ms, "merge",
                                                  merge)}}
                     finally:
                         ms.engine.recorder = recorder
                     on = rec["tok_per_s"]
-                    off = modes["continuous"]["mixed"]["tok_per_s"]
                     out["cost"] = {"on": on, "off": off}
                     print(f"[profile] recorder cost, mixed fixed-lane load"
                           f" on one server, recorder attached then "
@@ -4879,11 +5352,11 @@ def phase_profiling(model, model_f32, name="gpt2-medium"):
         # mixed load (distinct prompt lengths, half sampled: nothing
         # merges) and on the merge load (one shape, all greedy).
         t0 = time.perf_counter()
-        # For the script's time the serialized modes take the first 8 of
-        # the mixed load's 16 requests (one at a time either way: their
-        # tok/s does not grow with the count; 29-32 s a mode at 16).
+        # For the script's time the three modes take the first 8 of the
+        # mixed load's 16 requests (the serialized modes took 29-32 s a
+        # mode at 16, 13.8-15.8 s at 8).
         out["modes"] = {**modes, **{
-            mode: _mode_load(model, mode, {"mixed": bodies[:8],
+            mode: _mode_load(model, mode, {"mixed": bodies[:MODES_MIXED],
                                            "merge": merge})
             for mode in ("coalesce", "off")}}
         if out["modes"]["coalesce"]["merge"]["coalesced_batches"] < 1:
@@ -5025,27 +5498,81 @@ def _run_job(env, store, train_secs):
     return launches
 
 
-def _run_sweep(env, store, home):
-    """The BASELINE's configuration 4: ``convnet_hyperband.yaml``, the
-    hyperband matrix over the CIFAR-10 ConvNet (seeded synthetic
+SWEEP_CUT = {"maxIterations": 3, "concurrency": 3}
+
+
+def _start_sweep():
+    """Starts ``run -f convnet_hyperband.yaml`` in a temporary home, as
+    a user types it, and returns at once: the BASELINE's configuration
+    4, the hyperband matrix over the CIFAR-10 ConvNet (seeded synthetic
     batches; batch size and lr from the example's search space), cut by
     a ``--preset`` to ``maxIterations`` 3 (two brackets, 6 trials),
     three at a time (six at once took longer: 72.6 s against 64.2 s,
-    their start-ups contending for the host's cores): the trials are the port's hyperband schedule for
-    the sweep's seed (rung 0 and the fresh bracket's suggestions, the
-    promoted trial one of rung 0's best accuracy), each trained at its
-    suggestion, and ``best_run`` the highest ``outputs.accuracy``."""
+    their start-ups contending for the host's cores).  The trials are
+    processes of their own, mostly interpreter and CUDA start-up
+    (58-90 s of wall together), so the script runs its last in-process
+    phases meanwhile and ``_finish_sweep`` checks the result."""
+    home = tempfile.mkdtemp(prefix="ptpu_sweep_")
+    preset = os.path.join(home, "sweep.json")
+    with open(preset, "w") as f:  # JSON is YAML
+        json.dump({"isPreset": True, "matrix": SWEEP_CUT}, f)
+    log = open(os.path.join(home, "run.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "polyaxon_tpu_torch.cli", "run", "-f",
+         os.path.join(EXAMPLES, "convnet_hyperband.yaml"), "--preset",
+         preset, "--no-watch"], env=_cli_env(home), cwd=ROOT, stdout=log,
+        stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "log": log, "home": home, "preset": preset,
+            "t0": time.perf_counter()}
+
+
+def _stop_sweep(sweep, timeout=600):
+    """Waits for the sweep's ``run`` (it returns once every trial has
+    ended), killing it past ``timeout``.  Returns (exit code, output,
+    wall seconds, seconds waited here)."""
+    proc = sweep["proc"]
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    end = time.perf_counter()
+    sweep["log"].seek(0)
+    out = sweep["log"].read()
+    sweep["log"].close()
+    return rc, out, end - sweep["t0"], end - t0
+
+
+def _finish_sweep(sweep):
+    """The sweep started by ``_start_sweep``, once it has ended: the
+    trials are the port's hyperband schedule for the sweep's seed (rung
+    0 and the fresh bracket's suggestions, the promoted trial one of
+    rung 0's best accuracy), each trained at its suggestion, and
+    ``best_run`` the highest ``outputs.accuracy``.  The trials' walls
+    include contention with the phases that ran meanwhile."""
+    import shutil
+
+    from polyaxon_tpu_torch.client import FileRunStore
+
+    try:
+        rc, out, wall, waited = _stop_sweep(sweep)
+        _check_sweep(FileRunStore(sweep["home"]), rc, out, wall,
+                     sweep["preset"])
+    finally:
+        shutil.rmtree(sweep["home"], ignore_errors=True)
+    print(f"[time] run: hyperband sweep {wall:.1f} s, {waited:.1f} s of it "
+          f"after the phases it overlapped")
+
+
+def _check_sweep(store, rc, out, wall, preset):
+    """``_finish_sweep``'s checks of the ended sweep's runs."""
     from polyaxon_tpu_torch.lifecycle import V1Statuses
     from polyaxon_tpu_torch.polyaxonfile import check_polyaxonfile
     from polyaxon_tpu_torch.tune import HyperbandManager
 
     path = os.path.join(EXAMPLES, "convnet_hyperband.yaml")
-    preset = os.path.join(home, "sweep.json")
-    cut = {"maxIterations": 3, "concurrency": 3}
-    with open(preset, "w") as f:  # JSON is YAML
-        json.dump({"isPreset": True, "matrix": cut}, f)
-    rc, out, wall = _ptpu(env, "run", "-f", path, "--preset", preset,
-                          "--no-watch")
+    cut = SWEEP_CUT
     sweep = store.get_run(_uuid_of(out))
     trials = store.list_runs(pipeline=sweep["uuid"], sort="created_at")
     bad = [(t["name"], t["status"]) for t in trials
@@ -5217,10 +5744,10 @@ def _run_service(env, store, home):
 def phase_run(train_secs: float):
     """``python -m polyaxon_tpu_torch.cli run -f <example>`` in a
     temporary home, as a user types it: the ``job`` (GPT-2 medium
-    training, tracked and profiled), the ConvNet ``hyperband`` matrix
-    (the baseline's configuration 4) and the GPT-2 medium ``service``;
+    training, tracked and profiled) and the GPT-2 medium ``service``;
     each result read back through the port's store.  Returns the flash
-    launches by path."""
+    launches by path.  The ConvNet sweep is ``_start_sweep`` /
+    ``_finish_sweep``."""
     from polyaxon_tpu_torch.client import FileRunStore
 
     with tempfile.TemporaryDirectory() as home:
@@ -5229,9 +5756,6 @@ def phase_run(train_secs: float):
         t0 = time.perf_counter()
         job = _run_job(env, store, train_secs)
         print(f"[time] run: job {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        _run_sweep(env, store, home)
-        print(f"[time] run: hyperband sweep {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         service = _run_service(env, store, home)
         print(f"[time] run: service {time.perf_counter() - t0:.1f} s")
@@ -5250,6 +5774,7 @@ KERNELS = {
 
 def main(argv=None) -> int:
     import argparse
+    import shutil
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -5325,6 +5850,8 @@ def main(argv=None) -> int:
     _release()
     zoo = phase_zoo()
     mark("zoo: bert-base, resnet50, mnist run -f")
+    zoo_rest = phase_zoo_rest()
+    mark("zoo rest: moe-gpt-small, t5-small, vit-base, --init-hf")
     model, model_f32 = llama_models()
     mark("llama init")
     llama_forward = phase_forward(model, model_f32, LLAMA, 2048,
@@ -5350,18 +5877,28 @@ def main(argv=None) -> int:
     mark("llama timed training")
     llama_remat = phase_zoo_remat(weights, llama_train)
     mark("zoo: llama named remat policy")
-    llama_main_counts, _ = phase_train_entry(LLAMA, steps=1, batch=4,
-                                             fwd_passes=2,
-                                             init_hf_from=weights)
-    del weights
-    mark("llama train.main from --init-hf and checkpoint serving")
-    phase_llama_grad_route()
-    mark("llama gradient route check (full and windowed)")
-    phase_mistral()
-    mark("mistral-tiny serving")
+    # The ConvNet sweep's trial processes start up while the last
+    # checks, which time nothing the findings compare, run in-process.
+    sweep = _start_sweep()
+    try:
+        llama_main_counts, _ = phase_train_entry(LLAMA, steps=1, batch=4,
+                                                 fwd_passes=2,
+                                                 init_hf_from=weights)
+        del weights
+        mark("llama train.main from --init-hf and checkpoint serving")
+        phase_llama_grad_route()
+        mark("llama gradient route check (full and windowed)")
+        phase_mistral()
+        mark("mistral-tiny serving")
+    except BaseException:
+        _stop_sweep(sweep, timeout=300)   # no trial outlives the script
+        shutil.rmtree(sweep["home"], ignore_errors=True)
+        raise
+    _finish_sweep(sweep)
+    mark("run -f: convnet hyperband sweep")
     _release()
     run_counts = phase_run(train_secs)
-    mark("run -f: job, convnet hyperband sweep, service")
+    mark("run -f: job, service")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = recs[name]
@@ -5409,6 +5946,16 @@ def main(argv=None) -> int:
                     "flash_launches"][name],
                 "llama_train_remat_policy": llama_remat[
                     "flash_launches"][name],
+                "moe_train_step": zoo_rest["moe-gpt-small"]["train"][
+                    "flash_launches"][name],
+                "moe_http_serving_paged": zoo_rest["moe-gpt-small"][
+                    "http"]["flash_launches"][name],
+                "t5_train_main_span_corruption": zoo_rest["t5-small"][
+                    "main_counts"][name],
+                "t5_train_step": zoo_rest["t5-small"]["train"][
+                    "flash_launches"][name],
+                "vit_train_step": zoo_rest["vit-base"][
+                    "flash_launches"][name],
                 **{k: v[name] for k, v in
                    fleet["flash_launches"].items()},
                 **{k: v[name] for k, v in
@@ -5434,6 +5981,17 @@ def main(argv=None) -> int:
           + f"; {LLAMA} paged: " + ", ".join(
               f"{k} {v:.4f}" for k, v in int8_llama.items())
           + f"; ring past 2048: {ring['step_ms']['ring']:.4f}")
+    moe, t5, vit = (zoo_rest[k] for k in ("moe-gpt-small", "t5-small",
+                                          "vit-base"))
+    print(f"[zoo-rest] moe-gpt-small train {moe['train']['step_ms']:.2f} ms "
+          f"(MFU {moe['train']['mfu']:.4f}), HTTP "
+          f"{moe['http']['tok_per_s']:.1f} tok/s, decode step "
+          f"{moe['decode_step_ms']:.3f} ms; t5-small train "
+          f"{t5['train']['step_ms']:.2f} ms (MFU {t5['train']['mfu']:.4f}), "
+          f"greedy {t5['greedy ms_per_token']:.3f} / 4 beams "
+          f"{t5['4 beams ms_per_token']:.3f} ms a token; vit-base train "
+          f"{vit['step_ms']:.2f} ms ({vit['img_per_s']:.1f} img/s, MFU "
+          f"{vit['mfu']:.4f})")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

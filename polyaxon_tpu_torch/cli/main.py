@@ -189,6 +189,7 @@ def run_generate(model, model_name: str, rows, *, max_new_tokens: int,
     toks = torch.tensor(rows, dtype=torch.long, device=dev)
     t0 = time.perf_counter()
     try:
+        G.check_decoder_only(model)
         if draft is not None:
             out = G.generate_speculative(
                 model, draft, toks, max_new_tokens=max_new_tokens,

@@ -1,6 +1,6 @@
 """Carry flax weights across to the port: GPT-2, the Llama family,
-BERT, the MLP, the ConvNet and ResNet (its ``batch_stats`` onto the
-batch norms' running buffers).
+BERT, the MLP, the ConvNet, ResNet (its ``batch_stats`` onto the
+batch norms' running buffers), MoE-GPT, T5 and ViT.
 
 The caller turns the flax param tree into numpy
 (``jax.tree.map(np.asarray, variables["params"])``); this module never
@@ -299,6 +299,87 @@ def bert_state_dict_from_jax(params: Mapping,
                    _at(layer, path))
         for mod in ("ln_attn", "ln_mlp"):
             _norm(sd, f"layers.{i}.{mod}", layer[mod])
+    return sd
+
+
+def moe_gpt_state_dict_from_jax(params: Mapping,
+                                cfg) -> Dict[str, torch.Tensor]:
+    """The flax MoE-GPT param tree -> the port's state dict: GPT-2's
+    attention, norms and embeddings, and each layer's ``moe`` router
+    ``[d, E]`` and experts ``[E, d, f]`` / ``[E, f, d]`` as they are
+    (the port keeps the reference's layout)."""
+    sd: Dict[str, torch.Tensor] = {
+        "wte.weight": _t(params["wte"]["embedding"]),
+        "wpe.weight": _t(params["wpe"]["embedding"]),
+    }
+    _norm(sd, "ln_f", params["ln_f"])
+    for i, layer in enumerate(_layer_trees(params, cfg.num_layers)):
+        for mod in ("qkv", "o_proj"):
+            _dense(sd, f"h.{i}.{mod}", layer[mod])
+        for mod in _GPT2_NORMS:
+            _norm(sd, f"h.{i}.{mod}", layer[mod])
+        for leaf in ("router", "experts_w1", "experts_w2"):
+            sd[f"h.{i}.moe.{leaf}"] = _t(layer["moe"][leaf])
+    return sd
+
+
+_T5_ATTN = ("q_proj", "k_proj", "v_proj", "o_proj")
+
+
+def t5_state_dict_from_jax(params: Mapping,
+                           cfg) -> Dict[str, torch.Tensor]:
+    """The flax T5 param tree -> the port's state dict, from the scanned
+    ``enc/block`` and ``dec/block`` stacks or unrolled ``enc_{i}`` /
+    ``dec_{i}`` blocks: bias-free Dense kernels transposed, RMSNorm
+    ``scale`` -> ``weight``, the two bias tables, and ``lm_head`` when
+    the config is untied."""
+    sd: Dict[str, torch.Tensor] = {
+        "embed.weight": _t(params["embed"]["embedding"]),
+        "enc_rel.rel_bias.weight":
+            _t(params["enc_rel"]["rel_bias"]["embedding"]),
+        "dec_rel.rel_bias.weight":
+            _t(params["dec_rel"]["rel_bias"]["embedding"]),
+        "enc_norm.weight": _t(params["enc_norm"]["scale"]),
+        "dec_norm.weight": _t(params["dec_norm"]["scale"]),
+    }
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = _t(params["lm_head"]["kernel"], True)
+    ff = ("wi_0", "wi_1", "wo") if cfg.feed_forward == "gated-gelu" \
+        else ("wi", "wo")
+    for stack, depth, attns, norms in (
+            ("enc", cfg.num_layers, ("attn",), ("ln_self", "ln_ff")),
+            ("dec", cfg.num_decoder_layers, ("attn", "cross"),
+             ("ln_self", "ln_cross", "ln_ff"))):
+        for i, layer in enumerate(_layer_trees(params, depth,
+                                               (stack, "block"),
+                                               f"{stack}_")):
+            for attn in attns:
+                for proj in _T5_ATTN:
+                    _dense(sd, f"{stack}.{i}.{attn}.{proj}",
+                           layer[attn][proj], bias=False)
+            for mod in ff:
+                _dense(sd, f"{stack}.{i}.{mod}", layer[mod], bias=False)
+            for mod in norms:
+                sd[f"{stack}.{i}.{mod}.weight"] = _t(layer[mod]["scale"])
+    return sd
+
+
+def vit_state_dict_from_jax(params: Mapping,
+                            cfg) -> Dict[str, torch.Tensor]:
+    """The flax ViT param tree -> the port's state dict (the patch
+    convolution's HWIO kernel as OIHW)."""
+    sd: Dict[str, torch.Tensor] = {
+        "cls": _t(params["cls"]),
+        "pos_embed": _t(params["pos_embed"]),
+    }
+    _conv(sd, "patch_embed", params["patch_embed"])
+    _norm(sd, "ln_f", params["ln_f"])
+    _dense(sd, "head", params["head"])
+    for i, layer in enumerate(_layer_trees(params, cfg.num_layers)):
+        for mod in _GPT2_DENSE:
+            _dense(sd, f"h.{i}.{mod}", layer[mod])
+        for mod in _GPT2_NORMS:
+            _norm(sd, f"h.{i}.{mod}", layer[mod])
     return sd
 
 

@@ -20,8 +20,9 @@ batches in both packages:
   batches into tensors in pinned host memory and copies them onto the
   device without blocking, so the host copy overlaps device compute.
 
-The span-corruption dataset comes with T5 (ROADMAP Queue 1: The rest of
-the zoo).
+- ``SpanCorruptionDataset``: T5's span-corruption objective over a
+  token stream, padded to static input and target lengths with
+  ``enc_mask`` / ``target_mask``.
 """
 
 from __future__ import annotations
@@ -249,6 +250,186 @@ def token_dataset(path: str, batch_size: int, seq_len: int, *,
     else:
         tokens = np.memmap(path, dtype=np.uint16, mode="r")
     return TokenWindowDataset(tokens, batch_size, seq_len, seed=seed)
+
+
+def _random_segmentation(total: int, parts: int,
+                         rs: np.random.RandomState) -> np.ndarray:
+    """Random composition of ``total`` into ``parts`` positive parts
+    (uniform over compositions): choose parts-1 distinct cut points."""
+    if parts <= 1:
+        return np.array([total])
+    cuts = np.sort(rs.choice(total - 1, size=parts - 1,
+                             replace=False)) + 1
+    return np.diff(np.concatenate([[0], cuts, [total]]))
+
+
+class SpanCorruptionDataset(_EpochIterable):
+    """T5's span-corruption pretraining objective over a token stream.
+
+    Per example: a window of ``window_length`` tokens is split into
+    alternating keep/noise segments (noise fraction ``noise_density``,
+    mean noise-span length ``mean_span``); each noise span is replaced
+    by one descending sentinel (vocab_size-1, vocab_size-2, ...) in
+    the encoder input, and the decoder target is the concatenation of
+    ``sentinel_i + span_i`` pairs followed by ``eos_id``.  Both sides
+    are padded to the STATIC (``inputs_length``, ``targets_length``) —
+    every batch has one shape — with ``enc_mask``/``target_mask``
+    marking real tokens (the registry's seq2seq loss applies them).
+    The produced lengths are deterministic in ``window_length``, so a
+    window that would overflow the static lengths (silently dropping
+    noise spans) is rejected at construction; the default window is
+    auto-sized to exactly fill ``inputs_length``.
+
+    The stream's token ids must stay below
+    ``vocab_size - num_sentinels`` (T5 reserves the top of the vocab
+    for sentinels); ids at or above that range would collide and are
+    rejected per batch.
+    """
+
+    def __init__(self, tokens: np.ndarray, batch_size: int,
+                 inputs_length: int, targets_length: int, *,
+                 vocab_size: int, window_length: Optional[int] = None,
+                 noise_density: float = 0.15, mean_span: float = 3.0,
+                 num_sentinels: int = 100, pad_id: int = 0,
+                 eos_id: int = 1, seed: int = 0):
+        if tokens.ndim != 1:
+            raise ValueError(f"tokens must be 1-D; got {tokens.shape}")
+        if not 0.0 < noise_density < 1.0:
+            raise ValueError(
+                f"noise_density must be in (0, 1); got {noise_density}")
+        self.noise_density = float(noise_density)
+        self.mean_span = float(mean_span)
+        self.num_sentinels = int(num_sentinels)
+        if window_length is None:
+            # Window sized so the corrupted input ((1-r)*W + spans)
+            # fills inputs_length; spans ~= W*r/mean_span sentinels
+            # are added.  Rounding can overshoot by a token or two —
+            # shrink until the EXACT planned lengths fit (n_noise and
+            # n_spans are deterministic in W, so this is checkable).
+            window_length = min(
+                len(tokens) - 1,
+                round(inputs_length / (1.0 - noise_density
+                                       + noise_density / mean_span)))
+            while window_length > 1:
+                need_in, need_tgt = self._plan(window_length)
+                if need_in <= inputs_length and \
+                        need_tgt <= targets_length:
+                    break
+                window_length -= 1
+        else:
+            need_in, need_tgt = self._plan(int(window_length))
+            if need_in > inputs_length or need_tgt > targets_length:
+                # Silent truncation would drop noise spans from the
+                # target — a corrupted objective, not a shorter one.
+                raise ValueError(
+                    f"window_length {window_length} produces inputs of "
+                    f"{need_in} and targets of {need_tgt}, exceeding "
+                    f"the static (inputs_length={inputs_length}, "
+                    f"targets_length={targets_length})")
+        self.window_length = int(window_length)
+        if len(tokens) < self.window_length + 1:
+            raise ValueError(
+                f"{len(tokens)} tokens can't fill a window of "
+                f"{self.window_length}")
+        self.tokens = tokens
+        self.batch_size = int(batch_size)
+        self.inputs_length = int(inputs_length)
+        self.targets_length = int(targets_length)
+        self.vocab_size = int(vocab_size)
+        self.pad_id = int(pad_id)
+        self.eos_id = int(eos_id)
+        self.seed = seed
+
+    def _counts(self, L: int):
+        """(n_noise, n_spans) for a window of L — deterministic, so
+        the produced lengths are exact, not worst-case."""
+        n_noise = max(1, int(round(L * self.noise_density)))
+        n_noise = min(n_noise, L - 1)
+        n_spans = max(1, int(round(n_noise / self.mean_span)))
+        n_spans = min(n_spans, n_noise, self.num_sentinels,
+                      L - n_noise)
+        return n_noise, n_spans
+
+    def _plan(self, L: int):
+        """Exact (input_len, target_len) a window of L produces."""
+        n_noise, n_spans = self._counts(L)
+        return L - n_noise + n_spans, n_noise + n_spans + 1
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return max(1, len(self.tokens) //
+                   (self.batch_size * self.window_length))
+
+    def _corrupt(self, window: np.ndarray, rs: np.random.RandomState):
+        L = len(window)
+        n_noise, n_spans = self._counts(L)
+        noise_lens = _random_segmentation(n_noise, n_spans, rs)
+        keep_lens = _random_segmentation(L - n_noise, n_spans, rs)
+        sentinel0 = self.vocab_size - 1
+        inp, tgt, pos = [], [], 0
+        for i in range(n_spans):
+            inp.extend(window[pos:pos + keep_lens[i]])
+            pos += keep_lens[i]
+            inp.append(sentinel0 - i)
+            tgt.append(sentinel0 - i)
+            tgt.extend(window[pos:pos + noise_lens[i]])
+            pos += noise_lens[i]
+        tgt.append(self.eos_id)
+        return np.asarray(inp, np.int32), np.asarray(tgt, np.int32)
+
+    def _pad(self, row: np.ndarray, length: int):
+        row = row[:length]
+        mask = np.zeros(length, np.int32)
+        mask[:len(row)] = 1
+        out = np.full(length, self.pad_id, np.int32)
+        out[:len(row)] = row
+        return out, mask
+
+    def sample(self, n: int = 2) -> Dict[str, np.ndarray]:
+        """First-batch rows (deterministic), sized to n — the trainer's
+        compile-shape probe (TokenWindowDataset.sample contract)."""
+        batch = next(self.epoch(0))
+        reps = -(-n // self.batch_size)
+        return {k: np.concatenate([v] * reps)[:n]
+                for k, v in batch.items()}
+
+    def epoch(self, epoch: int = 0, start: int = 0
+              ) -> Iterator[Dict[str, np.ndarray]]:
+        rs = _epoch_rng(self.seed, epoch)
+        hi = len(self.tokens) - self.window_length
+        limit = self.vocab_size - self.num_sentinels
+        for step_i in range(self.steps_per_epoch):
+            # ONE code path for skipped and emitted batches: the rng
+            # consumption (offset draw + data-dependent segmentation
+            # draws inside _corrupt) is identical by construction, so
+            # a resume skip can never desynchronize the stream even if
+            # the draw pattern changes later.  Skipped batches only
+            # save the pad/stack/yield tail — numpy-only cost.
+            emit = step_i >= start
+            offs = np.sort(rs.randint(0, hi + 1,
+                                      size=self.batch_size))
+            ins, tgts, in_m, tgt_m = [], [], [], []
+            for o in offs:
+                window = np.asarray(
+                    self.tokens[o:o + self.window_length], np.int64)
+                if window.max() >= limit:
+                    raise ValueError(
+                        f"token id {int(window.max())} collides with "
+                        f"the sentinel range [{limit}, "
+                        f"{self.vocab_size}); re-pack the stream or "
+                        f"lower num_sentinels")
+                i, t = self._corrupt(window, rs)
+                if not emit:
+                    continue
+                i, im = self._pad(i, self.inputs_length)
+                t, tm = self._pad(t, self.targets_length)
+                ins.append(i); tgts.append(t)
+                in_m.append(im); tgt_m.append(tm)
+            if emit:
+                yield {"inputs": np.stack(ins),
+                       "labels": np.stack(tgts),
+                       "enc_mask": np.stack(in_m),
+                       "target_mask": np.stack(tgt_m)}
 
 
 def prefetch_to_device(batches: Iterator[Dict[str, np.ndarray]],

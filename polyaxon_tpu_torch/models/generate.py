@@ -17,8 +17,10 @@ serves int8 weights (dequantized where each module reads them,
 ``ops/quant.py``), the int8 KV cache and, for sliding-window models, the
 ring cache, whose sessions skip the ``max_position`` budget checks
 (prefill chunks at ``max_position``).  ``generate_seq2seq`` and
-``generate_beam_seq2seq`` wait for T5 (ROADMAP Queue 1: the rest of the
-zoo).
+``generate_beam_seq2seq`` decode an encoder-decoder (T5): the encoder
+runs once, then the decoder steps from an empty :class:`T5Cache` whose
+first step projects the cross-attention K/V; sampling is chain-keyed
+(``positional_eligible`` is False for a model with ``encode``).
 """
 
 from __future__ import annotations
@@ -156,6 +158,24 @@ def _check_spec_k(spec_k) -> None:
 # one message whichever surface fields the request.
 SPEC_BEAM_MSG = ("speculative decoding cannot combine with beam "
                  "search (greedy or sampled only)")
+
+
+# The reference's server and CLI decode an encoder-decoder through the
+# decoder-only programs, which fail deep inside with a TypeError; the
+# port refuses such a request before any program runs, naming the fault.
+SEQ2SEQ_SERVE_MSG = (
+    "seq2seq (encoder-decoder) models are not decoded through the "
+    "decoder-only generate programs of the server and the CLI: the "
+    "reference's fail there with \"TypeError: T5Model.__call__() got an "
+    "unexpected keyword argument 'decode'\" (ROADMAP Queue 3: seq2seq "
+    "generate requests); decode with models.generate.generate_seq2seq")
+
+
+def check_decoder_only(model) -> None:
+    """Refuse a seq2seq model on a decoder-only path (SEQ2SEQ_SERVE_MSG,
+    a NotImplementedError: the server's 501)."""
+    if hasattr(model, "encode"):
+        raise NotImplementedError(SEQ2SEQ_SERVE_MSG)
 
 
 def _check_positional_sampling(top_k, top_p, temperature,
@@ -844,7 +864,9 @@ def _beam_loop(apply_step, cache: KVCache, first_logits, *, b: int,
     B*K rows, b-major ([layers, B*K, cap, H, D]; an int8 cache's scales
     with them), and every step gathers its rows by parent.  A ring's
     position table has no batch axis (beams decode in lockstep, so they
-    share it) and is neither tiled nor reordered.  ``apply_step(cache,
+    share it) and is neither tiled nor reordered; a seq2seq cache's
+    cross K/V are tiled but never reordered (``T5Cache``: they are
+    beam-invariant).  ``apply_step(cache,
     toks [B*K, 1], t) -> logits [B*K, V]``.  Returns the generated
     tokens [B, max_new_tokens]."""
     k = num_beams
@@ -852,8 +874,7 @@ def _beam_loop(apply_step, cache: KVCache, first_logits, *, b: int,
     lp = torch.log_softmax(first_logits.float(), dim=-1)
     vocab = lp.shape[-1]
     scores, first = torch.topk(lp, k, dim=-1)                # [B, K]
-    cache = cache.with_leaves([t.repeat_interleave(k, dim=1)
-                               for t in cache.leaves()])
+    cache = cache.tile_rows(k)
     done = (first == eos_id) if eos_id is not None \
         else torch.zeros((b, k), dtype=torch.bool, device=dev)
     # Per-beam generated length at finish (the length-penalty
@@ -877,8 +898,7 @@ def _beam_loop(apply_step, cache: KVCache, first_logits, *, b: int,
         parent = flat // vocab
         tok = flat % vocab
         flat_parent = (rows + parent).reshape(-1)
-        cache = cache.with_leaves([t.index_select(1, flat_parent)
-                                   for t in cache.leaves()])
+        cache = cache.take_rows(flat_parent)
         done = done.gather(1, parent)
         fin_len = fin_len.gather(1, parent)
         if eos_id is not None:
@@ -896,3 +916,99 @@ def _beam_loop(apply_step, cache: KVCache, first_logits, *, b: int,
         beam = parent_t.gather(1, beam[:, None])[:, 0]
     first_tok = first.gather(1, beam[:, None])[:, 0]
     return torch.stack([first_tok] + rev[::-1], dim=1)
+
+
+def _check_seq2seq(model, max_new_tokens: int) -> None:
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1; got "
+                         f"{max_new_tokens}")
+    max_pos = model.cfg.max_position
+    if max_new_tokens > max_pos:
+        # Cache slots used: the start token at 0 plus the fed-back
+        # tokens at 1..max_new_tokens-1 (the last is never fed back).
+        raise ValueError(
+            f"max_new_tokens ({max_new_tokens}) exceeds the decoder's "
+            f"max_position ({max_pos})")
+
+
+def _seq2seq_start(model, enc_tokens, enc_mask, start_id):
+    """(encoder output, mask tensor or None, start tokens [B, 1])."""
+    dev = model.device
+    enc_tokens = _as_tokens(enc_tokens, dev)
+    if enc_mask is not None:
+        enc_mask = torch.as_tensor(enc_mask, device=dev)
+    if start_id is None:
+        start_id = model.cfg.pad_id
+    enc_out = model.encode(enc_tokens, enc_mask=enc_mask)
+    start = torch.full((enc_tokens.shape[0], 1), start_id,
+                       dtype=torch.long, device=dev)
+    return enc_out, enc_mask, start
+
+
+def _seq2seq_step(model, enc_out, enc_mask):
+    """``apply_step(cache, toks [B, 1], pos) -> logits [B, V]``: one
+    cached decoder step at absolute position ``pos``."""
+    def apply_step(cache, toks, pos):
+        out = model.decode(toks, enc_out, enc_mask, decode=True,
+                           decode_position=pos, last_only=True,
+                           cache=cache)
+        return out[:, -1]
+    return apply_step
+
+
+@torch.no_grad()
+def generate_seq2seq(model, enc_tokens, *, max_new_tokens: int,
+                     temperature: float = 0.0,
+                     top_k: Optional[int] = None,
+                     top_p: Optional[float] = None, rng=None,
+                     eos_id: Optional[int] = None, enc_mask=None,
+                     start_id: Optional[int] = None) -> torch.Tensor:
+    """Seq2seq generation (T5): encode ``enc_tokens`` [B, S] once, then
+    decode token by token from an empty cache, whose first step (the
+    start token, ``cfg.pad_id`` unless ``start_id``) projects the
+    cross-attention K/V.  Token i draws with the i-th key of the chain
+    from ``rng`` (default ``PRNGKey(0)``); ``eos_id`` freezes finished
+    rows.  Returns the GENERATED tokens [B, max_new_tokens]."""
+    _check_seq2seq(model, max_new_tokens)
+    _check_top_p(top_p)
+    _check_top_k(top_k, model.cfg.vocab_size)
+    _check_temperature(temperature)
+    enc_out, enc_mask, start = _seq2seq_start(model, enc_tokens, enc_mask,
+                                              start_id)
+    rng = _default_rng(rng, enc_out.device)
+    step = _seq2seq_step(model, enc_out, enc_mask)
+    cache = model.init_decode_cache(start.shape[0])
+    logits = step(cache, start, 0)
+    return _decode_loop(
+        lambda cache, tok, t: step(cache, tok[:, None], 1 + t), cache,
+        logits, max_new_tokens=max_new_tokens, rng=rng,
+        temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id)
+
+
+@torch.no_grad()
+def generate_beam_seq2seq(model, enc_tokens, *, max_new_tokens: int,
+                          num_beams: int = 4,
+                          eos_id: Optional[int] = None,
+                          length_penalty: float = 1.0, enc_mask=None,
+                          start_id: Optional[int] = None) -> torch.Tensor:
+    """Beam search for seq2seq (T5): encode once, run the start step on
+    the batch (it projects the cross K/V), then beam over the decoder
+    cache tiled per beam (:func:`_beam_loop`); the encoder mask is tiled
+    b-major for the cross-attention.  Returns the highest-scoring
+    GENERATED tokens [B, max_new_tokens]."""
+    _check_seq2seq(model, max_new_tokens)
+    if num_beams < 1:
+        raise ValueError(f"num_beams must be >= 1; got {num_beams}")
+    enc_out, enc_mask, start = _seq2seq_start(model, enc_tokens, enc_mask,
+                                              start_id)
+    b = start.shape[0]
+    cache = model.init_decode_cache(b)
+    first = _seq2seq_step(model, enc_out, enc_mask)(cache, start, 0)
+    step = _seq2seq_step(
+        model, enc_out.repeat_interleave(num_beams, dim=0),
+        None if enc_mask is None
+        else enc_mask.repeat_interleave(num_beams, dim=0))
+    return _beam_loop(lambda cache, toks, t: step(cache, toks, 1 + t),
+                      cache, first, b=b, max_new_tokens=max_new_tokens,
+                      num_beams=num_beams, eos_id=eos_id,
+                      length_penalty=length_penalty)

@@ -16,8 +16,11 @@ models' split).  Layouts: GPT-2 stores Conv1D weights ``[in, out]``
 (transposed onto the port's ``[out, in]`` Linear weights); Llama and
 BERT store torch Linear ``[out, in]`` (taken as they are).  Every
 tensor is checked against the shape the config gives it, and a mismatch
-raises naming the HF tensor.  ViT and T5 come with their models (ROADMAP
-Queue 1: The rest of the zoo).
+raises naming the HF tensor.  ViT's ``attention.attention`` Linears fuse
+into ``qkv`` as BERT's do, and its patch convolution is OIHW in both;
+T5's two relative-bias tables live on block 0 of each HF stack (shared
+across layers, the port's one table a stack), a v1.0 checkpoint ties
+``lm_head`` to ``shared`` and a v1.1 one unties it.
 """
 
 from __future__ import annotations
@@ -105,10 +108,11 @@ def _checked(model_cls, cfg, loaded: Dict[str, Tuple[str, torch.Tensor]]
             raise KeyError(f"{hf}: no parameter {ours!r} in the "
                            f"{model_cls.__name__} of {cfg}")
         if tuple(t.shape) != tuple(want[ours].shape):
+            width = getattr(cfg, "hidden_size", None) or cfg.d_model
             raise ValueError(
                 f"{hf}: shape {tuple(t.shape)} does not match "
                 f"{ours} {tuple(want[ours].shape)} of the config "
-                f"(hidden {cfg.hidden_size}, {cfg.num_layers} layers)")
+                f"(hidden {width}, {cfg.num_layers} layers)")
         out[ours] = t.contiguous()
     return out
 
@@ -262,4 +266,153 @@ def export_hf_bert(model_or_sd, cfg) -> Dict[str, torch.Tensor]:
             parts = sd[f"layers.{i}.attn.qkv.{suffix}"].split(h)
             for name, part in zip(_QKV, parts):
                 out[f"{pre}.{name}.{suffix}"] = part.contiguous()
+    return out
+
+
+# -- ViT -----------------------------------------------------------------
+
+# ViT per-layer tensors other than attention.attention (fused qkv below).
+_VIT_LAYERS: Tuple[Tuple[str, str, str], ...] = (
+    ("layernorm_before", "ln1", "ln"),
+    ("attention.output.dense", "o_proj", "linear_b"),
+    ("layernorm_after", "ln2", "ln"),
+    ("intermediate.dense", "fc1", "linear_b"),
+    ("output.dense", "fc2", "linear_b"),
+)
+
+
+def _vit_pairs(cfg, hf_prefix: str = ""):
+    emb = f"{hf_prefix}embeddings"
+    yield from ((hf, ours, False) for hf, ours in (
+        (f"{emb}.cls_token", "cls"),
+        (f"{emb}.position_embeddings", "pos_embed"),
+        (f"{emb}.patch_embeddings.projection.weight",
+         "patch_embed.weight"),
+        (f"{emb}.patch_embeddings.projection.bias", "patch_embed.bias"),
+        (f"{hf_prefix}layernorm.weight", "ln_f.weight"),
+        (f"{hf_prefix}layernorm.bias", "ln_f.bias"),
+        ("classifier.weight", "head.weight"),
+        ("classifier.bias", "head.bias")))
+    yield from _layer_pairs(_VIT_LAYERS, hf_prefix + "encoder.layer.{i}",
+                            "h.{i}", cfg.num_layers)
+
+
+def load_hf_vit(state_dict: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """HF ``ViTForImageClassification.state_dict()`` -> the port's ViT
+    state dict: the three ``attention.attention.{query,key,value}``
+    Linears concatenate into ``qkv``.  HF feeds NCHW pixels; the port
+    takes NHWC images, as the reference.  Build the model with
+    ``gelu_approximate=False`` (HF's exact GELU)."""
+    from .vit import ViTModel
+
+    sd = _strip(state_dict, "vit.")
+    loaded = _load(sd, _vit_pairs(cfg))
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layer.{i}.attention.attention"
+        for suffix in ("weight", "bias"):
+            loaded[f"h.{i}.qkv.{suffix}"] = (
+                f"{pre}.{{query,key,value}}.{suffix}",
+                torch.cat([_t(sd[f"{pre}.{p}.{suffix}"]) for p in _QKV]))
+    return _checked(ViTModel, cfg, loaded)
+
+
+def export_hf_vit(model_or_sd, cfg) -> Dict[str, torch.Tensor]:
+    """The port's ViT -> an HF ``ViTForImageClassification`` state
+    dict (``qkv`` split back into query / key / value)."""
+    sd = _state(model_or_sd)
+    out = _export(sd, _vit_pairs(cfg, "vit."))
+    h = cfg.hidden_size
+    for i in range(cfg.num_layers):
+        pre = f"vit.encoder.layer.{i}.attention.attention"
+        for suffix in ("weight", "bias"):
+            parts = sd[f"h.{i}.qkv.{suffix}"].split(h)
+            for name, part in zip(_QKV, parts):
+                out[f"{pre}.{name}.{suffix}"] = part.contiguous()
+    return out
+
+
+# -- T5 ------------------------------------------------------------------
+
+def _t5_layer_tables(cfg):
+    """Per-layer tables of the T5 encoder and decoder blocks (the FF
+    names follow ``feed_forward``)."""
+    ff = (("DenseReluDense.wi_0", "wi_0", "linear"),
+          ("DenseReluDense.wi_1", "wi_1", "linear")) \
+        if cfg.feed_forward == "gated-gelu" else \
+        (("DenseReluDense.wi", "wi", "linear"),)
+    ff += (("DenseReluDense.wo", "wo", "linear"),)
+
+    def attn(hf, ours):
+        return tuple((f"{hf}.{p}", f"{ours}.{p}_proj", "linear")
+                     for p in ("q", "k", "v", "o"))
+
+    enc = (("layer.0.layer_norm", "ln_self", "rms"),
+           *attn("layer.0.SelfAttention", "attn"),
+           ("layer.1.layer_norm", "ln_ff", "rms"),
+           *((f"layer.1.{h}", o, k) for h, o, k in ff))
+    dec = (("layer.0.layer_norm", "ln_self", "rms"),
+           *attn("layer.0.SelfAttention", "attn"),
+           ("layer.1.layer_norm", "ln_cross", "rms"),
+           *attn("layer.1.EncDecAttention", "cross"),
+           ("layer.2.layer_norm", "ln_ff", "rms"),
+           *((f"layer.2.{h}", o, k) for h, o, k in ff))
+    return enc, dec
+
+
+_T5_REL = "block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+
+
+def _t5_pairs(cfg):
+    enc, dec = _t5_layer_tables(cfg)
+    yield from ((hf, ours, False) for hf, ours in (
+        ("shared.weight", "embed.weight"),
+        (f"encoder.{_T5_REL}", "enc_rel.rel_bias.weight"),
+        (f"decoder.{_T5_REL}", "dec_rel.rel_bias.weight"),
+        ("encoder.final_layer_norm.weight", "enc_norm.weight"),
+        ("decoder.final_layer_norm.weight", "dec_norm.weight")))
+    yield from _layer_pairs(enc, "encoder.block.{i}", "enc.{i}",
+                            cfg.num_layers)
+    yield from _layer_pairs(dec, "decoder.block.{i}", "dec.{i}",
+                            cfg.num_decoder_layers)
+
+
+def load_hf_t5(state_dict: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """HF ``T5ForConditionalGeneration.state_dict()`` -> the port's T5
+    state dict.  A tied config (v1.0) refuses a checkpoint whose
+    ``lm_head.weight`` differs from ``shared``: decoding through the
+    scaled, tied embedding instead would change every logit.  An untied
+    config (v1.1) takes ``lm_head.weight`` and refuses a checkpoint
+    without one: T5's tied path also scales the hidden state by
+    ``d_model ** -0.5``, so the embedding is no stand-in for it."""
+    from .t5 import T5Model
+
+    loaded = _load(state_dict, _t5_pairs(cfg))
+    embed = loaded["embed.weight"][1]
+    head = state_dict.get("lm_head.weight")
+    if cfg.tie_embeddings:
+        if head is not None and (tuple(head.shape) != tuple(embed.shape)
+                                 or not torch.equal(_t(head), embed)):
+            raise ValueError(
+                "checkpoint has an untied lm_head.weight but "
+                "cfg.tie_embeddings=True; build the model with "
+                "tie_embeddings=False to keep the checkpoint's head")
+    else:
+        if head is None:
+            raise ValueError(
+                "checkpoint has no lm_head.weight (a tied v1.0 "
+                "checkpoint); load with cfg.tie_embeddings=True")
+        loaded["lm_head.weight"] = ("lm_head.weight", _t(head))
+    return _checked(T5Model, cfg, loaded)
+
+
+def export_hf_t5(model_or_sd, cfg) -> Dict[str, torch.Tensor]:
+    """The port's T5 -> an HF ``T5ForConditionalGeneration`` state dict
+    (the shared / encoder / decoder embedding aliases all emitted; a
+    tied model's embedding as ``lm_head.weight``)."""
+    sd = _state(model_or_sd)
+    out = _export(sd, _t5_pairs(cfg))
+    out["encoder.embed_tokens.weight"] = sd["embed.weight"]
+    out["decoder.embed_tokens.weight"] = sd["embed.weight"]
+    out["lm_head.weight"] = sd["embed.weight"] if cfg.tie_embeddings \
+        else sd["lm_head.weight"]
     return out

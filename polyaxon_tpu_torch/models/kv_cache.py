@@ -135,6 +135,19 @@ class KVCache:
               "ring_pos": self.ring_pos, **kw}
         return KVCache.from_leaves(leaves, **kw)
 
+    def tile_rows(self, k: int) -> "KVCache":
+        """Every row repeated ``k`` times, b-major (a beam per copy).
+        A ring's position table has no batch axis (beams decode in
+        lockstep and share it): it is not tiled."""
+        return self.with_leaves([t.repeat_interleave(k, dim=1)
+                                 for t in self.leaves()])
+
+    def take_rows(self, rows: torch.Tensor) -> "KVCache":
+        """The rows ``rows`` [N] of every leaf (a beam step's
+        parents); the ring table stays as it is."""
+        return self.with_leaves([t.index_select(1, rows)
+                                 for t in self.leaves()])
+
     def clone(self) -> "KVCache":
         """A copy no later append can reach (the prefix store's)."""
         return self.with_leaves(

@@ -54,6 +54,16 @@ class Dense(nn.Linear):
                         None if self.bias is None else self.bias.to(dt))
 
 
+def f32_param(shape, device, std: float) -> nn.Parameter:
+    """A float32 parameter whatever the model's ``param_dtype`` (the
+    reference declares it float32), drawn by the registry's
+    ``_init_weights`` with standard deviation ``std`` (0: zeros), the
+    reference's explicit initializer."""
+    p = nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
+    p.init_std = std
+    return p
+
+
 def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     """flax/XLA "SAME" padding of one spatial dim: the total that makes
     ``ceil(size / s)`` outputs, low = total // 2, high = the rest (so a

@@ -5,8 +5,10 @@ MLP, ConvNet, ResNet-50 and BERT entries, with the same constructors,
 synthetic batches (numpy ``RandomState(0)``, so both packages draw the
 same tokens and images), losses (LM, classifier with accuracy, MLM with
 the reference's mask bits through ``prng.bernoulli``) and analytic FLOP
-models.  The T5, ViT and MoE-GPT entries are refused by name (ROADMAP
-Queue 1: The rest of the zoo).
+models, and the rest of the reference's zoo: MoE-GPT (the LM loss plus
+``aux_weight`` times the switch load-balance loss), T5 (the
+teacher-forced seq2seq loss, with the span-corruption batches'
+``enc_mask`` and ``target_mask``) and ViT (the classifier loss).
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ from .gpt2 import GPT2Config, GPT2Model
 from .layers import BatchNorm
 from .llama import LlamaConfig, LlamaModel
 from .mlp import MLP, MLPConfig
+from .moe_gpt import MoEGPTConfig, MoEGPTModel
 from .resnet import ResNet, ResNetConfig
+from .t5 import T5Config, T5Model, shift_right
+from .vit import ViTConfig, ViTModel
 
 
 def softmax_xent(logits, labels):
@@ -54,13 +59,18 @@ def _init_weights(model: torch.nn.Module,
     1/sqrt(fan_in), fan_in = every axis but the output one), embeddings
     std 1/sqrt(hidden), zero biases, unit norm scales (the
     one-dimensional weights), and a zero scale on the batch norms that
-    start their residual branch as the identity (ResNet's ``bn3``).
-    The numbers differ from flax's; tests that compare with the
-    reference convert its params instead."""
+    start their residual branch as the identity (ResNet's ``bn3``).  A
+    parameter carrying ``init_std`` (the reference's explicit
+    initializers: MoE's ``normal(0.02)``, ViT's zero CLS token) is drawn
+    with that standard deviation.  The numbers differ from flax's; tests
+    that compare with the reference convert its params instead."""
     zero = {f"{name}.weight" for name, m in model.named_modules()
             if isinstance(m, BatchNorm) and m.zero_scale}
     for name, p in model.named_parameters():
-        if name.endswith("bias") or name in zero:
+        std = getattr(p, "init_std", None)
+        if std is not None:
+            w = torch.randn(p.shape, generator=generator) * std
+        elif name.endswith("bias") or name in zero:
             w = torch.zeros(p.shape)
         elif p.ndim == 1:
             w = torch.ones(p.shape)
@@ -108,6 +118,51 @@ def _classifier_loss(model):
         logits = model(x, train=True)
         acc = (logits.detach().argmax(-1) == y).float().mean()
         return softmax_xent(logits, y), {"accuracy": acc}
+    return loss
+
+
+def _moe_lm_loss(model):
+    """The LM loss plus ``aux_weight`` times the switch load-balance
+    loss (the model returns ``(logits, aux)``): (loss, {"perplexity" of
+    the LM term, "aux_loss"})."""
+    aux_weight = model.cfg.aux_weight
+
+    def loss(batch, rng=None):
+        tokens = torch.as_tensor(batch["inputs"], device=model.device)
+        logits, aux = model(tokens, train=True)
+        lm = softmax_xent(logits[:, :-1], tokens[:, 1:])
+        return lm + aux_weight * aux, {
+            "perplexity": torch.exp(lm.detach()),
+            "aux_loss": aux.detach()}
+    return loss
+
+
+def _seq2seq_loss(model):
+    """Teacher-forced seq2seq cross-entropy: the decoder reads the
+    shift-right of ``labels`` (``inputs`` when the batch has none, the
+    synthetic batch's self-target).  ``enc_mask`` hides encoder padding;
+    ``target_mask`` drops padded targets from the mean."""
+    def loss(batch, rng=None):
+        dev = model.device
+        src = torch.as_tensor(batch["inputs"], device=dev)
+        tgt = torch.as_tensor(batch.get("labels", batch["inputs"]),
+                              device=dev).long()
+        enc_mask = batch.get("enc_mask")
+        if enc_mask is not None:
+            enc_mask = torch.as_tensor(enc_mask, device=dev)
+        logits = model(src, shift_right(tgt, model.cfg.pad_id),
+                       enc_mask=enc_mask, train=True)
+        mask = batch.get("target_mask")
+        if mask is None:
+            l = softmax_xent(logits, tgt)
+        else:
+            mask = torch.as_tensor(mask, device=dev).bool()
+            per_tok = F.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), tgt.reshape(-1),
+                reduction="none").view(tgt.shape)
+            l = torch.where(mask, per_tok, 0.0).sum() / \
+                mask.sum().clamp_min(1)
+        return l, {"perplexity": torch.exp(l.detach())}
     return loss
 
 
@@ -172,6 +227,49 @@ def _bert_train_flops(cfg: BertConfig, seq: int):
         b, layers=cfg.num_layers, hidden=cfg.hidden_size, seq=seq,
         head_params=cfg.hidden_size * cfg.vocab_size,
         intermediate=cfg.intermediate_size)
+
+
+def _moe_train_flops(cfg: MoEGPTConfig, seq: int):
+    # Top-1 switch routing: each token runs ONE expert MLP + the router.
+    return lambda b: _transformer_train_flops(
+        b, layers=cfg.num_layers, hidden=cfg.hidden_size, seq=seq,
+        head_params=cfg.hidden_size * cfg.vocab_size,
+        extra_matmul_params=cfg.num_layers * cfg.hidden_size
+        * cfg.num_experts,
+        causal=True)
+
+
+def _t5_train_flops(cfg: T5Config, seq: int):
+    """Encoder + decoder + cross-attention closed form: the attention
+    term is 12 * L * tokens * S * inner_dim, halved for the causal
+    decoder self-attention; cross-attention is full."""
+    d, inner, ff = cfg.d_model, cfg.inner_dim, cfg.d_ff
+    ff_mats = 3 if cfg.feed_forward == "gated-gelu" else 2
+    enc_layer = 4 * d * inner + ff_mats * d * ff
+    dec_layer = 8 * d * inner + ff_mats * d * ff
+    n_matmul = (cfg.num_layers * enc_layer
+                + cfg.num_decoder_layers * dec_layer
+                + d * cfg.vocab_size)
+
+    def flops(b: int) -> float:
+        tokens = b * seq
+        dense = 6.0 * n_matmul * tokens
+        attn = 12.0 * tokens * seq * inner * (
+            cfg.num_layers                       # encoder, bidirectional
+            + cfg.num_decoder_layers / 2.0       # decoder self, causal
+            + cfg.num_decoder_layers)            # cross, full
+        return dense + attn
+    return flops
+
+
+def _vit_train_flops(cfg: ViTConfig):
+    patches = cfg.num_patches + 1  # + [CLS]
+    patch_dim = cfg.patch_size * cfg.patch_size * 3
+    return lambda b: _transformer_train_flops(
+        b, layers=cfg.num_layers, hidden=cfg.hidden_size, seq=patches,
+        head_params=cfg.hidden_size * cfg.num_classes,
+        intermediate=cfg.intermediate_size,
+        extra_matmul_params=patch_dim * cfg.hidden_size)
 
 
 # ResNet-50 at 224x224: ~4.1 GMACs fwd (8.2 GFLOPs); training ~= 3x fwd
@@ -285,6 +383,17 @@ def _bert_spec(name: str, cfg: BertConfig, seq: int, batch: int,
         else None)
 
 
+def _token_spec(name: str, model_cls, cfg, seq: int, batch: int, loss,
+                flops=None):
+    return ModelSpec(
+        name=name,
+        make_model=_cfg_model(model_cls, cfg),
+        make_batch=lambda b: _token_batch(b, seq, cfg.vocab_size),
+        loss_fn=loss,
+        default_batch_size=batch,
+        train_flops=flops)
+
+
 _REGISTRY: Dict[str, ModelSpec] = {
     spec.name: spec for spec in (
         _image_spec("mlp", MLP, MLPConfig(), 28, 10, 64, channels=1,
@@ -309,21 +418,26 @@ _REGISTRY: Dict[str, ModelSpec] = {
             vocab_size=512, hidden_size=64, intermediate_size=128,
             num_layers=2, num_heads=4, num_kv_heads=2, max_position=256,
             sliding_window=31), 128, 8, False),
-        _llama_spec("llama-tiny", LlamaConfig.tiny(), 64, 8, False))
+        _llama_spec("llama-tiny", LlamaConfig.tiny(), 64, 8, False),
+        _token_spec("t5-small", T5Model, T5Config.small(), 512, 16,
+                    _seq2seq_loss, _t5_train_flops(T5Config.small(), 512)),
+        _token_spec("t5-tiny", T5Model, T5Config.tiny(), 64, 8,
+                    _seq2seq_loss),
+        _image_spec("vit-base", ViTModel, ViTConfig.base(), 224, 1000, 64,
+                    flops=_vit_train_flops(ViTConfig.base()),
+                    overrides=lambda x: {}),
+        _image_spec("vit-tiny", ViTModel, ViTConfig.tiny(), 32, 10, 8,
+                    overrides=lambda x: {}),
+        _token_spec("moe-gpt-small", MoEGPTModel, MoEGPTConfig.small(),
+                    1024, 8, _moe_lm_loss,
+                    _moe_train_flops(MoEGPTConfig.small(), 1024)),
+        _token_spec("moe-gpt-tiny", MoEGPTModel, MoEGPTConfig.tiny(), 64,
+                    8, _moe_lm_loss))
 }
-
-
-# The reference's models the port does not have yet.
-_NOT_PORTED = ("t5-", "vit-", "moe-gpt-")
 
 
 def get_model(name: str) -> ModelSpec:
     if name not in _REGISTRY:
-        if name.startswith(_NOT_PORTED):
-            raise KeyError(
-                f"model {name!r} is not ported yet: it comes with a later "
-                f"zoo slice of the port (ROADMAP Queue 1: The rest of the "
-                f"zoo); known: {sorted(_REGISTRY)}")
         raise KeyError(
             f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -461,12 +461,19 @@ class ModelServer:
         if batching not in BATCHING_MODES:
             raise ValueError(f"batching must be one of "
                              f"{BATCHING_MODES}; got {batching!r}")
+        seq2seq = hasattr(model, "encode")
+        if batching == "continuous" and seq2seq:
+            # The slot engine is decoder-only: a seq2seq model falls back
+            # to the coalescer, and /info reports the mode that runs.
+            batching = "coalesce"
         if kv_paged and batching != "continuous":
             # Paged KV is the engine's storage discipline — there is
             # nothing to page in the coalesce/off solo paths.
             raise ValueError(
                 "kv_paged requires the continuous-batching engine "
-                f"(batching={batching!r})")
+                f"(batching={batching!r}"
+                + (" — seq2seq models fall back to coalesce)"
+                   if seq2seq else ")"))
         if profile_every < 0:
             raise ValueError(f"profile_every must be >= 0; got "
                              f"{profile_every}")
@@ -636,7 +643,8 @@ class ModelServer:
         # ladder may flip _prefix_enabled off at runtime; recovery
         # restores the configured state, never more.
         self.prefix_cache_size = int(prefix_cache)
-        self._prefix_enabled = self.prefix_cache_size > 0
+        # seq2seq: an encoder input is no decoder prefix.
+        self._prefix_enabled = self.prefix_cache_size > 0 and not seq2seq
         self._prefix_configured = self._prefix_enabled
         self._prefix = RadixPrefixIndex(max(1, self.prefix_cache_size))
         self._prefix_lock = threading.Lock() \
@@ -1947,6 +1955,9 @@ class ModelServer:
                 "/prefill and /prefix/* only — send /generate to a "
                 "decode-capable replica (role 'decode' or 'both')")
         rows = _parse_prompt_rows(req, self.max_batch)
+        from ..models.generate import check_decoder_only
+
+        check_decoder_only(self.model)
         _int = _int_param
 
         def _float(v):

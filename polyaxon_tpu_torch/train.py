@@ -22,13 +22,14 @@ dataset carries a held-out split: ``--eval-every`` (snapped up to the
 next log step) and the end of the run report ``eval_accuracy``, the
 model in eval mode (batch norms on their running averages).
 ``--init-hf`` starts from a HuggingFace ``state_dict`` file through
-``models/import_hf.py`` (BERT, GPT-2 and the Llama family).
+``models/import_hf.py`` (BERT, GPT-2, the Llama family, ViT and T5).
+``--dataset span-corruption`` trains a seq2seq model (T5) on T5's
+span-corruption objective over ``--data-dir``'s token stream.
 
 Not ported yet, refused with a message naming the ROADMAP item that
 carries them: meshes of more than one device and multi-process runs
 (``--strategy``, ``--sp-mode``, a PTPU_* topology of more than one
-process: **Parallelism and meshes**), the span-corruption dataset and
-``--init-hf`` for ViT and T5 (**The rest of the zoo**).
+process: **Parallelism and meshes**).
 """
 
 from __future__ import annotations
@@ -174,26 +175,16 @@ _HF_LOADER_BY_FAMILY = {
     "llama": "load_hf_llama",
     "tinyllama": "load_hf_llama",
     "mistral": "load_hf_llama",  # same block layout
+    "vit": "load_hf_vit",
+    "t5": "load_hf_t5",
 }
-
-# The reference's other loaders, refused before the model is built.
-_HF_NOT_PORTED = {
-    family: f"the {family} loader (models/import_hf.py {loader}) comes "
-            f"with the zoo slice that ports {family} (ROADMAP Queue 1: "
-            f"The rest of the zoo)"
-    for family, loader in (("vit", "load_hf_vit"), ("t5", "load_hf_t5"))}
 
 # Config overrides a family needs for HF-parity fine-tuning, applied to
-# the model when --init-hf is set.  bert: HF uses the exact (erf) GELU;
-# the zoo default is tanh.
+# the model when --init-hf is set.  bert/vit: HF uses the exact (erf)
+# GELU; the zoo default is tanh.
 _HF_MODEL_KW = {
     "bert": {"gelu_approximate": False},
-}
-
-_NOT_PORTED = {
-    "span-corruption": "the span-corruption dataset comes with the T5 "
-                       "zoo slice of the port (ROADMAP Queue 1: The rest "
-                       "of the zoo)",
+    "vit": {"gelu_approximate": False},
 }
 
 
@@ -202,8 +193,28 @@ def make_datasets(args, spec, batch_size: int):
     from . import data
 
     kind = args.dataset or ("npy" if args.data_dir else "synthetic")
-    if kind in _NOT_PORTED:
-        raise SystemExit(f"--dataset {kind}: {_NOT_PORTED[kind]}")
+    if kind == "span-corruption":
+        # T5-style denoising pretraining over a token stream.
+        if not args.data_dir:
+            raise SystemExit("--dataset span-corruption requires "
+                             "--data-dir")
+        # The config and seq2seq-ness, from a model with no storage.
+        model = spec.make_model(device="meta")
+        if not hasattr(model, "encode"):
+            raise SystemExit(
+                f"--dataset span-corruption requires a seq2seq "
+                f"(encoder-decoder) model; {args.model!r} is not "
+                f"(use a t5-* model)")
+        cfg = model.cfg
+        seq_len = args.seq_len or \
+            spec.make_batch(1)["inputs"].shape[-1]
+        stream = data.token_dataset(args.data_dir, batch_size, seq_len,
+                                    seed=args.seed)
+        return data.SpanCorruptionDataset(
+            stream.tokens, batch_size, inputs_length=seq_len,
+            targets_length=max(32, seq_len // 4),
+            vocab_size=cfg.vocab_size, pad_id=cfg.pad_id,
+            seed=args.seed), None
     if kind == "npy":
         if not args.data_dir:
             raise SystemExit("--dataset npy requires --data-dir")
@@ -314,9 +325,6 @@ def _refuse_unported(args, strategy) -> dict:
                          f"device; meshes come with the parallelism slice "
                          f"of the port (ROADMAP Queue 1: Parallelism and "
                          f"meshes)")
-    family = args.model.split("-")[0]
-    if args.init_hf and family in _HF_NOT_PORTED:
-        raise SystemExit(f"--init-hf: {_HF_NOT_PORTED[family]}")
     return axes
 
 

@@ -62,8 +62,9 @@ def test_every_example_is_checked():
     assert len(REF_EXAMPLES) == 13
     assert [p.name for p in PORT_EXAMPLES] == [
         "bert_finetune.yaml", "bert_job.yaml", "convnet_hyperband.yaml",
-        "gpt2_job.yaml", "hyperband.yaml", "mnist.yaml",
-        "resnet50_job.yaml", "serving.yaml", "tinyllama_job.yaml"]
+        "gpt2_job.yaml", "hyperband.yaml", "mnist.yaml", "moe_gpt_job.yaml",
+        "resnet50_job.yaml", "serving.yaml", "t5_job.yaml",
+        "tinyllama_job.yaml", "vit_job.yaml"]
 
 
 @pytest.mark.parametrize("path", REF_EXAMPLES + PORT_EXAMPLES,

@@ -238,3 +238,163 @@ def test_init_hf_through_train_main(family, model_name, tmp_path,
         with torch.no_grad():
             hf_loss = hf(tokens, labels=tokens).loss.item()
         np.testing.assert_allclose(got, hf_loss, rtol=2e-2)
+
+
+# -- T5 and ViT ----------------------------------------------------------
+
+def _t5(ff="relu", tie=True):
+    from polyaxon_tpu_torch.models.t5 import T5Config, T5Model
+
+    hf_cfg = transformers.T5Config(
+        vocab_size=512, d_model=64, d_kv=16, d_ff=128, num_layers=2,
+        num_decoder_layers=2, num_heads=4,
+        relative_attention_num_buckets=32,
+        relative_attention_max_distance=128, dropout_rate=0.0,
+        layer_norm_epsilon=1e-6, feed_forward_proj=ff,
+        tie_word_embeddings=tie, decoder_start_token_id=0, pad_token_id=0)
+    cfg = T5Config(vocab_size=512, d_model=64, d_kv=16, d_ff=128,
+                   num_layers=2, num_decoder_layers=2, num_heads=4,
+                   max_position=128, feed_forward=ff, tie_embeddings=tie,
+                   dtype=F32)
+    return hf_cfg, cfg, T5Model
+
+
+def _vit():
+    from polyaxon_tpu_torch.models.vit import ViTConfig, ViTModel
+
+    hf_cfg = transformers.ViTConfig(
+        image_size=32, patch_size=8, num_channels=3, hidden_size=64,
+        num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
+        hidden_act="gelu", layer_norm_eps=1e-6, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, num_labels=10, qkv_bias=True)
+    cfg = ViTConfig(image_size=32, patch_size=8, num_classes=10,
+                    hidden_size=64, num_layers=2, num_heads=4,
+                    intermediate_size=128, gelu_approximate=False,
+                    dtype=F32)
+    return hf_cfg, cfg, ViTModel
+
+
+T5_KINDS = [("relu", True), ("gated-gelu", False)]
+
+
+def _t5_inputs():
+    rng = np.random.RandomState(5)
+    return (torch.from_numpy(rng.randint(0, 512, (2, 12))),
+            torch.from_numpy(rng.randint(0, 512, (2, 7))))
+
+
+def _t5_logits(model, enc, dec):
+    with torch.no_grad():
+        return model(enc, dec).numpy()
+
+
+def _jax_t5_cfg(cfg):
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from polyaxon_tpu.models.t5 import T5Config as J
+
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(J)
+          if f.name != "dtype"}
+    return J(**kw, dtype=jnp.float32)
+
+
+@pytest.mark.parametrize("ff,tie", T5_KINDS)
+def test_t5_load_and_export_against_transformers(ff, tie):
+    """HF's logits from the loaded weights (v1.0 tied ReLU, v1.1
+    untied gated-GELU); the reference's loader reads the same numbers;
+    the export loads back into HF with the same logits, and
+    ``load(export)`` is the identity."""
+    hf_cfg, cfg, cls = _t5(ff, tie)
+    torch.manual_seed(0)
+    hf = transformers.T5ForConditionalGeneration(hf_cfg).eval()
+    enc, dec = _t5_inputs()
+    with torch.no_grad():
+        want = hf(input_ids=enc, decoder_input_ids=dec).logits.numpy()
+    model = cls(cfg, device="cpu").eval()
+    convert.load_state_dict(model, import_hf.load_hf_t5(hf.state_dict(),
+                                                        cfg))
+    np.testing.assert_allclose(_t5_logits(model, enc, dec), want,
+                               atol=2e-4, rtol=2e-4)
+    jtree = jax.tree.map(np.asarray, j_import_hf.load_hf_t5(
+        hf.state_dict(), _jax_t5_cfg(cfg))["params"])
+    ref_sd = convert.t5_state_dict_from_jax(jtree, cfg)
+    mine = model.state_dict()
+    assert sorted(ref_sd) == sorted(mine)
+    for name, t in mine.items():
+        torch.testing.assert_close(t, ref_sd[name], rtol=0, atol=0)
+    sd = import_hf.export_hf_t5(model, cfg)
+    torch.manual_seed(1)
+    hf2 = transformers.T5ForConditionalGeneration(hf_cfg).eval()
+    missing, unexpected = hf2.load_state_dict(sd, strict=False)
+    assert not unexpected and not missing, (missing, unexpected)
+    with torch.no_grad():
+        got = hf2(input_ids=enc, decoder_input_ids=dec).logits.numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+    back = import_hf.load_hf_t5(sd, cfg)
+    for name, t in mine.items():
+        assert torch.equal(back[name], t), name
+
+
+def test_t5_tied_and_untied_refusals():
+    """The reference's two refusals: a tied config refuses an untied
+    head, an untied config refuses a checkpoint with no lm_head."""
+    hf_cfg, cfg, _ = _t5("relu", True)
+    sd = dict(transformers.T5ForConditionalGeneration(hf_cfg).state_dict())
+    sd["lm_head.weight"] = torch.randn(512, 64)
+    with pytest.raises(ValueError, match="untied lm_head"):
+        import_hf.load_hf_t5(sd, cfg)
+    _, untied, _ = _t5("relu", False)
+    sd.pop("lm_head.weight")
+    with pytest.raises(ValueError, match="no lm_head.weight"):
+        import_hf.load_hf_t5(sd, untied)
+
+
+def test_vit_load_and_export_against_transformers():
+    """HF's logits (NCHW pixels) from the loaded weights on the port's
+    NHWC images; the reference's loader reads the same numbers; the
+    export loads back into HF and round-trips bitwise."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from polyaxon_tpu.models.vit import ViTConfig as J
+
+    hf_cfg, cfg, cls = _vit()
+    torch.manual_seed(0)
+    hf = transformers.ViTForImageClassification(hf_cfg).eval()
+    with torch.no_grad():
+        for name, p in hf.named_parameters():
+            if "cls_token" in name or "position" in name:
+                p.normal_(0.0, 0.5)   # HF starts the CLS token at zero
+    images = np.random.RandomState(6).rand(2, 32, 32, 3).astype("float32")
+    nchw = torch.from_numpy(images).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        want = hf(pixel_values=nchw).logits.numpy()
+    model = cls(cfg, device="cpu").eval()
+    convert.load_state_dict(model, import_hf.load_hf_vit(hf.state_dict(),
+                                                         cfg))
+    with torch.no_grad():
+        got = model(torch.from_numpy(images)).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+    jcfg = J(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(J)
+                if f.name != "dtype"}, dtype=jnp.float32)
+    jtree = jax.tree.map(np.asarray, j_import_hf.load_hf_vit(
+        hf.state_dict(), jcfg)["params"])
+    ref_sd = convert.vit_state_dict_from_jax(jtree, cfg)
+    mine = model.state_dict()
+    assert sorted(ref_sd) == sorted(mine)
+    for name, t in mine.items():
+        torch.testing.assert_close(t, ref_sd[name], rtol=0, atol=0)
+    sd = import_hf.export_hf_vit(model, cfg)
+    torch.manual_seed(1)
+    hf2 = transformers.ViTForImageClassification(hf_cfg).eval()
+    missing, unexpected = hf2.load_state_dict(sd, strict=False)
+    assert not unexpected and not missing, (missing, unexpected)
+    with torch.no_grad():
+        np.testing.assert_allclose(hf2(pixel_values=nchw).logits.numpy(),
+                                   want, atol=2e-4, rtol=2e-4)
+    back = import_hf.load_hf_vit(sd, cfg)
+    for name, t in mine.items():
+        assert torch.equal(back[name], t), name

@@ -225,7 +225,8 @@ def test_service_answers_and_is_reaped(home, tmp_path):
 
 
 def test_failing_job_ends_failed_with_its_logs(home, tmp_path):
-    """The child refuses an unported dataset and exits 1."""
+    """The child refuses a dataset it cannot build (span corruption with
+    no data directory) and exits 1."""
     spec = yaml.safe_load(Path(_on_cpu("gpt2_job.yaml", tmp_path))
                           .read_text())
     spec["component"]["run"]["container"]["args"].append(
@@ -236,7 +237,7 @@ def test_failing_job_ends_failed_with_its_logs(home, tmp_path):
     assert out.exit_code != 0
     assert "Run finished with status 'failed'" in out.output
     assert "--- last logs ---" in out.output
-    assert "the span-corruption dataset comes with the T5 zoo slice" \
+    assert "--dataset span-corruption requires --data-dir" \
         in out.output
     rec = FileRunStore(str(home)).get_run(_uuid(out.output))
     assert rec["status"] == "failed"

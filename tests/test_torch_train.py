@@ -382,17 +382,28 @@ def test_train_main_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flags,slice_name", [
     (["--strategy", "dp:2"], "parallelism slice"),
     (["--sp-mode", "ring"], "parallelism slice"),
-    (["--model", "vit-tiny", "--init-hf", "weights.pt"], "import_hf"),
-    (["--model", "t5-tiny"], "zoo slice"),
-    (["--dataset", "span-corruption"], "zoo"),
-    (["--model", "moe-gpt-tiny"], "zoo slice"),
-])
+    (["--model", "mlp", "--init-hf", "weights.pt"],
+     "--init-hf supports the"),
+    (["--model", "t5-tiny", "--dataset", "span-corruption"],
+     "span-corruption requires --data-dir"),
+    (["--dataset", "span-corruption", "--data-dir", "."],
+     "requires a seq2seq"),
+    (["--model", "moe-gpt-tiny", "--strategy", "dp:-1,ep:4"],
+     "parallelism slice"),
+], ids=["flags0-parallelism slice", "flags1-parallelism slice",
+        "flags2-import_hf", "flags3-zoo slice", "flags4-zoo",
+        "flags5-zoo slice"])
 def test_train_refuses_what_is_not_ported(flags, slice_name, tmp_path,
                                           monkeypatch):
-    """``--init-hf`` (BERT, GPT-2, the Llama family), the digits dataset
-    and ``--eval-every`` are ported (``test_torch_import_hf.py``,
-    ``test_torch_eval.py``); ViT's and T5's loaders, T5, MoE-GPT and
-    span corruption are still refused by their slice."""
+    """``--init-hf`` (BERT, GPT-2, the Llama family, ViT, T5), the
+    digits dataset, ``--eval-every``, T5 with span corruption and
+    MoE-GPT are ported (``test_torch_import_hf.py``,
+    ``test_torch_eval.py``, ``test_torch_t5.py``, ``test_torch_moe.py``);
+    what stays refused: meshes (MoE-GPT's ``ep`` axis too) by the
+    parallelism slice, ``--init-hf`` of a family with no loader, and
+    span corruption without a data directory or on a decoder-only
+    model, with the reference's messages.  The ids are the cases'
+    earlier ones."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match=slice_name):
         ttrain.main(["--cpu", "--model", "gpt2-tiny", "--steps", "1",

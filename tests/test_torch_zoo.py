@@ -12,7 +12,14 @@ across by ``convert.*_state_dict_from_jax``.
   biased running variance.  BERT with and without a padded
   ``attention_mask``.
 - BERT's MLM mask bits equal ``jax.random.bernoulli``'s.
-- The registry's flop models, batches, init and refusals by ROADMAP item.
+- The registry's flop models, batches, init and refusals by ROADMAP item;
+  the rest of the zoo (MoE-GPT, T5, ViT): ``train.main``'s first loss on
+  each tiny config (and t5-tiny on span corruption) equals the
+  reference's ``train.main`` from the same weights (float32 on both
+  sides: rtol 1e-5; a 10x aux weight or a dropped target mask fails
+  it), and
+  ``--dataset span-corruption`` refuses a decoder-only model with the
+  reference's message.
 
 One optimizer step of each model against the reference's ``TrainStep``
 is in ``test_torch_zoo_train.py``.
@@ -188,7 +195,9 @@ def test_mlm_mask_bits_equal_jax_bernoulli():
 
 @pytest.mark.parametrize("name", ["mlp", "convnet", "resnet50",
                                   "resnet50-tiny", "bert-base",
-                                  "bert-tiny"])
+                                  "bert-tiny", "moe-gpt-small",
+                                  "moe-gpt-tiny", "t5-small", "t5-tiny",
+                                  "vit-base", "vit-tiny"])
 def test_registry_entries_match_reference(name):
     j, t = j_get_model(name), t_get_model(name)
     assert t.default_batch_size == j.default_batch_size
@@ -216,24 +225,185 @@ def test_init_follows_flax_defaults():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "t5-tiny"], "The rest of the zoo"),
-    (["--model", "vit-tiny"], "The rest of the zoo"),
-    (["--model", "moe-gpt-small"], "The rest of the zoo"),
-    (["--model", "bert-tiny", "--dataset", "span-corruption"],
-     "The rest of the zoo"),
-    (["--model", "vit-tiny", "--init-hf", "w.pt"], "The rest of the zoo"),
-    (["--model", "t5-small", "--init-hf", "w.pt"], "The rest of the zoo"),
+    (["--model", "moe-gpt-tiny", "--strategy", "dp:-1,ep:4"],
+     "Parallelism and meshes"),
+    (["--model", "t5-tiny", "--strategy", "dp:-1,tp:2"],
+     "Parallelism and meshes"),
+    (["--model", "vit-tiny", "--strategy", "dp:2"],
+     "Parallelism and meshes"),
+    (["--model", "moe-gpt-small", "--sp-mode", "ring"],
+     "Parallelism and meshes"),
+    (["--model", "bert-tiny", "--dataset", "span-corruption",
+      "--data-dir", "."],
+     "requires a seq2seq \\(encoder-decoder\\) model; 'bert-tiny' is not"),
+    (["--model", "t5-tiny", "--dataset", "span-corruption"],
+     "span-corruption requires --data-dir"),
     (["--model", "resnet50-tiny", "--strategy", "dp:2"],
      "Parallelism and meshes"),
 ])
 def test_unported_refused_by_roadmap_item(argv, item, tmp_path,
                                           monkeypatch):
+    """What stays refused: the reference's tp / ep strategies of the
+    zoo's examples and sequence parallelism by the parallelism item,
+    span corruption without a seq2seq model or a data directory with
+    the reference's messages."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match=item):
         ttrain.main(["--cpu", "--steps", "1", *argv])
-    if len(argv) == 2 and item == "The rest of the zoo":
-        with pytest.raises(KeyError, match=item):
-            t_get_model(argv[1])
+
+
+REST = ("moe-gpt-tiny", "t5-tiny", "vit-tiny")
+
+
+def test_rest_of_the_zoo_is_registered():
+    for name in ("moe-gpt-small", "moe-gpt-tiny", "t5-small", "t5-tiny",
+                 "vit-base", "vit-tiny"):
+        model = t_get_model(name).make_model(device="meta")
+        assert type(model).__name__ == type(
+            j_get_model(name).make_model()).__name__
+    with pytest.raises(KeyError, match="unknown model"):
+        t_get_model("t5-large")
+
+
+# train.main's argv for each case of the rest of the zoo; "span" is
+# t5-tiny on --dataset span-corruption (masked targets and encoder).
+TRAIN_CASES = {"moe-gpt-tiny": ("moe-gpt-tiny", ()),
+               "t5-tiny": ("t5-tiny", ()),
+               "vit-tiny": ("vit-tiny", ()),
+               "t5-tiny-span": ("t5-tiny", ("--dataset", "span-corruption"))}
+REST_CONVERT = {"moe-gpt-tiny": convert.moe_gpt_state_dict_from_jax,
+                "t5-tiny": convert.t5_state_dict_from_jax,
+                "vit-tiny": convert.vit_state_dict_from_jax}
+
+
+def _tracked(store_cls, home, names=("loss", "aux_loss")):
+    """The first step's tracked metrics of the one run under ``home``,
+    at full precision (the step line prints 4 digits)."""
+    store = store_cls(str(home))
+    (run,) = store.list_runs()
+    return {k: ev[0]["value"] for k in names
+            if (ev := store.read_events(run["uuid"], "metric", k))}
+
+
+def _argv(case, tmp):
+    name, extra = TRAIN_CASES[case]
+    argv = ["--model", name, "--steps", "1", "--batch-size", "8",
+            "--log-every", "1", "--prefetch", "0", *extra]
+    if extra:
+        data = tmp / "data"
+        data.mkdir(exist_ok=True)
+        # Ids below vocab - 100: the top 100 are the sentinels.
+        np.save(data / "tokens.npy", np.random.RandomState(0).randint(
+            2, 400, 20000).astype(np.int32))
+        argv += ["--data-dir", str(data)]
+    return argv
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_run(case):
+    """The reference's ``train.main`` for one step at batch 8, its
+    models in float32 (a registry that passes ``dtype=float32``): its
+    tracked first metrics and the params it started from
+    (``model.init(PRNGKey(0), sample)``, as its ``train.main`` draws
+    them)."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from polyaxon_tpu import data as jdata
+    from polyaxon_tpu import train as jtrain
+    from polyaxon_tpu.client.store import FileRunStore
+    from polyaxon_tpu.models import registry as jreg
+
+    def f32_spec(model_name):
+        spec = j_get_model(model_name)
+        return dataclasses.replace(spec, make_model=functools.partial(
+            spec.make_model, dtype=jnp.float32))
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            pytest.MonkeyPatch.context() as mp:
+        tmp = Path(tmp)
+        mp.chdir(tmp)
+        mp.setenv("POLYAXON_TPU_HOME", str(tmp / "home"))
+        mp.setattr(jreg, "get_model", f32_spec)
+        # Batch 8: the reference rounds a batch to its data axes (the
+        # tests' 8 host devices).
+        assert jtrain.main(_argv(case, tmp)) == 0
+        want = _tracked(FileRunStore, tmp / "home")
+    jspec = f32_spec(TRAIN_CASES[case][0])
+    sample = jdata.synthetic_dataset(jspec, 2, seed=0).sample(2)
+    variables = jax.jit(jspec.make_model().init)(jax.random.PRNGKey(0),
+                                                 sample["inputs"])
+    return want, _np(variables["params"])
+
+
+def _port_run(case, tmp_path, monkeypatch, fault=None):
+    """The port's ``train.main`` on the same case from the reference's
+    params, float32: its tracked first metrics.  ``fault`` breaks the
+    wiring on purpose: "aux_weight" (10x the config's) or
+    "target_mask" (the loss reads no target mask)."""
+    import dataclasses
+
+    from polyaxon_tpu_torch.client import FileRunStore
+    from polyaxon_tpu_torch.models import registry as treg
+
+    name = TRAIN_CASES[case][0]
+    _, params = _reference_run(case)
+
+    def init_params(self, batch_size=2, seed=0, device=None, train=False,
+                    **over):
+        if fault == "aux_weight":
+            over["aux_weight"] = 10 * self.make_model(
+                device="meta").cfg.aux_weight
+        model = self.make_model(device=device, param_dtype=torch.float32,
+                                dtype=torch.float32, **over)
+        model.load_state_dict(REST_CONVERT[name](params, model.cfg))
+        return model.train()
+
+    def get_model(model_name):
+        spec = t_get_model(model_name)
+        if fault != "target_mask":
+            return spec
+
+        def loss_fn(model):
+            inner = spec.loss_fn(model)
+            return lambda batch, rng=None: inner(
+                {k: v for k, v in batch.items() if k != "target_mask"},
+                rng)
+        return dataclasses.replace(spec, loss_fn=loss_fn)
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("POLYAXON_TPU_HOME", str(tmp_path / "home"))
+    monkeypatch.setattr(treg.ModelSpec, "init_params", init_params)
+    monkeypatch.setattr(treg, "get_model", get_model)
+    assert ttrain.main(["--cpu", *_argv(case, tmp_path)]) == 0
+    return _tracked(FileRunStore, tmp_path / "home")
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_train_main_first_loss_equals_reference(case, tmp_path,
+                                                monkeypatch):
+    """Both packages' ``train.main`` for one step at batch 8 from the
+    reference's init, in float32 (the port's registry pointed at those
+    weights): the first tracked loss (and MoE's aux loss) agree within
+    float32 summation order."""
+    want, _ = _reference_run(case)
+    got = _port_run(case, tmp_path, monkeypatch)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("case,fault", [("moe-gpt-tiny", "aux_weight"),
+                                        ("t5-tiny-span", "target_mask")])
+def test_train_main_first_loss_catches_wiring_faults(case, fault,
+                                                     tmp_path, monkeypatch):
+    """The comparison above fails on a wiring fault: MoE's aux loss
+    weighted 10x (about 1% of the loss at init), or T5's loss averaged
+    over padded targets."""
+    want, _ = _reference_run(case)
+    got = _port_run(case, tmp_path, monkeypatch, fault=fault)
+    assert abs(got["loss"] - want["loss"]) > 1e-3 * abs(want["loss"])
 
 
 ZOO_EXAMPLES = {"mnist.yaml": "polyaxon_tpu_torch.models.train_mnist",
