@@ -155,7 +155,12 @@ Phases, each raising on failure:
    recorder attached and detached, float32 tokens with it on == off and
    under ``batching`` coalesce and off == solo ``generate``, and bf16
    tok/s and TTFT of continuous / coalesce / off on the mixed load and
-   on a load the coalescer merges;
+   on a load the coalescer merges; the lock sanitizer armed on the
+   paged engine-death server of ``phase_faults`` and on the float32
+   coalesce server (which nests ``device_lock -> _stats_lock``): no
+   violation, observed edges, and every one of them in the static lock
+   graph that the port's ``analysis.lockgraph`` builds from the port's
+   sources (``[locks]``: the observed and static edge counts);
 10. ``python -m polyaxon_tpu_torch.cli run -f`` on the port's example
    polyaxonfiles in a temporary home, each read back through the port's
    store: the GPT-2 medium ``job`` (3 tracked steps equal to its log
@@ -2000,8 +2005,14 @@ def phase_faults(model_f32, name="gpt2-medium"):
     _release()
     print(f"[time] faults: fixed lane {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    # The lock sanitizer rides this server (_lock_cross_check): HTTP
+    # threads, graph captures under slots._CAPTURE_LOCK and a supervised
+    # restart all take the wrapped locks.
+    out["locks_report"] = os.path.join(
+        tempfile.mkdtemp(prefix="ptpu_locks_"), "faults.json")
     srv, ms, base = _serve(model_f32, name, kv_paged=True,
-                           kv_page_tokens=64)
+                           kv_page_tokens=64, sanitize=True,
+                           sanitize_report=out["locks_report"])
     sys_p = np.random.RandomState(3).randint(0, cfg.vocab_size,
                                              300).tolist()
     try:
@@ -5205,6 +5216,64 @@ def _mode_stats(base, ms, label, bodies, run=None) -> dict:
     return rec
 
 
+def _lock_cross_check(reports) -> dict:
+    """The lock sanitizer's runtime edges against the static lock graph.
+    ``reports`` ({label: path}) are the ``sanitize_report`` files of the
+    servers that ran sanitized (``phase_faults``' paged engine-death
+    server and ``phase_profiling``'s float32 coalesce server); the static
+    graph is the one the port's ``analysis.lockgraph`` builds from the
+    port's installed sources, as ``ptpu-torch check --dump-lock-graph``
+    does.  Fails on a sanitizer violation, on no observed edge at all
+    (a vacuous check) and on an observed edge the static graph lacks
+    (an analyzer blind spot)."""
+    import polyaxon_tpu_torch
+    from polyaxon_tpu_torch.analysis import lockgraph
+    from polyaxon_tpu_torch.analysis.checker import iter_py_files
+
+    import shutil
+
+    t0 = time.perf_counter()
+    observed, acquisitions, per = set(), 0, {}
+    for label, path in reports.items():
+        with open(path, encoding="utf-8") as fh:
+            doc = json.load(fh)
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+        if doc["violations"]:
+            raise AssertionError(f"locks: sanitizer violations on the "
+                                 f"{label} server: {doc['violations']}")
+        observed |= set(doc["edges"])
+        acquisitions += doc["acquisitions"]
+        per[label] = doc["edges"]
+    if not observed:
+        raise AssertionError(f"locks: no lock edge observed ({per}): "
+                             f"the cross-check would be vacuous")
+    pkg = os.path.dirname(os.path.abspath(polyaxon_tpu_torch.__file__))
+    root = os.path.dirname(pkg)
+    sources = {}
+    for p in iter_py_files([pkg]):
+        rel = os.path.relpath(os.path.abspath(p), root).replace(os.sep, "/")
+        if lockgraph.in_program_scope(rel):
+            with open(p, encoding="utf-8") as fh:
+                sources[rel] = fh.read()
+    graph = lockgraph.build_lock_graph(lockgraph.build_model(sources))
+    static = graph.edge_names()
+    missing = sorted(observed - static)
+    if missing:
+        raise AssertionError(f"locks: edges observed at run time but "
+                             f"absent from the static graph (a blind "
+                             f"spot): {missing}")
+    print(f"[locks] sanitizer on the paged engine-death server and a "
+          f"float32 coalesce server: {acquisitions} acquisitions, 0 "
+          f"violations, {len(observed)} observed edges "
+          f"({'; '.join(f'{k}: {v}' for k, v in per.items())}), all in "
+          f"the static graph of {len(static)} edges over "
+          f"{len(graph.nodes())} locks from {len(sources)} sources")
+    print(f"[time] locks: static graph and cross-check "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"observed": sorted(observed), "static_edges": len(static),
+            "acquisitions": acquisitions}
+
+
 def phase_profiling(model, model_f32, name="gpt2-medium"):
     """The flight recorder and the legacy baselines on GPT-2 medium at
     full width and depth:
@@ -5322,8 +5391,16 @@ def phase_profiling(model, model_f32, name="gpt2-medium"):
                                      f"analyzed {recorder.report()}")
         finally:
             _stop(srv, ms)
+        out["locks_report"] = os.path.join(
+            tempfile.mkdtemp(prefix="ptpu_locks_"), "coalesce.json")
         for mode in ("coalesce", "off"):
-            srv, ms, base = _serve(model_f32, name, batching=mode)
+            # The coalescer nests device_lock -> _stats_lock: its
+            # sanitized server gives _lock_cross_check an edge.
+            sanitized = {"sanitize": True,
+                         "sanitize_report": out["locks_report"]} \
+                if mode == "coalesce" else {}
+            srv, ms, base = _serve(model_f32, name, batching=mode,
+                                   **sanitized)
             try:
                 _, res = _load_clients(base, greedy, 8)
                 runs[mode] = [r[1]["new_tokens"] for r in res]
@@ -5838,6 +5915,8 @@ def main(argv=None) -> int:
     mark("fleet tier")
     profiling = phase_profiling(model, model_f32)
     mark("flight recorder and legacy coalescing")
+    _lock_cross_check({"faults": faults["locks_report"],
+                       "coalesce": profiling["locks_report"]})
     del model, model_f32
     _release()
     train_counts, train_secs = phase_train_entry()

@@ -7,10 +7,12 @@ local executor (a ``job`` or a distributed kind as subprocesses, a
 group lists, compares and manages the runs.  Both are the JAX package's
 commands (``polyaxon_tpu/cli/main.py``) over the port's own copies of the
 orchestration layers; ``run`` does no device work itself: the
-polyaxonfile's command decides where its child runs.  The JAX package's
-other commands are not ported yet: ``check`` (ROADMAP Queue 1: The
-static checker), and ``doctor``, ``agent``, ``deploy`` and the rest
-(The deployment twin).
+polyaxonfile's command decides where its child runs.  ``check`` is the
+JAX package's command over the port: ``-f`` validates a polyaxonfile,
+and without it the static analyzer (``analysis/``) checks PATHS, by
+default ``polyaxon_tpu_torch/``, against the committed baseline.  The
+JAX package's other commands are not ported yet: ``doctor``,
+``agent``, ``deploy`` and the rest (The deployment twin).
 
 Port of ``polyaxon_tpu/cli/main.py``'s ``generate`` command (greedy,
 position-keyed sampled, ``--beams`` beam search and ``--draft-model``
@@ -106,6 +108,13 @@ def _build_serving_model(name: str, batch_size: int, seed: int = 0,
         spec = get_model(name)
     except KeyError as e:
         raise click.ClickException(str(e.args[0]))
+    from polyaxon_tpu_torch.models.generate import check_lm_head
+
+    try:
+        # Judged on a meta model: nothing is allocated for a refusal.
+        check_lm_head(spec.make_model(device="meta"))
+    except NotImplementedError as e:
+        raise click.ClickException(str(e))
     serving = {}
     if kv_int8:
         serving["kv_cache_int8"] = True
@@ -1423,6 +1432,202 @@ def _restart(run_uuid: str, copy_artifacts: bool, resume: bool):
         raise click.ClickException(f"Restart failed: {e}")
 
 
+# ---------------------------------------------------------------------------
+# check: polyaxonfile validation and the static analyzer
+# ---------------------------------------------------------------------------
+
+
+@cli.command()
+@click.argument("paths", nargs=-1, type=click.Path(exists=True))
+@click.option("-f", "--file", "files", multiple=True,
+              type=click.Path(),
+              help="Validate polyaxonfile(s) instead of running the "
+                   "static analyzer.")
+@click.option("-P", "--param", "params", multiple=True)
+@click.option("--format", "fmt", type=click.Choice(["text", "json"]),
+              default="text", help="Finding output format.")
+@click.option("--baseline", "baseline_path", default=None,
+              type=click.Path(),
+              help="Baseline file of accepted findings (default: the "
+                   "committed polyaxon_tpu_torch/analysis/"
+                   "baseline.json).")
+@click.option("--update-baseline", is_flag=True, default=False,
+              help="Rewrite the baseline from the current findings "
+                   "(stable sort; justifications preserved, new "
+                   "entries get a TODO placeholder to fill in).")
+@click.option("--changed", "changed_ref", is_flag=False,
+              flag_value="HEAD", metavar="[REF]",
+              # No `default=`: click only treats the value as optional
+              # (bare `--changed` -> flag_value) when the default is
+              # left UNSET; passing default=None re-arms the
+              # requires-an-argument parse.  The resolved default is
+              # still None.
+              help="Incremental mode: lint only files changed vs a "
+                   "git ref (default HEAD), plus untracked files — "
+                   "identical findings/exit semantics to a full run "
+                   "on those files.  Fast enough for a pre-commit "
+                   "hook.  Use --changed=REF when followed by PATHS "
+                   "(a bare ref would swallow the next argument).")
+@click.option("--dump-lock-graph", "lock_graph_path", default=None,
+              type=click.Path(),
+              help="Write the canonical static lock-order graph "
+                   "(the committed analysis/lockorder.json artifact) "
+                   "to this path and exit.")
+def check(paths, files, params, fmt, baseline_path, update_baseline,
+          changed_ref, lock_graph_path):
+    """Validate a polyaxonfile (-f), or run the static analyzer over
+    PATHS (default: polyaxon_tpu_torch/).
+
+    The analyzer machine-checks the serving stack's own invariants —
+    per-module rule families RNG-DET, LOCK-HOLD, JIT-PURITY,
+    HOST-SYNC, EXC-SWALLOW, ... plus the whole-program concurrency
+    families LOCK-ORDER (static lock-acquisition-graph cycles =
+    potential deadlocks, with witness paths) and THREAD-SHARE
+    (attributes written from several thread roots with no common
+    lock) — polyaxon_tpu_torch/analysis/rules/__init__.py has the
+    catalog; the families whose reference sinks named JAX match the
+    torch spelling of the same hazard.  Exit status is
+    non-zero when findings exist beyond the committed baseline;
+    suppress locally-justified findings with `# ptpu: ignore[RULE]`
+    (or `# ptpu: lockfree[reason]` for by-design lock-free sharing),
+    baseline historically-justified ones with --update-baseline plus
+    a written justification.
+    """
+    if files:
+        from polyaxon_tpu_torch.polyaxonfile import check_polyaxonfile
+        from polyaxon_tpu_torch.polyaxonfile.reader import \
+            PolyaxonfileError
+
+        try:
+            op = check_polyaxonfile(list(files),
+                                    params=_parse_params(params))
+        except (PolyaxonfileError, ValueError) as e:
+            raise click.ClickException(str(e))
+        kind = (getattr(op.component.run, "kind", "?")
+                if op.has_component else "ref")
+        click.echo(f"Valid operation: name={op.name!r} kind={kind}"
+                   + (f" matrix={op.matrix.kind}" if op.matrix else ""))
+        return
+
+    if params:
+        # -P only means something to polyaxonfile validation: a CI
+        # line that lost its -f must fail loudly, not silently run
+        # the analyzer and report lint status as file validity.
+        raise click.ClickException(
+            "-P/--param requires -f (polyaxonfile validation); "
+            "the static analyzer takes PATHS only")
+
+    import polyaxon_tpu_torch as _pkg
+    from polyaxon_tpu_torch.analysis import (DEFAULT_BASELINE,
+                                             apply_baseline, check_paths,
+                                             load_baseline, save_baseline)
+    from polyaxon_tpu_torch.analysis.checker import iter_py_files
+
+    # Findings and baseline entries are keyed by paths relative to
+    # the REPO root (the directory holding the package), never the
+    # cwd — `ptpu-torch check` must match the committed baseline from
+    # any working directory.
+    root = os.path.dirname(
+        os.path.dirname(os.path.abspath(_pkg.__file__)))
+    target = list(paths) or [os.path.join(root, "polyaxon_tpu_torch")]
+    for p in target:
+        if not os.path.exists(p):
+            raise click.ClickException(f"no such path: {p}")
+
+    if lock_graph_path is not None:
+        from polyaxon_tpu_torch.analysis import lockgraph as _lockgraph
+
+        sources = {}
+        for p in iter_py_files(target):
+            rel = os.path.relpath(os.path.abspath(p), root).replace(
+                os.sep, "/")
+            if _lockgraph.in_program_scope(rel):
+                with open(p, encoding="utf-8") as fh:
+                    sources[rel] = fh.read()
+        graph = _lockgraph.build_lock_graph(
+            _lockgraph.build_model(sources))
+        with open(lock_graph_path, "w", encoding="utf-8") as fh:
+            json.dump(_lockgraph.canonical_graph(graph), fh, indent=1,
+                      sort_keys=True)
+            fh.write("\n")
+        click.echo(f"wrote {len(graph.edges)} lock-order edges to "
+                   f"{lock_graph_path}")
+        return
+
+    if changed_ref is not None:
+        # Incremental mode: the checked file set becomes "changed vs
+        # REF (plus untracked)" intersected with the target paths.
+        # Everything downstream — per-module rules, the program
+        # families over the in-scope subset, baseline, exit status —
+        # is exactly a full run on those files.
+        import subprocess
+
+        def _git(*args):
+            return subprocess.run(["git", *args], cwd=root,
+                                  capture_output=True, text=True)
+
+        diff = _git("diff", "--name-only", changed_ref, "--", "*.py")
+        if diff.returncode != 0:
+            raise click.ClickException(
+                f"git diff vs {changed_ref!r} failed: "
+                f"{diff.stderr.strip() or diff.stdout.strip()}")
+        names = set(diff.stdout.split())
+        untracked = _git("ls-files", "--others", "--exclude-standard",
+                         "--", "*.py")
+        if untracked.returncode == 0:
+            names.update(untracked.stdout.split())
+        roots_abs = [os.path.abspath(t) for t in target]
+        target = []
+        for name in sorted(names):
+            p = os.path.join(root, name)
+            if not (name.endswith(".py") and os.path.isfile(p)):
+                continue            # deleted files have no findings
+            ap = os.path.abspath(p)
+            if any(ap == t or ap.startswith(t + os.sep)
+                   for t in roots_abs):
+                target.append(p)
+
+    baseline_path = baseline_path or DEFAULT_BASELINE
+    findings = check_paths(target, root=root)
+    if update_baseline:
+        previous = load_baseline(baseline_path)
+        # Only the CHECKED paths' debt is rewritten: entries for
+        # files outside this run's scope are preserved verbatim, so
+        # `ptpu-torch check DIR --update-baseline` can never drop
+        # other files' entries (and their written justifications).
+        checked = {
+            os.path.relpath(os.path.abspath(f), root).replace(
+                os.sep, "/")
+            for f in iter_py_files(target)}
+        entries = save_baseline(
+            baseline_path, findings, previous=previous,
+            preserve=[e for e in previous
+                      if e["path"] not in checked])
+        click.echo(f"wrote {len(entries)} baseline entries to "
+                   f"{baseline_path}")
+        return
+    entries = load_baseline(baseline_path)
+    new, stale = apply_baseline(findings, entries)
+    if fmt == "json":
+        click.echo(json.dumps({
+            "checked_paths": target,
+            "findings": [f.to_dict() for f in new],
+            "baselined": len(findings) - len(new),
+            "new": len(new),
+            "stale_baseline_entries": stale,
+        }, indent=1))
+    else:
+        for f in new:   # already stably sorted (path, line, rule)
+            click.echo(f.render())
+        for e in stale:
+            click.echo(f"note: stale baseline entry (code fixed?): "
+                       f"{e['rule']} {e['path']} [{e['func']}] — "
+                       f"run --update-baseline to drop it", err=True)
+        click.echo(f"{len(new)} new finding"
+                   f"{'' if len(new) == 1 else 's'} "
+                   f"({len(findings) - len(new)} baselined)")
+    if new:
+        raise SystemExit(1)
 
 
 @cli.command()

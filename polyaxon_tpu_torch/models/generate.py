@@ -171,11 +171,36 @@ SEQ2SEQ_SERVE_MSG = (
     "generate requests); decode with models.generate.generate_seq2seq")
 
 
+# A classifier, an image model or an encoder has nothing to decode: the
+# reference fails generate on one with a TypeError from inside the
+# model, the port refuses it by name before any program is built.
+NO_LM_HEAD_MSG = (
+    "{name} has no causal LM head (its forward takes no decode step): "
+    "generate, the server and the CLI decode causal language models "
+    "only (ROADMAP Queue 3: Generate on a model with no LM head)")
+
+
+def check_lm_head(model) -> None:
+    """Refuse a model whose forward has no ``decode`` step (ViT, the
+    MLP, the ConvNet, ResNet, BERT) with NO_LM_HEAD_MSG, a
+    NotImplementedError; a seq2seq model passes (it has its own
+    refusal where the decoder-only programs would run it)."""
+    import inspect
+
+    if hasattr(model, "encode"):
+        return
+    if "decode" not in inspect.signature(model.forward).parameters:
+        raise NotImplementedError(
+            NO_LM_HEAD_MSG.format(name=type(model).__name__))
+
+
 def check_decoder_only(model) -> None:
-    """Refuse a seq2seq model on a decoder-only path (SEQ2SEQ_SERVE_MSG,
-    a NotImplementedError: the server's 501)."""
+    """Refuse a seq2seq model on a decoder-only path (SEQ2SEQ_SERVE_MSG)
+    and a model with no causal LM head (NO_LM_HEAD_MSG), each a
+    NotImplementedError: the server's 501."""
     if hasattr(model, "encode"):
         raise NotImplementedError(SEQ2SEQ_SERVE_MSG)
+    check_lm_head(model)
 
 
 def _check_positional_sampling(top_k, top_p, temperature,
@@ -235,8 +260,7 @@ def _decode_loop(apply_step, cache, first_logits, *,
 
 def sample_stream_keys(seed: int, rows: int, device=None) -> torch.Tensor:
     """Per-row base keys ``fold_in(PRNGKey(seed), r)``, [rows, 2]."""
-    base = prng.PRNGKey(seed, device=device)
-    return prng.fold_in(base.expand(rows, 2),
+    return prng.fold_in(prng.PRNGKey(seed, device=device).expand(rows, 2),
                         torch.arange(rows, device=device))
 
 
@@ -466,6 +490,7 @@ def generate(model, prompt, *, max_new_tokens: int,
     ``temperature=0`` is greedy; otherwise token i draws with the i-th
     key of the chain ``rng, key = split(rng)`` from ``rng`` (default
     ``PRNGKey(0)``).  ``eos_id`` freezes finished rows."""
+    check_lm_head(model)
     if max_new_tokens < 0:
         raise ValueError(f"max_new_tokens must be >= 0; got "
                          f"{max_new_tokens}")
@@ -501,6 +526,7 @@ def generate_positional(model, prompt, *, max_new_tokens: int,
     i)``.  ``top_k=None``/``0`` and ``top_p=None``/``0`` disable the
     masks; ``temperature=0`` decodes greedily; ``keys`` ([B, 2])
     overrides the seed's per-row base keys."""
+    check_lm_head(model)
     if max_new_tokens < 0:
         raise ValueError(f"max_new_tokens must be >= 0; got "
                          f"{max_new_tokens}")
@@ -713,6 +739,8 @@ def generate_speculative(model, draft_model, prompt, *,
     tokens next round.  Commits are capped at ``k`` a round.  Both
     caches rewind by index (``_rollback_cache``).  ``eos_id`` freezes
     a row after its first eos.  Returns [B, P + max_new_tokens]."""
+    check_lm_head(model)
+    check_lm_head(draft_model)
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1; got "
                          f"{max_new_tokens}")
@@ -835,6 +863,7 @@ def generate_beam(model, prompt, *, max_new_tokens: int,
     are summed token log-probs divided by ``len ** length_penalty``;
     finished beams (eos) freeze their score and keep emitting eos.
     ``num_beams=1`` is greedy search."""
+    check_lm_head(model)
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1; got "
                          f"{max_new_tokens}")

@@ -97,7 +97,7 @@ from .scheduler import (AdmissionQueue, DeadlineExceeded, PRIORITIES,
                         PoisonedRequest, QueueFullError, RequestCancelled,
                         RequestGroup, SamplingSpec, SchedulerPolicy,
                         ShedError, Stream, terminal_status)
-from .slots import SlotKVManager, sync_device
+from .slots import SlotKVManager, host_copy, sync_device
 from .telemetry import ENGINE_PID, Histogram, Telemetry
 
 __all__ = ["DecodeEngine", "QueueFullError", "SPEC_ACCEPT_BUCKETS"]
@@ -111,6 +111,17 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch backend yet (ROADMAP "
         f"Queue 1: {item})")
+
+
+def _host_base_key(seed: int, row: int) -> np.ndarray:
+    """A stream's base key ``fold_in(PRNGKey(seed), row)``, built on
+    the host: threefry gives the card's bits on the CPU, so the key the
+    stream keeps costs no device sync."""
+    from .. import prng
+
+    key = prng.fold_in(prng.PRNGKey(seed), row)
+    # A CPU tensor: no device to wait for.  # ptpu: ignore[HOST-SYNC]
+    return key.numpy()
 
 
 def _pow2_floor(n: int) -> int:
@@ -527,6 +538,7 @@ class DecodeEngine:
             s0.events = list(pre_events) + (s0.events or [])
         if not self._resident and len(self.queue) == 0:
             # Idle -> busy: re-stamp the progress signal.
+            # ptpu: lockfree[monotonic staleness stamp: torn/lost stamps only shift stall detection by one tick]
             self.last_boundary_t = time.perf_counter()
         for stream in group.streams:
             self._emit_instant(stream, "queued", group.t_submit,
@@ -553,6 +565,7 @@ class DecodeEngine:
         group.request_cancel(err if err is not None
                              else RequestCancelled(
                                  "request cancelled"))
+        # ptpu: lockfree[handoff flag: writers only store True, the engine sweep clears; next boundary re-reads]
         self._cancel_pending = True
         with self._wake:
             self._wake.notify()
@@ -1082,6 +1095,7 @@ class DecodeEngine:
                 self.faults.check("telemetry")
             self.tel.span(stream.sid or 0, name, t0, t1, **args)
         except Exception:
+            # ptpu: lockfree[best-effort drop counter: a lost increment under-counts a diagnostic, nothing else]
             self.telemetry_errors_total += 1
         if stream.events is not None:
             stream.events.append((name, t0, t1, args))
@@ -1176,18 +1190,16 @@ class DecodeEngine:
         Sampled: the slot step's position-keyed sampler at token index
         0, with the stream's base key ``fold_in(PRNGKey(seed), row)``
         (kept on the stream, armed into the slot at insert)."""
-        from .. import prng
         from ..models.generate import _sample_positional_row
 
         spec = stream.sampling
         logits = stream.logits[0]
         if not spec.sampled:
-            return int(torch.argmax(logits))
-        key = prng.fold_in(prng.PRNGKey(spec.seed, device=logits.device),
-                           stream.row)
-        stream.base_key = key.cpu().numpy()
-        return int(_sample_positional_row(
-            logits, key, 0, spec.temperature, spec.top_k, spec.top_p))
+            return int(host_copy(torch.argmax(logits)))
+        stream.base_key = _host_base_key(spec.seed, stream.row)
+        key = torch.from_numpy(stream.base_key).to(logits.device)
+        return int(host_copy(_sample_positional_row(
+            logits, key, 0, spec.temperature, spec.top_k, spec.top_p)))
 
     def _admit(self, stream: Stream) -> None:
         """Step-boundary admission: token 0 from the prefill logits
@@ -1265,10 +1277,7 @@ class DecodeEngine:
             # sampled stream (submit resume_tokens=) skipped
             # _first_token on this engine — the prior attempt drew its
             # token 0 — so its key is armed here: the same fold_in.
-            from .. import prng
-
-            stream.base_key = prng.fold_in(prng.PRNGKey(spec.seed),
-                                           stream.row).numpy()
+            stream.base_key = _host_base_key(spec.seed, stream.row)
         kw = {}
         if self.paged:
             # Ownership of the pinned shared pages passes to insert (it

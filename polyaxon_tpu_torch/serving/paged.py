@@ -89,7 +89,7 @@ import numpy as np
 import torch
 
 from ..models.kv_cache import gather_pages, paged_pool_shape, scatter_pages
-from .slots import StepPool, alloc_decode_state
+from .slots import StepPool, alloc_decode_state, host_copy
 
 __all__ = ["PagedSlotKVManager", "PageExhausted", "WirePayloadError",
            "pack_spilled", "unpack_spilled"]
@@ -128,24 +128,15 @@ _FROM_WIRE = {v: k for k, v in _WIRE_DTYPES.items()}
 
 
 def _wire_buffer(a) -> Tuple[List[int], str, bytes]:
-    """(shape, dtype name, C-order bytes) of a tensor (or array)."""
-    t = torch.as_tensor(a).detach().cpu().contiguous()
+    """(shape, dtype name, C-order bytes) of a tensor (or array): wire
+    encoding of a host-tier entry, off the decode step."""
+    t = host_copy(torch.as_tensor(a)).contiguous()
     name = _WIRE_DTYPES.get(t.dtype)
     if name is None:
         raise ValueError(f"no wire dtype for {t.dtype}")
     raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    # raw is on the host already (host_copy).  # ptpu: ignore[HOST-SYNC]
     return list(t.shape), name, raw.numpy().tobytes()
-
-
-def _wire_tensor(raw: bytes, meta) -> torch.Tensor:
-    """The host tensor of one declared buffer (``_wire_nbytes`` checked
-    the declaration; a copy: the blob may go)."""
-    name, shape = meta["dtype"], meta["shape"]
-    if name == "bfloat16":
-        a = np.frombuffer(raw, np.uint16).reshape(shape).copy()
-        return torch.from_numpy(a).view(torch.bfloat16)
-    return torch.from_numpy(
-        np.frombuffer(raw, np.dtype(name)).reshape(shape).copy())
 
 
 def _wire_nbytes(meta) -> int:
@@ -184,6 +175,7 @@ def pack_spilled(toks, leaves: Sequence[Optional[object]],
     header = json.dumps({
         "v": _WIRE_VERSION,
         "n_tokens": int(n_tokens),
+        # A numpy array, no tensor.  # ptpu: ignore[HOST-SYNC]
         "prompt": toks.tolist(),
         "logits": logits_meta,
         "leaves": leaf_meta,
@@ -223,14 +215,20 @@ def unpack_spilled(blob: bytes):
     off = 0
 
     def _take(meta):
+        """The host tensor of one declared buffer, decoded under the
+        checksum verified above (a copy: the blob may go)."""
         nonlocal off
         n = _wire_nbytes(meta)
         if off + n > len(body):
             raise WirePayloadError("payload truncated inside a "
                                    "buffer (header/body disagree)")
-        t = _wire_tensor(body[off:off + n], meta)
+        raw, name = body[off:off + n], meta["dtype"]
         off += n
-        return t
+        if name == "bfloat16":
+            a = np.frombuffer(raw, np.uint16).reshape(meta["shape"])
+            return torch.from_numpy(a.copy()).view(torch.bfloat16)
+        return torch.from_numpy(np.frombuffer(raw, np.dtype(name))
+                                .reshape(meta["shape"]).copy())
 
     if not isinstance(leaf_meta, list):
         raise WirePayloadError("malformed wire header")
@@ -804,7 +802,7 @@ class PagedSlotKVManager(StepPool):
         with torch.no_grad():
             for pool in self._pools:
                 v = gather_pages(pool, table, 1)[:, :width]
-                host.append(v.unsqueeze(1).cpu())
+                host.append(host_copy(v.unsqueeze(1)))
         return to_wire_order(host)
 
     def rematerialize(self, host_leaves: Sequence[Optional[torch.Tensor]],
@@ -862,6 +860,8 @@ class PagedSlotKVManager(StepPool):
 
     def _load_state(self) -> None:
         super()._load_state()
+        # The page TABLES (an int index per slot), not page payloads.
+        # ptpu: ignore[TIER-XFER]
         self._table_buf.copy_(torch.from_numpy(self.page_tables))
         self._wtable_buf.copy_(torch.from_numpy(self.write_tables))
         self._d0_buf.copy_(torch.from_numpy(self._d0_host))

@@ -148,7 +148,7 @@ from .recovery import EngineSupervisor
 from .scheduler import (DeadlineExceeded, PRIORITIES, PoisonedRequest,
                         QueueFullError, RequestCancelled, SamplingSpec,
                         SchedulerPolicy, ShedError)
-from .slots import sync_device
+from .slots import host_copy, sync_device
 from .legacy import RequestCoalescer
 from .telemetry import (ProfileSession, Telemetry, render_compile_cache,
                         render_histogram)
@@ -461,6 +461,9 @@ class ModelServer:
         if batching not in BATCHING_MODES:
             raise ValueError(f"batching must be one of "
                              f"{BATCHING_MODES}; got {batching!r}")
+        from ..models.generate import check_lm_head
+
+        check_lm_head(model)    # before any engine or program is built
         seq2seq = hasattr(model, "encode")
         if batching == "continuous" and seq2seq:
             # The slot engine is decoder-only: a seq2seq model falls back
@@ -1049,7 +1052,7 @@ class ModelServer:
                     f"deadline exceeded after {queue_s:.3f}s waiting "
                     f"for the device (solo path)")
             rows = torch.as_tensor(toks, device=self.model.device)
-            out = self._fn(key)(rows, seed).cpu().numpy()
+            out = host_copy(self._fn(key)(rows, seed)).numpy()
             self._sync()
         return out, (queue_s, 0.0,
                      time.perf_counter() - t_lock - queue_s)
@@ -1311,7 +1314,7 @@ class ModelServer:
                     # reference; the recovery flush owns the index.
                     return True
                 host = mgr.spill_pages(payload.pages, payload.n_tokens)
-                logits_host = payload.logits.detach().cpu()
+                logits_host = host_copy(payload.logits)
         except Exception:
             mgr.unpin(payload.pages, epoch=pin_epoch)
             return False
@@ -1514,7 +1517,7 @@ class ModelServer:
                 if mgr.epoch != pin_epoch:
                     return None
                 host = mgr.spill_pages(payload.pages, payload.n_tokens)
-                logits_host = payload.logits.detach().cpu()
+                logits_host = host_copy(payload.logits)
         except Exception:
             return None
         finally:
@@ -1928,7 +1931,7 @@ class ModelServer:
                         max_new_tokens=new, temperature=temp,
                         top_k=top_k, top_p=top_p, eos_id=eos,
                         _validated=True)
-                out_new = out_new.cpu().numpy()
+                out_new = host_copy(out_new).numpy()
                 self._sync()
                 t_end = time.perf_counter()
         finally:
@@ -2292,6 +2295,8 @@ class ModelServer:
             self._note_breakdown(*breakdown)
             tokens_done = len(rows) * new if group is None \
                 else sum(len(s.out) for s in group.streams)
+            # Histogram KEY (telemetry.HIST_SPECS), not a ledger
+            # phase reference.  # ptpu: ignore[PHASE-ENUM]
             self.telemetry.observe("queue_wait", breakdown[0],
                                    exemplar=rid)
             self.telemetry.observe("prefill", breakdown[1], exemplar=rid)

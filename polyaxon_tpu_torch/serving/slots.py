@@ -94,7 +94,22 @@ def sync_device(dev) -> None:
     if dev.type != "cuda":
         return
     with _CAPTURE_LOCK:
+        # The sanctioned fence itself.  # ptpu: ignore[HOST-SYNC]
         torch.cuda.synchronize(dev)
+
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host, detached, in storage of its own (the device
+    buffer may be rewritten while the caller keeps it).  The serving
+    stack's sanctioned device->host fetch, the reference's
+    ``jax.device_get``: it waits for the card, so it is spelled by name
+    where a step's outputs come home: the checker's LOCK-HOLD and
+    HOST-SYNC count it as the fence it is, and SNAPSHOT-LOCK still
+    flags it under the snapshot board's lock."""
+    t = t.detach()
+    if t.device.type == "cpu":
+        return t.clone()
+    return t.cpu()  # ptpu: ignore[HOST-SYNC]
 
 
 def step_annotation():
@@ -408,6 +423,8 @@ class StepPool:
                 body()
             out = fetch()
         self._built.add(built_key)
+        # fetch() waits for the card (host_copy): the delta is honest.
+        # ptpu: ignore[TIME-TRUTH]
         self.last_step_device_s = time.perf_counter() - t0
         return out
 
@@ -429,7 +446,7 @@ class StepPool:
         """One plain window; returns ``outs`` [window, S] on the host."""
         window = key[0]
         outs = self._replay(
-            key, body, lambda: self._outs[:window].cpu().numpy().copy(),
+            key, body, lambda: host_copy(self._outs[:window]).numpy(),
             graph=graph, on_card=on_card)
         self._advance(outs[-1], window)
         return outs
@@ -440,9 +457,9 @@ class StepPool:
         """One speculative window; returns ``(tokens [window, S, K],
         commits [window, S], accepts [window, S])`` on the host."""
         def fetch():
-            return (self._spec_outs[:window, :, :K].cpu().numpy().copy(),
-                    self._commits[:window].cpu().numpy().copy(),
-                    self._accepts[:window].cpu().numpy().copy())
+            return tuple(host_copy(t).numpy() for t in (
+                self._spec_outs[:window, :, :K], self._commits[:window],
+                self._accepts[:window]))
 
         toks, cs, ms = self._replay(key, body, fetch, graph=graph,
                                     on_card=on_card)

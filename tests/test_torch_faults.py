@@ -631,7 +631,12 @@ def test_socket_reset_drops_connection_not_server(pair, refs):
 def test_crash_recovery_sanitized_writes_report(pair, refs, tmp_path):
     """A supervised crash recovery with the lock sanitizer armed: no
     lock-order violation, the tokens of the fault-free run, and the
-    observed lock graph written at close."""
+    observed lock graph written at close.  Then the static-vs-runtime
+    cross-check, as the reference's sanitized smoke makes it: the
+    continuous engine never nests the three wrapped locks, so one
+    sanitized request through the legacy coalescer (which nests
+    device_lock -> _stats_lock) keeps the check from being vacuous, and
+    every observed edge must be in the port's static lock graph."""
     report = tmp_path / "locks.json"
     ms = ModelServer(pair[2], model_name="tiny", n_slots=2,
                      decode_window=2,
@@ -650,8 +655,36 @@ def test_crash_recovery_sanitized_writes_report(pair, refs, tmp_path):
         ms.close()
     graph = json.loads(report.read_text())
     assert graph["violations"] == []
-    assert "device_lock" in json.dumps(graph["edges"]) or graph["edges"] \
-        == []
+    assert graph["acquisitions"] > 0
+    ms2 = ModelServer(pair[2], model_name="tiny", batching="coalesce",
+                      sanitize=True)
+    try:
+        ms2.generate({"prompt": CT1[0].tolist(), "max_new_tokens": 4})
+        assert ms2.sanitizer.stats()["violations"] == []
+    finally:
+        ms2.close()
+    observed = set(graph["edges"]) | set(ms2.sanitizer.stats()["edges"])
+    assert observed, "cross-check vacuous: no runtime edges observed"
+    import os
+
+    import polyaxon_tpu_torch
+    from polyaxon_tpu_torch.analysis import lockgraph
+    from polyaxon_tpu_torch.analysis.checker import iter_py_files
+
+    pkg = os.path.dirname(os.path.abspath(polyaxon_tpu_torch.__file__))
+    root = os.path.dirname(pkg)
+    sources = {}
+    for p in iter_py_files([pkg]):
+        rel = os.path.relpath(os.path.abspath(p), root).replace(os.sep, "/")
+        if lockgraph.in_program_scope(rel):
+            sources[rel] = Path(p).read_text(encoding="utf-8")
+    static = lockgraph.build_lock_graph(
+        lockgraph.build_model(sources)).edge_names()
+    missing = sorted(observed - static)
+    assert not missing, (
+        f"lock edges observed at runtime but absent from the static "
+        f"graph (analyzer blind spot): {missing}; static: "
+        f"{sorted(static)}")
     with pytest.raises(ValueError, match="sanitize_report"):
         ModelServer(pair[2], sanitize_report=str(report))
 

@@ -774,7 +774,15 @@ def _free_port():
 def test_cli_disaggregated_fleet_over_http():
     """``serve --cpu --role prefill`` + two ``--role decode`` replicas
     and ``route`` as processes: a long prompt goes through the wire
-    lane and equals the monolithic ``generate``'s tokens."""
+    lane and equals the monolithic ``generate``'s tokens.
+
+    The decode replica's cost gate fetches only while the router's
+    measured RTT to the holder stays under ``(1 - remat_ratio)`` of the
+    prompt's estimated re-prefill (``n / 4000`` s).  A 40-token prompt
+    at the default ratio put that bound at 7.4 ms against ~2-5 ms
+    probes on an idle box, so a loaded one vetoed the fetch
+    (``wire_slower``, a re-prefill).  A 120-token prompt at ratio 0
+    puts it at 30 ms."""
     ports = [_free_port() for _ in range(4)]
     common = ["--cpu", "--model", "gpt2-tiny", "--kv-paged",
               "--kv-page-tokens", "16", "--kv-host-spill-bytes",
@@ -782,7 +790,8 @@ def test_cli_disaggregated_fleet_over_http():
     cmds = [["serve", *common, "--port", str(ports[0]), "--role",
              "prefill"]]
     cmds += [["serve", *common, "--port", str(p), "--role", "decode",
-              "--prefix-fetch", "--prefix-fetch-min-tokens", "1"]
+              "--prefix-fetch", "--prefix-fetch-min-tokens", "1",
+              "--prefix-fetch-remat-ratio", "0"]
              for p in ports[1:3]]
     cmds.append(["route", "--port", str(ports[3]), "--probe-interval",
                  "0.1", *sum((["--replica", f"127.0.0.1:{p}"]
@@ -809,9 +818,12 @@ def test_cli_disaggregated_fleet_over_http():
                     p.stderr.read().decode()[-2000:] for p in procs
                     if p.poll() is not None]
             time.sleep(0.2)
-        prompt = list(range(1, 41))
+        prompt = list(range(1, 121))
         resp = _post(base, {"prompt": prompt, "max_new_tokens": 6})
-        assert resp["prefix_source"] == "wire_fetch"
+        assert resp["prefix_source"] == "wire_fetch", (
+            resp["prefix_source"], _get(base, "/info")["replicas"],
+            [_get(f"http://127.0.0.1:{p}", "/info").get(
+                "prefix_fetch_failed") for p in ports[1:3]])
         out = subprocess.run(
             [sys.executable, "-m", "polyaxon_tpu_torch.cli", "generate",
              "--cpu", "--model", "gpt2-tiny", "--prompt",

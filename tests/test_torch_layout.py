@@ -64,11 +64,58 @@ SERVING_MODULES = ("prng.py", "models/generate.py", "models/kv_cache.py",
                    "analysis/recompile.py", "analysis/locksan.py",
                    "serving/radix.py", "serving/router.py")
 
+ANALYSIS_MODULES = ("analysis/__init__.py", "analysis/checker.py",
+                    "analysis/baseline.py", "analysis/lockgraph.py",
+                    "analysis/threads.py", "analysis/rules/__init__.py",
+                    "analysis/rules/_base.py", "analysis/rules/_jit.py",
+                    *(f"analysis/rules/{m}.py" for m in (
+                        "exc_swallow", "host_sync", "jit_deadline",
+                        "jit_purity", "lock_hold", "page_ref",
+                        "phase_enum", "retry_backoff", "rng_det",
+                        "shard_leak", "snapshot_lock", "socket_timeout",
+                        "tier_xfer", "time_truth", "wire_verify")))
+
 
 def test_serving_modules_are_checked():
-    """The serving stack is under the import rule above (SOURCES)."""
-    for rel in SERVING_MODULES:
+    """The serving stack and the static checker are under the import
+    rule above (SOURCES); each analysis module says it is the port's
+    own copy."""
+    for rel in SERVING_MODULES + ANALYSIS_MODULES:
         assert PORT / rel in SOURCES, rel
+    for rel in ANALYSIS_MODULES:
+        doc = ast.get_docstring(ast.parse((PORT / rel).read_text()))
+        assert "port's own copy" in " ".join(doc.split()), rel
+
+
+def test_analysis_imports_touch_no_cuda():
+    """Importing ``polyaxon_tpu_torch.analysis`` (the checker, the lock
+    graph, the sanitizer) and checking a source loads no jax, nothing of
+    the JAX package and no CUDA (judged on the modules the import adds:
+    jax may already sit in ``sys.modules`` at start-up)."""
+    import subprocess
+    import sys
+
+    script = "\n".join([
+        "import sys, torch",
+        "before = set(sys.modules)",
+        "def boom(*a, **k):",
+        "    raise AssertionError('CUDA touched')",
+        "for name in ('init', '_lazy_init', 'is_available', 'device_count',",
+        "             'current_device', 'synchronize', 'set_device'):",
+        "    setattr(torch.cuda, name, boom)",
+        "import polyaxon_tpu_torch.analysis as A",
+        "from polyaxon_tpu_torch.analysis import lockgraph, threads",
+        "A.check_source('x = 1\\n', 'polyaxon_tpu_torch/serving/x.py')",
+        "assert not torch.cuda.is_initialized()",
+        "new = set(sys.modules) - before",
+        "bad = sorted(m for m in new if m.split('.')[0] in",
+        "             ('jax', 'jaxlib', 'polyaxon_tpu'))",
+        "print('ok' if not bad else bad)",
+    ])
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        (out.stdout, out.stderr)
 
 
 FLEET_MODULES = ("serving/router.py", "serving/paged.py",

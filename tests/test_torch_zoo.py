@@ -12,7 +12,8 @@ across by ``convert.*_state_dict_from_jax``.
   biased running variance.  BERT with and without a padded
   ``attention_mask``.
 - BERT's MLM mask bits equal ``jax.random.bernoulli``'s.
-- The registry's flop models, batches, init and refusals by ROADMAP item;
+- The registry's flop models, batches, init and refusals by ROADMAP item
+  (a model with no LM head refused by generate, the server and the CLI);
   the rest of the zoo (MoE-GPT, T5, ViT): ``train.main``'s first loss on
   each tiny config (and t5-tiny on span corruption) equals the
   reference's ``train.main`` from the same weights (float32 on both
@@ -263,6 +264,39 @@ def test_rest_of_the_zoo_is_registered():
             j_get_model(name).make_model()).__name__
     with pytest.raises(KeyError, match="unknown model"):
         t_get_model("t5-large")
+
+
+@pytest.mark.parametrize("name", ["vit-tiny", "mlp", "resnet50-tiny",
+                                  "bert-tiny", "convnet"])
+def test_generate_refuses_a_model_with_no_lm_head(name):
+    """A model with nothing to decode is refused by one named message
+    (ROADMAP Queue 3: Generate on a model with no LM head) before any
+    program or engine is built: by ``generate`` and its siblings, by
+    ``ModelServer`` and by the CLI's ``generate`` and ``serve`` (judged
+    on a meta model there).  The reference fails the same calls with a
+    TypeError from inside the model."""
+    from click.testing import CliRunner
+
+    from polyaxon_tpu_torch.cli.main import cli
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.serving import ModelServer
+
+    model = t_get_model(name).make_model(device="cpu")
+    msg = "no causal LM head .* Generate on a model with no LM head"
+    calls = (
+        lambda: G.generate(model, [[1, 2]], max_new_tokens=2),
+        lambda: G.generate_positional(model, [[1, 2]], max_new_tokens=2),
+        lambda: G.generate_beam(model, [[1, 2]], max_new_tokens=2),
+        lambda: G.generate_speculative(model, model, [[1, 2]],
+                                       max_new_tokens=2),
+        lambda: ModelServer(model))
+    for call in calls:
+        with pytest.raises(NotImplementedError, match=msg):
+            call()
+    for argv in (["generate", "--prompt", "1,2"], ["serve"]):
+        res = CliRunner().invoke(cli, [*argv, "--cpu", "--model", name])
+        assert res.exit_code != 0
+        assert "Generate on a model with no LM head" in res.output
 
 
 # train.main's argv for each case of the rest of the zoo; "span" is
