@@ -48,6 +48,8 @@ Phases, each raising on failure:
    from 8 clients and a 2-row one: float32 tokens with the cache on ==
    off on both pools, bf16 prefill tokens, hits, TTFT and pages cold
    against warm on the paged pool);
+   the float32 exactness checks run at a few layers of the model's
+   own weights (``F32_LAYERS``), the bf16 timings at full depth;
    fault containment in float32 (a transient step fault retried, a
    poisoned request alone failing 500 ``poisoned_request``, an engine
    death on the paged pool recovered by the supervisor: every other
@@ -74,7 +76,12 @@ Phases, each raising on failure:
    launches a step), whose checkpoint ``generate --checkpoint`` then
    serves with the trained model's tokens (bf16 as served, and float32),
    then a timed loop of ``TrainStep`` calls (step time, tok/s, MFU,
-   device idle share, top kernels);
+   device idle share, top kernels); then ``phase_mesh``: a one-rank
+   NCCL group started by the bootstrap (NCCL puts no two ranks on one
+   card), the slice health probe, the collectives, and 3 GPT-2 medium
+   steps through the mesh ``TrainStep`` under ``{dp: -1}`` and
+   ``{dp: 1, fsdp: -1}`` (FSDP2) equal to the group-less step
+   (``[mesh]`` lines);
 8. one float32 step's loss and gradients through the flash route against
    the plain-attention route, at GPT-2 medium's width and 4 layers;
    the baseline's training zoo (``phase_zoo``, ``[zoo]`` lines):
@@ -1537,7 +1544,8 @@ def phase_http_serving(model, model_f32):
     t0 = time.perf_counter()
     # 6 requests (12 before the zoo's phases joined), for the
     # script's time.
-    _f32_schedule(model_f32, n=6)
+    # float32 exactness at F32_LAYERS layers (PR 17, for time).
+    _f32_schedule(_cut_draft(model_f32, "gpt2-medium", F32_LAYERS), n=6)
     print(f"[time] http: float32 schedules {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     step_ms = _graph_vs_eager(model)
@@ -1784,9 +1792,9 @@ def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
     fleet phase needed the time, then 16) and one 2-row request
     (the solo hit path).
 
-    - float32: a server with the cache off and one with it on (4
-      entries) give the same tokens, greedy and sampled alike (the tie
-      rule for a float32 difference);
+    - float32, at ``F32_LAYERS`` layers: a server with the cache off and
+      one with it on (4 entries) give the same tokens, greedy and
+      sampled alike (the tie rule for a float32 difference);
     - bf16, one warm server on each of ``PREFIX_BF16_POOLS``: the same
       load cold (nothing registered) and warm; prefill tokens computed,
       hits, TTFT p50 / p99, peak pages in use and shared, and the warm
@@ -1798,12 +1806,13 @@ def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
     # script's time.
     sys_p, bodies, two = _prefix_traffic(cfg, n=8)
     max_tokens = max(len(b["prompt"]) + b["max_new_tokens"] for b in bodies)
+    f32 = _cut_draft(model_f32, name, F32_LAYERS)
     out = {}
     for pool, kw in PREFIX_POOLS:
         t0 = time.perf_counter()
         runs = {}
         for cache in (0, 4):
-            srv, ms, base = _serve(model_f32, name, prefix_cache=cache, **kw)
+            srv, ms, base = _serve(f32, name, prefix_cache=cache, **kw)
             try:
                 _warm_server(base, ms, cfg, max_tokens)
                 runs[cache] = _prefix_load(
@@ -1812,9 +1821,10 @@ def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
             finally:
                 _stop(srv, ms)
             _release()
-        ties = _same_tokens(model_f32, "prefix", bodies + [two],
+        ties = _same_tokens(f32, "prefix", bodies + [two],
                             runs[0]["tokens"], runs[4]["tokens"])
-        print(f"[prefix] float32 {pool}: prefix_cache=4 == prefix_cache=0 "
+        print(f"[prefix] float32 {pool} ({F32_LAYERS} layers): "
+              f"prefix_cache=4 == prefix_cache=0 "
               f"on all {len(bodies)} requests + 2 rows ({len(bodies) // 2} "
               f"greedy, {len(bodies) // 2} sampled + the sampled 2-row), "
               f"{ties} by the tie rule; hits {runs[4]['hits']}")
@@ -1863,11 +1873,13 @@ def phase_prefix_cache(model, model_f32, name="gpt2-medium"):
 
 
 def phase_llama_prefix(model_f32):
-    """TinyLlama-1.1B, float32, paged pool (64-token pages): 4 requests
+    """TinyLlama-1.1B's width, float32 at ``LLAMA_F32_LAYERS`` layers of
+    its own weights, paged pool (64-token pages): 4 requests
     over a 512-token prefix (16-64 own tokens, 32 new, half sampled)
     with the cache off and with it on after POST /prefill: the same
     tokens (RoPE'd keys at num_kv_heads materialized from the pages, the
     suffix rotated from position 512), 4 hits, no flash launch."""
+    model_f32 = _cut_draft(model_f32, LLAMA, LLAMA_F32_LAYERS)
     cfg = model_f32.cfg
     # 4 requests (8 before the zoo's phases joined), for the
     # script's time.
@@ -1889,7 +1901,8 @@ def phase_llama_prefix(model_f32):
                         runs[4]["tokens"])
     if runs[4]["hits"] != len(bodies):
         raise AssertionError(f"llama prefix: {runs[4]['hits']} hits")
-    print(f"[prefix] llama float32 paged: prefix_cache=4 == prefix_cache=0 "
+    print(f"[prefix] llama float32 paged ({LLAMA_F32_LAYERS} layers): "
+          f"prefix_cache=4 == prefix_cache=0 "
           f"on all {len(bodies)} requests ({ties} by the tie rule); hits "
           f"{runs[4]['hits']}, prefill tokens computed "
           f"{runs[0]['prefill_tokens']} -> {runs[4]['prefill_tokens']}")
@@ -1938,9 +1951,11 @@ def phase_faults(model_f32, name="gpt2-medium"):
        the fault-free run, the paged prefix index is flushed, a new
        /prefill registers again and hits, and the same 8 requests after
        the restart capture no graph (the pools were reset in place).
-    Every mismatch raises (the tie rule for a float32 difference)."""
+    Every mismatch raises (the tie rule for a float32 difference).  At
+    ``F32_LAYERS`` layers of the model's own weights since PR 17."""
     import threading
 
+    model_f32 = _cut_draft(model_f32, name, F32_LAYERS)
     cfg = model_f32.cfg
     rng = np.random.RandomState(2)
     bodies = _mixed([{"prompt": rng.randint(0, cfg.vocab_size, n).tolist(),
@@ -2094,6 +2109,14 @@ def phase_faults(model_f32, name="gpt2-medium"):
 # -- speculative and beam decoding -------------------------------------------
 
 SPEC_K = 4
+# Depth of the float32 exactness checks that compare paths of one model
+# against each other (the cache off / on, int8 engine / solo, the spec
+# engine / solo): their result does not depend on the depth, and since
+# PR 17 they run at a cut of the model's own weights, for the script's
+# time (full depth until then).  The bf16 timings stay at full depth.
+F32_LAYERS = 6              # of GPT-2 medium's 24
+SPEC_F32_LAYERS = 8         # the spec target; its draft is a 4-layer cut
+LLAMA_F32_LAYERS = 4        # of TinyLlama's 22
 
 
 def _cut_draft(model, name: str, layers: int):
@@ -2347,7 +2370,9 @@ def phase_speculative(model, model_f32):
     round); K = 4.
 
     1. solo float32 ``generate_speculative`` == greedy ``generate`` with
-       both drafts (tie rule);
+       both drafts (tie rule); steps 1 and 2 on a float32 target cut to
+       ``SPEC_F32_LAYERS`` layers of its own weights (since PR 17, for
+       the script's time), the 4-layer draft cut from that;
     2. the float32 engine on the fixed-lane and the paged pool: 8
        requests (4 spec greedy, 2 spec sampled, 2 plain) each equal to
        its solo run, no graph captured after warm-up (``_spec_engine_
@@ -2370,6 +2395,7 @@ def phase_speculative(model, model_f32):
     rec = {}
     split = {}
     t0 = time.perf_counter()
+    model_f32 = _cut_draft(model_f32, "gpt2-medium", SPEC_F32_LAYERS)
     small_f32 = get_model("gpt2-small").init_params(
         seed=1, device="cuda", dtype=torch.float32)
     cut_f32 = _cut_draft(model_f32, "gpt2-medium", 4)
@@ -2389,7 +2415,8 @@ def phase_speculative(model, model_f32):
                               f"draft {label}", p, want, got, None)
                 ties += 1
     print(f"[spec] float32 solo greedy generate_speculative (K={SPEC_K}, "
-          f"64 new; prompt 64 with gpt2-small, 64 and 200 with the cut) =="
+          f"{SPEC_F32_LAYERS}-layer target, 64 new; prompt 64 with "
+          f"gpt2-small, 64 and 200 with the cut) =="
           f" greedy generate ({3 - ties} exactly, {ties} by the tie rule)")
     split["solo"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2414,7 +2441,7 @@ def phase_speculative(model, model_f32):
         pools=("fixed-lane",), warm_keys=())
     rec["engine_flash_launches"] = _counts()
     split["engine"] = time.perf_counter() - t0
-    del small_f32, cut_f32
+    del small_f32, cut_f32, model_f32
     _release()
     t0 = time.perf_counter()
     cut = _cut_draft(model, "gpt2-medium", 4)
@@ -2518,12 +2545,15 @@ def phase_beam(model_f32):
     32-token prompt: ``num_beams`` 4 over HTTP (the server's solo beam
     path) and ``generate --beams 4`` (the CLI's function) equal the
     port's ``generate_beam`` on the same weights moved to the CPU, and
-    ``num_beams`` 1 equals greedy ``generate``.  Returns the record."""
+    ``num_beams`` 1 equals greedy ``generate``.  At ``F32_LAYERS``
+    layers of the model's own weights since PR 17.  Returns the
+    record."""
     from polyaxon_tpu_torch.cli.main import run_generate
     from polyaxon_tpu_torch.models import generate as G
     from polyaxon_tpu_torch.models.registry import get_model
 
     t0 = time.perf_counter()
+    model_f32 = _cut_draft(model_f32, "gpt2-medium", F32_LAYERS)
     p = np.random.RandomState(13).randint(
         0, model_f32.cfg.vocab_size, 32).tolist()
     srv, ms, base = _serve(model_f32, "gpt2-medium")
@@ -2544,8 +2574,9 @@ def phase_beam(model_f32):
     cli = run_generate(model_f32, "gpt2-medium", [p], max_new_tokens=16,
                        beams=4)
     greedy = G.generate(model_f32, [p], max_new_tokens=16).tolist()
-    cpu = get_model("gpt2-medium").make_model(device="cpu",
-                                              dtype=torch.float32)
+    cpu = get_model("gpt2-medium").make_model(
+        device="cpu", dtype=torch.float32,
+        num_layers=model_f32.cfg.num_layers)
     cpu.load_state_dict(model_f32.state_dict())
     cpu.eval().requires_grad_(False)
     t1 = time.perf_counter()
@@ -2555,7 +2586,8 @@ def phase_beam(model_f32):
     del cpu
     ok = r4["tokens"] == want and cli["tokens"] == want \
         and r1["tokens"] == greedy
-    print(f"[beam] float32 num_beams=4, 16 new tokens, prompt 32: HTTP "
+    print(f"[beam] float32 ({F32_LAYERS} layers) num_beams=4, 16 new "
+          f"tokens, prompt 32: HTTP "
           f"(solo path, routing {routing!r}) {beam_s:.3f} s, generate "
           f"--beams 4 {cli['wall_s']} s, the CPU generate_beam "
           f"{cpu_s:.1f} s: HTTP {'==' if r4['tokens'] == want else '!='} "
@@ -2904,6 +2936,247 @@ def phase_train_timed(steps: int = 5):
     return rec
 
 
+MESH_STEPS = 3              # steps of each GPT-2 medium mesh run
+MESH_LR = 1e-4
+
+
+def _mesh_model(spec, weights, **over):
+    """A train-mode GPT-2 (float32 master weights) holding ``weights``."""
+    model = spec.make_model(device="cuda", param_dtype=torch.float32,
+                            **over).train()
+    model.load_state_dict(weights, strict=True)
+    return model
+
+
+def _mesh_run(spec, weights, batches, mesh, **over) -> dict:
+    """``MESH_STEPS`` AdamW steps of ``make_train_step`` over ``mesh``
+    (None: the group-less step) on the same weights and batches: losses,
+    the final full state, the flash launches and the ms of a step after
+    the first."""
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions, get_model_state_dict)
+
+    from polyaxon_tpu_torch.parallel import make_train_step
+    from polyaxon_tpu_torch.train import make_optimizer
+
+    model = _mesh_model(spec, weights, **over)
+    step = make_train_step(spec.loss_fn(model),
+                           make_optimizer("adamw", MESH_LR), mesh)
+    state = step.init_state(model)
+    losses, times = [], []
+    _zero_counts()
+    for batch in batches:
+        if mesh is not None:
+            batch = {k: step.batch_sharding.shard(v)
+                     for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))   # reads back: synced
+        times.append(time.perf_counter() - t0)
+    counts = _counts()
+    if mesh is None:
+        final = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    else:
+        final = get_model_state_dict(model, options=StateDictOptions(
+            full_state_dict=True))
+    sharded = sum(type(p).__name__ == "DTensor" for p in model.parameters())
+    rec = {"losses": losses, "final": final, "counts": counts,
+           "step_ms": float(np.mean(times[1:])) * 1e3, "sharded": sharded,
+           "grads": [p.grad for p in model.parameters()
+                     if p.grad is not None and
+                     type(p.grad).__name__ != "DTensor"]}
+    del state, step, model
+    return rec
+
+
+def _mesh_compare(label, got, want, rtol_loss, atol_param):
+    """Losses within ``rtol_loss``; every final parameter within
+    ``atol_param``; returns (max loss rel diff, max param diff, share of
+    elements exactly equal)."""
+    loss_d = max(abs(g - w) / abs(w) for g, w in zip(got["losses"],
+                                                     want["losses"]))
+    worst, same, total = 0.0, 0, 0
+    for name, w in want["final"].items():
+        g = got["final"][name].to(w.device)
+        d = (g.float() - w.float()).abs()
+        worst = max(worst, float(d.max()))
+        same += int((d == 0).sum())
+        total += d.numel()
+    if loss_d > rtol_loss or worst > atol_param or \
+            not all(np.isfinite(got["losses"])):
+        raise AssertionError(f"mesh {label}: losses {got['losses']} vs "
+                             f"{want['losses']} (rel {loss_d:.3g} > "
+                             f"{rtol_loss}?), params max |d| {worst:.3g} "
+                             f"(> {atol_param}?)")
+    return loss_d, worst, same / total
+
+
+def phase_mesh() -> dict:
+    """Processes and data parallelism on the card: a ONE-rank NCCL group
+    (NCCL places no two ranks on one GPU; gangs of several ranks are
+    held to the reference with gloo on the CPU) started through the
+    bootstrap's group-start function, as a gang's rank starts it.
+
+    1. ``check_slice_health`` over NCCL: 1 device healthy.
+    2. Each collective helper on the one-rank mesh against its
+       definition (the identity over one rank), and the raw NCCL
+       all-reduce, all-gather, reduce-scatter and all-to-all of the
+       helpers' autograd functions over the dp group (values, and the
+       all-reduce's gradient).
+    3. GPT-2 medium at full width, 8 x 1024 bf16 on float32 master
+       weights, 3 AdamW steps through the mesh ``TrainStep`` with
+       ``{dp: -1}`` (the bucketed NCCL gradient all-reduce) and
+       ``{dp: 1, fsdp: -1}`` (FSDP2 over the fsdp axis: the reference's
+       sharded leaves), each against the group-less ``TrainStep`` on the
+       same weights and batches: losses rtol 1e-3 and every parameter
+       within Adam's step bound, 2 lr a step (bf16 activations: a
+       reordered reduction can flip the sign of Adam's first update
+       where a gradient is near eps); a 2-layer float32 copy within 1e-5
+       relative on the losses and 1e-5 on the parameters; 24 launches
+       of each flash kernel a step, none fed a DTensor.
+    Prints ``[mesh]`` lines (step ms of the three runs, the all-reduce ms
+    of the gradient bytes, the card) and returns the flash launches of
+    the dp and fsdp runs."""
+    import socket
+
+    import torch.distributed as dist
+
+    from polyaxon_tpu_torch.models.registry import get_model
+    from polyaxon_tpu_torch.parallel import (MeshSpec, bootstrap,
+                                             build_mesh,
+                                             check_slice_health)
+    from polyaxon_tpu_torch.parallel import collectives as C
+    from polyaxon_tpu_torch.parallel.strategies import all_reduce_grads
+
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    backend = bootstrap.start_process_group(f"tcp://127.0.0.1:{port}", 1,
+                                            0, "cuda:0", timeout_s=120)
+    out = {}
+    try:
+        if backend != "nccl" or dist.get_backend() != "nccl":
+            raise AssertionError(f"mesh: backend {backend}, not nccl")
+        health = check_slice_health(timeout_s=60)
+        if not health.ok or health.n_devices != 1:
+            raise AssertionError(f"mesh: slice health {health}")
+        mesh = build_mesh(MeshSpec(dp=-1))
+        if not mesh.is_distributed or mesh.device != torch.device("cuda", 0):
+            raise AssertionError(f"mesh: {mesh}")
+        # 2. the helpers (identities over one rank) and the raw NCCL ops.
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(64, 32, device="cuda", generator=g)
+        group = mesh.group("dp")
+        helpers = {
+            "all_reduce": C.all_reduce(x, ("dp", "fsdp"), mesh=mesh),
+            "all_reduce_mean": C.all_reduce_mean(x, "dp", mesh=mesh),
+            "reduce_scatter": C.reduce_scatter(x, "fsdp", mesh=mesh),
+            "all_gather": C.all_gather(x, "fsdp", mesh=mesh),
+            "all_to_all": C.all_to_all(x, "dp", split_dim=1,
+                                       concat_dim=0, mesh=mesh),
+            "ring_permute": C.ring_permute(x, "fsdp", mesh=mesh),
+            "hierarchical_all_reduce": C.hierarchical_all_reduce(
+                x, mesh=mesh)}
+        raw = {"nccl all_reduce": C._AllReduce.apply(x, group),
+               "nccl all_gather": C._AllGather.apply(x, group, 1, 0),
+               "nccl reduce_scatter": C._ReduceScatter.apply(x, group, 1,
+                                                             1),
+               "nccl all_to_all": C._AllToAll.apply(x, group, 1, 1, 0)}
+        t = x.clone().requires_grad_(True)
+        (C._AllReduce.apply(t, group) * x).sum().backward()
+        raw["nccl all_reduce grad"] = t.grad      # d/dt sum(t x) = x
+        bad = [k for k, v in {**helpers, **raw}.items()
+               if not torch.equal(v, x)]
+        if bad:
+            raise AssertionError(f"mesh: collectives != definition: {bad}")
+        print(f"[mesh] one-rank NCCL group via "
+              f"bootstrap.start_process_group: {health.detail} in "
+              f"{health.latency_s * 1e3:.1f} ms; {len(helpers)} collective "
+              f"helpers == their one-rank definition; raw NCCL all-reduce "
+              f"(value, gradient), all-gather, reduce-scatter, all-to-all "
+              f"== definition")
+        # 3. GPT-2 medium at full width.
+        spec = get_model("gpt2-medium")
+        weights = {k: v.detach().clone() for k, v in spec.init_params(
+            seed=0, device="cuda", train=True).state_dict().items()}
+        batches = [{"inputs": torch.as_tensor(np.random.RandomState(
+            i).randint(0, 50257, (8, 1024)), device="cuda")}
+            for i in range(MESH_STEPS)]
+        runs = {"group-less": _mesh_run(spec, weights, batches, None)}
+        _release()
+        strategies = {"dp": {"dp": -1}, "fsdp": {"dp": 1, "fsdp": -1}}
+        for label, axes in strategies.items():
+            runs[label] = _mesh_run(spec, weights, batches,
+                                    build_mesh(MeshSpec.from_dict(axes)))
+            _release()
+        bound = 2 * MESH_LR * MESH_STEPS
+        cmp_ = {label: _mesh_compare(label, runs[label],
+                                     runs["group-less"], 1e-3, bound)
+                for label in strategies}
+        for label, rec in runs.items():
+            _check_per_step(rec["counts"], MESH_STEPS, 24, f"mesh {label}")
+        if runs["fsdp"]["sharded"] < 1 or runs["dp"]["sharded"]:
+            raise AssertionError(f"mesh: sharded parameters dp "
+                                 f"{runs['dp']['sharded']}, fsdp "
+                                 f"{runs['fsdp']['sharded']}")
+        # The gradient all-reduce alone, on the dp run's gradient bytes.
+        grads = runs["dp"]["grads"]
+        nbytes = sum(g.numel() * g.element_size() for g in grads)
+        start, end = _events()
+        dp_mesh = build_mesh(MeshSpec(dp=-1))
+        all_reduce_grads(grads, dp_mesh)       # warm
+        start.record()
+        for _ in range(3):
+            all_reduce_grads(grads, dp_mesh)
+        end.record()
+        torch.cuda.synchronize()
+        ar_ms = start.elapsed_time(end) / 3
+        n_grads = len(grads)
+        del runs["dp"]["grads"], runs["fsdp"]["grads"], grads
+        # The same three runs on a 2-layer float32 copy: held tight.
+        f32 = {k: v for k, v in weights.items()
+               if not k.startswith("h.") or int(k.split(".")[1]) < 2}
+        small = {"group-less": _mesh_run(spec, f32, batches, None,
+                                         num_layers=2,
+                                         dtype=torch.float32)}
+        for label, axes in strategies.items():
+            small[label] = _mesh_run(spec, f32, batches,
+                                     build_mesh(MeshSpec.from_dict(axes)),
+                                     num_layers=2, dtype=torch.float32)
+        cmp32 = {label: _mesh_compare(f"{label} float32", small[label],
+                                      small["group-less"], 1e-5, 1e-5)
+                 for label in strategies}
+        card = card_line()
+        print(f"[mesh] gpt2-medium 8 x 1024 bf16 (f32 master weights, "
+              f"AdamW lr {MESH_LR}), {MESH_STEPS} steps each, step ms "
+              f"(after the first): group-less "
+              f"{runs['group-less']['step_ms']:.2f}, dp "
+              f"{runs['dp']['step_ms']:.2f}, fsdp "
+              f"{runs['fsdp']['step_ms']:.2f}; gradient all-reduce "
+              f"{ar_ms:.3f} ms for {nbytes / 1e9:.3f} GB (one rank, "
+              f"{n_grads} tensors in 25 MiB buckets); {card}")
+        print(f"[mesh] vs group-less: " + "; ".join(
+            f"{k} loss rel {c[0]:.2e}, params max |d| {c[1]:.2e} "
+            f"({c[2]:.4f} of elements equal)" for k, c in cmp_.items())
+            + f" (bound {bound:.0e}); 2-layer float32: " + "; ".join(
+                f"{k} loss rel {c[0]:.2e}, params max |d| {c[1]:.2e}"
+                for k, c in cmp32.items())
+            + f"; fsdp sharded {runs['fsdp']['sharded']} parameters; "
+              f"flash launches a step 24 / 24 / 24 in each run")
+        out = {"step_ms": {k: r["step_ms"] for k, r in runs.items()},
+               "all_reduce_ms": ar_ms, "grad_bytes": nbytes,
+               "flash_launches": {"mesh_dp_step": runs["dp"]["counts"],
+                                  "mesh_fsdp_step": runs["fsdp"]["counts"]}}
+        del runs, small, weights
+    finally:
+        bootstrap.shutdown()
+        _release()
+    print(f"[time] mesh: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def _grads(model, tokens, loss_fn):
     model.zero_grad(set_to_none=True)
     loss, _ = loss_fn({"inputs": tokens})
@@ -3224,14 +3497,42 @@ def phase_zoo():
     (b) ResNet-50, (c) ``run -f mnist.yaml``.  (d) ``--init-hf`` and
     (e) a named remat policy ride TinyLlama's phases
     (``phase_train_entry(..., init_hf_from=...)``, ``phase_zoo_remat``).
-    Returns the records."""
-    recs = {}
-    for label, fn in (("bert-base", _zoo_bert), ("resnet50", _zoo_resnet),
-                      ("mnist run -f", _zoo_mnist)):
+    Returns the records; (c) is still running in its own process (since
+    PR 17, for the script's time: it trains an MLP, mostly process
+    start-up), its record a handle for ``_finish_mnist``."""
+    recs = {"mnist run -f": _start_mnist()}
+    for label, fn in (("bert-base", _zoo_bert), ("resnet50", _zoo_resnet)):
         t0 = time.perf_counter()
         recs[label] = fn()
         print(f"[time] zoo: {label} {time.perf_counter() - t0:.1f} s")
     return recs
+
+
+def _start_mnist() -> dict:
+    """``_zoo_mnist`` on a thread: a handle for ``_finish_mnist``."""
+    import threading
+
+    box = {"t0": time.perf_counter()}
+
+    def run():
+        try:
+            box["rec"] = _zoo_mnist()
+        except BaseException as e:  # noqa: BLE001 - re-raised by finish
+            box["error"] = e
+        box["secs"] = time.perf_counter() - box["t0"]
+
+    box["thread"] = threading.Thread(target=run, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def _finish_mnist(box: dict) -> dict:
+    box["thread"].join()
+    if "error" in box:
+        raise box["error"]
+    print(f"[time] zoo: mnist run -f {box['secs']:.1f} s, beside the "
+          f"in-process zoo phases")
+    return box["rec"]
 
 
 def phase_zoo_remat(state_dict, full, steps: int = 3):
@@ -3742,7 +4043,8 @@ def phase_llama_serving(model, model_f32):
     t0 = time.perf_counter()
     # 6 requests (12 before the zoo's phases joined), for the
     # script's time.
-    _f32_schedule(model_f32, LLAMA, tag="llama", pools=("paged",), n=6)
+    _f32_schedule(_cut_draft(model_f32, LLAMA, LLAMA_F32_LAYERS), LLAMA,
+                  tag="llama", pools=("paged",), n=6)
     print(f"[time] llama: float32 schedules {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # No profiled eager window, to bound the script's time (PERF.md
@@ -4158,16 +4460,15 @@ def _int8_f32_check(model_f32, name: str) -> dict:
     registered by ``prefill_prompt`` (a radix hit) and one speculative
     (K = 4, the draft a 4-layer cut, also int8), through ``ModelServer``
     on the fixed-lane and the paged pool, each equal to its solo run
-    under the tie rule.  Returns the flash launches of the engine
-    runs."""
-    import copy
-
+    under the tie rule; at ``F32_LAYERS`` layers.  Returns the flash
+    launches of the engine runs."""
     from polyaxon_tpu_torch.models import generate as G
     from polyaxon_tpu_torch.ops.quant import quantize_params
     from polyaxon_tpu_torch.serving import ModelServer
 
-    qf = quantize_params(copy.deepcopy(model_f32))
+    model_f32 = _cut_draft(model_f32, name, F32_LAYERS)
     draft = quantize_params(_cut_draft(model_f32, name, 4))
+    qf = quantize_params(model_f32)
     vocab = model_f32.cfg.vocab_size
     rng = np.random.RandomState(11)
     # 4 plain prompts (6 before the zoo's phases joined), for the
@@ -4215,7 +4516,8 @@ def _int8_f32_check(model_f32, name: str) -> dict:
                     got[len(prompts)].get("prefix_hit_len") != 64:
                 raise AssertionError(f"int8 {label}: no prefix hit "
                                      f"({info['prefix_hits']})")
-            print(f"[int8] float32 --int8-weights --int8-kv, {label} pool: "
+            print(f"[int8] float32 --int8-weights --int8-kv, {label} pool "
+                  f"({F32_LAYERS} layers): "
                   f"{len(bodies)} concurrent requests "
                   f"({len(prompts) // 2} sampled, 1 on a 64-token "
                   f"prefix hit, 1 speculative with an int8 4-layer draft) "
@@ -5007,8 +5309,9 @@ def phase_fleet(model, model_f32, name="gpt2-medium"):
 PROFILE_EVERY = 16          # recorder period, decode dispatches
 PROFILE_STEPS = 8           # dispatches a recorder window profiles
 MERGE_PROMPT = 256          # the coalescer's merge load: prompt tokens
-MERGE_NEW = 16              # and new tokens of each of its 8 requests
-MODES_MIXED = 8             # the batching A/B's mixed load: requests
+MERGE_NEW = 16              # and new tokens of each of its requests
+MERGE_N = 4                 # the merge load's requests (8 until PR 17)
+MODES_MIXED = 4             # the batching A/B's mixed load (8 until PR 17)
 
 
 def _trace_busy(events) -> tuple:
@@ -5290,9 +5593,10 @@ def phase_profiling(model, model_f32, name="gpt2-medium"):
     4. legacy coalescing: in float32, 8 greedy requests of one prompt
        length under ``batching="coalesce"`` and ``"off"`` == solo
        ``generate`` (coalesced_batches >= 1); in bf16 tok/s and TTFT
-       under continuous, coalesce and off of the mixed load's first 8
-       requests and of a load the coalescer can merge (8 greedy
-       requests of 256 prompt tokens, 16 new; coalesced_batches >= 1).
+       under continuous, coalesce and off of the mixed load's first 4
+       requests and of a load the coalescer can merge (4 greedy
+       requests of 256 prompt tokens, 16 new; coalesced_batches >= 1;
+       8 and 8 until PR 17, for the script's time).
     ``serve --profile-dir --profile-every --trace-file`` as a process is
     left to ``tests/test_torch_profiling.py`` on the CPU, for the
     script's time.  Returns the records with the flash launches of each
@@ -5307,11 +5611,11 @@ def phase_profiling(model, model_f32, name="gpt2-medium"):
                                             n).tolist(),
                       "max_new_tokens": 64}
                      for n in rng.randint(64, 513, 16)])
-    # The load the coalescer can merge: 8 greedy requests of one prompt
-    # length and budget.
+    # The load the coalescer can merge: MERGE_N greedy requests of one
+    # prompt length and budget.
     merge = [{"prompt": p, "max_new_tokens": MERGE_NEW}
              for p in np.random.RandomState(1).randint(
-                 0, model.cfg.vocab_size, (8, MERGE_PROMPT)).tolist()]
+                 0, model.cfg.vocab_size, (MERGE_N, MERGE_PROMPT)).tolist()]
     try:
         for pool, kw, path in (("fixed-lane", {}, "profiling_http"),
                                ("paged", {"kv_paged": True},
@@ -5429,9 +5733,9 @@ def phase_profiling(model, model_f32, name="gpt2-medium"):
         # mixed load (distinct prompt lengths, half sampled: nothing
         # merges) and on the merge load (one shape, all greedy).
         t0 = time.perf_counter()
-        # For the script's time the three modes take the first 8 of the
-        # mixed load's 16 requests (the serialized modes took 29-32 s a
-        # mode at 16, 13.8-15.8 s at 8).
+        # For the script's time the three modes take the first
+        # MODES_MIXED of the mixed load's 16 requests (the serialized
+        # modes took 29-32 s a mode at 16, 13.8-15.8 s at 8).
         out["modes"] = {**modes, **{
             mode: _mode_load(model, mode, {"mixed": bodies[:MODES_MIXED],
                                            "merge": merge})
@@ -5739,11 +6043,13 @@ def _gone(pid: int) -> bool:
         return True
 
 
-def _run_service(env, store, home):
+def _run_service(env, store, home, free_before, settle):
     """The ``service``: ``serve`` of GPT-2 medium on a free port; 4 greedy
     requests one at a time == an in-process ``ModelServer`` with the same
     flags and seed; ``ops stop`` reaps it and the card's memory comes
-    back.  Returns the flash launches the service process made for those
+    back to ``free_before`` (taken before anything of ``phase_run``
+    started; ``settle()`` first waits for the job running beside it).
+    Returns the flash launches the service process made for those
     requests, read from its ``/metrics`` before and after them."""
     import socket
 
@@ -5758,8 +6064,6 @@ def _run_service(env, store, home):
     with open(preset, "w") as f:  # JSON is YAML
         json.dump({"isPreset": True, "params": {"port": {"value": port}},
                    "component": {"run": {"ports": [port]}}}, f)
-    _release()
-    free_before = torch.cuda.mem_get_info()[0]
     rc, out, ready = _ptpu(env, "run", "-f",
                            os.path.join(EXAMPLES, "serving.yaml"),
                            "--preset", preset)
@@ -5787,6 +6091,7 @@ def _run_service(env, store, home):
     if rc_stop != 0 or "reaped" not in out_stop or not _gone(pid):
         raise AssertionError(f"ops stop: exit {rc_stop}: {out_stop}; "
                              f"process {pid} gone: {_gone(pid)}")
+    settle()
     deadline = time.time() + 30
     while time.time() < deadline:
         back = torch.cuda.mem_get_info()[0]
@@ -5824,19 +6129,45 @@ def phase_run(train_secs: float):
     training, tracked and profiled) and the GPT-2 medium ``service``;
     each result read back through the port's store.  Returns the flash
     launches by path.  The ConvNet sweep is ``_start_sweep`` /
-    ``_finish_sweep``."""
+    ``_finish_sweep``.  For the script's time the job runs beside the
+    service (its process trains while the service's starts; both sequential
+    until PR 17), so the job's step times and wall are taken under that
+    load."""
+    import threading
+
     from polyaxon_tpu_torch.client import FileRunStore
 
     with tempfile.TemporaryDirectory() as home:
         env = _cli_env(home)
         store = FileRunStore(home)
+        _release()
+        free_before = torch.cuda.mem_get_info()[0]
         t0 = time.perf_counter()
-        job = _run_job(env, store, train_secs)
-        print(f"[time] run: job {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        service = _run_service(env, store, home)
-        print(f"[time] run: service {time.perf_counter() - t0:.1f} s")
-    return {"run_job": job, "run_service": service}
+        job = {}
+
+        def run_job():
+            try:
+                job["launches"] = _run_job(env, store, train_secs)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                job["error"] = e
+            job["secs"] = time.perf_counter() - t0
+
+        thread = threading.Thread(target=run_job, daemon=True)
+        thread.start()
+
+        def settle():
+            thread.join()
+            if "error" in job:
+                raise job["error"]
+
+        try:
+            service = _run_service(env, store, home, free_before, settle)
+        finally:
+            thread.join()
+        settle()
+        print(f"[time] run: job {job['secs']:.1f} s beside the service, "
+              f"both {time.perf_counter() - t0:.1f} s")
+    return {"run_job": job["launches"], "run_service": service}
 
 
 KERNELS = {
@@ -5924,13 +6255,19 @@ def main(argv=None) -> int:
     phase_train_timed()
     mark("timed training")
     _release()
+    mesh = phase_mesh()
+    mark("mesh: one-rank NCCL group, dp and fsdp steps")
+    _release()
     phase_grad_route()
     mark("gradient route check")
     _release()
     zoo = phase_zoo()
-    mark("zoo: bert-base, resnet50, mnist run -f")
-    zoo_rest = phase_zoo_rest()
-    mark("zoo rest: moe-gpt-small, t5-small, vit-base, --init-hf")
+    try:
+        zoo_rest = phase_zoo_rest()
+    finally:
+        zoo["mnist run -f"] = _finish_mnist(zoo["mnist run -f"])
+    mark("zoo: bert-base, resnet50, moe-gpt-small, t5-small, vit-base, "
+         "--init-hf, and beside them mnist run -f")
     model, model_f32 = llama_models()
     mark("llama init")
     llama_forward = phase_forward(model, model_f32, LLAMA, 2048,
@@ -6002,6 +6339,7 @@ def main(argv=None) -> int:
                 "beam_http_and_cli": beam["flash_launches"][name],
                 "llama_speculative": llama_spec[name],
                 "train_main": train_counts[name],
+                **{k: v[name] for k, v in mesh["flash_launches"].items()},
                 "run_job": run_counts["run_job"][name],
                 "run_service": run_counts["run_service"][name],
                 "llama_forward": llama_forward[name],

@@ -12,7 +12,16 @@ Port of ``polyaxon_tpu/checkpoint.py`` (Orbax there):
 - ``restore_or_init``: the latest step wins, an empty directory starts
   fresh; a restore loads into the live state's model and optimizer;
 - preemption: SIGTERM sets ``preempt_requested`` and the training loop
-  saves the state after the step in flight and exits.
+  saves the state after the step in flight and exits;
+- a gang (a process group is up) saves collectively: every rank joins,
+  an FSDP-sharded model and its optimizer state are gathered into one
+  full state (``torch.distributed.checkpoint.state_dict`` with
+  ``full_state_dict=True``) and the chief (rank 0) writes it, in the
+  layout a one-process run writes, so one process, or ``serve
+  --checkpoint``, restores what a gang wrote and a gang restores on
+  every rank what one process wrote.  SIGTERM at any rank stops every
+  rank after the same step (``preemption_agreed``, a vote on the gang's
+  host-side group).
 
 Layout: ``<run outputs>/checkpoints/<step>/`` for a run named by
 ``POLYAXON_TPU_RUN_UUID`` (under ``POLYAXON_TPU_HOME``), else
@@ -54,7 +63,12 @@ def _to_host(state: Any) -> Any:
 def _load_into(template: Any, saved: Any) -> Any:
     """``saved`` loaded into ``template``'s live objects: a module or
     optimizer loads its state dict in place; dicts recurse; anything else
-    is replaced by the saved value."""
+    is replaced by the saved value.  A train state whose model FSDP
+    shards loads the full state into its shards."""
+    if _is_sharded_state(template):
+        _load_sharded(template, saved)
+        return {k: template[k] if k in ("params", "opt_state")
+                else saved[k] for k in saved}
     if hasattr(template, "load_state_dict"):
         template.load_state_dict(saved)
         return template
@@ -62,6 +76,80 @@ def _load_into(template: Any, saved: Any) -> Any:
         return {k: _load_into(template[k], saved[k]) if k in template
                 else saved[k] for k in saved}
     return saved
+
+
+def _gang():
+    """(rank, world) of this process's group; (0, 1) with none."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _is_sharded_state(state: Any) -> bool:
+    """A train state ({params, opt_state, ...}) whose model FSDP
+    shards."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(state, dict) and \
+        isinstance(state.get("params"), FSDPModule)
+
+
+def _param_names(model) -> list:
+    """The trainable parameters' names, in the order a one-process
+    optimizer indexes them (``TrainStep.init_state``)."""
+    return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
+def _sharded_to_host(state: dict) -> dict:
+    """Collective: the full state of an FSDP train state, on the chief's
+    host (other ranks get empty dicts), the optimizer state indexed as a
+    one-process optimizer's ``state_dict`` indexes it."""
+    from torch.distributed.checkpoint.state_dict import (StateDictOptions,
+                                                         get_state_dict)
+
+    model, opt = state["params"], state["opt_state"]
+    msd, osd = get_state_dict(model, opt, options=StateDictOptions(
+        full_state_dict=True, cpu_offload=True))
+    index = {n: i for i, n in enumerate(_param_names(model))}
+    if osd:
+        # The train step's groups (sharded, replicated) share their
+        # hyperparameters: one group, as a one-process optimizer holds.
+        groups = osd["param_groups"]
+        hyper = {k: v for k, v in groups[0].items() if k != "params"}
+        if any({k: v for k, v in g.items() if k != "params"} != hyper
+               for g in groups):
+            raise ValueError("checkpoint: optimizer groups differ in "
+                             "hyperparameters")
+        osd = {"state": {index[k]: v for k, v in osd["state"].items()},
+               "param_groups": [{**hyper, "params": sorted(
+                   index[n] for g in groups for n in g["params"])}]}
+    out = _to_host({k: v for k, v in state.items()
+                    if k not in ("params", "opt_state")})
+    out.update(params=msd, opt_state=osd)
+    return out
+
+
+def _load_sharded(state: dict, saved: dict) -> None:
+    """Load a full saved state (every rank holds it) into an FSDP train
+    state's shards."""
+    from torch.distributed.checkpoint.state_dict import (StateDictOptions,
+                                                         set_state_dict)
+
+    model, opt = state["params"], state["opt_state"]
+    names = _param_names(model)
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    osd = saved["opt_state"]
+    hyper = {k: v for k, v in osd["param_groups"][0].items()
+             if k != "params"}
+    osd = {"state": {names[i]: v for i, v in osd["state"].items()},
+           "param_groups": [{**hyper, "params": [name_of[id(p)]
+                                                 for p in g["params"]]}
+                            for g in opt.param_groups]}
+    set_state_dict(model, opt, model_state_dict=saved["params"],
+                   optim_state_dict=osd,
+                   options=StateDictOptions(full_state_dict=True))
 
 
 class CheckpointManager:
@@ -74,6 +162,10 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
+        # The steps on disk as every rank of a gang agrees on them: the
+        # chief's write of a step may still be in flight when another
+        # rank asks, so a gang never decides from a listing.
+        self._steps = set(self.all_steps())
         # Set by the SIGTERM hook; the training loop polls it and saves
         # cooperatively after the step in flight.
         self.preempt_requested = False
@@ -90,9 +182,16 @@ class CheckpointManager:
         step)."""
         step = int(step)
         self.wait()  # one write in flight at a time, in step order
-        if step in self.all_steps():
+        rank, world = _gang()
+        if step in (self._steps if world > 1 else self.all_steps()):
             return False
-        payload = {"state": _to_host(state)}
+        self._steps.add(step)
+        # Collective for a sharded model: every rank gathers.
+        host = _sharded_to_host(state) if _is_sharded_state(state) \
+            else state
+        if rank != 0:
+            return False  # the chief writes the one full state
+        payload = {"state": _to_host(host)}
         self._writer = threading.Thread(
             target=self._write, args=(step, payload), daemon=True)
         self._writer.start()
@@ -156,6 +255,22 @@ class CheckpointManager:
         self.wait()
 
     # -- preemption ------------------------------------------------------
+
+    def preemption_agreed(self) -> bool:
+        """Whether to save and stop after this step: this process's
+        SIGTERM flag, or in a gang any rank's (a MAX vote on the gang's
+        host-side group, so every rank stops after the same step)."""
+        from .parallel import bootstrap
+
+        group = bootstrap.control_group()
+        if group is None:
+            return self.preempt_requested
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(self.preempt_requested)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        self.preempt_requested = bool(flag.item())
+        return self.preempt_requested
 
     def install_preemption_hook(self) -> None:
         """SIGTERM -> a save at the next step boundary.

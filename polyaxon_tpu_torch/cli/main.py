@@ -368,7 +368,7 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
 # slices, kept at the reference's defaults and refused by name when
 # set: (option, default, ROADMAP item).
 _SERVE_NOT_PORTED = (
-    ("--mesh", None, "parallelism and meshes"),
+    ("--mesh", None, "Parallelism and meshes"),
 )
 
 

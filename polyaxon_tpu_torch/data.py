@@ -433,17 +433,25 @@ class SpanCorruptionDataset(_EpochIterable):
 
 
 def prefetch_to_device(batches: Iterator[Dict[str, np.ndarray]],
-                       device=None, *, depth: int = 2
+                       sharding=None, *, depth: int = 2
                        ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Stage upcoming batches onto ``device`` from a background thread.
+    """Stage upcoming batches onto a device from a background thread.
 
-    Each array becomes a tensor; for a CUDA device it is copied into
-    pinned host memory and sent with ``non_blocking=True``, so the copy
-    of batch t+1 overlaps the compute of batch t (the copy is queued on
-    the current stream before the batch is handed over, so stream order
-    keeps the consumer behind it).  ``depth`` bounds the staged batches.
-    ``device=None`` or a CPU device yields CPU tensors.
+    ``sharding``: a device, or a ``parallel.mesh.DataSharding`` (the
+    train step's ``batch_sharding``).  Every rank of a data-parallel
+    gang builds the same global host batch from the seed, as the
+    reference's processes do; with a sharding each rank keeps its rows
+    and moves only those (a global batch that does not divide over the
+    data axes raises).  Each array becomes a tensor; for a CUDA device
+    it is copied into pinned host memory and sent with
+    ``non_blocking=True``, so the copy of batch t+1 overlaps the compute
+    of batch t (the copy is queued on the current stream before the
+    batch is handed over, so stream order keeps the consumer behind it).
+    ``depth`` bounds the staged batches.  ``None`` or a CPU device
+    yields CPU tensors.
     """
+    rows = getattr(sharding, "shard", None)
+    device = getattr(sharding, "device", sharding)
     device = torch.device("cpu" if device is None else device)
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     _END = object()
@@ -451,6 +459,8 @@ def prefetch_to_device(batches: Iterator[Dict[str, np.ndarray]],
     def stage(batch):
         out = {}
         for key, value in batch.items():
+            if rows is not None:
+                value = rows(value)
             t = torch.from_numpy(np.ascontiguousarray(value))
             if device.type == "cuda":
                 t = t.pin_memory().to(device, non_blocking=True)

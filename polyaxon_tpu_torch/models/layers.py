@@ -138,9 +138,7 @@ class BatchNorm(nn.Module):
     def forward(self, x, train: bool):
         x = x.float()
         if train:
-            mean = x.mean((0, 2, 3))
-            var = torch.clamp_min(x.square().mean((0, 2, 3))
-                                  - mean.square(), 0.0)
+            mean, var = self._batch_moments(x)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean, alpha=1 - m)
@@ -151,6 +149,26 @@ class BatchNorm(nn.Module):
         y = (x - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
         return y.to(self.dtype)
+
+    @staticmethod
+    def _batch_moments(x):
+        """The batch's channel mean and biased variance.  Over a data
+        parallel mesh (the ambient mesh of the train step) they are the
+        GLOBAL batch's, as the reference's mean over a batch-sharded
+        axis is: each rank's sum and sum of squares are all-reduced over
+        the data axes (differentiably) before ``mean(x^2) - mean^2``, so
+        the running averages agree on every rank."""
+        from ..parallel.collectives import data_all_reduce, data_shard
+
+        count = data_shard()[1]
+        if count == 1:
+            mean = x.mean((0, 2, 3))
+            return mean, torch.clamp_min(x.square().mean((0, 2, 3))
+                                         - mean.square(), 0.0)
+        n = x.numel() // x.shape[1] * count
+        sums = data_all_reduce(torch.stack(
+            [x.sum((0, 2, 3)), x.square().sum((0, 2, 3))])) / n
+        return sums[0], torch.clamp_min(sums[1] - sums[0].square(), 0.0)
 
 
 def batch_stats(model: nn.Module) -> list:

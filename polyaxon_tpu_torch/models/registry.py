@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import default_device, prng
+from ..parallel.collectives import (data_all_reduce, data_all_reduce_mean,
+                                    data_shard)
 from .bert import BertConfig, BertModel
 from .convnet import ConvNet, ConvNetConfig
 from .gpt2 import GPT2Config, GPT2Model
@@ -102,8 +104,14 @@ def _lm_loss(model):
     def loss(batch, rng=None):
         tokens = torch.as_tensor(batch["inputs"], device=model.device)
         logits = model(tokens, train=True)
+        # A mean over this rank's rows.  Every data rank holds as many
+        # rows of the same length, so the mean of the ranks' means (the
+        # train step's metric, and its mean of their gradients) is the
+        # global batch's mean: no global sum is needed here.  The
+        # perplexity is of that global mean.
         l = softmax_xent(logits[:, :-1], tokens[:, 1:])
-        return l, {"perplexity": torch.exp(l.detach())}
+        return l, {"perplexity": torch.exp(
+            data_all_reduce_mean(l.detach()))}
     return loss
 
 
@@ -132,7 +140,7 @@ def _moe_lm_loss(model):
         logits, aux = model(tokens, train=True)
         lm = softmax_xent(logits[:, :-1], tokens[:, 1:])
         return lm + aux_weight * aux, {
-            "perplexity": torch.exp(lm.detach()),
+            "perplexity": torch.exp(data_all_reduce_mean(lm.detach())),
             "aux_loss": aux.detach()}
     return loss
 
@@ -141,7 +149,9 @@ def _seq2seq_loss(model):
     """Teacher-forced seq2seq cross-entropy: the decoder reads the
     shift-right of ``labels`` (``inputs`` when the batch has none, the
     synthetic batch's self-target).  ``enc_mask`` hides encoder padding;
-    ``target_mask`` drops padded targets from the mean."""
+    ``target_mask`` drops padded targets from the mean: the global
+    batch's, its masked sum and count all-reduced over the data axes of
+    a data-parallel mesh."""
     def loss(batch, rng=None):
         dev = model.device
         src = torch.as_tensor(batch["inputs"], device=dev)
@@ -154,15 +164,18 @@ def _seq2seq_loss(model):
                        enc_mask=enc_mask, train=True)
         mask = batch.get("target_mask")
         if mask is None:
+            # A mean over equal shards: global as the ranks' mean.
             l = softmax_xent(logits, tgt)
+            global_l = data_all_reduce_mean(l.detach())
         else:
             mask = torch.as_tensor(mask, device=dev).bool()
             per_tok = F.cross_entropy(
                 logits.reshape(-1, logits.shape[-1]), tgt.reshape(-1),
                 reduction="none").view(tgt.shape)
-            l = torch.where(mask, per_tok, 0.0).sum() / \
-                mask.sum().clamp_min(1)
-        return l, {"perplexity": torch.exp(l.detach())}
+            l = data_all_reduce(torch.where(mask, per_tok, 0.0).sum()) / \
+                data_all_reduce(mask.sum()).clamp_min(1)
+            global_l = l.detach()
+        return l, {"perplexity": torch.exp(global_l)}
     return loss
 
 
@@ -171,18 +184,29 @@ def _mlm_loss(model, mask_rate: float = 0.15, mask_id: int = 0):
     reference's MLM objective.  ``bernoulli(rng, 0.15)`` picks the
     masked positions bit for bit as ``jax.random.bernoulli`` (key
     ``PRNGKey(0)`` without an rng), they read ``mask_id``, and the loss
-    is the cross-entropy at the masked positions over their count."""
+    is the cross-entropy at the masked positions over their count.
+
+    Over a data-parallel mesh (the train step's ambient mesh) the batch
+    is this rank's rows of the global batch: the bits are drawn over the
+    GLOBAL batch's shape and the rank keeps its rows, so they are the
+    reference's bit for bit, and the masked sum and the count
+    (``masked_tokens``) are all-reduced over the data axes: every rank's
+    loss is the global one."""
     def loss(batch, rng=None):
         tokens = torch.as_tensor(batch["inputs"], device=model.device)
         key = rng if rng is not None else prng.PRNGKey(0)
+        index, count = data_shard()
+        rows = tokens.shape[0]
         mask = prng.bernoulli(key.to(tokens.device), mask_rate,
-                              tokens.shape)
+                              (rows * count,) + tuple(tokens.shape[1:]))
+        mask = mask[index * rows:(index + 1) * rows]
         logits = model(torch.where(mask, mask_id, tokens), train=True)
         per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                   tokens.reshape(-1).long(),
                                   reduction="none").view(tokens.shape)
-        count = mask.sum()
-        l = torch.where(mask, per_tok, 0.0).sum() / count.clamp_min(1)
+        count = data_all_reduce(mask.sum())
+        l = data_all_reduce(torch.where(mask, per_tok, 0.0).sum()) / \
+            count.clamp_min(1)
         return l, {"masked_tokens": count.detach()}
     return loss
 

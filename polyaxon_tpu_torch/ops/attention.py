@@ -4,7 +4,7 @@ PyTorch elsewhere.
 Port of ``polyaxon_tpu/ops/attention.py``.  Input convention: q/k/v are
 [batch, seq, heads, head_dim] (BSHD).  The plain path accumulates in f32
 whatever the input type.  The sequence-parallel route (ring / Ulysses)
-comes with the parallelism slice.
+comes with a later slice (ROADMAP Queue 1: Parallelism and meshes).
 """
 
 from __future__ import annotations

@@ -194,6 +194,12 @@ def _entry(source: str, name: str, argtypes):
 
 
 def _check_kernel_inputs(q, k, v) -> None:
+    if any(type(t).__name__ == "DTensor" for t in (q, k, v)):
+        # The kernel reads raw device pointers: a sharded DTensor would
+        # hand it one shard.  FSDP gathers a block's parameters before
+        # its forward, so attention sees rank-local tensors.
+        raise TypeError("flash kernel takes rank-local tensors; got a "
+                        "DTensor")
     b, _, h, d = q.shape
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash kernel takes float32, bfloat16 or "

@@ -1,5 +1,54 @@
-"""Training steps (one device; meshes come with the parallelism slice)."""
+"""The distributed runtime: processes, meshes and the train step.
 
-from .strategies import TrainStep, make_train_step
+Port of ``polyaxon_tpu/parallel``:
 
-__all__ = ["TrainStep", "make_train_step"]
+- ``bootstrap``:   ``torch.distributed`` from the injected PTPU_* env.
+- ``mesh``:        mesh construction (the six named axes over the ranks)
+                   and the batch's row sharding.
+- ``collectives``: differentiable collectives over mesh axes.
+- ``health``:      the slice health probe.
+- ``constraints``: the ambient mesh.
+- ``strategies``:  the train step on one device, dp and fsdp.
+- ``moe``:         switch routing (``moe_layer`` refused).
+
+Tensor, expert, sequence and pipeline parallelism come with later slices
+(ROADMAP Queue 1: Parallelism and meshes).
+"""
+
+from .bootstrap import initialize_from_env, topology_from_env
+from .collectives import (
+    all_gather,
+    all_reduce,
+    all_reduce_mean,
+    all_to_all,
+    hierarchical_all_reduce,
+    reduce_scatter,
+    ring_permute,
+)
+from .constraints import BATCH, ambient_mesh, constrain, current_mesh
+from .health import SliceHealth, check_slice_health
+from .mesh import (
+    MeshSpec,
+    build_mesh,
+    data_sharding,
+    local_mesh,
+    replicate_sharding,
+)
+from .moe import moe_layer, top1_dispatch
+from .strategies import (
+    TrainStep,
+    make_param_placements,
+    make_train_step,
+    param_placement,
+)
+
+__all__ = [
+    "BATCH", "MeshSpec", "SliceHealth", "TrainStep", "all_gather",
+    "all_reduce", "all_reduce_mean", "all_to_all", "ambient_mesh",
+    "build_mesh", "check_slice_health", "constrain", "current_mesh",
+    "data_sharding", "hierarchical_all_reduce", "initialize_from_env",
+    "local_mesh", "make_param_placements", "make_train_step",
+    "moe_layer", "param_placement", "reduce_scatter",
+    "replicate_sharding", "ring_permute", "top1_dispatch",
+    "topology_from_env",
+]

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 MESH_REFUSAL = ("expert parallelism (moe_layer over a mesh's 'ep' axis) "
-                "comes with the parallelism slice of the port (ROADMAP "
+                "comes with a later slice of the port (ROADMAP "
                 "Queue 1: Parallelism and meshes)")
 
 
@@ -41,10 +41,15 @@ def _onehot(index: torch.Tensor, n: int) -> torch.Tensor:
 def load_balance_loss(probs: torch.Tensor,
                       expert: torch.Tensor) -> torch.Tensor:
     """The switch load-balancing loss ``E * sum_e(fraction_e *
-    mean_prob_e)``, its gradient through ``probs`` only."""
+    mean_prob_e)``, its gradient through ``probs`` only.  Over a
+    data-parallel mesh both means are the global batch's (means over
+    equal shards, averaged over the data axes), as the reference's are."""
+    from .collectives import data_all_reduce_mean
+
     e = probs.shape[-1]
     fraction = _onehot(expert, e).float().mean(0)
-    return e * torch.sum(fraction * probs.mean(0))
+    return e * torch.sum(data_all_reduce_mean(fraction)
+                         * data_all_reduce_mean(probs.mean(0)))
 
 
 def top1_dispatch(logits: torch.Tensor, capacity: int):

@@ -72,7 +72,8 @@ paged reservations carry it too).  Quarantine, SLO preemption and crash
 recovery cover spec slots like plain ones: a resumed spec stream
 re-prefills both caches.
 
-Not ported yet, and refused by name: meshes (ROADMAP Queue 1).
+Not ported yet, and refused by name: a serving mesh (ROADMAP Queue 1:
+Parallelism and meshes).
 """
 
 from __future__ import annotations
@@ -147,7 +148,7 @@ class DecodeEngine:
                  faults=None,
                  retry_policy: Optional[RetryPolicy] = None):
         if mesh is not None:
-            raise _not_ported("a serving mesh", "meshes")
+            raise _not_ported("a serving mesh", "Parallelism and meshes")
         if draft_model is not None \
                 and draft_model.cfg.vocab_size != model.cfg.vocab_size:
             raise ValueError(

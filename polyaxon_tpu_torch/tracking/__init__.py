@@ -9,11 +9,10 @@ Usage inside a training container (parity with SURVEY.md 3.2):
     tracking.log_model(ckpt_dir, framework="torch")
     tracking.end()
 
-Port of ``polyaxon_tpu/tracking/__init__.py``.  There ``init()`` also
-bootstraps the JAX distributed runtime from the PTPU_* topology block the
-agent/converter injects.  The port has no multi-process bootstrap yet:
-``init()`` refuses a topology of more than one process, naming the ROADMAP
-item that brings it.
+Port of ``polyaxon_tpu/tracking/__init__.py``.  ``init()`` also starts
+the process group from the PTPU_* topology block the agent/converter (or
+the local runner) injects, before the run is created: the chief creates
+the run and an unmanaged gang shares its uuid (``tracking/run.py``).
 """
 
 from __future__ import annotations
@@ -28,17 +27,6 @@ from .run import Run
 TRACKING_RUN: Optional[Run] = None
 
 
-def refuse_distributed() -> None:
-    """Raise when the PTPU_* block describes more than one process (the
-    ``tpujob``/``pytorchjob``/``mpijob``/``tfjob`` kinds)."""
-    n = int(os.environ.get("PTPU_NUM_PROCESSES", "1"))
-    if n > 1:
-        raise RuntimeError(
-            f"PTPU_NUM_PROCESSES={n}: distributed runs (tpujob, "
-            f"pytorchjob, mpijob, tfjob) are not yet ported to the PyTorch "
-            f"backend (ROADMAP Queue 1: Parallelism and meshes)")
-
-
 def init(
     run_uuid: Optional[str] = None,
     project: Optional[str] = None,
@@ -46,11 +34,17 @@ def init(
     distributed_init: bool = True,
     **kwargs: Any,
 ) -> Run:
-    """Initialize global tracking (refusing, when ``distributed_init``, a
-    topology env of more than one process)."""
+    """Initialize global tracking (and, if topology env is present and
+    ``distributed_init``, the process group: on this rank's card, or on
+    the CPU when no card is present)."""
     global TRACKING_RUN
-    if distributed_init:
-        refuse_distributed()
+    if distributed_init and os.environ.get("PTPU_COORDINATOR_ADDRESS"):
+        import torch
+
+        from ..parallel.bootstrap import initialize_from_env
+
+        initialize_from_env(
+            device=None if torch.cuda.is_available() else "cpu")
     TRACKING_RUN = Run(run_uuid=run_uuid, project=project, name=name, **kwargs)
     return TRACKING_RUN
 

@@ -145,7 +145,8 @@ class Run:
         """Collective: every process returns the chief's run uuid.
 
         No-op (returns the input) unless ``torch.distributed`` has a
-        process group in this process.
+        process group in this process.  It rides the gang's host-side
+        (gloo) group, so no card is touched from the worker thread.
 
         The collective itself runs under a deadline in a worker thread:
         if any process fails to join (misconfigured gang, chief crashed
@@ -157,6 +158,9 @@ class Run:
 
         if not (dist.is_available() and dist.is_initialized()):
             return chief_uuid
+        from ..parallel.bootstrap import control_group
+
+        group = control_group()
 
         import threading
 
@@ -165,7 +169,7 @@ class Run:
         def broadcast():
             try:
                 box = [chief_uuid]
-                dist.broadcast_object_list(box, src=0)
+                dist.broadcast_object_list(box, src=0, group=group)
                 result["uuid"] = box[0] or None
             except Exception:  # noqa: BLE001 - reported by the caller
                 logger.exception("run-uuid broadcast failed")

@@ -1,12 +1,25 @@
 """Training driver: ``python -m polyaxon_tpu_torch.train --model NAME``.
 
-Port of ``polyaxon_tpu/train.py`` on one device: the same flags, data
-stream, resume-at-the-restored-step, checkpoint cadence, preemption save,
+Port of ``polyaxon_tpu/train.py``: the same flags, data stream,
+resume-at-the-restored-step, checkpoint cadence, preemption save,
 ``--target-metric`` early exit and ``step i/N k=v ...`` log lines.  It
 runs on ``cuda`` unless ``--cpu`` asks for the CPU, and never drops to
-the CPU on its own.  Parameters are float32 master weights cast to the
-model's compute dtype at their use; the optimizers are torch's AdamW,
-Adam and SGD, which compute optax's updates.
+the CPU on its own.
+
+A gang (the ``tpujob`` / ``pytorchjob`` / ``mpijob`` / ``tfjob`` kinds
+through ``ptpu-torch run -f``, or processes started by hand with the
+PTPU_* block) trains as one process does over the same global batch:
+the bootstrap starts the process group (NCCL on the cards, one card a
+process; gloo with ``--cpu``), the slice-health gate proves it before
+the checkpoint is touched, and ``--strategy`` / ``PTPU_STRATEGY`` lays
+the ``dp`` and ``fsdp`` axes over the ranks (``parallel/strategies.py``).
+Every rank builds the same global batch and keeps its rows.  The chief
+(process 0) tracks the run; every rank joins each checkpoint save, and
+the chief writes one full state.
+
+Parameters are float32 master weights cast to the model's compute dtype
+at their use; the optimizers are torch's AdamW, Adam and SGD, which
+compute optax's updates.
 
 The run is tracked as the reference tracks it (``tracking``): it
 attaches to the managed run the env names (``ptpu-torch run -f``) or
@@ -27,9 +40,8 @@ model in eval mode (batch norms on their running averages).
 span-corruption objective over ``--data-dir``'s token stream.
 
 Not ported yet, refused with a message naming the ROADMAP item that
-carries them: meshes of more than one device and multi-process runs
-(``--strategy``, ``--sp-mode``, a PTPU_* topology of more than one
-process: **Parallelism and meshes**).
+carries them: tensor, expert, sequence and pipeline axes above 1 and
+``--sp-mode`` (**Parallelism and meshes**).
 """
 
 from __future__ import annotations
@@ -55,8 +67,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", default="adamw",
                    choices=["adamw", "sgd", "adam"])
     p.add_argument("--strategy", default=None,
-                   help="Mesh axes as JSON or 'dp:1'; the port trains on "
-                        "one device.")
+                   help="Mesh axes as JSON or 'dp:-1,fsdp:2' (the dp "
+                        "and fsdp axes; default: dp over every process).")
     p.add_argument("--sp-mode", default=None, choices=["ring", "ulysses"],
                    help="Sequence-parallel attention (not ported yet).")
     p.add_argument("--grad-accum", type=int, default=1)
@@ -235,29 +247,53 @@ def make_datasets(args, spec, batch_size: int):
     return data.synthetic_dataset(spec, batch_size, seed=args.seed), None
 
 
-def make_eval_fn(model):
+def make_eval_fn(model, mesh=None):
     """``evaluate(dataset)``: held-out accuracy of ``model`` (the state's
     ``params``) over every batch of ``dataset``'s epoch 0, the remainder
     batch counted exactly.  It runs in eval mode (batch norms on their
     running averages) with no gradients, then puts the model back in
-    train mode."""
+    train mode.
+
+    Over a data-parallel ``mesh`` each rank scores its rows of every
+    batch: the final partial batch is padded up to the data-axes
+    divisor and the padding masked out of the count, as the reference
+    does, and the counts are all-reduced, so every rank returns the
+    one-process accuracy."""
+    import numpy as np
     import torch
 
+    from .parallel.collectives import data_all_reduce
+    from .parallel.mesh import DataSharding, data_sharding
+
+    device = model.device
+    sharding = data_sharding(mesh) if mesh is not None else \
+        DataSharding(device)
+
     def evaluate(dataset) -> float:
-        correct, total = 0, 0
+        correct = torch.zeros((), dtype=torch.int64, device=device)
+        total = 0
         model.eval()
         try:
             with torch.no_grad():
                 for batch in dataset.epoch(0):
-                    x = torch.as_tensor(batch["inputs"],
-                                        device=model.device)
-                    y = torch.as_tensor(batch["labels"],
-                                        device=model.device)
-                    correct += int((model(x).argmax(-1) == y).sum())
-                    total += len(batch["labels"])
+                    n = len(batch["labels"])
+                    pad = (-n) % sharding.count
+                    if pad:
+                        batch = {k: np.concatenate(
+                            [v, np.repeat(v[-1:], pad, axis=0)])
+                            for k, v in batch.items()}
+                    valid = np.arange(n + pad) < n
+                    x, y, valid = (torch.as_tensor(sharding.shard(a),
+                                                   device=device)
+                                   for a in (batch["inputs"],
+                                             batch["labels"], valid))
+                    correct += ((model(x).argmax(-1) == y) & valid).sum()
+                    total += n
         finally:
             model.train()
-        return correct / max(total, 1)
+        if mesh is not None:
+            correct = data_all_reduce(correct, mesh)
+        return int(correct) / max(total, 1)
 
     return evaluate
 
@@ -307,24 +343,18 @@ def parse_strategy(raw):
 
 
 def _refuse_unported(args, strategy) -> dict:
-    """The mesh axes of ``strategy``, after refusing what is not ported."""
-    from .tracking import refuse_distributed
+    """The mesh axes of ``strategy``, after refusing what is not ported:
+    ``--sp-mode``, and a tp, ep, sp or pp axis above 1."""
+    from .parallel.strategies import PARALLELISM_REFUSAL
 
-    try:
-        refuse_distributed()
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from None
     if args.sp_mode is not None:
-        raise SystemExit("--sp-mode: sequence parallelism comes with the "
-                         "parallelism slice of the port (ROADMAP Queue 1: "
-                         "Parallelism and meshes)")
+        raise SystemExit(f"--sp-mode: {PARALLELISM_REFUSAL}")
     axes = {k: v for k, v in strategy.items()
             if k not in _STRATEGY_STR_KEYS}
-    if any(int(v) not in (1, -1) for v in axes.values()):
-        raise SystemExit(f"--strategy {axes}: the port trains on one "
-                         f"device; meshes come with the parallelism slice "
-                         f"of the port (ROADMAP Queue 1: Parallelism and "
-                         f"meshes)")
+    big = {k: v for k, v in axes.items()
+           if k in ("tp", "ep", "sp", "pp") and int(v) > 1}
+    if big:
+        raise SystemExit(f"--strategy {axes}: {PARALLELISM_REFUSAL}")
     return axes
 
 
@@ -335,22 +365,59 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     strategy = parse_strategy(args.strategy
                               or os.environ.get("PTPU_STRATEGY"))
-    mesh = _refuse_unported(args, strategy)
+    axes = _refuse_unported(args, strategy)
 
+    from . import default_device
+    from .parallel import bootstrap
+
+    device = default_device("cpu" if args.cpu else None)
+    # 1. multi-process bootstrap from the injected topology env (a no-op
+    #    for one process): this rank's card, or gloo on the CPU.
+    topology = bootstrap.initialize_from_env(device=device)
+    try:
+        return _main(args, strategy, axes, device, topology)
+    finally:
+        if topology is not None and topology.is_distributed:
+            bootstrap.shutdown()
+
+
+def _main(args, strategy, axes, device, topology) -> int:
     import torch
 
-    from . import default_device, prng, tracking
+    from . import prng, tracking
     from .checkpoint import CheckpointManager
     from .data import prefetch_to_device
     from .models.registry import get_model
-    from .parallel import make_train_step
+    from .parallel import MeshSpec, build_mesh, make_train_step
 
-    device = default_device("cpu" if args.cpu else None)
+    # 1b. slice health gate: prove the gang computes and communicates
+    #     BEFORE restoring checkpoints.  Unhealthy -> exit nonzero so the
+    #     operator reschedules the gang.
+    if topology is not None and topology.is_distributed:
+        from .parallel.health import check_slice_health
+
+        health = check_slice_health(
+            timeout_s=float(os.environ.get(
+                "PTPU_SLICE_HEALTH_TIMEOUT", "120")))
+        print(f"slice health: {health.detail}", flush=True)
+        if not health.ok:
+            raise SystemExit(f"unhealthy slice: {health.detail}")
+
+    # 2. the mesh from the strategy spec, over the gang (or this device).
+    mesh = build_mesh(MeshSpec.from_dict(axes), device=device)
+    device = mesh.device
+    n_chips = int(mesh.devices.size)
+
     try:
         spec = get_model(args.model)
     except KeyError as e:
         raise SystemExit(e.args[0]) from None
     batch_size = args.batch_size or spec.default_batch_size
+    # The global batch shards over the data axes: round it down to a
+    # multiple of their product, as the reference does.
+    data_axes = max(1, mesh.shape["dp"] * mesh.shape["fsdp"])
+    if batch_size % data_axes:
+        batch_size = data_axes * max(1, batch_size // data_axes)
     train_ds, eval_ds = make_datasets(args, spec, batch_size)
     sample = train_ds.sample(2)
     # Data defines the input shapes (digits are 8x8x1 where the
@@ -376,14 +443,15 @@ def main(argv=None) -> int:
           f"batch {batch_size}, {sum(p.numel() for p in model.parameters())}"
           f" params, optimizer {args.optimizer} lr {args.lr}", flush=True)
 
-    # Tracking: attaches to the managed run (env) or registers one.
+    # 3. tracking: attaches to the managed run (env) or registers one
+    #    (the chief's, shared by an unmanaged gang).
     run = tracking.init(name=f"train-{args.model}")
     run.log_inputs(model=args.model, lr=args.lr, batch_size=batch_size,
-                   strategy=strategy or {"dp": -1}, n_chips=1,
+                   strategy=strategy or {"dp": -1}, n_chips=n_chips,
                    backend=device.type)
 
-    # Checkpointing with auto-resume, under the run's outputs when the
-    # env names a run.
+    # 4. checkpointing with auto-resume, under the run's outputs when
+    #    the env names a run; a gang saves collectively.
     ckpt = CheckpointManager()
     start_step = 0
     if args.resume:
@@ -402,13 +470,19 @@ def main(argv=None) -> int:
     # Endless reshuffled-per-epoch stream, RESUMED at the restored step:
     # the datasets are deterministic in (seed, epoch), so a resumed run
     # continues through the schedule where the stopped run left off.
+    # Every rank draws the same global batches and keeps its rows.
     batches = train_ds.epochs(None, start_step=start_step)
     if args.prefetch:
-        batches = prefetch_to_device(batches, device, depth=args.prefetch)
+        batches = prefetch_to_device(batches, step_fn.batch_sharding,
+                                     depth=args.prefetch)
+    else:
+        batches = ({k: torch.as_tensor(step_fn.batch_sharding.shard(v),
+                                       device=device)
+                    for k, v in b.items()} for b in batches)
     # The reference's key chain: each step splits off its key.
     rng = prng.PRNGKey(args.seed, device=device)
     target = parse_target_metric(args.target_metric)
-    evaluate = make_eval_fn(model) if eval_ds is not None else None
+    evaluate = make_eval_fn(model, mesh) if eval_ds is not None else None
     # Evals ride the logging steps (metrics are only published there);
     # snap --eval-every up to the next log step so no eval is lost to
     # the log cadence.
@@ -435,9 +509,10 @@ def main(argv=None) -> int:
         if args.profile_at and step + 1 == args.profile_at + \
                 args.profile_steps:
             _stop_profile(run, step + 1)
-        if ckpt.preempt_requested:
-            # SIGTERM arrived: save the state after this step and exit
-            # within the operator's grace period (checkpoint.py).
+        if ckpt.preemption_agreed():
+            # SIGTERM arrived (at any rank of a gang): save the state
+            # after this step and exit within the operator's grace
+            # period (checkpoint.py).
             ckpt.save(step + 1, state)
             ckpt.wait()
             print("preempted: checkpoint flushed, exiting", flush=True)
@@ -449,7 +524,7 @@ def main(argv=None) -> int:
             dt = time.perf_counter() - t_block
             done = step + 1 - block_start
             metrics[f"{unit}_per_sec_per_chip"] = round(
-                per_batch * done / dt, 2)
+                per_batch * done / dt / n_chips, 2)
             if (step + 1) in eval_steps:
                 metrics["eval_accuracy"] = evaluate(eval_ds)
             run.log_metrics(step=step + 1, **metrics)

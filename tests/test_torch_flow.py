@@ -61,10 +61,12 @@ def _matrix_values(op):
 def test_every_example_is_checked():
     assert len(REF_EXAMPLES) == 13
     assert [p.name for p in PORT_EXAMPLES] == [
-        "bert_finetune.yaml", "bert_job.yaml", "convnet_hyperband.yaml",
-        "gpt2_job.yaml", "hyperband.yaml", "mnist.yaml", "moe_gpt_job.yaml",
-        "resnet50_job.yaml", "serving.yaml", "t5_job.yaml",
-        "tinyllama_job.yaml", "vit_job.yaml"]
+        "bert_finetune.yaml", "bert_job.yaml", "bert_pytorchjob.yaml",
+        "convnet_hyperband.yaml", "gpt2_job.yaml", "gpt2_mpijob.yaml",
+        "hyperband.yaml", "mnist.yaml", "moe_gpt_job.yaml",
+        "resnet50_job.yaml", "resnet50_tfjob.yaml", "serving.yaml",
+        "t5_job.yaml", "tinyllama_job.yaml", "tinyllama_tpujob.yaml",
+        "vit_job.yaml", "vit_tpujob.yaml"]
 
 
 @pytest.mark.parametrize("path", REF_EXAMPLES + PORT_EXAMPLES,

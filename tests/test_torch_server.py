@@ -410,7 +410,7 @@ _REFERENCE_ONLY_FLAGS = [
                  id="flags3-the spill tier and its wire format"),
     pytest.param(["--batching", "coalesce"], "legacy coalescing",
                  {"batching": "coalesce"}, id="flags4-legacy coalescing"),
-    pytest.param(["--mesh", "tp=2"], "parallelism and meshes", None,
+    pytest.param(["--mesh", "tp=2"], "Parallelism and meshes", None,
                  id="flags5-parallelism and meshes"),
     pytest.param(["--role", "decode", "--prefix-fetch", *_SPILL],
                  "the router", {"role": "decode"},

@@ -5,7 +5,8 @@ The file store is the wire format between the two: a run the port tracks
 reads back the same through the JAX package's ``FileRunStore`` and the
 other way round.  On the CPU the GPU block of the system metrics is
 empty, and neither importing nor initialising tracking touches CUDA.  A
-topology of more than one process is refused by name.
+topology of two processes starts the process group and shares the
+chief's run (``tests/test_torch_gang.py`` holds the gang helper).
 """
 
 from __future__ import annotations
@@ -171,13 +172,37 @@ def test_tracking_makes_no_cuda_call(tmp_path):
     assert "cpu_percent.jsonl" in system
 
 
-def test_multi_process_topology_is_refused(tmp_home, monkeypatch):
-    monkeypatch.setenv("PTPU_NUM_PROCESSES", "2")
-    monkeypatch.setenv("PTPU_COORDINATOR_ADDRESS", "127.0.0.1:1234")
-    with pytest.raises(RuntimeError, match="Parallelism and meshes"):
-        ttracking.init()
-    with pytest.raises(SystemExit, match="Parallelism and meshes"):
-        ttrain.main(["--cpu", "--model", "gpt2-tiny", "--steps", "1"])
+def test_multi_process_topology_is_refused(tmp_home, tmp_path,
+                                          monkeypatch):
+    """A PTPU_* topology of two processes is no longer refused:
+    ``tracking.init()`` starts the process group (gloo here) before the
+    run, the chief creates the run and the other process attaches to its
+    uuid over the broadcast (an unmanaged pair started by hand); one
+    process still tracks a run of its own."""
+    from test_torch_gang import run_gang
+
+    script = tmp_path / "pair.py"
+    script.write_text(
+        "import torch.distributed as dist\n"
+        "from polyaxon_tpu_torch import tracking\n"
+        "run = tracking.init(track_env=False)\n"
+        "assert dist.is_initialized() and dist.get_world_size() == 2\n"
+        "run.log_metrics(step=1, loss=float(dist.get_rank()))\n"
+        "print('uuid', run.run_uuid, flush=True)\n"
+        "dist.barrier()\n"
+        "tracking.end()\n")
+    outs = run_gang([sys.executable, str(script)], 2, tmp_path)
+    uuids = {line.split()[1] for out in outs for line in out.splitlines()
+             if line.startswith("uuid ")}
+    assert len(uuids) == 1, outs
+    uuid = uuids.pop()
+    store = TStore(str(tmp_home))
+    assert [r["uuid"] for r in store.list_runs()] == [uuid]
+    assert store.get_run(uuid)["status"] == "succeeded"
+    # Only the chief tracks by default: process 1's series would carry
+    # a /p1 suffix.
+    assert [e["value"] for e in store.read_events(uuid, "metric",
+                                                   "loss")] == [0.0]
     monkeypatch.setenv("PTPU_NUM_PROCESSES", "1")
     run = ttracking.init(track_env=False)
     ttracking.end()

@@ -243,12 +243,24 @@ def test_master_weights_compute_like_serving():
 
 
 def test_one_device_only():
+    """With no process group a mesh is this process's one device: axis
+    sizes naming more raise the reference's ``MeshError``; a tp axis
+    above 1 on a gang is refused by the parallelism item
+    (``test_torch_mesh.py``)."""
+    from polyaxon_tpu_torch.parallel.mesh import MeshError
+
     spec = t_get_model("gpt2-tiny")
-    make_train_step(spec.loss_fn, ttrain.make_optimizer("sgd", 1e-3),
-                    {"dp": -1, "tp": 1})
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
+    step = make_train_step(spec.loss_fn, ttrain.make_optimizer("sgd", 1e-3),
+                           {"dp": -1, "tp": 1})
+    assert not step.distributed and step.mesh.shape["dp"] == 1
+    from polyaxon_tpu.parallel.mesh import MeshSpec as JMeshSpec
+
+    with pytest.raises(ValueError) as want:
+        JMeshSpec(dp=2).resolve(1)
+    with pytest.raises(MeshError) as got:
         make_train_step(spec.loss_fn, ttrain.make_optimizer("sgd", 1e-3),
                         {"dp": 2})
+    assert str(got.value) == str(want.value)
 
 
 # name: (dataset builder taking the data module, start_step)
@@ -380,8 +392,8 @@ def test_train_main_cpu(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--strategy", "dp:2"], "parallelism slice"),
-    (["--sp-mode", "ring"], "parallelism slice"),
+    (["--strategy", "dp:2"], "do not divide device count 1"),
+    (["--sp-mode", "ring"], "Parallelism and meshes"),
     (["--model", "mlp", "--init-hf", "weights.pt"],
      "--init-hf supports the"),
     (["--model", "t5-tiny", "--dataset", "span-corruption"],
@@ -389,7 +401,7 @@ def test_train_main_cpu(tmp_path, monkeypatch, capsys):
     (["--dataset", "span-corruption", "--data-dir", "."],
      "requires a seq2seq"),
     (["--model", "moe-gpt-tiny", "--strategy", "dp:-1,ep:4"],
-     "parallelism slice"),
+     "Parallelism and meshes"),
 ], ids=["flags0-parallelism slice", "flags1-parallelism slice",
         "flags2-import_hf", "flags3-zoo slice", "flags4-zoo",
         "flags5-zoo slice"])
@@ -398,14 +410,19 @@ def test_train_refuses_what_is_not_ported(flags, slice_name, tmp_path,
     """``--init-hf`` (BERT, GPT-2, the Llama family, ViT, T5), the
     digits dataset, ``--eval-every``, T5 with span corruption and
     MoE-GPT are ported (``test_torch_import_hf.py``,
-    ``test_torch_eval.py``, ``test_torch_t5.py``, ``test_torch_moe.py``);
-    what stays refused: meshes (MoE-GPT's ``ep`` axis too) by the
-    parallelism slice, ``--init-hf`` of a family with no loader, and
-    span corruption without a data directory or on a decoder-only
-    model, with the reference's messages.  The ids are the cases'
-    earlier ones."""
+    ``test_torch_eval.py``, ``test_torch_t5.py``, ``test_torch_moe.py``),
+    and so are the dp and fsdp axes over a gang
+    (``test_torch_mesh.py``, ``test_torch_gang.py``); what stays
+    refused: ``--sp-mode`` and MoE-GPT's ``ep`` axis by the parallelism
+    item, ``--init-hf`` of a family with no loader, and span corruption
+    without a data directory or on a decoder-only model, with the
+    reference's messages.  ``dp:2`` in one process with no gang raises
+    the reference's own ``MeshError``.  The ids are the cases' earlier
+    ones."""
+    from polyaxon_tpu_torch.parallel.mesh import MeshError
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match=slice_name):
+    with pytest.raises((SystemExit, MeshError), match=slice_name):
         ttrain.main(["--cpu", "--model", "gpt2-tiny", "--steps", "1",
                      *flags])
 

@@ -225,13 +225,22 @@ def test_init_follows_flax_defaults():
     assert not model.head.bias.any()
 
 
+_ITEM_IDS = [
+    "argv0-Parallelism and meshes", "argv1-Parallelism and meshes",
+    "argv2-Parallelism and meshes", "argv3-Parallelism and meshes",
+    "argv4-requires a seq2seq \\(encoder-decoder\\) model; "
+    "'bert-tiny' is not",
+    "argv5-span-corruption requires --data-dir",
+    "argv6-Parallelism and meshes"]
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--model", "moe-gpt-tiny", "--strategy", "dp:-1,ep:4"],
      "Parallelism and meshes"),
     (["--model", "t5-tiny", "--strategy", "dp:-1,tp:2"],
      "Parallelism and meshes"),
     (["--model", "vit-tiny", "--strategy", "dp:2"],
-     "Parallelism and meshes"),
+     "do not divide device count 1"),
     (["--model", "moe-gpt-small", "--sp-mode", "ring"],
      "Parallelism and meshes"),
     (["--model", "bert-tiny", "--dataset", "span-corruption",
@@ -240,16 +249,20 @@ def test_init_follows_flax_defaults():
     (["--model", "t5-tiny", "--dataset", "span-corruption"],
      "span-corruption requires --data-dir"),
     (["--model", "resnet50-tiny", "--strategy", "dp:2"],
-     "Parallelism and meshes"),
-])
+     "do not divide device count 1"),
+], ids=_ITEM_IDS)
 def test_unported_refused_by_roadmap_item(argv, item, tmp_path,
                                           monkeypatch):
     """What stays refused: the reference's tp / ep strategies of the
     zoo's examples and sequence parallelism by the parallelism item,
     span corruption without a seq2seq model or a data directory with
-    the reference's messages."""
+    the reference's messages.  ``dp:2`` in one process with no gang
+    raises the reference's own ``MeshError`` (a gang trains it:
+    ``test_torch_gang.py``).  The ids are the cases' earlier ones."""
+    from polyaxon_tpu_torch.parallel.mesh import MeshError
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match=item):
+    with pytest.raises((SystemExit, MeshError), match=item):
         ttrain.main(["--cpu", "--steps", "1", *argv])
 
 
@@ -464,12 +477,23 @@ def test_zoo_examples_are_single_card_jobs(example):
 
 @pytest.mark.parametrize("example", ["resnet50_job.yaml", "bert_job.yaml"])
 def test_gang_kinds_refused_by_roadmap_item(example, monkeypatch,
-                                            tmp_path):
+                                            tmp_path, capsys):
     """The reference's tfjob / pytorchjob gangs of these examples run one
-    process per replica with a PTPU_* topology of several processes:
-    each one refuses by the parallelism item."""
+    process per replica with the PTPU_* block (``test_torch_gang.py``
+    trains such gangs).  ``PTPU_NUM_PROCESSES`` with no
+    ``PTPU_COORDINATOR_ADDRESS`` is no managed gang: the reference's
+    ``topology_from_env`` returns None, and the run trains as one
+    process."""
+    from polyaxon_tpu.parallel.bootstrap import \
+        topology_from_env as j_topology_from_env
+    from polyaxon_tpu_torch.parallel.bootstrap import topology_from_env
+
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("PTPU_NUM_PROCESSES", "4")
+    monkeypatch.delenv("PTPU_COORDINATOR_ADDRESS", raising=False)
+    assert topology_from_env() is None and j_topology_from_env() is None
     model = "resnet50-tiny" if "resnet" in example else "bert-tiny"
-    with pytest.raises(SystemExit, match="Parallelism and meshes"):
-        ttrain.main(["--cpu", "--model", model, "--steps", "1"])
+    assert ttrain.main(["--cpu", "--model", model, "--steps", "1",
+                        "--batch-size", "4", "--no-resume"]) == 0
+    out = capsys.readouterr().out
+    assert "slice health" not in out and "step 1/1 loss=" in out
