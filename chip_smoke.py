@@ -65,7 +65,12 @@ Phases, each raising on failure:
    acceptance; an HTTP load of 16 requests, half speculative, with the
    ``ptpu_serving_spec_accept_rate`` family); beam search in float32
    (``num_beams`` 4 over HTTP and ``generate --beams 4`` == the port's
-   ``generate_beam`` on the CPU, ``num_beams`` 1 == greedy);
+   ``generate_beam`` on the CPU, ``num_beams`` 1 == greedy); the
+   serving mesh (``phase_serving_mesh``, virtual devices on the one
+   card): the column-split probe, float32 meshed engines (GPT-2 medium
+   tp 2/4, TinyLlama tp 2, MoE-GPT-small tp 2 x ep 2) == unmeshed ==
+   solo, bf16 tp 2 at full width (rows equal, replay ms, captures,
+   shard bytes), and ``ModelServer(mesh="tp=1")`` over HTTP;
 6. the flash-backward kernels (dq, dkv) against their plain version at
    the training path's shape, the forward's case list, the Hopper
    kernels' tile edges and an LSE cotangent; their times, bounds and
@@ -4535,7 +4540,7 @@ def phase_int8(model, model_f32, name: str = "gpt2-medium") -> dict:
     KV cache of 8 slots); the float32 exactness check
     (``_int8_f32_check``); the bf16 decode step for plain, int8 KV,
     int8 weights and both on the fixed-lane and the paged pool
-    (``_step_times``); a 16-request HTTP mixed load on the model
+    (``_step_times``); an 8-request HTTP mixed load on the model
     ``serve --int8-weights --int8-kv --kv-paged`` builds
     (``cli.main._build_serving_model``).  Returns the step times, the
     load's record and the flash launches of each path."""
@@ -4574,9 +4579,12 @@ def phase_int8(model, model_f32, name: str = "gpt2-medium") -> dict:
     served = _build_serving_model(name, 1, 0, "cuda", kv_int8=True,
                                   int8_weights=True)
     rng = np.random.RandomState(0)
+    # The HTTP loads' first 8 requests (16 before the serving mesh's
+    # phase joined the script, for its time).
+    lens = rng.randint(64, 513, 16)
     bodies = _mixed([{"prompt": rng.randint(
         0, model.cfg.vocab_size, n).tolist(), "max_new_tokens": 64}
-        for n in rng.randint(64, 513, 16)])
+        for n in lens][:8])
     rec, (srv, ms, _) = _http_load(served, "int8 mixed paged", bodies,
                                    sampled_too=True, warm_requests=1,
                                    idle_share=False, kv_paged=True)
@@ -4584,7 +4592,7 @@ def phase_int8(model, model_f32, name: str = "gpt2-medium") -> dict:
     counts["http"] = rec["flash_launches"]
     del served
     _release()
-    print(f"[int8] serve --int8-weights --int8-kv --kv-paged: 16 mixed "
+    print(f"[int8] serve --int8-weights --int8-kv --kv-paged: 8 mixed "
           f"requests {rec['tok_per_s']:.1f} tok/s, TTFT p50 "
           f"{rec['ttft_p50_ms']:.1f} ms; flash launches {counts['http']}")
     print(f"[time] int8: HTTP load {time.perf_counter() - t0:.1f} s")
@@ -6180,6 +6188,523 @@ KERNELS = {
 }
 
 
+# -- the serving mesh ----------------------------------------------------------
+
+
+MESH_F32_NEW = 16           # new tokens of the float32 mesh checks
+MOE_MESH_LAYERS = 4         # of MoE-GPT-small's 12, float32
+
+
+def _mesh_probe() -> dict:
+    """The column-split probe: does each column shard's product equal
+    the full product's columns bit for bit on the card (cuBLAS picks its
+    kernel and split-K from M, N and K, so N / tp may take another)?
+    GPT-2 medium's ``qkv`` split by heads and its ``fc1``, TinyLlama's
+    q/k/v/gate/up, random weights from seed 0, bf16 and float32, tp 2
+    and 4, 8 rows (a decode step's slots), 100 (a prompt's prefill)
+    and 256 (a prefill chunk); then the decode step's and a prefill's
+    plain attention (float32) over head shards against the whole.
+    Prints and returns, per case, the bitwise shards and the largest
+    |d| of the others."""
+    import torch.nn.functional as F
+
+    from polyaxon_tpu_torch.models.gpt2 import qkv_rows_by_heads
+    from polyaxon_tpu_torch.models.layers import contiguous_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # (label, out, in, split by heads, with a bias: GPT-2's have one)
+    weights = (("gpt2-medium qkv", 3072, 1024, True, True),
+               ("gpt2-medium fc1", 4096, 1024, False, True),
+               ("tinyllama q_proj", 2048, 2048, False, False),
+               ("tinyllama k_proj", 256, 2048, False, False),
+               ("tinyllama v_proj", 256, 2048, False, False),
+               ("tinyllama gate_proj", 5632, 2048, False, False),
+               ("tinyllama up_proj", 5632, 2048, False, False))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for tp in (2, 4):
+            for rows in (8, 100, 256):
+                n = n_bit = 0
+                worst, off = 0.0, set()
+                for label, o, i, by_heads, bias in weights:
+                    w = (0.02 * torch.randn(o, i, generator=gen,
+                                            device="cuda")).to(dtype)
+                    bv = (0.02 * torch.randn(o, generator=gen,
+                                             device="cuda")).to(dtype) \
+                        if bias else None
+                    x = torch.randn(rows, i, generator=gen,
+                                    device="cuda").to(dtype)
+                    full = F.linear(x, w, bv)
+                    split = qkv_rows_by_heads(i, tp) if by_heads \
+                        else contiguous_rows(o, tp)
+                    for idx in split:
+                        idx = idx.cuda()
+                        got = F.linear(x, w.index_select(0, idx),
+                                       None if bv is None else bv[idx])
+                        want = full.index_select(1, idx)
+                        n += 1
+                        if torch.equal(got, want):
+                            n_bit += 1
+                            continue
+                        off.add(label)
+                        worst = max(worst, (got.float() - want.float())
+                                    .abs().max().item())
+                key = f"{str(dtype).removeprefix('torch.')} tp={tp} " \
+                      f"rows={rows}"
+                out[key] = {"bitwise": n_bit, "shards": n,
+                            "max_abs_d": worst, "not_bitwise": sorted(off)}
+                print(f"[mesh-serve] probe {key}: {n_bit}/{n} shards "
+                      f"bitwise" + (f", max |d| {worst:.3e} ("
+                                    f"{', '.join(sorted(off))})"
+                                    if n_bit < n else ""))
+    # The plain attention (float32 whatever the model's type) over each
+    # head shard against the same heads of the whole, GPT-2 medium's 16
+    # heads over a 1024-key lane: a decode step's 8 slots x 1 query and
+    # a 100-token chunk's prefill, the queries at positions 500 on (so
+    # some 500 keys are live: with one, the softmax is exact whatever
+    # the kernels).  Each shard's q, k and v are tensors of their own,
+    # as a shard's cache is (a view of the whole keeps its strides).
+    from polyaxon_tpu_torch.ops.attention import _torch_attention
+
+    for label, b, sq in (("decode", 8, 1), ("prefill", 1, 100)):
+        q = torch.randn(b, sq, 16, 64, generator=gen, device="cuda")
+        k, v = (torch.randn(b, 1024, 16, 64, generator=gen, device="cuda")
+                for _ in range(2))
+        keys = torch.arange(1024, device="cuda")
+        pos = 500 + torch.arange(sq, device="cuda")
+        mask = (keys[None, :] <= pos[:, None])[None, None]
+        full = _torch_attention(q, k, v, mask, False, 0.125)
+        for tp in (2, 4):
+            got = torch.cat([_torch_attention(
+                *(t.chunk(tp, dim=2)[r].contiguous() for t in (q, k, v)),
+                mask, False, 0.125) for r in range(tp)], dim=2)
+            key = f"attention float32 {label} tp={tp}"
+            d = (got - full).abs().max().item()
+            out[key] = {"bitwise": int(torch.equal(got, full)),
+                        "shards": 1, "max_abs_d": d}
+            print(f"[mesh-serve] probe {key} ([{b}, {sq} -> 1024, 16, "
+                  f"64], queries at 500+): " + (
+                      "bitwise" if out[key]["bitwise"]
+                      else f"max |d| {d:.3e}"))
+    return out
+
+
+def _mesh_requests(cfg, spec: bool, n: int = 4) -> list:
+    """``n`` requests (prompts of 16-64 tokens from seed 3): even ones
+    greedy, odd ones sampled (``SAMPLED``, seed = index), and with a
+    draft the last a greedy speculative one (K 3)."""
+    rng = np.random.RandomState(3)
+    reqs = []
+    for i, m in enumerate(rng.randint(16, 65, n)):
+        samp = dict(SAMPLED, seed=i) if i % 2 else None
+        if spec and i == n - 1:
+            samp = {"seed": i, "temperature": 0.0, "spec_k": 3}
+        reqs.append((rng.randint(0, cfg.vocab_size, m).tolist(), samp))
+    return reqs
+
+
+def _mesh_engine(model, reqs, mesh, *, paged, draft=None, new=None,
+                 n_slots=4, prefill_chunk=64, rounds=1):
+    """``reqs`` through one ``DecodeEngine`` (on ``mesh``: a spec whose
+    devices are ``cuda:0`` named dp*tp*ep times), ``rounds`` times;
+    returns (the last round's new tokens per request, the engine)."""
+    from polyaxon_tpu_torch.serving import (DecodeEngine, SamplingSpec,
+                                            SchedulerPolicy, ServingMesh)
+
+    kw = dict(n_slots=n_slots, decode_window=8,
+              prefill_chunk=prefill_chunk)
+    if paged:
+        kw.update(kv_paged=True, kv_page_tokens=16)
+    sm = None
+    if mesh is not None:
+        sm = ServingMesh(mesh, devices=["cuda:0"] * 8)
+    eng = DecodeEngine(model, autostart=False,
+                       policy=SchedulerPolicy(**kw), mesh=sm,
+                       draft_model=draft)
+    for _ in range(rounds):
+        toks = _mesh_round(eng, reqs, new or MESH_F32_NEW)
+    return toks, eng
+
+
+def _mesh_round(eng, reqs, new: int) -> list:
+    """Submit ``reqs`` (``new`` tokens each), run the engine idle, and
+    return each request's new tokens."""
+    from polyaxon_tpu_torch.serving import SamplingSpec
+
+    groups = [eng.submit(np.asarray([p]), new, None, None,
+                         sampling=None if s is None else SamplingSpec(**s))
+              for p, s in reqs]
+    eng.run_until_idle()
+    toks = []
+    for (p, _), g in zip(reqs, groups):
+        if g.error is not None:
+            raise AssertionError(f"mesh {eng.mesh and eng.mesh.axes_str()}"
+                                 f": request failed: {g.error}")
+        toks.append(g.result()[0, len(p):].tolist())
+    return toks
+
+
+def _mesh_f32(tag, model_f32, reqs, meshes, pools, draft=None) -> dict:
+    """float32: each request's tokens from the unmeshed engine equal solo
+    decoding, and every meshed engine's equal the unmeshed engine's, on
+    each pool — exactly, or under the tie rule (printed).  Returns the
+    exact and tie counts."""
+    from polyaxon_tpu_torch.models import generate as G
+
+    with torch.no_grad():
+        solo = []
+        for p, s in reqs:
+            if s is None or not s.get("temperature"):
+                out = G.generate(model_f32, [p], max_new_tokens=MESH_F32_NEW)
+            else:
+                out = G.generate_positional(
+                    model_f32, [p], max_new_tokens=MESH_F32_NEW,
+                    **{k: v for k, v in s.items() if k != "spec_k"})
+            solo.append(out[0, len(p):].tolist())
+
+    def hold(what, want, got):
+        ties = 0
+        for i, ((p, s), w, g) in enumerate(zip(reqs, want, got)):
+            if w != g:
+                spec = s if s and s.get("temperature") else None
+                _tie_or_raise(model_f32, "mesh-serve",
+                              f"{tag} {what} request {i}", p, w, g, spec)
+                ties += 1
+        return ties
+
+    rec = {"exact": 0, "ties": 0}
+    for pool in pools:
+        base, _ = _mesh_engine(model_f32, reqs, None, paged=pool == "paged",
+                               draft=draft)
+        ties = hold(f"unmeshed {pool} vs solo", solo, base)
+        for mesh in meshes:
+            got, eng = _mesh_engine(model_f32, reqs, mesh,
+                                    paged=pool == "paged", draft=draft)
+            t = hold(f"{mesh} {pool} vs unmeshed", base, got)
+            ties += t
+            rec["exact"] += len(reqs) - t
+            rec["ties"] += t
+            print(f"[mesh-serve] {tag} float32 {mesh} {pool}: "
+                  f"{len(reqs) - t}/{len(reqs)} requests == the unmeshed "
+                  f"engine exactly ({t} by the tie rule), graph captures "
+                  f"{eng.sentinel.misses}")
+            del eng
+    return rec
+
+
+def _pool_bytes(pool) -> int:
+    leaves = pool.leaves() if hasattr(pool, "leaves") else pool
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def _mesh_bf16(model) -> dict:
+    """bf16, GPT-2 medium at all 24 layers, tp = 2 against unmeshed: the
+    HTTP loads' first 8 requests (prompts 64-512 from seed 0, every odd
+    one sampled, 64 new) twice through each engine (8 slots).  Rows
+    equal to the unmeshed run (a count: bf16 near-ties are known), the
+    captures of the second round (0 expected) against the unmeshed
+    engine's, the decode step (the W=8 greedy replay's ms / 8, the
+    idle pool: plain attention reads the whole lane whatever the
+    positions), and each shard's KV bytes as a share of the unmeshed
+    pool."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(64, 513, 16)
+    reqs = [(rng.randint(0, model.cfg.vocab_size, m).tolist(),
+             dict(SAMPLED, seed=i) if i % 2 else None)
+            for i, m in enumerate(lens)][:8]
+    rec = {}
+    for mesh in (None, "tp=2"):
+        _, eng = _mesh_engine(model, reqs, mesh, paged=False, new=64,
+                              n_slots=8, prefill_chunk=256)
+        warm = eng.sentinel.misses
+        toks = _mesh_round(eng, reqs, 64)
+        steady = eng.sentinel.misses - warm
+        pool = eng.slots
+        if (8, False) not in pool._graphs:
+            pool.step(8, False)
+        ms = _replay_ms(pool, (8, False), lambda: None) / 8
+        shards = getattr(pool._pool, "shards", [pool._pool])
+        rec[mesh or "unmeshed"] = {
+            "tokens": toks, "captures_warm": warm,
+            "captures_steady": steady, "step_ms": ms,
+            "shard_bytes": [_pool_bytes(sh) for sh in shards]}
+        del eng, pool
+        _release()
+    base, meshed = rec["unmeshed"], rec["tp=2"]
+    equal = sum(a == b for a, b in zip(base["tokens"], meshed["tokens"]))
+    first = [next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+             for a, b in zip(base["tokens"], meshed["tokens"]) if a != b]
+    share = [b / base["shard_bytes"][0] for b in meshed["shard_bytes"]]
+    print(f"[mesh-serve] bf16 gpt2-medium (24 layers) tp=2 vs unmeshed, 8 "
+          f"requests x 64 new: {equal}/8 rows equal (the others part at "
+          f"new token {first}); decode step (W=8 "
+          f"greedy replay / 8) {meshed['step_ms']:.3f} ms meshed, "
+          f"{base['step_ms']:.3f} ms unmeshed; captures warm {meshed['captures_warm']} / steady "
+          f"{meshed['captures_steady']} (unmeshed "
+          f"{base['captures_warm']} / {base['captures_steady']}); shard KV "
+          f"bytes / unmeshed pool: " + ", ".join(f"{x:.4f}" for x in share))
+    if meshed["captures_steady"] or base["captures_steady"]:
+        raise AssertionError("mesh bf16: graph captures after warm-up")
+    if any(abs(x - 0.5) > 1e-9 for x in share):
+        raise AssertionError(f"mesh bf16: shard bytes share {share} != 1/2")
+    return {"rows_equal": equal, "first_diff": first, "step_ms": {
+        "tp=2": meshed["step_ms"], "unmeshed": base["step_ms"]},
+        "captures": {k: (v["captures_warm"], v["captures_steady"])
+                     for k, v in rec.items()}, "shard_share": share}
+
+
+def _mesh_weights(model) -> dict:
+    """The weights a tp = 2 placement holds on each (virtual) device,
+    against the model's: the first device the whole weights and half of
+    the split ones, the second the other half; the placement allocates
+    the shards and nothing else, and its replica holds the split weights
+    as shapes only (so a server that owns the model frees them)."""
+    from polyaxon_tpu_torch.serving import ServingMesh
+
+    mesh = ServingMesh("tp=2", devices=["cuda:0"] * 2)
+    sh = mesh.param_shardings(model)
+    named = dict(model.named_parameters())
+    named.update(model.named_buffers())
+    whole = sum(t.numel() * t.element_size() for n, t in named.items()
+                if not sh[n].dims)
+    split = sum(t.numel() * t.element_size() for n, t in named.items()
+                if sh[n].dims)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    placed = mesh.place_params(model)
+    torch.cuda.synchronize()
+    added = torch.cuda.memory_allocated() - before
+    held = placed.device_bytes()
+    names = [n for n in named if sh[n].dims]
+    kept = dict(placed.replicas[0].named_parameters())
+    kept.update(placed.replicas[0].named_buffers())
+    meta = all(kept[n].is_meta for n in names)
+    print(f"[mesh-serve] weights of gpt2-medium bf16 under tp=2: unmeshed "
+          f"{whole + split} bytes ({split} split over tp); held per "
+          f"device {held} (want {[whole + split // 2, split // 2]}); the "
+          f"placement allocated {added} bytes (the shards: {split}); the "
+          f"replica's {len(names)} split weights all meta: {meta}")
+    if held != [whole + split // 2, split // 2] or not meta \
+            or abs(added - split) > 512 * 2 * len(names):
+        raise AssertionError("mesh weights: a device holds more than its "
+                             "shards of the split weights")
+    del placed
+    _release()
+    return {"unmeshed_bytes": whole + split, "split_bytes": split,
+            "held": held, "allocated": added}
+
+
+def _mesh_bf16_where(model) -> dict:
+    """Where bf16 meshed and unmeshed part: one 100-token prompt's
+    prefill (logits and cache), then 8 slots each holding it stepping a
+    W=8 greedy window: eagerly, with every block's o_proj and fc2
+    inputs and outputs recorded at each step (the first to part is
+    named), and as a CUDA graph; every result of tp = 2 (its head
+    shards concatenated) against unmeshed, bitwise, and each one's
+    graph against its eager run."""
+    from polyaxon_tpu_torch.models import generate as G
+    from polyaxon_tpu_torch.serving import ServingMesh, SlotKVManager
+
+    mesh = ServingMesh("tp=2", devices=["cuda:0"] * 2)
+    models = {"unmeshed": model, "tp=2": mesh.place_params(model)}
+    prompt = torch.tensor([np.random.RandomState(4).randint(
+        0, model.cfg.vocab_size, 100).tolist()], device="cuda")
+    got = {}
+    with torch.no_grad():
+        for label, m in models.items():
+            meshed = label != "unmeshed"
+            logits, cache = G.prefill(m, prompt)
+            leaves = cache.leaves()
+            got[label, "prefill"] = [logits] + (
+                cache.merge_heads(leaves) if meshed else leaves)
+            first = int(torch.argmax(logits[0]).item())
+            # An eager W=8 window of the 8 slots with every block's
+            # o_proj and fc2 inputs and outputs recorded at each step
+            # (whole in both: the model's own, or the replica's), to
+            # name the first step and op that part.
+            seen, steps = [], [0]
+
+            def record(tag):
+                def hook(mod, inp, out):
+                    if tag == "layer 0 o_proj":
+                        steps[0] += 1
+                    at = f"step {steps[0]} {tag}"
+                    seen.append((f"{at} input", inp[0].cpu()))
+                    seen.append((f"{at} output", out.cpu()))
+                return hook
+
+            blocks = (m.replicas[0] if meshed else m).h
+            hooks = [getattr(block, name).register_forward_hook(
+                record(f"layer {i} {name}"))
+                for i, block in enumerate(blocks)
+                for name in ("o_proj", "fc2")]
+            pool = SlotKVManager(m, 8, mesh=mesh if meshed else None)
+            for slot in range(8):
+                pool.insert(slot, cache, first, 100)
+            toks = torch.from_numpy(pool.step(8, False, graph=False))
+            for h in hooks:
+                h.remove()
+            got[label, "ops"] = seen
+            leaves = pool._pool.leaves()
+            got[label, False] = [toks] + [t.cpu() for t in (
+                pool._pool.merge_heads(leaves) if meshed else leaves)]
+            del pool
+            for graph in (True,):
+                pool = SlotKVManager(m, 8, mesh=mesh if meshed else None)
+                for slot in range(8):
+                    pool.insert(slot, cache, first, 100)
+                toks = torch.from_numpy(pool.step(8, False, graph=graph))
+                leaves = pool._pool.leaves()
+                got[label, graph] = [toks] + [t.cpu() for t in (
+                    pool._pool.merge_heads(leaves) if meshed else leaves)]
+                del pool
+    _release()
+
+    def cmp(a, b) -> str:
+        if all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b)):
+            return "bitwise"
+        d = max((x.cpu().float() - y.cpu().float()).abs().max().item()
+                for x, y in zip(a, b))
+        return f"max |d| {d:.3e}"
+
+    part = next(((name, (x.float() - y.float()).abs().max().item())
+                 for (name, x), (_, y) in zip(got["unmeshed", "ops"],
+                                              got["tp=2", "ops"])
+                 if not torch.equal(x, y)), None)
+    rec = {"prefill": cmp(got["unmeshed", "prefill"],
+                          got["tp=2", "prefill"]),
+           "first op parting in a decode step": "none" if part is None
+           else f"{part[0]} (max |d| {part[1]:.3e})",
+           "eager window": cmp(got["unmeshed", False], got["tp=2", False]),
+           "graph window": cmp(got["unmeshed", True], got["tp=2", True]),
+           "unmeshed graph vs eager": cmp(got["unmeshed", True],
+                                          got["unmeshed", False]),
+           "tp=2 graph vs eager": cmp(got["tp=2", True],
+                                      got["tp=2", False])}
+    print("[mesh-serve] bf16 where tp=2 and unmeshed part (100-token "
+          "prefill's logits and cache; 8 slots x W=8 greedy window's "
+          "tokens and cache): " + "; ".join(f"{k} {v}"
+                                            for k, v in rec.items()))
+    return rec
+
+
+def _mesh_http(model) -> dict:
+    """The real one-device path: ``ModelServer(mesh="tp=1")`` over HTTP
+    (/generate, /info's mesh block, the two /metrics gauges), and
+    ``tp=2`` on this one-card host refused by name."""
+    import urllib.request
+
+    from polyaxon_tpu_torch.serving import (MeshError, ServingMesh,
+                                            parse_mesh)
+
+    srv, ms, base = _serve(model, "gpt2-medium", n_slots=2, mesh="tp=1",
+                           prefix_cache=0)
+    try:
+        status, got = _post_json(base, "/generate", {"prompt": [1, 2, 3],
+                                                     "max_new_tokens": 4})
+        if status != 200:
+            raise AssertionError(f"mesh tp=1 server /generate: {status} "
+                                 f"{got}")
+        with urllib.request.urlopen(base + "/info", timeout=60) as r:
+            info = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            text = r.read().decode()
+    finally:
+        _stop(srv, ms)
+    want = {"axes": {"tp": 1}, "devices": 1, "layout": "exact"}
+    gauges = [ln for ln in text.splitlines()
+              if ln.startswith("ptpu_serving_mesh_")]
+    if info.get("mesh") != want or gauges != [
+            "ptpu_serving_mesh_devices 1",
+            'ptpu_serving_mesh_axis_size{axis="tp"} 1']:
+        raise AssertionError(f"mesh tp=1 server: /info mesh "
+                             f"{info.get('mesh')}, gauges {gauges}")
+    try:
+        ServingMesh(parse_mesh("tp=2"))
+        raise AssertionError("tp=2 on one card was not refused")
+    except MeshError as e:
+        if "needs 2 devices; only 1 available" not in str(e):
+            raise
+        refused = str(e)
+    print(f"[mesh-serve] ModelServer(mesh='tp=1') over HTTP: "
+          f"{len(got['new_tokens'][0])} tokens, /info mesh {info['mesh']}, "
+          f"{' | '.join(gauges)}; ServingMesh(parse_mesh('tp=2')): "
+          f"{refused!r}")
+    return {"info_mesh": info["mesh"], "gauges": gauges}
+
+
+def phase_serving_mesh(model, model_f32) -> dict:
+    """The serving mesh (``serving/meshed.py``) on the card, over VIRTUAL
+    devices: every shard on ``cuda:0``, so the time is the exact
+    layout's cost on one card, not a multi-card number.
+
+    1. the column-split probe (``_mesh_probe``);
+    2. float32 engines == unmeshed engines == solo decoding (tie rule):
+       GPT-2 medium's own weights at ``F32_LAYERS`` layers with a
+       2-layer cut as the draft, tp 2 and 4, fixed lane and paged,
+       greedy, sampled and speculative; TinyLlama's width at
+       ``LLAMA_F32_LAYERS`` layers from seed 0, tp 2 (2 of its 4 KV
+       heads a shard), paged; MoE-GPT-small at ``MOE_MESH_LAYERS``
+       layers from seed 0, tp 2 x ep 2, both pools;
+    3. bf16 at full width (``_mesh_bf16``), the weights each device
+       holds (``_mesh_weights``), and where its tokens part from
+       unmeshed ones (``_mesh_bf16_where``);
+    4. ``ModelServer(mesh="tp=1")`` over HTTP (``_mesh_http``).
+    Returns the records and the flash launches of 2-4 (0, checked:
+    serving takes the plain attention path, meshed or not)."""
+    from polyaxon_tpu_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    probe = _mesh_probe()
+    print(f"[time] mesh-serve: probe {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # From here every run is meshed serving (or its unmeshed twin),
+    # which launches no flash kernel.
+    _zero_counts()
+    f32 = {}
+    gpt2 = _cut_draft(model_f32, "gpt2-medium", F32_LAYERS)
+    draft = _cut_draft(model_f32, "gpt2-medium", 2)
+    f32["gpt2-medium"] = _mesh_f32(
+        "gpt2-medium", gpt2, _mesh_requests(gpt2.cfg, spec=True),
+        ("tp=2", "tp=4"), ("fixed", "paged"), draft=draft)
+    del gpt2, draft
+    llama = get_model(LLAMA).init_params(seed=0, device="cuda",
+                                         dtype=torch.float32,
+                                         num_layers=LLAMA_F32_LAYERS)
+    f32[LLAMA] = _mesh_f32(LLAMA, llama,
+                           _mesh_requests(llama.cfg, spec=False),
+                           ("tp=2",), ("paged",))
+    del llama
+    moe = get_model("moe-gpt-small").init_params(
+        seed=0, device="cuda", dtype=torch.float32,
+        num_layers=MOE_MESH_LAYERS)
+    f32["moe-gpt-small"] = _mesh_f32(
+        "moe-gpt-small", moe, _mesh_requests(moe.cfg, spec=False),
+        ("tp=2,ep=2",), ("fixed", "paged"))
+    del moe
+    _release()
+    print(f"[time] mesh-serve: float32 engines "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bf16 = _mesh_bf16(model)
+    bf16["weights"] = _mesh_weights(model)
+    bf16["where"] = _mesh_bf16_where(model)
+    print(f"[time] mesh-serve: bf16 full width "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    http = _mesh_http(model)
+    launches = _counts()
+    print(f"[mesh-serve] flash launches of meshed serving: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"meshed serving launched flash kernels: "
+                             f"{launches}")
+    print(f"[time] mesh-serve: {time.perf_counter() - t_phase:.1f} s "
+          f"(http {time.perf_counter() - t0:.1f} s)")
+    return {"probe": probe, "f32": f32, "bf16": bf16, "http": http,
+            "flash_launches": launches}
+
+
 def main(argv=None) -> int:
     import argparse
     import shutil
@@ -6248,6 +6773,8 @@ def main(argv=None) -> int:
     mark("flight recorder and legacy coalescing")
     _lock_cross_check({"faults": faults["locks_report"],
                        "coalesce": profiling["locks_report"]})
+    serving_mesh = phase_serving_mesh(model, model_f32)
+    mark("serving mesh: the exact layout on virtual devices")
     del model, model_f32
     _release()
     train_counts, train_secs = phase_train_entry()
@@ -6376,7 +6903,8 @@ def main(argv=None) -> int:
                 **{k: v[name] for k, v in
                    fleet["flash_launches"].items()},
                 **{k: v[name] for k, v in
-                   profiling["flash_launches"].items()}},
+                   profiling["flash_launches"].items()},
+                "serving_mesh": serving_mesh["flash_launches"][name]},
             **rec, "kernel_ms": rec["ms"]})
     print(f"[llama] decode step ms (bf16, 8 slots, W=8 replay): "
           + ", ".join(f"{k} {v:.3f}" for k, v in llama_step_ms.items())

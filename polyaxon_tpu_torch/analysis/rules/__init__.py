@@ -42,8 +42,9 @@ are the reference's as they are (EXC-SWALLOW, PAGE-REF, PHASE-ENUM,
 SOCKET-TIMEOUT, WIRE-VERIFY); RNG-DET, LOCK-HOLD, JIT-PURITY,
 JIT-DEADLINE, HOST-SYNC, TIME-TRUTH, SNAPSHOT-LOCK, RETRY-BACKOFF and
 TIER-XFER had a jax-named sink and are retargeted to what they guard
-in the port (each module's docstring says which sink it matches);
-SHARD-LEAK waits for Parallelism and meshes and matches no file yet.
+in the port (each module's docstring says which sink it matches), and
+SHARD-LEAK guards the serving mesh's placement (``serving/meshed.py``
+and the slot pools it allocates).
 "Jitted" reads "captured into a CUDA graph" in the port.
 
 Suppression: ``# ptpu: ignore[RULE-A,RULE-B]`` on the flagged line or

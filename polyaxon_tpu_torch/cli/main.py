@@ -34,9 +34,9 @@ serving options: ``--int8-weights`` (quantized after loading, the draft
 too), ``--int8-kv`` and, for a sliding-window model, ``--kv-ring``
 (``serve --kv-ring-slack``; ``generate`` gives a ring ``spec_k - 1``
 spare slots with ``--draft-model``).  ``serve`` carries every flag of
-the reference's; ``--mesh``, whose feature is not ported yet, is kept
-at its default and refused by name with its ROADMAP item, so a user
-learns what is missing rather than getting a different server.
+the reference's; ``--mesh tp=N`` serves over ``dp * tp * ep`` local
+devices in the exact layout (``serving/meshed.py``), its spec parsed
+before the model is built.
 """
 
 from __future__ import annotations
@@ -269,15 +269,6 @@ def _check_spec_flags(draft_model, draft_checkpoint, spec_k, beams=1,
             "(temperature=0 is greedy and would ignore them)")
 
 
-def _refuse_not_ported(table, values) -> None:
-    refused = [f"{flag} (ROADMAP Queue 1: {item})"
-               for flag, default, item in table
-               if values[flag] != default]
-    if refused:
-        raise click.ClickException(
-            f"not yet ported to the PyTorch backend: {', '.join(refused)}")
-
-
 @cli.command()
 @click.option("--model", "model_name", required=True,
               help="Zoo model name (see models/registry.py).")
@@ -362,14 +353,6 @@ def generate(model_name, prompt, max_new_tokens, temperature, top_k,
         eos_id=eos_id, prefill_chunk=prefill_chunk,
         temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
         beams=beams, draft=draft, spec_k=spec_k)))
-
-
-# Flags of the reference's `serve` for features that come with later
-# slices, kept at the reference's defaults and refused by name when
-# set: (option, default, ROADMAP item).
-_SERVE_NOT_PORTED = (
-    ("--mesh", None, "Parallelism and meshes"),
-)
 
 
 @cli.command()
@@ -462,8 +445,16 @@ _SERVE_NOT_PORTED = (
                    "batch) or off (every request decodes alone) — the "
                    "engine's measured A/B baselines.")
 @click.option("--mesh", "mesh_arg", default=None,
-              help="Serve over a device mesh (not ported yet; refused "
-                   "when set).")
+              help="Serve over a device mesh, e.g. 'tp=4' or "
+                   "'tp=2,ep=2': column-parallel weights split over tp "
+                   "and the slot KV cache its heads (experts over ep; "
+                   "dp splits the slot axis on fixed-lane pools).  The "
+                   "exact serving layout: no sum crosses a device, so "
+                   "meshed responses equal unmeshed ones bitwise on the "
+                   "CPU, and on CUDA in float32 (bf16 ones may part at "
+                   "near-ties).  "
+                   "Requires --batching continuous and dp*tp*ep local "
+                   "devices.")
 @click.option("--prefix-cache", default=4, type=int,
               help="Prefix-cache entries (POST /prefill registers a "
                    "system prompt; matching /generate requests skip "
@@ -665,7 +656,6 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
         raise click.ClickException("--request-history must be >= 0")
     if max_batch < 1:
         raise click.ClickException("--max-batch must be >= 1")
-    _refuse_not_ported(_SERVE_NOT_PORTED, {"--mesh": mesh_arg})
     _check_spec_flags(draft_model, draft_checkpoint, spec_k)
     # Paged-KV flag validation: fail fast, before the model build.
     if kv_page_tokens < 8:
@@ -709,6 +699,21 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
             "--role decode requires --prefix-fetch (the decode tier "
             "admits handed-off prefills through the wire-fetch "
             "lane)")
+    mesh_spec = None
+    if mesh_arg is not None:
+        # Parsed BEFORE the model build: a typo'd axis must not cost a
+        # checkpoint restore.  The device count is checked by the
+        # server's ServingMesh, on the platform --cpu picked.
+        if batching != "continuous":
+            raise click.ClickException(
+                "--mesh requires --batching continuous (the mesh "
+                "shards the engine's slot KV pools)")
+        from polyaxon_tpu_torch.serving.meshed import MeshError, parse_mesh
+
+        try:
+            mesh_spec = parse_mesh(mesh_arg)
+        except MeshError as e:
+            raise click.ClickException(str(e))
     from polyaxon_tpu_torch.serving import (ModelServer,
                                             PrefixFetchPolicy,
                                             make_server)
@@ -760,9 +765,13 @@ def serve(model_name, host, port, n_slots, queue_depth, prefill_chunk,
                          forensics=forensics, exemplar_k=exemplar_k,
                          forensics_dir=forensics_dir, fault_plan=fault_plan,
                          supervise=not no_supervise, draft_model=draft,
-                         spec_k=spec_k)
-    except ValueError as e:  # e.g. a spec pool over a ring without slack
+                         spec_k=spec_k, mesh=mesh_spec)
+    except ValueError as e:  # e.g. a spec pool over a ring without slack,
+        # or a mesh this host has too few devices for (MeshError)
         raise click.ClickException(str(e))
+    # The server owns the models: on a mesh it holds their shards, and
+    # the whole split weights go with these names.
+    del model, draft
     try:
         srv = make_server(host, port, ms)
     except OSError as e:

@@ -51,7 +51,11 @@ def init_cache(model, batch_size: int) -> KVCache:
     ``kv_cache_int8``.  A ring's position table starts at -1 in every
     slot (``append_ring_kv_cache``'s contract for unwritten slots; the
     reference's ``init_cache`` zero-fills it instead, which lets a
-    prompt shorter than the ring attend to position-0 zero entries)."""
+    prompt shorter than the ring attend to position-0 zero entries).
+    A model placed on a serving mesh (``serving/meshed.MeshedModel``)
+    builds its own, split over its devices by heads."""
+    if hasattr(model, "init_cache"):
+        return model.init_cache(batch_size)
     cfg = model.cfg
     ring = _is_ring(model)
     cap = cfg.sliding_window + 1 + cfg.kv_cache_ring_slack if ring \
@@ -678,8 +682,8 @@ def _rollback_cache(cache: KVCache, new_index) -> None:
     tensor).  No data moves: stale entries past the index are masked by
     absolute position and overwritten by the next append."""
     if cache.positions is not None:
-        cache.positions.copy_(torch.as_tensor(new_index,
-                                              device=cache.k.device))
+        cache.positions.copy_(torch.as_tensor(
+            new_index, device=cache.positions.device))
     else:
         cache.index = int(new_index)
 

@@ -15,8 +15,17 @@ leaves dequantize where they are read: the quantized ``wte`` feeds
 both the lookup and the tied head.  ``cfg.remat`` recomputes each
 block in the backward (``torch.utils.checkpoint``, the counterpart of
 ``nn.remat``), keeping the outputs ``cfg.remat_policy`` names
-(``layers.py``).  Sharding hints have no meaning on one device and are
-dropped.  Parameter names follow the flax tree
+(``layers.py``).  Under a serving mesh (``serving/meshed.py``) a block
+runs its EXACT forward (:func:`attention`): the fused ``qkv`` is
+split BY HEADS (shard ``r`` holds the q, k and v columns of heads
+``[r * H / tp, (r + 1) * H / tp)``, a column permutation made once at
+placement, so each shard's attention needs no gather before it; the
+reference takes contiguous thirds and lets XLA reshard after its
+``constrain``, the same values), each shard attends over its heads and
+its own head shard of the cache, and the shards' outputs are
+concatenated at the reference's ``constrain`` sites before ``o_proj``
+and ``fc2`` (``fc1`` is column-split too when its width divides).
+Parameter names follow the flax tree
 (``wte``, ``wpe``, ``h.{i}.{ln1,qkv,o_proj,ln2,fc1,fc2}``, ``ln_f``) so
 ``convert.gpt2_state_dict_from_jax`` maps one onto the other.
 """
@@ -32,6 +41,7 @@ from torch import nn
 
 from .. import default_device
 from ..ops.attention import dot_product_attention
+from ..parallel.constraints import BATCH, constrain, current_exact_mesh
 from .kv_cache import KVCache, LayerCache, append_kv_cache
 from .layers import Dense, check_remat_policy, model_device, run_stack
 
@@ -88,6 +98,48 @@ def _layer_norm(cfg: GPT2Config, device) -> nn.LayerNorm:
                         dtype=torch.float32, device=device)
 
 
+def qkv_rows_by_heads(hidden: int, tp: int) -> list:
+    """Rows of a fused ``[3h, h]`` qkv weight for each of ``tp``
+    shards: shard ``r`` takes the q, k and v rows of its own heads."""
+    hs = hidden // tp
+    return [torch.cat([torch.arange(j * hidden + r * hs,
+                                    j * hidden + (r + 1) * hs)
+                       for j in range(3)]) for r in range(tp)]
+
+
+def attention(block: nn.Module, h, cache=None) -> torch.Tensor:
+    """GPT-2's attention (``block.qkv``, ``cfg.num_heads``) over the
+    ln1'd input ``h``: q/k/v projected, k/v appended to ``cache`` (a
+    decode step) and the heads' output [..., hidden], before
+    ``o_proj``.  Under a serving mesh each tensor-parallel shard
+    projects its heads (the by-heads :class:`layers.ColumnShards`, or
+    the whole ``qkv`` at tp = 1), appends to its shard of the cache (a
+    ``ShardedLayerCache``) and attends on its device, and the heads are
+    concatenated on the primary device (the ``constrain`` site before
+    ``o_proj``).  Shared by MoE-GPT's blocks."""
+    group = current_exact_mesh()
+    if group is None:
+        return _attend_heads(block.cfg, block.qkv(h), cache)
+    qkv = group.shards_of(block)["qkv"]
+    return constrain([
+        _attend_heads(block.cfg,
+                      block.qkv(h) if qkv is None else qkv.shard(r, h),
+                      None if cache is None else cache.shards[r])
+        for r in range(group.tp)], BATCH, None, "tp")
+
+
+def _attend_heads(cfg, qkv, cache) -> torch.Tensor:
+    """Attention over a [..., 3 * heads * D] projection (all heads, or
+    one shard's: its q, k and v thirds) -> [..., heads * D]."""
+    hd = cfg.hidden_size // cfg.num_heads
+    q, k, v = (t.unflatten(-1, (-1, hd)) for t in qkv.chunk(3, dim=-1))
+    mask = None
+    if cache is not None:
+        k, v, mask, _ = append_kv_cache(cache, k, v)
+    return dot_product_attention(q, k, v, causal=cache is None,
+                                 mask=mask).flatten(-2)
+
+
 class GPT2Block(nn.Module):
     def __init__(self, cfg: GPT2Config, device=None, param_dtype=None):
         super().__init__()
@@ -105,26 +157,35 @@ class GPT2Block(nn.Module):
         self.fc1 = dense(h, cfg.intermediate_size)
         self.fc2 = dense(cfg.intermediate_size, h)
 
+    def place_exact(self, placer) -> dict:
+        """This block's column shards on a serving mesh group
+        (``serving/meshed.py``): ``qkv`` by heads, ``fc1`` in contiguous
+        blocks; None where the mesh keeps the weight whole."""
+        return {"qkv": placer.columns(
+                    "qkv", self.qkv,
+                    qkv_rows_by_heads(self.cfg.hidden_size, placer.tp)),
+                "fc1": placer.columns("fc1", self.fc1)}
+
     def forward(self, x, cache: Optional[LayerCache] = None):
         """``cache`` given: a KV-cache step (prefill chunk or one decode
         token) appending at ``cache.index``; else the causal
-        full-sequence forward."""
+        full-sequence forward.  Under a serving mesh: the exact
+        sharded forward (module docstring)."""
         cfg = self.cfg
         h = self.ln1(x.float()).to(cfg.dtype)
-        qkv = self.qkv(h)
-        q, k, v = qkv.split(cfg.hidden_size, dim=-1)
-        shape = h.shape[:-1] + (cfg.num_heads,
-                                cfg.hidden_size // cfg.num_heads)
-        q, k, v = (t.reshape(shape) for t in (q, k, v))
-        mask = None
-        if cache is not None:
-            k, v, mask, _ = append_kv_cache(cache, k, v)
-        a = dot_product_attention(q, k, v, causal=cache is None,
-                                  mask=mask)
-        x = x + self.o_proj(a.reshape(h.shape))
+        x = x + self.o_proj(attention(self, h, cache))
         h = self.ln2(x.float()).to(cfg.dtype)
-        h = self.fc2(F.gelu(self.fc1(h), approximate="tanh"))
-        return x + h
+        return x + self.fc2(self._fc1_gelu(h))
+
+    def _fc1_gelu(self, h):
+        """``gelu(fc1(h))``: under a serving mesh, each column shard's on
+        its device, concatenated on the primary before ``fc2``."""
+        group = current_exact_mesh()
+        fc1 = None if group is None else group.shards_of(self)["fc1"]
+        if fc1 is None:
+            return F.gelu(self.fc1(h), approximate="tanh")
+        return constrain([F.gelu(fc1.shard(r, h), approximate="tanh")
+                          for r in range(group.tp)], BATCH, None, "tp")
 
 
 class GPT2Model(nn.Module):

@@ -26,8 +26,9 @@ graph with the positions read from a device buffer at replay time.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -103,6 +104,47 @@ class KVCache:
     def quantized(self) -> bool:
         return self.k_scale is not None
 
+    @property
+    def device(self) -> torch.device:
+        return self.k.device
+
+    def at_positions(self, positions: torch.Tensor) -> "KVCache":
+        """This cache as a SLOT cache at ``positions`` ([B] long): a
+        view over the same tensors."""
+        return dataclasses.replace(self, positions=positions)
+
+    def stacked(self, n: int, device=None) -> "KVCache":
+        """A B=1 cache -> the zeroed ``n``-row pool of the same kind
+        (a ring table of -1: no slot written), on ``device`` (default:
+        this cache's)."""
+        dev = self.device if device is None else device
+
+        def wide(t):
+            shape = list(t.shape)
+            shape[1] = n
+            return torch.zeros(shape, dtype=t.dtype, device=dev)
+
+        ring = self.ring_pos
+        return self.with_leaves(
+            [wide(t) for t in self.leaves()], index=0,
+            ring_pos=None if ring is None else torch.full(
+                (n, ring.shape[-1]), -1, dtype=ring.dtype, device=dev))
+
+    def copy_lane(self, slot: int, src: "KVCache") -> None:
+        """Copy the B=1 cache ``src`` into row ``slot`` of this pool
+        wholesale (every leaf, and a ring's position table)."""
+        for dst, t in zip(self.leaves(), src.leaves()):
+            dst[:, slot].copy_(t[:, 0])
+        if self.ring_pos is not None:
+            self.ring_pos[slot].copy_(src.ring_pos)
+
+    def ring_tensors(self) -> List[torch.Tensor]:
+        """A ring cache's entries and position table (what a graph
+        capture's warm-up must restore); [] for any other cache."""
+        if self.ring_pos is None:
+            return []
+        return self.leaves() + [self.ring_pos]
+
     def layer(self, i: int) -> LayerCache:
         return LayerCache(
             self.k[i], self.v[i], self.index, self.positions,
@@ -171,6 +213,145 @@ class KVCache:
                 self.ring_pos.scatter_(1, tail % cap, tail)
         if self.positions is None:
             self.index += s
+
+
+@dataclass
+class ShardedLayerCache:
+    """One layer's view of a :class:`ShardedKVCache`: one
+    :class:`LayerCache` per tensor-parallel shard, in shard order."""
+    shards: List[LayerCache]
+
+
+@dataclass
+class ShardedKVCache:
+    """A cache split over the devices of a serving mesh (module
+    docstring): ``shards[g * tp + r]`` on ``devices[g * tp + r]``.
+    ``positions`` ([B] long, on the first shard's device) makes it a
+    SLOT cache; each shard then holds its own group's rows of it on its
+    own device.  The index, the ring tables and every in-place write
+    live in the shards, which are ordinary :class:`KVCache` objects."""
+    shards: List[KVCache]
+    tp: int
+    devices: List[torch.device]
+    positions: Optional[torch.Tensor] = None
+
+    @property
+    def dp(self) -> int:
+        return len(self.shards) // self.tp
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def rows(self) -> int:
+        """Rows per shard (a slot group's share of the batch)."""
+        return self.shards[0].k.shape[1]
+
+    @property
+    def index(self) -> int:
+        return self.shards[0].index
+
+    @index.setter
+    def index(self, value: int) -> None:
+        for s in self.shards:
+            s.index = value
+
+    def _map(self, fn) -> "ShardedKVCache":
+        return ShardedKVCache([fn(s, d) for s, d in
+                               zip(self.shards, self.devices)],
+                              self.tp, list(self.devices), self.positions)
+
+    def layer(self, i: int) -> ShardedLayerCache:
+        if self.dp != 1:
+            raise ValueError("layer() of a dp-split cache: step each "
+                             "slot group (group(g)) on its own")
+        return ShardedLayerCache([s.layer(i) for s in self.shards])
+
+    def group(self, g: int) -> "ShardedKVCache":
+        """Slot group ``g``'s tp shards (its rows of ``positions``)."""
+        tp, n = self.tp, self.rows
+        pos = None if self.positions is None \
+            else self.positions[g * n:(g + 1) * n]
+        return ShardedKVCache(self.shards[g * tp:(g + 1) * tp], tp,
+                              self.devices[g * tp:(g + 1) * tp], pos)
+
+    def at_positions(self, positions: torch.Tensor) -> "ShardedKVCache":
+        """Every shard at its group's rows of ``positions``, moved to
+        the shard's device (a no-op where it already lies there)."""
+        n = self.rows
+        shards = [s.at_positions(positions[(i // self.tp) * n:
+                                           (i // self.tp + 1) * n].to(d))
+                  for i, (s, d) in enumerate(zip(self.shards,
+                                                 self.devices))]
+        return ShardedKVCache(shards, self.tp, list(self.devices),
+                              positions)
+
+    def leaves(self) -> List[torch.Tensor]:
+        """Every shard's :meth:`KVCache.leaves`, shard after shard."""
+        return [t for s in self.shards for t in s.leaves()]
+
+    def leaf_devices(self) -> List[torch.device]:
+        """The device of each of :meth:`leaves`."""
+        per = len(self.shards[0].leaves())
+        return [d for d in self.devices for _ in range(per)]
+
+    def with_leaves(self, leaves, *, index: Optional[int] = None,
+                    positions: Optional[torch.Tensor] = None
+                    ) -> "ShardedKVCache":
+        """A cache of this one's sharding over ``leaves`` (in
+        :meth:`leaves`' order), at ``index`` (default: this one's) or,
+        given ``positions``, a slot cache."""
+        leaves = list(leaves)
+        per = len(leaves) // len(self.shards)
+        idx = self.index if index is None else index
+        out = ShardedKVCache(
+            [KVCache.from_leaves(leaves[i * per:(i + 1) * per], index=idx)
+             for i in range(len(self.shards))], self.tp,
+            list(self.devices))
+        return out if positions is None else out.at_positions(positions)
+
+    def merge_heads(self, leaves: Sequence[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """Leaves in :meth:`leaves`' order (one slot group) -> the
+        unsharded cache's leaves: each kind's shards concatenated along
+        the heads axis (ndim - 2) on the first shard's device."""
+        per = len(leaves) // self.tp
+        return [torch.cat([leaves[r * per + j].to(leaves[j].device)
+                           for r in range(self.tp)], dim=-2)
+                for j in range(per)]
+
+    def split_heads(self, leaves: Sequence[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+        """The inverse of :meth:`merge_heads`: unsharded leaves -> this
+        cache's shard order, each piece on its shard's device."""
+        parts = [t.chunk(self.tp, dim=-2) for t in leaves]
+        return [parts[j][r].to(self.devices[r]).contiguous()
+                for r in range(self.tp) for j in range(len(leaves))]
+
+    def tile_rows(self, k: int) -> "ShardedKVCache":
+        return self._map(lambda s, d: s.tile_rows(k))
+
+    def take_rows(self, rows: torch.Tensor) -> "ShardedKVCache":
+        return self._map(lambda s, d: s.take_rows(rows.to(d)))
+
+    def clone(self) -> "ShardedKVCache":
+        return self._map(lambda s, d: s.clone())
+
+    def advance(self, s: int) -> None:
+        for shard in self.shards:
+            shard.advance(s)
+
+    def copy_lane(self, slot: int, src: "ShardedKVCache") -> None:
+        """Copy the B=1 sharded cache ``src`` (one group) into row
+        ``slot`` of this pool: shard ``r`` of ``src`` into shard ``r``
+        of the slot's group, device to device."""
+        g, lane = divmod(slot, self.rows)
+        for r in range(self.tp):
+            self.shards[g * self.tp + r].copy_lane(lane, src.shards[r])
+
+    def ring_tensors(self) -> List[torch.Tensor]:
+        return [t for s in self.shards for t in s.ring_tensors()]
 
 
 def append_kv_cache(cache: LayerCache, k, v, window: Optional[int] = None,

@@ -25,7 +25,7 @@ name is refused.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +52,79 @@ class Dense(nn.Linear):
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt),
                         None if self.bias is None else self.bias.to(dt))
+
+
+class _RowShard:
+    """Rows ``idx`` of one of a Dense's tensors (``weight`` [out, in] or
+    ``bias`` [out]) on ``device``.  A quantized tensor keeps its int8
+    codes and its per-channel scale's rows, and dequantizes at each
+    read as the whole tensor does (``ops/quant.Dequantize``): the
+    scales are per output channel, so the rows read bitwise what the
+    whole tensor's read holds there."""
+
+    def __init__(self, module: nn.Module, attr: str, idx: torch.Tensor,
+                 device):
+        from ..ops.quant import Dequantize, _dequantizer
+
+        deq = _dequantizer(module, attr)
+        if deq is None:
+            t = getattr(module, attr).detach()
+            self.value = t[idx.to(t.device)].to(device)
+            self.deq = None
+            return
+        q = getattr(module.parametrizations, attr).original
+        scale = deq.scale
+        if scale.shape[0] == q.shape[0]:
+            scale = scale[idx.to(scale.device)]
+        self.value = q[idx.to(q.device)].to(device)
+        self.deq = Dequantize(scale.to(device), deq.dtype)
+
+    def read(self) -> torch.Tensor:
+        return self.value if self.deq is None else self.deq(self.value)
+
+
+class ColumnShards:
+    """A :class:`Dense`'s OUTPUT columns split over devices, the serving
+    mesh's column-parallel placement (``serving/meshed.py``): shard
+    ``r`` holds rows ``rows[r]`` of the ``[out, in]`` weight and of the
+    bias, over the FULL contraction dim, on ``devices[r]``.
+    ``shard(r, x)`` is the layer's own product restricted to those
+    columns (the same ``F.linear`` in the same compute dtype), so each
+    output element keeps the whole product's accumulation order — the
+    exact layout's premise, which the card's column-split probe
+    measures (``chip_smoke.py``)."""
+
+    axis = "tp"
+
+    def __init__(self, dense: "Dense", rows: Sequence[torch.Tensor],
+                 devices: Sequence[torch.device]):
+        self.compute_dtype = dense.compute_dtype
+        self.devices = list(devices)
+        self.weights = [_RowShard(dense, "weight", idx, d)
+                        for idx, d in zip(rows, self.devices)]
+        self.biases = [None if dense.bias is None
+                       else _RowShard(dense, "bias", idx, d)
+                       for idx, d in zip(rows, self.devices)]
+
+    def held(self) -> List[List[torch.Tensor]]:
+        """The tensors each shard holds on its device."""
+        return [[t for p in (w, b) if p is not None
+                 for t in (p.value, *([] if p.deq is None
+                                      else [p.deq.scale]))]
+                for w, b in zip(self.weights, self.biases)]
+
+    def shard(self, r: int, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        b = self.biases[r]
+        return F.linear(x.to(self.devices[r]).to(dt),
+                        self.weights[r].read().to(dt),
+                        None if b is None else b.read().to(dt))
+
+
+def contiguous_rows(n: int, parts: int) -> List[torch.Tensor]:
+    """``parts`` contiguous, equal blocks of ``range(n)``."""
+    m = n // parts
+    return [torch.arange(r * m, (r + 1) * m) for r in range(parts)]
 
 
 def f32_param(shape, device, std: float) -> nn.Parameter:

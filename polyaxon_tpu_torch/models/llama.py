@@ -23,6 +23,15 @@ returns.  Parameter names follow the flax tree (``embed``,
 up_proj,down_proj}``, ``final_norm``, ``lm_head``) so
 ``convert.llama_state_dict_from_jax`` maps one onto the other.
 
+Under a serving mesh (``serving/meshed.py``) each block runs its EXACT
+forward: shard ``r`` of ``tp`` projects the q heads and the KV heads
+``[r * kv / tp, (r + 1) * kv / tp)`` (the q heads that share them, so
+the KV repeat stays on the shard), rotates and appends to its own head
+shard of the cache, attends there, and the heads are concatenated on
+the primary device before ``o_proj``; ``gate_proj`` / ``up_proj`` are
+column-split when their width divides and concatenated before
+``down_proj``.
+
 Serving options: int8 weights (``ops/quant.py``: the embedding, the
 dense layers, ``lm_head`` and, at full width, the stacked norm scales
 dequantize where they are read), the int8 KV cache (``kv_cache_int8``)
@@ -42,6 +51,7 @@ from torch import nn
 from .. import default_device
 from ..ops.attention import dot_product_attention
 from ..ops.rotary import rotate
+from ..parallel.constraints import BATCH, constrain, current_exact_mesh
 from .layers import Dense, check_remat_policy, model_device, run_stack
 from .kv_cache import (KVCache, LayerCache, append_kv_cache,
                        append_ring_kv_cache)
@@ -139,6 +149,9 @@ def _dense(cfg: LlamaConfig, n_in: int, n_out: int, param_dtype,
                  bias=False)
 
 
+_QKV = ("q_proj", "k_proj", "v_proj")
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
@@ -151,18 +164,48 @@ class LlamaAttention(nn.Module):
                              device)
         self.o_proj = _dense(cfg, cfg.num_heads * hd, h, param_dtype, device)
 
-    def forward(self, x, cache: Optional[LayerCache] = None):
+    def forward(self, x, cache: Optional[LayerCache] = None,
+                shards: Optional[dict] = None):
         """``cache`` given: a KV-cache step (prefill chunk or one decode
-        token per row); else the causal (windowed) full forward."""
-        cfg = self.cfg
+        token per row); else the causal (windowed) full forward.
+        ``shards`` (under a serving mesh, :meth:`place_exact`'s): each
+        shard's heads attend over its own shard of the cache (a
+        ``ShardedLayerCache``) on its device, and the heads are
+        concatenated on the primary device before ``o_proj``."""
+        if shards is None:
+            return self.o_proj(self._heads(x, cache))
+        group = current_exact_mesh()
+        return self.o_proj(constrain([
+            self._heads(x, None if cache is None else cache.shards[r],
+                        shards, r)
+            for r in range(group.tp)], BATCH, None, "tp"))
+
+    def place_exact(self, placer) -> dict:
+        """q/k/v column shards in contiguous head blocks (shard ``r``'s
+        q heads are those sharing its KV heads)."""
+        return {n: placer.columns(f"attn.{n}", getattr(self, n))
+                for n in _QKV}
+
+    def _heads(self, x, cache, shards=None, r: int = 0):
+        """The attention of ``x``'s q/k/v projections (all heads, or
+        shard ``r``'s of the column ``shards``) -> [B, S, heads * D]."""
         b, s = x.shape[:2]
-        hd, theta = cfg.head_dim, cfg.rope_theta
-        q = self.q_proj(x).view(b, s, cfg.num_heads, hd)
-        k = self.k_proj(x).view(b, s, cfg.num_kv_heads, hd)
-        v = self.v_proj(x).view(b, s, cfg.num_kv_heads, hd)
+        q, k, v = (getattr(self, n)(x) if shards is None or shards[n] is None
+                   else shards[n].shard(r, x) for n in _QKV)
+        hd = self.cfg.head_dim
+        a = self._attend(q.view(b, s, -1, hd), k.view(b, s, -1, hd),
+                         v.view(b, s, -1, hd), cache)
+        return a.reshape(b, s, -1)
+
+    def _attend(self, q, k, v, cache: Optional[LayerCache]):
+        """RoPE, the cache append, the GQA repeat and attention over
+        [B, S, heads, D] projections (all heads, or one shard's)."""
+        cfg = self.cfg
+        s = q.shape[1]
+        theta = cfg.rope_theta
         mask = None
         if cache is None:
-            pos = torch.arange(s, device=x.device)
+            pos = torch.arange(s, device=q.device)
             q, k = rotate(q, pos, theta=theta), rotate(k, pos, theta=theta)
         else:
             # Keys rotate at their absolute positions inside the append
@@ -181,10 +224,9 @@ class LlamaAttention(nn.Module):
             rep = cfg.num_heads // cfg.num_kv_heads
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        a = dot_product_attention(
+        return dot_product_attention(
             q, k, v, causal=cache is None, mask=mask,
             window=None if cache is not None else cfg.sliding_window)
-        return self.o_proj(a.reshape(b, s, cfg.num_heads * hd))
 
 
 class LlamaBlock(nn.Module):
@@ -199,12 +241,29 @@ class LlamaBlock(nn.Module):
         self.up_proj = _dense(cfg, h, inter, param_dtype, device)
         self.down_proj = _dense(cfg, inter, h, param_dtype, device)
 
+    def place_exact(self, placer) -> dict:
+        """The attention's shards and the column-split ``gate_proj`` /
+        ``up_proj`` (None each where the mesh keeps it whole)."""
+        return {"attn": self.attn.place_exact(placer),
+                "gate_proj": placer.columns("gate_proj", self.gate_proj),
+                "up_proj": placer.columns("up_proj", self.up_proj)}
+
     def forward(self, x, cache: Optional[LayerCache] = None):
         dtype = self.cfg.dtype
-        x = x + self.attn(self.input_norm(x).to(dtype), cache)
+        group = current_exact_mesh()
+        sh = None if group is None else group.shards_of(self)
+        x = x + self.attn(self.input_norm(x).to(dtype), cache,
+                          None if sh is None else sh["attn"])
         h = self.post_attn_norm(x).to(dtype)
-        return x + self.down_proj(F.silu(self.gate_proj(h))
-                                  * self.up_proj(h))
+        gate = up = None
+        if sh is not None:
+            gate, up = sh["gate_proj"], sh["up_proj"]
+        if gate is None or up is None:
+            mlp = F.silu(self.gate_proj(h)) * self.up_proj(h)
+        else:
+            mlp = constrain([F.silu(gate.shard(r, h)) * up.shard(r, h)
+                             for r in range(group.tp)], BATCH, None, "tp")
+        return x + self.down_proj(mlp)
 
 
 class LlamaModel(nn.Module):

@@ -30,9 +30,16 @@ routing (``parallel.moe.route_top1``):
 
 Decode and prefill run inside CUDA graphs: no host read, no
 data-dependent shape.  The model returns ``(logits, aux)``, ``aux`` the
-mean of the layers' load-balance losses (0 in decode).  Expert
-parallelism over a mesh (the reference's ``moe_layer``) is refused by
-the parallelism item.  Parameter names follow the flax tree (``wte``,
+mean of the layers' load-balance losses (0 in decode).
+
+On a serving mesh (``serving/meshed.py``) a block's attention is
+GPT-2's (``gpt2.attention``, exact under the mesh) and its experts are
+split over ``ep`` (:class:`ExpertShards`): decode FETCHES each token's
+routed expert from the device that holds it, and a prefill chunk's
+buckets run on their experts' devices; the per-expert math is the
+unmeshed one.  Training's expert parallelism (the reference's
+``moe_layer``, an all-to-all across a gang) is refused by the
+parallelism item.  Parameter names follow the flax tree (``wte``,
 ``wpe``, ``h.{i}.{ln1,qkv,o_proj,ln2,moe.{router,experts_w1,
 experts_w2}}``, ``ln_f``), the router ``[d, E]`` and the experts
 ``[E, d, f]`` / ``[E, f, d]`` in the reference's layout, so
@@ -42,16 +49,17 @@ experts_w2}}``, ``ln_f``), the router ``[d, E]`` and the experts
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .. import default_device
-from ..ops.attention import dot_product_attention
+from ..parallel.constraints import current_exact_mesh
 from ..parallel.moe import load_balance_loss, route_top1
-from .kv_cache import KVCache, LayerCache, append_kv_cache
+from .kv_cache import KVCache, LayerCache
+from .gpt2 import attention, qkv_rows_by_heads
 from .layers import Dense, f32_param, model_device, remat_call
 
 
@@ -96,17 +104,77 @@ def _experts(buckets, w1, w2):
     return torch.bmm(_gelu(torch.bmm(buckets, w1.float())), w2.float())
 
 
-def switch_ffn_decode(flat, router_w, w1, w2):
+class ExpertShards:
+    """The experts ``[E, d, f]`` / ``[E, f, d]`` split over a serving
+    mesh group's ``ep`` devices, ``E / ep`` consecutive experts each
+    (the reference's ``experts_w[12]`` over ``ep``)."""
+
+    axis = "ep"
+
+    def __init__(self, w1: torch.Tensor, w2: torch.Tensor, group):
+        self.devices = list(group.ep_devices)
+        self.primary = group.primary
+        ep = len(self.devices)
+        self.per = w1.shape[0] // ep
+        self.w1 = [t.detach().to(d).clone() for t, d in
+                   zip(w1.chunk(ep), self.devices)]
+        self.w2 = [t.detach().to(d).clone() for t, d in
+                   zip(w2.chunk(ep), self.devices)]
+
+    def held(self) -> List[List[torch.Tensor]]:
+        """The tensors each shard holds on its device."""
+        return [[a, b] for a, b in zip(self.w1, self.w2)]
+
+    def decode(self, x32: torch.Tensor, expert: torch.Tensor):
+        """One token a row ([T, d] float32, ``expert`` [T]) through its
+        routed expert, on the device that holds it: only the tokens
+        and the outputs cross devices, never an expert's weights.  A
+        decode step's shapes are static (its CUDA graph), so every shard
+        runs all T rows against its own experts (another shard's token
+        clamped onto an edge expert of this one) and each row keeps the
+        output of its expert's shard: the gather and the FFN are the
+        unmeshed decode's on each device, ``ep`` times that in all (on
+        one card's virtual devices, ``ep`` times its time)."""
+        out = None
+        for e, (dev, w1, w2) in enumerate(zip(self.devices, self.w1,
+                                              self.w2)):
+            local = (expert - e * self.per).clamp(0, self.per - 1)
+            y = _decode_ffn(x32.to(dev), local.to(dev), w1,
+                            w2).to(self.primary)
+            out = y if out is None else torch.where(
+                (expert // self.per == e)[:, None], y, out)
+        return out
+
+    def run(self, buckets: torch.Tensor) -> torch.Tensor:
+        """Every expert's FFN over its bucket rows ([E, N, d]), each
+        shard's buckets on its device; concatenated on the primary."""
+        return torch.cat([
+            _experts(chunk.to(dev), w1, w2).to(self.primary)
+            for chunk, dev, w1, w2 in zip(buckets.chunk(len(self.devices)),
+                                          self.devices, self.w1, self.w2)])
+
+
+def _decode_ffn(x32, expert, w1, w2):
+    """[T, d] float32 rows through the experts ``expert`` [T] of ``w1`` /
+    ``w2``, gathering only those experts' weights -> [T, d]."""
+    h = _gelu(torch.bmm(x32[:, None, :], w1.float()[expert]))
+    return torch.bmm(h, w2.float()[expert])[:, 0]
+
+
+def switch_ffn_decode(flat, router_w, w1, w2, experts=None):
     """One token per row: gather only each token's routed expert's
-    weights.  flat [T, d] -> ([T, d] float32, aux 0)."""
+    weights (on a mesh, run each on the device of its expert:
+    ``experts``, an :class:`ExpertShards`).
+    flat [T, d] -> ([T, d] float32, aux 0)."""
     x32 = flat.float()
     _, expert, gate, _ = route_top1(x32 @ router_w.float())
-    h = _gelu(torch.bmm(x32[:, None, :], w1.float()[expert]))
-    out = torch.bmm(h, w2.float()[expert])[:, 0]
+    out = _decode_ffn(x32, expert, w1, w2) if experts is None \
+        else experts.decode(x32, expert)
     return out * gate[:, None], x32.new_zeros(())
 
 
-def switch_ffn_train(flat, router_w, w1, w2, capacity: int):
+def switch_ffn_train(flat, router_w, w1, w2, capacity: int,
+                     experts=None):
     """Top-1 with ``capacity`` rows an expert, by index: the function
     of the reference's one-hot einsums (``_switch_ffn_dense``).  A
     token past its expert's capacity lands in a spare row that no
@@ -119,7 +187,9 @@ def switch_ffn_train(flat, router_w, w1, w2, capacity: int):
     n = e * capacity
     rows = torch.where(keep, expert * capacity + pos, n)
     buckets = x32.new_zeros(n + 1, d).index_copy(0, rows, x32)[:n]
-    out = _experts(buckets.view(e, capacity, d), w1, w2).reshape(n, d)
+    buckets = buckets.view(e, capacity, d)
+    out = (_experts(buckets, w1, w2) if experts is None
+           else experts.run(buckets)).reshape(n, d)
     out = torch.where(keep[:, None],
                       out[rows.clamp(max=n - 1)] * gate[:, None], 0.0)
     return out, load_balance_loss(probs, expert)
@@ -137,21 +207,26 @@ class MoEMlp(nn.Module):
         self.experts_w1 = f32_param((e, d, f), device, 0.02)
         self.experts_w2 = f32_param((e, f, d), device, 0.02)
 
-    def forward(self, x, decode: bool = False):
+    def forward(self, x, decode: bool = False,
+                experts: Optional[ExpertShards] = None):
+        """``experts``: the mesh's expert shards (None: this module's
+        own weights)."""
         cfg = self.cfg
         b, s, d = x.shape
         flat = x.reshape(b * s, d)
         w = (self.router, self.experts_w1, self.experts_w2)
         if decode and s == 1:
-            out, aux = switch_ffn_decode(flat, *w)
+            out, aux = switch_ffn_decode(flat, *w, experts=experts)
         elif decode:
             # A prefill chunk: drop-free, capacity = the chunk's tokens.
-            out, _ = switch_ffn_train(flat, *w, capacity=b * s)
+            out, _ = switch_ffn_train(flat, *w, capacity=b * s,
+                                      experts=experts)
             aux = out.new_zeros(())
         else:
             capacity = max(1, int(cfg.capacity_factor * b * s
                                   / cfg.num_experts))
-            out, aux = switch_ffn_train(flat, *w, capacity)
+            out, aux = switch_ffn_train(flat, *w, capacity,
+                                        experts=experts)
         return out.reshape(x.shape).to(cfg.dtype), aux
 
 
@@ -175,20 +250,23 @@ class MoEBlock(nn.Module):
         self.ln2 = _layer_norm(cfg, device)
         self.moe = MoEMlp(cfg, device)
 
+    def place_exact(self, placer) -> dict:
+        """``qkv`` by heads (GPT-2's), and the experts over ``ep``."""
+        return {"qkv": placer.columns(
+                    "qkv", self.qkv,
+                    qkv_rows_by_heads(self.cfg.hidden_size, placer.tp)),
+                "experts": placer.experts(
+                    "moe", self.moe.experts_w1, self.moe.experts_w2)}
+
     def forward(self, x, cache: Optional[LayerCache] = None):
         cfg = self.cfg
+        group = current_exact_mesh()
         h = self.ln1(x.float()).to(cfg.dtype)
-        q, k, v = self.qkv(h).split(cfg.hidden_size, dim=-1)
-        shape = h.shape[:-1] + (cfg.num_heads,
-                                cfg.hidden_size // cfg.num_heads)
-        q, k, v = (t.reshape(shape) for t in (q, k, v))
-        mask = None
-        if cache is not None:
-            k, v, mask, _ = append_kv_cache(cache, k, v)
-        a = dot_product_attention(q, k, v, causal=cache is None, mask=mask)
-        x = x + self.o_proj(a.reshape(h.shape))
+        x = x + self.o_proj(attention(self, h, cache))
         h = self.ln2(x.float()).to(cfg.dtype)
-        ffn, aux = self.moe(h, decode=cache is not None)
+        ffn, aux = self.moe(h, decode=cache is not None, experts=None
+                            if group is None
+                            else group.shards_of(self)["experts"])
         return x + ffn, aux
 
 

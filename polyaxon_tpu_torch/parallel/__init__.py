@@ -7,12 +7,15 @@ Port of ``polyaxon_tpu/parallel``:
                    and the batch's row sharding.
 - ``collectives``: differentiable collectives over mesh axes.
 - ``health``:      the slice health probe.
-- ``constraints``: the ambient mesh.
+- ``constraints``: the ambient mesh and the serving-exact mesh.
 - ``strategies``:  the train step on one device, dp and fsdp.
 - ``moe``:         switch routing (``moe_layer`` refused).
 
-Tensor, expert, sequence and pipeline parallelism come with later slices
-(ROADMAP Queue 1: Parallelism and meshes).
+``constraints`` also carries the serving-exact mesh of
+``serving/meshed.py`` (tensor and expert parallelism in serving).
+Tensor and expert parallelism in training, and sequence and pipeline
+parallelism, come with later slices (ROADMAP Queue 1: Parallelism and
+meshes, items (b2), (c), (d)).
 """
 
 from .bootstrap import initialize_from_env, topology_from_env

@@ -1,19 +1,26 @@
-"""The ambient mesh and activation constraints (the training half).
+"""The ambient mesh, the serving-exact mesh and activation constraints.
 
 Port of ``polyaxon_tpu/parallel/constraints.py``.  Models don't know the
-mesh, so the train step publishes it as an *ambient mesh* for the
-duration of the step (a contextvar).  The reference's models read it at
-trace time to pin activation layouts; the port's losses and batch norms
-read it to reduce over the data axes (``collectives.data_all_reduce``).
+mesh, so their callers publish it in a contextvar for the duration of a
+call.  Two channels, with different semantics:
 
-``constrain`` is the identity.  The reference pins a layout with
-``with_sharding_constraint`` so that XLA's SPMD partitioner keeps
-activations batch-sharded; under data parallelism here every
-activation is already rank-local — each process computes on its own
-rows of the batch with whole parameters (FSDP gathers them before the
-forward) — so there is no layout to pin.  Tensor-axis constraints and
-the serving-exact mesh (``exact_mesh``) come with tensor and expert
-parallelism and are refused by that item's name.
+- the AMBIENT mesh (training): the train step publishes it; the port's
+  losses and batch norms read it to reduce over the data axes
+  (``collectives.data_all_reduce``).  ``constrain`` ignores it: under
+  data parallelism every activation is already rank-local — each
+  process computes on its own rows of the batch with whole parameters
+  (FSDP gathers them before the forward) — so there is no layout to
+  pin, where the reference pins one with ``with_sharding_constraint``.
+- the SERVING-EXACT mesh (``exact_mesh``, ``serving/meshed.py``): a
+  placed model publishes its mesh group for each forward.  The serving
+  layout sums nothing across devices (tokens bitwise equal to unmeshed
+  execution on the CPU; ``serving/meshed.py`` for CUDA), so every
+  ``constrain`` site that names a TENSOR axis ("tp"/"ep") forces the
+  activation REPLICATED: the column shards are concatenated on the
+  group's primary device right before the row-parallel contraction that
+  Megatron's layout would psum.  Concatenation moves bytes and never
+  reassociates a sum, so column-parallel products keep each output
+  element's accumulation order and per-head attention stays per head.
 """
 
 from __future__ import annotations
@@ -24,16 +31,20 @@ from typing import Sequence, Tuple, Union
 
 AxisName = Union[None, str, Sequence[str]]
 
-EXACT_MESH_REFUSAL = (
-    "the serving-exact mesh (exact_mesh, serving/meshed.py) comes with "
-    "tensor and expert parallelism (ROADMAP Queue 1: Parallelism and "
-    "meshes)")
-
 _AMBIENT_MESH: contextvars.ContextVar = contextvars.ContextVar(
     "ptpu_ambient_mesh", default=None)
 
+# The serving-exact mesh: a SECOND channel (module docstring).
+_EXACT_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "ptpu_serving_exact_mesh", default=None)
+
 # The canonical batch-dim axes (matches mesh.active_batch_axes).
 BATCH: Tuple[str, ...] = ("dp", "fsdp")
+
+# Axes whose constrain sites sit immediately before a contraction over
+# the constrained dim (o_proj/down_proj/fc2 inputs): the exact mode's
+# force-replicate points.
+TENSOR_AXES: Tuple[str, ...] = ("tp", "ep")
 
 
 @contextlib.contextmanager
@@ -50,18 +61,42 @@ def current_mesh():
     return _AMBIENT_MESH.get()
 
 
+@contextlib.contextmanager
 def exact_mesh(mesh):
-    """The reference's serving-exact mesh: refused."""
-    raise NotImplementedError(EXACT_MESH_REFUSAL)
+    """Publish ``mesh`` (an object with ``gather``: a
+    ``serving.meshed.MeshGroup``) as the serving-exact mesh for the
+    calls inside the block (no-op when ``mesh`` is None).
+    Contextvar-scoped, so concurrent meshed and unmeshed calls on other
+    threads never see it."""
+    if mesh is None:
+        yield None
+        return
+    token = _EXACT_MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _EXACT_MESH.reset(token)
 
 
 def current_exact_mesh():
-    """The reference's serving-exact mesh: refused."""
-    raise NotImplementedError(EXACT_MESH_REFUSAL)
+    return _EXACT_MESH.get()
+
+
+def _names(a) -> tuple:
+    return (a,) if isinstance(a, str) else tuple(a or ())
 
 
 def constrain(x, *axes: AxisName):
-    """The reference's ``with_sharding_constraint`` against the ambient
-    mesh: the identity, since a data-parallel activation is rank-local
-    (module docstring)."""
+    """The reference's ``with_sharding_constraint`` site.
+
+    Outside a serving-exact mesh: the identity (a data-parallel
+    activation is rank-local, module docstring).  Under one, a site
+    naming a TENSOR axis returns ``x`` REPLICATED on the mesh group's
+    primary device: a list of column shards is concatenated there along
+    the last dim (``mesh.gather``), a tensor is moved there; every other
+    site is a no-op."""
+    emesh = _EXACT_MESH.get()
+    if emesh is not None and any(n in TENSOR_AXES for a in axes
+                                 for n in _names(a)):
+        return emesh.gather(x)
     return x

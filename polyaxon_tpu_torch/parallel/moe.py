@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import torch
 
-MESH_REFUSAL = ("expert parallelism (moe_layer over a mesh's 'ep' axis) "
-                "comes with a later slice of the port (ROADMAP "
-                "Queue 1: Parallelism and meshes)")
+MESH_REFUSAL = ("expert parallelism in training (moe_layer over a "
+                "mesh's 'ep' axis) comes with a later slice of the "
+                "port (ROADMAP Queue 1: Parallelism and meshes, item "
+                "(b2))")
 
 
 def route_top1(logits: torch.Tensor):

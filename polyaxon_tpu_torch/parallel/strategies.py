@@ -49,8 +49,9 @@ from .constraints import ambient_mesh
 from .mesh import MeshSpec, build_mesh, data_sharding
 
 PARALLELISM_REFUSAL = (
-    "tensor, expert, sequence and pipeline parallelism come with later "
-    "slices of the port (ROADMAP Queue 1: Parallelism and meshes)")
+    "tensor, expert, sequence and pipeline parallelism in training come "
+    "with later slices of the port (ROADMAP Queue 1: Parallelism and "
+    "meshes, item (b2) for tp/ep)")
 
 # Flat gradient buckets of the dp all-reduce.
 BUCKET_BYTES = 25 * 2 ** 20

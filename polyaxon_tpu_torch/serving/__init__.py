@@ -1,8 +1,8 @@
 """Serving package of the port: the decode stack behind HTTP.
 
-Port of ``polyaxon_tpu/serving`` on one device (greedy, sampled,
-speculative and beam requests, both KV pools with plain, int8 or ring
-caches, the prefix cache with its host spill tier and wire lanes,
+Port of ``polyaxon_tpu/serving`` (greedy, sampled, speculative and
+beam requests, both KV pools with plain, int8 or ring caches, on one
+device or a serving mesh, the prefix cache with its host spill tier and wire lanes,
 fault containment, the replica router with disaggregated
 prefill/decode roles, the flight recorder, and the legacy coalescing
 baselines):
@@ -43,14 +43,17 @@ baselines):
   affinity routing, failover within a retry budget, hedging, rolling
   restarts with the drain handoff, the two-stage disaggregated
   prefill/decode schedule and the ``/fleet/*`` views.
-
-Meshes are a later slice (ROADMAP Queue 1).
+- ``meshed.py``    — the serving mesh (``--mesh tp=4``): weights and
+  the slot KV pools split over local devices in the exact
+  (reduction-free) layout: meshed output equals unmeshed serving
+  bitwise on the CPU, and on CUDA as ``meshed.py`` states.
 """
 
 from .debug import RequestHistory, StallWatchdog, new_request_id
 from .engine import DecodeEngine
 from .faults import FaultPlan
 from .legacy import RequestCoalescer
+from .meshed import MeshError, ServingMesh, parse_mesh
 from .paged import PagedSlotKVManager
 from .radix import RadixPrefixIndex
 from .recovery import CircuitBreaker, EngineSupervisor, RetryPolicy
@@ -78,5 +81,5 @@ __all__ = ["ModelServer", "PrefixFetchPolicy", "make_server",
            "RetryBudget", "SLOTracker", "make_router_server",
            "Telemetry", "Histogram", "ProfileSession",
            "render_histogram", "FlightRecorder", "RequestCoalescer",
-           "BATCHING_MODES",
+           "BATCHING_MODES", "ServingMesh", "parse_mesh", "MeshError",
            "RequestHistory", "StallWatchdog", "new_request_id"]

@@ -72,8 +72,15 @@ paged reservations carry it too).  Quarantine, SLO preemption and crash
 recovery cover spec slots like plain ones: a resumed spec stream
 re-prefills both caches.
 
-Not ported yet, and refused by name: a serving mesh (ROADMAP Queue 1:
-Parallelism and meshes).
+SERVING MESH (``mesh=``: a ``ServingMesh``, a spec string such as
+``"tp=2"``, or a MeshSpec; ``serving/meshed.py``): the model and the
+draft are validated and PLACED over the mesh's devices before the
+pools exist, and the engine runs the placed models, whose every
+forward publishes its exact mesh group — so prefill pieces, steps and
+spec rounds all run the reduction-free layout (meshed tokens equal
+unmeshed ones bitwise on the CPU; on CUDA see ``meshed.py``).  Both slot pools split their KV by heads over
+``tp`` (the fixed-lane pool's slots over ``dp`` too).  The mesh rides
+the step trace args, the debug snapshot and :meth:`stats`.
 """
 
 from __future__ import annotations
@@ -106,12 +113,6 @@ __all__ = ["DecodeEngine", "QueueFullError", "SPEC_ACCEPT_BUCKETS"]
 # Acceptance-rate histogram bucket upper bounds (le) for completed
 # speculative requests; the last implicit bucket is +Inf.
 SPEC_ACCEPT_BUCKETS = (0.1, 0.25, 0.5, 0.75, 0.9, 1.0)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch backend yet (ROADMAP "
-        f"Queue 1: {item})")
 
 
 def _host_base_key(seed: int, row: int) -> np.ndarray:
@@ -147,18 +148,36 @@ class DecodeEngine:
                  sentinel=None, mesh=None, draft_model=None,
                  faults=None,
                  retry_policy: Optional[RetryPolicy] = None):
-        if mesh is not None:
-            raise _not_ported("a serving mesh", "Parallelism and meshes")
         if draft_model is not None \
                 and draft_model.cfg.vocab_size != model.cfg.vocab_size:
             raise ValueError(
                 f"draft model vocab ({draft_model.cfg.vocab_size}) must "
                 f"equal the target's ({model.cfg.vocab_size})")
+        self.policy = policy or SchedulerPolicy()
+        # Serving mesh (module docstring): validated and placed here,
+        # before the pools, so every program runs the placed weights.
+        if mesh is not None:
+            from .meshed import MeshedModel, ServingMesh
+
+            if not isinstance(mesh, ServingMesh):
+                mesh = ServingMesh(mesh, device_type=model.device.type)
+            def placed(m, label, n_slots=None):
+                """``m`` validated and placed (a server places first)."""
+                if isinstance(m, MeshedModel):
+                    mesh.validate_model(m.replicas[0], label,
+                                        n_slots=n_slots)
+                    return m
+                mesh.validate_model(m, label, n_slots=n_slots)
+                return mesh.place_params(m)
+
+            model = placed(model, "model", self.policy.n_slots)
+            if draft_model is not None:
+                draft_model = placed(draft_model, "draft model")
+        self.mesh = mesh
         self.model = model
         # Draft model: enables SPECULATIVE streams (spec_k > 0); the
         # pool holds a second cache for it.
         self.draft_model = draft_model
-        self.policy = policy or SchedulerPolicy()
         # Telemetry ring shared with the owning server (request spans
         # and engine step records in ONE /trace timeline); standalone
         # engines get a disabled core.
@@ -210,12 +229,12 @@ class DecodeEngine:
                 decode_window=self.policy.decode_window,
                 lazy=self.policy.kv_lazy, sentinel=sentinel,
                 max_window=max_window, draft_model=draft_model,
-                spec_k_cap=self.policy.spec_k_cap)
+                spec_k_cap=self.policy.spec_k_cap, mesh=mesh)
         else:
             self.slots = SlotKVManager(
                 model, self.policy.n_slots, sentinel=sentinel,
                 max_window=max_window, draft_model=draft_model,
-                spec_k_cap=self.policy.spec_k_cap)
+                spec_k_cap=self.policy.spec_k_cap, mesh=mesh)
         # Paged page-pressure relief hook: called with a page count
         # when an admit-ready stream (or a lazy growth) is blocked on
         # free pages; the server wires it to prefix-cache LRU eviction
@@ -1583,7 +1602,9 @@ class DecodeEngine:
                       device_s=round(self.slots.last_step_device_s, 6),
                       **({"pages_free": self.slots.free_page_count(),
                           "pages_total": self.slots.n_pages}
-                         if self.paged else {}))
+                         if self.paged else {}),
+                      **({"mesh": self.mesh.axes_str()}
+                         if self.mesh is not None else {}))
 
     def _decode_step_spec(self, window: int, K: int,
                           sampled: bool) -> None:
@@ -1653,7 +1674,9 @@ class DecodeEngine:
                       device_s=round(self.slots.last_step_device_s, 6),
                       **({"pages_free": self.slots.free_page_count(),
                           "pages_total": self.slots.n_pages}
-                         if self.paged else {}))
+                         if self.paged else {}),
+                      **({"mesh": self.mesh.axes_str()}
+                         if self.mesh is not None else {}))
 
     # -- step-boundary fault containment ---------------------------------
 
@@ -1961,6 +1984,8 @@ class DecodeEngine:
             snap["pages"] = {**self.slots.page_stats(),
                              "slot_table_pages":
                                  self.slots.slot_page_counts()}
+        if self.mesh is not None:
+            snap["mesh"] = self.mesh.axes_str()
         # Fault tolerance: the supervisor block, the armed plan's
         # counters and the quarantine suspects ride every snapshot.
         snap["engine_down"] = self.down
@@ -2041,11 +2066,18 @@ class DecodeEngine:
             "faults_injected":
                 fstats["faults_injected"] if fstats is not None else {},
             **(self.slots.page_stats() if self.paged else {}),
+            # Mesh topology (absent unmeshed): axis names and sizes and
+            # the device count, for /info and the /metrics gauges.
+            **(self._mesh_stats() if self.mesh is not None else {}),
             # Recompile sentinel: a miss is a CUDA-graph capture (a
             # window's first eager run on the CPU), a hit a replay;
             # after warm-up the misses must stay put.
             **self.sentinel.snapshot(),
         }
+
+    def _mesh_stats(self) -> Dict[str, Any]:
+        return {"mesh": self.mesh.describe(),
+                "mesh_devices": self.mesh.n_devices}
 
     def _spec_accept_stats(self) -> Dict[str, Any]:
         counts, total, n = self.spec_accept.snapshot()

@@ -73,8 +73,18 @@ travel in the reference's flax order — ``cache_index`` (written as
 ``null``), ``cached_key``, ``cached_key_scale``, ``cached_value``,
 ``cached_value_scale`` — not in ``KVCache.leaves``' order; bf16 tensors
 go out as the raw bytes of their 16-bit view and come back through
-``numpy.uint16``, with no bf16 numpy type.  A mesh is not ported
-(ROADMAP Queue 1).
+``numpy.uint16``, with no bf16 numpy type.
+
+On a SERVING MESH (``serving/meshed.py``) the page pools are allocated
+per device from the first (head-sharded) cache: each tp shard's leaves
+get their own pools of ``H / tp`` heads on its device, under the same
+page ids, so one table gathers, scatters and materializes every shard
+(the tables and the dirty starts are copied to each shard's device, a
+no-op for virtual devices).  The host tier and the wire pack the
+shards CONCATENATED along the heads axis, so a meshed pool's spilled
+blob is byte-equal to an unmeshed pool's, and either pool
+rematerializes the other's.  ``dp`` is refused: pages migrate between
+slots, so the page axis has no stable slot-group decomposition.
 """
 
 from __future__ import annotations
@@ -296,7 +306,15 @@ class PagedSlotKVManager(StepPool):
                  n_pages: Optional[int] = None, max_position: int,
                  decode_window: int = 8, lazy: bool = False,
                  sentinel=None, max_window: Optional[int] = None,
-                 draft_model=None, spec_k_cap: int = 4):
+                 draft_model=None, spec_k_cap: int = 4, mesh=None):
+        if mesh is not None and mesh.dp > 1:
+            from .meshed import MeshError
+
+            raise MeshError(
+                "paged KV does not support dp slot parallelism "
+                "(pages migrate between slots, so the page axis has "
+                "no stable dp decomposition); use tp/ep, or the "
+                "fixed-lane manager for dp")
         if page_tokens < 8:
             raise ValueError(
                 f"kv_page_tokens must be >= 8; got {page_tokens}")
@@ -306,7 +324,8 @@ class PagedSlotKVManager(StepPool):
                 f"{max_position}")
         super().__init__(model, n_slots, sentinel=sentinel,
                          max_window=max_window or decode_window,
-                         draft_model=draft_model, spec_k_cap=spec_k_cap)
+                         draft_model=draft_model, spec_k_cap=spec_k_cap,
+                         mesh=mesh)
         self.page_tokens = int(page_tokens)
         self.max_position = int(max_position)
         pt = self.page_tokens
@@ -372,6 +391,10 @@ class PagedSlotKVManager(StepPool):
         self._views: Optional[List[torch.Tensor]] = None
         self._dpools: Optional[List[torch.Tensor]] = None
         self._dviews: Optional[List[torch.Tensor]] = None
+        # A cache of the pools' kind (a head-sharded one on a mesh):
+        # what gathered views and materialized prefixes are rebuilt as.
+        self._like = None
+        self._dlike = None
         # First-touch shaping is double-checked under this lock: two
         # wire admissions racing a fresh replica's unshaped pool
         # (``ensure_shaped``) must not both allocate — the loser's pool
@@ -540,11 +563,17 @@ class PagedSlotKVManager(StepPool):
         the flat gathered-view buffers (the widest class's size: every
         class views its prefix, so each has one fixed address).  Only
         the leaves' shapes and dtypes are read, so a ``meta`` template
-        works with ``device`` given."""
+        works with ``device`` given.  A head-sharded cache (a mesh)
+        gets each shard's pools on the shard's own device, whatever
+        ``device`` says."""
+        from ..models.kv_cache import ShardedKVCache
+
         p_max = self._pad_class(max(self._need_cap, self._n_dirty_cap))
+        leaves = cache.leaves()
+        devs = cache.leaf_devices() if isinstance(cache, ShardedKVCache) \
+            else [t.device if device is None else device for t in leaves]
         pools, views = [], []
-        for t in cache.leaves():
-            dev = t.device if device is None else device
+        for t, dev in zip(leaves, devs):
             leaf = t[:, 0].shape                    # [L, cap, H, X]
             shape = paged_pool_shape(leaf, 1, self.total_pages,
                                      self.page_tokens)
@@ -565,7 +594,9 @@ class PagedSlotKVManager(StepPool):
         with self._shape_lock:
             if self._pools is not None:     # lost the race: done
                 return
+            cache = self._placed(cache)
             pools, views = self._alloc_pool(cache, device)
+            self._like = self._skeleton(cache)
             dev = pools[0].device
             self._table_buf = torch.zeros(
                 (self.n_slots, self.table_width), dtype=torch.long,
@@ -599,8 +630,28 @@ class PagedSlotKVManager(StepPool):
             return
         with self._shape_lock:
             if self._dpools is None:
+                cache = self._placed(cache)
                 dpools, self._dviews = self._alloc_pool(cache)
+                self._dlike = self._skeleton(cache)
                 self._dpools = dpools
+
+    def _placed(self, cache):
+        """``cache`` split over the mesh (an unsharded template, e.g. the
+        server's ``meta`` one, placed by ``ServingMesh.place_cache``);
+        as it is off a mesh or when already split."""
+        from ..models.kv_cache import ShardedKVCache
+
+        if self.mesh is None or isinstance(cache, ShardedKVCache):
+            return cache
+        return self.mesh.place_cache(cache)
+
+    @staticmethod
+    def _skeleton(cache):
+        """A cache of ``cache``'s kind and sharding holding no storage:
+        what views and materialized prefixes are rebuilt from."""
+        return cache.with_leaves(
+            [torch.empty(0, device="meta") for _ in cache.leaves()],
+            index=0, positions=None)
 
     def _view_buffers(self, P: int, draft: bool = False):
         """The gather targets of class ``P``, one per cache tensor:
@@ -641,10 +692,10 @@ class PagedSlotKVManager(StepPool):
             pools = self._pools
         n = len(ids)
         pt = self.page_tokens
-        targets = torch.as_tensor(self._write_targets(ids, n_shared),
-                                  device=pools[0].device)
+        tg = self._write_targets(ids, n_shared)
         with torch.no_grad():
             for pool, src in zip(pools, cache.leaves()):
+                targets = torch.as_tensor(tg, device=pool.device)
                 leaf = src[:, 0, :n * pt]            # [L, <=n*pt, H, D]
                 if leaf.shape[1] < n * pt:
                     pad = leaf.new_zeros((leaf.shape[0], n * pt
@@ -759,22 +810,21 @@ class PagedSlotKVManager(StepPool):
         suffix.  Fresh tensors: extending them never touches the pool.
         Device work: callers hold the device lock and a pin on every
         page in ``ids``."""
-        from ..models.kv_cache import KVCache
-
         if self._pools is None:
             raise RuntimeError("materialize() before any page write")
         pt = self.page_tokens
         width = min(len(ids) * pt, self.max_position)
-        table = torch.as_tensor(list(ids), dtype=torch.long,
-                                device=self._k.device)
         out = []
         with torch.no_grad():
             for pool in self._pools:
+                table = torch.as_tensor(list(ids), dtype=torch.long,
+                                        device=pool.device)
                 L, _, _, h, x = pool.shape
                 full = pool.new_zeros((L, 1, self.max_position, h, x))
                 full[:, 0, :width] = gather_pages(pool, table, 1)[:, :width]
                 out.append(full)
-        return KVCache.from_leaves(out, index=int(n_tokens))
+        return self._like.with_leaves(out, index=int(n_tokens),
+                                      positions=None)
 
     # -- host-RAM tier (prefix-store spill / rematerialize) ---------------
     #
@@ -796,14 +846,23 @@ class PagedSlotKVManager(StepPool):
         if self._pools is None:
             raise RuntimeError("spill_pages() before any page write")
         width = min(len(ids) * self.page_tokens, self.max_position)
-        table = torch.as_tensor(list(ids), dtype=torch.long,
-                                device=self._k.device)
         host = []
         with torch.no_grad():
             for pool in self._pools:
+                table = torch.as_tensor(list(ids), dtype=torch.long,
+                                        device=pool.device)
                 v = gather_pages(pool, table, 1)[:, :width]
                 host.append(host_copy(v.unsqueeze(1)))
+        if self._sharded:
+            host = self._like.merge_heads(host)
         return to_wire_order(host)
+
+    @property
+    def _sharded(self) -> bool:
+        """Whether the pools are a mesh's head shards."""
+        from ..models.kv_cache import ShardedKVCache
+
+        return isinstance(self._like, ShardedKVCache)
 
     def rematerialize(self, host_leaves: Sequence[Optional[torch.Tensor]],
                       n_tokens: int):
@@ -813,12 +872,16 @@ class PagedSlotKVManager(StepPool):
         content (zeros past the spilled span), the int8 codes and bf16
         scales included, so every consumer of a hit is reused unchanged.
         Callers hold the device lock."""
-        from ..models.kv_cache import KVCache
-
         if self._pools is None:
             raise RuntimeError("rematerialize() before the pool was "
                                "shaped (ensure_shaped)")
         leaves = from_wire_order(host_leaves)
+        if self._sharded:
+            if len(leaves) * self._like.tp != len(self._pools):
+                raise WirePayloadError(
+                    f"payload has {len(leaves)} cache buffers; this "
+                    f"pool pages {len(self._pools) // self._like.tp}")
+            leaves = self._like.split_heads(leaves)
         if len(leaves) != len(self._pools):
             raise WirePayloadError(
                 f"payload has {len(leaves)} cache buffers; this pool "
@@ -836,7 +899,8 @@ class PagedSlotKVManager(StepPool):
                 w = min(h.shape[2], self.max_position)
                 full[:, :, :w] = h[:, :, :w].to(pool.device).to(pool.dtype)
                 out.append(full)
-        return KVCache.from_leaves(out, index=int(n_tokens))
+        return self._like.with_leaves(out, index=int(n_tokens),
+                                      positions=None)
 
     # -- decode steps ----------------------------------------------------
 
@@ -868,15 +932,15 @@ class PagedSlotKVManager(StepPool):
 
     def _gather(self, P: int, draft: bool = False):
         """The slot cache of class ``P``: every slot's pages gathered
-        through its table into the fixed view buffers."""
-        from ..models.kv_cache import KVCache
-
+        through its table into the fixed view buffers (each shard's
+        through its device's copy of the tables on a mesh)."""
         tables = self._table_buf[:, :P]
         pools = self._dpools if draft else self._pools
-        return KVCache.from_leaves(
-            [gather_pages(pool, tables, 1, out=view) for pool, view in
-             zip(pools, self._view_buffers(P, draft))],
-            positions=self._dpos_buf if draft else self._pos_buf)
+        like = self._dlike if draft else self._like
+        return like.with_leaves(
+            [gather_pages(pool, tables.to(pool.device), 1, out=view)
+             for pool, view in zip(pools, self._view_buffers(P, draft))],
+            index=0, positions=self._dpos_buf if draft else self._pos_buf)
 
     def _scatter_dirty(self, P: int, n_dirty: int,
                        draft: bool = False) -> None:
@@ -892,8 +956,9 @@ class PagedSlotKVManager(StepPool):
                 + local).reshape(-1)
         pools = self._dpools if draft else self._pools
         for pool, view in zip(pools, self._view_buffers(P, draft)):
-            scatter_pages(pool, torch.index_select(view, 1, rows),
-                          targets, 1)
+            dev = pool.device
+            scatter_pages(pool, torch.index_select(view, 1, rows.to(dev)),
+                          targets.to(dev), 1)
 
     def _body(self, window: int, sampled: bool, P: int) -> None:
         """Gather views, the shared decode body, scatter dirty pages."""
@@ -916,7 +981,7 @@ class PagedSlotKVManager(StepPool):
         self._d0_host = self._dirty_start(P, self._n_dirty(window))
         return self._dispatch(
             key, lambda: self._body(window, sampled, P), graph=graph,
-            on_card=self._k.device.type == "cuda")
+            on_card=self._pools[0].device.type == "cuda")
 
     def _spec_body(self, window: int, K: int, sampled: bool,
                    P: int) -> None:
@@ -945,4 +1010,4 @@ class PagedSlotKVManager(StepPool):
         return self._dispatch_spec(
             (window, "spec", K, sampled, P),
             lambda: self._spec_body(window, K, sampled, P), window=window,
-            K=K, graph=graph, on_card=self._k.device.type == "cuda")
+            K=K, graph=graph, on_card=self._pools[0].device.type == "cuda")

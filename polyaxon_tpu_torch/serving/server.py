@@ -451,6 +451,7 @@ class ModelServer:
                  fault_plan=None,
                  supervise: bool = True,
                  draft_model=None, spec_k: int = 4,
+                 mesh=None,
                  info: Optional[Dict[str, Any]] = None):
         # Batching policy: "continuous" (engine, default), "coalesce"
         # (legacy baseline), "off" (serialize — the A/B floor).  The
@@ -568,6 +569,34 @@ class ModelServer:
         self.kv_lazy = bool(kv_lazy)
         self.model = model
         self.batching = batching
+        # Serving mesh ("tp=4" / MeshSpec / ServingMesh): the models are
+        # validated and PLACED here, before the engine, so every program
+        # — engine steps, prefill, the solo fallbacks — runs the placed
+        # weights (serving/meshed.py: the exact layout, no sum across
+        # devices; its module docstring states what equality it keeps
+        # on the CPU and on CUDA).  The server owns the models: the
+        # placed ones hold no whole copy of a split weight.
+        self.mesh = None
+        if mesh is not None:
+            from .meshed import MeshError, ServingMesh
+
+            if self.batching != "continuous":
+                # MeshError (a ValueError) so the CLI's usage-error
+                # surface catches it: the seq2seq fallback above can
+                # flip batching after the CLI's own check passed.
+                raise MeshError(
+                    "mesh requires the continuous-batching engine "
+                    f"(batching={self.batching!r}"
+                    + (" — seq2seq models fall back to coalesce)"
+                       if seq2seq else ")"))
+            self.mesh = mesh if isinstance(mesh, ServingMesh) \
+                else ServingMesh(mesh, device_type=model.device.type)
+            self.mesh.validate_model(model, "model", n_slots=n_slots)
+            if draft_model is not None:
+                self.mesh.validate_model(draft_model, "draft model")
+                self.draft_model = draft_model = \
+                    self.mesh.place_params(draft_model)
+            self.model = model = self.mesh.place_params(model)
         self.model_name = model_name
         self.max_batch = int(max_batch)
         self.extra_info = info or {}
@@ -623,6 +652,7 @@ class ModelServer:
                 telemetry=self.telemetry,
                 sentinel=self.recompile,
                 draft_model=draft_model,
+                mesh=self.mesh,
                 faults=self.faults)
         self._coalescer = RequestCoalescer(self) \
             if self.batching == "coalesce" else None
@@ -755,7 +785,8 @@ class ModelServer:
                         cfg, pos)) if cfg is not None else None,
                     peak_flops=peak["peak_flops"],
                     peak_flops_source=peak["peak_flops_source"],
-                    n_devices=1,
+                    n_devices=1 if self.mesh is None
+                    else len(self.mesh.physical_devices),
                     position_probe=self.engine.mean_resident_position)
             except BaseException:
                 self.close()
@@ -2465,7 +2496,8 @@ class ModelServer:
                 **({"prefix_fetch_policy":
                     self.fetch_policy.describe()}
                    if self.prefix_fetch else {}),
-                "int8_weights": has_quantized(self.model),
+                "int8_weights": has_quantized(
+                    getattr(self.model, "replicas", [self.model])[0]),
                 # A compile-cache miss is a CUDA-graph capture (the
                 # first eager run of a window on the CPU).
                 "compile_cache_misses":
@@ -2646,6 +2678,16 @@ class ModelServer:
                             "prefix_evict_hints_total"):
                     lines += [f"# TYPE ptpu_serving_{key} counter",
                               f"ptpu_serving_{key} {sp[key]}"]
+            if "mesh" in es:
+                # Mesh topology (meshed engines only): the device count
+                # and one axis-size sample per active axis.
+                lines += [
+                    "# TYPE ptpu_serving_mesh_devices gauge",
+                    f"ptpu_serving_mesh_devices {es['mesh_devices']}",
+                    "# TYPE ptpu_serving_mesh_axis_size gauge",
+                    *[f'ptpu_serving_mesh_axis_size{{axis="{axis}"}} '
+                      f'{size}'
+                      for axis, size in sorted(es["mesh"]["axes"].items())]]
             lines += [
                 "# TYPE ptpu_serving_deadline_expired_total counter",
                 f"ptpu_serving_deadline_expired_total "

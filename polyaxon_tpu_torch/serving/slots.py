@@ -62,11 +62,23 @@ sampling lanes' shaping and draws.
 The paged pool (``serving/paged.py``) runs the same bodies over a
 gathered view of its pages (the draft's pages through the same
 tables).
+
+On a SERVING MESH (``serving/meshed.py``: ``mesh=``, the model a
+``MeshedModel``) each pool is allocated per device at birth
+(``ServingMesh.stacked_pool``): a ``ShardedKVCache`` whose shard ``g *
+tp + r`` holds heads ``r`` of slot group ``g``'s rows on its device,
+and the bodies run unchanged over it — the placed model steps each
+group's rows on its shards.  When every shard sits on one physical
+device (virtual devices: the card's case) each (window, body) keeps
+its one CUDA graph, and steady state captures nothing new.  When the
+shards span several physical devices the step runs EAGERLY: a CUDA
+graph captures the work of one device's stream, and the mesh's step
+is several devices' work, so that is the only schedule there — chosen
+from the mesh before anything runs, not a fallback on error.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import threading
 import time
 from typing import Callable, Dict, Optional
@@ -149,8 +161,10 @@ class StepPool:
 
     def __init__(self, model, n_slots: int, sentinel=None,
                  max_window: int = 8, draft_model=None,
-                 spec_k_cap: int = 4):
+                 spec_k_cap: int = 4, mesh=None):
         self.model = model
+        # The serving mesh the pool is split over (None: one device).
+        self.mesh = mesh
         self.max_window = int(max_window)
         # The draft model of SPECULATIVE slots (None: plain pool), and
         # the widest draft length a spec round may take.
@@ -398,10 +412,15 @@ class StepPool:
         """Run ``body`` through the graph of ``key`` (captured on first
         use) or eagerly, and return ``fetch()`` (the host copy of its
         outputs: the one sync of the window)."""
+        graphable = self.mesh is None or self.mesh.graphable
         if graph is None:
-            graph = on_card
+            graph = on_card and graphable
         if graph and not on_card:
             raise RuntimeError("CUDA graphs need a pool on a CUDA device")
+        if graph and not graphable:
+            raise RuntimeError(
+                f"a CUDA graph captures one device's stream; this pool's "
+                f"mesh spans {len(self.mesh.physical_devices)} devices")
         built_key = key if graph else ("eager",) + key
         fresh = built_key not in self._built
         if self.sentinel is not None and (graph or not on_card):
@@ -498,28 +517,34 @@ class SlotKVManager(StepPool):
 
     def __init__(self, model, n_slots: int, sentinel=None,
                  max_window: int = 8, draft_model=None,
-                 spec_k_cap: int = 4):
+                 spec_k_cap: int = 4, mesh=None):
         super().__init__(model, n_slots, sentinel=sentinel,
                          max_window=max_window, draft_model=draft_model,
-                         spec_k_cap=spec_k_cap)
-        self._pool = None           # the stacked KVCache (no positions)
+                         spec_k_cap=spec_k_cap, mesh=mesh)
+        self._pool = None           # the stacked cache (no positions)
         self._dpool = None          # the draft's
+
+    @staticmethod
+    def _leaf(pool, i: int) -> Optional[torch.Tensor]:
+        """Leaf ``i`` of ``pool`` (keys 0, values 1; a sharded pool's
+        first shard's)."""
+        return None if pool is None else pool.leaves()[i]
 
     @property
     def _k(self) -> Optional[torch.Tensor]:
-        return None if self._pool is None else self._pool.k
+        return self._leaf(self._pool, 0)
 
     @property
     def _v(self) -> Optional[torch.Tensor]:
-        return None if self._pool is None else self._pool.v
+        return self._leaf(self._pool, 1)
 
     @property
     def _dk(self) -> Optional[torch.Tensor]:
-        return None if self._dpool is None else self._dpool.k
+        return self._leaf(self._dpool, 0)
 
     @property
     def _dv(self) -> Optional[torch.Tensor]:
-        return None if self._dpool is None else self._dpool.v
+        return self._leaf(self._dpool, 1)
 
     def reset(self) -> None:
         """Crash-recovery rebuild (recovery.EngineSupervisor): every
@@ -535,18 +560,11 @@ class SlotKVManager(StepPool):
 
     def _stacked_like(self, cache):
         """A B=1 cache -> the zeroed [L, S, ...] stacked pool of the
-        same kind (a ring table of -1: no slot written)."""
-        def wide(t):
-            shape = list(t.shape)
-            shape[1] = self.n_slots
-            return torch.zeros(shape, dtype=t.dtype, device=t.device)
-
-        ring = cache.ring_pos
-        return cache.with_leaves(
-            [wide(t) for t in cache.leaves()], index=0,
-            ring_pos=None if ring is None else torch.full(
-                (self.n_slots, ring.shape[-1]), -1, dtype=ring.dtype,
-                device=ring.device))
+        same kind (a ring table of -1: no slot written); on a mesh,
+        allocated per device at birth (``ServingMesh.stacked_pool``)."""
+        if self.mesh is not None:
+            return self.mesh.stacked_pool(cache, self.n_slots)
+        return cache.stacked(self.n_slots)
 
     def _ensure_stacked(self, cache) -> None:
         """Allocate the pool from the FIRST prefilled cache's shape,
@@ -554,7 +572,7 @@ class SlotKVManager(StepPool):
         if self._pool is not None:
             return
         self._pool = self._stacked_like(cache)
-        self._alloc_step_buffers(cache.k.device)
+        self._alloc_step_buffers(cache.device)
 
     def _ensure_draft_stacked(self, cache) -> None:
         if self._dpool is None:
@@ -565,18 +583,8 @@ class SlotKVManager(StepPool):
         window writes each row's ring at ``position % cap`` ahead of
         the position the replay starts from, overwriting entries still
         inside the window there (a plain cache only writes past it)."""
-        state = []
-        for pool in (self._pool, self._dpool):
-            if pool is not None and pool.ring_pos is not None:
-                state += pool.leaves() + [pool.ring_pos]
-        return state
-
-    @staticmethod
-    def _copy_lane(pool, slot: int, cache) -> None:
-        for dst, src in zip(pool.leaves(), cache.leaves()):
-            dst[:, slot].copy_(src[:, 0])
-        if pool.ring_pos is not None:
-            pool.ring_pos[slot].copy_(cache.ring_pos)
+        return [t for pool in (self._pool, self._dpool)
+                if pool is not None for t in pool.ring_tensors()]
 
     def insert(self, slot: int, cache, first_token: int,
                position: int, *, base_key=None, next_index: int = 1,
@@ -596,10 +604,10 @@ class SlotKVManager(StepPool):
         prompt) and ``spec_k`` > 0."""
         self._ensure_stacked(cache)
         with torch.no_grad():
-            self._copy_lane(self._pool, slot, cache)
+            self._pool.copy_lane(slot, cache)
             if draft_cache is not None:
                 self._ensure_draft_stacked(draft_cache)
-                self._copy_lane(self._dpool, slot, draft_cache)
+                self._dpool.copy_lane(slot, draft_cache)
         self._arm(slot, first_token, position, base_key, next_index,
                   temperature, top_k, top_p, spec_k)
 
@@ -607,9 +615,8 @@ class SlotKVManager(StepPool):
 
     def _body(self, window: int, sampled: bool = False) -> None:
         """``window`` fused decode steps over the static buffers."""
-        self._run_window(
-            dataclasses.replace(self._pool, positions=self._pos_buf),
-            window, sampled)
+        self._run_window(self._pool.at_positions(self._pos_buf), window,
+                         sampled)
 
     def step(self, window: int = 1, sampled: bool = False, *,
              graph: Optional[bool] = None) -> np.ndarray:
@@ -626,13 +633,12 @@ class SlotKVManager(StepPool):
         return self._dispatch(
             self._step_key(window, sampled),
             lambda: self._body(window, sampled), graph=graph,
-            on_card=self._k.device.type == "cuda")
+            on_card=self._pool.device.type == "cuda")
 
     def _spec_body(self, window: int, K: int, sampled: bool) -> None:
-        self._run_spec_window(
-            dataclasses.replace(self._pool, positions=self._pos_buf),
-            dataclasses.replace(self._dpool, positions=self._dpos_buf),
-            window, K, sampled)
+        self._run_spec_window(self._pool.at_positions(self._pos_buf),
+                              self._dpool.at_positions(self._dpos_buf),
+                              window, K, sampled)
 
     def step_spec(self, window: int, K: int, sampled: bool = False, *,
                   graph: Optional[bool] = None):
@@ -653,4 +659,4 @@ class SlotKVManager(StepPool):
         return self._dispatch_spec(
             (window, "spec", K, sampled),
             lambda: self._spec_body(window, K, sampled), window=window,
-            K=K, graph=graph, on_card=self._k.device.type == "cuda")
+            K=K, graph=graph, on_card=self._pool.device.type == "cuda")

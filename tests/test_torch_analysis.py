@@ -508,6 +508,7 @@ def test_overlapping_paths_do_not_double_count(tmp_path):
 
 _ENGINE = "polyaxon_tpu_torch/serving/engine.py"
 _SERV = "polyaxon_tpu_torch/serving/somefile.py"
+_MESHED = "polyaxon_tpu_torch/serving/meshed.py"
 
 RETARGETED = [
     ("RNG-DET", _SERV, """
@@ -680,6 +681,34 @@ RETARGETED = [
             out = self._replay((w,), lambda: self._body(w), None)
             return out, time.time() - t0, self.count
     """),
+    ("SHARD-LEAK", _MESHED, """
+    import torch
+
+    class MeshedModel:
+        def forward(self, ids, group):
+            x = ids.to(group.primary)
+            w = self.weight.cuda()
+            buf = torch.zeros(4, device=group.primary)
+            self._pool = torch.zeros(8, 4)
+            return x, w, buf
+    """, 4, """
+    import torch
+
+    class ServingMesh:
+        def place_cache(self, t, dev):
+            return torch.empty(t.shape, device=dev).copy_(t)
+
+        def stacked_pool(self, cache, n):
+            return [s.stacked(n, device=self.device_at(0, 0, r))
+                    for r, s in enumerate(cache.shards)]
+
+    class Pool:
+        def _ensure_stacked(self, cache):
+            self._pool = self.mesh.stacked_pool(cache, 8)
+
+        def step(self, x):
+            return x.to(torch.float32), self._pool.leaves()
+    """),
     ("JIT-DEADLINE", _SERV, """
     import time
 
@@ -737,13 +766,20 @@ def test_host_sync_scope_is_the_step_modules():
 
 
 def test_shard_leak_waits_for_the_meshed_server():
-    """SHARD-LEAK keeps its catalog slot but matches only
-    ``serving/meshed.py``, which the port does not have yet."""
-    src = "import jax\n\ndef admit(self, c):\n    return jax.device_put(c)\n"
+    """SHARD-LEAK keeps its catalog slot and matches the port's meshed
+    placement: a stray device move in ``serving/meshed.py`` only, a
+    pool allocated outside ``_alloc*``/``_ensure*`` there and in the two
+    slot pools; the engine and the server are out of its scope."""
+    move = "def admit(self, c, dev):\n    return c.to(dev)\n"
+    pool = "import torch\n\ndef admit(self):\n    self._pools = torch.zeros(2)\n"
     rules = [r for r in ALL_RULES if r.id == "SHARD-LEAK"]
-    assert port.check_source(src, _ENGINE, rules) == []
-    assert len(port.check_source(
-        src, "polyaxon_tpu_torch/serving/meshed.py", rules)) == 1
+    for src in (move, pool):
+        assert port.check_source(src, _ENGINE, rules) == []
+        assert len(port.check_source(src, _MESHED, rules)) == 1
+    for mod in ("slots", "paged"):
+        path = f"polyaxon_tpu_torch/serving/{mod}.py"
+        assert port.check_source(move, path, rules) == []
+        assert len(port.check_source(pool, path, rules)) == 1
 
 
 # -- module-level locks in the lock graph -----------------------------------

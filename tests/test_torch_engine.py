@@ -381,17 +381,22 @@ def test_shared_schedule_matches_reference_engine(tiny_pair):
 
 
 def test_unported_features_are_refused(model):
-    """Meshes are still refused by name.  Speculative streams are
-    ported: an engine without a draft refuses one with the reference's
-    ValueError, and an engine built with a draft decodes it (greedy:
-    greedy generate's tokens)."""
+    """A serving mesh is ported (``tests/test_torch_meshed.py``): on
+    the one CPU a ``tp=2`` mesh is refused for want of devices, with the
+    reference's message.  Speculative streams are ported: an engine
+    without a draft refuses one with the reference's ValueError, and an
+    engine built with a draft decodes it (greedy: greedy generate's
+    tokens)."""
     from polyaxon_tpu_torch.serving import SamplingSpec
 
     eng = _engine(model)
     with pytest.raises(ValueError, match="draft model"):
         eng.submit(_rows(1, 2), 2, None, None,
                    sampling=SamplingSpec(0, 0.0, spec_k=2))
-    with pytest.raises(NotImplementedError, match="meshes"):
+    from polyaxon_tpu_torch.serving import MeshError
+
+    with pytest.raises(MeshError,
+                       match="needs 2 devices; only 1 available"):
         DecodeEngine(model, autostart=False, mesh="tp=2")
     eng = DecodeEngine(model, autostart=False, draft_model=model)
     g = eng.submit(_rows(1, 2), 6, None, None,

@@ -731,7 +731,7 @@ def test_cli_flags_match_reference():
     """``route`` has every option of the reference's, name for name and
     default for default; ``serve``'s spill, fetch, role, batching and
     profiling flags are served with the reference's defaults (no longer
-    refused), while ``--mesh``'s refusal stays."""
+    refused), and so is ``--mesh`` (the serving mesh)."""
     from click.testing import CliRunner
 
     from polyaxon_tpu.cli import main as jcli
@@ -743,14 +743,10 @@ def test_cli_flags_match_reference():
              "batching", "trace_file", "profile_dir", "profile_every",
              "profile_steps")
     ours, theirs = _params(tcli.serve), _params(jcli.serve)
-    for f in flags:
+    for f in flags + ("mesh_arg",):
         assert ours[f] == theirs[f], f
-    refused = {row[0] for row in tcli._SERVE_NOT_PORTED}
-    assert not refused & {"--kv-host-spill-bytes", "--prefix-fetch",
-                          "--prefix-fetch-timeout", "--role",
-                          "--prefix-fetch-min-tokens",
-                          "--prefix-fetch-remat-ratio"}
-    assert refused == {"--mesh"}
+    # Nothing of the reference's serve is refused any more.
+    assert not hasattr(tcli, "_SERVE_NOT_PORTED")
     runner = CliRunner()
     for args, words in (
             (["--role", "prefill"], "--kv-paged"),

@@ -62,7 +62,8 @@ SERVING_MODULES = ("prng.py", "models/generate.py", "models/kv_cache.py",
                    "serving/scheduler.py", "serving/server.py",
                    "serving/slots.py", "serving/telemetry.py",
                    "analysis/recompile.py", "analysis/locksan.py",
-                   "serving/radix.py", "serving/router.py")
+                   "serving/radix.py", "serving/router.py",
+                   "serving/meshed.py")
 
 ANALYSIS_MODULES = ("analysis/__init__.py", "analysis/checker.py",
                     "analysis/baseline.py", "analysis/lockgraph.py",

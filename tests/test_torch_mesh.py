@@ -234,10 +234,21 @@ def test_constraints_and_collectives_without_a_mesh():
         assert tcon.current_mesh() is mesh
         assert tcon.constrain(x, tcon.BATCH) is x
     assert tcon.current_mesh() is None
-    for refused in (tcon.exact_mesh, tcon.current_exact_mesh):
-        with pytest.raises(NotImplementedError,
-                           match="Parallelism and meshes"):
-            refused(*([mesh] if refused is tcon.exact_mesh else []))
+    # The serving-exact mesh: a contextvar, and a tensor-axis site
+    # replicates on the group's primary device (column shards
+    # concatenated), every other site stays the identity.
+    from polyaxon_tpu_torch.serving.meshed import ServingMesh
+
+    group = ServingMesh("tp=2", devices=["cpu"] * 2).group(0)
+    assert tcon.current_exact_mesh() is None
+    with tcon.exact_mesh(group):
+        assert tcon.current_exact_mesh() is group
+        assert tcon.constrain(x, tcon.BATCH) is x
+        cat = tcon.constrain([x, x + 1], tcon.BATCH, None, "tp")
+        assert torch.equal(cat, torch.cat([x, x + 1], -1))
+    assert tcon.current_exact_mesh() is None
+    with tcon.exact_mesh(None):
+        assert tcon.current_exact_mesh() is None
     for fn in (lambda t: tcoll.all_reduce(t, ("dp", "fsdp")),
                lambda t: tcoll.all_reduce_mean(t, "dp"),
                lambda t: tcoll.reduce_scatter(t, "fsdp"),

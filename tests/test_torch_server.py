@@ -20,6 +20,7 @@ from click.testing import CliRunner
 from polyaxon_tpu_torch.cli import main as cli_main
 from polyaxon_tpu_torch.models import generate as TG
 from polyaxon_tpu_torch.models.registry import get_model
+from polyaxon_tpu_torch.parallel.mesh import MeshSpec
 from polyaxon_tpu_torch.serving import ModelServer, make_server
 from polyaxon_tpu_torch.serving import server as server_mod
 
@@ -389,6 +390,7 @@ def test_anomalies_and_exemplars_routes_match_reference():
 
 _SPILL = ["--kv-paged", "--kv-host-spill-bytes", "4096"]
 _PROFILE_ITEM = "ProfileSession on torch.profiler"
+_TP1 = MeshSpec(dp=1, tp=1, ep=1)
 _REFERENCE_ONLY_FLAGS = [
     # Served since the fleet tier was ported: (flags, the item the
     # refusal named, the ModelServer arguments the flags must reach);
@@ -410,8 +412,8 @@ _REFERENCE_ONLY_FLAGS = [
                  id="flags3-the spill tier and its wire format"),
     pytest.param(["--batching", "coalesce"], "legacy coalescing",
                  {"batching": "coalesce"}, id="flags4-legacy coalescing"),
-    pytest.param(["--mesh", "tp=2"], "Parallelism and meshes", None,
-                 id="flags5-parallelism and meshes"),
+    pytest.param(["--mesh", "tp=1"], "the serving mesh",
+                 {"mesh": _TP1}, id="flags5-parallelism and meshes"),
     pytest.param(["--role", "decode", "--prefix-fetch", *_SPILL],
                  "the router", {"role": "decode"},
                  id="flags6-the router"),
@@ -437,7 +439,8 @@ def test_cli_serve_refuses_unported_reference_flags(monkeypatch, flags,
                                                     item, served):
     """``serve`` carries every flag of the reference's at its default
     (click no longer answers "No such option"), and refuses each one
-    whose feature is not ported (``--mesh``) by its ROADMAP item, before
+    whose feature is not ported by its ROADMAP item (none is left since
+    ``--mesh``, whose parsed spec now reaches the server), before
     any model is built.  The flags of the fleet tier, the batching
     modes and the profiler are served: their values reach
     ``ModelServer``."""
