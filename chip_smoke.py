@@ -86,7 +86,11 @@ Phases, each raising on failure:
    card), the slice health probe, the collectives, and 3 GPT-2 medium
    steps through the mesh ``TrainStep`` under ``{dp: -1}`` and
    ``{dp: 1, fsdp: -1}`` (FSDP2) equal to the group-less step
-   (``[mesh]`` lines);
+   (``[mesh]`` lines); then ``phase_tp_train``: a two-process gang on
+   the one card (gloo over the card's tensors), GPT-2 medium on
+   ``tp:2`` and MoE-GPT-small on ``ep:2``, float32 at a few layers equal
+   to the group-less step, bf16 at full depth timed, the flash kernels
+   launched at each rank's local heads (``[tp]`` lines);
 8. one float32 step's loss and gradients through the flash route against
    the plain-attention route, at GPT-2 medium's width and 4 layers;
    the baseline's training zoo (``phase_zoo``, ``[zoo]`` lines):
@@ -2753,7 +2757,7 @@ def _train_main(argv):
 
 def phase_train_entry(name: str = "gpt2-medium", steps: int = 3,
                       batch: int = 8, fwd_passes: int = 1,
-                      init_hf_from=None):
+                      init_hf_from=None, checkpoint_f32: bool = True):
     """``python -m polyaxon_tpu_torch.train --model NAME`` as a user runs
     it: the flash launch counts of the run (a step: ``fwd_passes``
     forward launches a layer, 2 under remat, and one dq and one dkv),
@@ -2765,7 +2769,8 @@ def phase_train_entry(name: str = "gpt2-medium", steps: int = 3,
     (``torch.save``, as a user brings an HF checkpoint), with ``--seed
     1`` (the weights are seed 0's, so a random init would differ); its
     first tracked loss must equal the source model's loss on the same
-    batch."""
+    batch.  ``checkpoint_f32``: serve the checkpoint in float32 too
+    (``phase_checkpoint``)."""
     argv = ["--model", name, "--steps", str(steps), "--log-every", "1",
             "--batch-size", str(batch)]
     want = None
@@ -2800,7 +2805,7 @@ def phase_train_entry(name: str = "gpt2-medium", steps: int = 3,
             if not ok:
                 raise AssertionError("--init-hf: the first loss is not the "
                                      "source model's")
-        phase_checkpoint(run["dir"], trained, name)
+        phase_checkpoint(run["dir"], trained, name, float32=checkpoint_f32)
     return counts, secs
 
 
@@ -2834,13 +2839,14 @@ def _export_hf_source(name, batch, state_dict, path, seed,
     return want, secs
 
 
-def phase_checkpoint(ckpt_dir, trained, name="gpt2-medium"):
+def phase_checkpoint(ckpt_dir, trained, name="gpt2-medium",
+                     float32: bool = True):
     """The checkpoint ``train.main`` wrote, served: ``generate
     --checkpoint`` (the CLI, bf16 as served) gives the tokens of the
     in-memory trained model (float32 master weights cast at each use:
-    the same bf16 values the served copy holds); in float32, the CLI's
-    checkpoint loader gives the tokens of a float32 model holding the
-    in-memory weights."""
+    the same bf16 values the served copy holds); with ``float32``, the
+    CLI's checkpoint loader in float32 gives the tokens of a float32
+    model holding the in-memory weights."""
     import contextlib
     import io
 
@@ -2872,6 +2878,8 @@ def phase_checkpoint(ckpt_dir, trained, name="gpt2-medium"):
           f"({gb:.2f} GB) from train.main served by `generate "
           f"--checkpoint` in {secs:.1f} s (restore, cast to bf16, 2 x 32 "
           f"prompt + 16 new): tokens == the in-memory trained model")
+    if not float32:
+        return
     t0 = time.perf_counter()
     f32 = cli_main._build_serving_model(name, 2, ckpt_dir=ckpt_dir,
                                         dtype=torch.float32)
@@ -3180,6 +3188,349 @@ def phase_mesh() -> dict:
         _release()
     print(f"[time] mesh: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+TP_STEPS = 3                # steps of each tp / ep gang run
+TP_LR = 1e-4
+TP_MOE_F32_LAYERS = 2       # of MoE-GPT-small's 12, float32
+# Each rank of phase_tp_train's gang: both on cuda:0, gloo over the
+# card's tensors, started by the PTPU_* bootstrap.  Writes
+# rank{r}.json into argv[1].
+TP_RANK = r"""
+import json, os, sys, time
+import numpy as np, torch
+import torch.distributed as dist
+from polyaxon_tpu_torch.models.registry import get_model
+from polyaxon_tpu_torch.ops import flash
+from polyaxon_tpu_torch.parallel import MeshSpec, build_mesh, make_train_step
+from polyaxon_tpu_torch.parallel.bootstrap import initialize_from_env, shutdown
+from polyaxon_tpu_torch.parallel.moe import moe_layer
+from polyaxon_tpu_torch.parallel.strategies import gather_shard
+from polyaxon_tpu_torch.train import make_optimizer
+
+out_dir, steps, lr, f32_layers, moe_f32_layers = (
+    sys.argv[1], int(sys.argv[2]), float(sys.argv[3]), int(sys.argv[4]),
+    int(sys.argv[5]))
+# Imported: wait for the phase's go before touching the card.
+while not os.path.exists(os.path.join(out_dir, "go")):
+    time.sleep(0.05)
+topo = initialize_from_env(device="cuda")
+rank = topo.process_id
+assert dist.get_backend() == "gloo", dist.get_backend()
+shapes = set()
+real_fwd = flash._flash_forward_kernel
+
+def fwd(q, *a, **k):
+    shapes.add(tuple(q.shape))
+    return real_fwd(q, *a, **k)
+
+flash._flash_forward_kernel = fwd
+
+def counts():
+    return {"flash_fwd": flash.launch_count,
+            "flash_bwd_dq": flash.dq_launch_count,
+            "flash_bwd_dkv": flash.dkv_launch_count}
+
+def emulate_ep(model, ep):
+    # The reference's moe_layer on one device: each of ep sequence
+    # chunks routed with its own capacity, the aux their mean.
+    gelu = lambda t: torch.nn.functional.gelu(t, approximate="tanh")
+    for m in model.modules():
+        if type(m).__name__ == "MoEMlp":
+            def forward(x, decode=False, experts=None, m=m):
+                parts = [moe_layer(c, m.router, m.experts_w1, m.experts_w2,
+                                   None, capacity_factor=m.cfg.capacity_factor,
+                                   activation=gelu) for c in x.chunk(ep, 1)]
+                return (torch.cat([o for o, _ in parts], 1).to(m.cfg.dtype),
+                        sum(a for _, a in parts) / ep)
+            m.forward = forward
+
+def card_init(model, seed=0):
+    # The registry's scales, drawn on the card (the timing runs' weights:
+    # a CPU draw of 355M-600M values takes seconds).
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if p.ndim == 1 and getattr(p, "init_std", None) is None:
+                p.fill_(0.0 if n.endswith("bias") else 1.0)
+            else:
+                std = getattr(p, "init_std", None) or p[0].numel() ** -0.5
+                p.normal_(0.0, std, generator=g)
+
+def run(name, axes, seq=1024, rows=8, weights=None, ep_emulated=0,
+        gather=False, seeded=False, **over):
+    t_run = time.perf_counter()
+    spec = get_model(name)
+    if weights is None and seeded and (axes is None or rank == 0):
+        model = spec.init_params(seed=0, device="cuda", train=True, **over)
+    elif weights is None and (axes is None or rank == 0):
+        model = spec.make_model(device="cuda", param_dtype=torch.float32,
+                                **over).train()
+        card_init(model)
+    else:
+        model = spec.make_model(device="cuda", param_dtype=torch.float32,
+                                **over).train()
+        if weights is not None:
+            model.load_state_dict(weights)
+    init = None if axes is None or rank else {
+        k: v.detach().clone() for k, v in model.state_dict().items()}
+    if ep_emulated:
+        emulate_ep(model, ep_emulated)
+    mesh = None if axes is None else build_mesh(MeshSpec.from_dict(axes))
+    step = make_train_step(spec.loss_fn(model),
+                           make_optimizer("adamw", lr), mesh)
+    state = step.init_state(model)
+    vocab = model.cfg.vocab_size
+    losses, aux, times = [], [], []
+    flash.launch_count = flash.dq_launch_count = flash.dkv_launch_count = 0
+    shapes.clear()
+    for i in range(steps):
+        tokens = np.random.RandomState(100 + i).randint(0, vocab, (rows, seq))
+        if mesh is not None:
+            tokens = step.batch_sharding.shard(tokens)
+        batch = {"inputs": torch.as_tensor(tokens, device="cuda")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        if "aux_loss" in m:
+            aux.append(float(m["aux_loss"]))
+    c = counts()
+    final = None if not gather else {
+        n: gather_shard(model, n, t) if n in step.shards else t
+        for n, t in model.state_dict().items()}
+    rec = {"losses": losses, "aux": aux, "times": times, "counts": c,
+           "shapes": sorted(shapes), "shards": len(step.shards),
+           "local_params": sum(p.numel() for p in model.parameters()),
+           "secs": time.perf_counter() - t_run}
+    del state, step, model
+    torch.cuda.empty_cache()
+    return rec, final, init
+
+def compare(got, want):
+    # Loss relative difference; parameters: the largest |d| and the
+    # share of elements within 2e-6.
+    tight = total = 0
+    worst = 0.0
+    for k, w in want.items():
+        d = (got[k].float() - w.float()).abs()
+        worst = max(worst, float(d.max()))
+        tight += int((d <= 2e-6).sum())
+        total += d.numel()
+    return worst, tight / total
+
+res = {}
+# float32 at 4 x 512 tokens (the bf16 runs take 8 x 1024).
+f32 = dict(dtype=torch.float32, rows=4, seq=512, gather=True, seeded=True)
+# GPT-2 medium, tp 2: float32 at f32_layers against the group-less step.
+gang, final, init = run("gpt2-medium", {"dp": 1, "tp": 2},
+                        num_layers=f32_layers, **f32)
+if rank == 0:
+    ref, ref_final, _ = run("gpt2-medium", None, weights=init,
+                            num_layers=f32_layers, **f32)
+    worst, tight = compare(final, ref_final)
+    res["gpt2_f32"] = {"gang": gang, "ref": ref, "worst": worst,
+                       "tight": tight}
+del final, init
+dist.barrier()
+# MoE-GPT-small, ep 2: float32 at moe_f32_layers against the group-less
+# step with the reference's per-chunk routing emulated.
+gang, final, init = run("moe-gpt-small", {"dp": 1, "ep": 2},
+                        num_layers=moe_f32_layers, **f32)
+if rank == 0:
+    ref, ref_final, _ = run("moe-gpt-small", None, weights=init,
+                            ep_emulated=2, num_layers=moe_f32_layers,
+                            **f32)
+    worst, tight = compare(final, ref_final)
+    res["moe_f32"] = {"gang": gang, "ref": ref, "worst": worst,
+                      "tight": tight}
+del final, init
+dist.barrier()
+# bf16 at full depth: step times and the flash launches; rank 0 then
+# times the group-less step alone on the same initial weights.
+res["gpt2_bf16"], _, gpt2_init = run("gpt2-medium", {"dp": 1, "tp": 2})
+res["moe_bf16"], _, moe_init = run("moe-gpt-small", {"dp": 1, "ep": 2})
+dist.barrier()
+if rank == 0:
+    res["gpt2_bf16_ref"] = run("gpt2-medium", None, weights=gpt2_init)[0]
+    del gpt2_init
+    res["moe_bf16_ref"] = run("moe-gpt-small", None, weights=moe_init)[0]
+res["backend"] = dist.get_backend()
+with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+    json.dump(res, f)
+dist.barrier()
+shutdown()
+print("ok", flush=True)
+"""
+
+
+def _tp_step_ms(rec) -> float:
+    return float(np.mean(rec["times"][1:])) * 1e3
+
+
+def _start_tp_gang() -> dict:
+    """Start ``phase_tp_train``'s two rank processes (the kernels built
+    first): each imports the port and waits for a ``go`` file in the
+    gang's directory before it joins the group or touches the card, so
+    their start-up can run beside an earlier phase."""
+    import socket
+
+    from polyaxon_tpu_torch.ops import _build
+
+    _build.build_all()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ptpu_tp_")
+    script = os.path.join(tmp, "tp_rank.py")
+    with open(script, "w") as f:
+        f.write(TP_RANK)
+    gang = {"dir": tmp, "procs": [], "logs": [],
+            "t0": time.perf_counter()}
+    for r in range(2):
+        env = dict(os.environ, PYTHONPATH=root,
+                   PTPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   PTPU_NUM_PROCESSES="2", PTPU_PROCESS_ID=str(r),
+                   PTPU_INIT_TIMEOUT="120", PTPU_DIST_BACKEND="gloo")
+        log = open(os.path.join(tmp, f"rank{r}.log"), "w+")
+        gang["logs"].append(log)
+        gang["procs"].append(subprocess.Popen(
+            [sys.executable, script, tmp, str(TP_STEPS), str(TP_LR),
+             str(F32_LAYERS), str(TP_MOE_F32_LAYERS)], cwd=root, env=env,
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True))
+    return gang
+
+
+def _stop_tp_gang(gang: dict) -> list:
+    """Kill what is left of the gang, remove its directory, and return
+    each rank's output."""
+    import shutil
+
+    for proc in gang["procs"]:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    outs = []
+    for log in gang["logs"]:
+        if not log.closed:
+            log.seek(0)
+            outs.append(log.read())
+            log.close()
+    shutil.rmtree(gang["dir"], ignore_errors=True)
+    return outs
+
+
+def phase_tp_train(gang=None) -> dict:
+    """Tensor and expert parallelism in training on the card: a
+    TWO-process gang on the one card (both ranks on ``cuda:0``; NCCL
+    places no two ranks on one GPU, so the group is gloo over the card's
+    tensors, ``PTPU_DIST_BACKEND=gloo``), started through the PTPU_*
+    bootstrap as a gang's ranks start.
+
+    1. float32, the models' own seeded weights at a few layers: GPT-2
+       medium (``F32_LAYERS`` layers, full width, 8 heads a rank) on
+       ``tp:2`` and MoE-GPT-small (``TP_MOE_F32_LAYERS``) on ``ep:2``,
+       ``TP_STEPS`` AdamW steps of 4 x 512 tokens each, against the
+       group-less step on the same weights and batches (MoE: the
+       reference's per-chunk routing, each of 2 sequence halves with its
+       own capacity, emulated on one device): losses rtol 1e-5, every
+       parameter within 2 lr a step and 99% of the elements within
+       2e-6 (the CPU tests' tolerance, ``tests/test_torch_tp.py``);
+    2. bf16 at full depth: GPT-2 medium ``tp:2`` and MoE-GPT-small
+       ``ep:2``, step ms against the group-less step (rank 0 alone after
+       the gang), and each rank's flash launches: 24 of each kernel a
+       GPT-2 step at the local-head shape [8, 1024, 8, 64], 12 a MoE
+       step at [8, 1024, 12, 64].
+    Two ranks sharing one card and a host-staged gloo group measure
+    correctness and the layout's cost on one card, not tp scaling.
+    ``gang``: the ranks :func:`_start_tp_gang` started beside an earlier
+    phase (they import and wait for this phase's go); None starts them
+    here.  Prints ``[tp]`` lines and ``[time] tp-train``; a gloo refusal
+    of a CUDA collective fails the phase with the rank's error."""
+    t_phase = time.perf_counter()
+    gang = gang or _start_tp_gang()
+    overlapped = max(0.0, t_phase - gang["t0"])
+    procs, tmp = gang["procs"], gang["dir"]
+    try:
+        open(os.path.join(tmp, "go"), "w").close()
+        deadline = time.monotonic() + 420
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        for r, proc in enumerate(procs):
+            if proc.returncode != 0:
+                outs = _stop_tp_gang(gang)
+                raise AssertionError(f"tp-train rank {r} exited "
+                                     f"{proc.returncode}:\n"
+                                     f"{outs[r][-6000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        _stop_tp_gang(gang)
+    res = ranks[0]
+    bound = 2 * TP_LR * TP_STEPS
+    for key, label in (("gpt2_f32", f"gpt2-medium tp 2, {F32_LAYERS} "
+                        "layers"), ("moe_f32", f"moe-gpt-small ep 2, "
+                                    f"{TP_MOE_F32_LAYERS} layers")):
+        c = res[key]
+        rel = max(abs(g - w) / abs(w) for g, w in
+                  zip(c["gang"]["losses"], c["ref"]["losses"]))
+        if rel > 1e-5 or c["worst"] > bound or c["tight"] < 0.99:
+            raise AssertionError(
+                f"tp-train {label} float32: losses {c['gang']['losses']} "
+                f"vs {c['ref']['losses']} (rel {rel:.3g} > 1e-5?), params "
+                f"max |d| {c['worst']:.3g} (> {bound}?), {c['tight']:.4f} "
+                f"within 2e-6 (< 0.99?)")
+        c["loss_rel"] = rel
+        print(f"[tp] {label} float32, {TP_STEPS} AdamW steps 4 x 512 "
+              f"(lr {TP_LR}): gang == group-less step: loss rel "
+              f"{rel:.2e}, params max |d| {c['worst']:.2e} "
+              f"({c['tight']:.6f} within 2e-6); losses "
+              + ", ".join(f"{x:.6f}" for x in c["gang"]["losses"]))
+    want = {"gpt2_bf16": (24, [8, 1024, 8, 64]),
+            "moe_bf16": (12, [8, 1024, 12, 64])}
+    for key, (layers, shape) in want.items():
+        for r, rank in enumerate(ranks):
+            rec = rank[key]
+            if rec["shapes"] != [shape]:
+                raise AssertionError(f"tp-train {key} rank {r}: flash "
+                                     f"shapes {rec['shapes']}, not "
+                                     f"{[shape]}")
+            _check_per_step(rec["counts"], TP_STEPS, layers,
+                            f"tp-train {key} rank {r}")
+            if not all(np.isfinite(rec["losses"])):
+                raise AssertionError(f"tp-train {key}: {rec['losses']}")
+    card = card_line()
+    g, gr = res["gpt2_bf16"], res["gpt2_bf16_ref"]
+    m, mr = res["moe_bf16"], res["moe_bf16_ref"]
+    print(f"[tp] bf16 8 x 1024, {TP_STEPS} steps, step ms after the "
+          f"first (two ranks on one card, gloo; the layout's cost, not "
+          f"scaling): gpt2-medium tp 2 {_tp_step_ms(g):.2f} against "
+          f"group-less {_tp_step_ms(gr):.2f}; moe-gpt-small ep 2 "
+          f"{_tp_step_ms(m):.2f} against group-less {_tp_step_ms(mr):.2f};"
+          f" flash launches a rank {g['counts']} at {g['shapes'][0]} "
+          f"(24 a step each) and {m['counts']} at {m['shapes'][0]}; "
+          f"{card}")
+    print(f"[time] tp-train: {time.perf_counter() - t_phase:.1f} s (the "
+          f"ranks started {overlapped:.1f} s before, beside the phases "
+          f"then running; rank 0's runs: " + ", ".join(
+              f"{k} {res[k]['secs']:.1f} s" for k in (
+                  "gpt2_bf16", "moe_bf16", "gpt2_bf16_ref", "moe_bf16_ref"))
+          + ", " + ", ".join(f"{k} gang {res[k]['gang']['secs']:.1f} s, "
+                             f"group-less {res[k]['ref']['secs']:.1f} s"
+                             for k in ("gpt2_f32", "moe_f32")) + ")")
+    return {"flash_launches": {"tp_train_gpt2": g["counts"],
+                               "ep_train_moe": m["counts"]},
+            "step_ms": {"gpt2 tp2": _tp_step_ms(g),
+                        "gpt2": _tp_step_ms(gr),
+                        "moe ep2": _tp_step_ms(m),
+                        "moe": _tp_step_ms(mr)}}
 
 
 def _grads(model, tokens, loss_fn):
@@ -6782,9 +7133,16 @@ def main(argv=None) -> int:
     phase_train_timed()
     mark("timed training")
     _release()
-    mesh = phase_mesh()
-    mark("mesh: one-rank NCCL group, dp and fsdp steps")
-    _release()
+    # phase_tp_train's ranks import while phase_mesh runs.
+    tp_gang = _start_tp_gang()
+    try:
+        mesh = phase_mesh()
+        mark("mesh: one-rank NCCL group, dp and fsdp steps")
+        _release()
+        tp_train = phase_tp_train(tp_gang)
+    finally:
+        _stop_tp_gang(tp_gang)
+    mark("tp / ep training: a two-rank gloo gang on the one card")
     phase_grad_route()
     mark("gradient route check")
     _release()
@@ -6824,9 +7182,12 @@ def main(argv=None) -> int:
     # checks, which time nothing the findings compare, run in-process.
     sweep = _start_sweep()
     try:
+        # The float32 checkpoint loader is GPT-2 medium's check (for
+        # the script's time; TinyLlama's checkpoint serves in bf16).
         llama_main_counts, _ = phase_train_entry(LLAMA, steps=1, batch=4,
                                                  fwd_passes=2,
-                                                 init_hf_from=weights)
+                                                 init_hf_from=weights,
+                                                 checkpoint_f32=False)
         del weights
         mark("llama train.main from --init-hf and checkpoint serving")
         phase_llama_grad_route()
@@ -6867,6 +7228,8 @@ def main(argv=None) -> int:
                 "llama_speculative": llama_spec[name],
                 "train_main": train_counts[name],
                 **{k: v[name] for k, v in mesh["flash_launches"].items()},
+                **{k: v[name] for k, v in
+                   tp_train["flash_launches"].items()},
                 "run_job": run_counts["run_job"][name],
                 "run_service": run_counts["run_service"][name],
                 "llama_forward": llama_forward[name],

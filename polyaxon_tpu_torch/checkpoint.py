@@ -21,7 +21,10 @@ Port of ``polyaxon_tpu/checkpoint.py`` (Orbax there):
   --checkpoint``, restores what a gang wrote and a gang restores on
   every rank what one process wrote.  SIGTERM at any rank stops every
   rank after the same step (``preemption_agreed``, a vote on the gang's
-  host-side group).
+  host-side group).  A model split over a tensor or expert axis
+  (``strategies.shard_tensors``) is gathered the same way: each shard
+  and its optimizer state along its dim, a by-heads ``qkv`` put back in
+  order; restoring into such a gang keeps each rank's shard.
 
 Layout: ``<run outputs>/checkpoints/<step>/`` for a run named by
 ``POLYAXON_TPU_RUN_UUID`` (under ``POLYAXON_TPU_HOME``), else
@@ -63,10 +66,12 @@ def _to_host(state: Any) -> Any:
 def _load_into(template: Any, saved: Any) -> Any:
     """``saved`` loaded into ``template``'s live objects: a module or
     optimizer loads its state dict in place; dicts recurse; anything else
-    is replaced by the saved value.  A train state whose model FSDP
-    shards loads the full state into its shards."""
-    if _is_sharded_state(template):
-        _load_sharded(template, saved)
+    is replaced by the saved value.  A train state whose model FSDP (or
+    a tensor or expert axis) shards loads the full state into its
+    shards."""
+    fsdp = _is_sharded_state(template)
+    if fsdp or _tensor_shards(template):
+        (_load_sharded if fsdp else _load_tensor_sharded)(template, saved)
         return {k: template[k] if k in ("params", "opt_state")
                 else saved[k] for k in saved}
     if hasattr(template, "load_state_dict"):
@@ -94,6 +99,64 @@ def _is_sharded_state(state: Any) -> bool:
 
     return isinstance(state, dict) and \
         isinstance(state.get("params"), FSDPModule)
+
+
+def _tensor_shards(state: Any) -> dict:
+    """name -> (axis, dim) of the tp / ep shards a train state's model
+    holds ({} for any other state)."""
+    if not isinstance(state, dict) or \
+            not isinstance(state.get("params"), torch.nn.Module):
+        return {}
+    from .parallel.strategies import tensor_shards
+
+    return tensor_shards(state["params"])
+
+
+def _opt_shards(model, opt_state: dict, shards: dict, fn) -> dict:
+    """``opt_state`` (an optimizer ``state_dict``) with ``fn(name, t)``
+    applied to each state tensor of a sharded parameter that has dims
+    (shaped like the parameter: Adam's moments, SGD's momentum; not a
+    step count)."""
+    names = _param_names(model)
+    state = {}
+    for i, st in opt_state["state"].items():
+        name = names[i]
+        state[i] = {k: fn(name, v) if name in shards and
+                    isinstance(v, torch.Tensor) and v.dim() else v
+                    for k, v in st.items()}
+    return {"state": state, "param_groups": opt_state["param_groups"]}
+
+
+def _tensor_to_host(state: dict) -> dict:
+    """Collective: the one-process layout of a train state whose model
+    holds tp / ep shards (every rank gathers; the chief writes)."""
+    from .parallel.strategies import gather_shard
+
+    model, opt = state["params"], state["opt_state"]
+    shards = _tensor_shards(state)
+    msd = {name: gather_shard(model, name, t) if name in shards else t
+           for name, t in model.state_dict().items()}
+    osd = _opt_shards(model, opt.state_dict(), shards,
+                      lambda name, t: gather_shard(model, name, t))
+    out = {k: v for k, v in state.items() if k not in ("params",
+                                                       "opt_state")}
+    out.update(params=msd, opt_state=osd)
+    return out
+
+
+def _load_tensor_sharded(state: dict, saved: dict) -> None:
+    """Load a full saved state into a train state whose model holds tp /
+    ep shards: each rank keeps its shard of each tensor."""
+    from .parallel.strategies import local_shard
+
+    model, opt = state["params"], state["opt_state"]
+    shards = _tensor_shards(state)
+    model.load_state_dict({
+        name: local_shard(model, name, t) if name in shards else t
+        for name, t in saved["params"].items()})
+    opt.load_state_dict(_opt_shards(
+        model, saved["opt_state"], shards,
+        lambda name, t: local_shard(model, name, t)))
 
 
 def _param_names(model) -> list:
@@ -187,8 +250,12 @@ class CheckpointManager:
             return False
         self._steps.add(step)
         # Collective for a sharded model: every rank gathers.
-        host = _sharded_to_host(state) if _is_sharded_state(state) \
-            else state
+        if _is_sharded_state(state):
+            host = _sharded_to_host(state)
+        elif _tensor_shards(state):
+            host = _tensor_to_host(state)
+        else:
+            host = state
         if rank != 0:
             return False  # the chief writes the one full state
         payload = {"state": _to_host(host)}

@@ -383,6 +383,57 @@ def vit_state_dict_from_jax(params: Mapping,
     return sd
 
 
+# The unrolled flax name of each layer list the converters read
+# (``_layer_trees``' ``unrolled`` argument): port ``h.{i}`` is flax
+# ``h_{i}``, BERT's ``layers.{i}`` is ``layer_{i}``, T5's ``enc.{i}`` /
+# ``dec.{i}`` are ``enc_{i}`` / ``dec_{i}``.
+_UNROLLED = {"h": "h_", "layers": "layer_", "enc": "enc_", "dec": "dec_"}
+
+
+def _leaf_kind(module: torch.nn.Module, attr: str) -> tuple:
+    """(flax leaf name, kind) of ``module``'s parameter ``attr``, as the
+    converters rename them: a dense ``weight`` is the ``kernel``
+    (transposed), a convolution's the ``kernel`` (HWIO), a table's the
+    ``embedding``, a norm's ``weight`` its ``scale``; anything else
+    keeps its name."""
+    kind = type(module).__name__
+    if attr == "weight":
+        if isinstance(module, torch.nn.Embedding) or "Embedding" in kind:
+            return "embedding", "embedding"
+        if "Norm" in kind:
+            return "scale", "norm"
+        if kind == "Conv":
+            return "kernel", "conv"
+        if isinstance(module, torch.nn.Linear) or "Dense" in kind:
+            return "kernel", "dense"
+    return attr, "param"
+
+
+def reference_paths(model: torch.nn.Module) -> Dict[str, tuple]:
+    """name -> (the reference's param path, leaf kind) for every
+    parameter of ``model``: the inverse of the converters' renaming
+    (port names follow the flax tree; the layer lists are unrolled, as
+    ``_UNROLLED`` names them; leaves as :func:`_leaf_kind` renames
+    them).  ``h.3.qkv.weight`` -> ``("h_3/qkv/kernel", "dense")``."""
+    out = {}
+    for name, _ in model.named_parameters():
+        mod_name, _, attr = name.rpartition(".")
+        module = model.get_submodule(mod_name) if mod_name else model
+        leaf, kind = _leaf_kind(module, attr)
+        parts = mod_name.split(".") if mod_name else []
+        path, i = [], 0
+        while i < len(parts):
+            if parts[i] in _UNROLLED and i + 1 < len(parts) and \
+                    parts[i + 1].isdigit():
+                path.append(f"{_UNROLLED[parts[i]]}{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        out[name] = ("/".join(path + [leaf]), kind)
+    return out
+
+
 def load_state_dict(model: torch.nn.Module, sd: Mapping) -> None:
     """Load a converted state dict into ``model`` (strict): plain
     tensors through ``model.load_state_dict``, each

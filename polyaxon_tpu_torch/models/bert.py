@@ -34,7 +34,7 @@ from torch import nn
 
 from .. import default_device
 from ..ops.attention import dot_product_attention
-from .layers import Dense, model_device, remat_call
+from .layers import Dense, embed, model_device, remat_call, tied_logits
 
 
 @dataclass(frozen=True)
@@ -85,12 +85,11 @@ class BertSelfAttention(nn.Module):
 
     def forward(self, x, mask):
         cfg = self.cfg
-        q, k, v = self.qkv(x).split(cfg.hidden_size, dim=-1)
-        shape = x.shape[:-1] + (cfg.num_heads,
-                                cfg.hidden_size // cfg.num_heads)
-        q, k, v = (t.reshape(shape) for t in (q, k, v))
+        # -1 heads: all of them, or a tp rank's (qkv split by heads).
+        shape = x.shape[:-1] + (-1, cfg.hidden_size // cfg.num_heads)
+        q, k, v = (t.reshape(shape) for t in self.qkv(x).chunk(3, dim=-1))
         out = dot_product_attention(q, k, v, mask=mask, causal=False)
-        return self.o_proj(out.reshape(x.shape[:-1] + (cfg.hidden_size,)))
+        return self.o_proj(out.flatten(-2))
 
 
 class BertLayer(nn.Module):
@@ -115,7 +114,10 @@ class BertLayer(nn.Module):
 
 class BertModel(nn.Module):
     """Encoder with the tied MLM head.  ``param_dtype`` (default
-    ``cfg.dtype``) is the type the parameters are held in."""
+    ``cfg.dtype``) is the type the parameters are held in.
+    ``TP_REGIONS``: GPT-2's two Megatron pairs a layer over tp."""
+
+    TP_REGIONS = True
 
     def __init__(self, cfg: BertConfig, device=None, param_dtype=None):
         super().__init__()
@@ -149,13 +151,10 @@ class BertModel(nn.Module):
         nonzero = a real token (keys elsewhere are masked out)."""
         del train
         cfg, dt = self.cfg, self.cfg.dtype
-        table = self.embed.weight.to(dt)
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        x = F.embedding(input_ids, table) \
-            + F.embedding(pos, self.pos_embed.weight.to(dt))
+        x = embed(self.embed, input_ids, dt) + embed(self.pos_embed, pos, dt)
         if token_type_ids is not None:
-            x = x + F.embedding(token_type_ids,
-                                self.type_embed.weight.to(dt))
+            x = x + embed(self.type_embed, token_type_ids, dt)
         x = self.ln_embed(x.float()).to(dt)
         mask = None
         if attention_mask is not None:
@@ -165,4 +164,4 @@ class BertModel(nn.Module):
             x = remat_call(layer, None, x, mask) if remat \
                 else layer(x, mask)
         h = self.mlm_ln(_gelu(cfg, self.mlm_dense(x)).float())
-        return F.linear(h.to(dt), table).float() + self.mlm_bias
+        return tied_logits(h.to(dt), self.embed, dt).float() + self.mlm_bias

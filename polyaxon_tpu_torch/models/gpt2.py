@@ -43,7 +43,8 @@ from .. import default_device
 from ..ops.attention import dot_product_attention
 from ..parallel.constraints import BATCH, constrain, current_exact_mesh
 from .kv_cache import KVCache, LayerCache, append_kv_cache
-from .layers import Dense, check_remat_policy, model_device, run_stack
+from .layers import (Dense, check_remat_policy, embed, model_device,
+                     run_stack, tied_logits)
 
 
 @dataclass(frozen=True)
@@ -191,7 +192,12 @@ class GPT2Block(nn.Module):
 class GPT2Model(nn.Module):
     """``embed_tokens`` / ``run_blocks`` / ``head`` compose ``forward``,
     as in the reference.  ``param_dtype`` (default ``cfg.dtype``) is the
-    type the parameters are held in."""
+    type the parameters are held in.  ``TP_REGIONS``: over a training
+    mesh's tp axis (``strategies.shard_tensors``) each block is a
+    Megatron pair twice: ``qkv`` (by heads) then ``o_proj``, ``fc1``
+    then ``fc2``; attention runs on the rank's local heads."""
+
+    TP_REGIONS = True
 
     def __init__(self, cfg: GPT2Config, device=None, param_dtype=None):
         super().__init__()
@@ -222,8 +228,8 @@ class GPT2Model(nn.Module):
         elif position is not None:
             pos = pos + position
         dtype = self.cfg.dtype
-        return (F.embedding(input_ids, self.wte.weight.to(dtype))
-                + F.embedding(pos, self.wpe.weight.to(dtype)))
+        return embed(self.wte, input_ids, dtype) + embed(self.wpe, pos,
+                                                         dtype)
 
     def run_blocks(self, x, cache: Optional[KVCache] = None):
         return run_stack(self.h, self.cfg, x, cache)
@@ -231,7 +237,7 @@ class GPT2Model(nn.Module):
     def head(self, x):
         dtype = self.cfg.dtype
         x = self.ln_f(x.float()).to(dtype)
-        return F.linear(x, self.wte.weight.to(dtype)).float()
+        return tied_logits(x, self.wte, dtype).float()
 
     def forward(self, input_ids, *, train: bool = False,
                 decode: bool = False,

@@ -1,8 +1,11 @@
 """Pieces the zoo shares: the dense layer holding its parameters in one
 type and computing in another (an int8 weight and bias dequantize at
-this read, ``ops/quant.py``), flax's convolution and batch norm over
-channels-last NCHW tensors, the layer stack (remat in training, the
-cache in decode), and the named remat policies.
+this read, ``ops/quant.py``), its column- and row-parallel counterparts
+and the vocab-parallel table of a training mesh's tensor axis (each
+holding its rank's shard as a plain parameter and calling the region
+operators of ``parallel/collectives.py`` itself), flax's convolution
+and batch norm over channels-last NCHW tensors, the layer stack (remat
+in training, the cache in decode), and the named remat policies.
 
 Remat policies: ``remat_policy`` names a ``jax.checkpoint_policies``
 member the repo uses.  Each block runs under ``torch.utils.checkpoint``
@@ -52,6 +55,144 @@ class Dense(nn.Linear):
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt),
                         None if self.bias is None else self.bias.to(dt))
+
+
+class ColumnParallelDense(nn.Module):
+    """A :class:`Dense` split over a training mesh's tensor axis by its
+    OUTPUT columns (the reference's ``P(None, "tp")`` kernel): this
+    rank holds rows ``rows`` of the ``[out, in]`` weight and of the
+    bias as plain parameters.  Its input enters the tensor region
+    (``copy_to_region``: the cotangent is summed over the axis); its
+    output stays split, or, with ``gather_output``, is gathered back
+    (``gather_from_region``).  ``all_rows`` holds every rank's rows (a
+    checkpoint puts the shards back in place)."""
+
+    def __init__(self, dense: "Dense", all_rows: Sequence[torch.Tensor],
+                 mesh, axis: str, gather_output: bool = False):
+        super().__init__()
+        rank = mesh.coordinate(axis)
+        rows = all_rows[rank].to(dense.weight.device)
+        self.compute_dtype = dense.compute_dtype
+        self.in_features = dense.in_features
+        self.out_features = len(rows)
+        self.weight = nn.Parameter(dense.weight.detach()[rows].clone())
+        self.bias = None if dense.bias is None else \
+            nn.Parameter(dense.bias.detach()[rows].clone())
+        self.all_rows = [r.cpu() for r in all_rows]
+        self.tensor_mesh, self.axis = mesh, axis
+        self.gather_output = gather_output
+        self.sharded_params = {"weight": (axis, 0)}
+        if self.bias is not None:
+            self.sharded_params["bias"] = (axis, 0)
+
+    def forward(self, x):
+        from ..parallel.collectives import (copy_to_region,
+                                            gather_from_region)
+
+        dt = self.compute_dtype
+        x = copy_to_region(x, self.axis, mesh=self.tensor_mesh)
+        y = F.linear(x.to(dt), self.weight.to(dt),
+                     None if self.bias is None else self.bias.to(dt))
+        if self.gather_output:
+            y = gather_from_region(y, self.axis, dim=-1, mesh=self.tensor_mesh)
+        return y
+
+    def split(self, x, dim: int):
+        """This rank's block of a replicated ``x`` along ``dim`` (a
+        per-head tensor beside the split heads), differentiably."""
+        from ..parallel.collectives import split_to_region
+
+        return split_to_region(x, self.axis, dim=dim, mesh=self.tensor_mesh)
+
+
+class RowParallelDense(nn.Module):
+    """A :class:`Dense` split over a training mesh's tensor axis by its
+    INPUT dim (the reference's ``P("tp", None)`` kernel): this rank
+    holds its contiguous block of the weight's columns; the bias stays
+    whole.  The partial products are summed over the axis
+    (``reduce_from_region``) and the bias is added after the sum, once.
+    ``split_input``: the input arrives whole and this rank takes its
+    block (a model whose column outputs are gathered)."""
+
+    def __init__(self, dense: "Dense", mesh, axis: str,
+                 split_input: bool = False):
+        super().__init__()
+        n, rank = mesh.shape[axis], mesh.coordinate(axis)
+        cols = dense.in_features // n
+        self.compute_dtype = dense.compute_dtype
+        self.in_features, self.out_features = cols, dense.out_features
+        self.weight = nn.Parameter(
+            dense.weight.detach()[:, rank * cols:(rank + 1) * cols].clone())
+        self.bias = None if dense.bias is None else \
+            nn.Parameter(dense.bias.detach().clone())
+        self.tensor_mesh, self.axis = mesh, axis
+        self.split_input = split_input
+        self.sharded_params = {"weight": (axis, 1)}
+
+    def forward(self, x):
+        from ..parallel.collectives import reduce_from_region, \
+            split_to_region
+
+        dt = self.compute_dtype
+        if self.split_input:
+            x = split_to_region(x, self.axis, dim=-1, mesh=self.tensor_mesh)
+        y = reduce_from_region(F.linear(x.to(dt), self.weight.to(dt)),
+                               self.axis, mesh=self.tensor_mesh)
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class VocabParallelEmbedding(nn.Module):
+    """An embedding table split over a training mesh's tensor axis by
+    rows (the reference's vocab dim over ``("tp", "fsdp")``): this rank
+    holds rows ``[start, start + rows)``.  A lookup reads the ids this
+    rank holds, zeros the others and sums over the axis (one non-zero
+    term per id: exact); a tied head projects onto this rank's rows and
+    gathers the logits."""
+
+    def __init__(self, emb: nn.Embedding, mesh, axis: str):
+        super().__init__()
+        n, rank = mesh.shape[axis], mesh.coordinate(axis)
+        rows = emb.num_embeddings // n
+        self.start = rank * rows
+        self.num_embeddings, self.embedding_dim = rows, emb.embedding_dim
+        self.weight = nn.Parameter(
+            emb.weight.detach()[self.start:self.start + rows].clone())
+        self.tensor_mesh, self.axis = mesh, axis
+        self.sharded_params = {"weight": (axis, 0)}
+
+    def lookup(self, ids, dtype):
+        from ..parallel.collectives import reduce_from_region
+
+        local = ids - self.start
+        held = (local >= 0) & (local < self.num_embeddings)
+        out = F.embedding(local.clamp(0, self.num_embeddings - 1),
+                          self.weight.to(dtype))
+        out = torch.where(held[..., None], out, torch.zeros_like(out))
+        return reduce_from_region(out, self.axis, mesh=self.tensor_mesh)
+
+    def logits(self, x, dtype):
+        from ..parallel.collectives import copy_to_region, \
+            gather_from_region
+
+        x = copy_to_region(x, self.axis, mesh=self.tensor_mesh)
+        return gather_from_region(F.linear(x, self.weight.to(dtype)),
+                                  self.axis, dim=-1, mesh=self.tensor_mesh)
+
+
+def embed(table: nn.Module, ids, dtype) -> torch.Tensor:
+    """``table``'s rows for ``ids`` in ``dtype`` (a split table's
+    lookup over its axis)."""
+    if isinstance(table, VocabParallelEmbedding):
+        return table.lookup(ids, dtype)
+    return F.embedding(ids, table.weight.to(dtype))
+
+
+def tied_logits(x, table: nn.Module, dtype) -> torch.Tensor:
+    """``x`` projected onto ``table``'s rows in ``dtype`` (a tied head;
+    a split table's logits gathered over its axis)."""
+    if isinstance(table, VocabParallelEmbedding):
+        return table.logits(x, dtype)
+    return F.linear(x, table.weight.to(dtype))
 
 
 class _RowShard:

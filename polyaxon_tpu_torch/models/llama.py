@@ -52,7 +52,8 @@ from .. import default_device
 from ..ops.attention import dot_product_attention
 from ..ops.rotary import rotate
 from ..parallel.constraints import BATCH, constrain, current_exact_mesh
-from .layers import Dense, check_remat_policy, model_device, run_stack
+from .layers import (Dense, check_remat_policy, embed, model_device,
+                     run_stack, tied_logits)
 from .kv_cache import (KVCache, LayerCache, append_kv_cache,
                        append_ring_kv_cache)
 
@@ -269,7 +270,12 @@ class LlamaBlock(nn.Module):
 class LlamaModel(nn.Module):
     """``embed_tokens`` / ``run_blocks`` / ``head`` compose ``forward``,
     as in ``GPT2Model``.  ``param_dtype`` (default ``cfg.dtype``) is the
-    type the parameters are held in; the norms' scales stay float32."""
+    type the parameters are held in; the norms' scales stay float32.
+    ``TP_REGIONS``: over a tp axis ``q/k/v_proj`` split by query and KV
+    heads (contiguous blocks, so a rank's query heads share its KV
+    heads), ``o_proj`` row-parallel, ``gate``/``up`` then ``down``."""
+
+    TP_REGIONS = True
 
     def __init__(self, cfg: LlamaConfig, device=None, param_dtype=None):
         super().__init__()
@@ -292,7 +298,7 @@ class LlamaModel(nn.Module):
         return model_device(self)
 
     def embed_tokens(self, input_ids):
-        return F.embedding(input_ids, self.embed.weight).to(self.cfg.dtype)
+        return embed(self.embed, input_ids, self.cfg.dtype)
 
     def run_blocks(self, x, cache: Optional[KVCache] = None):
         return run_stack(self.h, self.cfg, x, cache)
@@ -301,7 +307,7 @@ class LlamaModel(nn.Module):
         dtype = self.cfg.dtype
         x = self.final_norm(x).to(dtype)
         if self.cfg.tie_embeddings:
-            return F.linear(x, self.embed.weight.to(dtype)).float()
+            return tied_logits(x, self.embed, dtype).float()
         return self.lm_head(x).float()
 
     def forward(self, input_ids, *, train: bool = False,

@@ -37,13 +37,15 @@ GPT-2's (``gpt2.attention``, exact under the mesh) and its experts are
 split over ``ep`` (:class:`ExpertShards`): decode FETCHES each token's
 routed expert from the device that holds it, and a prefill chunk's
 buckets run on their experts' devices; the per-expert math is the
-unmeshed one.  Training's expert parallelism (the reference's
-``moe_layer``, an all-to-all across a gang) is refused by the
-parallelism item.  Parameter names follow the flax tree (``wte``,
-``wpe``, ``h.{i}.{ln1,qkv,o_proj,ln2,moe.{router,experts_w1,
-experts_w2}}``, ``ln_f``), the router ``[d, E]`` and the experts
-``[E, d, f]`` / ``[E, f, d]`` in the reference's layout, so
-``convert.moe_gpt_state_dict_from_jax`` maps one onto the other.
+unmeshed one.  Training over a gang's ``ep`` axis runs the
+reference's ``moe_layer`` (``parallel/moe.py``: each ep rank routes
+1/ep of the sequence to experts exchanged by all-to-all); its ``tp``
+axis splits the attention by heads (``gpt2.py``).  Parameter names
+follow the flax tree (``wte``, ``wpe``, ``h.{i}.{ln1,qkv,o_proj,ln2,
+moe.{router,experts_w1,experts_w2}}``, ``ln_f``), the router ``[d,
+E]`` and the experts ``[E, d, f]`` / ``[E, f, d]`` in the reference's
+layout, so ``convert.moe_gpt_state_dict_from_jax`` maps one onto the
+other.
 """
 
 from __future__ import annotations
@@ -57,10 +59,11 @@ from torch import nn
 
 from .. import default_device
 from ..parallel.constraints import current_exact_mesh
-from ..parallel.moe import load_balance_loss, route_top1
+from ..parallel.moe import load_balance_loss, moe_layer, route_top1
 from .kv_cache import KVCache, LayerCache
 from .gpt2 import attention, qkv_rows_by_heads
-from .layers import Dense, f32_param, model_device, remat_call
+from .layers import Dense, embed, f32_param, model_device, remat_call, \
+    tied_logits
 
 
 @dataclass(frozen=True)
@@ -197,7 +200,14 @@ def switch_ffn_train(flat, router_w, w1, w2, capacity: int,
 
 class MoEMlp(nn.Module):
     """The switch FFN: router ``[d, E]`` and experts ``[E, d, f]`` /
-    ``[E, f, d]``, all float32."""
+    ``[E, f, d]``, all float32.  Over a training mesh's ``ep`` axis
+    (``strategies.shard_tensors`` keeps this rank's experts and sets
+    ``tensor_mesh``) the training forward is the reference's
+    ``moe_layer``, and the router's gradient sums over ``ep``
+    (``EP_SUMMED``)."""
+
+    EP_SUMMED = ("router",)
+    tensor_mesh = None
 
     def __init__(self, cfg: MoEGPTConfig, device=None):
         super().__init__()
@@ -215,6 +225,16 @@ class MoEMlp(nn.Module):
         b, s, d = x.shape
         flat = x.reshape(b * s, d)
         w = (self.router, self.experts_w1, self.experts_w2)
+        if self.tensor_mesh is not None:
+            if decode:
+                raise NotImplementedError(
+                    "MoE decode over a training mesh's ep shards: "
+                    "restore the checkpoint in one process (or on a "
+                    "serving mesh) to decode")
+            out, aux = moe_layer(x, *w, self.tensor_mesh,
+                                 capacity_factor=cfg.capacity_factor,
+                                 activation=_gelu)
+            return out.to(cfg.dtype), aux
         if decode and s == 1:
             out, aux = switch_ffn_decode(flat, *w, experts=experts)
         elif decode:
@@ -273,7 +293,10 @@ class MoEBlock(nn.Module):
 class MoEGPTModel(nn.Module):
     """``forward(input_ids) -> (logits [B, S, V] float32, aux)``.
     ``param_dtype`` (default ``cfg.dtype``) holds the dense layers and
-    embeddings; the router and experts are float32 always."""
+    embeddings; the router and experts are float32 always.
+    ``TP_REGIONS``: GPT-2's attention pair over a tp axis."""
+
+    TP_REGIONS = True
 
     def __init__(self, cfg: MoEGPTConfig, device=None, param_dtype=None):
         super().__init__()
@@ -302,8 +325,8 @@ class MoEGPTModel(nn.Module):
         elif position is not None:
             pos = pos + position
         dtype = self.cfg.dtype
-        return (F.embedding(input_ids, self.wte.weight.to(dtype))
-                + F.embedding(pos, self.wpe.weight.to(dtype)))
+        return embed(self.wte, input_ids, dtype) + embed(self.wpe, pos,
+                                                         dtype)
 
     def run_blocks(self, x, cache: Optional[KVCache] = None):
         """The layer stack with the summed aux carry: each block
@@ -324,7 +347,7 @@ class MoEGPTModel(nn.Module):
     def head(self, x):
         dtype = self.cfg.dtype
         x = self.ln_f(x.float()).to(dtype)
-        return F.linear(x, self.wte.weight.to(dtype)).float()
+        return tied_logits(x, self.wte, dtype).float()
 
     def forward(self, input_ids, *, train: bool = False,
                 decode: bool = False,

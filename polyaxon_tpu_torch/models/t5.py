@@ -46,7 +46,8 @@ from torch import nn
 from .. import default_device
 from ..ops.attention import dot_product_attention
 from .kv_cache import KVCache, LayerCache, append_kv_cache
-from .layers import Dense, check_remat_policy, model_device, remat_call
+from .layers import (ColumnParallelDense, Dense, check_remat_policy,
+                     embed, model_device, remat_call, tied_logits)
 from .llama import RMSNorm
 
 
@@ -191,9 +192,9 @@ class T5Attention(nn.Module):
         self.o_proj = dense(cfg.inner_dim, cfg.d_model)
 
     def _heads(self, proj, src):
-        cfg = self.cfg
-        return proj(src).reshape(src.shape[0], src.shape[1],
-                                 cfg.num_heads, cfg.d_kv)
+        """[B, S, heads, d_kv]: all heads, or a tp rank's."""
+        return proj(src).reshape(src.shape[0], src.shape[1], -1,
+                                 self.cfg.d_kv)
 
     def project_kv(self, src):
         """(K, V) of ``src`` [B, S, d_model], [B, S, H, d_kv] each."""
@@ -204,9 +205,12 @@ class T5Attention(nn.Module):
         """``kv``: the encoder output (cross-attention).  In decode,
         ``cache`` (self-attention) or ``cross_kv`` (the cached cross (K,
         V)) is given."""
-        cfg = self.cfg
         b, sq = x.shape[:2]
         q = self._heads(self.q_proj, x)
+        if bias is not None and isinstance(self.q_proj, ColumnParallelDense):
+            # The bias of this rank's heads; its cotangent gathers back
+            # onto the replicated table.
+            bias = self.q_proj.split(bias, dim=1)
         causal = self.causal
         if cross_kv is not None:
             k, v = cross_kv
@@ -218,7 +222,7 @@ class T5Attention(nn.Module):
             k, v = self.project_kv(x if kv is None else kv)
         a = dot_product_attention(q, k, v, mask=mask, causal=causal,
                                   scale=1.0, bias=bias)
-        return self.o_proj(a.reshape(b, sq, cfg.inner_dim))
+        return self.o_proj(a.reshape(b, sq, -1))
 
 
 class T5Block(nn.Module):
@@ -279,7 +283,13 @@ class T5Model(nn.Module):
     decoder inputs default to ``shift_right(input_ids)``); ``encode`` /
     ``decode`` are the halves the seq2seq decoding loops call.
     ``param_dtype`` (default ``cfg.dtype``) holds the embedding and the
-    dense layers; the bias tables and norms are float32."""
+    dense layers; the bias tables and norms are float32.
+    ``TP_REGIONS``: over a tp axis ``q/k/v_proj`` split by heads then
+    ``o_proj``, ``wi`` (``wi_0`` / ``wi_1``) then ``wo``; the relative
+    bias tables stay replicated (no rule of the reference matches them)
+    and each rank attends with its heads' slice of the bias."""
+
+    TP_REGIONS = True
 
     def __init__(self, cfg: T5Config, device=None, param_dtype=None):
         super().__init__()
@@ -306,7 +316,7 @@ class T5Model(nn.Module):
         return model_device(self)
 
     def _embed(self, ids):
-        return F.embedding(ids, self.embed.weight.to(self.cfg.dtype))
+        return embed(self.embed, ids, self.cfg.dtype)
 
     def _remat(self) -> bool:
         return self.cfg.remat and torch.is_grad_enabled()
@@ -397,8 +407,8 @@ class T5Model(nn.Module):
         if cfg.tie_embeddings:
             # The tied head scales its input by d_model**-0.5 (the scale
             # the attention logits dropped).
-            return F.linear(x * (cfg.d_model ** -0.5),
-                            self.embed.weight.to(cfg.dtype)).float()
+            return tied_logits(x * (cfg.d_model ** -0.5), self.embed,
+                               cfg.dtype).float()
         return self.lm_head(x).float()
 
     def forward(self, input_ids, decoder_input_ids=None, *, enc_mask=None,

@@ -92,12 +92,11 @@ class ViTBlock(nn.Module):
     def forward(self, x):
         cfg = self.cfg
         h = self.ln1(x.float()).to(cfg.dtype)
-        q, k, v = self.qkv(h).split(cfg.hidden_size, dim=-1)
-        shape = h.shape[:-1] + (cfg.num_heads,
-                                cfg.hidden_size // cfg.num_heads)
-        q, k, v = (t.reshape(shape) for t in (q, k, v))
+        # -1 heads: all of them, or a tp rank's (qkv split by heads).
+        shape = h.shape[:-1] + (-1, cfg.hidden_size // cfg.num_heads)
+        q, k, v = (t.reshape(shape) for t in self.qkv(h).chunk(3, dim=-1))
         a = dot_product_attention(q, k, v, causal=False)
-        x = x + self.o_proj(a.reshape(h.shape))
+        x = x + self.o_proj(a.flatten(-2))
         h = self.ln2(x.float()).to(cfg.dtype)
         h = F.gelu(self.fc1(h), approximate="tanh" if cfg.gelu_approximate
                    else "none")
@@ -108,7 +107,10 @@ class ViTModel(nn.Module):
     """``forward(images [B, H, W, C]) -> logits [B, num_classes]``
     float32.  ``param_dtype`` (default ``cfg.dtype``) holds the
     convolution and the blocks' dense layers; the CLS token, the
-    positions, the norms and the head are float32."""
+    positions, the norms and the head are float32.  ``TP_REGIONS``:
+    GPT-2's two Megatron pairs a block over tp."""
+
+    TP_REGIONS = True
 
     def __init__(self, cfg: ViTConfig, device=None, param_dtype=None):
         super().__init__()

@@ -7,7 +7,9 @@ process group over every process of the gang: a TCP rendezvous at
 ``PTPU_COORDINATOR_ADDRESS`` (the chief's store), ``world_size =
 PTPU_NUM_PROCESSES``, ``rank = PTPU_PROCESS_ID``.  The backend follows
 the device the process trains on: ``nccl`` on ``cuda``, ``gloo`` on the
-CPU.
+CPU; ``PTPU_DIST_BACKEND=gloo`` asks for gloo over the cards' tensors
+(NCCL places no two ranks on one card, gloo does: a gang of several
+ranks on one card).
 
 Device rule: each process drives one card, ``cuda:{PTPU_PROCESS_ID %
 torch.cuda.device_count()}``, made the current device before the group
@@ -43,6 +45,8 @@ ENV_SLICE_TYPE = "PTPU_SLICE_TYPE"
 # finish) before the group fails instead of hanging the gang.
 ENV_INIT_TIMEOUT = "PTPU_INIT_TIMEOUT"
 DEFAULT_TIMEOUT_S = 300.0
+# The backend over the cards' tensors when not NCCL ("gloo").
+ENV_DIST_BACKEND = "PTPU_DIST_BACKEND"
 
 # The group this module started, its device and its control group.
 # Written only by start_process_group / shutdown on the main thread.
@@ -106,10 +110,12 @@ def _timeout_s(timeout_s: Optional[float]) -> float:
 
 def start_process_group(init_method: str, world_size: int, rank: int,
                         device: Union[str, torch.device],
-                        timeout_s: Optional[float] = None) -> str:
+                        timeout_s: Optional[float] = None,
+                        backend: Optional[str] = None) -> str:
     """Start this process's member of a ``world_size`` group and return
     its backend: ``nccl`` when ``device`` is a card (made the current
-    device first), ``gloo`` on the CPU.  ``init_method`` is the
+    device first), ``gloo`` on the CPU, or ``backend`` when given
+    (``gloo`` over a card's tensors).  ``init_method`` is the
     rendezvous (``tcp://host:port``); a member that never joins fails
     the others after ``timeout_s`` (default ``PTPU_INIT_TIMEOUT``, else
     300 s).  The one path every group takes: :func:`initialize_from_env`
@@ -122,8 +128,9 @@ def start_process_group(init_method: str, world_size: int, rank: int,
     kwargs = {}
     if device.type == "cuda":
         torch.cuda.set_device(device)
-        backend = "nccl"
-        kwargs["device_id"] = device
+        backend = backend or "nccl"
+        if backend == "nccl":
+            kwargs["device_id"] = device
     else:
         backend = "gloo"
     logger.info("torch.distributed.init_process_group(%s, %s, "
@@ -152,7 +159,8 @@ def initialize_from_env(timeout_s: Optional[float] = None,
         return topo
     start_process_group(f"tcp://{topo.coordinator_address}",
                         topo.num_processes, topo.process_id,
-                        rank_device(topo.process_id, device), timeout_s)
+                        rank_device(topo.process_id, device), timeout_s,
+                        backend=os.environ.get(ENV_DIST_BACKEND) or None)
     return topo
 
 

@@ -20,6 +20,22 @@ over the data ranks) yields the gradient of the global loss.
 The hierarchical multi-slice all-reduce (reduce-scatter inside the
 slice, all-reduce across slices, all-gather inside) equals the flat
 all-reduce.
+
+Those backwards are right for the data axes, whose ranks hold
+different rows.  They are wrong inside a tensor or expert region, whose
+ranks hold the SAME activations downstream: there a sum's backward that
+all-reduces would scale every gradient upstream of it by the axis size.
+The four Megatron region operators carry their own backward instead
+(the reference gets the same transposes from GSPMD):
+
+- :func:`copy_to_region`: identity forward, all-reduce backward (the
+  input of a column-parallel layer);
+- :func:`reduce_from_region`: all-reduce forward, identity backward
+  (the output of a row-parallel layer);
+- :func:`split_to_region`: this rank's block forward, all-gather
+  backward;
+- :func:`gather_from_region`: all-gather forward, this rank's block
+  backward.
 """
 
 from __future__ import annotations
@@ -125,12 +141,16 @@ class _ReduceScatter(torch.autograd.Function):
 
 
 def _all_to_all(x, group, n, split_dim, concat_dim):
+    """Block ``i`` of ``x`` along ``split_dim`` to rank ``i``; the
+    blocks received concatenated along ``concat_dim`` in rank order (one
+    ``all_to_all_single`` over the blocks stacked: gloo takes it over a
+    card's tensors too)."""
     import torch.distributed as dist
 
-    ins = [c.contiguous() for c in x.chunk(n, split_dim)]
-    outs = [torch.empty_like(c) for c in ins]
-    dist.all_to_all(outs, ins, group=group)
-    return torch.cat(outs, concat_dim)
+    ins = torch.stack(x.chunk(n, split_dim))
+    outs = torch.empty_like(ins)
+    dist.all_to_all_single(outs, ins, group=group)
+    return torch.cat(outs.unbind(0), concat_dim)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -175,6 +195,88 @@ class _RingPermute(torch.autograd.Function):
     def backward(ctx, g):
         group, n, shift = ctx.args
         return _permute(g, group, n, -shift), None, None, None
+
+
+def _block(x, group, n, dim):
+    """This rank's block of ``n`` equal blocks of ``x`` along ``dim``."""
+    import torch.distributed as dist
+
+    if x.shape[dim] % n:
+        raise ValueError(f"split: dim {dim} of size {x.shape[dim]} does "
+                         f"not divide by {n}")
+    return x.chunk(n, dim)[dist.get_rank(group)].contiguous()
+
+
+class _CopyToRegion(_AllReduce):
+    """The all-reduce's backward behind an identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+
+class _ReduceFromRegion(_AllReduce):
+    """The all-reduce's forward before an identity backward."""
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SplitToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.args = (group, n, dim)
+        return _block(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.args = (group, n, dim)
+        return _gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, *ctx.args), None, None, None
+
+
+def copy_to_region(x: torch.Tensor, axis: str, *, mesh=None
+                   ) -> torch.Tensor:
+    """Enter a tensor region: ``x`` as it is, its cotangent summed over
+    ``axis`` (each rank's partial gradient of a replicated input)."""
+    group, n = _one_group(axis, mesh)
+    return x if n == 1 else _CopyToRegion.apply(x, group)
+
+
+def reduce_from_region(x: torch.Tensor, axis: str, *, mesh=None
+                       ) -> torch.Tensor:
+    """Leave a tensor region: the sum of the ranks' partial ``x`` over
+    ``axis``, its cotangent passed through (it is the same on every
+    rank)."""
+    group, n = _one_group(axis, mesh)
+    return x if n == 1 else _ReduceFromRegion.apply(x, group)
+
+
+def split_to_region(x: torch.Tensor, axis: str, *, dim: int, mesh=None
+                    ) -> torch.Tensor:
+    """This rank's block of a replicated ``x`` along ``dim``; the
+    cotangent gathered back to the whole tensor."""
+    group, n = _one_group(axis, mesh)
+    return x if n == 1 else _SplitToRegion.apply(x, group, n, dim)
+
+
+def gather_from_region(x: torch.Tensor, axis: str, *, dim: int,
+                       mesh=None) -> torch.Tensor:
+    """The ranks' blocks of ``x`` concatenated along ``dim``; the
+    cotangent's block of this rank passed back."""
+    group, n = _one_group(axis, mesh)
+    return x if n == 1 else _GatherFromRegion.apply(x, group, n, dim)
 
 
 def all_reduce(x: torch.Tensor, axis: AxisName, *, mesh=None

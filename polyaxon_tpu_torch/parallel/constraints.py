@@ -11,6 +11,16 @@ call.  Two channels, with different semantics:
   process computes on its own rows of the batch with whole parameters
   (FSDP gathers them before the forward) — so there is no layout to
   pin, where the reference pins one with ``with_sharding_constraint``.
+  Under a tensor or expert axis the LAYERS, not ``constrain``, enter
+  and leave the region where the reference's tensor-axis sites stand:
+  a column-parallel dense layer's input passes ``copy_to_region``, a
+  row-parallel one's output ``reduce_from_region``, a vocab-parallel
+  table's lookup and logits reduce and gather, and ``moe_layer``
+  splits and gathers the sequence over ep (``models/layers.py``,
+  ``parallel/moe.py``).  Each layer knows whether it holds a shard
+  (``strategies.shard_tensors`` swapped it in), so the model code
+  reads the same on one device and on a gang, and ``constrain`` stays
+  the identity in training.
 - the SERVING-EXACT mesh (``exact_mesh``, ``serving/meshed.py``): a
   placed model publishes its mesh group for each forward.  The serving
   layout sums nothing across devices (tokens bitwise equal to unmeshed

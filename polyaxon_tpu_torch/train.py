@@ -12,8 +12,10 @@ PTPU_* block) trains as one process does over the same global batch:
 the bootstrap starts the process group (NCCL on the cards, one card a
 process; gloo with ``--cpu``), the slice-health gate proves it before
 the checkpoint is touched, and ``--strategy`` / ``PTPU_STRATEGY`` lays
-the ``dp`` and ``fsdp`` axes over the ranks (``parallel/strategies.py``).
-Every rank builds the same global batch and keeps its rows.  The chief
+the ``dp``, ``fsdp``, ``tp`` and ``ep`` axes over the ranks
+(``parallel/strategies.py``).  Every rank builds the same global batch
+and keeps its rows: the tp and ep ranks of one data group keep the same
+rows.  The chief
 (process 0) tracks the run; every rank joins each checkpoint save, and
 the chief writes one full state.
 
@@ -40,8 +42,10 @@ model in eval mode (batch norms on their running averages).
 span-corruption objective over ``--data-dir``'s token stream.
 
 Not ported yet, refused with a message naming the ROADMAP item that
-carries them: tensor, expert, sequence and pipeline axes above 1 and
-``--sp-mode`` (**Parallelism and meshes**).
+carries them (**Parallelism and meshes**): sequence and pipeline axes
+above 1 and ``--sp-mode`` (items (c), (d)), and fsdp above 1 beside tp
+or ep above 1 (item (b3)).  A pipeline beside sp or ep is refused with
+the reference's own message.
 """
 
 from __future__ import annotations
@@ -67,8 +71,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", default="adamw",
                    choices=["adamw", "sgd", "adam"])
     p.add_argument("--strategy", default=None,
-                   help="Mesh axes as JSON or 'dp:-1,fsdp:2' (the dp "
-                        "and fsdp axes; default: dp over every process).")
+                   help="Mesh axes as JSON or 'dp:-1,tp:2' (the dp, "
+                        "fsdp, tp and ep axes; default: dp over every "
+                        "process).")
     p.add_argument("--sp-mode", default=None, choices=["ring", "ulysses"],
                    help="Sequence-parallel attention (not ported yet).")
     p.add_argument("--grad-accum", type=int, default=1)
@@ -344,17 +349,29 @@ def parse_strategy(raw):
 
 def _refuse_unported(args, strategy) -> dict:
     """The mesh axes of ``strategy``, after refusing what is not ported:
-    ``--sp-mode``, and a tp, ep, sp or pp axis above 1."""
-    from .parallel.strategies import PARALLELISM_REFUSAL
+    ``--sp-mode``, an sp or pp axis above 1 (the reference's own message
+    first where a pipeline meets sp or ep), and fsdp above 1 beside tp
+    or ep above 1."""
+    from .parallel.strategies import (FSDP_TENSOR_REFUSAL,
+                                      PARALLELISM_REFUSAL)
 
     if args.sp_mode is not None:
         raise SystemExit(f"--sp-mode: {PARALLELISM_REFUSAL}")
     axes = {k: v for k, v in strategy.items()
             if k not in _STRATEGY_STR_KEYS}
-    big = {k: v for k, v in axes.items()
-           if k in ("tp", "ep", "sp", "pp") and int(v) > 1}
-    if big:
+    size = {k: int(v) for k, v in axes.items()}
+    if size.get("pp", 1) > 1:
+        for bad_axis in ("sp", "ep"):
+            if size.get(bad_axis, 1) > 1:
+                raise SystemExit(
+                    f"strategy combines pp>1 with {bad_axis}>1, which "
+                    f"is not supported: pipeline stages compose with "
+                    f"dp/fsdp (batch) and tp (tensor) axes only")
+    if any(size.get(a, 1) > 1 for a in ("sp", "pp")):
         raise SystemExit(f"--strategy {axes}: {PARALLELISM_REFUSAL}")
+    if size.get("fsdp", 1) > 1 and any(size.get(a, 1) > 1
+                                       for a in ("tp", "ep")):
+        raise SystemExit(f"--strategy {axes}: {FSDP_TENSOR_REFUSAL}")
     return axes
 
 
@@ -412,6 +429,11 @@ def _main(args, strategy, axes, device, topology) -> int:
         spec = get_model(args.model)
     except KeyError as e:
         raise SystemExit(e.args[0]) from None
+    if mesh.shape["tp"] > 1 or mesh.shape["ep"] > 1:
+        # Heads and experts against tp / ep, before any weight is built.
+        from .parallel.strategies import check_model_axes
+
+        check_model_axes(spec.make_model(device="meta").cfg, mesh)
     batch_size = args.batch_size or spec.default_batch_size
     # The global batch shards over the data axes: round it down to a
     # multiple of their product, as the reference does.
@@ -434,13 +456,15 @@ def _main(args, strategy, axes, device, topology) -> int:
     else:
         model = spec.init_params(seed=args.seed, device=device,
                                  train=True, **model_kw)
+    # Counted before a tp / ep mesh keeps each rank's shards.
+    n_params = sum(p.numel() for p in model.parameters())
     step_fn = make_train_step(spec.loss_fn(model),
                               make_optimizer(args.optimizer, args.lr),
                               mesh, grad_accum=args.grad_accum)
     state = step_fn.init_state(model)
     print(f"train {args.model} on {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}): "
-          f"batch {batch_size}, {sum(p.numel() for p in model.parameters())}"
+          f"batch {batch_size}, {n_params}"
           f" params, optimizer {args.optimizer} lr {args.lr}", flush=True)
 
     # 3. tracking: attaches to the managed run (env) or registers one

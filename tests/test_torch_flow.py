@@ -64,9 +64,10 @@ def test_every_example_is_checked():
         "bert_finetune.yaml", "bert_job.yaml", "bert_pytorchjob.yaml",
         "convnet_hyperband.yaml", "gpt2_job.yaml", "gpt2_mpijob.yaml",
         "hyperband.yaml", "mnist.yaml", "moe_gpt_job.yaml",
-        "resnet50_job.yaml", "resnet50_tfjob.yaml", "serving.yaml",
-        "t5_job.yaml", "tinyllama_job.yaml", "tinyllama_tpujob.yaml",
-        "vit_job.yaml", "vit_tpujob.yaml"]
+        "moe_gpt_tpujob.yaml", "resnet50_job.yaml", "resnet50_tfjob.yaml",
+        "serving.yaml", "t5_job.yaml", "t5_tpujob.yaml",
+        "tinyllama_job.yaml", "tinyllama_tpujob.yaml", "vit_job.yaml",
+        "vit_tpujob.yaml"]
 
 
 @pytest.mark.parametrize("path", REF_EXAMPLES + PORT_EXAMPLES,

@@ -14,9 +14,10 @@ the JAX package, in one process on the CPU (the gangs themselves:
 - ``check_slice_health`` reports a healthy device, a hung probe and a
   probe error, as ``tests/test_failure_detection.py`` checks the
   reference's.
-- ``constrain`` is the identity, the serving-exact mesh and tensor axes
-  are refused by the parallelism item, and every collective is the
-  identity with no mesh.
+- ``constrain`` is the identity, the serving-exact mesh, tensor and
+  expert axes taken (fsdp beside them refused by item (b3)), sequence
+  and pipeline axes refused by the parallelism item, and every
+  collective is the identity with no mesh.
 """
 
 from __future__ import annotations
@@ -263,8 +264,21 @@ def test_constraints_and_collectives_without_a_mesh():
 
 @pytest.mark.parametrize("axis", ["tp", "ep", "sp", "pp"])
 def test_tensor_axes_refused_by_parallelism_item(axis):
+    """tp and ep are ported (``test_torch_tp.py``,
+    ``test_torch_ep.py``): a train step takes their mesh, and refuses
+    fsdp beside them by item (b3); sp and pp stay refused by the
+    parallelism item."""
     sizes = dict({a: 1 for a in tmesh.AXIS_ORDER}, **{axis: 2})
     mesh = tmesh.Mesh(sizes, np.arange(2).reshape(
         [sizes[a] for a in tmesh.AXIS_ORDER]), torch.device("cpu"))
+    if axis in ("tp", "ep"):
+        step = tstrat.TrainStep(lambda b, r: None, None, mesh)
+        assert step.mesh is mesh and not step.distributed
+        sizes["fsdp"] = 2
+        both = tmesh.Mesh(sizes, np.arange(4).reshape(
+            [sizes[a] for a in tmesh.AXIS_ORDER]), torch.device("cpu"))
+        with pytest.raises(NotImplementedError, match=r"item \(b3\)"):
+            tstrat.TrainStep(lambda b, r: None, None, both)
+        return
     with pytest.raises(NotImplementedError, match="Parallelism and meshes"):
         tstrat.TrainStep(lambda b, r: None, None, mesh)

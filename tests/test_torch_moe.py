@@ -255,6 +255,28 @@ def test_decode_flops_per_token_equals_reference():
 
 
 def test_moe_layer_refused_by_parallelism_item():
-    with pytest.raises(NotImplementedError,
-                       match="Parallelism and meshes"):
-        tpmoe.moe_layer(None, None, None, None, None)
+    """``moe_layer`` is ported (over a gang: ``test_torch_ep.py``).
+    Meshless it is the dense path: the reference's ``_switch_ffn_dense``
+    (output and aux within 1e-5) at a capacity that drops tokens, and the
+    port's index path ``switch_ffn_train``."""
+    from polyaxon_tpu.models.moe_gpt import _switch_ffn_dense
+    from polyaxon_tpu_torch.models.moe_gpt import switch_ffn_train
+
+    rs = np.random.RandomState(2)
+    x = rs.randn(2, 12, 8).astype(np.float32)
+    r = rs.randn(8, 4).astype(np.float32)
+    w1 = (0.3 * rs.randn(4, 8, 16)).astype(np.float32)
+    w2 = (0.3 * rs.randn(4, 16, 8)).astype(np.float32)
+    out, aux = tpmoe.moe_layer(*map(torch.as_tensor, (x, r, w1, w2)), None,
+                               capacity_factor=1.25)
+    cap = int(1.25 * 24 / 4)
+    want, want_aux = _switch_ffn_dense(jnp.asarray(x.reshape(24, 8)), r,
+                                       w1, w2, cap, jax.nn.gelu)
+    np.testing.assert_allclose(out.reshape(24, 8).numpy(),
+                               np.asarray(want), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+    idx, idx_aux = switch_ffn_train(torch.as_tensor(x.reshape(24, 8)),
+                                    *map(torch.as_tensor, (r, w1, w2)), cap)
+    np.testing.assert_allclose(out.reshape(24, 8).numpy(), idx.numpy(),
+                               rtol=0, atol=1e-6)
+    assert float(idx_aux) == pytest.approx(float(aux), rel=1e-6)

@@ -400,8 +400,8 @@ def test_train_main_cpu(tmp_path, monkeypatch, capsys):
      "span-corruption requires --data-dir"),
     (["--dataset", "span-corruption", "--data-dir", "."],
      "requires a seq2seq"),
-    (["--model", "moe-gpt-tiny", "--strategy", "dp:-1,ep:4"],
-     "Parallelism and meshes"),
+    (["--model", "moe-gpt-tiny", "--strategy", "fsdp:2,ep:2"],
+     r"\(b3\) fsdp with tp / ep"),
 ], ids=["flags0-parallelism slice", "flags1-parallelism slice",
         "flags2-import_hf", "flags3-zoo slice", "flags4-zoo",
         "flags5-zoo slice"])
@@ -411,10 +411,12 @@ def test_train_refuses_what_is_not_ported(flags, slice_name, tmp_path,
     digits dataset, ``--eval-every``, T5 with span corruption and
     MoE-GPT are ported (``test_torch_import_hf.py``,
     ``test_torch_eval.py``, ``test_torch_t5.py``, ``test_torch_moe.py``),
-    and so are the dp and fsdp axes over a gang
-    (``test_torch_mesh.py``, ``test_torch_gang.py``); what stays
-    refused: ``--sp-mode`` and MoE-GPT's ``ep`` axis by the parallelism
-    item, ``--init-hf`` of a family with no loader, and span corruption
+    and so are the dp, fsdp, tp and ep axes over a gang
+    (``test_torch_mesh.py``, ``test_torch_gang.py``,
+    ``test_torch_tp.py``, ``test_torch_ep.py``); what stays refused:
+    ``--sp-mode`` by the parallelism item, fsdp beside ep (MoE-GPT's
+    ``fsdp:2,ep:2``) by its item (b3), ``--init-hf`` of a family with
+    no loader, and span corruption
     without a data directory or on a decoder-only model, with the
     reference's messages.  ``dp:2`` in one process with no gang raises
     the reference's own ``MeshError``.  The ids are the cases' earlier

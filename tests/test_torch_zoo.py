@@ -236,9 +236,9 @@ _ITEM_IDS = [
 
 @pytest.mark.parametrize("argv,item", [
     (["--model", "moe-gpt-tiny", "--strategy", "dp:-1,ep:4"],
-     "Parallelism and meshes"),
+     "do not divide device count 1"),
     (["--model", "t5-tiny", "--strategy", "dp:-1,tp:2"],
-     "Parallelism and meshes"),
+     "do not divide device count 1"),
     (["--model", "vit-tiny", "--strategy", "dp:2"],
      "do not divide device count 1"),
     (["--model", "moe-gpt-small", "--sp-mode", "ring"],
@@ -253,12 +253,13 @@ _ITEM_IDS = [
 ], ids=_ITEM_IDS)
 def test_unported_refused_by_roadmap_item(argv, item, tmp_path,
                                           monkeypatch):
-    """What stays refused: the reference's tp / ep strategies of the
-    zoo's examples and sequence parallelism by the parallelism item,
-    span corruption without a seq2seq model or a data directory with
-    the reference's messages.  ``dp:2`` in one process with no gang
-    raises the reference's own ``MeshError`` (a gang trains it:
-    ``test_torch_gang.py``).  The ids are the cases' earlier ones."""
+    """What stays refused: sequence parallelism by the parallelism item,
+    span corruption without a seq2seq model or a data directory with the
+    reference's messages.  ``dp:2`` and the reference's tp / ep
+    strategies of the zoo's examples (``dp:-1,ep:4``, ``dp:-1,tp:2``) in
+    one process with no gang raise the reference's own ``MeshError`` (a
+    gang trains them: ``test_torch_gang.py``, ``test_torch_tp.py``,
+    ``test_torch_ep.py``).  The ids are the cases' earlier ones."""
     from polyaxon_tpu_torch.parallel.mesh import MeshError
 
     monkeypatch.chdir(tmp_path)
