@@ -90,7 +90,11 @@ Phases, each raising on failure:
    the one card (gloo over the card's tensors), GPT-2 medium on
    ``tp:2`` and MoE-GPT-small on ``ep:2``, float32 at a few layers equal
    to the group-less step, bf16 at full depth timed, the flash kernels
-   launched at each rank's local heads (``[tp]`` lines);
+   launched at each rank's local heads (``[tp]`` lines), and in the same
+   ranks sequence parallelism on ``sp:2``: ring and Ulysses attention
+   over the gang, float32 GPT-2 medium and TinyLlama's width (windowed
+   ring) equal to the group-less step, bf16 GPT-2 medium timed with
+   each rank's launches (``[sp]`` lines);
 8. one float32 step's loss and gradients through the flash route against
    the plain-attention route, at GPT-2 medium's width and 4 layers;
    the baseline's training zoo (``phase_zoo``, ``[zoo]`` lines):
@@ -532,19 +536,21 @@ def _turns(theirs, ours) -> list:
             graph_ms(theirs)]
 
 
-def _window_mask(sq, sk, window, device):
-    """SDPA's boolean mask for a causal sliding window (True = attend):
-    SDPA has no window argument, so the library call takes a mask."""
+def _window_mask(sq, sk, window, device, causal=True):
+    """SDPA's boolean mask for a sliding window (True = attend): causal,
+    or the raw window alone (a ring's past block): SDPA has no window
+    argument, so the library call takes a mask."""
     q_ids = torch.arange(sq, device=device)[:, None] + (sk - sq)
     k_ids = torch.arange(sk, device=device)[None, :]
-    return (q_ids >= k_ids) & (q_ids - k_ids <= window)
+    inside = q_ids - k_ids <= window
+    return (q_ids >= k_ids) & inside if causal else inside
 
 
 def _sdpa_fn(qt, kt, vt, scale, window, causal=True, kv_mask=None):
     """SDPA on BHSD tensors; a window or a key-padding mask goes in as a
     mask made here, outside the timed call."""
     mask = None if window is None else _window_mask(
-        qt.shape[2], kt.shape[2], window, qt.device)
+        qt.shape[2], kt.shape[2], window, qt.device, causal)
     if kv_mask is not None:
         mask = kv_mask[:, None, None, :]
     return lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -648,11 +654,18 @@ def phase_kernel(other_src=None):
         ("t5_cross_kv_mask", 16, 128, 512, 8, 64, bf16, False, None,
          "lengths", 1.0),
         ("moe_train", 8, 1024, 1024, 12, 64, bf16, True, None, None),
+        # Sequence parallelism's ring blocks (GPT-2 medium and TinyLlama
+        # at sp 2): a past block, non-causal, and a windowed rotation's
+        # raw window 511 - 1024 (rows past 510 keep no key).
+        ("ring_past_block", 8, 512, 512, 16, 64, bf16, False, None, None),
+        ("ring_window_rotation", 2, 1024, 1024, 32, 64, bf16, False, -513,
+         None),
     ]
     fused = ("main", "train_fused", "bert_train", "bert_train_kv_mask",
              "moe_train")
     timed = fused + ("llama_train", "llama_train_window", "t5_cross",
-                     "t5_cross_kv_mask")
+                     "t5_cross_kv_mask", "ring_past_block",
+                     "ring_window_rotation")
     results, shapes = {}, {}
     for name, b, sq, sk, h, d, dtype, causal, window, mk, *sc in cases:
         q, k, v = _qkv(b, sq, sk, h, d, dtype, gen, fused=name in fused)
@@ -674,6 +687,9 @@ def phase_kernel(other_src=None):
         if mk == "lengths":  # batch 0 keeps no key: every row empty
             ok &= bool((lse[0] == flash.NEG_INF).all()) and \
                 bool((o[0] == 0).all())
+        if name == "ring_window_rotation":  # rows 511.. keep no key
+            ok &= bool((lse[:, :, 511:] <= flash.NEG_INF / 2).all()) and \
+                bool((o[:, 511:] == 0).all())
         print(f"[kernel] {name}: B={b} Sq={sq} Sk={sk} H={h} D={d} "
               f"{str(dtype)[6:]} causal={causal} window={window} "
               f"mask={mk} scale={scale:.4g}: max|dO|={err_o:.3e} "
@@ -698,7 +714,9 @@ def phase_kernel(other_src=None):
                                  ("bert_train_kv_mask", None, False),
                                  ("t5_cross", None, False),
                                  ("t5_cross_kv_mask", None, False),
-                                 ("moe_train", None, True)):
+                                 ("moe_train", None, True),
+                                 ("ring_past_block", None, False),
+                                 ("ring_window_rotation", -513, False)):
         q, k, v, kv_mask, scale = shapes.pop(name)
         rec[name] = _time_forward(name, q, k, v, window=window,
                                   causal=causal, kv_mask=kv_mask,
@@ -796,10 +814,19 @@ def phase_backward(other_src=None):
         ("t5_cross_kv_mask", 16, 128, 512, 8, 64, bf16, False, None,
          "lengths", 1.0),
         ("moe_train", 8, 1024, 1024, 12, 64, bf16, True, None, "fused"),
+        # The ring's blocks at sp 2 with the LSE cotangent the ring's
+        # log-sum-exp combination sends back: a past block, non-causal,
+        # and a windowed rotation's raw window -513 (rows 511.. and keys
+        # ..512 fully masked: zero gradients).
+        ("ring_past_block", 8, 512, 512, 16, 64, bf16, False, None,
+         "dlse"),
+        ("ring_window_rotation", 2, 1024, 1024, 32, 64, bf16, False, -513,
+         "dlse"),
     ]
     timed = ("main_train", "llama_train", "llama_train_window",
              "bert_train", "bert_train_kv_mask", "t5_cross",
-             "t5_cross_kv_mask", "moe_train")
+             "t5_cross_kv_mask", "moe_train", "ring_past_block",
+             "ring_window_rotation")
     kept = {}
     worst = {"dq": 0.0, "dkv": 0.0}
     for name, b, sq, sk, h, d, dtype, causal, window, extra, *sc in cases:
@@ -835,6 +862,9 @@ def phase_backward(other_src=None):
             ok &= bool((got[0][0, :128] == 0).all())
         if extra == "lengths":    # batch 0 keeps no key: zero dQ
             ok &= bool((got[0][0] == 0).all())
+        if name == "ring_window_rotation":  # masked rows and keys: zeros
+            ok &= bool((got[0][:, 511:] == 0).all()) and all(
+                bool((g[:, :513] == 0).all()) for g in got[1:])
         print(f"[backward] {name}: B={b} Sq={sq} Sk={sk} H={h} D={d} "
               f"{str(dtype)[6:]} causal={causal} window={window} "
               f"extra={extra} scale={scale:.4g}: "
@@ -850,8 +880,8 @@ def phase_backward(other_src=None):
         if name in timed:
             kept[name] = ((q, k, v, o, lse, do, scale, errs),
                           dict(window=window, causal=causal,
-                               kv_mask=kv_mask))
-        del q, k, v, o, lse, do, got, want
+                               kv_mask=kv_mask, dlse=dlse))
+        del q, k, v, o, lse, do, dlse, got, want
 
     other = other_backward(other_src) if other_src else None
     args, _ = kept.pop("main_train")
@@ -867,17 +897,20 @@ def phase_backward(other_src=None):
 
 
 def _time_backward(label, q, k, v, o, lse, do, scale, errs, worst, *,
-                   window=None, causal=True, kv_mask=None, other=None):
+                   window=None, causal=True, kv_mask=None, dlse=None,
+                   other=None):
     """Device times of dq and dkv at one shape (``window``: a sliding
-    window; ``causal``; ``kv_mask``: key padding): the kernels, their
-    plain versions, SDPA's backward and the bounds; with ``other``
+    window; ``causal``; ``kv_mask``: key padding; ``dlse``: an LSE
+    cotangent): the kernels, their plain versions, SDPA's backward
+    (which takes no LSE cotangent) and the bounds; with ``other``
     (another build) both builds in turns.  ``worst``: the largest
     errors over all cases (the main shape's record carries them)."""
     from polyaxon_tpu_torch.ops import flash
 
     args, _ = flash._bwd_kernel_args(q, k, v, kv_mask, o, lse, do, causal,
-                                     scale, window)
-    plain_args = (q, k, v, kv_mask, o, lse, do, causal, scale, window)
+                                     scale, window, dlse)
+    plain_args = (q, k, v, kv_mask, o, lse, do, causal, scale, window,
+                  dlse)
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2)
@@ -908,7 +941,8 @@ def _time_backward(label, q, k, v, o, lse, do, scale, errs, worst, *,
         t_eager = eager_ms(kernel)
         t_plain = graph_ms(lambda: plain(*plain_args), calls=2, reps=5)
         t_bound, bound_by = bound(q, k, causal, window, kv_mask,
-                                  q_like=q_like, kv_like=kv_like, rows=2,
+                                  q_like=q_like, kv_like=kv_like,
+                                  rows=2 if dlse is None else 3,
                                   flop_per_pair=fpp)
         rec = {"max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
                "library_ms": t_lib, "bound_ms": t_bound,
@@ -918,7 +952,8 @@ def _time_backward(label, q, k, v, o, lse, do, scale, errs, worst, *,
         line = (f"[backward] {which} {label} at {list(q.shape)}"
                 + (f"->{k.shape[1]}" if k.shape[1] != q.shape[1] else "")
                 + f" {str(q.dtype)[6:]} "
-                f"{_mask_label(causal, window, kv_mask)}, scale "
+                f"{_mask_label(causal, window, kv_mask)}"
+                + ("" if dlse is None else ", LSE cotangent") + ", scale "
                 f"{scale:.4g}, device "
                 f"time (CUDA graph): kernel {t_kernel:.4f} ms, plain "
                 f"{t_plain:.4f} ms, bound {t_bound:.4f} ms ({bound_by}); "
@@ -3190,7 +3225,8 @@ def phase_mesh() -> dict:
     return out
 
 
-TP_STEPS = 3                # steps of each tp / ep gang run
+TP_STEPS = 3                # steps of each float32 tp / ep / sp check
+TP_BF16_STEPS = 2           # steps of each bf16 gang timing run
 TP_LR = 1e-4
 TP_MOE_F32_LAYERS = 2       # of MoE-GPT-small's 12, float32
 # Each rank of phase_tp_train's gang: both on cuda:0, gloo over the
@@ -3202,15 +3238,17 @@ import numpy as np, torch
 import torch.distributed as dist
 from polyaxon_tpu_torch.models.registry import get_model
 from polyaxon_tpu_torch.ops import flash
+from polyaxon_tpu_torch.ops.attention import sequence_parallel
 from polyaxon_tpu_torch.parallel import MeshSpec, build_mesh, make_train_step
 from polyaxon_tpu_torch.parallel.bootstrap import initialize_from_env, shutdown
 from polyaxon_tpu_torch.parallel.moe import moe_layer
 from polyaxon_tpu_torch.parallel.strategies import gather_shard
 from polyaxon_tpu_torch.train import make_optimizer
 
-out_dir, steps, lr, f32_layers, moe_f32_layers = (
-    sys.argv[1], int(sys.argv[2]), float(sys.argv[3]), int(sys.argv[4]),
-    int(sys.argv[5]))
+(out_dir, steps, lr, f32_layers, moe_f32_layers, llama_f32_layers,
+ bf16_steps) = (sys.argv[1], int(sys.argv[2]), float(sys.argv[3]),
+                int(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6]),
+                int(sys.argv[7]))
 # Imported: wait for the phase's go before touching the card.
 while not os.path.exists(os.path.join(out_dir, "go")):
     time.sleep(0.05)
@@ -3258,7 +3296,7 @@ def card_init(model, seed=0):
                 p.normal_(0.0, std, generator=g)
 
 def run(name, axes, seq=1024, rows=8, weights=None, ep_emulated=0,
-        gather=False, seeded=False, **over):
+        gather=False, seeded=False, sp_mode=None, n_steps=None, **over):
     t_run = time.perf_counter()
     spec = get_model(name)
     if weights is None and seeded and (axes is None or rank == 0):
@@ -3284,25 +3322,33 @@ def run(name, axes, seq=1024, rows=8, weights=None, ep_emulated=0,
     losses, aux, times = [], [], []
     flash.launch_count = flash.dq_launch_count = flash.dkv_launch_count = 0
     shapes.clear()
-    for i in range(steps):
+    torch.cuda.reset_peak_memory_stats()
+    resident_mib = torch.cuda.memory_allocated() / 2 ** 20
+    for i in range(n_steps or steps):
         tokens = np.random.RandomState(100 + i).randint(0, vocab, (rows, seq))
         if mesh is not None:
             tokens = step.batch_sharding.shard(tokens)
         batch = {"inputs": torch.as_tensor(tokens, device="cuda")}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step(state, batch)
+        if sp_mode is None:
+            state, m = step(state, batch)
+        else:
+            with sequence_parallel(mesh, sp_mode):
+                state, m = step(state, batch)
         losses.append(float(m["loss"]))
         times.append(time.perf_counter() - t0)
         if "aux_loss" in m:
             aux.append(float(m["aux_loss"]))
     c = counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     final = None if not gather else {
         n: gather_shard(model, n, t) if n in step.shards else t
         for n, t in model.state_dict().items()}
     rec = {"losses": losses, "aux": aux, "times": times, "counts": c,
            "shapes": sorted(shapes), "shards": len(step.shards),
            "local_params": sum(p.numel() for p in model.parameters()),
+           "peak_mib": peak_mib, "resident_mib": resident_mib,
            "secs": time.perf_counter() - t_run}
     del state, step, model
     torch.cuda.empty_cache()
@@ -3349,13 +3395,55 @@ del final, init
 dist.barrier()
 # bf16 at full depth: step times and the flash launches; rank 0 then
 # times the group-less step alone on the same initial weights.
-res["gpt2_bf16"], _, gpt2_init = run("gpt2-medium", {"dp": 1, "tp": 2})
-res["moe_bf16"], _, moe_init = run("moe-gpt-small", {"dp": 1, "ep": 2})
+res["gpt2_bf16"], _, gpt2_init = run("gpt2-medium", {"dp": 1, "tp": 2},
+                                     n_steps=bf16_steps)
+res["moe_bf16"], _, moe_init = run("moe-gpt-small", {"dp": 1, "ep": 2},
+                                   n_steps=bf16_steps)
 dist.barrier()
 if rank == 0:
     res["gpt2_bf16_ref"] = run("gpt2-medium", None, weights=gpt2_init)[0]
     del gpt2_init
     res["moe_bf16_ref"] = run("moe-gpt-small", None, weights=moe_init)[0]
+dist.barrier()
+# Sequence parallelism on sp 2.  float32 at a few layers of the models'
+# own weights against the group-less step: GPT-2 medium at 4 x 1024,
+# ring and Ulysses (one group-less run holds both), TinyLlama's width at
+# 2 x 2048 with window 511 on the ring (its 1024-token blocks: one
+# windowed rotation, raw window -513).
+t_sp = time.perf_counter()
+sp2 = {"dp": 1, "sp": 2}
+f32_sp = dict(dtype=torch.float32, rows=4, gather=True, seeded=True)
+ref_final = None
+for mode in ("ring", "ulysses"):
+    gang, final, init = run("gpt2-medium", sp2, sp_mode=mode,
+                            num_layers=f32_layers, **f32_sp)
+    res[f"sp_{mode}_f32"] = {"gang": gang}
+    if rank == 0:
+        if ref_final is None:
+            ref, ref_final, _ = run("gpt2-medium", None, weights=init,
+                                    num_layers=f32_layers, **f32_sp)
+        worst, tight = compare(final, ref_final)
+        res[f"sp_{mode}_f32"].update(ref=ref, worst=worst, tight=tight)
+    del final, init
+    dist.barrier()
+del ref_final
+llama = dict(f32_sp, rows=2, seq=2048, sliding_window=511,
+             num_layers=llama_f32_layers)
+gang, final, init = run("tinyllama-1.1b", sp2, sp_mode="ring", **llama)
+res["sp_llama_f32"] = {"gang": gang}
+if rank == 0:
+    ref, ref_final, _ = run("tinyllama-1.1b", None, weights=init, **llama)
+    worst, tight = compare(final, ref_final)
+    res["sp_llama_f32"].update(ref=ref, worst=worst, tight=tight)
+del final, init
+dist.barrier()
+# bf16 GPT-2 medium at full depth, 8 x 1024, on the timing runs' weights
+# (gpt2_bf16_ref is their group-less step): step times and launches.
+res["sp_ring_bf16"] = run("gpt2-medium", sp2, sp_mode="ring",
+                         n_steps=bf16_steps)[0]
+res["sp_ulysses_bf16"] = run("gpt2-medium", sp2, sp_mode="ulysses",
+                            n_steps=bf16_steps)[0]
+res["sp_secs"] = time.perf_counter() - t_sp
 res["backend"] = dist.get_backend()
 with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
     json.dump(res, f)
@@ -3398,8 +3486,10 @@ def _start_tp_gang() -> dict:
         gang["logs"].append(log)
         gang["procs"].append(subprocess.Popen(
             [sys.executable, script, tmp, str(TP_STEPS), str(TP_LR),
-             str(F32_LAYERS), str(TP_MOE_F32_LAYERS)], cwd=root, env=env,
-            stdout=log, stderr=subprocess.STDOUT, start_new_session=True))
+             str(F32_LAYERS), str(TP_MOE_F32_LAYERS),
+              str(LLAMA_F32_LAYERS), str(TP_BF16_STEPS)], cwd=root,
+            env=env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True))
     return gang
 
 
@@ -3438,24 +3528,33 @@ def phase_tp_train(gang=None) -> dict:
        own capacity, emulated on one device): losses rtol 1e-5, every
        parameter within 2 lr a step and 99% of the elements within
        2e-6 (the CPU tests' tolerance, ``tests/test_torch_tp.py``);
-    2. bf16 at full depth: GPT-2 medium ``tp:2`` and MoE-GPT-small
-       ``ep:2``, step ms against the group-less step (rank 0 alone after
-       the gang), and each rank's flash launches: 24 of each kernel a
+    2. bf16 at full depth, ``TP_BF16_STEPS`` steps: GPT-2 medium
+       ``tp:2`` and MoE-GPT-small ``ep:2``, step ms against the
+       group-less step (rank 0 alone after the gang), and each rank's
+       flash launches: 24 of each kernel a
        GPT-2 step at the local-head shape [8, 1024, 8, 64], 12 a MoE
-       step at [8, 1024, 12, 64].
+       step at [8, 1024, 12, 64];
+    3. sequence parallelism on ``sp:2`` in the same ranks
+       (:func:`_check_sp_train`): float32 GPT-2 medium at 4 x 1024, ring
+       and Ulysses, and TinyLlama's width at 2 x 2048 with window 511 on
+       the ring (one windowed rotation), with the tolerances of 1.; bf16
+       GPT-2 medium at full depth, 8 x 1024, ring and Ulysses, step ms
+       and each rank's launches.
     Two ranks sharing one card and a host-staged gloo group measure
-    correctness and the layout's cost on one card, not tp scaling.
+    correctness and the layout's cost on one card, not tp or sp
+    scaling.
     ``gang``: the ranks :func:`_start_tp_gang` started beside an earlier
     phase (they import and wait for this phase's go); None starts them
-    here.  Prints ``[tp]`` lines and ``[time] tp-train``; a gloo refusal
-    of a CUDA collective fails the phase with the rank's error."""
+    here.  Prints ``[tp]`` and ``[sp]`` lines, ``[time] sp-train`` and
+    ``[time] tp-train``; a gloo refusal of a CUDA collective fails the
+    phase with the rank's error."""
     t_phase = time.perf_counter()
     gang = gang or _start_tp_gang()
     overlapped = max(0.0, t_phase - gang["t0"])
     procs, tmp = gang["procs"], gang["dir"]
     try:
         open(os.path.join(tmp, "go"), "w").close()
-        deadline = time.monotonic() + 420
+        deadline = time.monotonic() + 600
         try:
             for proc in procs:
                 proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -3502,14 +3601,15 @@ def phase_tp_train(gang=None) -> dict:
                 raise AssertionError(f"tp-train {key} rank {r}: flash "
                                      f"shapes {rec['shapes']}, not "
                                      f"{[shape]}")
-            _check_per_step(rec["counts"], TP_STEPS, layers,
+            _check_per_step(rec["counts"], TP_BF16_STEPS, layers,
                             f"tp-train {key} rank {r}")
             if not all(np.isfinite(rec["losses"])):
                 raise AssertionError(f"tp-train {key}: {rec['losses']}")
+    sp = _check_sp_train(ranks, bound)
     card = card_line()
     g, gr = res["gpt2_bf16"], res["gpt2_bf16_ref"]
     m, mr = res["moe_bf16"], res["moe_bf16_ref"]
-    print(f"[tp] bf16 8 x 1024, {TP_STEPS} steps, step ms after the "
+    print(f"[tp] bf16 8 x 1024, {TP_BF16_STEPS} steps, step ms after the "
           f"first (two ranks on one card, gloo; the layout's cost, not "
           f"scaling): gpt2-medium tp 2 {_tp_step_ms(g):.2f} against "
           f"group-less {_tp_step_ms(gr):.2f}; moe-gpt-small ep 2 "
@@ -3525,12 +3625,111 @@ def phase_tp_train(gang=None) -> dict:
           + ", " + ", ".join(f"{k} gang {res[k]['gang']['secs']:.1f} s, "
                              f"group-less {res[k]['ref']['secs']:.1f} s"
                              for k in ("gpt2_f32", "moe_f32")) + ")")
+    ring, uly = (res[f"sp_{k}_bf16"] for k in ("ring", "ulysses"))
+    print(f"[sp] bf16 gpt2-medium 8 x 1024, sp 2, {TP_BF16_STEPS} steps, "
+          f"step ms after the first (two ranks on one card, gloo; the "
+          f"layout's cost, not scaling): ring {_tp_step_ms(ring):.2f} / "
+          f"{_tp_step_ms(ranks[1]['sp_ring_bf16']):.2f} (ranks 0 / 1), "
+          f"ulysses {_tp_step_ms(uly):.2f} / "
+          f"{_tp_step_ms(ranks[1]['sp_ulysses_bf16']):.2f}, against "
+          f"group-less {_tp_step_ms(gr):.2f}; flash launches: ring rank 0 "
+          f"{ring['counts']}, rank 1 {ranks[1]['sp_ring_bf16']['counts']} "
+          f"at {ring['shapes'][0]} (24 / 48 a step each: rank 0's "
+          f"diagonal, rank 1's diagonal and past block), ulysses "
+          f"{uly['counts']} a rank at {uly['shapes'][0]} (24 a step "
+          f"each); {card}")
+    print(f"[time] sp-train: {res['sp_secs']:.1f} s of the ranks' run "
+          f"(rank 0: " + ", ".join(
+              f"{k} {res[k]['secs']:.1f} s" for k in (
+                  "sp_ring_bf16", "sp_ulysses_bf16")) + ", " + ", ".join(
+              f"{k} gang {res[k]['gang']['secs']:.1f} s, group-less "
+              f"{res[k]['ref']['secs']:.1f} s" for k in (
+                  "sp_ring_f32", "sp_llama_f32")) + ")")
     return {"flash_launches": {"tp_train_gpt2": g["counts"],
-                               "ep_train_moe": m["counts"]},
+                               "ep_train_moe": m["counts"], **sp},
             "step_ms": {"gpt2 tp2": _tp_step_ms(g),
                         "gpt2": _tp_step_ms(gr),
                         "moe ep2": _tp_step_ms(m),
-                        "moe": _tp_step_ms(mr)}}
+                        "moe": _tp_step_ms(mr),
+                        "gpt2 sp2 ring": _tp_step_ms(ring),
+                        "gpt2 sp2 ulysses": _tp_step_ms(uly)}}
+
+
+def _check_sp_train(ranks, bound) -> dict:
+    """The sp runs of ``phase_tp_train``'s ranks: float32 GPT-2 medium
+    (ring, Ulysses) and TinyLlama's width (windowed ring) against the
+    group-less step, with the tp runs' tolerances, and every run's
+    launches and shapes on each rank, so a quiet fall back to local
+    attention fails: on the causal ring rank 0 launches its diagonal
+    block's kernels alone, rank 1 its diagonal and past block's (the
+    windowed ring's past block at the raw window 511 - 1024), each at
+    [B, S / 2, H, D]; Ulysses one launch of each a layer at
+    [B, S, H / 2, D]; TinyLlama's remat runs each forward twice (bf16
+    GPT-2: rank 0 24 of each kernel a step, rank 1 48, at
+    [8, 512, 16, 64]; Ulysses 24 a rank at [8, 1024, 8, 64]).  Prints
+    the windowed ring's peak memory beside the group-less remat
+    step's.  Returns the gang's launches of each path, both ranks
+    summed."""
+    res = ranks[0]
+    for key, label, layers, fwd_passes, blocks, shape in (
+            ("sp_ring_f32", f"gpt2-medium sp 2 ring, {F32_LAYERS} layers, "
+             "4 x 1024", F32_LAYERS, 1, (1, 2), [4, 512, 16, 64]),
+            ("sp_ulysses_f32", f"gpt2-medium sp 2 ulysses, {F32_LAYERS} "
+             "layers, 4 x 1024", F32_LAYERS, 1, (1, 1), [4, 1024, 8, 64]),
+            ("sp_llama_f32", f"{LLAMA} width sp 2 ring, window 511, "
+             f"{LLAMA_F32_LAYERS} layers, 2 x 2048", LLAMA_F32_LAYERS, 2,
+             (1, 2), [2, 1024, 32, 64])):
+        for r, rank in enumerate(ranks):
+            rec = rank[key]["gang"]
+            if rec["shapes"] != [shape]:
+                raise AssertionError(f"sp-train {key} rank {r}: flash "
+                                     f"shapes {rec['shapes']}, not "
+                                     f"{[shape]}")
+            _check_per_step(rec["counts"], TP_STEPS, layers * blocks[r],
+                            f"sp-train {key} rank {r}", fwd_passes)
+        c = res[key]
+        rel = max(abs(g - w) / abs(w) for g, w in
+                  zip(c["gang"]["losses"], c["ref"]["losses"]))
+        if rel > 1e-5 or c["worst"] > bound or c["tight"] < 0.99:
+            raise AssertionError(
+                f"sp-train {label} float32: losses {c['gang']['losses']} "
+                f"vs {c['ref']['losses']} (rel {rel:.3g} > 1e-5?), params "
+                f"max |d| {c['worst']:.3g} (> {bound}?), {c['tight']:.4f} "
+                f"within 2e-6 (< 0.99?)")
+        print(f"[sp] {label} float32, {TP_STEPS} AdamW steps (lr {TP_LR}): "
+              f"gang == group-less step: loss rel {rel:.2e}, params max "
+              f"|d| {c['worst']:.2e} ({c['tight']:.6f} within 2e-6); "
+              f"flash launches rank 0 {c['gang']['counts']}, rank 1 "
+              f"{ranks[1][key]['gang']['counts']}; losses "
+              + ", ".join(f"{x:.6f}" for x in c["gang"]["losses"]))
+    out = {}
+    for key, path, layers, shape in (
+            ("sp_ring_bf16", "sp_ring_gpt2", (24, 48), [8, 512, 16, 64]),
+            ("sp_ulysses_bf16", "sp_ulysses_gpt2", (24, 24),
+             [8, 1024, 8, 64])):
+        for r, rank in enumerate(ranks):
+            rec = rank[key]
+            if rec["shapes"] != [shape]:
+                raise AssertionError(f"sp-train {key} rank {r}: flash "
+                                     f"shapes {rec['shapes']}, not "
+                                     f"{[shape]}")
+            _check_per_step(rec["counts"], TP_BF16_STEPS, layers[r],
+                            f"sp-train {key} rank {r}")
+            if not all(np.isfinite(rec["losses"])):
+                raise AssertionError(f"sp-train {key}: {rec['losses']}")
+        out[path] = {k: sum(rank[key]["counts"][k] for rank in ranks)
+                     for k in ranks[0][key]["counts"]}
+    runs = [rank["sp_llama_f32"]["gang"] for rank in ranks] + \
+        [res["sp_llama_f32"]["ref"]]
+    print(f"[sp] {LLAMA} width, window 511, {LLAMA_F32_LAYERS} layers under "
+          f"remat, 2 x 2048 float32, the steps' peak memory above what was "
+          f"resident before them (the weights and the harness's copies): "
+          f"sp 2 ring {runs[0]['peak_mib'] - runs[0]['resident_mib']:.1f} / "
+          f"{runs[1]['peak_mib'] - runs[1]['resident_mib']:.1f} MiB (ranks "
+          f"0 / 1), group-less "
+          f"{runs[2]['peak_mib'] - runs[2]['resident_mib']:.1f} MiB (peaks "
+          + " / ".join(f"{r['peak_mib']:.1f}" for r in runs) + " MiB)")
+    return out
 
 
 def _grads(model, tokens, loss_fn):
@@ -7142,7 +7341,7 @@ def main(argv=None) -> int:
         tp_train = phase_tp_train(tp_gang)
     finally:
         _stop_tp_gang(tp_gang)
-    mark("tp / ep training: a two-rank gloo gang on the one card")
+    mark("tp / ep / sp training: a two-rank gloo gang on the one card")
     phase_grad_route()
     mark("gradient route check")
     _release()

@@ -8,7 +8,9 @@ is copied here.
 - ``ops.flash``:      flash-attention forward; a hand-written CUDA kernel
                       for Hopper (``csrc/flash_fwd.cu``) with its plain
                       PyTorch version beside it.
-- ``ops.attention``:  ``dot_product_attention`` routing flash / plain.
+- ``ops.attention``:  ``dot_product_attention`` routing flash / plain,
+                      or ring / Ulysses attention under
+                      ``sequence_parallel``.
 - ``models``:         GPT-2 (``gpt2``), the Llama family (``llama``),
                       the training zoo (``mlp``, ``convnet``, ``resnet``,
                       ``bert``, ``train_mnist``), the decode cache

@@ -27,6 +27,7 @@ name is refused.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import List, Optional, Sequence, Tuple
 
@@ -428,15 +429,35 @@ def _policy_context(name: str):
     return create_selective_checkpoint_contexts(policy)
 
 
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for ctx in contexts:
+            stack.enter_context(ctx)
+        yield
+
+
+def _remat_context(policy: Optional[str]):
+    """checkpoint's (forward, recompute) contexts: the named policy's,
+    and for the recompute the forward's sequence-parallel route (the
+    recompute may run on another thread, the autograd engine's)."""
+    from ..ops.attention import (current_sequence_parallel,
+                                 restored_sequence_parallel)
+
+    fwd, rec = (contextlib.nullcontext(), contextlib.nullcontext()) \
+        if policy in (None, "nothing_saveable") else _policy_context(policy)
+    return fwd, _entered(rec, restored_sequence_parallel(
+        current_sequence_parallel()))
+
+
 def remat_call(block: nn.Module, policy: Optional[str], *args):
     """``block(*args)`` recomputed in the backward as ``policy`` (a
-    :data:`REMAT_POLICIES` name or None) says."""
+    :data:`REMAT_POLICIES` name or None) says, under the attention route
+    its forward took."""
     if policy == "everything_saveable":
         return block(*args)
-    if policy in (None, "nothing_saveable"):
-        return checkpoint(block, *args, use_reentrant=False)
     return checkpoint(block, *args, use_reentrant=False,
-                      context_fn=functools.partial(_policy_context, policy))
+                      context_fn=functools.partial(_remat_context, policy))
 
 
 def model_device(model: nn.Module) -> torch.device:

@@ -49,6 +49,11 @@ def flash_eligible(sq: int, sk: int, head_dim: int, mask=None, *,
                               else sk))
 
 
+def narrow_kv_mask(mask, batch: int, sk: int) -> torch.Tensor:
+    """[B?, 1, 1, Sk] boolean -> the [batch, sk] form the kernels take."""
+    return mask[:, 0, 0, :].expand(batch, sk)
+
+
 def _valid(q, k, kv_mask, causal: bool, window) -> torch.Tensor:
     """The admitted (q, k) pairs, [B or 1, 1, Sq, Sk]: causal with
     ``q_shift = sk - sq``, raw window, key padding."""

@@ -8,14 +8,16 @@ Port of ``polyaxon_tpu/parallel``:
 - ``collectives``: differentiable collectives over mesh axes.
 - ``health``:      the slice health probe.
 - ``constraints``: the ambient mesh and the serving-exact mesh.
-- ``strategies``:  the train step on one device, dp and fsdp.
-- ``moe``:         switch routing (``moe_layer`` refused).
+- ``strategies``:  the train step on one device, dp, fsdp, tp, ep and
+                   sp.
+- ``moe``:         switch routing and ``moe_layer`` over ep.
+- ``ring``:        ring attention (K/V rotation over the sp axis).
+- ``ulysses``:     all-to-all head / sequence resharding attention.
 
 ``constraints`` also carries the serving-exact mesh of
 ``serving/meshed.py`` (tensor and expert parallelism in serving).
-Tensor and expert parallelism in training, and sequence and pipeline
-parallelism, come with later slices (ROADMAP Queue 1: Parallelism and
-meshes, items (b2), (c), (d)).
+Pipeline parallelism comes with a later slice (ROADMAP Queue 1:
+Parallelism and meshes, item (d)).
 """
 
 from .bootstrap import initialize_from_env, topology_from_env
@@ -38,12 +40,14 @@ from .mesh import (
     replicate_sharding,
 )
 from .moe import moe_layer, top1_dispatch
+from .ring import ring_attention
 from .strategies import (
     TrainStep,
     make_param_placements,
     make_train_step,
     param_placement,
 )
+from .ulysses import ulysses_attention
 
 __all__ = [
     "BATCH", "MeshSpec", "SliceHealth", "TrainStep", "all_gather",
@@ -52,6 +56,6 @@ __all__ = [
     "data_sharding", "hierarchical_all_reduce", "initialize_from_env",
     "local_mesh", "make_param_placements", "make_train_step",
     "moe_layer", "param_placement", "reduce_scatter",
-    "replicate_sharding", "ring_permute", "top1_dispatch",
-    "topology_from_env",
+    "replicate_sharding", "ring_attention", "ring_permute",
+    "top1_dispatch", "topology_from_env", "ulysses_attention",
 ]

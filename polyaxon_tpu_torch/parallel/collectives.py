@@ -147,7 +147,9 @@ def _all_to_all(x, group, n, split_dim, concat_dim):
     card's tensors too)."""
     import torch.distributed as dist
 
-    ins = torch.stack(x.chunk(n, split_dim))
+    # The stacked blocks of a strided cotangent can keep its layout; the
+    # collective takes contiguous tensors only.
+    ins = torch.stack(x.chunk(n, split_dim)).contiguous()
     outs = torch.empty_like(ins)
     dist.all_to_all_single(outs, ins, group=group)
     return torch.cat(outs.unbind(0), concat_dim)
@@ -171,17 +173,21 @@ class _AllToAll(torch.autograd.Function):
 
 def _permute(x, group, n, shift):
     """Send ``x`` to the rank ``shift`` ahead on the group's ring and
-    receive the one ``shift`` behind."""
+    receive the one ``shift`` behind: one ``all_to_all_single`` whose
+    only non-empty blocks are the one sent and the one received (gloo's
+    point-to-point ops take CPU tensors only; its all-to-all, as NCCL's,
+    takes a card's tensors too)."""
     import torch.distributed as dist
 
     me = dist.get_rank(group)
-    dst = dist.get_global_rank(group, (me + shift) % n)
-    src = dist.get_global_rank(group, (me - shift) % n)
+    dst, src = (me + shift) % n, (me - shift) % n
+    size = x.numel()
     out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x.contiguous(), dst),
-           dist.P2POp(dist.irecv, out, src)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    dist.all_to_all_single(
+        out.view(-1), x.contiguous().view(-1),
+        output_split_sizes=[size if j == src else 0 for j in range(n)],
+        input_split_sizes=[size if j == dst else 0 for j in range(n)],
+        group=group)
     return out
 
 
@@ -320,7 +326,7 @@ def all_to_all(x: torch.Tensor, axis: str, *, split_dim: int,
 def ring_permute(x: torch.Tensor, axis: str, *, shift: int = 1,
                  mesh=None) -> torch.Tensor:
     """Rotate shards around an axis: rank i's block goes to rank
-    i + shift."""
+    i + shift (one all-to-all over the group: :func:`_permute`)."""
     group, n = _one_group(axis, mesh)
     if n == 1 or shift % n == 0:
         return x

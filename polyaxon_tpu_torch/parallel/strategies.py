@@ -45,9 +45,16 @@ this path even with one rank, so a one-rank NCCL group runs the wrap a
 gang runs; a mesh with no group, or none, is the one-device path (tp
 and ep sizes above 1 need a gang).
 
-Sequence and pipeline axes above 1, and fsdp together with tp or ep,
-are refused by the ROADMAP items that carry them; ``precompile`` (AOT
-compilation) has no eager counterpart.
+- **sp**: the activations stay replicated over sp, as in the
+  reference; only attention splits the sequence, through ring or
+  Ulysses attention (``ops/attention.py``'s sequence-parallel route,
+  which ``train.py`` activates).  Every sp rank holds the same rows and,
+  after the backward, the same gradients, so sp adds no gradient
+  reduction.
+
+A pipeline axis above 1, fsdp together with tp or ep, and sp together
+with fsdp or ep are refused by the ROADMAP items that carry them;
+``precompile`` (AOT compilation) has no eager counterpart.
 """
 
 from __future__ import annotations
@@ -65,14 +72,22 @@ from .constraints import ambient_mesh
 from .mesh import MeshError, MeshSpec, build_mesh, data_sharding
 
 PARALLELISM_REFUSAL = (
-    "sequence and pipeline parallelism in training come with later "
-    "slices of the port (ROADMAP Queue 1: Parallelism and meshes, items "
-    "(c) and (d))")
+    "pipeline parallelism in training comes with a later slice of the "
+    "port (ROADMAP Queue 1: Parallelism and meshes, item (d))")
 # fsdp placed jointly with a tensor or expert axis.
 FSDP_TENSOR_REFUSAL = (
     "fsdp together with tp or ep comes with a later slice of the port "
     "(ROADMAP Queue 1: Parallelism and meshes, item (b3) fsdp with "
     "tp / ep)")
+# A sequence axis beside an fsdp or an expert axis.
+SP_FSDP_REFUSAL = (
+    "sequence parallelism together with fsdp comes with a later slice "
+    "of the port (ROADMAP Queue 1: Parallelism and meshes, item (c2) sp "
+    "with fsdp)")
+SP_EP_REFUSAL = (
+    "sequence parallelism together with ep comes with a later slice of "
+    "the port (ROADMAP Queue 1: Parallelism and meshes, item (c3) sp "
+    "with ep)")
 
 # Flat gradient buckets of the dp all-reduce.
 BUCKET_BYTES = 25 * 2 ** 20
@@ -98,12 +113,18 @@ TP_RULES: List[Tuple[str, tuple]] = [
 ]
 
 def check_mesh(mesh) -> None:
-    """Refuse a mesh whose sp or pp axis is above 1, or whose fsdp axis
-    is above 1 beside a tp or ep axis above 1."""
-    big = {a: mesh.shape[a] for a in ("sp", "pp")
-           if mesh.shape.get(a, 1) > 1}
-    if big:
-        raise NotImplementedError(f"mesh {big}: {PARALLELISM_REFUSAL}")
+    """Refuse a mesh whose pp axis is above 1, whose fsdp axis is above
+    1 beside a tp or ep axis above 1, or whose sp axis is above 1 beside
+    an fsdp or ep axis above 1."""
+    if mesh.shape.get("pp", 1) > 1:
+        raise NotImplementedError(
+            f"mesh {{'pp': {mesh.shape['pp']}}}: {PARALLELISM_REFUSAL}")
+    sp = mesh.shape.get("sp", 1)
+    for axis, refusal in (("fsdp", SP_FSDP_REFUSAL), ("ep", SP_EP_REFUSAL)):
+        if sp > 1 and mesh.shape.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"mesh {{'sp': {sp}, '{axis}': {mesh.shape[axis]}}}: "
+                f"{refusal}")
     tensor = {a: mesh.shape[a] for a in ("tp", "ep")
               if mesh.shape.get(a, 1) > 1}
     if tensor and mesh.shape.get("fsdp", 1) > 1:

@@ -41,11 +41,17 @@ model in eval mode (batch norms on their running averages).
 ``--dataset span-corruption`` trains a seq2seq model (T5) on T5's
 span-corruption objective over ``--data-dir``'s token stream.
 
+A strategy with sp above 1 routes every model's attention through ring
+or Ulysses attention over the sp group (``--sp-mode``, the reference's
+default ``ring``) for the whole run: ``sequence_parallel`` is activated
+before the step is built, and ``main`` deactivates it on the way out,
+so an in-process caller never inherits the route.
+
 Not ported yet, refused with a message naming the ROADMAP item that
-carries them (**Parallelism and meshes**): sequence and pipeline axes
-above 1 and ``--sp-mode`` (items (c), (d)), and fsdp above 1 beside tp
-or ep above 1 (item (b3)).  A pipeline beside sp or ep is refused with
-the reference's own message.
+carries them (**Parallelism and meshes**): a pipeline axis above 1
+(item (d)), fsdp above 1 beside tp or ep above 1 (item (b3)), and sp
+above 1 beside fsdp or ep above 1 (items (c2), (c3)).  A pipeline
+beside sp or ep is refused with the reference's own message.
 """
 
 from __future__ import annotations
@@ -72,10 +78,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["adamw", "sgd", "adam"])
     p.add_argument("--strategy", default=None,
                    help="Mesh axes as JSON or 'dp:-1,tp:2' (the dp, "
-                        "fsdp, tp and ep axes; default: dp over every "
-                        "process).")
-    p.add_argument("--sp-mode", default=None, choices=["ring", "ulysses"],
-                   help="Sequence-parallel attention (not ported yet).")
+                        "fsdp, tp, ep and sp axes; default: dp over "
+                        "every process).")
+    p.add_argument("--sp-mode", default="ring",
+                   choices=["ring", "ulysses"],
+                   help="Sequence-parallel attention flavor when the "
+                        "strategy has sp > 1.")
     p.add_argument("--grad-accum", type=int, default=1)
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="Steps between checkpoints (0 = only at end).")
@@ -347,16 +355,15 @@ def parse_strategy(raw):
     return out
 
 
-def _refuse_unported(args, strategy) -> dict:
+def _refuse_unported(strategy) -> dict:
     """The mesh axes of ``strategy``, after refusing what is not ported:
-    ``--sp-mode``, an sp or pp axis above 1 (the reference's own message
-    first where a pipeline meets sp or ep), and fsdp above 1 beside tp
-    or ep above 1."""
+    a pp axis above 1 (the reference's own message first where a
+    pipeline meets sp or ep), fsdp above 1 beside tp or ep above 1, and
+    sp above 1 beside fsdp or ep above 1."""
     from .parallel.strategies import (FSDP_TENSOR_REFUSAL,
-                                      PARALLELISM_REFUSAL)
+                                      PARALLELISM_REFUSAL, SP_EP_REFUSAL,
+                                      SP_FSDP_REFUSAL)
 
-    if args.sp_mode is not None:
-        raise SystemExit(f"--sp-mode: {PARALLELISM_REFUSAL}")
     axes = {k: v for k, v in strategy.items()
             if k not in _STRATEGY_STR_KEYS}
     size = {k: int(v) for k, v in axes.items()}
@@ -367,11 +374,15 @@ def _refuse_unported(args, strategy) -> dict:
                     f"strategy combines pp>1 with {bad_axis}>1, which "
                     f"is not supported: pipeline stages compose with "
                     f"dp/fsdp (batch) and tp (tensor) axes only")
-    if any(size.get(a, 1) > 1 for a in ("sp", "pp")):
         raise SystemExit(f"--strategy {axes}: {PARALLELISM_REFUSAL}")
     if size.get("fsdp", 1) > 1 and any(size.get(a, 1) > 1
                                        for a in ("tp", "ep")):
         raise SystemExit(f"--strategy {axes}: {FSDP_TENSOR_REFUSAL}")
+    if size.get("sp", 1) > 1:
+        for axis, refusal in (("fsdp", SP_FSDP_REFUSAL),
+                              ("ep", SP_EP_REFUSAL)):
+            if size.get(axis, 1) > 1:
+                raise SystemExit(f"--strategy {axes}: {refusal}")
     return axes
 
 
@@ -382,7 +393,7 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     strategy = parse_strategy(args.strategy
                               or os.environ.get("PTPU_STRATEGY"))
-    axes = _refuse_unported(args, strategy)
+    axes = _refuse_unported(strategy)
 
     from . import default_device
     from .parallel import bootstrap
@@ -394,6 +405,9 @@ def main(argv=None) -> int:
     try:
         return _main(args, strategy, axes, device, topology)
     finally:
+        from .ops.attention import deactivate_sequence_parallel
+
+        deactivate_sequence_parallel()
         if topology is not None and topology.is_distributed:
             bootstrap.shutdown()
 
@@ -424,6 +438,13 @@ def _main(args, strategy, axes, device, topology) -> int:
     mesh = build_mesh(MeshSpec.from_dict(axes), device=device)
     device = mesh.device
     n_chips = int(mesh.devices.size)
+
+    # sp > 1: every model's attention routes through ring / Ulysses
+    # attention for the whole run, activated before the step is built.
+    from .ops.attention import activate_sequence_parallel
+
+    if mesh.shape["sp"] > 1:
+        activate_sequence_parallel(mesh, args.sp_mode)
 
     try:
         spec = get_model(args.model)

@@ -66,8 +66,8 @@ def test_every_example_is_checked():
         "hyperband.yaml", "mnist.yaml", "moe_gpt_job.yaml",
         "moe_gpt_tpujob.yaml", "resnet50_job.yaml", "resnet50_tfjob.yaml",
         "serving.yaml", "t5_job.yaml", "t5_tpujob.yaml",
-        "tinyllama_job.yaml", "tinyllama_tpujob.yaml", "vit_job.yaml",
-        "vit_tpujob.yaml"]
+        "tinyllama_job.yaml", "tinyllama_longcontext.yaml",
+        "tinyllama_tpujob.yaml", "vit_job.yaml", "vit_tpujob.yaml"]
 
 
 @pytest.mark.parametrize("path", REF_EXAMPLES + PORT_EXAMPLES,

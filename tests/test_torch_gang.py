@@ -17,6 +17,8 @@ timeout of 120 s, and a kill of the leftovers.
   reference's (the mask drawn over the global batch, its count global)
   and resnet50-tiny's loss and batch-norm running averages equal the
   reference's ``dp=2`` step.
+- The three two-rank training tests above share one launch (the
+  module's ``dp_gang``), each checking its own runs.
 - A four-rank (dp 2 x fsdp 2) gang holds each collective to its
   definition (values and gradients), ``hierarchical_all_reduce`` to the
   flat all-reduce, the health probe to "4 devices healthy", and the
@@ -47,6 +49,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from polyaxon_tpu.models.registry import get_model as j_get_model
@@ -257,11 +260,39 @@ def _assert_params(got, want, *, atol=None, adam_lr=None, steps=3):
         assert tight >= 0.99 * total, (tight, total)
 
 
-def test_dp_gang_sgd_equals_reference_and_one_process(tmp_path):
+MLM_BN = (("bert-tiny", "adamw"), ("resnet50-tiny", "sgd"))
+
+
+@pytest.fixture(scope="module")
+def dp_gang(tmp_path_factory):
+    """The two-rank training runs of the three tests below, in one
+    launch: gpt2-tiny's ``dp:2`` SGD, its ``dp:2`` and ``dp:1, fsdp:2``
+    Adam, bert-tiny's and resnet50-tiny's ``dp:2`` steps.  Each test
+    rebuilds its own (deterministic) inputs for the references; the gang
+    outputs by run tag."""
+    tmp = tmp_path_factory.mktemp("dp_gang")
+    *_, weights, data = _gpt2(tmp)
+    gpt2 = dict(model="gpt2-tiny", weights=weights, batch=data)
+    runs = {"sgd": dict(gpt2, strategy={"dp": 2}, optimizer="sgd",
+                        lr=1e-2, steps=3)}
+    for tag, strategy in (("dp", {"dp": 2}), ("fsdp", {"dp": 1, "fsdp": 2})):
+        runs[tag] = dict(gpt2, strategy=strategy, optimizer="adam", lr=1e-3,
+                         steps=3, fsdp_min_size=2 ** 12)
+    for name, opt in MLM_BN:
+        jmodel, variables, tmodel, batch = _pair(name, batch_size=8)
+        *_, weights, data = _files(tmp, name, jmodel, variables, tmodel,
+                                   batch)
+        runs[name] = dict(model=name, weights=weights, batch=data,
+                          strategy={"dp": 2}, optimizer=opt, lr=1e-3,
+                          steps=2, rng=5)
+    for tag, run in runs.items():
+        run["out"] = str(tmp / tag)
+    return dict(zip(runs, _gang_runs(tmp, list(runs.values()))))
+
+
+def test_dp_gang_sgd_equals_reference_and_one_process(tmp_path, dp_gang):
     jmodel, variables, tmodel, batch, weights, data = _gpt2(tmp_path)
-    out = _gang_runs(tmp_path, [dict(
-        model="gpt2-tiny", weights=weights, batch=data, strategy={"dp": 2},
-        optimizer="sgd", lr=1e-2, steps=3, out=str(tmp_path / "sgd"))])[0]
+    out = dp_gang["sgd"]
     want_m, want_p = _reference("gpt2-tiny", jmodel, variables, batch,
                                 j_make_optimizer("sgd", 1e-2), 3)
     one_m, one_p = _one_process(tmodel, "gpt2-tiny", batch, "sgd", 1e-2, 3)
@@ -277,18 +308,13 @@ def test_dp_gang_sgd_equals_reference_and_one_process(tmp_path):
     assert out[0]["metrics"][-1]["loss"] < out[0]["metrics"][0]["loss"]
 
 
-def test_dp_and_fsdp_gangs_with_adam(tmp_path):
+def test_dp_and_fsdp_gangs_with_adam(tmp_path, dp_gang):
     """``dp:2`` and ``dp:1, fsdp:2`` with Adam against the reference's
     steps and one process; the fsdp gang (``fsdp_min_size`` 2**12, so
     every block's weights shard) shards exactly the leaves the
     placement marks, and they are the reference's sharded leaves."""
     jmodel, variables, tmodel, batch, weights, data = _gpt2(tmp_path)
-    runs = [dict(model="gpt2-tiny", weights=weights, batch=data,
-                 strategy=s, optimizer="adam", lr=1e-3, steps=3,
-                 fsdp_min_size=2 ** 12, out=str(tmp_path / tag))
-            for tag, s in (("dp", {"dp": 2}),
-                           ("fsdp", {"dp": 1, "fsdp": 2}))]
-    dp_out, fsdp_out = _gang_runs(tmp_path, runs)
+    dp_out, fsdp_out = dp_gang["dp"], dp_gang["fsdp"]
     want_m, want_p = _reference("gpt2-tiny", jmodel, variables, batch,
                                 j_make_optimizer("adam", 1e-3), 3)
     one_m, one_p = _one_process(tmodel, "gpt2-tiny", batch, "adam",
@@ -315,27 +341,19 @@ def test_dp_and_fsdp_gangs_with_adam(tmp_path):
     assert sharded == sorted(n for n, f in flags.items() if f.all())
 
 
-def test_mlm_and_batch_norm_under_dp_equal_reference(tmp_path):
+def test_mlm_and_batch_norm_under_dp_equal_reference(dp_gang):
     """bert-tiny's MLM step (mask bits over the global batch, a global
     count) and resnet50-tiny's (global batch statistics) under ``dp:2``
     against the reference's ``dp=2`` TrainStep."""
-    runs, refs = [], {}
-    for name, opt in (("bert-tiny", "adamw"), ("resnet50-tiny", "sgd")):
+    for name, opt in MLM_BN:
         jmodel, variables, tmodel, batch = _pair(name, batch_size=8)
-        _, _, _, _, weights, data = _files(tmp_path, name, jmodel,
-                                           variables, tmodel, batch)
-        runs.append(dict(model=name, weights=weights, batch=data,
-                         strategy={"dp": 2}, optimizer=opt, lr=1e-3,
-                         steps=2, rng=5, out=str(tmp_path / name)))
-        refs[name] = (tmodel, _reference(
+        want_m, want_v = _reference(
             name, jmodel, variables, batch, j_make_optimizer(opt, 1e-3), 2,
-            rng=5))
-    for run, out in zip(runs, _gang_runs(tmp_path, runs)):
-        tmodel, (want_m, want_v) = refs[run["model"]]
-        want_sd = _port_sd(run["model"], want_v, tmodel.cfg)
-        for rank in out:
+            rng=5)
+        want_sd = _port_sd(name, want_v, tmodel.cfg)
+        for rank in dp_gang[name]:
             _assert_metrics(rank["metrics"], want_m)
-            if run["model"] == "bert-tiny":
+            if name == "bert-tiny":
                 assert [m["masked_tokens"] for m in rank["metrics"]] == \
                     [m["masked_tokens"] for m in want_m]
                 continue

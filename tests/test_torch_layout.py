@@ -325,6 +325,19 @@ def test_library_name_follows_hopper_header(tmp_path, monkeypatch):
     _edit_renames_libraries("flash_hopper.cuh", tmp_path, monkeypatch)
 
 
+SEQUENCE_PARALLEL_MODULES = ("parallel/ring.py", "parallel/ulysses.py",
+                             "ops/attention.py", "ops/flash.py")
+
+
+@pytest.mark.parametrize("rel", SEQUENCE_PARALLEL_MODULES)
+def test_sequence_parallel_modules_import_no_jax(rel):
+    """Ring and Ulysses attention and the modules that route to them are
+    under the import rule: no jax, no JAX package."""
+    path = PORT / rel
+    assert path in SOURCES, rel
+    assert not set(_imported_roots(path)) & set(FORBIDDEN), rel
+
+
 ORCHESTRATION_MODULES = (
     "lifecycle.py", "query.py", "config.py", "connections.py",
     "flow/__init__.py", "flow/base.py", "flow/io.py", "flow/k8s_refs.py",

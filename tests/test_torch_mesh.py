@@ -264,20 +264,22 @@ def test_constraints_and_collectives_without_a_mesh():
 
 @pytest.mark.parametrize("axis", ["tp", "ep", "sp", "pp"])
 def test_tensor_axes_refused_by_parallelism_item(axis):
-    """tp and ep are ported (``test_torch_tp.py``,
-    ``test_torch_ep.py``): a train step takes their mesh, and refuses
-    fsdp beside them by item (b3); sp and pp stay refused by the
-    parallelism item."""
+    """tp, ep and sp are ported (``test_torch_tp.py``,
+    ``test_torch_ep.py``, ``test_torch_sp.py``): a train step takes
+    their mesh, and refuses fsdp beside tp / ep by item (b3) and beside
+    sp by item (c2); pp stays refused by the parallelism item."""
     sizes = dict({a: 1 for a in tmesh.AXIS_ORDER}, **{axis: 2})
     mesh = tmesh.Mesh(sizes, np.arange(2).reshape(
         [sizes[a] for a in tmesh.AXIS_ORDER]), torch.device("cpu"))
-    if axis in ("tp", "ep"):
+    if axis in ("tp", "ep", "sp"):
         step = tstrat.TrainStep(lambda b, r: None, None, mesh)
         assert step.mesh is mesh and not step.distributed
         sizes["fsdp"] = 2
         both = tmesh.Mesh(sizes, np.arange(4).reshape(
             [sizes[a] for a in tmesh.AXIS_ORDER]), torch.device("cpu"))
-        with pytest.raises(NotImplementedError, match=r"item \(b3\)"):
+        item = r"item \(c2\) sp with fsdp" if axis == "sp" \
+            else r"item \(b3\)"
+        with pytest.raises(NotImplementedError, match=item):
             tstrat.TrainStep(lambda b, r: None, None, both)
         return
     with pytest.raises(NotImplementedError, match="Parallelism and meshes"):

@@ -393,7 +393,7 @@ def test_train_main_cpu(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--strategy", "dp:2"], "do not divide device count 1"),
-    (["--sp-mode", "ring"], "Parallelism and meshes"),
+    (["--strategy", "sp:2,fsdp:2"], r"\(c2\) sp with fsdp"),
     (["--model", "mlp", "--init-hf", "weights.pt"],
      "--init-hf supports the"),
     (["--model", "t5-tiny", "--dataset", "span-corruption"],
@@ -413,8 +413,9 @@ def test_train_refuses_what_is_not_ported(flags, slice_name, tmp_path,
     ``test_torch_eval.py``, ``test_torch_t5.py``, ``test_torch_moe.py``),
     and so are the dp, fsdp, tp and ep axes over a gang
     (``test_torch_mesh.py``, ``test_torch_gang.py``,
-    ``test_torch_tp.py``, ``test_torch_ep.py``); what stays refused:
-    ``--sp-mode`` by the parallelism item, fsdp beside ep (MoE-GPT's
+    ``test_torch_tp.py``, ``test_torch_ep.py``, and sp,
+    ``test_torch_sp.py``); what stays refused: sp beside fsdp by its
+    item (c2), fsdp beside ep (MoE-GPT's
     ``fsdp:2,ep:2``) by its item (b3), ``--init-hf`` of a family with
     no loader, and span corruption
     without a data directory or on a decoder-only model, with the

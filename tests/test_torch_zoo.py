@@ -241,8 +241,9 @@ _ITEM_IDS = [
      "do not divide device count 1"),
     (["--model", "vit-tiny", "--strategy", "dp:2"],
      "do not divide device count 1"),
-    (["--model", "moe-gpt-small", "--sp-mode", "ring"],
-     "Parallelism and meshes"),
+    (["--model", "moe-gpt-small", "--strategy", "dp:-1,sp:2,ep:2",
+      "--sp-mode", "ring"],
+     r"Parallelism and meshes, item \(c3\) sp with ep"),
     (["--model", "bert-tiny", "--dataset", "span-corruption",
       "--data-dir", "."],
      "requires a seq2seq \\(encoder-decoder\\) model; 'bert-tiny' is not"),
@@ -253,7 +254,7 @@ _ITEM_IDS = [
 ], ids=_ITEM_IDS)
 def test_unported_refused_by_roadmap_item(argv, item, tmp_path,
                                           monkeypatch):
-    """What stays refused: sequence parallelism by the parallelism item,
+    """What stays refused: sequence parallelism beside ep by its item,
     span corruption without a seq2seq model or a data directory with the
     reference's messages.  ``dp:2`` and the reference's tp / ep
     strategies of the zoo's examples (``dp:-1,ep:4``, ``dp:-1,tp:2``) in
