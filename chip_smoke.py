@@ -89,12 +89,17 @@ Phases, each raising on failure:
    (``[mesh]`` lines); then ``phase_tp_train``: a two-process gang on
    the one card (gloo over the card's tensors), GPT-2 medium on
    ``tp:2`` and MoE-GPT-small on ``ep:2``, float32 at a few layers equal
-   to the group-less step, bf16 at full depth timed, the flash kernels
+   to the group-less step, bf16 at half depth timed, the flash kernels
    launched at each rank's local heads (``[tp]`` lines), and in the same
    ranks sequence parallelism on ``sp:2``: ring and Ulysses attention
    over the gang, float32 GPT-2 medium and TinyLlama's width (windowed
    ring) equal to the group-less step, bf16 GPT-2 medium timed with
-   each rank's launches (``[sp]`` lines);
+   each rank's launches (``[sp]`` lines); then ``phase_compose_train``:
+   a four-process gang on the one card, float32 GPT-2 medium at
+   ``dp:1,fsdp:2,tp:2`` and ``sp:2,fsdp:2`` and MoE-GPT-small at
+   ``fsdp:2,ep:2`` and ``sp:2,ep:2`` equal to the group-less step, each
+   rank's launches and parameter bytes, the fsdp x tp checkpoint
+   restored in one process (``[compose]`` lines);
 8. one float32 step's loss and gradients through the flash route against
    the plain-attention route, at GPT-2 medium's width and 4 layers;
    the baseline's training zoo (``phase_zoo``, ``[zoo]`` lines):
@@ -2158,8 +2163,8 @@ SPEC_K = 4
 # engine / solo): their result does not depend on the depth, and since
 # PR 17 they run at a cut of the model's own weights, for the script's
 # time (full depth until then).  The bf16 timings stay at full depth.
-F32_LAYERS = 6              # of GPT-2 medium's 24
-SPEC_F32_LAYERS = 8         # the spec target; its draft is a 4-layer cut
+F32_LAYERS = 4              # of GPT-2 medium's 24 (6 until PR 21)
+SPEC_F32_LAYERS = 6         # the spec target (8 until PR 21); its draft is a 4-layer cut
 LLAMA_F32_LAYERS = 4        # of TinyLlama's 22
 
 
@@ -3225,8 +3230,13 @@ def phase_mesh() -> dict:
     return out
 
 
-TP_STEPS = 3                # steps of each float32 tp / ep / sp check
+TP_STEPS = 2                # steps of each float32 tp / ep / sp check
 TP_BF16_STEPS = 2           # steps of each bf16 gang timing run
+# Depth of the bf16 gang timing runs: half of GPT-2 medium's 24 layers
+# and of MoE-GPT-small's 12 (full depth until PR 21, for the script's
+# time).
+TP_BF16_LAYERS = 12
+TP_MOE_BF16_LAYERS = 6
 TP_LR = 1e-4
 TP_MOE_F32_LAYERS = 2       # of MoE-GPT-small's 12, float32
 # Each rank of phase_tp_train's gang: both on cuda:0, gloo over the
@@ -3246,9 +3256,10 @@ from polyaxon_tpu_torch.parallel.strategies import gather_shard
 from polyaxon_tpu_torch.train import make_optimizer
 
 (out_dir, steps, lr, f32_layers, moe_f32_layers, llama_f32_layers,
- bf16_steps) = (sys.argv[1], int(sys.argv[2]), float(sys.argv[3]),
-                int(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6]),
-                int(sys.argv[7]))
+ bf16_steps, bf16_layers, moe_bf16_layers) = (
+    sys.argv[1], int(sys.argv[2]), float(sys.argv[3]), int(sys.argv[4]),
+    int(sys.argv[5]), int(sys.argv[6]), int(sys.argv[7]), int(sys.argv[8]),
+    int(sys.argv[9]))
 # Imported: wait for the phase's go before touching the card.
 while not os.path.exists(os.path.join(out_dir, "go")):
     time.sleep(0.05)
@@ -3393,17 +3404,21 @@ if rank == 0:
                       "tight": tight}
 del final, init
 dist.barrier()
-# bf16 at full depth: step times and the flash launches; rank 0 then
+# bf16 at half depth: step times and the flash launches; rank 0 then
 # times the group-less step alone on the same initial weights.
 res["gpt2_bf16"], _, gpt2_init = run("gpt2-medium", {"dp": 1, "tp": 2},
-                                     n_steps=bf16_steps)
+                                     n_steps=bf16_steps,
+                                     num_layers=bf16_layers)
 res["moe_bf16"], _, moe_init = run("moe-gpt-small", {"dp": 1, "ep": 2},
-                                   n_steps=bf16_steps)
+                                   n_steps=bf16_steps,
+                                   num_layers=moe_bf16_layers)
 dist.barrier()
 if rank == 0:
-    res["gpt2_bf16_ref"] = run("gpt2-medium", None, weights=gpt2_init)[0]
+    res["gpt2_bf16_ref"] = run("gpt2-medium", None, weights=gpt2_init,
+                               num_layers=bf16_layers)[0]
     del gpt2_init
-    res["moe_bf16_ref"] = run("moe-gpt-small", None, weights=moe_init)[0]
+    res["moe_bf16_ref"] = run("moe-gpt-small", None, weights=moe_init,
+                              num_layers=moe_bf16_layers)[0]
 dist.barrier()
 # Sequence parallelism on sp 2.  float32 at a few layers of the models'
 # own weights against the group-less step: GPT-2 medium at 4 x 1024,
@@ -3437,12 +3452,13 @@ if rank == 0:
     res["sp_llama_f32"].update(ref=ref, worst=worst, tight=tight)
 del final, init
 dist.barrier()
-# bf16 GPT-2 medium at full depth, 8 x 1024, on the timing runs' weights
-# (gpt2_bf16_ref is their group-less step): step times and launches.
+# bf16 GPT-2 medium at half depth, 8 x 1024, on the timing runs'
+# weights (gpt2_bf16_ref is their group-less step): step times and
+# launches.
 res["sp_ring_bf16"] = run("gpt2-medium", sp2, sp_mode="ring",
-                         n_steps=bf16_steps)[0]
+                         n_steps=bf16_steps, num_layers=bf16_layers)[0]
 res["sp_ulysses_bf16"] = run("gpt2-medium", sp2, sp_mode="ulysses",
-                            n_steps=bf16_steps)[0]
+                            n_steps=bf16_steps, num_layers=bf16_layers)[0]
 res["sp_secs"] = time.perf_counter() - t_sp
 res["backend"] = dist.get_backend()
 with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3457,11 +3473,11 @@ def _tp_step_ms(rec) -> float:
     return float(np.mean(rec["times"][1:])) * 1e3
 
 
-def _start_tp_gang() -> dict:
-    """Start ``phase_tp_train``'s two rank processes (the kernels built
-    first): each imports the port and waits for a ``go`` file in the
-    gang's directory before it joins the group or touches the card, so
-    their start-up can run beside an earlier phase."""
+def _start_gang(script: str, n: int, args, prefix: str) -> dict:
+    """Start an ``n``-rank gang of ``script`` (the kernels built first):
+    each rank imports the port and waits for a ``go`` file in the gang's
+    directory (its first argument) before it joins the group or touches
+    the card, so their start-up can run beside an earlier phase."""
     import socket
 
     from polyaxon_tpu_torch.ops import _build
@@ -3471,29 +3487,70 @@ def _start_tp_gang() -> dict:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     root = os.path.dirname(os.path.abspath(__file__))
-    tmp = tempfile.mkdtemp(prefix="ptpu_tp_")
-    script = os.path.join(tmp, "tp_rank.py")
-    with open(script, "w") as f:
-        f.write(TP_RANK)
+    tmp = tempfile.mkdtemp(prefix=prefix)
+    path = os.path.join(tmp, "rank.py")
+    with open(path, "w") as f:
+        f.write(script)
     gang = {"dir": tmp, "procs": [], "logs": [],
             "t0": time.perf_counter()}
-    for r in range(2):
+    for r in range(n):
         env = dict(os.environ, PYTHONPATH=root,
                    PTPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                   PTPU_NUM_PROCESSES="2", PTPU_PROCESS_ID=str(r),
+                   PTPU_NUM_PROCESSES=str(n), PTPU_PROCESS_ID=str(r),
                    PTPU_INIT_TIMEOUT="120", PTPU_DIST_BACKEND="gloo")
         log = open(os.path.join(tmp, f"rank{r}.log"), "w+")
         gang["logs"].append(log)
         gang["procs"].append(subprocess.Popen(
-            [sys.executable, script, tmp, str(TP_STEPS), str(TP_LR),
-             str(F32_LAYERS), str(TP_MOE_F32_LAYERS),
-              str(LLAMA_F32_LAYERS), str(TP_BF16_STEPS)], cwd=root,
+            [sys.executable, path, tmp] + [str(a) for a in args], cwd=root,
             env=env, stdout=log, stderr=subprocess.STDOUT,
             start_new_session=True))
     return gang
 
 
-def _stop_tp_gang(gang: dict) -> list:
+def _warm_gang(gang: dict) -> None:
+    """Let a gang whose ranks wait for a ``warm`` file (the compose
+    gang's) start its CUDA context and group before its phase's go."""
+    open(os.path.join(gang["dir"], "warm"), "w").close()
+
+
+def _start_tp_gang() -> dict:
+    """``phase_tp_train``'s two rank processes (:func:`_start_gang`)."""
+    return _start_gang(TP_RANK, 2, [TP_STEPS, TP_LR, F32_LAYERS,
+                                    TP_MOE_F32_LAYERS, LLAMA_F32_LAYERS,
+                                    TP_BF16_STEPS, TP_BF16_LAYERS,
+                                    TP_MOE_BF16_LAYERS], "ptpu_tp_")
+
+
+def _gang_results(gang: dict, label: str, timeout: float = 600) -> list:
+    """Release the gang (its ``go`` file), wait for its ranks, and return
+    each rank's ``rank{r}.json``; a rank that fails fails the phase with
+    its output.  The gang is stopped either way."""
+    procs, tmp = gang["procs"], gang["dir"]
+    try:
+        _warm_gang(gang)
+        open(os.path.join(tmp, "go"), "w").close()
+        deadline = time.monotonic() + timeout
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        for r, proc in enumerate(procs):
+            if proc.returncode != 0:
+                outs = _stop_gang(gang)
+                raise AssertionError(f"{label} rank {r} exited "
+                                     f"{proc.returncode}:\n"
+                                     f"{outs[r][-6000:]}")
+        ranks = []
+        for r in range(len(procs)):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        _stop_gang(gang)
+    return ranks
+
+
+def _stop_gang(gang: dict) -> list:
     """Kill what is left of the gang, remove its directory, and return
     each rank's output."""
     import shutil
@@ -3528,11 +3585,12 @@ def phase_tp_train(gang=None) -> dict:
        own capacity, emulated on one device): losses rtol 1e-5, every
        parameter within 2 lr a step and 99% of the elements within
        2e-6 (the CPU tests' tolerance, ``tests/test_torch_tp.py``);
-    2. bf16 at full depth, ``TP_BF16_STEPS`` steps: GPT-2 medium
+    2. bf16 at half depth (``TP_BF16_LAYERS`` / ``TP_MOE_BF16_LAYERS``
+       layers), ``TP_BF16_STEPS`` steps: GPT-2 medium
        ``tp:2`` and MoE-GPT-small ``ep:2``, step ms against the
        group-less step (rank 0 alone after the gang), and each rank's
-       flash launches: 24 of each kernel a
-       GPT-2 step at the local-head shape [8, 1024, 8, 64], 12 a MoE
+       flash launches: 12 of each kernel a
+       GPT-2 step at the local-head shape [8, 1024, 8, 64], 6 a MoE
        step at [8, 1024, 12, 64];
     3. sequence parallelism on ``sp:2`` in the same ranks
        (:func:`_check_sp_train`): float32 GPT-2 medium at 4 x 1024, ring
@@ -3551,27 +3609,7 @@ def phase_tp_train(gang=None) -> dict:
     t_phase = time.perf_counter()
     gang = gang or _start_tp_gang()
     overlapped = max(0.0, t_phase - gang["t0"])
-    procs, tmp = gang["procs"], gang["dir"]
-    try:
-        open(os.path.join(tmp, "go"), "w").close()
-        deadline = time.monotonic() + 600
-        try:
-            for proc in procs:
-                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            pass
-        for r, proc in enumerate(procs):
-            if proc.returncode != 0:
-                outs = _stop_tp_gang(gang)
-                raise AssertionError(f"tp-train rank {r} exited "
-                                     f"{proc.returncode}:\n"
-                                     f"{outs[r][-6000:]}")
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    finally:
-        _stop_tp_gang(gang)
+    ranks = _gang_results(gang, "tp-train")
     res = ranks[0]
     bound = 2 * TP_LR * TP_STEPS
     for key, label in (("gpt2_f32", f"gpt2-medium tp 2, {F32_LAYERS} "
@@ -3592,8 +3630,8 @@ def phase_tp_train(gang=None) -> dict:
               f"{rel:.2e}, params max |d| {c['worst']:.2e} "
               f"({c['tight']:.6f} within 2e-6); losses "
               + ", ".join(f"{x:.6f}" for x in c["gang"]["losses"]))
-    want = {"gpt2_bf16": (24, [8, 1024, 8, 64]),
-            "moe_bf16": (12, [8, 1024, 12, 64])}
+    want = {"gpt2_bf16": (TP_BF16_LAYERS, [8, 1024, 8, 64]),
+            "moe_bf16": (TP_MOE_BF16_LAYERS, [8, 1024, 12, 64])}
     for key, (layers, shape) in want.items():
         for r, rank in enumerate(ranks):
             rec = rank[key]
@@ -3609,13 +3647,15 @@ def phase_tp_train(gang=None) -> dict:
     card = card_line()
     g, gr = res["gpt2_bf16"], res["gpt2_bf16_ref"]
     m, mr = res["moe_bf16"], res["moe_bf16_ref"]
-    print(f"[tp] bf16 8 x 1024, {TP_BF16_STEPS} steps, step ms after the "
+    print(f"[tp] bf16 8 x 1024, {TP_BF16_LAYERS} / {TP_MOE_BF16_LAYERS} "
+          f"layers, {TP_BF16_STEPS} steps, step ms after the "
           f"first (two ranks on one card, gloo; the layout's cost, not "
           f"scaling): gpt2-medium tp 2 {_tp_step_ms(g):.2f} against "
           f"group-less {_tp_step_ms(gr):.2f}; moe-gpt-small ep 2 "
           f"{_tp_step_ms(m):.2f} against group-less {_tp_step_ms(mr):.2f};"
           f" flash launches a rank {g['counts']} at {g['shapes'][0]} "
-          f"(24 a step each) and {m['counts']} at {m['shapes'][0]}; "
+          f"({TP_BF16_LAYERS} a step each) and {m['counts']} at "
+          f"{m['shapes'][0]} ({TP_MOE_BF16_LAYERS}); "
           f"{card}")
     print(f"[time] tp-train: {time.perf_counter() - t_phase:.1f} s (the "
           f"ranks started {overlapped:.1f} s before, beside the phases "
@@ -3626,7 +3666,8 @@ def phase_tp_train(gang=None) -> dict:
                              f"group-less {res[k]['ref']['secs']:.1f} s"
                              for k in ("gpt2_f32", "moe_f32")) + ")")
     ring, uly = (res[f"sp_{k}_bf16"] for k in ("ring", "ulysses"))
-    print(f"[sp] bf16 gpt2-medium 8 x 1024, sp 2, {TP_BF16_STEPS} steps, "
+    print(f"[sp] bf16 gpt2-medium 8 x 1024, {TP_BF16_LAYERS} layers, sp 2, "
+          f"{TP_BF16_STEPS} steps, "
           f"step ms after the first (two ranks on one card, gloo; the "
           f"layout's cost, not scaling): ring {_tp_step_ms(ring):.2f} / "
           f"{_tp_step_ms(ranks[1]['sp_ring_bf16']):.2f} (ranks 0 / 1), "
@@ -3634,10 +3675,10 @@ def phase_tp_train(gang=None) -> dict:
           f"{_tp_step_ms(ranks[1]['sp_ulysses_bf16']):.2f}, against "
           f"group-less {_tp_step_ms(gr):.2f}; flash launches: ring rank 0 "
           f"{ring['counts']}, rank 1 {ranks[1]['sp_ring_bf16']['counts']} "
-          f"at {ring['shapes'][0]} (24 / 48 a step each: rank 0's "
-          f"diagonal, rank 1's diagonal and past block), ulysses "
-          f"{uly['counts']} a rank at {uly['shapes'][0]} (24 a step "
-          f"each); {card}")
+          f"at {ring['shapes'][0]} ({TP_BF16_LAYERS} / "
+          f"{2 * TP_BF16_LAYERS} a step each: rank 0's diagonal, rank 1's "
+          f"diagonal and past block), ulysses {uly['counts']} a rank at "
+          f"{uly['shapes'][0]} ({TP_BF16_LAYERS} a step each); {card}")
     print(f"[time] sp-train: {res['sp_secs']:.1f} s of the ranks' run "
           f"(rank 0: " + ", ".join(
               f"{k} {res[k]['secs']:.1f} s" for k in (
@@ -3665,8 +3706,9 @@ def _check_sp_train(ranks, bound) -> dict:
     windowed ring's past block at the raw window 511 - 1024), each at
     [B, S / 2, H, D]; Ulysses one launch of each a layer at
     [B, S, H / 2, D]; TinyLlama's remat runs each forward twice (bf16
-    GPT-2: rank 0 24 of each kernel a step, rank 1 48, at
-    [8, 512, 16, 64]; Ulysses 24 a rank at [8, 1024, 8, 64]).  Prints
+    GPT-2 at ``TP_BF16_LAYERS`` layers: rank 0 12 of each kernel a step,
+    rank 1 24, at [8, 512, 16, 64]; Ulysses 12 a rank at
+    [8, 1024, 8, 64]).  Prints
     the windowed ring's peak memory beside the group-less remat
     step's.  Returns the gang's launches of each path, both ranks
     summed."""
@@ -3704,9 +3746,10 @@ def _check_sp_train(ranks, bound) -> dict:
               + ", ".join(f"{x:.6f}" for x in c["gang"]["losses"]))
     out = {}
     for key, path, layers, shape in (
-            ("sp_ring_bf16", "sp_ring_gpt2", (24, 48), [8, 512, 16, 64]),
-            ("sp_ulysses_bf16", "sp_ulysses_gpt2", (24, 24),
-             [8, 1024, 8, 64])):
+            ("sp_ring_bf16", "sp_ring_gpt2",
+             (TP_BF16_LAYERS, 2 * TP_BF16_LAYERS), [8, 512, 16, 64]),
+            ("sp_ulysses_bf16", "sp_ulysses_gpt2",
+             (TP_BF16_LAYERS, TP_BF16_LAYERS), [8, 1024, 8, 64])):
         for r, rank in enumerate(ranks):
             rec = rank[key]
             if rec["shapes"] != [shape]:
@@ -3730,6 +3773,331 @@ def _check_sp_train(ranks, bound) -> dict:
           f"{runs[2]['peak_mib'] - runs[2]['resident_mib']:.1f} MiB (peaks "
           + " / ".join(f"{r['peak_mib']:.1f}" for r in runs) + " MiB)")
     return out
+
+
+COMPOSE_STEPS = 2           # AdamW steps of each composed-mesh check
+# Each rank of phase_compose_train's gang: four on cuda:0, gloo over the
+# card's tensors, started by the PTPU_* bootstrap.  Writes
+# rank{r}.json into argv[1].
+COMPOSE_RANK = r"""
+import json, os, sys, time
+import numpy as np, torch
+import torch.distributed as dist
+from polyaxon_tpu_torch.checkpoint import CheckpointManager
+from polyaxon_tpu_torch.models.registry import get_model
+from polyaxon_tpu_torch.ops import flash
+from polyaxon_tpu_torch.ops.attention import sequence_parallel
+from polyaxon_tpu_torch.parallel import MeshSpec, build_mesh, make_train_step
+from polyaxon_tpu_torch.parallel.bootstrap import initialize_from_env, shutdown
+from polyaxon_tpu_torch.parallel.moe import moe_layer
+from polyaxon_tpu_torch.parallel.strategies import gather_full, local_block
+from polyaxon_tpu_torch.train import make_optimizer
+
+out_dir, steps, lr, gpt2_layers, moe_layers = (
+    sys.argv[1], int(sys.argv[2]), float(sys.argv[3]), int(sys.argv[4]),
+    int(sys.argv[5]))
+
+def wait(name):
+    while not os.path.exists(os.path.join(out_dir, name)):
+        time.sleep(0.05)
+
+# Imported: wait for the warm-up's file before touching the card (the
+# CUDA context, cuBLAS, the kernels' libraries and the group: 13-16 s
+# of the first run's set-up on the card), then for the phase's go.
+wait("warm")
+topo = initialize_from_env(device="cuda")
+rank = topo.process_id
+assert dist.get_backend() == "gloo", dist.get_backend()
+from polyaxon_tpu_torch.ops import _build
+for name in _build.sources():
+    _build.load(name)
+x = torch.ones(64, 64, device="cuda")
+dist.all_reduce(x @ x)
+torch.cuda.synchronize()
+wait("go")
+shapes = set()
+real_fwd = flash._flash_forward_kernel
+
+def fwd(q, *a, **k):
+    shapes.add(tuple(q.shape))
+    return real_fwd(q, *a, **k)
+
+flash._flash_forward_kernel = fwd
+
+def counts():
+    return {"flash_fwd": flash.launch_count,
+            "flash_bwd_dq": flash.dq_launch_count,
+            "flash_bwd_dkv": flash.dkv_launch_count}
+
+def emulate(model, data, ep):
+    # The reference's moe_layer on one device: each of data x ep blocks
+    # (rows over the data axes, the sequence over ep) routed with its
+    # own capacity, the aux their mean.
+    gelu = lambda t: torch.nn.functional.gelu(t, approximate="tanh")
+    for m in model.modules():
+        if type(m).__name__ == "MoEMlp":
+            def forward(x, decode=False, experts=None, m=m):
+                rows = []
+                for r in x.chunk(data, 0):
+                    parts = [moe_layer(c, m.router, m.experts_w1,
+                                       m.experts_w2, None,
+                                       capacity_factor=m.cfg.capacity_factor,
+                                       activation=gelu)
+                             for c in r.chunk(ep, 1)]
+                    rows.append(parts)
+                out = torch.cat([torch.cat([o for o, _ in p], 1)
+                                 for p in rows], 0)
+                aux = sum(a for p in rows for _, a in p) / (data * ep)
+                return out.to(m.cfg.dtype), aux
+            m.forward = forward
+
+def nbytes(model):
+    return sum(local_block(p).numel() * p.element_size()
+               for p in model.parameters())
+
+def run(name, axes, seq, rows, layers, weights=None, sp_mode=None,
+        emulated=None, ckpt=None):
+    t_run = time.perf_counter()
+    spec = get_model(name)
+    model = spec.make_model(device="cuda", param_dtype=torch.float32,
+                            dtype=torch.float32, num_layers=layers).train()
+    if weights is None:
+        if rank == 0:
+            model = spec.init_params(seed=0, device="cuda", train=True,
+                                     dtype=torch.float32, num_layers=layers)
+    else:
+        model.load_state_dict(weights)
+    init = None if axes is None or rank else {
+        k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    full_bytes = nbytes(model)
+    if emulated:
+        emulate(model, *emulated)
+    mesh = None if axes is None else build_mesh(MeshSpec.from_dict(axes))
+    step = make_train_step(spec.loss_fn(model),
+                           make_optimizer("adamw", lr), mesh)
+    state = step.init_state(model)
+    setup_secs = time.perf_counter() - t_run
+    local_bytes = nbytes(model)
+    vocab = model.cfg.vocab_size
+    losses, aux, times = [], [], []
+    flash.launch_count = flash.dq_launch_count = flash.dkv_launch_count = 0
+    shapes.clear()
+    for i in range(steps):
+        tokens = np.random.RandomState(100 + i).randint(0, vocab, (rows, seq))
+        if mesh is not None:
+            tokens = step.batch_sharding.shard(tokens)
+        batch = {"inputs": torch.as_tensor(tokens, device="cuda")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sp_mode is None:
+            state, m = step(state, batch)
+        else:
+            with sequence_parallel(mesh, sp_mode):
+                state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        if "aux_loss" in m:
+            aux.append(float(m["aux_loss"]))
+    c = counts()
+    final = {n: gather_full(model, n, t).cpu()
+             for n, t in model.state_dict().items()}
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        manager = CheckpointManager(ckpt)
+        manager.save(state["step"], state)
+        manager.wait()
+        ckpt_secs = time.perf_counter() - t0
+    rec = {"losses": losses, "aux": aux, "times": times, "counts": c,
+           "shapes": sorted(shapes), "local_bytes": local_bytes,
+           "full_bytes": full_bytes, "setup_secs": setup_secs,
+           "coord": None if mesh is None else {
+               a: mesh.coordinate(a) for a in ("fsdp", "sp", "ep", "tp")},
+           "secs": time.perf_counter() - t_run}
+    if ckpt is not None:
+        rec["ckpt_secs"] = ckpt_secs
+    del state, step, model
+    torch.cuda.empty_cache()
+    return rec, final, init
+
+def compare(got, want):
+    # The largest |d| and the share of elements within 2e-6.
+    tight = total = 0
+    worst = 0.0
+    for k, w in want.items():
+        d = (got[k].float() - w.float()).abs()
+        worst = max(worst, float(d.max()))
+        tight += int((d <= 2e-6).sum())
+        total += d.numel()
+    return worst, tight / total
+
+RUNS = [
+    # key, model, mesh, seq, rows, layers, sp mode, emulated (data, ep)
+    ("gpt2_fsdp_tp", "gpt2-medium", {"dp": 1, "fsdp": 2, "tp": 2}, 512, 4,
+     gpt2_layers, None, None),
+    ("moe_fsdp_ep", "moe-gpt-small", {"fsdp": 2, "ep": 2}, 512, 4,
+     moe_layers, None, (2, 2)),
+    ("moe_sp_ep", "moe-gpt-small", {"dp": 1, "sp": 2, "ep": 2}, 1024, 4,
+     moe_layers, "ring", (1, 2)),
+    ("gpt2_sp_fsdp", "gpt2-medium", {"sp": 2, "fsdp": 2}, 1024, 4,
+     gpt2_layers, "ring", None),
+]
+res, pending = {}, []
+t_all = time.perf_counter()
+for key, name, axes, seq, rows, layers, mode, emulated in RUNS:
+    ckpt = os.path.join(out_dir, "ckpt") if key == "gpt2_fsdp_tp" else None
+    gang, final, init = run(name, axes, seq, rows, layers, sp_mode=mode,
+                            ckpt=ckpt)
+    res[key] = {"gang": gang}
+    if rank == 0:
+        pending.append((key, name, seq, rows, layers, emulated, final, init))
+    del final, init
+    dist.barrier()
+res["gang_secs"] = time.perf_counter() - t_all
+res["backend"] = dist.get_backend()
+if rank == 0:
+    # The group-less step on the same weights and batches, after the
+    # gang's runs; the fsdp x tp checkpoint restored in one process.
+    for key, name, seq, rows, layers, emulated, final, init in pending:
+        ref, ref_final, _ = run(name, None, seq, rows, layers, weights=init,
+                                emulated=emulated)
+        worst, tight = compare(final, ref_final)
+        res[key].update(ref=ref, worst=worst, tight=tight)
+        if key == "gpt2_fsdp_tp":
+            t0 = time.perf_counter()
+            saved = CheckpointManager(os.path.join(out_dir, "ckpt")).restore()
+            one = get_model(name).make_model(
+                device="cuda", param_dtype=torch.float32,
+                dtype=torch.float32, num_layers=layers)
+            one.load_state_dict(saved["params"])
+            res[key]["ckpt"] = {
+                "step": saved["step"],
+                "equal": all(torch.equal(v.cpu(), final[k]) for k, v in
+                             one.state_dict().items()),
+                "groups": len(saved["opt_state"]["param_groups"]),
+                "secs": time.perf_counter() - t0}
+            del one, saved
+        del ref_final
+with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+    json.dump(res, f)
+dist.barrier()
+shutdown()
+print("ok", flush=True)
+"""
+
+
+def phase_compose_train(gang=None) -> dict:
+    """Composed training meshes on the card: a FOUR-process gang on the
+    one card (every rank on ``cuda:0``, gloo over the card's tensors, as
+    ``phase_tp_train``'s), started through the PTPU_* bootstrap.  float32,
+    full width, ``COMPOSE_STEPS`` AdamW steps (lr ``TP_LR``) each
+    against the group-less step on the same weights and batches:
+
+    - GPT-2 medium (``F32_LAYERS`` layers) at ``dp:1,fsdp:2,tp:2``,
+      4 x 512 tokens: each rank 8 local heads of 2 rows, [2, 512, 8,
+      64]; its collective checkpoint restored in one process;
+    - MoE-GPT-small (``TP_MOE_F32_LAYERS`` layers) at ``fsdp:2,ep:2``,
+      4 x 512 ([2, 512, 12, 64]), and at ``sp:2,ep:2`` on the flash
+      ring, 4 x 1024 ([4, 512, 12, 64] blocks); the group-less step
+      routes as the reference's ``moe_layer`` does, each (data, ep)
+      block with its own capacity;
+    - GPT-2 medium at ``sp:2,fsdp:2`` on the flash ring, 4 x 1024
+      ([2, 512, 16, 64] blocks).
+
+    Losses rtol 1e-5, every parameter within 2 lr a step and 99% of the
+    elements within 2e-6 (``phase_tp_train``'s tolerances); each rank's
+    flash launches and shapes (the ring's sp rank 0 its diagonal block,
+    rank 1 its diagonal and past block a layer), so a quiet plain or
+    local attention fails the phase; each rank's parameter bytes
+    against the group-less model's.  Four ranks on one card over a
+    host-staged gloo group measure correctness and the layout's cost,
+    not scaling.  Prints ``[compose]`` lines and ``[time]
+    compose-train``."""
+    t_phase = time.perf_counter()
+    gang = gang or _start_compose_gang()
+    overlapped = max(0.0, t_phase - gang["t0"])
+    ranks = _gang_results(gang, "compose-train")
+    res = ranks[0]
+    bound = 2 * TP_LR * COMPOSE_STEPS
+    card = card_line()
+    out = {}
+    for key, label, layers, shape, ring in (
+            ("gpt2_fsdp_tp", "gpt2-medium dp:1,fsdp:2,tp:2, 4 x 512",
+             F32_LAYERS, [2, 512, 8, 64], False),
+            ("moe_fsdp_ep", "moe-gpt-small fsdp:2,ep:2, 4 x 512",
+             TP_MOE_F32_LAYERS, [2, 512, 12, 64], False),
+            ("moe_sp_ep", "moe-gpt-small dp:1,sp:2,ep:2 ring, 4 x 1024",
+             TP_MOE_F32_LAYERS, [4, 512, 12, 64], True),
+            ("gpt2_sp_fsdp", "gpt2-medium sp:2,fsdp:2 ring, 4 x 1024",
+             F32_LAYERS, [2, 512, 16, 64], True)):
+        for r, rank in enumerate(ranks):
+            rec = rank[key]["gang"]
+            if rec["shapes"] != [shape]:
+                raise AssertionError(f"compose-train {key} rank {r}: flash "
+                                     f"shapes {rec['shapes']}, not "
+                                     f"{[shape]}")
+            blocks = 1 + rec["coord"]["sp"] if ring else 1
+            _check_per_step(rec["counts"], COMPOSE_STEPS, layers * blocks,
+                            f"compose-train {key} rank {r}")
+        c = res[key]
+        rel = max(abs(g - w) / abs(w) for g, w in
+                  zip(c["gang"]["losses"], c["ref"]["losses"]))
+        if rel > 1e-5 or c["worst"] > bound or c["tight"] < 0.99:
+            raise AssertionError(
+                f"compose-train {label} float32: losses "
+                f"{c['gang']['losses']} vs {c['ref']['losses']} (rel "
+                f"{rel:.3g} > 1e-5?), params max |d| {c['worst']:.3g} "
+                f"(> {bound}?), {c['tight']:.4f} within 2e-6 (< 0.99?)")
+        full = c["ref"]["full_bytes"]
+        print(f"[compose] {label}, {layers} layers float32, "
+              f"{COMPOSE_STEPS} AdamW steps (lr {TP_LR}): gang == "
+              f"group-less step: loss rel {rel:.2e}, params max |d| "
+              f"{c['worst']:.2e} ({c['tight']:.6f} within 2e-6); losses "
+              + ", ".join(f"{x:.6f}" for x in c["gang"]["losses"])
+              + (f", aux " + ", ".join(f"{x:.6f}" for x in c["gang"]["aux"])
+                 if c["gang"]["aux"] else ""))
+        print(f"[compose] {label}: parameter bytes a rank "
+              + ", ".join(f"{rank[key]['gang']['local_bytes']}"
+                          for rank in ranks)
+              + f" (ranks 0-3) against {full} group-less ("
+              + ", ".join(f"{rank[key]['gang']['local_bytes'] / full:.4f}"
+                          for rank in ranks)
+              + f"); step ms after the first, rank 0: "
+              f"{_tp_step_ms(c['gang']):.2f} against group-less "
+              f"{_tp_step_ms(c['ref']):.2f}; flash launches "
+              + ", ".join(f"{rank[key]['gang']['counts']}" for rank in ranks)
+              + f" at {shape}; {card}")
+        out[f"compose_{key}"] = {
+            k: sum(rank[key]["gang"]["counts"][k] for rank in ranks)
+            for k in ranks[0][key]["gang"]["counts"]}
+    ck = res["gpt2_fsdp_tp"]["ckpt"]
+    if not ck["equal"] or ck["groups"] != 1 or ck["step"] != COMPOSE_STEPS:
+        raise AssertionError(f"compose-train: the fsdp x tp checkpoint "
+                             f"restored in one process: {ck}")
+    print(f"[compose] the dp:1,fsdp:2,tp:2 gang's checkpoint (saved in "
+          f"{res['gpt2_fsdp_tp']['gang']['ckpt_secs']:.1f} s) restored in "
+          f"one process in {ck['secs']:.1f} s: the one-process layout "
+          f"(one optimizer group), parameters == the gang's gathered ones")
+    print(f"[time] compose-train: {time.perf_counter() - t_phase:.1f} s "
+          f"(the ranks started {overlapped:.1f} s before, beside the "
+          f"phases then running; the gang's runs {res['gang_secs']:.1f} s, "
+          f"rank 0's: " + ", ".join(
+              f"{k} gang {res[k]['gang']['secs']:.1f} s (set-up "
+              f"{res[k]['gang']['setup_secs']:.1f} s), group-less "
+              f"{res[k]['ref']['secs']:.1f} s" for k in (
+                  "gpt2_fsdp_tp", "moe_fsdp_ep", "moe_sp_ep",
+                  "gpt2_sp_fsdp")) + ")")
+    return {"flash_launches": out,
+            "step_ms": {k: _tp_step_ms(res[k]["gang"]) for k in (
+                "gpt2_fsdp_tp", "moe_fsdp_ep", "moe_sp_ep",
+                "gpt2_sp_fsdp")}}
+
+
+def _start_compose_gang() -> dict:
+    """``phase_compose_train``'s four rank processes
+    (:func:`_start_gang`)."""
+    return _start_gang(COMPOSE_RANK, 4, [COMPOSE_STEPS, TP_LR,
+                                         F32_LAYERS, TP_MOE_F32_LAYERS],
+                       "ptpu_compose_")
 
 
 def _grads(model, tokens, loss_fn):
@@ -5869,7 +6237,7 @@ PROFILE_STEPS = 8           # dispatches a recorder window profiles
 MERGE_PROMPT = 256          # the coalescer's merge load: prompt tokens
 MERGE_NEW = 16              # and new tokens of each of its requests
 MERGE_N = 4                 # the merge load's requests (8 until PR 17)
-MODES_MIXED = 4             # the batching A/B's mixed load (8 until PR 17)
+MODES_MIXED = 2             # the batching A/B's mixed load (8 until PR 17, 4 until PR 21)
 
 
 def _trace_busy(events) -> tuple:
@@ -6495,7 +6863,8 @@ def _finish_sweep(sweep):
     from polyaxon_tpu_torch.client import FileRunStore
 
     try:
-        rc, out, wall, waited = _stop_sweep(sweep)
+        rc, out, wall, waited = sweep.pop("ended", None) or \
+            _stop_sweep(sweep)
         _check_sweep(FileRunStore(sweep["home"]), rc, out, wall,
                      sweep["preset"])
     finally:
@@ -6681,7 +7050,7 @@ def _run_service(env, store, home, free_before, settle):
     return launches
 
 
-def phase_run(train_secs: float):
+def phase_run(train_secs: float, sweep=None):
     """``python -m polyaxon_tpu_torch.cli run -f <example>`` in a
     temporary home, as a user types it: the ``job`` (GPT-2 medium
     training, tracked and profiled) and the GPT-2 medium ``service``;
@@ -6690,7 +7059,10 @@ def phase_run(train_secs: float):
     ``_finish_sweep``.  For the script's time the job runs beside the
     service (its process trains while the service's starts; both sequential
     until PR 17), so the job's step times and wall are taken under that
-    load."""
+    load.  ``sweep``: the ConvNet sweep ``_start_sweep`` started, still
+    running beside the job and the service (for the script's time,
+    since PR 21); the service's memory check first waits for it to end
+    (its result kept for ``_finish_sweep``)."""
     import threading
 
     from polyaxon_tpu_torch.client import FileRunStore
@@ -6715,6 +7087,8 @@ def phase_run(train_secs: float):
 
         def settle():
             thread.join()
+            if sweep is not None and "ended" not in sweep:
+                sweep["ended"] = _stop_sweep(sweep)
             if "error" in job:
                 raise job["error"]
 
@@ -6742,7 +7116,7 @@ KERNELS = {
 
 
 MESH_F32_NEW = 16           # new tokens of the float32 mesh checks
-MOE_MESH_LAYERS = 4         # of MoE-GPT-small's 12, float32
+MOE_MESH_LAYERS = 2         # of MoE-GPT-small's 12, float32 (4 until PR 21)
 
 
 def _mesh_probe() -> dict:
@@ -7332,16 +7706,25 @@ def main(argv=None) -> int:
     phase_train_timed()
     mark("timed training")
     _release()
-    # phase_tp_train's ranks import while phase_mesh runs.
+    # phase_tp_train's and phase_compose_train's ranks import while
+    # phase_mesh runs.
     tp_gang = _start_tp_gang()
+    compose_gang = _start_compose_gang()
     try:
         mesh = phase_mesh()
         mark("mesh: one-rank NCCL group, dp and fsdp steps")
         _release()
+        # The compose ranks start their CUDA contexts and group beside
+        # phase_tp_train's float32 checks (its bf16 timings come later).
+        _warm_gang(compose_gang)
         tp_train = phase_tp_train(tp_gang)
+        mark("tp / ep / sp training: a two-rank gloo gang on the one card")
+        compose = phase_compose_train(compose_gang)
     finally:
-        _stop_tp_gang(tp_gang)
-    mark("tp / ep / sp training: a two-rank gloo gang on the one card")
+        _stop_gang(tp_gang)
+        _stop_gang(compose_gang)
+    mark("composed meshes: fsdp x tp, fsdp x ep, sp x ep, sp x fsdp on a "
+         "four-rank gloo gang on the one card")
     phase_grad_route()
     mark("gradient route check")
     _release()
@@ -7378,7 +7761,8 @@ def main(argv=None) -> int:
     llama_remat = phase_zoo_remat(weights, llama_train)
     mark("zoo: llama named remat policy")
     # The ConvNet sweep's trial processes start up while the last
-    # checks, which time nothing the findings compare, run in-process.
+    # checks, which time nothing the findings compare, run in-process,
+    # and end beside the job and the service of phase_run.
     sweep = _start_sweep()
     try:
         # The float32 checkpoint loader is GPT-2 medium's check (for
@@ -7393,15 +7777,17 @@ def main(argv=None) -> int:
         mark("llama gradient route check (full and windowed)")
         phase_mistral()
         mark("mistral-tiny serving")
+        _release()
+        # The sweep's last trials run beside the job and the service.
+        run_counts = phase_run(train_secs, sweep)
+        mark("run -f: job, service")
     except BaseException:
-        _stop_sweep(sweep, timeout=300)   # no trial outlives the script
+        if "ended" not in sweep:
+            _stop_sweep(sweep, timeout=300)   # no trial outlives the script
         shutil.rmtree(sweep["home"], ignore_errors=True)
         raise
     _finish_sweep(sweep)
     mark("run -f: convnet hyperband sweep")
-    _release()
-    run_counts = phase_run(train_secs)
-    mark("run -f: job, service")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = recs[name]
@@ -7429,6 +7815,8 @@ def main(argv=None) -> int:
                 **{k: v[name] for k, v in mesh["flash_launches"].items()},
                 **{k: v[name] for k, v in
                    tp_train["flash_launches"].items()},
+                **{k: v[name] for k, v in
+                   compose["flash_launches"].items()},
                 "run_job": run_counts["run_job"][name],
                 "run_service": run_counts["run_service"][name],
                 "llama_forward": llama_forward[name],

@@ -14,17 +14,16 @@ Port of ``polyaxon_tpu/checkpoint.py`` (Orbax there):
 - preemption: SIGTERM sets ``preempt_requested`` and the training loop
   saves the state after the step in flight and exits;
 - a gang (a process group is up) saves collectively: every rank joins,
-  an FSDP-sharded model and its optimizer state are gathered into one
-  full state (``torch.distributed.checkpoint.state_dict`` with
-  ``full_state_dict=True``) and the chief (rank 0) writes it, in the
-  layout a one-process run writes, so one process, or ``serve
-  --checkpoint``, restores what a gang wrote and a gang restores on
-  every rank what one process wrote.  SIGTERM at any rank stops every
-  rank after the same step (``preemption_agreed``, a vote on the gang's
-  host-side group).  A model split over a tensor or expert axis
-  (``strategies.shard_tensors``) is gathered the same way: each shard
-  and its optimizer state along its dim, a by-heads ``qkv`` put back in
-  order; restoring into such a gang keeps each rank's shard.
+  each parameter a rank holds a shard of, and its optimizer state, is
+  gathered into the whole tensor, over fsdp (FSDP2's DTensors) and then
+  over its tensor or expert axis (``strategies.shard_tensors``; a
+  by-heads ``qkv`` put back in order), and the chief (rank 0) writes one
+  full state in the layout a one-process run writes (the optimizer's
+  groups merged into one), so one process, or ``serve --checkpoint``,
+  restores what a gang wrote and a gang restores on every rank what one
+  process wrote, each rank keeping its shard on both axes.  SIGTERM at
+  any rank stops every rank after the same step
+  (``preemption_agreed``, a vote on the gang's host-side group).
 
 Layout: ``<run outputs>/checkpoints/<step>/`` for a run named by
 ``POLYAXON_TPU_RUN_UUID`` (under ``POLYAXON_TPU_HOME``), else
@@ -66,12 +65,11 @@ def _to_host(state: Any) -> Any:
 def _load_into(template: Any, saved: Any) -> Any:
     """``saved`` loaded into ``template``'s live objects: a module or
     optimizer loads its state dict in place; dicts recurse; anything else
-    is replaced by the saved value.  A train state whose model FSDP (or
-    a tensor or expert axis) shards loads the full state into its
-    shards."""
-    fsdp = _is_sharded_state(template)
-    if fsdp or _tensor_shards(template):
-        (_load_sharded if fsdp else _load_tensor_sharded)(template, saved)
+    is replaced by the saved value.  A train state whose model a gang
+    shards (FSDP, a tensor or an expert axis) loads the full state into
+    its shards."""
+    if _is_sharded_state(template):
+        _load_sharded(template, saved)
         return {k: template[k] if k in ("params", "opt_state")
                 else saved[k] for k in saved}
     if hasattr(template, "load_state_dict"):
@@ -93,70 +91,22 @@ def _gang():
 
 
 def _is_sharded_state(state: Any) -> bool:
-    """A train state ({params, opt_state, ...}) whose model FSDP
-    shards."""
+    """A train state ({params, opt_state, ...}) whose model FSDP wraps
+    or holds tp / ep shards."""
     from torch.distributed.fsdp import FSDPModule
 
     return isinstance(state, dict) and \
-        isinstance(state.get("params"), FSDPModule)
+        isinstance(state.get("params"), torch.nn.Module) and \
+        (isinstance(state["params"], FSDPModule) or
+         bool(_tensor_shards(state)))
 
 
 def _tensor_shards(state: Any) -> dict:
     """name -> (axis, dim) of the tp / ep shards a train state's model
     holds ({} for any other state)."""
-    if not isinstance(state, dict) or \
-            not isinstance(state.get("params"), torch.nn.Module):
-        return {}
     from .parallel.strategies import tensor_shards
 
     return tensor_shards(state["params"])
-
-
-def _opt_shards(model, opt_state: dict, shards: dict, fn) -> dict:
-    """``opt_state`` (an optimizer ``state_dict``) with ``fn(name, t)``
-    applied to each state tensor of a sharded parameter that has dims
-    (shaped like the parameter: Adam's moments, SGD's momentum; not a
-    step count)."""
-    names = _param_names(model)
-    state = {}
-    for i, st in opt_state["state"].items():
-        name = names[i]
-        state[i] = {k: fn(name, v) if name in shards and
-                    isinstance(v, torch.Tensor) and v.dim() else v
-                    for k, v in st.items()}
-    return {"state": state, "param_groups": opt_state["param_groups"]}
-
-
-def _tensor_to_host(state: dict) -> dict:
-    """Collective: the one-process layout of a train state whose model
-    holds tp / ep shards (every rank gathers; the chief writes)."""
-    from .parallel.strategies import gather_shard
-
-    model, opt = state["params"], state["opt_state"]
-    shards = _tensor_shards(state)
-    msd = {name: gather_shard(model, name, t) if name in shards else t
-           for name, t in model.state_dict().items()}
-    osd = _opt_shards(model, opt.state_dict(), shards,
-                      lambda name, t: gather_shard(model, name, t))
-    out = {k: v for k, v in state.items() if k not in ("params",
-                                                       "opt_state")}
-    out.update(params=msd, opt_state=osd)
-    return out
-
-
-def _load_tensor_sharded(state: dict, saved: dict) -> None:
-    """Load a full saved state into a train state whose model holds tp /
-    ep shards: each rank keeps its shard of each tensor."""
-    from .parallel.strategies import local_shard
-
-    model, opt = state["params"], state["opt_state"]
-    shards = _tensor_shards(state)
-    model.load_state_dict({
-        name: local_shard(model, name, t) if name in shards else t
-        for name, t in saved["params"].items()})
-    opt.load_state_dict(_opt_shards(
-        model, saved["opt_state"], shards,
-        lambda name, t: local_shard(model, name, t)))
 
 
 def _param_names(model) -> list:
@@ -166,53 +116,94 @@ def _param_names(model) -> list:
 
 
 def _sharded_to_host(state: dict) -> dict:
-    """Collective: the full state of an FSDP train state, on the chief's
-    host (other ranks get empty dicts), the optimizer state indexed as a
-    one-process optimizer's ``state_dict`` indexes it."""
-    from torch.distributed.checkpoint.state_dict import (StateDictOptions,
-                                                         get_state_dict)
+    """Collective: the one-process layout of a sharded train state,
+    on the chief's host (every rank gathers; the chief writes).  The
+    optimizer state is indexed as a one-process optimizer's
+    ``state_dict`` indexes it, its groups (sharded, replicated) merged
+    into one."""
+    from .parallel.strategies import gather_full
 
     model, opt = state["params"], state["opt_state"]
-    msd, osd = get_state_dict(model, opt, options=StateDictOptions(
-        full_state_dict=True, cpu_offload=True))
+    host = _gang()[0] == 0
+
+    def full(name, t):
+        t = gather_full(model, name, t)
+        return t.detach().to("cpu", copy=True) if host else None
+
+    msd = {name: full(name, t) for name, t in model.state_dict().items()}
+    osd = opt.state_dict()
+    groups = osd["param_groups"]
+    hyper = {k: v for k, v in groups[0].items() if k != "params"}
+    if any({k: v for k, v in g.items() if k != "params"} != hyper
+           for g in groups):
+        raise ValueError("checkpoint: optimizer groups differ in "
+                         "hyperparameters")
+    names = _opt_names(model, opt)
     index = {n: i for i, n in enumerate(_param_names(model))}
-    if osd:
-        # The train step's groups (sharded, replicated) share their
-        # hyperparameters: one group, as a one-process optimizer holds.
-        groups = osd["param_groups"]
-        hyper = {k: v for k, v in groups[0].items() if k != "params"}
-        if any({k: v for k, v in g.items() if k != "params"} != hyper
-               for g in groups):
-            raise ValueError("checkpoint: optimizer groups differ in "
-                             "hyperparameters")
-        osd = {"state": {index[k]: v for k, v in osd["state"].items()},
-               "param_groups": [{**hyper, "params": sorted(
-                   index[n] for g in groups for n in g["params"])}]}
+    state_ = {index[names[i]]: {
+        k: full(names[i], v) if isinstance(v, torch.Tensor) and v.dim()
+        else v for k, v in st.items()} for i, st in osd["state"].items()}
     out = _to_host({k: v for k, v in state.items()
                     if k not in ("params", "opt_state")})
-    out.update(params=msd, opt_state=osd)
+    out.update(params=msd, opt_state={
+        "state": state_,
+        "param_groups": [{**hyper, "params": sorted(index.values())}]})
     return out
 
 
+def _like(p: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` as ``p`` holds its block: a DTensor laid out as ``p``
+    when ``p`` is one (an optimizer's state must match its
+    parameter)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(p, DTensor):
+        return local
+    return DTensor.from_local(local.to(p.to_local().device), p.device_mesh,
+                              p.placements, run_check=False)
+
+
+def _opt_names(model, opt) -> list:
+    """The parameter name of each index of ``opt.state_dict()`` (its
+    groups' parameters in order)."""
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    return [name_of[id(p)] for g in opt.param_groups for p in g["params"]]
+
+
 def _load_sharded(state: dict, saved: dict) -> None:
-    """Load a full saved state (every rank holds it) into an FSDP train
-    state's shards."""
-    from torch.distributed.checkpoint.state_dict import (StateDictOptions,
-                                                         set_state_dict)
+    """Load a full saved state (every rank holds it) into a sharded
+    train state: each rank keeps its shard of each tensor, on every
+    axis that shards it."""
+    from .parallel.strategies import local_block, local_full
 
     model, opt = state["params"], state["opt_state"]
-    names = _param_names(model)
-    name_of = {id(p): n for n, p in model.named_parameters()}
+    live = model.state_dict()
+    if live.keys() != saved["params"].keys():
+        raise KeyError(f"checkpoint does not match the model: "
+                       f"{sorted(live.keys() ^ saved['params'].keys())}")
+    with torch.no_grad():
+        for name, t in live.items():
+            local_block(t).copy_(
+                local_full(model, name, t, saved["params"][name]))
+    names = _opt_names(model, opt)
+    params = [p for g in opt.param_groups for p in g["params"]]
+    index = {n: i for i, n in enumerate(_param_names(model))}
     osd = saved["opt_state"]
     hyper = {k: v for k, v in osd["param_groups"][0].items()
              if k != "params"}
-    osd = {"state": {names[i]: v for i, v in osd["state"].items()},
-           "param_groups": [{**hyper, "params": [name_of[id(p)]
-                                                 for p in g["params"]]}
-                            for g in opt.param_groups]}
-    set_state_dict(model, opt, model_state_dict=saved["params"],
-                   optim_state_dict=osd,
-                   options=StateDictOptions(full_state_dict=True))
+    state_ = {}
+    for i, (name, p) in enumerate(zip(names, params)):
+        st = osd["state"].get(index[name])
+        if st is not None:
+            state_[i] = {k: _like(p, local_full(model, name, p, v))
+                         if isinstance(v, torch.Tensor) and v.dim() else v
+                         for k, v in st.items()}
+    groups, at = [], 0
+    for g in opt.param_groups:        # the live groups, in order
+        n = len(g["params"])
+        groups.append({**hyper, "params": list(range(at, at + n))})
+        at += n
+    opt.load_state_dict({"state": state_, "param_groups": groups})
 
 
 class CheckpointManager:
@@ -250,12 +241,8 @@ class CheckpointManager:
             return False
         self._steps.add(step)
         # Collective for a sharded model: every rank gathers.
-        if _is_sharded_state(state):
-            host = _sharded_to_host(state)
-        elif _tensor_shards(state):
-            host = _tensor_to_host(state)
-        else:
-            host = state
+        host = _sharded_to_host(state) if _is_sharded_state(state) \
+            else state
         if rank != 0:
             return False  # the chief writes the one full state
         payload = {"state": _to_host(host)}

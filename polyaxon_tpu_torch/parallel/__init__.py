@@ -43,9 +43,9 @@ from .moe import moe_layer, top1_dispatch
 from .ring import ring_attention
 from .strategies import (
     TrainStep,
+    infer_param_spec,
     make_param_placements,
     make_train_step,
-    param_placement,
 )
 from .ulysses import ulysses_attention
 
@@ -53,9 +53,9 @@ __all__ = [
     "BATCH", "MeshSpec", "SliceHealth", "TrainStep", "all_gather",
     "all_reduce", "all_reduce_mean", "all_to_all", "ambient_mesh",
     "build_mesh", "check_slice_health", "constrain", "current_mesh",
-    "data_sharding", "hierarchical_all_reduce", "initialize_from_env",
-    "local_mesh", "make_param_placements", "make_train_step",
-    "moe_layer", "param_placement", "reduce_scatter",
+    "data_sharding", "hierarchical_all_reduce", "infer_param_spec",
+    "initialize_from_env", "local_mesh", "make_param_placements",
+    "make_train_step", "moe_layer", "reduce_scatter",
     "replicate_sharding", "ring_attention", "ring_permute",
     "top1_dispatch", "topology_from_env", "ulysses_attention",
 ]

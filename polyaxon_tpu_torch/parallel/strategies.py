@@ -16,7 +16,7 @@ bootstrap) every rank computes on its rows of the global batch
   flat buckets.
 - **fsdp**: the parameters the reference's ``infer_param_spec`` shards
   (at least ``fsdp_min_size`` elements, on their largest matmul dim,
-  when it divides by the fsdp size: :func:`param_placement`) and their
+  when it divides by the fsdp size: :func:`make_placements`) and their
   optimizer state are sharded over the ``fsdp`` axis with FSDP2's
   ``fully_shard`` (each block of a layer list, then the model); the
   smaller ones stay replicated and take the dp all-reduce.  With dp > 1
@@ -52,9 +52,17 @@ and ep sizes above 1 need a gang).
   after the backward, the same gradients, so sp adds no gradient
   reduction.
 
-A pipeline axis above 1, fsdp together with tp or ep, and sp together
-with fsdp or ep are refused by the ROADMAP items that carry them;
-``precompile`` (AOT compilation) has no eager counterpart.
+- **composed**: fsdp beside tp or ep shards each parameter on both
+  axes as the reference's one spec does (:func:`make_placements`): its
+  tensor dim first (:func:`shard_tensors`), then FSDP2 over the fsdp
+  axis on the local shard's fsdp dim (the reference's largest
+  still-unsharded dim; a joint ``("tp", "fsdp")`` vocab dim splits the
+  tp rank's rows).  sp beside fsdp or ep runs each sp coordinate's own
+  fsdp and ep groups: the sp ranks hold equal rows and gradients.
+
+A pipeline axis above 1 is refused by the ROADMAP item that carries it
+(:func:`pipeline_refusal`); ``precompile`` (AOT compilation) has no
+eager counterpart.
 """
 
 from __future__ import annotations
@@ -74,20 +82,6 @@ from .mesh import MeshError, MeshSpec, build_mesh, data_sharding
 PARALLELISM_REFUSAL = (
     "pipeline parallelism in training comes with a later slice of the "
     "port (ROADMAP Queue 1: Parallelism and meshes, item (d))")
-# fsdp placed jointly with a tensor or expert axis.
-FSDP_TENSOR_REFUSAL = (
-    "fsdp together with tp or ep comes with a later slice of the port "
-    "(ROADMAP Queue 1: Parallelism and meshes, item (b3) fsdp with "
-    "tp / ep)")
-# A sequence axis beside an fsdp or an expert axis.
-SP_FSDP_REFUSAL = (
-    "sequence parallelism together with fsdp comes with a later slice "
-    "of the port (ROADMAP Queue 1: Parallelism and meshes, item (c2) sp "
-    "with fsdp)")
-SP_EP_REFUSAL = (
-    "sequence parallelism together with ep comes with a later slice of "
-    "the port (ROADMAP Queue 1: Parallelism and meshes, item (c3) sp "
-    "with ep)")
 
 # Flat gradient buckets of the dp all-reduce.
 BUCKET_BYTES = 25 * 2 ** 20
@@ -112,25 +106,26 @@ TP_RULES: List[Tuple[str, tuple]] = [
     (r"experts_w[12]$", ("ep", None, None)),
 ]
 
+def pipeline_refusal(sizes: Dict[str, int]) -> Optional[str]:
+    """Why a mesh of axis ``sizes`` cannot train, or None: a pp axis
+    above 1, with the reference's own message first where the pipeline
+    meets an sp or ep axis above 1."""
+    if int(sizes.get("pp", 1)) <= 1:
+        return None
+    for axis in ("sp", "ep"):
+        if int(sizes.get(axis, 1)) > 1:
+            return (f"strategy combines pp>1 with {axis}>1, which is not "
+                    f"supported: pipeline stages compose with dp/fsdp "
+                    f"(batch) and tp (tensor) axes only")
+    return PARALLELISM_REFUSAL
+
+
 def check_mesh(mesh) -> None:
-    """Refuse a mesh whose pp axis is above 1, whose fsdp axis is above
-    1 beside a tp or ep axis above 1, or whose sp axis is above 1 beside
-    an fsdp or ep axis above 1."""
-    if mesh.shape.get("pp", 1) > 1:
+    """Refuse a mesh whose pp axis is above 1 (:func:`pipeline_refusal`)."""
+    refusal = pipeline_refusal(mesh.shape)
+    if refusal is not None:
         raise NotImplementedError(
-            f"mesh {{'pp': {mesh.shape['pp']}}}: {PARALLELISM_REFUSAL}")
-    sp = mesh.shape.get("sp", 1)
-    for axis, refusal in (("fsdp", SP_FSDP_REFUSAL), ("ep", SP_EP_REFUSAL)):
-        if sp > 1 and mesh.shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"mesh {{'sp': {sp}, '{axis}': {mesh.shape[axis]}}}: "
-                f"{refusal}")
-    tensor = {a: mesh.shape[a] for a in ("tp", "ep")
-              if mesh.shape.get(a, 1) > 1}
-    if tensor and mesh.shape.get("fsdp", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {dict(tensor, fsdp=mesh.shape['fsdp'])}: "
-            f"{FSDP_TENSOR_REFUSAL}")
+            f"mesh {{'pp': {mesh.shape['pp']}}}: {refusal}")
 
 
 def check_model_axes(cfg, mesh) -> None:
@@ -154,23 +149,42 @@ def check_model_axes(cfg, mesh) -> None:
             f"{ep}")
 
 
+def _names(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else ((entry,) if entry else ())
+
+
 def infer_param_spec(path: str, shape, *, tp: bool = False,
-                     ep: bool = False) -> tuple:
-    """The tensor- and expert-axis branch of the reference's
-    ``infer_param_spec``: the spec (one entry a dim) that the first
-    :data:`TP_RULES` match gives the flax leaf at ``path``
-    (``"h_3/attn/qkv/kernel"``) of ``shape``, in the flax layout,
-    right-aligned on the leaf's trailing dims.  Its fsdp branch is
-    :func:`param_placement`'s; its pp branch comes with item (d)."""
+                     ep: bool = False, fsdp: bool = False,
+                     fsdp_min_size: int = 2 ** 16) -> tuple:
+    """The reference's ``infer_param_spec`` without its pp branch: the
+    spec (one entry a dim) of the flax leaf at ``path``
+    (``"h_3/attn/qkv/kernel"``) of ``shape``, in the flax layout (a
+    scanned block's leaf with its layer axis first).  The first
+    :data:`TP_RULES` match, right-aligned on the leaf's trailing dims;
+    then, unless a rule placed fsdp, a leaf of at least
+    ``fsdp_min_size`` elements puts fsdp on its largest still-unsharded
+    dim, the trailing two (the matmul dims) first."""
     shape = tuple(int(d) for d in shape)
+    spec = [None] * len(shape)
     if tp or ep:
         for pattern, cand in TP_RULES:
             if re.search(pattern, path):
                 cand = list(cand)
-                if len(cand) <= len(shape):
-                    return tuple([None] * (len(shape) - len(cand)) + cand)
-                return tuple(cand[len(cand) - len(shape):])
-    return (None,) * len(shape)
+                spec = [None] * (len(shape) - len(cand)) + cand \
+                    if len(cand) <= len(shape) \
+                    else cand[len(cand) - len(shape):]
+                break
+    if fsdp and not any("fsdp" in _names(e) for e in spec) and \
+            math.prod(shape or (1,)) >= fsdp_min_size:
+        n = len(shape)
+        matmul = list(range(max(0, n - 2), n))
+        lead = [i for i in range(n) if i not in matmul]
+        for i in sorted(matmul, key=lambda i: -shape[i]) + \
+                sorted(lead, key=lambda i: -shape[i]):
+            if spec[i] is None:
+                spec[i] = "fsdp"
+                break
+    return tuple(spec)
 
 
 def _drop_indivisible(spec: tuple, shape, sizes: Dict[str, int]) -> tuple:
@@ -178,8 +192,7 @@ def _drop_indivisible(spec: tuple, shape, sizes: Dict[str, int]) -> tuple:
     shrink from the right until their product divides it."""
     out = []
     for dim, entry in zip(shape, spec):
-        names = entry if isinstance(entry, tuple) else \
-            ((entry,) if entry else ())
+        names = _names(entry)
         while names and dim % math.prod(sizes.get(n, 1)
                                         for n in names) != 0:
             names = names[:-1]
@@ -192,70 +205,69 @@ def _drop_indivisible(spec: tuple, shape, sizes: Dict[str, int]) -> tuple:
 # weight [out, in]; a convolution's HWIO kernel the port's OIHW.
 _PORT_DIMS = {"dense": (1, 0), "conv": (2, 3, 1, 0)}
 
+Placement = Tuple[Optional[Tuple[str, int]], Optional[int]]
+
+
+def make_placements(model: torch.nn.Module, mesh, *,
+                    fsdp_min_size: int = 2 ** 16) -> Dict[str, Placement]:
+    """name -> (tensor placement, fsdp dim) of every parameter of
+    ``model``: the reference's one spec of its leaf
+    (:func:`infer_param_spec` on ``convert.reference_paths``'s path and
+    the flax shape, stacked over the layers where the reference scans
+    them, then ``make_param_shardings``' divisibility drop), carried to
+    the port's dims.  The tensor placement is (axis, port dim) of the tp
+    or ep axis above 1 that holds a dim, else None; the fsdp dim is the
+    port dim fsdp holds, alone or after tp on a joint ``("tp", "fsdp")``
+    dim, else None.  fsdp on a stacked leaf's layer axis stays
+    replicated: the port shards each block's parameter and has no layer
+    axis.  The fsdp axis is on when the mesh's spec asks for it (a size
+    above 1, or -1 filled: a one-rank group runs the wrap a gang runs);
+    a dim that does not divide by its size stays replicated."""
+    from ..convert import reference_paths
+
+    sizes = dict(mesh.shape)
+    active = {a for a in ("tp", "ep", "fsdp") if sizes.get(a, 1) > 1}
+    mesh_spec = getattr(mesh, "spec", None)
+    if mesh_spec is not None and mesh_spec.fsdp == -1:
+        active.add("fsdp")
+    if not active:
+        return {name: (None, None) for name, _ in model.named_parameters()}
+    paths = reference_paths(model)
+    stacks = _stack_sizes(model) if "fsdp" in active else {}
+    out: Dict[str, Placement] = {}
+    for name, p in model.named_parameters():
+        path, kind = paths[name]
+        perm = _PORT_DIMS.get(kind, tuple(range(p.dim())))
+        if len(perm) != p.dim():
+            perm = tuple(range(p.dim()))
+        layers = next((n for prefix, n in stacks.items()
+                       if name.startswith(prefix)), 1)
+        lead = (layers,) if layers > 1 else ()
+        full = lead + tuple(p.shape[perm[i]] for i in range(p.dim()))
+        spec = _drop_indivisible(infer_param_spec(
+            path, full, tp="tp" in active, ep="ep" in active,
+            fsdp="fsdp" in active, fsdp_min_size=fsdp_min_size),
+            full, sizes)
+        tensor = fsdp = None
+        for i, entry in enumerate(spec[len(lead):]):
+            names = [a for a in _names(entry) if a in active]
+            if tensor is None and names and names[0] != "fsdp":
+                tensor = (names[0], perm[i])
+            if "fsdp" in names:
+                fsdp = perm[i]
+        out[name] = (tensor, fsdp)
+    return out
+
 
 def make_tensor_placements(model: torch.nn.Module, mesh
                            ) -> Dict[str, Optional[Tuple[str, int]]]:
     """name -> (axis, port dim) for every parameter of ``model`` that
     the reference places on a tensor or expert axis above 1 of
-    ``mesh``, else None: :data:`TP_RULES` on the reference's path of
-    each parameter (``convert.reference_paths``), the divisibility drop
-    of ``make_param_shardings``, and the flax-to-port transposition.
-    A spec entry placing ``("tp", "fsdp")`` jointly lands on tp (fsdp is
-    1 beside tp: item (b3))."""
-    from ..convert import reference_paths
-
-    sizes = dict(mesh.shape)
-    active = {a for a in ("tp", "ep") if sizes.get(a, 1) > 1}
-    out: Dict[str, Optional[Tuple[str, int]]] = {}
-    paths = reference_paths(model) if active else {}
-    for name, p in model.named_parameters():
-        out[name] = None
-        if not active:
-            continue
-        path, kind = paths[name]
-        perm = _PORT_DIMS.get(kind, tuple(range(p.dim())))
-        if len(perm) != p.dim():
-            perm = tuple(range(p.dim()))
-        flax_shape = tuple(p.shape[perm[i]] for i in range(p.dim()))
-        spec = _drop_indivisible(
-            infer_param_spec(path, flax_shape, tp="tp" in active,
-                             ep="ep" in active), flax_shape, sizes)
-        for i, entry in enumerate(spec):
-            names = entry if isinstance(entry, tuple) else (entry,)
-            axis = next((a for a in names if a in active), None)
-            if axis is not None:
-                out[name] = (axis, perm[i])
-                break
-    return out
-
-
-def param_placement(shape, *, layers: int = 1, fsdp: bool = True,
-                    fsdp_min_size: int = 2 ** 16) -> Optional[int]:
-    """The dim of a port parameter that the fsdp axis shards, or None
-    (replicated): the fsdp branch of the reference's
-    ``infer_param_spec``, applied to the leaf the reference holds.
-
-    The reference scans its layer stacks, so a block's parameter is one
-    leaf ``[layers, *shape]`` there: ``layers`` > 1 says so, and the
-    size and dims are the stacked leaf's.  A leaf of at least
-    ``fsdp_min_size`` elements shards its largest matmul dim (ties: the
-    earlier), else its largest other dim.  The matmul dims are the
-    leaf's trailing two, except for a 4-D convolution kernel, which the
-    port holds as (out, in, kh, kw) where flax holds (kh, kw, in, out):
-    its first two.  A stacked leaf whose chosen dim is the layer axis
-    stays replicated here (the port shards each block's parameter, and
-    has no layer axis)."""
-    shape = tuple(int(d) for d in shape)
-    full = ((layers,) if layers > 1 else ()) + shape
-    if not fsdp or not shape or math.prod(full) < fsdp_min_size:
-        return None
-    n, off = len(full), len(full) - len(shape)
-    matmul = [0, 1] if n == 4 and not off else list(range(max(0, n - 2), n))
-    lead = [i for i in range(n) if i not in matmul]
-    order = sorted(matmul, key=lambda i: -full[i]) + \
-        sorted(lead, key=lambda i: -full[i])
-    dim = order[0] - off
-    return dim if dim >= 0 else None
+    ``mesh``, else None (:func:`make_placements`' tensor half)."""
+    if not any(mesh.shape.get(a, 1) > 1 for a in ("tp", "ep")):
+        return {name: None for name, _ in model.named_parameters()}
+    return {name: tensor for name, (tensor, _) in
+            make_placements(model, mesh).items()}
 
 
 def _stack_sizes(model: torch.nn.Module) -> Dict[str, int]:
@@ -275,27 +287,13 @@ def make_param_placements(model: torch.nn.Module, mesh, *,
                           ) -> Dict[str, Optional[int]]:
     """name -> sharded dim or None for every parameter of ``model``
     (the counterpart of ``make_param_shardings``): with a tp or ep axis
-    above 1, the dim :func:`make_tensor_placements` places there;
-    otherwise the fsdp dim: a dim that does not divide by the fsdp size
-    stays replicated, as the reference drops an axis that does not
-    divide.  The fsdp axis is on when the mesh's spec asks for it (a
-    size above 1, or -1 filled)."""
+    above 1, the dim placed there (an fsdp axis beside it:
+    :func:`make_placements`' second half); otherwise the fsdp dim."""
+    both = make_placements(model, mesh, fsdp_min_size=fsdp_min_size)
     if any(mesh.shape.get(a, 1) > 1 for a in ("tp", "ep")):
-        return {name: None if pl is None else pl[1] for name, pl in
-                make_tensor_placements(model, mesh).items()}
-    spec = getattr(mesh, "spec", None)
-    size = mesh.shape.get("fsdp", 1)
-    on = size > 1 or (spec is not None and spec.fsdp == -1)
-    stacks = _stack_sizes(model)
-    out = {}
-    for name, p in model.named_parameters():
-        layers = next((n for prefix, n in stacks.items()
-                       if name.startswith(prefix)), 1)
-        dim = param_placement(p.shape, layers=layers, fsdp=on,
-                              fsdp_min_size=fsdp_min_size)
-        out[name] = dim if dim is not None and p.shape[dim] % size == 0 \
-            else None
-    return out
+        return {name: None if tensor is None else tensor[1]
+                for name, (tensor, _) in both.items()}
+    return {name: fsdp for name, (_, fsdp) in both.items()}
 
 
 def _set_module(model: torch.nn.Module, name: str,
@@ -415,6 +413,52 @@ def local_shard(model: torch.nn.Module, name: str,
     return full.chunk(mesh.shape[axis], dim)[rank].contiguous()
 
 
+def _is_shard(model: torch.nn.Module, name: str) -> bool:
+    mod_name, _, attr = name.rpartition(".")
+    module = model.get_submodule(mod_name) if mod_name else model
+    return attr in getattr(module, "sharded_params", {})
+
+
+def gather_full(model: torch.nn.Module, name: str,
+                local: torch.Tensor) -> torch.Tensor:
+    """Collective: the whole tensor of which ``local`` is this rank's
+    block, ``name`` being the parameter (or buffer) it is or is shaped
+    like: a DTensor's blocks gathered over the axes that shard it
+    (fsdp), then a tensor or expert shard's over its axis
+    (:func:`gather_shard`).  Plain ``all_gather`` on the mesh's groups,
+    which every backend takes for a card's tensors."""
+    import torch.distributed as dist
+
+    if _is_dtensor(local):
+        mesh, placements = local.device_mesh, local.placements
+        local = local.to_local()
+        for i, pl in enumerate(placements):
+            if pl.is_shard():
+                group = mesh.get_group(i)
+                parts = [torch.empty_like(local)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, local.contiguous(), group=group)
+                local = torch.cat(parts, pl.dim)
+    return gather_shard(model, name, local) if _is_shard(model, name) \
+        else local
+
+
+def local_full(model: torch.nn.Module, name: str, like: torch.Tensor,
+               full: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the whole tensor ``full`` (the inverse of
+    :func:`gather_full`), ``like`` being the live tensor it goes to: a
+    plain tensor, the DTensor's local block."""
+    if _is_shard(model, name):
+        full = local_shard(model, name, full)
+    if _is_dtensor(like):
+        mesh = like.device_mesh
+        for i, pl in enumerate(like.placements):
+            if pl.is_shard():
+                full = full.chunk(mesh.size(i), pl.dim)[
+                    mesh.get_local_rank(i)]
+    return full.contiguous()
+
+
 def _layer_blocks(model: torch.nn.Module) -> list:
     """The blocks of the model's layer lists (each an FSDP unit)."""
     return [m for lst in model.modules()
@@ -465,6 +509,11 @@ def _is_dtensor(t) -> bool:
     return type(t).__name__ == "DTensor"
 
 
+def local_block(t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a DTensor (the tensor itself otherwise)."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
 class TrainStep:
     """``loss_fn(batch, rng) -> (loss, aux)`` into
     ``step(state, batch, rng) -> (state, metrics)``; ``state`` is a dict
@@ -513,6 +562,8 @@ class TrainStep:
         self.placements: Dict[str, Optional[int]] = {}
         # name -> (axis, dim) of the tp / ep shards this rank holds.
         self.shards: Dict[str, Tuple[str, int]] = {}
+        # id of a parameter -> the axis its gradient sums over (a
+        # router's ep) / the tensor axis it is a shard of.
         self._summed: Dict[int, str] = {}
         self._axis_of: Dict[int, str] = {}
 
@@ -531,21 +582,46 @@ class TrainStep:
 
     def _distribute(self, model: torch.nn.Module) -> None:
         """Rank 0's weights and buffers on every rank (the reference
-        places one host tree), then the fsdp wrap."""
+        places one host tree), each rank's tp / ep shards, then the fsdp
+        wrap over what the fsdp axis shards."""
         import torch.distributed as dist
 
         with torch.no_grad():
             for t in list(model.parameters()) + list(model.buffers()):
                 dist.broadcast(t.data, src=0)
-        self.placements = make_param_placements(
-            model, self.mesh, fsdp_min_size=self.fsdp_min_size)
-        if any(self.mesh.shape[a] > 1 for a in ("tp", "ep")):
-            self._distribute_tensors(model)
-            return
-        sharded = {name: dim for name, dim in self.placements.items()
-                   if dim is not None}
-        if not sharded:
-            return
+        both = make_placements(model, self.mesh,
+                               fsdp_min_size=self.fsdp_min_size)
+        tensor = any(self.mesh.shape[a] > 1 for a in ("tp", "ep"))
+        self.placements = {
+            name: (None if t is None else t[1]) if tensor else dim
+            for name, (t, dim) in both.items()}
+        if tensor:
+            self._distribute_tensors(model, {
+                name: t for name, (t, _) in both.items()})
+        # On the local shard: a column layer's bias, which the reference
+        # leaves whole over tp, is split with its rows.
+        local = dict(model.named_parameters())
+        sharded = {name: dim for name, (_, dim) in both.items()
+                   if dim is not None and local[name].shape[dim] %
+                   self.mesh.shape["fsdp"] == 0}
+        if sharded:
+            self._fully_shard(model, sharded)
+        # By name: the wrap registers new (DTensor) parameters.
+        params = dict(model.named_parameters())
+        self._axis_of = {id(params[n]): axis
+                         for n, (axis, _) in self.shards.items()}
+        self._summed = {
+            id(getattr(m, name)): "ep" for m in model.modules()
+            if getattr(m, "tensor_mesh", None) is not None
+            for name in getattr(m, "EP_SUMMED", ())}
+
+    def _fully_shard(self, model: torch.nn.Module,
+                     sharded: Dict[str, int]) -> None:
+        """FSDP2 over the fsdp axis (HSDP over dp and fsdp when dp is
+        above 1) on each block of the layer lists, then the model (a
+        tied table stays in the root unit), each parameter of
+        ``sharded`` on its dim; the others are left to the dp
+        all-reduce."""
         from torch.distributed.fsdp import fully_shard
         from torch.distributed.tensor import Shard
 
@@ -564,22 +640,13 @@ class TrainStep:
         fully_shard(model, mesh=dm, shard_placement_fn=placement,
                     ignored_params=ignored)
 
-    def _distribute_tensors(self, model: torch.nn.Module) -> None:
-        """tp / ep: the model's divisibility checked, each rank's shards
-        kept (:func:`shard_tensors`), and the gradients to sum over ep
-        noted: a module's ``EP_SUMMED`` parameters (the router) beside
-        its expert shards."""
+    def _distribute_tensors(self, model: torch.nn.Module,
+                            placements: Dict[str, Optional[Tuple[str, int]]]
+                            ) -> None:
+        """tp / ep: the model's divisibility checked and each rank's
+        shards kept (:func:`shard_tensors`)."""
         check_model_axes(getattr(model, "cfg", None), self.mesh)
-        self.shards = shard_tensors(model, self.mesh,
-                                    make_tensor_placements(model,
-                                                           self.mesh))
-        params = dict(model.named_parameters())
-        self._axis_of = {id(params[n]): axis
-                         for n, (axis, _) in self.shards.items()}
-        self._summed = {
-            id(getattr(m, name)): "ep" for m in model.modules()
-            if getattr(m, "tensor_mesh", None) is not None
-            for name in getattr(m, "EP_SUMMED", ())}
+        self.shards = shard_tensors(model, self.mesh, placements)
 
     def __call__(self, state: Dict[str, Any], batch, rng=None):
         model, opt = state["params"], state["opt_state"]
@@ -628,42 +695,34 @@ class TrainStep:
         return loss, aux
 
     def _reduce(self, params, loss, aux):
-        """The dp all-reduce of the replicated gradients (FSDP reduced
-        the sharded ones in the backward), the ep sum of the routers',
-        the global gradient norm, and the metrics' mean over the data
-        ranks."""
+        """The dp all-reduce of the gradients FSDP does not reduce, the
+        ep sum of the routers', the global gradient norm, and the
+        metrics' mean over the data ranks."""
         import torch.distributed as dist
 
-        grads = [p.grad for p in params]
-        sharded = [g for g in grads if _is_dtensor(g)]
-        plain = [g for g in grads if not _is_dtensor(g)]
+        plain = [p.grad for p in params if not _is_dtensor(p.grad)]
         all_reduce_grads(plain, self.mesh)
-        for p in params:
-            if id(p) in self._summed:
-                dist.all_reduce(p.grad,
-                                group=self.mesh.group(self._summed[id(p)]))
-        zero = torch.zeros((), dtype=torch.float32, device=self.mesh.device)
-        sq = zero
-        for g in sharded:
-            sq = sq + g.to_local().float().square().sum()
-        if sharded:
-            # Each fsdp rank holds its shard; replicas over dp agree.
-            dist.all_reduce(sq, group=self.mesh.group("fsdp"))
-        # A tp / ep shard's squares sum over its axis; a parameter
-        # replicated there counts once.
-        by_axis: Dict[str, torch.Tensor] = {}
-        for p in params:
-            if _is_dtensor(p.grad):
-                continue
-            term = p.grad.float().square().sum()
-            axis = self._axis_of.get(id(p))
-            if axis is None:
-                sq = sq + term
-            else:
-                by_axis[axis] = by_axis.get(axis, zero) + term
-        for axis, part in by_axis.items():
-            dist.all_reduce(part, group=self.mesh.group(axis))
-            sq = sq + part
+        with torch.no_grad():
+            for p in params:
+                if id(p) in self._summed:
+                    dist.all_reduce(local_block(p.grad),
+                                    group=self.mesh.group(self._summed[id(p)]))
+            # A shard's squares sum over each axis that shards it (fsdp,
+            # then its tensor axis); a parameter replicated over an axis
+            # counts once there (dp replicas agree).
+            parts: Dict[tuple, torch.Tensor] = {}
+            for p in params:
+                key = (_is_dtensor(p.grad), self._axis_of.get(id(p)) or "")
+                term = local_block(p.grad).float().square().sum()
+                parts[key] = parts[key] + term if key in parts else term
+            sq = torch.zeros((), dtype=torch.float32,
+                             device=self.mesh.device)
+            for (fsdp, axis), part in sorted(parts.items()):
+                if fsdp:
+                    dist.all_reduce(part, group=self.mesh.group("fsdp"))
+                if axis:
+                    dist.all_reduce(part, group=self.mesh.group(axis))
+                sq = sq + part
         keys = list(aux)
         vals = torch.stack([loss.float()] +
                            [torch.as_tensor(aux[k]).float() for k in keys])

@@ -47,11 +47,11 @@ default ``ring``) for the whole run: ``sequence_parallel`` is activated
 before the step is built, and ``main`` deactivates it on the way out,
 so an in-process caller never inherits the route.
 
-Not ported yet, refused with a message naming the ROADMAP item that
-carries them (**Parallelism and meshes**): a pipeline axis above 1
-(item (d)), fsdp above 1 beside tp or ep above 1 (item (b3)), and sp
-above 1 beside fsdp or ep above 1 (items (c2), (c3)).  A pipeline
-beside sp or ep is refused with the reference's own message.
+The axes compose as the reference's do: fsdp beside tp or ep shards
+each parameter on both axes, and sp runs beside fsdp or ep.  Not ported
+yet, refused with a message naming the ROADMAP item that carries it
+(**Parallelism and meshes**): a pipeline axis above 1 (item (d)); a
+pipeline beside sp or ep is refused with the reference's own message.
 """
 
 from __future__ import annotations
@@ -356,33 +356,16 @@ def parse_strategy(raw):
 
 
 def _refuse_unported(strategy) -> dict:
-    """The mesh axes of ``strategy``, after refusing what is not ported:
-    a pp axis above 1 (the reference's own message first where a
-    pipeline meets sp or ep), fsdp above 1 beside tp or ep above 1, and
-    sp above 1 beside fsdp or ep above 1."""
-    from .parallel.strategies import (FSDP_TENSOR_REFUSAL,
-                                      PARALLELISM_REFUSAL, SP_EP_REFUSAL,
-                                      SP_FSDP_REFUSAL)
+    """The mesh axes of ``strategy``, after refusing a pp axis above 1
+    (``strategies.pipeline_refusal``: the reference's own message first
+    where a pipeline meets sp or ep)."""
+    from .parallel.strategies import pipeline_refusal
 
     axes = {k: v for k, v in strategy.items()
             if k not in _STRATEGY_STR_KEYS}
-    size = {k: int(v) for k, v in axes.items()}
-    if size.get("pp", 1) > 1:
-        for bad_axis in ("sp", "ep"):
-            if size.get(bad_axis, 1) > 1:
-                raise SystemExit(
-                    f"strategy combines pp>1 with {bad_axis}>1, which "
-                    f"is not supported: pipeline stages compose with "
-                    f"dp/fsdp (batch) and tp (tensor) axes only")
-        raise SystemExit(f"--strategy {axes}: {PARALLELISM_REFUSAL}")
-    if size.get("fsdp", 1) > 1 and any(size.get(a, 1) > 1
-                                       for a in ("tp", "ep")):
-        raise SystemExit(f"--strategy {axes}: {FSDP_TENSOR_REFUSAL}")
-    if size.get("sp", 1) > 1:
-        for axis, refusal in (("fsdp", SP_FSDP_REFUSAL),
-                              ("ep", SP_EP_REFUSAL)):
-            if size.get(axis, 1) > 1:
-                raise SystemExit(f"--strategy {axes}: {refusal}")
+    refusal = pipeline_refusal({k: int(v) for k, v in axes.items()})
+    if refusal is not None:
+        raise SystemExit(f"--strategy {axes}: {refusal}")
     return axes
 
 

@@ -7,17 +7,17 @@ the JAX package, in one process on the CPU (the gangs themselves:
   a block of consecutive ranks) match ``tests/test_multislice.py``.
 - With no process group a mesh is this process's one device: a spec
   naming more raises the reference's ``MeshError``.
-- The placement function marks the same leaves as sharded over fsdp as
+- The placement rule marks the same leaves as sharded over fsdp as
   the reference's ``make_param_shardings`` on a ``dp=1, fsdp=2`` mesh
   (the reference's flags carried to the port's names by ``convert.py``),
   for the zoo at ``fsdp_min_size`` 2**16 and 2**10.
 - ``check_slice_health`` reports a healthy device, a hung probe and a
   probe error, as ``tests/test_failure_detection.py`` checks the
   reference's.
-- ``constrain`` is the identity, the serving-exact mesh, tensor and
-  expert axes taken (fsdp beside them refused by item (b3)), sequence
-  and pipeline axes refused by the parallelism item, and every
-  collective is the identity with no mesh.
+- ``constrain`` is the identity, the serving-exact mesh, tensor,
+  expert and sequence axes taken (fsdp beside them too), the pipeline
+  axis refused by the parallelism item, and every collective is the
+  identity with no mesh.
 """
 
 from __future__ import annotations
@@ -184,19 +184,37 @@ def test_placements_mark_the_references_sharded_leaves(name, min_size):
 
 
 def test_placement_rule_on_stacked_and_conv_leaves():
-    place = tstrat.param_placement
+    """The fsdp branch of the reference's ``infer_param_spec`` on the
+    flax leaf (a scanned block's leaf with its layer axis first), and
+    its port dims through ``make_placements``."""
+    spec = tstrat.infer_param_spec
     # GPT-2 medium's fc1 bias: [4096] a layer, [24, 4096] stacked in the
     # reference (98304 elements): sharded, on the bias's own dim.
-    assert place((4096,), layers=24) == 0
-    assert place((4096,), layers=1) is None
-    # A Linear weight [out, in]: its larger dim; ties the earlier.
-    assert place((4096, 1024)) == 0 and place((1024, 4096)) == 1
-    assert place((1024, 1024)) == 0
-    # A conv kernel (out, in, kh, kw): out or in, never the window.
-    assert place((256, 128, 3, 3)) == 0 and place((128, 256, 3, 3)) == 1
-    # The stacked leaf's layer axis is its largest: stays replicated.
-    assert place((16,), layers=8192) is None
-    assert place((64, 64), fsdp=False) is None
+    assert spec("h_0/fc1/bias", (24, 4096), fsdp=True) == (None, "fsdp")
+    assert spec("h_0/fc1/bias", (4096,), fsdp=True) == (None,)
+    # A Dense kernel [in, out]: its larger dim; ties the earlier (in).
+    assert spec("fc1/kernel", (1024, 4096), fsdp=True) == (None, "fsdp")
+    assert spec("fc2/kernel", (4096, 1024), fsdp=True) == ("fsdp", None)
+    assert spec("proj/kernel", (1024, 1024), fsdp=True) == ("fsdp", None)
+    # A conv kernel (kh, kw, in, out): in or out, never the window.
+    assert spec("conv/kernel", (3, 3, 128, 256), fsdp=True) == \
+        (None, None, None, "fsdp")
+    assert spec("conv/kernel", (3, 3, 256, 128), fsdp=True) == \
+        (None, None, "fsdp", None)
+    # The stacked leaf's layer axis is its largest: the reference shards
+    # it (the port keeps such a leaf replicated: no layer axis).
+    assert spec("h_0/ln/scale", (8192, 16), fsdp=True) == ("fsdp", None)
+    assert spec("proj/kernel", (64, 64)) == (None, None)
+    # Port dims: a Dense weight is [out, in], a conv's (out, in, kh, kw).
+    model = t_get_model("gpt2-medium").make_model(device="meta")
+    mesh = tmesh.Mesh({"dp": 1, "fsdp": 2, "pp": 1, "sp": 1, "ep": 1,
+                       "tp": 1}, np.arange(2).reshape(1, 2, 1, 1, 1, 1),
+                      torch.device("cpu"), spec=tmesh.MeshSpec(dp=1, fsdp=2))
+    got = tstrat.make_param_placements(model, mesh)
+    assert (got["h.0.fc1.bias"], got["h.0.fc1.weight"],
+            got["h.0.fc2.weight"], got["h.0.o_proj.weight"],
+            got["h.0.ln1.weight"], got["wte.weight"]) == (0, 0, 1, 1, None,
+                                                          None)
 
 
 def test_slice_health_healthy_hung_and_error(monkeypatch):
@@ -265,22 +283,25 @@ def test_constraints_and_collectives_without_a_mesh():
 @pytest.mark.parametrize("axis", ["tp", "ep", "sp", "pp"])
 def test_tensor_axes_refused_by_parallelism_item(axis):
     """tp, ep and sp are ported (``test_torch_tp.py``,
-    ``test_torch_ep.py``, ``test_torch_sp.py``): a train step takes
-    their mesh, and refuses fsdp beside tp / ep by item (b3) and beside
-    sp by item (c2); pp stays refused by the parallelism item."""
-    sizes = dict({a: 1 for a in tmesh.AXIS_ORDER}, **{axis: 2})
-    mesh = tmesh.Mesh(sizes, np.arange(2).reshape(
-        [sizes[a] for a in tmesh.AXIS_ORDER]), torch.device("cpu"))
+    ``test_torch_ep.py``, ``test_torch_sp.py``) and compose with fsdp
+    (``test_torch_compose.py``): a train step takes their mesh and the
+    mesh with fsdp beside; pp stays refused by the parallelism item,
+    beside tp too, and beside ep or sp by the reference's message."""
+    def mesh_of(**axes):
+        sizes = dict({a: 1 for a in tmesh.AXIS_ORDER}, **axes)
+        return tmesh.Mesh(sizes, np.arange(int(np.prod(list(
+            sizes.values())))).reshape([sizes[a] for a in tmesh.AXIS_ORDER]),
+            torch.device("cpu"))
+
     if axis in ("tp", "ep", "sp"):
-        step = tstrat.TrainStep(lambda b, r: None, None, mesh)
-        assert step.mesh is mesh and not step.distributed
-        sizes["fsdp"] = 2
-        both = tmesh.Mesh(sizes, np.arange(4).reshape(
-            [sizes[a] for a in tmesh.AXIS_ORDER]), torch.device("cpu"))
-        item = r"item \(c2\) sp with fsdp" if axis == "sp" \
-            else r"item \(b3\)"
-        with pytest.raises(NotImplementedError, match=item):
-            tstrat.TrainStep(lambda b, r: None, None, both)
+        for mesh in (mesh_of(**{axis: 2}), mesh_of(fsdp=2, **{axis: 2})):
+            step = tstrat.TrainStep(lambda b, r: None, None, mesh)
+            assert step.mesh is mesh and not step.distributed
+        match = "Parallelism and meshes" if axis == "tp" else \
+            f"strategy combines pp>1 with {axis}>1"
+        with pytest.raises(NotImplementedError, match=match):
+            tstrat.TrainStep(lambda b, r: None, None,
+                             mesh_of(pp=2, **{axis: 2}))
         return
     with pytest.raises(NotImplementedError, match="Parallelism and meshes"):
-        tstrat.TrainStep(lambda b, r: None, None, mesh)
+        tstrat.TrainStep(lambda b, r: None, None, mesh_of(pp=2))

@@ -39,8 +39,8 @@ runs both packages under ``POLYAXON_TPU_NO_FLASH=1``.
   reference's messages, the route read at call time (a step built
   before activation takes it), a remat block's recompute on another
   thread taking its forward's route, a remat block keeping none of the
-  ring's rotated blocks, and the train refusals before any weight is
-  built.
+  ring's rotated blocks, and the pipeline refusals before any weight
+  is built.
 """
 
 from __future__ import annotations
@@ -770,16 +770,19 @@ def test_a_remat_block_keeps_none_of_the_rings_blocks(no_flash,
 
 
 @pytest.mark.parametrize("strategy,match", [
-    ("sp:2,fsdp:2", r"Parallelism and meshes, item \(c2\) sp with fsdp"),
-    ("dp:-1,sp:2,ep:2", r"Parallelism and meshes, item \(c3\) sp with ep"),
+    ("pp:2,fsdp:2", r"Parallelism and meshes, item \(d\)"),
+    ("pp:2,ep:2", "strategy combines pp>1 with ep>1, which is not "
+                  "supported: pipeline stages compose with dp/fsdp"),
     ("pp:2,sp:2", "strategy combines pp>1 with sp>1, which is not "
                   "supported: pipeline stages compose with dp/fsdp"),
 ])
 def test_unported_sp_compositions_refused_before_weights(strategy, match,
                                                          monkeypatch):
-    """sp beside fsdp and beside ep by their items, and a pipeline beside
-    sp by the reference's message, before the process group, the mesh
-    or any weight; the train step refuses the same meshes."""
+    """sp composes with fsdp and ep (``test_torch_compose.py``); a
+    pipeline stays refused, beside fsdp by its item (d), beside ep or sp
+    by the reference's message, before the process group, the mesh or
+    any weight; the train step refuses the same meshes with the same
+    rule (``strategies.pipeline_refusal``)."""
     from polyaxon_tpu_torch.models import registry
     from polyaxon_tpu_torch.parallel import bootstrap
 
@@ -791,8 +794,7 @@ def test_unported_sp_compositions_refused_before_weights(strategy, match,
     with pytest.raises(SystemExit, match=match):
         ttrain.main(["--cpu", "--model", "gpt2-tiny", "--strategy",
                      strategy, "--sp-mode", "ulysses"])
-    if not strategy.startswith("pp"):
-        axes = ttrain.parse_strategy(strategy)
-        mesh = _FakeMesh(**{a: 2 for a in axes})
-        with pytest.raises(NotImplementedError, match=match):
-            tstrat.check_mesh(mesh)
+    axes = ttrain.parse_strategy(strategy)
+    mesh = _FakeMesh(**{a: 2 for a in axes})
+    with pytest.raises(NotImplementedError, match=match):
+        tstrat.check_mesh(mesh)

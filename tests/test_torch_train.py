@@ -393,15 +393,15 @@ def test_train_main_cpu(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--strategy", "dp:2"], "do not divide device count 1"),
-    (["--strategy", "sp:2,fsdp:2"], r"\(c2\) sp with fsdp"),
+    (["--strategy", "pp:2,fsdp:2"], r"Parallelism and meshes, item \(d\)"),
     (["--model", "mlp", "--init-hf", "weights.pt"],
      "--init-hf supports the"),
     (["--model", "t5-tiny", "--dataset", "span-corruption"],
      "span-corruption requires --data-dir"),
     (["--dataset", "span-corruption", "--data-dir", "."],
      "requires a seq2seq"),
-    (["--model", "moe-gpt-tiny", "--strategy", "fsdp:2,ep:2"],
-     r"\(b3\) fsdp with tp / ep"),
+    (["--model", "moe-gpt-tiny", "--strategy", "pp:2,fsdp:2,ep:2"],
+     "strategy combines pp>1 with ep>1, which is not supported"),
 ], ids=["flags0-parallelism slice", "flags1-parallelism slice",
         "flags2-import_hf", "flags3-zoo slice", "flags4-zoo",
         "flags5-zoo slice"])
@@ -413,11 +413,12 @@ def test_train_refuses_what_is_not_ported(flags, slice_name, tmp_path,
     ``test_torch_eval.py``, ``test_torch_t5.py``, ``test_torch_moe.py``),
     and so are the dp, fsdp, tp and ep axes over a gang
     (``test_torch_mesh.py``, ``test_torch_gang.py``,
-    ``test_torch_tp.py``, ``test_torch_ep.py``, and sp,
-    ``test_torch_sp.py``); what stays refused: sp beside fsdp by its
-    item (c2), fsdp beside ep (MoE-GPT's
-    ``fsdp:2,ep:2``) by its item (b3), ``--init-hf`` of a family with
-    no loader, and span corruption
+    ``test_torch_tp.py``, ``test_torch_ep.py``, sp,
+    ``test_torch_sp.py``, and their compositions,
+    ``test_torch_compose.py``); what stays refused: a pipeline axis
+    beside fsdp by its item (d), beside ep (MoE-GPT's
+    ``pp:2,fsdp:2,ep:2``) by the reference's message, ``--init-hf`` of a
+    family with no loader, and span corruption
     without a data directory or on a decoder-only model, with the
     reference's messages.  ``dp:2`` in one process with no gang raises
     the reference's own ``MeshError``.  The ids are the cases' earlier

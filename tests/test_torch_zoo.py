@@ -243,7 +243,7 @@ _ITEM_IDS = [
      "do not divide device count 1"),
     (["--model", "moe-gpt-small", "--strategy", "dp:-1,sp:2,ep:2",
       "--sp-mode", "ring"],
-     r"Parallelism and meshes, item \(c3\) sp with ep"),
+     "do not divide device count 1"),
     (["--model", "bert-tiny", "--dataset", "span-corruption",
       "--data-dir", "."],
      "requires a seq2seq \\(encoder-decoder\\) model; 'bert-tiny' is not"),
@@ -254,13 +254,14 @@ _ITEM_IDS = [
 ], ids=_ITEM_IDS)
 def test_unported_refused_by_roadmap_item(argv, item, tmp_path,
                                           monkeypatch):
-    """What stays refused: sequence parallelism beside ep by its item,
-    span corruption without a seq2seq model or a data directory with the
-    reference's messages.  ``dp:2`` and the reference's tp / ep
-    strategies of the zoo's examples (``dp:-1,ep:4``, ``dp:-1,tp:2``) in
+    """What stays refused: span corruption without a seq2seq model or a
+    data directory with the reference's messages.  ``dp:2`` and the
+    reference's tp / ep / sp strategies of the zoo's examples
+    (``dp:-1,ep:4``, ``dp:-1,tp:2``, MoE-GPT's ``dp:-1,sp:2,ep:2``) in
     one process with no gang raise the reference's own ``MeshError`` (a
     gang trains them: ``test_torch_gang.py``, ``test_torch_tp.py``,
-    ``test_torch_ep.py``).  The ids are the cases' earlier ones."""
+    ``test_torch_ep.py``, ``test_torch_compose.py``).  The ids are the
+    cases' earlier ones."""
     from polyaxon_tpu_torch.parallel.mesh import MeshError
 
     monkeypatch.chdir(tmp_path)
