@@ -89,7 +89,7 @@ Phases, each raising on failure:
    (``[mesh]`` lines); then ``phase_tp_train``: a two-process gang on
    the one card (gloo over the card's tensors), GPT-2 medium on
    ``tp:2`` and MoE-GPT-small on ``ep:2``, float32 at a few layers equal
-   to the group-less step, bf16 at half depth timed, the flash kernels
+   to the group-less step, bf16 at a quarter depth timed, the flash kernels
    launched at each rank's local heads (``[tp]`` lines), and in the same
    ranks sequence parallelism on ``sp:2``: ring and Ulysses attention
    over the gang, float32 GPT-2 medium and TinyLlama's width (windowed
@@ -99,7 +99,17 @@ Phases, each raising on failure:
    ``dp:1,fsdp:2,tp:2`` and ``sp:2,fsdp:2`` and MoE-GPT-small at
    ``fsdp:2,ep:2`` and ``sp:2,ep:2`` equal to the group-less step, each
    rank's launches and parameter bytes, the fsdp x tp checkpoint
-   restored in one process (``[compose]`` lines);
+   restored in one process (``[compose]`` lines); then
+   ``phase_pipeline_train``: in the same four ranks float32 GPT-2
+   medium at ``dp:2,pp:2`` (GPipe) and ``pp:2,fsdp:2`` (1F1B) and
+   TinyLlama's width at ``dp:2,pp:2`` (1F1B under remat) and
+   ``pp:2,tp:2`` (1F1B, its checkpoint restored in one process) equal
+   to the group-less step, each rank's launches as its schedule gives
+   them and its parameter bytes; bf16 GPT-2 medium at full depth through
+   ``train.main --strategy pp:2`` in those ranks (their PTPU_* block),
+   step ms a rank against the group-less step (``[pipeline]`` lines);
+   the four ranks run beside the phases from ``phase_mesh`` to the
+   named remat policy's (item 9) and are collected after it;
 8. one float32 step's loss and gradients through the flash route against
    the plain-attention route, at GPT-2 medium's width and 4 layers;
    the baseline's training zoo (``phase_zoo``, ``[zoo]`` lines):
@@ -2163,7 +2173,7 @@ SPEC_K = 4
 # engine / solo): their result does not depend on the depth, and since
 # PR 17 they run at a cut of the model's own weights, for the script's
 # time (full depth until then).  The bf16 timings stay at full depth.
-F32_LAYERS = 4              # of GPT-2 medium's 24 (6 until PR 21)
+F32_LAYERS = 2              # of GPT-2 medium's 24, for the script's time
 SPEC_F32_LAYERS = 6         # the spec target (8 until PR 21); its draft is a 4-layer cut
 LLAMA_F32_LAYERS = 4        # of TinyLlama's 22
 
@@ -2989,7 +2999,7 @@ def phase_train_timed(steps: int = 5):
     return rec
 
 
-MESH_STEPS = 3              # steps of each GPT-2 medium mesh run
+MESH_STEPS = 2              # steps of each GPT-2 medium mesh run
 MESH_LR = 1e-4
 
 
@@ -3232,11 +3242,10 @@ def phase_mesh() -> dict:
 
 TP_STEPS = 2                # steps of each float32 tp / ep / sp check
 TP_BF16_STEPS = 2           # steps of each bf16 gang timing run
-# Depth of the bf16 gang timing runs: half of GPT-2 medium's 24 layers
-# and of MoE-GPT-small's 12 (full depth until PR 21, for the script's
-# time).
-TP_BF16_LAYERS = 12
-TP_MOE_BF16_LAYERS = 6
+# Depth of the bf16 gang timing runs: a quarter of GPT-2 medium's 24
+# layers and of MoE-GPT-small's 12, for the script's time.
+TP_BF16_LAYERS = 6
+TP_MOE_BF16_LAYERS = 3
 TP_LR = 1e-4
 TP_MOE_F32_LAYERS = 2       # of MoE-GPT-small's 12, float32
 # Each rank of phase_tp_train's gang: both on cuda:0, gloo over the
@@ -3404,7 +3413,7 @@ if rank == 0:
                       "tight": tight}
 del final, init
 dist.barrier()
-# bf16 at half depth: step times and the flash launches; rank 0 then
+# bf16 at a quarter depth: step times and the flash launches; rank 0 then
 # times the group-less step alone on the same initial weights.
 res["gpt2_bf16"], _, gpt2_init = run("gpt2-medium", {"dp": 1, "tp": 2},
                                      n_steps=bf16_steps,
@@ -3452,7 +3461,7 @@ if rank == 0:
     res["sp_llama_f32"].update(ref=ref, worst=worst, tight=tight)
 del final, init
 dist.barrier()
-# bf16 GPT-2 medium at half depth, 8 x 1024, on the timing runs'
+# bf16 GPT-2 medium at a quarter depth, 8 x 1024, on the timing runs'
 # weights (gpt2_bf16_ref is their group-less step): step times and
 # launches.
 res["sp_ring_bf16"] = run("gpt2-medium", sp2, sp_mode="ring",
@@ -3507,10 +3516,10 @@ def _start_gang(script: str, n: int, args, prefix: str) -> dict:
     return gang
 
 
-def _warm_gang(gang: dict) -> None:
-    """Let a gang whose ranks wait for a ``warm`` file (the compose
-    gang's) start its CUDA context and group before its phase's go."""
-    open(os.path.join(gang["dir"], "warm"), "w").close()
+def _release_gang(gang: dict) -> None:
+    """The gang's ``go`` file: its ranks run now, beside whatever runs
+    in this process; :func:`_gang_results` collects them."""
+    open(os.path.join(gang["dir"], "go"), "w").close()
 
 
 def _start_tp_gang() -> dict:
@@ -3527,8 +3536,7 @@ def _gang_results(gang: dict, label: str, timeout: float = 600) -> list:
     its output.  The gang is stopped either way."""
     procs, tmp = gang["procs"], gang["dir"]
     try:
-        _warm_gang(gang)
-        open(os.path.join(tmp, "go"), "w").close()
+        _release_gang(gang)
         deadline = time.monotonic() + timeout
         try:
             for proc in procs:
@@ -3585,13 +3593,12 @@ def phase_tp_train(gang=None) -> dict:
        own capacity, emulated on one device): losses rtol 1e-5, every
        parameter within 2 lr a step and 99% of the elements within
        2e-6 (the CPU tests' tolerance, ``tests/test_torch_tp.py``);
-    2. bf16 at half depth (``TP_BF16_LAYERS`` / ``TP_MOE_BF16_LAYERS``
-       layers), ``TP_BF16_STEPS`` steps: GPT-2 medium
-       ``tp:2`` and MoE-GPT-small ``ep:2``, step ms against the
+    2. bf16 at a quarter depth (``TP_BF16_LAYERS`` /
+       ``TP_MOE_BF16_LAYERS`` layers), ``TP_BF16_STEPS`` steps: GPT-2
+       medium ``tp:2`` and MoE-GPT-small ``ep:2``, step ms against the
        group-less step (rank 0 alone after the gang), and each rank's
-       flash launches: 12 of each kernel a
-       GPT-2 step at the local-head shape [8, 1024, 8, 64], 6 a MoE
-       step at [8, 1024, 12, 64];
+       flash launches: one of each kernel a layer a step, GPT-2 at the
+       local-head shape [8, 1024, 8, 64], MoE at [8, 1024, 12, 64];
     3. sequence parallelism on ``sp:2`` in the same ranks
        (:func:`_check_sp_train`): float32 GPT-2 medium at 4 x 1024, ring
        and Ulysses, and TinyLlama's width at 2 x 2048 with window 511 on
@@ -3706,9 +3713,9 @@ def _check_sp_train(ranks, bound) -> dict:
     windowed ring's past block at the raw window 511 - 1024), each at
     [B, S / 2, H, D]; Ulysses one launch of each a layer at
     [B, S, H / 2, D]; TinyLlama's remat runs each forward twice (bf16
-    GPT-2 at ``TP_BF16_LAYERS`` layers: rank 0 12 of each kernel a step,
-    rank 1 24, at [8, 512, 16, 64]; Ulysses 12 a rank at
-    [8, 1024, 8, 64]).  Prints
+    GPT-2 at ``TP_BF16_LAYERS`` layers: rank 0 one of each kernel a
+    layer a step, rank 1 two, at [8, 512, 16, 64]; Ulysses one a layer
+    a rank at [8, 1024, 8, 64]).  Prints
     the windowed ring's peak memory beside the group-less remat
     step's.  Returns the gang's launches of each path, both ranks
     summed."""
@@ -3788,33 +3795,24 @@ from polyaxon_tpu_torch.models.registry import get_model
 from polyaxon_tpu_torch.ops import flash
 from polyaxon_tpu_torch.ops.attention import sequence_parallel
 from polyaxon_tpu_torch.parallel import MeshSpec, build_mesh, make_train_step
-from polyaxon_tpu_torch.parallel.bootstrap import initialize_from_env, shutdown
+from polyaxon_tpu_torch.parallel.bootstrap import initialize_from_env
 from polyaxon_tpu_torch.parallel.moe import moe_layer
+from polyaxon_tpu_torch.parallel.pipeline import (pipelined_lm_loss,
+                                                  pipelined_lm_loss_1f1b)
 from polyaxon_tpu_torch.parallel.strategies import gather_full, local_block
 from polyaxon_tpu_torch.train import make_optimizer
 
-out_dir, steps, lr, gpt2_layers, moe_layers = (
+out_dir, steps, lr, gpt2_layers, moe_layers, llama_layers = (
     sys.argv[1], int(sys.argv[2]), float(sys.argv[3]), int(sys.argv[4]),
-    int(sys.argv[5]))
+    int(sys.argv[5]), int(sys.argv[6]))
+main_argv = sys.argv[7:]
 
-def wait(name):
-    while not os.path.exists(os.path.join(out_dir, name)):
-        time.sleep(0.05)
-
-# Imported: wait for the warm-up's file before touching the card (the
-# CUDA context, cuBLAS, the kernels' libraries and the group: 13-16 s
-# of the first run's set-up on the card), then for the phase's go.
-wait("warm")
+# Imported: wait for the go before touching the card.
+while not os.path.exists(os.path.join(out_dir, "go")):
+    time.sleep(0.05)
 topo = initialize_from_env(device="cuda")
 rank = topo.process_id
 assert dist.get_backend() == "gloo", dist.get_backend()
-from polyaxon_tpu_torch.ops import _build
-for name in _build.sources():
-    _build.load(name)
-x = torch.ones(64, 64, device="cuda")
-dist.all_reduce(x @ x)
-torch.cuda.synchronize()
-wait("go")
 shapes = set()
 real_fwd = flash._flash_forward_kernel
 
@@ -3856,15 +3854,17 @@ def nbytes(model):
                for p in model.parameters())
 
 def run(name, axes, seq, rows, layers, weights=None, sp_mode=None,
-        emulated=None, ckpt=None):
+        emulated=None, ckpt=None, schedule=None, **over):
     t_run = time.perf_counter()
     spec = get_model(name)
     model = spec.make_model(device="cuda", param_dtype=torch.float32,
-                            dtype=torch.float32, num_layers=layers).train()
+                            dtype=torch.float32, num_layers=layers,
+                            **over).train()
     if weights is None:
         if rank == 0:
             model = spec.init_params(seed=0, device="cuda", train=True,
-                                     dtype=torch.float32, num_layers=layers)
+                                     dtype=torch.float32, num_layers=layers,
+                                     **over)
     else:
         model.load_state_dict(weights)
     init = None if axes is None or rank else {
@@ -3873,8 +3873,12 @@ def run(name, axes, seq, rows, layers, weights=None, sp_mode=None,
     if emulated:
         emulate(model, *emulated)
     mesh = None if axes is None else build_mesh(MeshSpec.from_dict(axes))
-    step = make_train_step(spec.loss_fn(model),
-                           make_optimizer("adamw", lr), mesh)
+    # A pp gang trains through the pipelined loss; its group-less step
+    # through the model's own.
+    loss = spec.loss_fn(model) if schedule is None or mesh is None else (
+        pipelined_lm_loss if schedule == "gpipe"
+        else pipelined_lm_loss_1f1b)(model, mesh)
+    step = make_train_step(loss, make_optimizer("adamw", lr), mesh)
     state = step.init_state(model)
     setup_secs = time.perf_counter() - t_run
     local_bytes = nbytes(model)
@@ -3899,8 +3903,16 @@ def run(name, axes, seq, rows, layers, weights=None, sp_mode=None,
         if "aux_loss" in m:
             aux.append(float(m["aux_loss"]))
     c = counts()
-    final = {n: gather_full(model, n, t).cpu()
-             for n, t in model.state_dict().items()}
+    # Every entry of the one-process model (a pp rank holds its stage's).
+    live = model.state_dict()
+    layout = getattr(model, "pipeline_layout", None)
+    names = list(live) if layout is None else [n for n, _, _ in
+                                               layout.entries]
+    final = {}
+    for n in names:     # collective; rank 0 alone compares
+        t = gather_full(model, n, live.get(n))
+        if rank == 0:
+            final[n] = t.cpu()
     if ckpt is not None:
         t0 = time.perf_counter()
         manager = CheckpointManager(ckpt)
@@ -3911,7 +3923,8 @@ def run(name, axes, seq, rows, layers, weights=None, sp_mode=None,
            "shapes": sorted(shapes), "local_bytes": local_bytes,
            "full_bytes": full_bytes, "setup_secs": setup_secs,
            "coord": None if mesh is None else {
-               a: mesh.coordinate(a) for a in ("fsdp", "sp", "ep", "tp")},
+               a: mesh.coordinate(a) for a in ("fsdp", "pp", "sp", "ep",
+                                               "tp")},
            "secs": time.perf_counter() - t_run}
     if ckpt is not None:
         rec["ckpt_secs"] = ckpt_secs
@@ -3930,44 +3943,68 @@ def compare(got, want):
         total += d.numel()
     return worst, tight / total
 
+PIPE = ("gpt2_pp_dp", "llama_pp_dp", "llama_pp_tp", "gpt2_pp_fsdp")
 RUNS = [
-    # key, model, mesh, seq, rows, layers, sp mode, emulated (data, ep)
+    # key, model, mesh, seq, rows, layers, sp mode, emulated (data, ep),
+    # pp schedule, config overrides
     ("gpt2_fsdp_tp", "gpt2-medium", {"dp": 1, "fsdp": 2, "tp": 2}, 512, 4,
-     gpt2_layers, None, None),
+     gpt2_layers, None, None, None, {}),
     ("moe_fsdp_ep", "moe-gpt-small", {"fsdp": 2, "ep": 2}, 512, 4,
-     moe_layers, None, (2, 2)),
+     moe_layers, None, (2, 2), None, {}),
     ("moe_sp_ep", "moe-gpt-small", {"dp": 1, "sp": 2, "ep": 2}, 1024, 4,
-     moe_layers, "ring", (1, 2)),
+     moe_layers, "ring", (1, 2), None, {}),
     ("gpt2_sp_fsdp", "gpt2-medium", {"sp": 2, "fsdp": 2}, 1024, 4,
-     gpt2_layers, "ring", None),
+     gpt2_layers, "ring", None, None, {}),
+    # The pipeline (phase_pipeline_train): the dry run's legs 4-6 and
+    # pp beside fsdp, 8 x 512 tokens.
+    ("gpt2_pp_dp", "gpt2-medium", {"dp": 2, "pp": 2}, 512, 8, gpt2_layers,
+     None, None, "gpipe", {}),
+    ("llama_pp_dp", "tinyllama-1.1b", {"dp": 2, "pp": 2}, 512, 8,
+     llama_layers, None, None, "1f1b", {"remat": True}),
+    ("llama_pp_tp", "tinyllama-1.1b", {"pp": 2, "tp": 2}, 512, 8,
+     llama_layers, None, None, "1f1b", {"remat": False}),
+    ("gpt2_pp_fsdp", "gpt2-medium", {"pp": 2, "fsdp": 2}, 512, 8,
+     gpt2_layers, None, None, "1f1b", {}),
 ]
+CKPT = ("gpt2_fsdp_tp", "llama_pp_tp")
 res, pending = {}, []
 t_all = time.perf_counter()
-for key, name, axes, seq, rows, layers, mode, emulated in RUNS:
-    ckpt = os.path.join(out_dir, "ckpt") if key == "gpt2_fsdp_tp" else None
+inits = {}              # rank 0: a model's seeded weights, drawn once
+for key, name, axes, seq, rows, layers, mode, emulated, sched, over in RUNS:
+    if key == PIPE[0]:
+        t_pipe = time.perf_counter()
+    ckpt = os.path.join(out_dir, f"ckpt_{key}") if key in CKPT else None
     gang, final, init = run(name, axes, seq, rows, layers, sp_mode=mode,
-                            ckpt=ckpt)
+                            ckpt=ckpt, schedule=sched,
+                            weights=inits.get((name, layers)), **over)
     res[key] = {"gang": gang}
     if rank == 0:
-        pending.append((key, name, seq, rows, layers, emulated, final, init))
+        inits.setdefault((name, layers), init)
+        pending.append((key, name, seq, rows, layers, emulated, over,
+                        final, init))
     del final, init
     dist.barrier()
+del inits
 res["gang_secs"] = time.perf_counter() - t_all
+res["pipe_secs"] = time.perf_counter() - t_pipe
 res["backend"] = dist.get_backend()
 if rank == 0:
     # The group-less step on the same weights and batches, after the
-    # gang's runs; the fsdp x tp checkpoint restored in one process.
-    for key, name, seq, rows, layers, emulated, final, init in pending:
+    # gang's runs; the fsdp x tp and pp x tp checkpoints restored in one
+    # process.
+    for key, name, seq, rows, layers, emulated, over, final, init in \
+            pending:
         ref, ref_final, _ = run(name, None, seq, rows, layers, weights=init,
-                                emulated=emulated)
+                                emulated=emulated, **over)
         worst, tight = compare(final, ref_final)
         res[key].update(ref=ref, worst=worst, tight=tight)
-        if key == "gpt2_fsdp_tp":
+        if key in CKPT:
             t0 = time.perf_counter()
-            saved = CheckpointManager(os.path.join(out_dir, "ckpt")).restore()
+            saved = CheckpointManager(os.path.join(out_dir,
+                                                   f"ckpt_{key}")).restore()
             one = get_model(name).make_model(
                 device="cuda", param_dtype=torch.float32,
-                dtype=torch.float32, num_layers=layers)
+                dtype=torch.float32, num_layers=layers, **over)
             one.load_state_dict(saved["params"])
             res[key]["ckpt"] = {
                 "step": saved["step"],
@@ -3977,12 +4014,100 @@ if rank == 0:
                 "secs": time.perf_counter() - t0}
             del one, saved
         del ref_final
+dist.barrier()
+
+def train_main(argv):
+    # phase_pipeline_train's bf16 run: train.main in these ranks as
+    # `python -m polyaxon_tpu_torch.train ARGV` runs it (its bootstrap
+    # finds the PTPU_* group up, and leaves it on its way out), in the
+    # gang's directory; its launches and shapes, its parameter bytes at
+    # the final checkpoint.
+    import contextlib, io
+    from polyaxon_tpu_torch import checkpoint, train
+    held = {}
+    real_save = checkpoint.CheckpointManager.save
+
+    def save(self, step, state):
+        model = state["params"]
+        layout = model.pipeline_layout
+        held["bytes"] = nbytes(model)
+        held["full"] = sum(torch.Size(shape).numel() * dtype.itemsize
+                           for n, shape, dtype in layout.entries
+                           if n in layout.params)
+        held["t0"] = time.perf_counter()
+        return real_save(self, step, state)
+
+    checkpoint.CheckpointManager.save = save
+    os.environ["POLYAXON_TPU_HOME"] = os.path.join(out_dir, "home")
+    os.chdir(out_dir)
+    flash.launch_count = flash.dq_launch_count = flash.dkv_launch_count = 0
+    shapes.clear()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(argv)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    return {"rc": rc, "lines": out.getvalue().splitlines(),
+            "counts": counts(), "shapes": sorted(shapes),
+            "local_bytes": held["bytes"], "full_bytes": held["full"],
+            "secs": end - t0, "ckpt_secs": end - held["t0"]}
+
+res["main"] = train_main(main_argv)
 with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
     json.dump(res, f)
-dist.barrier()
-shutdown()
 print("ok", flush=True)
 """
+
+
+def _check_gang_run(tag, ranks, key, label, shape, launches) -> dict:
+    """One float32 run of the compose gang (``COMPOSE_STEPS`` AdamW
+    steps, lr ``TP_LR``) against its group-less step: every rank's flash
+    shapes ``[shape]`` and launches (``launches(rec)`` -> (forward passes
+    a layer, layer launches a step)), losses rel 1e-5, every parameter
+    within 2 lr a step and 99% of the elements within 2e-6; prints the
+    ``[tag]`` lines (parameter bytes and step ms a rank) and returns the
+    launches summed over the ranks."""
+    phase = f"{tag}-train {key}"
+    for r, rank in enumerate(ranks):
+        rec = rank[key]["gang"]
+        if rec["shapes"] != [shape]:
+            raise AssertionError(f"{phase} rank {r}: flash shapes "
+                                 f"{rec['shapes']}, not {[shape]}")
+        passes, per_step = launches(rec)
+        _check_per_step(rec["counts"], COMPOSE_STEPS, per_step,
+                        f"{phase} rank {r}", passes)
+    c = ranks[0][key]
+    bound = 2 * TP_LR * COMPOSE_STEPS
+    rel = max(abs(g - w) / abs(w) for g, w in
+              zip(c["gang"]["losses"], c["ref"]["losses"]))
+    if rel > 1e-5 or c["worst"] > bound or c["tight"] < 0.99:
+        raise AssertionError(
+            f"{phase} float32: losses {c['gang']['losses']} vs "
+            f"{c['ref']['losses']} (rel {rel:.3g} > 1e-5?), params max "
+            f"|d| {c['worst']:.3g} (> {bound}?), {c['tight']:.4f} within "
+            f"2e-6 (< 0.99?)")
+    full = c["ref"]["full_bytes"]
+    gangs = [rank[key]["gang"] for rank in ranks]
+    print(f"[{tag}] {label} float32, {COMPOSE_STEPS} AdamW steps (lr "
+          f"{TP_LR}): gang == group-less step: loss rel {rel:.2e}, params "
+          f"max |d| {c['worst']:.2e} ({c['tight']:.6f} within 2e-6); losses "
+          + ", ".join(f"{x:.6f}" for x in c["gang"]["losses"])
+          + (f", aux " + ", ".join(f"{x:.6f}" for x in c["gang"]["aux"])
+             if c["gang"]["aux"] else ""))
+    print(f"[{tag}] {label}: parameter bytes a rank "
+          + ", ".join(f"{g['local_bytes']}" for g in gangs)
+          + " (ranks 0-3, coordinates " + "; ".join(
+              ", ".join(f"{a} {v}" for a, v in g["coord"].items() if v)
+              or "0" for g in gangs)
+          + f") against {full} group-less ("
+          + ", ".join(f"{g['local_bytes'] / full:.4f}" for g in gangs)
+          + f"); step ms after the first, rank 0: "
+          f"{_tp_step_ms(c['gang']):.2f} against group-less "
+          f"{_tp_step_ms(c['ref']):.2f}; flash launches "
+          + ", ".join(f"{g['counts']}" for g in gangs)
+          + f" at {shape}; {card_line()}")
+    return {k: sum(g["counts"][k] for g in gangs) for k in gangs[0]["counts"]}
 
 
 def phase_compose_train(gang=None) -> dict:
@@ -4017,8 +4142,6 @@ def phase_compose_train(gang=None) -> dict:
     overlapped = max(0.0, t_phase - gang["t0"])
     ranks = _gang_results(gang, "compose-train")
     res = ranks[0]
-    bound = 2 * TP_LR * COMPOSE_STEPS
-    card = card_line()
     out = {}
     for key, label, layers, shape, ring in (
             ("gpt2_fsdp_tp", "gpt2-medium dp:1,fsdp:2,tp:2, 4 x 512",
@@ -4029,46 +4152,10 @@ def phase_compose_train(gang=None) -> dict:
              TP_MOE_F32_LAYERS, [4, 512, 12, 64], True),
             ("gpt2_sp_fsdp", "gpt2-medium sp:2,fsdp:2 ring, 4 x 1024",
              F32_LAYERS, [2, 512, 16, 64], True)):
-        for r, rank in enumerate(ranks):
-            rec = rank[key]["gang"]
-            if rec["shapes"] != [shape]:
-                raise AssertionError(f"compose-train {key} rank {r}: flash "
-                                     f"shapes {rec['shapes']}, not "
-                                     f"{[shape]}")
-            blocks = 1 + rec["coord"]["sp"] if ring else 1
-            _check_per_step(rec["counts"], COMPOSE_STEPS, layers * blocks,
-                            f"compose-train {key} rank {r}")
-        c = res[key]
-        rel = max(abs(g - w) / abs(w) for g, w in
-                  zip(c["gang"]["losses"], c["ref"]["losses"]))
-        if rel > 1e-5 or c["worst"] > bound or c["tight"] < 0.99:
-            raise AssertionError(
-                f"compose-train {label} float32: losses "
-                f"{c['gang']['losses']} vs {c['ref']['losses']} (rel "
-                f"{rel:.3g} > 1e-5?), params max |d| {c['worst']:.3g} "
-                f"(> {bound}?), {c['tight']:.4f} within 2e-6 (< 0.99?)")
-        full = c["ref"]["full_bytes"]
-        print(f"[compose] {label}, {layers} layers float32, "
-              f"{COMPOSE_STEPS} AdamW steps (lr {TP_LR}): gang == "
-              f"group-less step: loss rel {rel:.2e}, params max |d| "
-              f"{c['worst']:.2e} ({c['tight']:.6f} within 2e-6); losses "
-              + ", ".join(f"{x:.6f}" for x in c["gang"]["losses"])
-              + (f", aux " + ", ".join(f"{x:.6f}" for x in c["gang"]["aux"])
-                 if c["gang"]["aux"] else ""))
-        print(f"[compose] {label}: parameter bytes a rank "
-              + ", ".join(f"{rank[key]['gang']['local_bytes']}"
-                          for rank in ranks)
-              + f" (ranks 0-3) against {full} group-less ("
-              + ", ".join(f"{rank[key]['gang']['local_bytes'] / full:.4f}"
-                          for rank in ranks)
-              + f"); step ms after the first, rank 0: "
-              f"{_tp_step_ms(c['gang']):.2f} against group-less "
-              f"{_tp_step_ms(c['ref']):.2f}; flash launches "
-              + ", ".join(f"{rank[key]['gang']['counts']}" for rank in ranks)
-              + f" at {shape}; {card}")
-        out[f"compose_{key}"] = {
-            k: sum(rank[key]["gang"]["counts"][k] for rank in ranks)
-            for k in ranks[0][key]["gang"]["counts"]}
+        out[f"compose_{key}"] = _check_gang_run(
+            "compose", ranks, key, f"{label}, {layers} layers", shape,
+            lambda rec, layers=layers, ring=ring: (
+                1, layers * (1 + rec["coord"]["sp"] if ring else 1)))
     ck = res["gpt2_fsdp_tp"]["ckpt"]
     if not ck["equal"] or ck["groups"] != 1 or ck["step"] != COMPOSE_STEPS:
         raise AssertionError(f"compose-train: the fsdp x tp checkpoint "
@@ -4079,14 +4166,17 @@ def phase_compose_train(gang=None) -> dict:
           f"(one optimizer group), parameters == the gang's gathered ones")
     print(f"[time] compose-train: {time.perf_counter() - t_phase:.1f} s "
           f"(the ranks started {overlapped:.1f} s before, beside the "
-          f"phases then running; the gang's runs {res['gang_secs']:.1f} s, "
-          f"rank 0's: " + ", ".join(
+          f"phases then running; the gang's runs "
+          f"{res['gang_secs'] - res['pipe_secs']:.1f} s, then "
+          f"phase_pipeline_train's float32 runs {res['pipe_secs']:.1f} s "
+          f"and train.main {res['main']['secs']:.1f} s; rank 0's: "
+          + ", ".join(
               f"{k} gang {res[k]['gang']['secs']:.1f} s (set-up "
               f"{res[k]['gang']['setup_secs']:.1f} s), group-less "
               f"{res[k]['ref']['secs']:.1f} s" for k in (
                   "gpt2_fsdp_tp", "moe_fsdp_ep", "moe_sp_ep",
                   "gpt2_sp_fsdp")) + ")")
-    return {"flash_launches": out,
+    return {"flash_launches": out, "ranks": ranks,
             "step_ms": {k: _tp_step_ms(res[k]["gang"]) for k in (
                 "gpt2_fsdp_tp", "moe_fsdp_ep", "moe_sp_ep",
                 "gpt2_sp_fsdp")}}
@@ -4094,10 +4184,148 @@ def phase_compose_train(gang=None) -> dict:
 
 def _start_compose_gang() -> dict:
     """``phase_compose_train``'s four rank processes
-    (:func:`_start_gang`)."""
-    return _start_gang(COMPOSE_RANK, 4, [COMPOSE_STEPS, TP_LR,
-                                         F32_LAYERS, TP_MOE_F32_LAYERS],
-                       "ptpu_compose_")
+    (:func:`_start_gang`), which run ``phase_pipeline_train``'s checks
+    too: its float32 runs, then ``train.main`` of GPT-2 medium at full
+    depth, ``--strategy pp:2`` (1F1B; dp 2 fills the four ranks), 8 x
+    1024, bf16."""
+    return _start_gang(COMPOSE_RANK, 4, [
+        COMPOSE_STEPS, TP_LR, F32_LAYERS, TP_MOE_F32_LAYERS,
+        LLAMA_F32_LAYERS, "--model", "gpt2-medium", "--steps", PIPE_STEPS,
+        "--log-every", 1, "--batch-size", 8, "--strategy", "pp:2"],
+        "ptpu_compose_")
+
+
+PIPE_STEPS = 2              # bf16 train.main steps of the pipeline run
+
+
+def _pipe_launches(schedule: str, micros: int, layers: int,
+                   remat: bool) -> tuple:
+    """(forward passes a layer, layer-micros) of a pp rank's step, from
+    the schedule: every micro through the rank's ``layers`` blocks, the
+    forward once (GPipe keeps its graph) or twice (1F1B's backward slot
+    re-runs it), once more each under remat; dq and dkv once."""
+    return (1 if schedule == "gpipe" else 2) + int(remat), micros * layers
+
+
+def phase_pipeline_train(compose_ranks, groupless_ms: float) -> dict:
+    """Pipeline parallelism in training on the card (the dry run's legs
+    4-6 and pp beside fsdp).
+
+    1. float32, in ``phase_compose_train``'s four ranks (gloo on
+       ``cuda:0``), ``COMPOSE_STEPS`` AdamW steps of 8 x 512 tokens each
+       against the group-less step on the same weights and batches, with
+       its tolerances: GPT-2 medium (``F32_LAYERS`` layers) at
+       ``dp:2,pp:2`` on GPipe and at ``pp:2,fsdp:2`` on 1F1B; TinyLlama's
+       width (``LLAMA_F32_LAYERS`` layers) at ``dp:2,pp:2`` on 1F1B under
+       remat and at ``pp:2,tp:2`` on 1F1B, whose collective checkpoint
+       is restored in one process.  4 microbatches a step (2 pp); each
+       rank's flash launches and shapes as the schedule gives them
+       (:func:`_pipe_launches`), so a quiet plain-attention fallback
+       fails; each rank's parameter bytes against the group-less
+       model's.
+    2. then, in the same four ranks as the PTPU_* block started them,
+       bf16 GPT-2 medium at full depth through ``train.main --strategy
+       pp:2`` (``pp:2,dp:2``, 1F1B, 8 x 1024, ``PIPE_STEPS`` steps):
+       equal losses on every rank, the launches and shapes a rank,
+       parameter bytes, and the last step's ms a rank against
+       ``groupless_ms`` (``phase_train_timed``'s group-less step on the
+       same batch shape).
+    Four ranks on one card over a host-staged gloo group measure
+    correctness and the layout's cost, not scaling; they run beside the
+    script's phases from ``phase_mesh`` on (``main``), so their step ms
+    are taken beside those.  Prints ``[pipeline]`` lines and ``[time]
+    pipeline-train``."""
+    res = compose_ranks[0]
+    card = card_line()
+    out = {}
+    for key, label, layers, shape, schedule, remat in (
+            ("gpt2_pp_dp", "gpt2-medium dp:2,pp:2 GPipe", F32_LAYERS,
+             [1, 512, 16, 64], "gpipe", False),
+            ("llama_pp_dp", f"{LLAMA} width dp:2,pp:2 1F1B under remat",
+             LLAMA_F32_LAYERS, [1, 512, 32, 64], "1f1b", True),
+            ("llama_pp_tp", f"{LLAMA} width pp:2,tp:2 1F1B",
+             LLAMA_F32_LAYERS, [2, 512, 16, 64], "1f1b", False),
+            ("gpt2_pp_fsdp", "gpt2-medium pp:2,fsdp:2 1F1B", F32_LAYERS,
+             [1, 512, 16, 64], "1f1b", False)):
+        launches = _pipe_launches(schedule, 4, layers // 2, remat)
+        out[f"pipeline_{key}"] = _check_gang_run(
+            "pipeline", compose_ranks, key,
+            f"{label}, {layers} layers, 8 x 512, 4 microbatches ("
+            f"{launches[0]} x {launches[1]} forward, {launches[1]} dq and "
+            f"dkv a step)", shape, lambda rec, launches=launches: launches)
+    ck = res["llama_pp_tp"]["ckpt"]
+    if not ck["equal"] or ck["groups"] != 1 or ck["step"] != COMPOSE_STEPS:
+        raise AssertionError(f"pipeline-train: the pp x tp checkpoint "
+                             f"restored in one process: {ck}")
+    print(f"[pipeline] the pp:2,tp:2 gang's checkpoint (saved in "
+          f"{res['llama_pp_tp']['gang']['ckpt_secs']:.1f} s: each stage's "
+          f"blocks from their pp rank) restored in one process in "
+          f"{ck['secs']:.1f} s: the one-process layout (one optimizer "
+          f"group), parameters == the gang's gathered ones")
+    mains = [rank["main"] for rank in compose_ranks]
+    passes, per_step = _pipe_launches("1f1b", 4, 12, False)
+    losses, step_ms = [], []
+    for r, m in enumerate(mains):
+        lines = [ln for ln in m["lines"] if ln.startswith("step ")]
+        got = [float(re.search(r"loss=(\S+)", ln).group(1))
+               for ln in lines]
+        tps = float(re.search(r"tok_per_sec_per_chip=(\S+)",
+                              lines[-1]).group(1))
+        # tok/s a chip over the last step, 4 ranks: its wall ms.
+        step_ms.append(8 * 1024 / (tps * 4) * 1e3)
+        if m["rc"] != 0 or len(got) != PIPE_STEPS or \
+                not all(np.isfinite(got)) or \
+                m["shapes"] != [[1, 1024, 16, 64]]:
+            raise AssertionError(f"pipeline-train train.main rank {r}: "
+                                 f"rc {m['rc']}, losses {got}, shapes "
+                                 f"{m['shapes']}\n" + "\n".join(m["lines"]))
+        _check_per_step(m["counts"], PIPE_STEPS, per_step,
+                        f"pipeline-train train.main rank {r}", passes)
+        losses.append(got)
+    if any(g != losses[0] for g in losses):
+        raise AssertionError(f"pipeline-train train.main: the ranks' "
+                             f"losses differ: {losses}")
+    for line in mains[0]["lines"]:
+        print(f"[pipeline] train.main rank 0: {line}")
+    print(f"[pipeline] bf16 gpt2-medium 24 layers, train.main --strategy "
+          f"pp:2 (dp:2,pp:2 on four ranks, 1F1B, 4 microbatches of 1 x "
+          f"1024 a data rank), 8 x 1024, {PIPE_STEPS} steps: losses "
+          + ", ".join(f"{x:.4f}" for x in losses[0])
+          + " on every rank; step ms of the last step a rank (beside the "
+          "phases then running) " + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f" against the group-less step's {groupless_ms:.1f} "
+          f"(phase_train_timed, same batch, alone); parameter bytes a rank "
+          + ", ".join(f"{m['local_bytes']}" for m in mains)
+          + f" (float32 masters) against the whole model's "
+          f"{mains[0]['full_bytes']} ("
+          + ", ".join(f"{m['local_bytes'] / m['full_bytes']:.4f}"
+                      for m in mains) + "); "
+          f"flash launches a rank " + ", ".join(f"{m['counts']}"
+                                               for m in mains)
+          + f" at [1, 1024, 16, 64] ({passes} x {per_step} forward, "
+          f"{per_step} dq and dkv a step); train.main "
+          + ", ".join(f"{m['secs']:.1f}" for m in mains)
+          + f" s a rank (the final checkpoint {mains[0]['ckpt_secs']:.1f} "
+          f"s); {card}")
+    out["pipeline_train_main"] = {k: sum(m["counts"][k] for m in mains)
+                                  for k in mains[0]["counts"]}
+    print(f"[time] pipeline-train: {res['pipe_secs'] + mains[0]['secs']:.1f}"
+          f" s of phase_compose_train's ranks' run (the float32 runs "
+          f"{res['pipe_secs']:.1f} s, train.main {mains[0]['secs']:.1f} "
+          f"s on rank 0)")
+    return {"flash_launches": out,
+            "step_ms": {"gpt2 pp2 dp2 train.main": float(np.mean(step_ms)),
+                        "gpt2": groupless_ms}}
+
+
+def phases_compose_and_pipeline() -> dict:
+    """``phase_compose_train`` and ``phase_pipeline_train`` alone, as
+    the script runs them (the group-less GPT-2 step from
+    ``phase_train_timed``)."""
+    phase_build()
+    timed = phase_train_timed()
+    compose = phase_compose_train()
+    return phase_pipeline_train(compose.pop("ranks"), timed["step_ms"])
 
 
 def _grads(model, tokens, loss_fn):
@@ -5390,7 +5618,7 @@ def _int8_f32_check(model_f32, name: str) -> dict:
     from polyaxon_tpu_torch.serving import ModelServer
 
     model_f32 = _cut_draft(model_f32, name, F32_LAYERS)
-    draft = quantize_params(_cut_draft(model_f32, name, 4))
+    draft = quantize_params(_cut_draft(model_f32, name, F32_LAYERS))
     qf = quantize_params(model_f32)
     vocab = model_f32.cfg.vocab_size
     rng = np.random.RandomState(11)
@@ -7321,10 +7549,14 @@ def _pool_bytes(pool) -> int:
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
+MESH_BF16_NEW = 32          # new tokens of the bf16 meshed rounds
+
+
 def _mesh_bf16(model) -> dict:
     """bf16, GPT-2 medium at all 24 layers, tp = 2 against unmeshed: the
     HTTP loads' first 8 requests (prompts 64-512 from seed 0, every odd
-    one sampled, 64 new) twice through each engine (8 slots).  Rows
+    one sampled, ``MESH_BF16_NEW`` new) twice through each engine (8
+    slots).  Rows
     equal to the unmeshed run (a count: bf16 near-ties are known), the
     captures of the second round (0 expected) against the unmeshed
     engine's, the decode step (the W=8 greedy replay's ms / 8, the
@@ -7338,10 +7570,11 @@ def _mesh_bf16(model) -> dict:
             for i, m in enumerate(lens)][:8]
     rec = {}
     for mesh in (None, "tp=2"):
-        _, eng = _mesh_engine(model, reqs, mesh, paged=False, new=64,
-                              n_slots=8, prefill_chunk=256)
+        _, eng = _mesh_engine(model, reqs, mesh, paged=False,
+                              new=MESH_BF16_NEW, n_slots=8,
+                              prefill_chunk=256)
         warm = eng.sentinel.misses
-        toks = _mesh_round(eng, reqs, 64)
+        toks = _mesh_round(eng, reqs, MESH_BF16_NEW)
         steady = eng.sentinel.misses - warm
         pool = eng.slots
         if (8, False) not in pool._graphs:
@@ -7360,7 +7593,7 @@ def _mesh_bf16(model) -> dict:
              for a, b in zip(base["tokens"], meshed["tokens"]) if a != b]
     share = [b / base["shard_bytes"][0] for b in meshed["shard_bytes"]]
     print(f"[mesh-serve] bf16 gpt2-medium (24 layers) tp=2 vs unmeshed, 8 "
-          f"requests x 64 new: {equal}/8 rows equal (the others part at "
+          f"requests x {MESH_BF16_NEW} new: {equal}/8 rows equal (the others part at "
           f"new token {first}); decode step (W=8 "
           f"greedy replay / 8) {meshed['step_ms']:.3f} ms meshed, "
           f"{base['step_ms']:.3f} ms unmeshed; captures warm {meshed['captures_warm']} / steady "
@@ -7703,63 +7936,70 @@ def main(argv=None) -> int:
     _release()
     train_counts, train_secs = phase_train_entry()
     mark("train.main and checkpoint serving")
-    phase_train_timed()
+    timed = phase_train_timed()
     mark("timed training")
     _release()
-    # phase_tp_train's and phase_compose_train's ranks import while
-    # phase_mesh runs.
+    # phase_tp_train's ranks import while phase_mesh runs.
+    # phase_compose_train's ranks, and phase_pipeline_train's runs in
+    # them, run from here beside the phases up to the named remat
+    # policy's, and are collected after it, for the script's time:
+    # the step ms of those phases and of the compose
+    # gang's runs are taken beside each other.
     tp_gang = _start_tp_gang()
     compose_gang = _start_compose_gang()
     try:
-        mesh = phase_mesh()
-        mark("mesh: one-rank NCCL group, dp and fsdp steps")
-        _release()
-        # The compose ranks start their CUDA contexts and group beside
-        # phase_tp_train's float32 checks (its bf16 timings come later).
-        _warm_gang(compose_gang)
-        tp_train = phase_tp_train(tp_gang)
+        _release_gang(compose_gang)
+        try:
+            mesh = phase_mesh()
+            mark("mesh: one-rank NCCL group, dp and fsdp steps")
+            _release()
+            tp_train = phase_tp_train(tp_gang)
+        finally:
+            _stop_gang(tp_gang)
         mark("tp / ep / sp training: a two-rank gloo gang on the one card")
+        phase_grad_route()
+        mark("gradient route check")
+        _release()
+        zoo = phase_zoo()
+        try:
+            zoo_rest = phase_zoo_rest()
+        finally:
+            zoo["mnist run -f"] = _finish_mnist(zoo["mnist run -f"])
+        mark("zoo: bert-base, resnet50, moe-gpt-small, t5-small, vit-base, "
+             "--init-hf, and beside them mnist run -f")
+        model, model_f32 = llama_models()
+        mark("llama init")
+        llama_forward = phase_forward(model, model_f32, LLAMA, 2048,
+                                      "llama forward", min_agree_bf16=0.8)
+        mark("llama forward")
+        phase_serving(model, model_f32, LLAMA, tag="llama", profile=False)
+        mark("llama generate")
+        llama_step_ms, llama_http = phase_llama_serving(model, model_f32)
+        mark("llama http serving")
+        llama_prefix = phase_llama_prefix(model_f32)
+        mark("llama prefix cache")
+        llama_spec = phase_llama_speculative(model_f32)
+        mark("llama speculative decoding")
+        int8_llama = phase_int8_llama(model)
+        mark("llama int8")
+        ring = phase_ring(model)
+        mark("ring cache")
+        del model
+        weights = model_f32.state_dict()
+        del model_f32
+        _release()
+        llama_train = phase_llama_train(weights)
+        mark("llama timed training")
+        llama_remat = phase_zoo_remat(weights, llama_train)
+        mark("zoo: llama named remat policy")
         compose = phase_compose_train(compose_gang)
     finally:
-        _stop_gang(tp_gang)
         _stop_gang(compose_gang)
-    mark("composed meshes: fsdp x tp, fsdp x ep, sp x ep, sp x fsdp on a "
-         "four-rank gloo gang on the one card")
-    phase_grad_route()
-    mark("gradient route check")
-    _release()
-    zoo = phase_zoo()
-    try:
-        zoo_rest = phase_zoo_rest()
-    finally:
-        zoo["mnist run -f"] = _finish_mnist(zoo["mnist run -f"])
-    mark("zoo: bert-base, resnet50, moe-gpt-small, t5-small, vit-base, "
-         "--init-hf, and beside them mnist run -f")
-    model, model_f32 = llama_models()
-    mark("llama init")
-    llama_forward = phase_forward(model, model_f32, LLAMA, 2048,
-                                  "llama forward", min_agree_bf16=0.8)
-    mark("llama forward")
-    phase_serving(model, model_f32, LLAMA, tag="llama", profile=False)
-    mark("llama generate")
-    llama_step_ms, llama_http = phase_llama_serving(model, model_f32)
-    mark("llama http serving")
-    llama_prefix = phase_llama_prefix(model_f32)
-    mark("llama prefix cache")
-    llama_spec = phase_llama_speculative(model_f32)
-    mark("llama speculative decoding")
-    int8_llama = phase_int8_llama(model)
-    mark("llama int8")
-    ring = phase_ring(model)
-    mark("ring cache")
-    del model
-    weights = model_f32.state_dict()
-    del model_f32
-    _release()
-    llama_train = phase_llama_train(weights)
-    mark("llama timed training")
-    llama_remat = phase_zoo_remat(weights, llama_train)
-    mark("zoo: llama named remat policy")
+    mark("composed meshes and the pipeline: fsdp x tp, fsdp x ep, sp x "
+         "ep, sp x fsdp, pp beside dp, fsdp and tp, and train.main "
+         "--strategy pp:2 on a four-rank gloo gang on the one card, beside "
+         "the phases since phase_mesh")
+    pipeline = phase_pipeline_train(compose.pop("ranks"), timed["step_ms"])
     # The ConvNet sweep's trial processes start up while the last
     # checks, which time nothing the findings compare, run in-process,
     # and end beside the job and the service of phase_run.
@@ -7817,6 +8057,8 @@ def main(argv=None) -> int:
                    tp_train["flash_launches"].items()},
                 **{k: v[name] for k, v in
                    compose["flash_launches"].items()},
+                **{k: v[name] for k, v in
+                   pipeline["flash_launches"].items()},
                 "run_job": run_counts["run_job"][name],
                 "run_service": run_counts["run_service"][name],
                 "llama_forward": llama_forward[name],

@@ -21,7 +21,10 @@ Port of ``polyaxon_tpu/checkpoint.py`` (Orbax there):
   full state in the layout a one-process run writes (the optimizer's
   groups merged into one), so one process, or ``serve --checkpoint``,
   restores what a gang wrote and a gang restores on every rank what one
-  process wrote, each rank keeping its shard on both axes.  SIGTERM at
+  process wrote, each rank keeping its shard on both axes.  A model
+  split over pp (``strategies.keep_stage_blocks``) saves each stage's
+  blocks from the pp rank that holds them (gathered over fsdp and tp on
+  that stage first), and restores on each pp rank only its own.  SIGTERM at
   any rank stops every rank after the same step
   (``preemption_agreed``, a vote on the gang's host-side group).
 
@@ -98,7 +101,13 @@ def _is_sharded_state(state: Any) -> bool:
     return isinstance(state, dict) and \
         isinstance(state.get("params"), torch.nn.Module) and \
         (isinstance(state["params"], FSDPModule) or
-         bool(_tensor_shards(state)))
+         bool(_tensor_shards(state)) or
+         _layout(state["params"]) is not None)
+
+
+def _layout(model):
+    """The pipeline layout of a model split over pp, else None."""
+    return getattr(model, "pipeline_layout", None)
 
 
 def _tensor_shards(state: Any) -> dict:
@@ -111,7 +120,11 @@ def _tensor_shards(state: Any) -> dict:
 
 def _param_names(model) -> list:
     """The trainable parameters' names, in the order a one-process
-    optimizer indexes them (``TrainStep.init_state``)."""
+    optimizer indexes them (``TrainStep.init_state``); a model split
+    over pp names its other stages' too."""
+    layout = _layout(model)
+    if layout is not None:
+        return list(layout.params)
     return [n for n, p in model.named_parameters() if p.requires_grad]
 
 
@@ -130,7 +143,13 @@ def _sharded_to_host(state: dict) -> dict:
         t = gather_full(model, name, t)
         return t.detach().to("cpu", copy=True) if host else None
 
-    msd = {name: full(name, t) for name, t in model.state_dict().items()}
+    live = model.state_dict()
+    layout = _layout(model)
+    order = list(live) if layout is None else \
+        [name for name, _, _ in layout.entries]
+    # Every rank walks the whole model in one order; a pp rank passes
+    # None for the blocks another stage holds.
+    msd = {name: full(name, live.get(name)) for name in order}
     osd = opt.state_dict()
     groups = osd["param_groups"]
     hyper = {k: v for k, v in groups[0].items() if k != "params"}
@@ -139,15 +158,25 @@ def _sharded_to_host(state: dict) -> dict:
         raise ValueError("checkpoint: optimizer groups differ in "
                          "hyperparameters")
     names = _opt_names(model, opt)
-    index = {n: i for i, n in enumerate(_param_names(model))}
-    state_ = {index[names[i]]: {
-        k: full(names[i], v) if isinstance(v, torch.Tensor) and v.dim()
-        else v for k, v in st.items()} for i, st in osd["state"].items()}
+    by_name = {names[i]: st for i, st in osd["state"].items()}
+    # Another stage's parameter: its state holds the same keys as this
+    # rank's first one.
+    like = next(iter(by_name.values()), None) if layout is not None \
+        else None
+    state_ = {}
+    for i, name in enumerate(_param_names(model)):
+        st = by_name.get(name, like)
+        if st is not None:
+            state_[i] = {k: full(name, by_name[name][k] if name in by_name
+                                 else None)
+                         if isinstance(v, torch.Tensor) and v.dim() else v
+                         for k, v in st.items()}
     out = _to_host({k: v for k, v in state.items()
                     if k not in ("params", "opt_state")})
     out.update(params=msd, opt_state={
         "state": state_,
-        "param_groups": [{**hyper, "params": sorted(index.values())}]})
+        "param_groups": [{**hyper, "params": list(range(
+            len(_param_names(model))))}]})
     return out
 
 
@@ -178,9 +207,12 @@ def _load_sharded(state: dict, saved: dict) -> None:
 
     model, opt = state["params"], state["opt_state"]
     live = model.state_dict()
-    if live.keys() != saved["params"].keys():
+    layout = _layout(model)
+    names = live.keys() if layout is None else \
+        {name for name, _, _ in layout.entries}
+    if names != saved["params"].keys():
         raise KeyError(f"checkpoint does not match the model: "
-                       f"{sorted(live.keys() ^ saved['params'].keys())}")
+                       f"{sorted(names ^ saved['params'].keys())}")
     with torch.no_grad():
         for name, t in live.items():
             local_block(t).copy_(

@@ -8,16 +8,15 @@ Port of ``polyaxon_tpu/parallel``:
 - ``collectives``: differentiable collectives over mesh axes.
 - ``health``:      the slice health probe.
 - ``constraints``: the ambient mesh and the serving-exact mesh.
-- ``strategies``:  the train step on one device, dp, fsdp, tp, ep and
-                   sp.
+- ``strategies``:  the train step on one device, dp, fsdp, tp, ep, sp
+                   and pp.
+- ``pipeline``:    GPipe and 1F1B schedules over pp.
 - ``moe``:         switch routing and ``moe_layer`` over ep.
 - ``ring``:        ring attention (K/V rotation over the sp axis).
 - ``ulysses``:     all-to-all head / sequence resharding attention.
 
 ``constraints`` also carries the serving-exact mesh of
 ``serving/meshed.py`` (tensor and expert parallelism in serving).
-Pipeline parallelism comes with a later slice (ROADMAP Queue 1:
-Parallelism and meshes, item (d)).
 """
 
 from .bootstrap import initialize_from_env, topology_from_env
@@ -40,6 +39,7 @@ from .mesh import (
     replicate_sharding,
 )
 from .moe import moe_layer, top1_dispatch
+from .pipeline import pipeline_apply
 from .ring import ring_attention
 from .strategies import (
     TrainStep,
@@ -55,7 +55,7 @@ __all__ = [
     "build_mesh", "check_slice_health", "constrain", "current_mesh",
     "data_sharding", "hierarchical_all_reduce", "infer_param_spec",
     "initialize_from_env", "local_mesh", "make_param_placements",
-    "make_train_step", "moe_layer", "reduce_scatter",
+    "make_train_step", "moe_layer", "pipeline_apply", "reduce_scatter",
     "replicate_sharding", "ring_attention", "ring_permute",
     "top1_dispatch", "topology_from_env", "ulysses_attention",
 ]

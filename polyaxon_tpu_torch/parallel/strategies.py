@@ -60,9 +60,20 @@ and ep sizes above 1 need a gang).
   tp rank's rows).  sp beside fsdp or ep runs each sp coordinate's own
   fsdp and ep groups: the sp ranks hold equal rows and gradients.
 
-A pipeline axis above 1 is refused by the ROADMAP item that carries it
-(:func:`pipeline_refusal`); ``precompile`` (AOT compilation) has no
-eager counterpart.
+- **pp**: the reference's pp rule (:func:`make_stage_placements`) puts
+  a stacked block leaf's layer axis over pp: block i lives on pp rank
+  ``i // (num_layers / pp)``.  Each rank keeps only its stage's blocks
+  (:func:`keep_stage_blocks`; the others become :class:`RemoteBlock`
+  stand-ins without parameters, so the optimizer holds only their
+  state) and the embedding, the final norm and the head whole; tp
+  shards and the fsdp wrap then apply to what it keeps.  The pipelined
+  losses (``pipeline.py``) leave each pp rank its share of a parameter
+  replicated over pp, which the step sums over pp; a block's squares
+  sum over pp in ``grad_norm``.  pp composes with dp, fsdp and tp; sp
+  or ep beside it is refused with the reference's message
+  (:func:`pipeline_refusal`).
+
+``precompile`` (AOT compilation) has no eager counterpart.
 """
 
 from __future__ import annotations
@@ -78,10 +89,6 @@ from ..models.layers import batch_stats
 from .collectives import data_all_reduce_mean
 from .constraints import ambient_mesh
 from .mesh import MeshError, MeshSpec, build_mesh, data_sharding
-
-PARALLELISM_REFUSAL = (
-    "pipeline parallelism in training comes with a later slice of the "
-    "port (ROADMAP Queue 1: Parallelism and meshes, item (d))")
 
 # Flat gradient buckets of the dp all-reduce.
 BUCKET_BYTES = 25 * 2 ** 20
@@ -107,9 +114,9 @@ TP_RULES: List[Tuple[str, tuple]] = [
 ]
 
 def pipeline_refusal(sizes: Dict[str, int]) -> Optional[str]:
-    """Why a mesh of axis ``sizes`` cannot train, or None: a pp axis
-    above 1, with the reference's own message first where the pipeline
-    meets an sp or ep axis above 1."""
+    """Why a mesh of axis ``sizes`` cannot train, or None: the
+    reference's message for a pp axis above 1 beside an sp or ep axis
+    above 1 (its pipeline composes with the batch axes and tp only)."""
     if int(sizes.get("pp", 1)) <= 1:
         return None
     for axis in ("sp", "ep"):
@@ -117,11 +124,11 @@ def pipeline_refusal(sizes: Dict[str, int]) -> Optional[str]:
             return (f"strategy combines pp>1 with {axis}>1, which is not "
                     f"supported: pipeline stages compose with dp/fsdp "
                     f"(batch) and tp (tensor) axes only")
-    return PARALLELISM_REFUSAL
+    return None
 
 
 def check_mesh(mesh) -> None:
-    """Refuse a mesh whose pp axis is above 1 (:func:`pipeline_refusal`)."""
+    """Refuse a mesh :func:`pipeline_refusal` refuses."""
     refusal = pipeline_refusal(mesh.shape)
     if refusal is not None:
         raise NotImplementedError(
@@ -153,17 +160,34 @@ def _names(entry) -> tuple:
     return entry if isinstance(entry, tuple) else ((entry,) if entry else ())
 
 
+# A scanned block stack's path ("h/block/...", "layers/layer/..."): with
+# pipeline parallelism its leaves' layer axis goes over pp.
+_STACK_RE = re.compile(r"(^|/)(h|layers)/")
+# The port's unrolled name of a stacked block ("h_3/", "layer_3/").
+_UNROLLED_RE = re.compile(r"(^|/)(h|layer)_\d+/")
+
+
+def _stacked_path(path: str) -> str:
+    """The reference's path of a scanned block's leaf: ``h_3/qkv/kernel``
+    -> ``h/qkv/kernel``, ``layer_3/...`` -> ``layers/...``."""
+    return _UNROLLED_RE.sub(
+        lambda m: m.group(1) + ("h" if m.group(2) == "h" else "layers") +
+        "/", path)
+
+
 def infer_param_spec(path: str, shape, *, tp: bool = False,
                      ep: bool = False, fsdp: bool = False,
+                     pp: bool = False,
                      fsdp_min_size: int = 2 ** 16) -> tuple:
-    """The reference's ``infer_param_spec`` without its pp branch: the
-    spec (one entry a dim) of the flax leaf at ``path``
-    (``"h_3/attn/qkv/kernel"``) of ``shape``, in the flax layout (a
-    scanned block's leaf with its layer axis first).  The first
-    :data:`TP_RULES` match, right-aligned on the leaf's trailing dims;
-    then, unless a rule placed fsdp, a leaf of at least
-    ``fsdp_min_size`` elements puts fsdp on its largest still-unsharded
-    dim, the trailing two (the matmul dims) first."""
+    """The reference's ``infer_param_spec``: the spec (one entry a dim)
+    of the flax leaf at ``path`` (``"h/block/attn/qkv/kernel"``) of
+    ``shape``, in the flax layout (a scanned block's leaf with its layer
+    axis first).  The first :data:`TP_RULES` match, right-aligned on the
+    leaf's trailing dims; with ``pp``, a leaf of a scanned stack
+    (``h/`` or ``layers/``, two dims or more) puts pp on its layer axis
+    when no rule took it; then, unless a rule placed fsdp, a leaf of at
+    least ``fsdp_min_size`` elements puts fsdp on its largest
+    still-unsharded dim, the trailing two (the matmul dims) first."""
     shape = tuple(int(d) for d in shape)
     spec = [None] * len(shape)
     if tp or ep:
@@ -174,6 +198,9 @@ def infer_param_spec(path: str, shape, *, tp: bool = False,
                     if len(cand) <= len(shape) \
                     else cand[len(cand) - len(shape):]
                 break
+    if pp and len(shape) >= 2 and spec[0] is None and \
+            _STACK_RE.search(path):
+        spec[0] = "pp"
     if fsdp and not any("fsdp" in _names(e) for e in spec) and \
             math.prod(shape or (1,)) >= fsdp_min_size:
         n = len(shape)
@@ -233,6 +260,7 @@ def make_placements(model: torch.nn.Module, mesh, *,
     if not active:
         return {name: (None, None) for name, _ in model.named_parameters()}
     paths = reference_paths(model)
+    pp = sizes.get("pp", 1) > 1
     stacks = _stack_sizes(model) if "fsdp" in active else {}
     out: Dict[str, Placement] = {}
     for name, p in model.named_parameters():
@@ -245,9 +273,9 @@ def make_placements(model: torch.nn.Module, mesh, *,
         lead = (layers,) if layers > 1 else ()
         full = lead + tuple(p.shape[perm[i]] for i in range(p.dim()))
         spec = _drop_indivisible(infer_param_spec(
-            path, full, tp="tp" in active, ep="ep" in active,
-            fsdp="fsdp" in active, fsdp_min_size=fsdp_min_size),
-            full, sizes)
+            _stacked_path(path) if lead else path, full,
+            tp="tp" in active, ep="ep" in active, fsdp="fsdp" in active,
+            pp=pp, fsdp_min_size=fsdp_min_size), full, sizes)
         tensor = fsdp = None
         for i, entry in enumerate(spec[len(lead):]):
             names = [a for a in _names(entry) if a in active]
@@ -280,6 +308,116 @@ def _stack_sizes(model: torch.nn.Module) -> Dict[str, int]:
             for name, lst in model.named_modules()
             if isinstance(lst, torch.nn.ModuleList)
             for i in range(len(lst))}
+
+
+def make_stage_placements(model: torch.nn.Module, mesh
+                          ) -> Dict[str, Optional[int]]:
+    """name -> the pp rank holding each parameter of ``model``, None for
+    one replicated over pp: the reference's pp rule
+    (:func:`infer_param_spec` with ``pp`` on the stacked leaf of a block
+    of a scanned stack) puts the stack's layer axis over pp, so block i
+    lives on pp rank ``i // (num_layers / pp)``.  Every parameter is None
+    with pp at 1 or a stack whose depth pp does not divide."""
+    from ..convert import reference_paths
+
+    pp = mesh.shape.get("pp", 1)
+    if pp <= 1:
+        return {name: None for name, _ in model.named_parameters()}
+    paths = reference_paths(model)
+    stacks = _stack_sizes(model)
+    out: Dict[str, Optional[int]] = {}
+    for name, p in model.named_parameters():
+        prefix = next((pre for pre in stacks if name.startswith(pre)), None)
+        owner = None
+        if prefix is not None:
+            layers = stacks[prefix]
+            full = (layers,) + tuple(p.shape)
+            spec = _drop_indivisible(infer_param_spec(
+                _stacked_path(paths[name][0]), full, pp=True), full,
+                {"pp": pp})
+            if spec[0] == "pp":
+                block = int(prefix[:-1].rpartition(".")[2])
+                owner = block // (layers // pp)
+        out[name] = owner
+    return out
+
+
+class RemoteBlock(torch.nn.Module):
+    """The stand-in for block ``index`` of a layer list on a pp rank
+    that does not hold it (:func:`keep_stage_blocks`): no parameters."""
+
+    def __init__(self, index: int, owner: int):
+        super().__init__()
+        self.index, self.owner = index, owner
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError(
+            f"block {self.index} lives on pp rank {self.owner}: a model "
+            f"split over pp runs through a pipelined loss "
+            f"(parallel/pipeline.py)")
+
+
+class PipelineLayout:
+    """What a pp rank of a model split over pp knows of the whole model:
+    the one-process state dict's entries in order (name, shape, dtype),
+    the trainable parameters' names in a one-process optimizer's order,
+    and the pp rank holding each stage entry (``owner``).  A collective
+    checkpoint gathers the blocks from their owners through it."""
+
+    def __init__(self, model: torch.nn.Module, mesh,
+                 owner: Dict[str, int]):
+        self.mesh = mesh
+        self.entries = [(n, tuple(t.shape), t.dtype)
+                        for n, t in model.state_dict().items()]
+        self.params = [n for n, p in model.named_parameters()
+                       if p.requires_grad]
+        self.owner = owner
+        self._like = {n: (shape, dtype) for n, shape, dtype in self.entries}
+
+    def from_owner(self, name: str,
+                   full: Optional[torch.Tensor]) -> torch.Tensor:
+        """Collective over the pp group: stage entry ``name``'s whole
+        tensor (or a tensor shaped like it), ``full`` on its owner
+        (None on the other pp ranks), broadcast to every pp rank."""
+        import torch.distributed as dist
+
+        group = self.mesh.group("pp")
+        if full is None:
+            shape, dtype = self._like[name]
+            full = torch.empty(shape, dtype=dtype, device=self.mesh.device)
+        full = full.contiguous()
+        dist.broadcast(full, src=dist.get_global_rank(
+            group, self.owner[name]), group=group)
+        return full
+
+
+def keep_stage_blocks(model: torch.nn.Module, mesh
+                      ) -> Optional[PipelineLayout]:
+    """Keep this pp rank's stage blocks (:func:`make_stage_placements`)
+    in place: every other block of the layer lists becomes a
+    :class:`RemoteBlock`.  Sets and returns ``model.pipeline_layout``
+    (None, and nothing changed, when no parameter goes over pp)."""
+    stages = make_stage_placements(model, mesh)
+    if all(owner is None for owner in stages.values()):
+        return None
+    owner: Dict[str, int] = {}
+    for prefix in _stack_sizes(model):
+        owners = {stages[n] for n in stages if n.startswith(prefix)}
+        if len(owners) == 1 and None not in owners:
+            owner.update({n: next(iter(owners))
+                          for n in model.state_dict()
+                          if n.startswith(prefix)})
+    layout = PipelineLayout(model, mesh, owner)
+    me = mesh.coordinate("pp")
+    for name, lst in list(model.named_modules()):
+        if isinstance(lst, torch.nn.ModuleList):
+            for i in range(len(lst)):
+                prefix = f"{name}.{i}."
+                held = {owner[n] for n in owner if n.startswith(prefix)}
+                if held and held != {me}:
+                    lst[i] = RemoteBlock(i, held.pop())
+    model.pipeline_layout = layout
+    return layout
 
 
 def make_param_placements(model: torch.nn.Module, mesh, *,
@@ -420,13 +558,27 @@ def _is_shard(model: torch.nn.Module, name: str) -> bool:
 
 
 def gather_full(model: torch.nn.Module, name: str,
-                local: torch.Tensor) -> torch.Tensor:
+                local: Optional[torch.Tensor]) -> torch.Tensor:
     """Collective: the whole tensor of which ``local`` is this rank's
     block, ``name`` being the parameter (or buffer) it is or is shaped
     like: a DTensor's blocks gathered over the axes that shard it
     (fsdp), then a tensor or expert shard's over its axis
     (:func:`gather_shard`).  Plain ``all_gather`` on the mesh's groups,
-    which every backend takes for a card's tensors."""
+    which every backend takes for a card's tensors.  A stage block's
+    entry of a model split over pp is gathered on its owner's pp
+    coordinate, then broadcast over pp (``local`` is None on the pp
+    ranks that do not hold it)."""
+    layout = getattr(model, "pipeline_layout", None)
+    if layout is not None and name in layout.owner:
+        return layout.from_owner(name, None if local is None
+                                 else _gather_rank(model, name, local))
+    return _gather_rank(model, name, local)
+
+
+def _gather_rank(model: torch.nn.Module, name: str,
+                 local: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_full` over the fsdp and tensor axes of this rank's
+    pp coordinate."""
     import torch.distributed as dist
 
     if _is_dtensor(local):
@@ -566,6 +718,8 @@ class TrainStep:
         # router's ep) / the tensor axis it is a shard of.
         self._summed: Dict[int, str] = {}
         self._axis_of: Dict[int, str] = {}
+        # ids of the stage blocks' parameters this pp rank holds.
+        self._staged: set = set()
 
     def init_state(self, model: torch.nn.Module) -> Dict[str, Any]:
         if self.distributed:
@@ -589,6 +743,7 @@ class TrainStep:
         with torch.no_grad():
             for t in list(model.parameters()) + list(model.buffers()):
                 dist.broadcast(t.data, src=0)
+        layout = keep_stage_blocks(model, self.mesh)
         both = make_placements(model, self.mesh,
                                fsdp_min_size=self.fsdp_min_size)
         tensor = any(self.mesh.shape[a] > 1 for a in ("tp", "ep"))
@@ -614,6 +769,8 @@ class TrainStep:
             id(getattr(m, name)): "ep" for m in model.modules()
             if getattr(m, "tensor_mesh", None) is not None
             for name in getattr(m, "EP_SUMMED", ())}
+        self._staged = set() if layout is None else {
+            id(p) for n, p in params.items() if n in layout.owner}
 
     def _fully_shard(self, model: torch.nn.Module,
                      sharded: Dict[str, int]) -> None:
@@ -635,10 +792,17 @@ class TrainStep:
             return Shard(dims[id(p)])
 
         for block in _layer_blocks(model):
-            fully_shard(block, mesh=dm, shard_placement_fn=placement,
-                        ignored_params=ignored)
+            if not isinstance(block, RemoteBlock):
+                fully_shard(block, mesh=dm, shard_placement_fn=placement,
+                            ignored_params=ignored)
         fully_shard(model, mesh=dm, shard_placement_fn=placement,
                     ignored_params=ignored)
+        if getattr(model, "pipeline_layout", None) is not None:
+            from torch.distributed.fsdp import register_fsdp_forward_method
+
+            # The pipelined losses call these, not the model's forward.
+            for method in ("embed_tokens", "head"):
+                register_fsdp_forward_method(model, method)
 
     def _distribute_tensors(self, model: torch.nn.Module,
                             placements: Dict[str, Optional[Tuple[str, int]]]
@@ -653,6 +817,13 @@ class TrainStep:
         opt.zero_grad(set_to_none=True)
         with ambient_mesh(self.mesh):
             loss, aux = self._forward_backward(model, batch, rng)
+        if self._staged:
+            # A pp rank that ran neither the embedding's nor the head's
+            # backward holds a zero share of their gradients.
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
         params = [p for group in opt.param_groups
                   for p in group["params"] if p.grad is not None]
         grads = [p.grad for p in params]
@@ -696,8 +867,9 @@ class TrainStep:
 
     def _reduce(self, params, loss, aux):
         """The dp all-reduce of the gradients FSDP does not reduce, the
-        ep sum of the routers', the global gradient norm, and the
-        metrics' mean over the data ranks."""
+        ep sum of the routers', the pp sum of the shares of a parameter
+        replicated over pp, the global gradient norm, and the metrics'
+        mean over the data ranks."""
         import torch.distributed as dist
 
         plain = [p.grad for p in params if not _is_dtensor(p.grad)]
@@ -707,21 +879,28 @@ class TrainStep:
                 if id(p) in self._summed:
                     dist.all_reduce(local_block(p.grad),
                                     group=self.mesh.group(self._summed[id(p)]))
+                elif self._staged and id(p) not in self._staged:
+                    dist.all_reduce(local_block(p.grad),
+                                    group=self.mesh.group("pp"))
             # A shard's squares sum over each axis that shards it (fsdp,
-            # then its tensor axis); a parameter replicated over an axis
-            # counts once there (dp replicas agree).
+            # then its tensor axis, a stage block's over pp); a parameter
+            # replicated over an axis counts once there (its replicas
+            # agree).
             parts: Dict[tuple, torch.Tensor] = {}
             for p in params:
-                key = (_is_dtensor(p.grad), self._axis_of.get(id(p)) or "")
+                key = (_is_dtensor(p.grad), self._axis_of.get(id(p)) or "",
+                       id(p) in self._staged)
                 term = local_block(p.grad).float().square().sum()
                 parts[key] = parts[key] + term if key in parts else term
             sq = torch.zeros((), dtype=torch.float32,
                              device=self.mesh.device)
-            for (fsdp, axis), part in sorted(parts.items()):
+            for (fsdp, axis, staged), part in sorted(parts.items()):
                 if fsdp:
                     dist.all_reduce(part, group=self.mesh.group("fsdp"))
                 if axis:
                     dist.all_reduce(part, group=self.mesh.group(axis))
+                if staged:
+                    dist.all_reduce(part, group=self.mesh.group("pp"))
                 sq = sq + part
         keys = list(aux)
         vals = torch.stack([loss.float()] +

@@ -48,10 +48,12 @@ before the step is built, and ``main`` deactivates it on the way out,
 so an in-process caller never inherits the route.
 
 The axes compose as the reference's do: fsdp beside tp or ep shards
-each parameter on both axes, and sp runs beside fsdp or ep.  Not ported
-yet, refused with a message naming the ROADMAP item that carries it
-(**Parallelism and meshes**): a pipeline axis above 1 (item (d)); a
-pipeline beside sp or ep is refused with the reference's own message.
+each parameter on both axes, and sp runs beside fsdp or ep.  A pp axis
+above 1 trains the scanned GPT-2 and Llama families through the
+pipeline (``parallel/pipeline.py``): ``pp_schedule`` 1f1b (the default)
+or gpipe, beside dp, fsdp and tp, the global batch rounded to a
+multiple of ``data axes * 2 * pp``; beside sp or ep it is refused with
+the reference's own message, before any weight is built.
 """
 
 from __future__ import annotations
@@ -78,8 +80,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["adamw", "sgd", "adam"])
     p.add_argument("--strategy", default=None,
                    help="Mesh axes as JSON or 'dp:-1,tp:2' (the dp, "
-                        "fsdp, tp, ep and sp axes; default: dp over "
-                        "every process).")
+                        "fsdp, tp, pp, ep and sp axes, and pp_schedule "
+                        "1f1b or gpipe; default: dp over every "
+                        "process).")
     p.add_argument("--sp-mode", default="ring",
                    choices=["ring", "ulysses"],
                    help="Sequence-parallel attention flavor when the "
@@ -357,8 +360,8 @@ def parse_strategy(raw):
 
 def _refuse_unported(strategy) -> dict:
     """The mesh axes of ``strategy``, after refusing a pp axis above 1
-    (``strategies.pipeline_refusal``: the reference's own message first
-    where a pipeline meets sp or ep)."""
+    beside sp or ep with the reference's message
+    (``strategies.pipeline_refusal``)."""
     from .parallel.strategies import pipeline_refusal
 
     axes = {k: v for k, v in strategy.items()
@@ -367,6 +370,31 @@ def _refuse_unported(strategy) -> dict:
     if refusal is not None:
         raise SystemExit(f"--strategy {axes}: {refusal}")
     return axes
+
+
+def _pipeline_loss(args, strategy, spec, mesh):
+    """The pipelined loss factory a pp axis above 1 trains through
+    (``pp_schedule``: 1f1b, the default, or gpipe), else None; the
+    reference's refusals of another schedule and of a model outside the
+    scanned GPT-2 and Llama families, before any weight is built."""
+    if mesh.shape["pp"] <= 1:
+        return None
+    from .models.gpt2 import GPT2Model
+    from .models.llama import LlamaModel
+    from .parallel.pipeline import (pipelined_lm_loss,
+                                    pipelined_lm_loss_1f1b)
+
+    model = spec.make_model(device="meta")
+    if not (isinstance(model, (GPT2Model, LlamaModel)) and
+            model.cfg.scan_layers):
+        raise SystemExit("strategy pp>1 supports the scanned GPT-2 and "
+                         f"Llama families, not {args.model}")
+    schedule = str(strategy.get("pp_schedule", "1f1b")).lower()
+    if schedule not in ("1f1b", "gpipe"):
+        raise SystemExit(f"pp_schedule must be '1f1b' or 'gpipe', got "
+                         f"{schedule!r}")
+    return pipelined_lm_loss if schedule == "gpipe" \
+        else pipelined_lm_loss_1f1b
 
 
 _OUTPUT_KEYS = ("accuracy", "loss", "perplexity", "eval_accuracy")
@@ -438,12 +466,16 @@ def _main(args, strategy, axes, device, topology) -> int:
         from .parallel.strategies import check_model_axes
 
         check_model_axes(spec.make_model(device="meta").cfg, mesh)
+    pipelined = _pipeline_loss(args, strategy, spec, mesh)
     batch_size = args.batch_size or spec.default_batch_size
-    # The global batch shards over the data axes: round it down to a
-    # multiple of their product, as the reference does.
+    # The global batch shards over the data axes, and a pipelined run's
+    # into 2 * pp microbatches of as many rows on each data rank: round
+    # it down to a multiple of their product, as the reference does.
     data_axes = max(1, mesh.shape["dp"] * mesh.shape["fsdp"])
-    if batch_size % data_axes:
-        batch_size = data_axes * max(1, batch_size // data_axes)
+    granularity = data_axes * 2 * mesh.shape["pp"] if pipelined \
+        else data_axes
+    if batch_size % granularity:
+        batch_size = granularity * max(1, batch_size // granularity)
     train_ds, eval_ds = make_datasets(args, spec, batch_size)
     sample = train_ds.sample(2)
     # Data defines the input shapes (digits are 8x8x1 where the
@@ -462,7 +494,8 @@ def _main(args, strategy, axes, device, topology) -> int:
                                  train=True, **model_kw)
     # Counted before a tp / ep mesh keeps each rank's shards.
     n_params = sum(p.numel() for p in model.parameters())
-    step_fn = make_train_step(spec.loss_fn(model),
+    loss_fn = pipelined(model, mesh) if pipelined else spec.loss_fn(model)
+    step_fn = make_train_step(loss_fn,
                               make_optimizer(args.optimizer, args.lr),
                               mesh, grad_accum=args.grad_accum)
     state = step_fn.init_state(model)

@@ -15,9 +15,10 @@ the JAX package, in one process on the CPU (the gangs themselves:
   probe error, as ``tests/test_failure_detection.py`` checks the
   reference's.
 - ``constrain`` is the identity, the serving-exact mesh, tensor,
-  expert and sequence axes taken (fsdp beside them too), the pipeline
-  axis refused by the parallelism item, and every collective is the
-  identity with no mesh.
+  expert, sequence and pipeline axes taken (fsdp beside them too, tp
+  beside the pipeline), the pipeline beside ep or sp refused by the
+  reference's message, and every collective is the identity with no
+  mesh.
 """
 
 from __future__ import annotations
@@ -282,26 +283,26 @@ def test_constraints_and_collectives_without_a_mesh():
 
 @pytest.mark.parametrize("axis", ["tp", "ep", "sp", "pp"])
 def test_tensor_axes_refused_by_parallelism_item(axis):
-    """tp, ep and sp are ported (``test_torch_tp.py``,
-    ``test_torch_ep.py``, ``test_torch_sp.py``) and compose with fsdp
+    """tp, ep, sp and pp are ported (``test_torch_tp.py``,
+    ``test_torch_ep.py``, ``test_torch_sp.py``,
+    ``test_torch_pipeline.py``) and compose with fsdp
     (``test_torch_compose.py``): a train step takes their mesh and the
-    mesh with fsdp beside; pp stays refused by the parallelism item,
-    beside tp too, and beside ep or sp by the reference's message."""
+    mesh with fsdp beside, and pp beside tp or dp; pp beside ep or sp
+    stays refused by the reference's message."""
     def mesh_of(**axes):
         sizes = dict({a: 1 for a in tmesh.AXIS_ORDER}, **axes)
         return tmesh.Mesh(sizes, np.arange(int(np.prod(list(
             sizes.values())))).reshape([sizes[a] for a in tmesh.AXIS_ORDER]),
             torch.device("cpu"))
 
-    if axis in ("tp", "ep", "sp"):
-        for mesh in (mesh_of(**{axis: 2}), mesh_of(fsdp=2, **{axis: 2})):
-            step = tstrat.TrainStep(lambda b, r: None, None, mesh)
-            assert step.mesh is mesh and not step.distributed
-        match = "Parallelism and meshes" if axis == "tp" else \
-            f"strategy combines pp>1 with {axis}>1"
-        with pytest.raises(NotImplementedError, match=match):
+    meshes = [mesh_of(**{axis: 2}), mesh_of(fsdp=2, **{axis: 2})]
+    if axis in ("tp", "pp"):
+        meshes += [mesh_of(pp=2, tp=2), mesh_of(dp=2, pp=2)]
+    for mesh in meshes:
+        step = tstrat.TrainStep(lambda b, r: None, None, mesh)
+        assert step.mesh is mesh and not step.distributed
+    if axis in ("ep", "sp"):
+        with pytest.raises(NotImplementedError,
+                           match=f"strategy combines pp>1 with {axis}>1"):
             tstrat.TrainStep(lambda b, r: None, None,
                              mesh_of(pp=2, **{axis: 2}))
-        return
-    with pytest.raises(NotImplementedError, match="Parallelism and meshes"):
-        tstrat.TrainStep(lambda b, r: None, None, mesh_of(pp=2))

@@ -770,19 +770,27 @@ def test_a_remat_block_keeps_none_of_the_rings_blocks(no_flash,
 
 
 @pytest.mark.parametrize("strategy,match", [
-    ("pp:2,fsdp:2", r"Parallelism and meshes, item \(d\)"),
+    ("pp:2,sp:2,fsdp:2", "strategy combines pp>1 with sp>1, which is "
+                         "not supported: pipeline stages compose with "
+                         "dp/fsdp"),
     ("pp:2,ep:2", "strategy combines pp>1 with ep>1, which is not "
                   "supported: pipeline stages compose with dp/fsdp"),
     ("pp:2,sp:2", "strategy combines pp>1 with sp>1, which is not "
                   "supported: pipeline stages compose with dp/fsdp"),
-])
+], ids=[  # the cases' earlier ids
+    r"pp:2,fsdp:2-Parallelism and meshes, item \(d\)",
+    "pp:2,ep:2-strategy combines pp>1 with ep>1, which is not supported: "
+    "pipeline stages compose with dp/fsdp",
+    "pp:2,sp:2-strategy combines pp>1 with sp>1, which is not supported: "
+    "pipeline stages compose with dp/fsdp"])
 def test_unported_sp_compositions_refused_before_weights(strategy, match,
                                                          monkeypatch):
-    """sp composes with fsdp and ep (``test_torch_compose.py``); a
-    pipeline stays refused, beside fsdp by its item (d), beside ep or sp
-    by the reference's message, before the process group, the mesh or
-    any weight; the train step refuses the same meshes with the same
-    rule (``strategies.pipeline_refusal``)."""
+    """sp composes with fsdp and ep (``test_torch_compose.py``), a
+    pipeline with fsdp (``test_torch_pipeline.py``); a pipeline beside
+    ep or sp (fsdp beside them too) is refused by the reference's
+    message, before the process group, the mesh or any weight; the
+    train step refuses the same meshes with the same rule
+    (``strategies.pipeline_refusal``)."""
     from polyaxon_tpu_torch.models import registry
     from polyaxon_tpu_torch.parallel import bootstrap
 

@@ -393,7 +393,7 @@ def test_train_main_cpu(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--strategy", "dp:2"], "do not divide device count 1"),
-    (["--strategy", "pp:2,fsdp:2"], r"Parallelism and meshes, item \(d\)"),
+    (["--strategy", "pp:2,fsdp:2"], "do not divide device count 1"),
     (["--model", "mlp", "--init-hf", "weights.pt"],
      "--init-hf supports the"),
     (["--model", "t5-tiny", "--dataset", "span-corruption"],
@@ -415,14 +415,14 @@ def test_train_refuses_what_is_not_ported(flags, slice_name, tmp_path,
     (``test_torch_mesh.py``, ``test_torch_gang.py``,
     ``test_torch_tp.py``, ``test_torch_ep.py``, sp,
     ``test_torch_sp.py``, and their compositions,
-    ``test_torch_compose.py``); what stays refused: a pipeline axis
-    beside fsdp by its item (d), beside ep (MoE-GPT's
+    ``test_torch_compose.py``, pp, ``test_torch_pipeline.py``); what
+    stays refused: a pipeline axis beside ep (MoE-GPT's
     ``pp:2,fsdp:2,ep:2``) by the reference's message, ``--init-hf`` of a
     family with no loader, and span corruption
     without a data directory or on a decoder-only model, with the
-    reference's messages.  ``dp:2`` in one process with no gang raises
-    the reference's own ``MeshError``.  The ids are the cases' earlier
-    ones."""
+    reference's messages.  ``dp:2`` and ``pp:2,fsdp:2`` in one process
+    with no gang raise the reference's own ``MeshError``.  The ids are
+    the cases' earlier ones."""
     from polyaxon_tpu_torch.parallel.mesh import MeshError
 
     monkeypatch.chdir(tmp_path)
