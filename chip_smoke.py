@@ -207,7 +207,21 @@ Phases, each raising on failure:
    trials (the port's schedule for the sweep's seed, the best run the
    highest accuracy), its trial processes started while TinyLlama's
    ``train.main``, gradient route and mistral-tiny checks run;
-11. one JSON line of kernel records, the card line, and the final
+11. the deployment twin (``phase_stack``, ``[stack]`` lines), started
+   beside those TinyLlama checks: the C++ operator built with ``make -C
+   operator``; ``ptpu-torch server --auth-token``, a copy of
+   ``gpt2_mpijob.yaml`` (one worker, GPT-2 medium at batch 8, 2 steps,
+   step 2 profiled, the phase's home) submitted by ``ptpu-torch run``
+   with ``POLYAXON_TPU_HOST``, ``ptpu-torch agent --backend manifest``
+   and the operator on its cluster directory: the CR asks one
+   ``nvidia.com/gpu`` and carries the ``PTPU_*`` block, the pod starts
+   a one-rank NCCL group on ``cuda:0`` and trains, the run ends
+   ``succeeded`` over the API (``ops statuses``), its logs over the API
+   (``ops logs``) hold 2 finite losses equal to the tracked ones, its
+   env event names the card, its profiled step has 24 launches of each
+   flash kernel, its metrics reach the control plane, ``/metrics`` and
+   the dashboard answer;
+12. one JSON line of kernel records, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -7330,6 +7344,275 @@ def phase_run(train_secs: float, sweep=None):
     return {"run_job": job["launches"], "run_service": service}
 
 
+# -- the deployment twin -------------------------------------------------------
+
+
+# The stack pod's entry: the one-rank NCCL group from the PTPU_* block the
+# operator stamps (``train.main`` starts none for one process), then the
+# example's ``python -m polyaxon_tpu_torch.train`` with its arguments.
+STACK_WORKER = """\
+import sys
+
+import torch.distributed as dist
+
+from polyaxon_tpu_torch import train
+from polyaxon_tpu_torch.parallel import bootstrap
+
+topo = bootstrap.topology_from_env()
+backend = bootstrap.start_process_group(
+    f"tcp://{topo.coordinator_address}", topo.num_processes,
+    topo.process_id, bootstrap.rank_device(topo.process_id))
+print(f"[stack-pod] process group {backend}, world "
+      f"{dist.get_world_size()}, rank {dist.get_rank()}, device "
+      f"{bootstrap.current_device()}", flush=True)
+try:
+    rc = train.main(sys.argv[1:])
+finally:
+    bootstrap.shutdown()
+sys.exit(rc)
+"""
+
+
+def _stack_spec(path: str, home: str, worker: str) -> None:
+    """``gpt2_mpijob.yaml`` with one worker, the profiler flags of
+    ``gpt2_job.yaml``, the phase's home in the worker's env (the
+    operator's local runtime maps no volume) and the worker's entry."""
+    import yaml
+
+    with open(os.path.join(EXAMPLES, "gpt2_mpijob.yaml")) as f:
+        doc = yaml.safe_load(f)
+    comp = doc["component"]
+    comp["inputs"] += [
+        {"name": "profile_at", "type": "int", "value": 0,
+         "isOptional": True},
+        {"name": "profile_steps", "type": "int", "value": 5,
+         "isOptional": True}]
+    w = comp["run"]["worker"]
+    w["replicas"] = 1
+    c = w["container"]
+    c["command"] = [sys.executable, worker]
+    c["args"] += ["--profile-at={{ profile_at }}",
+                  "--profile-steps={{ profile_steps }}"]
+    c["env"] = [{"name": "POLYAXON_TPU_HOME", "value": home}]
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f, sort_keys=False)
+
+
+def _wait(what: str, fn, timeout: float, interval: float = 0.2):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        got = fn()
+        if got:
+            return got
+        time.sleep(interval)
+    raise AssertionError(f"[stack] timed out after {timeout:.0f} s waiting "
+                         f"for {what}")
+
+
+def _http_get(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.status, r.read().decode()
+
+
+def phase_stack() -> dict:
+    """The deployment twin as a user stands it up: ``server``, ``run``
+    with ``POLYAXON_TPU_HOST``, ``agent --backend manifest`` and the
+    operator on a cluster directory, with a GPT-2 medium pod on the card
+    (see the module docstring).  Returns the flash launches of the pod's
+    profiled step and the phase's times."""
+    import socket
+
+    from polyaxon_tpu_torch.client import FileRunStore
+    from polyaxon_tpu_torch.client.api_client import ApiRunStore
+    from polyaxon_tpu_torch.lifecycle import V1Statuses
+
+    t0 = time.perf_counter()
+    build = subprocess.run(["make", "-C", os.path.join(ROOT, "operator")],
+                           capture_output=True, text=True)
+    if build.returncode != 0:
+        raise AssertionError(f"[stack] operator build failed:\n"
+                             f"{build.stdout}{build.stderr}")
+    cxx = subprocess.run([os.environ.get("CXX", "g++"), "--version"],
+                         capture_output=True, text=True).stdout
+    print(f"[stack] operator built with {cxx.splitlines()[0]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    operator = os.path.join(ROOT, "operator", "build", "ptpu-operator")
+    token = "stack-token"
+    with tempfile.TemporaryDirectory() as home:
+        cluster = os.path.join(home, "cluster")
+        os.makedirs(cluster)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        host = f"http://127.0.0.1:{port}"
+        env = {**_cli_env(home), "POLYAXON_TPU_AUTH_TOKEN": token}
+        worker = os.path.join(home, "stack_worker.py")
+        with open(worker, "w") as f:
+            f.write(STACK_WORKER)
+        spec = os.path.join(home, "gpt2_stack.yaml")
+        _stack_spec(spec, home, worker)
+        ptpu = [sys.executable, "-m", "polyaxon_tpu_torch.cli"]
+        logs = {n: open(os.path.join(home, f"{n}.out"), "w")
+                for n in ("server", "agent", "operator")}
+        procs = {
+            "server": subprocess.Popen(
+                ptpu + ["server", "--port", str(port), "--auth-token",
+                        token], env=env, cwd=ROOT,
+                stdout=logs["server"], stderr=subprocess.STDOUT),
+            "operator": subprocess.Popen(
+                [operator, "--cluster-dir", cluster, "--poll-ms", "50"],
+                env=env, cwd=home, stdout=logs["operator"],
+                stderr=subprocess.STDOUT)}
+        try:
+            api = ApiRunStore(host, token=token)
+
+            def up():
+                try:
+                    return api.list_runs() == []
+                except Exception:  # noqa: BLE001 - not listening yet
+                    return False
+
+            _wait("the control plane", up, 120)
+            # The agent's first claim needs the control plane up: an
+            # agent that cannot reach it exits (a deployment restarts it).
+            procs["agent"] = subprocess.Popen(
+                ptpu + ["agent", "--backend", "manifest", "--cluster-dir",
+                        cluster, "--host", host, "--name", "stack-agent"],
+                env=env, cwd=ROOT, stdout=logs["agent"],
+                stderr=subprocess.STDOUT)
+            submit_env = {**env, "POLYAXON_TPU_HOST": host}
+            rc, out, submit_wall = _ptpu(submit_env, "run", "-f", spec,
+                               "-P", "batch_size=8", "-P", "steps=2",
+                               "-P", "log_every=1", "-P", "profile_at=1",
+                               "-P", "profile_steps=1", timeout=300)
+            m = re.search(r"Run (\w+) queued on ", out)
+            if rc != 0 or not m:
+                raise AssertionError(f"[stack] run -f: exit {rc}\n{out}")
+            uuid = m.group(1)
+            # The CR the agent applied, read while the run is live (the
+            # agent removes it once the run ends).
+            cr_path = os.path.join(cluster, "operations",
+                                   f"ptpu-{uuid}.json")
+            _wait("the agent's CR", lambda: os.path.exists(cr_path), 120,
+                  0.05)
+            with open(cr_path) as f:
+                cr = json.load(f)["operation"]
+            pod = cr["spec"]["replicaSpecs"]["worker"]["template"]["spec"]
+            main = next(c for c in pod["containers"]
+                        if c["name"] == "ptpu-main")
+            cr_env = {e["name"]: e.get("value") for e in main["env"]}
+            if main["resources"].get("limits") != {"nvidia.com/gpu": 1} or \
+                    main["resources"].get("requests") != \
+                    {"nvidia.com/gpu": 1} or \
+                    "google.com/tpu" in json.dumps(cr):
+                raise AssertionError(f"[stack] CR resources "
+                                     f"{main['resources']}")
+            want_env = {"PTPU_NUM_PROCESSES": "1",
+                        "PTPU_REPLICA_ROLE": "worker",
+                        "POLYAXON_TPU_RUN_UUID": uuid,
+                        "POLYAXON_TPU_HOME": home}
+            if any(cr_env.get(k) != v for k, v in want_env.items()) or \
+                    not cr_env.get("PTPU_COORDINATOR_ADDRESS"):
+                raise AssertionError(f"[stack] CR env {cr_env}")
+
+            def done():
+                rec = api.get_run(uuid)
+                return rec if rec.get("status") in V1Statuses.DONE else None
+
+            rec = _wait("the run to end", done, 600, 0.5)
+            conds = {c.type: c.last_transition_time
+                     for c in api.get_statuses(uuid)}
+            # ``ops statuses`` and ``ops logs`` over the API, side by side.
+            ops = {k: subprocess.Popen(ptpu + ["ops", k, uuid],
+                                       env=submit_env, cwd=ROOT,
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+                   for k in ("statuses", "logs")}
+            statuses, logs_out = (ops[k].communicate(timeout=300)[0]
+                                  for k in ("statuses", "logs"))
+            rc, rc2 = (ops[k].returncode for k in ("statuses", "logs"))
+            if rec["status"] != V1Statuses.SUCCEEDED or rc != 0 or \
+                    "succeeded" not in statuses:
+                with open(os.path.join(home, "operator.out")) as f:
+                    op_log = f.read()
+                raise AssertionError(
+                    f"[stack] run ended {rec['status']}\n{statuses}\n"
+                    f"{logs_out[-4000:]}\n{op_log[-2000:]}")
+            group = re.search(r"\[stack-pod\] process group (\w+), world "
+                              r"(\d+), rank (\d+), device (\S+)", logs_out)
+            if rc2 != 0 or group is None or group.groups() != \
+                    ("nccl", "1", "0", "cuda:0"):
+                raise AssertionError(f"[stack] the pod's group: "
+                                     f"{logs_out[-3000:]}")
+            losses = api.read_events(uuid, "metric", "loss")
+            printed = re.findall(r"^step (\d+)/2 loss=(\S+)", logs_out, re.M)
+            if [e["step"] for e in losses] != [1, 2] or \
+                    not all(np.isfinite(e["value"]) for e in losses) or \
+                    [(str(e["step"]), f"{e['value']:.4g}") for e in losses] \
+                    != printed:
+                raise AssertionError(f"[stack] tracked losses {losses} != "
+                                     f"the logged step lines {printed}")
+            env_rec = api.read_events(uuid, "env", "env")[-1]["value"]
+            card = torch.cuda.get_device_name(0)
+            if env_rec.get("backend") != "cuda" or \
+                    env_rec.get("device_name") != card:
+                raise AssertionError(f"[stack] env event {env_rec}")
+            last = api.last_metrics(uuid)
+            if last.get("loss") != losses[-1]["value"]:
+                raise AssertionError(f"[stack] last metrics {last}")
+            store = FileRunStore(home)
+            launches = _trace_kernels(os.path.join(
+                store.outputs_path(uuid), "profile", "trace_step2.json"))
+            _check_per_step(launches, 1, 24, "stack pod's profiled step")
+            code, metrics = _http_get(host + "/metrics")
+            if code != 200 or 'ptpu_runs{status="succeeded"} 1' not in \
+                    metrics:
+                raise AssertionError(f"[stack] /metrics {code}\n{metrics}")
+            code, page = _http_get(host + "/ui")
+            if code != 200 or "<table" not in page:
+                raise AssertionError(f"[stack] dashboard {code}")
+            tps = api.read_events(uuid, "metric", "tok_per_sec_per_chip")
+            step_ms = [8 * 1024 / e["value"] * 1e3 for e in tps]
+            # From the record's creation (the submit's request): the
+            # claim, the pod's tracking.init (the agent records no
+            # running status: the operator's Running phase stays in its
+            # status file), the end.
+            t_init = api.read_events(uuid, "env", "env")[0]["timestamp"]
+            since = {"scheduled": conds["scheduled"] - conds["created"],
+                     "running": t_init - conds["created"],
+                     "succeeded": conds["succeeded"] - conds["created"],
+                     "submit_cli": submit_wall}
+        finally:
+            for proc in procs.values():
+                proc.terminate()
+            for proc in procs.values():
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            for f in logs.values():
+                f.close()
+    print(f"[stack] run {uuid}: submitted over HTTP (`run` wall "
+          f"{since['submit_cli']:.1f} s); from its creation claimed after "
+          f"{since['scheduled']:.2f} s, the pod's tracking.init after "
+          f"{since['running']:.1f} s, succeeded after "
+          f"{since['succeeded']:.1f} s; CR nvidia.com/gpu 1 (limits and "
+          f"requests), PTPU_* block; pod: {group.group(1)} group of "
+          f"{group.group(2)} on {group.group(4)}; step ms "
+          + ", ".join(f"{ms:.1f}" for ms in step_ms)
+          + " (step 2 profiled); loss "
+          + ", ".join(f"{e['value']:.4f}" for e in losses)
+          + f" == ops logs == the tracked events; env {env_rec['backend']} "
+          f"{env_rec['device_name']}; /metrics and /ui answer")
+    print(f"[stack] flash launches in the profiled step: {launches}")
+    print(f"[time] stack: {time.perf_counter() - t0:.1f} s")
+    return {"flash_launches": launches, "since_submit": since,
+            "step_ms": step_ms}
+
+
 KERNELS = {
     "flash_fwd": ("polyaxon_tpu_torch/csrc/flash_fwd.cu",
                   "polyaxon_tpu/ops/flash.py:171"),
@@ -7865,6 +8148,7 @@ def phase_serving_mesh(model, model_f32) -> dict:
 def main(argv=None) -> int:
     import argparse
     import shutil
+    import threading
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -8004,6 +8288,18 @@ def main(argv=None) -> int:
     # checks, which time nothing the findings compare, run in-process,
     # and end beside the job and the service of phase_run.
     sweep = _start_sweep()
+    # The deployment twin runs beside the same checks (its pod trains on
+    # the card while they run), and ends before phase_run.
+    stack = {}
+
+    def run_stack():
+        try:
+            stack.update(phase_stack())
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            stack["error"] = e
+
+    stack_thread = threading.Thread(target=run_stack, daemon=True)
+    stack_thread.start()
     try:
         # The float32 checkpoint loader is GPT-2 medium's check (for
         # the script's time; TinyLlama's checkpoint serves in bf16).
@@ -8017,11 +8313,17 @@ def main(argv=None) -> int:
         mark("llama gradient route check (full and windowed)")
         phase_mistral()
         mark("mistral-tiny serving")
+        stack_thread.join()
+        if "error" in stack:
+            raise stack["error"]
+        mark("the deployment twin: server, run, agent, operator, a GPT-2 "
+             "medium pod")
         _release()
         # The sweep's last trials run beside the job and the service.
         run_counts = phase_run(train_secs, sweep)
         mark("run -f: job, service")
     except BaseException:
+        stack_thread.join()
         if "ended" not in sweep:
             _stop_sweep(sweep, timeout=300)   # no trial outlives the script
         shutil.rmtree(sweep["home"], ignore_errors=True)
@@ -8060,6 +8362,7 @@ def main(argv=None) -> int:
                 **{k: v[name] for k, v in
                    pipeline["flash_launches"].items()},
                 "run_job": run_counts["run_job"][name],
+                "stack": stack["flash_launches"][name],
                 "run_service": run_counts["run_service"][name],
                 "llama_forward": llama_forward[name],
                 "llama_train": llama_train["flash_launches"][name],

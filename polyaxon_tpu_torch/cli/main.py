@@ -11,8 +11,11 @@ polyaxonfile's command decides where its child runs.  ``check`` is the
 JAX package's command over the port: ``-f`` validates a polyaxonfile,
 and without it the static analyzer (``analysis/``) checks PATHS, by
 default ``polyaxon_tpu_torch/``, against the committed baseline.  The
-JAX package's other commands are not ported yet: ``doctor``,
-``agent``, ``deploy`` and the rest (The deployment twin).
+deployment twin's commands are the JAX package's too: ``server`` (the
+control plane), ``agent`` (``--backend local|manifest|kube``), ``admin
+deploy``, ``doctor``, ``config``, ``port-forward``, ``project`` and
+``auth``, over the port's ``scheduler/``, ``runner/agent.py``,
+``k8s/`` and ``deploy.py``.
 
 Port of ``polyaxon_tpu/cli/main.py``'s ``generate`` command (greedy,
 position-keyed sampled, ``--beams`` beam search and ``--draft-model``
@@ -1640,9 +1643,424 @@ def check(paths, files, params, fmt, baseline_path, update_baseline,
 
 
 @cli.command()
+@click.argument("url")
+@click.option("--timeout", "timeout_s", default=5.0, type=float,
+              help="Per-request HTTP timeout (seconds).")
+@click.option("--format", "fmt", type=click.Choice(["text", "json"]),
+              default="text", help="Report output format.")
+def doctor(url, timeout_s, fmt):
+    """Tail-latency forensics for a serving endpoint: fetch the
+    anomaly-sentry findings from URL (a router — /fleet/anomalies —
+    or a single replica — /anomalies), rank phase regressions, and
+    print the exemplar request ids that resolve each one to a full
+    per-attempt timeline via GET /fleet/requests/<id>."""
+    import urllib.error
+    import urllib.request
+
+    base = url.rstrip("/")
+    if not base.startswith(("http://", "https://")):
+        base = "http://" + base
+
+    def fetch(path):
+        try:
+            with urllib.request.urlopen(base + path,
+                                        timeout=timeout_s) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, None
+        except (OSError, ValueError) as e:
+            raise click.ClickException(
+                f"GET {base}{path} failed: {e}")
+
+    # Router first; a replica answers 404 there, so fall back to its
+    # own /anomalies (same findings shape, no source= attribution).
+    status, body = fetch("/fleet/anomalies")
+    source = "/fleet/anomalies"
+    if status == 404 or not isinstance(body, dict):
+        status, body = fetch("/anomalies")
+        source = "/anomalies"
+    if status != 200 or not isinstance(body, dict):
+        raise click.ClickException(
+            f"GET {base}{source} returned {status} "
+            f"(forensics disabled on the target?)")
+    if fmt == "json":
+        click.echo(json.dumps({"url": base, "source": source,
+                               **body}, indent=1))
+        return
+    findings = body.get("findings", [])
+    click.echo(f"doctor {base} ({source})")
+    for rid in body.get("fetch_errors", []):
+        click.echo(f"  warning: replica {rid} did not answer "
+                   f"/anomalies; its findings are absent", err=True)
+    share = body.get("phase_share")
+    if isinstance(share, dict) and share:
+        # Single-replica report: one flat share dict; router report:
+        # one dict per source.
+        per_source = share if all(isinstance(v, dict)
+                                  for v in share.values()) \
+            else {"self": share}
+        click.echo("phase shares (fraction of request wall time):")
+        for src in sorted(per_source):
+            shares = per_source[src]
+            ranked = sorted(shares.items(),
+                            key=lambda kv: -float(kv[1]))
+            top = ", ".join(f"{ph}={float(v):.3f}"
+                            for ph, v in ranked[:5] if float(v) > 0)
+            click.echo(f"  {src:>12}: {top or '(no traffic)'}")
+    if not findings:
+        click.echo("no anomalies: every phase within its baseline "
+                   "band (or the sentry is still building baselines)")
+        return
+    click.echo(f"{len(findings)} anomalous phase"
+               f"{'' if len(findings) == 1 else 's'}, worst first:")
+    for f in findings:
+        src = f.get("source", "self")
+        click.echo(
+            f"  [{src}] {f.get('phase')}: share "
+            f"{float(f.get('share', 0)):.3f} vs baseline "
+            f"{float(f.get('baseline_ewma', 0)):.3f} "
+            f"(band hi {float(f.get('band_hi', 0)):.3f}, score "
+            f"{float(f.get('score', 0)):.3f}, window "
+            f"{f.get('window')})")
+        for rid in f.get("exemplars", []):
+            click.echo(f"      exemplar {rid} -> GET "
+                       f"{base}/fleet/requests/{rid}")
+        if f.get("bundle"):
+            click.echo(f"      bundle {f['bundle']}")
+    raise SystemExit(1)
+
+
+@cli.group()
+def config():
+    """Show/set client configuration."""
+
+
+@config.command(name="show")
+def config_show():
+    import dataclasses
+
+    from polyaxon_tpu_torch.client.store import default_home
+    from polyaxon_tpu_torch.config import ClientConfig
+
+    cfg = ClientConfig.load()
+    click.echo(f"home: {default_home()}")
+    for key, value in dataclasses.asdict(cfg).items():
+        if key == "token" and value:
+            value = "****"  # never echo secrets
+        click.echo(f"{key}: {value}")
+
+
+@config.command(name="set")
+@click.argument("pairs", nargs=-1, required=True)
+def config_set(pairs):
+    """Persist config values: ptpu-torch config set host=http://cp:8000."""
+    from polyaxon_tpu_torch.config import ClientConfig
+
+    parsed = {}
+    for pair in pairs:
+        if "=" not in pair:
+            raise click.ClickException(f"expected key=value, got {pair!r}")
+        key, _, value = pair.partition("=")
+        parsed[key.strip()] = value
+    try:
+        path = ClientConfig.set_file_values(parsed)
+    except KeyError as e:
+        raise click.ClickException(str(e))
+    click.echo(f"saved {path}")
+
+
+@config.command(name="get")
+@click.argument("key")
+def config_get(key):
+    import dataclasses
+
+    from polyaxon_tpu_torch.config import ClientConfig
+
+    cfg = dataclasses.asdict(ClientConfig.load())
+    if key not in cfg:
+        raise click.ClickException(
+            f"unknown key {key!r}; known: {sorted(cfg)}")
+    click.echo(cfg[key])
+
+
+@cli.command()
 def version():
     """Print versions (framework + runtime stack)."""
     import torch
 
     click.echo(f"polyaxon-tpu-torch {__version__}")
     click.echo(f"torch {torch.__version__} (CUDA {torch.version.cuda})")
+
+
+@cli.command(name="port-forward")
+@click.argument("run_uuid")
+@click.option("--port", "-p", default=None, type=int,
+              help="Local port (default: same as the service port).")
+@click.option("--target", default=None,
+              help="Override target host:port (default: the run's "
+                   "recorded endpoint, else 127.0.0.1:<service port>).")
+def port_forward(run_uuid, port, target):
+    """Forward a local port to a service run (notebook/TensorBoard)."""
+    import socket
+    import socketserver
+    import threading
+
+    record = _get_run_or_fail(run_uuid)
+    meta = record.get("meta_info") or {}
+    if target is None:
+        target = meta.get("endpoint")
+    if target is None:
+        # A locally-executed service records its live ports
+        # (runner.local._run_service).
+        svc = meta.get("service") or {}
+        if svc.get("ports"):
+            target = (f"{svc.get('host', '127.0.0.1')}:"
+                      f"{svc['ports'][0]}")
+    if target is None:
+        content = record.get("content") or {}
+        run_section = (content.get("component") or {}).get("run") or {}
+        ports = run_section.get("ports") or []
+        if not ports:
+            raise click.ClickException(
+                f"Run {run_uuid} declares no service ports; pass --target")
+        target = f"127.0.0.1:{ports[0]}"
+    host, _, tport = target.partition(":")
+    tport = int(tport or 80)
+    local_port = port or tport
+
+    class Relay(socketserver.BaseRequestHandler):
+        def handle(self):
+            try:
+                upstream = socket.create_connection((host, tport),
+                                                    timeout=10)
+            except OSError as e:
+                self.request.close()
+                click.echo(f"connect {host}:{tport} failed: {e}", err=True)
+                return
+
+            def pump(src, dst):
+                try:
+                    while True:
+                        data = src.recv(65536)
+                        if not data:
+                            break
+                        dst.sendall(data)
+                except OSError:
+                    pass
+                finally:
+                    # Half-close only: EOF on src ends THIS direction;
+                    # the reverse pump keeps relaying the response.
+                    try:
+                        dst.shutdown(socket.SHUT_WR)
+                    except OSError:
+                        pass
+
+            t = threading.Thread(target=pump,
+                                 args=(upstream, self.request),
+                                 daemon=True)
+            t.start()
+            pump(self.request, upstream)
+            t.join(timeout=5)
+
+    class Server(socketserver.ThreadingTCPServer):
+        allow_reuse_address = True
+        daemon_threads = True
+
+    with Server(("127.0.0.1", local_port), Relay) as server:
+        click.echo(f"forwarding 127.0.0.1:{local_port} -> {host}:{tport} "
+                   "(ctrl-c to stop)")
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+
+
+# ---------------------------------------------------------------------------
+# project
+# ---------------------------------------------------------------------------
+
+
+@cli.group()
+def project():
+    """Inspect projects (namespaces grouping runs)."""
+
+
+@project.command(name="ls")
+def project_ls():
+    from collections import Counter
+
+    counts = Counter(r.get("project") or "default"
+                     for r in _store().list_runs())
+    for name, n in sorted(counts.items()):
+        click.echo(f"{name:<24} {n} runs")
+
+
+@project.command(name="runs")
+@click.argument("name")
+@click.option("--limit", default=20, type=int)
+def project_runs(name, limit):
+    for r in _store().list_runs(project=name, limit=limit):
+        click.echo(f"{r['uuid']}  {r.get('status', ''):<10} "
+                   f"{r.get('name', '')}")
+
+
+# ---------------------------------------------------------------------------
+# auth
+# ---------------------------------------------------------------------------
+
+
+@cli.group()
+def auth():
+    """Authentication against the control plane."""
+
+
+@auth.command(name="login")
+@click.option("--token", prompt=True, hide_input=True,
+              help="API token (prompted when omitted).")
+@click.option("--host", default=None)
+def auth_login(token, host):
+    from polyaxon_tpu_torch.config import ClientConfig
+
+    values = {"token": token}
+    if host:
+        values["host"] = host
+    ClientConfig.set_file_values(values)
+    click.echo("logged in (token stored in home config)")
+
+
+@auth.command(name="logout")
+def auth_logout():
+    from polyaxon_tpu_torch.config import ClientConfig
+
+    ClientConfig.unset_file_values(["token"])
+    click.echo("logged out")
+
+
+@auth.command(name="whoami")
+def auth_whoami():
+    from polyaxon_tpu_torch.config import ClientConfig
+
+    cfg = ClientConfig.load()
+    click.echo(f"host: {cfg.host or '(local mode)'}")
+    click.echo(f"token: {'set' if cfg.token else '(none)'}")
+
+
+# ---------------------------------------------------------------------------
+# admin
+# ---------------------------------------------------------------------------
+
+
+@cli.group()
+def admin():
+    """Deployment management."""
+
+
+@admin.command(name="deploy")
+@click.option("--namespace", default="polyaxon-tpu")
+@click.option("--image", default="polyaxon-tpu-torch/core:latest")
+@click.option("--operator-image", default="polyaxon-tpu/operator:latest")
+@click.option("--artifacts-claim", default=None)
+@click.option("-o", "--output", default="-",
+              help="Write manifests to a file ('-' = stdout).")
+def admin_deploy(namespace, image, operator_image, artifacts_claim, output):
+    """Render the k8s manifests for a full deployment (CRD, RBAC,
+    control plane, agent, native operator)."""
+    import yaml as _yaml
+
+    from polyaxon_tpu_torch.deploy import DeploymentConfig, render_all
+
+    manifests = render_all(DeploymentConfig(
+        namespace=namespace, image=image, operator_image=operator_image,
+        artifacts_claim=artifacts_claim))
+    text = "---\n".join(_yaml.safe_dump(m, sort_keys=False)
+                        for m in manifests)
+    if output == "-":
+        click.echo(text)
+    else:
+        with open(output, "w") as f:
+            f.write(text)
+        click.echo(f"wrote {len(manifests)} manifests to {output}")
+
+
+# ---------------------------------------------------------------------------
+# control plane + agent services
+# ---------------------------------------------------------------------------
+
+
+@cli.command()
+@click.option("--host", default="127.0.0.1")
+@click.option("--port", default=8000, type=int)
+@click.option("--schedules/--no-schedules", default=True,
+              help="Also run the schedule-materializer loop.")
+@click.option("--auth-token", default=None, envvar="POLYAXON_TPU_AUTH_TOKEN",
+              help="Require this bearer token on every request.")
+def server(host, port, schedules, auth_token):
+    """Serve the control plane API (runs DB, queue, streams,
+    dashboard at /ui, Prometheus gauges at /metrics)."""
+    import threading
+
+    from polyaxon_tpu_torch.client.store import FileRunStore
+    from polyaxon_tpu_torch.scheduler import ControlPlane, ScheduleService, \
+        make_server
+
+    store = FileRunStore()
+    srv = make_server(host, port, store,
+                      plane=ControlPlane(store, auth_token=auth_token))
+    if schedules:
+        service = ScheduleService(store)
+        threading.Thread(target=service.run_forever, daemon=True).start()
+    click.echo(f"control plane on http://{host}:{port} (home={store.home})")
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+
+
+@cli.command()
+@click.option("--name", default="agent-0")
+@click.option("--host", default=None,
+              help="Control plane URL (default: POLYAXON_TPU_HOST, else "
+                   "in-process over the local store).")
+@click.option("--backend", type=click.Choice(["local", "manifest", "kube"]),
+              default="local")
+@click.option("--cluster-dir", default=None,
+              help="Manifest backend: directory the operator watches.")
+@click.option("--max-concurrent", default=8, type=int)
+@click.option("--queue", "queues", multiple=True,
+              help="Serve only these queues (repeatable; default: all).")
+def agent(name, host, backend, cluster_dir, max_concurrent, queues):
+    """Run an agent: claim queued runs and execute them."""
+    from polyaxon_tpu_torch.runner.agent import (Agent, KubeBackend, LocalBackend,
+                                           ManifestBackend)
+    from polyaxon_tpu_torch.scheduler import ControlPlane
+
+    host = host or os.environ.get("POLYAXON_TPU_HOST")
+    if host:
+        from polyaxon_tpu_torch.client.api_client import ApiRunStore
+
+        plane = ApiRunStore(host)
+    else:
+        plane = ControlPlane()
+
+    if backend == "manifest":
+        if not cluster_dir:
+            raise click.ClickException(
+                "--backend manifest requires --cluster-dir")
+        be = ManifestBackend(cluster_dir)
+    elif backend == "kube":
+        # API server + token from PTPU_K8S_* env or in-cluster config.
+        be = KubeBackend()
+    else:
+        store = getattr(plane, "store", plane)
+        be = LocalBackend(store)
+    worker = Agent(plane, backend=be, name=name,
+                   max_concurrent=max_concurrent,
+                   queues=list(queues) or None)
+    click.echo(f"agent {name} polling "
+               f"{host or 'local store'} (backend={backend})")
+    try:
+        worker.run_forever()
+    except KeyboardInterrupt:
+        pass

@@ -2,8 +2,7 @@
 plane's REST API (SURVEY.md 2.7/2.8).
 
 Implemented with stdlib urllib only.  The server half lives in
-``polyaxon_tpu/scheduler/api.py`` (the port has no control plane
-yet: ROADMAP Queue 1); until a host is actually serving,
+``polyaxon_tpu_torch.scheduler.api``; until a host is actually serving,
 construction fails fast with a clear message instead of an import error.
 
 The port's own copy of ``polyaxon_tpu/client/api_client.py`` (no JAX in it;

@@ -354,6 +354,24 @@ ORCHESTRATION_MODULES = (
     "tune/controller.py")
 
 
+DEPLOYMENT_MODULES = (
+    "scheduler/__init__.py", "scheduler/api.py", "scheduler/crond.py",
+    "scheduler/dashboard.py", "runner/agent.py", "initializer.py",
+    "sidecar.py", "k8s/__init__.py", "k8s/converter.py",
+    "k8s/auxiliaries.py", "k8s/env_vars.py", "k8s/kubeclient.py",
+    "k8s/stub.py", "k8s/gpu.py", "deploy.py")
+
+
+@pytest.mark.parametrize("rel", DEPLOYMENT_MODULES)
+def test_deployment_modules_import_no_jax(rel):
+    """The deployment twin (control plane, cron, dashboard, agent,
+    converter, kube transport, init and sidecar, deploy manifests) is
+    under the import rule: no jax, no JAX package."""
+    path = PORT / rel
+    assert path in SOURCES, rel
+    assert not set(_imported_roots(path)) & set(FORBIDDEN), rel
+
+
 def test_orchestration_modules_are_checked():
     """The orchestration layers are under the import rule above, and the
     example polyaxonfiles ship as package data."""
@@ -364,10 +382,12 @@ def test_orchestration_modules_are_checked():
 
 
 def test_orchestration_touches_no_cuda(tmp_path):
-    """Tracking, the runner, the tuner and the CLI's ``run``/``ops`` make
-    no CUDA call: a fresh interpreter whose torch.cuda entry points raise
-    compiles a polyaxonfile, tracks a run, schedules a sweep and lists
-    the runs, and has no CUDA context afterwards."""
+    """Tracking, the runner, the tuner, the CLI's ``run``/``ops``, the
+    control plane, the converter and the agent make no CUDA call: a
+    fresh interpreter whose torch.cuda entry points raise compiles a
+    polyaxonfile, tracks a run, schedules a sweep, lists the runs,
+    starts a control plane, converts a ``tpujob`` and runs one agent
+    tick, and has no CUDA context afterwards."""
     import subprocess
     import sys
 
@@ -386,6 +406,11 @@ def test_orchestration_touches_no_cuda(tmp_path):
         "from polyaxon_tpu_torch.polyaxonfile import check_polyaxonfile",
         "from polyaxon_tpu_torch.runner import LocalExecutor",
         "from polyaxon_tpu_torch.tune import HyperbandManager",
+        "from polyaxon_tpu_torch.compiler import resolve",
+        "from polyaxon_tpu_torch.flow import V1Operation",
+        "from polyaxon_tpu_torch.k8s import convert",
+        "from polyaxon_tpu_torch.runner.agent import Agent, ManifestBackend",
+        "from polyaxon_tpu_torch.scheduler import ControlPlane, make_server",
         f"op = check_polyaxonfile([{str(example)!r}],",
         "                         params={'data_dir': '/d'})",
         "assert len(HyperbandManager(op.matrix).initial_suggestions(1)) == 3",
@@ -398,6 +423,20 @@ def test_orchestration_touches_no_cuda(tmp_path):
         "             ['version']):",
         "    out = CliRunner().invoke(cli, args)",
         "    assert out.exit_code == 0, (args, out.output, out.exception)",
+        # The control plane, the converter and one agent tick.
+        "tpujob = V1Operation.from_dict({'kind': 'operation', 'component': {",
+        "    'kind': 'component', 'name': 'g', 'run': {'kind': 'tpujob',",
+        "    'worker': {'replicas': 2, 'container': {'command': ['true']}}}}})",
+        "cr = convert(resolve(tpujob, run_uuid='u1'), 'u1')",
+        "assert 'nvidia.com/gpu' in str(cr)",
+        "plane = ControlPlane()",
+        "server = make_server('127.0.0.1', 0, plane=plane)",
+        "server.server_close()",
+        "rec = plane.store.create_run(name='g', content=tpujob.to_dict())",
+        "plane.store.set_status(rec['uuid'], 'queued')",
+        "agent = Agent(plane, backend=ManifestBackend('cluster'))",
+        "assert agent.tick()",
+        "assert plane.store.get_run(rec['uuid'])['status'] == 'starting'",
         "assert not torch.cuda.is_initialized()",
         "print('ok')",
     ])
